@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel of the port from `consistentnerf_tpu_torch/
-csrc/`, holds each against its plain PyTorch version at the shapes the
-main path gives it, drives the main path (the deterministic bf16 render of
-the 6-view 128x128 synthetic scene through `build_render_fn`, full 8x256
-model, 64 + 128 samples, weights from a seeded init) and checks that it
-went through the kernels, runs the render CLI on two test views, and
-prints timings beside the card's name and power limit. The last line is
+csrc/` (one nvcc per source, in parallel) and drives both main paths, each
+with the launch counts set to 0 just before it and read just after:
+
+* render: the deterministic bf16 render of the 6-view 128x128 synthetic
+  scene through `build_render_fn` (full 8x256 model, 64 + 128 samples,
+  seeded weights), then the render CLI on two test views;
+* train: the train CLI on the flagship config of `bench.py:66-84` (5120
+  rays a step: 4096 random + 4x16x16 patch rays, hard mask, depth loss,
+  MiDaS and SSIM patch terms, bf16, perturb 1, the one-pass kernel step)
+  for a few steps, a checkpoint, and a resume from it.
+
+Each kernel is held against its plain PyTorch version at the shapes its
+path gives it, in bf16 and fp32; the kernel train step is held against the
+plain eager step from the same state, batch and draws; timings are
+printed beside the card's name and power limit. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only (no jax, nothing of consistentnerf_tpu).
 """
@@ -25,6 +34,8 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core bf16
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -32,11 +43,46 @@ CHUNK = 8192  # render_chunk_size of the bench config
 BF16_TOL = 2e-2  # max|kernel - plain| / mean|plain|: sum-order flips of bf16
 FP32_TOL = 1e-4  # the same at fp32: only the order of fp32 sums differs
 RENDER_RGB_TOL = 2e-3  # mean |rgb(kernel) - rgb(plain)| over one view
+# Train kernels vs their plain versions (autograd through _mlp_body): the
+# largest ||dW(kernel) - dW(plain)|| / ||dW(plain)|| over the grad
+# tensors. fp32: only the order of the sums differs. bf16: the kernels
+# round where the JAX kernels round (bf16 cotangents into every product,
+# fp32 bias sums), while autograd through the plain version rounds each
+# cotangent at its casts and the final dW to bf16; a flipped rounding
+# travels down the layers.
+TRAIN_DW_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# One-pass output rows, each of rgb (3), depth, acc and w on its own:
+# max |kernel - plain| / max |plain|. fp32: sum order; bf16: the forward's
+# rounding flips (as for the render), measured at 5.5e-4 absolute on an
+# H100 over all rows, ~1e-1 of a mean fine-level weight (1/192).
+ROWS_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
+ROW_NAMES = ("r", "g", "b", "depth", "acc", "w")
+# Step guard, kernel step vs plain eager step after one bf16 step from the
+# same state, batch and draws: |loss difference| / loss, and the largest
+# ||grad(kernel) - grad(eager)|| / ||grad(eager)|| over the parameters,
+# read before the optimizer's update (Adam's first step moves every
+# parameter by ~lr whatever the scale of its grad, so the update alone
+# cannot show a wrong scale). The grads add the two kernels' dW, each
+# within TRAIN_DW_TOL of its plain version.
+STEP_LOSS_TOL = 1e-2
+STEP_GRAD_TOL = 5e-2
+TRAIN_STEPS = 3  # CLI steps before the checkpoint; the resume adds 2
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+GATE_FAILURES = []
+
+
+def gate(ok: bool, msg: str) -> None:
+    """A tolerance gate: the run goes on to report everything, then fails
+    before its result lines if any gate failed."""
+    if not ok:
+        print(f"chip_smoke GATE FAILED: {msg}", file=sys.stderr, flush=True)
+        GATE_FAILURES.append(msg)
 
 
 def log(msg: str) -> None:
@@ -54,12 +100,28 @@ def mlp_flops_per_point(net_depth, width, skips, multires, multires_views):
     return 2 * macs
 
 
-def bound_ms(n_points, flops_pp, weight_bytes, peak_flops):
+def mlp_train_flops_per_point(net_depth, width, skips, multires,
+                              multires_views):
+    """FLOPs of one point through the train kernels' work: the forward,
+    dW of every layer, and the input gradient of every layer except where
+    the kernels skip it (layer 0 and the skip layer's PE input, the views
+    layer's view-encoding input: nothing upstream needs those)."""
+    pe, ve = 3 * (1 + 2 * multires), 3 * (1 + 2 * multires_views)
+    fwd = mlp_flops_per_point(net_depth, width, skips, multires,
+                              multires_views) // 2
+    skipped = pe * width * (1 + sum(1 for i in range(1, net_depth)
+                                    if i - 1 in skips)) \
+        + ve * (width // 2)
+    return 2 * (2 * fwd + fwd - skipped)
+
+
+def bound_ms(n_points, flops_pp, weight_bytes, peak_flops, bytes_pp=40):
     """Least time for one launch: operations over the peak rate, against
-    bytes (6 floats in and 4 out per point, the weights once) over the
-    memory rate. Returns (ms, 'operations' | 'bytes')."""
+    bytes (bytes_pp per point, by default 6 floats in and 4 out; the
+    weights, and any grads written, once) over the memory rate. Returns
+    (ms, 'operations' | 'bytes')."""
     t_ops = n_points * flops_pp / peak_flops
-    t_bytes = (40 * n_points + weight_bytes) / PEAK_BYTES
+    t_bytes = (bytes_pp * n_points + weight_bytes) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -107,7 +169,28 @@ def rel_err(got, want):
     return diff.max().item() / want.abs().mean().item(), diff.max().item()
 
 
+def ptxas_report(_build, name):
+    """Registers, spills and stack of each kernel in a build log."""
+    entry = None
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            entry = ("bf16" if "bfloat16" in mangled else
+                     "fp32" if "reduce" not in mangled else "reduce")
+        elif "Used" in line or "spill" in line:
+            log(f"  {name} [{entry}]: {line.strip()}")
+
+
+def grads_err(got, want):
+    """(largest ||g - w|| / ||w|| over the tensors, largest |g - w|)."""
+    rel = max((torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(
+        1e-30)).item() for a, b in zip(got, want))
+    mx = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return rel, mx
+
+
 def main() -> None:
+    global torch
     import torch
 
     if not torch.cuda.is_available():
@@ -115,16 +198,10 @@ def main() -> None:
              "CUDA device")
     try:
         from consistentnerf_tpu_torch import configs
-        from consistentnerf_tpu_torch.cli import render as render_cli
-        from consistentnerf_tpu_torch.core import rendering, sampling
-        from consistentnerf_tpu_torch.data import synthetic
-        from consistentnerf_tpu_torch.models.factory import make_model
         from consistentnerf_tpu_torch.ops import _build
         from consistentnerf_tpu_torch.ops import fused_mlp as fm
         from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
-        from consistentnerf_tpu_torch.ops import pdf_merge
-        from consistentnerf_tpu_torch.train import evaluation
-        from consistentnerf_tpu_torch.train import render as render_lib
+        from consistentnerf_tpu_torch.ops import fused_onepass as op
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run this "
              "script from the root of a checkout")
@@ -142,20 +219,60 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     fm.strict_fp32(dev)
 
-    # 2. Build every kernel from the checkout's sources.
+    # 2. Build every kernel from the checkout's sources, in parallel.
+    names = [v2.KERNEL, v2.BWD_KERNEL, op.KERNEL]
     t0 = time.perf_counter()
-    _build.build(v2.KERNEL)
-    log(f"built {v2.KERNEL}.cu for sm_90a in {time.perf_counter() - t0:.1f}"
-        " s; ptxas:")
-    for line in _build.build_log(v2.KERNEL).splitlines():
-        if "Used" in line or "spill" in line:
-            log("  " + line.strip())
+    _build.build_all(names)
+    log(f"built {', '.join(n + '.cu' for n in names)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s; ptxas:")
+    for n in names:
+        ptxas_report(_build, n)
     smem = _build.load(v2.KERNEL).fused_mlp_fwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
     log("  dynamic shared memory per block at 8x256, multires 10/4: "
-        f"bf16 {smem(256, 10, 4, 1)} bytes, fp32 {smem(256, 10, 4, 0)} "
-        "bytes")
+        f"{v2.KERNEL} bf16 {smem(256, 10, 4, 1)} bytes, fp32 "
+        f"{smem(256, 10, 4, 0)} bytes")
+    plan_b = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_plan
+    plan_b.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    plan_o = _build.load(op.KERNEL).onepass_level_plan
+    plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    for bf in (1, 0):
+        out = (ctypes.c_longlong * 4)()
+        plan_b(196608, 8, 256, 16, 10, 4, bf, out)
+        outo = (ctypes.c_longlong * 4)()
+        plan_o(4096, 192, 8, 256, 16, 10, 4, bf, outo)
+        log(f"  {'bf16' if bf else 'fp32'}: {v2.BWD_KERNEL} {out[3]} bytes "
+            f"of shared memory, {out[0]} blocks; {op.KERNEL} {outo[3]} "
+            f"bytes, {outo[0]} blocks")
 
+    render = render_phases(dev, card, configs, fm, v2)
+    train = train_phases(dev, card, configs, fm, v2, op)
+
+    kernels = {"kernels": [
+        dict(name=v2.KERNEL, route="cuda",
+             source="consistentnerf_tpu_torch/csrc/fused_mlp_fwd.cu",
+             replaces="consistentnerf_tpu/ops/fused_mlp_v2.py:578",
+             launches=render["launches"] + train["launches"][v2.KERNEL],
+             **render["json"]),
+    ] + train["json"]}
+    if GATE_FAILURES:
+        fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
+    log(json.dumps(kernels))
+    log(f"nvidia-smi: {card}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+
+
+def render_phases(dev, card, configs, fm, v2):
+    """The render path: kernel vs plain on a chunk, the
+    6-view render through the kernel, the render CLI, timings."""
+    from consistentnerf_tpu_torch.cli import render as render_cli
+    from consistentnerf_tpu_torch.core import rendering, sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.ops import pdf_merge
+    from consistentnerf_tpu_torch.train import evaluation
+    from consistentnerf_tpu_torch.train import render as render_lib
     # The bench render configuration.
     cfg = configs.Config(
         N_samples=64, N_importance=128, white_bkgd=True,
@@ -230,7 +347,7 @@ def main() -> None:
                      f"({rel:.3e} >= {tol:g})")
             del got, want
 
-    # 4. The main path: render the 6 views through build_render_fn.
+    # 4. The render path: the 6 views through build_render_fn.
     render = render_lib.build_render_fn(model, cfg)
     v2.launches = 0
     out = render(stacked)
@@ -315,24 +432,332 @@ def main() -> None:
             f"{100 * dev_ms / (1e3 * render_s):.1f}% of the event-timed "
             "render; by kernel: " + "; ".join(
                 f"{k} {ms:.2f} ms x{n}" for k, ms, n in top))
-    kernels = {"kernels": [{
-        "name": v2.KERNEL,
-        "route": "cuda",
-        "source": "consistentnerf_tpu_torch/csrc/fused_mlp_fwd.cu",
-        "replaces": "consistentnerf_tpu/ops/fused_mlp_v2.py:578",
-        "launches": launches,
-        "max_abs_err": errs["fine bf16"],
-        "ms": ms_fine,
-        "plain_ms": plain_ms,
-        "bound_ms": b_fine,
-        "bound_by": by_fine,
-        "library_ms": None,
-    }]}
-    log(json.dumps(kernels))
-    log(f"nvidia-smi: {card}")
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+    return {"launches": launches + cli_launches, "json": dict(
+        max_abs_err=errs["fine bf16"], ms=ms_fine, plain_ms=plain_ms,
+        bound_ms=b_fine, bound_by=by_fine, library_ms=None)}
 
+
+FLAGSHIP = dict(  # bench.py:66-84
+    backbone="vanilla", N_samples=64, N_importance=128, N_rand=4096,
+    n_patches=4, patch_size=16, hardmask=True, with_depth_loss=True,
+    white_bkgd=True, compute_dtype="bfloat16", perturb=1.0,
+    use_fused_train=True, use_onepass_train=True)
+SCENE = dict(n_views=6, H=128, W=128)  # bench.py:50-53
+GUARD_N_RAND = 1024  # random rays of the step guard's batch
+TIMED_STEPS = 20  # bench.py:106-116
+
+
+def train_phases(dev, card, configs, fm, v2, op):
+    """The train path: kernels #2 and #3 vs their plain versions at the
+    flagship step's shapes, the train CLI with a checkpoint and a resume,
+    the step guard, timings and a profile of one step."""
+    import copy
+
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.core import rendering, sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.ops import pdf_merge
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    cfg = configs.Config(**FLAGSHIP)
+    skips = op.model_skips(cfg.netdepth)
+    mlp_kw = dict(net_depth=cfg.netdepth, skips=skips,
+                  multires=cfg.multires, multires_views=cfg.multires_views)
+    s_c, s_f = cfg.N_samples, cfg.N_samples + cfg.N_importance
+    # The bench scene: 6 views, 4 train, 2 test.
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    state = loop.init_state(cfg, dev)
+    batcher = VanillaBatcher(scene, cfg)
+    batch = to_device(batcher.next_batch(), dev)
+    n = batch["rgb"].shape[0]
+    p = cfg.n_patches * cfg.patch_size ** 2
+    log(f"flagship step: {n} rays ({p} patch + {n - p} random), "
+        f"{s_c} + {cfg.N_importance} samples, {cfg.compute_dtype}")
+    draws = step_lib.make_draws(
+        cfg, n, step_lib.step_generator(cfg.seed, 0, dev), dev)
+    rays = step_lib.rays_from_batch(batch, cfg.near, cfg.far)
+    z_c = sampling.vanilla_z_vals(rays.near, rays.far, s_c, False,
+                                  draws["t_rand"])
+    o_T, d_T = rays.origins.T.contiguous(), rays.directions.T.contiguous()
+    v_T = rays.viewdirs.T.contiguous()
+    dnorm = torch.linalg.norm(rays.directions, dim=-1)
+    flat = {lvl: [w.detach() for w in fm.flatten_params(
+        getattr(state.model, lvl), True, cfg.netdepth)]
+        for lvl in ("coarse", "fine")}
+
+    def packed(level, dtype):
+        return v2.pack(flat[level], compute_dtype=dtype, **mlp_kw)
+
+    def streams(sl, z):
+        return op._pts_views(o_T[:, sl], d_T[:, sl], v_T[:, sl], z)
+
+    # Level inputs as the step makes them: patch rays [:p] take #1 + #2,
+    # random rays [p:] take #3; fine depths from the coarse weights.
+    with torch.no_grad():
+        pc, vc = streams(slice(0, p), z_c[:p])
+        raw = v2.plain_fwd_T(packed("coarse", "bfloat16"), pc, vc,
+                             compute_dtype="bfloat16", **mlp_kw)
+        w_p = rendering.raw2outputs_T(raw.reshape(4, p, s_c), z_c[:p],
+                                      rays.directions[:p], None, True)[3]
+        z_fp = pdf_merge.fine_z_vals(z_c[:p], w_p, cfg.N_importance,
+                                     u=draws["u"][:p], det=False)
+        pf, vf = streams(slice(0, p), z_fp)
+        mask = batch["mask"]
+        m_sum = mask.sum()
+        coeff_rgb = 2.0 * (mask / (3.0 * m_sum) + cfg.hardmask_coef
+                           * (1.0 - mask) / (3.0 * (n - m_sum)))
+        coeff_d = 2.0 * mask / (cfg.far ** 2 * m_sum)
+        ray_rows = (dnorm[p:], coeff_rgb[p:], batch["rgb"][p:],
+                    coeff_d[p:], batch["depth"][p:])
+        rc, rvc = streams(slice(p, n), z_c[p:])
+        out_c = op.plain_onepass_level(
+            packed("coarse", "bfloat16"), rc, rvc, z_c[p:].contiguous(),
+            *ray_rows, white_bkgd=True, compute_dtype=torch.bfloat16,
+            **mlp_kw)[0]
+        z_fr = pdf_merge.fine_z_vals(
+            z_c[p:], out_c[5].reshape(n - p, s_c), cfg.N_importance,
+            u=draws["u"][p:], det=False).contiguous()
+        rf, rvf = streams(slice(p, n), z_fr)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    levels2 = {"fine": (pf, vf), "coarse": (pc, vc)}
+    g2 = {lvl: 1e-3 * torch.randn((4, x[0].shape[1]), generator=gen,
+                                  device=dev)
+          for lvl, x in levels2.items()}
+    levels3 = {"fine": (rf, rvf, z_fr), "coarse": (rc, rvc,
+                                                   z_c[p:].contiguous())}
+
+    # 6. Kernels #2 and #3 vs their plain versions at these shapes.
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        for lvl in ("fine", "coarse"):
+            w = packed(lvl, dtype)
+            pts, views = levels2[lvl]
+            got = v2.bwd_T(w, pts, views, g2[lvl], compute_dtype=dtype,
+                           **mlp_kw)
+            torch.cuda.synchronize()
+            want = v2.plain_bwd_T(w, pts, views, g2[lvl],
+                                  compute_dtype=dtype, **mlp_kw)
+            rel, mx = grads_err(got, want)
+            errs[(v2.BWD_KERNEL, lvl, dtype)] = mx
+            log(f"{v2.BWD_KERNEL} vs plain, patch {lvl} {dtype}, "
+                f"N={pts.shape[1]}: dW max|diff| {mx:.3e}, max rel L2 "
+                f"{rel:.3e} (tol {TRAIN_DW_TOL[dtype]:g})")
+            if not all(torch.isfinite(x).all() for x in got):
+                fail(f"{v2.BWD_KERNEL} {lvl} {dtype}: non-finite dW")
+            gate(rel < TRAIN_DW_TOL[dtype],
+                 f"{v2.BWD_KERNEL} {lvl} {dtype} disagrees with its plain "
+                 f"version ({rel:.3e})")
+            del got, want
+            pts, views, z = levels3[lvl]
+            got_rows, got = op.onepass_level(
+                w, pts, views, z, *ray_rows, white_bkgd=True,
+                compute_dtype=dtype, **mlp_kw)
+            torch.cuda.synchronize()
+            want_rows, want = op.plain_onepass_level(
+                w, pts, views, z, *ray_rows, white_bkgd=True,
+                compute_dtype=fm.as_dtype(dtype), **mlp_kw)
+            rel, mx = grads_err(got, want)
+            row_errs = ((got_rows - want_rows).abs().amax(1)
+                        / want_rows.abs().amax(1).clamp_min(1e-30)).tolist()
+            errs[(op.KERNEL, lvl, dtype)] = mx
+            log(f"{op.KERNEL} vs plain, random-ray {lvl} {dtype}, "
+                f"N={pts.shape[1]}: rows max|diff| "
+                f"{(got_rows - want_rows).abs().max().item():.3e}, per row "
+                f"max|diff|/max|plain| " + ", ".join(
+                    f"{k} {e:.2e}" for k, e in zip(ROW_NAMES, row_errs))
+                + f" (tol {ROWS_TOL[dtype]:g}); dW max|diff| {mx:.3e}, max "
+                f"rel L2 {rel:.3e} (tol {TRAIN_DW_TOL[dtype]:g})")
+            if not (torch.isfinite(got_rows).all()
+                    and all(torch.isfinite(x).all() for x in got)):
+                fail(f"{op.KERNEL} {lvl} {dtype}: non-finite output")
+            gate(rel < TRAIN_DW_TOL[dtype]
+                 and max(row_errs) < ROWS_TOL[dtype],
+                 f"{op.KERNEL} {lvl} {dtype} disagrees with its plain "
+                 f"version (rows {max(row_errs):.3e}, dW {rel:.3e})")
+            del got, want, got_rows, want_rows
+            torch.cuda.empty_cache()
+
+    # 7. The train path: the train CLI, a checkpoint, a resume.
+    counted = (v2, "launches", v2.KERNEL), (v2, "bwd_launches",
+                                             v2.BWD_KERNEL), \
+        (op, "launches", op.KERNEL)
+    sets = ["dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+            f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+            "i_print=1", f"checkpoint_every={TRAIN_STEPS}"] + [
+        f"{k}={v}" for k, v in FLAGSHIP.items()]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--device", str(dev)] + [
+            x for s_ in sets + [f"basedir={tmp}"] for x in ("--set", s_)]
+        for steps, label in ((TRAIN_STEPS, "train"),
+                             (TRAIN_STEPS + 2, "resume")):
+            for mod, attr, _ in counted:
+                setattr(mod, attr, 0)
+            res = train_cli.main(args + ["--num-steps", str(steps)])
+            torch.cuda.synchronize()
+            got = {k: getattr(mod, attr) for mod, attr, k in counted}
+            ran = steps - (0 if label == "train" else TRAIN_STEPS)
+            log(f"cli.train {label}: steps {ran}, launches {got} (expected "
+                f"2 of each per step), loss "
+                f"{float(res.stats_history[-1]['loss']):.5f}")
+            if any(v != 2 * ran for v in got.values()):
+                fail(f"the train path did not launch 2 of each kernel per "
+                     f"step: {got}")
+            if res.state.step != steps or not all(
+                    np.isfinite(float(h["loss"])) for h in
+                    res.stats_history):
+                fail(f"cli.train {label} ended at step {res.state.step} or "
+                     "with a non-finite loss")
+            if label == "train":
+                launches = got
+                ckpts = os.listdir(os.path.join(tmp, "exp", "checkpoints"))
+                log(f"checkpoints: {ckpts}")
+                if f"step_{TRAIN_STEPS:08d}.pt" not in ckpts:
+                    fail("cli.train wrote no checkpoint")
+
+    # 8. Step guard: kernel step vs plain eager step, same state, batch and
+    # draws, one bf16 step. N_rand 1024: the eager step's autograd keeps
+    # every activation of its 2048 rays x 256 samples.
+    g_cfg = cfg.replace(N_rand=GUARD_N_RAND)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+    g_draws = step_lib.make_draws(
+        g_cfg, g_batch["rgb"].shape[0],
+        step_lib.step_generator(g_cfg.seed, 0, dev), dev)
+
+    def grads_at_update(state):
+        """Copies of the grads that the optimizer's next update reads."""
+        opt, grads = state.optimizer, []
+        update = opt.step
+
+        def step(count):
+            grads.extend(torch.zeros_like(q) if q.grad is None else
+                         q.grad.detach().clone() for q in opt.params)
+            update(count)
+
+        opt.step = step
+        return grads
+
+    k_state, e_state = copy.deepcopy(g_state), copy.deepcopy(g_state)
+    grads_k, grads_e = grads_at_update(k_state), grads_at_update(e_state)
+    s_k, st_k = op.build_onepass_vanilla_train_step(g_cfg)(
+        k_state, g_batch, g_draws)
+    eager = step_lib.build_vanilla_train_step(e_state.model, g_cfg)
+    s_e, st_e = eager(e_state, g_batch, g_draws)
+    torch.cuda.synchronize()
+    grad_rel, _ = grads_err(grads_k, grads_e)
+    norm_rel = abs(float(st_k["grad_norm"]) / float(st_e["grad_norm"]) - 1)
+    log(f"step guard grads: max rel L2 over the {len(grads_e)} parameters "
+        f"{grad_rel:.3e}, grad norm kernel {float(st_k['grad_norm']):.6e} "
+        f"eager {float(st_e['grad_norm']):.6e} (rel {norm_rel:.3e}; tol "
+        f"{STEP_GRAD_TOL:g})")
+    gate(grad_rel < STEP_GRAD_TOL and norm_rel < STEP_GRAD_TOL,
+         f"kernel step grads disagree with the eager step ({grad_rel:.3e})")
+    d_loss = abs(float(st_k["loss"]) - float(st_e["loss"]))
+    deltas = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(
+        s_k.model.parameters(), s_e.model.parameters())])
+    lr0 = g_cfg.lrate
+    share = (deltas > 0.1 * lr0).float().mean().item()
+    log(f"step guard (N_rand {GUARD_N_RAND}, bf16): loss kernel "
+        f"{float(st_k['loss']):.6f} eager {float(st_e['loss']):.6f}, "
+        f"|dloss| {d_loss:.3e}; max|dparam| {deltas.max().item():.3e} "
+        f"(one Adam step moves a parameter by at most ~lr = {lr0:g}); "
+        f"share of parameters apart by > 0.1 lr: {share:.4f}")
+    gate(d_loss < STEP_LOSS_TOL * abs(float(st_e["loss"])),
+         f"kernel step loss disagrees with the eager step ({d_loss})")
+    gate(deltas.max().item() <= 2.0 * lr0 * 1.001 and share <= 0.05,
+         "kernel step update disagrees with the eager step")
+    del s_k, s_e, eager, g_state, k_state, e_state, grads_k, grads_e
+    torch.cuda.empty_cache()
+
+    # 9. Timings, tagged with the card.
+    tag = f"[{card}]"
+    t_state = loop.init_state(cfg, dev)
+    step_fn = loop.select_train_step(cfg, t_state.model)
+    batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    t_state, _ = step_fn(t_state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    n_steps = TIMED_STEPS
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        t_state, stats = step_fn(t_state, batches[i % 4])
+    float(stats["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_ms = 1e3 * dt / n_steps
+    # The step's least MLP work: forward, dW and the needed input grads
+    # of every point once (the patch rays' forward, which kernel #2
+    # recomputes, counted once).
+    train_pp = mlp_train_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                         cfg.multires, cfg.multires_views)
+    step_bound = 1e3 * train_pp * n * (s_c + s_f) / PEAK_BF16_FLOPS
+    log(f"{tag} train step (flagship, {n} rays): {step_ms:.2f} ms/step, "
+        f"{n_steps * n / dt:.1f} rays/s over {n_steps} steps; bf16 bound "
+        f"{step_bound:.2f} ms ({train_pp} FLOP/point, "
+        f"{100 * step_bound / step_ms:.1f}% of it)")
+    wall0 = time.perf_counter()
+    dev_ms, top = device_time(lambda: step_fn(t_state, batches[1]))
+    wall_ms = 1e3 * (time.perf_counter() - wall0)
+    if dev_ms is None:
+        log(f"{tag} train step device time: not measured (the profiler "
+            "saw no device time)")
+    else:
+        log(f"{tag} profiled step: device time {dev_ms:.2f} ms of "
+            f"{step_ms:.2f} ms/step (event-free loop), idle share "
+            f"{max(0.0, 1 - dev_ms / step_ms):.3f} (profiled wall "
+            f"{wall_ms:.1f} ms); by kernel: " + "; ".join(
+                f"{k} {ms:.2f} ms x{c}" for k, ms, c in top))
+
+    def runner(kern, lvl, fn):
+        """A call of `fn` (the kernel wrapper or its plain version) on
+        the level's bf16 inputs."""
+        w = packed(lvl, "bfloat16")
+        if kern == v2.BWD_KERNEL:
+            pts, views = levels2[lvl]
+            return lambda: fn(w, pts, views, g2[lvl],
+                              compute_dtype="bfloat16", **mlp_kw)
+        pts, views, z = levels3[lvl]
+        return lambda: fn(w, pts, views, z, *ray_rows, white_bkgd=True,
+                          compute_dtype=torch.bfloat16, **mlp_kw)
+
+    # Bytes per point each kernel must move: #2 reads pts, views and g
+    # (10 floats); #3 reads pts, views, z and writes 6 output rows (13
+    # floats), plus 7 floats per ray. Weights read once in bf16, dW and db
+    # written once in fp32.
+    n_w = sum(v2.grad_numel(packed("fine", "bfloat16")))
+    rows = []
+    for kern, plain, kfn, bpp in (
+            (v2.BWD_KERNEL, v2.plain_bwd_T, v2.bwd_T, 40),
+            (op.KERNEL, op.plain_onepass_level, op.onepass_level,
+             52 + 28 / s_f)):
+        res_ms = {}
+        for lvl in ("fine", "coarse"):
+            npts = (levels2 if kern == v2.BWD_KERNEL else levels3)[lvl][
+                0].shape[1]
+            ms = time_ms(runner(kern, lvl, kfn), 5 if lvl == "fine" else 10)
+            bound, by = bound_ms(npts, train_pp, 6 * n_w,
+                                 PEAK_BF16_FLOPS, bpp)
+            res_ms[lvl] = (ms, bound, by)
+            log(f"{tag} {kern} bf16 {lvl} (N={npts}): {ms:.3f} ms/launch, "
+                f"bound {bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of "
+                "it)")
+        plain_ms = time_ms(runner(kern, "fine", plain), 2)
+        log(f"{tag} plain version of {kern}, bf16 fine: {plain_ms:.3f} ms")
+        ms, bound, by = res_ms["fine"]
+        rows.append(dict(
+            name=kern, route="cuda",
+            source=f"consistentnerf_tpu_torch/csrc/{kern}.cu",
+            replaces=("consistentnerf_tpu/ops/fused_mlp_v2.py:718"
+                      if kern == v2.BWD_KERNEL else
+                      "consistentnerf_tpu/ops/fused_onepass.py:188"),
+            launches=launches[kern],
+            max_abs_err=errs[(kern, "fine", "bfloat16")], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+    return {"launches": launches, "json": rows}
 
 if __name__ == "__main__":
     try:

@@ -1,8 +1,12 @@
-"""Shared CLI plumbing: config flags, device choice, fused-path defaults."""
+"""Shared CLI plumbing: config flags, device choice, fused-path defaults,
+the experiment directory."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 
 import torch
 
@@ -41,19 +45,36 @@ def explicit_keys(args) -> set:
 
 
 def auto_fused_defaults(cfg: Config, args) -> Config:
-    """On a CUDA device a bfloat16 vanilla config renders through the
-    fused kernel unless `use_fused_render` was set explicitly (the JAX
-    package's rule for accelerators). fp32 renders stay on the plain path,
-    the reference-parity default."""
+    """The JAX package's rule for accelerators, on a CUDA device: a vanilla
+    config trains through the kernel step (`use_fused_train` and
+    `use_onepass_train`) unless those were set explicitly, and a bfloat16
+    one renders through the fused kernel unless `use_fused_render` was.
+    fp32 renders stay on the plain path, the reference-parity default."""
     vanilla_ok = (
         cfg.backbone == "vanilla"
         and cfg.use_viewdirs
         and cfg.netwidth % 32 == 0
     )
-    if (torch.device(args.device).type != "cuda" or not vanilla_ok
-            or "use_fused_render" in explicit_keys(args)
-            or cfg.use_fused_render):
+    if torch.device(args.device).type != "cuda" or not vanilla_ok:
         return cfg
-    if fm.as_dtype(cfg.compute_dtype) == torch.bfloat16:
-        return cfg.replace(use_fused_render=True)
-    return cfg
+    explicit = explicit_keys(args)
+    updates = {}
+    if "use_fused_train" not in explicit and not cfg.use_fused_train:
+        updates["use_fused_train"] = True
+    if ("use_onepass_train" not in explicit and not cfg.use_onepass_train
+            and (cfg.use_fused_train or "use_fused_train" in updates)):
+        updates["use_onepass_train"] = True
+    if ("use_fused_render" not in explicit and not cfg.use_fused_render
+            and fm.as_dtype(cfg.compute_dtype) == torch.bfloat16):
+        updates["use_fused_render"] = True
+    return cfg.replace(**updates) if updates else cfg
+
+
+def setup_experiment_dir(cfg: Config) -> str:
+    """Create basedir/expname and dump the resolved config as JSON (the
+    reference dumps args.txt + config.txt, run_nerf_view.py:977-989)."""
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    return exp_dir

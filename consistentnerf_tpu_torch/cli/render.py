@@ -4,10 +4,12 @@ vanilla model and write `color_*.png` / `depth_*.png` per frame.
     python -m consistentnerf_tpu_torch.cli.render --render-test \
         --set dataset_type=synthetic --set compute_dtype=bfloat16
 
-Weights come from the newest reference-format `*.tar` under
-`{basedir}/{expname}/` (or `{step:06d}.tar` with --step), as
-`cnerf-export-torch-ckpt` writes them. Without one the model renders
-from its seeded init, and says so.
+Weights come from the newest train checkpoint under
+`{basedir}/{expname}/checkpoints/` (`step_*.pt`, as the port's train CLI
+writes them), else from the newest reference-format `*.tar` under
+`{basedir}/{expname}/` (`cnerf-export-torch-ckpt` writes those); --step
+picks a step. Without either the model renders from its seeded init, and
+says so.
 """
 
 from __future__ import annotations
@@ -17,7 +19,17 @@ import os
 
 
 def find_checkpoint(exp_dir: str, step=None):
-    """The `.tar` to restore: `{step:06d}.tar`, else the newest."""
+    """The file to restore: a train checkpoint `checkpoints/step_*.pt`
+    (the given step, else the newest), else a `.tar`: `{step:06d}.tar`,
+    else the newest."""
+    from consistentnerf_tpu_torch.train.checkpoints import (
+        CheckpointManager, checkpoint_steps)
+
+    ckpt_dir = os.path.join(exp_dir, "checkpoints")
+    steps = checkpoint_steps(ckpt_dir) if os.path.isdir(ckpt_dir) else []
+    if steps and (step is None or step in steps):
+        return CheckpointManager(ckpt_dir).path(
+            steps[-1] if step is None else step)
     if step is not None:
         path = os.path.join(exp_dir, f"{step:06d}.tar")
         if not os.path.isfile(path):
@@ -58,6 +70,13 @@ def main(argv=None):
         step = 0
         print(f"no checkpoint under {exp_dir}; rendering from a random "
               f"init (seed {cfg.seed})")
+    elif ckpt.endswith(".pt"):
+        from consistentnerf_tpu_torch.train.checkpoints import \
+            CheckpointManager
+
+        step = CheckpointManager(os.path.dirname(ckpt)).restore_for_eval(
+            model, int(os.path.basename(ckpt)[5:-3]))
+        print(f"restored {ckpt} (step {step})")
     else:
         state, step = interop.load_reference_tar(ckpt)
         model.load_state_dict(state)

@@ -27,3 +27,14 @@ def safe_cos(x):
 
 def safe_sin(x):
     return safe_trig_helper(x, torch.sin)
+
+
+def mse_to_psnr(mse):
+    """PSNR assuming max pixel value 1."""
+    return -10.0 / math.log(10.0) * torch.log(torch.as_tensor(mse))
+
+
+def exp_lr_decay(step, lr_init, decay_rate=0.1, decay_steps=250_000):
+    """The vanilla trainer's lr schedule: lr * decay^(step/decay_steps)
+    (run_nerf_view.py:1989-1993)."""
+    return lr_init * (decay_rate ** (step / decay_steps))

@@ -1,0 +1,85 @@
+// Weight grads of the fused NeRF MLP for a given output cotangent.
+//
+// Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mlp_v2.py::
+// _bwd_pallas_T, the backward of the differentiable fused MLP that the
+// one-pass train step runs on its patch rays. Input: points and view
+// directions [3, N], the cotangent g of the raw output [4, N] (rgb logits
+// rows 0..2, density row 3), the packed weights. Output: dW and db in the
+// packed layout, fp32, summed over the N points.
+//
+// Bound, design and rounding: see mlp_train.cuh. The forward is run once
+// more (the TPU kernel recomputed it too) with every activation saved to
+// the block's workspace, then the backward walk and the dW accumulation
+// run per 768-point chunk; a second launch reduces the per-block partials
+// in a fixed order.
+
+#include "mlp_train.cuh"
+
+namespace {
+
+using mlp_train::bf16;
+using mlp_train::Dims;
+
+template <typename T>
+__global__ void __launch_bounds__(mlp_train::kThreads, 1)
+    fused_mlp_bwd_kernel(const float* pts, const float* views,
+                         const float* g, const T* w, const float* b, T* ws,
+                         float* part, size_t part_stride, int n, Dims d) {
+  mlp_train::RayRows rr{};
+  rr.seg = 1;
+  mlp_train::train_block<T, 2>(pts, views, g, rr, w, b, ws, part,
+                               part_stride, n, d);
+}
+
+template <typename T>
+int launch(const void* pts, const void* views, const void* g, const void* w,
+           const void* b, void* ws, void* part, void* dw, int n, Dims d,
+           cudaStream_t stream) {
+  long long pl[4];
+  int err = mlp_train::plan<T>(fused_mlp_bwd_kernel<T>, 2, n, 1, d, pl);
+  if (err) return err;
+  fused_mlp_bwd_kernel<T><<<(int)pl[0], mlp_train::kThreads, (size_t)pl[3],
+                            stream>>>(
+      static_cast<const float*>(pts), static_cast<const float*>(views),
+      static_cast<const float*>(g), static_cast<const T*>(w),
+      static_cast<const float*>(b), static_cast<T*>(ws),
+      static_cast<float*>(part), (size_t)pl[2], n, d);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int total = (int)(d.w_total() + d.b_total());
+  mlp_train::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
+      static_cast<float*>(dw));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out[0..3]: blocks, workspace elements per block, partial floats per
+// block, dynamic shared memory bytes. Returns a cudaError_t.
+extern "C" int fused_mlp_bwd_plan(int n, int depth, int width, int skip_mask,
+                                  int multires, int multires_views,
+                                  int use_bf16, long long* out) {
+  Dims d(depth, width, skip_mask, multires, multires_views);
+  if (use_bf16)
+    return mlp_train::plan<bf16>(fused_mlp_bwd_kernel<bf16>, 2, n, 1, d, out);
+  return mlp_train::plan<float>(fused_mlp_bwd_kernel<float>, 2, n, 1, d, out);
+}
+
+// pts, views: [3, n] fp32; g: [4, n] fp32; w: packed weights (bf16 when
+// use_bf16, else fp32); b: packed fp32 biases; ws: workspace (blocks x
+// per-block elements of the weight type); part: blocks x stride fp32;
+// dw: [w_total + b_total] fp32 out (dW then db, packed order).
+extern "C" int fused_mlp_bwd(const void* pts, const void* views,
+                             const void* g, const void* w, const void* b,
+                             void* ws, void* part, void* dw, int n, int depth,
+                             int width, int skip_mask, int multires,
+                             int multires_views, int use_bf16,
+                             void* stream) {
+  if (n <= 0) return 0;
+  Dims d(depth, width, skip_mask, multires, multires_views);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    return launch<bf16>(pts, views, g, w, b, ws, part, dw, n, d, s);
+  return launch<float>(pts, views, g, w, b, ws, part, dw, n, d, s);
+}

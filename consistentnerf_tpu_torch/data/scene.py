@@ -34,3 +34,14 @@ class SceneData:
     render_poses: Optional[np.ndarray] = None  # [M, 3, 4] or [M, 4, 4]
     use_ndc: bool = False
     bounds: Optional[np.ndarray] = None  # [N, 2] per-image near/far
+
+    def ensure_priors(self) -> "SceneData":
+        """Fill missing priors: zero depths and disparity, all-ones masks."""
+        shape = self.images.shape[:3]
+        if self.depths is None:
+            self.depths = np.zeros(shape, np.float32)
+        if self.masks is None:
+            self.masks = np.ones(shape, np.float32)
+        if self.mono_disp is None:
+            self.mono_disp = np.zeros(shape, np.float32)
+        return self

@@ -1,7 +1,9 @@
 """Weights across packages.
 
 `params_from_jax` turns the JAX package's vanilla param tree into the
-port's `VanillaNeRF` state_dict; `load_reference_tar` reads a nerf-pytorch
+port's `VanillaNeRF` state_dict; `add_flat_grads` / `flat_grads_to_named` map a flat torch-layout grad
+list (the order of `ops/fused_mlp.flatten_params`) onto a NeRFMLP's
+parameters; `load_reference_tar` reads a nerf-pytorch
 `{step:06d}.tar` (the layout the JAX package's `cnerf-export-torch-ckpt`
 writes, and the reference trainer's own). The name map is the
 reference's layer names against the JAX module's.
@@ -9,7 +11,7 @@ reference's layer names against the JAX module's.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,3 +74,37 @@ def load_reference_tar(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     if not sd:
         raise ValueError(f"{path} holds no nerf-pytorch network state")
     return sd, int(ckpt.get("global_step", 0))
+
+
+def flat_param_names(net_depth: int, use_viewdirs: bool = True) -> List[str]:
+    """Parameter names of a NeRFMLP in `flatten_params` order."""
+    names = [f"pts_linears.{i}" for i in range(net_depth)]
+    names += (["alpha_linear", "feature_linear", "views_linears.0",
+               "rgb_linear"] if use_viewdirs else ["output_linear"])
+    return [f"{n}.{k}" for n in names for k in ("weight", "bias")]
+
+
+def flat_grads_to_named(mlp: torch.nn.Module, grads: Sequence[torch.Tensor],
+                        net_depth: int) -> Dict[str, torch.Tensor]:
+    """Flat torch-layout grads -> {parameter name: grad} for every
+    parameter of `mlp` (zeros for those the list does not cover, such as
+    the temperature scalars), shaped like the parameters."""
+    params = dict(mlp.named_parameters())
+    names = flat_param_names(net_depth, getattr(mlp, "use_viewdirs", True))
+    if len(names) != len(grads):
+        raise ValueError(f"{len(grads)} grads for {len(names)} parameters")
+    out = {k: torch.zeros_like(p) for k, p in params.items()}
+    for name, g in zip(names, grads):
+        out[name] = g.reshape(params[name].shape).to(params[name].dtype)
+    return out
+
+
+def add_flat_grads(mlp: torch.nn.Module, grads: Sequence[torch.Tensor],
+                   net_depth: int) -> None:
+    """Add flat torch-layout grads to the `.grad`s of `mlp`'s parameters."""
+    named = flat_grads_to_named(mlp, grads, net_depth)
+    for name, p in mlp.named_parameters():
+        if p.grad is None:
+            p.grad = named[name].clone()
+        else:
+            p.grad.add_(named[name])

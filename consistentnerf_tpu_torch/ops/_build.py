@@ -4,8 +4,8 @@ Each `csrc/*.cu` source exposes a plain C interface. It is compiled with
 `nvcc` for Hopper (`sm_90a`) into a shared library under
 `build/torch_kernels/` at the repository root, at first use, and loaded
 with `ctypes`. The library name carries a hash of the source and flags,
-so an edited source rebuilds and a stale library is never loaded. A
-failed build raises; nothing falls back.
+and of every `csrc/*.cuh` header, so an edited source rebuilds and a stale
+library is never loaded. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -38,7 +38,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    data = src.read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    digest = hashlib.sha1(data + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -47,21 +50,36 @@ def build(name: str) -> Path:
 
     The compiler's `-Xptxas -v` report (registers, shared memory, spills)
     is kept beside the library as `.log`."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
+
+
+def build_all(names: Sequence[str]) -> list:
+    """Compile the named sources that are not built yet, one `nvcc` per
+    source, all started together; returns their library paths."""
+    outs = [library_path(name) for name in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu ({proc.returncode}):"
+                          f"\n{stdout}\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
 
 
 def build_log(name: str) -> str:

@@ -1,4 +1,5 @@
-"""The fused NeRF-MLP forward on transposed point streams.
+"""The fused NeRF MLP on transposed point streams: forward, weight grads
+and the differentiable op built from the two.
 
 `fwd_T` is the port of `consistentnerf_tpu/ops/fused_mlp_v2.py::
 _fwd_pallas_T`: points and view directions [3, N] in, raw rgb + density
@@ -14,6 +15,15 @@ caller that renders many chunks packs once and passes the `PackedMLP`.
 `packed_reference_T` evaluates a `PackedMLP` by walking the packed
 buffers the way the kernel does, so the layout is testable without a
 card.
+
+`bwd_T` is the port of `_bwd_pallas_T`: the weight grads for an output
+cotangent g [4, N], in the torch weight layout. On a CUDA tensor it
+launches `csrc/fused_mlp_bwd.cu` (or raises); on a CPU tensor it runs the
+plain version `plain_bwd_T` (autograd through `_mlp_body`).
+`packed_bwd_reference_T` walks the packed buffers as that kernel does,
+with its rounding, and `unpack_grads` maps the packed grads to the torch
+layout. `fused_mlp_v2_train_T` is the differentiable op: forward `fwd_T`,
+backward `bwd_T`.
 """
 
 from __future__ import annotations
@@ -29,8 +39,10 @@ from consistentnerf_tpu_torch.ops import _build
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 
 KERNEL = "fused_mlp_fwd"
-# Kernel launches since import (or since the caller last reset it).
+BWD_KERNEL = "fused_mlp_bwd"
+# Kernel launches since import (or since the caller last reset them).
 launches = 0
+bwd_launches = 0
 
 
 @dataclasses.dataclass
@@ -217,3 +229,307 @@ def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Weight grads (kernel #2) and the differentiable op
+# ---------------------------------------------------------------------------
+
+
+def _block_shapes(packed: PackedMLP):
+    """(name, rows, cols) of the packed weight blocks and (name, size) of
+    the packed biases, in buffer order."""
+    width, half = packed.width, packed.width // 2
+    p = _pad16(3 * (1 + 2 * packed.multires))
+    v = _pad16(3 * (1 + 2 * packed.multires_views))
+    ws, bs = [], []
+    for i in range(packed.net_depth):
+        rows = p if i == 0 else (p + width if i - 1 in packed.skips
+                                 else width)
+        ws.append((f"pts_{i}", rows, width))
+        bs.append((f"pts_{i}", width))
+    ws += [("feature", width, width), ("views_0", width + v, half),
+           ("alpha", width, 1), ("rgb", 3, half)]
+    bs += [("feature", width), ("views_0", half), ("alpha", 1), ("rgb", 3)]
+    return ws, bs
+
+
+def _split(flat: torch.Tensor, shapes) -> dict:
+    out, o = {}, 0
+    for name, *dims in shapes:
+        n = 1
+        for x in dims:
+            n *= x
+        out[name] = flat[o: o + n].view(*dims)
+        o += n
+    return out
+
+
+def grad_numel(packed: PackedMLP) -> tuple:
+    """(weights, biases) element counts of the packed grads."""
+    ws, bs = _block_shapes(packed)
+    return sum(r * c for _, r, c in ws), sum(n for _, n in bs)
+
+
+def unpack_grads(packed: PackedMLP, dw: torch.Tensor,
+                 db: torch.Tensor) -> List[torch.Tensor]:
+    """Packed fp32 dW / db -> the torch-layout grad list (the order of
+    `fused_mlp.flatten_params`): padding rows dropped, [pe | h] and
+    [feature | ve] rows rejoined, W^T blocks transposed back."""
+    wshapes, bshapes = _block_shapes(packed)
+    w, b = _split(dw, wshapes), _split(db, bshapes)
+    width = packed.width
+    pe_real = 3 * (1 + 2 * packed.multires)
+    ve_real = 3 * (1 + 2 * packed.multires_views)
+    p = _pad16(pe_real)
+    out = []
+    for i in range(packed.net_depth):
+        blk = w[f"pts_{i}"]
+        if i == 0:
+            g = blk[:pe_real]
+        elif i - 1 in packed.skips:
+            g = torch.cat([blk[:pe_real], blk[p:]], 0)
+        else:
+            g = blk
+        out += [g.T.contiguous(), b[f"pts_{i}"].clone()]
+    views = w["views_0"]
+    out += [w["alpha"].reshape(1, width).clone(), b["alpha"].clone(),
+            w["feature"].T.contiguous(), b["feature"].clone(),
+            torch.cat([views[:width], views[width: width + ve_real]],
+                      0).T.contiguous(), b["views_0"].clone(),
+            w["rgb"].clone(), b["rgb"].clone()]
+    return out
+
+
+def _packed_weights(packed: PackedMLP):
+    wshapes, bshapes = _block_shapes(packed)
+    return (_split(packed.w.float(), wshapes),
+            _split(packed.b.float(), bshapes))
+
+
+def _pad_cols(x: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros(x.shape[0], k - x.shape[1])], 1)
+
+
+def packed_forward_saved(packed: PackedMLP, pts_T, views_T):
+    """The train kernels' forward walk over the packed buffers: raw
+    [4, N] and the saved activations (rounded as the kernel saves them)."""
+    cd, depth = packed.compute_dtype, packed.net_depth
+    w, b = _packed_weights(packed)
+    pe = _pad_cols(fm._round(fm._posenc(pts_T.T.float(), packed.multires),
+                             cd), _pad16(3 * (1 + 2 * packed.multires)))
+    ve = _pad_cols(
+        fm._round(fm._posenc(views_T.T.float(), packed.multires_views), cd),
+        _pad16(3 * (1 + 2 * packed.multires_views)))
+    acts, h = [], None
+    for i in range(depth):
+        if i == 0:
+            x = pe
+        elif i - 1 in packed.skips:
+            x = torch.cat([pe, h], 1)
+        else:
+            x = h
+        h = fm._round(torch.relu(x @ w[f"pts_{i}"] + b[f"pts_{i}"]), cd)
+        acts.append(h)
+    feat = fm._round(h @ w["feature"] + b["feature"], cd)
+    hv = fm._round(torch.relu(torch.cat([feat, ve], 1) @ w["views_0"]
+                              + b["views_0"]), cd)
+    alpha = h @ w["alpha"][:, 0] + b["alpha"]
+    rgb = hv @ w["rgb"].T + b["rgb"]
+    raw = torch.cat([rgb.T, alpha[None]], 0)
+    return raw, dict(pe=pe, ve=ve, acts=acts, feat=feat, hv=hv)
+
+
+def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
+    """The train kernels' backward walk: packed fp32 (dW, db) for the raw
+    cotangent g_T [4, N], rounded where the kernel rounds (bf16 operands
+    of every product, fp32 bias sums, ReLU masks from saved values)."""
+    cd, depth = packed.compute_dtype, packed.net_depth
+    w, _ = _packed_weights(packed)
+
+    def rnd(x):
+        return fm._round(x, cd)
+
+    pe, ve, acts = saved["pe"], saved["ve"], saved["acts"]
+    feat, hv, h_last = saved["feat"], saved["hv"], saved["acts"][-1]
+    g_rgb, g_a = g_T[:3].T.float(), g_T[3].float()
+    gr_r, ga_r = rnd(g_rgb), rnd(g_a)
+    dw, db = {}, {}
+    dw["rgb"], db["rgb"] = gr_r.T @ hv, g_rgb.sum(0)
+    dw["alpha"], db["alpha"] = (h_last.T @ ga_r)[:, None], g_a.sum()[None]
+    g_hv = (gr_r @ w["rgb"]) * (hv > 0)
+    g_hv_r = rnd(g_hv)
+    dw["views_0"] = torch.cat([feat, ve], 1).T @ g_hv_r
+    db["views_0"] = g_hv.sum(0)
+    g_feat = g_hv_r @ w["views_0"][: packed.width].T
+    g_feat_r = rnd(g_feat)
+    dw["feature"], db["feature"] = h_last.T @ g_feat_r, g_feat.sum(0)
+    g_h = g_feat_r @ w["feature"].T + ga_r[:, None] * w["alpha"][:, 0]
+    p = pe.shape[1]
+    for i in reversed(range(depth)):
+        g_pre = g_h * (acts[i] > 0)
+        g_pre_r = rnd(g_pre)
+        skip = i > 0 and i - 1 in packed.skips
+        if i == 0:
+            x = pe
+        elif skip:
+            x = torch.cat([pe, acts[i - 1]], 1)
+        else:
+            x = acts[i - 1]
+        dw[f"pts_{i}"], db[f"pts_{i}"] = x.T @ g_pre_r, g_pre.sum(0)
+        if i > 0:
+            wh = w[f"pts_{i}"][p:] if skip else w[f"pts_{i}"]
+            g_h = g_pre_r @ wh.T
+    wshapes, bshapes = _block_shapes(packed)
+    return (torch.cat([dw[n].reshape(-1) for n, *_ in wshapes]),
+            torch.cat([db[n].reshape(-1) for n, _ in bshapes]))
+
+
+def packed_bwd_reference_T(packed: PackedMLP, pts_T, views_T,
+                           g_T) -> List[torch.Tensor]:
+    """`bwd_T` by the kernel's walk over its packed buffers, unpacked to
+    the torch layout."""
+    _, saved = packed_forward_saved(packed, pts_T, views_T)
+    return unpack_grads(packed, *packed_backward(packed, saved, g_T))
+
+
+def plain_bwd_T(weights, pts_T, views_T, g_T, net_depth, skips, multires,
+                multires_views, compute_dtype) -> List[torch.Tensor]:
+    """The plain version of `bwd_T` on any device: autograd through
+    `_mlp_body` (torch-layout grads)."""
+    flat = weights.flat if isinstance(weights, PackedMLP) else weights
+    ws = [w.detach().float().requires_grad_() for w in flat]
+    with torch.enable_grad():
+        out = fm._mlp_body(
+            pts_T.T, views_T.T, ws, net_depth=net_depth, skips=tuple(skips),
+            multires=multires, multires_views=multires_views,
+            compute_dtype=compute_dtype)
+        grads = torch.autograd.grad(out, ws, g_T.T.float())
+    return list(grads)
+
+
+def _check_stream(name, t, rows, n, device):
+    if (t.dtype != torch.float32 or t.shape != (rows, n)
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"{name} must be a contiguous fp32 [{rows}, {n}] "
+                         f"tensor on {device}")
+
+
+def train_buffers(plan_fn, args, packed: PackedMLP, device):
+    """Workspace, per-block partials and the packed-grad output of one
+    train-kernel launch, sized by the kernel's own plan function."""
+    out = (ctypes.c_longlong * 4)()
+    err = plan_fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"train kernel plan failed: cudaError_t {err}")
+    blocks, ws_per_block, stride = out[0], out[1], out[2]
+    n_w, n_b = grad_numel(packed)
+    ws = torch.empty(blocks * ws_per_block, dtype=packed.compute_dtype,
+                     device=device)
+    part = torch.empty(blocks * stride, dtype=torch.float32, device=device)
+    dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
+    return ws, part, dw
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load(BWD_KERNEL)
+    plan = lib.fused_mlp_bwd_plan
+    plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    fn = lib.fused_mlp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return plan, fn
+
+
+def _packed_for(weights, net_depth, skips, multires, multires_views, cd):
+    if isinstance(weights, PackedMLP):
+        if weights.config() != (net_depth, skips, multires, multires_views,
+                                cd):
+            raise ValueError("PackedMLP was packed for another config")
+        return weights
+    return pack(weights, net_depth, skips, multires, multires_views, cd)
+
+
+def bwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
+          g_T: torch.Tensor, net_depth: int, skips, multires: int,
+          multires_views: int, compute_dtype) -> List[torch.Tensor]:
+    """Weight grads of `fwd_T` for the raw cotangent g_T [4, N]: the
+    torch-layout list (fp32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (and its dW reduction) or raise."""
+    cd = fm.as_dtype(compute_dtype)
+    skips = tuple(sorted(skips))
+    if pts_T.device.type == "cpu":
+        if isinstance(weights, PackedMLP):
+            _packed_for(weights, net_depth, skips, multires, multires_views,
+                        cd)
+        return plain_bwd_T(weights, pts_T, views_T, g_T, net_depth, skips,
+                           multires, multires_views, cd)
+    if pts_T.device.type != "cuda":
+        raise ValueError(f"no fused backward for device {pts_T.device}")
+    packed = _packed_for(weights, net_depth, skips, multires,
+                         multires_views, cd)
+    n, dev = pts_T.shape[1], pts_T.device
+    _check_stream("pts_T", pts_T, 3, n, dev)
+    _check_stream("views_T", views_T, 3, n, dev)
+    _check_stream("g_T", g_T, 4, n, dev)
+    for t in (packed.w, packed.b):
+        if t.device != dev:
+            raise ValueError("packed weights are not on the points' device")
+    n_w, _ = grad_numel(packed)
+    if n == 0:
+        return unpack_grads(packed, *torch.zeros(
+            sum(grad_numel(packed)), device=dev).split(list(grad_numel(
+                packed))))
+    skip_mask = sum(1 << s for s in skips)
+    cfg_args = (net_depth, packed.width, skip_mask, multires, multires_views,
+                int(cd == torch.bfloat16))
+    plan, fn = _bwd_kernel()
+    ws, part, dw = train_buffers(plan, (n, *cfg_args), packed, dev)
+    err = fn(pts_T.data_ptr(), views_T.data_ptr(), g_T.data_ptr(),
+             packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
+             part.data_ptr(), dw.data_ptr(), n, *cfg_args,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return unpack_grads(packed, dw[:n_w], dw[n_w:])
+
+
+class _FusedMLPTrainT(torch.autograd.Function):
+    """raw_T = MLP(pts_T, views_T); grads for the weights only (positions
+    carry no grad in the NeRF step, run_nerf_view.py:527)."""
+
+    @staticmethod
+    def forward(ctx, config, packed, pts_T, views_T, *weights):
+        net_depth, skips, multires, multires_views, cd = config
+        src = packed if packed is not None else list(weights)
+        ctx.config, ctx.src = config, src
+        ctx.save_for_backward(pts_T, views_T)
+        return fwd_T(src, pts_T, views_T, net_depth, skips, multires,
+                     multires_views, cd)
+
+    @staticmethod
+    def backward(ctx, g_T):
+        net_depth, skips, multires, multires_views, cd = ctx.config
+        pts_T, views_T = ctx.saved_tensors
+        grads = bwd_T(ctx.src, pts_T, views_T, g_T.contiguous(), net_depth,
+                      skips, multires, multires_views, cd)
+        return (None, None, None, None, *grads)
+
+
+def fused_mlp_v2_train_T(weights: Sequence[torch.Tensor], pts_T, views_T,
+                         net_depth: int, skips, multires: int,
+                         multires_views: int, compute_dtype,
+                         packed: PackedMLP = None) -> torch.Tensor:
+    """Differentiable fused MLP on transposed streams: pts/views [3, N] ->
+    raw [4, N]; the weight grads come from `bwd_T`. `weights` is the
+    torch-layout parameter list that receives the grads; `packed` (the
+    same weights packed, for a CUDA caller that already packed them) is
+    optional."""
+    cd = fm.as_dtype(compute_dtype)
+    config = (net_depth, tuple(sorted(skips)), multires, multires_views, cd)
+    return _FusedMLPTrainT.apply(config, packed, pts_T, views_T, *weights)

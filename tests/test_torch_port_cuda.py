@@ -98,3 +98,84 @@ def test_render_goes_through_the_kernel(cuda_device):
     plain = render_lib.build_render_fn(
         model, cfg.replace(use_fused_render=False))(rays)
     assert (fused["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3
+
+
+# ------------------------- the train kernels -----------------------------
+
+from consistentnerf_tpu_torch.ops import fused_onepass as op  # noqa: E402
+
+# Kernel vs the packed walk (the same rounding points, run with torch on
+# the card): the largest ||diff|| / ||walk|| over the grad tensors. Only
+# the order of the fp32 sums differs. At bf16 that order flips the bf16
+# rounding of an activation or gradient now and then; each flip perturbs
+# the next layer's 256 sums, which flips more of them, so at width 256
+# the grads of the first layers end up ~1e-2 apart (1.3e-2 measured on an
+# H100 for 3000 points and unit cotangents) while fp32 agrees to ~1e-6.
+TRAIN_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
+
+
+def _rel(got, want):
+    return max((torch.linalg.norm(a - b)
+                / torch.linalg.norm(b).clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def _mlp_flat(width, device, seed=1):
+    mlp = NeRFMLP(net_depth=8, net_width=width)
+    mlp.reset_parameters(torch.Generator().manual_seed(seed))
+    return [w.detach().to(device) for w in fm.flatten_params(mlp)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [32, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bwd_kernel_matches_packed_walk(cuda_device, width, dtype):
+    flat = _mlp_flat(width, cuda_device)
+    n = 3000  # 4 chunks of 768 points, the last one ragged
+    pts_T, views_T = _inputs(n, cuda_device)
+    g = torch.randn(4, n, generator=torch.Generator().manual_seed(3)).to(
+        cuda_device)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, dtype)
+    before = v2.bwd_launches
+    got = v2.bwd_T(packed, pts_T, views_T, g, 8, SKIPS, MR, MV, dtype)
+    torch.cuda.synchronize()
+    assert v2.bwd_launches == before + 1
+    want = v2.packed_bwd_reference_T(packed, pts_T, views_T, g)
+    assert all(torch.isfinite(x).all() for x in got)
+    print(f"bwd {dtype} W={width}: rel {_rel(got, want):.3e}")
+    assert _rel(got, want) < TRAIN_TOL[dtype]
+    again = v2.bwd_T(packed, pts_T, views_T, g, 8, SKIPS, MR, MV, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [64, 192, 24])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_onepass_kernel_matches_packed_walk(cuda_device, seg, dtype):
+    flat = _mlp_flat(64, cuda_device, seed=2)
+    g = torch.Generator().manual_seed(4)
+    n_rays = 37  # a ragged last chunk
+    o = torch.randn(n_rays, 3, generator=g)
+    d = torch.randn(n_rays, 3, generator=g)
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2, -1).values
+    dev = cuda_device
+    o, d, z = o.to(dev), d.to(dev), z.to(dev)
+    vd = d / d.norm(dim=-1, keepdim=True)
+    pts_T, views_T = op._pts_views(o.T, d.T, vd.T, z)
+    rows = [torch.rand(n_rays, generator=g).to(dev) for _ in range(3)]
+    tgt = torch.rand(n_rays, 3, generator=g).to(dev)
+    args = (pts_T, views_T, z, d.norm(dim=-1), rows[0], tgt, rows[1],
+            rows[2] * 4 + 2)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, dtype)
+    before = op.launches
+    out, dw = op.onepass_level(packed, *args, white_bkgd=True,
+                               compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    want_out, want_dw = op.packed_onepass_reference(packed, *args, True)
+    assert torch.isfinite(out).all()
+    row_err = (out - want_out).abs().max().item()
+    print(f"onepass {dtype} S={seg}: rows {row_err:.3e}, "
+          f"dW rel {_rel(dw, want_dw):.3e}")
+    assert (out - want_out).abs().max().item() < 1e-3
+    assert _rel(dw, want_dw) < TRAIN_TOL[dtype]

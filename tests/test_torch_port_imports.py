@@ -21,7 +21,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
 print(len(names), "modules;", "banned:", bad)
 assert not bad, bad
-for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render"):
+for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
+             "ops.fused_onepass", "cli.train", "train.loop", "train.step",
+             "train.state", "train.losses", "train.checkpoints",
+             "train.image_metrics", "data.pipeline", "consistency.masks",
+             "consistency.monodepth"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -54,3 +58,34 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
     proc = _run(["chip_smoke.py"], str(tmp_path))
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_train_dispatch_raises_rather_than_falls_back():
+    """ss_loss and softLpmask with use_fused_train are not ported: the
+    one-pass gate and the step dispatch raise, naming the ROADMAP item,
+    instead of running another step."""
+    import pytest
+
+    from consistentnerf_tpu_torch import configs
+    from consistentnerf_tpu_torch.ops import fused_onepass
+    from consistentnerf_tpu_torch.train import loop
+
+    base = configs.Config(netdepth=2, netwidth=32, N_samples=8,
+                          N_importance=8, use_fused_train=True,
+                          use_onepass_train=True)
+    assert fused_onepass.onepass_supported(base)
+    ss = base.replace(ss_loss=True)
+    with pytest.raises(NotImplementedError, match="consistency"):
+        fused_onepass.onepass_supported(ss)
+    with pytest.raises(NotImplementedError, match="consistency"):
+        loop.select_train_step(ss, None)
+    with pytest.raises(NotImplementedError, match="consistency"):
+        loop.select_train_step(ss.replace(use_fused_train=False), None)
+    soft = base.replace(softLpmask=True)
+    assert not fused_onepass.onepass_supported(soft)
+    with pytest.raises(NotImplementedError, match="two-call fused step"):
+        loop.select_train_step(soft, None)
+    with pytest.raises(ValueError, match="per-ray losses"):
+        fused_onepass.build_onepass_vanilla_train_step(soft)
+    assert loop.select_train_step(soft.replace(use_fused_train=False),
+                                  None) is not None
