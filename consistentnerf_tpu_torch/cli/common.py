@@ -45,21 +45,33 @@ def explicit_keys(args) -> set:
 
 
 def auto_fused_defaults(cfg: Config, args) -> Config:
-    """The JAX package's rule for accelerators, on a CUDA device: a vanilla
-    config trains through the kernel step (`use_fused_train` and
-    `use_onepass_train`) unless those were set explicitly, and a bfloat16
-    one renders through the fused kernel unless `use_fused_render` was.
-    fp32 renders stay on the plain path, the reference-parity default."""
+    """The JAX package's rule for accelerators (cli/common.py:168-197), on
+    a CUDA device: a vanilla or mip config trains through the kernel step
+    (`use_fused_train` and `use_onepass_train`) unless those were set
+    explicitly, and a bfloat16 one renders through the fused kernels
+    unless `use_fused_render` was. fp32 renders stay on the plain path,
+    the reference-parity default."""
     vanilla_ok = (
         cfg.backbone == "vanilla"
         and cfg.use_viewdirs
         and cfg.netwidth % 32 == 0
     )
-    if torch.device(args.device).type != "cuda" or not vanilla_ok:
+    mip_render_ok = (
+        cfg.backbone == "mipnerf"
+        and cfg.stop_level_grad
+        and cfg.min_deg_point == 0
+        and cfg.netwidth % 32 == 0
+    )
+    # The train step also needs disable_normals (the normals forward has
+    # no backward).
+    mip_ok = mip_render_ok and cfg.disable_normals
+    if (torch.device(args.device).type != "cuda"
+            or not (vanilla_ok or mip_render_ok)):
         return cfg
     explicit = explicit_keys(args)
     updates = {}
-    if "use_fused_train" not in explicit and not cfg.use_fused_train:
+    if ("use_fused_train" not in explicit and not cfg.use_fused_train
+            and (vanilla_ok or mip_ok)):
         updates["use_fused_train"] = True
     if ("use_onepass_train" not in explicit and not cfg.use_onepass_train
             and (cfg.use_fused_train or "use_fused_train" in updates)):

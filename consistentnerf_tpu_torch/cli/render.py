@@ -1,5 +1,6 @@
 """Render CLI: render the test views (or the render path) of a trained
-vanilla model and write `color_*.png` / `depth_*.png` per frame.
+model (vanilla or mip backbone) and write `color_*.png` / `depth_*.png`
+per frame.
 
     python -m consistentnerf_tpu_torch.cli.render --render-test \
         --set dataset_type=synthetic --set compute_dtype=bfloat16
@@ -77,6 +78,10 @@ def main(argv=None):
         step = CheckpointManager(os.path.dirname(ckpt)).restore_for_eval(
             model, int(os.path.basename(ckpt)[5:-3]))
         print(f"restored {ckpt} (step {step})")
+    elif cfg.backbone == "mipnerf":
+        raise NotImplementedError(
+            f"{ckpt}: importing a reference mip-NeRF checkpoint is not "
+            "ported yet (ROADMAP Queue 1: import_mipnerf_ckpt)")
     else:
         state, step = interop.load_reference_tar(ckpt)
         model.load_state_dict(state)

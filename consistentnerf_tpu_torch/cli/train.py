@@ -1,6 +1,8 @@
-"""Train CLI of the vanilla model:
+"""Train CLI of both backbones:
 
     python -m consistentnerf_tpu_torch.cli.train \
+        --set dataset_type=synthetic --set compute_dtype=bfloat16
+    python -m consistentnerf_tpu_torch.cli.train --set backbone=mipnerf \
         --set dataset_type=synthetic --set compute_dtype=bfloat16
 
 Loads the scene, trains with checkpoints under

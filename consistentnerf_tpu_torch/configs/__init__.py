@@ -4,7 +4,9 @@ that the ported slice reads, with the same names and defaults.
 Configs load from JSON files and accept `key=value` override strings
 (`parse_overrides`). The named scene presets and the reference's
 `.gin` / `.txt` experiment files are not ported yet (ROADMAP Queue 1:
-configs).
+configs); the RegNeRF regularizer fields (TV norm, random-pose rays,
+near/far annealing) load but raise where they are read (ROADMAP Queue 1:
+mip regularizers).
 """
 
 from __future__ import annotations
@@ -16,14 +18,14 @@ from typing import Any, Optional, Sequence
 
 @dataclasses.dataclass
 class Config:
-    """Everything the vanilla render and train slices read."""
+    """Everything the vanilla and mip render and train slices read."""
 
     # --- experiment --------------------------------------------------------
     expname: str = "exp"
     basedir: str = "./logs"
     datadir: str = "./data/nerf_synthetic/lego"
     seed: int = 0
-    backbone: str = "vanilla"  # only 'vanilla' is ported
+    backbone: str = "vanilla"  # 'vanilla' | 'mipnerf'
 
     # --- dataset -----------------------------------------------------------
     dataset_type: str = "blender"  # only 'synthetic' is ported
@@ -40,8 +42,12 @@ class Config:
 
     # --- batching ----------------------------------------------------------
     N_rand: int = 4096  # random rays per step (excl. patch rays)
+    batching: str = "single_image_patch"  # all_images|single_image|single_image_patch
     patch_size: int = 16
     n_patches: int = 4
+    batch_size_random: int = 2048  # random-pose rays (mip/RegNeRF TV loss)
+    random_patch_size: int = 8  # RegNeRF random-patch size
+    load_random_rays: bool = False  # not ported (Queue 1: mip regularizers)
     precrop_iters: int = 0
     precrop_frac: float = 0.5
     use_batching: bool = False  # vanilla-nerf "use_batching" mode
@@ -57,7 +63,7 @@ class Config:
     multires_views: int = 4
     raw_noise_std: float = 0.0  # not ported (ROADMAP Queue 1: raw noise)
     use_fused_render: bool = False  # fused-MLP kernel for rendering
-    use_fused_train: bool = False  # kernel train step (vanilla)
+    use_fused_train: bool = False  # kernel train step
     # A TPU lane tile of the JAX package, kept so its config files load;
     # the CUDA kernels choose their own tiles and do not read it.
     fused_tile: int = 256
@@ -68,6 +74,25 @@ class Config:
     use_onepass_render: bool = False  # not ported (ROADMAP Queue 2)
     use_pdf_kernel: bool = False  # not ported (ROADMAP Queue 2)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' MLP compute
+
+    # --- mip model ---------------------------------------------------------
+    mip_num_samples: int = 96
+    mip_num_levels: int = 2
+    stop_level_grad: bool = True
+    genspace_fn: Optional[str] = None  # None/linear|log|reciprocal
+    ray_shape: str = "cone"
+    disable_integration: bool = False
+    single_jitter: bool = False
+    min_deg_point: int = 0
+    max_deg_point: int = 16
+    deg_view: int = 4
+    density_noise: float = 0.0
+    rgb_padding: float = 0.001
+    disable_normals: bool = True  # False is not ported (Queue 1: mip normals)
+    resample_padding_init: float = 0.01
+    resample_padding_final: float = 0.01
+    randomized: bool = True
+    vis_num_rays: int = 64
 
     # --- consistency priors ------------------------------------------------
     hardmask: bool = False
@@ -87,10 +112,45 @@ class Config:
     patch_lpips_loss_mult: float = 0.005
     lpips_weights_path: Optional[str] = None
 
+    # --- RegNeRF losses ----------------------------------------------------
+    compute_depth_metrics: bool = False
+    compute_mono_depth_metrics: bool = True
+    compute_disp_metrics: bool = False
+    compute_normal_metrics: bool = False
+    use_hardmask: bool = True
+    use_nerf_depth: bool = False
+    coarse_loss_mult: float = 0.1
+    weight_decay_mult: float = 0.0
+    disable_multiscale_loss: bool = False
+    # The TV norm on random-pose patches and the near/far annealing are
+    # not ported (ROADMAP Queue 1: mip regularizers); a config that turns
+    # them on raises.
+    depth_tvnorm_loss_mult: float = 0.0
+    depth_tvnorm_selector: str = "distance_mean_save"
+    depth_tvnorm_decay: bool = False
+    depth_tvnorm_maxstep: int = 0
+    depth_tvnorm_loss_mult_start: float = 0.0
+    depth_tvnorm_loss_mult_end: float = 0.0
+    depth_tvnorm_mask_weight: float = 0.0
+    depth_tvnorm_type: str = "l2"
+    anneal_nearfar: bool = False
+    anneal_nearfar_steps: int = 2000
+    anneal_nearfar_perc: float = 0.2
+    anneal_mid_perc: float = 0.5
+    random_pose_type: str = "renderpath"
+    random_pose_focusptjitter: bool = True
+    random_pose_radius: float = 1.0
+    random_pose_add_test_poses: bool = False
+    n_random_poses: int = 1000
+
     # --- optimization ------------------------------------------------------
     total_iters: int = 50000
     lrate: float = 5e-4  # vanilla init lr
     lrate_decay: int = 250  # vanilla: x0.1 every lrate_decay*1000 steps
+    lr_init: float = 2e-3  # mip init lr
+    lr_final: float = 2e-5
+    lr_delay_steps: int = 512
+    lr_delay_mult: float = 0.01
     grad_max_val: float = 0.1  # value clip (0 = off)
     grad_max_norm: float = 0.0  # norm clip (0 = off)
     check_grad_for_nans: bool = True

@@ -17,18 +17,18 @@
 
 namespace {
 
-using mlp_train::bf16;
-using mlp_train::Dims;
+using mlp::bf16;
+using mlp::Dims;
 
 template <typename T>
-__global__ void __launch_bounds__(mlp_train::kThreads, 1)
+__global__ void __launch_bounds__(mlp::kThreads, 1)
     fused_mlp_bwd_kernel(const float* pts, const float* views,
                          const float* g, const T* w, const float* b, T* ws,
                          float* part, size_t part_stride, int n, Dims d) {
-  mlp_train::RayRows rr{};
+  mlp::RayRows rr{};
   rr.seg = 1;
-  mlp_train::train_block<T, 2>(pts, views, g, rr, w, b, ws, part,
-                               part_stride, n, d);
+  mlp::train_block<T, 2, mlp::NerfEnc>(pts, nullptr, views, g, rr, w, b,
+                                       ws, part, part_stride, n, d);
 }
 
 template <typename T>
@@ -36,9 +36,9 @@ int launch(const void* pts, const void* views, const void* g, const void* w,
            const void* b, void* ws, void* part, void* dw, int n, Dims d,
            cudaStream_t stream) {
   long long pl[4];
-  int err = mlp_train::plan<T>(fused_mlp_bwd_kernel<T>, 2, n, 1, d, pl);
+  int err = mlp::plan<T>(fused_mlp_bwd_kernel<T>, 2, n, 1, d, pl);
   if (err) return err;
-  fused_mlp_bwd_kernel<T><<<(int)pl[0], mlp_train::kThreads, (size_t)pl[3],
+  fused_mlp_bwd_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
                             stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(views),
       static_cast<const float*>(g), static_cast<const T*>(w),
@@ -47,7 +47,7 @@ int launch(const void* pts, const void* views, const void* g, const void* w,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int total = (int)(d.w_total() + d.b_total());
-  mlp_train::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+  mlp::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
       static_cast<float*>(dw));
   return (int)cudaGetLastError();
@@ -62,8 +62,8 @@ extern "C" int fused_mlp_bwd_plan(int n, int depth, int width, int skip_mask,
                                   int use_bf16, long long* out) {
   Dims d(depth, width, skip_mask, multires, multires_views);
   if (use_bf16)
-    return mlp_train::plan<bf16>(fused_mlp_bwd_kernel<bf16>, 2, n, 1, d, out);
-  return mlp_train::plan<float>(fused_mlp_bwd_kernel<float>, 2, n, 1, d, out);
+    return mlp::plan<bf16>(fused_mlp_bwd_kernel<bf16>, 2, n, 1, d, out);
+  return mlp::plan<float>(fused_mlp_bwd_kernel<float>, 2, n, 1, d, out);
 }
 
 // pts, views: [3, n] fp32; g: [4, n] fp32; w: packed weights (bf16 when

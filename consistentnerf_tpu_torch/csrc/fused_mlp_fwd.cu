@@ -8,297 +8,21 @@
 // bf16; `feature` cast to bf16 without ReLU; alpha and rgb stay fp32.
 // With float weights the same kernel runs in fp32 on the CUDA cores.
 //
-// Bound: compute. One point costs 1,186,816 FLOP (593,408 MACs at
-// 8x256 / multires 10+4) and moves 40 bytes (6 floats in, 4 out), about
-// 29.7k FLOP per byte, far above the ~295 FLOP/byte ridge of an H100 in
-// bf16. Design: a block owns a tile of M points and keeps every
-// activation of that tile in shared memory (two ping-pong buffers of
-// [M, W] plus the point and view encodings), so nothing but the 6 input
-// and 4 output floats per point touches device memory. The weights
-// (~1.2 MB in bf16) do not fit on-chip; each block streams every layer's
-// weights straight from L2 into wmma fragments once per tile, so L2
-// traffic per point is weights / M. The skip concat [pe, h] and the view
-// concat [feature, ve] are never built: a layer's K loop runs over two
-// shared-memory segments against the matching weight rows. Products use
-// nvcuda::wmma bf16 16x16x16 fragments with fp32 accumulators; the
-// epilogue adds the bias, applies ReLU and casts into the other buffer.
-// The ragged last tile is zero-filled on load and masked on store. No
-// cross-block reduction, so the output is deterministic.
-//
-// Weight layout (built by ops/fused_mlp_v2.py::pack): one flat buffer of
-// the element type, per layer W^T as [K_pad, N] row-major with K padded
-// to a multiple of 16 by zero rows, in the order
-//   pts_0 .. pts_{D-1}, feature, views_0, alpha [W], rgb [3, W/2];
-// a post-skip layer's rows are [pe (P) | h (W)], views_0's rows are
-// [feature (W) | ve (V)]. Biases: one flat fp32 buffer in the same order.
+// Bound (operations: 1,186,816 FLOP and 40 bytes a point at 8x256 /
+// multires 10+4), design and weight layout: see mlp_fwd.cuh, whose walk
+// this kernel runs with the NeRF encoder (mlp_common.cuh::NerfEnc).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "mlp_fwd.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 8;  // row padding (elements) against bank conflicts
-
-__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
-
-__device__ inline float to_f(float v) { return v; }
-__device__ inline float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ inline T from_f(float v);
-template <> __device__ inline float from_f<float>(float v) { return v; }
-template <> __device__ inline bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T>
-struct Seg {
-  const T* buf;  // [M, ld] tile in shared memory
-  int ld;
-  int k;  // columns consumed (multiple of 16)
-};
-
-// Torch-Embedder PE of the tile's points into dst [M, ld], zero columns
-// past 3 * (1 + 2 * nf) and zero rows past the end of the stream.
-template <typename T, int M>
-__device__ void encode(const float* __restrict__ x, int n, int base, int nf,
-                       int kpad, T* dst, int ld) {
-  const int real = 3 * (1 + 2 * nf);
-  for (int e = threadIdx.x; e < M * kpad; e += kThreads) {
-    const int p = e / kpad, c = e % kpad, g = base + p;
-    float v = 0.f;
-    if (c < real && g < n) {
-      if (c < 3) {
-        v = x[(size_t)c * n + g];
-      } else {
-        const int j = c - 3, f = j / 6, r = j % 6;
-        const float t = x[(size_t)(r % 3) * n + g] * (float)(1 << f);
-        v = r < 3 ? sinf(t) : cosf(t);
-      }
-    }
-    dst[p * ld + c] = from_f<T>(v);
-  }
-}
-
-// dst[m, n] = act(sum over segments of seg[m, k] * Wt[row, n] + bias[n]),
-// bf16 operands on the tensor cores. Each warp owns whole 16-column
-// tiles of the output (all M rows), so a weight fragment is loaded from
-// L2 once per block and reused for M / 16 row tiles.
-template <int M>
-__device__ void layer(Seg<bf16> s0, Seg<bf16> s1,
-                      const bf16* __restrict__ wt, int n_out,
-                      const float* __restrict__ bias, bool relu, bf16* dst,
-                      int ldd, float* stage) {
-  constexpr int RT = M / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ct = warp; ct < n_out / 16; ct += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.0f);
-    const bf16* w = wt + ct * 16;
-    for (int s = 0; s < 2; ++s) {
-      const Seg<bf16> sg = s ? s1 : s0;
-      for (int k0 = 0; k0 < sg.k; k0 += 16, w += 16 * n_out) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, w, n_out);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, sg.buf + r * 16 * sg.ld + k0, sg.ld);
-          wmma::mma_sync(acc[r], a, b, acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = e / 16, col = ct * 16 + e % 16;
-        float v = stage[e] + bias[col];
-        if (relu) v = fmaxf(v, 0.f);
-        dst[(r * 16 + row) * ldd + col] = __float2bfloat16_rn(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// fp32 variant on the CUDA cores: a 16x16 thread grid, each thread owns
-// M / 16 rows x 8 columns of the output per pass.
-template <int M>
-__device__ void layer(Seg<float> s0, Seg<float> s1,
-                      const float* __restrict__ wt, int n_out,
-                      const float* __restrict__ bias, bool relu, float* dst,
-                      int ldd, float*) {
-  constexpr int RI = M / 16;
-  constexpr int CJ = 8;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int c0 = 0; c0 < n_out; c0 += 16 * CJ) {
-    float acc[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-    const float* w = wt;
-    for (int s = 0; s < 2; ++s) {
-      const Seg<float> sg = s ? s1 : s0;
-      for (int k = 0; k < sg.k; ++k, w += n_out) {
-        float a[RI], b[CJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) a[i] = sg.buf[(ty + 16 * i) * sg.ld + k];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int c = c0 + tx + 16 * j;
-          b[j] = c < n_out ? w[c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < n_out) {
-          float v = acc[i][j] + bias[c];
-          if (relu) v = fmaxf(v, 0.f);
-          dst[(ty + 16 * i) * ldd + c] = v;
-        }
-      }
-  }
-}
-
-template <typename T, int M>
-__global__ void __launch_bounds__(kThreads, 1)
-    fused_mlp_fwd_kernel(const float* __restrict__ pts,
-                         const float* __restrict__ views,
-                         const T* __restrict__ wflat,
-                         const float* __restrict__ bflat,
-                         float* __restrict__ out, int n, int depth, int width,
-                         int skip_mask, int multires, int multires_views) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int P = pad16(3 * (1 + 2 * multires));
-  const int V = pad16(3 * (1 + 2 * multires_views));
-  const int ldp = P + kPad, ldv = V + kPad, ldh = width + kPad;
-  T* pe = reinterpret_cast<T*>(smem);
-  T* ve = pe + M * ldp;
-  T* hx = ve + M * ldv;
-  T* hy = hx + M * ldh;
-  float* stage = reinterpret_cast<float*>(hy + M * ldh) +
-                 (threadIdx.x / 32) * 256;
-  const int base = blockIdx.x * M;
-
-  encode<T, M>(pts, n, base, multires, P, pe, ldp);
-  encode<T, M>(views, n, base, multires_views, V, ve, ldv);
-  __syncthreads();
-
-  const T* w = wflat;
-  const float* b = bflat;
-  T* h = nullptr;
-  for (int i = 0; i < depth; ++i) {
-    Seg<T> s0, s1 = {nullptr, 0, 0};
-    int k;
-    if (i == 0) {
-      s0 = {pe, ldp, P};
-      k = P;
-    } else if ((skip_mask >> (i - 1)) & 1) {
-      s0 = {pe, ldp, P};
-      s1 = {h, ldh, width};
-      k = P + width;
-    } else {
-      s0 = {h, ldh, width};
-      k = width;
-    }
-    T* dst = (h == hx) ? hy : hx;
-    layer<M>(s0, s1, w, width, b, true, dst, ldh, stage);
-    __syncthreads();
-    h = dst;
-    w += (size_t)k * width;
-    b += width;
-  }
-
-  const int half = width / 2;
-  const T* wf = w;
-  const T* wv = wf + (size_t)width * width;
-  const T* wa = wv + (size_t)(width + V) * half;
-  const T* wr = wa + width;
-  const float* bfe = b;
-  const float* bv = bfe + width;
-  const float* ba = bv + half;
-  const float* br = ba + 1;
-
-  // alpha head (fp32 out) reads h before the view layer overwrites it.
-  for (int p = threadIdx.x; p < M; p += kThreads) {
-    const int g = base + p;
-    if (g < n) {
-      float s = 0.f;
-      for (int c = 0; c < width; ++c)
-        s = fmaf(to_f(h[p * ldh + c]), to_f(wa[c]), s);
-      out[(size_t)3 * n + g] = s + ba[0];
-    }
-  }
-  T* feat = (h == hx) ? hy : hx;
-  layer<M>(Seg<T>{h, ldh, width}, Seg<T>{nullptr, 0, 0}, wf, width, bfe,
-           false, feat, ldh, stage);
-  __syncthreads();
-  layer<M>(Seg<T>{feat, ldh, width}, Seg<T>{ve, ldv, V}, wv, half, bv, true,
-           h, ldh, stage);
-  __syncthreads();
-  for (int e = threadIdx.x; e < 3 * M; e += kThreads) {
-    const int p = e % M, c = e / M, g = base + p;
-    if (g < n) {
-      float s = 0.f;
-      for (int k = 0; k < half; ++k)
-        s = fmaf(to_f(h[p * ldh + k]), to_f(wr[c * half + k]), s);
-      out[(size_t)c * n + g] = s + br[c];
-    }
-  }
-}
-
-template <typename T, int M>
-size_t smem_bytes(int width, int multires, int multires_views) {
-  const int P = pad16(3 * (1 + 2 * multires));
-  const int V = pad16(3 * (1 + 2 * multires_views));
-  const size_t elems = (size_t)M * (P + kPad) + (size_t)M * (V + kPad) +
-                       2 * (size_t)M * (width + kPad);
-  return elems * sizeof(T) + kWarps * 256 * sizeof(float);
-}
-
-template <typename T, int M>
-int launch(const void* pts, const void* views, const void* w, const void* b,
-           void* out, int n, int depth, int width, int skip_mask,
-           int multires, int multires_views, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, M>(width, multires, multires_views);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + M - 1) / M;
-  fused_mlp_fwd_kernel<T, M><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(views),
-      static_cast<const T*>(w), static_cast<const float*>(b),
-      static_cast<float*>(out), n, depth, width, skip_mask, multires,
-      multires_views);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+using mlp::bf16;
+using mlp::Dims;
 
 // Dynamic shared memory of one block, in bytes.
 extern "C" int fused_mlp_fwd_smem_bytes(int width, int multires,
                                         int multires_views, int use_bf16) {
-  return (int)(use_bf16 ? smem_bytes<bf16, 128>(width, multires,
-                                                multires_views)
-                        : smem_bytes<float, 64>(width, multires,
-                                                multires_views));
+  const Dims d(1, width, 0, multires, multires_views);
+  return (int)(use_bf16 ? mlp::fwd_smem_bytes<bf16, 128>(d)
+                        : mlp::fwd_smem_bytes<float, 64>(d));
 }
 
 // pts, views: [3, n] fp32; w: packed weights (bf16 when use_bf16, else
@@ -310,10 +34,11 @@ extern "C" int fused_mlp_fwd(const void* pts, const void* views,
                              int multires, int multires_views, int use_bf16,
                              void* stream) {
   if (n <= 0) return 0;
+  const Dims d(depth, width, skip_mask, multires, multires_views);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    return launch<bf16, 128>(pts, views, w, b, out, n, depth, width,
-                             skip_mask, multires, multires_views, s);
-  return launch<float, 64>(pts, views, w, b, out, n, depth, width, skip_mask,
-                           multires, multires_views, s);
+    return mlp::fwd_launch<bf16, 128, mlp::NerfEnc>(pts, nullptr, views, w,
+                                                    b, out, n, d, s);
+  return mlp::fwd_launch<float, 64, mlp::NerfEnc>(pts, nullptr, views, w, b,
+                                                  out, n, d, s);
 }

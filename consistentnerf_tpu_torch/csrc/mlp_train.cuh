@@ -1,14 +1,21 @@
-// Shared device code of the NeRF-MLP train kernels: the forward walk that
+// Shared device code of the MLP train kernels: the forward walk that
 // saves every activation, the backward walk, and the dW accumulation.
 //
-// Two kernels include this header:
-//   fused_mlp_bwd.cu  (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::
-//                      _bwd_pallas_T): weight grads of the MLP for a given
-//                      output cotangent g [4, N];
-//   onepass_level.cu  (replaces consistentnerf_tpu/ops/fused_onepass.py::
-//                      onepass_level_T): forward, compositing, per-ray loss
-//                      cotangent and backward of one sampling level.
-// The second is the first with the cotangent made in the kernel.
+// Four kernels include this header, each with an encoder policy
+// (mlp_common.cuh: NerfEnc or MipEnc):
+//   fused_mlp_bwd.cu      (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::
+//                          _bwd_pallas_T) and
+//   fused_mip_bwd.cu      (ops/fused_mip.py::_bwd_pallas_T): weight grads
+//                          of the MLP for a given output cotangent g [4, N]
+//                          (mode 2);
+//   onepass_level.cu      (ops/fused_onepass.py::onepass_level_T, mode 3)
+//                          and
+//   onepass_mip_level.cu  (ops/fused_onepass.py::onepass_mip_level_T,
+//                          mode 4): forward, compositing, per-ray loss
+//                          cotangent and backward of one sampling level.
+// Modes 3 and 4 are mode 2 with the cotangent made in the kernel; they
+// differ in their compositing (vanilla alpha compositing, or mip-NeRF's
+// softplus density with exp(-cumsum) transmittance and distance_mean).
 //
 // Bound: operations. One point costs 3x the forward's 1,186,816 FLOP
 // (forward, input-grad products, dW products) at 8x256 / multires 10+4,
@@ -51,78 +58,17 @@
 
 #include <algorithm>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "mlp_common.cuh"
 
-namespace mlp_train {
+namespace mlp {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 8;    // smem row padding (elements), as the forward
 constexpr int kChunk = 768;  // points per chunk (before whole-ray rounding)
 
-__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ inline int pad64(int x) { return (x + 63) / 64 * 64; }
-
-__device__ inline float to_f(float v) { return v; }
-__device__ inline float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ inline T from_f(float v);
-template <> __device__ inline float from_f<float>(float v) { return v; }
-template <> __device__ inline bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <typename T> struct SubTile;
 template <> struct SubTile<bf16> { static constexpr int M = 64; };
 template <> struct SubTile<float> { static constexpr int M = 32; };
-
-// Sizes of one MLP config.
-struct Dims {
-  int depth, width, half, skip_mask, multires, multires_views;
-  int pe_real, ve_real, P, V;
-  __host__ __device__ Dims(int d, int w, int sm, int mr, int mv)
-      : depth(d), width(w), half(w / 2), skip_mask(sm), multires(mr),
-        multires_views(mv), pe_real(3 * (1 + 2 * mr)),
-        ve_real(3 * (1 + 2 * mv)), P(pad16(3 * (1 + 2 * mr))),
-        V(pad16(3 * (1 + 2 * mv))) {}
-  __host__ __device__ bool skip_before(int i) const {
-    return i > 0 && ((skip_mask >> (i - 1)) & 1);
-  }
-  __host__ __device__ int rows(int i) const {  // K_pad of trunk layer i
-    return i == 0 ? P : (skip_before(i) ? P + width : width);
-  }
-  // Packed weight offsets (elements).
-  __host__ __device__ size_t w_layer(int i) const {
-    size_t o = 0;
-    for (int j = 0; j < i; ++j) o += (size_t)rows(j) * width;
-    return o;
-  }
-  __host__ __device__ size_t w_feature() const { return w_layer(depth); }
-  __host__ __device__ size_t w_views() const {
-    return w_feature() + (size_t)width * width;
-  }
-  __host__ __device__ size_t w_alpha() const {
-    return w_views() + (size_t)(width + V) * half;
-  }
-  __host__ __device__ size_t w_rgb() const { return w_alpha() + width; }
-  __host__ __device__ size_t w_total() const { return w_rgb() + 3 * half; }
-  // Packed bias offsets.
-  __host__ __device__ int b_layer(int i) const { return i * width; }
-  __host__ __device__ int b_feature() const { return depth * width; }
-  __host__ __device__ int b_views() const { return b_feature() + width; }
-  __host__ __device__ int b_alpha() const { return b_views() + half; }
-  __host__ __device__ int b_rgb() const { return b_alpha() + 1; }
-  __host__ __device__ int b_total() const { return b_rgb() + 3; }
-  // Workspace columns per point: PE, VE, ACT[depth], FEAT, HV,
-  // GPRE[depth], GFEAT, GHV, GRAW[4].
-  __host__ __device__ size_t ws_cols() const {
-    return (size_t)P + V + 2 * ((size_t)depth * width + width + half) + 4;
-  }
-};
 
 // Workspace of one block: column-block arrays of [rows, cols] row-major.
 template <typename T>
@@ -148,126 +94,6 @@ struct Workspace {
     return gpre + (size_t)i * rows * d.width;
   }
 };
-
-template <typename T>
-struct Seg {
-  const T* buf;
-  int ld;
-  int k;
-};
-
-// ---------------------------------------------------------------------------
-// Forward pieces (the forward kernel's, at sub-tile M)
-// ---------------------------------------------------------------------------
-
-// Torch-Embedder PE of points [base, base + M) of x [3, n] into dst [M, ld]
-// (zero past 3(1+2nf) columns and past `valid` points).
-template <typename T, int M>
-__device__ void encode(const float* __restrict__ x, int n, int base,
-                       int valid, int nf, int kpad, T* dst, int ld) {
-  const int real = 3 * (1 + 2 * nf);
-  for (int e = threadIdx.x; e < M * kpad; e += kThreads) {
-    const int p = e / kpad, c = e % kpad, g = base + p;
-    float v = 0.f;
-    if (c < real && p < valid) {
-      if (c < 3) {
-        v = x[(size_t)c * n + g];
-      } else {
-        const int j = c - 3, f = j / 6, r = j % 6;
-        const float t = x[(size_t)(r % 3) * n + g] * (float)(1 << f);
-        v = r < 3 ? sinf(t) : cosf(t);
-      }
-    }
-    dst[p * ld + c] = from_f<T>(v);
-  }
-}
-
-// dst[m, n] = act(sum over segments of seg[m, k] * Wt[k, n] + bias[n]).
-template <int M>
-__device__ void layer(Seg<bf16> s0, Seg<bf16> s1,
-                      const bf16* __restrict__ wt, int n_out,
-                      const float* __restrict__ bias, bool relu, bf16* dst,
-                      int ldd, float* stage) {
-  constexpr int RT = M / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ct = warp; ct < n_out / 16; ct += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.0f);
-    const bf16* w = wt + ct * 16;
-    for (int s = 0; s < 2; ++s) {
-      const Seg<bf16> sg = s ? s1 : s0;
-      for (int k0 = 0; k0 < sg.k; k0 += 16, w += 16 * n_out) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, w, n_out);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, sg.buf + r * 16 * sg.ld + k0, sg.ld);
-          wmma::mma_sync(acc[r], a, b, acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(stage, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = e / 16, col = ct * 16 + e % 16;
-        float v = stage[e] + bias[col];
-        if (relu) v = fmaxf(v, 0.f);
-        dst[(r * 16 + row) * ldd + col] = __float2bfloat16_rn(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <int M>
-__device__ void layer(Seg<float> s0, Seg<float> s1,
-                      const float* __restrict__ wt, int n_out,
-                      const float* __restrict__ bias, bool relu, float* dst,
-                      int ldd, float*) {
-  constexpr int RI = M / 16;
-  constexpr int CJ = 8;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int c0 = 0; c0 < n_out; c0 += 16 * CJ) {
-    float acc[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-    const float* w = wt;
-    for (int s = 0; s < 2; ++s) {
-      const Seg<float> sg = s ? s1 : s0;
-      for (int k = 0; k < sg.k; ++k, w += n_out) {
-        float a[RI], b[CJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) a[i] = sg.buf[(ty + 16 * i) * sg.ld + k];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int c = c0 + tx + 16 * j;
-          b[j] = c < n_out ? w[c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < n_out) {
-          float v = acc[i][j] + bias[c];
-          if (relu) v = fmaxf(v, 0.f);
-          dst[(ty + 16 * i) * ldd + c] = v;
-        }
-      }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward pieces
@@ -474,7 +300,7 @@ template <typename T>
 __host__ __device__ size_t smem_bytes(const Dims& d, int rows) {
   constexpr int M = SubTile<T>::M;
   const size_t elems = (size_t)M * (d.P + kPad) + (size_t)M * (d.V + kPad) +
-                       2 * (size_t)M * (d.width + kPad);
+                       2 * (size_t)M * (d.act_cols() + kPad);
   const size_t floats = (size_t)M * (d.width + 4) + kWarps * 256 + 4 * M +
                         5 * (size_t)rows;
   // The dW pass reuses all of it as its bf16 staging buffer.
@@ -491,17 +317,125 @@ __host__ __device__ inline int chunk_points(int mode, int seg) {
   return rays * seg;
 }
 
-// Per-ray inputs of the one-pass level (mode 3).
+// Per-ray inputs of the one-pass levels (modes 3 and 4). Mode 3 reads z
+// and dn; mode 4 reads tmid, delta, noise (may be null) per point and
+// tlo, thi per ray, and the head constants.
 struct RayRows {
   const float *z, *dn, *crgb, *tgt, *cd, *prior;
+  const float *tmid, *delta, *noise, *tlo, *thi;
   float* out;  // [6, n_rays * seg]
   int n_rays, seg, white;
+  float rgb_scale, rgb_padding, density_bias;
 };
 
+__device__ inline float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// jax.nn.softplus: logaddexp(x, 0).
+__device__ inline float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// Mode 4: mip compositing of one chunk's whole rays and the compositing
+// VJP (fused_onepass.py:307-371). craw [4][rows] holds the raw heads on
+// entry and d_raw on exit; ctrans [rows] the transmittance; one thread
+// walks one ray forward, then back.
+__device__ inline void mip_composite(const RayRows& rr, int c, int cpts, int rows,
+                              float* craw, float* ctrans) {
+  const int S = rr.seg, R = cpts / S;
+  const int ray0 = c * R;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const int ray = ray0 + r;
+    float* rw = craw + r * S;
+    float* tr = ctrans + r * S;
+    if (ray >= rr.n_rays) {
+      for (int i = 0; i < S; ++i)
+        for (int k = 0; k < 4; ++k) rw[k * rows + i] = 0.f;
+      continue;
+    }
+    const size_t np = (size_t)rr.n_rays * S, pt0 = (size_t)ray * S;
+    const float* tmid = rr.tmid + pt0;
+    const float* delta = rr.delta + pt0;
+    const float* noise = rr.noise ? rr.noise + pt0 : nullptr;
+    const float tlo = rr.tlo[ray], thi = rr.thi[ray];
+    float csum = 0.f, acc = 0.f, swt = 0.f, rgb[3] = {0.f, 0.f, 0.f};
+    for (int i = 0; i < S; ++i) {
+      float xd = rw[3 * rows + i] + rr.density_bias;
+      if (noise) xd += noise[i];
+      const float dd = softplus(xd) * delta[i];
+      const float alpha = 1.f - expf(-dd);
+      const float trans = expf(-csum);
+      const float w = alpha * trans;
+      csum += dd;
+      tr[i] = trans;
+      acc += w;
+      swt += w * tmid[i];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        rgb[k] += w * (sigmoid(rw[k * rows + i]) * rr.rgb_scale -
+                       rr.rgb_padding);
+      rr.out[5 * np + pt0 + i] = w;
+    }
+    if (rr.white)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgb[k] += 1.f - acc;
+    const float acc_s = fmaxf(acc, 1e-37f);
+    const bool valid = acc > 0.f;
+    // acc == 0: 0/0 -> nan -> inf -> clipped to thi in the XLA chain.
+    const float dist_u = valid ? swt / acc_s : thi;
+    const float dist = fminf(fmaxf(dist_u, tlo), thi);
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rr.out[k * np + pt0 + i] = rgb[k];
+      rr.out[3 * np + pt0 + i] = dist;
+      rr.out[4 * np + pt0 + i] = acc;
+    }
+    float d_rgb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      d_rgb[k] = rr.crgb[ray] * (rgb[k] - rr.tgt[(size_t)k * rr.n_rays +
+                                                ray]);
+    const float d_dist = rr.cd[ray] * (dist - rr.prior[ray]);
+    const float d_acc = rr.white ? -(d_rgb[0] + d_rgb[1] + d_rgb[2]) : 0.f;
+    // The clip passes the cotangent only strictly inside its range.
+    const float d_su =
+        (dist_u > tlo && dist_u < thi && valid) ? d_dist : 0.f;
+    float suffix = 0.f;
+    for (int i = S - 1; i >= 0; --i) {
+      float xd = rw[3 * rows + i] + rr.density_bias;
+      if (noise) xd += noise[i];
+      const float dd = softplus(xd) * delta[i];
+      const float alpha = 1.f - expf(-dd);
+      const float trans = tr[i];
+      const float w = alpha * trans;
+      float s[3], d_w = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s[k] = sigmoid(rw[k * rows + i]);
+        d_w += d_rgb[k] * (s[k] * rr.rgb_scale - rr.rgb_padding);
+      }
+      d_w += d_su * (tmid[i] - dist_u) / acc_s + d_acc;
+      // w_i = alpha_i trans_i, trans_i = exp(-sum_{j<i} dd_j):
+      // d/d dd_i = d_w_i trans_i e^{-dd_i} - sum_{j>i} d_w_j w_j.
+      const float d_dd = d_w * trans * (1.f - alpha) - suffix;
+      suffix += d_w * w;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        rw[k * rows + i] =
+            w * d_rgb[k] * rr.rgb_scale * s[k] * (1.f - s[k]);
+      rw[3 * rows + i] = d_dd * delta[i] * sigmoid(xd);
+    }
+  }
+  for (int e = R * S + threadIdx.x; e < rows; e += kThreads)
+    for (int k = 0; k < 4; ++k) craw[k * rows + e] = 0.f;
+  __syncthreads();
+}
+
 // One block's walk over its chunks. mode 2: g [4, n] is the output
-// cotangent. mode 3: compositing and the loss cotangent make it.
-template <typename T, int MODE>
+// cotangent. modes 3 (vanilla) and 4 (mip): compositing and the loss
+// cotangent make it. `covs` is read by the mip encoder only.
+template <typename T, int MODE, typename Enc>
 __device__ void train_block(const float* __restrict__ pts,
+                            const float* __restrict__ covs,
                             const float* __restrict__ views,
                             const float* __restrict__ gin, RayRows rr,
                             const T* __restrict__ wflat,
@@ -513,7 +447,8 @@ __device__ void train_block(const float* __restrict__ pts,
   const int W = d.width, H = d.half, P = d.P, V = d.V;
   const int cpts = chunk_points(MODE, rr.seg);
   const int rows = pad64(cpts);
-  const int ldp = P + kPad, ldv = V + kPad, ldh = W + kPad, ldf = W + 4;
+  const int ldp = P + kPad, ldv = V + kPad, ldh = d.act_cols() + kPad;
+  const int ldf = W + 4;
   T* pe = reinterpret_cast<T*>(smem);
   T* ve = pe + M * ldp;
   T* hx = ve + M * ldv;
@@ -546,9 +481,9 @@ __device__ void train_block(const float* __restrict__ pts,
     // ---- forward over sub-tiles, saving every activation ----
     for (int r0 = 0; r0 < rows; r0 += M) {
       const int sub_valid = max(0, min(M, valid - r0));
-      encode<T, M>(pts, n, base + r0, sub_valid, d.multires, P, pe, ldp);
-      encode<T, M>(views, n, base + r0, sub_valid, d.multires_views, V, ve,
-                   ldv);
+      Enc::template points<T, M>(pts, covs, n, base + r0, sub_valid, d, pe,
+                                 ldp);
+      Enc::template views<T, M>(views, n, base + r0, sub_valid, d, ve, ldv);
       __syncthreads();
       save_tile<T, M>(pe, ldp, P, ws.pe, r0);
       save_tile<T, M>(ve, ldv, V, ws.ve, r0);
@@ -573,7 +508,7 @@ __device__ void train_block(const float* __restrict__ pts,
         w += (size_t)d.rows(i) * W;
         b += W;
       }
-      if (MODE == 3) {  // alpha head, fp32, before h is overwritten
+      if (MODE >= 3) {  // alpha head, fp32, before h is overwritten
         for (int p = threadIdx.x; p < M; p += kThreads) {
           float s = 0.f;
           for (int k = 0; k < W; ++k)
@@ -590,7 +525,7 @@ __device__ void train_block(const float* __restrict__ pts,
                bflat + d.b_views(), true, h, ldh, stage);
       __syncthreads();
       save_tile<T, M>(h, ldh, H, ws.hv, r0);
-      if (MODE == 3) {
+      if (MODE >= 3) {
         for (int e = threadIdx.x; e < 3 * M; e += kThreads) {
           const int p = e % M, cc = e / M;
           float s = 0.f;
@@ -678,13 +613,14 @@ __device__ void train_block(const float* __restrict__ pts,
         for (int k = 0; k < 4; ++k) craw[k * rows + e] = 0.f;
       __syncthreads();
     }
+    if (MODE == 4) mip_composite(rr, c, cpts, rows, craw, ctrans);
 
     // ---- backward over sub-tiles ----
     for (int r0 = 0; r0 < rows; r0 += M) {
       for (int e = threadIdx.x; e < 4 * M; e += kThreads) {
         const int k = e / M, p = e % M, g = base + r0 + p;
         float v;
-        if (MODE == 3) {
+        if (MODE >= 3) {
           v = craw[k * rows + r0 + p];
         } else {
           v = (r0 + p < valid) ? gin[(size_t)k * n + g] : 0.f;
@@ -840,4 +776,4 @@ int plan(K kernel, int mode, int n, int seg, const Dims& d,
   return 0;
 }
 
-}  // namespace mlp_train
+}  // namespace mlp

@@ -26,27 +26,28 @@
 
 namespace {
 
-using mlp_train::bf16;
-using mlp_train::Dims;
+using mlp::bf16;
+using mlp::Dims;
 
 template <typename T>
-__global__ void __launch_bounds__(mlp_train::kThreads, 1)
+__global__ void __launch_bounds__(mlp::kThreads, 1)
     onepass_level_kernel(const float* pts, const float* views,
-                         mlp_train::RayRows rr, const T* w, const float* b,
+                         mlp::RayRows rr, const T* w, const float* b,
                          T* ws, float* part, size_t part_stride, Dims d) {
-  mlp_train::train_block<T, 3>(pts, views, nullptr, rr, w, b, ws, part,
-                               part_stride, rr.n_rays * rr.seg, d);
+  mlp::train_block<T, 3, mlp::NerfEnc>(pts, nullptr, views, nullptr, rr, w,
+                                       b, ws, part, part_stride,
+                                       rr.n_rays * rr.seg, d);
 }
 
 template <typename T>
-int launch(const void* pts, const void* views, mlp_train::RayRows rr,
+int launch(const void* pts, const void* views, mlp::RayRows rr,
            const void* w, const void* b, void* ws, void* part, void* dw,
            Dims d, cudaStream_t stream) {
   long long pl[4];
-  int err = mlp_train::plan<T>(onepass_level_kernel<T>, 3,
-                               rr.n_rays * rr.seg, rr.seg, d, pl);
+  int err = mlp::plan<T>(onepass_level_kernel<T>, 3, rr.n_rays * rr.seg,
+                         rr.seg, d, pl);
   if (err) return err;
-  onepass_level_kernel<T><<<(int)pl[0], mlp_train::kThreads, (size_t)pl[3],
+  onepass_level_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
                             stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(views), rr,
       static_cast<const T*>(w), static_cast<const float*>(b),
@@ -54,7 +55,7 @@ int launch(const void* pts, const void* views, mlp_train::RayRows rr,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int total = (int)(d.w_total() + d.b_total());
-  mlp_train::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+  mlp::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
       static_cast<float*>(dw));
   return (int)cudaGetLastError();
@@ -70,10 +71,10 @@ extern "C" int onepass_level_plan(int n_rays, int seg, int depth, int width,
                                   long long* out) {
   Dims d(depth, width, skip_mask, multires, multires_views);
   if (use_bf16)
-    return mlp_train::plan<bf16>(onepass_level_kernel<bf16>, 3,
-                                 n_rays * seg, seg, d, out);
-  return mlp_train::plan<float>(onepass_level_kernel<float>, 3, n_rays * seg,
-                                seg, d, out);
+    return mlp::plan<bf16>(onepass_level_kernel<bf16>, 3, n_rays * seg,
+                           seg, d, out);
+  return mlp::plan<float>(onepass_level_kernel<float>, 3, n_rays * seg, seg,
+                          d, out);
 }
 
 // pts, views: [3, n_rays*seg]; z: [n_rays*seg]; dn, crgb, cd, prior:
@@ -89,7 +90,7 @@ extern "C" int onepass_level(const void* pts, const void* views,
                              int white_bkgd, int use_bf16, void* stream) {
   if (n_rays <= 0) return 0;
   Dims d(depth, width, skip_mask, multires, multires_views);
-  mlp_train::RayRows rr;
+  mlp::RayRows rr{};
   rr.z = static_cast<const float*>(z);
   rr.dn = static_cast<const float*>(dn);
   rr.crgb = static_cast<const float*>(crgb);

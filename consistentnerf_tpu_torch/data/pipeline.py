@@ -1,14 +1,18 @@
-"""Host-side ray batching of the vanilla trainer.
+"""Host-side ray batching of both trainers.
 
 Reproduces the reference's batch composition:
-* single-image mode with 4x16x16 patch rays (white-background rejection
-  sampling) + N_rand random rays (`run_nerf_view.py:1441-1517`);
-* `use_batching` mode: a pre-shuffled global ray pool
-  (`run_nerf_view.py:1221-1253`).
-Both draw from `np.random.RandomState(cfg.seed)` in the JAX package's
+* vanilla single-image mode with 4x16x16 patch rays (white-background
+  rejection sampling) + N_rand random rays (`run_nerf_view.py:1441-1517`);
+* vanilla `use_batching` mode: a pre-shuffled global ray pool
+  (`run_nerf_view.py:1221-1253`);
+* mip batching modes `single_image_patch` / `single_image` / `all_images`
+  (`RegNeRF/internal/datasets.py:600-680`), with a `Rays` bundle under
+  "rays".
+All draw from `np.random.RandomState(cfg.seed)` in the JAX package's
 order, so a seed gives the same batches. Batches are numpy dicts; the
-trainer moves them to the device. The threaded `Prefetcher` and the mip
-batcher wait (ROADMAP Queue 1: train loop, mip backbone).
+trainer moves them to the device. The threaded `Prefetcher` (ROADMAP
+Queue 1: train loop) and the mip random-pose rays and near/far annealing
+(ROADMAP Queue 1: mip regularizers) wait.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from consistentnerf_tpu_torch.core import rays as rays_core
+from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.data.scene import SceneData
 
 
@@ -202,7 +207,101 @@ class AllImagesBatcher:
         return self.next_batch()
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
-    """numpy batch -> tensors on `device` (scalars become 0-d tensors)."""
-    return {k: torch.as_tensor(np.asarray(v), device=device)
+class MipBatcher:
+    """Rays-bundle batches of the mip trainer (pipeline.py:228-395):
+    `single_image_patch` = 4x16x16 patches + N_rand rays random from the
+    same image; `single_image` = all rays random from one image;
+    `all_images` = every ray from a random (view, pixel)."""
+
+    def __init__(self, scene: SceneData, cfg, seed: Optional[int] = None):
+        if cfg.load_random_rays:
+            raise NotImplementedError(
+                "random-pose patch rays (load_random_rays) are not ported "
+                "yet (ROADMAP Queue 1: mip regularizers)")
+        if cfg.anneal_nearfar:
+            raise NotImplementedError(
+                "anneal_nearfar is not ported yet (ROADMAP Queue 1: mip "
+                "regularizers)")
+        scene.ensure_priors()
+        self.scene = scene
+        self.cfg = cfg
+        self.step = 0
+        self.rng = np.random.RandomState(cfg.seed if seed is None else seed)
+        self.origins, self.dirs, self.viewdirs = _np_rays(scene)
+        dx = np.sqrt(
+            np.sum((self.dirs[:, :, :-1] - self.dirs[:, :, 1:]) ** 2, -1))
+        dx = np.concatenate([dx, dx[:, :, -2:-1]], 2)
+        self.radii = (dx * 2 / np.sqrt(12))[..., None].astype(np.float32)
+
+    def _rays_at(self, img, r, c) -> Rays:
+        s = self.scene
+        ones = np.ones((r.shape[0], 1), np.float32)
+        return Rays(
+            origins=self.origins[img, r, c].astype(np.float32),
+            directions=self.dirs[img, r, c].astype(np.float32),
+            viewdirs=self.viewdirs[img, r, c].astype(np.float32),
+            radii=self.radii[img, r, c],
+            lossmult=ones,
+            near=ones * s.near,
+            far=ones * s.far,
+        )
+
+    def next_batch(self) -> Dict[str, object]:
+        cfg, s = self.cfg, self.scene
+        mode = cfg.batching
+        if mode == "all_images":
+            n = 4 * 256 + max(0, cfg.N_rand)
+            img = self.rng.choice(s.i_train, size=n)
+            sel = self.rng.randint(0, s.H * s.W, size=n)
+            r, c = sel // s.W, sel % s.W
+            rays = self._rays_at(img, r, c)
+            rays.near = np.full((n, 1), s.near, np.float32)
+            rays.far = np.full((n, 1), s.far, np.float32)
+        else:
+            img = int(self.rng.choice(s.i_train))
+            ps, n_random = 16, max(0, cfg.N_rand)
+            coords = []
+            if mode == "single_image_patch":
+                for _ in range(4):
+                    r0 = self.rng.randint(0, s.H - ps + 1)
+                    c0 = self.rng.randint(0, s.W - ps + 1)
+                    rr, cc = np.meshgrid(np.arange(r0, r0 + ps),
+                                         np.arange(c0, c0 + ps),
+                                         indexing="ij")
+                    coords.append(np.stack([rr, cc], -1).reshape(-1, 2))
+            elif mode == "single_image":
+                n_random += 4 * ps * ps
+            else:
+                raise ValueError(f"Unknown batching mode {mode!r}")
+            if n_random:
+                sel = self.rng.randint(0, s.H * s.W, size=n_random)
+                coords.append(np.stack([sel // s.W, sel % s.W], -1))
+            coords = np.concatenate(coords, 0)
+            r, c = coords[:, 0], coords[:, 1]
+            rays = self._rays_at(img, r, c)
+        batch = {
+            "rays": rays,
+            "rgb": s.images[img, r, c].astype(np.float32),
+            "dpts": s.depths[img, r, c].astype(np.float32),
+            "masks": s.masks[img, r, c].astype(np.float32),
+            "mono_dpts": s.mono_disp[img, r, c].astype(np.float32),
+            "bounds": np.array([s.near, s.far], np.float32),
+        }
+        self.step += 1
+        return batch
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
+
+
+def to_device(batch: Dict[str, object], device) -> Dict:
+    """numpy batch -> tensors on `device` (scalars become 0-d tensors; a
+    `Rays` bundle field by field)."""
+    def move(v):
+        return torch.as_tensor(np.asarray(v), device=device)
+
+    return {k: v.map(move) if isinstance(v, Rays) else move(v)
             for k, v in batch.items()}

@@ -1,8 +1,12 @@
 """Weights across packages.
 
 `params_from_jax` turns the JAX package's vanilla param tree into the
-port's `VanillaNeRF` state_dict; `add_flat_grads` / `flat_grads_to_named` map a flat torch-layout grad
-list (the order of `ops/fused_mlp.flatten_params`) onto a NeRFMLP's
+port's `VanillaNeRF` state_dict, `mip_params_from_jax` /
+`mip_params_to_jax` carry the mip param tree
+(`params["params"]["MipMLP_0"]["Dense_i"]`) into a `MipNeRF` state_dict
+and back; `add_flat_grads` / `flat_grads_to_named` map a flat
+torch-layout grad list (the order of `ops/fused_mlp.flatten_params`, or
+of `ops/fused_mip.flatten_mip_params` for a MipMLP) onto an MLP's
 parameters; `load_reference_tar` reads a nerf-pytorch
 `{step:06d}.tar` (the layout the JAX package's `cnerf-export-torch-ckpt`
 writes, and the reference trainer's own). The name map is the
@@ -76,8 +80,38 @@ def load_reference_tar(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     return sd, int(ckpt.get("global_step", 0))
 
 
-def flat_param_names(net_depth: int, use_viewdirs: bool = True) -> List[str]:
-    """Parameter names of a NeRFMLP in `flatten_params` order."""
+def mip_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """{'params': {'MipMLP_0': {'Dense_i': ...}}} (numpy leaves) -> the
+    port's MipNeRF state_dict (`mlp.dense.i.weight` [out, in])."""
+    tree = tree["params"] if "params" in tree else tree
+    mlp = tree["MipMLP_0"]
+    sd = {}
+    for i in range(len(mlp)):
+        entry = mlp[f"Dense_{i}"]
+        sd[f"mlp.dense.{i}.weight"] = torch.tensor(
+            np.asarray(entry["kernel"], np.float32).T)
+        sd[f"mlp.dense.{i}.bias"] = torch.tensor(
+            np.asarray(entry["bias"], np.float32))
+    return sd
+
+
+def mip_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A MipNeRF state_dict -> the JAX param tree (numpy leaves)."""
+    mlp = {}
+    n = sum(k.endswith(".weight") for k in sd)
+    for i in range(n):
+        mlp[f"Dense_{i}"] = {
+            "kernel": sd[f"mlp.dense.{i}.weight"].detach().cpu().numpy().T,
+            "bias": sd[f"mlp.dense.{i}.bias"].detach().cpu().numpy()}
+    return {"params": {"MipMLP_0": mlp}}
+
+
+def flat_param_names(net_depth: int, use_viewdirs: bool = True,
+                     mip: bool = False) -> List[str]:
+    """Parameter names of a NeRFMLP (or a MipMLP) in the flat order."""
+    if mip:
+        return [f"dense.{i}.{k}" for i in range(net_depth + 4)
+                for k in ("weight", "bias")]
     names = [f"pts_linears.{i}" for i in range(net_depth)]
     names += (["alpha_linear", "feature_linear", "views_linears.0",
                "rgb_linear"] if use_viewdirs else ["output_linear"])
@@ -90,7 +124,8 @@ def flat_grads_to_named(mlp: torch.nn.Module, grads: Sequence[torch.Tensor],
     parameter of `mlp` (zeros for those the list does not cover, such as
     the temperature scalars), shaped like the parameters."""
     params = dict(mlp.named_parameters())
-    names = flat_param_names(net_depth, getattr(mlp, "use_viewdirs", True))
+    names = flat_param_names(net_depth, getattr(mlp, "use_viewdirs", True),
+                             mip=hasattr(mlp, "dense"))
     if len(names) != len(grads):
         raise ValueError(f"{len(grads)} grads for {len(names)} parameters")
     out = {k: torch.zeros_like(p) for k, p in params.items()}

@@ -1,4 +1,5 @@
-"""The vanilla NeRF MLP as an `nn.Module`.
+"""The NeRF MLPs as `nn.Module`s: the vanilla `NeRFMLP` and mip-NeRF's
+`MipMLP`.
 
 Architecture of `nerf-pytorch-master/run_nerf_helpers.py:67-130`: an 8x256
 trunk with the skip concat [pts_embed, h] after layer 4, a 128-wide
@@ -19,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from consistentnerf_tpu_torch.ops import fused_mip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 
 
@@ -88,3 +90,90 @@ class NeRFMLP(nn.Module):
             use_viewdirs=self.use_viewdirs, compute_dtype=self.dtype,
         )
         return out.reshape(*lead, out.shape[-1])
+
+
+def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's glorot_uniform: U(-b, b), b = sqrt(6 / (fan_in + fan_out))."""
+    fan_out, fan_in = w.shape
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(w.shape, generator=generator, dtype=torch.float64)
+    with torch.no_grad():
+        w.copy_(((2 * u - 1) * bound).to(w.dtype))
+
+
+class MipMLP(nn.Module):
+    """mip-NeRF MLP (`RegNeRF/internal/models.py:172-280`): IPE of the
+    samples' Gaussians into an 8x256 trunk with the skip concat
+    [act, inputs] after layer 4, a density head, a 256-wide bottleneck,
+    one 128-wide view layer on [bottleneck, pos_enc(viewdirs)], an rgb
+    head; sigmoid rgb with padding, softplus density with bias -1.
+
+    The layers are `dense.0` .. `dense.{D+3}`, the JAX package's
+    `Dense_0` .. `Dense_{D+3}` (trunk, density, bottleneck, view layer,
+    rgb). At `dtype=bfloat16` the forward rounds where the fused kernels
+    round (ops/fused_mip.py::_mip_body). Normals (`disable_normals=False`)
+    are not ported (ROADMAP Queue 1: mip normals)."""
+
+    def __init__(self, net_depth: int = 8, net_width: int = 256,
+                 net_width_viewdirs: int = 128, max_deg_point: int = 16,
+                 deg_view: int = 4, skip_layer: int = 4,
+                 density_noise: float = 0.0, density_bias: float = -1.0,
+                 rgb_padding: float = 0.001, disable_normals: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        if not disable_normals:
+            raise NotImplementedError(
+                "mip normals (disable_normals=false) are not ported yet "
+                "(ROADMAP Queue 1: mip normals)")
+        self.net_depth = net_depth
+        self.max_deg_point = max_deg_point
+        self.deg_view = deg_view
+        self.skip_layer = skip_layer
+        self.density_noise = density_noise
+        self.density_bias = density_bias
+        self.rgb_padding = rgb_padding
+        self.dtype = fm.as_dtype(dtype)
+        n_in = 6 * max_deg_point
+        ins = [n_in]
+        for i in range(1, net_depth + 1):
+            skip = (i - 1) % skip_layer == 0 and i - 1 > 0
+            ins.append(net_width + n_in if skip else net_width)
+        trunk_out = ins.pop()
+        view_in = net_width + 3 * (1 + 2 * deg_view)
+        dims = ([(k, net_width) for k in ins]
+                + [(trunk_out, 1), (trunk_out, net_width),
+                   (view_in, net_width_viewdirs),
+                   (net_width_viewdirs, 3)])
+        self.dense = nn.ModuleList([nn.Linear(k, n) for k, n in dims])
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init: glorot-uniform kernels, zero biases (the JAX
+        package's initializers)."""
+        for m in self.dense:
+            _glorot_uniform_(m.weight, generator)
+            nn.init.zeros_(m.bias)
+
+    def forward(self, means: torch.Tensor, covs: torch.Tensor,
+                viewdirs: torch.Tensor,
+                noise: Optional[torch.Tensor] = None):
+        """means, covs (diagonal), viewdirs: [N, 3]; `noise` [N] standard
+        normals of the density noise (used when density_noise > 0).
+        Returns (rgb [N, 3], density [N])."""
+        raw = fused_mip._mip_body(
+            means, covs, viewdirs,
+            fused_mip.flatten_mip_params(self, self.net_depth),
+            net_depth=self.net_depth, num_freqs=self.max_deg_point,
+            deg_view=self.deg_view, skip_layer=self.skip_layer,
+            compute_dtype=self.dtype)
+        raw_density = raw[:, 3]
+        if noise is not None and self.density_noise > 0:
+            raw_density = raw_density + self.density_noise * noise
+        density = softplus(raw_density + self.density_bias)
+        rgb = torch.sigmoid(raw[:, :3]) * (1 + 2 * self.rgb_padding) \
+            - self.rgb_padding
+        return rgb, density
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))

@@ -1,0 +1,344 @@
+"""The fused MipMLP on transposed point streams: forward, weight grads and
+the differentiable op built from the two.
+
+`fwd_T` is the port of `consistentnerf_tpu/ops/fused_mip.py::
+_fwd_pallas_T` (kernel #6): the Gaussians' means, diagonal covariances
+and view directions [3, N] in, the raw heads [4, N] out (rgb logits rows
+0..2, density logit row 3; sigmoid, rgb padding, softplus and density
+noise stay outside, as in the JAX package). On a CUDA tensor it launches
+the hand-written kernel `csrc/fused_mip_fwd.cu` (or raises); on a CPU
+tensor it runs the plain version `_mip_body`. `bwd_T` is the port of
+`_bwd_pallas_T` (kernel #7): the weight grads for a raw cotangent
+g [4, N], from `csrc/fused_mip_bwd.cu` or, on the CPU, autograd through
+`_mip_body` (`plain_bwd_T`). `fused_mip_mlp_train_T` is the
+differentiable op: forward #6, backward #7.
+
+The MipMLP differs from the NeRFMLP only in its encoder and in the column
+order of its skip concat, so the kernels share the NeRF kernels' walk
+(`csrc/mlp_fwd.cuh`, `csrc/mlp_train.cuh`) under an encoder policy, and
+the weights are packed by `fused_mlp_v2.pack(..., encoder="ipe")`, whose
+packed walks (`packed_reference_T`, `packed_bwd_reference_T`) are the
+kernels' references here too. The TPU kernels' packed 128-lane IPE
+register, pi/2 phase-bias row and sin(2^-14 v) 2^14 raw-viewdir columns
+are Mosaic lane-layout devices and are not carried over: the CUDA kernels
+compute the IPE per feature (fp32 floor-mod range reduction of
+`core/mathx.safe_sin`, then the cast) and read the raw view directions.
+
+The flat weight list (`flatten_mip_params`) is in torch layout ([out, in]
+weights), in the JAX package's Dense_0..Dense_{D+3} order: the trunk,
+the density head, the bottleneck, the view layer, the rgb head.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from consistentnerf_tpu_torch.core import encoding
+from consistentnerf_tpu_torch.ops import _build
+from consistentnerf_tpu_torch.ops import fused_mlp as fm
+from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+KERNEL = "fused_mip_fwd"
+BWD_KERNEL = "fused_mip_bwd"
+# Kernel launches since import (or since the caller last reset them).
+launches = 0
+bwd_launches = 0
+
+SKIP_LAYER = 4  # MipMLP.skip_layer
+DEG_VIEW = 4  # MipMLP.deg_view
+RGB_PADDING = 0.001  # MipMLP.rgb_padding
+DENSITY_BIAS = -1.0  # MipMLP.density_bias
+
+
+def post_skip_layers(net_depth: int, skip_layer: int = SKIP_LAYER) -> set:
+    """Trunk layers whose input is [act, inputs] (models/mlp.py:112-113:
+    the concat follows layer i when i % skip_layer == 0, i > 0)."""
+    return {i for i in range(1, net_depth)
+            if (i - 1) % skip_layer == 0 and i - 1 > 0}
+
+
+def mip_skips(net_depth: int, skip_layer: int = SKIP_LAYER) -> tuple:
+    """The post-skip layers as `fused_mlp_v2.pack` names them (the layer
+    after which the concat happens). A concat after the last trunk layer
+    would feed the heads, which neither the JAX fused kernels nor these
+    take."""
+    last = net_depth - 1
+    if last > 0 and last % skip_layer == 0:
+        raise ValueError(f"net_depth {net_depth} puts a skip concat after "
+                         "the last trunk layer; the fused MipMLP kernels "
+                         "do not take it")
+    return tuple(sorted(i - 1 for i in post_skip_layers(net_depth,
+                                                        skip_layer)))
+
+
+def flatten_mip_params(mlp: Union[nn.Module, dict],
+                       net_depth: int = 8) -> List[torch.Tensor]:
+    """A MipMLP (or its state_dict) -> the flat torch-layout list
+    [w0, b0, ..., w_{D+3}, b_{D+3}]; a module's are its parameters
+    (gradients flow), a state_dict's its tensors."""
+    sd = dict(mlp.named_parameters()) if isinstance(mlp, nn.Module) else mlp
+    out = []
+    for i in range(net_depth + 4):
+        out += [sd[f"dense.{i}.weight"], sd[f"dense.{i}.bias"]]
+    return out
+
+
+def _mip_body(means, covs, views, weights: Sequence[torch.Tensor], *,
+              net_depth, num_freqs, deg_view=DEG_VIEW,
+              skip_layer=SKIP_LAYER, compute_dtype=torch.float32):
+    """The plain MipMLP body on [N, 3] means, diagonal covs and view
+    directions: raw heads [N, 4] fp32 (rgb logits, density logit).
+
+    Rounding follows the fused kernels (`_mip_aligned_forward`): the IPE
+    and view encoding in fp32, then rounded; bf16 operands with fp32
+    accumulation and fp32 biases; trunk activations and the view layer
+    rounded after the ReLU, the bottleneck without one; heads fp32.
+
+    A post-skip layer takes [act, inputs] (models/mlp.py:112-113) and is
+    summed here, as in the kernels, in the order [inputs | act]: the same
+    sum, but an fp32 sum in another order flips a ReLU whose input lies
+    within rounding of zero, and with a random cotangent one flipped unit
+    moves the grads of every layer below it by ~1/sqrt(N)."""
+    cd = fm.as_dtype(compute_dtype)
+    fm.strict_fp32(means.device)
+    w = [fm._round(x.float(), cd) if i % 2 == 0 else x.float()
+         for i, x in enumerate(weights)]
+    inputs = fm._round(encoding.integrated_pos_enc(
+        means.float(), covs.float(), 0, num_freqs), cd)
+    post = post_skip_layers(net_depth, skip_layer)
+    h = inputs
+    for i in range(net_depth):
+        wi = w[2 * i]
+        if i in post:
+            h = torch.cat([inputs, h], -1)
+            k = inputs.shape[-1]
+            wi = torch.cat([wi[:, -k:], wi[:, :-k]], 1)
+        h = fm._round(torch.relu(F.linear(h, wi, w[2 * i + 1])), cd)
+    if net_depth - 1 > 0 and (net_depth - 1) % skip_layer == 0:
+        h = torch.cat([h, inputs], -1)  # the heads read the concat
+    wi = 2 * net_depth
+    density = F.linear(h, w[wi], w[wi + 1])
+    bneck = fm._round(F.linear(h, w[wi + 2], w[wi + 3]), cd)
+    venc = fm._round(encoding.pos_enc(views.float(), 0, deg_view), cd)
+    hv = fm._round(torch.relu(F.linear(torch.cat([bneck, venc], -1),
+                                       w[wi + 4], w[wi + 5])), cd)
+    rgb = F.linear(hv, w[wi + 6], w[wi + 7])
+    return torch.cat([rgb, density], -1)
+
+
+def reference_mip_mlp_apply(weights, means, covs, views, *, net_depth=8,
+                            skip_layer=SKIP_LAYER, num_freqs=16,
+                            deg_view=DEG_VIEW, compute_dtype=torch.float32):
+    """The plain forward on [N, 3] inputs from the flat list (or a
+    MipMLP): raw heads [N, 4]."""
+    if isinstance(weights, nn.Module):
+        weights = flatten_mip_params(weights, net_depth)
+    return _mip_body(means, covs, views, weights, net_depth=net_depth,
+                     num_freqs=num_freqs, deg_view=deg_view,
+                     skip_layer=skip_layer, compute_dtype=compute_dtype)
+
+
+def pack(weights: Sequence[torch.Tensor], net_depth: int, num_freqs: int,
+         compute_dtype, deg_view: int = DEG_VIEW) -> v2.PackedMLP:
+    """The flat torch-layout list -> the kernels' packed buffers."""
+    return v2.pack(weights, net_depth, mip_skips(net_depth), num_freqs,
+                   deg_view, compute_dtype, encoder="ipe")
+
+
+def _packed_for(weights, net_depth, num_freqs, deg_view, cd):
+    return v2._packed_for(weights, net_depth, mip_skips(net_depth),
+                          num_freqs, deg_view, cd, "ipe")
+
+
+def _flat(weights):
+    return weights.flat if isinstance(weights, v2.PackedMLP) else weights
+
+
+def plain_fwd_T(weights, means_T, covs_T, views_T, net_depth, num_freqs,
+                compute_dtype, deg_view=DEG_VIEW) -> torch.Tensor:
+    """The plain version of `fwd_T` on any device (no kernel)."""
+    out = _mip_body(means_T.T, covs_T.T, views_T.T, _flat(weights),
+                    net_depth=net_depth, num_freqs=num_freqs,
+                    deg_view=deg_view, compute_dtype=compute_dtype)
+    return out.T.contiguous()
+
+
+def _check_inputs(packed, dev, n, **streams):
+    for name, t in streams.items():
+        v2._check_stream(name, t, 3, n, dev)
+    for t in (packed.w, packed.b):
+        if t.device != dev:
+            raise ValueError("packed weights are not on the points' device")
+
+
+def _cfg_args(packed: v2.PackedMLP):
+    """The kernels' config ints: depth, width, view-layer width, skip
+    mask, IPE frequencies, view degree, bf16."""
+    skip_mask = sum(1 << s for s in packed.skips)
+    return (packed.net_depth, packed.width, packed.view_width, skip_mask,
+            packed.multires, packed.multires_views,
+            int(packed.compute_dtype == torch.bfloat16))
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load(KERNEL).fused_mip_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
+          views_T: torch.Tensor, net_depth: int, num_freqs: int,
+          compute_dtype, deg_view: int = DEG_VIEW) -> torch.Tensor:
+    """means/covs/views [3, N] -> raw heads [4, N] (kernel #6).
+
+    `weights`: the flat torch-layout list or a packed MipMLP (`pack`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    cd = fm.as_dtype(compute_dtype)
+    if means_T.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+        return plain_fwd_T(weights, means_T, covs_T, views_T, net_depth,
+                           num_freqs, cd, deg_view)
+    if means_T.device.type != "cuda":
+        raise ValueError(f"no fused forward for device {means_T.device}")
+    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    n, dev = means_T.shape[1], means_T.device
+    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
+                  views_T=views_T)
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    err = _kernel()(
+        means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(), n,
+        *_cfg_args(packed), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    return out
+
+
+def fused_mip_mlp_normals_T(*args, **kwargs):
+    """The forward with the normals' density gradient (rows 4:7) is not
+    ported yet."""
+    raise NotImplementedError(
+        "the normals variant of the fused MipMLP forward is not ported yet "
+        "(ROADMAP Queue 2: mip normals kernel); set disable_normals=true")
+
+
+# ---------------------------------------------------------------------------
+# Weight grads (kernel #7) and the differentiable op
+# ---------------------------------------------------------------------------
+
+
+def plain_bwd_T(weights, means_T, covs_T, views_T, g_T, net_depth,
+                num_freqs, compute_dtype,
+                deg_view=DEG_VIEW) -> List[torch.Tensor]:
+    """The plain version of `bwd_T` on any device: autograd through
+    `_mip_body` (torch-layout grads)."""
+    ws = [w.detach().float().requires_grad_() for w in _flat(weights)]
+    with torch.enable_grad():
+        out = _mip_body(means_T.T, covs_T.T, views_T.T, ws,
+                        net_depth=net_depth, num_freqs=num_freqs,
+                        deg_view=deg_view, compute_dtype=compute_dtype)
+        grads = torch.autograd.grad(out, ws, g_T.T.float())
+    return list(grads)
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load(BWD_KERNEL)
+    plan = lib.fused_mip_bwd_plan
+    plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    fn = lib.fused_mip_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return plan, fn
+
+
+def bwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
+          views_T: torch.Tensor, g_T: torch.Tensor, net_depth: int,
+          num_freqs: int, compute_dtype,
+          deg_view: int = DEG_VIEW) -> List[torch.Tensor]:
+    """Weight grads of `fwd_T` for the raw cotangent g_T [4, N] (kernel
+    #7): the torch-layout list (fp32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and its dW reduction) or
+    raise."""
+    cd = fm.as_dtype(compute_dtype)
+    if means_T.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+        return plain_bwd_T(weights, means_T, covs_T, views_T, g_T,
+                           net_depth, num_freqs, cd, deg_view)
+    if means_T.device.type != "cuda":
+        raise ValueError(f"no fused backward for device {means_T.device}")
+    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    n, dev = means_T.shape[1], means_T.device
+    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
+                  views_T=views_T)
+    v2._check_stream("g_T", g_T, 4, n, dev)
+    n_w, n_b = v2.grad_numel(packed)
+    if n == 0:
+        zeros = torch.zeros(n_w + n_b, device=dev)
+        return v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
+    plan, fn = _bwd_kernel()
+    cfg_args = _cfg_args(packed)
+    ws, part, dw = v2.train_buffers(plan, (n, *cfg_args), packed, dev)
+    err = fn(means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
+             g_T.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+             ws.data_ptr(), part.data_ptr(), dw.data_ptr(), n, *cfg_args,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return v2.unpack_grads(packed, dw[:n_w], dw[n_w:])
+
+
+class _FusedMipTrainT(torch.autograd.Function):
+    """raw_T = MipMLP(means_T, covs_T, views_T); grads for the weights
+    only (the samples are stop-gradient'ed or parameter-independent in
+    both levels, models/mipnerf.py:82-93)."""
+
+    @staticmethod
+    def forward(ctx, config, packed, means_T, covs_T, views_T, *weights):
+        net_depth, num_freqs, deg_view, cd = config
+        src = packed if packed is not None else list(weights)
+        ctx.config, ctx.src = config, src
+        ctx.save_for_backward(means_T, covs_T, views_T)
+        return fwd_T(src, means_T, covs_T, views_T, net_depth, num_freqs,
+                     cd, deg_view)
+
+    @staticmethod
+    def backward(ctx, g_T):
+        net_depth, num_freqs, deg_view, cd = ctx.config
+        means_T, covs_T, views_T = ctx.saved_tensors
+        grads = bwd_T(ctx.src, means_T, covs_T, views_T, g_T.contiguous(),
+                      net_depth, num_freqs, cd, deg_view)
+        return (None, None, None, None, None, *grads)
+
+
+def fused_mip_mlp_train_T(weights: Sequence[torch.Tensor], means_T, covs_T,
+                          views_T, net_depth: int, num_freqs: int,
+                          compute_dtype, deg_view: int = DEG_VIEW,
+                          packed: v2.PackedMLP = None) -> torch.Tensor:
+    """Differentiable fused MipMLP on transposed streams: means/covs/views
+    [3, N] -> raw [4, N]; the weight grads come from `bwd_T`. `weights`
+    is the torch-layout parameter list that receives the grads; `packed`
+    (the same weights packed, for a CUDA caller) is optional."""
+    config = (net_depth, num_freqs, deg_view, fm.as_dtype(compute_dtype))
+    return _FusedMipTrainT.apply(config, packed, means_T, covs_T, views_T,
+                                 *weights)

@@ -12,6 +12,12 @@ PE directly in torch Embedder order.
 
 `pack` lays the torch-layout weight list out as the kernel reads it; a
 caller that renders many chunks packs once and passes the `PackedMLP`.
+The packing and the packed walks also serve the MipMLP kernels
+(`ops/fused_mip.py`), whose MLP differs only in its encoder and in the
+column order of its skip concat: `encoder="ipe"` selects the integrated
+positional encoding of (means, covs) and the mip view encoding, and packs
+the post-skip layer's [h | pe] columns as [pe | h], the rows the kernels'
+shared walk (`csrc/mlp_train.cuh`) reads.
 `packed_reference_T` evaluates a `PackedMLP` by walking the packed
 buffers the way the kernel does, so the layout is testable without a
 card.
@@ -35,6 +41,7 @@ from typing import List, Sequence
 
 import torch
 
+from consistentnerf_tpu_torch.core import encoding
 from consistentnerf_tpu_torch.ops import _build
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 
@@ -47,8 +54,9 @@ bwd_launches = 0
 
 @dataclasses.dataclass
 class PackedMLP:
-    """One NeRFMLP's weights, as the plain version and as the kernel
-    reads them."""
+    """One NeRFMLP's (or MipMLP's) weights, as the plain version and as
+    the kernel reads them. For a MipMLP, `multires` is its number of IPE
+    frequencies and `multires_views` its view-encoding degree."""
 
     flat: List[torch.Tensor]  # torch-layout list (fused_mlp.flatten_params)
     w: torch.Tensor  # packed weights, compute dtype
@@ -59,10 +67,14 @@ class PackedMLP:
     multires: int
     multires_views: int
     compute_dtype: torch.dtype
+    encoder: str = "pe"  # 'pe' (NeRFMLP) | 'ipe' (MipMLP)
+    # Output width of the view layer: width / 2 in the NeRFMLP, 128 in
+    # the MipMLP whatever its width.
+    view_width: int = 0
 
     def config(self):
         return (self.net_depth, self.skips, self.multires,
-                self.multires_views, self.compute_dtype)
+                self.multires_views, self.compute_dtype, self.encoder)
 
 
 def _pad16(x: int) -> int:
@@ -74,14 +86,38 @@ def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(k - x.shape[0], x.shape[1])], 0)
 
 
+def enc_widths(encoder: str, multires: int, multires_views: int) -> tuple:
+    """(point encoding, view encoding) widths: the torch Embedder's
+    3(1 + 2F) for both, or the IPE's 6F (no identity) for the points."""
+    ve = 3 * (1 + 2 * multires_views)
+    if encoder == "pe":
+        return 3 * (1 + 2 * multires), ve
+    if encoder == "ipe":
+        return 6 * multires, ve
+    raise ValueError(f"unknown encoder {encoder!r}")
+
+
+def _skip_cols(w: torch.Tensor, pe_real: int, encoder: str):
+    """A post-skip layer's torch weight [W, K] -> (pe columns, h
+    columns): the NeRFMLP concat is [pe, h], the MipMLP's [h, pe]."""
+    if encoder == "pe":
+        return w[:, :pe_real], w[:, pe_real:]
+    return w[:, w.shape[1] - pe_real:], w[:, : w.shape[1] - pe_real]
+
+
 def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
-         multires: int, multires_views: int, compute_dtype) -> PackedMLP:
+         multires: int, multires_views: int, compute_dtype,
+         encoder: str = "pe") -> PackedMLP:
     """Torch-layout weight list -> the kernel's flat weight/bias buffers.
 
     Per layer W^T [K_pad, N] with K padded to a multiple of 16 by zero
     rows; a post-skip layer's rows are [pe | h], views_0's rows are
-    [feature | ve]; then alpha [W] and rgb [3, W/2]. Layout contract with
-    `csrc/fused_mlp_fwd.cu`."""
+    [feature | ve]; then alpha [W] and rgb [3, Hv] (Hv the view layer's
+    width). Layout contract with
+    `csrc/fused_mlp_fwd.cu` and the kernels that share its walk. A
+    MipMLP's list (`fused_mip.flatten_mip_params`: trunk, density,
+    bottleneck, view layer, rgb) has the same order and shapes, with
+    `encoder="ipe"`."""
     cd = fm.as_dtype(compute_dtype)
     skips = tuple(sorted(skips))
     if len(weights) != 2 * net_depth + 8:
@@ -91,8 +127,7 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         raise ValueError(f"skips {skips} must lie in [0, {net_depth - 1})")
     flat = [w.detach().float() for w in weights]
     width = flat[0].shape[0]
-    pe_real = 3 * (1 + 2 * multires)
-    ve_real = 3 * (1 + 2 * multires_views)
+    pe_real, ve_real = enc_widths(encoder, multires, multires_views)
     if width % 32 or flat[0].shape[1] != pe_real:
         raise ValueError(f"width {width} must be a multiple of 32 and the "
                          f"first layer must take {pe_real} PE features")
@@ -103,13 +138,17 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         if i == 0:
             ws.append(_rows(w.T, p))
         elif i - 1 in skips:
-            ws += [_rows(w[:, :pe_real].T, p), w[:, pe_real:].T]
+            w_pe, w_h = _skip_cols(w, pe_real, encoder)
+            ws += [_rows(w_pe.T, p), w_h.T]
         else:
             ws.append(w.T)
         bs.append(b)
     wa, ba, wf, bf, wv, bv, wr, br = flat[2 * net_depth:]
     if wv.shape[1] != width + ve_real:
         raise ValueError(f"views_0 must take {width} + {ve_real} features")
+    if wv.shape[0] % 16:
+        raise ValueError(f"the view layer's width {wv.shape[0]} must be a "
+                         "multiple of 16")
     ws += [wf.T, wv[:, :width].T, _rows(wv[:, width:].T, v), wa, wr]
     bs += [bf, bv, ba, br]
     return PackedMLP(
@@ -117,15 +156,35 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         w=torch.cat([x.reshape(-1) for x in ws]).to(cd).contiguous(),
         b=torch.cat([x.reshape(-1) for x in bs]).contiguous(),
         net_depth=net_depth, width=width, skips=skips, multires=multires,
-        multires_views=multires_views, compute_dtype=cd,
+        multires_views=multires_views, compute_dtype=cd, encoder=encoder,
+        view_width=wv.shape[0],
     )
 
 
+def encode(packed: PackedMLP, pts_T, views_T, covs_T=None):
+    """The kernels' encodings of [3, N] streams, rounded to the compute
+    dtype and zero-padded to 16 columns: (pe [N, P], ve [N, V]). For the
+    IPE, pts_T holds the Gaussians' means and covs_T their diagonal
+    covariances."""
+    cd = packed.compute_dtype
+    pe_real, ve_real = enc_widths(packed.encoder, packed.multires,
+                                  packed.multires_views)
+    if packed.encoder == "ipe":
+        pe = encoding.integrated_pos_enc(pts_T.T.float(), covs_T.T.float(),
+                                         0, packed.multires)
+        ve = encoding.pos_enc(views_T.T.float(), 0, packed.multires_views)
+    else:
+        pe = fm._posenc(pts_T.T.float(), packed.multires)
+        ve = fm._posenc(views_T.T.float(), packed.multires_views)
+    return (_pad_cols(fm._round(pe, cd), _pad16(pe_real)),
+            _pad_cols(fm._round(ve, cd), _pad16(ve_real)))
+
+
 def packed_reference_T(packed: PackedMLP, pts_T: torch.Tensor,
-                       views_T: torch.Tensor) -> torch.Tensor:
+                       views_T: torch.Tensor, covs_T=None) -> torch.Tensor:
     """Evaluate `packed` by the kernel's walk over its buffers ([4, N])."""
     cd, width, depth = packed.compute_dtype, packed.width, packed.net_depth
-    half = width // 2
+    half = packed.view_width
     w, b = packed.w.float(), packed.b
     pos = {"w": 0, "b": 0}
 
@@ -134,14 +193,7 @@ def packed_reference_T(packed: PackedMLP, pts_T: torch.Tensor,
         pos[key] += n
         return t
 
-    def pad_cols(x, k):
-        return torch.cat([x, x.new_zeros(x.shape[0], k - x.shape[1])], 1)
-
-    pe = pad_cols(fm._round(fm._posenc(pts_T.T.float(), packed.multires),
-                            cd), _pad16(3 * (1 + 2 * packed.multires)))
-    ve = pad_cols(
-        fm._round(fm._posenc(views_T.T.float(), packed.multires_views), cd),
-        _pad16(3 * (1 + 2 * packed.multires_views)))
+    pe, ve = encode(packed, pts_T, views_T, covs_T)
     h = None
     for i in range(depth):
         if i == 0:
@@ -196,7 +248,7 @@ def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
     cd = fm.as_dtype(compute_dtype)
     skips = tuple(sorted(skips))
     if isinstance(weights, PackedMLP) and weights.config() != (
-            net_depth, skips, multires, multires_views, cd):
+            net_depth, skips, multires, multires_views, cd, "pe"):
         raise ValueError("PackedMLP was packed for another config")
     if pts_T.device.type == "cpu":
         return plain_fwd_T(weights, pts_T, views_T, net_depth, skips,
@@ -239,9 +291,9 @@ def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
 def _block_shapes(packed: PackedMLP):
     """(name, rows, cols) of the packed weight blocks and (name, size) of
     the packed biases, in buffer order."""
-    width, half = packed.width, packed.width // 2
-    p = _pad16(3 * (1 + 2 * packed.multires))
-    v = _pad16(3 * (1 + 2 * packed.multires_views))
+    width, half = packed.width, packed.view_width
+    p, v = (_pad16(x) for x in enc_widths(packed.encoder, packed.multires,
+                                          packed.multires_views))
     ws, bs = [], []
     for i in range(packed.net_depth):
         rows = p if i == 0 else (p + width if i - 1 in packed.skips
@@ -279,8 +331,8 @@ def unpack_grads(packed: PackedMLP, dw: torch.Tensor,
     wshapes, bshapes = _block_shapes(packed)
     w, b = _split(dw, wshapes), _split(db, bshapes)
     width = packed.width
-    pe_real = 3 * (1 + 2 * packed.multires)
-    ve_real = 3 * (1 + 2 * packed.multires_views)
+    pe_real, ve_real = enc_widths(packed.encoder, packed.multires,
+                                  packed.multires_views)
     p = _pad16(pe_real)
     out = []
     for i in range(packed.net_depth):
@@ -288,7 +340,8 @@ def unpack_grads(packed: PackedMLP, dw: torch.Tensor,
         if i == 0:
             g = blk[:pe_real]
         elif i - 1 in packed.skips:
-            g = torch.cat([blk[:pe_real], blk[p:]], 0)
+            rows = [blk[:pe_real], blk[p:]]
+            g = torch.cat(rows if packed.encoder == "pe" else rows[::-1], 0)
         else:
             g = blk
         out += [g.T.contiguous(), b[f"pts_{i}"].clone()]
@@ -311,16 +364,12 @@ def _pad_cols(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(x.shape[0], k - x.shape[1])], 1)
 
 
-def packed_forward_saved(packed: PackedMLP, pts_T, views_T):
+def packed_forward_saved(packed: PackedMLP, pts_T, views_T, covs_T=None):
     """The train kernels' forward walk over the packed buffers: raw
     [4, N] and the saved activations (rounded as the kernel saves them)."""
     cd, depth = packed.compute_dtype, packed.net_depth
     w, b = _packed_weights(packed)
-    pe = _pad_cols(fm._round(fm._posenc(pts_T.T.float(), packed.multires),
-                             cd), _pad16(3 * (1 + 2 * packed.multires)))
-    ve = _pad_cols(
-        fm._round(fm._posenc(views_T.T.float(), packed.multires_views), cd),
-        _pad16(3 * (1 + 2 * packed.multires_views)))
+    pe, ve = encode(packed, pts_T, views_T, covs_T)
     acts, h = [], None
     for i in range(depth):
         if i == 0:
@@ -386,10 +435,10 @@ def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
 
 
 def packed_bwd_reference_T(packed: PackedMLP, pts_T, views_T,
-                           g_T) -> List[torch.Tensor]:
+                           g_T, covs_T=None) -> List[torch.Tensor]:
     """`bwd_T` by the kernel's walk over its packed buffers, unpacked to
     the torch layout."""
-    _, saved = packed_forward_saved(packed, pts_T, views_T)
+    _, saved = packed_forward_saved(packed, pts_T, views_T, covs_T)
     return unpack_grads(packed, *packed_backward(packed, saved, g_T))
 
 
@@ -444,13 +493,15 @@ def _bwd_kernel():
     return plan, fn
 
 
-def _packed_for(weights, net_depth, skips, multires, multires_views, cd):
+def _packed_for(weights, net_depth, skips, multires, multires_views, cd,
+                encoder="pe"):
     if isinstance(weights, PackedMLP):
         if weights.config() != (net_depth, skips, multires, multires_views,
-                                cd):
+                                cd, encoder):
             raise ValueError("PackedMLP was packed for another config")
         return weights
-    return pack(weights, net_depth, skips, multires, multires_views, cd)
+    return pack(weights, net_depth, skips, multires, multires_views, cd,
+                encoder)
 
 
 def bwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,

@@ -1,6 +1,8 @@
-"""One-pass train kernel of the vanilla step: per level, the MLP forward,
-volumetric compositing, the per-ray loss cotangent and the backward in one
-launch (`csrc/onepass_level.cu`), and the train step built on it.
+"""One-pass train kernels: per level, the MLP forward, volumetric
+compositing, the per-ray loss cotangent and the backward in one launch,
+and the train steps built on them: the vanilla level
+(`csrc/onepass_level.cu`, kernel #3) and the mip level
+(`csrc/onepass_mip_level.cu`, kernel #5, at the end of this module).
 
 `onepass_level_T` is the port of `consistentnerf_tpu/ops/fused_onepass.py::
 onepass_level_T`, with its signature and its [6, N*S] output rows (rgb map,
@@ -34,7 +36,9 @@ import torch
 
 from consistentnerf_tpu_torch import interop
 from consistentnerf_tpu_torch.core import rendering, sampling
+from consistentnerf_tpu_torch.models import mlp as mlp_lib
 from consistentnerf_tpu_torch.ops import _build
+from consistentnerf_tpu_torch.ops import fused_mip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import pdf_merge
@@ -450,6 +454,400 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                 outputs = step_lib.apply_output_noise(outputs, cfg, noise)
             _, stats = losses_lib.vanilla_losses(outputs, batch, cfg, far,
                                                  1.0, lpips_params)
+        return state, step_lib.finish_step(state, stats, cfg)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The mip level (kernel #5) and the mip train step built on it
+# ---------------------------------------------------------------------------
+
+MIP_KERNEL = "onepass_mip_level"
+# Launches of the mip level kernel since import (or since the caller last
+# reset it).
+mip_launches = 0
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, -1) - x
+
+
+def _mip_composite_fwd(raw, tmid, delta, tlo, thi, white_bkgd: bool,
+                       rgb_padding: float, density_bias: float,
+                       noise=None):
+    """The kernel's mip compositing (fused_onepass.py:307-350, the
+    semantics of `compute_alpha_weights` + `volumetric_rendering`'s rgb
+    and distance_mean) with the head activations. raw [4, N, S]; tmid,
+    delta [N, S]; tlo, thi [N]; `noise` [N, S] is added to the density
+    logit. Returns (rgb [N, 3], dist [N], acc [N], w [N, S], saved)."""
+    s_rgb = torch.sigmoid(raw[:3])
+    c = s_rgb * (1.0 + 2.0 * rgb_padding) - rgb_padding
+    x_d = raw[3] + density_bias
+    if noise is not None:
+        x_d = x_d + noise
+    density = mlp_lib.softplus(x_d)
+    dd = density * delta
+    alpha = 1.0 - torch.exp(-dd)
+    trans = torch.exp(-_excl_cumsum(dd))
+    w = alpha * trans
+    acc = w.sum(1)
+    rgb = (w[None] * c).sum(2).T
+    if white_bkgd:
+        rgb = rgb + (1.0 - acc[:, None])
+    acc_s = torch.clamp(acc, min=1e-37)
+    valid = acc > 0
+    # acc == 0: 0/0 -> nan -> inf -> clipped to thi in the XLA chain.
+    dist_u = torch.where(valid, (w * tmid).sum(1) / acc_s, thi)
+    in_rng = (dist_u > tlo) & (dist_u < thi) & valid
+    # The clip passes the cotangent only strictly inside its range.
+    dist = torch.where(in_rng, dist_u,
+                       torch.clamp(dist_u, tlo, thi).detach())
+    saved = dict(s_rgb=s_rgb, c=c, sigd=torch.sigmoid(x_d), alpha=alpha,
+                 trans=trans, w=w, delta=delta, tmid=tmid, acc_s=acc_s,
+                 dist_u=dist_u, in_rng=in_rng)
+    return rgb, dist, acc, w, saved
+
+
+def _mip_composite_bwd(d_rgb, d_dist, saved, white_bkgd: bool,
+                       rgb_padding: float) -> torch.Tensor:
+    """VJP of `_mip_composite_fwd` into the raw heads
+    (fused_onepass.py:353-371). d_rgb [N, 3], d_dist [N] -> [4, N, S]."""
+    c, w, trans, alpha = saved["c"], saved["w"], saved["trans"], \
+        saved["alpha"]
+    d_acc = -d_rgb.sum(1, keepdim=True) if white_bkgd else 0.0
+    d_su = torch.where(saved["in_rng"], d_dist, torch.zeros_like(d_dist))
+    d_w = ((d_rgb.T[:, :, None] * c).sum(0)
+           + d_su[:, None] * (saved["tmid"] - saved["dist_u"][:, None])
+           / saved["acc_s"][:, None] + d_acc)
+    u = d_w * w
+    d_dd = d_w * trans * (1.0 - alpha) - (u.flip(1).cumsum(1).flip(1) - u)
+    d_raw_d = d_dd * saved["delta"] * saved["sigd"]
+    d_raw_rgb = (w[None] * d_rgb.T[:, :, None] * (1.0 + 2.0 * rgb_padding)
+                 * saved["s_rgb"] * (1.0 - saved["s_rgb"]))
+    return torch.cat([d_raw_rgb, d_raw_d[None]], 0)
+
+
+def _mip_loss(rgb, dist, crgb, tgt, cd, prior):
+    return (torch.sum(crgb[:, None] / 2 * (rgb - tgt) ** 2)
+            + torch.sum(cd / 2 * (dist - prior) ** 2))
+
+
+def plain_onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta,
+                            tlo, thi, crgb, tgt, cd, prior, noise=None, *,
+                            net_depth, num_freqs, white_bkgd, compute_dtype,
+                            rgb_padding=fused_mip.RGB_PADDING,
+                            density_bias=fused_mip.DENSITY_BIAS):
+    """The plain version of the mip level on per-ray inputs: the MipMLP
+    body, `_mip_composite_fwd` and the per-ray MSE, with autograd.
+    tmid, delta (and noise) [N, S]; tlo, thi, crgb, cd, prior [N]; tgt
+    [N, 3]. Returns (out_rows [6, N*S], torch-layout dW)."""
+    n, seg = tmid.shape
+    ws = [w.detach().float().requires_grad_()
+          for w in fused_mip._flat(weights)]
+    with torch.enable_grad():
+        raw = fused_mip._mip_body(
+            means_T.T, covs_T.T, views_T.T, ws, net_depth=net_depth,
+            num_freqs=num_freqs, compute_dtype=compute_dtype)
+        rgb, dist, acc, w, _ = _mip_composite_fwd(
+            raw.T.reshape(4, n, seg), tmid, delta, tlo, thi, white_bkgd,
+            rgb_padding, density_bias, noise)
+        grads = torch.autograd.grad(
+            _mip_loss(rgb, dist, crgb, tgt, cd, prior), ws)
+    return (_out_rows(rgb.detach(), dist.detach(), acc.detach(), w.detach(),
+                      seg), list(grads))
+
+
+def packed_onepass_mip_reference(packed: "v2.PackedMLP", means_T, covs_T,
+                                 views_T, tmid, delta, tlo, thi, crgb, tgt,
+                                 cd, prior, noise=None, white_bkgd=False,
+                                 rgb_padding=fused_mip.RGB_PADDING,
+                                 density_bias=fused_mip.DENSITY_BIAS):
+    """The kernel's walk over its packed buffers: forward, compositing,
+    cotangent, explicit compositing VJP, backward. Same returns as
+    `plain_onepass_mip_level`."""
+    n, seg = tmid.shape
+    raw, saved = v2.packed_forward_saved(packed, means_T, views_T, covs_T)
+    rgb, dist, acc, w, comp = _mip_composite_fwd(
+        raw.reshape(4, n, seg), tmid, delta, tlo, thi, white_bkgd,
+        rgb_padding, density_bias, noise)
+    d_raw = _mip_composite_bwd(crgb[:, None] * (rgb - tgt),
+                               cd * (dist - prior), comp, white_bkgd,
+                               rgb_padding)
+    dw, db = v2.packed_backward(packed, saved, d_raw.reshape(4, n * seg))
+    return (_out_rows(rgb, dist, acc, w, seg),
+            v2.unpack_grads(packed, dw, db))
+
+
+@functools.cache
+def _mip_kernel():
+    lib = _build.load(MIP_KERNEL)
+    plan = lib.onepass_mip_level_plan
+    plan.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    fn = lib.onepass_mip_level
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 10
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return plan, fn
+
+
+def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
+                      thi, crgb, tgt, cd, prior, noise=None, *,
+                      net_depth=8, num_freqs=16, white_bkgd=False,
+                      compute_dtype=torch.float32,
+                      rgb_padding=fused_mip.RGB_PADDING,
+                      density_bias=fused_mip.DENSITY_BIAS):
+    """One mip level on per-ray inputs (kernel #5): means/covs/views
+    [3, N*S]; tmid, delta, noise (or None) [N, S]; tlo, thi, crgb, cd,
+    prior [N]; tgt [N, 3]. Returns (out_rows [6, N*S]: rgb, distance_mean
+    and acc broadcast per point, then each point's weight; torch-layout
+    dW). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (and its dW reduction) or raise."""
+    cd_ = fm.as_dtype(compute_dtype)
+    kw = dict(white_bkgd=white_bkgd, rgb_padding=rgb_padding,
+              density_bias=density_bias)
+    if means_T.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            fused_mip._packed_for(weights, net_depth, num_freqs,
+                                  fused_mip.DEG_VIEW, cd_)
+        return plain_onepass_mip_level(
+            weights, means_T, covs_T, views_T, tmid, delta, tlo, thi, crgb,
+            tgt, cd, prior, noise, net_depth=net_depth, num_freqs=num_freqs,
+            compute_dtype=cd_, **kw)
+    if means_T.device.type != "cuda":
+        raise ValueError(f"no one-pass kernel for device {means_T.device}")
+    packed = fused_mip._packed_for(weights, net_depth, num_freqs,
+                                   fused_mip.DEG_VIEW, cd_)
+    n_rays, seg = tmid.shape
+    npts, dev = n_rays * seg, means_T.device
+    fused_mip._check_inputs(packed, dev, npts, means_T=means_T,
+                            covs_T=covs_T, views_T=views_T)
+    per_point = [x.float().contiguous() for x in (tmid, delta)] + (
+        [] if noise is None else [noise.float().contiguous()])
+    for name, t in zip(("tmid", "delta", "noise"), per_point):
+        v2._check_stream(name, t.reshape(1, -1), 1, npts, dev)
+    per_ray = [x.float().contiguous() for x in (tlo, thi, crgb, cd, prior)]
+    tgt_T = tgt.T.float().contiguous()
+    for name, t, shape in zip(("tlo", "thi", "crgb", "cd", "prior", "tgt"),
+                              per_ray + [tgt_T], [(n_rays,)] * 5
+                              + [(3, n_rays)]):
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must hold {n_rays} rays on {dev}")
+    out = torch.empty((6, npts), dtype=torch.float32, device=dev)
+    n_w, n_b = v2.grad_numel(packed)
+    if n_rays == 0:
+        zeros = torch.zeros(n_w + n_b, device=dev)
+        return out, v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
+    cfg_args = fused_mip._cfg_args(packed)
+    plan, fn = _mip_kernel()
+    ws, part, dw = v2.train_buffers(plan, (n_rays, seg, *cfg_args), packed,
+                                    dev)
+    tmid_, delta_ = per_point[:2]
+    noise_ptr = per_point[2].data_ptr() if noise is not None else None
+    tlo_, thi_, crgb_, cd__, prior_ = per_ray
+    err = fn(means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
+             tmid_.data_ptr(), delta_.data_ptr(), noise_ptr,
+             tlo_.data_ptr(), thi_.data_ptr(), crgb_.data_ptr(),
+             tgt_T.data_ptr(), cd__.data_ptr(), prior_.data_ptr(),
+             packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), part.data_ptr(), dw.data_ptr(), n_rays, seg,
+             *cfg_args[:-1], int(white_bkgd), cfg_args[-1],
+             1.0 + 2.0 * rgb_padding, rgb_padding, density_bias,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{MIP_KERNEL} launch failed: cudaError_t {err}")
+    global mip_launches
+    mip_launches += 1
+    return out, v2.unpack_grads(packed, dw[:n_w], dw[n_w:])
+
+
+def onepass_mip_level_T(weights, means_T, covs_T, views_T, tmid_row,
+                        delta_row, tlo_row, thi_row, coeff_rgb, target_rows,
+                        coeff_depth, prior_row, noise_row=None, *, seg: int,
+                        net_depth: int = 8, num_freqs: int = 16,
+                        white_bkgd: bool = False,
+                        rgb_padding: float = fused_mip.RGB_PADDING,
+                        density_bias: float = fused_mip.DENSITY_BIAS,
+                        compute_dtype=torch.float32):
+    """One-pass fwd + composite + loss cotangent + bwd of one mip level,
+    with the JAX signature: means/covs/views/target [3, N*S], the other
+    rows [1, N*S] (per-ray values broadcast per point). Returns (out_rows
+    [6, N*S], torch-layout dW list)."""
+    n = means_T.shape[1]
+    if n % seg:
+        raise ValueError(f"{n} points are not whole rays of {seg} samples")
+    r = n // seg
+
+    def per_point(row):
+        return row.reshape(r, seg).contiguous()
+
+    return onepass_mip_level(
+        weights, means_T, covs_T, views_T, per_point(tmid_row),
+        per_point(delta_row), tlo_row[0, ::seg], thi_row[0, ::seg],
+        coeff_rgb[0, ::seg], target_rows[:, ::seg].T, coeff_depth[0, ::seg],
+        prior_row[0, ::seg],
+        None if noise_row is None else per_point(noise_row),
+        net_depth=net_depth, num_freqs=num_freqs, white_bkgd=white_bkgd,
+        compute_dtype=compute_dtype, rgb_padding=rgb_padding,
+        density_bias=density_bias)
+
+
+def mip_onepass_supported(cfg) -> bool:
+    """Whether the mip one-pass step computes cfg's exact loss
+    (fused_onepass.py:1104): per-ray data terms in the kernel, the MiDaS
+    patch rays on the differentiable fused path. The unported RegNeRF
+    regularizers and normals raise here rather than select another
+    step."""
+    step_lib.check_mip_supported(cfg)
+    return (cfg.backbone == "mipnerf" and cfg.stop_level_grad
+            and cfg.min_deg_point == 0 and not cfg.compute_disp_metrics)
+
+
+def build_onepass_mip_train_step(cfg):
+    """train_step(state, batch, draws=None) -> (state, stats): the mip
+    loss (`train.losses.mip_losses`) with every level of the data rays
+    running the one-pass kernel and the 4x16x16 MiDaS patch rays the
+    differentiable fused forward (`ops/fused_train.fused_mip_forward`),
+    their weight grads summed into the one MLP's. The stats are
+    `mip_losses` on the assembled outputs. `state` is updated in place."""
+    from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
+
+    if not mip_onepass_supported(cfg):
+        raise ValueError("the mip one-pass step needs stop_level_grad, "
+                         "min_deg_point=0 and no disp metrics")
+    n_levels, s = cfg.mip_num_levels, cfg.mip_num_samples
+    level_mults = [cfg.coarse_loss_mult] * (n_levels - 1) + [1.0]
+    # The MiDaS term reads exactly the first 4x16^2 rays.
+    p_rays = 4 * 16 * 16 if cfg.compute_mono_depth_metrics else 0
+    cdt = fm.as_dtype(cfg.compute_dtype)
+    net_depth = cfg.netdepth
+
+    def train_step(state, batch, draws: Optional[Dict] = None):
+        model, opt = state.model, state.optimizer
+        rays = batch["rays"]
+        n, dev = rays.origins.shape[0], rays.origins.device
+        p = p_rays
+        if n < p:
+            raise ValueError(f"a mip batch needs the {p} MiDaS patch rays "
+                             f"first; got {n} rays")
+        if draws is None:
+            draws = step_lib.make_mip_draws(cfg, n, step_lib.step_generator(
+                cfg.seed, state.step, dev), dev)
+        padding = step_lib.resample_padding(cfg, state.step)
+
+        lossmult = rays.lossmult[:, 0]
+        if cfg.disable_multiscale_loss:
+            lossmult = torch.ones_like(lossmult)
+        base_crgb = 2.0 * lossmult / (lossmult.sum() + 1e-4)
+        if cfg.compute_depth_metrics:
+            mask, scale = losses_lib.depth_scale_and_mask(batch, cfg, n, dev)
+            base_cd = 2.0 * mask * mask / (scale**2 * n)
+            prior = batch["dpts"]
+        else:
+            base_cd = prior = torch.zeros((n,), device=dev)
+        target = batch["rgb"][:, :3]
+
+        params = fused_mip.flatten_mip_params(model.mlp, net_depth)
+        flat = [w.detach() for w in params]
+        packed = (fused_mip.pack(flat, net_depth, cfg.max_deg_point, cdt)
+                  if dev.type == "cuda" else None)
+
+        # ---- one-pass kernel: data rays [p:] ----
+        nr = n - p
+        rays_r = rays.map(lambda x: x[p:])
+        d_r = step_lib.slice_draws(draws, slice(p, n))
+        dnorm_r = torch.linalg.norm(rays_r.directions, dim=-1)
+        views_r = rays_r.viewdirs.T[:, :, None].expand(3, nr, s).reshape(
+            3, nr * s).contiguous()
+        mega_out, dw_total = [], None
+        t_vals = w_render = None
+        with torch.no_grad():
+            for lvl in range(n_levels if nr > 0 else 0):
+                if lvl == 0:
+                    t_vals, (means_T, covs_T) = sampling.sample_along_rays(
+                        d_r.get("t_rand"), rays_r.origins,
+                        rays_r.directions, rays_r.radii, s, rays_r.near,
+                        rays_r.far, cfg.genspace_fn, cfg.ray_shape,
+                        transposed=True)
+                else:
+                    jitter = d_r.get("jitter")
+                    t_vals, (means_T, covs_T) = \
+                        sampling.resample_along_rays(
+                            None if jitter is None else jitter[lvl],
+                            rays_r.origins, rays_r.directions, rays_r.radii,
+                            t_vals, w_render, cfg.ray_shape,
+                            cfg.stop_level_grad, padding, transposed=True,
+                            use_kernel=cfg.use_pdf_kernel)
+                if cfg.disable_integration:
+                    covs_T = torch.zeros_like(covs_T)
+                noise = d_r.get("noise")
+                if noise is not None and cfg.density_noise > 0:
+                    noise = cfg.density_noise * noise[lvl]
+                else:
+                    noise = None
+                lw = level_mults[lvl]
+                out_rows, dws = onepass_mip_level(
+                    packed if packed is not None else flat,
+                    means_T.reshape(3, nr * s).contiguous(),
+                    covs_T.reshape(3, nr * s).contiguous(), views_r,
+                    0.5 * (t_vals[:, :-1] + t_vals[:, 1:]),
+                    (t_vals[:, 1:] - t_vals[:, :-1]) * dnorm_r[:, None],
+                    t_vals[:, 0], t_vals[:, -1], lw * base_crgb[p:],
+                    target[p:], 0.1 * lw * base_cd[p:], prior[p:], noise,
+                    net_depth=net_depth, num_freqs=cfg.max_deg_point,
+                    white_bkgd=cfg.white_bkgd, compute_dtype=cdt)
+                w_render = out_rows[5].reshape(nr, s)
+                per_ray = out_rows[:, ::s]
+                mega_out.append(dict(rgb=per_ray[:3].T,
+                                     distance_mean=per_ray[3]))
+                dw_total = dws if dw_total is None else [
+                    a + b for a, b in zip(dw_total, dws)]
+
+        # ---- patch rays [:p]: differentiable fused forward + autograd ----
+        opt.zero_grad()
+        loss = None
+        patch_out = None
+        if p > 0:
+            patch_out = fused_mip_forward(
+                params, step_lib.slice_draws(draws, slice(0, p)),
+                rays.map(lambda x: x[:p]), cfg, resample_padding=padding,
+                packed=packed)
+            loss = 0.0
+            for lvl, r in enumerate(patch_out):
+                lw = level_mults[lvl]
+                loss = loss + torch.sum(lw * base_crgb[:p, None] / 2.0
+                                        * (r["rgb"] - target[:p]) ** 2)
+                loss = loss + torch.sum(0.1 * lw * base_cd[:p] / 2.0
+                                        * (r["distance_mean"] - prior[:p])
+                                        ** 2)
+                mono = losses_lib.midas_patch_loss(
+                    r["distance_mean"].reshape(-1),
+                    batch["mono_dpts"].reshape(-1), 16, 4)
+                if cfg.dataset_type == "blender":
+                    mono = mono * 0.01
+                loss = loss + 0.1 * lw * mono
+        if cfg.weight_decay_mult != 0:
+            all_params = list(model.parameters())
+            wd = cfg.weight_decay_mult * sum(
+                torch.sum(q**2) for q in all_params) / sum(
+                q.numel() for q in all_params)
+            loss = wd if loss is None else loss + wd
+        if loss is not None:
+            loss.backward()
+        if dw_total is not None:
+            interop.add_flat_grads(model.mlp, dw_total, net_depth)
+
+        with torch.no_grad():
+            renderings = []
+            for lvl in range(n_levels):
+                parts = [patch_out[lvl]] if p > 0 else []
+                parts += [mega_out[lvl]] if nr > 0 else []
+                renderings.append({k: torch.cat([x[k].detach()
+                                                 for x in parts], 0)
+                                   for k in ("rgb", "distance_mean")})
+            _, stats = losses_lib.mip_losses(renderings, None, batch,
+                                             model.parameters(), cfg)
         return state, step_lib.finish_step(state, stats, cfg)
 
     return train_step

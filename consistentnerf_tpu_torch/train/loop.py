@@ -1,10 +1,9 @@
-"""Training harness of the vanilla trainer: setup, the step dispatch, the
-loop, logging and checkpoints. Throughput is logged as rays/sec like the
+"""Training harness of both trainers: setup, the step dispatch, the loop,
+logging and checkpoints. Throughput is logged as rays/sec like the
 reference (`train.py:416-419`).
 
 Not ported yet: the threaded prefetch, TensorBoard, the profiler hook and
-the periodic held-out render (ROADMAP Queue 1: train loop), and the mip
-backbone.
+the periodic held-out render (ROADMAP Queue 1: train loop).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import numpy as np
 import torch
 
 from consistentnerf_tpu_torch.data.pipeline import (AllImagesBatcher,
+                                                    MipBatcher,
                                                     VanillaBatcher,
                                                     to_device)
 from consistentnerf_tpu_torch.data.scene import SceneData
@@ -36,32 +36,30 @@ class TrainResult:
 
 
 def make_batcher(scene: SceneData, cfg):
-    if cfg.backbone != "vanilla":
-        raise NotImplementedError(
-            "the mip batcher is not ported yet (ROADMAP Queue 1: mip "
-            "backbone)")
+    if cfg.backbone == "mipnerf":
+        return MipBatcher(scene, cfg)
     if cfg.use_batching:
         return AllImagesBatcher(scene, cfg)
     return VanillaBatcher(scene, cfg)
 
 
 def init_state(cfg, device="cuda"):
-    """Seeded model (coarse copied from fine, the vanilla trainer's quirk)
-    and its optimizer."""
+    """Seeded model (vanilla: coarse copied from fine, the vanilla
+    trainer's quirk; mip: one MLP, nothing to copy) and its optimizer."""
     model = make_model(cfg, device)
-    sync_coarse_from_fine(model)
+    if cfg.backbone == "vanilla":
+        sync_coarse_from_fine(model)
     return create_train_state(cfg, model)
 
 
 def select_train_step(cfg, model, lpips_params=None):
     """The production step dispatch: the one-pass kernel step where the
     config's exact loss is supported; the eager step when use_fused_train
-    is off. The two-call fused step (`ops/fused_train.py` in the JAX
-    package, which softLpmask needs) is not ported and raises."""
-    if cfg.backbone != "vanilla":
-        raise NotImplementedError(
-            "the mip train step is not ported yet (ROADMAP Queue 1: mip "
-            "backbone)")
+    is off. The two-call fused steps (`ops/fused_train.py` in the JAX
+    package, which softLpmask and the mip configs outside
+    `mip_onepass_supported` need) are not ported and raise."""
+    if cfg.backbone == "mipnerf":
+        return _select_mip_train_step(cfg, model)
     if cfg.use_fused_train:
         from consistentnerf_tpu_torch.ops import fused_onepass
 
@@ -74,6 +72,20 @@ def select_train_step(cfg, model, lpips_params=None):
             "the eager step")
     return step_lib.build_vanilla_train_step(model, cfg,
                                              lpips_params=lpips_params)
+
+
+def _select_mip_train_step(cfg, model):
+    """The mip branch of the dispatch (loop.py:92-110)."""
+    if not cfg.use_fused_train:
+        return step_lib.build_mip_train_step(model, cfg)
+    from consistentnerf_tpu_torch.ops import fused_onepass
+
+    if cfg.use_onepass_train and fused_onepass.mip_onepass_supported(cfg):
+        return fused_onepass.build_onepass_mip_train_step(cfg)
+    raise NotImplementedError(
+        "the two-call fused mip train step is not ported yet (ROADMAP "
+        "Queue 1: two-call fused step); set use_fused_train=false for the "
+        "eager step")
 
 
 def train(cfg, scene: SceneData, num_steps: Optional[int] = None,

@@ -2,7 +2,9 @@
 ConsistentNeRF PyTorch trainer's total loss (`run_nerf_view.py:1577-1906`):
 masked RGB MSE, the MiDaS patch loss (x0.001), patch SSIM (x-0.005) and
 patch LPIPS (x+0.005), masked depth MSE, each on fine and coarse outputs.
-`mip_losses` comes with the mip slice (ROADMAP Queue 1: mip backbone).
+`mip_losses` is the mip / RegNeRF trainer's (`RegNeRF/train.py:97-241`);
+its TV norm on random-pose patches is not ported (ROADMAP Queue 1: mip
+regularizers) and raises.
 """
 
 from __future__ import annotations
@@ -119,4 +121,101 @@ def vanilla_losses(outputs: Dict[str, torch.Tensor],
             stats["depth_loss0"] = depth_loss0
 
     stats["loss"] = loss
+    return loss, stats
+
+
+def check_mip_regularizers(cfg) -> None:
+    """The RegNeRF regularizers of the mip trainer that are not ported."""
+    if cfg.depth_tvnorm_loss_mult != 0.0 or cfg.depth_tvnorm_decay:
+        raise NotImplementedError(
+            "the RegNeRF depth TV norm (depth_tvnorm_loss_mult / "
+            "depth_tvnorm_decay) is not ported yet (ROADMAP Queue 1: mip "
+            "regularizers)")
+
+
+def depth_scale_and_mask(batch, cfg, n: int, device):
+    """(per-ray mask, scale) of the mip depth MSE: DTU and hard-mask runs
+    supervise mask-valid pixels only; LLFF normalizes by the scene bound,
+    Blender by far (losses.py:214-228)."""
+    if cfg.dataset_type == "dtu" or cfg.use_hardmask:
+        mask = batch["masks"]
+        if cfg.dataset_type == "llff":
+            scale = batch["bounds"].max()
+        elif cfg.dataset_type == "blender":
+            scale = cfg.far
+        else:
+            scale = 1.0
+    else:
+        mask = torch.ones((n,), device=device)
+        scale = batch["bounds"].max() if cfg.dataset_type == "llff" else 1.0
+    return mask, scale
+
+
+def mip_losses(renderings, renderings_random, batch: Dict[str, Any],
+               params: Iterable[torch.Tensor], cfg,
+               tvnorm_loss_weight: float = 0.0):
+    """Total loss + stats for the mip backbone (RegNeRF/train.py:97-241):
+    lossmult-weighted RGB MSE per level, the dataset-normalized masked
+    depth MSE, the MiDaS patch term (x0.01 on Blender), the mean-square
+    weight decay; the last level at full weight, earlier ones at
+    coarse_loss_mult. `params`: every parameter of the model."""
+    check_mip_regularizers(cfg)
+    if renderings_random is not None:
+        raise NotImplementedError(
+            "random-pose renderings feed only the TV norm, which is not "
+            "ported yet (ROADMAP Queue 1: mip regularizers)")
+    rays = batch["rays"]
+    lossmult = rays.lossmult
+    if cfg.disable_multiscale_loss:
+        lossmult = torch.ones_like(lossmult)
+    params = list(params)
+    param_sq = sum(torch.sum(p.float() ** 2) for p in params)
+    count = sum(p.numel() for p in params)
+    weight_l2 = torch.nan_to_num(param_sq / count) if count else \
+        torch.zeros(())
+
+    def rgb_mse(r):
+        sq_err = lossmult * (r["rgb"] - batch["rgb"][..., :3]) ** 2
+        return sq_err.sum() / (lossmult.sum() + 0.0001)
+
+    def depth_mse(r):
+        pred = r["distance_mean"]
+        if not cfg.compute_depth_metrics:
+            return torch.zeros((), device=pred.device)
+        prior = batch["dpts"]
+        mask, scale = depth_scale_and_mask(batch, cfg, pred.shape[0],
+                                           pred.device)
+        if cfg.dataset_type == "dtu" or cfg.use_hardmask:
+            pred, prior = pred * mask, prior * mask
+        return (((prior - pred) / scale) ** 2).mean()
+
+    def mono_term(r):
+        pred = r["distance_mean"]
+        if not cfg.compute_mono_depth_metrics:
+            return torch.zeros((), device=pred.device)
+        term = midas_patch_loss(pred.reshape(-1),
+                                batch["mono_dpts"].reshape(-1), 16, 4)
+        return term * 0.01 if cfg.dataset_type == "blender" else term
+
+    rgb_v = torch.stack([rgb_mse(r) for r in renderings])
+    depth_v = torch.stack([depth_mse(r) for r in renderings])
+    mono_v = torch.stack([mono_term(r) for r in renderings])
+    tv_v = torch.zeros((1,), device=rgb_v.device)
+
+    def final_plus_coarse(v, mult=1.0):
+        return mult * v[-1] + mult * cfg.coarse_loss_mult * v[:-1].sum()
+
+    loss = (final_plus_coarse(rgb_v) + final_plus_coarse(depth_v, 0.1)
+            + final_plus_coarse(mono_v, 0.1)
+            + cfg.weight_decay_mult * weight_l2)
+    stats = {
+        "loss": loss,
+        "losses": rgb_v,
+        "depth_mses": depth_v,
+        "mono_depth_mses": mono_v,
+        "patch_tv_losses": tv_v,
+        "weight_l2": weight_l2,
+        "psnr": mathx.mse_to_psnr(rgb_v[-1]),
+        "psnrs": mathx.mse_to_psnr(rgb_v),
+    }
     return loss, stats

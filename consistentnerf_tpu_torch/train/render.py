@@ -2,7 +2,11 @@
 
 Rays of any leading shape ([H, W] for a view, [V, H, W] for a stack of
 views) are flattened and rendered `render_chunk_size` rays at a time; the
-last chunk is simply shorter (the fused kernel masks its ragged tail).
+last chunk is simply shorter (the fused kernels mask their ragged tail).
+Both backbones render: the vanilla one through `fused_render` or the
+module, the mip one through `fused_train.fused_mip_forward` or
+`MipNeRF.forward` (its last level's rgb, distance_mean as depth, disp,
+acc and distance_median).
 """
 
 from __future__ import annotations
@@ -41,18 +45,55 @@ def _image_outputs(out):
     }
 
 
+def _mip_chunk_fn(model, cfg):
+    """The mip backbone's chunk renderer (render.py:105-138)."""
+    if cfg.use_fused_render:
+        from consistentnerf_tpu_torch.ops import fused_mip
+        from consistentnerf_tpu_torch.ops.fused_train import \
+            fused_mip_forward
+
+        flat = [w.detach() for w in fused_mip.flatten_mip_params(
+            model.mlp, cfg.netdepth)]
+        packed = None
+        if flat[0].device.type == "cuda":
+            packed = fused_mip.pack(flat, cfg.netdepth, cfg.max_deg_point,
+                                    cfg.compute_dtype)
+
+        def apply_fn(chunk_rays):
+            return fused_mip_forward(
+                flat, None, chunk_rays, cfg,
+                resample_padding=cfg.resample_padding_final,
+                compute_extras=True, packed=packed)
+    else:
+
+        def apply_fn(chunk_rays):
+            return model(chunk_rays, None,
+                         resample_padding=cfg.resample_padding_final,
+                         compute_extras=True)
+
+    def chunk_fn(chunk_rays):
+        fine = apply_fn(chunk_rays)[-1]
+        return {
+            "rgb": fine["rgb"],
+            "depth": fine["distance_mean"][..., None],
+            "disp": (1.0 / torch.clamp(fine["distance_mean"],
+                                       min=1e-6))[..., None],
+            "acc": fine["acc"][..., None],
+            "distance_median": fine["distance_median"][..., None],
+        }
+
+    return chunk_fn
+
+
 def build_render_fn(model, cfg) -> Callable[[Rays], Dict[str, torch.Tensor]]:
     """Deterministic full-image renderer for eval/vis.
 
     Returns render(rays[..., H, W]) -> dict of [..., H, W(, 3)] images.
-    With `cfg.use_fused_render` both MLPs run through the fused kernel,
+    With `cfg.use_fused_render` the MLPs run through the fused kernels,
     their weights packed once here."""
-    if cfg.backbone != "vanilla":
-        raise NotImplementedError(
-            "only the vanilla backbone renders in the port yet "
-            "(ROADMAP Queue 1: mip backbone)")
-
-    if cfg.use_fused_render:
+    if cfg.backbone == "mipnerf":
+        chunk_fn = _mip_chunk_fn(model, cfg)
+    elif cfg.use_fused_render:
         from consistentnerf_tpu_torch.ops import fused_render
 
         levels = ["coarse"] + (["fine"] if cfg.N_importance > 0 else [])

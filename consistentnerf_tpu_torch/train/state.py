@@ -1,4 +1,4 @@
-"""Train state and optimizer of the vanilla trainer.
+"""Train state and optimizer of both trainers.
 
 The JAX package's optax chain (`consistentnerf_tpu/train/state.py`) is
 NaN scrub -> value clip (grad_max_val) -> global-norm clip (grad_max_norm,
@@ -7,8 +7,9 @@ scrub act on the `.grad`s in place and `torch.optim.Adam` takes the
 schedule as its lr. The schedule reads the step count BEFORE the
 increment, as `optax.scale_by_schedule` does: the first update uses
 lr(0). The vanilla schedule is lr * 0.1^(step / (lrate_decay*1000))
-(`run_nerf_view.py:329,1982-1993`); the mip schedule comes with the mip
-slice.
+(`run_nerf_view.py:329,1982-1993`); the mip schedule is the log-linear
+decay from lr_init to lr_final with the sine warmup
+(`RegNeRF/train.py:256-275`, `math.py:134`).
 """
 
 from __future__ import annotations
@@ -30,12 +31,12 @@ class TrainState:
 
 
 def make_lr_schedule(cfg) -> Callable[[int], float]:
-    if cfg.backbone != "vanilla":
-        raise NotImplementedError(
-            "the mip lr schedule is not ported yet (ROADMAP Queue 1: mip "
-            "backbone)")
-    return lambda count: mathx.exp_lr_decay(count, cfg.lrate, 0.1,
-                                            cfg.lrate_decay * 1000)
+    if cfg.backbone == "vanilla":
+        return lambda count: mathx.exp_lr_decay(count, cfg.lrate, 0.1,
+                                                cfg.lrate_decay * 1000)
+    return lambda count: mathx.learning_rate_decay(
+        count, cfg.lr_init, cfg.lr_final, cfg.total_iters,
+        cfg.lr_delay_steps, cfg.lr_delay_mult)
 
 
 class Optimizer:

@@ -25,7 +25,8 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "ops.fused_onepass", "cli.train", "train.loop", "train.step",
              "train.state", "train.losses", "train.checkpoints",
              "train.image_metrics", "data.pipeline", "consistency.masks",
-             "consistency.monodepth"):
+             "consistency.monodepth", "ops.fused_mip", "ops.fused_train",
+             "models.mipnerf", "core.mip", "core.spacing"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 

@@ -4,7 +4,8 @@
     python3 tools/torch_phase_split.py
 
 Builds `csrc/onepass_level.cu` four times from patched copies of
-`csrc/mlp_train.cuh` under `build/phase_split/`: as it is, without the dW
+`csrc/mlp_train.cuh` (beside copies of the other headers) under
+`build/phase_split/`: as it is, without the dW
 pass, without the dW pass and the backward walk, and without those and
 without saving activations to the workspace. Each variant is timed with
 CUDA events on the flagship fine level (4096 rays x 192 samples, 8x256
@@ -79,8 +80,11 @@ def main() -> None:
     ).stdout.strip()
     csrc = REPO / "build" / "phase_split" / "csrc"
     csrc.mkdir(parents=True, exist_ok=True)
-    (csrc / "mlp_train.cuh").write_text(
-        patched_header((_build.CSRC / "mlp_train.cuh").read_text()))
+    for header in _build.CSRC.glob("*.cuh"):
+        text = header.read_text()
+        if header.name == "mlp_train.cuh":
+            text = patched_header(text)
+        (csrc / header.name).write_text(text)
     (csrc / "onepass_level.cu").write_text(
         (_build.CSRC / "onepass_level.cu").read_text())
 
