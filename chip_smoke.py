@@ -19,7 +19,11 @@ with the launch counts set to 0 just before it and read just after:
   forward);
 * mip train: the train CLI on the mip config of `bench.py:241-258` (3072
   random + 4x16x16 MiDaS patch rays, hard mask, depth and MiDaS terms,
-  bf16, randomized, the one-pass mip step) for a few steps and a resume.
+  bf16, randomized, the one-pass mip step) for a few steps and a resume;
+* the switched paths: the vanilla render with `use_onepass_render` and
+  `use_pdf_kernel` (kernels #4 and #8), the mip render with
+  `use_pdf_kernel` and `disable_normals=false` (6n and #9), and both
+  one-pass steps with `use_pdf_kernel` through the train CLI.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32; the kernel train step is held against the
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -203,6 +208,52 @@ def grads_err(got, want):
     return rel, mx
 
 
+def guard_steps(label, kernel_step, eager_step, state, batch, draws=None):
+    """The step guard: one step of the kernel step and one of the eager
+    step from copies of `state`, with the same batch and draws. Gates the
+    loss and the grads that the optimizer's update reads (Adam's first
+    step moves every parameter by ~lr whatever the scale of its grad, so
+    the update alone cannot show a wrong scale). Returns the kernel's and
+    the eager step's (state, stats)."""
+    import copy
+
+    def grads_at_update(st):
+        """Copies of the grads that the optimizer's next update reads."""
+        opt, grads = st.optimizer, []
+        update = opt.step
+
+        def step(count):
+            grads.extend(torch.zeros_like(q) if q.grad is None else
+                         q.grad.detach().clone() for q in opt.params)
+            update(count)
+
+        opt.step = step
+        return grads
+
+    k_state, e_state = copy.deepcopy(state), copy.deepcopy(state)
+    grads_k, grads_e = grads_at_update(k_state), grads_at_update(e_state)
+    out_k = kernel_step(k_state, batch, draws)
+    out_e = eager_step(e_state, batch, draws)
+    torch.cuda.synchronize()
+    st_k, st_e = out_k[1], out_e[1]
+    grad_rel, _ = grads_err(grads_k, grads_e)
+    norm_rel = abs(float(st_k["grad_norm"]) / float(st_e["grad_norm"]) - 1)
+    d_loss = abs(float(st_k["loss"]) - float(st_e["loss"]))
+    log(f"{label}: loss kernel {float(st_k['loss']):.6f} eager "
+        f"{float(st_e['loss']):.6f}, |dloss| {d_loss:.3e}; grads max rel "
+        f"L2 over the {len(grads_e)} parameters {grad_rel:.3e}, grad norm "
+        f"kernel {float(st_k['grad_norm']):.6e} eager "
+        f"{float(st_e['grad_norm']):.6e} (rel {norm_rel:.3e}; tol "
+        f"{STEP_GRAD_TOL:g})")
+    gate(d_loss < STEP_LOSS_TOL * abs(float(st_e["loss"])),
+         f"{label}: kernel step loss disagrees with the eager step "
+         f"({d_loss})")
+    gate(grad_rel < STEP_GRAD_TOL and norm_rel < STEP_GRAD_TOL,
+         f"{label}: kernel step grads disagree with the eager step "
+         f"({grad_rel:.3e})")
+    return out_k, out_e
+
+
 def main() -> None:
     global torch
     import torch
@@ -236,8 +287,11 @@ def main() -> None:
     # 2. Build every kernel from the checkout's sources, in parallel.
     from consistentnerf_tpu_torch.ops import fused_mip as fmip
 
+    from consistentnerf_tpu_torch.ops import pdf_merge
+
     names = [v2.KERNEL, v2.BWD_KERNEL, op.KERNEL, fmip.KERNEL,
-             fmip.BWD_KERNEL, op.MIP_KERNEL]
+             fmip.BWD_KERNEL, op.MIP_KERNEL, op.RENDER_KERNEL,
+             pdf_merge.KERNEL, pdf_merge.MIP_KERNEL]
     t0 = time.perf_counter()
     _build.build_all(names)
     log(f"built {', '.join(n + '.cu' for n in names)} for sm_90a in "
@@ -281,6 +335,12 @@ def main() -> None:
     mip_render = mip_render_phases(dev, card, configs, fm, fmip)
     mip_train = mip_train_phases(dev, card, configs, fm, fmip, op)
     log(f"mip phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    switched = switched_vanilla_phases(dev, card, configs, fm, v2, op,
+                                       pdf_merge, render["render_ms"])
+    mip_switched = switched_mip_phases(dev, card, configs, fm, fmip, op,
+                                       pdf_merge, mip_render["render_ms"])
+    log(f"switched phases: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = {"kernels": [
         dict(name=v2.KERNEL, route="cuda",
@@ -295,7 +355,9 @@ def main() -> None:
              launches=(mip_render["launches"]
                        + mip_train["launches"][fmip.KERNEL]),
              **mip_render["json"]),
-    ] + mip_train["json"]}
+    ] + mip_train["json"] + [
+        switched["json"][op.RENDER_KERNEL], mip_switched["json"],
+        switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]}
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -475,7 +537,8 @@ def render_phases(dev, card, configs, fm, v2):
                 f"{k} {ms:.2f} ms x{n}" for k, ms, n in top))
     return {"launches": launches + cli_launches, "json": dict(
         max_abs_err=errs["fine bf16"], ms=ms_fine, plain_ms=plain_ms,
-        bound_ms=b_fine, bound_by=by_fine, library_ms=None)}
+        bound_ms=b_fine, bound_by=by_fine, library_ms=None),
+        "render_ms": 1e3 * render_s}
 
 
 FLAGSHIP = dict(  # bench.py:66-84
@@ -492,8 +555,6 @@ def train_phases(dev, card, configs, fm, v2, op):
     """The train path: kernels #2 and #3 vs their plain versions at the
     flagship step's shapes, the train CLI with a checkpoint and a resume,
     the step guard, timings and a profile of one step."""
-    import copy
-
     from consistentnerf_tpu_torch.cli import train as train_cli
     from consistentnerf_tpu_torch.core import rendering, sampling
     from consistentnerf_tpu_torch.data import synthetic
@@ -669,49 +730,21 @@ def train_phases(dev, card, configs, fm, v2, op):
         g_cfg, g_batch["rgb"].shape[0],
         step_lib.step_generator(g_cfg.seed, 0, dev), dev)
 
-    def grads_at_update(state):
-        """Copies of the grads that the optimizer's next update reads."""
-        opt, grads = state.optimizer, []
-        update = opt.step
-
-        def step(count):
-            grads.extend(torch.zeros_like(q) if q.grad is None else
-                         q.grad.detach().clone() for q in opt.params)
-            update(count)
-
-        opt.step = step
-        return grads
-
-    k_state, e_state = copy.deepcopy(g_state), copy.deepcopy(g_state)
-    grads_k, grads_e = grads_at_update(k_state), grads_at_update(e_state)
-    s_k, st_k = op.build_onepass_vanilla_train_step(g_cfg)(
-        k_state, g_batch, g_draws)
-    eager = step_lib.build_vanilla_train_step(e_state.model, g_cfg)
-    s_e, st_e = eager(e_state, g_batch, g_draws)
-    torch.cuda.synchronize()
-    grad_rel, _ = grads_err(grads_k, grads_e)
-    norm_rel = abs(float(st_k["grad_norm"]) / float(st_e["grad_norm"]) - 1)
-    log(f"step guard grads: max rel L2 over the {len(grads_e)} parameters "
-        f"{grad_rel:.3e}, grad norm kernel {float(st_k['grad_norm']):.6e} "
-        f"eager {float(st_e['grad_norm']):.6e} (rel {norm_rel:.3e}; tol "
-        f"{STEP_GRAD_TOL:g})")
-    gate(grad_rel < STEP_GRAD_TOL and norm_rel < STEP_GRAD_TOL,
-         f"kernel step grads disagree with the eager step ({grad_rel:.3e})")
-    d_loss = abs(float(st_k["loss"]) - float(st_e["loss"]))
+    (s_k, _), (s_e, _) = guard_steps(
+        f"step guard (N_rand {GUARD_N_RAND}, bf16)",
+        op.build_onepass_vanilla_train_step(g_cfg),
+        step_lib.build_vanilla_train_step(g_state.model, g_cfg), g_state,
+        g_batch, g_draws)
     deltas = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(
         s_k.model.parameters(), s_e.model.parameters())])
     lr0 = g_cfg.lrate
     share = (deltas > 0.1 * lr0).float().mean().item()
-    log(f"step guard (N_rand {GUARD_N_RAND}, bf16): loss kernel "
-        f"{float(st_k['loss']):.6f} eager {float(st_e['loss']):.6f}, "
-        f"|dloss| {d_loss:.3e}; max|dparam| {deltas.max().item():.3e} "
-        f"(one Adam step moves a parameter by at most ~lr = {lr0:g}); "
-        f"share of parameters apart by > 0.1 lr: {share:.4f}")
-    gate(d_loss < STEP_LOSS_TOL * abs(float(st_e["loss"])),
-         f"kernel step loss disagrees with the eager step ({d_loss})")
+    log(f"step guard update: max|dparam| {deltas.max().item():.3e} (one "
+        f"Adam step moves a parameter by at most ~lr = {lr0:g}); share of "
+        f"parameters apart by > 0.1 lr: {share:.4f}")
     gate(deltas.max().item() <= 2.0 * lr0 * 1.001 and share <= 0.05,
          "kernel step update disagrees with the eager step")
-    del s_k, s_e, eager, g_state, k_state, e_state, grads_k, grads_e
+    del s_k, s_e, g_state
     torch.cuda.empty_cache()
 
     # 9. Timings, tagged with the card.
@@ -992,15 +1025,14 @@ def mip_render_phases(dev, card, configs, fm, fmip):
                 f"{k} {t:.2f} ms x{c}" for k, t, c in top))
     return {"launches": launches, "json": dict(
         max_abs_err=errs["level 1 bf16"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None)}
+        bound_ms=bound, bound_by=by, library_ms=None),
+        "render_ms": 1e3 * render_s}
 
 
 def mip_train_phases(dev, card, configs, fm, fmip, op):
     """The mip train path: #7 and #5 (and #6 on the patch rays) vs their
     plain versions at the step's shapes, the train CLI with a checkpoint
     and a resume, the step guard, timings and a profile of one step."""
-    import copy
-
     from consistentnerf_tpu_torch.cli import train as train_cli
     from consistentnerf_tpu_torch.core import sampling
     from consistentnerf_tpu_torch.data import synthetic
@@ -1193,41 +1225,11 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
                               "randomized": False})
     g_state = loop.init_state(g_cfg, dev)
     g_batch = to_device(MipBatcher(scene, g_cfg).next_batch(), dev)
-
-    def grads_at_update(state):
-        opt, grads = state.optimizer, []
-        update = opt.step
-
-        def step(count):
-            grads.extend(torch.zeros_like(q) if q.grad is None else
-                         q.grad.detach().clone() for q in opt.params)
-            update(count)
-
-        opt.step = step
-        return grads
-
-    k_state, e_state = copy.deepcopy(g_state), copy.deepcopy(g_state)
-    grads_k, grads_e = grads_at_update(k_state), grads_at_update(e_state)
-    _, st_k = op.build_onepass_mip_train_step(g_cfg)(k_state, g_batch)
-    _, st_e = step_lib.build_mip_train_step(e_state.model, g_cfg)(
-        e_state, g_batch)
-    torch.cuda.synchronize()
-    grad_rel, _ = grads_err(grads_k, grads_e)
-    norm_rel = abs(float(st_k["grad_norm"]) / float(st_e["grad_norm"]) - 1)
-    d_loss = abs(float(st_k["loss"]) - float(st_e["loss"]))
-    log(f"mip step guard (N_rand {GUARD_N_RAND}, bf16): loss kernel "
-        f"{float(st_k['loss']):.6f} eager {float(st_e['loss']):.6f}, "
-        f"|dloss| {d_loss:.3e}; grads max rel L2 over the {len(grads_e)} "
-        f"parameters {grad_rel:.3e}, grad norm kernel "
-        f"{float(st_k['grad_norm']):.6e} eager "
-        f"{float(st_e['grad_norm']):.6e} (rel {norm_rel:.3e}; tol "
-        f"{STEP_GRAD_TOL:g})")
-    gate(d_loss < STEP_LOSS_TOL * abs(float(st_e["loss"])),
-         f"mip kernel step loss disagrees with the eager step ({d_loss})")
-    gate(grad_rel < STEP_GRAD_TOL and norm_rel < STEP_GRAD_TOL,
-         f"mip kernel step grads disagree with the eager step "
-         f"({grad_rel:.3e})")
-    del g_state, k_state, e_state, grads_k, grads_e
+    guard_steps(f"mip step guard (N_rand {GUARD_N_RAND}, bf16)",
+                op.build_onepass_mip_train_step(g_cfg),
+                step_lib.build_mip_train_step(g_state.model, g_cfg), g_state,
+                g_batch)
+    del g_state
     torch.cuda.empty_cache()
 
     # 16. Timings, tagged with the card.
@@ -1309,6 +1311,657 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
         f"(N={levels_p[1][0].shape[1]}): {ms6:.3f} ms/launch, bound "
         f"{b6:.3f} ms ({by6}, {100 * b6 / ms6:.1f}% of it)")
     return {"launches": launches, "json": rows}
+
+
+# The resampling kernels #8 and #9 against their plain versions: the
+# inverse CDF is ill-conditioned where a bin's pdf nears the 1e-5 floor
+# (ROADMAP Queue 3 item 4), so the order of the kernel's and the plain
+# version's fp32 sums alone moves a few samples by up to a bin. The gates:
+# exactly sorted output, every coarse depth present exactly (#8), |dz| /
+# (far - near) within PDF_REL_TOL at the 99.9th percentile, and no sample
+# further than one coarse bin.
+PDF_REL_TOL = 1e-4
+PDF_QUANTILE = 0.999
+# 6n's rows 4-6 (the density's gradient by the means) against its plain
+# version. fp32: each row's max|diff| / max|plain| < NORMALS_FP32_TOL.
+# bf16: mean|diff| / mean|plain| < MIP_BF16_MEAN_TOL, and the kernel no
+# further from the fp32 function (the fp32 plain version) than the bf16
+# plain version is, in the mean and at the 99.9th percentile of the
+# points' max|diff| / max|fp32| (NORMALS_BF16_RATIO). Each row's
+# max|diff| / max|plain| is reported, not gated: the walk's ReLU masks
+# come from the forward's bf16 activations, and where the two sides' fp32
+# sums round an activation to neighbouring bf16 values a pre-activation
+# near 0 can change sign, which switches a unit's whole contribution on
+# or off at that point. Two plain bf16 computations that differ only in
+# their sum order (card and host) differ so too.
+NORMALS_FP32_TOL = 1e-4
+NORMALS_BF16_RATIO = 1.25
+NORMALS_HOST_POINTS = 65536
+
+
+def row_max_rel(got, want):
+    """Each row's max|diff| / max|want|, the largest row's."""
+    return ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(1e-30)).max().item()
+
+
+def normals_bf16_gate(label, got, want, want32, host):
+    """Gate 6n's bf16 rows 4-6 (see NORMALS_BF16_RATIO); `host` is the
+    bf16 plain version on the host for the first points. Returns the
+    per-row max|diff| / max|plain|."""
+    g, w, t = got[4:], want[4:], want32[4:]
+    diff = (g - w).abs()
+    rows = row_max_rel(g, w)
+    mean = (diff.mean() / w.abs().mean()).item()
+    far = ((diff / w.abs().amax(1, keepdim=True)).amax(0)
+           > 1e-2).float().mean().item()
+    m = host.shape[1]
+    host_rows = row_max_rel(w[:, :m].cpu(), host[4:])
+
+    def from_fp32(x):
+        d = (x - t).abs()
+        per_point = (d / t.abs().amax(1, keepdim=True)).amax(0)
+        return ((d.mean() / t.abs().mean()).item(),
+                torch.quantile(per_point, 0.999).item())
+
+    k_mean, k_q = from_fp32(g)
+    p_mean, p_q = from_fp32(w)
+    log(f"{label}, rows 4-6 (d density / d means): max|diff| "
+        f"{diff.max().item():.3e}, per row max|diff|/max|plain| {rows:.3e} "
+        f"(share of points off by more than 1e-2 of a row's max: {far:.3e}; "
+        f"the plain version on the card vs on the host over {m} points: "
+        f"{host_rows:.3e}), "
+        f"mean|diff|/mean|plain| {mean:.3e} (tol {MIP_BF16_MEAN_TOL:g}); "
+        f"from the fp32 function: kernel mean {k_mean:.3e}, 99.9th "
+        f"percentile {k_q:.3e}; plain bf16 mean {p_mean:.3e}, 99.9th "
+        f"percentile {p_q:.3e} (ratio tol {NORMALS_BF16_RATIO:g})")
+    gate(mean < MIP_BF16_MEAN_TOL and k_mean <= NORMALS_BF16_RATIO * p_mean
+         and k_q <= NORMALS_BF16_RATIO * p_q,
+         f"{label} rows 4-6 disagree (mean {mean:.3e}; from fp32 kernel "
+         f"{k_mean:.3e} / {k_q:.3e}, plain {p_mean:.3e} / {p_q:.3e})")
+    return rows
+
+
+def resample_gate(label, got, want, span, bin_width, z_c=None):
+    """Gate a resampler's output [N, K] against its plain version; returns
+    max |diff|."""
+    err = (got - want).abs()
+    q = torch.quantile(err.flatten() / span, PDF_QUANTILE).item()
+    mx = err.max().item()
+    ok_sorted = bool(torch.all(got[:, 1:] >= got[:, :-1]))
+    present = True
+    if z_c is not None:
+        idx = torch.searchsorted(got, z_c).clamp(max=got.shape[1] - 1)
+        present = bool(torch.equal(got.gather(1, idx), z_c))
+    log(f"{label}: max|dz| {mx:.3e} (one coarse bin {bin_width:.3e}), "
+        f"{100 * PDF_QUANTILE:g}th percentile |dz|/(far - near) {q:.3e} "
+        f"(tol {PDF_REL_TOL:g}); sorted {ok_sorted}"
+        + ("" if z_c is None else f"; coarse depths present {present}"))
+    gate(ok_sorted and present and q <= PDF_REL_TOL and mx <= bin_width,
+         f"{label} disagrees with its plain version (max {mx:.3e}, "
+         f"quantile {q:.3e}, sorted {ok_sorted}, present {present})")
+    return mx
+
+
+def pdf_bound_ms(n_rays, s_c, s_i):
+    """#8's least time: bytes per ray (z_c, w, u in; merged, z_s out)
+    against the operations (the cdf, a binary search and an interpolation
+    per draw, a merge rank per output) at the fp32 rate."""
+    nbytes = 4 * (s_c + (s_c - 2) + s_i + (s_c + s_i) + s_i) * n_rays
+    ops = n_rays * (3 * s_c + s_i * (2 * math.log2(s_c) + 8)
+                    + (s_c + s_i) * 2 * math.log2(max(s_c, s_i)))
+    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def mip_resample_bound_ms(n_rays, s):
+    """#9's least time: t, w, u in, t' out per ray, against the blur, the
+    cdf, a binary search and an interpolation per draw at the fp32 rate."""
+    nbytes = 4 * ((s + 1) + s + (s + 1) + (s + 1)) * n_rays
+    ops = n_rays * (8 * s + (s + 1) * (2 * math.log2(s + 1) + 8))
+    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def cli_switched_steps(label, dev, train_cli, sets, counted, expected):
+    """The train CLI for TRAIN_STEPS steps with the switches on; checks
+    each counted kernel's launches per step. Returns the counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--device", str(dev)] + [
+            x for s_ in sets + [f"basedir={tmp}"] for x in ("--set", s_)]
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+    log(f"{label}: steps {TRAIN_STEPS}, launches {got} (expected "
+        f"{expected} per step), loss "
+        f"{float(res.stats_history[-1]['loss']):.5f}")
+    if got != {k: v * TRAIN_STEPS for k, v in expected.items()}:
+        fail(f"{label} did not launch the kernels as expected: {got}")
+    if res.state.step != TRAIN_STEPS or not all(
+            np.isfinite(float(h["loss"])) for h in res.stats_history):
+        fail(f"{label} ended at step {res.state.step} or with a non-finite "
+             "loss")
+    return got
+
+
+def time_steps(cfg, dev, loop, batches):
+    """ms per step of the configured kernel step over TIMED_STEPS steps
+    (bench.py's count: host clock, one sync at the end)."""
+    state = loop.init_state(cfg, dev)
+    step_fn = loop.select_train_step(cfg, state.model)
+    state, _ = step_fn(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        state, stats = step_fn(state, batches[i % len(batches)])
+    float(stats["loss"])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+
+
+def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
+                            default_render_ms):
+    """The vanilla paths with use_onepass_render and use_pdf_kernel: #8 at
+    the render chunk's and the train step's shapes, #4 on a fine and a
+    coarse chunk, the switched render, the one-pass step with the pdf
+    kernel through the train CLI, its step guard and timings."""
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.core import sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.train import evaluation, loop
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    cfg = configs.Config(
+        N_samples=64, N_importance=128, white_bkgd=True,
+        compute_dtype="bfloat16", render_chunk_size=CHUNK,
+        use_fused_render=True, use_onepass_render=True, use_pdf_kernel=True)
+    s_c, s_i = cfg.N_samples, cfg.N_importance
+    skips = op.model_skips(cfg.netdepth)
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    model = make_model(cfg, dev).eval()
+    all_rays = [evaluation.camera_rays_for_view(scene, p, device=dev)
+                for p in scene.poses]
+    stacked = render_lib.stack_rays(all_rays)
+    n_rays = stacked.origins[..., 0].numel()
+    chunk = stacked.map(lambda x: x.reshape(-1, x.shape[-1])[:CHUNK])
+    n = chunk.origins.shape[0]
+    span = float(cfg.far - cfg.near)
+    bin_width = span / (s_c - 1)
+    mlp_kw = dict(net_depth=cfg.netdepth, skips=skips, multires=cfg.multires,
+                  multires_views=cfg.multires_views)
+
+    def packed(level, dtype):
+        return v2.pack(fm.flatten_params(getattr(model, level), True,
+                                         cfg.netdepth),
+                       compute_dtype=dtype, **mlp_kw)
+
+    def level_rows(rays, z):
+        k, s = z.shape
+        pts, views = op._pts_views(rays.origins.T, rays.directions.T,
+                                   rays.viewdirs.T, z)
+        dn = op._rep_row(torch.linalg.norm(rays.directions, dim=-1),
+                         s).contiguous()
+        return pts, views, z.reshape(1, k * s).contiguous(), dn
+
+    def coarse_weights(rays, z):
+        """The coarse level's weights, from the plain level (#4's plain
+        version) in bf16."""
+        return op.plain_render_level_T(
+            packed("coarse", "bfloat16"), *level_rows(rays, z), seg=s_c,
+            white_bkgd=True, compute_dtype="bfloat16", **mlp_kw)[5].reshape(
+                z.shape)
+
+    # 17. #8 vs plain: the render chunk (deterministic draws) and the
+    # flagship step's data and patch rays (ascending random draws).
+    errs = {}
+    with torch.no_grad():
+        z_c = sampling.vanilla_z_vals(chunk.near, chunk.far, s_c, False,
+                                      None)
+        w_c = coarse_weights(chunk, z_c)
+        render_in = (z_c.contiguous(), w_c[:, 1:-1].contiguous(),
+                     pdf_merge.fine_z_draws(None, n, s_i, True,
+                                            dev).contiguous())
+        t_cfg = configs.Config(**FLAGSHIP, use_pdf_kernel=True)
+        t_batch = to_device(VanillaBatcher(scene, t_cfg).next_batch(), dev)
+        t_rays = step_lib.rays_from_batch(t_batch, t_cfg.near, t_cfg.far)
+        nt = t_rays.origins.shape[0]
+        p = t_cfg.n_patches * t_cfg.patch_size ** 2
+        t_draws = step_lib.make_draws(t_cfg, nt, step_lib.step_generator(
+            t_cfg.seed, 0, dev), dev)
+        z_t = sampling.vanilla_z_vals(t_rays.near, t_rays.far, s_c, False,
+                                      t_draws["t_rand"])
+        w_t = coarse_weights(t_rays, z_t)
+        cases = [("render chunk, deterministic draws", render_in)]
+        for name, sl in (("step data rays", slice(p, nt)),
+                         ("step patch rays", slice(0, p))):
+            cases.append((f"{name}, ascending random draws",
+                          (z_t[sl].contiguous(),
+                           w_t[sl, 1:-1].contiguous(),
+                           t_draws["u"][sl].contiguous())))
+        for label, args in cases:
+            got, got_s = pdf_merge.sample_pdf_merged(*args)
+            torch.cuda.synchronize()
+            want, want_s = pdf_merge.plain_sample_pdf_merged(*args)
+            lab = f"{pdf_merge.KERNEL} vs plain, {label}, {args[0].shape[0]}"
+            errs[label] = resample_gate(
+                f"{lab} x {s_c}+{s_i}", got, want, span, bin_width,
+                args[0])
+            resample_gate(f"{lab}: the samples", got_s, want_s, span,
+                          bin_width)
+    pdf_err = errs[cases[0][0]]
+
+    # 18. #4 vs plain on a fine and a coarse chunk, bf16 and fp32.
+    with torch.no_grad():
+        z_f = pdf_merge.fine_z_vals(z_c, w_c, s_i, det=True,
+                                    use_kernel=True)
+        fine_in, coarse_in = level_rows(chunk, z_f), level_rows(chunk, z_c)
+        r_errs = {}
+        for label, level, rows_in, seg, dtype in (
+                ("fine bf16", "fine", fine_in, s_c + s_i, "bfloat16"),
+                ("fine fp32", "fine", fine_in, s_c + s_i, "float32"),
+                ("coarse bf16", "coarse", coarse_in, s_c, "bfloat16"),
+                ("coarse fp32", "coarse", coarse_in, s_c, "float32")):
+            w = packed(level, dtype)
+            kw = dict(seg=seg, white_bkgd=True, compute_dtype=dtype,
+                      **mlp_kw)
+            got = op.render_level_T(w, *rows_in, **kw)
+            torch.cuda.synchronize()
+            want = op.plain_render_level_T(w, *rows_in, **kw)
+            if not torch.isfinite(got).all():
+                fail(f"{op.RENDER_KERNEL} {label}: output is not finite")
+            row_errs = ((got - want).abs().amax(1)
+                        / want.abs().amax(1).clamp_min(1e-30)).tolist()
+            r_errs[label] = (got - want).abs().max().item()
+            log(f"{op.RENDER_KERNEL} vs plain, {label} chunk, "
+                f"N={rows_in[0].shape[1]}: max|diff| {r_errs[label]:.3e}, "
+                "per row max|diff|/max|plain| " + ", ".join(
+                    f"{k} {e:.2e}" for k, e in zip(ROW_NAMES, row_errs))
+                + f" (tol {ROWS_TOL[dtype]:g})")
+            gate(max(row_errs) < ROWS_TOL[dtype],
+                 f"{op.RENDER_KERNEL} {label} disagrees with its plain "
+                 f"version ({max(row_errs):.3e})")
+            del got, want
+
+    # 19. The switched render of the 6 views: #4 per level and chunk, #8
+    # per chunk, #1 never.
+    render = render_lib.build_render_fn(model, cfg)
+    v2.launches = op.render_launches = pdf_merge.launches = 0
+    out = render(stacked)
+    torch.cuda.synchronize()
+    counts = (op.render_launches, pdf_merge.launches, v2.launches)
+    n_chunks = -(-n_rays // CHUNK)
+    log(f"switched render of {len(all_rays)} views: launches "
+        f"{op.RENDER_KERNEL} {counts[0]}, {pdf_merge.KERNEL} {counts[1]}, "
+        f"{v2.KERNEL} {counts[2]} (expected {2 * n_chunks}, {n_chunks}, 0)")
+    if counts != (2 * n_chunks, n_chunks, 0):
+        fail(f"the switched render launched {counts}")
+    for k in ("rgb", "depth", "acc"):
+        if not torch.isfinite(out[k]).all():
+            fail(f"switched render output {k} is not finite")
+    plain_out = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(all_rays[0])
+    rgb_diff = (out["rgb"][0] - plain_out["rgb"]).abs().mean().item()
+    log(f"view 0, switched vs plain render (bf16): mean|rgb diff| "
+        f"{rgb_diff:.3e} (tol {RENDER_RGB_TOL:g})")
+    gate(rgb_diff < RENDER_RGB_TOL,
+         f"switched render disagrees with the plain render ({rgb_diff})")
+    render_launches, pdf_launches = counts[0], counts[1]
+
+    # 20. The one-pass step with use_pdf_kernel: the train CLI (#8 on the
+    # data rays and the patch rays), the step guard, timings.
+    sets = ["dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+            f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+            "i_print=1", f"checkpoint_every={TRAIN_STEPS}",
+            "use_pdf_kernel=true"] + [f"{k}={v}" for k, v in FLAGSHIP.items()]
+    got = cli_switched_steps(
+        "cli.train with use_pdf_kernel", dev, train_cli, sets,
+        ((pdf_merge, "launches", pdf_merge.KERNEL),
+         (op, "launches", op.KERNEL)), {pdf_merge.KERNEL: 2, op.KERNEL: 2})
+    pdf_launches += got[pdf_merge.KERNEL]
+    g_cfg = t_cfg.replace(N_rand=GUARD_N_RAND)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+    g_draws = step_lib.make_draws(g_cfg, g_batch["rgb"].shape[0],
+                                  step_lib.step_generator(g_cfg.seed, 0,
+                                                          dev), dev)
+    guard_steps(f"step guard with use_pdf_kernel (N_rand {GUARD_N_RAND}, "
+                "bf16)", op.build_onepass_vanilla_train_step(g_cfg),
+                step_lib.build_vanilla_train_step(g_state.model, g_cfg),
+                g_state, g_batch, g_draws)
+    del g_state
+    torch.cuda.empty_cache()
+    batcher = VanillaBatcher(scene, t_cfg)
+    batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    step_ms = {k: time_steps(t_cfg.replace(use_pdf_kernel=k), dev, loop,
+                                batches)
+               for k in (True, False)}
+    log(f"{tag} train step (flagship, {nt} rays) with use_pdf_kernel: "
+        f"{step_ms[True]:.2f} ms/step, {1e3 * nt / step_ms[True]:.1f} "
+        f"rays/s; without it, same call: {step_ms[False]:.2f} ms/step, "
+        f"{1e3 * nt / step_ms[False]:.1f} rays/s")
+
+    # 21. Timings, tagged with the card.
+    with torch.no_grad():
+        wf, wc = packed("fine", "bfloat16"), packed("coarse", "bfloat16")
+        kf = dict(seg=s_c + s_i, white_bkgd=True, compute_dtype="bfloat16",
+                  **mlp_kw)
+        kc = dict(kf, seg=s_c)
+        ms4 = time_ms(lambda: op.render_level_T(wf, *fine_in, **kf), 5)
+        ms4c = time_ms(lambda: op.render_level_T(wc, *coarse_in, **kc), 10)
+        plain4 = time_ms(lambda: op.plain_render_level_T(wf, *fine_in,
+                                                          **kf), 2)
+        ms8 = time_ms(lambda: pdf_merge.sample_pdf_merged(*render_in), 50)
+        plain8 = time_ms(lambda: pdf_merge.plain_sample_pdf_merged(
+            *render_in), 10)
+    render_ms = time_ms(lambda: render(stacked), 3)
+    dev_ms, top = device_time(lambda: render(stacked))
+    flops_pp = mlp_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                   cfg.multires, cfg.multires_views)
+    wbytes = wf.w.numel() * 2 + wf.b.numel() * 4
+    n_fine, n_coarse = fine_in[0].shape[1], coarse_in[0].shape[1]
+    # #4 moves 7 floats in (points, views, z) and 6 out per point, and
+    # |d| per ray.
+    b4, by4 = bound_ms(n_fine, flops_pp, wbytes, PEAK_BF16_FLOPS,
+                       52 + 4 / (s_c + s_i))
+    b4c, _ = bound_ms(n_coarse, flops_pp, wbytes, PEAK_BF16_FLOPS,
+                      52 + 4 / s_c)
+    b8, by8 = pdf_bound_ms(n, s_c, s_i)
+    log(f"{tag} {op.RENDER_KERNEL} bf16 fine chunk (N={n_fine}): "
+        f"{ms4:.3f} ms/launch, bound {b4:.3f} ms ({by4}, "
+        f"{100 * b4 / ms4:.1f}% of it); coarse (N={n_coarse}) {ms4c:.3f} "
+        f"ms, bound {b4c:.3f}; plain version, fine: {plain4:.3f} ms")
+    log(f"{tag} {pdf_merge.KERNEL} render chunk ({n} rays, {s_c}+{s_i}): "
+        f"{1e3 * ms8:.1f} us/launch, bound {1e3 * b8:.2f} us ({by8}, "
+        f"{100 * b8 / ms8:.1f}% of it); plain version {1e3 * plain8:.1f} us")
+    log(f"{tag} switched render {len(all_rays)} views: {render_ms:.2f} ms, "
+        f"{1e3 * n_rays / render_ms:.1f} rays/s; default fused render of "
+        f"this run {default_render_ms:.2f} ms, "
+        f"{1e3 * n_rays / default_render_ms:.1f} rays/s")
+    if dev_ms is None:
+        log(f"{tag} switched render device time: not measured (the "
+            "profiler saw no device time)")
+    else:
+        log(f"{tag} profiled switched render: device time {dev_ms:.2f} ms, "
+            f"{100 * dev_ms / render_ms:.1f}% of the event-timed render; "
+            "by kernel: " + "; ".join(f"{k} {t:.2f} ms x{c}"
+                                      for k, t, c in top))
+    return {"json": {
+        op.RENDER_KERNEL: dict(
+            name=op.RENDER_KERNEL, route="cuda",
+            source="consistentnerf_tpu_torch/csrc/render_level.cu",
+            replaces="consistentnerf_tpu/ops/fused_onepass.py:508",
+            launches=render_launches, max_abs_err=r_errs["fine bf16"],
+            ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
+            library_ms=None),
+        pdf_merge.KERNEL: dict(
+            name=pdf_merge.KERNEL, route="cuda",
+            source="consistentnerf_tpu_torch/csrc/pdf_merge.cu",
+            replaces="consistentnerf_tpu/ops/pdf_merge.py:158",
+            launches=pdf_launches, max_abs_err=pdf_err, ms=ms8,
+            plain_ms=plain8, bound_ms=b8, bound_by=by8, library_ms=None)}}
+
+
+def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
+                        default_render_ms):
+    """The mip paths with use_pdf_kernel and disable_normals=false: #9 at
+    the render chunk's and the train step's shapes, 6n on a render chunk,
+    the switched mip render, the one-pass mip step with the pdf kernel
+    through the train CLI, its step guard and timings."""
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.core import rendering, sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher, to_device
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.models.mlp import softplus
+    from consistentnerf_tpu_torch.train import evaluation, loop
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    cfg = configs.Config(**{**MIP, "render_chunk_size": CHUNK,
+                            "use_fused_render": True,
+                            "use_pdf_kernel": True,
+                            "disable_normals": False})
+    kw = mip_mlp_kw(cfg)
+    s = cfg.mip_num_samples
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    model = make_model(cfg, dev).eval()
+    flat = [w.detach() for w in fmip.flatten_mip_params(model.mlp,
+                                                        cfg.netdepth)]
+    w16 = fmip.pack(flat, cfg.netdepth, cfg.max_deg_point, "bfloat16")
+    all_rays = [evaluation.camera_rays_for_view(scene, p, device=dev)
+                for p in scene.poses]
+    stacked = render_lib.stack_rays(all_rays)
+    n_rays = stacked.origins[..., 0].numel()
+    chunk = stacked.map(lambda x: x.reshape(-1, x.shape[-1])[:CHUNK])
+    n = chunk.origins.shape[0]
+    span = float(cfg.far - cfg.near)
+
+    def streams(rays, samples):
+        m, c = samples
+        k = rays.origins.shape[0]
+        views = rays.viewdirs.T[:, :, None].expand(3, k, s).reshape(
+            3, k * s).contiguous()
+        return (m.reshape(3, k * s).contiguous(),
+                c.reshape(3, k * s).contiguous(), views)
+
+    def level0(rays, t_rand):
+        """Level 0's fenceposts and weights (plain #6 in bf16)."""
+        t0, smp = sampling.sample_along_rays(
+            t_rand, rays.origins, rays.directions, rays.radii, s,
+            rays.near, rays.far, None, "cone", transposed=True)
+        raw = fmip.plain_fwd_T(w16, *streams(rays, smp),
+                               compute_dtype="bfloat16", **kw)
+        k = rays.origins.shape[0]
+        w = rendering.compute_alpha_weights(
+            softplus(raw[3] + fmip.DENSITY_BIAS).reshape(k, s), t0,
+            rays.directions)[0]
+        return t0.contiguous(), w.contiguous()
+
+    # 22. #9 vs plain: the render chunk (deterministic draws) and the mip
+    # step's data and patch rays (jittered draws).
+    with torch.no_grad():
+        t0, w0 = level0(chunk, None)
+        render_in = (t0, w0, sampling.piecewise_pdf_draws(
+            None, (n,), s + 1, dev).contiguous(), cfg.resample_padding_final)
+        t_cfg = configs.Config(**{**MIP, "use_pdf_kernel": True})
+        t_batch = to_device(MipBatcher(scene, t_cfg).next_batch(), dev)
+        t_rays = t_batch["rays"]
+        nt, p = t_rays.origins.shape[0], MIP_PATCH
+        t_draws = step_lib.make_mip_draws(t_cfg, nt, step_lib.step_generator(
+            t_cfg.seed, 0, dev), dev)
+        tt, wt = level0(t_rays, t_draws["t_rand"])
+        u_t = sampling.piecewise_pdf_draws(t_draws["jitter"][1], (nt,),
+                                           s + 1).contiguous()
+        pad = step_lib.resample_padding(t_cfg, 0)
+        cases = [("render chunk, deterministic draws", render_in)]
+        for name, sl in (("step data rays", slice(p, nt)),
+                         ("step patch rays", slice(0, p))):
+            cases.append((f"{name}, jittered draws",
+                          (tt[sl].contiguous(), wt[sl].contiguous(),
+                           u_t[sl].contiguous(), pad)))
+        errs9 = {}
+        for label, args in cases:
+            got = pdf_merge.mip_resample_t_vals(*args)
+            torch.cuda.synchronize()
+            want = pdf_merge.plain_mip_resample_t_vals(*args)
+            errs9[label] = resample_gate(
+                f"{pdf_merge.MIP_KERNEL} vs plain, {label}, "
+                f"{args[0].shape[0]} x {s + 1}", got, want, span, span / s)
+    mip_err = errs9[cases[0][0]]
+
+    # 23. 6n vs plain on the render chunk's level 1, bf16 and fp32.
+    with torch.no_grad():
+        _, smp1 = sampling.resample_along_rays(
+            None, chunk.origins, chunk.directions, chunk.radii, t0, w0,
+            "cone", True, cfg.resample_padding_final, transposed=True,
+            use_kernel=True)
+        lvl1 = streams(chunk, smp1)
+        n_errs, out = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            w = fmip.pack(flat, cfg.netdepth, cfg.max_deg_point, dtype)
+            got = fmip.fused_mip_mlp_normals_T(w, *lvl1, compute_dtype=dtype,
+                                               **kw)
+            torch.cuda.synchronize()
+            want = fmip.plain_fwd_normals_T(w, *lvl1, compute_dtype=dtype,
+                                            **kw)
+            if not torch.isfinite(got).all():
+                fail(f"{fmip.NORMALS_KERNEL} {dtype}: output is not finite")
+            label = (f"{fmip.NORMALS_KERNEL} vs plain, render chunk level 1 "
+                     f"{dtype}, N={got.shape[1]}")
+            mip_fwd_gate(f"{label}, rows 0-3", got[:4], want[:4], dtype)
+            n_errs[dtype] = (got - want).abs().max().item()
+            if dtype == "float32":
+                out["fp32"] = want
+                rows = row_max_rel(got[4:], want[4:])
+                log(f"{label}, rows 4-6 (d density / d means): max|diff| "
+                    f"{(got[4:] - want[4:]).abs().max().item():.3e}, per "
+                    f"row max|diff|/max|plain| {rows:.3e} (tol "
+                    f"{NORMALS_FP32_TOL:g})")
+                gate(rows < NORMALS_FP32_TOL,
+                     f"{label} rows 4-6 disagree ({rows:.3e})")
+            else:
+                # Two plain computations that differ in sum order only.
+                host = fmip.plain_fwd_normals_T(
+                    fmip.pack([x.cpu() for x in flat], cfg.netdepth,
+                              cfg.max_deg_point, dtype),
+                    *[x[:, :NORMALS_HOST_POINTS].cpu() for x in lvl1],
+                    compute_dtype=dtype, **kw)
+                normals_bf16_gate(label, got, want, out["fp32"], host)
+            del got, want
+        del out
+
+    # 24. The switched mip render: 6n per level and chunk, #9 per chunk,
+    # #6 never.
+    render = render_lib.build_render_fn(model, cfg)
+    fmip.launches = fmip.normals_launches = pdf_merge.mip_launches = 0
+    out = render(stacked)
+    torch.cuda.synchronize()
+    counts = (fmip.normals_launches, pdf_merge.mip_launches, fmip.launches)
+    n_chunks = -(-n_rays // CHUNK)
+    log(f"switched mip render of {len(all_rays)} views: launches "
+        f"{fmip.NORMALS_KERNEL} {counts[0]}, {pdf_merge.MIP_KERNEL} "
+        f"{counts[1]}, {fmip.KERNEL} {counts[2]} (expected "
+        f"{cfg.mip_num_levels * n_chunks}, {n_chunks}, 0)")
+    if counts != (cfg.mip_num_levels * n_chunks, n_chunks, 0):
+        fail(f"the switched mip render launched {counts}")
+    views_hw = (len(all_rays), scene.H, scene.W)
+    for k in ("rgb", "depth", "acc", "normals"):
+        shape = views_hw + ((3,) if k in ("rgb", "normals") else ())
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            fail(f"switched mip render output {k} has shape "
+                 f"{tuple(out[k].shape)} or non-finite values")
+    plain_out = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(all_rays[0])
+    diffs = {k: (out[k][0] - plain_out[k]).abs().mean().item()
+             for k in ("rgb", "normals")}
+    log(f"view 0, switched vs plain mip render (bf16): mean|rgb diff| "
+        f"{diffs['rgb']:.3e}, mean|normals diff| {diffs['normals']:.3e} "
+        f"(tol {RENDER_RGB_TOL:g})")
+    gate(max(diffs.values()) < RENDER_RGB_TOL,
+         f"switched mip render disagrees with the plain render ({diffs})")
+    normals_launches, mip_launches = counts[0], counts[1]
+
+    # 25. The one-pass mip step with use_pdf_kernel: the train CLI (#9 on
+    # the data rays' and the patch rays' level 1), the step guard, timings.
+    sets = ["dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+            f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+            "i_print=1", f"checkpoint_every={TRAIN_STEPS}",
+            "use_pdf_kernel=true"] + [
+        f"{k}={v}" for k, v in MIP.items() if k != "dataset_type"]
+    got = cli_switched_steps(
+        "mip cli.train with use_pdf_kernel", dev, train_cli, sets,
+        ((pdf_merge, "mip_launches", pdf_merge.MIP_KERNEL),
+         (op, "mip_launches", op.MIP_KERNEL)),
+        {pdf_merge.MIP_KERNEL: 2, op.MIP_KERNEL: 2})
+    mip_launches += got[pdf_merge.MIP_KERNEL]
+    g_cfg = t_cfg.replace(N_rand=GUARD_N_RAND, randomized=False)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(MipBatcher(scene, g_cfg).next_batch(), dev)
+    guard_steps(f"mip step guard with use_pdf_kernel (N_rand "
+                f"{GUARD_N_RAND}, bf16)",
+                op.build_onepass_mip_train_step(g_cfg),
+                step_lib.build_mip_train_step(g_state.model, g_cfg), g_state,
+                g_batch)
+    del g_state
+    torch.cuda.empty_cache()
+    batcher = MipBatcher(scene, t_cfg)
+    batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    step_ms = {k: time_steps(t_cfg.replace(use_pdf_kernel=k), dev, loop,
+                                batches)
+               for k in (True, False)}
+    log(f"{tag} mip train step ({nt} rays) with use_pdf_kernel: "
+        f"{step_ms[True]:.2f} ms/step, {1e3 * nt / step_ms[True]:.1f} "
+        f"rays/s; without it, same call: {step_ms[False]:.2f} ms/step, "
+        f"{1e3 * nt / step_ms[False]:.1f} rays/s")
+
+    # 26. Timings, tagged with the card.
+    with torch.no_grad():
+        ms6n = time_ms(lambda: fmip.fused_mip_mlp_normals_T(
+            w16, *lvl1, compute_dtype="bfloat16", **kw), 3)
+        plain6n = time_ms(lambda: fmip.plain_fwd_normals_T(
+            w16, *lvl1, compute_dtype="bfloat16", **kw), 1)
+        ms9 = time_ms(lambda: pdf_merge.mip_resample_t_vals(*render_in), 50)
+        plain9 = time_ms(lambda: pdf_merge.plain_mip_resample_t_vals(
+            *render_in), 10)
+    render_ms = time_ms(lambda: render(stacked), 2)
+    dev_ms, top = device_time(lambda: render(stacked))
+    # 6n's work per point: the forward and the walk back through the
+    # trunk (every trunk layer's product once more: the input gradient,
+    # and the encoding's at layer 0 and the post-skip layer); 9 floats in,
+    # 7 out.
+    fwd_pp = mip_flops(cfg, fmip)
+    pe, _ = enc_widths(cfg.max_deg_point, fmip.DEG_VIEW, ipe=True)
+    width = cfg.netwidth
+    trunk_macs = pe * width + sum(
+        (width + pe if i in fmip.post_skip_layers(cfg.netdepth) else width)
+        * width for i in range(1, cfg.netdepth))
+    flops_pp = fwd_pp + 2 * trunk_macs
+    npts = lvl1[0].shape[1]
+    wbytes = w16.w.numel() * 2 + w16.b.numel() * 4
+    b6n, by6n = bound_ms(npts, flops_pp, wbytes, PEAK_BF16_FLOPS, 64)
+    b9, by9 = mip_resample_bound_ms(n, s)
+    log(f"{tag} {fmip.NORMALS_KERNEL} bf16 render chunk (N={npts}): "
+        f"{ms6n:.3f} ms/launch, bound {b6n:.3f} ms ({by6n}, {flops_pp} "
+        f"FLOP/point, {100 * b6n / ms6n:.1f}% of it); plain version "
+        f"{plain6n:.3f} ms")
+    log(f"{tag} {pdf_merge.MIP_KERNEL} render chunk ({n} rays, {s + 1} "
+        f"fenceposts): {1e3 * ms9:.1f} us/launch, bound {1e3 * b9:.2f} us "
+        f"({by9}, {100 * b9 / ms9:.1f}% of it); plain version "
+        f"{1e3 * plain9:.1f} us")
+    log(f"{tag} switched mip render {len(all_rays)} views: {render_ms:.2f} "
+        f"ms, {1e3 * n_rays / render_ms:.1f} rays/s; default fused mip "
+        f"render of this run {default_render_ms:.2f} ms, "
+        f"{1e3 * n_rays / default_render_ms:.1f} rays/s")
+    if dev_ms is None:
+        log(f"{tag} switched mip render device time: not measured (the "
+            "profiler saw no device time)")
+    else:
+        log(f"{tag} profiled switched mip render: device time {dev_ms:.2f} "
+            f"ms, {100 * dev_ms / render_ms:.1f}% of the event-timed "
+            "render; by kernel: " + "; ".join(f"{k} {t:.2f} ms x{c}"
+                                              for k, t, c in top))
+    return {
+        "json": dict(
+            name=fmip.NORMALS_KERNEL, route="cuda",
+            source="consistentnerf_tpu_torch/csrc/fused_mip_fwd.cu",
+            replaces="consistentnerf_tpu/ops/fused_mip.py:768",
+            launches=normals_launches, max_abs_err=n_errs["bfloat16"],
+            ms=ms6n, plain_ms=plain6n, bound_ms=b6n, bound_by=by6n,
+            library_ms=None),
+        "mip_json": dict(
+            name=pdf_merge.MIP_KERNEL, route="cuda",
+            source="consistentnerf_tpu_torch/csrc/mip_resample.cu",
+            replaces="consistentnerf_tpu/ops/pdf_merge.py:284",
+            launches=mip_launches, max_abs_err=mip_err, ms=ms9,
+            plain_ms=plain9, bound_ms=b9, bound_by=by9, library_ms=None)}
 
 
 if __name__ == "__main__":

@@ -63,7 +63,7 @@ def auto_fused_defaults(cfg: Config, args) -> Config:
         and cfg.netwidth % 32 == 0
     )
     # The train step also needs disable_normals (the normals forward has
-    # no backward).
+    # no backward); the render computes the normals in kernel 6n.
     mip_ok = mip_render_ok and cfg.disable_normals
     if (torch.device(args.device).type != "cuda"
             or not (vanilla_ok or mip_render_ok)):

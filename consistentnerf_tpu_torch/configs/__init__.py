@@ -71,8 +71,12 @@ class Config:
     # One-pass kernel train step (MLP fwd + compositing + loss cotangents
     # + bwd in one launch per level) when use_fused_train is on.
     use_onepass_train: bool = False
-    use_onepass_render: bool = False  # not ported (ROADMAP Queue 2)
-    use_pdf_kernel: bool = False  # not ported (ROADMAP Queue 2)
+    # In-kernel compositing for the render (one forward kernel per level,
+    # #4) when use_fused_render is on.
+    use_onepass_render: bool = False
+    # The fused resampling kernels (#8 vanilla fine level, #9 mip level)
+    # on the fused and one-pass paths; sample_pdf + sort otherwise.
+    use_pdf_kernel: bool = False
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' MLP compute
 
     # --- mip model ---------------------------------------------------------
@@ -88,7 +92,8 @@ class Config:
     deg_view: int = 4
     density_noise: float = 0.0
     rgb_padding: float = 0.001
-    disable_normals: bool = True  # False is not ported (Queue 1: mip normals)
+    # False: the render's normals (the steps refuse it: Queue 1, mip normals)
+    disable_normals: bool = True
     resample_padding_init: float = 0.01
     resample_padding_final: float = 0.01
     randomized: bool = True

@@ -79,15 +79,17 @@ def compute_alpha_weights(density, t_vals, dirs):
     return alpha * trans, alpha, trans, delta
 
 
-def volumetric_rendering(rgbs, weights, t_vals, white_background: bool,
-                         vis_num_rays: int, compute_extras: bool,
+def volumetric_rendering(rgbs, weights, normals, t_vals,
+                         white_background: bool, vis_num_rays: int,
+                         compute_extras: bool,
                          rgbs_T=None) -> Dict[str, torch.Tensor]:
     """mip-NeRF rendering dict (mip.py:211-294): rgb and distance_mean,
-    and with `compute_extras` acc, distance_mean_save, distance_std, the
-    distance percentiles (5, 25, 50 as distance_median, 75, 95) and the
-    ray visualizations. rgbs [N, S, 3], or `rgbs_T` [3, N, S] (the fused
-    kernels' layout) with rgbs=None. Normals are not ported (ROADMAP
-    Queue 1: mip normals), so the dict has none."""
+    and with `compute_extras` acc, the normals map (when `normals`
+    [N, S, 3] is given; None for a `disable_normals` model),
+    distance_mean_save, distance_std, the distance percentiles (5, 25, 50
+    as distance_median, 75, 95) and the ray visualizations. rgbs
+    [N, S, 3], or `rgbs_T` [3, N, S] (the fused kernels' layout) with
+    rgbs=None."""
     t_mids = 0.5 * (t_vals[..., :-1] + t_vals[..., 1:])
     if rgbs_T is not None:
         rgb = (weights[None] * rgbs_T).sum(-1).movedim(0, -1)
@@ -107,6 +109,11 @@ def volumetric_rendering(rgbs, weights, t_vals, white_background: bool,
     if compute_extras:
         eps = torch.finfo(torch.float32).eps
         out["acc"] = acc
+        if normals is not None:
+            normals_map = (weights[..., None] * normals).sum(-2)
+            if white_background:
+                normals_map = normals_map + (1.0 - acc[..., None])
+            out["normals"] = normals_map
         out["distance_mean_save"] = torch.clamp(
             (weights * t_mids).sum(-1) / torch.clamp(acc, min=eps),
             t_vals[..., 0], t_vals[..., -1])

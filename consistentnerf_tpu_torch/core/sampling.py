@@ -107,6 +107,25 @@ def _interval(x: torch.Tensor, idx: torch.Tensor):
     return x0, x1
 
 
+def inverse_cdf(bins: torch.Tensor, weights: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+    """The hardened inverse CDF of `sorted_piecewise_constant_pdf` at the
+    draws u [..., num] in [0, 1). bins [..., K+1], weights [..., K]."""
+    weights = weights + torch.clamp(
+        _EPS - weights.sum(-1, keepdim=True), min=0)
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], -1), max=1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
+                     torch.ones_like(cdf[..., :1])], -1)
+    u = u.contiguous()
+    idx = torch.searchsorted(cdf.contiguous(), u, right=True)
+    bins_g0, bins_g1 = _interval(bins, idx)
+    cdf_g0, cdf_g1 = _interval(cdf, idx)
+    t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0),
+                                     nan=0.0), 0, 1)
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
 def sorted_piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor,
                                   num_samples: int,
                                   jitter: Optional[torch.Tensor] = None
@@ -114,20 +133,8 @@ def sorted_piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor,
     """Numerically hardened inverse-CDF sampler (RegNeRF math.py:169-234).
     bins [..., K+1], weights [..., K]; `jitter` as `piecewise_pdf_draws`
     takes it (None: deterministic)."""
-    weights = weights + torch.clamp(
-        _EPS - weights.sum(-1, keepdim=True), min=0)
-    pdf = weights / weights.sum(-1, keepdim=True)
-    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], -1), max=1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
-                     torch.ones_like(cdf[..., :1])], -1)
-    u = piecewise_pdf_draws(jitter, cdf.shape[:-1], num_samples,
-                            cdf.device).contiguous()
-    idx = torch.searchsorted(cdf.contiguous(), u, right=True)
-    bins_g0, bins_g1 = _interval(bins, idx)
-    cdf_g0, cdf_g1 = _interval(cdf, idx)
-    t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0),
-                                     nan=0.0), 0, 1)
-    return bins_g0 + t * (bins_g1 - bins_g0)
+    return inverse_cdf(bins, weights, piecewise_pdf_draws(
+        jitter, weights.shape[:-1], num_samples, weights.device))
 
 
 def sample_along_rays(t_rand: Optional[torch.Tensor], origins, directions,
@@ -151,11 +158,24 @@ def resample_along_rays(jitter: Optional[torch.Tensor], origins,
                         diag: bool = True, transposed: bool = False,
                         use_kernel: bool = False):
     """Blurpool and inverse-CDF resampling of the next level (mip.py:
-    349-403). `jitter` as `piecewise_pdf_draws` takes it."""
-    if use_kernel:
-        raise NotImplementedError(
-            "the fused mip resampling kernel (mip_resample_t_vals) is not "
-            "ported yet (ROADMAP Queue 2 #9); set use_pdf_kernel=False")
+    349-403). `jitter` as `piecewise_pdf_draws` takes it. `use_kernel`
+    runs blurpool and the inverse CDF through kernel #9
+    (`ops/pdf_merge.py::mip_resample_t_vals`) on the same draw vector,
+    where its output is stop-gradient anyway (`stop_grad`) and the shapes
+    fit it (flat rays, at most 128 fenceposts)."""
+    num = t_vals.shape[-1]
+    if use_kernel and stop_grad and t_vals.ndim == 2 and num <= 128:
+        from consistentnerf_tpu_torch.ops import pdf_merge
+
+        u = piecewise_pdf_draws(jitter, t_vals.shape[:-1], num,
+                                t_vals.device)
+        new_t_vals = pdf_merge.mip_resample_t_vals(
+            t_vals.detach().float().contiguous(),
+            weights.detach().float().contiguous(), u.float().contiguous(),
+            float(resample_padding))
+        return new_t_vals, mip_core.cast_rays(
+            new_t_vals, origins, directions, radii, ray_shape, diag=diag,
+            transposed=transposed)
     weights_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]],
                             -1)
     weights_max = torch.maximum(weights_pad[..., :-1], weights_pad[..., 1:])

@@ -1,13 +1,16 @@
 // Fused MipMLP forward: integrated positional encoding + trunk + heads,
-// one kernel.
+// one kernel; and its normals variant.
 //
 // Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mip.py::
-// _fwd_pallas_T (without its `with_normals` rows). Input: the samples'
-// Gaussian means, diagonal covariances and view directions [3, N] fp32.
-// Output: the raw heads [4, N] fp32 (rgb logits rows 0..2, density logit
-// row 3); sigmoid, rgb padding, softplus, density bias and noise stay
+// _fwd_pallas_T, both without and with `with_normals`. Input: the
+// samples' Gaussian means, diagonal covariances and view directions [3, N]
+// fp32. Output: the raw heads [4, N] fp32 (rgb logits rows 0..2, density
+// logit row 3); sigmoid, rgb padding, softplus, density bias and noise stay
 // outside, as in the JAX package. Same function and rounding points as
-// fused_mip.py::_mip_body.
+// fused_mip.py::_mip_body. The normals variant (fused_mip_fwd_normals)
+// returns [7, N]: the raw heads, then d(raw density)/d(means) in rows 4..6
+// (fused_mip.py::_mip_density_dmeans), which the render turns into
+// normals.
 //
 // Bound: operations, 1,220,608 FLOP a point at 8x256 / 16 IPE
 // frequencies / view degree 4 (610,304 MACs: 96->256, six 256->256, the
@@ -19,8 +22,22 @@
 // raw-viewdir columns are Mosaic lane-layout devices; here each feature
 // is computed on its own and the raw view directions are read as they
 // are.
+//
+// The normals variant adds the density's walk back through the trunk
+// (507,904 MACs at 8x256: every trunk layer's input gradient, and the
+// gradient into the encoding at layer 0 and at the post-skip layer), so
+// ~2.24 MFLOP a point against 64 bytes. The walk needs every trunk
+// activation of a point, ~4 KB in bf16, more than shared memory holds for
+// a tile, so it runs the train walk (mlp_train.cuh, mode 5): a persistent
+// grid whose blocks run 768-point chunks, save each layer's activations
+// to a per-block workspace in device memory and walk the gradient back
+// over 64-point sub-tiles; the IPE's Jacobian is applied per point at the
+// end. Rounding as the JAX kernel: the gradient is rounded to the compute
+// type before each product, the products accumulate in fp32, the
+// encoding's gradient stays fp32.
 
 #include "mlp_fwd.cuh"
+#include "mlp_train.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
@@ -42,4 +59,67 @@ extern "C" int fused_mip_fwd(const void* means, const void* covs,
                                                    out, n, d, s);
   return mlp::fwd_launch<float, 64, mlp::MipEnc>(means, covs, views, w, b,
                                                  out, n, d, s);
+}
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(mlp::kThreads, 1)
+    mip_normals_kernel(const float* means, const float* covs,
+                       const float* views, float* out, const T* w,
+                       const float* b, T* ws, int n, Dims d) {
+  mlp::RayRows rr{};
+  rr.out = out;
+  mlp::train_block<T, 5, mlp::MipEnc>(means, covs, views, nullptr, rr, w, b,
+                                      ws, nullptr, 0, n, d);
+}
+
+}  // namespace
+
+// out[0..3] of the normals variant: blocks, workspace elements per block,
+// (unused), dynamic shared memory bytes. Returns a cudaError_t.
+extern "C" int fused_mip_fwd_normals_plan(int n, int depth, int width,
+                                          int view_width, int skip_mask,
+                                          int num_freqs, int deg_view,
+                                          int use_bf16, long long* out) {
+  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
+  if (use_bf16)
+    return mlp::plan<bf16>(mip_normals_kernel<bf16>, 5, n, 0, d, out);
+  return mlp::plan<float>(mip_normals_kernel<float>, 5, n, 0, d, out);
+}
+
+// The normals variant: means, covs, views [3, n] fp32; w, b as in
+// fused_mip_fwd; ws: the workspace (plan's out[0] * out[1] elements of the
+// compute type); out: [7, n] fp32. Returns the cudaError_t of the launch.
+extern "C" int fused_mip_fwd_normals(const void* means, const void* covs,
+                                     const void* views, const void* w,
+                                     const void* b, void* ws, void* out,
+                                     int n, int depth, int width,
+                                     int view_width, int skip_mask,
+                                     int num_freqs, int deg_view,
+                                     int use_bf16, void* stream) {
+  if (n <= 0) return 0;
+  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long pl[4];
+  int err;
+  if (use_bf16) {
+    err = mlp::plan<bf16>(mip_normals_kernel<bf16>, 5, n, 0, d, pl);
+    if (err) return err;
+    mip_normals_kernel<bf16><<<(int)pl[0], mlp::kThreads, (size_t)pl[3], s>>>(
+        static_cast<const float*>(means), static_cast<const float*>(covs),
+        static_cast<const float*>(views), static_cast<float*>(out),
+        static_cast<const bf16*>(w), static_cast<const float*>(b),
+        static_cast<bf16*>(ws), n, d);
+  } else {
+    err = mlp::plan<float>(mip_normals_kernel<float>, 5, n, 0, d, pl);
+    if (err) return err;
+    mip_normals_kernel<float><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
+                                s>>>(
+        static_cast<const float*>(means), static_cast<const float*>(covs),
+        static_cast<const float*>(views), static_cast<float*>(out),
+        static_cast<const float*>(w), static_cast<const float*>(b),
+        static_cast<float*>(ws), n, d);
+  }
+  return (int)cudaGetLastError();
 }

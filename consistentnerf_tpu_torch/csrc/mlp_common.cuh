@@ -191,6 +191,16 @@ __device__ void encode_mip_views(const float* __restrict__ x, int n,
   }
 }
 
+// cos of the argument that safe_sin reduces: the derivative of safe_sin.
+__device__ inline float safe_cos(float y) {
+  if (!(fabsf(y) < kTrigRange)) {
+    float r = fmodf(y, kTrigRange);
+    if (r != 0.f && r < 0.f) r += kTrigRange;
+    y = r;
+  }
+  return cosf(y);
+}
+
 // Encoder policies: points(pts, covs, ...) and views(views, ...) encode
 // the tile [base, base + M) into shared memory.
 struct NerfEnc {
@@ -310,6 +320,52 @@ __device__ void layer(Seg<float> s0, Seg<float> s1,
           dst[(ty + 16 * i) * ldd + c] = v;
         }
       }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Vanilla compositing
+// ---------------------------------------------------------------------------
+
+// Alpha compositing of one ray of S samples, as the TPU kernels do it
+// (consistentnerf_tpu/ops/fused_onepass.py::_composite_fwd): relu density,
+// alpha = 1 - exp(-sigma * dist) with the last distance 1e10, both scaled
+// by |d|; transmittance as the product of v = max(1 - alpha, 1e-10); white
+// background; depth sum(w z). rw[k * ld + i] holds the raw heads (rgb
+// logits k = 0..2, density 3) of sample i, z the ray's depths. Writes the
+// rows [6, np] of `out` at the ray's points pt0..pt0 + S - 1 (rgb, depth
+// and acc broadcast, then each sample's weight), the transmittance before
+// each sample into tr (when not null), and returns rgb, depth and acc.
+__device__ inline void composite_ray(const float* rw, int ld, const float* z,
+                                     float dn, int S, bool white, float* tr,
+                                     float* out, size_t np, size_t pt0,
+                                     float rgb[3], float& dep, float& acc) {
+  float T_ = 1.f;
+  acc = 0.f;
+  dep = 0.f;
+  rgb[0] = rgb[1] = rgb[2] = 0.f;
+  for (int i = 0; i < S; ++i) {
+    const float dist = (i == S - 1 ? 1e10f : z[i + 1] - z[i]) * dn;
+    const float sigma = rw[3 * ld + i];
+    const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dist);
+    const float v = fmaxf(1.f - alpha, 1e-10f);
+    if (tr) tr[i] = T_;
+    const float w = alpha * T_;
+    T_ *= v;
+    acc += w;
+    dep += w * z[i];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rgb[k] += w / (1.f + expf(-rw[k * ld + i]));
+    out[5 * np + pt0 + i] = w;
+  }
+  if (white)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rgb[k] += 1.f - acc;
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[k * np + pt0 + i] = rgb[k];
+    out[3 * np + pt0 + i] = dep;
+    out[4 * np + pt0 + i] = acc;
   }
 }
 

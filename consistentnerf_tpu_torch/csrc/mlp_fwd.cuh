@@ -39,13 +39,19 @@
 
 namespace mlp {
 
+// The forward of one tile of M points [base, base + valid) of the [3, n]
+// streams: the raw heads of point p go to out[c * ld + off + p] (c = rgb
+// 0..2, density 3). `smem` is the block's dynamic shared memory
+// (fwd_smem_bytes); the tile ends with a barrier, so a block may run
+// tiles back to back.
 template <typename T, int M, typename Enc>
-__global__ void __launch_bounds__(kThreads, 1)
-    fwd_kernel(const float* __restrict__ pts, const float* __restrict__ covs,
-               const float* __restrict__ views, const T* __restrict__ wflat,
-               const float* __restrict__ bflat, float* __restrict__ out,
-               int n, Dims d) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ void fwd_tile(const float* __restrict__ pts,
+                         const float* __restrict__ covs,
+                         const float* __restrict__ views,
+                         const T* __restrict__ wflat,
+                         const float* __restrict__ bflat, int n, int base,
+                         int valid, const Dims& d, unsigned char* smem,
+                         float* out, size_t ld, size_t off) {
   const int P = d.P, V = d.V, width = d.width;
   const int ldp = P + kPad, ldv = V + kPad, ldh = d.act_cols() + kPad;
   T* pe = reinterpret_cast<T*>(smem);
@@ -54,8 +60,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* hy = hx + M * ldh;
   float* stage = reinterpret_cast<float*>(hy + M * ldh) +
                  (threadIdx.x / 32) * 256;
-  const int base = blockIdx.x * M;
-  const int valid = min(M, n - base);
 
   Enc::template points<T, M>(pts, covs, n, base, valid, d, pe, ldp);
   Enc::template views<T, M>(views, n, base, valid, d, ve, ldv);
@@ -93,14 +97,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* br = ba + 1;
 
   // alpha head (fp32 out) reads h before the view layer overwrites it.
-  for (int p = threadIdx.x; p < M; p += kThreads) {
-    const int g = base + p;
-    if (g < n) {
-      float s = 0.f;
-      for (int c = 0; c < width; ++c)
-        s = fmaf(to_f(h[p * ldh + c]), to_f(wa[c]), s);
-      out[(size_t)3 * n + g] = s + ba[0];
-    }
+  for (int p = threadIdx.x; p < valid; p += kThreads) {
+    float s = 0.f;
+    for (int c = 0; c < width; ++c)
+      s = fmaf(to_f(h[p * ldh + c]), to_f(wa[c]), s);
+    out[3 * ld + off + p] = s + ba[0];
   }
   T* feat = (h == hx) ? hy : hx;
   layer<M>(Seg<T>{h, ldh, width}, Seg<T>{nullptr, 0, 0}, wf, width, bfe,
@@ -110,19 +111,33 @@ __global__ void __launch_bounds__(kThreads, 1)
            h, ldh, stage);
   __syncthreads();
   for (int e = threadIdx.x; e < 3 * M; e += kThreads) {
-    const int p = e % M, c = e / M, g = base + p;
-    if (g < n) {
+    const int p = e % M, c = e / M;
+    if (p < valid) {
       float s = 0.f;
       for (int k = 0; k < half; ++k)
         s = fmaf(to_f(h[p * ldh + k]), to_f(wr[c * half + k]), s);
-      out[(size_t)c * n + g] = s + br[c];
+      out[c * ld + off + p] = s + br[c];
     }
   }
+  __syncthreads();
+}
+
+template <typename T, int M, typename Enc>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_kernel(const float* __restrict__ pts, const float* __restrict__ covs,
+               const float* __restrict__ views, const T* __restrict__ wflat,
+               const float* __restrict__ bflat, float* __restrict__ out,
+               int n, Dims d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int base = blockIdx.x * M;
+  fwd_tile<T, M, Enc>(pts, covs, views, wflat, bflat, n, base,
+                      min(M, n - base), d, smem, out, (size_t)n,
+                      (size_t)base);
 }
 
 // Dynamic shared memory of one forward block, in bytes.
 template <typename T, int M>
-size_t fwd_smem_bytes(const Dims& d) {
+__host__ __device__ size_t fwd_smem_bytes(const Dims& d) {
   const size_t elems = (size_t)M * (d.P + kPad) + (size_t)M * (d.V + kPad) +
                        2 * (size_t)M * (d.act_cols() + kPad);
   return elems * sizeof(T) + kWarps * 256 * sizeof(float);

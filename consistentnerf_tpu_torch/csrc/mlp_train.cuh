@@ -13,9 +13,19 @@
 //   onepass_mip_level.cu  (ops/fused_onepass.py::onepass_mip_level_T,
 //                          mode 4): forward, compositing, per-ray loss
 //                          cotangent and backward of one sampling level.
+//   fused_mip_fwd.cu      (ops/fused_mip.py::fused_mip_mlp_normals_T,
+//                          mode 5): the MipMLP forward and
+//                          d(raw density)/d(means), the normals' gradient.
 // Modes 3 and 4 are mode 2 with the cotangent made in the kernel; they
 // differ in their compositing (vanilla alpha compositing, or mip-NeRF's
 // softplus density with exp(-cumsum) transmittance and distance_mean).
+// Mode 5 runs the same forward, writes the raw heads, and then walks the
+// density head's weights back through the trunk's ReLUs into the IPE
+// (JAX: fused_mip.py::_mip_density_dmeans): per trunk layer i from the
+// last down, g_pre = g_h [act_i > 0] rounded to the compute type, the
+// encoding's gradient g_sc += g_pre W_sc^T where layer i reads the
+// encoding (layer 0 and the post-skip layer), g_h = g_pre W_h^T; then
+// through the IPE's Jacobian, d feature / d mean = 2^k damp cos(y). No dW.
 //
 // Bound: operations. One point costs 3x the forward's 1,186,816 FLOP
 // (forward, input-grad products, dW products) at 8x256 / multires 10+4,
@@ -100,9 +110,9 @@ struct Workspace {
 // ---------------------------------------------------------------------------
 
 // out[m, k] = sum_{n < n_red} g[m, n] * Wt[k * ldw + n] for k < k_out, into
-// fp32 shared memory (ldo). Wt is a layer's packed W^T [K, N=ldw], so its
-// transpose is read column-major.
-template <int M>
+// fp32 shared memory (ldo); with ACC the sum is added to out. Wt is a
+// layer's packed W^T [K, N=ldw], so its transpose is read column-major.
+template <int M, bool ACC = false>
 __device__ void grad_product(const bf16* g, int ldg, int n_red,
                             const bf16* __restrict__ wt, int ldw, int k_out,
                             float* out, int ldo) {
@@ -111,7 +121,13 @@ __device__ void grad_product(const bf16* g, int ldg, int n_red,
   for (int kt = warp; kt < k_out / 16; kt += kWarps) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.0f);
+    for (int r = 0; r < RT; ++r) {
+      if (ACC)
+        wmma::load_matrix_sync(acc[r], out + r * 16 * ldo + kt * 16, ldo,
+                               wmma::mem_row_major);
+      else
+        wmma::fill_fragment(acc[r], 0.0f);
+    }
     for (int n0 = 0; n0 < n_red; n0 += 16) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
       wmma::load_matrix_sync(b, wt + (size_t)kt * 16 * ldw + n0, ldw);
@@ -129,7 +145,7 @@ __device__ void grad_product(const bf16* g, int ldg, int n_red,
   }
 }
 
-template <int M>
+template <int M, bool ACC = false>
 __device__ void grad_product(const float* g, int ldg, int n_red,
                             const float* __restrict__ wt, int ldw, int k_out,
                             float* out, int ldo) {
@@ -161,7 +177,10 @@ __device__ void grad_product(const float* g, int ldg, int n_red,
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int k = k0 + tx + 16 * j;
-        if (k < k_out) out[(ty + 16 * i) * ldo + k] = acc[i][j];
+        if (k < k_out) {
+          float* o = out + (ty + 16 * i) * ldo + k;
+          *o = ACC ? *o + acc[i][j] : acc[i][j];
+        }
       }
   }
 }
@@ -297,22 +316,25 @@ __device__ void save_tile(const T* src, int ld, int cols, T* dst,
 
 // Shared memory of one block, in bytes (must match the carve-up below).
 template <typename T>
-__host__ __device__ size_t smem_bytes(const Dims& d, int rows) {
+__host__ __device__ size_t smem_bytes(const Dims& d, int rows, int mode) {
   constexpr int M = SubTile<T>::M;
   const size_t elems = (size_t)M * (d.P + kPad) + (size_t)M * (d.V + kPad) +
                        2 * (size_t)M * (d.act_cols() + kPad);
+  // Mode 5 adds the encoding's fp32 gradient [M, P + 4].
   const size_t floats = (size_t)M * (d.width + 4) + kWarps * 256 + 4 * M +
-                        5 * (size_t)rows;
+                        5 * (size_t)rows +
+                        (mode == 5 ? (size_t)M * (d.P + 4) : 0);
   // The dW pass reuses all of it as its bf16 staging buffer.
   const size_t total = elems * sizeof(T) + floats * sizeof(float);
   const size_t stage = sizeof(T) == sizeof(bf16) ? kDwStageBytes : 0;
   return total > stage ? total : stage;
 }
 
-// Rows of a chunk: mode 2 (plain MLP backward) takes kChunk points; mode 3
-// (one-pass level) takes whole rays of `seg` samples.
+// Rows of a chunk: modes 2 (plain MLP backward) and 5 (normals) take
+// kChunk points; modes 3 and 4 (one-pass levels) whole rays of `seg`
+// samples.
 __host__ __device__ inline int chunk_points(int mode, int seg) {
-  if (mode == 2) return kChunk;
+  if (mode == 2 || mode == 5) return kChunk;
   const int rays = max(1, kChunk / seg);
   return rays * seg;
 }
@@ -432,7 +454,9 @@ __device__ inline void mip_composite(const RayRows& rr, int c, int cpts, int row
 
 // One block's walk over its chunks. mode 2: g [4, n] is the output
 // cotangent. modes 3 (vanilla) and 4 (mip): compositing and the loss
-// cotangent make it. `covs` is read by the mip encoder only.
+// cotangent make it. mode 5: the raw heads and the density's gradient by
+// the means go to rr.out [7, n]; no dW (part_all may be null). `covs` is
+// read by the mip encoder only.
 template <typename T, int MODE, typename Enc>
 __device__ void train_block(const float* __restrict__ pts,
                             const float* __restrict__ covs,
@@ -459,13 +483,16 @@ __device__ void train_block(const float* __restrict__ pts,
   float* graw = stage_all + kWarps * 256;  // [4][M]
   float* craw = graw + 4 * M;              // [4][rows] raw, then d_raw
   float* ctrans = craw + 4 * rows;         // [rows]
+  float* gsc = ctrans + rows;              // mode 5: [M][P + 4]
+  const int ldsc = P + 4;
 
   T* ws_base = ws_all + (size_t)blockIdx.x * rows * d.ws_cols();
   Workspace<T> ws(ws_base, d, rows);
-  float* part = part_all + (size_t)blockIdx.x * part_stride;
-  float* pb = part + d.w_total();
+  float* part = MODE == 5 ? nullptr : part_all + blockIdx.x * part_stride;
+  float* pb = MODE == 5 ? nullptr : part + d.w_total();
 
-  for (size_t j = threadIdx.x; j < part_stride; j += kThreads) part[j] = 0.f;
+  if (MODE != 5)
+    for (size_t j = threadIdx.x; j < part_stride; j += kThreads) part[j] = 0.f;
   __syncthreads();
 
   const T* w_f = wflat + d.w_feature();
@@ -553,31 +580,9 @@ __device__ void train_block(const float* __restrict__ pts,
         const float* z = rr.z + (size_t)ray * S;
         const float dn = rr.dn[ray];
         const size_t np = (size_t)rr.n_rays * S, pt0 = (size_t)ray * S;
-        float T_ = 1.f, acc = 0.f, dep = 0.f, rgb[3] = {0.f, 0.f, 0.f};
-        for (int i = 0; i < S; ++i) {
-          const float dist = (i == S - 1 ? 1e10f : z[i + 1] - z[i]) * dn;
-          const float sigma = rw[3 * rows + i];
-          const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dist);
-          const float v = fmaxf(1.f - alpha, 1e-10f);
-          tr[i] = T_;
-          const float w = alpha * T_;
-          T_ *= v;
-          acc += w;
-          dep += w * z[i];
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            rgb[k] += w / (1.f + expf(-rw[k * rows + i]));
-          rr.out[5 * np + pt0 + i] = w;
-        }
-        if (rr.white)
-#pragma unroll
-          for (int k = 0; k < 3; ++k) rgb[k] += 1.f - acc;
-        for (int i = 0; i < S; ++i) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) rr.out[k * np + pt0 + i] = rgb[k];
-          rr.out[3 * np + pt0 + i] = dep;
-          rr.out[4 * np + pt0 + i] = acc;
-        }
+        float acc, dep, rgb[3];
+        composite_ray(rw, rows, z, dn, S, rr.white, tr, rr.out, np, pt0, rgb,
+                      dep, acc);
         float d_rgb[3];
 #pragma unroll
         for (int k = 0; k < 3; ++k)
@@ -614,6 +619,62 @@ __device__ void train_block(const float* __restrict__ pts,
       __syncthreads();
     }
     if (MODE == 4) mip_composite(rr, c, cpts, rows, craw, ctrans);
+
+    // ---- mode 5: the raw heads, then d(raw density)/d(means) ----
+    if (MODE == 5) {
+      for (int e = threadIdx.x; e < 4 * valid; e += kThreads) {
+        const int k = e / valid, p = e % valid;
+        rr.out[(size_t)k * n + base + p] = craw[k * rows + p];
+      }
+      for (int r0 = 0; r0 < valid; r0 += M) {
+        for (int e = threadIdx.x; e < M * P; e += kThreads)
+          gsc[(e / P) * ldsc + e % P] = 0.f;
+        T* cur = hx;
+        for (int i = d.depth - 1; i >= 0; --i) {
+          const T* act = ws.act_l(i, d);
+          for (int e = threadIdx.x; e < M * W; e += kThreads) {
+            const int p = e / W, j = e % W;
+            float v = i == d.depth - 1 ? to_f(w_a[j]) : gf[p * ldf + j];
+            if (!(to_f(act[(size_t)(r0 + p) * W + j]) > 0.f)) v = 0.f;
+            cur[p * ldh + j] = from_f<T>(v);
+          }
+          __syncthreads();
+          if (i == 0 || d.skip_before(i))  // the encoding's rows come first
+            grad_product<M, true>(cur, ldh, W, wflat + d.w_layer(i), W, P,
+                                  gsc, ldsc);
+          if (i > 0) {
+            const size_t off = d.skip_before(i) ? (size_t)P * W : 0;
+            grad_product<M>(cur, ldh, W, wflat + d.w_layer(i) + off, W, W, gf,
+                            ldf);
+          }
+          __syncthreads();
+          cur = (cur == hx) ? hy : hx;
+        }
+        // Feature 3k + r is sin(y) damp, feature 3F + 3k + r sin(y + pi/2)
+        // damp, with y = mean_r 2^k (mlp_common.cuh::encode_ipe).
+        const int F = d.multires;
+        for (int e = threadIdx.x; e < 3 * M; e += kThreads) {
+          const int p = e / 3, r = e % 3;
+          if (r0 + p >= valid) continue;
+          const size_t g = (size_t)base + r0 + p;
+          const float mean = pts[(size_t)r * n + g];
+          const float cov = covs[(size_t)r * n + g];
+          const float* gs = gsc + p * ldsc;
+          float s = 0.f;
+          for (int k = 0; k < F; ++k) {
+            const float y = ldexpf(mean, k);
+            const float damp = expf(-0.5f * ldexpf(cov, 2 * k));
+            const float a = gs[3 * k + r] * damp * safe_cos(y);
+            const float b =
+                gs[3 * F + 3 * k + r] * damp * safe_cos(y + kHalfPi);
+            s += ldexpf(a, k) + ldexpf(b, k);
+          }
+          rr.out[(size_t)(4 + r) * n + g] = s;
+        }
+        __syncthreads();
+      }
+      continue;
+    }
 
     // ---- backward over sub-tiles ----
     for (int r0 = 0; r0 < rows; r0 += M) {
@@ -757,7 +818,7 @@ int plan(K kernel, int mode, int n, int seg, const Dims& d,
          long long* out) {
   const int cpts = chunk_points(mode, seg);
   const int rows = pad64(cpts);
-  const size_t smem = smem_bytes<T>(d, rows);
+  const size_t smem = smem_bytes<T>(d, rows, mode);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

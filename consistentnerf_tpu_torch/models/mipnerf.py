@@ -79,13 +79,15 @@ class MipNeRF(nn.Module):
             n, s = means.shape[:2]
             views = rays.viewdirs[:, None, :].expand(n, s, 3)
             noise = draws.get("noise")
-            rgb, density = self.mlp(
+            rgb, density, normals = self.mlp(
                 means.reshape(n * s, 3), covs.reshape(n * s, 3),
                 views.reshape(n * s, 3),
                 None if noise is None else noise[lvl].reshape(n * s))
+            if normals is not None:
+                normals = normals.reshape(n, s, 3)
             weights, _, _, _ = rendering.compute_alpha_weights(
                 density.reshape(n, s), t_vals, rays.directions)
             renderings.append(rendering.volumetric_rendering(
-                rgb.reshape(n, s, 3), weights, t_vals,
+                rgb.reshape(n, s, 3), weights, normals, t_vals,
                 self.white_background, self.vis_num_rays, compute_extras))
         return renderings

@@ -111,8 +111,12 @@ class MipMLP(nn.Module):
     The layers are `dense.0` .. `dense.{D+3}`, the JAX package's
     `Dense_0` .. `Dense_{D+3}` (trunk, density, bottleneck, view layer,
     rgb). At `dtype=bfloat16` the forward rounds where the fused kernels
-    round (ops/fused_mip.py::_mip_body). Normals (`disable_normals=False`)
-    are not ported (ROADMAP Queue 1: mip normals)."""
+    round (ops/fused_mip.py::_mip_body). With `disable_normals=False` the
+    forward also returns the normals, -normalize(d density / d means)
+    (models.py:244-262), from the gradient that
+    `fused_mip.plain_fwd_normals_T` takes by autograd, rounded where the
+    normals kernel (6n) rounds; they carry no graph (they feed no
+    loss)."""
 
     def __init__(self, net_depth: int = 8, net_width: int = 256,
                  net_width_viewdirs: int = 128, max_deg_point: int = 16,
@@ -121,11 +125,8 @@ class MipMLP(nn.Module):
                  rgb_padding: float = 0.001, disable_normals: bool = True,
                  dtype=torch.float32):
         super().__init__()
-        if not disable_normals:
-            raise NotImplementedError(
-                "mip normals (disable_normals=false) are not ported yet "
-                "(ROADMAP Queue 1: mip normals)")
         self.net_depth = net_depth
+        self.disable_normals = disable_normals
         self.max_deg_point = max_deg_point
         self.deg_view = deg_view
         self.skip_layer = skip_layer
@@ -158,20 +159,39 @@ class MipMLP(nn.Module):
                 noise: Optional[torch.Tensor] = None):
         """means, covs (diagonal), viewdirs: [N, 3]; `noise` [N] standard
         normals of the density noise (used when density_noise > 0).
-        Returns (rgb [N, 3], density [N])."""
-        raw = fused_mip._mip_body(
-            means, covs, viewdirs,
-            fused_mip.flatten_mip_params(self, self.net_depth),
-            net_depth=self.net_depth, num_freqs=self.max_deg_point,
-            deg_view=self.deg_view, skip_layer=self.skip_layer,
-            compute_dtype=self.dtype)
-        raw_density = raw[:, 3]
-        if noise is not None and self.density_noise > 0:
-            raw_density = raw_density + self.density_noise * noise
-        density = softplus(raw_density + self.density_bias)
+        Returns (rgb [N, 3], density [N], normals [N, 3] or None when
+        `disable_normals`)."""
+        flat = fused_mip.flatten_mip_params(self, self.net_depth)
+
+        def head_logit(raw):
+            x = raw[:, 3]
+            if noise is not None and self.density_noise > 0:
+                x = x + self.density_noise * noise
+            return x + self.density_bias
+
+        normals = None
+        if self.disable_normals or torch.is_grad_enabled():
+            raw = fused_mip._mip_body(
+                means, covs, viewdirs, flat, net_depth=self.net_depth,
+                num_freqs=self.max_deg_point, deg_view=self.deg_view,
+                skip_layer=self.skip_layer, compute_dtype=self.dtype)
+        if not self.disable_normals:
+            # d(raw density)/d(means) by autograd, rounded as kernel 6n
+            # rounds it; the normals carry no graph.
+            rows = fused_mip.plain_fwd_normals_T(
+                flat, means.T, covs.T, viewdirs.T, self.net_depth,
+                self.max_deg_point, self.dtype, self.deg_view,
+                self.skip_layer).T
+            if not torch.is_grad_enabled():
+                raw = rows[:, :4]
+            grad = rows[:, 4:] * torch.sigmoid(head_logit(rows))[:, None]
+            eps = torch.finfo(torch.float32).eps
+            normals = -grad / torch.sqrt(torch.clamp(
+                (grad ** 2).sum(-1, keepdim=True), min=eps))
+        density = softplus(head_logit(raw))
         rgb = torch.sigmoid(raw[:, :3]) * (1 + 2 * self.rgb_padding) \
             - self.rgb_padding
-        return rgb, density
+        return rgb, density, normals
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

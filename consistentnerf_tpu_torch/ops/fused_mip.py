@@ -11,7 +11,11 @@ tensor it runs the plain version `_mip_body`. `bwd_T` is the port of
 `_bwd_pallas_T` (kernel #7): the weight grads for a raw cotangent
 g [4, N], from `csrc/fused_mip_bwd.cu` or, on the CPU, autograd through
 `_mip_body` (`plain_bwd_T`). `fused_mip_mlp_train_T` is the
-differentiable op: forward #6, backward #7.
+differentiable op: forward #6, backward #7. `fused_mip_mlp_normals_T` is
+#6 `with_normals` (kernel 6n, `fused_mip_fwd_normals` in the same
+source): the raw heads and d(raw density)/d(means) [7, N], for the
+render of `disable_normals=False` configs; its plain version is
+`plain_fwd_normals_T` (autograd through `_mip_encoded`).
 
 The MipMLP differs from the NeRFMLP only in its encoder and in the column
 order of its skip concat, so the kernels share the NeRF kernels' walk
@@ -46,9 +50,11 @@ from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
 KERNEL = "fused_mip_fwd"
 BWD_KERNEL = "fused_mip_bwd"
+NORMALS_KERNEL = "fused_mip_fwd_normals"  # a kernel of fused_mip_fwd.cu
 # Kernel launches since import (or since the caller last reset them).
 launches = 0
 bwd_launches = 0
+normals_launches = 0
 
 SKIP_LAYER = 4  # MipMLP.skip_layer
 DEG_VIEW = 4  # MipMLP.deg_view
@@ -107,10 +113,21 @@ def _mip_body(means, covs, views, weights: Sequence[torch.Tensor], *,
     moves the grads of every layer below it by ~1/sqrt(N)."""
     cd = fm.as_dtype(compute_dtype)
     fm.strict_fp32(means.device)
-    w = [fm._round(x.float(), cd) if i % 2 == 0 else x.float()
-         for i, x in enumerate(weights)]
     inputs = fm._round(encoding.integrated_pos_enc(
         means.float(), covs.float(), 0, num_freqs), cd)
+    return _mip_encoded(inputs, views, weights, net_depth=net_depth,
+                        deg_view=deg_view, skip_layer=skip_layer,
+                        compute_dtype=cd)
+
+
+def _mip_encoded(inputs, views, weights: Sequence[torch.Tensor], *,
+                 net_depth, deg_view=DEG_VIEW, skip_layer=SKIP_LAYER,
+                 compute_dtype=torch.float32):
+    """`_mip_body` from the rounded IPE `inputs` [N, 6F] on: raw heads
+    [N, 4] fp32."""
+    cd = fm.as_dtype(compute_dtype)
+    w = [fm._round(x.float(), cd) if i % 2 == 0 else x.float()
+         for i, x in enumerate(weights)]
     post = post_skip_layers(net_depth, skip_layer)
     h = inputs
     for i in range(net_depth):
@@ -229,12 +246,90 @@ def fwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
     return out
 
 
-def fused_mip_mlp_normals_T(*args, **kwargs):
-    """The forward with the normals' density gradient (rows 4:7) is not
-    ported yet."""
-    raise NotImplementedError(
-        "the normals variant of the fused MipMLP forward is not ported yet "
-        "(ROADMAP Queue 2: mip normals kernel); set disable_normals=true")
+def plain_fwd_normals_T(weights, means_T, covs_T, views_T, net_depth,
+                        num_freqs, compute_dtype, deg_view=DEG_VIEW,
+                        skip_layer=SKIP_LAYER) -> torch.Tensor:
+    """The plain version of `fused_mip_mlp_normals_T` on any device: the
+    plain forward and, by autograd, the raw density's gradient by the
+    means, rounded where the kernel rounds. The casts of `_mip_encoded`
+    round the trunk's gradients to the compute type before each product,
+    as the kernel does; the encoding's gradient stays fp32 (the IPE is a
+    leaf here, so its cast does not round it) and goes through the IPE by
+    autograd. Returns [7, N]. Inference mode has no gradient to take:
+    run it under torch.no_grad()."""
+    if torch.is_inference_mode_enabled():
+        raise RuntimeError("the normals differentiate the density: run "
+                           "them under torch.no_grad(), not inference_mode")
+    cd = fm.as_dtype(compute_dtype)
+    fm.strict_fp32(means_T.device)
+    with torch.enable_grad():
+        means = means_T.T.detach().float().requires_grad_()
+        ipe = encoding.integrated_pos_enc(means, covs_T.T.float(), 0,
+                                          num_freqs)
+        inputs = fm._round(ipe.detach(), cd).requires_grad_()
+        raw = _mip_encoded(inputs, views_T.T, _flat(weights),
+                           net_depth=net_depth, deg_view=deg_view,
+                           skip_layer=skip_layer, compute_dtype=cd)
+        g_sc, = torch.autograd.grad(raw[:, 3].sum(), inputs)
+        dmeans, = torch.autograd.grad(ipe, means, g_sc)
+    return torch.cat([raw.detach(), dmeans], 1).T.contiguous()
+
+
+@functools.cache
+def _normals_kernel():
+    lib = _build.load(KERNEL)
+    plan = lib.fused_mip_fwd_normals_plan
+    plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    fn = lib.fused_mip_fwd_normals
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return plan, fn
+
+
+def fused_mip_mlp_normals_T(weights, means_T: torch.Tensor,
+                            covs_T: torch.Tensor, views_T: torch.Tensor,
+                            net_depth: int, num_freqs: int, compute_dtype,
+                            deg_view: int = DEG_VIEW) -> torch.Tensor:
+    """means/covs/views [3, N] -> [7, N] (kernel 6n): the raw heads
+    (rgb logits 0..2, density logit 3) and d(raw density)/d(means) in
+    rows 4..6. Not differentiable: the render's forward for
+    `disable_normals=False` (the normals feed no loss). CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    cd = fm.as_dtype(compute_dtype)
+    if means_T.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+        return plain_fwd_normals_T(weights, means_T, covs_T, views_T,
+                                   net_depth, num_freqs, cd, deg_view)
+    if means_T.device.type != "cuda":
+        raise ValueError(f"no fused forward for device {means_T.device}")
+    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    n, dev = means_T.shape[1], means_T.device
+    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
+                  views_T=views_T)
+    out = torch.empty((7, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    plan, fn = _normals_kernel()
+    cfg_args = _cfg_args(packed)
+    pl = (ctypes.c_longlong * 4)()
+    err = plan(n, *cfg_args, pl)
+    if err != 0:
+        raise RuntimeError(f"{NORMALS_KERNEL} plan failed: cudaError_t "
+                           f"{err}")
+    ws = torch.empty(pl[0] * pl[1], dtype=cd, device=dev)
+    err = fn(means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
+             packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
+             out.data_ptr(), n, *cfg_args,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{NORMALS_KERNEL} launch failed: cudaError_t "
+                           f"{err}")
+    global normals_launches
+    normals_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

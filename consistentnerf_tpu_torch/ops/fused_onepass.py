@@ -1,8 +1,9 @@
-"""One-pass train kernels: per level, the MLP forward, volumetric
-compositing, the per-ray loss cotangent and the backward in one launch,
-and the train steps built on them: the vanilla level
-(`csrc/onepass_level.cu`, kernel #3) and the mip level
-(`csrc/onepass_mip_level.cu`, kernel #5, at the end of this module).
+"""One-pass kernels: per level, the MLP forward, volumetric compositing,
+the per-ray loss cotangent and the backward in one launch, and the train
+steps built on them: the vanilla level (`csrc/onepass_level.cu`, kernel
+#3) and the mip level (`csrc/onepass_mip_level.cu`, kernel #5, at the end
+of this module); and the render's forward-only level
+(`csrc/render_level.cu`, kernel #4, `render_level_T`).
 
 `onepass_level_T` is the port of `consistentnerf_tpu/ops/fused_onepass.py::
 onepass_level_T`, with its signature and its [6, N*S] output rows (rgb map,
@@ -249,6 +250,95 @@ def onepass_level_T(weights: Sequence[torch.Tensor], pts_T, views_T, z_row,
         prior_row[0, ::seg], net_depth=net_depth, skips=skips,
         multires=multires, multires_views=multires_views,
         white_bkgd=white_bkgd, compute_dtype=compute_dtype)
+
+
+RENDER_KERNEL = "render_level"
+# Launches of the render level kernel since import (or since the caller
+# last reset it).
+render_launches = 0
+
+
+def plain_render_level_T(weights, pts_T, views_T, z_row, dn_row, *,
+                         seg: int, net_depth: int = 8, skips: tuple = (4,),
+                         multires: int = 10, multires_views: int = 4,
+                         white_bkgd: bool = False,
+                         compute_dtype=torch.float32) -> torch.Tensor:
+    """The plain version of `render_level_T` on any device: the plain
+    forward (`fused_mlp_v2.plain_fwd_T`) and `_composite_fwd`."""
+    n = pts_T.shape[1] // seg
+    raw = v2.plain_fwd_T(weights, pts_T, views_T, net_depth, skips,
+                         multires, multires_views, fm.as_dtype(compute_dtype))
+    rgb, depth, acc, w, _ = _composite_fwd(
+        raw.reshape(4, n, seg), z_row.reshape(n, seg), dn_row[0, ::seg],
+        white_bkgd)
+    return _out_rows(rgb, depth, acc, w, seg)
+
+
+@functools.cache
+def _render_kernel():
+    fn = _build.load(RENDER_KERNEL).render_level
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def render_level_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
+                   z_row: torch.Tensor, dn_row: torch.Tensor, *, seg: int,
+                   net_depth: int = 8, skips: tuple = (4,),
+                   multires: int = 10, multires_views: int = 4,
+                   white_bkgd: bool = False,
+                   compute_dtype=torch.float32) -> torch.Tensor:
+    """The render's level (kernel #4): MLP forward and compositing of
+    whole rays, no gradients. pts/views [3, N*S], z and ||d|| rows
+    [1, N*S] (||d|| per ray, broadcast per point). Returns out_rows
+    [6, N*S] fp32: rgb map 0-2, depth 3 and acc 4 broadcast per ray, each
+    point's compositing weight 5. `weights`: the flat torch-layout list
+    or a `fused_mlp_v2.PackedMLP`. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    cd = fm.as_dtype(compute_dtype)
+    skips = tuple(sorted(skips))
+    npts = pts_T.shape[1]
+    if npts % seg:
+        raise ValueError(f"{npts} points are not whole rays of {seg} samples")
+    kw = dict(seg=seg, net_depth=net_depth, skips=skips, multires=multires,
+              multires_views=multires_views, white_bkgd=white_bkgd,
+              compute_dtype=cd)
+    if pts_T.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            v2._packed_for(weights, net_depth, skips, multires,
+                           multires_views, cd)
+        return plain_render_level_T(weights, pts_T, views_T, z_row, dn_row,
+                                    **kw)
+    if pts_T.device.type != "cuda":
+        raise ValueError(f"no render level kernel for device {pts_T.device}")
+    packed = v2._packed_for(weights, net_depth, skips, multires,
+                            multires_views, cd)
+    dev, n_rays = pts_T.device, npts // seg
+    v2._check_stream("pts_T", pts_T, 3, npts, dev)
+    v2._check_stream("views_T", views_T, 3, npts, dev)
+    v2._check_stream("z_row", z_row, 1, npts, dev)
+    v2._check_stream("dn_row", dn_row, 1, npts, dev)
+    for t in (packed.w, packed.b):
+        if t.device != dev:
+            raise ValueError("packed weights are not on the points' device")
+    out = torch.empty((6, npts), dtype=torch.float32, device=dev)
+    if n_rays == 0:
+        return out
+    dn = dn_row[0, ::seg].contiguous()
+    err = _render_kernel()(
+        pts_T.data_ptr(), views_T.data_ptr(), z_row.data_ptr(),
+        dn.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+        out.data_ptr(), n_rays, seg, net_depth, packed.width,
+        sum(1 << s for s in skips), multires, multires_views,
+        int(white_bkgd), int(cd == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{RENDER_KERNEL} launch failed: cudaError_t "
+                           f"{err}")
+    global render_launches
+    render_launches += 1
+    return out
 
 
 def onepass_supported(cfg) -> bool:

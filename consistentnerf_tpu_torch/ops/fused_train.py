@@ -9,9 +9,12 @@ the one-pass mip train step for its MiDaS patch rays. The head
 activations, the density noise and the compositing stay in torch, as in
 the JAX package.
 
-Not ported here: the normals variant (`disable_normals=False`, ROADMAP
-Queue 1: mip normals), which raises; `fused_vanilla_forward` and the
-two-call fused train steps (ROADMAP Queue 1: two-call fused step).
+With `disable_normals=False` every level runs the normals variant
+(`fused_mip.fused_mip_mlp_normals_T`, kernel 6n) and the rendering dicts
+carry the normals map; that forward has no backward, so it serves the
+render (the train steps refuse normals). Not ported here:
+`fused_vanilla_forward` and the two-call fused train steps (ROADMAP
+Queue 1: two-call fused step).
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ def fused_mip_forward(weights: Sequence[torch.Tensor], draws: Optional[Dict],
     backward kernel); `packed`: the same weights packed, for a CUDA
     caller that packed them once. `draws` as `MipNeRF.forward` takes them
     (None: deterministic)."""
-    if not cfg.disable_normals:
-        fused_mip.fused_mip_mlp_normals_T()
+    with_normals = not cfg.disable_normals
     if not cfg.stop_level_grad:
         raise ValueError("the fused mip forward requires stop_level_grad "
                          "(its backward gives the samples no gradient)")
@@ -63,12 +65,16 @@ def fused_mip_forward(weights: Sequence[torch.Tensor], draws: Optional[Dict],
         if cfg.disable_integration:
             covs_T = torch.zeros_like(covs_T)
         s = means_T.shape[-1]
-        views_T = rays.viewdirs.T[:, :, None].expand(3, n, s)
-        raw_T = fused_mip.fused_mip_mlp_train_T(
-            weights, means_T.reshape(3, n * s).contiguous(),
-            covs_T.reshape(3, n * s).contiguous(),
-            views_T.reshape(3, n * s).contiguous(), cfg.netdepth,
-            cfg.max_deg_point, cfg.compute_dtype, packed=packed)
+        streams = [x.reshape(3, n * s).contiguous() for x in (
+            means_T, covs_T, rays.viewdirs.T[:, :, None].expand(3, n, s))]
+        if with_normals:
+            raw_T = fused_mip.fused_mip_mlp_normals_T(
+                packed if packed is not None else weights, *streams,
+                cfg.netdepth, cfg.max_deg_point, cfg.compute_dtype)
+        else:
+            raw_T = fused_mip.fused_mip_mlp_train_T(
+                weights, *streams, cfg.netdepth, cfg.max_deg_point,
+                cfg.compute_dtype, packed=packed)
         rgb_T = (torch.sigmoid(raw_T[:3]) * (1 + 2 * fused_mip.RGB_PADDING)
                  - fused_mip.RGB_PADDING).reshape(3, n, s)
         raw_density = raw_T[3]
@@ -78,9 +84,19 @@ def fused_mip_forward(weights: Sequence[torch.Tensor], draws: Optional[Dict],
                 lvl].reshape(n * s)
         density = softplus(raw_density
                            + fused_mip.DENSITY_BIAS).reshape(n, s)
+        normals = None
+        if with_normals:
+            # -normalize(d density / d means): the softplus factor comes
+            # before the normalization, as in the JAX package
+            # (fused_train.py:275-286).
+            g = raw_T[4:7] * torch.sigmoid(raw_density
+                                           + fused_mip.DENSITY_BIAS)
+            norm = torch.sqrt(torch.clamp((g * g).sum(0, keepdim=True),
+                                          min=torch.finfo(torch.float32).eps))
+            normals = (-g / norm).reshape(3, n, s).permute(1, 2, 0)
         w_render, _, _, _ = rendering.compute_alpha_weights(
             density, t_vals, rays.directions)
         renderings.append(rendering.volumetric_rendering(
-            None, w_render, t_vals, cfg.white_bkgd, cfg.vis_num_rays,
-            compute_extras, rgbs_T=rgb_T))
+            None, w_render, normals, t_vals, cfg.white_bkgd,
+            cfg.vis_num_rays, compute_extras, rgbs_T=rgb_T))
     return renderings

@@ -6,7 +6,7 @@ last chunk is simply shorter (the fused kernels mask their ragged tail).
 Both backbones render: the vanilla one through `fused_render` or the
 module, the mip one through `fused_train.fused_mip_forward` or
 `MipNeRF.forward` (its last level's rgb, distance_mean as depth, disp,
-acc and distance_median).
+acc and distance_median, and the normals map unless `disable_normals`).
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def _mip_chunk_fn(model, cfg):
 
     def chunk_fn(chunk_rays):
         fine = apply_fn(chunk_rays)[-1]
-        return {
+        out = {
             "rgb": fine["rgb"],
             "depth": fine["distance_mean"][..., None],
             "disp": (1.0 / torch.clamp(fine["distance_mean"],
@@ -81,6 +81,9 @@ def _mip_chunk_fn(model, cfg):
             "acc": fine["acc"][..., None],
             "distance_median": fine["distance_median"][..., None],
         }
+        if "normals" in fine and not cfg.disable_normals:
+            out["normals"] = fine["normals"]
+        return out
 
     return chunk_fn
 
@@ -95,12 +98,14 @@ def build_render_fn(model, cfg) -> Callable[[Rays], Dict[str, torch.Tensor]]:
         chunk_fn = _mip_chunk_fn(model, cfg)
     elif cfg.use_fused_render:
         from consistentnerf_tpu_torch.ops import fused_render
+        from consistentnerf_tpu_torch.ops.fused_onepass import model_skips
 
         levels = ["coarse"] + (["fine"] if cfg.N_importance > 0 else [])
+        skips = model_skips(cfg.netdepth)
         packed = {
             lvl: v2.pack(
                 fm.flatten_params(getattr(model, lvl), True, cfg.netdepth),
-                cfg.netdepth, (4,), cfg.multires, cfg.multires_views,
+                cfg.netdepth, skips, cfg.multires, cfg.multires_views,
                 cfg.compute_dtype)
             for lvl in levels
         }
@@ -114,6 +119,7 @@ def build_render_fn(model, cfg) -> Callable[[Rays], Dict[str, torch.Tensor]]:
                 multires=cfg.multires,
                 multires_views=cfg.multires_views,
                 net_depth=cfg.netdepth,
+                skips=skips,
                 white_bkgd=cfg.white_bkgd,
                 lindisp=cfg.lindisp,
                 compute_dtype=cfg.compute_dtype,

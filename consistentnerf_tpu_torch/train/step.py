@@ -5,8 +5,9 @@ twins the kernel steps (`ops/fused_onepass.py`) are held against.
 
 Random draws are tensors. Vanilla (`make_draws`): `t_rand`
 [N, N_samples] jitters the coarse depths, `u` [N, N_importance] drives
-the fine inverse CDF and `noise` holds the standard normals of
-`use_noise`. Mip (`make_mip_draws`, when `randomized`): `t_rand`
+the fine inverse CDF (ascending order statistics with `use_pdf_kernel`,
+which kernel #8 needs; the fine depths are the same set in distribution)
+and `noise` holds the standard normals of `use_noise`. Mip (`make_mip_draws`, when `randomized`): `t_rand`
 [N, S+1] jitters the first level's fenceposts, `jitter[l]` drives level
 l's resampling and `noise[l]` [N, S] holds the density noise's standard
 normals. A step makes them from `step_generator(cfg.seed, step)` unless
@@ -23,6 +24,7 @@ import torch
 from consistentnerf_tpu_torch.consistency import masks as mask_mod
 from consistentnerf_tpu_torch.core import mathx, sampling
 from consistentnerf_tpu_torch.core.rays import Rays
+from consistentnerf_tpu_torch.ops import pdf_merge
 from consistentnerf_tpu_torch.train import losses as losses_lib
 from consistentnerf_tpu_torch.train.state import TrainState
 
@@ -56,7 +58,11 @@ def make_draws(cfg, n: int, generator: torch.Generator,
     if cfg.perturb > 0:
         draws["t_rand"] = torch.rand((n, cfg.N_samples),
                                      generator=generator, device=device)
-        if cfg.N_importance > 0:
+        if cfg.N_importance > 0 and cfg.use_pdf_kernel:
+            draws["u"] = pdf_merge.sorted_uniform(torch.rand(
+                (n, cfg.N_importance + 1), generator=generator,
+                device=device))
+        elif cfg.N_importance > 0:
             draws["u"] = torch.rand((n, cfg.N_importance),
                                     generator=generator, device=device)
     if cfg.use_noise:
@@ -178,7 +184,9 @@ def check_mip_supported(cfg) -> None:
             "(ROADMAP Queue 1: mip regularizers)")
     if not cfg.disable_normals or cfg.compute_normal_metrics:
         raise NotImplementedError(
-            "mip normals are not ported yet (ROADMAP Queue 1: mip normals)")
+            "the mip train steps with normals (disable_normals=false) or "
+            "compute_normal_metrics are not ported yet (ROADMAP Queue 1: "
+            "mip normals); the render computes normals")
 
 
 def resample_padding(cfg, step: int) -> float:

@@ -125,3 +125,13 @@ def visualize_depth(depth: np.ndarray, acc: Optional[np.ndarray] = None,
         hi=hi,
         curve_fn=lambda x: np.log(x + eps),
     )
+
+
+def visualize_normals(normals: np.ndarray,
+                      acc: Optional[np.ndarray] = None) -> np.ndarray:
+    """Unit normals [H, W, 3] to rgb in [0, 1], matted where `acc` is
+    low (vis.py's convention)."""
+    vis = (normals + 1.0) / 2.0
+    if acc is not None:
+        vis = matte(vis, acc)
+    return vis

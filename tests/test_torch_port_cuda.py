@@ -1,5 +1,6 @@
 """The port's kernels on the card, held against their plain versions or
-their packed walks: the NeRF kernels #1-#3 and the mip kernels #5-#7.
+their packed walks: the NeRF kernels #1-#4, the mip kernels #5-#7 and
+6n (#6 with normals), and the resampling kernels #8 and #9.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -325,3 +326,192 @@ def test_mip_render_goes_through_the_kernel(cuda_device):
     plain = render_lib.build_render_fn(
         model, cfg.replace(use_fused_render=False))(rays)
     assert (fused["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3
+
+
+# ------------------- #4, 6n, #8, #9 (the switched paths) -------------------
+
+from consistentnerf_tpu_torch.ops import pdf_merge  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [64, 192, 24])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_render_level_kernel_matches_plain(cuda_device, seg, dtype):
+    """#4 on 37 rays (a ragged last chunk): each row's max|diff| /
+    max|plain| within the one-pass rows' bounds; bit-identical again."""
+    flat = _mlp_flat(64, cuda_device, seed=2)
+    g = torch.Generator().manual_seed(4)
+    n_rays, dev = 37, cuda_device
+    o = torch.randn(n_rays, 3, generator=g).to(dev)
+    d = torch.randn(n_rays, 3, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2,
+                   -1).values.to(dev)
+    pts_T, views_T = op._pts_views(o.T, d.T, (d / d.norm(dim=-1,
+                                                         keepdim=True)).T, z)
+    z_row = z.reshape(1, -1).contiguous()
+    dn_row = op._rep_row(d.norm(dim=-1), seg).contiguous()
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, dtype)
+    kw = dict(seg=seg, net_depth=8, skips=SKIPS, multires=MR,
+              multires_views=MV, white_bkgd=True, compute_dtype=dtype)
+    before = op.render_launches
+    got = op.render_level_T(packed, pts_T, views_T, z_row, dn_row, **kw)
+    torch.cuda.synchronize()
+    assert op.render_launches == before + 1
+    want = op.plain_render_level_T(packed, pts_T, views_T, z_row, dn_row,
+                                   **kw)
+    assert torch.isfinite(got).all()
+    rows = ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(1e-30)).max().item()
+    print(f"render_level {dtype} S={seg}: rows {rows:.3e}")
+    assert rows < {"bfloat16": 5e-3, "float32": 1e-4}[dtype]
+    assert torch.equal(got, op.render_level_T(packed, pts_T, views_T, z_row,
+                                              dn_row, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mip_normals_kernel_matches_plain(cuda_device, width, dtype):
+    """6n on 3000 points (4 chunks, the last ragged): rows 0-3 as #6's;
+    rows 4-6 (d raw density / d means) in fp32 each within 1e-4 of the
+    plain version's largest value, in bf16 within 1e-3 of it on average
+    and no further from the fp32 function than the bf16 plain version
+    (chip_smoke.py's NORMALS_BF16_RATIO: the walk's ReLU masks follow
+    the forward's bf16 roundings); bit-identical again."""
+    flat = _mip_flat(width, cuda_device)
+    means, covs, views = _mip_inputs(3000, cuda_device)
+    packed = fmip.pack(flat, 8, 16, dtype)
+    before = fmip.normals_launches
+    got = fmip.fused_mip_mlp_normals_T(packed, means, covs, views, 8, 16,
+                                       dtype)
+    torch.cuda.synchronize()
+    assert fmip.normals_launches == before + 1
+    want = fmip.plain_fwd_normals_T(packed, means, covs, views, 8, 16, dtype)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:4], fmip.fwd_T(packed, means, covs, views, 8,
+                                           16, dtype))
+    diff = (got[4:] - want[4:]).abs()
+    rows = (diff.amax(1) / want[4:].abs().amax(1)).max().item()
+    mean = (diff.mean() / want[4:].abs().mean()).item()
+    print(f"mip normals {dtype} W={width}: rows {rows:.3e}, mean {mean:.3e}")
+    if dtype == "float32":
+        assert rows < 1e-4
+    else:
+        exact = fmip.plain_fwd_normals_T(fmip.pack(flat, 8, 16, "float32"),
+                                         means, covs, views, 8, 16,
+                                         "float32")[4:]
+        k_err = (got[4:] - exact).abs().mean().item()
+        p_err = (want[4:] - exact).abs().mean().item()
+        print(f"  from fp32: kernel {k_err:.3e}, plain bf16 {p_err:.3e}")
+        assert mean < 1e-3 and k_err <= 1.25 * p_err
+    assert torch.equal(got, fmip.fused_mip_mlp_normals_T(
+        packed, means, covs, views, 8, 16, dtype))
+
+
+def _pdf_problem(n, s_c, dev, seed=0, zero=False):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.linspace(2.0, 6.0, s_c)
+    z_c = torch.sort(z + torch.rand(n, s_c, generator=g) * 4.0 / s_c * 0.9,
+                     -1).values
+    w = (torch.zeros(n, s_c - 2) if zero
+         else torch.rand(n, s_c - 2, generator=g) ** 2)
+    return z_c.to(dev), w.to(dev), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draws", ["det", "sorted"])
+@pytest.mark.parametrize("zero", [False, True])
+def test_pdf_merge_kernel_matches_plain(cuda_device, draws, zero):
+    """#8 on 1001 rays of 64 + 128 samples: exactly sorted, z_c present
+    exactly, within 1e-4 of (far - near) of the plain version at the
+    99.9th percentile and one coarse bin at most; bit-identical again."""
+    n, s_c, s_i, dev = 1001, 64, 128, cuda_device
+    z_c, w, g = _pdf_problem(n, s_c, dev, zero=zero)
+    u = (pdf_merge.fine_z_draws(None, n, s_i, True, dev).contiguous()
+         if draws == "det" else pdf_merge.sorted_uniform(
+             torch.rand(n, s_i + 1, generator=g).to(dev)).contiguous())
+    before = pdf_merge.launches
+    merged, z_s = pdf_merge.sample_pdf_merged(z_c, w, u)
+    torch.cuda.synchronize()
+    assert pdf_merge.launches == before + 1
+    want, want_s = pdf_merge.plain_sample_pdf_merged(z_c, w, u)
+    assert torch.all(merged[:, 1:] >= merged[:, :-1])
+    assert all(torch.isin(z_c[r], merged[r]).all() for r in range(0, n, 97))
+    err = (merged - want).abs() / 4.0
+    print(f"pdf_merge {draws} zero={zero}: max {err.max().item():.3e}")
+    assert torch.quantile(err.flatten()[:1_000_000], 0.999).item() <= 1e-4
+    assert err.max().item() * 4.0 <= 4.0 / (s_c - 1)
+    again = pdf_merge.sample_pdf_merged(z_c, w, u)
+    assert torch.equal(merged, again[0]) and torch.equal(z_s, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [None, "single", "full"])
+def test_mip_resample_kernel_matches_plain(cuda_device, jitter):
+    """#9 on 1001 rays of 96 samples: within 1e-4 of (far - near) at the
+    99.9th percentile and one bin at most; bit-identical again."""
+    n, s, dev = 1001, 96, cuda_device
+    g = torch.Generator().manual_seed(1)
+    t = torch.sort(torch.rand(n, s + 1, generator=g) * 4 + 2,
+                   -1).values.to(dev)
+    w = (torch.rand(n, s, generator=g) ** 2).to(dev)
+    j = None
+    if jitter is not None:
+        d = 1 if jitter == "single" else s + 1
+        j = (torch.rand(n, d, generator=g) * (1 / (s + 1) - 1.2e-7)).to(dev)
+    from consistentnerf_tpu_torch.core import sampling
+
+    u = sampling.piecewise_pdf_draws(j, (n,), s + 1, dev).contiguous()
+    before = pdf_merge.mip_launches
+    got = pdf_merge.mip_resample_t_vals(t, w, u, 0.01)
+    torch.cuda.synchronize()
+    assert pdf_merge.mip_launches == before + 1
+    want = pdf_merge.plain_mip_resample_t_vals(t, w, u, 0.01)
+    err = (got - want).abs() / 4.0
+    print(f"mip_resample jitter={jitter}: max {err.max().item():.3e}")
+    assert torch.quantile(err.flatten(), 0.999).item() <= 1e-4
+    assert err.max().item() * 4.0 <= 4.0 / s
+    assert torch.equal(got, pdf_merge.mip_resample_t_vals(t, w, u, 0.01))
+
+
+@pytest.mark.cuda
+def test_switched_renders_go_through_the_kernels(cuda_device):
+    """The vanilla render with use_onepass_render and use_pdf_kernel (#4
+    twice and #8 once per chunk, #1 never) and the mip render with
+    use_pdf_kernel and normals (6n twice and #9 once per chunk) agree
+    with the plain renders."""
+    g = torch.Generator().manual_seed(2)
+    n = 600
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    ones = torch.ones(n, 1)
+    rays = Rays(origins=-4 * d, directions=d, viewdirs=d,
+                radii=ones * 2e-3, lossmult=ones, near=ones * 2,
+                far=ones * 6).map(lambda x: x.to(cuda_device).contiguous())
+    cfg = configs.Config(netwidth=64, N_samples=32, N_importance=64,
+                         white_bkgd=True, compute_dtype="bfloat16",
+                         render_chunk_size=256, use_fused_render=True,
+                         use_onepass_render=True, use_pdf_kernel=True)
+    model = make_model(cfg, cuda_device).eval()
+    v2.launches = op.render_launches = pdf_merge.launches = 0
+    fused = render_lib.build_render_fn(model, cfg)(rays)
+    torch.cuda.synchronize()
+    assert (v2.launches, op.render_launches, pdf_merge.launches) == (0, 6, 3)
+    plain = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(rays)
+    assert (fused["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3
+    mcfg = configs.Config(backbone="mipnerf", netwidth=64,
+                          mip_num_samples=16, white_bkgd=True,
+                          compute_dtype="bfloat16", render_chunk_size=256,
+                          use_fused_render=True, use_pdf_kernel=True,
+                          disable_normals=False)
+    mmodel = make_model(mcfg, cuda_device).eval()
+    fmip.launches = fmip.normals_launches = pdf_merge.mip_launches = 0
+    fused = render_lib.build_render_fn(mmodel, mcfg)(rays)
+    torch.cuda.synchronize()
+    assert (fmip.launches, fmip.normals_launches,
+            pdf_merge.mip_launches) == (0, 6, 3)
+    plain = render_lib.build_render_fn(
+        mmodel, mcfg.replace(use_fused_render=False))(rays)
+    for k in ("rgb", "normals"):
+        assert (fused[k] - plain[k]).abs().mean().item() < 2e-3, k

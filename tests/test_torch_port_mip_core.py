@@ -138,10 +138,20 @@ def test_piecewise_draws_and_single_jitter():
                jsamp.piecewise_pdf_draws(key, (5,), 7, single))
     _close(sampling.piecewise_pdf_draws(None, (5,), 7),
            jsamp.piecewise_pdf_draws(None, (5,), 7, False))
-    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
-        sampling.resample_along_rays(None, *[torch.zeros(1, 3)] * 3,
-                                     torch.zeros(1, 5), torch.zeros(1, 4),
-                                     "cone", True, 0.01, use_kernel=True)
+    # The kernel route (#9, its plain version here) takes the same draws.
+    rs = np.random.RandomState(8)
+    t = np.sort(rs.rand(5, 8) * 4 + 2, -1).astype(np.float32)
+    w = (0.01 + rs.rand(5, 7)).astype(np.float32)
+    jit = jax.random.uniform(key, (5, 1), maxval=1 / 8 - EPS)
+    args = (*[_t(rs.randn(5, 3).astype(np.float32))] * 2,
+            _t(np.full((5, 1), 1e-3, np.float32)), _t(t), _t(w), "cone",
+            True, 0.01)
+    for j in (None, _t(jit)):
+        t_k, (m_k, _) = sampling.resample_along_rays(j, *args,
+                                                     use_kernel=True)
+        t_p, (m_p, _) = sampling.resample_along_rays(j, *args)
+        _close(t_k, t_p)
+        _close(m_k, m_p)
 
 
 def test_alpha_weights_and_volumetric_rendering(rays):
@@ -157,13 +167,14 @@ def test_alpha_weights_and_volumetric_rendering(rays):
     for a, b in zip(got, want):
         _close(a, b)
     w = np.asarray(want[0])
-    normals = np.full((n, s, 3), np.nan, np.float32)
+    normals = rs.randn(n, s, 3).astype(np.float32)
     jr = jrend.volumetric_rendering(rgb, w, normals, t, True, 4, True,
                                     want[3])
     for rgbs, rgbs_T in ((_t(rgb), None), (None, _t(rgb).permute(2, 0, 1))):
-        pr = rendering.volumetric_rendering(rgbs, _t(w), _t(t), True, 4,
-                                            True, rgbs_T=rgbs_T)
-        for k in ("rgb", "distance_mean", "acc", "distance_mean_save",
+        pr = rendering.volumetric_rendering(rgbs, _t(w), _t(normals), _t(t),
+                                            True, 4, True, rgbs_T=rgbs_T)
+        for k in ("rgb", "distance_mean", "acc", "normals",
+                  "distance_mean_save",
                   "distance_std", "distance_median", "distance_percentile_5",
                   "distance_percentile_95", "ray_t_vals", "ray_weights",
                   "ray_rgbs"):

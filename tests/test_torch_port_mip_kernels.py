@@ -171,8 +171,18 @@ def test_train_op_autograd_matches_plain_bwd(bwd_case):
     want = fmip.plain_bwd_T(flat, m, c, v, g, depth, nf, "float32")
     for a, b in zip(leaves, want):
         torch.testing.assert_close(a.grad, b)
-    with pytest.raises(NotImplementedError, match="mip normals"):
-        fmip.fused_mip_mlp_normals_T(flat, m, c, v)
+    # The normals variant (6n) is ported: its raw heads are the forward's,
+    # rows 4-6 the density's gradient by the means (held against the JAX
+    # kernel in test_torch_port_mip_normals.py); here against autograd
+    # through the whole plain forward, the IPE included.
+    rows = fmip.fused_mip_mlp_normals_T(flat, m, c, v, depth, nf, "float32")
+    torch.testing.assert_close(rows[:4], fmip.fwd_T(flat, m, c, v, depth,
+                                                    nf, "float32"))
+    means = m.clone().requires_grad_()
+    raw = fmip.plain_fwd_T(flat, means, c, v, depth, nf, "float32")
+    dmeans, = torch.autograd.grad(raw[3].sum(), means)
+    torch.testing.assert_close(rows[4:], dmeans, rtol=1e-5,
+                               atol=1e-5 * dmeans.abs().max().item())
 
 
 # ----------------------------- kernel #5 ---------------------------------

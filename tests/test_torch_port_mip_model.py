@@ -173,10 +173,25 @@ def test_render_matches_jax_render(setup, fused):
                                        err_msg=k, atol=2e-4, rtol=2e-4)
 
 
-def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="mip normals"):
-        make_model(configs.Config(**{**CFG, "disable_normals": False}),
-                   "cpu")
-    cfg = configs.Config(**{**CFG, "disable_normals": False})
-    with pytest.raises(NotImplementedError, match="mip normals"):
-        fused_mip_forward([], None, None, cfg)
+def test_unported_model_options_raise(setup):
+    """Normals (disable_normals=false) are ported: the model and the fused
+    forward (kernel 6n's plain version here) build, agree on the normals
+    map, and leave the other outputs as they were (held against the JAX
+    package in test_torch_port_mip_normals.py)."""
+    *_, params, _, cfg, model, prays = setup
+    cfg = cfg.replace(disable_normals=False)
+    normal_model = make_model(cfg, "cpu")
+    normal_model.load_state_dict(interop.mip_params_from_jax(params))
+    with torch.no_grad():
+        got = normal_model(prays, None, 0.01, compute_extras=True)
+        plain = model(prays, None, 0.01, compute_extras=True)
+        fused = fused_mip_forward(
+            fused_mip.flatten_mip_params(normal_model.mlp, cfg.netdepth),
+            None, prays, cfg, 0.01, compute_extras=True)
+    for g, p, f in zip(got, plain, fused):
+        assert "normals" in g and "normals" not in p
+        for k in KEYS:
+            torch.testing.assert_close(g[k], p[k])
+        np.testing.assert_allclose(f["normals"].numpy(),
+                                   g["normals"].numpy(), atol=1e-5,
+                                   rtol=1e-5)

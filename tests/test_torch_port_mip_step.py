@@ -303,11 +303,15 @@ def test_unported_mip_options_raise(tmp_path):
             MipBatcher(scene, base.replace(**kw))
     with pytest.raises(NotImplementedError, match="two-call fused step"):
         loop.select_train_step(base.replace(use_onepass_train=False), None)
-    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
-        op.build_onepass_mip_train_step(base.replace(use_pdf_kernel=True))(
-            _port_state(_params_for(base), base), to_device(
-                MipBatcher(scene, base.replace(N_rand=16)).next_batch(),
-                "cpu"))
+    # use_pdf_kernel (kernel #9, its plain version here) is ported: the
+    # step computes what the plain resampler's step computes.
+    params = _params_for(base)
+    b = to_device(MipBatcher(scene, base.replace(N_rand=16)).next_batch(),
+                  "cpu")
+    st = [op.build_onepass_mip_train_step(base.replace(use_pdf_kernel=k))(
+        _port_state(params, base), b)[1] for k in (True, False)]
+    np.testing.assert_allclose(float(st[0]["loss"]), float(st[1]["loss"]),
+                               rtol=LOSS_RTOL)
     args = ["--device", "cpu", "--set", "backbone=mipnerf", "--set",
             "dataset_type=synthetic", "--set", f"basedir={tmp_path}"]
     with pytest.raises(NotImplementedError, match="mip regularizers"):

@@ -106,14 +106,23 @@ def test_vanilla_nerf_matches_jax_apply(slice_setup):
 
 
 def test_unported_render_variants_raise(slice_setup):
-    model, prays = slice_setup[3:]
-    weights = {"coarse": fm.flatten_params(model.coarse, True, DEPTH)}
-    for kw in (dict(kernel="v1"), dict(onepass=True),
-               dict(pdf_kernel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_render.fused_render_rays(
-                weights, prays, num_samples=S_C, num_importance=S_F,
-                multires=MR, multires_views=MV, net_depth=DEPTH, **kw)
+    """kernel='v1' (Queue 2 #12) raises; the one-pass and pdf-kernel
+    variants are ported and render what the JAX variants render."""
+    _, params, jrays, model, prays = slice_setup
+    weights = {lvl: fm.flatten_params(getattr(model, lvl), True, DEPTH)
+               for lvl in ("coarse", "fine")}
+    kw = dict(num_samples=S_C, num_importance=S_F, multires=MR,
+              multires_views=MV, net_depth=DEPTH, white_bkgd=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_render.fused_render_rays(weights, prays, kernel="v1", **kw)
+    for switch in (dict(onepass=True), dict(pdf_kernel=True)):
+        want = jfr.fused_render_rays(
+            params, jrays, tile=32, interpret=True, kernel="v2",
+            **{"onepass": False, "pdf_kernel": False, **switch}, **kw)
+        with torch.no_grad():
+            got = fused_render.fused_render_rays(weights, prays, **switch,
+                                                 **kw)
+        _assert_slice_close(got, want)
 
 
 def _tiny_cfg(**kw):
