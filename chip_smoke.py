@@ -23,7 +23,17 @@ with the launch counts set to 0 just before it and read just after:
 * the switched paths: the vanilla render with `use_onepass_render` and
   `use_pdf_kernel` (kernels #4 and #8), the mip render with
   `use_pdf_kernel` and `disable_normals=false` (6n and #9), and both
-  one-pass steps with `use_pdf_kernel` through the train CLI.
+  one-pass steps with `use_pdf_kernel` through the train CLI;
+* the row-major kernels #10 / #11 at the two-call step's shapes and
+  #15 / #16 at the mip level (against their plain versions and the
+  transposed kernels), the op `fused_mip_mlp_train` (one launch each);
+* the two-call fused step: the flagship with `softLpmask` through the
+  train CLI for each `fused_kernel` (v2: #1/#2, v2row: #10/#11, v2h: the
+  plain forward and #11), guarded against the eager step and, at the
+  hardmask flagship, against the one-pass step; the v2row render (#10);
+* the mip two-call step (disp metrics) and the one-pass mip step, both
+  with the RegNeRF TV norm on 2048 random-pose rays and near/far
+  annealing, through the train CLI, guarded against the eager step.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32; the kernel train step is held against the
@@ -196,6 +206,8 @@ def ptxas_report(_build, name):
             mangled = line.split("'")[1]
             entry = ("bf16" if "bfloat16" in mangled else
                      "fp32" if "reduce" not in mangled else "reduce")
+            if "RowMajor" in mangled:
+                entry += " row-major"
         elif "Used" in line or "spill" in line:
             log(f"  {name} [{entry}]: {line.strip()}")
 
@@ -341,6 +353,15 @@ def main() -> None:
     mip_switched = switched_mip_phases(dev, card, configs, fm, fmip, op,
                                        pdf_merge, mip_render["render_ms"])
     log(f"switched phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    row = rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op)
+    twocall = twocall_phases(dev, card, configs, fm, v2, op,
+                             render["render_ms"])
+    mip_tv_phases(dev, card, configs, fm, fmip, op)
+    log(f"two-call and TV phases: {time.perf_counter() - t_phase:.1f} s")
+    row_json = row["json"]
+    for r in row_json[:2]:
+        r["launches"] = twocall["launches"][r["name"]]
 
     kernels = {"kernels": [
         dict(name=v2.KERNEL, route="cuda",
@@ -357,7 +378,8 @@ def main() -> None:
              **mip_render["json"]),
     ] + mip_train["json"] + [
         switched["json"][op.RENDER_KERNEL], mip_switched["json"],
-        switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]}
+        switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]
+        + row_json}
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -1962,6 +1984,590 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
             replaces="consistentnerf_tpu/ops/pdf_merge.py:284",
             launches=mip_launches, max_abs_err=mip_err, ms=ms9,
             plain_ms=plain9, bound_ms=b9, bound_by=by9, library_ms=None)}
+
+
+# The two-call fused steps (PR 5): the flagship with softLpmask, whose two
+# prediction-dependent denominators send it to the two-call step, once per
+# fused_kernel; the launches each kind makes per step of #1, #2, #10, #11.
+TWOCALL = dict(FLAGSHIP, hardmask=False, softLpmask=True)
+TWOCALL_LAUNCHES = {"v2": (2, 2, 0, 0), "v2row": (0, 0, 2, 2),
+                    "v2h": (0, 0, 0, 2)}
+# A row-major kernel against the transposed one on the same points, fp32:
+# the same walk, so bit-identical; otherwise max|diff| / max|T| under this.
+ROW_VS_T_TOL = 1e-6
+# The RegNeRF regularizer of the JAX package's regnerf3 settings
+# (configs/scenes.py:78-87) at its batch_size_random and patch size. Its
+# depth_tvnorm_mask_weight is left at 0 there, which makes the TV term 0
+# in both packages; the JAX package's own test of the step sets 1, and so
+# does this script, so the guards see the TV norm's gradients.
+REGNERF_TV = dict(
+    depth_tvnorm_loss_mult=0.1, depth_tvnorm_decay=True,
+    depth_tvnorm_maxstep=512, depth_tvnorm_loss_mult_start=400.0,
+    depth_tvnorm_loss_mult_end=0.1, depth_tvnorm_mask_weight=1.0,
+    anneal_nearfar=True, load_random_rays=True, batch_size_random=2048,
+    random_patch_size=8)
+MIP_TV = dict(MIP, compute_disp_metrics=True, **REGNERF_TV)
+
+
+def row_vs_t(label, got, want_T):
+    """Log and gate a row-major result [N, C] (or a grad list) against the
+    transposed kernel's on the same points; returns max|diff|."""
+    if isinstance(got, torch.Tensor):
+        got, want_T = [got], [want_T.T]
+    same = all(torch.equal(a, b) for a, b in zip(got, want_T))
+    mx = max((a - b).abs().max().item() for a, b in zip(got, want_T))
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(got, want_T))
+    log(f"{label}: row-major vs transposed kernel, bit-identical {same}, "
+        f"max|diff| {mx:.3e}, max|diff|/max|T| {rel:.3e} (tol "
+        f"{ROW_VS_T_TOL:g})")
+    return same, rel, mx
+
+
+def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
+    """27. Kernels #10 / #11 at the two-call step's shapes and #15 / #16 at
+    the mip level, against their plain versions and against the
+    transposed kernels on the same points; the op fused_mip_mlp_train
+    through autograd (its path); timings."""
+    from consistentnerf_tpu_torch.core import rendering, sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (MipBatcher,
+                                                        VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.ops import pdf_merge
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    cfg = configs.Config(**TWOCALL)
+    skips = op.model_skips(cfg.netdepth)
+    mlp_kw = dict(net_depth=cfg.netdepth, skips=skips,
+                  multires=cfg.multires, multires_views=cfg.multires_views)
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    state = loop.init_state(cfg, dev)
+    batch = to_device(VanillaBatcher(scene, cfg).next_batch(), dev)
+    n = batch["rgb"].shape[0]
+    draws = step_lib.make_draws(
+        cfg, n, step_lib.step_generator(cfg.seed, 0, dev), dev)
+    rays = step_lib.rays_from_batch(batch, cfg.near, cfg.far)
+    flat = {lvl: [w.detach() for w in fm.flatten_params(
+        getattr(state.model, lvl), True, cfg.netdepth)]
+        for lvl in ("coarse", "fine")}
+
+    def row_streams(z):
+        s = z.shape[1]
+        pts = rays.origins[:, None] + rays.directions[:, None] * z[..., None]
+        views = rays.viewdirs[:, None].expand(n, s, 3)
+        return (pts.reshape(n * s, 3).contiguous(),
+                views.reshape(n * s, 3).contiguous())
+
+    # The level inputs as the two-call step makes them: every ray, coarse
+    # depths from t_rand, fine depths from the coarse weights.
+    with torch.no_grad():
+        z_c = sampling.vanilla_z_vals(rays.near, rays.far, cfg.N_samples,
+                                      False, draws["t_rand"])
+        pc, vc = row_streams(z_c)
+        raw = v2.plain_fwd_row(flat["coarse"], pc, vc,
+                               compute_dtype="bfloat16", **mlp_kw)
+        w_c = rendering.raw2outputs(raw.reshape(n, -1, 4), z_c,
+                                    rays.directions, None, True)[3]
+        z_f = pdf_merge.fine_z_vals(z_c, w_c, cfg.N_importance,
+                                    u=draws["u"], det=False)
+        levels = {"fine": row_streams(z_f), "coarse": (pc, vc)}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = {lvl: 1e-3 * torch.randn((x[0].shape[0], 4), generator=gen,
+                                 device=dev) for lvl, x in levels.items()}
+    log(f"row-major kernels at the two-call step's shapes: {n} rays, "
+        f"coarse {levels['coarse'][0].shape[0]} and fine "
+        f"{levels['fine'][0].shape[0]} points")
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        for lvl in ("fine", "coarse"):
+            w = v2.pack(flat[lvl], compute_dtype=dtype, **mlp_kw)
+            pts, views = levels[lvl]
+            pts_T, views_T = pts.T.contiguous(), views.T.contiguous()
+            got = v2.fwd(w, pts, views, compute_dtype=dtype, **mlp_kw)
+            torch.cuda.synchronize()
+            want = v2.plain_fwd_row(w, pts, views, compute_dtype=dtype,
+                                    **mlp_kw)
+            if not torch.isfinite(got).all():
+                fail(f"{v2.ROW_KERNEL} {lvl} {dtype}: non-finite output")
+            rel, mx = rel_err(got, want)
+            tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+            errs[(v2.ROW_KERNEL, lvl, dtype)] = mx
+            log(f"{v2.ROW_KERNEL} vs plain, {lvl} {dtype}, N={pts.shape[0]}"
+                f": max|diff| {mx:.3e}, max|diff|/mean|plain| {rel:.3e} "
+                f"(tol {tol:g})")
+            gate(rel < tol, f"{v2.ROW_KERNEL} {lvl} {dtype} disagrees with "
+                 f"its plain version ({rel:.3e})")
+            same, rel_t, _ = row_vs_t(
+                f"{v2.ROW_KERNEL} {lvl} {dtype}", got,
+                v2.fwd_T(w, pts_T, views_T, compute_dtype=dtype, **mlp_kw))
+            if dtype == "float32":
+                gate(same or rel_t < ROW_VS_T_TOL,
+                     f"{v2.ROW_KERNEL} {lvl} disagrees with {v2.KERNEL}")
+            del got, want
+            got = v2.bwd(w, pts, views, g[lvl], compute_dtype=dtype,
+                         **mlp_kw)
+            torch.cuda.synchronize()
+            want = v2.plain_bwd_row(w, pts, views, g[lvl],
+                                    compute_dtype=dtype, **mlp_kw)
+            rel, mx = grads_err(got, want)
+            errs[(v2.ROW_BWD_KERNEL, lvl, dtype)] = mx
+            log(f"{v2.ROW_BWD_KERNEL} vs plain, {lvl} {dtype}: dW max|diff| "
+                f"{mx:.3e}, max rel L2 {rel:.3e} (tol "
+                f"{TRAIN_DW_TOL[dtype]:g})")
+            if not all(torch.isfinite(x).all() for x in got):
+                fail(f"{v2.ROW_BWD_KERNEL} {lvl} {dtype}: non-finite dW")
+            gate(rel < TRAIN_DW_TOL[dtype], f"{v2.ROW_BWD_KERNEL} {lvl} "
+                 f"{dtype} disagrees with its plain version ({rel:.3e})")
+            del want
+            same, rel_t, _ = row_vs_t(
+                f"{v2.ROW_BWD_KERNEL} {lvl} {dtype}", got,
+                v2.bwd_T(w, pts_T, views_T, g[lvl].T.contiguous(),
+                         compute_dtype=dtype, **mlp_kw))
+            if dtype == "float32":
+                gate(same or rel_t < ROW_VS_T_TOL, f"{v2.ROW_BWD_KERNEL} "
+                     f"{lvl} disagrees with {v2.BWD_KERNEL}")
+            del got, pts_T, views_T
+            torch.cuda.empty_cache()
+
+    # Timings, bf16: the row-major kernels, the transposed kernels on the
+    # same points (same call, same card), the plain versions.
+    fwd_pp = mlp_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                 cfg.multires, cfg.multires_views)
+    train_pp = mlp_train_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                         cfg.multires, cfg.multires_views)
+    rows, times = [], {}
+    for kern, tkern, kfn, tfn, plain, flops, bpp, replaces in (
+            (v2.ROW_KERNEL, v2.KERNEL, v2.fwd, v2.fwd_T, v2.plain_fwd_row,
+             fwd_pp, 40, "consistentnerf_tpu/ops/fused_mlp_v2.py:528"),
+            (v2.ROW_BWD_KERNEL, v2.BWD_KERNEL, v2.bwd, v2.bwd_T,
+             v2.plain_bwd_row, train_pp, 40,
+             "consistentnerf_tpu/ops/fused_mlp_v2.py:644")):
+        res = {}
+        for lvl in ("fine", "coarse"):
+            w = v2.pack(flat[lvl], compute_dtype="bfloat16", **mlp_kw)
+            pts, views = levels[lvl]
+            pts_T, views_T = pts.T.contiguous(), views.T.contiguous()
+            fwd = kern == v2.ROW_KERNEL
+            extra = () if fwd else (g[lvl],)
+            extra_T = () if fwd else (g[lvl].T.contiguous(),)
+            iters = (5 if fwd else 2) if lvl == "fine" else (10 if fwd else 4)
+            with torch.no_grad():
+                ms = time_ms(lambda: kfn(w, pts, views, *extra,
+                                         compute_dtype="bfloat16",
+                                         **mlp_kw), iters)
+                ms_T = time_ms(lambda: tfn(w, pts_T, views_T, *extra_T,
+                                           compute_dtype="bfloat16",
+                                           **mlp_kw), iters)
+            # Weights read once in bf16; the bwd also writes dW and db
+            # once in fp32.
+            numel = w.w.numel() + w.b.numel()
+            wbytes = (w.w.numel() * 2 + w.b.numel() * 4) if fwd else \
+                6 * numel
+            bound, by = bound_ms(pts.shape[0], flops, wbytes,
+                                 PEAK_BF16_FLOPS, bpp)
+            res[lvl] = (ms, bound, by)
+            times[(kern, lvl)] = ms
+            log(f"{tag} {kern} bf16 {lvl} (N={pts.shape[0]}): {ms:.3f} "
+                f"ms/launch ({1e6 * ms / pts.shape[0]:.2f} ns/point); "
+                f"{tkern} on the same points {ms_T:.3f} ms "
+                f"({100 * (ms / ms_T - 1):+.1f}%); bound {bound:.3f} ms "
+                f"({by}, {100 * bound / ms:.1f}% of it)")
+            del pts_T, views_T
+        w = v2.pack(flat["fine"], compute_dtype="bfloat16", **mlp_kw)
+        pts, views = levels["fine"]
+        extra = () if kern == v2.ROW_KERNEL else (g["fine"],)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: plain(w, pts, views, *extra,
+                                             compute_dtype="bfloat16",
+                                             **mlp_kw), 1)
+        log(f"{tag} plain version of {kern}, bf16 fine: {plain_ms:.3f} ms")
+        torch.cuda.empty_cache()
+        ms, bound, by = res["fine"]
+        rows.append(dict(
+            name=kern, route="cuda",
+            source=("consistentnerf_tpu_torch/csrc/fused_mlp_fwd.cu"
+                    if kern == v2.ROW_KERNEL else
+                    "consistentnerf_tpu_torch/csrc/fused_mlp_bwd.cu"),
+            replaces=replaces, max_abs_err=errs[(kern, "fine", "bfloat16")],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+    del levels, g
+    torch.cuda.empty_cache()
+
+    # #15 / #16 at the mip two-call step's level: 4096 rays x 96 samples.
+    mcfg = configs.Config(**MIP)
+    kw = mip_mlp_kw(mcfg)
+    mstate = loop.init_state(mcfg, dev)
+    mbatch = to_device(MipBatcher(scene, mcfg).next_batch(), dev)
+    mrays = mbatch["rays"]
+    nm, s = mrays.origins.shape[0], mcfg.mip_num_samples
+    mdraws = step_lib.make_mip_draws(
+        mcfg, nm, step_lib.step_generator(mcfg.seed, 0, dev), dev)
+    with torch.no_grad():
+        _, (means, covs) = sampling.sample_along_rays(
+            mdraws["t_rand"], mrays.origins, mrays.directions, mrays.radii,
+            s, mrays.near, mrays.far, None, "cone")
+    means = means.reshape(nm * s, 3).contiguous()
+    covs = covs.reshape(nm * s, 3).contiguous()
+    mviews = mrays.viewdirs[:, None].expand(nm, s, 3).reshape(
+        nm * s, 3).contiguous()
+    streams_T = [x.T.contiguous() for x in (means, covs, mviews)]
+    mflat = fmip.flatten_mip_params(mstate.model.mlp, mcfg.netdepth)
+    mflat_d = [w.detach() for w in mflat]
+    gm = 1e-3 * torch.randn((nm * s, 4), generator=gen, device=dev)
+    log(f"{fmip.ROW_KERNEL} / {fmip.ROW_BWD_KERNEL} at the mip level: {nm} "
+        f"rays x {s} samples = {nm * s} points")
+    for dtype in ("bfloat16", "float32"):
+        w = fmip.pack(mflat_d, mcfg.netdepth, mcfg.max_deg_point, dtype)
+        got = fmip.fwd(w, means, covs, mviews, compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        want = fmip.plain_fwd_row(w, means, covs, mviews,
+                                  compute_dtype=dtype, **kw)
+        if not torch.isfinite(got).all():
+            fail(f"{fmip.ROW_KERNEL} {dtype}: non-finite output")
+        errs[(fmip.ROW_KERNEL, dtype)] = mip_fwd_gate(
+            f"{fmip.ROW_KERNEL} vs plain, {dtype}", got.T, want.T, dtype)
+        same, rel_t, _ = row_vs_t(
+            f"{fmip.ROW_KERNEL} {dtype}", got,
+            fmip.fwd_T(w, *streams_T, compute_dtype=dtype, **kw))
+        if dtype == "float32":
+            gate(same or rel_t < ROW_VS_T_TOL,
+                 f"{fmip.ROW_KERNEL} disagrees with {fmip.KERNEL}")
+        del got, want
+        got = fmip.bwd(w, means, covs, mviews, gm, compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        want = fmip.plain_bwd_row(w, means, covs, mviews, gm,
+                                  compute_dtype=dtype, **kw)
+        rel, mx = grads_err(got, want)
+        errs[(fmip.ROW_BWD_KERNEL, dtype)] = mx
+        log(f"{fmip.ROW_BWD_KERNEL} vs plain, {dtype}: dW max|diff| "
+            f"{mx:.3e}, max rel L2 {rel:.3e} (tol {TRAIN_DW_TOL[dtype]:g})")
+        if not all(torch.isfinite(x).all() for x in got):
+            fail(f"{fmip.ROW_BWD_KERNEL} {dtype}: non-finite dW")
+        gate(rel < TRAIN_DW_TOL[dtype], f"{fmip.ROW_BWD_KERNEL} {dtype} "
+             f"disagrees with its plain version ({rel:.3e})")
+        del want
+        same, rel_t, _ = row_vs_t(
+            f"{fmip.ROW_BWD_KERNEL} {dtype}", got,
+            fmip.bwd_T(w, *streams_T, gm.T.contiguous(),
+                       compute_dtype=dtype, **kw))
+        if dtype == "float32":
+            gate(same or rel_t < ROW_VS_T_TOL,
+                 f"{fmip.ROW_BWD_KERNEL} disagrees with {fmip.BWD_KERNEL}")
+        del got
+        torch.cuda.empty_cache()
+
+    # 28. The op's path: fused_mip_mlp_train forward and, by autograd, its
+    # weight grads at the mip level (one launch of #15 and of #16).
+    fmip.row_launches = fmip.row_bwd_launches = 0
+    leaves = [w.clone().requires_grad_() for w in mflat_d]
+    raw = fmip.fused_mip_mlp_train(leaves, means, covs, mviews,
+                                   compute_dtype="bfloat16", **kw)
+    (raw * gm).sum().backward()
+    torch.cuda.synchronize()
+    op_launches = {fmip.ROW_KERNEL: fmip.row_launches,
+                   fmip.ROW_BWD_KERNEL: fmip.row_bwd_launches}
+    log(f"fused_mip_mlp_train forward + backward: launches {op_launches} "
+        "(expected 1 of each)")
+    if list(op_launches.values()) != [1, 1]:
+        fail(f"fused_mip_mlp_train did not launch #15 and #16 once each: "
+             f"{op_launches}")
+    if not all(torch.isfinite(w.grad).all() for w in leaves):
+        fail("fused_mip_mlp_train: non-finite grads")
+    del leaves, raw
+
+    w16 = fmip.pack(mflat_d, mcfg.netdepth, mcfg.max_deg_point, "bfloat16")
+    mip_fwd_pp = mip_flops(mcfg, fmip)
+    mip_train_pp = mip_flops(mcfg, fmip, train=True)
+    wbytes = w16.w.numel() * 2 + w16.b.numel() * 4
+    for kern, tkern, kfn, tfn, plain, flops, bpp, nwb, replaces in (
+            (fmip.ROW_KERNEL, fmip.KERNEL, fmip.fwd, fmip.fwd_T,
+             fmip.plain_fwd_row, mip_fwd_pp, 52, wbytes,
+             "consistentnerf_tpu/ops/fused_mip.py:488"),
+            (fmip.ROW_BWD_KERNEL, fmip.BWD_KERNEL, fmip.bwd, fmip.bwd_T,
+             fmip.plain_bwd_row, mip_train_pp, 52,
+             6 * (w16.w.numel() + w16.b.numel()),
+             "consistentnerf_tpu/ops/fused_mip.py:527")):
+        fwd = kern == fmip.ROW_KERNEL
+        extra = () if fwd else (gm,)
+        extra_T = () if fwd else (gm.T.contiguous(),)
+        with torch.no_grad():
+            ms = time_ms(lambda: kfn(w16, means, covs, mviews, *extra,
+                                     compute_dtype="bfloat16", **kw),
+                         10 if fwd else 3)
+            ms_T = time_ms(lambda: tfn(w16, *streams_T, *extra_T,
+                                       compute_dtype="bfloat16", **kw),
+                           10 if fwd else 3)
+            plain_ms = time_ms(lambda: plain(w16, means, covs, mviews,
+                                             *extra,
+                                             compute_dtype="bfloat16",
+                                             **kw), 1)
+        bound, by = bound_ms(nm * s, flops, nwb, PEAK_BF16_FLOPS, bpp)
+        log(f"{tag} {kern} bf16 (N={nm * s}): {ms:.3f} ms/launch "
+            f"({1e6 * ms / (nm * s):.2f} ns/point); {tkern} on the same "
+            f"points {ms_T:.3f} ms ({100 * (ms / ms_T - 1):+.1f}%); bound "
+            f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it); plain "
+            f"version {plain_ms:.3f} ms")
+        rows.append(dict(
+            name=kern, route="cuda",
+            source=("consistentnerf_tpu_torch/csrc/fused_mip_fwd.cu"
+                    if fwd else
+                    "consistentnerf_tpu_torch/csrc/fused_mip_bwd.cu"),
+            replaces=replaces, launches=op_launches[kern],
+            max_abs_err=errs[(kern, "bfloat16")], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    del means, covs, mviews, streams_T, gm
+    torch.cuda.empty_cache()
+    return {"json": rows}
+
+
+def cli_train_twice(label, sets, dev, counted, expected, check=None):
+    """The train CLI for TRAIN_STEPS steps and a resume for 2, with the
+    launch counts set to 0 before each run and read after: each run must
+    launch `expected[k]` of kernel k per step. Returns the first run's
+    counts and the last stats."""
+    from consistentnerf_tpu_torch.cli import train as train_cli
+
+    launches, last = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--device", str(dev)] + [
+            x for s_ in sets + [f"basedir={tmp}"] for x in ("--set", s_)]
+        for steps, run in ((TRAIN_STEPS, "train"),
+                           (TRAIN_STEPS + 2, "resume")):
+            for mod, attr, _ in counted:
+                setattr(mod, attr, 0)
+            res = train_cli.main(args + ["--num-steps", str(steps)])
+            torch.cuda.synchronize()
+            got = {k: getattr(mod, attr) for mod, attr, k in counted}
+            ran = steps - (0 if run == "train" else TRAIN_STEPS)
+            last = res.stats_history[-1]
+            log(f"{label} cli.train {run}: steps {ran}, launches {got} "
+                f"(expected per step {expected}), loss "
+                f"{float(last['loss']):.5f}")
+            if any(got[k] != expected[k] * ran for k in got):
+                fail(f"{label}: the train path launched {got}, expected "
+                     f"{expected} per step")
+            if res.state.step != steps or not all(
+                    np.isfinite(float(h["loss"])) for h in
+                    res.stats_history):
+                fail(f"{label} cli.train {run} ended at step "
+                     f"{res.state.step} or with a non-finite loss")
+            if run == "train":
+                launches = got
+                ckpts = os.listdir(os.path.join(tmp, "exp", "checkpoints"))
+                if f"step_{TRAIN_STEPS:08d}.pt" not in ckpts:
+                    fail(f"{label} cli.train wrote no checkpoint")
+            if check is not None:
+                check(last)
+    return launches, last
+
+
+def bench_steps(label, tag, step_fn, state, batches, n_rays, bound=None):
+    """bench.py's count: TIMED_STEPS steps over alternating batches, host
+    clock, one sync; then one profiled step. Returns ms/step."""
+    state, _ = step_fn(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        state, stats = step_fn(state, batches[i % len(batches)])
+    float(stats["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_ms = 1e3 * dt / TIMED_STEPS
+    extra = ("" if bound is None else f"; bf16 bound {bound:.2f} ms "
+             f"({100 * bound / step_ms:.1f}% of it)")
+    log(f"{tag} {label}: {step_ms:.2f} ms/step, "
+        f"{TIMED_STEPS * n_rays / dt:.1f} rays/s over {TIMED_STEPS} steps"
+        + extra)
+    dev_ms, top = device_time(lambda: step_fn(state, batches[1]))
+    if dev_ms is None:
+        log(f"{tag} {label} device time: not measured (the profiler saw no "
+            "device time)")
+    else:
+        log(f"{tag} profiled {label}: device time {dev_ms:.2f} ms of "
+            f"{step_ms:.2f} ms/step, idle share "
+            f"{max(0.0, 1 - dev_ms / step_ms):.3f}; by kernel: " + "; ".join(
+                f"{k} {t:.2f} ms x{c}" for k, t, c in top))
+    return step_ms
+
+
+def twocall_phases(dev, card, configs, fm, v2, op, render_ms):
+    """29-32. The vanilla two-call step through the train CLI for each
+    fused_kernel, its timings and guards, and the v2row render."""
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.ops import fused_train
+    from consistentnerf_tpu_torch.train import evaluation, loop
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    counted = ((v2, "launches", v2.KERNEL), (v2, "bwd_launches",
+                                             v2.BWD_KERNEL),
+               (v2, "row_launches", v2.ROW_KERNEL),
+               (v2, "row_bwd_launches", v2.ROW_BWD_KERNEL),
+               (op, "launches", op.KERNEL))
+    base_sets = ["dataset_type=synthetic",
+                 f"synthetic_views={SCENE['n_views']}",
+                 f"synthetic_hw={SCENE['H']}",
+                 "synthetic_interleave_test=false", "i_print=1",
+                 f"checkpoint_every={TRAIN_STEPS}"]
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    launches = {v2.ROW_KERNEL: 0, v2.ROW_BWD_KERNEL: 0}
+    step_ms = {}
+    # 29. The train CLI, 3 steps and a resume, then bench.py's timing.
+    for kind, per_step in TWOCALL_LAUNCHES.items():
+        cfg = configs.Config(**{**TWOCALL, "fused_kernel": kind})
+        expected = dict(zip((v2.KERNEL, v2.BWD_KERNEL, v2.ROW_KERNEL,
+                             v2.ROW_BWD_KERNEL), per_step), **{op.KERNEL: 0})
+        got, _ = cli_train_twice(
+            f"two-call step {kind}",
+            base_sets + [f"{k}={v}" for k, v in TWOCALL.items()]
+            + [f"fused_kernel={kind}"], dev, counted, expected)
+        for k in launches:
+            launches[k] += got[k]
+        t_state = loop.init_state(cfg, dev)
+        step_fn = loop.select_train_step(cfg, t_state.model)
+        batcher = VanillaBatcher(scene, cfg)
+        batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+        step_ms[kind] = bench_steps(f"two-call train step {kind} (softLpmask, "
+                                   f"{batches[0]['rgb'].shape[0]} rays)", tag,
+                                   step_fn, t_state, batches,
+                                   batches[0]["rgb"].shape[0])
+        del t_state, batches
+        torch.cuda.empty_cache()
+
+    # 30. The guards: the two-call step (each kind) vs the eager step on
+    # the same draws; at the hardmask flagship, which both kernel steps
+    # accept, the two-call v2 step vs the one-pass step.
+    g_cfg = configs.Config(**{**TWOCALL, "N_rand": GUARD_N_RAND})
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+    g_draws = step_lib.make_draws(
+        g_cfg, g_batch["rgb"].shape[0],
+        step_lib.step_generator(g_cfg.seed, 0, dev), dev)
+    eager = step_lib.build_vanilla_train_step(g_state.model, g_cfg)
+    for kind in TWOCALL_LAUNCHES:
+        guard_steps(f"two-call step guard {kind} vs eager (softLpmask, "
+                    f"N_rand {GUARD_N_RAND}, bf16)",
+                    fused_train.build_fused_vanilla_train_step(
+                        g_cfg.replace(fused_kernel=kind)),
+                    eager, g_state, g_batch, g_draws)
+    h_cfg = configs.Config(**{**FLAGSHIP, "N_rand": GUARD_N_RAND})
+    guard_steps(f"two-call v2 step vs the one-pass step (hardmask, N_rand "
+                f"{GUARD_N_RAND}, bf16)",
+                fused_train.build_fused_vanilla_train_step(h_cfg),
+                op.build_onepass_vanilla_train_step(h_cfg), g_state,
+                to_device(VanillaBatcher(scene, h_cfg).next_batch(), dev),
+                step_lib.make_draws(h_cfg, g_batch["rgb"].shape[0],
+                                    step_lib.step_generator(0, 0, dev), dev))
+    del g_state
+    torch.cuda.empty_cache()
+
+    # 31. The v2row render of the 6-view scene: #10 for every chunk.
+    cfg = configs.Config(N_samples=64, N_importance=128, white_bkgd=True,
+                         compute_dtype="bfloat16", render_chunk_size=CHUNK,
+                         use_fused_render=True, fused_kernel="v2row")
+    model = make_model(cfg, dev).eval()
+    all_rays = [evaluation.camera_rays_for_view(scene, p, device=dev)
+                for p in scene.poses]
+    stacked = render_lib.stack_rays(all_rays)
+    render = render_lib.build_render_fn(model, cfg)
+    v2.launches = v2.row_launches = 0
+    out = render(stacked)
+    torch.cuda.synchronize()
+    got = {v2.ROW_KERNEL: v2.row_launches, v2.KERNEL: v2.launches}
+    expected = 2 * (-(-stacked.origins[..., 0].numel() // CHUNK))
+    log(f"v2row render of {len(all_rays)} views: launches {got} (expected "
+        f"{expected} of {v2.ROW_KERNEL}, 0 of {v2.KERNEL})")
+    if got != {v2.ROW_KERNEL: expected, v2.KERNEL: 0}:
+        fail(f"the v2row render launched {got}")
+    launches[v2.ROW_KERNEL] += expected
+    plain_out = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(all_rays[0])
+    rgb_diff = (out["rgb"][0] - plain_out["rgb"]).abs().mean().item()
+    log(f"view 0, v2row vs plain render (bf16): mean|rgb diff| "
+        f"{rgb_diff:.3e} (tol {RENDER_RGB_TOL:g})")
+    gate(rgb_diff < RENDER_RGB_TOL, f"the v2row render disagrees with the "
+         f"plain render ({rgb_diff})")
+    ms = time_ms(lambda: render(stacked), 2)
+    log(f"{tag} v2row render {len(all_rays)} views: {ms:.2f} ms, "
+        f"{stacked.origins[..., 0].numel() / ms * 1e3:.1f} rays/s; default "
+        f"(v2) render in this run {render_ms:.2f} ms "
+        f"({100 * (ms / render_ms - 1):+.1f}%)")
+    del model, out, plain_out
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def mip_tv_phases(dev, card, configs, fm, fmip, op):
+    """33-34. The mip two-call step (disp metrics) and the one-pass mip
+    step, both with the RegNeRF TV norm on random-pose rays, through the
+    train CLI, timed and guarded against the eager mip step."""
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher, to_device
+    from consistentnerf_tpu_torch.data.random_poses import \
+        generate_random_poses
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    counted = ((fmip, "launches", fmip.KERNEL),
+               (fmip, "bwd_launches", fmip.BWD_KERNEL),
+               (op, "mip_launches", op.MIP_KERNEL))
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    poses = generate_random_poses(scene.poses[scene.i_train])
+    base_sets = ["dataset_type=synthetic",
+                 f"synthetic_views={SCENE['n_views']}",
+                 f"synthetic_hw={SCENE['H']}",
+                 "synthetic_interleave_test=false", "i_print=1",
+                 f"checkpoint_every={TRAIN_STEPS}"]
+
+    def tv_engaged(stats):
+        tv = np.asarray(stats["patch_tv_losses"])
+        if not (tv.shape == (2,) and np.all(np.isfinite(tv)) and tv[-1] > 0):
+            fail(f"the TV norm did not engage: patch_tv_losses {tv}")
+
+    step_ms = {}
+    for label, kw, expected in (
+            ("mip two-call step (disp metrics, TV)", MIP_TV,
+             {fmip.KERNEL: 4, fmip.BWD_KERNEL: 4, op.MIP_KERNEL: 0}),
+            ("one-pass mip step (TV)", dict(MIP, **REGNERF_TV),
+             {fmip.KERNEL: 4, fmip.BWD_KERNEL: 4, op.MIP_KERNEL: 2})):
+        cli_train_twice(label, base_sets + [
+            f"{k}={v}" for k, v in kw.items() if k != "dataset_type"],
+            dev, counted, expected, check=tv_engaged)
+        cfg = configs.Config(**kw)
+        t_state = loop.init_state(cfg, dev)
+        step_fn = loop.select_train_step(cfg, t_state.model)
+        batcher = MipBatcher(scene, cfg, random_poses=poses)
+        batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+        n = batches[0]["rays"].origins.shape[0]
+        nr = batches[0]["rays_random"].origins.shape[0]
+        step_ms[label] = bench_steps(f"{label} ({n} + {nr} random-pose rays)",
+                                    tag, step_fn, t_state, batches, n + nr)
+        del t_state, batches
+        torch.cuda.empty_cache()
+        # The guard against the eager mip step, randomized=False (a
+        # stochastic level 1 magnifies ~1e-7 differences).
+        g_cfg = cfg.replace(N_rand=GUARD_N_RAND, randomized=False)
+        g_state = loop.init_state(g_cfg, dev)
+        g_batch = to_device(MipBatcher(scene, g_cfg, random_poses=poses)
+                            .next_batch(), dev)
+        guard_steps(f"{label} guard vs eager (N_rand {GUARD_N_RAND}, "
+                    f"{g_batch['rays_random'].origins.shape[0]} random-pose "
+                    "rays, bf16)",
+                    loop.select_train_step(g_cfg, g_state.model),
+                    step_lib.build_mip_train_step(g_state.model, g_cfg),
+                    g_state, g_batch)
+        del g_state
+        torch.cuda.empty_cache()
+    return {"step_ms": step_ms}
 
 
 if __name__ == "__main__":

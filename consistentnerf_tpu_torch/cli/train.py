@@ -42,8 +42,19 @@ def main(argv=None):
     from consistentnerf_tpu_torch.train import loop as loop_lib
 
     scene = load_scene(cfg)
+    random_poses = None
+    if cfg.backbone == "mipnerf" and cfg.load_random_rays:
+        from consistentnerf_tpu_torch.data.random_poses import \
+            generate_random_poses
+
+        random_poses = generate_random_poses(
+            scene.poses[scene.i_train], n_poses=cfg.n_random_poses,
+            pose_type=cfg.random_pose_type, radius=cfg.random_pose_radius,
+            focusptjitter=cfg.random_pose_focusptjitter,
+            add_test_poses=cfg.random_pose_add_test_poses,
+            test_poses=scene.poses[scene.i_test])
     result = loop_lib.train(cfg, scene, num_steps=args.num_steps,
-                            device=args.device)
+                            device=args.device, random_poses=random_poses)
     print(f"done: {result.rays_per_sec:,.0f} rays/sec ({exp_dir})")
     return result
 

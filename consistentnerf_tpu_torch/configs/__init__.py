@@ -4,9 +4,7 @@ that the ported slice reads, with the same names and defaults.
 Configs load from JSON files and accept `key=value` override strings
 (`parse_overrides`). The named scene presets and the reference's
 `.gin` / `.txt` experiment files are not ported yet (ROADMAP Queue 1:
-configs); the RegNeRF regularizer fields (TV norm, random-pose rays,
-near/far annealing) load but raise where they are read (ROADMAP Queue 1:
-mip regularizers).
+configs).
 """
 
 from __future__ import annotations
@@ -47,7 +45,7 @@ class Config:
     n_patches: int = 4
     batch_size_random: int = 2048  # random-pose rays (mip/RegNeRF TV loss)
     random_patch_size: int = 8  # RegNeRF random-patch size
-    load_random_rays: bool = False  # not ported (Queue 1: mip regularizers)
+    load_random_rays: bool = False  # mip: random-pose rays for the TV norm
     precrop_iters: int = 0
     precrop_frac: float = 0.5
     use_batching: bool = False  # vanilla-nerf "use_batching" mode
@@ -67,7 +65,11 @@ class Config:
     # A TPU lane tile of the JAX package, kept so its config files load;
     # the CUDA kernels choose their own tiles and do not read it.
     fused_tile: int = 256
-    fused_kernel: str = "v2"  # only 'v2' is ported
+    # The two-call step's fused MLP (and the fused render's forward):
+    # 'v2' transposed streams (#1/#2), 'v2row' row-major (#10/#11), 'v2h'
+    # the plain forward + #11 (the render: #1); 'v1' / 'hybrid' are not
+    # ported (ROADMAP Queue 2 #12-#14).
+    fused_kernel: str = "v2"
     # One-pass kernel train step (MLP fwd + compositing + loss cotangents
     # + bwd in one launch per level) when use_fused_train is on.
     use_onepass_train: bool = False
@@ -127,9 +129,8 @@ class Config:
     coarse_loss_mult: float = 0.1
     weight_decay_mult: float = 0.0
     disable_multiscale_loss: bool = False
-    # The TV norm on random-pose patches and the near/far annealing are
-    # not ported (ROADMAP Queue 1: mip regularizers); a config that turns
-    # them on raises.
+    # The RegNeRF TV norm on random-pose patches and the near/far
+    # annealing (the regnerf3 settings of the JAX configs/scenes.py).
     depth_tvnorm_loss_mult: float = 0.0
     depth_tvnorm_selector: str = "distance_mean_save"
     depth_tvnorm_decay: bool = False

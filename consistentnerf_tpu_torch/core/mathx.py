@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # 100*pi rounded to fp32, as the reference computes it.
@@ -94,3 +95,32 @@ def weighted_percentile(x: torch.Tensor, w: torch.Tensor, ps,
     q = torch.as_tensor(ps, dtype=x.dtype, device=x.device)[None] * (
         cum_w[:, -1:] / 100)
     return _interp(q, cum_w, x).reshape(*lead, len(ps))
+
+
+def compute_tv_norm(values: torch.Tensor, losstype: str = "l2",
+                    weighting=None) -> torch.Tensor:
+    """Total-variation norm over patch values [P, H, W, ...]: per-pixel
+    horizontal + vertical neighbour differences, L1 or squared, times
+    `weighting` (RegNeRF/internal/math.py:237)."""
+    center = values[:, :-1, :-1]
+    dx = center - values[:, :-1, 1:]
+    dy = center - values[:, 1:, :-1]
+    if losstype == "l2":
+        tv = dx**2 + dy**2
+    elif losstype == "l1":
+        tv = torch.abs(dx) + torch.abs(dy)
+    else:
+        raise ValueError("Not supported losstype.")
+    if weighting is not None:
+        tv = tv * weighting
+    return tv
+
+
+def compute_tvnorm_weight(step, max_step, weight_start=0.0,
+                          weight_end=0.0) -> np.float32:
+    """The TV norm's weight, linear from weight_start to weight_end over
+    max_step steps (RegNeRF/internal/math.py:259), in fp32 as the JAX
+    package computes it."""
+    frac = np.float32(np.clip(step * 1.0 / (1 if max_step < 1 else max_step),
+                              0, 1))
+    return weight_start * (np.float32(1) - frac) + frac * weight_end

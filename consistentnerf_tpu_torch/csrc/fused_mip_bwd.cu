@@ -1,9 +1,11 @@
 // Weight grads of the fused MipMLP for a given output cotangent.
 //
-// Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mip.py::
+// Replaces the Pallas TPU kernels consistentnerf_tpu/ops/fused_mip.py::
 // _bwd_pallas_T, the backward of the differentiable fused MipMLP that the
 // one-pass mip train step runs on its MiDaS patch rays (through the VJP
-// of fused_mip_mlp_train_T). Input: the samples' Gaussian means, diagonal
+// of fused_mip_mlp_train_T), and _bwd_pallas (fused_mip_bwd_row: the same
+// walk on row-major [N, 3] streams and an [N, 4] cotangent, the VJP of
+// fused_mip_mlp_train; mlp_common.cuh's RowMajor layout). Input: the samples' Gaussian means, diagonal
 // covariances and view directions [3, N], the cotangent g of the raw
 // heads [4, N] (rgb logits rows 0..2, density row 3), the packed weights.
 // Output: dW and db in the packed layout, fp32, summed over the N points.
@@ -27,7 +29,7 @@ namespace {
 using mlp::bf16;
 using mlp::Dims;
 
-template <typename T>
+template <typename T, typename L>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     fused_mip_bwd_kernel(const float* means, const float* covs,
                          const float* views, const float* g, const T* w,
@@ -35,19 +37,19 @@ __global__ void __launch_bounds__(mlp::kThreads, 1)
                          size_t part_stride, int n, Dims d) {
   mlp::RayRows rr{};
   rr.seg = 1;
-  mlp::train_block<T, 2, mlp::MipEnc>(means, covs, views, g, rr, w, b, ws,
-                                      part, part_stride, n, d);
+  mlp::train_block<T, 2, mlp::MipEnc, L>(means, covs, views, g, rr, w, b,
+                                         ws, part, part_stride, n, d);
 }
 
-template <typename T>
+template <typename T, typename L>
 int launch(const void* means, const void* covs, const void* views,
            const void* g, const void* w, const void* b, void* ws, void* part,
            void* dw, int n, Dims d, cudaStream_t stream) {
   long long pl[4];
-  int err = mlp::plan<T>(fused_mip_bwd_kernel<T>, 2, n, 1, d, pl);
+  int err = mlp::plan<T>(fused_mip_bwd_kernel<T, L>, 2, n, 1, d, pl);
   if (err) return err;
-  fused_mip_bwd_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
-                            stream>>>(
+  fused_mip_bwd_kernel<T, L><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
+                               stream>>>(
       static_cast<const float*>(means), static_cast<const float*>(covs),
       static_cast<const float*>(views), static_cast<const float*>(g),
       static_cast<const T*>(w), static_cast<const float*>(b),
@@ -61,6 +63,26 @@ int launch(const void* means, const void* covs, const void* views,
   return (int)cudaGetLastError();
 }
 
+template <typename L>
+int plan_of(int n, Dims d, int use_bf16, long long* out) {
+  if (use_bf16)
+    return mlp::plan<bf16>(fused_mip_bwd_kernel<bf16, L>, 2, n, 1, d, out);
+  return mlp::plan<float>(fused_mip_bwd_kernel<float, L>, 2, n, 1, d, out);
+}
+
+template <typename L>
+int run(const void* means, const void* covs, const void* views,
+        const void* g, const void* w, const void* b, void* ws, void* part,
+        void* dw, int n, Dims d, int use_bf16, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    return launch<bf16, L>(means, covs, views, g, w, b, ws, part, dw, n, d,
+                           s);
+  return launch<float, L>(means, covs, views, g, w, b, ws, part, dw, n, d,
+                          s);
+}
+
 }  // namespace
 
 // out[0..3]: blocks, workspace elements per block, partial floats per
@@ -69,10 +91,9 @@ extern "C" int fused_mip_bwd_plan(int n, int depth, int width,
                                   int view_width, int skip_mask,
                                   int num_freqs, int deg_view, int use_bf16,
                                   long long* out) {
-  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  if (use_bf16)
-    return mlp::plan<bf16>(fused_mip_bwd_kernel<bf16>, 2, n, 1, d, out);
-  return mlp::plan<float>(fused_mip_bwd_kernel<float>, 2, n, 1, d, out);
+  return plan_of<mlp::ColMajor>(
+      n, Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, out);
 }
 
 // means, covs, views: [3, n] fp32; g: [4, n] fp32; w: packed weights
@@ -85,10 +106,32 @@ extern "C" int fused_mip_bwd(const void* means, const void* covs,
                              int n, int depth, int width, int view_width,
                              int skip_mask, int num_freqs, int deg_view,
                              int use_bf16, void* stream) {
-  if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return launch<bf16>(means, covs, views, g, w, b, ws, part, dw, n, d, s);
-  return launch<float>(means, covs, views, g, w, b, ws, part, dw, n, d, s);
+  return run<mlp::ColMajor>(
+      means, covs, views, g, w, b, ws, part, dw, n,
+      Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, stream);
+}
+
+// The row-major instance: means, covs, views [n, 3] fp32; g [n, 4] fp32;
+// the rest (and its plan) as fused_mip_bwd.
+extern "C" int fused_mip_bwd_row_plan(int n, int depth, int width,
+                                      int view_width, int skip_mask,
+                                      int num_freqs, int deg_view,
+                                      int use_bf16, long long* out) {
+  return plan_of<mlp::RowMajor>(
+      n, Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, out);
+}
+
+extern "C" int fused_mip_bwd_row(const void* means, const void* covs,
+                                 const void* views, const void* g,
+                                 const void* w, const void* b, void* ws,
+                                 void* part, void* dw, int n, int depth,
+                                 int width, int view_width, int skip_mask,
+                                 int num_freqs, int deg_view, int use_bf16,
+                                 void* stream) {
+  return run<mlp::RowMajor>(
+      means, covs, views, g, w, b, ws, part, dw, n,
+      Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, stream);
 }

@@ -1,8 +1,10 @@
 // Fused MipMLP forward: integrated positional encoding + trunk + heads,
 // one kernel; and its normals variant.
 //
-// Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mip.py::
-// _fwd_pallas_T, both without and with `with_normals`. Input: the
+// Replaces the Pallas TPU kernels consistentnerf_tpu/ops/fused_mip.py::
+// _fwd_pallas_T, both without and with `with_normals`, and _fwd_pallas
+// (fused_mip_fwd_row: the same walk on row-major [N, 3] streams, [N, 4]
+// out, mlp_common.cuh's RowMajor layout). Input: the
 // samples' Gaussian means, diagonal covariances and view directions [3, N]
 // fp32. Output: the raw heads [4, N] fp32 (rgb logits rows 0..2, density
 // logit row 3); sigmoid, rgb padding, softplus, density bias and noise stay
@@ -59,6 +61,24 @@ extern "C" int fused_mip_fwd(const void* means, const void* covs,
                                                    out, n, d, s);
   return mlp::fwd_launch<float, 64, mlp::MipEnc>(means, covs, views, w, b,
                                                  out, n, d, s);
+}
+
+// The row-major instance: means, covs, views [n, 3] fp32; out [n, 4]
+// fp32; the rest as fused_mip_fwd.
+extern "C" int fused_mip_fwd_row(const void* means, const void* covs,
+                                 const void* views, const void* w,
+                                 const void* b, void* out, int n, int depth,
+                                 int width, int view_width, int skip_mask,
+                                 int num_freqs, int deg_view, int use_bf16,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    return mlp::fwd_launch<bf16, 128, mlp::MipEnc, mlp::RowMajor>(
+        means, covs, views, w, b, out, n, d, s);
+  return mlp::fwd_launch<float, 64, mlp::MipEnc, mlp::RowMajor>(
+      means, covs, views, w, b, out, n, d, s);
 }
 
 namespace {

@@ -1,8 +1,10 @@
 // Weight grads of the fused NeRF MLP for a given output cotangent.
 //
-// Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mlp_v2.py::
+// Replaces the Pallas TPU kernels consistentnerf_tpu/ops/fused_mlp_v2.py::
 // _bwd_pallas_T, the backward of the differentiable fused MLP that the
-// one-pass train step runs on its patch rays. Input: points and view
+// one-pass train step runs on its patch rays, and _bwd_pallas
+// (fused_mlp_bwd_row: the same walk on row-major [N, 3] points and views
+// and an [N, 4] cotangent, mlp_common.cuh's RowMajor layout). Input: points and view
 // directions [3, N], the cotangent g of the raw output [4, N] (rgb logits
 // rows 0..2, density row 3), the packed weights. Output: dW and db in the
 // packed layout, fp32, summed over the N points.
@@ -20,26 +22,26 @@ namespace {
 using mlp::bf16;
 using mlp::Dims;
 
-template <typename T>
+template <typename T, typename L>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     fused_mlp_bwd_kernel(const float* pts, const float* views,
                          const float* g, const T* w, const float* b, T* ws,
                          float* part, size_t part_stride, int n, Dims d) {
   mlp::RayRows rr{};
   rr.seg = 1;
-  mlp::train_block<T, 2, mlp::NerfEnc>(pts, nullptr, views, g, rr, w, b,
-                                       ws, part, part_stride, n, d);
+  mlp::train_block<T, 2, mlp::NerfEnc, L>(pts, nullptr, views, g, rr, w, b,
+                                          ws, part, part_stride, n, d);
 }
 
-template <typename T>
+template <typename T, typename L>
 int launch(const void* pts, const void* views, const void* g, const void* w,
            const void* b, void* ws, void* part, void* dw, int n, Dims d,
            cudaStream_t stream) {
   long long pl[4];
-  int err = mlp::plan<T>(fused_mlp_bwd_kernel<T>, 2, n, 1, d, pl);
+  int err = mlp::plan<T>(fused_mlp_bwd_kernel<T, L>, 2, n, 1, d, pl);
   if (err) return err;
-  fused_mlp_bwd_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
-                            stream>>>(
+  fused_mlp_bwd_kernel<T, L><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
+                               stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(views),
       static_cast<const float*>(g), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<T*>(ws),
@@ -53,6 +55,24 @@ int launch(const void* pts, const void* views, const void* g, const void* w,
   return (int)cudaGetLastError();
 }
 
+template <typename L>
+int plan_of(int n, Dims d, int use_bf16, long long* out) {
+  if (use_bf16)
+    return mlp::plan<bf16>(fused_mlp_bwd_kernel<bf16, L>, 2, n, 1, d, out);
+  return mlp::plan<float>(fused_mlp_bwd_kernel<float, L>, 2, n, 1, d, out);
+}
+
+template <typename L>
+int run(const void* pts, const void* views, const void* g, const void* w,
+        const void* b, void* ws, void* part, void* dw, int n, Dims d,
+        int use_bf16, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    return launch<bf16, L>(pts, views, g, w, b, ws, part, dw, n, d, s);
+  return launch<float, L>(pts, views, g, w, b, ws, part, dw, n, d, s);
+}
+
 }  // namespace
 
 // out[0..3]: blocks, workspace elements per block, partial floats per
@@ -60,10 +80,9 @@ int launch(const void* pts, const void* views, const void* g, const void* w,
 extern "C" int fused_mlp_bwd_plan(int n, int depth, int width, int skip_mask,
                                   int multires, int multires_views,
                                   int use_bf16, long long* out) {
-  Dims d(depth, width, skip_mask, multires, multires_views);
-  if (use_bf16)
-    return mlp::plan<bf16>(fused_mlp_bwd_kernel<bf16>, 2, n, 1, d, out);
-  return mlp::plan<float>(fused_mlp_bwd_kernel<float>, 2, n, 1, d, out);
+  return plan_of<mlp::ColMajor>(
+      n, Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      out);
 }
 
 // pts, views: [3, n] fp32; g: [4, n] fp32; w: packed weights (bf16 when
@@ -76,10 +95,31 @@ extern "C" int fused_mlp_bwd(const void* pts, const void* views,
                              int width, int skip_mask, int multires,
                              int multires_views, int use_bf16,
                              void* stream) {
-  if (n <= 0) return 0;
-  Dims d(depth, width, skip_mask, multires, multires_views);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return launch<bf16>(pts, views, g, w, b, ws, part, dw, n, d, s);
-  return launch<float>(pts, views, g, w, b, ws, part, dw, n, d, s);
+  return run<mlp::ColMajor>(
+      pts, views, g, w, b, ws, part, dw, n,
+      Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      stream);
+}
+
+// The row-major instance: pts, views [n, 3] fp32; g [n, 4] fp32; the
+// rest (and its plan) as fused_mlp_bwd.
+extern "C" int fused_mlp_bwd_row_plan(int n, int depth, int width,
+                                      int skip_mask, int multires,
+                                      int multires_views, int use_bf16,
+                                      long long* out) {
+  return plan_of<mlp::RowMajor>(
+      n, Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      out);
+}
+
+extern "C" int fused_mlp_bwd_row(const void* pts, const void* views,
+                                 const void* g, const void* w, const void* b,
+                                 void* ws, void* part, void* dw, int n,
+                                 int depth, int width, int skip_mask,
+                                 int multires, int multires_views,
+                                 int use_bf16, void* stream) {
+  return run<mlp::RowMajor>(
+      pts, views, g, w, b, ws, part, dw, n,
+      Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      stream);
 }

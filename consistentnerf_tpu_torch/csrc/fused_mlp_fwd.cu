@@ -1,7 +1,10 @@
 // Fused NeRF-MLP forward: positional encoding + trunk + heads, one kernel.
 //
-// Replaces the Pallas TPU kernel consistentnerf_tpu/ops/fused_mlp_v2.py::
-// _fwd_pallas_T. Same function as fused_mlp._mlp_body (torch Embedder
+// Replaces the Pallas TPU kernels consistentnerf_tpu/ops/fused_mlp_v2.py::
+// _fwd_pallas_T (fused_mlp_fwd, transposed [3, N] streams) and
+// _fwd_pallas (fused_mlp_fwd_row, row-major [N, 3] streams in, [N, 4] out;
+// the TPU kernel's 128-lane output padding is not carried over): one walk
+// under the two stream layouts of mlp_common.cuh. Same function as fused_mlp._mlp_body (torch Embedder
 // order [x, sin(2^k x), cos(2^k x)]), same rounding points at bf16: PE in
 // fp32 with accurate sinf/cosf then cast to bf16; every product takes bf16
 // operands with fp32 accumulation; fp32 biases; trunk layers ReLU then
@@ -41,4 +44,21 @@ extern "C" int fused_mlp_fwd(const void* pts, const void* views,
                                                     b, out, n, d, s);
   return mlp::fwd_launch<float, 64, mlp::NerfEnc>(pts, nullptr, views, w, b,
                                                   out, n, d, s);
+}
+
+// The row-major instance: pts, views [n, 3] fp32; out [n, 4] fp32 (rgb
+// logits 0..2, density 3 per point); the rest as fused_mlp_fwd.
+extern "C" int fused_mlp_fwd_row(const void* pts, const void* views,
+                                 const void* w, const void* b, void* out,
+                                 int n, int depth, int width, int skip_mask,
+                                 int multires, int multires_views,
+                                 int use_bf16, void* stream) {
+  if (n <= 0) return 0;
+  const Dims d(depth, width, skip_mask, multires, multires_views);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    return mlp::fwd_launch<bf16, 128, mlp::NerfEnc, mlp::RowMajor>(
+        pts, nullptr, views, w, b, out, n, d, s);
+  return mlp::fwd_launch<float, 64, mlp::NerfEnc, mlp::RowMajor>(
+      pts, nullptr, views, w, b, out, n, d, s);
 }

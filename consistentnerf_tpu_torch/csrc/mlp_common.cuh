@@ -16,6 +16,16 @@
 //            encoding [v, sin(v 2^k) (3D), sin(v 2^k + pi/2) (3D)]
 //            (pos_enc with the identity).
 // Both compute each feature in fp32 and then cast it to the compute type.
+//
+// Stream layouts. A walk reads its point streams (and the train walk its
+// cotangent) in one of two layouts, a compile-time policy:
+//   ColMajor  the transposed streams [rows, n]: element (r, p) at r n + p
+//             (the JAX package's *_T kernels; every walk's default);
+//   RowMajor  the row-major streams [n, rows]: element (r, p) at p rows + r
+//             (the JAX _fwd_pallas / _bwd_pallas kernels). A tile's M
+//             points are then 3M contiguous floats per stream: the walk
+//             stages them into shared memory with one coalesced copy
+//             (stage_rows) and encodes from there.
 // The mip sine is core/mathx.py::safe_sin: arguments with |y| >= 100 pi
 // are reduced by the floored remainder (fmodf, then + t where the sign
 // differs, as jnp.remainder does), and the cosine half is sinf of
@@ -99,6 +109,28 @@ struct Dims {
   }
 };
 
+struct ColMajor {
+  static constexpr bool kRow = false;
+  __host__ __device__ static size_t at(int r, size_t p, size_t n, int) {
+    return (size_t)r * n + p;
+  }
+};
+
+struct RowMajor {
+  static constexpr bool kRow = true;
+  __host__ __device__ static size_t at(int r, size_t p, size_t, int rows) {
+    return p * rows + r;
+  }
+};
+
+// Points [base, base + valid) of a row-major [n, rows] stream into dst
+// [valid * rows]: one coalesced copy.
+__device__ inline void stage_rows(const float* __restrict__ x, int rows,
+                                  int base, int valid, float* dst) {
+  const float* src = x + (size_t)base * rows;
+  for (int e = threadIdx.x; e < valid * rows; e += kThreads) dst[e] = src[e];
+}
+
 template <typename T>
 struct Seg {
   const T* buf;
@@ -110,9 +142,10 @@ struct Seg {
 // Encoders
 // ---------------------------------------------------------------------------
 
-// Torch-Embedder PE of points [base, base + M) of x [3, n] into dst [M, ld]
-// (zero past 3(1+2nf) columns and past `valid` points).
-template <typename T, int M>
+// Torch-Embedder PE of points [base, base + M) of the stream x (layout L,
+// 3 rows) into dst [M, ld] (zero past 3(1+2nf) columns and past `valid`
+// points).
+template <typename T, int M, typename L = ColMajor>
 __device__ void encode(const float* __restrict__ x, int n, int base,
                        int valid, int nf, int kpad, T* dst, int ld) {
   const int real = 3 * (1 + 2 * nf);
@@ -121,10 +154,10 @@ __device__ void encode(const float* __restrict__ x, int n, int base,
     float v = 0.f;
     if (c < real && p < valid) {
       if (c < 3) {
-        v = x[(size_t)c * n + g];
+        v = x[L::at(c, g, n, 3)];
       } else {
         const int j = c - 3, f = j / 6, r = j % 6;
-        const float t = x[(size_t)(r % 3) * n + g] * (float)(1 << f);
+        const float t = x[L::at(r % 3, g, n, 3)] * (float)(1 << f);
         v = r < 3 ? sinf(t) : cosf(t);
       }
     }
@@ -146,9 +179,10 @@ __device__ inline float safe_sin(float y) {
   return sinf(y);
 }
 
-// IPE of the Gaussians at points [base, base + M) of means / covs [3, n]
-// into dst [M, ld] (zero past 6 nf columns and past `valid` points).
-template <typename T, int M>
+// IPE of the Gaussians at points [base, base + M) of the means / covs
+// streams (layout L) into dst [M, ld] (zero past 6 nf columns and past
+// `valid` points).
+template <typename T, int M, typename L = ColMajor>
 __device__ void encode_ipe(const float* __restrict__ mean,
                            const float* __restrict__ cov, int n, int base,
                            int valid, int nf, int kpad, T* dst, int ld) {
@@ -158,18 +192,18 @@ __device__ void encode_ipe(const float* __restrict__ mean,
     float v = 0.f;
     if (c < real && p < valid) {
       const int j = c < half ? c : c - half, k = j / 3, r = j % 3;
-      float y = ldexpf(mean[(size_t)r * n + g], k);
+      float y = ldexpf(mean[L::at(r, g, n, 3)], k);
       if (c >= half) y += kHalfPi;
-      const float var = ldexpf(cov[(size_t)r * n + g], 2 * k);
+      const float var = ldexpf(cov[L::at(r, g, n, 3)], 2 * k);
       v = expf(-0.5f * var) * safe_sin(y);
     }
     dst[p * ld + c] = from_f<T>(v);
   }
 }
 
-// The MipMLP's view encoding [v, sin(v 2^k), sin(v 2^k + pi/2)] of view
-// directions [3, n] into dst [M, ld].
-template <typename T, int M>
+// The MipMLP's view encoding [v, sin(v 2^k), sin(v 2^k + pi/2)] of the
+// view-direction stream (layout L) into dst [M, ld].
+template <typename T, int M, typename L = ColMajor>
 __device__ void encode_mip_views(const float* __restrict__ x, int n,
                                  int base, int valid, int nf, int kpad,
                                  T* dst, int ld) {
@@ -179,10 +213,10 @@ __device__ void encode_mip_views(const float* __restrict__ x, int n,
     float v = 0.f;
     if (c < real && p < valid) {
       if (c < 3) {
-        v = x[(size_t)c * n + g];
+        v = x[L::at(c, g, n, 3)];
       } else {
         const int j = c - 3, jj = j < half ? j : j - half;
-        float y = ldexpf(x[(size_t)(jj % 3) * n + g], jj / 3);
+        float y = ldexpf(x[L::at(jj % 3, g, n, 3)], jj / 3);
         if (j >= half) y += kHalfPi;
         v = safe_sin(y);
       }
@@ -202,35 +236,60 @@ __device__ inline float safe_cos(float y) {
 }
 
 // Encoder policies: points(pts, covs, ...) and views(views, ...) encode
-// the tile [base, base + M) into shared memory.
+// the tile [base, base + M) of streams in layout L into shared memory.
 struct NerfEnc {
-  template <typename T, int M>
+  template <typename T, int M, typename L = ColMajor>
   __device__ static void points(const float* x, const float*, int n,
                                 int base, int valid, const Dims& d, T* dst,
                                 int ld) {
-    encode<T, M>(x, n, base, valid, d.multires, d.P, dst, ld);
+    encode<T, M, L>(x, n, base, valid, d.multires, d.P, dst, ld);
   }
-  template <typename T, int M>
+  template <typename T, int M, typename L = ColMajor>
   __device__ static void views(const float* x, int n, int base, int valid,
                                const Dims& d, T* dst, int ld) {
-    encode<T, M>(x, n, base, valid, d.multires_views, d.V, dst, ld);
+    encode<T, M, L>(x, n, base, valid, d.multires_views, d.V, dst, ld);
   }
 };
 
 struct MipEnc {
-  template <typename T, int M>
+  template <typename T, int M, typename L = ColMajor>
   __device__ static void points(const float* mean, const float* cov, int n,
                                 int base, int valid, const Dims& d, T* dst,
                                 int ld) {
-    encode_ipe<T, M>(mean, cov, n, base, valid, d.multires, d.P, dst, ld);
+    encode_ipe<T, M, L>(mean, cov, n, base, valid, d.multires, d.P, dst,
+                        ld);
   }
-  template <typename T, int M>
+  template <typename T, int M, typename L = ColMajor>
   __device__ static void views(const float* x, int n, int base, int valid,
                                const Dims& d, T* dst, int ld) {
-    encode_mip_views<T, M>(x, n, base, valid, d.multires_views, d.V, dst,
-                           ld);
+    encode_mip_views<T, M, L>(x, n, base, valid, d.multires_views, d.V, dst,
+                              ld);
   }
 };
+
+// Encode the tile [base, base + valid) of the streams into pe / ve. In
+// the row-major layout the tile's points are first staged into `st`
+// (9 M floats of free shared memory) and encoded from there; the
+// transposed streams are read in place. The caller syncs before reading
+// pe / ve.
+template <typename T, int M, typename Enc, typename L>
+__device__ void encode_tile(const float* pts, const float* covs,
+                            const float* views, int n, int base, int valid,
+                            const Dims& d, T* pe, int ldp, T* ve, int ldv,
+                            float* st) {
+  if constexpr (L::kRow) {
+    stage_rows(pts, 3, base, valid, st);
+    if (covs) stage_rows(covs, 3, base, valid, st + 3 * M);
+    stage_rows(views, 3, base, valid, st + 6 * M);
+    __syncthreads();
+    Enc::template points<T, M, RowMajor>(st, st + 3 * M, M, 0, valid, d, pe,
+                                         ldp);
+    Enc::template views<T, M, RowMajor>(st + 6 * M, M, 0, valid, d, ve, ldv);
+  } else {
+    Enc::template points<T, M>(pts, covs, n, base, valid, d, pe, ldp);
+    Enc::template views<T, M>(views, n, base, valid, d, ve, ldv);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Layer product

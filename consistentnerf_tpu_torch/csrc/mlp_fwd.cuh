@@ -39,12 +39,12 @@
 
 namespace mlp {
 
-// The forward of one tile of M points [base, base + valid) of the [3, n]
-// streams: the raw heads of point p go to out[c * ld + off + p] (c = rgb
-// 0..2, density 3). `smem` is the block's dynamic shared memory
-// (fwd_smem_bytes); the tile ends with a barrier, so a block may run
-// tiles back to back.
-template <typename T, int M, typename Enc>
+// The forward of one tile of M points [base, base + valid) of the streams
+// (layout L: [3, n] or [n, 3]): the raw heads of point p go to
+// out[L::at(c, off + p, ld, 4)] (c = rgb 0..2, density 3). `smem` is the
+// block's dynamic shared memory (fwd_smem_bytes); the tile ends with a
+// barrier, so a block may run tiles back to back.
+template <typename T, int M, typename Enc, typename L = ColMajor>
 __device__ void fwd_tile(const float* __restrict__ pts,
                          const float* __restrict__ covs,
                          const float* __restrict__ views,
@@ -61,8 +61,9 @@ __device__ void fwd_tile(const float* __restrict__ pts,
   float* stage = reinterpret_cast<float*>(hy + M * ldh) +
                  (threadIdx.x / 32) * 256;
 
-  Enc::template points<T, M>(pts, covs, n, base, valid, d, pe, ldp);
-  Enc::template views<T, M>(views, n, base, valid, d, ve, ldv);
+  // The row-major tile is staged in the (still free) epilogue stage.
+  encode_tile<T, M, Enc, L>(pts, covs, views, n, base, valid, d, pe, ldp,
+                            ve, ldv, reinterpret_cast<float*>(hy + M * ldh));
   __syncthreads();
 
   const T* w = wflat;
@@ -101,7 +102,7 @@ __device__ void fwd_tile(const float* __restrict__ pts,
     float s = 0.f;
     for (int c = 0; c < width; ++c)
       s = fmaf(to_f(h[p * ldh + c]), to_f(wa[c]), s);
-    out[3 * ld + off + p] = s + ba[0];
+    out[L::at(3, off + p, ld, 4)] = s + ba[0];
   }
   T* feat = (h == hx) ? hy : hx;
   layer<M>(Seg<T>{h, ldh, width}, Seg<T>{nullptr, 0, 0}, wf, width, bfe,
@@ -116,13 +117,13 @@ __device__ void fwd_tile(const float* __restrict__ pts,
       float s = 0.f;
       for (int k = 0; k < half; ++k)
         s = fmaf(to_f(h[p * ldh + k]), to_f(wr[c * half + k]), s);
-      out[c * ld + off + p] = s + br[c];
+      out[L::at(c, off + p, ld, 4)] = s + br[c];
     }
   }
   __syncthreads();
 }
 
-template <typename T, int M, typename Enc>
+template <typename T, int M, typename Enc, typename L>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const float* __restrict__ pts, const float* __restrict__ covs,
                const float* __restrict__ views, const T* __restrict__ wflat,
@@ -130,9 +131,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                int n, Dims d) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int base = blockIdx.x * M;
-  fwd_tile<T, M, Enc>(pts, covs, views, wflat, bflat, n, base,
-                      min(M, n - base), d, smem, out, (size_t)n,
-                      (size_t)base);
+  fwd_tile<T, M, Enc, L>(pts, covs, views, wflat, bflat, n, base,
+                         min(M, n - base), d, smem, out, (size_t)n,
+                         (size_t)base);
 }
 
 // Dynamic shared memory of one forward block, in bytes.
@@ -143,17 +144,17 @@ __host__ __device__ size_t fwd_smem_bytes(const Dims& d) {
   return elems * sizeof(T) + kWarps * 256 * sizeof(float);
 }
 
-template <typename T, int M, typename Enc>
+template <typename T, int M, typename Enc, typename L = ColMajor>
 int fwd_launch(const void* pts, const void* covs, const void* views,
                const void* w, const void* b, void* out, int n, Dims d,
                cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<T, M>(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, M, Enc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<T, M, Enc, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n + M - 1) / M;
-  fwd_kernel<T, M, Enc><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, M, Enc, L><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(covs),
       static_cast<const float*>(views), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<float*>(out), n, d);

@@ -456,8 +456,9 @@ __device__ inline void mip_composite(const RayRows& rr, int c, int cpts, int row
 // cotangent. modes 3 (vanilla) and 4 (mip): compositing and the loss
 // cotangent make it. mode 5: the raw heads and the density's gradient by
 // the means go to rr.out [7, n]; no dW (part_all may be null). `covs` is
-// read by the mip encoder only.
-template <typename T, int MODE, typename Enc>
+// read by the mip encoder only. L: the layout of the point streams and of
+// g (mlp_common.cuh); the row-major layout serves mode 2 only.
+template <typename T, int MODE, typename Enc, typename L = ColMajor>
 __device__ void train_block(const float* __restrict__ pts,
                             const float* __restrict__ covs,
                             const float* __restrict__ views,
@@ -467,6 +468,7 @@ __device__ void train_block(const float* __restrict__ pts,
                             float* part_all, size_t part_stride, int n,
                             Dims d) {
   constexpr int M = SubTile<T>::M;
+  static_assert(!L::kRow || MODE == 2, "row-major streams: mode 2 only");
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = d.width, H = d.half, P = d.P, V = d.V;
   const int cpts = chunk_points(MODE, rr.seg);
@@ -508,9 +510,8 @@ __device__ void train_block(const float* __restrict__ pts,
     // ---- forward over sub-tiles, saving every activation ----
     for (int r0 = 0; r0 < rows; r0 += M) {
       const int sub_valid = max(0, min(M, valid - r0));
-      Enc::template points<T, M>(pts, covs, n, base + r0, sub_valid, d, pe,
-                                 ldp);
-      Enc::template views<T, M>(views, n, base + r0, sub_valid, d, ve, ldv);
+      encode_tile<T, M, Enc, L>(pts, covs, views, n, base + r0, sub_valid,
+                                d, pe, ldp, ve, ldv, stage_all);
       __syncthreads();
       save_tile<T, M>(pe, ldp, P, ws.pe, r0);
       save_tile<T, M>(ve, ldv, V, ws.ve, r0);
@@ -679,12 +680,15 @@ __device__ void train_block(const float* __restrict__ pts,
     // ---- backward over sub-tiles ----
     for (int r0 = 0; r0 < rows; r0 += M) {
       for (int e = threadIdx.x; e < 4 * M; e += kThreads) {
-        const int k = e / M, p = e % M, g = base + r0 + p;
+        // Row-major: the sub-tile's 4M cotangents are contiguous; read
+        // them point-major, one coalesced copy.
+        const int k = L::kRow ? e % 4 : e / M, p = L::kRow ? e / 4 : e % M;
+        const int g = base + r0 + p;
         float v;
         if (MODE >= 3) {
           v = craw[k * rows + r0 + p];
         } else {
-          v = (r0 + p < valid) ? gin[(size_t)k * n + g] : 0.f;
+          v = (r0 + p < valid) ? gin[L::at(k, g, n, 4)] : 0.f;
         }
         graw[k * M + p] = v;
         ws.graw[(size_t)(r0 + p) * 4 + k] = from_f<T>(v);

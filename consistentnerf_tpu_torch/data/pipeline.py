@@ -7,12 +7,12 @@ Reproduces the reference's batch composition:
   (`run_nerf_view.py:1221-1253`);
 * mip batching modes `single_image_patch` / `single_image` / `all_images`
   (`RegNeRF/internal/datasets.py:600-680`), with a `Rays` bundle under
-  "rays".
+  "rays", the random-pose patch rays of the TV norm under "rays_random"
+  (`load_random_rays`) and the near/far annealing (`anneal_nearfar`).
 All draw from `np.random.RandomState(cfg.seed)` in the JAX package's
 order, so a seed gives the same batches. Batches are numpy dicts; the
 trainer moves them to the device. The threaded `Prefetcher` (ROADMAP
-Queue 1: train loop) and the mip random-pose rays and near/far annealing
-(ROADMAP Queue 1: mip regularizers) wait.
+Queue 1: train loop) waits.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from consistentnerf_tpu_torch.core import rays as rays_core
 from consistentnerf_tpu_torch.core.rays import Rays
+from consistentnerf_tpu_torch.data import random_poses as rp
 from consistentnerf_tpu_torch.data.scene import SceneData
 
 
@@ -211,17 +212,12 @@ class MipBatcher:
     """Rays-bundle batches of the mip trainer (pipeline.py:228-395):
     `single_image_patch` = 4x16x16 patches + N_rand rays random from the
     same image; `single_image` = all rays random from one image;
-    `all_images` = every ray from a random (view, pixel)."""
+    `all_images` = every ray from a random (view, pixel). With
+    `random_poses` [P, 3, 4] and `load_random_rays` every batch carries
+    random-pose patch rays under "rays_random"."""
 
-    def __init__(self, scene: SceneData, cfg, seed: Optional[int] = None):
-        if cfg.load_random_rays:
-            raise NotImplementedError(
-                "random-pose patch rays (load_random_rays) are not ported "
-                "yet (ROADMAP Queue 1: mip regularizers)")
-        if cfg.anneal_nearfar:
-            raise NotImplementedError(
-                "anneal_nearfar is not ported yet (ROADMAP Queue 1: mip "
-                "regularizers)")
+    def __init__(self, scene: SceneData, cfg, seed: Optional[int] = None,
+                 random_poses: Optional[np.ndarray] = None):
         scene.ensure_priors()
         self.scene = scene
         self.cfg = cfg
@@ -232,6 +228,8 @@ class MipBatcher:
             np.sum((self.dirs[:, :, :-1] - self.dirs[:, :, 1:]) ** 2, -1))
         dx = np.concatenate([dx, dx[:, :, -2:-1]], 2)
         self.radii = (dx * 2 / np.sqrt(12))[..., None].astype(np.float32)
+        self.random_poses = random_poses
+        self._pixdirs = None  # [H, W, 3] camera-frame directions
 
     def _rays_at(self, img, r, c) -> Rays:
         s = self.scene
@@ -245,6 +243,39 @@ class MipBatcher:
             near=ones * s.near,
             far=ones * s.far,
         )
+
+    def _random_pose_patch_rays(self) -> Rays:
+        """batch_size_random // ps^2 patches of ps x ps rays, each from a
+        random pose and window (pipeline.py:266-312): per patch a pose
+        index, then the window's row and column, from the batcher's
+        RandomState."""
+        cfg, s = self.cfg, self.scene
+        ps = cfg.random_patch_size
+        n_patches = max(1, cfg.batch_size_random // (ps * ps))
+        if self._pixdirs is None:
+            self._pixdirs = rays_core.pixel_dirs(s.H, s.W, s.K,
+                                                 device="cpu").numpy()
+        origins, dirs, view, radii = [], [], [], []
+        for _ in range(n_patches):
+            pose = np.asarray(self.random_poses[self.rng.randint(
+                0, self.random_poses.shape[0])])[:3, :4]
+            r0 = self.rng.randint(0, s.H - ps + 1)
+            c0 = self.rng.randint(0, s.W - ps + 1)
+            dc = self._pixdirs[r0:r0 + ps, c0:c0 + ps].reshape(-1, 3)
+            dp = dc @ pose[:3, :3].T
+            origins.append(np.broadcast_to(pose[:3, 3], dp.shape)
+                           .astype(np.float32))
+            dirs.append(dp.astype(np.float32))
+            view.append(dp / np.linalg.norm(dp, axis=-1, keepdims=True))
+            radii.append(np.full((ps * ps, 1),
+                                 1.0 / s.focal * 2 / np.sqrt(12),
+                                 np.float32))
+        ones = np.ones((n_patches * ps * ps, 1), np.float32)
+        return Rays(origins=np.concatenate(origins, 0).astype(np.float32),
+                    directions=np.concatenate(dirs, 0).astype(np.float32),
+                    viewdirs=np.concatenate(view, 0).astype(np.float32),
+                    radii=np.concatenate(radii, 0), lossmult=ones,
+                    near=ones * s.near, far=ones * s.far)
 
     def next_batch(self) -> Dict[str, object]:
         cfg, s = self.cfg, self.scene
@@ -287,6 +318,16 @@ class MipBatcher:
             "mono_dpts": s.mono_disp[img, r, c].astype(np.float32),
             "bounds": np.array([s.near, s.far], np.float32),
         }
+        if self.random_poses is not None and cfg.load_random_rays:
+            batch["rays_random"] = self._random_pose_patch_rays()
+        if cfg.anneal_nearfar:
+            near_i, far_i = rp.anneal_nearfar_values(
+                self.step, s.near, s.far, cfg.anneal_nearfar_steps,
+                cfg.anneal_nearfar_perc, cfg.anneal_mid_perc)
+            for k in list(batch):
+                if k.startswith("rays"):
+                    batch[k] = rp.with_annealed_nearfar(
+                        batch[k], near_i, far_i)
         self.step += 1
         return batch
 

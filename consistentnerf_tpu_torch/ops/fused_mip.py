@@ -31,12 +31,19 @@ compute the IPE per feature (fp32 floor-mod range reduction of
 The flat weight list (`flatten_mip_params`) is in torch layout ([out, in]
 weights), in the JAX package's Dense_0..Dense_{D+3} order: the trunk,
 the density head, the bottleneck, the view layer, the rgb head.
+
+The row-major family takes [N, 3] means, covs and views and gives
+[N, 4]: `fwd` is the port of `_fwd_pallas` (kernel #15,
+`fused_mip_fwd_row` in `csrc/fused_mip_fwd.cu`) and `bwd` of
+`_bwd_pallas` (kernel #16, `fused_mip_bwd_row` in
+`csrc/fused_mip_bwd.cu`), #6's and #7's walks under the kernels'
+row-major stream layout, with the plain versions `plain_fwd_row` /
+`plain_bwd_row`; `fused_mip_mlp_train` is their differentiable op.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Sequence, Union
 
 import torch
@@ -44,17 +51,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from consistentnerf_tpu_torch.core import encoding
-from consistentnerf_tpu_torch.ops import _build
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
 KERNEL = "fused_mip_fwd"
 BWD_KERNEL = "fused_mip_bwd"
 NORMALS_KERNEL = "fused_mip_fwd_normals"  # a kernel of fused_mip_fwd.cu
+ROW_KERNEL = "fused_mip_fwd_row"  # a kernel of fused_mip_fwd.cu
+ROW_BWD_KERNEL = "fused_mip_bwd_row"  # a kernel of fused_mip_bwd.cu
 # Kernel launches since import (or since the caller last reset them).
 launches = 0
 bwd_launches = 0
 normals_launches = 0
+row_launches = 0
+row_bwd_launches = 0
 
 SKIP_LAYER = 4  # MipMLP.skip_layer
 DEG_VIEW = 4  # MipMLP.deg_view
@@ -186,12 +196,10 @@ def plain_fwd_T(weights, means_T, covs_T, views_T, net_depth, num_freqs,
     return out.T.contiguous()
 
 
-def _check_inputs(packed, dev, n, **streams):
+def _check_inputs(packed, dev, n, row=False, **streams):
     for name, t in streams.items():
-        v2._check_stream(name, t, 3, n, dev)
-    for t in (packed.w, packed.b):
-        if t.device != dev:
-            raise ValueError("packed weights are not on the points' device")
+        v2._check_stream(name, t, 3, n, dev, row=row)
+    v2._check_weights(packed, dev)
 
 
 def _cfg_args(packed: v2.PackedMLP):
@@ -203,13 +211,40 @@ def _cfg_args(packed: v2.PackedMLP):
             int(packed.compute_dtype == torch.bfloat16))
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load(KERNEL).fused_mip_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
+         compute_dtype, deg_view) -> torch.Tensor:
+    """`fwd_T` (transposed streams, kernel #6) or, with `row`, `fwd`
+    (row-major streams, kernel #15)."""
+    cd = fm.as_dtype(compute_dtype)
+    if means.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+        plain = plain_fwd_row if row else plain_fwd_T
+        return plain(weights, means, covs, views, net_depth, num_freqs, cd,
+                     deg_view)
+    if means.device.type != "cuda":
+        raise ValueError(f"no fused forward for device {means.device}")
+    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    n, dev = means.shape[0 if row else 1], means.device
+    _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
+                  views=views)
+    out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    symbol = ROW_KERNEL if row else KERNEL
+    err = v2._entry(KERNEL, symbol, 6, 8)(
+        means.data_ptr(), covs.data_ptr(), views.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(), n,
+        *_cfg_args(packed), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    global launches, row_launches
+    if row:
+        row_launches += 1
+    else:
+        launches += 1
+    return out
 
 
 def fwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
@@ -220,30 +255,8 @@ def fwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
     `weights`: the flat torch-layout list or a packed MipMLP (`pack`).
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    cd = fm.as_dtype(compute_dtype)
-    if means_T.device.type == "cpu":
-        if isinstance(weights, v2.PackedMLP):
-            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
-        return plain_fwd_T(weights, means_T, covs_T, views_T, net_depth,
-                           num_freqs, cd, deg_view)
-    if means_T.device.type != "cuda":
-        raise ValueError(f"no fused forward for device {means_T.device}")
-    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
-    n, dev = means_T.shape[1], means_T.device
-    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
-                  views_T=views_T)
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    err = _kernel()(
-        means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(), n,
-        *_cfg_args(packed), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
-    return out
+    return _fwd(False, weights, means_T, covs_T, views_T, net_depth,
+                num_freqs, compute_dtype, deg_view)
 
 
 def plain_fwd_normals_T(weights, means_T, covs_T, views_T, net_depth,
@@ -275,19 +288,6 @@ def plain_fwd_normals_T(weights, means_T, covs_T, views_T, net_depth,
     return torch.cat([raw.detach(), dmeans], 1).T.contiguous()
 
 
-@functools.cache
-def _normals_kernel():
-    lib = _build.load(KERNEL)
-    plan = lib.fused_mip_fwd_normals_plan
-    plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    plan.restype = ctypes.c_int
-    fn = lib.fused_mip_fwd_normals
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return plan, fn
-
-
 def fused_mip_mlp_normals_T(weights, means_T: torch.Tensor,
                             covs_T: torch.Tensor, views_T: torch.Tensor,
                             net_depth: int, num_freqs: int, compute_dtype,
@@ -312,18 +312,19 @@ def fused_mip_mlp_normals_T(weights, means_T: torch.Tensor,
     out = torch.empty((7, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    plan, fn = _normals_kernel()
     cfg_args = _cfg_args(packed)
     pl = (ctypes.c_longlong * 4)()
-    err = plan(n, *cfg_args, pl)
+    err = v2._entry(KERNEL, NORMALS_KERNEL + "_plan", 0, 8)(n, *cfg_args,
+                                                           pl)
     if err != 0:
         raise RuntimeError(f"{NORMALS_KERNEL} plan failed: cudaError_t "
                            f"{err}")
     ws = torch.empty(pl[0] * pl[1], dtype=cd, device=dev)
-    err = fn(means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
-             packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
-             out.data_ptr(), n, *cfg_args,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = v2._entry(KERNEL, NORMALS_KERNEL, 7, 8)(
+        means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), n, *cfg_args,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{NORMALS_KERNEL} launch failed: cudaError_t "
                            f"{err}")
@@ -351,17 +352,46 @@ def plain_bwd_T(weights, means_T, covs_T, views_T, g_T, net_depth,
     return list(grads)
 
 
-@functools.cache
-def _bwd_kernel():
-    lib = _build.load(BWD_KERNEL)
-    plan = lib.fused_mip_bwd_plan
-    plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    plan.restype = ctypes.c_int
-    fn = lib.fused_mip_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return plan, fn
+def _bwd(row: bool, weights, means, covs, views, g, net_depth, num_freqs,
+         compute_dtype, deg_view) -> List[torch.Tensor]:
+    """`bwd_T` (transposed streams, kernel #7) or, with `row`, `bwd`
+    (row-major streams, kernel #16)."""
+    cd = fm.as_dtype(compute_dtype)
+    if means.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+        plain = plain_bwd_row if row else plain_bwd_T
+        return plain(weights, means, covs, views, g, net_depth, num_freqs,
+                     cd, deg_view)
+    if means.device.type != "cuda":
+        raise ValueError(f"no fused backward for device {means.device}")
+    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    n, dev = means.shape[0 if row else 1], means.device
+    _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
+                  views=views)
+    v2._check_stream("g", g, 4, n, dev, row)
+    n_w, n_b = v2.grad_numel(packed)
+    if n == 0:
+        zeros = torch.zeros(n_w + n_b, device=dev)
+        return v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
+    cfg_args = _cfg_args(packed)
+    symbol = ROW_BWD_KERNEL if row else BWD_KERNEL
+    ws, part, dw = v2.train_buffers(
+        v2._entry(BWD_KERNEL, symbol + "_plan", 0, 8), (n, *cfg_args),
+        packed, dev)
+    err = v2._entry(BWD_KERNEL, symbol, 9, 8)(
+        means.data_ptr(), covs.data_ptr(), views.data_ptr(), g.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
+        part.data_ptr(), dw.data_ptr(), n, *cfg_args,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    global bwd_launches, row_bwd_launches
+    if row:
+        row_bwd_launches += 1
+    else:
+        bwd_launches += 1
+    return v2.unpack_grads(packed, dw[:n_w], dw[n_w:])
 
 
 def bwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
@@ -372,58 +402,39 @@ def bwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,
     #7): the torch-layout list (fp32). CPU tensors take the plain
     version; CUDA tensors launch the kernel (and its dW reduction) or
     raise."""
-    cd = fm.as_dtype(compute_dtype)
-    if means_T.device.type == "cpu":
-        if isinstance(weights, v2.PackedMLP):
-            _packed_for(weights, net_depth, num_freqs, deg_view, cd)
-        return plain_bwd_T(weights, means_T, covs_T, views_T, g_T,
-                           net_depth, num_freqs, cd, deg_view)
-    if means_T.device.type != "cuda":
-        raise ValueError(f"no fused backward for device {means_T.device}")
-    packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
-    n, dev = means_T.shape[1], means_T.device
-    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
-                  views_T=views_T)
-    v2._check_stream("g_T", g_T, 4, n, dev)
-    n_w, n_b = v2.grad_numel(packed)
-    if n == 0:
-        zeros = torch.zeros(n_w + n_b, device=dev)
-        return v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
-    plan, fn = _bwd_kernel()
-    cfg_args = _cfg_args(packed)
-    ws, part, dw = v2.train_buffers(plan, (n, *cfg_args), packed, dev)
-    err = fn(means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
-             g_T.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
-             ws.data_ptr(), part.data_ptr(), dw.data_ptr(), n, *cfg_args,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
-    global bwd_launches
-    bwd_launches += 1
-    return v2.unpack_grads(packed, dw[:n_w], dw[n_w:])
+    return _bwd(False, weights, means_T, covs_T, views_T, g_T, net_depth,
+                num_freqs, compute_dtype, deg_view)
 
 
-class _FusedMipTrainT(torch.autograd.Function):
-    """raw_T = MipMLP(means_T, covs_T, views_T); grads for the weights
-    only (the samples are stop-gradient'ed or parameter-independent in
-    both levels, models/mipnerf.py:82-93)."""
+class _FusedMipTrain(torch.autograd.Function):
+    """raw = MipMLP(means, covs, views); grads for the weights only (the
+    samples are stop-gradient'ed or parameter-independent in both levels,
+    models/mipnerf.py:82-93). `row`: row-major streams (#15, #16), whose
+    op gives the inputs zero grads as the JAX op's VJP does
+    (fused_mip.py:826-835); else transposed streams (#6, #7)."""
 
     @staticmethod
-    def forward(ctx, config, packed, means_T, covs_T, views_T, *weights):
-        net_depth, num_freqs, deg_view, cd = config
+    def forward(ctx, config, packed, row, means, covs, views, *weights):
         src = packed if packed is not None else list(weights)
-        ctx.config, ctx.src = config, src
-        ctx.save_for_backward(means_T, covs_T, views_T)
-        return fwd_T(src, means_T, covs_T, views_T, net_depth, num_freqs,
-                     cd, deg_view)
+        ctx.config, ctx.src, ctx.row = config, src, row
+        ctx.save_for_backward(means, covs, views)
+        return _fwd(row, src, means, covs, views, *config)
 
     @staticmethod
-    def backward(ctx, g_T):
-        net_depth, num_freqs, deg_view, cd = ctx.config
-        means_T, covs_T, views_T = ctx.saved_tensors
-        grads = bwd_T(ctx.src, means_T, covs_T, views_T, g_T.contiguous(),
-                      net_depth, num_freqs, cd, deg_view)
-        return (None, None, None, None, None, *grads)
+    def backward(ctx, g):
+        means, covs, views = ctx.saved_tensors
+        grads = _bwd(ctx.row, ctx.src, means, covs, views, g.contiguous(),
+                     *ctx.config)
+        ins = ([torch.zeros_like(x) for x in (means, covs, views)]
+               if ctx.row else [None] * 3)
+        return (None, None, None, *ins, *grads)
+
+
+def _train_op(row, weights, means, covs, views, net_depth, num_freqs,
+              compute_dtype, deg_view, packed):
+    config = (net_depth, num_freqs, fm.as_dtype(compute_dtype), deg_view)
+    return _FusedMipTrain.apply(config, packed, row, means, covs, views,
+                                *weights)
 
 
 def fused_mip_mlp_train_T(weights: Sequence[torch.Tensor], means_T, covs_T,
@@ -434,6 +445,61 @@ def fused_mip_mlp_train_T(weights: Sequence[torch.Tensor], means_T, covs_T,
     [3, N] -> raw [4, N]; the weight grads come from `bwd_T`. `weights`
     is the torch-layout parameter list that receives the grads; `packed`
     (the same weights packed, for a CUDA caller) is optional."""
-    config = (net_depth, num_freqs, deg_view, fm.as_dtype(compute_dtype))
-    return _FusedMipTrainT.apply(config, packed, means_T, covs_T, views_T,
-                                 *weights)
+    return _train_op(False, weights, means_T, covs_T, views_T, net_depth,
+                     num_freqs, compute_dtype, deg_view, packed)
+
+
+# ---------------------------------------------------------------------------
+# The row-major family (kernels #15 and #16) and its differentiable op
+# ---------------------------------------------------------------------------
+
+
+def plain_fwd_row(weights, means, covs, views, net_depth, num_freqs,
+                  compute_dtype, deg_view=DEG_VIEW) -> torch.Tensor:
+    """The plain version of `fwd` on any device: [N, 3] streams -> raw
+    heads [N, 4] (no kernel)."""
+    return _mip_body(means, covs, views, _flat(weights), net_depth=net_depth,
+                     num_freqs=num_freqs, deg_view=deg_view,
+                     compute_dtype=compute_dtype)
+
+
+def plain_bwd_row(weights, means, covs, views, g, net_depth, num_freqs,
+                  compute_dtype, deg_view=DEG_VIEW) -> List[torch.Tensor]:
+    """The plain version of `bwd` on any device: autograd through
+    `_mip_body` for the cotangent g [N, 4] (torch-layout grads)."""
+    return plain_bwd_T(weights, means.T, covs.T, views.T, g.T, net_depth,
+                       num_freqs, compute_dtype, deg_view)
+
+
+def fwd(weights, means: torch.Tensor, covs: torch.Tensor,
+        views: torch.Tensor, net_depth: int, num_freqs: int, compute_dtype,
+        deg_view: int = DEG_VIEW) -> torch.Tensor:
+    """means/covs/views [N, 3] -> raw heads [N, 4] (kernel #15).
+    `weights`: the flat torch-layout list or a packed MipMLP (`pack`). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    return _fwd(True, weights, means, covs, views, net_depth, num_freqs,
+                compute_dtype, deg_view)
+
+
+def bwd(weights, means: torch.Tensor, covs: torch.Tensor,
+        views: torch.Tensor, g: torch.Tensor, net_depth: int,
+        num_freqs: int, compute_dtype,
+        deg_view: int = DEG_VIEW) -> List[torch.Tensor]:
+    """Weight grads of `fwd` for the raw cotangent g [N, 4] (kernel #16):
+    the torch-layout list (fp32). CPU tensors take the plain version;
+    CUDA tensors launch the kernel (and its dW reduction) or raise."""
+    return _bwd(True, weights, means, covs, views, g, net_depth, num_freqs,
+                compute_dtype, deg_view)
+
+
+def fused_mip_mlp_train(weights: Sequence[torch.Tensor], means, covs,
+                        views, net_depth: int, num_freqs: int,
+                        compute_dtype, deg_view: int = DEG_VIEW,
+                        packed: v2.PackedMLP = None) -> torch.Tensor:
+    """Differentiable fused MipMLP on row-major streams: means/covs/views
+    [N, 3] -> raw heads [N, 4]; forward #15, weight grads from #16 and
+    zero input grads. `weights` is the torch-layout parameter list that
+    receives the grads; `packed` is optional."""
+    return _train_op(True, weights, means, covs, views, net_depth,
+                     num_freqs, compute_dtype, deg_view, packed)

@@ -30,6 +30,17 @@ plain version `plain_bwd_T` (autograd through `_mlp_body`).
 with its rounding, and `unpack_grads` maps the packed grads to the torch
 layout. `fused_mlp_v2_train_T` is the differentiable op: forward `fwd_T`,
 backward `bwd_T`.
+
+The row-major family takes [N, 3] points and views and gives [N, 4]:
+`fwd` is the port of `_fwd_pallas` (kernel #10, `fused_mlp_fwd_row` in
+`csrc/fused_mlp_fwd.cu`; the TPU kernel's 128-lane output padding is not
+carried over) and `bwd` of `_bwd_pallas` (kernel #11,
+`fused_mlp_bwd_row` in `csrc/fused_mlp_bwd.cu`): the same walks as #1 and
+#2 under the kernels' row-major stream layout, with the plain versions
+`plain_fwd_row` / `plain_bwd_row`. `fused_mlp_v2_train` is their
+differentiable op, `hybrid_mlp_v2_train` the same op with the plain
+forward (the JAX package runs that forward outside any kernel, as XLA
+matmuls) and backward #11, and `fused_mlp_v2` the forward from a NeRFMLP.
 """
 
 from __future__ import annotations
@@ -47,9 +58,13 @@ from consistentnerf_tpu_torch.ops import fused_mlp as fm
 
 KERNEL = "fused_mlp_fwd"
 BWD_KERNEL = "fused_mlp_bwd"
+ROW_KERNEL = "fused_mlp_fwd_row"  # a kernel of fused_mlp_fwd.cu
+ROW_BWD_KERNEL = "fused_mlp_bwd_row"  # a kernel of fused_mlp_bwd.cu
 # Kernel launches since import (or since the caller last reset them).
 launches = 0
 bwd_launches = 0
+row_launches = 0
+row_bwd_launches = 0
 
 
 @dataclasses.dataclass
@@ -230,12 +245,64 @@ def plain_fwd_T(weights, pts_T, views_T, net_depth, skips, multires,
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load(KERNEL).fused_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+def _entry(lib: str, symbol: str, n_ptr: int, n_int: int):
+    """A C entry point of the kernel library `lib`: n_ptr pointers, n_int
+    ints, then a pointer (the stream, or a plan's output); returns a
+    cudaError_t."""
+    fn = getattr(_build.load(lib), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _cfg_ints(packed: PackedMLP):
+    """The kernels' config ints after n: depth, width, skip mask,
+    multires, multires_views, bf16."""
+    return (packed.net_depth, packed.width,
+            sum(1 << s for s in packed.skips), packed.multires,
+            packed.multires_views,
+            int(packed.compute_dtype == torch.bfloat16))
+
+
+def _fwd(row: bool, weights, pts, views, net_depth, skips, multires,
+         multires_views, compute_dtype) -> torch.Tensor:
+    """`fwd_T` (transposed streams, kernel #1) or, with `row`, `fwd`
+    (row-major streams, kernel #10)."""
+    cd = fm.as_dtype(compute_dtype)
+    skips = tuple(sorted(skips))
+    if pts.device.type == "cpu":
+        if isinstance(weights, PackedMLP):
+            _packed_for(weights, net_depth, skips, multires, multires_views,
+                        cd)
+        plain = plain_fwd_row if row else plain_fwd_T
+        return plain(weights, pts, views, net_depth, skips, multires,
+                     multires_views, cd)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no fused forward for device {pts.device}")
+    packed = _packed_for(weights, net_depth, skips, multires,
+                         multires_views, cd)
+    n, dev = pts.shape[0 if row else 1], pts.device
+    for name, t in (("pts", pts), ("views", views)):
+        _check_stream(name, t, 3, n, dev, row)
+    _check_weights(packed, dev)
+    out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    symbol = ROW_KERNEL if row else KERNEL
+    err = _entry(KERNEL, symbol, 5, 7)(
+        pts.data_ptr(), views.data_ptr(), packed.w.data_ptr(),
+        packed.b.data_ptr(), out.data_ptr(), n, *_cfg_ints(packed),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    global launches, row_launches
+    if row:
+        row_launches += 1
+    else:
+        launches += 1
+    return out
 
 
 def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
@@ -245,42 +312,8 @@ def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
 
     `weights`: the flat torch-layout list or a `PackedMLP`. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
-    cd = fm.as_dtype(compute_dtype)
-    skips = tuple(sorted(skips))
-    if isinstance(weights, PackedMLP) and weights.config() != (
-            net_depth, skips, multires, multires_views, cd, "pe"):
-        raise ValueError("PackedMLP was packed for another config")
-    if pts_T.device.type == "cpu":
-        return plain_fwd_T(weights, pts_T, views_T, net_depth, skips,
-                           multires, multires_views, cd)
-    if pts_T.device.type != "cuda":
-        raise ValueError(f"no fused forward for device {pts_T.device}")
-    packed = weights if isinstance(weights, PackedMLP) else pack(
-        weights, net_depth, skips, multires, multires_views, cd)
-    n = pts_T.shape[1]
-    for name, t in (("pts_T", pts_T), ("views_T", views_T)):
-        if (t.dtype != torch.float32 or t.shape != (3, n)
-                or not t.is_contiguous() or t.device != pts_T.device):
-            raise ValueError(f"{name} must be a contiguous fp32 [3, {n}] "
-                             f"tensor on {pts_T.device}")
-    for t in (packed.w, packed.b):
-        if t.device != pts_T.device:
-            raise ValueError("packed weights are not on the points' device")
-    out = torch.empty((4, n), dtype=torch.float32, device=pts_T.device)
-    if n == 0:
-        return out
-    skip_mask = sum(1 << s for s in skips)
-    err = _kernel()(
-        pts_T.data_ptr(), views_T.data_ptr(), packed.w.data_ptr(),
-        packed.b.data_ptr(), out.data_ptr(), n, net_depth, packed.width,
-        skip_mask, multires, multires_views, int(cd == torch.bfloat16),
-        torch.cuda.current_stream(pts_T.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
-    return out
+    return _fwd(False, weights, pts_T, views_T, net_depth, skips, multires,
+                multires_views, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -457,11 +490,19 @@ def plain_bwd_T(weights, pts_T, views_T, g_T, net_depth, skips, multires,
     return list(grads)
 
 
-def _check_stream(name, t, rows, n, device):
-    if (t.dtype != torch.float32 or t.shape != (rows, n)
+def _check_stream(name, t, rows, n, device, row=False):
+    """A [rows, n] stream, or with `row` an [n, rows] one."""
+    shape = (n, rows) if row else (rows, n)
+    if (t.dtype != torch.float32 or t.shape != shape
             or not t.is_contiguous() or t.device != device):
-        raise ValueError(f"{name} must be a contiguous fp32 [{rows}, {n}] "
-                         f"tensor on {device}")
+        raise ValueError(f"{name} must be a contiguous fp32 "
+                         f"{list(shape)} tensor on {device}")
+
+
+def _check_weights(packed: PackedMLP, device):
+    for t in (packed.w, packed.b):
+        if t.device != device:
+            raise ValueError("packed weights are not on the points' device")
 
 
 def train_buffers(plan_fn, args, packed: PackedMLP, device):
@@ -480,19 +521,6 @@ def train_buffers(plan_fn, args, packed: PackedMLP, device):
     return ws, part, dw
 
 
-@functools.cache
-def _bwd_kernel():
-    lib = _build.load(BWD_KERNEL)
-    plan = lib.fused_mlp_bwd_plan
-    plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    plan.restype = ctypes.c_int
-    fn = lib.fused_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return plan, fn
-
-
 def _packed_for(weights, net_depth, skips, multires, multires_views, cd,
                 encoder="pe"):
     if isinstance(weights, PackedMLP):
@@ -504,72 +532,87 @@ def _packed_for(weights, net_depth, skips, multires, multires_views, cd,
                 encoder)
 
 
+def _bwd(row: bool, weights, pts, views, g, net_depth, skips, multires,
+         multires_views, compute_dtype) -> List[torch.Tensor]:
+    """`bwd_T` (transposed streams, kernel #2) or, with `row`, `bwd`
+    (row-major streams, kernel #11)."""
+    cd = fm.as_dtype(compute_dtype)
+    skips = tuple(sorted(skips))
+    if pts.device.type == "cpu":
+        if isinstance(weights, PackedMLP):
+            _packed_for(weights, net_depth, skips, multires, multires_views,
+                        cd)
+        plain = plain_bwd_row if row else plain_bwd_T
+        return plain(weights, pts, views, g, net_depth, skips, multires,
+                     multires_views, cd)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no fused backward for device {pts.device}")
+    packed = _packed_for(weights, net_depth, skips, multires,
+                         multires_views, cd)
+    n, dev = pts.shape[0 if row else 1], pts.device
+    for name, t, rows in (("pts", pts, 3), ("views", views, 3),
+                          ("g", g, 4)):
+        _check_stream(name, t, rows, n, dev, row)
+    _check_weights(packed, dev)
+    n_w, n_b = grad_numel(packed)
+    if n == 0:
+        zeros = torch.zeros(n_w + n_b, device=dev)
+        return unpack_grads(packed, zeros[:n_w], zeros[n_w:])
+    cfg_args = _cfg_ints(packed)
+    symbol = ROW_BWD_KERNEL if row else BWD_KERNEL
+    ws, part, dw = train_buffers(_entry(BWD_KERNEL, symbol + "_plan", 0, 7),
+                                 (n, *cfg_args), packed, dev)
+    err = _entry(BWD_KERNEL, symbol, 8, 7)(
+        pts.data_ptr(), views.data_ptr(), g.data_ptr(), packed.w.data_ptr(),
+        packed.b.data_ptr(), ws.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        n, *cfg_args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    global bwd_launches, row_bwd_launches
+    if row:
+        row_bwd_launches += 1
+    else:
+        bwd_launches += 1
+    return unpack_grads(packed, dw[:n_w], dw[n_w:])
+
+
 def bwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
           g_T: torch.Tensor, net_depth: int, skips, multires: int,
           multires_views: int, compute_dtype) -> List[torch.Tensor]:
     """Weight grads of `fwd_T` for the raw cotangent g_T [4, N]: the
     torch-layout list (fp32). CPU tensors take the plain version; CUDA
     tensors launch the kernel (and its dW reduction) or raise."""
-    cd = fm.as_dtype(compute_dtype)
-    skips = tuple(sorted(skips))
-    if pts_T.device.type == "cpu":
-        if isinstance(weights, PackedMLP):
-            _packed_for(weights, net_depth, skips, multires, multires_views,
-                        cd)
-        return plain_bwd_T(weights, pts_T, views_T, g_T, net_depth, skips,
-                           multires, multires_views, cd)
-    if pts_T.device.type != "cuda":
-        raise ValueError(f"no fused backward for device {pts_T.device}")
-    packed = _packed_for(weights, net_depth, skips, multires,
-                         multires_views, cd)
-    n, dev = pts_T.shape[1], pts_T.device
-    _check_stream("pts_T", pts_T, 3, n, dev)
-    _check_stream("views_T", views_T, 3, n, dev)
-    _check_stream("g_T", g_T, 4, n, dev)
-    for t in (packed.w, packed.b):
-        if t.device != dev:
-            raise ValueError("packed weights are not on the points' device")
-    n_w, _ = grad_numel(packed)
-    if n == 0:
-        return unpack_grads(packed, *torch.zeros(
-            sum(grad_numel(packed)), device=dev).split(list(grad_numel(
-                packed))))
-    skip_mask = sum(1 << s for s in skips)
-    cfg_args = (net_depth, packed.width, skip_mask, multires, multires_views,
-                int(cd == torch.bfloat16))
-    plan, fn = _bwd_kernel()
-    ws, part, dw = train_buffers(plan, (n, *cfg_args), packed, dev)
-    err = fn(pts_T.data_ptr(), views_T.data_ptr(), g_T.data_ptr(),
-             packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
-             part.data_ptr(), dw.data_ptr(), n, *cfg_args,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError_t {err}")
-    global bwd_launches
-    bwd_launches += 1
-    return unpack_grads(packed, dw[:n_w], dw[n_w:])
+    return _bwd(False, weights, pts_T, views_T, g_T, net_depth, skips,
+                multires, multires_views, compute_dtype)
 
 
-class _FusedMLPTrainT(torch.autograd.Function):
-    """raw_T = MLP(pts_T, views_T); grads for the weights only (positions
-    carry no grad in the NeRF step, run_nerf_view.py:527)."""
+class _FusedMLPTrain(torch.autograd.Function):
+    """raw = MLP(pts, views); grads for the weights only (positions carry
+    no grad in the NeRF step, run_nerf_view.py:527). `mode`: "T" on
+    transposed streams (#1, #2), "row" on row-major ones (#10, #11),
+    "hybrid" row-major with the plain forward and #11."""
 
     @staticmethod
-    def forward(ctx, config, packed, pts_T, views_T, *weights):
-        net_depth, skips, multires, multires_views, cd = config
+    def forward(ctx, config, packed, mode, pts, views, *weights):
         src = packed if packed is not None else list(weights)
-        ctx.config, ctx.src = config, src
-        ctx.save_for_backward(pts_T, views_T)
-        return fwd_T(src, pts_T, views_T, net_depth, skips, multires,
-                     multires_views, cd)
+        ctx.config, ctx.src, ctx.mode = config, src, mode
+        ctx.save_for_backward(pts, views)
+        run = {"T": fwd_T, "row": fwd, "hybrid": plain_fwd_row}[mode]
+        return run(src, pts, views, *config)
 
     @staticmethod
-    def backward(ctx, g_T):
-        net_depth, skips, multires, multires_views, cd = ctx.config
-        pts_T, views_T = ctx.saved_tensors
-        grads = bwd_T(ctx.src, pts_T, views_T, g_T.contiguous(), net_depth,
-                      skips, multires, multires_views, cd)
-        return (None, None, None, None, *grads)
+    def backward(ctx, g):
+        pts, views = ctx.saved_tensors
+        run = bwd_T if ctx.mode == "T" else bwd
+        grads = run(ctx.src, pts, views, g.contiguous(), *ctx.config)
+        return (None, None, None, None, None, *grads)
+
+
+def _train_op(mode, weights, pts, views, net_depth, skips, multires,
+              multires_views, compute_dtype, packed):
+    config = (net_depth, tuple(sorted(skips)), multires, multires_views,
+              fm.as_dtype(compute_dtype))
+    return _FusedMLPTrain.apply(config, packed, mode, pts, views, *weights)
 
 
 def fused_mlp_v2_train_T(weights: Sequence[torch.Tensor], pts_T, views_T,
@@ -581,6 +624,83 @@ def fused_mlp_v2_train_T(weights: Sequence[torch.Tensor], pts_T, views_T,
     torch-layout parameter list that receives the grads; `packed` (the
     same weights packed, for a CUDA caller that already packed them) is
     optional."""
-    cd = fm.as_dtype(compute_dtype)
-    config = (net_depth, tuple(sorted(skips)), multires, multires_views, cd)
-    return _FusedMLPTrainT.apply(config, packed, pts_T, views_T, *weights)
+    return _train_op("T", weights, pts_T, views_T, net_depth, skips,
+                     multires, multires_views, compute_dtype, packed)
+
+
+# ---------------------------------------------------------------------------
+# The row-major family (kernels #10 and #11) and its differentiable ops
+# ---------------------------------------------------------------------------
+
+
+def plain_fwd_row(weights, pts, views, net_depth, skips, multires,
+                  multires_views, compute_dtype) -> torch.Tensor:
+    """The plain version of `fwd` on any device: pts/views [N, 3] -> raw
+    [N, 4] (no kernel)."""
+    flat = weights.flat if isinstance(weights, PackedMLP) else weights
+    return fm._mlp_body(
+        pts, views, flat, net_depth=net_depth, skips=tuple(skips),
+        multires=multires, multires_views=multires_views,
+        compute_dtype=compute_dtype)
+
+
+def plain_bwd_row(weights, pts, views, g, net_depth, skips, multires,
+                  multires_views, compute_dtype) -> List[torch.Tensor]:
+    """The plain version of `bwd` on any device: autograd through
+    `_mlp_body` for the cotangent g [N, 4] (torch-layout grads)."""
+    return plain_bwd_T(weights, pts.T, views.T, g.T, net_depth, skips,
+                       multires, multires_views, compute_dtype)
+
+
+def fwd(weights, pts: torch.Tensor, views: torch.Tensor, net_depth: int,
+        skips, multires: int, multires_views: int,
+        compute_dtype) -> torch.Tensor:
+    """pts/views [N, 3] -> raw [N, 4] (rgb logits 0..2, density 3), kernel
+    #10. `weights`: the flat torch-layout list or a `PackedMLP`. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    return _fwd(True, weights, pts, views, net_depth, skips, multires,
+                multires_views, compute_dtype)
+
+
+def bwd(weights, pts: torch.Tensor, views: torch.Tensor, g: torch.Tensor,
+        net_depth: int, skips, multires: int, multires_views: int,
+        compute_dtype) -> List[torch.Tensor]:
+    """Weight grads of `fwd` for the raw cotangent g [N, 4] (kernel #11):
+    the torch-layout list (fp32). CPU tensors take the plain version;
+    CUDA tensors launch the kernel (and its dW reduction) or raise."""
+    return _bwd(True, weights, pts, views, g, net_depth, skips, multires,
+                multires_views, compute_dtype)
+
+
+def fused_mlp_v2_train(weights: Sequence[torch.Tensor], pts, views,
+                       net_depth: int, skips, multires: int,
+                       multires_views: int, compute_dtype,
+                       packed: PackedMLP = None) -> torch.Tensor:
+    """Differentiable fused MLP on row-major streams: pts/views [N, 3] ->
+    raw [N, 4]; forward #10, weight grads from #11. `weights` is the
+    torch-layout parameter list that receives the grads; `packed` (the
+    same weights packed, for a CUDA caller that already packed them) is
+    optional."""
+    return _train_op("row", weights, pts, views, net_depth, skips,
+                     multires, multires_views, compute_dtype, packed)
+
+
+def hybrid_mlp_v2_train(weights: Sequence[torch.Tensor], pts, views,
+                        net_depth: int, skips, multires: int,
+                        multires_views: int, compute_dtype,
+                        packed: PackedMLP = None) -> torch.Tensor:
+    """`fused_mlp_v2_train` with the plain forward (`_mlp_body`, no
+    kernel, as the JAX package's XLA forward) and backward #11."""
+    return _train_op("hybrid", weights, pts, views, net_depth, skips,
+                     multires, multires_views, compute_dtype, packed)
+
+
+def fused_mlp_v2(mlp, pts, viewdirs, *, net_depth=8, skips=(4,),
+                 multires=10, multires_views=4,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """The forward (#10) from a NeRFMLP or its state_dict: [N, 3] points
+    and view directions -> raw [N, 4]."""
+    weights = fm.flatten_params(mlp, True, net_depth)
+    return fwd([w.detach() for w in weights], pts, viewdirs, net_depth,
+               skips, multires, multires_views, compute_dtype)

@@ -343,15 +343,17 @@ def render_level_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
 
 def onepass_supported(cfg) -> bool:
     """Whether the one-pass step computes cfg's exact loss: per-ray terms
-    with parameter-independent denominators. softLpmask's two
-    prediction-dependent denominators cannot share one dW accumulation
-    (see the JAX package's docstring); its two-call fused step is not
-    ported, so `train/loop.py::select_train_step` raises for it. The
-    ss_loss branch is not ported and raises here."""
-    if cfg.ss_loss:
-        step_lib.apply_ss_loss()
+    with parameter-independent denominators (the JAX predicate,
+    fused_onepass.py:590-615, term for term). softLpmask's two
+    prediction-dependent denominators cannot share one dW accumulation;
+    `train/loop.py::select_train_step` sends it to the two-call step. The
+    lane limits on multires are the TPU kernel's; the CUDA kernel could
+    run past them, but a config must pick the counterpart step in both
+    packages. (The step itself still raises for ss_loss: ROADMAP Queue 1,
+    consistency.)"""
     return (cfg.backbone == "vanilla" and cfg.use_viewdirs
-            and cfg.N_importance > 0 and not cfg.softLpmask)
+            and cfg.N_importance > 0 and not cfg.softLpmask
+            and 3 * cfg.multires <= 60 and 3 * cfg.multires_views <= 60)
 
 
 def _grad_branch_dict(d_list: List[torch.Tensor], branch,
@@ -784,28 +786,36 @@ def onepass_mip_level_T(weights, means_T, covs_T, views_T, tmid_row,
 
 
 def mip_onepass_supported(cfg) -> bool:
-    """Whether the mip one-pass step computes cfg's exact loss
-    (fused_onepass.py:1104): per-ray data terms in the kernel, the MiDaS
-    patch rays on the differentiable fused path. The unported RegNeRF
-    regularizers and normals raise here rather than select another
+    """Whether the mip one-pass step computes cfg's exact loss (the JAX
+    predicate, fused_onepass.py:1104-1125, term for term): per-ray data
+    terms in the kernel, the MiDaS patch rays and the TV norm's
+    random-pose rays on the differentiable fused path; extras (disp and
+    normal metrics) change the kernel's output contract. The IPE lane
+    limit is the TPU kernel's, kept so both packages pick the same
     step."""
-    step_lib.check_mip_supported(cfg)
-    return (cfg.backbone == "mipnerf" and cfg.stop_level_grad
-            and cfg.min_deg_point == 0 and not cfg.compute_disp_metrics)
+    return (cfg.backbone == "mipnerf" and cfg.disable_normals
+            and cfg.stop_level_grad and cfg.min_deg_point == 0
+            and 3 * cfg.max_deg_point <= 60
+            and not cfg.compute_disp_metrics
+            and not cfg.compute_normal_metrics)
 
 
 def build_onepass_mip_train_step(cfg):
     """train_step(state, batch, draws=None) -> (state, stats): the mip
     loss (`train.losses.mip_losses`) with every level of the data rays
-    running the one-pass kernel and the 4x16x16 MiDaS patch rays the
-    differentiable fused forward (`ops/fused_train.fused_mip_forward`),
-    their weight grads summed into the one MLP's. The stats are
-    `mip_losses` on the assembled outputs. `state` is updated in place."""
+    running the one-pass kernel, and the 4x16x16 MiDaS patch rays and the
+    TV norm's random-pose rays the differentiable fused forward
+    (`ops/fused_train.fused_mip_forward`), their weight grads summed into
+    the one MLP's. The stats are `mip_losses` on the assembled outputs.
+    `state` is updated in place."""
     from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
 
+    step_lib.check_mip_supported(cfg)
     if not mip_onepass_supported(cfg):
-        raise ValueError("the mip one-pass step needs stop_level_grad, "
-                         "min_deg_point=0 and no disp metrics")
+        raise ValueError("the mip one-pass step needs disable_normals, "
+                         "stop_level_grad, min_deg_point=0, "
+                         "max_deg_point <= 20 and no disp or normal "
+                         "metrics")
     n_levels, s = cfg.mip_num_levels, cfg.mip_num_samples
     level_mults = [cfg.coarse_loss_mult] * (n_levels - 1) + [1.0]
     # The MiDaS term reads exactly the first 4x16^2 rays.
@@ -821,9 +831,11 @@ def build_onepass_mip_train_step(cfg):
         if n < p:
             raise ValueError(f"a mip batch needs the {p} MiDaS patch rays "
                              f"first; got {n} rays")
+        render_random = step_lib.renders_random(cfg, batch)
         if draws is None:
-            draws = step_lib.make_mip_draws(cfg, n, step_lib.step_generator(
-                cfg.seed, state.step, dev), dev)
+            draws = step_lib.make_mip_step_draws(
+                cfg, batch, step_lib.step_generator(cfg.seed, state.step,
+                                                    dev), dev)
         padding = step_lib.resample_padding(cfg, state.step)
 
         lossmult = rays.lossmult[:, 0]
@@ -917,6 +929,17 @@ def build_onepass_mip_train_step(cfg):
                 if cfg.dataset_type == "blender":
                     mono = mono * 0.01
                 loss = loss + 0.1 * lw * mono
+        renders_r = None
+        if render_random:
+            renders_r = fused_mip_forward(
+                params, draws.get("random"), batch["rays_random"], cfg,
+                resample_padding=padding, compute_extras=True,
+                packed=packed)
+            tvw = [cfg.coarse_loss_mult] * (n_levels - 1) + [
+                step_lib.tvnorm_weight(cfg, state.step)]
+            for lvl, r in enumerate(renders_r):
+                tv = tvw[lvl] * losses_lib.tv_level_loss(r, cfg)
+                loss = tv if loss is None else loss + tv
         if cfg.weight_decay_mult != 0:
             all_params = list(model.parameters())
             wd = cfg.weight_decay_mult * sum(
@@ -936,8 +959,9 @@ def build_onepass_mip_train_step(cfg):
                 renderings.append({k: torch.cat([x[k].detach()
                                                  for x in parts], 0)
                                    for k in ("rgb", "distance_mean")})
-            _, stats = losses_lib.mip_losses(renderings, None, batch,
-                                             model.parameters(), cfg)
+            _, stats = losses_lib.mip_losses(
+                renderings, renders_r, batch, model.parameters(), cfg,
+                step_lib.tvnorm_weight(cfg, state.step))
         return state, step_lib.finish_step(state, stats, cfg)
 
     return train_step

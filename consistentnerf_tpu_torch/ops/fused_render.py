@@ -5,10 +5,15 @@ depths, coarse MLP, compositing, inverse-CDF fine depths, fine MLP,
 compositing) but evaluates both MLPs with `ops/fused_mlp_v2.fwd_T` on
 transposed [3, N*S] point streams, so each point costs 6 floats in and 4
 out of device memory instead of a 90-float encoding plus every layer's
-activations. With `onepass` each level runs `ops/fused_onepass.
-render_level_T` (kernel #4), which composites inside the kernel and
-writes six per-ray rows instead of the raw stream; with `pdf_kernel` the
-fine depths come from kernel #8 (`pdf_merge.fine_z_vals`).
+activations. `kernel` picks the forward as the JAX render does:
+"v2" and "v2h" the transposed #1, "v2row" the row-major #10
+(`fused_mlp_v2.fwd` on [N*S, 3] streams, compositing by `raw2outputs`);
+the v1 forward ("v1", "hybrid") is not ported (ROADMAP Queue 2 #12-#14).
+With `onepass` each level runs `ops/fused_onepass.render_level_T`
+(kernel #4), which composites inside the kernel and writes six per-ray
+rows instead of the raw stream, whatever `kernel` names (as in the JAX
+render); with `pdf_kernel` the fine depths come from kernel #8
+(`pdf_merge.fine_z_vals`).
 """
 
 from __future__ import annotations
@@ -45,10 +50,10 @@ def fused_render_rays(
     `params`: {'coarse': w, 'fine': w} where each w is the flat
     torch-layout weight list or a `fused_mlp_v2.PackedMLP` (packed once by
     the caller); 'fine' defaults to 'coarse'."""
-    if kernel != "v2":
+    if not onepass and kernel not in ("v2", "v2h", "v2row"):
         raise NotImplementedError(
-            f"fused render kernel={kernel!r} is not ported yet: only the "
-            "transposed 'v2' forward (ROADMAP Queue 2)")
+            f"fused render kernel={kernel!r}: the v1 forward is not ported "
+            "yet (ROADMAP Queue 2 #12-#14)")
     coarse_w = params["coarse"]
     fine_w = params.get("fine", coarse_w)
     origins, directions, viewdirs = rays.origins, rays.directions, \
@@ -60,6 +65,14 @@ def fused_render_rays(
     def eval_level(weights, z_vals):
         """(rgb, disp, acc, weights, depth) of one level."""
         s = z_vals.shape[1]
+        if not onepass and kernel == "v2row":
+            pts = (origins[:, None] + directions[:, None] * z_vals[..., None])
+            views = viewdirs[:, None].expand(n, s, 3)
+            raw = v2.fwd(weights, pts.reshape(n * s, 3).contiguous(),
+                         views.reshape(n * s, 3).contiguous(), net_depth,
+                         skips, multires, multires_views, compute_dtype)
+            return rendering.raw2outputs(raw.reshape(n, s, 4), z_vals,
+                                         directions, None, white_bkgd)
         pts_T, views_T = op._pts_views(origins.T, directions.T, viewdirs.T,
                                        z_vals)
         if not onepass:

@@ -35,9 +35,9 @@ class TrainResult:
     rays_per_sec: float
 
 
-def make_batcher(scene: SceneData, cfg):
+def make_batcher(scene: SceneData, cfg, random_poses=None):
     if cfg.backbone == "mipnerf":
-        return MipBatcher(scene, cfg)
+        return MipBatcher(scene, cfg, random_poses=random_poses)
     if cfg.use_batching:
         return AllImagesBatcher(scene, cfg)
     return VanillaBatcher(scene, cfg)
@@ -53,45 +53,46 @@ def init_state(cfg, device="cuda"):
 
 
 def select_train_step(cfg, model, lpips_params=None):
-    """The production step dispatch: the one-pass kernel step where the
-    config's exact loss is supported; the eager step when use_fused_train
-    is off. The two-call fused steps (`ops/fused_train.py` in the JAX
-    package, which softLpmask and the mip configs outside
-    `mip_onepass_supported` need) are not ported and raise."""
+    """The production step dispatch (the JAX package's loop.py:68-111):
+    with use_fused_train, the one-pass kernel step where the config's
+    exact loss is supported (`onepass_supported`,
+    `mip_onepass_supported`), else the two-call fused step
+    (`ops/fused_train.py`); the eager step when use_fused_train is off."""
+    from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
+
     if cfg.backbone == "mipnerf":
         return _select_mip_train_step(cfg, model)
     if cfg.use_fused_train:
-        from consistentnerf_tpu_torch.ops import fused_onepass
-
         if cfg.use_onepass_train and fused_onepass.onepass_supported(cfg):
             return fused_onepass.build_onepass_vanilla_train_step(
                 cfg, lpips_params=lpips_params)
-        raise NotImplementedError(
-            "the two-call fused train step is not ported yet (ROADMAP "
-            "Queue 1: two-call fused step); set use_fused_train=false for "
-            "the eager step")
+        return fused_train.build_fused_vanilla_train_step(
+            cfg, lpips_params=lpips_params)
     return step_lib.build_vanilla_train_step(model, cfg,
                                              lpips_params=lpips_params)
 
 
 def _select_mip_train_step(cfg, model):
     """The mip branch of the dispatch (loop.py:92-110)."""
+    from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
+
     if not cfg.use_fused_train:
         return step_lib.build_mip_train_step(model, cfg)
-    from consistentnerf_tpu_torch.ops import fused_onepass
-
+    if not cfg.disable_normals:
+        raise ValueError(
+            "use_fused_train with the mip backbone requires "
+            "disable_normals=true (normals need per-point density grads; "
+            "use the eager step for normal metrics)")
     if cfg.use_onepass_train and fused_onepass.mip_onepass_supported(cfg):
         return fused_onepass.build_onepass_mip_train_step(cfg)
-    raise NotImplementedError(
-        "the two-call fused mip train step is not ported yet (ROADMAP "
-        "Queue 1: two-call fused step); set use_fused_train=false for the "
-        "eager step")
+    return fused_train.build_fused_mip_train_step(cfg)
 
 
 def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
-          device="cuda",
+          device="cuda", random_poses=None,
           log_fn: Callable[[str], None] = print) -> TrainResult:
-    """Run (or resume) training; returns the final state and throughput."""
+    """Run (or resume) training; returns the final state and throughput.
+    `random_poses` [P, 3, 4]: the mip batcher's random-pose rays."""
     num_steps = num_steps or cfg.total_iters
     device = torch.device(device)
     if cfg.lpips_weights_path:
@@ -103,7 +104,7 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
                 "1: eval metrics); unset lpips_weights_path")
         log_fn(f"WARNING: lpips_weights_path={cfg.lpips_weights_path!r} "
                "not found; SKIPPING the train-time LPIPS term")
-    batcher = make_batcher(scene, cfg)
+    batcher = make_batcher(scene, cfg, random_poses)
     state = init_state(cfg, device)
     ckpt = CheckpointManager(
         os.path.join(cfg.basedir, cfg.expname, "checkpoints"),

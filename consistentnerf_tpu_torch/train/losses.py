@@ -2,9 +2,8 @@
 ConsistentNeRF PyTorch trainer's total loss (`run_nerf_view.py:1577-1906`):
 masked RGB MSE, the MiDaS patch loss (x0.001), patch SSIM (x-0.005) and
 patch LPIPS (x+0.005), masked depth MSE, each on fine and coarse outputs.
-`mip_losses` is the mip / RegNeRF trainer's (`RegNeRF/train.py:97-241`);
-its TV norm on random-pose patches is not ported (ROADMAP Queue 1: mip
-regularizers) and raises.
+`mip_losses` is the mip / RegNeRF trainer's (`RegNeRF/train.py:97-241`),
+with the depth TV norm on random-pose patches (`tv_level_loss`).
 """
 
 from __future__ import annotations
@@ -124,13 +123,16 @@ def vanilla_losses(outputs: Dict[str, torch.Tensor],
     return loss, stats
 
 
-def check_mip_regularizers(cfg) -> None:
-    """The RegNeRF regularizers of the mip trainer that are not ported."""
-    if cfg.depth_tvnorm_loss_mult != 0.0 or cfg.depth_tvnorm_decay:
-        raise NotImplementedError(
-            "the RegNeRF depth TV norm (depth_tvnorm_loss_mult / "
-            "depth_tvnorm_decay) is not ported yet (ROADMAP Queue 1: mip "
-            "regularizers)")
+def tv_level_loss(rendering: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    """The mean TV norm of one level's random-pose patches: the selected
+    depth (`depth_tvnorm_selector`) of each random_patch_size^2 patch,
+    weighted by the detached opacity (losses.py:247-281)."""
+    ps = cfg.random_patch_size
+    depth = rendering[cfg.depth_tvnorm_selector].reshape(-1, ps, ps, 1)
+    opacity_w = (rendering["acc"].reshape(-1, ps, ps, 1)[:, :-1, :-1]
+                 .detach() * cfg.depth_tvnorm_mask_weight)
+    return mathx.compute_tv_norm(depth, cfg.depth_tvnorm_type,
+                                 opacity_w).mean()
 
 
 def depth_scale_and_mask(batch, cfg, n: int, device):
@@ -157,13 +159,11 @@ def mip_losses(renderings, renderings_random, batch: Dict[str, Any],
     """Total loss + stats for the mip backbone (RegNeRF/train.py:97-241):
     lossmult-weighted RGB MSE per level, the dataset-normalized masked
     depth MSE, the MiDaS patch term (x0.01 on Blender), the mean-square
-    weight decay; the last level at full weight, earlier ones at
-    coarse_loss_mult. `params`: every parameter of the model."""
-    check_mip_regularizers(cfg)
-    if renderings_random is not None:
-        raise NotImplementedError(
-            "random-pose renderings feed only the TV norm, which is not "
-            "ported yet (ROADMAP Queue 1: mip regularizers)")
+    weight decay, and the TV norm of the random-pose renderings (the
+    last level at `tvnorm_loss_weight` with depth_tvnorm_decay, else at
+    depth_tvnorm_loss_mult; earlier levels at coarse_loss_mult, as the
+    JAX package weighs them); the last level at full weight, earlier ones
+    at coarse_loss_mult. `params`: every parameter of the model."""
     rays = batch["rays"]
     lossmult = rays.lossmult
     if cfg.disable_multiscale_loss:
@@ -200,14 +200,22 @@ def mip_losses(renderings, renderings_random, batch: Dict[str, Any],
     rgb_v = torch.stack([rgb_mse(r) for r in renderings])
     depth_v = torch.stack([depth_mse(r) for r in renderings])
     mono_v = torch.stack([mono_term(r) for r in renderings])
-    tv_v = torch.zeros((1,), device=rgb_v.device)
+    wants_tv = cfg.depth_tvnorm_loss_mult != 0.0 or cfg.depth_tvnorm_decay
+    if not wants_tv or renderings_random is None:
+        tv_v = torch.zeros((1,), device=rgb_v.device)
+    else:
+        tv_v = torch.stack([tv_level_loss(r, cfg)
+                            for r in renderings_random])
+    tv_weight = (tvnorm_loss_weight if cfg.depth_tvnorm_decay
+                 else cfg.depth_tvnorm_loss_mult)
 
     def final_plus_coarse(v, mult=1.0):
         return mult * v[-1] + mult * cfg.coarse_loss_mult * v[:-1].sum()
 
     loss = (final_plus_coarse(rgb_v) + final_plus_coarse(depth_v, 0.1)
             + final_plus_coarse(mono_v, 0.1)
-            + cfg.weight_decay_mult * weight_l2)
+            + cfg.weight_decay_mult * weight_l2
+            + tv_weight * tv_v[-1] + cfg.coarse_loss_mult * tv_v[:-1].sum())
     stats = {
         "loss": loss,
         "losses": rgb_v,

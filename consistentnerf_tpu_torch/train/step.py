@@ -10,9 +10,10 @@ which kernel #8 needs; the fine depths are the same set in distribution)
 and `noise` holds the standard normals of `use_noise`. Mip (`make_mip_draws`, when `randomized`): `t_rand`
 [N, S+1] jitters the first level's fenceposts, `jitter[l]` drives level
 l's resampling and `noise[l]` [N, S] holds the density noise's standard
-normals. A step makes them from `step_generator(cfg.seed, step)` unless
-the caller passes its own, so a resumed run draws what an uninterrupted
-one would.
+normals; `random` holds the same draws for the random-pose rays of the
+TV norm (`make_mip_step_draws`). A step makes them from
+`step_generator(cfg.seed, step)` unless the caller passes its own, so a
+resumed run draws what an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -93,10 +94,42 @@ def make_mip_draws(cfg, n: int, generator: torch.Generator,
     return draws
 
 
+def renders_random(cfg, batch) -> bool:
+    """Whether a mip step renders the batch's random-pose rays: the TV
+    norm is on and the batcher made them (train/step.py:186-188)."""
+    return ((cfg.depth_tvnorm_loss_mult != 0.0 or cfg.depth_tvnorm_decay)
+            and "rays_random" in batch)
+
+
+def tvnorm_weight(cfg, step: int) -> float:
+    """The TV norm's weight at this step: annealed with
+    depth_tvnorm_decay, else depth_tvnorm_loss_mult."""
+    if cfg.depth_tvnorm_decay:
+        return float(mathx.compute_tvnorm_weight(
+            step, cfg.depth_tvnorm_maxstep, cfg.depth_tvnorm_loss_mult_start,
+            cfg.depth_tvnorm_loss_mult_end))
+    return cfg.depth_tvnorm_loss_mult
+
+
+def make_mip_step_draws(cfg, batch, generator: torch.Generator,
+                        device) -> Dict[str, object]:
+    """A mip step's draws: those of the batch's rays, then (when the step
+    renders them) those of its random-pose rays under `random`."""
+    draws = make_mip_draws(cfg, batch["rays"].origins.shape[0], generator,
+                           device)
+    if draws and renders_random(cfg, batch):
+        draws["random"] = make_mip_draws(
+            cfg, batch["rays_random"].origins.shape[0], generator, device)
+    return draws
+
+
 def slice_draws(draws: Dict, sl) -> Dict:
-    """The draws of the rays `sl` (a slice of the batch)."""
+    """The draws of the rays `sl` (a slice of the batch); the random-pose
+    rays' draws are not the batch's and are left out."""
     out = {}
     for k, v in draws.items():
+        if k == "random":
+            continue
         out[k] = ([None if x is None else x[sl] for x in v]
                   if isinstance(v, list) else v[sl])
     return out
@@ -176,12 +209,7 @@ def build_vanilla_train_step(model, cfg,
 
 
 def check_mip_supported(cfg) -> None:
-    """Options of the mip step that this package does not run yet."""
-    losses_lib.check_mip_regularizers(cfg)
-    if cfg.load_random_rays or cfg.anneal_nearfar:
-        raise NotImplementedError(
-            "random-pose rays and anneal_nearfar are not ported yet "
-            "(ROADMAP Queue 1: mip regularizers)")
+    """Options of the mip steps that this package does not run yet."""
     if not cfg.disable_normals or cfg.compute_normal_metrics:
         raise NotImplementedError(
             "the mip train steps with normals (disable_normals=false) or "
@@ -197,23 +225,30 @@ def resample_padding(cfg, step: int) -> float:
 
 def build_mip_train_step(model, cfg) -> Callable:
     """train_step(state, batch, draws=None) -> (state, stats) of the mip
-    backbone (RegNeRF/train.py:97-241 through `mip_losses`). `batch`
-    holds a `Rays` bundle under 'rays' and tensors on the model's device;
+    backbone (RegNeRF/train.py:97-241 through `mip_losses`), with the TV
+    norm on the batch's random-pose rays (`rays_random`) when it is on.
+    `batch` holds `Rays` bundles and tensors on the model's device;
     `state` (whose module is `model`) is updated in place."""
     check_mip_supported(cfg)
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
         rays = batch["rays"]
-        n, device = rays.origins.shape[0], rays.origins.device
+        device = rays.origins.device
         if draws is None:
-            draws = make_mip_draws(cfg, n, step_generator(
+            draws = make_mip_step_draws(cfg, batch, step_generator(
                 cfg.seed, state.step, device), device)
+        padding = resample_padding(cfg, state.step)
         state.optimizer.zero_grad()
-        renderings = state.model(
-            rays, draws, resample_padding=resample_padding(cfg, state.step),
-            compute_extras=cfg.compute_disp_metrics)
-        loss, stats = losses_lib.mip_losses(renderings, None, batch,
-                                            state.model.parameters(), cfg)
+        renderings = state.model(rays, draws, resample_padding=padding,
+                                 compute_extras=cfg.compute_disp_metrics)
+        renderings_random = None
+        if renders_random(cfg, batch):
+            renderings_random = state.model(
+                batch["rays_random"], draws.get("random"),
+                resample_padding=padding, compute_extras=True)
+        loss, stats = losses_lib.mip_losses(
+            renderings, renderings_random, batch, state.model.parameters(),
+            cfg, tvnorm_weight(cfg, state.step))
         loss.backward()
         return state, finish_step(state, stats, cfg)
 

@@ -1,6 +1,8 @@
 """The port's kernels on the card, held against their plain versions or
 their packed walks: the NeRF kernels #1-#4, the mip kernels #5-#7 and
-6n (#6 with normals), and the resampling kernels #8 and #9.
+6n (#6 with normals), the resampling kernels #8 and #9, and the
+row-major kernels #10, #11, #15, #16 (also against the transposed
+kernels on the same points), with the two-call step's launches.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -515,3 +517,101 @@ def test_switched_renders_go_through_the_kernels(cuda_device):
         mmodel, mcfg.replace(use_fused_render=False))(rays)
     for k in ("rgb", "normals"):
         assert (fused[k] - plain[k]).abs().mean().item() < 2e-3, k
+
+
+# ------------------- the row-major kernels #10, #11, #15, #16 -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_kernels_match_plain_and_transposed(cuda_device, dtype):
+    """#10 and #11 ([N, 3] streams) against their plain versions, and
+    against #1 and #2 on the same points: the same walk, so the same bits
+    (n = 3000: ragged tiles and chunks)."""
+    flat = _mlp_flat(256, cuda_device)
+    n = 3000
+    pts_T, views_T = _inputs(n, cuda_device)
+    pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
+    g = torch.randn(n, 4, generator=torch.Generator().manual_seed(3)).to(
+        cuda_device)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, dtype)
+    before = (v2.row_launches, v2.row_bwd_launches)
+    got = v2.fwd(packed, pts, views, 8, SKIPS, MR, MV, dtype)
+    grads = v2.bwd(packed, pts, views, g, 8, SKIPS, MR, MV, dtype)
+    torch.cuda.synchronize()
+    assert (v2.row_launches, v2.row_bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = v2.plain_fwd_row(packed, pts, views, 8, SKIPS, MR, MV, dtype)
+    assert got.shape == (n, 4) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[dtype]
+    walk = v2.packed_bwd_reference_T(packed, pts_T, views_T,
+                                     g.T.contiguous())
+    assert _rel(grads, walk) < TRAIN_TOL[dtype]
+    assert torch.equal(got, v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR,
+                                     MV, dtype).T)
+    grads_T = v2.bwd_T(packed, pts_T, views_T, g.T.contiguous(), 8, SKIPS,
+                       MR, MV, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mip_row_kernels_match_plain_and_transposed(cuda_device, dtype):
+    """#15 and #16 against their plain versions and against #6 and #7 on
+    the same points; the op fused_mip_mlp_train launches each once."""
+    flat = _mip_flat(256, cuda_device)
+    n = 3000
+    streams_T = _mip_inputs(n, cuda_device)
+    means, covs, views = (x.T.contiguous() for x in streams_T)
+    g = 1e-2 * torch.randn(n, 4, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda_device)
+    packed = fmip.pack(flat, 8, 16, dtype)
+    got = fmip.fwd(packed, means, covs, views, 8, 16, dtype)
+    want = fmip.plain_fwd_row(packed, means, covs, views, 8, 16, dtype)
+    assert got.shape == (n, 4) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[dtype]
+    assert torch.equal(got, fmip.fwd_T(packed, *streams_T, 8, 16, dtype).T)
+    grads = fmip.bwd(packed, means, covs, views, g, 8, 16, dtype)
+    plain = fmip.plain_bwd_row(packed, means, covs, views, g, 8, 16, dtype)
+    assert _rel(grads, plain) < PLAIN_DW_TOL[dtype]
+    grads_T = fmip.bwd_T(packed, *streams_T, g.T.contiguous(), 8, 16, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
+    before = (fmip.row_launches, fmip.row_bwd_launches)
+    leaves = [w.clone().requires_grad_() for w in flat]
+    raw = fmip.fused_mip_mlp_train(leaves, means, covs, views, 8, 16, dtype)
+    (raw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (fmip.row_launches, fmip.row_bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert all(torch.equal(w.grad, a) for w, a in zip(leaves, grads))
+
+
+@pytest.mark.cuda
+def test_twocall_steps_go_through_their_kernels(cuda_device):
+    """One two-call step per fused_kernel at a small config launches the
+    kernels of its kind: v2 #1/#2, v2row #10/#11, v2h #11 only."""
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.train import loop
+
+    scene = synthetic.make_scene(n_views=4, H=32, W=32).to_scene_data()
+    for kind, want in (("v2", (2, 2, 0, 0)), ("v2row", (0, 0, 2, 2)),
+                       ("v2h", (0, 0, 0, 2))):
+        cfg = configs.Config(netdepth=8, netwidth=64, N_samples=16,
+                             N_importance=16, N_rand=256, n_patches=1,
+                             patch_size=8, softLpmask=True,
+                             with_depth_loss=True, white_bkgd=True,
+                             compute_dtype="bfloat16", use_fused_train=True,
+                             use_onepass_train=True, fused_kernel=kind)
+        state = loop.init_state(cfg, cuda_device)
+        batch = to_device(VanillaBatcher(scene, cfg).next_batch(),
+                          cuda_device)
+        step = loop.select_train_step(cfg, state.model)
+        v2.launches = v2.bwd_launches = 0
+        v2.row_launches = v2.row_bwd_launches = 0
+        _, stats = step(state, batch)
+        torch.cuda.synchronize()
+        assert (v2.launches, v2.bwd_launches, v2.row_launches,
+                v2.row_bwd_launches) == want, kind
+        assert torch.isfinite(stats["loss"])

@@ -26,7 +26,8 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "train.state", "train.losses", "train.checkpoints",
              "train.image_metrics", "data.pipeline", "consistency.masks",
              "consistency.monodepth", "ops.fused_mip", "ops.fused_train",
-             "models.mipnerf", "core.mip", "core.spacing"):
+             "models.mipnerf", "core.mip", "core.spacing",
+             "data.random_poses"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -62,13 +63,15 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 
 
 def test_train_dispatch_raises_rather_than_falls_back():
-    """ss_loss and softLpmask with use_fused_train are not ported: the
-    one-pass gate and the step dispatch raise, naming the ROADMAP item,
-    instead of running another step."""
+    """ss_loss is not ported: the steps raise, naming the ROADMAP item,
+    instead of running another step (the one-pass gate is the JAX
+    predicate, which accepts it). softLpmask with use_fused_train goes to
+    the two-call fused step, as in the JAX package; the v1 kernels raise
+    there."""
     import pytest
 
     from consistentnerf_tpu_torch import configs
-    from consistentnerf_tpu_torch.ops import fused_onepass
+    from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
     from consistentnerf_tpu_torch.train import loop
 
     base = configs.Config(netdepth=2, netwidth=32, N_samples=8,
@@ -76,16 +79,20 @@ def test_train_dispatch_raises_rather_than_falls_back():
                           use_onepass_train=True)
     assert fused_onepass.onepass_supported(base)
     ss = base.replace(ss_loss=True)
-    with pytest.raises(NotImplementedError, match="consistency"):
-        fused_onepass.onepass_supported(ss)
+    assert fused_onepass.onepass_supported(ss)
     with pytest.raises(NotImplementedError, match="consistency"):
         loop.select_train_step(ss, None)
     with pytest.raises(NotImplementedError, match="consistency"):
         loop.select_train_step(ss.replace(use_fused_train=False), None)
+    with pytest.raises(NotImplementedError, match="consistency"):
+        loop.select_train_step(ss.replace(softLpmask=True), None)
     soft = base.replace(softLpmask=True)
     assert not fused_onepass.onepass_supported(soft)
-    with pytest.raises(NotImplementedError, match="two-call fused step"):
-        loop.select_train_step(soft, None)
+    step = loop.select_train_step(soft, None)
+    assert step.__qualname__.startswith(
+        fused_train.build_fused_vanilla_train_step.__name__)
+    with pytest.raises(NotImplementedError, match="Queue 2 #12-#14"):
+        loop.select_train_step(soft.replace(fused_kernel="v1"), None)
     with pytest.raises(ValueError, match="per-ray losses"):
         fused_onepass.build_onepass_vanilla_train_step(soft)
     assert loop.select_train_step(soft.replace(use_fused_train=False),

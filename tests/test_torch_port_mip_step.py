@@ -284,25 +284,28 @@ def test_train_and_render_clis(tmp_path, capsys):
 
 def test_unported_mip_options_raise(tmp_path):
     """Each option this slice leaves out raises, naming its ROADMAP item,
-    instead of running something else."""
+    instead of running something else; the RegNeRF regularizers and the
+    two-call step, ported since, run."""
     base = configs.Config(**CFG)
     scene = synthetic.make_scene(n_views=2, H=16, W=16).to_scene_data()
-    for kw, match in ((dict(depth_tvnorm_loss_mult=0.1),
-                       "mip regularizers"),
-                      (dict(depth_tvnorm_decay=True), "mip regularizers"),
-                      (dict(load_random_rays=True), "mip regularizers"),
-                      (dict(anneal_nearfar=True), "mip regularizers"),
-                      (dict(disable_normals=False), "mip normals")):
+    for kw in (dict(disable_normals=False),
+               dict(compute_normal_metrics=True)):
         cfg = base.replace(**kw)
-        with pytest.raises(NotImplementedError, match=match):
-            op.mip_onepass_supported(cfg)
-        with pytest.raises(NotImplementedError, match=match):
+        assert not op.mip_onepass_supported(cfg)
+        with pytest.raises(NotImplementedError, match="mip normals"):
             step_lib.build_mip_train_step(None, cfg)
-    for kw in (dict(load_random_rays=True), dict(anneal_nearfar=True)):
-        with pytest.raises(NotImplementedError, match="mip regularizers"):
-            MipBatcher(scene, base.replace(**kw))
-    with pytest.raises(NotImplementedError, match="two-call fused step"):
-        loop.select_train_step(base.replace(use_onepass_train=False), None)
+        with pytest.raises(NotImplementedError, match="mip normals"):
+            op.build_onepass_mip_train_step(cfg)
+    # The TV norm, random-pose rays and near/far annealing are ported:
+    # the gate accepts them, the batcher makes the random rays, and the
+    # dispatch's two-call step (use_onepass_train=false) builds.
+    tv = base.replace(depth_tvnorm_loss_mult=0.1, load_random_rays=True,
+                      anneal_nearfar=True, batch_size_random=64)
+    assert op.mip_onepass_supported(tv)
+    batch = MipBatcher(scene, tv, random_poses=scene.poses).next_batch()
+    assert batch["rays_random"].origins.shape == (64, 3)
+    assert loop.select_train_step(tv.replace(use_onepass_train=False),
+                                  None) is not None
     # use_pdf_kernel (kernel #9, its plain version here) is ported: the
     # step computes what the plain resampler's step computes.
     params = _params_for(base)
@@ -314,8 +317,6 @@ def test_unported_mip_options_raise(tmp_path):
                                rtol=LOSS_RTOL)
     args = ["--device", "cpu", "--set", "backbone=mipnerf", "--set",
             "dataset_type=synthetic", "--set", f"basedir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="mip regularizers"):
-        train_cli.main(args + ["--set", "load_random_rays=true"])
     (tmp_path / "exp").mkdir(exist_ok=True)
     (tmp_path / "exp" / "000100.tar").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="import_mipnerf_ckpt"):
