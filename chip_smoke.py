@@ -33,7 +33,15 @@ with the launch counts set to 0 just before it and read just after:
   hardmask flagship, against the one-pass step; the v2row render (#10);
 * the mip two-call step (disp metrics) and the one-pass mip step, both
   with the RegNeRF TV norm on 2048 random-pose rays and near/far
-  annealing, through the train CLI, guarded against the eager step.
+  annealing, through the train CLI, guarded against the eager step;
+* the v1 kernels: #12 at the render's chunk shapes and, at a small size,
+  with a skip into the heads, the use_viewdirs=False output head and
+  multires 21; #13 / #14 at the two-call step's levels (#14 bit-identical
+  across repeats); the v1 and hybrid renders (#12 for every chunk); the
+  two-call step with fused_kernel=v1 (#13, #14) and hybrid (#14) through
+  the train CLI, timed and guarded against the eager step; and the
+  reprojection hard masks on the card against the CPU. The train CLI
+  computes the hard masks on the card in every hardmask phase.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32; the kernel train step is held against the
@@ -301,9 +309,13 @@ def main() -> None:
 
     from consistentnerf_tpu_torch.ops import pdf_merge
 
+    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
+
     names = [v2.KERNEL, v2.BWD_KERNEL, op.KERNEL, fmip.KERNEL,
              fmip.BWD_KERNEL, op.MIP_KERNEL, op.RENDER_KERNEL,
-             pdf_merge.KERNEL, pdf_merge.MIP_KERNEL]
+             pdf_merge.KERNEL, pdf_merge.MIP_KERNEL, fm.KERNEL,
+             fmt.BWD_KERNEL]
     t0 = time.perf_counter()
     _build.build_all(names)
     log(f"built {', '.join(n + '.cu' for n in names)} for sm_90a in "
@@ -315,6 +327,25 @@ def main() -> None:
     log("  dynamic shared memory per block at 8x256, multires 10/4: "
         f"{v2.KERNEL} bf16 {smem(256, 10, 4, 1)} bytes, fp32 "
         f"{smem(256, 10, 4, 0)} bytes")
+    smem1 = _build.load(fm.KERNEL).fused_mlp_v1_fwd_smem_bytes
+    smem1.argtypes, smem1.restype = [ctypes.c_int] * 4, ctypes.c_int
+    plan1 = _build.load(fmt.BWD_KERNEL).fused_mlp_v1_bwd_plan
+    plan1.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for mr in (10, 21):
+        for bf, dt in ((1, "bfloat16"), (0, "float32")):
+            out = (ctypes.c_longlong * 4)()
+            plan1(983040, 8, 256, 16, mr, 4, bf, out)
+            packed = fm.pack_v1(fm.flatten_params(NeRFMLP(
+                input_ch=3 * (1 + 2 * mr))), 8, (4,), mr, 4, dt)
+            want = fm.v1_smem_bytes(packed)
+            got = (smem1(256, mr, 4, bf), out[3])
+            log(f"  v1 kernels at 8x256, multires {mr}/4, {dt}: "
+                f"{fm.KERNEL} {got[0]} bytes of shared memory, "
+                f"{fmt.BWD_KERNEL} {got[1]} bytes, {out[0]} blocks "
+                f"(the wrappers' plan: {want[0]}, {want[1]})")
+            if tuple(got) != tuple(want):
+                fail("the v1 wrappers' shared-memory plan disagrees with "
+                     "the kernels'")
     plan_b = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_plan
     plan_b.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     plan_o = _build.load(op.KERNEL).onepass_level_plan
@@ -359,6 +390,10 @@ def main() -> None:
                              render["render_ms"])
     mip_tv_phases(dev, card, configs, fm, fmip, op)
     log(f"two-call and TV phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    v1 = v1_phases(dev, card, configs, fm, v2, op, render["render_ms"],
+                   twocall["step_ms"])
+    log(f"v1 phases: {time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -379,7 +414,7 @@ def main() -> None:
     ] + mip_train["json"] + [
         switched["json"][op.RENDER_KERNEL], mip_switched["json"],
         switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]
-        + row_json}
+        + row_json + v1["json"]}
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -2503,6 +2538,402 @@ def twocall_phases(dev, card, configs, fm, v2, op, render_ms):
     del model, out, plain_out
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms}
+
+
+# The v1 slice: the launches of #12, #13, #14 per two-call step of each v1
+# kind; the small shapes of #12 beyond the production MLP (depth, skips,
+# multires, multires_views, use_viewdirs): a skip into the heads, the
+# use_viewdirs=False output head, and multires 21 (past the TPU v2
+# kernel's 20-frequency register).
+V1_LAUNCHES = {"v1": (0, 2, 2), "hybrid": (0, 0, 2)}
+V1_SHAPES = {"skip into the heads": (5, (4,), 10, 4, True),
+             "output head": (5, (4,), 10, 4, False),
+             "multires 21": (8, (4,), 21, 4, True)}
+V1_SMALL_N = 100_003
+# #12 in bf16 against its plain version: both round at the same points,
+# and a flipped rounding from the order of the fp32 sums moves an output
+# by ~2e-3 wherever it lands (2.221e-3 on the fine render chunk, 1.997e-3
+# on the coarse one, 2.509e-3 at multires 21; H100 80GB HBM3, 700 W). The
+# fine chunk's outputs average 0.180, so max|diff| / mean|plain| reads
+# 1.23e-2 there; the coarse chunk's average 0.099 and the multires-21
+# heads' 0.118, where the same flips read 2.013e-2 and 2.122e-2. These two
+# take the gates of MIP_BF16_ROW_TOL (each row's max|diff| / max|plain|,
+# and mean|diff| / mean|plain|, which a wrong rounding point moves to the
+# bf16-vs-fp32 level); every other reading keeps max|diff| / mean|plain|
+# < BF16_TOL.
+V1_SMALL_MEAN = ("coarse", "multires 21")
+
+
+def v1_fwd_gate(label, got, want, dtype, small_mean=False):
+    """Log and gate #12's [N, C] output against its plain version (see
+    V1_SMALL_MEAN); returns max|diff|."""
+    if small_mean and dtype == "bfloat16":
+        return mip_fwd_gate(label, got.T, want.T, dtype)
+    rel, mx = rel_err(got, want)
+    tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+    log(f"{label}: max|diff| {mx:.3e}, max|diff|/mean|plain| {rel:.3e} "
+        f"(tol {tol:g})")
+    gate(rel < tol, f"{label} disagrees with its plain version ({rel:.3e})")
+    return mx
+
+# The hard masks on the card against the same function on CPU tensors:
+# the share of train pixels that may differ, all of them on the boundary
+# rule (reproject.boundary_pixels).
+MASK_DIFF_SHARE = 1e-4
+
+
+def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
+    """35-40. The v1 kernels: #12 against its plain version at the
+    render's chunk shapes and at small sizes with v1's extra shapes; #13
+    and #14 at the two-call step's levels (#14 bit-identical across
+    repeats); the v1 and hybrid renders; the v1 and hybrid two-call steps
+    through the train CLI (fused_kernel=v1 / hybrid), timed and guarded
+    against the eager step; compute_hard_masks on the card against the
+    CPU."""
+    from consistentnerf_tpu_torch.consistency import reproject
+    from consistentnerf_tpu_torch.core import rendering, sampling
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from consistentnerf_tpu_torch.ops import fused_train, pdf_merge
+    from consistentnerf_tpu_torch.train import evaluation, loop
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    skips = (4,)
+    kw = dict(net_depth=8, skips=skips, multires=10, multires_views=4)
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    rcfg = configs.Config(N_samples=64, N_importance=128, white_bkgd=True,
+                          compute_dtype="bfloat16", render_chunk_size=CHUNK,
+                          use_fused_render=True, fused_kernel="v1")
+    model = make_model(rcfg, dev).eval()
+    flat = {lvl: [w.detach() for w in fm.flatten_params(getattr(model, lvl))]
+            for lvl in ("coarse", "fine")}
+    all_rays = [evaluation.camera_rays_for_view(scene, p, device=dev)
+                for p in scene.poses]
+    stacked = render_lib.stack_rays(all_rays)
+    n_rays = stacked.origins[..., 0].numel()
+
+    def row_streams(rays, z):
+        n, s = z.shape
+        pts = rays.origins[:, None] + rays.directions[:, None] * z[..., None]
+        views = rays.viewdirs[:, None].expand(n, s, 3)
+        return (pts.reshape(n * s, 3).contiguous(),
+                views.reshape(n * s, 3).contiguous())
+
+    # 35. #12 at the render's shapes: the first 8192-ray chunk of view 0,
+    # coarse (64 samples) and fine (64 + 128) levels, bf16 and fp32, with
+    # the gates of V1_SMALL_MEAN.
+    chunk = stacked.map(lambda x: x.reshape(-1, x.shape[-1])[:CHUNK])
+    with torch.no_grad():
+        z_c = sampling.vanilla_z_vals(chunk.near, chunk.far, 64, False, None)
+        pc, vc = row_streams(chunk, z_c)
+        raw_c = fm._mlp_body(pc, vc, flat["coarse"],
+                             compute_dtype="bfloat16", **kw)
+        w_c = rendering.raw2outputs(raw_c.reshape(CHUNK, -1, 4), z_c,
+                                    chunk.directions, None, True)[3]
+        z_f = pdf_merge.fine_z_vals(z_c, w_c, 128)
+        rlevels = {"fine": row_streams(chunk, z_f), "coarse": (pc, vc)}
+    if rlevels["fine"][0].shape[0] != CHUNK * 192:
+        fail(f"#12 fine chunk has {rlevels['fine'][0].shape[0]} points")
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        for lvl in ("fine", "coarse"):
+            w = fm.pack_v1(flat[lvl], compute_dtype=dtype, **kw)
+            pts, views = rlevels[lvl]
+            with torch.no_grad():
+                got = fm.fused_mlp(w, pts, views, compute_dtype=dtype, **kw)
+                torch.cuda.synchronize()
+                want = fm._mlp_body(pts, views, flat[lvl],
+                                    compute_dtype=dtype, **kw)
+            if not torch.isfinite(got).all():
+                fail(f"{fm.KERNEL} (#12) {lvl} {dtype}: non-finite output")
+            errs[("#12", lvl, dtype)] = v1_fwd_gate(
+                f"{fm.KERNEL} (#12) vs plain, render {lvl} chunk {dtype}, "
+                f"N={pts.shape[0]}", got, want, dtype,
+                small_mean=lvl == "coarse")
+            del got, want
+    # The shapes v1 takes beyond the v2 kernels, at a small size.
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pts_s = torch.rand(V1_SMALL_N, 3, generator=gen, device=dev) * 4 - 2
+    views_s = torch.nn.functional.normalize(
+        torch.randn(V1_SMALL_N, 3, generator=gen, device=dev), dim=-1)
+    for label, (depth, sk, mr, mv, uv) in V1_SHAPES.items():
+        mlp = NeRFMLP(net_depth=depth, net_width=256,
+                      input_ch=3 * (1 + 2 * mr),
+                      input_ch_views=3 * (1 + 2 * mv), skips=sk,
+                      use_viewdirs=uv, output_ch=5)
+        mlp.reset_parameters(torch.Generator().manual_seed(2))
+        ws = [x.detach().to(dev) for x in fm.flatten_params(mlp, uv, depth)]
+        skw = dict(net_depth=depth, skips=sk, multires=mr,
+                   multires_views=mv, use_viewdirs=uv)
+        for dtype in ("bfloat16", "float32"):
+            with torch.no_grad():
+                got = fm.fused_mlp(ws, pts_s, views_s, compute_dtype=dtype,
+                                   **skw)
+                torch.cuda.synchronize()
+                want = fm._mlp_body(pts_s, views_s, ws, compute_dtype=dtype,
+                                    **skw)
+            if not torch.isfinite(got).all():
+                fail(f"#12 {label} {dtype}: non-finite output")
+            v1_fwd_gate(f"{fm.KERNEL} (#12) vs plain, {label} (depth "
+                        f"{depth}, multires {mr}, out {tuple(got.shape)}) "
+                        f"{dtype}", got, want, dtype,
+                        small_mean=label in V1_SMALL_MEAN)
+    del pts_s, views_s
+
+    # 36. #13 and #14 at the two-call step's levels (softLpmask flagship,
+    # 5120 rays: coarse 327,680 and fine 983,040 points), bf16 and fp32.
+    cfg = configs.Config(**TWOCALL)
+    state = loop.init_state(cfg, dev)
+    batch = to_device(VanillaBatcher(scene, cfg).next_batch(), dev)
+    n = batch["rgb"].shape[0]
+    draws = step_lib.make_draws(
+        cfg, n, step_lib.step_generator(cfg.seed, 0, dev), dev)
+    rays = step_lib.rays_from_batch(batch, cfg.near, cfg.far)
+    tflat = {lvl: [w.detach() for w in fm.flatten_params(
+        getattr(state.model, lvl), True, cfg.netdepth)]
+        for lvl in ("coarse", "fine")}
+    with torch.no_grad():
+        z_c = sampling.vanilla_z_vals(rays.near, rays.far, cfg.N_samples,
+                                      False, draws["t_rand"])
+        pc, vc = row_streams(rays, z_c)
+        raw = fmt.plain_forward(tflat["coarse"], pc, vc,
+                                compute_dtype="bfloat16", **kw)
+        w_c = rendering.raw2outputs(raw.reshape(n, -1, 4), z_c,
+                                    rays.directions, None, True)[3]
+        z_f = pdf_merge.fine_z_vals(z_c, w_c, cfg.N_importance,
+                                    u=draws["u"], det=False)
+        levels = {"fine": row_streams(rays, z_f), "coarse": (pc, vc)}
+    g = {lvl: 1e-3 * torch.randn((x[0].shape[0], 4), generator=gen,
+                                 device=dev) for lvl, x in levels.items()}
+    log(f"v1 train kernels at the two-call step's shapes: {n} rays, coarse "
+        f"{levels['coarse'][0].shape[0]} and fine "
+        f"{levels['fine'][0].shape[0]} points")
+    for dtype in ("bfloat16", "float32"):
+        for lvl in ("fine", "coarse"):
+            w = fm.pack_v1(tflat[lvl], compute_dtype=dtype, **kw)
+            pts, views = levels[lvl]
+            with torch.no_grad():
+                got = fmt.forward(w, pts, views, compute_dtype=dtype, **kw)
+                torch.cuda.synchronize()
+                want = fmt.plain_forward(w, pts, views, compute_dtype=dtype,
+                                         **kw)
+            rel, mx = rel_err(got, want)
+            tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
+            errs[("#13", lvl, dtype)] = mx
+            log(f"{fm.KERNEL} (#13) vs plain, {lvl} {dtype}, "
+                f"N={pts.shape[0]}: max|diff| {mx:.3e}, max|diff|/mean|plain|"
+                f" {rel:.3e} (tol {tol:g})")
+            if not torch.isfinite(got).all():
+                fail(f"#13 {lvl} {dtype}: non-finite output")
+            gate(rel < tol, f"#13 {lvl} {dtype} disagrees with its plain "
+                 f"version ({rel:.3e})")
+            del got, want
+            got = fmt.backward(w, pts, views, g[lvl], compute_dtype=dtype,
+                               **kw)
+            again = fmt.backward(w, pts, views, g[lvl], compute_dtype=dtype,
+                                 **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            want = fmt.plain_backward(w, pts, views, g[lvl],
+                                      compute_dtype=dtype, **kw)
+            rel, mx = grads_err(got, want)
+            errs[("#14", lvl, dtype)] = mx
+            log(f"{fmt.BWD_KERNEL} (#14) vs plain, {lvl} {dtype}: dW "
+                f"max|diff| {mx:.3e}, max rel L2 {rel:.3e} (tol "
+                f"{TRAIN_DW_TOL[dtype]:g}); two runs bit-identical {same}")
+            if not all(torch.isfinite(x).all() for x in got):
+                fail(f"#14 {lvl} {dtype}: non-finite dW")
+            gate(rel < TRAIN_DW_TOL[dtype], f"#14 {lvl} {dtype} disagrees "
+                 f"with its plain version ({rel:.3e})")
+            gate(same, f"#14 {lvl} {dtype}: two runs differ")
+            del got, want
+            torch.cuda.empty_cache()
+
+    # Timings, bf16: #12 at the render chunk, #13 / #14 at the step's
+    # levels, the plain versions on the same inputs.
+    fwd_pp = mlp_flops_per_point(8, 256, skips, 10, 4)
+    train_pp = mlp_train_flops_per_point(8, 256, skips, 10, 4)
+    rows, times = [], {}
+    for key, kern, fn, plain, lv, wsrc, flops, extra, replaces in (
+            ("#12", fm.KERNEL, fm.fused_mlp,
+             lambda w, p, v, **k: fm._mlp_body(p, v, w, **k), rlevels, flat,
+             fwd_pp, False, "consistentnerf_tpu/ops/fused_mlp.py:187"),
+            ("#13", fm.KERNEL, fmt.forward, fmt.plain_forward, levels,
+             tflat, fwd_pp, False,
+             "consistentnerf_tpu/ops/fused_mlp_train.py:204"),
+            ("#14", fmt.BWD_KERNEL, fmt.backward, fmt.plain_backward,
+             levels, tflat, train_pp, True,
+             "consistentnerf_tpu/ops/fused_mlp_train.py:258")):
+        for lvl in ("fine", "coarse"):
+            w = fm.pack_v1(wsrc[lvl], compute_dtype="bfloat16", **kw)
+            pts, views = lv[lvl]
+            args = (w, pts, views) + ((g[lvl],) if extra else ())
+            iters = (2 if extra else 5) if lvl == "fine" else (
+                4 if extra else 10)
+            with torch.no_grad():
+                ms = time_ms(lambda: fn(*args, compute_dtype="bfloat16",
+                                       **kw), iters)
+            wbytes = (6 * (w.w.numel() + w.b.numel()) if extra else
+                      w.w.numel() * 2 + w.b.numel() * 4)
+            bound, by = bound_ms(pts.shape[0], flops, wbytes,
+                                 PEAK_BF16_FLOPS)
+            times[(key, lvl)] = (ms, bound, by)
+            log(f"{tag} {kern} ({key}) bf16 {lvl} (N={pts.shape[0]}): "
+                f"{ms:.3f} ms/launch ({1e6 * ms / pts.shape[0]:.2f} ns/point)"
+                f"; bound {bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of "
+                "it)")
+        w = fm.pack_v1(wsrc["fine"], compute_dtype="bfloat16", **kw)
+        pts, views = lv["fine"]
+        args = (w.flat, pts, views) + ((g["fine"],) if extra else ())
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: plain(*args, compute_dtype="bfloat16",
+                                             **kw), 1)
+        log(f"{tag} plain version of {key}, bf16 fine: {plain_ms:.3f} ms")
+        ms, bound, by = times[(key, "fine")]
+        rows.append(dict(
+            name=f"{kern} ({key})", route="cuda",
+            source=("consistentnerf_tpu_torch/csrc/fused_mlp_v1_bwd.cu"
+                    if extra else
+                    "consistentnerf_tpu_torch/csrc/fused_mlp_v1_fwd.cu"),
+            replaces=replaces, max_abs_err=errs[(key, "fine", "bfloat16")],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+        torch.cuda.empty_cache()
+    del levels, rlevels, g, state
+    torch.cuda.empty_cache()
+
+    # 37. The v1 and hybrid renders of the 6-view scene: #12 for every
+    # chunk and level, no #1 or #10.
+    launches = {"#12": 0, "#13": 0, "#14": 0}
+    render_ms_v1 = {}
+    for kind in fm.V1_KINDS:
+        cfg_r = rcfg.replace(fused_kernel=kind)
+        render = render_lib.build_render_fn(model, cfg_r)
+        fm.launches = v2.launches = v2.row_launches = 0
+        out = render(stacked)
+        torch.cuda.synchronize()
+        got = {"#12": fm.launches, v2.KERNEL: v2.launches,
+               v2.ROW_KERNEL: v2.row_launches}
+        expected = 2 * (-(-n_rays // CHUNK))
+        log(f"{kind} render of {len(all_rays)} views: launches {got} "
+            f"(expected {expected} of #12, none of the others)")
+        if got != {"#12": expected, v2.KERNEL: 0, v2.ROW_KERNEL: 0}:
+            fail(f"the {kind} render launched {got}")
+        launches["#12"] += expected
+        for k, shape in (("rgb", (6, 128, 128, 3)), ("depth", (6, 128, 128))):
+            if tuple(out[k].shape) != shape or not torch.isfinite(
+                    out[k]).all():
+                fail(f"{kind} render output {k}: shape "
+                     f"{tuple(out[k].shape)} or non-finite values")
+        plain_out = render_lib.build_render_fn(
+            model, cfg_r.replace(use_fused_render=False))(all_rays[0])
+        rgb_diff = (out["rgb"][0] - plain_out["rgb"]).abs().mean().item()
+        log(f"view 0, {kind} vs plain render (bf16): mean|rgb diff| "
+            f"{rgb_diff:.3e} (tol {RENDER_RGB_TOL:g})")
+        gate(rgb_diff < RENDER_RGB_TOL, f"the {kind} render disagrees with "
+             f"the plain render ({rgb_diff})")
+        ms = time_ms(lambda: render(stacked), 2)
+        render_ms_v1[kind] = ms
+        log(f"{tag} {kind} render {len(all_rays)} views: {ms:.2f} ms, "
+            f"{n_rays / ms * 1e3:.1f} rays/s; default (v2) render in this "
+            f"run {render_ms:.2f} ms ({100 * (ms / render_ms - 1):+.1f}%)")
+        del out, plain_out, render
+        torch.cuda.empty_cache()
+    del model
+
+    # 38-39. The v1 and hybrid two-call steps through the train CLI
+    # (--set fused_kernel=v1 / hybrid: 3 steps, a checkpoint, a resume),
+    # bench.py's timing, and the guards against the eager step.
+    counted = ((fm, "launches", "#12"), (fmt, "fwd_launches", "#13"),
+               (fmt, "bwd_launches", "#14"), (v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (v2, "row_launches", v2.ROW_KERNEL),
+               (v2, "row_bwd_launches", v2.ROW_BWD_KERNEL),
+               (op, "launches", op.KERNEL))
+    base_sets = ["dataset_type=synthetic",
+                 f"synthetic_views={SCENE['n_views']}",
+                 f"synthetic_hw={SCENE['H']}",
+                 "synthetic_interleave_test=false", "i_print=1",
+                 f"checkpoint_every={TRAIN_STEPS}"]
+    step_ms = {}
+    for kind, per_step in V1_LAUNCHES.items():
+        expected = {k: 0 for _, _, k in counted}
+        expected.update(zip(("#12", "#13", "#14"), per_step))
+        got, _ = cli_train_twice(
+            f"two-call step {kind}",
+            base_sets + [f"{k}={v}" for k, v in TWOCALL.items()]
+            + [f"fused_kernel={kind}"], dev, counted, expected)
+        for k in ("#13", "#14"):
+            launches[k] += got[k]
+        cfg = configs.Config(**{**TWOCALL, "fused_kernel": kind})
+        t_state = loop.init_state(cfg, dev)
+        step_fn = loop.select_train_step(cfg, t_state.model)
+        batcher = VanillaBatcher(scene, cfg)
+        batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+        step_ms[kind] = bench_steps(
+            f"two-call train step {kind} (softLpmask, "
+            f"{batches[0]['rgb'].shape[0]} rays)", tag, step_fn, t_state,
+            batches, batches[0]["rgb"].shape[0])
+        log(f"{tag} two-call step {kind} vs v2row in this run: "
+            f"{step_ms[kind]:.2f} / {twocall_ms['v2row']:.2f} ms; vs v2h "
+            f"{twocall_ms['v2h']:.2f} ms")
+        del t_state, batches
+        torch.cuda.empty_cache()
+    g_cfg = configs.Config(**{**TWOCALL, "N_rand": GUARD_N_RAND})
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+    g_draws = step_lib.make_draws(
+        g_cfg, g_batch["rgb"].shape[0],
+        step_lib.step_generator(g_cfg.seed, 0, dev), dev)
+    eager = step_lib.build_vanilla_train_step(g_state.model, g_cfg)
+    for kind in fm.V1_KINDS:
+        guard_steps(f"two-call step guard {kind} vs eager (softLpmask, "
+                    f"N_rand {GUARD_N_RAND}, bf16)",
+                    fused_train.build_fused_vanilla_train_step(
+                        g_cfg.replace(fused_kernel=kind)),
+                    eager, g_state, g_batch, g_draws)
+    del g_state
+    torch.cuda.empty_cache()
+
+    # 40. compute_hard_masks on the card for the train views of the CLI's
+    # scene split, against the same function on CPU tensors.
+    ms_scene = synthetic.make_scene(**SCENE).to_scene_data(
+        n_test=2, interleave_test=False)
+    margs = (ms_scene.poses, ms_scene.depths, ms_scene.K, ms_scene.i_train,
+             ms_scene.H, ms_scene.W)
+    got = reproject.compute_hard_masks(*margs, device=dev)
+    want = reproject.compute_hard_masks(*margs, device="cpu")
+    near = reproject.boundary_pixels(*margs, device="cpu")
+    diff = got != want
+    n_px = len(ms_scene.i_train) * ms_scene.H * ms_scene.W
+    log(f"compute_hard_masks on the card vs CPU tensors ({len(margs[3])} "
+        f"train views of {ms_scene.H}x{ms_scene.W}): {int(diff.sum())} "
+        f"pixels differ, {int((diff & ~near).sum())} of them off the "
+        f"boundary rule ({int(near.sum())} boundary pixels; tol "
+        f"{MASK_DIFF_SHARE:g} of {n_px}); on-share "
+        f"{got[ms_scene.i_train].mean():.4f}")
+    gate(not (diff & ~near).any() and diff.sum() <= MASK_DIFF_SHARE * n_px,
+         "the hard masks on the card disagree with the CPU")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        reproject.compute_hard_masks(*margs, device=dev)
+    mask_ms = 1e3 * (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()
+    reproject.compute_hard_masks(*margs, device="cpu")
+    mask_cpu_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"{tag} compute_hard_masks on the card: {mask_ms:.2f} ms per call "
+        f"(host clock, result in host memory); on CPU tensors "
+        f"{mask_cpu_ms:.2f} ms")
+    for r in rows:
+        r["launches"] = launches[r["name"].split("(")[1][:3]]
+    return {"json": rows, "step_ms": step_ms, "render_ms": render_ms_v1}
 
 
 def mip_tv_phases(dev, card, configs, fm, fmip, op):

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: config flags, device choice, fused-path defaults,
-the experiment directory."""
+"""Shared CLI plumbing: config flags, device choice, the schedule horizon,
+fused-path defaults, the experiment directory."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import argparse
 import dataclasses
 import json
 import os
+import warnings
 
 import torch
 
@@ -44,28 +45,79 @@ def explicit_keys(args) -> set:
     return explicit
 
 
+def reconcile_schedule_horizon(cfg: Config, args) -> Config:
+    """Keep `--num-steps` and the schedule horizon `total_iters` coherent
+    (the JAX package's cli/common.py::reconcile_schedule_horizon).
+
+    `--num-steps N` with `total_iters` not set explicitly (--set or a
+    config file): the horizon follows N, and `anneal_nearfar_steps` and
+    `lr_delay_steps`, where not explicit either, rescale in proportion so
+    the recipe keeps its shape. With both explicit and N below 0.2 of the
+    horizon while a schedule is active: a warning (a resumed longer run
+    may mean it), nothing changed."""
+    num_steps = getattr(args, "num_steps", None)
+    if not num_steps or num_steps == cfg.total_iters:
+        return cfg
+    explicit = explicit_keys(args)
+    if "total_iters" not in explicit:
+        old = cfg.total_iters
+        updates = {"total_iters": int(num_steps)}
+        for key in ("anneal_nearfar_steps", "lr_delay_steps"):
+            if key not in explicit:
+                val = getattr(cfg, key)
+                if 0 < val:
+                    updates[key] = max(1, round(val * num_steps / old))
+        print(
+            f"[schedule] --num-steps={num_steps} != total_iters={old}; "
+            f"rescaling schedule horizon: "
+            + ", ".join(f"{k}={v}" for k, v in updates.items())
+            + " (pass --set total_iters=... to pin the horizon explicitly)"
+        )
+        return cfg.replace(**updates)
+    schedules_active = (cfg.lr_final != cfg.lr_init) or cfg.anneal_nearfar
+    if schedules_active and num_steps < 0.2 * cfg.total_iters:
+        lr_end = cfg.lr_init * (cfg.lr_final / cfg.lr_init) ** (
+            num_steps / cfg.total_iters)
+        warnings.warn(
+            f"--num-steps={num_steps} is <20% of the explicit schedule "
+            f"horizon total_iters={cfg.total_iters}: lr will only decay "
+            f"{cfg.lr_init:g}->~{lr_end:.2g} and "
+            f"anneal_nearfar={cfg.anneal_nearfar} runs on the long horizon. "
+            "Intended only when resuming a longer run.", stacklevel=2)
+    return cfg
+
+
 def auto_fused_defaults(cfg: Config, args) -> Config:
-    """The JAX package's rule for accelerators (cli/common.py:168-197), on
+    """The JAX package's rule for accelerators (cli/common.py:146-197), on
     a CUDA device: a vanilla or mip config trains through the kernel step
     (`use_fused_train` and `use_onepass_train`) unless those were set
     explicitly, and a bfloat16 one renders through the fused kernels
     unless `use_fused_render` was. fp32 renders stay on the plain path,
-    the reference-parity default."""
+    the reference-parity default.
+
+    The predicates are the JAX package's term for term: vanilla with view
+    directions and 3*multires, 3*multires_views <= 60; mip with
+    stop_level_grad, min_deg_point 0 and 3*max_deg_point <= 60 (the train
+    step also disable_normals). One term is the port's own: its kernels
+    take widths that are multiples of 32 (`fused_mlp_v2.pack`), so a
+    config of another width keeps the plain paths."""
     vanilla_ok = (
         cfg.backbone == "vanilla"
         and cfg.use_viewdirs
-        and cfg.netwidth % 32 == 0
+        and 3 * cfg.multires <= 60
+        and 3 * cfg.multires_views <= 60
     )
     mip_render_ok = (
         cfg.backbone == "mipnerf"
         and cfg.stop_level_grad
         and cfg.min_deg_point == 0
-        and cfg.netwidth % 32 == 0
+        and 3 * cfg.max_deg_point <= 60
     )
     # The train step also needs disable_normals (the normals forward has
     # no backward); the render computes the normals in kernel 6n.
     mip_ok = mip_render_ok and cfg.disable_normals
-    if (torch.device(args.device).type != "cuda"
+    width_ok = cfg.netwidth % 32 == 0  # the port's own term
+    if (torch.device(args.device).type != "cuda" or not width_ok
             or not (vanilla_ok or mip_render_ok)):
         return cfg
     explicit = explicit_keys(args)
@@ -73,12 +125,16 @@ def auto_fused_defaults(cfg: Config, args) -> Config:
     if ("use_fused_train" not in explicit and not cfg.use_fused_train
             and (vanilla_ok or mip_ok)):
         updates["use_fused_train"] = True
+        if "fused_tile" not in explicit:
+            updates["fused_tile"] = 1024
     if ("use_onepass_train" not in explicit and not cfg.use_onepass_train
             and (cfg.use_fused_train or "use_fused_train" in updates)):
         updates["use_onepass_train"] = True
     if ("use_fused_render" not in explicit and not cfg.use_fused_render
             and fm.as_dtype(cfg.compute_dtype) == torch.bfloat16):
         updates["use_fused_render"] = True
+        if "fused_tile" not in explicit and "fused_tile" not in updates:
+            updates["fused_tile"] = 1024
     return cfg.replace(**updates) if updates else cfg
 
 

@@ -64,7 +64,7 @@ def main(argv=None):
     from consistentnerf_tpu_torch.train.evaluation import \
         camera_rays_for_view
 
-    scene = load_scene(cfg)
+    scene = load_scene(cfg, device=args.device)
     model = make_model(cfg, device)
     ckpt = find_checkpoint(exp_dir, args.step)
     if ckpt is None:

@@ -36,12 +36,13 @@ def main(argv=None):
             "--eval-after is not ported yet (ROADMAP Queue 1: eval metrics)")
     cfg = common.resolve_config(args)
     cfg = common.auto_fused_defaults(cfg, args)
+    cfg = common.reconcile_schedule_horizon(cfg, args)
     exp_dir = common.setup_experiment_dir(cfg)
 
     from consistentnerf_tpu_torch.data.loaders import load_scene
     from consistentnerf_tpu_torch.train import loop as loop_lib
 
-    scene = load_scene(cfg)
+    scene = load_scene(cfg, device=args.device)
     random_poses = None
     if cfg.backbone == "mipnerf" and cfg.load_random_rays:
         from consistentnerf_tpu_torch.data.random_poses import \

@@ -27,6 +27,7 @@ class Config:
 
     # --- dataset -----------------------------------------------------------
     dataset_type: str = "blender"  # only 'synthetic' is ported
+    train_view_num: int = 3  # names the hard-mask cache file
     synthetic_interleave_test: bool = True
     synthetic_views: int = 8
     synthetic_hw: int = 64
@@ -67,8 +68,9 @@ class Config:
     fused_tile: int = 256
     # The two-call step's fused MLP (and the fused render's forward):
     # 'v2' transposed streams (#1/#2), 'v2row' row-major (#10/#11), 'v2h'
-    # the plain forward + #11 (the render: #1); 'v1' / 'hybrid' are not
-    # ported (ROADMAP Queue 2 #12-#14).
+    # the plain forward + #11 (the render: #1), 'v1' the v1 kernels (#13
+    # forward, #14 weight grads; the render: #12), 'hybrid' the plain
+    # forward + #14 (the render: #12).
     fused_kernel: str = "v2"
     # One-pass kernel train step (MLP fwd + compositing + loss cotangents
     # + bwd in one launch per level) when use_fused_train is on.
@@ -104,7 +106,13 @@ class Config:
     # --- consistency priors ------------------------------------------------
     hardmask: bool = False
     hardmask_coef: float = 0.2
+    occlusion_threshold: float = 0.1  # reprojection |depth diff| threshold
+    # The softmask PNGs and the edge masks are not ported yet (ROADMAP
+    # Queue 1: consistency); load_scene raises for them.
     softmask: bool = False
+    softmask_K: int = 30
+    use_canny_edge_detection: bool = False
+    use_sobel_edge_detection: bool = False
     softLpmask: bool = False
     Lp_coef: float = 2.0
     with_depth_loss: bool = False

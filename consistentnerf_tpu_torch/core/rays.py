@@ -34,6 +34,8 @@ class Rays:
 
 
 def _as_tensor(x, device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 

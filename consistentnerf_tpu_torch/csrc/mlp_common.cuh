@@ -59,17 +59,21 @@ template <> __device__ inline bf16 from_f<bf16>(float v) {
 
 // Sizes of one MLP config. `ipe` selects the MipMLP's encodings (6F point
 // features, no identity); `hv` is the view layer's width (the NeRFMLP's
-// is width / 2, the MipMLP's 128 whatever its width).
+// is width / 2, the MipMLP's 128 whatever its width). A skip bit after
+// the last trunk layer (bit depth - 1, the v1 kernels only) makes the
+// heads (feature and alpha, or the output head) read [pe | h]; `oc` > 0
+// selects the use_viewdirs=False output head of `oc` channels (the v1
+// forward only) in place of the view branch.
 struct Dims {
   int depth, width, half, skip_mask, multires, multires_views, ipe;
-  int pe_real, ve_real, P, V;
+  int pe_real, ve_real, P, V, out_ch;
   __host__ __device__ Dims(int d, int w, int sm, int mr, int mv, int ip = 0,
-                           int hv = 0)
+                           int hv = 0, int oc = 0)
       : depth(d), width(w), half(hv > 0 ? hv : w / 2), skip_mask(sm),
         multires(mr), multires_views(mv), ipe(ip),
         pe_real(ip ? 6 * mr : 3 * (1 + 2 * mr)),
         ve_real(3 * (1 + 2 * mv)), P(pad16(ip ? 6 * mr : 3 * (1 + 2 * mr))),
-        V(pad16(3 * (1 + 2 * mv))) {}
+        V(pad16(3 * (1 + 2 * mv))), out_ch(oc) {}
   // Columns of the shared activation buffers (trunk and view layer).
   __host__ __device__ int act_cols() const {
     return width > half ? width : half;
@@ -80,6 +84,15 @@ struct Dims {
   __host__ __device__ int rows(int i) const {  // K_pad of trunk layer i
     return i == 0 ? P : (skip_before(i) ? P + width : width);
   }
+  // The v1 kernels (V1) take heads on [pe | h] (rows P + width) after a
+  // skip at the last trunk layer, and the output head; every other kernel
+  // is built with V1 = false, where the offsets are the view branch's on
+  // h alone.
+  __host__ __device__ bool head_skip() const { return skip_before(depth); }
+  template <bool V1 = false>
+  __host__ __device__ int head_rows() const {
+    return V1 && head_skip() ? P + width : width;
+  }
   // Packed weight offsets (elements).
   __host__ __device__ size_t w_layer(int i) const {
     size_t o = 0;
@@ -87,21 +100,33 @@ struct Dims {
     return o;
   }
   __host__ __device__ size_t w_feature() const { return w_layer(depth); }
+  template <bool V1 = false>
   __host__ __device__ size_t w_views() const {
-    return w_feature() + (size_t)width * width;
+    return w_feature() + (size_t)head_rows<V1>() * width;
   }
+  template <bool V1 = false>
   __host__ __device__ size_t w_alpha() const {
-    return w_views() + (size_t)(width + V) * half;
+    return w_views<V1>() + (size_t)(width + V) * half;
   }
-  __host__ __device__ size_t w_rgb() const { return w_alpha() + width; }
-  __host__ __device__ size_t w_total() const { return w_rgb() + 3 * half; }
+  template <bool V1 = false>
+  __host__ __device__ size_t w_rgb() const {
+    return w_alpha<V1>() + head_rows<V1>();
+  }
+  template <bool V1 = false>
+  __host__ __device__ size_t w_total() const {
+    return V1 && out_ch ? w_feature() + (size_t)out_ch * head_rows<V1>()
+                        : w_rgb<V1>() + 3 * half;
+  }
   // Packed bias offsets.
   __host__ __device__ int b_layer(int i) const { return i * width; }
   __host__ __device__ int b_feature() const { return depth * width; }
   __host__ __device__ int b_views() const { return b_feature() + width; }
   __host__ __device__ int b_alpha() const { return b_views() + half; }
   __host__ __device__ int b_rgb() const { return b_alpha() + 1; }
-  __host__ __device__ int b_total() const { return b_rgb() + 3; }
+  template <bool V1 = false>
+  __host__ __device__ int b_total() const {
+    return V1 && out_ch ? depth * width + out_ch : b_rgb() + 3;
+  }
   // Workspace columns per point: PE, VE, ACT[depth], FEAT, HV,
   // GPRE[depth], GFEAT, GHV, GRAW[4].
   __host__ __device__ size_t ws_cols() const {

@@ -32,6 +32,10 @@
 //   pts_0 .. pts_{D-1}, feature, views_0, alpha [W], rgb [3, Hv];
 // a post-skip layer's rows are [pe (P) | h (W)], views_0's rows are
 // [feature (W) | ve (V)]. Biases: one flat fp32 buffer in the same order.
+// The v1 kernels add two shapes (Dims): after a skip at the last trunk
+// layer, feature's rows and alpha are [pe (P) | h (W)] too; with an
+// output head (use_viewdirs=False) the trunk is followed by output
+// [oc, K_head] and its oc biases, and the raw output has oc rows.
 
 #pragma once
 
@@ -43,8 +47,11 @@ namespace mlp {
 // (layout L: [3, n] or [n, 3]): the raw heads of point p go to
 // out[L::at(c, off + p, ld, 4)] (c = rgb 0..2, density 3). `smem` is the
 // block's dynamic shared memory (fwd_smem_bytes); the tile ends with a
-// barrier, so a block may run tiles back to back.
-template <typename T, int M, typename Enc, typename L = ColMajor>
+// barrier, so a block may run tiles back to back. V1 compiles in the v1
+// kernels' head shapes (Dims: heads on [pe | h], the output head); the
+// other kernels are built without them.
+template <typename T, int M, typename Enc, typename L = ColMajor,
+          bool V1 = false>
 __device__ void fwd_tile(const float* __restrict__ pts,
                          const float* __restrict__ covs,
                          const float* __restrict__ views,
@@ -87,26 +94,48 @@ __device__ void fwd_tile(const float* __restrict__ pts,
     b += width;
   }
 
+  // The heads read h, or [pe | h] after a skip at the last trunk layer
+  // (the v1 kernels): two segments against the matching weight rows.
+  const bool hs = V1 && d.head_skip();
+  const int hoff = hs ? P : 0, K = hs ? P + width : width;
+  const Seg<T> h0 = hs ? Seg<T>{pe, ldp, P} : Seg<T>{h, ldh, width};
+  const Seg<T> h1 = hs ? Seg<T>{h, ldh, width} : Seg<T>{nullptr, 0, 0};
+  auto head_dot = [&](int p, const T* wc) {  // [pe | h] . wc, fp32
+    float s = 0.f;
+    if (hs)
+      for (int c = 0; c < P; ++c)
+        s = fmaf(to_f(pe[p * ldp + c]), to_f(wc[c]), s);
+    for (int c = 0; c < width; ++c)
+      s = fmaf(to_f(h[p * ldh + c]), to_f(wc[hoff + c]), s);
+    return s;
+  };
+
+  if (V1 && d.out_ch) {  // use_viewdirs=False: [pe | h] Wo^T + bo
+    for (int e = threadIdx.x; e < d.out_ch * M; e += kThreads) {
+      const int p = e % M, c = e / M;
+      if (p < valid)
+        out[L::at(c, off + p, ld, d.out_ch)] =
+            head_dot(p, w + (size_t)c * K) + b[c];
+    }
+    __syncthreads();
+    return;
+  }
+
   const int half = d.half;
   const T* wf = w;
-  const T* wv = wf + (size_t)width * width;
+  const T* wv = wf + (size_t)K * width;
   const T* wa = wv + (size_t)(width + V) * half;
-  const T* wr = wa + width;
+  const T* wr = wa + K;
   const float* bfe = b;
   const float* bv = bfe + width;
   const float* ba = bv + half;
   const float* br = ba + 1;
 
   // alpha head (fp32 out) reads h before the view layer overwrites it.
-  for (int p = threadIdx.x; p < valid; p += kThreads) {
-    float s = 0.f;
-    for (int c = 0; c < width; ++c)
-      s = fmaf(to_f(h[p * ldh + c]), to_f(wa[c]), s);
-    out[L::at(3, off + p, ld, 4)] = s + ba[0];
-  }
+  for (int p = threadIdx.x; p < valid; p += kThreads)
+    out[L::at(3, off + p, ld, 4)] = head_dot(p, wa) + ba[0];
   T* feat = (h == hx) ? hy : hx;
-  layer<M>(Seg<T>{h, ldh, width}, Seg<T>{nullptr, 0, 0}, wf, width, bfe,
-           false, feat, ldh, stage);
+  layer<M>(h0, h1, wf, width, bfe, false, feat, ldh, stage);
   __syncthreads();
   layer<M>(Seg<T>{feat, ldh, width}, Seg<T>{ve, ldv, V}, wv, half, bv, true,
            h, ldh, stage);
@@ -123,7 +152,7 @@ __device__ void fwd_tile(const float* __restrict__ pts,
   __syncthreads();
 }
 
-template <typename T, int M, typename Enc, typename L>
+template <typename T, int M, typename Enc, typename L, bool V1>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const float* __restrict__ pts, const float* __restrict__ covs,
                const float* __restrict__ views, const T* __restrict__ wflat,
@@ -131,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                int n, Dims d) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int base = blockIdx.x * M;
-  fwd_tile<T, M, Enc, L>(pts, covs, views, wflat, bflat, n, base,
+  fwd_tile<T, M, Enc, L, V1>(pts, covs, views, wflat, bflat, n, base,
                          min(M, n - base), d, smem, out, (size_t)n,
                          (size_t)base);
 }
@@ -144,17 +173,18 @@ __host__ __device__ size_t fwd_smem_bytes(const Dims& d) {
   return elems * sizeof(T) + kWarps * 256 * sizeof(float);
 }
 
-template <typename T, int M, typename Enc, typename L = ColMajor>
+template <typename T, int M, typename Enc, typename L = ColMajor,
+          bool V1 = false>
 int fwd_launch(const void* pts, const void* covs, const void* views,
                const void* w, const void* b, void* out, int n, Dims d,
                cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<T, M>(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, M, Enc, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_kernel<T, M, Enc, L, V1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n + M - 1) / M;
-  fwd_kernel<T, M, Enc, L><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, M, Enc, L, V1><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(covs),
       static_cast<const float*>(views), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<float*>(out), n, d);

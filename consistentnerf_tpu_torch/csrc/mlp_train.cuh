@@ -457,8 +457,10 @@ __device__ inline void mip_composite(const RayRows& rr, int c, int cpts, int row
 // cotangent make it. mode 5: the raw heads and the density's gradient by
 // the means go to rr.out [7, n]; no dW (part_all may be null). `covs` is
 // read by the mip encoder only. L: the layout of the point streams and of
-// g (mlp_common.cuh); the row-major layout serves mode 2 only.
-template <typename T, int MODE, typename Enc, typename L = ColMajor>
+// g (mlp_common.cuh); the row-major layout serves mode 2 only. V1 compiles
+// in the heads on [pe | h] (the v1 kernels; Dims::head_skip).
+template <typename T, int MODE, typename Enc, typename L = ColMajor,
+          bool V1 = false>
 __device__ void train_block(const float* __restrict__ pts,
                             const float* __restrict__ covs,
                             const float* __restrict__ views,
@@ -491,16 +493,20 @@ __device__ void train_block(const float* __restrict__ pts,
   T* ws_base = ws_all + (size_t)blockIdx.x * rows * d.ws_cols();
   Workspace<T> ws(ws_base, d, rows);
   float* part = MODE == 5 ? nullptr : part_all + blockIdx.x * part_stride;
-  float* pb = MODE == 5 ? nullptr : part + d.w_total();
+  float* pb = MODE == 5 ? nullptr : part + d.template w_total<V1>();
 
   if (MODE != 5)
     for (size_t j = threadIdx.x; j < part_stride; j += kThreads) part[j] = 0.f;
   __syncthreads();
 
   const T* w_f = wflat + d.w_feature();
-  const T* w_v = wflat + d.w_views();
-  const T* w_a = wflat + d.w_alpha();
-  const T* w_r = wflat + d.w_rgb();
+  const T* w_v = wflat + d.template w_views<V1>();
+  const T* w_a = wflat + d.template w_alpha<V1>();
+  const T* w_r = wflat + d.template w_rgb<V1>();
+  // The heads read h, or [pe | h] after a skip at the last trunk layer
+  // (the v1 kernels); their h rows start at row hoff.
+  const bool hs = V1 && d.head_skip();
+  const int hoff = hs ? P : 0;
   const int n_chunks = (n + cpts - 1) / cpts;
 
   for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
@@ -539,13 +545,17 @@ __device__ void train_block(const float* __restrict__ pts,
       if (MODE >= 3) {  // alpha head, fp32, before h is overwritten
         for (int p = threadIdx.x; p < M; p += kThreads) {
           float s = 0.f;
+          if (hs)
+            for (int k = 0; k < P; ++k)
+              s = fmaf(to_f(pe[p * ldp + k]), to_f(w_a[k]), s);
           for (int k = 0; k < W; ++k)
-            s = fmaf(to_f(h[p * ldh + k]), to_f(w_a[k]), s);
+            s = fmaf(to_f(h[p * ldh + k]), to_f(w_a[hoff + k]), s);
           craw[3 * rows + r0 + p] = s + bflat[d.b_alpha()];
         }
       }
       T* feat = (h == hx) ? hy : hx;
-      layer<M>(Seg<T>{h, ldh, W}, Seg<T>{nullptr, 0, 0}, w_f, W,
+      layer<M>(hs ? Seg<T>{pe, ldp, P} : Seg<T>{h, ldh, W},
+               hs ? Seg<T>{h, ldh, W} : Seg<T>{nullptr, 0, 0}, w_f, W,
                bflat + d.b_feature(), false, feat, ldh, stage);
       __syncthreads();
       save_tile<T, M>(feat, ldh, W, ws.feat, r0);
@@ -635,7 +645,8 @@ __device__ void train_block(const float* __restrict__ pts,
           const T* act = ws.act_l(i, d);
           for (int e = threadIdx.x; e < M * W; e += kThreads) {
             const int p = e / W, j = e % W;
-            float v = i == d.depth - 1 ? to_f(w_a[j]) : gf[p * ldf + j];
+            float v = i == d.depth - 1 ? to_f(w_a[hoff + j])
+                                       : gf[p * ldf + j];
             if (!(to_f(act[(size_t)(r0 + p) * W + j]) > 0.f)) v = 0.f;
             cur[p * ldh + j] = from_f<T>(v);
           }
@@ -733,8 +744,10 @@ __device__ void train_block(const float* __restrict__ pts,
         pb[d.b_feature() + j] += colsum;
       }
       __syncthreads();
-      // g_h = round(g_feat) @ Wf^T + round(g_alpha) wa, then the trunk.
-      grad_product<M>(hy, ldh, W, w_f, W, W, gf, ldf);
+      // g_h = round(g_feat) @ Wf^T + round(g_alpha) wa over the heads' h
+      // rows (their pe rows give the encoding, which takes no grad), then
+      // the trunk.
+      grad_product<M>(hy, ldh, W, w_f + (size_t)hoff * W, W, W, gf, ldf);
       __syncthreads();
       T* cur = hx;
       for (int i = d.depth - 1; i >= 0; --i) {
@@ -745,7 +758,8 @@ __device__ void train_block(const float* __restrict__ pts,
           for (int p = 0; p < M; ++p) {
             float v = gf[p * ldf + j];
             if (i == d.depth - 1)
-              v = fmaf(to_f(from_f<T>(graw[3 * M + p])), to_f(w_a[j]), v);
+              v = fmaf(to_f(from_f<T>(graw[3 * M + p])), to_f(w_a[hoff + j]),
+                       v);
             if (!(to_f(act[(size_t)(r0 + p) * W + j]) > 0.f)) v = 0.f;
             colsum += v;
             const T vr = from_f<T>(v);
@@ -780,17 +794,24 @@ __device__ void train_block(const float* __restrict__ pts,
       }
     }
     const T* h_last = ws.act_l(d.depth - 1, d);
-    dw_accumulate(h_last, W, W, ws.gfeat, W, rows, part + d.w_feature(),
-                  pe);
-    dw_accumulate(ws.feat, W, W, ws.ghv, H, rows, part + d.w_views(), pe);
+    if (hs)
+      dw_accumulate(ws.pe, P, P, ws.gfeat, W, rows, part + d.w_feature(),
+                    pe);
+    dw_accumulate(h_last, W, W, ws.gfeat, W, rows,
+                  part + d.w_feature() + (size_t)hoff * W, pe);
+    dw_accumulate(ws.feat, W, W, ws.ghv, H, rows,
+                  part + d.template w_views<V1>(), pe);
     dw_accumulate(ws.ve, V, V, ws.ghv, H, rows,
-                  part + d.w_views() + (size_t)W * H, pe);
-    for (int k = threadIdx.x; k < W; k += kThreads) {
+                  part + d.template w_views<V1>() + (size_t)W * H, pe);
+    for (int k = threadIdx.x; k < hoff + W; k += kThreads) {
+      // Row k of the heads' input: pe column k, then h column k - hoff.
+      const T* src = k < hoff ? ws.pe + k : h_last + (k - hoff);
+      const int lds = k < hoff ? P : W;
       float s = 0.f;
       for (int p = 0; p < rows; ++p)
-        s = fmaf(to_f(h_last[(size_t)p * W + k]),
+        s = fmaf(to_f(src[(size_t)p * lds]),
                  to_f(ws.graw[(size_t)p * 4 + 3]), s);
-      part[d.w_alpha() + k] += s;
+      part[d.template w_alpha<V1>() + k] += s;
     }
     for (int e = threadIdx.x; e < 3 * H; e += kThreads) {
       const int cc = e / H, j = e % H;
@@ -798,7 +819,7 @@ __device__ void train_block(const float* __restrict__ pts,
       for (int p = 0; p < rows; ++p)
         s = fmaf(to_f(ws.hv[(size_t)p * H + j]),
                  to_f(ws.graw[(size_t)p * 4 + cc]), s);
-      part[d.w_rgb() + e] += s;
+      part[d.template w_rgb<V1>() + e] += s;
     }
     __syncthreads();
   }
@@ -817,7 +838,7 @@ __global__ void mlp_train_reduce(const float* __restrict__ part, int blocks,
 
 // Grid, workspace and partial sizes of one launch. out[0] = blocks,
 // out[1] = workspace elements per block, out[2] = partial floats per block.
-template <typename T, typename K>
+template <typename T, bool V1 = false, typename K>
 int plan(K kernel, int mode, int n, int seg, const Dims& d,
          long long* out) {
   const int cpts = chunk_points(mode, seg);
@@ -836,7 +857,8 @@ int plan(K kernel, int mode, int n, int seg, const Dims& d,
   const int chunks = (n + cpts - 1) / cpts;
   out[0] = std::min(chunks, sms * per_sm);
   out[1] = (long long)rows * (long long)d.ws_cols();
-  out[2] = (d.w_total() + d.b_total() + 63) / 64 * 64;
+  out[2] = (d.template w_total<V1>() + d.template b_total<V1>() + 63) / 64 *
+           64;
   out[3] = (long long)smem;
   return 0;
 }

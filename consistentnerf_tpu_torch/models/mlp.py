@@ -54,14 +54,17 @@ class NeRFMLP(nn.Module):
             + [nn.Linear(W + input_ch if i in self.skips else W, W)
                for i in range(net_depth - 1)]
         )
+        # A skip after the last trunk layer feeds the heads [pe | h], as in
+        # the JAX NeRFMLP (at netdepth 5 with the skip after layer 4).
+        head_in = W + input_ch if net_depth - 1 in self.skips else W
         if use_viewdirs:
             self.views_linears = nn.ModuleList(
                 [nn.Linear(input_ch_views + W, W // 2)])
-            self.feature_linear = nn.Linear(W, W)
-            self.alpha_linear = nn.Linear(W, 1)
+            self.feature_linear = nn.Linear(head_in, W)
+            self.alpha_linear = nn.Linear(head_in, 1)
             self.rgb_linear = nn.Linear(W // 2, 3)
         else:
-            self.output_linear = nn.Linear(W, output_ch)
+            self.output_linear = nn.Linear(head_in, output_ch)
         # Consumed by the soft-mask losses, not by the forward pass.
         self.temp_rgb = nn.Parameter(torch.full((1,), -0.7))
         self.temp_depth = nn.Parameter(torch.full((1,), -0.7))

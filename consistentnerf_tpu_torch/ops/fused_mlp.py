@@ -1,14 +1,27 @@
-"""The NeRF MLP's flat weight list and its plain PyTorch forward.
+"""The NeRF MLP's flat weight list, its plain PyTorch forward, and the v1
+fused forward (kernel #12).
 
-`_mlp_body` is the plain version of the fused forward kernel
-(`ops/fused_mlp_v2.py`, `csrc/fused_mlp_fwd.cu`): the CPU path of the
-kernel wrapper and the yardstick the kernel is held against on the card.
-It computes the torch-Embedder PE and the 8x256 trunk, skip and view
+`_mlp_body` is the plain version of the fused forward kernels
+(`ops/fused_mlp_v2.py`, `csrc/fused_mlp_fwd.cu`, and the v1 kernels
+`csrc/fused_mlp_v1_fwd.cu` / `fused_mlp_v1_bwd.cu`): the CPU path of the
+kernel wrappers and the yardstick the kernels are held against on the
+card. It computes the torch-Embedder PE and the 8x256 trunk, skip and view
 branch with the kernel's rounding points. At `compute_dtype=bfloat16`
 every product takes bf16-rounded operands and accumulates in fp32 (the
 operands are rounded to bf16 and multiplied in fp32, which is exact), the
 biases stay fp32, trunk activations are rounded to bf16 after the ReLU,
-`feature` is rounded without one, and alpha and rgb stay fp32.
+`feature` is rounded without one, and alpha and rgb stay fp32. A skip
+after the last trunk layer makes the heads read [pe | h]; with
+`use_viewdirs=False` the output head gives [N, output_ch].
+
+`fused_mlp` is the port of `consistentnerf_tpu/ops/fused_mlp.py::
+fused_mlp` (kernel #12, the v1 render forward): [N, 3] points and view
+directions in, [N, 4] (or [N, output_ch]) out. On a CUDA tensor it
+launches `fused_mlp_v1_fwd` (or raises); on a CPU tensor it runs
+`_mlp_body`. The TPU kernel's `tile` and `interpret` arguments are Pallas
+devices and are dropped. `v1_forward` is the launch that #12 and the v1
+train forward (#13, `ops/fused_mlp_train.py`) share; `pack_v1` packs the
+weights as the v1 kernels read them.
 """
 
 from __future__ import annotations
@@ -18,6 +31,16 @@ from typing import List, Mapping, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+KERNEL = "fused_mlp_v1_fwd"  # csrc/fused_mlp_v1_fwd.cu: #12 and #13
+# The `fused_kernel` values that run the v1 kernels: "v1" (#13 and #14 in
+# the two-call step) and "hybrid" (the plain forward and #14); the fused
+# render runs #12 for both.
+V1_KINDS = ("v1", "hybrid")
+# Launches of #12 since import (or since the caller last reset it).
+launches = 0
+# Dynamic shared memory an H100 block can take (232,448 bytes).
+SMEM_LIMIT = 227 * 1024
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -114,13 +137,165 @@ def _mlp_encoded(pts_embed, views_embed, weights: Sequence[torch.Tensor],
     return torch.cat([rgb, alpha], -1)
 
 
+def cast_weight_list(weights: Sequence[torch.Tensor],
+                     compute_dtype) -> List[torch.Tensor]:
+    """Cast the kernels (even slots) of a flat weight list to the compute
+    dtype; the biases (odd slots) stay fp32, as they add into the fp32
+    accumulator."""
+    cd = as_dtype(compute_dtype)
+    return [w.to(cd) if i % 2 == 0 else w.float()
+            for i, w in enumerate(weights)]
+
+
 def reference_mlp_apply(mlp, pts, viewdirs, *, net_depth=8, skips=(4,),
                         multires=10, multires_views=4, use_viewdirs=True,
                         compute_dtype=torch.float32) -> torch.Tensor:
     """The plain forward from a NeRFMLP (or its state_dict)."""
-    weights = flatten_params(mlp, use_viewdirs, net_depth)
+    weights = cast_weight_list(flatten_params(mlp, use_viewdirs, net_depth),
+                               compute_dtype)
     return _mlp_body(
         pts, viewdirs, weights, net_depth=net_depth, skips=tuple(skips),
         multires=multires, multires_views=multires_views,
         use_viewdirs=use_viewdirs, compute_dtype=compute_dtype,
     )
+
+
+# ---------------------------------------------------------------------------
+# The v1 kernels' packing and forward launch (#12, #13)
+# ---------------------------------------------------------------------------
+
+
+# The constants of the v1 kernels' shared-memory plan under their names in
+# csrc/mlp_common.cuh and csrc/mlp_train.cuh (chip_smoke.py holds
+# `v1_smem_bytes` against the plan of the built kernels).
+K_PAD = 8  # kPad: row padding, in elements
+K_WARPS = 8  # kWarps
+K_CHUNK = 768  # kChunk: points of a train chunk
+K_DW_STAGE_BYTES = 64 * (256 + 8 + 64 + 8) * 2  # kDwStageBytes (bf16)
+
+
+def v1_smem_bytes(packed) -> tuple:
+    """(forward, train) dynamic shared memory of one v1 block, in bytes:
+    the plans of `csrc/mlp_fwd.cuh::fwd_smem_bytes` (tiles of 128 points
+    in bf16, 64 in fp32) and `csrc/mlp_train.cuh::smem_bytes` (sub-tiles
+    of 64 / 32 points, K_CHUNK-point chunks; in bf16 at least the dW
+    pass's staging buffer)."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    bf16 = packed.compute_dtype == torch.bfloat16
+    elem = 2 if bf16 else 4
+    p, v = (v2._pad16(x) for x in v2.enc_widths(
+        "pe", packed.multires, packed.multires_views))
+    act = max(packed.width, packed.view_width)
+
+    def tiles(m):
+        return m * (p + K_PAD) + m * (v + K_PAD) + 2 * m * (act + K_PAD)
+
+    fwd = tiles(128 if bf16 else 64) * elem + K_WARPS * 256 * 4
+    m = 64 if bf16 else 32
+    train = tiles(m) * elem + 4 * (m * (packed.width + 4) + K_WARPS * 256
+                                   + 4 * m + 5 * K_CHUNK)
+    return fwd, max(train, K_DW_STAGE_BYTES if bf16 else 0)
+
+
+def pack_v1(weights: Sequence[torch.Tensor], net_depth: int, skips,
+            multires: int, multires_views: int, compute_dtype,
+            use_viewdirs: bool = True):
+    """The torch-layout list -> a `fused_mlp_v2.PackedMLP` for the v1
+    kernels: heads on [pe | h] after a skip at the last trunk layer and,
+    with use_viewdirs=False, the output head.
+
+    Limits that stay, each raised here with its reason: a width that is a
+    multiple of 32 and a view width that is a multiple of 16 (the wmma
+    tiles of the walk), and an encoding that fits the shared-memory plan
+    (227 KB a block: at width 256 and 4 view frequencies, multires <= 47;
+    multires 21 gives P = 144 columns and a 192,512-byte forward block in
+    bf16)."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    packed = v2.pack(weights, net_depth, skips, multires, multires_views,
+                     compute_dtype, v1=True, use_viewdirs=use_viewdirs)
+    fwd, train = v1_smem_bytes(packed)
+    if max(fwd, train) > SMEM_LIMIT:
+        raise ValueError(
+            f"multires {multires} / {multires_views} at width "
+            f"{packed.width}: the v1 kernels' shared-memory plan takes "
+            f"{max(fwd, train)} bytes a block, past the {SMEM_LIMIT} an "
+            "H100 block can have")
+    return packed
+
+
+def v1_packed_for(weights, net_depth, skips, multires, multires_views, cd,
+                  use_viewdirs=True):
+    """`weights` (a flat list or a v1 PackedMLP) as a v1 PackedMLP."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    if isinstance(weights, v2.PackedMLP):
+        v2._packed_for(weights, net_depth, skips, multires, multires_views,
+                       cd, v1=True)
+        if (weights.out_ch == 0) != use_viewdirs:
+            raise ValueError("PackedMLP was packed for another head")
+        return weights
+    return pack_v1(weights, net_depth, skips, multires, multires_views, cd,
+                   use_viewdirs)
+
+
+def pack_for(kind: str, weights, net_depth, skips, multires, multires_views,
+             compute_dtype):
+    """The flat list packed once for the kernels of `fused_kernel=kind`:
+    `pack_v1` for the v1 kinds, `fused_mlp_v2.pack` otherwise."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    pack = pack_v1 if kind in V1_KINDS else v2.pack
+    return pack(weights, net_depth, skips, multires, multires_views,
+                compute_dtype)
+
+
+def v1_forward(packed, pts: torch.Tensor, views: torch.Tensor):
+    """Launch `fused_mlp_v1_fwd` on CUDA [N, 3] streams (views unread with
+    the output head): (raw [N, 4] or [N, out_ch], whether a kernel was
+    launched: not for N = 0). Counts nothing: each caller counts the
+    kernel it serves (#12 or #13)."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    return v2.fwd_launch(KERNEL, KERNEL, packed, pts, views, True,
+                         (packed.out_ch,))
+
+
+def fused_mlp(weights, pts: torch.Tensor, viewdirs: torch.Tensor, *,
+              net_depth: int = 8, skips=(4,), multires: int = 10,
+              multires_views: int = 4, use_viewdirs: bool = True,
+              compute_dtype=torch.float32) -> torch.Tensor:
+    """The NeRF MLP on [N, 3] points (+ view directions): raw [N, 4], or
+    [N, output_ch] with use_viewdirs=False. Kernel #12.
+
+    `weights`: the flat torch-layout list (`flatten_params`) or a v1
+    `PackedMLP` (`pack_v1`, packed once by a caller that renders many
+    chunks). CPU tensors take the plain version `_mlp_body`; CUDA tensors
+    launch the kernel or raise."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    if not isinstance(weights, (list, tuple, v2.PackedMLP)):
+        raise TypeError("fused_mlp takes the flat weight list "
+                        "(flatten_params) or a PackedMLP (pack_v1), not "
+                        f"{type(weights).__name__}")
+    cd = as_dtype(compute_dtype)
+    skips = tuple(sorted(skips))
+    if pts.device.type == "cpu":
+        if isinstance(weights, v2.PackedMLP):
+            v1_packed_for(weights, net_depth, skips, multires,
+                          multires_views, cd, use_viewdirs)
+            weights = weights.flat
+        return _mlp_body(pts, viewdirs, weights, net_depth=net_depth,
+                         skips=skips, multires=multires,
+                         multires_views=multires_views,
+                         use_viewdirs=use_viewdirs, compute_dtype=cd)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no fused forward for device {pts.device}")
+    packed = v1_packed_for(weights, net_depth, skips, multires,
+                           multires_views, cd, use_viewdirs)
+    out, launched = v1_forward(packed, pts,
+                               viewdirs if use_viewdirs else pts)
+    global launches
+    launches += launched
+    return out

@@ -86,6 +86,14 @@ class PackedMLP:
     # Output width of the view layer: width / 2 in the NeRFMLP, 128 in
     # the MipMLP whatever its width.
     view_width: int = 0
+    # Packed for the v1 kernels (#12-#14), which also take heads on
+    # [pe | h] (a skip at the last trunk layer) and, with out_ch > 0, the
+    # use_viewdirs=False output head of out_ch channels.
+    v1: bool = False
+    out_ch: int = 0
+
+    def head_skip(self) -> bool:
+        return self.net_depth - 1 in self.skips
 
     def config(self):
         return (self.net_depth, self.skips, self.multires,
@@ -122,7 +130,8 @@ def _skip_cols(w: torch.Tensor, pe_real: int, encoder: str):
 
 def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
          multires: int, multires_views: int, compute_dtype,
-         encoder: str = "pe") -> PackedMLP:
+         encoder: str = "pe", v1: bool = False,
+         use_viewdirs: bool = True) -> PackedMLP:
     """Torch-layout weight list -> the kernel's flat weight/bias buffers.
 
     Per layer W^T [K_pad, N] with K padded to a multiple of 16 by zero
@@ -132,14 +141,25 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
     `csrc/fused_mlp_fwd.cu` and the kernels that share its walk. A
     MipMLP's list (`fused_mip.flatten_mip_params`: trunk, density,
     bottleneck, view layer, rgb) has the same order and shapes, with
-    `encoder="ipe"`."""
+    `encoder="ipe"`.
+
+    `v1=True` packs for the v1 kernels (`csrc/fused_mlp_v1_*.cu`), which
+    also take a skip after the last trunk layer (feature's rows and alpha
+    are then [pe | h] as well) and, with `use_viewdirs=False`, the output
+    head: output [oc, K_head] after the trunk instead of the view branch
+    (the forward #12 only)."""
     cd = fm.as_dtype(compute_dtype)
     skips = tuple(sorted(skips))
-    if len(weights) != 2 * net_depth + 8:
-        raise ValueError("fused forward needs the view-direction MLP "
-                         f"({2 * net_depth + 8} tensors, got {len(weights)})")
-    if any(s < 0 or s >= net_depth - 1 for s in skips):
-        raise ValueError(f"skips {skips} must lie in [0, {net_depth - 1})")
+    if not use_viewdirs and not v1:
+        raise ValueError("the v2 kernels need the view-direction MLP")
+    n_head = 8 if use_viewdirs else 2
+    if len(weights) != 2 * net_depth + n_head:
+        raise ValueError(f"the fused MLP takes {2 * net_depth + n_head} "
+                         f"tensors here, got {len(weights)}")
+    last = net_depth if v1 else net_depth - 1
+    if any(s < 0 or s >= last for s in skips):
+        hint = "" if v1 else "; the v1 kernels take a skip into the heads"
+        raise ValueError(f"skips {skips} must lie in [0, {last}){hint}")
     flat = [w.detach().float() for w in weights]
     width = flat[0].shape[0]
     pe_real, ve_real = enc_widths(encoder, multires, multires_views)
@@ -147,6 +167,7 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         raise ValueError(f"width {width} must be a multiple of 32 and the "
                          f"first layer must take {pe_real} PE features")
     p, v = _pad16(pe_real), _pad16(ve_real)
+    hs = net_depth - 1 in skips
     ws, bs = [], []
     for i in range(net_depth):
         w, b = flat[2 * i], flat[2 * i + 1]
@@ -158,21 +179,40 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         else:
             ws.append(w.T)
         bs.append(b)
-    wa, ba, wf, bf, wv, bv, wr, br = flat[2 * net_depth:]
-    if wv.shape[1] != width + ve_real:
-        raise ValueError(f"views_0 must take {width} + {ve_real} features")
-    if wv.shape[0] % 16:
-        raise ValueError(f"the view layer's width {wv.shape[0]} must be a "
-                         "multiple of 16")
-    ws += [wf.T, wv[:, :width].T, _rows(wv[:, width:].T, v), wa, wr]
-    bs += [bf, bv, ba, br]
+
+    def head(w):  # a head's torch weight [out, K] -> rows [K_pad, out]
+        if w.shape[1] != (pe_real + width if hs else width):
+            raise ValueError(f"a head takes {w.shape[1]} features; the "
+                             f"trunk gives {pe_real + width if hs else width}")
+        if not hs:
+            return w.T
+        return torch.cat([_rows(w[:, :pe_real].T, p), w[:, pe_real:].T], 0)
+
+    out_ch = view_width = 0
+    if not use_viewdirs:
+        wo, bo = flat[2 * net_depth:]
+        ws.append(head(wo).T)
+        bs.append(bo)
+        out_ch = wo.shape[0]
+    else:
+        wa, ba, wf, bf, wv, bv, wr, br = flat[2 * net_depth:]
+        if wv.shape[1] != width + ve_real:
+            raise ValueError(f"views_0 must take {width} + {ve_real} "
+                             "features")
+        if wv.shape[0] % 16:
+            raise ValueError(f"the view layer's width {wv.shape[0]} must be "
+                             "a multiple of 16")
+        ws += [head(wf), wv[:, :width].T, _rows(wv[:, width:].T, v),
+               head(wa), wr]
+        bs += [bf, bv, ba, br]
+        view_width = wv.shape[0]
     return PackedMLP(
         flat=flat,
         w=torch.cat([x.reshape(-1) for x in ws]).to(cd).contiguous(),
         b=torch.cat([x.reshape(-1) for x in bs]).contiguous(),
         net_depth=net_depth, width=width, skips=skips, multires=multires,
         multires_views=multires_views, compute_dtype=cd, encoder=encoder,
-        view_width=wv.shape[0],
+        view_width=view_width, v1=v1, out_ch=out_ch,
     )
 
 
@@ -219,14 +259,20 @@ def packed_reference_T(packed: PackedMLP, pts_T: torch.Tensor,
             x = h
         wt = take("w", w, x.shape[1] * width).view(-1, width)
         h = fm._round(torch.relu(x @ wt + take("b", b, width)), cd)
-    wf = take("w", w, width * width).view(width, width)
+    xh = torch.cat([pe, h], 1) if packed.head_skip() else h
+    k = xh.shape[1]
+    if packed.out_ch:
+        oc = packed.out_ch
+        wo = take("w", w, oc * k).view(oc, k)
+        return (xh @ wo.T + take("b", b, oc)).T
+    wf = take("w", w, k * width).view(k, width)
     wv = take("w", w, (width + ve.shape[1]) * half).view(-1, half)
-    wa = take("w", w, width)
+    wa = take("w", w, k)
     wr = take("w", w, 3 * half).view(3, half)
     bf, bv = take("b", b, width), take("b", b, half)
     ba, br = take("b", b, 1), take("b", b, 3)
-    alpha = h @ wa + ba
-    feat = fm._round(h @ wf + bf, cd)
+    alpha = xh @ wa + ba
+    feat = fm._round(xh @ wf + bf, cd)
     hv = fm._round(torch.relu(torch.cat([feat, ve], 1) @ wv + bv), cd)
     rgb = hv @ wr.T + br
     return torch.cat([rgb.T, alpha[None]], 0)
@@ -282,27 +328,38 @@ def _fwd(row: bool, weights, pts, views, net_depth, skips, multires,
         raise ValueError(f"no fused forward for device {pts.device}")
     packed = _packed_for(weights, net_depth, skips, multires,
                          multires_views, cd)
+    out, launched = fwd_launch(KERNEL, ROW_KERNEL if row else KERNEL,
+                               packed, pts, views, row)
+    global launches, row_launches
+    if launched and row:
+        row_launches += 1
+    elif launched:
+        launches += 1
+    return out
+
+
+def fwd_launch(lib: str, symbol: str, packed: PackedMLP, pts, views,
+               row: bool, extra=()):
+    """Launch the forward kernel `symbol` of library `lib` on CUDA
+    streams of either layout, with `extra` ints after the config's: (raw
+    [N, C] or [C, N], C = 4 or the output head's channels; whether a
+    kernel was launched: not for N = 0)."""
     n, dev = pts.shape[0 if row else 1], pts.device
     for name, t in (("pts", pts), ("views", views)):
         _check_stream(name, t, 3, n, dev, row)
     _check_weights(packed, dev)
-    out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
+    c = packed.out_ch or 4
+    out = torch.empty((n, c) if row else (c, n), dtype=torch.float32,
                       device=dev)
     if n == 0:
-        return out
-    symbol = ROW_KERNEL if row else KERNEL
-    err = _entry(KERNEL, symbol, 5, 7)(
+        return out, False
+    err = _entry(lib, symbol, 5, 7 + len(extra))(
         pts.data_ptr(), views.data_ptr(), packed.w.data_ptr(),
-        packed.b.data_ptr(), out.data_ptr(), n, *_cfg_ints(packed),
+        packed.b.data_ptr(), out.data_ptr(), n, *_cfg_ints(packed), *extra,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
-    global launches, row_launches
-    if row:
-        row_launches += 1
-    else:
-        launches += 1
-    return out
+    return out, True
 
 
 def fwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
@@ -333,8 +390,12 @@ def _block_shapes(packed: PackedMLP):
                                  else width)
         ws.append((f"pts_{i}", rows, width))
         bs.append((f"pts_{i}", width))
-    ws += [("feature", width, width), ("views_0", width + v, half),
-           ("alpha", width, 1), ("rgb", 3, half)]
+    k = p + width if packed.head_skip() else width  # the heads' rows
+    if packed.out_ch:
+        return (ws + [("output", packed.out_ch, k)],
+                bs + [("output", packed.out_ch)])
+    ws += [("feature", k, width), ("views_0", width + v, half),
+           ("alpha", k, 1), ("rgb", 3, half)]
     bs += [("feature", width), ("views_0", half), ("alpha", 1), ("rgb", 3)]
     return ws, bs
 
@@ -379,8 +440,14 @@ def unpack_grads(packed: PackedMLP, dw: torch.Tensor,
             g = blk
         out += [g.T.contiguous(), b[f"pts_{i}"].clone()]
     views = w["views_0"]
-    out += [w["alpha"].reshape(1, width).clone(), b["alpha"].clone(),
-            w["feature"].T.contiguous(), b["feature"].clone(),
+
+    def head(blk):  # the heads' rows [K_pad, out] -> [K, out]
+        if not packed.head_skip():
+            return blk
+        return torch.cat([blk[:pe_real], blk[p:]], 0)
+
+    out += [head(w["alpha"]).reshape(1, -1).clone(), b["alpha"].clone(),
+            head(w["feature"]).T.contiguous(), b["feature"].clone(),
             torch.cat([views[:width], views[width: width + ve_real]],
                       0).T.contiguous(), b["views_0"].clone(),
             w["rgb"].clone(), b["rgb"].clone()]
@@ -413,10 +480,11 @@ def packed_forward_saved(packed: PackedMLP, pts_T, views_T, covs_T=None):
             x = h
         h = fm._round(torch.relu(x @ w[f"pts_{i}"] + b[f"pts_{i}"]), cd)
         acts.append(h)
-    feat = fm._round(h @ w["feature"] + b["feature"], cd)
+    xh = torch.cat([pe, h], 1) if packed.head_skip() else h
+    feat = fm._round(xh @ w["feature"] + b["feature"], cd)
     hv = fm._round(torch.relu(torch.cat([feat, ve], 1) @ w["views_0"]
                               + b["views_0"]), cd)
-    alpha = h @ w["alpha"][:, 0] + b["alpha"]
+    alpha = xh @ w["alpha"][:, 0] + b["alpha"]
     rgb = hv @ w["rgb"].T + b["rgb"]
     raw = torch.cat([rgb.T, alpha[None]], 0)
     return raw, dict(pe=pe, ve=ve, acts=acts, feat=feat, hv=hv)
@@ -434,19 +502,23 @@ def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
 
     pe, ve, acts = saved["pe"], saved["ve"], saved["acts"]
     feat, hv, h_last = saved["feat"], saved["hv"], saved["acts"][-1]
+    # The heads' input, and where its h rows start in their weights.
+    hoff = pe.shape[1] if packed.head_skip() else 0
+    x_head = torch.cat([pe, h_last], 1) if hoff else h_last
     g_rgb, g_a = g_T[:3].T.float(), g_T[3].float()
     gr_r, ga_r = rnd(g_rgb), rnd(g_a)
     dw, db = {}, {}
     dw["rgb"], db["rgb"] = gr_r.T @ hv, g_rgb.sum(0)
-    dw["alpha"], db["alpha"] = (h_last.T @ ga_r)[:, None], g_a.sum()[None]
+    dw["alpha"], db["alpha"] = (x_head.T @ ga_r)[:, None], g_a.sum()[None]
     g_hv = (gr_r @ w["rgb"]) * (hv > 0)
     g_hv_r = rnd(g_hv)
     dw["views_0"] = torch.cat([feat, ve], 1).T @ g_hv_r
     db["views_0"] = g_hv.sum(0)
     g_feat = g_hv_r @ w["views_0"][: packed.width].T
     g_feat_r = rnd(g_feat)
-    dw["feature"], db["feature"] = h_last.T @ g_feat_r, g_feat.sum(0)
-    g_h = g_feat_r @ w["feature"].T + ga_r[:, None] * w["alpha"][:, 0]
+    dw["feature"], db["feature"] = x_head.T @ g_feat_r, g_feat.sum(0)
+    g_h = (g_feat_r @ w["feature"][hoff:].T
+           + ga_r[:, None] * w["alpha"][hoff:, 0])
     p = pe.shape[1]
     for i in reversed(range(depth)):
         g_pre = g_h * (acts[i] > 0)
@@ -522,14 +594,14 @@ def train_buffers(plan_fn, args, packed: PackedMLP, device):
 
 
 def _packed_for(weights, net_depth, skips, multires, multires_views, cd,
-                encoder="pe"):
+                encoder="pe", v1=False):
     if isinstance(weights, PackedMLP):
-        if weights.config() != (net_depth, skips, multires, multires_views,
-                                cd, encoder):
+        if (weights.config() != (net_depth, skips, multires, multires_views,
+                                 cd, encoder) or weights.v1 != v1):
             raise ValueError("PackedMLP was packed for another config")
         return weights
     return pack(weights, net_depth, skips, multires, multires_views, cd,
-                encoder)
+                encoder, v1=v1)
 
 
 def _bwd(row: bool, weights, pts, views, g, net_depth, skips, multires,
@@ -549,6 +621,22 @@ def _bwd(row: bool, weights, pts, views, g, net_depth, skips, multires,
         raise ValueError(f"no fused backward for device {pts.device}")
     packed = _packed_for(weights, net_depth, skips, multires,
                          multires_views, cd)
+    symbol = ROW_BWD_KERNEL if row else BWD_KERNEL
+    grads, launched = dw_launch(BWD_KERNEL, symbol, packed, pts, views, g,
+                                row)
+    global bwd_launches, row_bwd_launches
+    if launched and row:
+        row_bwd_launches += 1
+    elif launched:
+        bwd_launches += 1
+    return grads
+
+
+def dw_launch(lib: str, symbol: str, packed: PackedMLP, pts, views, g,
+              row: bool):
+    """Launch the weight-grad kernel `symbol` of library `lib` (sized by
+    its `{symbol}_plan`) on CUDA streams of either layout: (the
+    torch-layout grads, whether a kernel was launched: not for N = 0)."""
     n, dev = pts.shape[0 if row else 1], pts.device
     for name, t, rows in (("pts", pts, 3), ("views", views, 3),
                           ("g", g, 4)):
@@ -557,23 +645,17 @@ def _bwd(row: bool, weights, pts, views, g, net_depth, skips, multires,
     n_w, n_b = grad_numel(packed)
     if n == 0:
         zeros = torch.zeros(n_w + n_b, device=dev)
-        return unpack_grads(packed, zeros[:n_w], zeros[n_w:])
+        return unpack_grads(packed, zeros[:n_w], zeros[n_w:]), False
     cfg_args = _cfg_ints(packed)
-    symbol = ROW_BWD_KERNEL if row else BWD_KERNEL
-    ws, part, dw = train_buffers(_entry(BWD_KERNEL, symbol + "_plan", 0, 7),
+    ws, part, dw = train_buffers(_entry(lib, symbol + "_plan", 0, 7),
                                  (n, *cfg_args), packed, dev)
-    err = _entry(BWD_KERNEL, symbol, 8, 7)(
+    err = _entry(lib, symbol, 8, 7)(
         pts.data_ptr(), views.data_ptr(), g.data_ptr(), packed.w.data_ptr(),
         packed.b.data_ptr(), ws.data_ptr(), part.data_ptr(), dw.data_ptr(),
         n, *cfg_args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
-    global bwd_launches, row_bwd_launches
-    if row:
-        row_bwd_launches += 1
-    else:
-        bwd_launches += 1
-    return unpack_grads(packed, dw[:n_w], dw[n_w:])
+    return unpack_grads(packed, dw[:n_w], dw[n_w:]), True
 
 
 def bwd_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,

@@ -52,9 +52,18 @@ launches = 0
 
 
 def model_skips(net_depth: int, skips=(4,)) -> tuple:
-    """The skips that take effect at this depth (a skip after the last
-    trunk layer feeds nothing)."""
-    return tuple(s for s in skips if s + 1 < net_depth)
+    """The skips that take effect at this depth. A skip after the last
+    trunk layer feeds the heads [pe | h], as in the JAX NeRFMLP."""
+    return tuple(s for s in skips if s < net_depth)
+
+
+def heads_read_pe(net_depth: int, skips=(4,)) -> bool:
+    """Whether a skip follows the last trunk layer, so the heads read
+    [pe | h] (netdepth 5 with the NeRFMLP's skip after layer 4). Only the
+    v1 kernels (#12-#14) take that shape; the v2 walks (#1-#4, #10, #11)
+    read heads on h alone, and the JAX package's v2 kernels fail on it
+    with a shape error, so the dispatch sends such a config elsewhere."""
+    return net_depth - 1 in model_skips(net_depth, skips)
 
 
 def _rep_row(per_ray: torch.Tensor, seg: int) -> torch.Tensor:

@@ -7,8 +7,9 @@ transposed [3, N*S] point streams, so each point costs 6 floats in and 4
 out of device memory instead of a 90-float encoding plus every layer's
 activations. `kernel` picks the forward as the JAX render does:
 "v2" and "v2h" the transposed #1, "v2row" the row-major #10
-(`fused_mlp_v2.fwd` on [N*S, 3] streams, compositing by `raw2outputs`);
-the v1 forward ("v1", "hybrid") is not ported (ROADMAP Queue 2 #12-#14).
+(`fused_mlp_v2.fwd` on [N*S, 3] streams, compositing by `raw2outputs`),
+"v1" and "hybrid" the v1 forward #12 (`fused_mlp.fused_mlp` on row-major
+streams, compositing by `raw2outputs`).
 With `onepass` each level runs `ops/fused_onepass.render_level_T`
 (kernel #4), which composites inside the kernel and writes six per-ray
 rows instead of the raw stream, whatever `kernel` names (as in the JAX
@@ -23,9 +24,13 @@ from typing import Dict, Mapping
 import torch
 
 from consistentnerf_tpu_torch.core import rendering, sampling
+from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.ops import pdf_merge
+
+
+KERNELS = ("v2", "v2h", "v2row") + fm.V1_KINDS
 
 
 def fused_render_rays(
@@ -49,11 +54,10 @@ def fused_render_rays(
 
     `params`: {'coarse': w, 'fine': w} where each w is the flat
     torch-layout weight list or a `fused_mlp_v2.PackedMLP` (packed once by
-    the caller); 'fine' defaults to 'coarse'."""
-    if not onepass and kernel not in ("v2", "v2h", "v2row"):
-        raise NotImplementedError(
-            f"fused render kernel={kernel!r}: the v1 forward is not ported "
-            "yet (ROADMAP Queue 2 #12-#14)")
+    the caller, `fused_mlp.pack_for`); 'fine' defaults to 'coarse'."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown fused render kernel {kernel!r}; one of "
+                         f"{KERNELS}")
     coarse_w = params["coarse"]
     fine_w = params.get("fine", coarse_w)
     origins, directions, viewdirs = rays.origins, rays.directions, \
@@ -65,12 +69,19 @@ def fused_render_rays(
     def eval_level(weights, z_vals):
         """(rgb, disp, acc, weights, depth) of one level."""
         s = z_vals.shape[1]
-        if not onepass and kernel == "v2row":
+        if not onepass and kernel in ("v2row",) + fm.V1_KINDS:
             pts = (origins[:, None] + directions[:, None] * z_vals[..., None])
             views = viewdirs[:, None].expand(n, s, 3)
-            raw = v2.fwd(weights, pts.reshape(n * s, 3).contiguous(),
-                         views.reshape(n * s, 3).contiguous(), net_depth,
-                         skips, multires, multires_views, compute_dtype)
+            pts = pts.reshape(n * s, 3).contiguous()
+            views = views.reshape(n * s, 3).contiguous()
+            if kernel == "v2row":
+                raw = v2.fwd(weights, pts, views, net_depth, skips, multires,
+                             multires_views, compute_dtype)
+            else:
+                raw = fm.fused_mlp(weights, pts, views, net_depth=net_depth,
+                                   skips=skips, multires=multires,
+                                   multires_views=multires_views,
+                                   compute_dtype=compute_dtype)
             return rendering.raw2outputs(raw.reshape(n, s, 4), z_vals,
                                          directions, None, white_bkgd)
         pts_T, views_T = op._pts_views(origins.T, directions.T, viewdirs.T,

@@ -11,7 +11,9 @@ with both levels' MLPs through a differentiable fused op picked by
            compositing by `raw2outputs`;
   "v2h"    `hybrid_mlp_v2_train`: the plain forward (no kernel, as the
            JAX package's XLA forward) and #11;
-  "v1", "hybrid" are not ported (ROADMAP Queue 2 #12-#14) and raise.
+  "v1"     `fused_mlp_train.fused_mlp_train` on row-major streams (the v1
+           kernels #13, #14), compositing by `raw2outputs`;
+  "hybrid" `fused_mlp_train.hybrid_mlp_train`: the plain forward and #14.
 The fine depths come from `pdf_merge.fine_z_vals` (kernel #8 with
 `use_pdf_kernel`). `build_fused_vanilla_train_step` (the JAX module's
 step of the same name) runs it with the losses, autograd and the
@@ -47,6 +49,7 @@ from consistentnerf_tpu_torch.core import rendering, sampling
 from consistentnerf_tpu_torch.models.mlp import softplus
 from consistentnerf_tpu_torch.ops import fused_mip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
+from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import pdf_merge
 from consistentnerf_tpu_torch.ops.fused_onepass import model_skips
@@ -58,15 +61,16 @@ _VANILLA_OPS = {
     "v2": (v2.fused_mlp_v2_train_T, True),
     "v2row": (v2.fused_mlp_v2_train, False),
     "v2h": (v2.hybrid_mlp_v2_train, False),
+    "v1": (fmt.fused_mlp_train, False),
+    "hybrid": (fmt.hybrid_mlp_train, False),
 }
 
 
 def vanilla_op(kind: str):
-    """(op, transposed) of `cfg.fused_kernel`; the v1 kernels raise."""
+    """(op, transposed) of `cfg.fused_kernel`."""
     if kind not in _VANILLA_OPS:
-        raise NotImplementedError(
-            f"fused_kernel={kind!r}: the v1 fused MLP kernels are not ported "
-            "yet (ROADMAP Queue 2 #12-#14); use 'v2', 'v2row' or 'v2h'")
+        raise ValueError(f"unknown fused_kernel {kind!r}; one of "
+                         f"{sorted(_VANILLA_OPS)}")
     return _VANILLA_OPS[kind]
 
 
@@ -158,8 +162,9 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
                                          net_depth) for lvl in _levels(cfg)}
         packed = None
         if dev.type == "cuda":
-            packed = {lvl: v2.pack(w, net_depth, skips, cfg.multires,
-                                   cfg.multires_views, cdt)
+            packed = {lvl: fm.pack_for(cfg.fused_kernel, w, net_depth,
+                                       skips, cfg.multires,
+                                       cfg.multires_views, cdt)
                       for lvl, w in params.items()}
         outputs = fused_vanilla_forward(params, draws, rays, cfg, packed)
         if cfg.use_noise:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -57,19 +58,44 @@ def select_train_step(cfg, model, lpips_params=None):
     with use_fused_train, the one-pass kernel step where the config's
     exact loss is supported (`onepass_supported`,
     `mip_onepass_supported`), else the two-call fused step
-    (`ops/fused_train.py`); the eager step when use_fused_train is off."""
+    (`ops/fused_train.py`); the eager step when use_fused_train is off.
+    Where the heads read [pe | h] (netdepth 5) only the v1 kernels take
+    them: the dispatch warns and trains a v2 kind on the eager step and a
+    v1 kind on its two-call step instead of the one-pass kernel."""
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
 
     if cfg.backbone == "mipnerf":
         return _select_mip_train_step(cfg, model)
-    if cfg.use_fused_train:
-        if cfg.use_onepass_train and fused_onepass.onepass_supported(cfg):
-            return fused_onepass.build_onepass_vanilla_train_step(
-                cfg, lpips_params=lpips_params)
-        return fused_train.build_fused_vanilla_train_step(
+    if not cfg.use_fused_train:
+        return step_lib.build_vanilla_train_step(model, cfg,
+                                                 lpips_params=lpips_params)
+    onepass = cfg.use_onepass_train and fused_onepass.onepass_supported(cfg)
+    if fused_onepass.heads_read_pe(cfg.netdepth):
+        # The port's own gate: only the v1 kernels take the widened heads
+        # (the JAX package's v2 and one-pass kernels fail there with a
+        # shape error).
+        if cfg.fused_kernel not in fm.V1_KINDS:
+            warnings.warn(
+                f"use_fused_train with fused_kernel={cfg.fused_kernel!r} at "
+                f"netdepth {cfg.netdepth}: the heads read [pe | h], which "
+                "only the v1 kernels take; training on the eager step (set "
+                "fused_kernel=v1 or hybrid to train on the kernels)",
+                stacklevel=2)
+            return step_lib.build_vanilla_train_step(
+                model, cfg, lpips_params=lpips_params)
+        if onepass:
+            warnings.warn(
+                f"use_onepass_train at netdepth {cfg.netdepth}: the heads "
+                "read [pe | h], which the one-pass kernel does not take; "
+                f"training on the {cfg.fused_kernel} two-call step",
+                stacklevel=2)
+            onepass = False
+    if onepass:
+        return fused_onepass.build_onepass_vanilla_train_step(
             cfg, lpips_params=lpips_params)
-    return step_lib.build_vanilla_train_step(model, cfg,
-                                             lpips_params=lpips_params)
+    return fused_train.build_fused_vanilla_train_step(
+        cfg, lpips_params=lpips_params)
 
 
 def _select_mip_train_step(cfg, model):
@@ -105,6 +131,11 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
         log_fn(f"WARNING: lpips_weights_path={cfg.lpips_weights_path!r} "
                "not found; SKIPPING the train-time LPIPS term")
     batcher = make_batcher(scene, cfg, random_poses)
+    # The JAX loop draws an example batch to initialise its state before
+    # the loop, so step i trains on the batcher's batch i + 1 and the
+    # batcher's own counter (precrop_iters, anneal_nearfar) runs one ahead.
+    example = batcher.next_batch()
+    batch_rays = example["rgb"].shape[0]
     state = init_state(cfg, device)
     ckpt = CheckpointManager(
         os.path.join(cfg.basedir, cfg.expname, "checkpoints"),
@@ -120,9 +151,8 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
     t0, last_log = time.time(), start_step
     for step_i in range(start_step, num_steps):
         batch = to_device(batcher.next_batch(), device)
-        batch_rays = batch["rgb"].shape[0]
         state, stats = train_step(state, batch)
-        if (step_i + 1) % cfg.i_print == 0 or step_i + 1 == num_steps:
+        if (step_i + 1) % cfg.i_print == 0:
             stats = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
                      for k, v in stats.items()}
             rays_per_sec = ((step_i + 1 - last_log) * batch_rays

@@ -12,6 +12,7 @@ acc and distance_median, and the normals map unless `disable_normals`).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -19,7 +20,6 @@ import torch
 
 from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
-from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
 
 def render_rays_chunked(
@@ -88,22 +88,38 @@ def _mip_chunk_fn(model, cfg):
     return chunk_fn
 
 
+def fused_render_takes(cfg) -> bool:
+    """The port's own gate on the vanilla fused render: where the heads
+    read [pe | h] (netdepth 5), only the v1 forward (#12) takes the
+    widened heads; the v2 forwards (#1, #10) and the one-pass render (#4)
+    do not (the JAX package's v2 kernels fail there with a shape error),
+    so such a config renders through the module, with a warning that
+    says why."""
+    from consistentnerf_tpu_torch.ops.fused_onepass import heads_read_pe
+
+    return not heads_read_pe(cfg.netdepth) or (
+        cfg.fused_kernel in fm.V1_KINDS and not cfg.use_onepass_render)
+
+
 def build_render_fn(model, cfg) -> Callable[[Rays], Dict[str, torch.Tensor]]:
     """Deterministic full-image renderer for eval/vis.
 
     Returns render(rays[..., H, W]) -> dict of [..., H, W(, 3)] images.
     With `cfg.use_fused_render` the MLPs run through the fused kernels,
-    their weights packed once here."""
+    their weights packed once here (unless `fused_render_takes` refuses
+    the config)."""
     if cfg.backbone == "mipnerf":
         chunk_fn = _mip_chunk_fn(model, cfg)
-    elif cfg.use_fused_render:
+    elif cfg.use_fused_render and fused_render_takes(cfg):
         from consistentnerf_tpu_torch.ops import fused_render
         from consistentnerf_tpu_torch.ops.fused_onepass import model_skips
 
         levels = ["coarse"] + (["fine"] if cfg.N_importance > 0 else [])
         skips = model_skips(cfg.netdepth)
         packed = {
-            lvl: v2.pack(
+            # The one-pass render (#4) takes the v2 packing.
+            lvl: fm.pack_for(
+                "v2" if cfg.use_onepass_render else cfg.fused_kernel,
                 fm.flatten_params(getattr(model, lvl), True, cfg.netdepth),
                 cfg.netdepth, skips, cfg.multires, cfg.multires_views,
                 cfg.compute_dtype)
@@ -128,6 +144,14 @@ def build_render_fn(model, cfg) -> Callable[[Rays], Dict[str, torch.Tensor]]:
                 pdf_kernel=cfg.use_pdf_kernel,
             ))
     else:
+        if cfg.use_fused_render:
+            warnings.warn(
+                f"use_fused_render with fused_kernel={cfg.fused_kernel!r}"
+                f" and use_onepass_render={cfg.use_onepass_render} at "
+                f"netdepth {cfg.netdepth}: the heads read [pe | h], which "
+                "only the v1 forward takes; rendering through the module "
+                "(set fused_kernel=v1 or hybrid and use_onepass_render="
+                "false to render on the kernel)", stacklevel=2)
 
         def chunk_fn(chunk_rays):
             return _image_outputs(model(chunk_rays))

@@ -2,7 +2,9 @@
 their packed walks: the NeRF kernels #1-#4, the mip kernels #5-#7 and
 6n (#6 with normals), the resampling kernels #8 and #9, and the
 row-major kernels #10, #11, #15, #16 (also against the transposed
-kernels on the same points), with the two-call step's launches.
+kernels on the same points), with the two-call step's launches, the v1
+kernels #12-#14 with the v1 routes' launches, and the hard masks on the
+card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -615,3 +617,126 @@ def test_twocall_steps_go_through_their_kernels(cuda_device):
         assert (v2.launches, v2.bwd_launches, v2.row_launches,
                 v2.row_bwd_launches) == want, kind
         assert torch.isfinite(stats["loss"])
+
+
+# --------------------------- the v1 kernels #12-#14 -----------------------
+
+from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt  # noqa: E402
+
+# (depth, skips, multires, multires_views, use_viewdirs): the production
+# MLP, a skip into the heads, multires 21, and the output head (#12 only).
+V1_SHAPES = {"depth8": (8, (4,), 10, 4, True),
+             "skip_heads": (5, (4,), 10, 4, True),
+             "multires21": (8, (4,), 21, 4, True),
+             "output_head": (5, (4,), 10, 4, False)}
+
+
+def _v1_flat(depth, skips, mr, mv, use_viewdirs, device, width=256):
+    mlp = NeRFMLP(net_depth=depth, net_width=width,
+                  input_ch=3 * (1 + 2 * mr), input_ch_views=3 * (1 + 2 * mv),
+                  skips=skips, use_viewdirs=use_viewdirs, output_ch=5)
+    mlp.reset_parameters(torch.Generator().manual_seed(2))
+    return [w.detach().to(device)
+            for w in fm.flatten_params(mlp, use_viewdirs, depth)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(V1_SHAPES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_v1_kernels_match_plain(cuda_device, shape, dtype):
+    """#12 / #13 (one launch each) against the plain forward, #14 against
+    the v1 packing's backward walk and bit-identical across two runs
+    (n = 3000: ragged tiles and chunks)."""
+    depth, skips, mr, mv, uv = V1_SHAPES[shape]
+    flat = _v1_flat(depth, skips, mr, mv, uv, cuda_device)
+    n = 3000
+    pts_T, views_T = _inputs(n, cuda_device)
+    pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
+    kw = dict(net_depth=depth, skips=skips, multires=mr, multires_views=mv)
+    packed = fm.pack_v1(flat, depth, skips, mr, mv, dtype, use_viewdirs=uv)
+    before = (fm.launches, fmt.fwd_launches, fmt.bwd_launches)
+    got = fm.fused_mlp(packed, pts, views, use_viewdirs=uv,
+                       compute_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    want = fm._mlp_body(pts, views, flat, use_viewdirs=uv,
+                        compute_dtype=dtype, **kw)
+    assert got.shape == (n, 4 if uv else 5) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[dtype]
+    assert fm.launches == before[0] + 1
+    if not uv:
+        return
+    got13 = fmt.forward(packed, pts, views, compute_dtype=dtype, **kw)
+    assert torch.equal(got13, got)
+    g = torch.randn(n, 4, generator=torch.Generator().manual_seed(3)).to(
+        cuda_device)
+    grads = fmt.backward(packed, pts, views, g, compute_dtype=dtype, **kw)
+    again = fmt.backward(packed, pts, views, g, compute_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    walk = v2.packed_bwd_reference_T(packed, pts_T, views_T,
+                                     g.T.contiguous())
+    assert _rel(grads, walk) < TRAIN_TOL[dtype]
+    assert (fmt.fwd_launches, fmt.bwd_launches) == (before[1] + 1,
+                                                    before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_v1_routes_go_through_their_kernels(cuda_device):
+    """One two-call step of each v1 kind (v1: #13 and #14 per level;
+    hybrid: #14 only) and the v1 render (#12 per level and chunk)."""
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.train import evaluation, loop
+
+    scene = synthetic.make_scene(n_views=4, H=32, W=32).to_scene_data()
+    for kind, want in (("v1", (0, 2, 2)), ("hybrid", (0, 0, 2))):
+        cfg = configs.Config(netdepth=8, netwidth=64, N_samples=16,
+                             N_importance=16, N_rand=256, n_patches=1,
+                             patch_size=8, softLpmask=True,
+                             with_depth_loss=True, white_bkgd=True,
+                             compute_dtype="bfloat16", use_fused_train=True,
+                             use_onepass_train=True, fused_kernel=kind)
+        state = loop.init_state(cfg, cuda_device)
+        batch = to_device(VanillaBatcher(scene, cfg).next_batch(),
+                          cuda_device)
+        step = loop.select_train_step(cfg, state.model)
+        fm.launches = fmt.fwd_launches = fmt.bwd_launches = 0
+        _, stats = step(state, batch)
+        torch.cuda.synchronize()
+        assert (fm.launches, fmt.fwd_launches, fmt.bwd_launches) == want
+        assert torch.isfinite(stats["loss"])
+    cfg = configs.Config(netdepth=8, netwidth=64, N_samples=16,
+                         N_importance=16, white_bkgd=True,
+                         compute_dtype="bfloat16", use_fused_render=True,
+                         fused_kernel="v1", render_chunk_size=512)
+    model = make_model(cfg, cuda_device).eval()
+    rays = evaluation.camera_rays_for_view(scene, scene.poses[0],
+                                           device=cuda_device)
+    fm.launches = 0
+    out = render_lib.build_render_fn(model, cfg)(rays)
+    torch.cuda.synchronize()
+    assert fm.launches == 2 * (32 * 32 // 512)
+    plain = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(rays)
+    assert (out["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3
+
+
+@pytest.mark.cuda
+def test_hard_masks_on_the_card_match_the_cpu(cuda_device):
+    """compute_hard_masks on the card against the same function on CPU
+    tensors: identical but for pixels of the boundary rule."""
+    from consistentnerf_tpu_torch.consistency import reproject
+    from consistentnerf_tpu_torch.data import synthetic
+
+    for layout in ("sphere", "cluster"):
+        s = synthetic.make_scene(n_views=6, H=64, W=64,
+                                 layout=layout).to_scene_data()
+        args = (s.poses, s.depths, s.K, s.i_train, s.H, s.W)
+        got = reproject.compute_hard_masks(*args, device=cuda_device)
+        want = reproject.compute_hard_masks(*args, device="cpu")
+        near = reproject.boundary_pixels(*args, device="cpu")
+        diff = got != want
+        assert not (diff & ~near).any(), layout
+        assert diff.sum() <= 1e-4 * len(s.i_train) * s.H * s.W
+        assert 0.1 < got[s.i_train].mean() < 0.6

@@ -27,7 +27,8 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "train.image_metrics", "data.pipeline", "consistency.masks",
              "consistency.monodepth", "ops.fused_mip", "ops.fused_train",
              "models.mipnerf", "core.mip", "core.spacing",
-             "data.random_poses"):
+             "data.random_poses", "ops.fused_mlp_train",
+             "consistency.reproject", "data.loaders"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -66,8 +67,8 @@ def test_train_dispatch_raises_rather_than_falls_back():
     """ss_loss is not ported: the steps raise, naming the ROADMAP item,
     instead of running another step (the one-pass gate is the JAX
     predicate, which accepts it). softLpmask with use_fused_train goes to
-    the two-call fused step, as in the JAX package; the v1 kernels raise
-    there."""
+    the two-call fused step, as in the JAX package, for every
+    fused_kernel, the v1 kinds included."""
     import pytest
 
     from consistentnerf_tpu_torch import configs
@@ -91,8 +92,10 @@ def test_train_dispatch_raises_rather_than_falls_back():
     step = loop.select_train_step(soft, None)
     assert step.__qualname__.startswith(
         fused_train.build_fused_vanilla_train_step.__name__)
-    with pytest.raises(NotImplementedError, match="Queue 2 #12-#14"):
-        loop.select_train_step(soft.replace(fused_kernel="v1"), None)
+    for kind in ("v1", "hybrid"):
+        step = loop.select_train_step(soft.replace(fused_kernel=kind), None)
+        assert step.__qualname__.startswith(
+            fused_train.build_fused_vanilla_train_step.__name__)
     with pytest.raises(ValueError, match="per-ray losses"):
         fused_onepass.build_onepass_vanilla_train_step(soft)
     assert loop.select_train_step(soft.replace(use_fused_train=False),

@@ -106,15 +106,22 @@ def test_vanilla_nerf_matches_jax_apply(slice_setup):
 
 
 def test_unported_render_variants_raise(slice_setup):
-    """kernel='v1' (Queue 2 #12) raises; the one-pass and pdf-kernel
-    variants are ported and render what the JAX variants render."""
+    """No variant raises any more: kernel='v1' (#12) and the one-pass and
+    pdf-kernel variants render what the JAX variants render; an unknown
+    kernel name raises."""
     _, params, jrays, model, prays = slice_setup
     weights = {lvl: fm.flatten_params(getattr(model, lvl), True, DEPTH)
                for lvl in ("coarse", "fine")}
     kw = dict(num_samples=S_C, num_importance=S_F, multires=MR,
               multires_views=MV, net_depth=DEPTH, white_bkgd=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_render.fused_render_rays(weights, prays, kernel="v1", **kw)
+    with pytest.raises(ValueError, match="unknown fused render kernel"):
+        fused_render.fused_render_rays(weights, prays, kernel="v3", **kw)
+    want = jfr.fused_render_rays(params, jrays, tile=32, interpret=True,
+                                 kernel="v1", pdf_kernel=False, **kw)
+    with torch.no_grad():
+        got = fused_render.fused_render_rays(weights, prays, kernel="v1",
+                                             **kw)
+    _assert_slice_close(got, want)
     for switch in (dict(onepass=True), dict(pdf_kernel=True)):
         want = jfr.fused_render_rays(
             params, jrays, tile=32, interpret=True, kernel="v2",

@@ -9,8 +9,10 @@ name, at depth 4, width 32, skip after layer 2, multires 4 / 2. Kernels
 `fused_mip_mlp_train` are held against the JAX `fused_mip_mlp_train`,
 forward and weight grads, at the mip kernel tests' production depth (8,
 16 IPE frequencies, width 64). The `v2row` and `v2h` fused renders are
-held against the JAX `fused_render_rays`. The JAX kernels run in
+held against the JAX `fused_render_rays`, and so are the "v1" and
+"hybrid" renders (kernel #12). The JAX kernels run in
 interpret mode; on the CPU the port's wrappers run the plain versions.
+The v1 kinds' renders (#12) are held here too, beside the v2 ones.
 The row-major kernels run the transposed kernels' walks, so at bf16 the
 packed walk over the transposed streams is their reference.
 """
@@ -272,7 +274,7 @@ def render_case():
     return params, jrays, weights, prays, kw
 
 
-@pytest.mark.parametrize("kernel", ["v2row", "v2h"])
+@pytest.mark.parametrize("kernel", ["v2row", "v2h", "v1", "hybrid"])
 def test_row_and_hybrid_renders_match_jax(render_case, kernel):
     params, jrays, weights, prays, kw = render_case
     want = jfr.fused_render_rays(params, jrays, tile=32, interpret=True,
@@ -283,5 +285,3 @@ def test_row_and_hybrid_renders_match_jax(render_case, kernel):
     for k in ("rgb", "depth", "acc", "rgb0", "depth0", "disp"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    atol=2e-5, rtol=2e-5, err_msg=k)
-    with pytest.raises(NotImplementedError, match="Queue 2 #12-#14"):
-        fused_render.fused_render_rays(weights, prays, kernel="hybrid", **kw)

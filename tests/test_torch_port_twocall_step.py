@@ -5,8 +5,9 @@ The vanilla step (`ops/fused_train.py::build_fused_vanilla_train_step`,
 CPU path: the kernels' plain versions) is held against the JAX step of
 the same name, from the same params and batch, with `softLpmask` (where
 the dispatch sends it) and with `hardmask` (use_onepass_train=false), each
-with `fused_kernel` "v2" (#1/#2), "v2row" (#10/#11) and "v2h" (the plain
-forward and #11), at the small config of the port's one-pass step tests
+with `fused_kernel` "v2" (#1/#2), "v2row" (#10/#11), "v2h" (the plain
+forward and #11), "v1" (#13/#14) and "hybrid" (the plain forward and
+#14), at the small config of the port's one-pass step tests
 (depth 2, width 32, 16 + 8 samples, multires 4 / 2, 192 + 64 rays,
 perturb 0): loss, stats and updated params within the JAX package's
 bounds for its fused steps. The mip step (`build_fused_mip_train_step`)
@@ -35,6 +36,7 @@ from consistentnerf_tpu_torch import configs, interop
 from consistentnerf_tpu_torch.cli import train as train_cli
 from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.data.pipeline import to_device
+from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train.checkpoints import checkpoint_steps
@@ -46,7 +48,7 @@ CFG = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=16,
            use_onepass_train=True)
 MASKS = {"softLp": dict(hardmask=False, softLpmask=True),
          "hard": dict(hardmask=True, use_onepass_train=False)}
-KINDS = ("v2", "v2row", "v2h")
+KINDS = ("v2", "v2row", "v2h", "v1", "hybrid")
 # The bounds of the port's step tests (the JAX package's own for its
 # fused steps against its XLA step).
 LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -132,10 +134,33 @@ def test_vanilla_twocall_step_matches_jax(jax_vanilla, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["v1", "hybrid"])
 def test_v1_kernels_raise(kind):
-    """The v1 kernels are the next slice: the step refuses them."""
+    """The v1 kinds no longer raise: the dispatch builds the two-call step
+    on the v1 ops (#13/#14, or the plain forward and #14), and their
+    differentiable op gives the v1 kernels' weight grads and zero input
+    grads."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
+
     cfg = configs.Config(**{**CFG, **MASKS["softLp"], "fused_kernel": kind})
-    with pytest.raises(NotImplementedError, match="Queue 2 #12-#14"):
-        loop.select_train_step(cfg, None)
+    step = loop.select_train_step(cfg, None)
+    assert step.__qualname__.startswith(
+        fused_train.build_fused_vanilla_train_step.__name__)
+    op, transposed = fused_train.vanilla_op(kind)
+    assert op is (fmt.fused_mlp_train if kind == "v1" else
+                  fmt.hybrid_mlp_train) and not transposed
+    state = loop.init_state(cfg, "cpu")
+    flat = fm.flatten_params(state.model.fine, True, cfg.netdepth)
+    pts = torch.randn(50, 3, requires_grad=True)
+    views = torch.nn.functional.normalize(torch.randn(50, 3), dim=-1)
+    raw = op(flat, pts, views, cfg.netdepth, (), cfg.multires,
+             cfg.multires_views, "float32")
+    raw.square().sum().backward()
+    assert raw.shape == (50, 4) and torch.equal(pts.grad,
+                                                torch.zeros_like(pts))
+    want = fmt.plain_backward([w.detach() for w in flat], pts.detach(),
+                              views, 2 * raw.detach(), cfg.netdepth, (),
+                              cfg.multires, cfg.multires_views, "float32")
+    for w, g in zip(flat, want):
+        torch.testing.assert_close(w.grad, g)
 
 
 def _port_rays(rays):
