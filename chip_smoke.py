@@ -44,7 +44,9 @@ with the launch counts set to 0 just before it and read just after:
   computes the hard masks on the card in every hardmask phase.
 
 Each kernel is held against its plain PyTorch version at the shapes its
-path gives it, in bf16 and fp32; the kernel train step is held against the
+path gives it, in bf16 and fp32 (the one-pass levels #3 and #5, whose dW
+sums take a fixed order, also against a second bf16 launch, bit for
+bit); the kernel train step is held against the
 plain eager step from the same state, batch and draws; timings are
 printed beside the card's name and power limit. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
@@ -206,6 +208,17 @@ def rel_err(got, want):
     return diff.max().item() / want.abs().mean().item(), diff.max().item()
 
 
+def level_plan_text(out):
+    """The nine slots of a one-pass level plan (#3, #5), in words."""
+    ws_bytes = out[1] * (2 if out[5] else 4)
+    text = (f"{out[3]} bytes of shared memory, {out[0]} blocks, chunks of "
+            f"{out[4]} points, workspace {ws_bytes / 2 ** 30:.2f} GiB")
+    if out[8]:
+        text += (f", the level walk and a dW GEMM of {out[5]} splits of "
+                 f"{out[7]} 64-point slabs")
+    return text
+
+
 def ptxas_report(_build, name):
     """Registers, spills and stack of each kernel in a build log."""
     entry = None
@@ -216,8 +229,21 @@ def ptxas_report(_build, name):
                      "fp32" if "reduce" not in mangled else "reduce")
             if "RowMajor" in mangled:
                 entry += " row-major"
+            if "dw_gemm" in mangled:
+                entry = "dW GEMM"
+            elif "level_kernel" in mangled and "bfloat16" in mangled:
+                entry += " level walk" if "Lb1E" in mangled else " legacy"
         elif "Used" in line or "spill" in line:
             log(f"  {name} [{entry}]: {line.strip()}")
+
+
+def repeat_gate(label, first, again):
+    """A second launch of a one-pass level kernel gives the first one's
+    bits: its rows and every dW (the dW sums take a fixed order)."""
+    same = torch.equal(first[0], again[0]) and all(
+        torch.equal(a, b) for a, b in zip(first[1], again[1]))
+    log(f"{label} bf16 repeat: bit-identical {same}")
+    gate(same, f"{label} bf16: a second launch gave other bits")
 
 
 def grads_err(got, want):
@@ -353,22 +379,24 @@ def main() -> None:
     for bf in (1, 0):
         out = (ctypes.c_longlong * 4)()
         plan_b(196608, 8, 256, 16, 10, 4, bf, out)
-        outo = (ctypes.c_longlong * 4)()
-        plan_o(4096, 192, 8, 256, 16, 10, 4, bf, outo)
         log(f"  {'bf16' if bf else 'fp32'}: {v2.BWD_KERNEL} {out[3]} bytes "
-            f"of shared memory, {out[0]} blocks; {op.KERNEL} {outo[3]} "
-            f"bytes, {outo[0]} blocks")
+            f"of shared memory, {out[0]} blocks")
+        for seg in (192, 64):
+            outo = (ctypes.c_longlong * 9)()
+            plan_o(4096, seg, 8, 256, 16, 10, 4, bf, outo)
+            log(f"  {'bf16' if bf else 'fp32'}: {op.KERNEL} (4096 x {seg})"
+                f" {level_plan_text(outo)}")
     plan_mb = _build.load(fmip.BWD_KERNEL).fused_mip_bwd_plan
     plan_mb.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     plan_mo = _build.load(op.MIP_KERNEL).onepass_mip_level_plan
     plan_mo.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     for bf in (1, 0):
-        out, outo = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 4)()
+        out, outo = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 9)()
         plan_mb(98304, 8, 256, 128, 16, 16, 4, bf, out)
         plan_mo(3072, 96, 8, 256, 128, 16, 16, 4, bf, outo)
         log(f"  {'bf16' if bf else 'fp32'}: {fmip.BWD_KERNEL} {out[3]} "
             f"bytes of shared memory, {out[0]} blocks; {op.MIP_KERNEL} "
-            f"{outo[3]} bytes, {outo[0]} blocks")
+            f"(3072 x 96) {level_plan_text(outo)}")
 
     t_phase = time.perf_counter()
     render = render_phases(dev, card, configs, fm, v2)
@@ -736,6 +764,12 @@ def train_phases(dev, card, configs, fm, v2, op):
                  and max(row_errs) < ROWS_TOL[dtype],
                  f"{op.KERNEL} {lvl} {dtype} disagrees with its plain "
                  f"version (rows {max(row_errs):.3e}, dW {rel:.3e})")
+            if dtype == "bfloat16":
+                again = op.onepass_level(w, pts, views, z, *ray_rows,
+                                         white_bkgd=True, compute_dtype=dtype,
+                                         **mlp_kw)
+                repeat_gate(f"{op.KERNEL} {lvl}", (got_rows, got), again)
+                del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
 
@@ -1232,6 +1266,13 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
                  and max(row_errs) < ROWS_TOL[dtype],
                  f"{op.MIP_KERNEL} level {lvl} {dtype} disagrees with its "
                  f"plain version (rows {max(row_errs):.3e}, dW {rel:.3e})")
+            if dtype == "bfloat16":
+                again = op.onepass_mip_level(
+                    w, *levels_r[lvl], compute_dtype=dtype, white_bkgd=True,
+                    **kw)
+                repeat_gate(f"{op.MIP_KERNEL} level {lvl}", (got_rows, got),
+                            again)
+                del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
 

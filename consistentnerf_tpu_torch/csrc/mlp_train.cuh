@@ -1,8 +1,10 @@
 // Shared device code of the MLP train kernels: the forward walk that
 // saves every activation, the backward walk, and the dW accumulation.
 //
-// Four kernels include this header, each with an encoder policy
-// (mlp_common.cuh: NerfEnc or MipEnc):
+// These kernels include this header, each with an encoder policy
+// (mlp_common.cuh: NerfEnc or MipEnc); the bf16 path of modes 3 and 4
+// runs level_train.cuh's walk instead (wgmma products, the dW as a GEMM
+// over the level), their fp32 path this one:
 //   fused_mlp_bwd.cu      (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::
 //                          _bwd_pallas_T) and
 //   fused_mip_bwd.cu      (ops/fused_mip.py::_bwd_pallas_T): weight grads
@@ -357,6 +359,66 @@ __device__ inline float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
+// Mode 3: vanilla compositing of one chunk's whole rays (composite_ray),
+// the per-ray loss cotangent and the compositing VJP. craw [4][rows]
+// holds the raw heads on entry and d_raw on exit; ctrans [rows] the
+// transmittance; one thread walks one ray forward, then back.
+__device__ inline void vanilla_composite(const RayRows& rr, int c, int cpts,
+                                         int rows, float* craw,
+                                         float* ctrans) {
+  const int S = rr.seg, R = cpts / S;
+  const int ray0 = c * R;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const int ray = ray0 + r;
+    float* rw = craw + r * S;
+    float* tr = ctrans + r * S;
+    if (ray >= rr.n_rays) {
+      for (int i = 0; i < S; ++i)
+        for (int k = 0; k < 4; ++k) rw[k * rows + i] = 0.f;
+      continue;
+    }
+    const float* z = rr.z + (size_t)ray * S;
+    const float dn = rr.dn[ray];
+    const size_t np = (size_t)rr.n_rays * S, pt0 = (size_t)ray * S;
+    float acc, dep, rgb[3];
+    composite_ray(rw, rows, z, dn, S, rr.white, tr, rr.out, np, pt0, rgb,
+                  dep, acc);
+    float d_rgb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      d_rgb[k] = rr.crgb[ray] * (rgb[k] - rr.tgt[(size_t)k * rr.n_rays +
+                                                ray]);
+    const float d_dep = rr.cd[ray] * (dep - rr.prior[ray]);
+    const float d_acc = rr.white ? -(d_rgb[0] + d_rgb[1] + d_rgb[2])
+                                 : 0.f;
+    float suffix = 0.f;
+    for (int i = S - 1; i >= 0; --i) {
+      const float dist = (i == S - 1 ? 1e10f : z[i + 1] - z[i]) * dn;
+      const float sigma = rw[3 * rows + i];
+      const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dist);
+      const float v = fmaxf(1.f - alpha, 1e-10f);
+      const float trans = tr[i];
+      const float w = alpha * trans;
+      float cc[3], d_w = d_dep * z[i] + d_acc;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        cc[k] = 1.f / (1.f + expf(-rw[k * rows + i]));
+        d_w += d_rgb[k] * cc[k];
+      }
+      const float d_alpha = d_w * trans - suffix / v;
+      suffix += d_w * w;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        rw[k * rows + i] = w * d_rgb[k] * cc[k] * (1.f - cc[k]);
+      rw[3 * rows + i] =
+          sigma > 0.f ? d_alpha * (1.f - alpha) * dist : 0.f;
+    }
+  }
+  for (int e = R * S + threadIdx.x; e < rows; e += kThreads)
+    for (int k = 0; k < 4; ++k) craw[k * rows + e] = 0.f;
+  __syncthreads();
+}
+
 // Mode 4: mip compositing of one chunk's whole rays and the compositing
 // VJP (fused_onepass.py:307-371). craw [4][rows] holds the raw heads on
 // entry and d_raw on exit; ctrans [rows] the transmittance; one thread
@@ -576,59 +638,7 @@ __device__ void train_block(const float* __restrict__ pts,
     }
 
     // ---- one-pass: compositing and the per-ray loss cotangent ----
-    if (MODE == 3) {
-      const int S = rr.seg, R = cpts / S;
-      const int ray0 = c * R;
-      for (int r = threadIdx.x; r < R; r += kThreads) {
-        const int ray = ray0 + r;
-        float* rw = craw + r * S;
-        float* tr = ctrans + r * S;
-        if (ray >= rr.n_rays) {
-          for (int i = 0; i < S; ++i)
-            for (int k = 0; k < 4; ++k) rw[k * rows + i] = 0.f;
-          continue;
-        }
-        const float* z = rr.z + (size_t)ray * S;
-        const float dn = rr.dn[ray];
-        const size_t np = (size_t)rr.n_rays * S, pt0 = (size_t)ray * S;
-        float acc, dep, rgb[3];
-        composite_ray(rw, rows, z, dn, S, rr.white, tr, rr.out, np, pt0, rgb,
-                      dep, acc);
-        float d_rgb[3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          d_rgb[k] = rr.crgb[ray] * (rgb[k] - rr.tgt[(size_t)k * rr.n_rays +
-                                                    ray]);
-        const float d_dep = rr.cd[ray] * (dep - rr.prior[ray]);
-        const float d_acc = rr.white ? -(d_rgb[0] + d_rgb[1] + d_rgb[2])
-                                     : 0.f;
-        float suffix = 0.f;
-        for (int i = S - 1; i >= 0; --i) {
-          const float dist = (i == S - 1 ? 1e10f : z[i + 1] - z[i]) * dn;
-          const float sigma = rw[3 * rows + i];
-          const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dist);
-          const float v = fmaxf(1.f - alpha, 1e-10f);
-          const float trans = tr[i];
-          const float w = alpha * trans;
-          float cc[3], d_w = d_dep * z[i] + d_acc;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            cc[k] = 1.f / (1.f + expf(-rw[k * rows + i]));
-            d_w += d_rgb[k] * cc[k];
-          }
-          const float d_alpha = d_w * trans - suffix / v;
-          suffix += d_w * w;
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            rw[k * rows + i] = w * d_rgb[k] * cc[k] * (1.f - cc[k]);
-          rw[3 * rows + i] =
-              sigma > 0.f ? d_alpha * (1.f - alpha) * dist : 0.f;
-        }
-      }
-      for (int e = R * S + threadIdx.x; e < rows; e += kThreads)
-        for (int k = 0; k < 4; ++k) craw[k * rows + e] = 0.f;
-      __syncthreads();
-    }
+    if (MODE == 3) vanilla_composite(rr, c, cpts, rows, craw, ctrans);
     if (MODE == 4) mip_composite(rr, c, cpts, rows, craw, ctrans);
 
     // ---- mode 5: the raw heads, then d(raw density)/d(means) ----

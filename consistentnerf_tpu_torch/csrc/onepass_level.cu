@@ -20,40 +20,94 @@
 // coeff_rgb * (rgb - target) and coeff_d * (depth - prior); the
 // batch-global denominators are in the coefficients, computed outside.
 //
-// Bound, design and rounding of the MLP walks: see mlp_train.cuh.
+// Bound on this card: operations, 3,489,024 FLOP a point at 8x256 /
+// multires 10+4 (forward, every dW, the needed input grads): 2.774 ms at
+// the flagship step's fine level (786,432 points) at 989 bf16 TFLOP/s.
+//
+// Design (bf16; level_train.cuh): three launches a level. The walk runs
+// forward, compositing and backward per chunk of whole rays with every
+// layer product on wgmma, its weights streamed by TMA through a 3-slab
+// ring in shared memory, and saves activations and rounded gradients to
+// a workspace row per point; the dW of every matrix is one split-K
+// TMA/wgmma GEMM over the level's points with its accumulators in
+// registers over ~30,000 points; a reduction sums the partials in a fixed
+// order. What that does about the old kernel's costs (the fine level on
+// an H100, 98.8 ms before):
+//   * the dW pass (52 ms): no partial re-read per 768-point chunk, async
+//     copies overlapping the MMAs, A read once per K tile, the heads' dW
+//     fused into the backward's elementwise steps;
+//   * the backward walk (28 ms) and the forward (14 ms): weights no
+//     longer fetched from L2 by every warp and waited on, but streamed
+//     ahead into shared memory and fed to wgmma; the backward's mask,
+//     rounding and bias sums done on the accumulators in registers;
+//   * the saves (6.4 ms): 16-byte stores of whole rows;
+//   * the waves: chunks sized so that the last wave is full (the coarse
+//     level 8 rays a chunk, 4 full waves, where 12 rays made 2.6).
+// The fp32 path keeps mlp_train.cuh's 32-point SIMT walk.
 
-#include "mlp_train.cuh"
+#include "level_train.cuh"
 
 namespace {
 
 using mlp::bf16;
 using mlp::Dims;
 
-template <typename T>
+// WG: the level walk of level_train.cuh (bf16; its dW in the GEMM that
+// follows). Else train_block's walk with its dW pass: the fp32 path (the
+// 32-point SIMT walk), and bf16 widths over 256.
+template <typename T, bool WG>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     onepass_level_kernel(const float* pts, const float* views,
                          mlp::RayRows rr, const T* w, const float* b,
-                         T* ws, float* part, size_t part_stride, Dims d) {
-  mlp::train_block<T, 3, mlp::NerfEnc>(pts, nullptr, views, nullptr, rr, w,
-                                       b, ws, part, part_stride,
-                                       rr.n_rays * rr.seg, d);
+                         T* ws, float* part, size_t part_stride, int cpts,
+                         Dims d, const __grid_constant__ mlp::WMaps maps) {
+  if constexpr (WG)
+    mlp::level_walk<3, mlp::NerfEnc>(pts, nullptr, views, rr, w, b, ws,
+                                     part, part_stride, cpts, d, maps);
+  else
+    mlp::train_block<T, 3, mlp::NerfEnc>(pts, nullptr, views, nullptr, rr,
+                                         w, b, ws, part, part_stride,
+                                         rr.n_rays * rr.seg, d);
+}
+
+template <typename T>
+int plan(int n_rays, int seg, const Dims& d, long long* pl) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return mlp::level_plan(onepass_level_kernel<bf16, true>,
+                           onepass_level_kernel<bf16, false>, 3, n_rays,
+                           seg, d, pl);
+  else
+    return mlp::legacy_level_plan<float>(
+        onepass_level_kernel<float, false>, 3, n_rays, seg, d, pl);
 }
 
 template <typename T>
 int launch(const void* pts, const void* views, mlp::RayRows rr,
-           const void* w, const void* b, void* ws, void* part, void* dw,
-           Dims d, cudaStream_t stream) {
-  long long pl[4];
-  int err = mlp::plan<T>(onepass_level_kernel<T>, 3, rr.n_rays * rr.seg,
-                         rr.seg, d, pl);
+           const void* w, const void* b, void* ws, void* part, void* gpart,
+           void* dw, Dims d, cudaStream_t stream) {
+  long long pl[9];
+  int err = plan<T>(rr.n_rays, rr.seg, d, pl);
   if (err) return err;
-  onepass_level_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
-                            stream>>>(
+  mlp::WMaps maps = {};
+  if (pl[8]) {
+    err = mlp::level_maps(d, static_cast<const bf16*>(w), &maps);
+    if (err) return err;
+  }
+  auto kernel = onepass_level_kernel<T, false>;
+  if constexpr (std::is_same<T, bf16>::value)
+    if (pl[8]) kernel = onepass_level_kernel<T, true>;
+  kernel<<<(int)pl[0], mlp::kThreads, (size_t)pl[3], stream>>>(
       static_cast<const float*>(pts), static_cast<const float*>(views), rr,
       static_cast<const T*>(w), static_cast<const float*>(b),
-      static_cast<T*>(ws), static_cast<float*>(part), (size_t)pl[2], d);
+      static_cast<T*>(ws), static_cast<float*>(part), (size_t)pl[2],
+      (int)pl[4], d, maps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (pl[8])
+    return mlp::level_dw(d, pl, static_cast<bf16*>(ws),
+                         static_cast<float*>(part),
+                         static_cast<float*>(gpart), static_cast<float*>(dw),
+                         stream);
   const int total = (int)(d.w_total() + d.b_total());
   mlp::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
@@ -63,31 +117,32 @@ int launch(const void* pts, const void* views, mlp::RayRows rr,
 
 }  // namespace
 
-// out[0..3]: blocks, workspace elements per block, partial floats per
-// block, dynamic shared memory bytes. Returns a cudaError_t.
+// out[0..8]: blocks, workspace elements, partial floats per block,
+// dynamic shared memory bytes, points per chunk, dW GEMM splits, split
+// partial floats, slabs per split, 1 where the walk runs on wgmma (the
+// last four 0 in fp32). Returns a cudaError_t.
 extern "C" int onepass_level_plan(int n_rays, int seg, int depth, int width,
                                   int skip_mask, int multires,
                                   int multires_views, int use_bf16,
                                   long long* out) {
   Dims d(depth, width, skip_mask, multires, multires_views);
-  if (use_bf16)
-    return mlp::plan<bf16>(onepass_level_kernel<bf16>, 3, n_rays * seg,
-                           seg, d, out);
-  return mlp::plan<float>(onepass_level_kernel<float>, 3, n_rays * seg, seg,
-                          d, out);
+  if (use_bf16) return plan<bf16>(n_rays, seg, d, out);
+  return plan<float>(n_rays, seg, d, out);
 }
 
 // pts, views: [3, n_rays*seg]; z: [n_rays*seg]; dn, crgb, cd, prior:
-// [n_rays]; tgt: [3, n_rays]; out: [6, n_rays*seg]; all fp32. w, b, ws,
-// part, dw as in fused_mlp_bwd.
+// [n_rays]; tgt: [3, n_rays]; out: [6, n_rays*seg]; all fp32. w, b: the
+// packed weights; ws, part, gpart: the plan's workspace, block partials
+// and split partials; dw: the packed grad [w_total + b_total], fp32.
 extern "C" int onepass_level(const void* pts, const void* views,
                              const void* z, const void* dn, const void* crgb,
                              const void* tgt, const void* cd,
                              const void* prior, const void* w, const void* b,
-                             void* out, void* ws, void* part, void* dw,
-                             int n_rays, int seg, int depth, int width,
-                             int skip_mask, int multires, int multires_views,
-                             int white_bkgd, int use_bf16, void* stream) {
+                             void* out, void* ws, void* part, void* gpart,
+                             void* dw, int n_rays, int seg, int depth,
+                             int width, int skip_mask, int multires,
+                             int multires_views, int white_bkgd,
+                             int use_bf16, void* stream) {
   if (n_rays <= 0) return 0;
   Dims d(depth, width, skip_mask, multires, multires_views);
   mlp::RayRows rr{};
@@ -103,6 +158,6 @@ extern "C" int onepass_level(const void* pts, const void* views,
   rr.white = white_bkgd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    return launch<bf16>(pts, views, rr, w, b, ws, part, dw, d, s);
-  return launch<float>(pts, views, rr, w, b, ws, part, dw, d, s);
+    return launch<bf16>(pts, views, rr, w, b, ws, part, gpart, dw, d, s);
+  return launch<float>(pts, views, rr, w, b, ws, part, gpart, dw, d, s);
 }

@@ -26,44 +26,82 @@
 // (distance - prior); the batch-global denominators are in the
 // coefficients, computed outside.
 //
-// Bound: operations, 3,556,608 FLOP a point at 8x256 / 16 / 4 (see
-// fused_mip_bwd.cu). Design and rounding of the MLP walks: see
-// mlp_train.cuh, whose mode-4 walk this kernel runs with the mip encoder.
+// Bound on this card: operations, 3,556,608 FLOP a point at 8x256 / 16
+// / 4 (see fused_mip_bwd.cu): 1.061 ms a level (294,912 points) at 989
+// bf16 TFLOP/s.
+//
+// Design (bf16): level_train.cuh's walk in mode 4 with the mip encoder,
+// the same three launches as onepass_level.cu (wgmma products fed by a
+// TMA weight stream, the dW as one split-K GEMM over the level, a
+// fixed-order reduction), and what they do about the old kernel's costs
+// (half of its 38.7 ms a level in the dW pass, a third in the backward
+// walk). A chunk is 8 rays of 96 samples (768 points; 3 waves). The fp32
+// path keeps mlp_train.cuh's mode-4 SIMT walk.
 
-#include "mlp_train.cuh"
+#include "level_train.cuh"
 
 namespace {
 
 using mlp::bf16;
 using mlp::Dims;
 
-template <typename T>
+// WG: the level walk of level_train.cuh (bf16; its dW in the GEMM that
+// follows). Else train_block's walk with its dW pass: the fp32 path (the
+// 32-point SIMT walk), and bf16 widths over 256.
+template <typename T, bool WG>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     onepass_mip_level_kernel(const float* means, const float* covs,
                              const float* views, mlp::RayRows rr,
                              const T* w, const float* b, T* ws, float* part,
-                             size_t part_stride, Dims d) {
-  mlp::train_block<T, 4, mlp::MipEnc>(means, covs, views, nullptr, rr, w, b,
-                                      ws, part, part_stride,
-                                      rr.n_rays * rr.seg, d);
+                             size_t part_stride, int cpts, Dims d,
+                             const __grid_constant__ mlp::WMaps maps) {
+  if constexpr (WG)
+    mlp::level_walk<4, mlp::MipEnc>(means, covs, views, rr, w, b, ws, part,
+                                    part_stride, cpts, d, maps);
+  else
+    mlp::train_block<T, 4, mlp::MipEnc>(means, covs, views, nullptr, rr, w,
+                                        b, ws, part, part_stride,
+                                        rr.n_rays * rr.seg, d);
+}
+
+template <typename T>
+int plan(int n_rays, int seg, const Dims& d, long long* pl) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return mlp::level_plan(onepass_mip_level_kernel<bf16, true>,
+                           onepass_mip_level_kernel<bf16, false>, 4, n_rays,
+                           seg, d, pl);
+  else
+    return mlp::legacy_level_plan<float>(
+        onepass_mip_level_kernel<float, false>, 4, n_rays, seg, d, pl);
 }
 
 template <typename T>
 int launch(const void* means, const void* covs, const void* views,
            mlp::RayRows rr, const void* w, const void* b, void* ws,
-           void* part, void* dw, Dims d, cudaStream_t stream) {
-  long long pl[4];
-  int err = mlp::plan<T>(onepass_mip_level_kernel<T>, 4, rr.n_rays * rr.seg,
-                         rr.seg, d, pl);
+           void* part, void* gpart, void* dw, Dims d, cudaStream_t stream) {
+  long long pl[9];
+  int err = plan<T>(rr.n_rays, rr.seg, d, pl);
   if (err) return err;
-  onepass_mip_level_kernel<T><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
-                                stream>>>(
+  mlp::WMaps maps = {};
+  if (pl[8]) {
+    err = mlp::level_maps(d, static_cast<const bf16*>(w), &maps);
+    if (err) return err;
+  }
+  auto kernel = onepass_mip_level_kernel<T, false>;
+  if constexpr (std::is_same<T, bf16>::value)
+    if (pl[8]) kernel = onepass_mip_level_kernel<T, true>;
+  kernel<<<(int)pl[0], mlp::kThreads, (size_t)pl[3], stream>>>(
       static_cast<const float*>(means), static_cast<const float*>(covs),
       static_cast<const float*>(views), rr, static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<T*>(ws),
-      static_cast<float*>(part), (size_t)pl[2], d);
+      static_cast<float*>(part), (size_t)pl[2], (int)pl[4], d, maps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (pl[8])
+    return mlp::level_dw(d, pl, static_cast<bf16*>(ws),
+                         static_cast<float*>(part),
+                         static_cast<float*>(gpart), static_cast<float*>(dw),
+                         stream);
   const int total = (int)(d.w_total() + d.b_total());
   mlp::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
@@ -73,34 +111,31 @@ int launch(const void* means, const void* covs, const void* views,
 
 }  // namespace
 
-// out[0..3]: blocks, workspace elements per block, partial floats per
-// block, dynamic shared memory bytes. Returns a cudaError_t.
+// out[0..8] as onepass_level_plan's. Returns a cudaError_t.
 extern "C" int onepass_mip_level_plan(int n_rays, int seg, int depth,
                                       int width, int view_width,
                                       int skip_mask, int num_freqs,
                                       int deg_view, int use_bf16,
                                       long long* out) {
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  if (use_bf16)
-    return mlp::plan<bf16>(onepass_mip_level_kernel<bf16>, 4, n_rays * seg,
-                           seg, d, out);
-  return mlp::plan<float>(onepass_mip_level_kernel<float>, 4, n_rays * seg,
-                          seg, d, out);
+  if (use_bf16) return plan<bf16>(n_rays, seg, d, out);
+  return plan<float>(n_rays, seg, d, out);
 }
 
 // means, covs, views: [3, n_rays*seg]; tmid, delta, noise (null: none):
 // [n_rays*seg]; tlo, thi, crgb, cd, prior: [n_rays]; tgt: [3, n_rays];
-// out: [6, n_rays*seg]; all fp32. w, b, ws, part, dw as in fused_mip_bwd.
-// rgb_scale = 1 + 2 rgb_padding (rounded to fp32 by the caller from its
-// double, as the JAX kernel's Python constant is).
+// out: [6, n_rays*seg]; all fp32. w, b, ws, part, gpart, dw as in
+// onepass_level. rgb_scale = 1 + 2 rgb_padding (rounded to fp32 by the
+// caller from its double, as the JAX kernel's Python constant is).
 extern "C" int onepass_mip_level(
     const void* means, const void* covs, const void* views, const void* tmid,
     const void* delta, const void* noise, const void* tlo, const void* thi,
     const void* crgb, const void* tgt, const void* cd, const void* prior,
-    const void* w, const void* b, void* out, void* ws, void* part, void* dw,
-    int n_rays, int seg, int depth, int width, int view_width, int skip_mask,
-    int num_freqs, int deg_view, int white_bkgd, int use_bf16,
-    float rgb_scale, float rgb_padding, float density_bias, void* stream) {
+    const void* w, const void* b, void* out, void* ws, void* part,
+    void* gpart, void* dw, int n_rays, int seg, int depth, int width,
+    int view_width, int skip_mask, int num_freqs, int deg_view,
+    int white_bkgd, int use_bf16, float rgb_scale, float rgb_padding,
+    float density_bias, void* stream) {
   if (n_rays <= 0) return 0;
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   mlp::RayRows rr{};
@@ -122,6 +157,8 @@ extern "C" int onepass_mip_level(
   rr.density_bias = density_bias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    return launch<bf16>(means, covs, views, rr, w, b, ws, part, dw, d, s);
-  return launch<float>(means, covs, views, rr, w, b, ws, part, dw, d, s);
+    return launch<bf16>(means, covs, views, rr, w, b, ws, part, gpart, dw, d,
+                        s);
+  return launch<float>(means, covs, views, rr, w, b, ws, part, gpart, dw, d,
+                       s);
 }

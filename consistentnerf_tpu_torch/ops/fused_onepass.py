@@ -172,10 +172,30 @@ def _kernel():
     plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
     fn = lib.onepass_level
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return plan, fn
+
+
+def level_buffers(plan_fn, args, packed: "v2.PackedMLP", device):
+    """Workspace, per-block partials, dW-GEMM split partials and the
+    packed-grad output of one level launch (#3 or #5), sized by the
+    kernel's own plan (nine slots: blocks, workspace elements, partial
+    floats per block, shared memory, points per chunk, splits, split
+    partial floats, slabs per split, 1 for the level walk). The level
+    walk's workspace holds a row of every point of the level (~9.9 KB a
+    point at 8x256)."""
+    out = (ctypes.c_longlong * 9)()
+    err = plan_fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"one-pass level plan failed: cudaError_t {err}")
+    n_w, n_b = v2.grad_numel(packed)
+    ws = torch.empty(out[1], dtype=packed.compute_dtype, device=device)
+    part = torch.empty(out[0] * out[2], dtype=torch.float32, device=device)
+    gpart = torch.empty(max(out[6], 1), dtype=torch.float32, device=device)
+    dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
+    return ws, part, gpart, dw
 
 
 def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
@@ -223,15 +243,15 @@ def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
     cfg_args = (net_depth, packed.width, skip_mask, multires, multires_views)
     use_bf16 = int(cd_ == torch.bfloat16)
     plan, fn = _kernel()
-    ws, part, dw = v2.train_buffers(
+    ws, part, gpart, dw = level_buffers(
         plan, (n_rays, seg, *cfg_args, use_bf16), packed, dev)
     dn_, crgb_, cd__, prior_ = per_ray
     err = fn(pts_T.data_ptr(), views_T.data_ptr(), z.data_ptr(),
              dn_.data_ptr(), crgb_.data_ptr(), tgt_T.data_ptr(),
              cd__.data_ptr(), prior_.data_ptr(), packed.w.data_ptr(),
              packed.b.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             part.data_ptr(), dw.data_ptr(), n_rays, seg, *cfg_args,
-             int(white_bkgd), use_bf16,
+             part.data_ptr(), gpart.data_ptr(), dw.data_ptr(), n_rays, seg,
+             *cfg_args, int(white_bkgd), use_bf16,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
@@ -687,7 +707,7 @@ def _mip_kernel():
     plan.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
     fn = lib.onepass_mip_level
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return plan, fn
@@ -742,8 +762,8 @@ def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
         return out, v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
     cfg_args = fused_mip._cfg_args(packed)
     plan, fn = _mip_kernel()
-    ws, part, dw = v2.train_buffers(plan, (n_rays, seg, *cfg_args), packed,
-                                    dev)
+    ws, part, gpart, dw = level_buffers(plan, (n_rays, seg, *cfg_args),
+                                        packed, dev)
     tmid_, delta_ = per_point[:2]
     noise_ptr = per_point[2].data_ptr() if noise is not None else None
     tlo_, thi_, crgb_, cd__, prior_ = per_ray
@@ -752,7 +772,8 @@ def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
              tlo_.data_ptr(), thi_.data_ptr(), crgb_.data_ptr(),
              tgt_T.data_ptr(), cd__.data_ptr(), prior_.data_ptr(),
              packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(),
-             ws.data_ptr(), part.data_ptr(), dw.data_ptr(), n_rays, seg,
+             ws.data_ptr(), part.data_ptr(), gpart.data_ptr(),
+             dw.data_ptr(), n_rays, seg,
              *cfg_args[:-1], int(white_bkgd), cfg_args[-1],
              1.0 + 2.0 * rgb_padding, rgb_padding, density_bias,
              torch.cuda.current_stream(dev).cuda_stream)

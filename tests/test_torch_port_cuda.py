@@ -155,10 +155,14 @@ def test_bwd_kernel_matches_packed_walk(cuda_device, width, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 256])
 @pytest.mark.parametrize("seg", [64, 192, 24])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_onepass_kernel_matches_packed_walk(cuda_device, seg, dtype):
-    flat = _mlp_flat(64, cuda_device, seed=2)
+def test_onepass_kernel_matches_packed_walk(cuda_device, width, seg, dtype):
+    """#3 on 37 rays (at 24 samples the level plan takes 2 rays a chunk,
+    so the last chunk is ragged); in bf16 a second launch is
+    bit-identical."""
+    flat = _mlp_flat(width, cuda_device, seed=2)
     g = torch.Generator().manual_seed(4)
     n_rays = 37  # a ragged last chunk
     o = torch.randn(n_rays, 3, generator=g)
@@ -181,10 +185,87 @@ def test_onepass_kernel_matches_packed_walk(cuda_device, seg, dtype):
     want_out, want_dw = op.packed_onepass_reference(packed, *args, True)
     assert torch.isfinite(out).all()
     row_err = (out - want_out).abs().max().item()
-    print(f"onepass {dtype} S={seg}: rows {row_err:.3e}, "
+    print(f"onepass {dtype} W={width} S={seg}: rows {row_err:.3e}, "
           f"dW rel {_rel(dw, want_dw):.3e}")
+    if width == 64:
+        assert row_err < 1e-3
+    else:
+        # Width 256 sums 4x more products into each pre-activation, so
+        # more bf16 roundings flip between the two sum orders (1.4e-3
+        # absolute at S=24 on an H100): each row is held as chip_smoke.py
+        # holds the main path's, max|diff| / max|walk| (ROWS_TOL there).
+        rows_rel = ((out - want_out).abs().amax(1)
+                    / want_out.abs().amax(1).clamp_min(1e-30)).max().item()
+        assert rows_rel < {"bfloat16": 5e-3, "float32": 1e-4}[dtype]
+    assert _rel(dw, want_dw) < TRAIN_TOL[dtype]
+    if dtype == "bfloat16":
+        out2, dw2 = op.onepass_level(packed, *args, white_bkgd=True,
+                                     compute_dtype=dtype)
+        assert torch.equal(out, out2)
+        assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
+
+
+def _level_plan(n_rays, seg, width):
+    import ctypes
+
+    out = (ctypes.c_longlong * 9)()
+    assert op._kernel()[0](n_rays, seg, 8, width, 16, MR, MV, 1, out) == 0
+    return list(out)
+
+
+@pytest.mark.cuda
+def test_onepass_level_plan_picks_the_products(cuda_device):
+    """The bf16 level plan takes the level walk (wgmma products, the dW
+    GEMM) up to width 256 and the legacy walk with its dW pass past it
+    (the weight ring holds 256 columns), and sizes chunks so that the
+    last wave of the fine and coarse levels of the flagship step is
+    full."""
+    fine, coarse = _level_plan(4096, 192, 256), _level_plan(4096, 64, 256)
+    assert fine[8] == 1 and coarse[8] == 1
+    assert _level_plan(37, 24, 320)[8] == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plan, rays in ((fine, 4096), (coarse, 4096)):
+        chunks = -(-rays * (192 if plan is fine else 64) // plan[4])
+        assert plan[0] == min(chunks, sms)
+    if sms == 132:  # an H100 SXM
+        assert (fine[4], coarse[4]) == (768, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_onepass_wide_mlp_matches_packed_walk(cuda_device, dtype):
+    """At width 320 the bf16 level runs the legacy walk of the other train
+    kernels; it still matches the packed walk, and a second bf16 launch
+    is bit-identical."""
+    mlp = NeRFMLP(net_depth=8, net_width=320)
+    mlp.reset_parameters(torch.Generator().manual_seed(2))
+    flat = [w.detach().to(cuda_device) for w in fm.flatten_params(mlp)]
+    g = torch.Generator().manual_seed(4)
+    n_rays, seg, dev = 37, 24, cuda_device
+    o = torch.randn(n_rays, 3, generator=g).to(dev)
+    d = torch.randn(n_rays, 3, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2,
+                   -1).values.to(dev)
+    pts_T, views_T = op._pts_views(o.T, d.T,
+                                   (d / d.norm(dim=-1, keepdim=True)).T, z)
+    rows = [torch.rand(n_rays, generator=g).to(dev) for _ in range(3)]
+    tgt = torch.rand(n_rays, 3, generator=g).to(dev)
+    args = (pts_T, views_T, z, d.norm(dim=-1), rows[0], tgt, rows[1],
+            rows[2] * 4 + 2)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, dtype)
+    out, dw = op.onepass_level(packed, *args, white_bkgd=True,
+                               compute_dtype=dtype)
+    want_out, want_dw = op.packed_onepass_reference(packed, *args, True)
+    print(f"onepass {dtype} W=320: rows "
+          f"{(out - want_out).abs().max().item():.3e}, dW rel "
+          f"{_rel(dw, want_dw):.3e}")
     assert (out - want_out).abs().max().item() < 1e-3
     assert _rel(dw, want_dw) < TRAIN_TOL[dtype]
+    if dtype == "bfloat16":
+        out2, dw2 = op.onepass_level(packed, *args, white_bkgd=True,
+                                     compute_dtype=dtype)
+        assert torch.equal(out, out2)
+        assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
 
 
 # --------------------------- the mip kernels -----------------------------
@@ -260,12 +341,15 @@ def test_mip_bwd_kernel_matches_packed_walk(cuda_device, width, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 256])
 @pytest.mark.parametrize("noise", [True, False])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_onepass_mip_kernel_matches_packed_walk(cuda_device, noise, dtype):
-    """#5 on 37 rays of 96 samples (a ragged last chunk), with and without
-    a density-noise row; a second launch is bit-identical."""
-    flat = _mip_flat(256, cuda_device, seed=2)
+def test_onepass_mip_kernel_matches_packed_walk(cuda_device, width, noise,
+                                                dtype):
+    """#5 on 37 rays of 96 samples, with and without a density-noise row,
+    at width 64 (its view layer, 128 wide, is wider than the trunk) and
+    256; a second launch is bit-identical."""
+    flat = _mip_flat(width, cuda_device, seed=2)
     g = torch.Generator().manual_seed(4)
     n_rays, seg, dev = 37, 96, cuda_device
     t = torch.sort(torch.rand(n_rays, seg + 1, generator=g) * 4 + 2,
@@ -291,7 +375,8 @@ def test_onepass_mip_kernel_matches_packed_walk(cuda_device, noise, dtype):
                                                         white_bkgd=True)
     assert torch.isfinite(out).all()
     row_err = (out - want_out).abs().max().item()
-    print(f"onepass mip {dtype} noise={noise}: rows {row_err:.3e}, "
+    print(f"onepass mip {dtype} W={width} noise={noise}: rows "
+          f"{row_err:.3e}, "
           f"dW rel {_rel(dw, want_dw):.3e}")
     assert row_err < 1e-3
     assert _rel(dw, want_dw) < TRAIN_TOL[dtype]

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where the one-pass train kernel spends its time, on one CUDA card.
+"""Where the one-pass level kernels #3 and #5 spend their time, on one
+CUDA card.
 
     python3 tools/torch_phase_split.py
 
-Builds `csrc/onepass_level.cu` four times from patched copies of
-`csrc/mlp_train.cuh` (beside copies of the other headers) under
-`build/phase_split/`: as it is, without the dW
-pass, without the dW pass and the backward walk, and without those and
-without saving activations to the workspace. Each variant is timed with
-CUDA events on the flagship fine level (4096 rays x 192 samples, 8x256
-MLP, bf16, seeded random weights and rays); the differences are the
-phases' times. The variants compute wrong grads by construction; only
-the full build is a kernel of the port. Prints the card's name and power
-limit beside the times. Imports torch and the port only.
+Builds `csrc/onepass_level.cu` (#3) and `csrc/onepass_mip_level.cu` (#5)
+four times from patched copies of `csrc/level_train.cuh` (beside copies
+of the other headers) under `build/phase_split/`: as they are, without
+the dW GEMM, without the dW GEMM and the backward walk, and without those
+and without saving activations to the workspace. Each variant is timed
+with CUDA events at the main path's shapes, bf16, seeded random weights
+and rays: #3 at the flagship step's fine level (4096 rays x 192 samples)
+and coarse level (x 64), #5 at a mip level (3072 rays x 96 samples); the
+differences are the phases' times. The variants compute wrong grads by
+construction; only the full build is a kernel of the port. Prints the
+card's name and power limit beside the times. Imports torch and the port
+only.
 """
 
 from __future__ import annotations
@@ -24,14 +27,17 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+HEADER = "level_train.cuh"
+SOURCES = ("onepass_level.cu", "onepass_mip_level.cu")
 VARIANTS = {
     "full": [],
     "no_dw": ["-DPHASE_NO_DW"],
     "fwd_saves": ["-DPHASE_NO_DW", "-DPHASE_NO_BWD"],
     "fwd": ["-DPHASE_NO_DW", "-DPHASE_NO_BWD", "-DPHASE_NO_SAVE"],
 }
-# Calls of save_tile<T, M>( in mlp_train.cuh (the forward's five saves).
-SAVE_CALLS = 5
+# Calls of save_rows<M>( in the level walk: the forward's (pe, ve, every
+# trunk layer, feat, hv) and the backward's rounded gradients.
+SAVE_CALLS = 6
 
 
 def _replace(src: str, old: str, new: str, count: int = 1) -> str:
@@ -40,27 +46,44 @@ def _replace(src: str, old: str, new: str, count: int = 1) -> str:
     found = src.count(old)
     if found != count:
         raise ValueError(f"anchor {old!r} occurs {found} times in "
-                         f"mlp_train.cuh, expected {count}")
+                         f"{HEADER}, expected {count}")
     return src.replace(old, new)
 
 
 def patched_header(src: str) -> str:
-    """mlp_train.cuh with #ifndef guards around the phases."""
+    """level_train.cuh with #ifndef guards around the phases."""
     src = _replace(src, "    // ---- backward over sub-tiles ----",
                    "#ifndef PHASE_NO_BWD\n"
                    "    // ---- backward over sub-tiles ----")
-    src = _replace(src, "    // ---- dW over the chunk ----",
-                   "#endif\n#ifndef PHASE_NO_DW\n"
-                   "    // ---- dW over the chunk ----")
-    end = src.index("// dw[j] = sum over blocks")
-    close = src.rindex("    __syncthreads();\n  }\n}", 0, end)
-    src = src[:close] + "#endif\n" + src[close:]
-    src = _replace(src, "save_tile<T, M>(", "PHASE_SAVE(", SAVE_CALLS)
+    src = _replace(src, "    // ---- end of the backward ----",
+                   "#endif\n    // ---- end of the backward ----")
+    # Without the backward, its products leave the weight stream too.
+    src = _replace(src, "  return d.depth + 1;\n",
+                   "#ifdef PHASE_NO_BWD\n  return 0;\n#else\n"
+                   "  return d.depth + 1;\n#endif\n")
+    src = _replace(src, "  // ---- the dW GEMM ----",
+                   "#ifndef PHASE_NO_DW\n  // ---- the dW GEMM ----")
+    src = _replace(src, "  // ---- end of the dW GEMM ----",
+                   "#endif\n  // ---- end of the dW GEMM ----")
+    src = _replace(src, "save_rows<M>(", "PHASE_SAVE(", SAVE_CALLS)
     return _replace(
-        src, "// Shared memory of one block",
+        src, "__device__ inline float rnd(",
         "#ifdef PHASE_NO_SAVE\n#define PHASE_SAVE(...)\n#else\n"
-        "#define PHASE_SAVE(...) save_tile<T, M>(__VA_ARGS__)\n#endif\n"
-        "// Shared memory of one block")
+        "#define PHASE_SAVE(...) save_rows<M>(__VA_ARGS__)\n#endif\n"
+        "__device__ inline float rnd(")
+
+
+def patched_sources(csrc: Path) -> dict:
+    """File name -> text of the phase-split build: every header (the level
+    header patched) and the two level kernels, which must include it."""
+    out = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
+    out[HEADER] = patched_header(out[HEADER])
+    for name in SOURCES:
+        text = (csrc / name).read_text()
+        if f'#include "{HEADER}"' not in text:
+            raise ValueError(f"{name} does not include {HEADER}")
+        out[name] = text
+    return out
 
 
 def main() -> None:
@@ -68,8 +91,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
     from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
     from consistentnerf_tpu_torch.ops import fused_mlp as fm
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
     from consistentnerf_tpu_torch.ops import fused_onepass as op
@@ -80,13 +104,8 @@ def main() -> None:
     ).stdout.strip()
     csrc = REPO / "build" / "phase_split" / "csrc"
     csrc.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mlp_train.cuh":
-            text = patched_header(text)
-        (csrc / header.name).write_text(text)
-    (csrc / "onepass_level.cu").write_text(
-        (_build.CSRC / "onepass_level.cu").read_text())
+    for name, text in patched_sources(_build.CSRC).items():
+        (csrc / name).write_text(text)
 
     dev = torch.device("cuda")
     fm.strict_fp32(dev)
@@ -95,50 +114,85 @@ def main() -> None:
     mlp.reset_parameters(g)
     packed = v2.pack([w.detach().to(dev) for w in fm.flatten_params(mlp)],
                      8, (4,), 10, 4, "bfloat16")
-    n_rays, seg = 4096, 192
-    o = torch.randn(n_rays, 3, generator=g) * 0.3 - torch.tensor(
-        [0.0, 0.0, 4.0])
-    d = torch.randn(n_rays, 3, generator=g) * 0.2 + torch.tensor(
-        [0.0, 0.0, 1.0])
-    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2, -1).values
-    o, d, z = o.to(dev), d.to(dev), z.to(dev).contiguous()
-    pts, views = op._pts_views(o.T, d.T, (d / d.norm(dim=-1,
-                                                     keepdim=True)).T, z)
-    rows = [torch.rand(n_rays, generator=g).to(dev) * 1e-3
-            for _ in range(3)]
+
+    def vanilla(n_rays, seg):
+        o = torch.randn(n_rays, 3, generator=g) * 0.3 - torch.tensor(
+            [0.0, 0.0, 4.0])
+        d = torch.randn(n_rays, 3, generator=g) * 0.2 + torch.tensor(
+            [0.0, 0.0, 1.0])
+        z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2,
+                       -1).values
+        o, d, z = o.to(dev), d.to(dev), z.to(dev).contiguous()
+        pts, views = op._pts_views(o.T, d.T, (d / d.norm(
+            dim=-1, keepdim=True)).T, z)
+        rows = [torch.rand(n_rays, generator=g).to(dev) * 1e-3
+                for _ in range(3)]
+        tgt = torch.rand(n_rays, 3, generator=g).to(dev)
+        args = (pts, views, z, d.norm(dim=-1), rows[0], tgt, rows[1],
+                rows[2] + 4)
+        return lambda: op.onepass_level(packed, *args, white_bkgd=True,
+                                        compute_dtype="bfloat16")
+
+    mip = MipMLP(net_depth=8, net_width=256)
+    mip.reset_parameters(g)
+    mpacked = fmip.pack([w.detach().to(dev)
+                         for w in fmip.flatten_mip_params(mip)], 8, 16,
+                        "bfloat16")
+    n_rays, seg = 3072, 96
+    t = torch.sort(torch.rand(n_rays, seg + 1, generator=g) * 4 + 2,
+                   -1).values.to(dev)
+    dn = (0.5 + torch.rand(n_rays, generator=g)).to(dev)
+    vd = torch.randn(3, n_rays, generator=g)
+    means = (torch.rand(3, n_rays * seg, generator=g) * 3 - 1.5).to(dev)
+    covs = (torch.rand(3, n_rays * seg, generator=g) * 1e-4).to(dev)
+    views = (vd / vd.norm(dim=0, keepdim=True)).to(dev).repeat_interleave(
+        seg, 1).contiguous()
+    crgb, cd = (torch.rand(n_rays, generator=g).to(dev) * 1e-3
+                for _ in range(2))
     tgt = torch.rand(n_rays, 3, generator=g).to(dev)
-    args = (pts, views, z, d.norm(dim=-1), rows[0], tgt, rows[1],
-            rows[2] + 4)
+    prior = torch.rand(n_rays, generator=g).to(dev) + 2
+    margs = (means, covs, views, 0.5 * (t[:, 1:] + t[:, :-1]),
+             (t[:, 1:] - t[:, :-1]) * dn[:, None], t[:, 0].contiguous(),
+             t[:, -1].contiguous(), crgb, tgt, cd, prior)
+    cases = {
+        f"#3 fine ({4096 * 192} points)": vanilla(4096, 192),
+        f"#3 coarse ({4096 * 64} points)": vanilla(4096, 64),
+        f"#5 mip level ({n_rays * seg} points)":
+            lambda: op.onepass_mip_level(
+                mpacked, *margs, net_depth=8, num_freqs=16, white_bkgd=True,
+                compute_dtype="bfloat16"),
+    }
 
     base_flags = list(_build.NVCC_FLAGS)
     _build.CSRC = csrc
-    times = {}
+    times = {case: {} for case in cases}
     for name, flags in VARIANTS.items():
         _build.NVCC_FLAGS = base_flags + flags
         _build.BUILD_DIR = REPO / "build" / "phase_split" / name
         _build._LIBS.clear()
         op._kernel.cache_clear()
-
-        def run():
-            return op.onepass_level(packed, *args, white_bkgd=True,
-                                    compute_dtype="bfloat16")
-
-        run()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
+        op._mip_kernel.cache_clear()
+        _build.build_all([s[:-3] for s in SOURCES])
+        for case, run in cases.items():
             run()
-        end.record()
-        torch.cuda.synchronize()
-        times[name] = start.elapsed_time(end) / 3
-        print(f"[{card}] {name}: {times[name]:.2f} ms", flush=True)
-    print(f"[{card}] one-pass fine level ({n_rays * seg} points, bf16): "
-          f"dW pass {times['full'] - times['no_dw']:.2f} ms, backward "
-          f"walk {times['no_dw'] - times['fwd_saves']:.2f} ms, workspace "
-          f"saves {times['fwd_saves'] - times['fwd']:.2f} ms, forward and "
-          f"compositing {times['fwd']:.2f} ms, of {times['full']:.2f} ms")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            times[case][name] = start.elapsed_time(end) / 3
+            print(f"[{card}] {case} {name}: {times[case][name]:.3f} ms",
+                  flush=True)
+    for case, t_ in times.items():
+        print(f"[{card}] {case}, bf16: dW GEMM "
+              f"{t_['full'] - t_['no_dw']:.3f} ms, backward walk "
+              f"{t_['no_dw'] - t_['fwd_saves']:.3f} ms, workspace saves "
+              f"{t_['fwd_saves'] - t_['fwd']:.3f} ms, forward and "
+              f"compositing {t_['fwd']:.3f} ms, of {t_['full']:.3f} ms",
+              flush=True)
 
 
 if __name__ == "__main__":
