@@ -7,6 +7,10 @@ Builds every hand-written kernel of the port from `consistentnerf_tpu_torch/
 csrc/` (one nvcc per source, in parallel) and drives the main paths, each
 with the launch counts set to 0 just before it and read just after:
 
+* the bf16 forward walk of #1 and #6 (`csrc/fwd_hopper.cuh`): the plans
+  that pick it by shapes, and both kernels at ragged sizes (1, 127, 129
+  points and a half-empty last wave) against their plain versions and,
+  bit for bit, against their row-major twins #10 / #15;
 * render: the deterministic bf16 render of the 6-view 128x128 synthetic
   scene through `build_render_fn` (full 8x256 model, 64 + 128 samples,
   seeded weights), then the render CLI on two test views;
@@ -45,8 +49,8 @@ with the launch counts set to 0 just before it and read just after:
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5, whose dW
-sums take a fixed order, also against a second bf16 launch, bit for
-bit); the kernel train step is held against the
+sums take a fixed order, and #1 also against a second bf16 launch, bit
+for bit); the kernel train step is held against the
 plain eager step from the same state, batch and draws; timings are
 printed beside the card's name and power limit. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
@@ -219,6 +223,19 @@ def level_plan_text(out):
     return text
 
 
+def fwd_plan_text(plan):
+    """A forward plan (#1, #6; fused_mlp_v2.PLAN_SLOTS), in words."""
+    if not plan["hopper"]:
+        return (f"mlp_fwd.cuh's walk: {plan['tiles']} blocks of "
+                f"{plan['tile']} points, {plan['smem_bytes']} bytes of "
+                "shared memory")
+    return (f"the Hopper walk: {plan['blocks']} persistent blocks over "
+            f"{plan['tiles']} tiles of {plan['tile']} points, a "
+            f"{plan['stages']}-slot weight ring, {plan['pe_buffers']} pe "
+            f"buffer(s), cluster {plan['cluster']}, {plan['smem_bytes']} "
+            "bytes of shared memory")
+
+
 def ptxas_report(_build, name):
     """Registers, spills and stack of each kernel in a build log."""
     entry = None
@@ -227,6 +244,8 @@ def ptxas_report(_build, name):
             mangled = line.split("'")[1]
             entry = ("bf16" if "bfloat16" in mangled else
                      "fp32" if "reduce" not in mangled else "reduce")
+            if "fwd_hopper_kernel" in mangled:
+                entry = "bf16 Hopper walk " + mangled.split("Enc")[1][:8]
             if "RowMajor" in mangled:
                 entry += " row-major"
             if "dw_gemm" in mangled:
@@ -399,6 +418,9 @@ def main() -> None:
             f"(3072 x 96) {level_plan_text(outo)}")
 
     t_phase = time.perf_counter()
+    fwd_walk_phases(dev, fm, v2, fmip)
+    log(f"forward walk phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     render = render_phases(dev, card, configs, fm, v2)
     train = train_phases(dev, card, configs, fm, v2, op)
     log(f"vanilla phases: {time.perf_counter() - t_phase:.1f} s")
@@ -449,6 +471,101 @@ def main() -> None:
     log(f"nvidia-smi: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
+
+
+# The ragged sizes of #1 and #6: one point, a tile less one, a tile and
+# one, and a tile count that leaves the persistent grid's last wave half
+# empty (132 + 66 tiles on an H100, the last one ragged).
+RAGGED_N = (1, 127, 129, 198 * 128 - 50)
+
+
+def fwd_walk_phases(dev, fm, v2, fmip):
+    """The Hopper walk of #1 and #6 (csrc/fwd_hopper.cuh): the
+    shape-decided plans, and both kernels at the ragged sizes in bf16
+    against their plain versions (the render chunk's gates) and, bit for
+    bit, against their row-major twins #10 / #15, which keep
+    mlp_fwd.cuh's walk; the walk rounds where that walk does."""
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+
+    mlp = NeRFMLP(net_depth=8, net_width=256)
+    mlp.reset_parameters(torch.Generator().manual_seed(1))
+    flat = [w.detach().to(dev) for w in fm.flatten_params(mlp)]
+    mip = MipMLP(net_depth=8, net_width=256)
+    mip.reset_parameters(torch.Generator().manual_seed(1))
+    mflat = [w.detach().to(dev) for w in fmip.flatten_mip_params(mip)]
+    nerf_kw = dict(net_depth=8, skips=(4,), multires=10, multires_views=4)
+    mip_kw = dict(net_depth=8, num_freqs=16)
+    for label, plan in (
+            ("#1 bf16, fine render chunk", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="bfloat16", **nerf_kw),
+                CHUNK * 192)),
+            ("#1 bf16, coarse render chunk", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="bfloat16", **nerf_kw),
+                CHUNK * 64)),
+            ("#1 fp32, fine render chunk", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="float32", **nerf_kw),
+                CHUNK * 192)),
+            ("#10 bf16 (row-major), fine render chunk", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="bfloat16", **nerf_kw),
+                CHUNK * 192, row=True)),
+            ("#6 bf16, render chunk", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "bfloat16"), CHUNK * 96)),
+            ("#6 fp32, render chunk", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "float32"), CHUNK * 96)),
+            ("#15 bf16 (row-major), mip level", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "bfloat16"), 3072 * 128,
+                row=True))):
+        log(f"plan of {label}: {fwd_plan_text(plan)}")
+        want_hopper = "bf16" in label and "row-major" not in label
+        gate(plan["hopper"] == int(want_hopper), f"the plan of {label} "
+             f"picked the {'Hopper' if plan['hopper'] else 'legacy'} walk")
+
+    packed = v2.pack(flat, compute_dtype="bfloat16", **nerf_kw)
+    mpacked = fmip.pack(mflat, 8, 16, "bfloat16")
+    for n in RAGGED_N:
+        g = torch.Generator().manual_seed(0)
+        pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
+        views = torch.randn(3, n, generator=g)
+        views = (views / views.norm(dim=0, keepdim=True)).to(dev)
+        with torch.no_grad():
+            got = v2.fwd_T(packed, pts, views, compute_dtype="bfloat16",
+                           **nerf_kw)
+            torch.cuda.synchronize()
+            want = v2.plain_fwd_T(packed, pts, views,
+                                  compute_dtype="bfloat16", **nerf_kw)
+            twin = v2.fwd(packed, pts.T.contiguous(), views.T.contiguous(),
+                          compute_dtype="bfloat16", **nerf_kw).T
+        rel, mx = rel_err(got, want)
+        same = torch.equal(got, twin)
+        log(f"{v2.KERNEL} bf16 vs plain, N={n}: max|diff| {mx:.3e}, "
+            f"max|diff|/mean|plain| {rel:.3e} (tol {BF16_TOL}); "
+            f"bit-identical to {v2.ROW_KERNEL} {same}")
+        gate(bool(torch.isfinite(got).all()) and rel < BF16_TOL,
+             f"{v2.KERNEL} N={n} disagrees with its plain version ({rel})")
+        gate(same, f"{v2.KERNEL} N={n}: other bits than {v2.ROW_KERNEL}")
+        g = torch.Generator().manual_seed(0)
+        means = (torch.rand(3, n, generator=g) * 3 - 1.5).to(dev)
+        covs = (torch.rand(3, n, generator=g) * 1e-4).to(dev)
+        mviews = torch.randn(3, n, generator=g)
+        mviews = (mviews / mviews.norm(dim=0, keepdim=True)).to(dev)
+        with torch.no_grad():
+            got = fmip.fwd_T(mpacked, means, covs, mviews,
+                             compute_dtype="bfloat16", **mip_kw)
+            torch.cuda.synchronize()
+            want = fmip.plain_fwd_T(mpacked, means, covs, mviews,
+                                    compute_dtype="bfloat16", **mip_kw)
+            twin = fmip.fwd(mpacked, means.T.contiguous(),
+                            covs.T.contiguous(), mviews.T.contiguous(),
+                            compute_dtype="bfloat16", **mip_kw).T
+        if not torch.isfinite(got).all():
+            fail(f"{fmip.KERNEL} N={n}: non-finite output")
+        mip_fwd_gate(f"{fmip.KERNEL} vs plain, N={n}", got, want,
+                     "bfloat16")
+        same = torch.equal(got, twin)
+        log(f"{fmip.KERNEL} bf16 N={n}: bit-identical to {fmip.ROW_KERNEL} "
+            f"{same}")
+        gate(same, f"{fmip.KERNEL} N={n}: other bits than "
+             f"{fmip.ROW_KERNEL}")
 
 
 def render_phases(dev, card, configs, fm, v2):
@@ -533,6 +650,13 @@ def render_phases(dev, card, configs, fm, v2):
             if tol is not None and not rel < tol:
                 fail(f"{label}: kernel disagrees with its plain version "
                      f"({rel:.3e} >= {tol:g})")
+            if label == "fine bf16":
+                again = call(v2.fwd_T, w, pts_T, views_T, dtype)
+                same = torch.equal(got, again)
+                log(f"{v2.KERNEL} fine bf16 repeat: bit-identical {same}")
+                gate(same, f"{v2.KERNEL} bf16: a second launch gave other "
+                     "bits")
+                del again
             del got, want
 
     # 4. The render path: the 6 views through build_render_fn.
@@ -605,7 +729,8 @@ def render_phases(dev, card, configs, fm, v2):
         f"/launch, bound {b_fine:.3f} ms ({by_fine}, "
         f"{100 * b_fine / ms_fine:.1f}% of it)")
     log(f"{tag} {v2.KERNEL} bf16 coarse chunk (N={n_coarse}): "
-        f"{ms_coarse:.3f} ms/launch, bound {b_coarse:.3f} ms")
+        f"{ms_coarse:.3f} ms/launch, bound {b_coarse:.3f} ms "
+        f"({100 * b_coarse / ms_coarse:.1f}% of it)")
     log(f"{tag} {v2.KERNEL} fp32 fine chunk: {ms_fine32:.3f} ms/launch, "
         f"bound {b_fine32:.3f} ms (fp32 CUDA-core peak)")
     log(f"{tag} plain version, bf16 fine chunk: {plain_ms:.3f} ms")
@@ -618,7 +743,8 @@ def render_phases(dev, card, configs, fm, v2):
     else:
         log(f"{tag} profiled render: device time {dev_ms:.2f} ms, "
             f"{100 * dev_ms / (1e3 * render_s):.1f}% of the event-timed "
-            "render; by kernel: " + "; ".join(
+            f"render (idle share {1 - dev_ms / (1e3 * render_s):.3f}); by "
+            "kernel: " + "; ".join(
                 f"{k} {ms:.2f} ms x{n}" for k, ms, n in top))
     return {"launches": launches + cli_launches, "json": dict(
         max_abs_err=errs["fine bf16"], ms=ms_fine, plain_ms=plain_ms,
@@ -911,6 +1037,22 @@ def train_phases(dev, card, configs, fm, v2, op):
                 "it)")
         plain_ms = time_ms(runner(kern, "fine", plain), 2)
         log(f"{tag} plain version of {kern}, bf16 fine: {plain_ms:.3f} ms")
+        if kern == v2.BWD_KERNEL:
+            # The step's two launches of #1, on the patch rays' levels.
+            fwd_pp = mlp_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                         cfg.multires, cfg.multires_views)
+            for lvl in ("fine", "coarse"):
+                w = packed(lvl, "bfloat16")
+                pts, views = levels2[lvl]
+                with torch.no_grad():
+                    ms1 = time_ms(lambda: v2.fwd_T(
+                        w, pts, views, compute_dtype="bfloat16", **mlp_kw),
+                        10)
+                b1, by1 = bound_ms(pts.shape[1], fwd_pp, w.w.numel() * 2
+                                   + w.b.numel() * 4, PEAK_BF16_FLOPS)
+                log(f"{tag} {v2.KERNEL} bf16 one-pass step, patch {lvl} "
+                    f"(N={pts.shape[1]}): {ms1:.3f} ms/launch, bound "
+                    f"{b1:.3f} ms ({by1}, {100 * b1 / ms1:.1f}% of it)")
         ms, bound, by = res_ms["fine"]
         rows.append(dict(
             name=kern, route="cuda",
@@ -1112,7 +1254,8 @@ def mip_render_phases(dev, card, configs, fm, fmip):
     else:
         log(f"{tag} profiled mip render: device time {dev_ms:.2f} ms, "
             f"{100 * dev_ms / (1e3 * render_s):.1f}% of the event-timed "
-            "render; by kernel: " + "; ".join(
+            f"render (idle share {1 - dev_ms / (1e3 * render_s):.3f}); by "
+            "kernel: " + "; ".join(
                 f"{k} {t:.2f} ms x{c}" for k, t, c in top))
     return {"launches": launches, "json": dict(
         max_abs_err=errs["level 1 bf16"], ms=ms, plain_ms=plain_ms,
@@ -2250,7 +2393,8 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
                 f"ms/launch ({1e6 * ms / pts.shape[0]:.2f} ns/point); "
                 f"{tkern} on the same points {ms_T:.3f} ms "
                 f"({100 * (ms / ms_T - 1):+.1f}%); bound {bound:.3f} ms "
-                f"({by}, {100 * bound / ms:.1f}% of it)")
+                f"({by}, {100 * bound / ms:.1f}% of it, "
+                f"{100 * bound / ms_T:.1f}% of {tkern}'s)")
             del pts_T, views_T
         w = v2.pack(flat["fine"], compute_dtype="bfloat16", **mlp_kw)
         pts, views = levels["fine"]
@@ -2385,8 +2529,9 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
         log(f"{tag} {kern} bf16 (N={nm * s}): {ms:.3f} ms/launch "
             f"({1e6 * ms / (nm * s):.2f} ns/point); {tkern} on the same "
             f"points {ms_T:.3f} ms ({100 * (ms / ms_T - 1):+.1f}%); bound "
-            f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it); plain "
-            f"version {plain_ms:.3f} ms")
+            f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it, "
+            f"{100 * bound / ms_T:.1f}% of {tkern}'s); plain version "
+            f"{plain_ms:.3f} ms")
         rows.append(dict(
             name=kern, route="cuda",
             source=("consistentnerf_tpu_torch/csrc/fused_mip_fwd.cu"

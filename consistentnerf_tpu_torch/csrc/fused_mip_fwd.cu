@@ -17,13 +17,17 @@
 // Bound: operations, 1,220,608 FLOP a point at 8x256 / 16 IPE
 // frequencies / view degree 4 (610,304 MACs: 96->256, six 256->256, the
 // post-skip 352->256, density 256->1, bottleneck 256->256, view layer
-// 283->128, rgb 128->3) against 52 bytes (9 floats in, 4 out). Design and
-// weight layout: see mlp_fwd.cuh, whose walk this kernel runs with the
-// mip encoder (mlp_common.cuh::MipEnc). The TPU kernel's packed 128-lane
-// IPE register, its pi/2 phase-bias row and its sin(2^-14 v) 2^14
-// raw-viewdir columns are Mosaic lane-layout devices; here each feature
-// is computed on its own and the raw view directions are read as they
-// are.
+// 283->128, rgb 128->3) against 52 bytes (9 floats in, 4 out). Weight
+// layout: see mlp_fwd.cuh. In bf16 on the transposed streams at widths
+// 64-256 the kernel runs the Hopper walk of fwd_hopper.cuh, with a 2-slot
+// weight ring at 16 frequencies (a 3-slot ring does not fit beside two
+// 96-column pe buffers); fp32, other widths and the row-major instance
+// run mlp_fwd.cuh's walk, both with the mip encoder (mlp_common.cuh::
+// MipEnc). The plan (fused_mip_fwd_plan) decides by shapes alone. The TPU
+// kernel's packed 128-lane IPE register, its pi/2 phase-bias row and its
+// sin(2^-14 v) 2^14 raw-viewdir columns are Mosaic lane-layout devices;
+// here each feature is computed on its own and the raw view directions
+// are read as they are.
 //
 // The normals variant adds the density's walk back through the trunk
 // (507,904 MACs at 8x256: every trunk layer's input gradient, and the
@@ -38,11 +42,56 @@
 // type before each product, the products accumulate in fp32, the
 // encoding's gradient stays fp32.
 
-#include "mlp_fwd.cuh"
+#include "fwd_hopper.cuh"
 #include "mlp_train.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
+
+namespace {
+
+// The Hopper walk's instances (fwd_hopper.cuh; bf16 on the transposed
+// streams): (width / 64, ceil(view width / 64)) at the MipMLP's widths 64,
+// 128, 192, 256 with its 128-wide view layer.
+bool mip_instance(const Dims& d) {
+  return d.width / 64 >= 1 && d.width / 64 <= 4 && (d.half + 63) / 64 == 2;
+}
+
+int hopper_launch(const mlp::FhPlan& pl, const void* means, const void* covs,
+                  const void* views, const void* w, const void* b, void* out,
+                  int n, const Dims& d, cudaStream_t s) {
+  using mlp::MipEnc;
+  switch (d.width / 64) {
+    case 1:
+      return mlp::fh_launch<MipEnc, 1, 2>(pl, means, covs, views, w, b, out,
+                                          n, d, s);
+    case 2:
+      return mlp::fh_launch<MipEnc, 2, 2>(pl, means, covs, views, w, b, out,
+                                          n, d, s);
+    case 3:
+      return mlp::fh_launch<MipEnc, 3, 2>(pl, means, covs, views, w, b, out,
+                                          n, d, s);
+    default:
+      return mlp::fh_launch<MipEnc, 4, 2>(pl, means, covs, views, w, b, out,
+                                          n, d, s);
+  }
+}
+
+}  // namespace
+
+// The walk #6 takes at these shapes (row: the row-major instance #15):
+// out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
+extern "C" int fused_mip_fwd_plan(int n, int depth, int width,
+                                  int view_width, int skip_mask,
+                                  int num_freqs, int deg_view, int use_bf16,
+                                  int row, long long* out) {
+  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
+  mlp::FhPlan pl;
+  const int err = mlp::fh_plan(d, n, use_bf16, row, mip_instance(d), &pl);
+  if (err) return err;
+  mlp::fh_plan_slots(pl, d, n, use_bf16, out);
+  return 0;
+}
 
 // means, covs, views: [3, n] fp32; w: packed weights (bf16 when use_bf16,
 // else fp32); b: packed fp32 biases; out: [4, n] fp32. view_width: the
@@ -56,6 +105,11 @@ extern "C" int fused_mip_fwd(const void* means, const void* covs,
   if (n <= 0) return 0;
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mlp::FhPlan pl;
+  const int err = mlp::fh_plan(d, n, use_bf16, false, mip_instance(d), &pl);
+  if (err) return err;
+  if (pl.ok)
+    return hopper_launch(pl, means, covs, views, w, b, out, n, d, s);
   if (use_bf16)
     return mlp::fwd_launch<bf16, 128, mlp::MipEnc>(means, covs, views, w, b,
                                                    out, n, d, s);

@@ -12,13 +12,62 @@
 // With float weights the same kernel runs in fp32 on the CUDA cores.
 //
 // Bound (operations: 1,186,816 FLOP and 40 bytes a point at 8x256 /
-// multires 10+4), design and weight layout: see mlp_fwd.cuh, whose walk
-// this kernel runs with the NeRF encoder (mlp_common.cuh::NerfEnc).
+// multires 10+4) and weight layout: see mlp_fwd.cuh. In bf16 on the
+// transposed streams at widths 64-256 the kernel runs the Hopper walk of
+// fwd_hopper.cuh (persistent warp-specialised blocks, TMA weight ring,
+// wgmma); fp32, other widths and the row-major instance run mlp_fwd.cuh's
+// walk, both with the NeRF encoder (mlp_common.cuh::NerfEnc). The plan
+// (fused_mlp_fwd_plan) decides by shapes alone.
 
-#include "mlp_fwd.cuh"
+#include "fwd_hopper.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
+
+namespace {
+
+// The Hopper walk's instances: (width / 64, ceil(half / 64)) at the
+// NeRFMLP's widths 64, 128, 192, 256 (half = width / 2).
+bool nerf_instance(const Dims& d) {
+  const int nbw = d.width / 64, nbh = (d.half + 63) / 64;
+  return (nbw == 1 && nbh == 1) || (nbw == 2 && nbh == 1) ||
+         (nbw == 3 && nbh == 2) || (nbw == 4 && nbh == 2);
+}
+
+int hopper_launch(const mlp::FhPlan& pl, const void* pts, const void* views,
+                  const void* w, const void* b, void* out, int n,
+                  const Dims& d, cudaStream_t s) {
+  using mlp::NerfEnc;
+  switch (d.width / 64) {
+    case 1:
+      return mlp::fh_launch<NerfEnc, 1, 1>(pl, pts, nullptr, views, w, b,
+                                           out, n, d, s);
+    case 2:
+      return mlp::fh_launch<NerfEnc, 2, 1>(pl, pts, nullptr, views, w, b,
+                                           out, n, d, s);
+    case 3:
+      return mlp::fh_launch<NerfEnc, 3, 2>(pl, pts, nullptr, views, w, b,
+                                           out, n, d, s);
+    default:
+      return mlp::fh_launch<NerfEnc, 4, 2>(pl, pts, nullptr, views, w, b,
+                                           out, n, d, s);
+  }
+}
+
+}  // namespace
+
+// The walk #1 takes at these shapes (row: the row-major instance #10):
+// out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
+extern "C" int fused_mlp_fwd_plan(int n, int depth, int width, int skip_mask,
+                                  int multires, int multires_views,
+                                  int use_bf16, int row, long long* out) {
+  const Dims d(depth, width, skip_mask, multires, multires_views);
+  mlp::FhPlan pl;
+  const int err = mlp::fh_plan(d, n, use_bf16, row, nerf_instance(d), &pl);
+  if (err) return err;
+  mlp::fh_plan_slots(pl, d, n, use_bf16, out);
+  return 0;
+}
 
 // Dynamic shared memory of one block, in bytes.
 extern "C" int fused_mlp_fwd_smem_bytes(int width, int multires,
@@ -39,6 +88,10 @@ extern "C" int fused_mlp_fwd(const void* pts, const void* views,
   if (n <= 0) return 0;
   const Dims d(depth, width, skip_mask, multires, multires_views);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mlp::FhPlan pl;
+  const int err = mlp::fh_plan(d, n, use_bf16, false, nerf_instance(d), &pl);
+  if (err) return err;
+  if (pl.ok) return hopper_launch(pl, pts, views, w, b, out, n, d, s);
   if (use_bf16)
     return mlp::fwd_launch<bf16, 128, mlp::NerfEnc>(pts, nullptr, views, w,
                                                     b, out, n, d, s);

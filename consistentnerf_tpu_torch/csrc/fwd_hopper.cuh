@@ -1,0 +1,626 @@
+// The bf16 forward walk of kernels #1 (fused_mlp_fwd.cu, the NeRFMLP)
+// and #6 (fused_mip_fwd.cu, the MipMLP) for Hopper. fp32, the widths this
+// walk does not take, the row-major twins #10 / #15, the v1 forward #12
+// and #4 keep mlp_fwd.cuh::fwd_tile. The plan functions of the two
+// sources (fused_mlp_fwd_plan, fused_mip_fwd_plan, from fh_plan here)
+// decide by shapes alone which walk runs.
+//
+// What it replaces: fwd_tile ran one 128-point tile per block (8 warps,
+// one block an SM). Every warp loaded each 16-deep weight fragment from
+// L2 with legacy wmma and waited on it, staged every 16x16 accumulator
+// through shared memory for the epilogue, and computed the heads as
+// serial dot products while the tensor cores idled: ~196 us a tile at the
+// flagship fine render chunk against the ~20 us its FLOP take (H100).
+//
+// Bound: operations (1.19-1.22 MFLOP against 40-52 bytes a point, see
+// mlp_fwd.cuh). What the design does about it:
+//   * Persistent blocks, one an SM: block b walks tiles b, b + grid, ...
+//     of 128 points, so the next tile's encoding and weight slabs overlap
+//     the current tile's products.
+//   * Three warpgroups. Two consumers each own 64 of the tile's points
+//     over the whole N of every product: wgmma m64nNk16 with N the layer's
+//     width (up to 256, 128 fp32 accumulators a thread), both operands
+//     from shared memory, so each 64 x N weight slab feeds 128 points. The
+//     producer warpgroup gives up registers (setmaxnreg 40; the consumers
+//     take 232): its warp 0 keeps the weight slabs in flight, one thread
+//     issuing TMA loads into a ring of `stages` slots under full / empty
+//     mbarriers in the fixed order of the products (trunk layers,
+//     feature, views, tile after tile); its warps 1-3 encode the next
+//     tile's PE / IPE into a second pe buffer and its view encoding into
+//     the ve buffer, handed over by mbarriers. Where shared memory is short
+//     (the mip's 96-column IPE at width 256) the ring has 2 slots rather
+//     than 3: the encoding is the costlier wait there. The encoders work a
+//     pair of features at a time (sin and cos share the argument and, in
+//     the IPE, the damping) and reduce the mip's sine arguments by an
+//     exact fma remainder (fh_safe_sin) in place of fmodf.
+//   * A from shared memory by descriptor: every activation buffer is kept
+//     in the canonical K-major 128-byte swizzled layout (64-column panels
+//     of 128 rows x 128 bytes), which the epilogue writes directly from
+//     the accumulators (bias, ReLU, the bf16 round) over the consumer's
+//     own 64 rows, in place, after wgmma.wait_group 0. No block-wide
+//     barrier sits between layers: a named barrier a warpgroup, and the
+//     ring's. The skip layer reads [pe | h] and the view layer [feature |
+//     ve], one descriptor per 16-deep step; steps past the reduction (the
+//     slab's rows there belong to the next layer) read zero columns, the
+//     never-written tail of ve or pe.
+//   * The epilogue reads the biases from shared memory, rounds with
+//     cvt.relu and stores four 8 x 8 blocks a stmatrix.
+//   * The heads (alpha W -> 1 from the last trunk layer, before the
+//     feature layer overwrites it; rgb H -> 3 from the view layer) read
+//     the rounded activations from the tile in column order, one thread a
+//     row (and channel), with the head weights in shared memory, while a
+//     product's first slab multiplies: alpha during the feature layer's,
+//     rgb during the next tile's layer 0 (which reads pe only).
+//
+// Rounding is fwd_tile's (mlp_fwd.cuh): the encodings in fp32 with the
+// same values (FhEnc), then cast; bf16 operands with fp32 accumulation
+// in the same k order; fp32 biases; trunk ReLU then bf16; `feature` to
+// bf16 without ReLU; alpha and rgb in fp32 from the bf16 activations,
+// summed in column order as fwd_tile sums them. So the walk gives
+// fwd_tile's bits (the wgmma products give the wmma products' bits, as in
+// level_train.cuh), and the row-major twins, which keep fwd_tile, the
+// transposed kernels'. No cross-block reduction: two launches give the
+// same bits.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "mlp_fwd.cuh"
+
+namespace mlp {
+
+constexpr int kFhTile = 128;             // points a tile, 64 a consumer
+constexpr int kFhThreads = 384;          // consumers 0-255, producer 256-383
+constexpr int kFhPanel = kFhTile * 128;  // a 64-column panel of a tile
+constexpr int kFhBox = 8192;             // a weight box: 64 x 64 bf16
+constexpr int kFhEncoders = 96;          // producer warps 1-3
+constexpr int kFhMaxProds = 20;          // products a tile: depth + 2
+
+// The launch plan: whether this walk runs, and its shape.
+struct FhPlan {
+  int ok;      // 1: this walk; 0: fwd_tile
+  int stages;  // weight ring slots
+  int npe;     // pe buffers (2: the next tile's PE overlaps the skip layer)
+  int pp;      // 64-column panels of pe
+  int na;      // panels of the activation tile and boxes a ring slot
+  int smem;    // dynamic shared memory, bytes
+  int grid;    // blocks: min(SMs, tiles)
+  int tiles;   // 128-point tiles
+};
+
+// One product of a tile: its first row in its weight map (map 0: trunk
+// and feature, map 1: the view layer; hopper.cuh::weight_maps) and its
+// 16-deep reduction steps.
+struct FhProd {
+  int row0, map, ks;
+};
+
+__host__ __device__ inline FhProd fh_prod(const Dims& d, int q) {
+  const int W = d.width;
+  if (q < d.depth) return FhProd{(int)(d.w_layer(q) / W), 0, d.rows(q) / 16};
+  if (q == d.depth) return FhProd{(int)(d.w_feature() / W), 0, W / 16};
+  return FhProd{0, 1, (W + d.V) / 16};
+}
+
+// The most reduction steps past a product's end in its last 64-row slab.
+__host__ __device__ inline int fh_max_past(const Dims& d) {
+  int m = 0;
+  for (int q = 0; q < d.depth + 2; ++q) {
+    const int past = (4 - fh_prod(d, q).ks % 4) % 4;
+    m = past > m ? past : m;
+  }
+  return m;
+}
+
+// Where the steps past a reduction read their zero columns: 1 the tail of
+// ve (columns V..63), 0 the tail of pe (P..64 pp - 1), -1 nowhere.
+__host__ __device__ inline int fh_zero_src(const Dims& d, int pp) {
+  const int need = 16 * fh_max_past(d);
+  if (64 - d.V >= need) return 1;
+  if (64 * pp - d.P >= need) return 0;
+  return -1;
+}
+
+// The products' biases as the epilogues read them from shared memory: the
+// trunk layers' and feature's (as packed), then the view layer's, zero
+// past its width up to its last 64-column block.
+__host__ __device__ inline int fh_bias_floats(const Dims& d) {
+  return d.b_views() + (d.half + 63) / 64 * 64;
+}
+
+// Byte offsets of the shared-memory regions from the 1024-aligned base.
+struct FhSmem {
+  int ring, act, pe, ve, bias, wa, wr, bars, prods, total;
+  __host__ __device__ FhSmem(const Dims& d, int stages, int npe, int pp,
+                             int na) {
+    int o = 0;
+    ring = o; o += stages * na * kFhBox;
+    act = o; o += na * kFhPanel;
+    pe = o; o += npe * pp * kFhPanel;
+    ve = o; o += kFhPanel;
+    bias = o; o += 4 * fh_bias_floats(d);
+    wa = o; o += (2 * d.width + 15) / 16 * 16;
+    wr = o; o += (6 * d.half + 15) / 16 * 16;
+    bars = o; o += (2 * stages + 6) * 8;
+    prods = o; o += kFhMaxProds * (int)sizeof(FhProd);
+    total = o + 1024;  // the base's alignment
+  }
+};
+
+// Byte offset of column c in a 128B-swizzled K-major buffer of 128-row
+// panels, from its row 0 (add 128 r and swizzle for row r: fh_elem).
+__device__ inline uint32_t fh_col(int c) {
+  return (uint32_t)((c >> 6) * kFhPanel + (c & 63) * 2);
+}
+
+// Byte offset of element (r, c) of such a buffer.
+__device__ inline int fh_elem(int r, int c) {
+  return (c >> 6) * kFhPanel + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+// The next product of the weight stream for this consumer's 64 rows: A is
+// [s0 (k0 steps) | s1 (k1 steps)] then zero columns (az), each a shared
+// address of the source's column 0 at this warpgroup's first row. acc's
+// first 32 NB floats get the result. Slab j of the product is released
+// (one arrival of this warpgroup on its empty barrier) once its MMAs are
+// done; t counts the slabs consumed. hook() runs while the first slab's
+// MMAs do (a head, on registers other than acc).
+template <int NB, int NA, typename Hook>
+__device__ inline void fh_product(float (&acc)[32 * NA], uint32_t ring,
+                                  uint64_t* full, uint64_t* empty,
+                                  int stages, int& t, uint32_t a0, int k0,
+                                  uint32_t a1, int k1, uint32_t az,
+                                  Hook hook) {
+  const int ks = k0 + k1, nslab = (ks + 3) / 4;
+  const bool lead = threadIdx.x % 128 == 0;
+  for (int j = 0; j < nslab; ++j) {
+    const int u = t + j, slot = u % stages;
+    mbar_wait(&full[slot], (u / stages) & 1);
+    const uint32_t sb = ring + slot * NA * kFhBox;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int s = 4 * j + kk;
+      const uint32_t a = s < k0   ? a0 + fh_col(16 * s)
+                         : s < ks ? a1 + fh_col(16 * (s - k0))
+                                  : az + 32 * (s - ks);
+      wgmma_ss<NB>(acc, sw128_desc(a), sw128_desc_mn(sb + kk * 2048, kFhBox),
+                   s > 0);
+    }
+    wgmma_commit();
+    if (j == 0) hook();
+    if (j > 0) {
+      wgmma_wait<1>();
+      if (lead) mbar_arrive(&empty[(u - 1) % stages]);
+    }
+  }
+  wgmma_wait<0>();
+  if (lead) mbar_arrive(&empty[(t + nslab - 1) % stages]);
+  t += nslab;
+}
+
+// The epilogue of a product, on its accumulators: v = acc + bias (bias:
+// shared memory, zero past the layer's width), ReLU where RELU, rounded to
+// bf16 into this warpgroup's 64 rows of the tile (rows: its row 0), in
+// place, four 8 x 8 blocks a stmatrix: columns 8 n8 .. 8 n8 + 15, rows
+// 16 w .. 16 w + 15 of warp w.
+template <int NB, int NA, bool RELU>
+__device__ inline void fh_epilogue(const float (&acc)[32 * NA],
+                                   const float* bias, unsigned char* rows) {
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+  // This lane's row address: matrix lane / 8 is (rows + 8 (lane / 8 % 2),
+  // column block n8 + lane / 16).
+  unsigned char* ra = rows + (16 * w + 8 * (lane / 8 % 2) + lane % 8) * 128;
+  const float* bl = bias + 2 * (lane % 4);
+#pragma unroll
+  for (int n8 = 0; n8 < 8 * NB; n8 += 2) {
+    // ---- epilogue ----
+    uint32_t r[4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float2 bb = *reinterpret_cast<const float2*>(bl + 8 * (n8 + m));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        r[2 * m + h] = pack_bf16x2<RELU>(acc[4 * (n8 + m) + 2 * h] + bb.x,
+                                         acc[4 * (n8 + m) + 2 * h + 1] + bb.y);
+    }
+    const int cb = n8 + lane / 16;
+    stmatrix_x4(ra + (cb / 8) * kFhPanel + (((cb % 8) ^ (lane % 8)) << 4), r);
+    // ---- end of the epilogue ----
+  }
+}
+
+// fp32 dot of row r's first k bf16 activations (rows: row 0 of the
+// buffer) with wv, in column order (fwd_tile's head_dot order).
+__device__ inline float fh_row_dot(const unsigned char* rows, int r,
+                                   const bf16* wv, int k) {
+  float s = 0.f;
+  for (int c0 = 0; c0 < k; c0 += 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(rows + fh_elem(r, c0));
+    const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s = fmaf(to_f(h[e]), to_f(wv[c0 + e]), s);
+  }
+  return s;
+}
+
+// core/mathx.py::safe_sin as mlp_common.cuh::safe_sin computes it, with
+// the same bits: where |y| >= 100 pi, fmodf's exact truncated remainder
+// y - q t (t = 100 pi in fp32) comes from one fma with the integer quotient
+// q, which is exact because the remainder is representable; q from the
+// rounded y / t is off by at most one, which the remainder's sign and size
+// show. Then the floored step and sinf, as safe_sin.
+__device__ inline float fh_safe_sin(float y) {
+  if (!(fabsf(y) < kTrigRange)) {
+    float q = truncf(y * (1.f / kTrigRange));
+    float r = fmaf(-q, kTrigRange, y);
+    if (y > 0.f ? r < 0.f : r > 0.f) {
+      q -= copysignf(1.f, y);
+      r = fmaf(-q, kTrigRange, y);
+    } else if (fabsf(r) >= kTrigRange) {
+      q += copysignf(1.f, y);
+      r = fmaf(-q, kTrigRange, y);
+    }
+    if (r == 0.f) r = copysignf(0.f, y);  // fmodf's zero has y's sign
+    if (r != 0.f && r < 0.f) r += kTrigRange;
+    y = r;
+  }
+  return sinf(y);
+}
+
+// The producer's encoders (threads 288-383): a tile's point features into
+// pe and its view features into ve, every point of the tile (zeros past
+// `valid`), rounded to bf16 at fh_elem. The padding columns stay as the
+// kernel's start zeroed them.
+__device__ inline void fh_store(unsigned char* buf, int p, int c, float v) {
+  *reinterpret_cast<bf16*>(buf + fh_elem(p, c)) = __float2bfloat16_rn(v);
+}
+
+template <typename Enc>
+struct FhEnc;
+
+// 2^k as a float (-126 <= k <= 127): x * fh_pow2(k) is ldexpf(x, k), both
+// correctly rounded.
+__device__ inline float fh_pow2(int k) { return __int_as_float((127 + k) << 23); }
+
+// The NeRFMLP's PE (mlp_common.cuh::encode) a pair at a time: the
+// identity columns, then sin and cos of each x 2^f from one sincosf, which
+// gives sinf's and cosf's bits.
+template <>
+struct FhEnc<NerfEnc> {
+  __device__ static void pe_tile(const float* x, int n, int base, int valid,
+                                 int nf, unsigned char* buf) {
+    for (int e = threadIdx.x - 288; e < kFhTile * 3 * (1 + nf);
+         e += kFhEncoders) {
+      const int p = e % kFhTile, j = e / kFhTile;
+      float vs = 0.f, vc = 0.f;
+      // ---- encode ----
+      if (p < valid && j < 3) {
+        vs = x[(size_t)j * n + base + p];
+      } else if (p < valid) {
+        const int f = (j - 3) / 3, r = (j - 3) % 3;
+        sincosf(x[(size_t)r * n + base + p] * (float)(1 << f), &vs, &vc);
+      }
+      // ---- end of the encode ----
+      const int c = j < 3 ? j : 3 + 6 * ((j - 3) / 3) + (j - 3) % 3;
+      fh_store(buf, p, c, vs);
+      if (j >= 3) fh_store(buf, p, c + 3, vc);
+    }
+  }
+  __device__ static void points(const float* pts, const float*, int n,
+                                int base, int valid, const Dims& d,
+                                unsigned char* buf) {
+    pe_tile(pts, n, base, valid, d.multires, buf);
+  }
+  __device__ static void views(const float* views, int n, int base,
+                               int valid, const Dims& d,
+                               unsigned char* buf) {
+    pe_tile(views, n, base, valid, d.multires_views, buf);
+  }
+};
+
+// The MipMLP's IPE and view encoding (mlp_common.cuh::encode_ipe,
+// encode_mip_views) a pair at a time: sin(y) and sin(y + pi/2) share the
+// argument, and the IPE pair its damping.
+template <>
+struct FhEnc<MipEnc> {
+  __device__ static void points(const float* mean, const float* cov, int n,
+                                int base, int valid, const Dims& d,
+                                unsigned char* buf) {
+    const int half = 3 * d.multires;
+    for (int e = threadIdx.x - 288; e < kFhTile * half; e += kFhEncoders) {
+      const int p = e % kFhTile, j = e / kFhTile, k = j / 3, r = j % 3;
+      float vs = 0.f, vc = 0.f;
+      // ---- encode ----
+      if (p < valid) {
+        const size_t at = (size_t)r * n + base + p;
+        const float y = mean[at] * fh_pow2(k);
+        const float damp = expf(-0.5f * (cov[at] * fh_pow2(2 * k)));
+        vs = damp * fh_safe_sin(y);
+        vc = damp * fh_safe_sin(y + kHalfPi);
+      }
+      // ---- end of the encode ----
+      fh_store(buf, p, j, vs);
+      fh_store(buf, p, j + half, vc);
+    }
+  }
+  __device__ static void views(const float* x, int n, int base, int valid,
+                               const Dims& d, unsigned char* buf) {
+    const int half = 3 * d.multires_views;
+    for (int e = threadIdx.x - 288; e < kFhTile * (3 + half);
+         e += kFhEncoders) {
+      const int p = e % kFhTile, j = e / kFhTile;
+      float vs = 0.f, vc = 0.f;
+      // ---- encode ----
+      if (p < valid && j < 3) {
+        vs = x[(size_t)j * n + base + p];
+      } else if (p < valid) {
+        const int jj = j - 3;
+        const float y = x[(size_t)(jj % 3) * n + base + p] * fh_pow2(jj / 3);
+        vs = fh_safe_sin(y);
+        vc = fh_safe_sin(y + kHalfPi);
+      }
+      // ---- end of the encode ----
+      fh_store(buf, p, j, vs);
+      if (j >= 3) fh_store(buf, p, j + half, vc);
+    }
+  }
+};
+
+template <typename Enc, int NBW, int NBH>
+__global__ void __launch_bounds__(kFhThreads, 1)
+    fwd_hopper_kernel(const float* __restrict__ pts,
+                      const float* __restrict__ covs,
+                      const float* __restrict__ views,
+                      const bf16* __restrict__ w,
+                      const float* __restrict__ b, float* __restrict__ out,
+                      int n, Dims d, FhPlan pl,
+                      const __grid_constant__ WMaps maps) {
+  constexpr int NA = NBW > NBH ? NBW : NBH;
+  extern __shared__ unsigned char fh_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fh_raw) + 1023) & ~(uintptr_t)1023);
+  const FhSmem L(d, pl.stages, pl.npe, pl.pp, NA);
+  const int stages = pl.stages, npe = pl.npe, nprod = d.depth + 2;
+  const int W = d.width, H = d.half;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + stages;
+  uint64_t* pe_full = empty + stages;
+  uint64_t* pe_empty = pe_full + 2;
+  uint64_t* ve_full = pe_empty + 2;
+  uint64_t* ve_empty = ve_full + 1;
+  FhProd* prods = reinterpret_cast<FhProd*>(sm + L.prods);
+  float* bias_s = reinterpret_cast<float*>(sm + L.bias);
+  bf16* wa_s = reinterpret_cast<bf16*>(sm + L.wa);
+  bf16* wr_s = reinterpret_cast<bf16*>(sm + L.wr);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&pe_full[s], kFhEncoders);
+      mbar_init(&pe_empty[s], 2);
+    }
+    mbar_init(ve_full, kFhEncoders);
+    mbar_init(ve_empty, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < nprod) prods[threadIdx.x] = fh_prod(d, threadIdx.x);
+  // pe and ve (contiguous) start zero: their padding columns and tails
+  // are never written again.
+  uint4* z = reinterpret_cast<uint4*>(sm + L.pe);
+  for (int e = threadIdx.x; e < (npe * pl.pp + 1) * kFhPanel / 16;
+       e += kFhThreads)
+    z[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = threadIdx.x; c < fh_bias_floats(d); c += kFhThreads)
+    bias_s[c] = c < d.b_views() + H ? b[c] : 0.f;
+  for (int c = threadIdx.x; c < W; c += kFhThreads) wa_s[c] = w[d.w_alpha() + c];
+  for (int c = threadIdx.x; c < 3 * H; c += kFhThreads)
+    wr_s[c] = w[d.w_rgb() + c];
+  fence_proxy_async();
+  __syncthreads();
+
+  const int n_tiles = pl.tiles;
+  if (threadIdx.x >= 256) {
+    // ------------------------------ producer ------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x < 288) {
+      if (threadIdx.x == 256) {  // the weight stream
+        unsigned char* ring = sm + L.ring;
+        int issued = 0;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+          for (int q = 0; q < nprod; ++q) {
+            const FhProd pr = prods[q];
+            const int nbx = pr.map ? NBH : NBW;
+            for (int j = 0; j < (pr.ks + 3) / 4; ++j, ++issued) {
+              const int slot = issued % stages;
+              if (issued >= stages)
+                mbar_wait(&empty[slot], (issued / stages - 1) & 1);
+              unsigned char* dst = ring + slot * NA * kFhBox;
+              mbar_expect_tx(&full[slot], (uint32_t)(nbx * kFhBox));
+              for (int bx = 0; bx < nbx; ++bx)
+                tma_load_2d(dst + bx * kFhBox, &maps.m[pr.map], &full[slot],
+                            64 * bx, pr.row0 + 64 * j);
+            }
+          }
+      }
+    } else {  // the encoders
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const int base = tile * kFhTile, valid = min(kFhTile, n - base);
+        const int pb = i % npe;
+        if (i >= npe) mbar_wait(&pe_empty[pb], (i / npe - 1) & 1);
+        FhEnc<Enc>::points(pts, covs, n, base, valid, d,
+                           sm + L.pe + pb * pl.pp * kFhPanel);
+        fence_proxy_async();
+        mbar_arrive(&pe_full[pb]);
+        if (i >= 1) mbar_wait(ve_empty, (i - 1) & 1);
+        FhEnc<Enc>::views(views, n, base, valid, d, sm + L.ve);
+        fence_proxy_async();
+        mbar_arrive(ve_full);
+      }
+    }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+    const bool lead = lt == 0;
+    unsigned char* rows = sm + L.act + wg * 64 * 128;
+    const uint32_t ring = smem_u32(sm + L.ring);
+    const uint32_t act_a = smem_u32(rows);
+    const uint32_t ve_a = smem_u32(sm + L.ve) + wg * 64 * 128;
+    const int zsrc = fh_zero_src(d, pl.pp);
+    int last_pe = 0;  // the last product that reads pe
+    for (int q = 1; q < d.depth; ++q)
+      if (d.skip_before(q)) last_pe = q;
+    const float ba = b[d.b_alpha()];
+    const float* br = b + d.b_rgb();
+    // The heads, one thread a row (alpha) or a row and channel (rgb), of
+    // this warpgroup's rows from g0 (valid: rows there that are points).
+    auto alpha = [&](int g0, int valid) {
+      // ---- alpha head ----
+      if (lt < 64 && lt < valid)
+        out[(size_t)3 * n + g0 + lt] = fh_row_dot(rows, lt, wa_s, W) + ba;
+      // ---- end of the alpha head ----
+    };
+    auto rgb = [&](int g0, int valid) {
+      // ---- rgb head ----
+      for (int e = lt; e < 3 * 64; e += 128) {
+        const int r = e % 64, c = e / 64;
+        if (r < valid)
+          out[(size_t)c * n + g0 + r] =
+              fh_row_dot(rows, r, wr_s + c * H, H) + br[c];
+      }
+      // ---- end of the rgb head ----
+    };
+    float acc[32 * NA];
+#pragma unroll
+    for (int r = 0; r < 32 * NA; ++r) acc[r] = 0.f;
+    int t = 0, i = 0, g_prev = 0, valid_prev = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int pb = i % npe;
+      const uint32_t pe_a = smem_u32(sm + L.pe + pb * pl.pp * kFhPanel) +
+                            wg * 64 * 128;
+      const uint32_t az = zsrc ? ve_a + 2 * d.V : pe_a + fh_col(d.P);
+      const int g0 = tile * kFhTile + 64 * wg;  // this warpgroup's row 0
+      const int valid = n - g0;                 // rows past it are padding
+      mbar_wait(&pe_full[pb], (i / npe) & 1);
+      for (int q = 0; q < d.depth; ++q) {
+        const bool pe_in = q == 0 || d.skip_before(q);
+        // Layer 0 reads pe only: the previous tile's rgb head reads hv
+        // from the tile meanwhile.
+        fh_product<NBW, NA>(acc, ring, full, empty, stages, t,
+                            pe_in ? pe_a : act_a, pe_in ? d.P / 16 : W / 16,
+                            act_a, q > 0 && pe_in ? W / 16 : 0, az, [&] {
+                              if (q == 0 && i > 0) rgb(g_prev, valid_prev);
+                            });
+        if (q == last_pe && lead) mbar_arrive(&pe_empty[pb]);
+        if (q == 0) bar_sync(1 + wg, 128);  // rgb has read hv
+        fh_epilogue<NBW, NA, true>(acc, bias_s + d.b_layer(q), rows);
+        fence_proxy_async();
+        bar_sync(1 + wg, 128);
+      }
+      // The feature layer reads h: the alpha head reads it meanwhile.
+      fh_product<NBW, NA>(acc, ring, full, empty, stages, t, act_a, W / 16,
+                          act_a, 0, az, [&] { alpha(g0, valid); });
+      bar_sync(1 + wg, 128);  // alpha has read h
+      fh_epilogue<NBW, NA, false>(acc, bias_s + d.b_feature(), rows);
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);
+      mbar_wait(ve_full, i & 1);
+      fh_product<NBH, NA>(acc, ring, full, empty, stages, t, act_a, W / 16,
+                          ve_a, d.V / 16, az, [] {});
+      if (lead) mbar_arrive(ve_empty);
+      fh_epilogue<NBH, NA, true>(acc, bias_s + d.b_views(), rows);
+      bar_sync(1 + wg, 128);
+      g_prev = g0;
+      valid_prev = valid;
+    }
+    if (i > 0) rgb(g_prev, valid_prev);
+  }
+}
+
+// The plan at these shapes. `instance`: the source holds the kernel for
+// (width / 64, ceil(half / 64)). The walk takes bf16 on the transposed
+// streams, widths that are multiples of 64 up to 256, a view layer up to
+// 256 wide, P up to 128 and V up to 64 columns, zero columns for the
+// steps past each reduction, and a shared memory that holds two pe buffers
+// and a ring of 3 slots, or 2 (else one pe buffer). Returns a cudaError_t.
+inline int fh_plan(const Dims& d, int n, bool bf16_, bool row, bool instance,
+                   FhPlan* pl) {
+  *pl = FhPlan{};
+  pl->tiles = (n + kFhTile - 1) / kFhTile;
+  const int nbw = d.width / 64, nbh = (d.half + 63) / 64;
+  pl->na = nbw > nbh ? nbw : nbh;
+  pl->pp = (d.P + 63) / 64;
+  if (!(bf16_ && !row && instance && d.width % 64 == 0 && d.width <= 256 &&
+        d.half % 16 == 0 && d.half <= 256 && d.P <= 128 && d.V <= 64 &&
+        d.depth >= 1 && d.depth + 2 <= kFhMaxProds && !d.head_skip() &&
+        d.out_ch == 0 && fh_zero_src(d, pl->pp) >= 0))
+    return 0;
+  int dev = 0, smem_max = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // Two pe buffers first (the mip's 96-column IPE cannot wait for the skip
+  // layer), then the deepest ring that fits beside them.
+  for (pl->npe = 2; pl->npe >= 1; --pl->npe) {
+    for (pl->stages = 3; pl->stages >= 2; --pl->stages) {
+      pl->smem = FhSmem(d, pl->stages, pl->npe, pl->pp, pl->na).total;
+      if (pl->smem <= smem_max) break;
+    }
+    if (pl->stages >= 2) break;
+  }
+  if (pl->npe == 0) return 0;  // nothing fits: fwd_tile
+  pl->ok = 1;
+  pl->grid = pl->tiles < sms ? pl->tiles : sms;
+  return 0;
+}
+
+// The plan in the plan functions' slots: out[0..7] = this walk (1) or
+// fwd_tile (0), points a tile, ring slots, cluster size, shared memory
+// bytes, blocks, pe buffers, tiles.
+inline void fh_plan_slots(const FhPlan& pl, const Dims& d, int n, bool bf16_,
+                          long long* out) {
+  out[0] = pl.ok;
+  out[1] = pl.ok ? kFhTile : (bf16_ ? 128 : 64);
+  out[2] = pl.ok ? pl.stages : 0;
+  out[3] = 1;
+  out[4] = pl.ok ? pl.smem
+                 : (long long)(bf16_ ? fwd_smem_bytes<bf16, 128>(d)
+                                     : fwd_smem_bytes<float, 64>(d));
+  out[5] = pl.ok ? pl.grid : (n + out[1] - 1) / out[1];
+  out[6] = pl.ok ? pl.npe : 0;
+  out[7] = (n + out[1] - 1) / out[1];
+}
+
+template <typename Enc, int NBW, int NBH>
+int fh_launch(const FhPlan& pl, const void* pts, const void* covs,
+              const void* views, const void* w, const void* b, void* out,
+              int n, const Dims& d, cudaStream_t stream) {
+  // TMA reads the weights: 16-byte aligned base (the row strides, 2 W and
+  // 2 half bytes, and the view layer's offset are multiples of 16 at
+  // these widths).
+  if (reinterpret_cast<uintptr_t>(w) % 16) return (int)cudaErrorMisalignedAddress;
+  WMaps maps = {};
+  int err = weight_maps(d, static_cast<const bf16*>(w), &maps);
+  if (err) return err;
+  auto kernel = fwd_hopper_kernel<Enc, NBW, NBH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<pl.grid, kFhThreads, pl.smem, stream>>>(
+      static_cast<const float*>(pts), static_cast<const float*>(covs),
+      static_cast<const float*>(views), static_cast<const bf16*>(w),
+      static_cast<const float*>(b), static_cast<float*>(out), n, d, pl, maps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mlp

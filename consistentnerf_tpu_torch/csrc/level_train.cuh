@@ -70,11 +70,10 @@
 
 #pragma once
 
-#include <cuda.h>
-
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mlp_train.cuh"
 
 namespace mlp {
@@ -95,88 +94,6 @@ struct Cols {
     total = o;
   }
 };
-
-// ---------------------------------------------------------------------------
-// Hopper primitives: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ inline void tma_load_2d(void* dst, const CUtensorMap* map,
-                                   uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte swizzled operand tile,
-// 8 rows of 128 bytes per 1024-byte swizzle atom, as TMA writes a box of
-// 64 bf16 columns. MN-major: a row holds 64 M or N indices of one K
-// index; the stride between 8-row K groups is 1024 bytes, and the stride
-// between 64-wide MN atoms is never used (every instruction is 64 wide).
-// K-major: a row holds 64 K indices of one M or N index; the 8-row group
-// stride is 1024 bytes and the leading offset is unused. Both offsets
-// are set to 1024.
-__device__ inline uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], bf16, both MN-major (transposed).
-__device__ inline void wgmma_64x64(float (&d)[32], uint64_t da,
-                                   uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // A float rounded to bf16 and back.
 __device__ inline float rnd(float v) { return to_f(from_f<bf16>(v)); }
@@ -210,13 +127,6 @@ __device__ inline float rnd(float v) { return to_f(from_f<bf16>(v)); }
 constexpr int kWStages = 3;
 constexpr int kWBox = 8192;             // one weight box: 64 x 64 bf16
 constexpr int kWStage = 4 * kWBox;      // up to four boxes a slab
-
-// Weight maps (64 x 64 boxes, 128-byte swizzle): m[0] over T, the trunk
-// and feature rows [w_views() / W, W], m[1] over V, the view layer's rows
-// [W + V, H] from w_views().
-struct WMaps {
-  CUtensorMap m[2];
-};
 
 // One product of the stream: direction (0 forward, 1 backward), map (0 T,
 // 1 V), its first row in the map, reduction length, outputs.
@@ -313,38 +223,6 @@ __device__ inline void wrelease(WStream& st, const WMaps& maps,
                      smem_u32(&st.empty[u % kWStages]))
                  : "memory");
   if (threadIdx.x == 0 && st.left > 0) wissue(st, maps, d);
-}
-
-__device__ inline void ldsm_x4(uint32_t (&a)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_u32(p)));
-}
-
-// d[64 x 64] += A[64 x 16] (registers) B[16 x 64] (shared memory; TB = 1:
-// MN-major, 0: K-major).
-template <int TB>
-__device__ inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
 }
 
 // The next product of the stream on the 64-point tile [s0 | s1] (its
@@ -1089,53 +967,6 @@ int level_plan(K walk, K legacy, int mode, int n_rays, int seg,
   out[6] = splits * (long long)d.w_alpha();
   out[7] = per_split;
   out[8] = 1;
-  return 0;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found by the runtime's entry-point query (no
-// link against libcuda).
-inline EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The weight maps of the wgmma walk (WMaps) over the packed weights w.
-inline int level_maps(const Dims& d, const bf16* w, WMaps* maps) {
-  EncodeTiled encode = tensor_map_encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint32_t box[2] = {64, 64}, estr[2] = {1, 1};
-  for (int m = 0; m < 2; ++m) {
-    const int cols = m ? d.half : d.width;
-    const int rows = m ? d.width + d.V : (int)(d.w_views() / d.width);
-    void* base = const_cast<bf16*>(w + (m ? d.w_views() : 0));
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-    if (encode(&maps->m[m], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
-               strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
   return 0;
 }
 

@@ -90,7 +90,7 @@ int launch(const void* pts, const void* views, mlp::RayRows rr,
   if (err) return err;
   mlp::WMaps maps = {};
   if (pl[8]) {
-    err = mlp::level_maps(d, static_cast<const bf16*>(w), &maps);
+    err = mlp::weight_maps(d, static_cast<const bf16*>(w), &maps);
     if (err) return err;
   }
   auto kernel = onepass_level_kernel<T, false>;

@@ -228,6 +228,8 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
     n, dev = means.shape[0 if row else 1], means.device
     _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
                   views=views)
+    if not row:
+        v2.check_tma_weights(packed)
     out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
                       device=dev)
     if n == 0:
@@ -245,6 +247,14 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
     else:
         launches += 1
     return out
+
+
+def fwd_plan(packed: v2.PackedMLP, n: int, row: bool = False) -> dict:
+    """The walk that kernel #6 (or, with `row`, #15) runs for n points of
+    the packed MipMLP, decided by shapes alone (`fused_mip_fwd_plan`;
+    slots as `fused_mlp_v2.plan_dict`); needs the card."""
+    return v2.plan_dict(v2._entry(KERNEL, "fused_mip_fwd_plan", 0, 9),
+                        (n, *_cfg_args(packed), int(row)))
 
 
 def fwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,

@@ -348,6 +348,8 @@ def fwd_launch(lib: str, symbol: str, packed: PackedMLP, pts, views,
     for name, t in (("pts", pts), ("views", views)):
         _check_stream(name, t, 3, n, dev, row)
     _check_weights(packed, dev)
+    if symbol == KERNEL:
+        check_tma_weights(packed)
     c = packed.out_ch or 4
     out = torch.empty((n, c) if row else (c, n), dtype=torch.float32,
                       device=dev)
@@ -575,6 +577,42 @@ def _check_weights(packed: PackedMLP, device):
     for t in (packed.w, packed.b):
         if t.device != device:
             raise ValueError("packed weights are not on the points' device")
+
+
+def check_tma_weights(packed: PackedMLP):
+    """The bf16 forwards #1 and #6 read the packed weights by TMA
+    (`csrc/fwd_hopper.cuh`): the buffer's base and the row strides of its
+    two weight maps (2 width and 2 view_width bytes) must be multiples of
+    16 bytes."""
+    if packed.compute_dtype != torch.bfloat16:
+        return
+    if (packed.w.data_ptr() % 16 or (2 * packed.width) % 16
+            or (2 * packed.view_width) % 16):
+        raise ValueError("the packed bf16 weights must be 16-byte aligned, "
+                         "with row strides of a multiple of 16 bytes (TMA)")
+
+
+PLAN_SLOTS = ("hopper", "tile", "stages", "cluster", "smem_bytes",
+              "blocks", "pe_buffers", "tiles")
+
+
+def plan_dict(fn, args) -> dict:
+    """A forward plan function's eight slots (`PLAN_SLOTS`): whether the
+    Hopper walk runs (1) or `mlp_fwd.cuh`'s walk (0), points a tile, ring
+    slots, cluster size, shared memory, blocks, pe buffers, tiles."""
+    out = (ctypes.c_longlong * len(PLAN_SLOTS))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"forward plan failed: cudaError_t {err}")
+    return dict(zip(PLAN_SLOTS, list(out)))
+
+
+def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
+    """The walk that kernel #1 (or, with `row`, #10) runs for n points of
+    `packed`, decided by shapes alone (`fused_mlp_fwd_plan`); needs the
+    card."""
+    return plan_dict(_entry(KERNEL, "fused_mlp_fwd_plan", 0, 8),
+                     (n, *_cfg_ints(packed), int(row)))
 
 
 def train_buffers(plan_fn, args, packed: PackedMLP, device):

@@ -3,8 +3,10 @@ their packed walks: the NeRF kernels #1-#4, the mip kernels #5-#7 and
 6n (#6 with normals), the resampling kernels #8 and #9, and the
 row-major kernels #10, #11, #15, #16 (also against the transposed
 kernels on the same points), with the two-call step's launches, the v1
-kernels #12-#14 with the v1 routes' launches, and the hard masks on the
-card against the CPU.
+kernels #12-#14 with the v1 routes' launches, the hard masks on the
+card against the CPU, and the bf16 Hopper walk of #1 and #6
+(`csrc/fwd_hopper.cuh`): its plans, ragged sizes and widths, repeats and
+the alignment its weight loads need.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -825,3 +827,117 @@ def test_hard_masks_on_the_card_match_the_cpu(cuda_device):
         assert not (diff & ~near).any(), layout
         assert diff.sum() <= 1e-4 * len(s.i_train) * s.H * s.W
         assert 0.1 < got[s.i_train].mean() < 0.6
+
+
+# ------------------- the Hopper walk of #1 and #6 (fwd_hopper.cuh) --------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 127, 129])
+def test_hopper_walk_matches_plain_at_ragged_sizes(cuda_device, width, n):
+    """#1 in bf16 runs the Hopper walk at widths 64-256: against its plain
+    version at ragged sizes, and bit for bit against its row-major twin
+    #10, which keeps mlp_fwd.cuh's walk (the two round alike)."""
+    flat = _mlp_flat(width, cuda_device)
+    pts_T, views_T = _inputs(n, cuda_device)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
+    assert v2.fwd_plan(packed, n)["hopper"] == 1
+    got = v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV, "bfloat16")
+    want = v2.plain_fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV,
+                          "bfloat16")
+    assert got.shape == (4, n) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[
+        "bfloat16"]
+    twin = v2.fwd(packed, pts_T.T.contiguous(), views_T.T.contiguous(), 8,
+                  SKIPS, MR, MV, "bfloat16")
+    assert torch.equal(got, twin.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("n", [1, 127, 129])
+def test_hopper_mip_walk_matches_plain_at_ragged_sizes(cuda_device, width,
+                                                       n):
+    """#6 in bf16 on the Hopper walk, at width 64 too (its 128-wide view
+    layer is wider than the trunk): against its plain version and bit for
+    bit against its row-major twin #15."""
+    flat = _mip_flat(width, cuda_device)
+    means, covs, views = _mip_inputs(n, cuda_device)
+    packed = fmip.pack(flat, 8, 16, "bfloat16")
+    assert fmip.fwd_plan(packed, n)["hopper"] == 1
+    got = fmip.fwd_T(packed, means, covs, views, 8, 16, "bfloat16")
+    want = fmip.plain_fwd_T(packed, means, covs, views, 8, 16, "bfloat16")
+    assert got.shape == (4, n) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[
+        "bfloat16"]
+    twin = fmip.fwd(packed, means.T.contiguous(), covs.T.contiguous(),
+                    views.T.contiguous(), 8, 16, "bfloat16")
+    assert torch.equal(got, twin.T)
+
+
+@pytest.mark.cuda
+def test_hopper_walks_repeat_bit_for_bit(cuda_device):
+    """A second launch of #1 and of #6 gives the first one's bits, over
+    more tiles than the grid has blocks (the persistent loop)."""
+    n = 198 * 128 - 50
+    packed = v2.pack(_mlp_flat(256, cuda_device), 8, SKIPS, MR, MV,
+                     "bfloat16")
+    pts_T, views_T = _inputs(n, cuda_device)
+    first = v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV, "bfloat16")
+    assert torch.equal(first, v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR,
+                                       MV, "bfloat16"))
+    mpacked = fmip.pack(_mip_flat(256, cuda_device), 8, 16, "bfloat16")
+    streams = _mip_inputs(n, cuda_device)
+    first = fmip.fwd_T(mpacked, *streams, 8, 16, "bfloat16")
+    assert torch.equal(first, fmip.fwd_T(mpacked, *streams, 8, 16,
+                                         "bfloat16"))
+
+
+@pytest.mark.cuda
+def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
+    """The plans take the Hopper walk at the flagship shapes and
+    mlp_fwd.cuh's walk in fp32, at width 32 and for the row-major twins."""
+    n = 8192 * 192
+    flat = _mlp_flat(256, cuda_device)
+    bf = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
+    plan = v2.fwd_plan(bf, n)
+    assert plan["hopper"] == 1 and plan["tile"] == 128
+    assert plan["blocks"] == min(torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count, plan["tiles"])
+    assert plan["tiles"] == n // 128 and plan["stages"] >= 2
+    assert v2.fwd_plan(v2.pack(flat, 8, SKIPS, MR, MV, "float32"),
+                       n)["hopper"] == 0
+    assert v2.fwd_plan(v2.pack(_mlp_flat(32, cuda_device), 8, SKIPS, MR, MV,
+                               "bfloat16"), n)["hopper"] == 0
+    assert v2.fwd_plan(bf, n, row=True)["hopper"] == 0
+    mflat = _mip_flat(256, cuda_device)
+    mbf = fmip.pack(mflat, 8, 16, "bfloat16")
+    assert fmip.fwd_plan(mbf, 8192 * 96)["hopper"] == 1
+    assert fmip.fwd_plan(fmip.pack(mflat, 8, 16, "float32"),
+                         8192 * 96)["hopper"] == 0
+    assert fmip.fwd_plan(mbf, 8192 * 96, row=True)["hopper"] == 0
+
+
+@pytest.mark.cuda
+def test_hopper_walk_refuses_misaligned_weights(cuda_device):
+    """The walk reads the packed weights by TMA, which needs a 16-byte
+    aligned base: the wrappers of #1 and #6 raise on one that is not."""
+    import dataclasses
+
+    def shifted(packed):
+        buf = torch.empty(packed.w.numel() + 1, dtype=packed.w.dtype,
+                          device=packed.w.device)
+        buf[1:].copy_(packed.w)
+        return dataclasses.replace(packed, w=buf[1:])
+
+    pts_T, views_T = _inputs(300, cuda_device)
+    bad = shifted(v2.pack(_mlp_flat(256, cuda_device), 8, SKIPS, MR, MV,
+                          "bfloat16"))
+    assert bad.w.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        v2.fwd_T(bad, pts_T, views_T, 8, SKIPS, MR, MV, "bfloat16")
+    mbad = shifted(fmip.pack(_mip_flat(256, cuda_device), 8, 16,
+                             "bfloat16"))
+    with pytest.raises(ValueError, match="aligned"):
+        fmip.fwd_T(mbad, *_mip_inputs(300, cuda_device), 8, 16, "bfloat16")

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the one-pass level kernels #3 and #5 spend their time, on one
-CUDA card.
+"""Where the one-pass level kernels #3 and #5 and the bf16 forwards #1 and
+#6 spend their time, on one CUDA card.
 
-    python3 tools/torch_phase_split.py
+    python3 tools/torch_phase_split.py          # both parts
+    python3 tools/torch_phase_split.py level    # #3 and #5 only
+    python3 tools/torch_phase_split.py fwd      # #1 and #6 only
 
 Builds `csrc/onepass_level.cu` (#3) and `csrc/onepass_mip_level.cu` (#5)
 four times from patched copies of `csrc/level_train.cuh` (beside copies
@@ -13,9 +15,19 @@ with CUDA events at the main path's shapes, bf16, seeded random weights
 and rays: #3 at the flagship step's fine level (4096 rays x 192 samples)
 and coarse level (x 64), #5 at a mip level (3072 rays x 96 samples); the
 differences are the phases' times. The variants compute wrong grads by
-construction; only the full build is a kernel of the port. Prints the
-card's name and power limit beside the times. Imports torch and the port
-only.
+construction; only the full build is a kernel of the port.
+
+The forward part builds `csrc/fused_mlp_fwd.cu` (#1) and
+`csrc/fused_mip_fwd.cu` (#6) four times from patched copies of
+`csrc/fwd_hopper.cuh` under `build/phase_split/fwd_*`: as they are,
+without the heads, without the heads and the encoding, and with the
+products only (no heads, no encoding, no epilogue). Each is timed at the
+render's chunk shapes, bf16, seeded random weights and points: #1 at the
+fine chunk (8192 rays x 192 samples) and the coarse chunk (x 64), #6 at a
+chunk (8192 rays x 96 samples). The differences are the heads', the
+encoding's (what the producer does not hide) and the epilogues' times.
+Prints the card's name and power limit beside the times. Imports torch
+and the port only.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+SOURCE_DIR = REPO / "consistentnerf_tpu_torch" / "csrc"
 
 HEADER = "level_train.cuh"
 SOURCES = ("onepass_level.cu", "onepass_mip_level.cu")
@@ -39,14 +52,38 @@ VARIANTS = {
 # trunk layer, feat, hv) and the backward's rounded gradients.
 SAVE_CALLS = 6
 
+FWD_HEADER = "fwd_hopper.cuh"
+FWD_SOURCES = ("fused_mlp_fwd.cu", "fused_mip_fwd.cu")
+FWD_VARIANTS = {
+    "full": [],
+    "no_heads": ["-DPHASE_NO_HEADS"],
+    "no_encode": ["-DPHASE_NO_HEADS", "-DPHASE_NO_ENCODE"],
+    "products": ["-DPHASE_NO_HEADS", "-DPHASE_NO_ENCODE",
+                 "-DPHASE_NO_EPILOGUE"],
+}
+# The guarded regions of the forward walk: (first line, last line, macro,
+# occurrences): the two heads, the encoders' feature computations (the
+# NeRF PE, the mip IPE and view encoding) and the epilogue's body.
+FWD_REGIONS = (
+    ("      // ---- alpha head ----",
+     "      // ---- end of the alpha head ----", "PHASE_NO_HEADS", 1),
+    ("      // ---- rgb head ----",
+     "      // ---- end of the rgb head ----", "PHASE_NO_HEADS", 1),
+    ("      // ---- encode ----", "      // ---- end of the encode ----",
+     "PHASE_NO_ENCODE", 3),
+    ("    // ---- epilogue ----", "    // ---- end of the epilogue ----",
+     "PHASE_NO_EPILOGUE", 1),
+)
 
-def _replace(src: str, old: str, new: str, count: int = 1) -> str:
+
+def _replace(src: str, old: str, new: str, count: int = 1,
+             header: str = HEADER) -> str:
     """src.replace that fails unless `old` occurs exactly `count` times,
     so that an edit of the header cannot leave a phase in silently."""
     found = src.count(old)
     if found != count:
         raise ValueError(f"anchor {old!r} occurs {found} times in "
-                         f"{HEADER}, expected {count}")
+                         f"{header}, expected {count}")
     return src.replace(old, new)
 
 
@@ -86,6 +123,126 @@ def patched_sources(csrc: Path) -> dict:
     return out
 
 
+def patched_fwd_header(src: str) -> str:
+    """fwd_hopper.cuh with #ifndef guards around the heads, the encoding
+    and the epilogue."""
+    for first, last, macro, count in FWD_REGIONS:
+        src = _replace(src, first + "\n", f"#ifndef {macro}\n{first}\n",
+                       count, FWD_HEADER)
+        src = _replace(src, last + "\n", f"{last}\n#endif\n", count,
+                       FWD_HEADER)
+    return src
+
+
+def patched_fwd_sources(csrc: Path) -> dict:
+    """File name -> text of the forward phase-split build: every header
+    (the forward walk's patched) and the two forward kernels, which must
+    include it."""
+    out = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
+    out[FWD_HEADER] = patched_fwd_header(out[FWD_HEADER])
+    for name in FWD_SOURCES:
+        text = (csrc / name).read_text()
+        if f'#include "{FWD_HEADER}"' not in text:
+            raise ValueError(f"{name} does not include {FWD_HEADER}")
+        out[name] = text
+    return out
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+
+
+def _time(run, iters=3) -> float:
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fwd_main() -> None:
+    """Times #1 and #6 in the four forward variants."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+    from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    card = _card()
+    csrc = REPO / "build" / "phase_split" / "fwd_csrc"
+    csrc.mkdir(parents=True, exist_ok=True)
+    for name, text in patched_fwd_sources(SOURCE_DIR).items():
+        (csrc / name).write_text(text)
+    dev = torch.device("cuda")
+    fm.strict_fp32(dev)
+    g = torch.Generator().manual_seed(0)
+    mlp = NeRFMLP()
+    mlp.reset_parameters(g)
+    packed = v2.pack([w.detach().to(dev) for w in fm.flatten_params(mlp)],
+                     8, (4,), 10, 4, "bfloat16")
+    mip = MipMLP(net_depth=8, net_width=256)
+    mip.reset_parameters(g)
+    mpacked = fmip.pack([w.detach().to(dev)
+                         for w in fmip.flatten_mip_params(mip)], 8, 16,
+                        "bfloat16")
+
+    def unit(n):
+        v = torch.randn(3, n, generator=g)
+        return (v / v.norm(dim=0, keepdim=True)).to(dev)
+
+    def nerf(n):
+        pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
+        views = unit(n)
+        return lambda: v2.fwd_T(packed, pts, views, 8, (4,), 10, 4,
+                                "bfloat16")
+
+    n_mip = 8192 * 96
+    means = (torch.rand(3, n_mip, generator=g) * 3 - 1.5).to(dev)
+    covs = (torch.rand(3, n_mip, generator=g) * 1e-4).to(dev)
+    mviews = unit(n_mip)
+    cases = {
+        f"#1 fine chunk ({8192 * 192} points)": nerf(8192 * 192),
+        f"#1 coarse chunk ({8192 * 64} points)": nerf(8192 * 64),
+        f"#6 chunk ({n_mip} points)": lambda: fmip.fwd_T(
+            mpacked, means, covs, mviews, 8, 16, "bfloat16"),
+    }
+    base_flags = list(_build.NVCC_FLAGS)
+    _build.CSRC = csrc
+    times = {case: {} for case in cases}
+    for name, flags in FWD_VARIANTS.items():
+        _build.NVCC_FLAGS = base_flags + flags
+        _build.BUILD_DIR = REPO / "build" / "phase_split" / f"fwd_{name}"
+        _build._LIBS.clear()
+        v2._entry.cache_clear()
+        _build.build_all([s[:-3] for s in FWD_SOURCES])
+        for case, run in cases.items():
+            times[case][name] = _time(run)
+            print(f"[{card}] {case} {name}: {times[case][name]:.3f} ms",
+                  flush=True)
+    for case, t_ in times.items():
+        print(f"[{card}] {case}, bf16: heads "
+              f"{t_['full'] - t_['no_heads']:.3f} ms, encoding (not hidden) "
+              f"{t_['no_heads'] - t_['no_encode']:.3f} ms, epilogues "
+              f"{t_['no_encode'] - t_['products']:.3f} ms, products and the "
+              f"weight stream {t_['products']:.3f} ms, of "
+              f"{t_['full']:.3f} ms", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -98,13 +255,10 @@ def main() -> None:
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
     from consistentnerf_tpu_torch.ops import fused_onepass as op
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip()
+    card = _card()
     csrc = REPO / "build" / "phase_split" / "csrc"
     csrc.mkdir(parents=True, exist_ok=True)
-    for name, text in patched_sources(_build.CSRC).items():
+    for name, text in patched_sources(SOURCE_DIR).items():
         (csrc / name).write_text(text)
 
     dev = torch.device("cuda")
@@ -174,16 +328,7 @@ def main() -> None:
         op._mip_kernel.cache_clear()
         _build.build_all([s[:-3] for s in SOURCES])
         for case, run in cases.items():
-            run()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
-                run()
-            end.record()
-            torch.cuda.synchronize()
-            times[case][name] = start.elapsed_time(end) / 3
+            times[case][name] = _time(run)
             print(f"[{card}] {case} {name}: {times[case][name]:.3f} ms",
                   flush=True)
     for case, t_ in times.items():
@@ -196,4 +341,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    part = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if part not in ("all", "level", "fwd"):
+        sys.exit("usage: torch_phase_split.py [level|fwd]")
+    from consistentnerf_tpu_torch.ops import _build
+
+    saved = (_build.CSRC, list(_build.NVCC_FLAGS), _build.BUILD_DIR)
+    for run_part, fn in (("level", main), ("fwd", fwd_main)):
+        if part in ("all", run_part):
+            fn()
+            _build.CSRC, _build.NVCC_FLAGS, _build.BUILD_DIR = saved
