@@ -14,6 +14,12 @@ with the launch counts set to 0 just before it and read just after:
 * render: the deterministic bf16 render of the 6-view 128x128 synthetic
   scene through `build_render_fn` (full 8x256 model, 64 + 128 samples,
   seeded weights), then the render CLI on two test views;
+* in the train and mip train phases, the weight-grad kernels #2 and #7
+  (in bf16 `csrc/level_train.cuh`'s walk in mode 2, its dW GEMM and
+  reduction; their plans are printed after the build), both at
+  ragged sizes (1, 63, 65, 769, 3000 and 196,607 points) against their
+  plain versions in bf16 and fp32 and bit for bit against a second bf16
+  launch, beside the main-path gates of the train phases;
 * train: the train CLI on the flagship config of `bench.py:66-84` (5120
   rays a step: 4096 random + 4x16x16 patch rays, hard mask, depth loss,
   MiDaS and SSIM patch terms, bf16, perturb 1, the one-pass kernel step)
@@ -48,11 +54,12 @@ with the launch counts set to 0 just before it and read just after:
   computes the hard masks on the card in every hardmask phase.
 
 Each kernel is held against its plain PyTorch version at the shapes its
-path gives it, in bf16 and fp32 (the one-pass levels #3 and #5, whose dW
-sums take a fixed order, and #1 also against a second bf16 launch, bit
-for bit); the kernel train step is held against the
-plain eager step from the same state, batch and draws; timings are
-printed beside the card's name and power limit. The last line is
+path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
+weight grads #2 and #7, whose dW sums take a fixed order, and #1 also
+against a second bf16 launch, bit for bit); the kernel train step is
+held against the plain eager step from the same state, batch and draws;
+timings, and each timed step's peak device memory, are printed beside
+the card's name and power limit. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only (no jax, nothing of consistentnerf_tpu).
 """
@@ -207,13 +214,57 @@ def device_time(fn):
     return sum(r[1] for r in rows), rows[:6]
 
 
+def peak_memory(label):
+    """Logs the peak of torch.cuda.max_memory_allocated since the last
+    reset (torch.cuda.reset_peak_memory_stats) and resets it."""
+    log(f"{label}: peak torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+# The ragged sizes of the weight-grad kernels #2 and #7: one point, a
+# 64-row sub-tile less one and plus one, a 768-point chunk plus one, 4
+# chunks with a ragged last one, and the one-pass step's fine patch
+# launch less one point. Where a chunk ends inside a sub-tile, its
+# padded rows hold activations (bias through ReLU) and must meet a zero
+# cotangent.
+RAGGED_BWD_N = (1, 63, 65, 769, 3000, 196_607)
+
+
+def ragged_bwd_gates(name, packed, streams, kfn, plain, dev):
+    """#2 or #7 at RAGGED_BWD_N against its plain version, in bf16 and
+    fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16 launch bit for
+    bit. `packed(dtype)` packs the weights; `streams(n, gen)` makes the
+    seeded inputs; kfn / plain take (w, *streams, g, dtype)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n in RAGGED_BWD_N:
+        xs = streams(n, gen)
+        g = 1e-3 * torch.randn((4, n), generator=gen, device=dev)
+        for dtype in ("bfloat16", "float32"):
+            w = packed(dtype)
+            got = kfn(w, *xs, g, dtype)
+            torch.cuda.synchronize()
+            rel, mx = grads_err(got, plain(w, *xs, g, dtype))
+            log(f"{name} vs plain, ragged N={n} {dtype}: dW max|diff| "
+                f"{mx:.3e}, max rel L2 {rel:.3e} (tol "
+                f"{TRAIN_DW_TOL[dtype]:g})")
+            if not all(torch.isfinite(x).all() for x in got):
+                fail(f"{name} N={n} {dtype}: non-finite dW")
+            gate(rel < TRAIN_DW_TOL[dtype], f"{name} N={n} {dtype} disagrees "
+                 f"with its plain version ({rel:.3e})")
+            if dtype == "bfloat16":
+                repeat_gate(f"{name} N={n}", got, kfn(w, *xs, g, dtype))
+        del xs, g
+        torch.cuda.empty_cache()
+
+
 def rel_err(got, want):
     diff = (got - want).abs()
     return diff.max().item() / want.abs().mean().item(), diff.max().item()
 
 
 def level_plan_text(out):
-    """The nine slots of a one-pass level plan (#3, #5), in words."""
+    """The nine slots of a level plan (#2, #3, #5, #7), in words."""
     ws_bytes = out[1] * (2 if out[5] else 4)
     text = (f"{out[3]} bytes of shared memory, {out[0]} blocks, chunks of "
             f"{out[4]} points, workspace {ws_bytes / 2 ** 30:.2f} GiB")
@@ -257,10 +308,13 @@ def ptxas_report(_build, name):
 
 
 def repeat_gate(label, first, again):
-    """A second launch of a one-pass level kernel gives the first one's
-    bits: its rows and every dW (the dW sums take a fixed order)."""
-    same = torch.equal(first[0], again[0]) and all(
-        torch.equal(a, b) for a, b in zip(first[1], again[1]))
+    """A second launch of a kernel whose sums take a fixed order (#3, #5:
+    rows and dW; #2, #7: dW) gives the first one's bits: every tensor of
+    `first` against `again` (tensors, or nested sequences of them)."""
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else [
+            t for y in x for t in flat(y)]
+    same = all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
     log(f"{label} bf16 repeat: bit-identical {same}")
     gate(same, f"{label} bf16: a second launch gave other bits")
 
@@ -396,10 +450,11 @@ def main() -> None:
     plan_o = _build.load(op.KERNEL).onepass_level_plan
     plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     for bf in (1, 0):
-        out = (ctypes.c_longlong * 4)()
-        plan_b(196608, 8, 256, 16, 10, 4, bf, out)
-        log(f"  {'bf16' if bf else 'fp32'}: {v2.BWD_KERNEL} {out[3]} bytes "
-            f"of shared memory, {out[0]} blocks")
+        for n_b in (196608, 65536):
+            out = (ctypes.c_longlong * 9)()
+            plan_b(n_b, 8, 256, 16, 10, 4, bf, out)
+            log(f"  {'bf16' if bf else 'fp32'}: {v2.BWD_KERNEL} ({n_b} "
+                f"points) {level_plan_text(out)}")
         for seg in (192, 64):
             outo = (ctypes.c_longlong * 9)()
             plan_o(4096, seg, 8, 256, 16, 10, 4, bf, outo)
@@ -410,12 +465,12 @@ def main() -> None:
     plan_mo = _build.load(op.MIP_KERNEL).onepass_mip_level_plan
     plan_mo.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     for bf in (1, 0):
-        out, outo = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 9)()
+        out, outo = (ctypes.c_longlong * 9)(), (ctypes.c_longlong * 9)()
         plan_mb(98304, 8, 256, 128, 16, 16, 4, bf, out)
         plan_mo(3072, 96, 8, 256, 128, 16, 16, 4, bf, outo)
-        log(f"  {'bf16' if bf else 'fp32'}: {fmip.BWD_KERNEL} {out[3]} "
-            f"bytes of shared memory, {out[0]} blocks; {op.MIP_KERNEL} "
-            f"(3072 x 96) {level_plan_text(outo)}")
+        log(f"  {'bf16' if bf else 'fp32'}: {fmip.BWD_KERNEL} (98304 "
+            f"points) {level_plan_text(out)}; {op.MIP_KERNEL} (3072 x 96) "
+            f"{level_plan_text(outo)}")
 
     t_phase = time.perf_counter()
     fwd_walk_phases(dev, fm, v2, fmip)
@@ -863,6 +918,9 @@ def train_phases(dev, card, configs, fm, v2, op):
             gate(rel < TRAIN_DW_TOL[dtype],
                  f"{v2.BWD_KERNEL} {lvl} {dtype} disagrees with its plain "
                  f"version ({rel:.3e})")
+            if dtype == "bfloat16":
+                repeat_gate(f"{v2.BWD_KERNEL} {lvl}", got, v2.bwd_T(
+                    w, pts, views, g2[lvl], compute_dtype=dtype, **mlp_kw))
             del got, want
             pts, views, z = levels3[lvl]
             got_rows, got = op.onepass_level(
@@ -898,6 +956,19 @@ def train_phases(dev, card, configs, fm, v2, op):
                 del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
+
+    # 6b. #2 at ragged sizes (the fine level's weights, seeded points).
+    def nerf_streams(n_pts, gen):
+        pts = torch.rand((3, n_pts), generator=gen, device=dev) * 4 - 2
+        views = torch.randn((3, n_pts), generator=gen, device=dev)
+        return pts, views / views.norm(dim=0, keepdim=True)
+
+    ragged_bwd_gates(
+        v2.BWD_KERNEL, lambda dtype: packed("fine", dtype), nerf_streams,
+        lambda w, pts, views, g, dtype: v2.bwd_T(
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw),
+        lambda w, pts, views, g, dtype: v2.plain_bwd_T(
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev)
 
     # 7. The train path: the train CLI, a checkpoint, a resume.
     counted = (v2, "launches", v2.KERNEL), (v2, "bwd_launches",
@@ -969,6 +1040,7 @@ def train_phases(dev, card, configs, fm, v2, op):
     t_state = loop.init_state(cfg, dev)
     step_fn = loop.select_train_step(cfg, t_state.model)
     batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
     t_state, _ = step_fn(t_state, batches[0])  # warm-up
     torch.cuda.synchronize()
     n_steps = TIMED_STEPS
@@ -989,6 +1061,7 @@ def train_phases(dev, card, configs, fm, v2, op):
         f"{n_steps * n / dt:.1f} rays/s over {n_steps} steps; bf16 bound "
         f"{step_bound:.2f} ms ({train_pp} FLOP/point, "
         f"{100 * step_bound / step_ms:.1f}% of it)")
+    peak_memory(f"{tag} train step (flagship)")
     wall0 = time.perf_counter()
     dev_ms, top = device_time(lambda: step_fn(t_state, batches[1]))
     wall_ms = 1e3 * (time.perf_counter() - wall0)
@@ -1381,6 +1454,10 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
             gate(rel < TRAIN_DW_TOL[dtype],
                  f"{fmip.BWD_KERNEL} level {lvl} {dtype} disagrees with its "
                  f"plain version ({rel:.3e})")
+            if dtype == "bfloat16":
+                repeat_gate(f"{fmip.BWD_KERNEL} level {lvl}", got,
+                            fmip.bwd_T(w, *levels_p[lvl], g7[lvl],
+                                       compute_dtype=dtype, **kw))
             del got, want
             got_rows, got = op.onepass_mip_level(
                 w, *levels_r[lvl], compute_dtype=dtype, white_bkgd=True,
@@ -1418,6 +1495,22 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
                 del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
+
+    # 13b. #7 at ragged sizes (seeded Gaussians and view directions).
+    def mip_streams(n_pts, gen):
+        means = torch.rand((3, n_pts), generator=gen, device=dev) * 3 - 1.5
+        covs = torch.rand((3, n_pts), generator=gen, device=dev) * 1e-4
+        views = torch.randn((3, n_pts), generator=gen, device=dev)
+        return means, covs, views / views.norm(dim=0, keepdim=True)
+
+    ragged_bwd_gates(
+        fmip.BWD_KERNEL,
+        lambda dtype: fmip.pack(flat, cfg.netdepth, cfg.max_deg_point, dtype),
+        mip_streams,
+        lambda w, means, covs, views, g, dtype: fmip.bwd_T(
+            w, means, covs, views, g, compute_dtype=dtype, **kw),
+        lambda w, means, covs, views, g, dtype: fmip.plain_bwd_T(
+            w, means, covs, views, g, compute_dtype=dtype, **kw), dev)
 
     # 14. The mip train path: the train CLI, a checkpoint, a resume. The
     # CLI loads the synthetic scene only through dataset_type=synthetic,
@@ -1479,6 +1572,7 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
     step_fn = loop.select_train_step(cfg.replace(density_noise=0.0),
                                      t_state.model)
     batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
     t_state, _ = step_fn(t_state, batches[0])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1495,6 +1589,7 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
         f"{TIMED_STEPS * n / dt:.1f} rays/s over {TIMED_STEPS} steps; bf16 "
         f"bound {step_bound:.2f} ms ({train_pp} FLOP/point, "
         f"{100 * step_bound / step_ms:.1f}% of it)")
+    peak_memory(f"{tag} mip train step")
     wall0 = time.perf_counter()
     dev_ms, top = device_time(lambda: step_fn(t_state, batches[1]))
     wall_ms = 1e3 * (time.perf_counter() - wall0)
@@ -2588,7 +2683,9 @@ def cli_train_twice(label, sets, dev, counted, expected, check=None):
 
 def bench_steps(label, tag, step_fn, state, batches, n_rays, bound=None):
     """bench.py's count: TIMED_STEPS steps over alternating batches, host
-    clock, one sync; then one profiled step. Returns ms/step."""
+    clock, one sync, and the peak device memory; then one profiled step.
+    Returns ms/step."""
+    torch.cuda.reset_peak_memory_stats()
     state, _ = step_fn(state, batches[0])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2603,6 +2700,7 @@ def bench_steps(label, tag, step_fn, state, batches, n_rays, bound=None):
     log(f"{tag} {label}: {step_ms:.2f} ms/step, "
         f"{TIMED_STEPS * n_rays / dt:.1f} rays/s over {TIMED_STEPS} steps"
         + extra)
+    peak_memory(f"{tag} {label}")
     dev_ms, top = device_time(lambda: step_fn(state, batches[1]))
     if dev_ms is None:
         log(f"{tag} {label} device time: not measured (the profiler saw no "

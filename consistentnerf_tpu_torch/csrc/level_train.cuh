@@ -1,22 +1,26 @@
-// The bf16 walk of the one-pass level kernels #3 (onepass_level.cu, mode
-// 3) and #5 (onepass_mip_level.cu, mode 4), and their dW product, for
-// Hopper. The fp32 path of both kernels and the other train kernels
-// (modes 2 and 5) keep mlp_train.cuh::train_block.
+// The bf16 walk of the train kernels for Hopper: the one-pass levels #3
+// (onepass_level.cu, mode 3) and #5 (onepass_mip_level.cu, mode 4), the
+// weight grads #2 (fused_mlp_bwd.cu) and #7 (fused_mip_bwd.cu) for a
+// given cotangent (mode 2), and their dW product. The fp32 path of these
+// kernels, bf16 widths over 256, the row-major twins #11 / #16, #14 and
+// the normals (mode 5) keep mlp_train.cuh::train_block.
 //
-// What it replaces: train_block in modes 3 and 4 ran forward, compositing,
-// backward AND the dW pass per 768-point chunk in one persistent block.
-// Its dW pass loaded every fp32 dW block from the block's partial in
-// device memory, accumulated 768 points with legacy wmma over slabs
-// copied synchronously, and stored it back (2 x 2.4 MB of partial traffic
-// per chunk; 132 partials of ~4.8 MB do not fit the 50 MB L2): half of
-// the level's time (52 of 100 ms at the flagship step's fine level on an
+// What it replaces: train_block ran forward, (compositing,) backward AND
+// the dW pass per 768-point chunk in one persistent block. Its dW pass
+// loaded every fp32 dW block from the block's partial in device memory,
+// accumulated 768 points with legacy wmma over slabs copied
+// synchronously, and stored it back (2 x 2.4 MB of partial traffic per
+// chunk; 132 partials of ~4.8 MB do not fit the 50 MB L2): half of the
+// level's time (52 of 100 ms at the flagship step's fine level on an
 // H100). Its walks loaded every weight fragment from L2 in each warp and
 // waited on it (the backward walk a third of the time).
 //
-// The level now takes three launches:
-//   1. level_walk: per chunk of whole rays, the forward (saving every
-//      activation), compositing, the per-ray loss cotangent, the
-//      compositing VJP and the backward (saving every rounded gradient),
+// A launch of these kernels now takes three:
+//   1. level_walk: per chunk, the forward (saving every activation), the
+//      output cotangent (mode 2: read from g [4, N], zero on the chunk's
+//      padded rows; modes 3 and 4: compositing of whole rays, the per-ray
+//      loss cotangent and the compositing VJP) and the backward (saving
+//      every rounded gradient),
 //      the bias grads and the heads' dW (alpha [W], rgb [3, H]), which
 //      ride on the backward's elementwise steps at no extra read. Every
 //      layer product runs on wgmma (m64n64k16, A = the 64-point tile
@@ -27,12 +31,12 @@
 //      work on the accumulators in registers: bias and ReLU into the next
 //      bf16 tile, or (backward) the mask, the rounding and the bias column
 //      sums (warp shuffles, then a fixed order over the warps). The
-//      workspace is the whole level's, one bf16 row per point (Cols),
+//      workspace is the whole launch's, one bf16 row per point (Cols),
 //      written with 16-byte stores. Widths over 256 (or a shared memory
-//      too small for the ring) run the legacy walk of the other train
-//      kernels (mlp_train.cuh::train_block, its dW pass inside) instead.
+//      too small for the ring) run the legacy walk
+//      (mlp_train.cuh::train_block, its dW pass inside) instead.
 //   2. dw_gemm: every dW matrix of the MLP as one split-K GEMM over the
-//      level's points, dW = A^T G with A the saved layer input [R, K] and
+//      launch's points, dW = A^T G with A the saved layer input [R, K] and
 //      G the saved pre-activation gradient [R, N]. A work unit is a
 //      128 x 256 output tile and one of `splits` contiguous ranges of
 //      points; its accumulator stays in registers over the whole range
@@ -55,12 +59,15 @@
 // (every SM the same slab at about the same time); the workspace (~9.9
 // KB a point at 8x256, written once by the walk, read once or twice by
 // the GEMM) is ~7 ms of HBM traffic at the fine level's 786,432 points,
-// and takes that many rows of device memory (7.8 GB at the fine level).
+// and takes that many rows of device memory (7.8 GB at the fine level,
+// 1.95 GB at #2's 196,608 patch points).
 //
-// Chunks: whole rays, at most 768 points, and as many rays a chunk as
-// keep the last wave of the walk's persistent grid full (level_plan): the
-// fine level 4 rays of 192 (8 waves), the coarse level 8 rays of 64 (4
-// waves, where 12 rays made 2.6), a mip level 8 rays of 96.
+// Chunks: at most 768 points (whole rays in modes 3 and 4, any count in
+// mode 2, whose "rays" are single points), and as many a chunk as keep
+// the last wave of the walk's persistent grid full (level_plan): the fine
+// level 4 rays of 192 (8 waves), the coarse level 8 rays of 64 (4 waves,
+// where 12 rays made 2.6), a mip level 8 rays of 96; #2 at its fine
+// patch shape 768 points (2 waves), at its coarse one 512 (1 wave).
 //
 // Rounding is train_block's (mlp_train.cuh, _aligned_backward_from_res):
 // the same bf16 roundings at the same points (the wgmma products give the
@@ -474,19 +481,22 @@ __device__ inline uint4 pack8(const float (&v)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// One block's walk over its chunks of `cpts` points (whole rays). The
-// partial of the block holds the packed grad from w_alpha() on: the alpha
-// head's dW [W], the rgb head's [3, H], then every bias.
+// One block's walk over its chunks of `cpts` points (whole rays; in mode
+// 2 rr.seg = 1 and rr.n_rays = N). The partial of the block holds the
+// packed grad from w_alpha() on: the alpha head's dW [W], the rgb head's
+// [3, H], then every bias. gin: mode 2's output cotangent [4, N] (else
+// unread).
 template <int MODE, typename Enc>
 __device__ void level_walk(const float* __restrict__ pts,
                            const float* __restrict__ covs,
-                           const float* __restrict__ views, RayRows rr,
+                           const float* __restrict__ views,
+                           const float* __restrict__ gin, RayRows rr,
                            const bf16* __restrict__ wflat,
                            const float* __restrict__ bflat,
                            bf16* __restrict__ ws, float* part_all,
                            size_t part_stride, int cpts, Dims d,
                            const WMaps& maps) {
-  static_assert(MODE == 3 || MODE == 4, "one-pass levels only");
+  static_assert(MODE >= 2 && MODE <= 4, "the train modes 2, 3 and 4");
   using T = bf16;
   constexpr int M = 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -569,7 +579,8 @@ __device__ void level_walk(const float* __restrict__ pts,
         h = dst;
         b += W;
       }
-      for (int p = threadIdx.x; p < M; p += kThreads) {  // alpha head, fp32
+      // The heads, fp32 (mode 2 reads its cotangent instead).
+      for (int p = threadIdx.x; MODE != 2 && p < M; p += kThreads) {
         float s = 0.f;
         for (int k = 0; k < W; ++k)
           s = fmaf(to_f(h[p * ldh + k]), to_f(w_a[k]), s);
@@ -584,7 +595,7 @@ __device__ void level_walk(const float* __restrict__ pts,
                bflat + d.b_views(), true, h, ldh);
       __syncthreads();
       save_rows<M>(h, ldh, H, ws, ldw, prow, cl.hv);
-      for (int e = threadIdx.x; e < 3 * M; e += kThreads) {
+      for (int e = threadIdx.x; MODE != 2 && e < 3 * M; e += kThreads) {
         const int p = e % M, cc = e / M;
         float s = 0.f;
         for (int k = 0; k < H; ++k)
@@ -594,7 +605,17 @@ __device__ void level_walk(const float* __restrict__ pts,
       __syncthreads();
     }
 
-    // ---- compositing and the per-ray loss cotangent ----
+    // ---- the output cotangent: read (mode 2), or compositing and the
+    // per-ray loss cotangent ----
+    if (MODE == 2) {
+      // Exactly 0 past the chunk's points: the padded rows' activations
+      // are not (bias through ReLU), and the dW GEMM sums every row.
+      for (int e = threadIdx.x; e < 4 * rows; e += kThreads) {
+        const int k = e / rows, p = e % rows;
+        craw[e] = p < valid ? gin[(size_t)k * n + base + p] : 0.f;
+      }
+      __syncthreads();
+    }
     if (MODE == 3) vanilla_composite(rr, c, cpts, rows, craw, ctrans);
     if (MODE == 4) mip_composite(rr, c, cpts, rows, craw, ctrans);
 
@@ -907,8 +928,9 @@ int legacy_level_plan(K kernel, int mode, int n_rays, int seg,
   return 0;
 }
 
-// The plan of one bf16 level. out[0..8]: walk blocks, workspace elements
-// (the whole level), per-block partial floats, walk dynamic shared memory
+// The plan of one bf16 launch: a level of n_rays rays of seg samples (in
+// mode 2, N points as N rays of one). out[0..8]: walk blocks, workspace
+// elements (the whole launch), per-block partial floats, walk dynamic shared memory
 // bytes, points per chunk, GEMM splits, split-partial floats, slabs per
 // split, and 1: the level walk runs. A width over 256 (the weight ring's
 // columns) or a shared memory that cannot hold the ring takes the legacy
@@ -1000,6 +1022,39 @@ inline int level_dw(const Dims& d, const long long* pl, bf16* ws,
   const int total = (int)(d.w_total() + d.b_total());
   level_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       gpart, splits, w_mat, part, (int)pl[0], pl[2], total, dw);
+  return (int)cudaGetLastError();
+}
+
+// One train launch by its nine-slot plan pl: the level walk `walk` (pl[8]
+// = 1; the weight maps made here) then the dW GEMM and the reduction, or
+// `legacy` (train_block with its dW pass) then the reduction of its block
+// partials. Both kernels take (lead..., w, b, ws, part, part_stride, cpts,
+// d, maps).
+template <typename T, typename K, typename... Lead>
+int level_launch(K walk, K legacy, const long long* pl, const Dims& d,
+                 const void* w, const void* b, void* ws, void* part,
+                 void* gpart, void* dw, cudaStream_t stream, Lead... lead) {
+  WMaps maps = {};
+  K kernel = legacy;
+  if (pl[8]) {
+    const int err = weight_maps(d, static_cast<const bf16*>(w), &maps);
+    if (err) return err;
+    kernel = walk;
+  }
+  kernel<<<(int)pl[0], kThreads, (size_t)pl[3], stream>>>(
+      lead..., static_cast<const T*>(w), static_cast<const float*>(b),
+      static_cast<T*>(ws), static_cast<float*>(part), (size_t)pl[2],
+      (int)pl[4], d, maps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (pl[8])
+    return level_dw(d, pl, static_cast<bf16*>(ws), static_cast<float*>(part),
+                    static_cast<float*>(gpart), static_cast<float*>(dw),
+                    stream);
+  const int total = (int)(d.w_total() + d.b_total());
+  mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
+      static_cast<float*>(dw));
   return (int)cudaGetLastError();
 }
 

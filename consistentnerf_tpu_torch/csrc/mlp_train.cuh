@@ -3,8 +3,9 @@
 //
 // These kernels include this header, each with an encoder policy
 // (mlp_common.cuh: NerfEnc or MipEnc); the bf16 path of modes 3 and 4
-// runs level_train.cuh's walk instead (wgmma products, the dW as a GEMM
-// over the level), their fp32 path this one:
+// and of the transposed mode-2 kernels (#2, #7) at widths up to 256 runs
+// level_train.cuh's walk instead (wgmma products, the dW as a GEMM over
+// the launch), their fp32 path this one:
 //   fused_mlp_bwd.cu      (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::
 //                          _bwd_pallas_T) and
 //   fused_mip_bwd.cu      (ops/fused_mip.py::_bwd_pallas_T): weight grads

@@ -62,8 +62,9 @@ __global__ void __launch_bounds__(mlp::kThreads, 1)
                          T* ws, float* part, size_t part_stride, int cpts,
                          Dims d, const __grid_constant__ mlp::WMaps maps) {
   if constexpr (WG)
-    mlp::level_walk<3, mlp::NerfEnc>(pts, nullptr, views, rr, w, b, ws,
-                                     part, part_stride, cpts, d, maps);
+    mlp::level_walk<3, mlp::NerfEnc>(pts, nullptr, views, nullptr, rr, w,
+                                     b, ws, part, part_stride, cpts, d,
+                                     maps);
   else
     mlp::train_block<T, 3, mlp::NerfEnc>(pts, nullptr, views, nullptr, rr,
                                          w, b, ws, part, part_stride,
@@ -86,33 +87,13 @@ int launch(const void* pts, const void* views, mlp::RayRows rr,
            const void* w, const void* b, void* ws, void* part, void* gpart,
            void* dw, Dims d, cudaStream_t stream) {
   long long pl[9];
-  int err = plan<T>(rr.n_rays, rr.seg, d, pl);
+  const int err = plan<T>(rr.n_rays, rr.seg, d, pl);
   if (err) return err;
-  mlp::WMaps maps = {};
-  if (pl[8]) {
-    err = mlp::weight_maps(d, static_cast<const bf16*>(w), &maps);
-    if (err) return err;
-  }
-  auto kernel = onepass_level_kernel<T, false>;
-  if constexpr (std::is_same<T, bf16>::value)
-    if (pl[8]) kernel = onepass_level_kernel<T, true>;
-  kernel<<<(int)pl[0], mlp::kThreads, (size_t)pl[3], stream>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(views), rr,
-      static_cast<const T*>(w), static_cast<const float*>(b),
-      static_cast<T*>(ws), static_cast<float*>(part), (size_t)pl[2],
-      (int)pl[4], d, maps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if (pl[8])
-    return mlp::level_dw(d, pl, static_cast<bf16*>(ws),
-                         static_cast<float*>(part),
-                         static_cast<float*>(gpart), static_cast<float*>(dw),
-                         stream);
-  const int total = (int)(d.w_total() + d.b_total());
-  mlp::mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
-      static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  return mlp::level_launch<T>(
+      onepass_level_kernel<T, std::is_same<T, bf16>::value>,
+      onepass_level_kernel<T, false>, pl, d, w, b, ws, part, gpart, dw,
+      stream, static_cast<const float*>(pts),
+      static_cast<const float*>(views), rr);
 }
 
 }  // namespace

@@ -380,28 +380,15 @@ def _bwd(row: bool, weights, means, covs, views, g, net_depth, num_freqs,
     _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
                   views=views)
     v2._check_stream("g", g, 4, n, dev, row)
-    n_w, n_b = v2.grad_numel(packed)
-    if n == 0:
-        zeros = torch.zeros(n_w + n_b, device=dev)
-        return v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
-    cfg_args = _cfg_args(packed)
-    symbol = ROW_BWD_KERNEL if row else BWD_KERNEL
-    ws, part, dw = v2.train_buffers(
-        v2._entry(BWD_KERNEL, symbol + "_plan", 0, 8), (n, *cfg_args),
-        packed, dev)
-    err = v2._entry(BWD_KERNEL, symbol, 9, 8)(
-        means.data_ptr(), covs.data_ptr(), views.data_ptr(), g.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
-        part.data_ptr(), dw.data_ptr(), n, *cfg_args,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    grads, launched = v2.grad_launch(
+        BWD_KERNEL, ROW_BWD_KERNEL if row else BWD_KERNEL, packed,
+        (means, covs, views), g, _cfg_args(packed), row)
     global bwd_launches, row_bwd_launches
-    if row:
+    if launched and row:
         row_bwd_launches += 1
-    else:
+    elif launched:
         bwd_launches += 1
-    return v2.unpack_grads(packed, dw[:n_w], dw[n_w:])
+    return grads
 
 
 def bwd_T(weights, means_T: torch.Tensor, covs_T: torch.Tensor,

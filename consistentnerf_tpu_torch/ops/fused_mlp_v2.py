@@ -617,7 +617,9 @@ def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
 
 def train_buffers(plan_fn, args, packed: PackedMLP, device):
     """Workspace, per-block partials and the packed-grad output of one
-    train-kernel launch, sized by the kernel's own plan function."""
+    launch of a kernel on train_block's four-slot plan (blocks, workspace
+    elements per block, partial floats per block, shared memory): the
+    row-major #11 / #16 and the v1 kernel #14."""
     out = (ctypes.c_longlong * 4)()
     err = plan_fn(*args, out)
     if err != 0:
@@ -629,6 +631,26 @@ def train_buffers(plan_fn, args, packed: PackedMLP, device):
     part = torch.empty(blocks * stride, dtype=torch.float32, device=device)
     dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
     return ws, part, dw
+
+
+def level_buffers(plan_fn, args, packed: PackedMLP, device):
+    """Workspace, per-block partials, dW-GEMM split partials and the
+    packed-grad output of one launch of a kernel on `level_train.cuh`'s
+    nine-slot plan (#2, #3, #5, #7), sized by the kernel's own plan
+    (blocks, workspace elements, partial floats per block, shared memory,
+    points per chunk, splits, split partial floats, slabs per split, 1 for
+    the level walk). The level walk's workspace holds a row of every
+    point of the launch (~9.9 KB a point at 8x256)."""
+    out = (ctypes.c_longlong * 9)()
+    err = plan_fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"train kernel plan failed: cudaError_t {err}")
+    n_w, n_b = grad_numel(packed)
+    ws = torch.empty(out[1], dtype=packed.compute_dtype, device=device)
+    part = torch.empty(out[0] * out[2], dtype=torch.float32, device=device)
+    gpart = torch.empty(max(out[6], 1), dtype=torch.float32, device=device)
+    dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
+    return ws, part, gpart, dw
 
 
 def _packed_for(weights, net_depth, skips, multires, multires_views, cd,
@@ -672,27 +694,45 @@ def _bwd(row: bool, weights, pts, views, g, net_depth, skips, multires,
 
 def dw_launch(lib: str, symbol: str, packed: PackedMLP, pts, views, g,
               row: bool):
-    """Launch the weight-grad kernel `symbol` of library `lib` (sized by
-    its `{symbol}_plan`) on CUDA streams of either layout: (the
+    """Launch the weight-grad kernel `symbol` of library `lib` (#2, #11
+    or #14) on CUDA points and view directions of either layout: (the
     torch-layout grads, whether a kernel was launched: not for N = 0)."""
     n, dev = pts.shape[0 if row else 1], pts.device
     for name, t, rows in (("pts", pts, 3), ("views", views, 3),
                           ("g", g, 4)):
         _check_stream(name, t, rows, n, dev, row)
     _check_weights(packed, dev)
+    return grad_launch(lib, symbol, packed, (pts, views), g,
+                       _cfg_ints(packed), row)
+
+
+def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
+                cfg_args, row: bool):
+    """Launch a weight-grad kernel on checked CUDA streams and cotangent g
+    ([4, N], or [N, 4] with `row`), its buffers sized by its
+    `{symbol}_plan`: (the torch-layout grads, whether a kernel was
+    launched: not for N = 0). The transposed kernels read the bf16
+    weights by TMA."""
+    n, dev = g.shape[0 if row else 1], g.device
     n_w, n_b = grad_numel(packed)
     if n == 0:
         zeros = torch.zeros(n_w + n_b, device=dev)
         return unpack_grads(packed, zeros[:n_w], zeros[n_w:]), False
-    cfg_args = _cfg_ints(packed)
-    ws, part, dw = train_buffers(_entry(lib, symbol + "_plan", 0, 7),
-                                 (n, *cfg_args), packed, dev)
-    err = _entry(lib, symbol, 8, 7)(
-        pts.data_ptr(), views.data_ptr(), g.data_ptr(), packed.w.data_ptr(),
-        packed.b.data_ptr(), ws.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        n, *cfg_args, torch.cuda.current_stream(dev).cuda_stream)
+    if not row:
+        check_tma_weights(packed)
+    # The transposed kernels #2 and #7 take the nine-slot plan (ws, part,
+    # gpart, dw), the row-major #11, #16 and #14 the four-slot one.
+    sizer = train_buffers if row else level_buffers
+    bufs = sizer(_entry(lib, symbol + "_plan", 0, 1 + len(cfg_args)),
+                 (n, *cfg_args), packed, dev)
+    ptrs = [t.data_ptr() for t in streams] + [
+        g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr()] + [
+        t.data_ptr() for t in bufs]
+    err = _entry(lib, symbol, len(ptrs), 1 + len(cfg_args))(
+        *ptrs, n, *cfg_args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    dw = bufs[-1]
     return unpack_grads(packed, dw[:n_w], dw[n_w:]), True
 
 

@@ -178,26 +178,6 @@ def _kernel():
     return plan, fn
 
 
-def level_buffers(plan_fn, args, packed: "v2.PackedMLP", device):
-    """Workspace, per-block partials, dW-GEMM split partials and the
-    packed-grad output of one level launch (#3 or #5), sized by the
-    kernel's own plan (nine slots: blocks, workspace elements, partial
-    floats per block, shared memory, points per chunk, splits, split
-    partial floats, slabs per split, 1 for the level walk). The level
-    walk's workspace holds a row of every point of the level (~9.9 KB a
-    point at 8x256)."""
-    out = (ctypes.c_longlong * 9)()
-    err = plan_fn(*args, out)
-    if err != 0:
-        raise RuntimeError(f"one-pass level plan failed: cudaError_t {err}")
-    n_w, n_b = v2.grad_numel(packed)
-    ws = torch.empty(out[1], dtype=packed.compute_dtype, device=device)
-    part = torch.empty(out[0] * out[2], dtype=torch.float32, device=device)
-    gpart = torch.empty(max(out[6], 1), dtype=torch.float32, device=device)
-    dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
-    return ws, part, gpart, dw
-
-
 def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
                   net_depth=8, skips=(4,), multires=10, multires_views=4,
                   white_bkgd=False, compute_dtype=torch.float32):
@@ -243,7 +223,7 @@ def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
     cfg_args = (net_depth, packed.width, skip_mask, multires, multires_views)
     use_bf16 = int(cd_ == torch.bfloat16)
     plan, fn = _kernel()
-    ws, part, gpart, dw = level_buffers(
+    ws, part, gpart, dw = v2.level_buffers(
         plan, (n_rays, seg, *cfg_args, use_bf16), packed, dev)
     dn_, crgb_, cd__, prior_ = per_ray
     err = fn(pts_T.data_ptr(), views_T.data_ptr(), z.data_ptr(),
@@ -762,7 +742,7 @@ def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
         return out, v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
     cfg_args = fused_mip._cfg_args(packed)
     plan, fn = _mip_kernel()
-    ws, part, gpart, dw = level_buffers(plan, (n_rays, seg, *cfg_args),
+    ws, part, gpart, dw = v2.level_buffers(plan, (n_rays, seg, *cfg_args),
                                         packed, dev)
     tmid_, delta_ = per_point[:2]
     noise_ptr = per_point[2].data_ptr() if noise is not None else None

@@ -1,0 +1,229 @@
+"""The weight-grad wrappers' buffers and C calls, on the CPU.
+
+The transposed kernels #2 and #7 (`csrc/fused_mlp_bwd.cu`,
+`csrc/fused_mip_bwd.cu`) run `level_train.cuh`'s walk and dW GEMM: their
+plans fill nine slots and their entry points take a split-partial buffer
+(`gpart`) after the block partials. The row-major twins #11 and #16 and
+the v1 kernel #14 keep `train_block`'s four-slot plan and no `gpart`. A
+nine-slot plan written into a four-slot array corrupts memory without an
+error, so the wrappers' side of each call is held here with fake entry
+points in place of the kernel library: the plan array's length, the
+buffers' sizes against the plan's slots, and the pointer and int counts
+against the `extern "C"` declarations in the committed sources.
+"""
+
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+from consistentnerf_tpu_torch.ops import fused_mip as fmip
+from consistentnerf_tpu_torch.ops import fused_mlp as fm
+from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
+from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+CSRC = Path(__file__).resolve().parents[1] / "consistentnerf_tpu_torch" / \
+    "csrc"
+N = 300
+# Slots a fake plan writes: blocks, workspace elements (in total for the
+# nine-slot plan, per block for the four-slot one), partial floats per
+# block, shared memory, points per chunk, splits, split partial floats,
+# slabs per split, the level walk.
+PLAN9 = (7, 123_456, 320, 100_000, 768, 3, 3 * 777, 5, 1)
+PLAN4 = (5, 4_321, 192, 90_000)
+
+
+def c_signature(source: str, symbol: str):
+    """(pointer parameters, int parameters) of `extern "C" int symbol(...)`
+    in csrc/source, the last pointer (the stream or the plan's output)
+    not counted."""
+    text = (CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    assert m, f"{symbol} is not declared in {source}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    ptrs = sum("*" in p for p in params) - 1
+    ints = sum(p.startswith("int ") for p in params)
+    assert ptrs + ints + 1 == len(params)
+    return ptrs, ints
+
+
+class FakeLibrary:
+    """`v2._entry` with fake entry points: a plan writes `slots` into its
+    output array (and records the array's length); a launch records its
+    pointers and ints and returns cudaSuccess."""
+
+    def __init__(self, slots):
+        self.slots, self.calls, self.entries = slots, [], []
+
+    def __call__(self, lib, symbol, n_ptr, n_int):
+        self.entries.append((symbol, n_ptr, n_int))
+
+        def fn(*args):
+            assert len(args) == n_ptr + n_int + 1
+            if symbol.endswith("_plan"):
+                out = args[-1]
+                self.calls.append((symbol, len(out)))
+                for i, v in enumerate(self.slots[:len(out)]):
+                    out[i] = v
+            else:
+                self.calls.append((symbol, args[:n_ptr], args[n_ptr:-1]))
+            return 0
+        return fn
+
+
+@pytest.fixture
+def fake(monkeypatch):
+    made = {}
+
+    def install(slots):
+        lib = FakeLibrary(slots)
+        monkeypatch.setattr(v2, "_entry", lib)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: SimpleNamespace(cuda_stream=0))
+        made["lib"] = lib
+        bufs = []
+        for name in ("level_buffers", "train_buffers"):
+            real = getattr(v2, name)
+
+            def record(*a, _real=real, _name=name):
+                out = _real(*a)
+                bufs.append((_name, out))
+                return out
+            monkeypatch.setattr(v2, name, record)
+        made["bufs"] = bufs
+        return lib, bufs
+    return install
+
+
+def _nerf_packed(dtype, v1=False):
+    mlp = NeRFMLP(net_depth=4, net_width=32, skips=(2,), input_ch=3 * 9,
+                  input_ch_views=3 * 5)
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    flat = fm.flatten_params(mlp, True, 4)
+    if v1:
+        return fm.pack_v1(flat, 4, (2,), 4, 2, dtype)
+    return v2.pack(flat, 4, (2,), 4, 2, dtype)
+
+
+def _mip_packed(dtype):
+    mlp = MipMLP(net_depth=4, net_width=32, net_width_viewdirs=16,
+                 max_deg_point=4)
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    return fmip.pack(fmip.flatten_mip_params(mlp, 4), 4, 4, dtype)
+
+
+def _streams(k, row, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shape = lambda c: (N, c) if row else (c, N)  # noqa: E731
+    return [torch.rand(shape(3), generator=g) for _ in range(k)], \
+        torch.randn(shape(4), generator=g)
+
+
+def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
+    """The plan got an array of len(slots); the buffers have the plan's
+    sizes; the launch passed the streams, g, the weights and the buffers
+    in the C declaration's order and counts."""
+    plan_calls = [c for c in lib.calls if c[0] == symbol + "_plan"]
+    assert [c[1] for c in plan_calls] == [len(slots)]
+    (kind, out), = bufs
+    n_w, n_b = v2.grad_numel(packed)
+    if len(slots) == 9:
+        assert kind == "level_buffers"
+        ws, part, gpart, dw = out
+        assert ws.numel() == slots[1]
+        assert part.numel() == slots[0] * slots[2]
+        assert gpart.numel() == slots[6]
+    else:
+        assert kind == "train_buffers"
+        ws, part, dw = out
+        assert ws.numel() == slots[0] * slots[1]
+        assert part.numel() == slots[0] * slots[2]
+    assert ws.dtype == packed.compute_dtype
+    assert dw.numel() == n_w + n_b and dw.dtype == torch.float32
+    (_, ptrs, ints), = [c for c in lib.calls if c[0] == symbol]
+    want = [t.data_ptr() for t in (*streams, g, packed.w, packed.b, *out)]
+    assert list(ptrs) == want
+    assert ints[0] == N
+    entry = {s: (p, i) for s, p, i in lib.entries}
+    assert entry[symbol] == c_signature(source, symbol)
+    assert entry[symbol + "_plan"] == c_signature(source, symbol + "_plan")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_transposed_mlp_backward_sizes_from_nine_slots(fake, dtype):
+    """#2: the nine-slot plan and its four buffers (ws, part, gpart, dw)
+    in both types (the fp32 plan fills the nine slots with zeros for the
+    GEMM)."""
+    lib, bufs = fake(PLAN9)
+    packed = _nerf_packed(dtype)
+    (pts, views), g = _streams(2, row=False)
+    grads, launched = v2.dw_launch(v2.BWD_KERNEL, v2.BWD_KERNEL, packed,
+                                   pts, views, g, row=False)
+    assert launched and len(grads) == len(packed.flat)
+    _check_call(lib, bufs, v2.BWD_KERNEL, "fused_mlp_bwd.cu", (pts, views),
+                g, packed, PLAN9)
+
+
+def test_rowmajor_mlp_backward_sizes_from_four_slots(fake):
+    """#11 keeps train_block's four-slot plan and no split partials."""
+    lib, bufs = fake(PLAN4)
+    packed = _nerf_packed("bfloat16")
+    (pts, views), g = _streams(2, row=True)
+    v2.dw_launch(v2.BWD_KERNEL, v2.ROW_BWD_KERNEL, packed, pts, views, g,
+                 row=True)
+    _check_call(lib, bufs, v2.ROW_BWD_KERNEL, "fused_mlp_bwd.cu",
+                (pts, views), g, packed, PLAN4)
+
+
+def test_v1_backward_sizes_from_four_slots(fake):
+    """#14 (`fused_mlp_v1_bwd.cu`) keeps its four-slot plan."""
+    lib, bufs = fake(PLAN4)
+    packed = _nerf_packed("bfloat16", v1=True)
+    (pts, views), g = _streams(2, row=True)
+    v2.dw_launch(fmt.BWD_KERNEL, fmt.BWD_KERNEL, packed, pts, views, g,
+                 row=True)
+    _check_call(lib, bufs, fmt.BWD_KERNEL, "fused_mlp_v1_bwd.cu",
+                (pts, views), g, packed, PLAN4)
+
+
+@pytest.mark.parametrize("row", [False, True])
+def test_mip_backward_sizes_from_its_plan(fake, row):
+    """#7 on the nine-slot plan, #16 on the four-slot one, through the
+    call that `fused_mip._bwd` makes."""
+    slots = PLAN4 if row else PLAN9
+    lib, bufs = fake(slots)
+    packed = _mip_packed("bfloat16")
+    streams, g = _streams(3, row)
+    symbol = fmip.ROW_BWD_KERNEL if row else fmip.BWD_KERNEL
+    grads, launched = v2.grad_launch(fmip.BWD_KERNEL, symbol, packed,
+                                     streams, g, fmip._cfg_args(packed), row)
+    assert launched and len(grads) == len(packed.flat)
+    _check_call(lib, bufs, symbol, "fused_mip_bwd.cu", streams, g, packed,
+                slots)
+
+
+def test_no_points_launch_nothing(fake):
+    """N = 0: zero grads, no plan and no launch."""
+    lib, _ = fake(PLAN9)
+    packed = _nerf_packed("bfloat16")
+    pts, views = torch.zeros(3, 0), torch.zeros(3, 0)
+    grads, launched = v2.dw_launch(v2.BWD_KERNEL, v2.BWD_KERNEL, packed,
+                                   pts, views, torch.zeros(4, 0), row=False)
+    assert not launched and lib.calls == []
+    assert all(not x.any() for x in grads)
+
+
+def test_a_failed_plan_raises(fake, monkeypatch):
+    fake(PLAN9)
+    def failing(lib, symbol, n_ptr, n_int):
+        return lambda *a: 2  # cudaErrorMemoryAllocation
+    monkeypatch.setattr(v2, "_entry", failing)
+    packed = _nerf_packed("bfloat16")
+    (pts, views), g = _streams(2, row=False)
+    with pytest.raises(RuntimeError, match="plan failed: cudaError_t 2"):
+        v2.dw_launch(v2.BWD_KERNEL, v2.BWD_KERNEL, packed, pts, views, g,
+                     row=False)

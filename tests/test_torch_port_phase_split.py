@@ -1,12 +1,13 @@
 """tools/torch_phase_split.py's patching of the level kernels' header and
 of the forward walk's.
 
-The tool times #3 and #5 with their phases cut out by preprocessor guards
-that it writes into a copy of `csrc/level_train.cuh` at string anchors,
-and #1 and #6 likewise with a copy of `csrc/fwd_hopper.cuh` (the heads,
-the encoding, the epilogue). The timing needs a card; the patching is
-string work, checked here against the committed sources, so that an edit
-of a header cannot leave a phase in the timed variants silently.
+The tool times #3 and #5 (and #2 and #7, the same walk in mode 2) with
+their phases cut out by preprocessor guards that it writes into a copy
+of `csrc/level_train.cuh` at string anchors, and #1 and #6 likewise
+with a copy of `csrc/fwd_hopper.cuh` (the heads, the encoding, the
+epilogue). The timing needs a card; the patching is string work,
+checked here against the committed sources, so that an edit of a header
+cannot leave a phase in the timed variants silently.
 """
 
 import sys
@@ -43,6 +44,22 @@ def test_both_level_kernels_build_from_the_patched_header(source):
     for header in CSRC.glob("*.cuh"):
         if header.name != tps.HEADER:
             assert out[header.name] == header.read_text()
+
+
+def test_the_weight_grad_kernels_are_split_with_the_levels(tmp_path):
+    """#2 and #7 run the level walk in mode 2: the phase-split build
+    writes their sources beside the patched header, and mode 2's
+    cotangent load sits between the forward and the guarded backward, so
+    the "forward" variant keeps it and no anchor count changes."""
+    for name, text in tps.patched_sources(CSRC).items():
+        (tmp_path / name).write_text(text)
+    header = (tmp_path / tps.HEADER).read_text()
+    for source in ("fused_mlp_bwd.cu", "fused_mip_bwd.cu"):
+        assert source in tps.SOURCES
+        assert f'#include "{tps.HEADER}"' in (tmp_path / source).read_text()
+    load = header.index("craw[e] = p < valid ? gin[")
+    forward = header.rindex("// ---- forward over sub-tiles", 0, load)
+    assert forward < load < header.index("#ifndef PHASE_NO_BWD")
 
 
 @pytest.mark.parametrize("anchor", [

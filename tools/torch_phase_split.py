@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Where the one-pass level kernels #3 and #5 and the bf16 forwards #1 and
-#6 spend their time, on one CUDA card.
+"""Where the train kernels on `csrc/level_train.cuh` (the one-pass levels
+#3 and #5, the weight grads #2 and #7) and the bf16 forwards #1 and #6
+spend their time, on one CUDA card.
 
     python3 tools/torch_phase_split.py          # both parts
-    python3 tools/torch_phase_split.py level    # #3 and #5 only
+    python3 tools/torch_phase_split.py level    # #2, #3, #5 and #7 only
     python3 tools/torch_phase_split.py fwd      # #1 and #6 only
 
-Builds `csrc/onepass_level.cu` (#3) and `csrc/onepass_mip_level.cu` (#5)
-four times from patched copies of `csrc/level_train.cuh` (beside copies
-of the other headers) under `build/phase_split/`: as they are, without
-the dW GEMM, without the dW GEMM and the backward walk, and without those
-and without saving activations to the workspace. Each variant is timed
-with CUDA events at the main path's shapes, bf16, seeded random weights
-and rays: #3 at the flagship step's fine level (4096 rays x 192 samples)
-and coarse level (x 64), #5 at a mip level (3072 rays x 96 samples); the
-differences are the phases' times. The variants compute wrong grads by
-construction; only the full build is a kernel of the port.
+Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
+`csrc/fused_mlp_bwd.cu` (#2) and `csrc/fused_mip_bwd.cu` (#7) four times
+from patched copies of `csrc/level_train.cuh` (beside copies of the other
+headers) under `build/phase_split/`: as they are, without the dW GEMM,
+without the dW GEMM and the backward walk, and without those and without
+saving activations to the workspace. Each variant is timed with CUDA
+events at the main path's shapes, bf16, seeded random weights and rays:
+#3 at the flagship step's fine level (4096 rays x 192 samples) and coarse
+level (x 64), #5 at a mip level (3072 rays x 96 samples), #2 at the
+one-pass step's fine patch launch (1024 patch rays x 192 samples) and #7
+at a mip patch level (1024 x 96), with a seeded cotangent; the
+differences are the phases' times (for #2 and #7 "forward" includes
+reading the cotangent). The variants compute wrong grads by construction;
+only the full build is a kernel of the port.
 
 The forward part builds `csrc/fused_mlp_fwd.cu` (#1) and
 `csrc/fused_mip_fwd.cu` (#6) four times from patched copies of
@@ -41,7 +46,8 @@ sys.path.insert(0, str(REPO))
 SOURCE_DIR = REPO / "consistentnerf_tpu_torch" / "csrc"
 
 HEADER = "level_train.cuh"
-SOURCES = ("onepass_level.cu", "onepass_mip_level.cu")
+SOURCES = ("onepass_level.cu", "onepass_mip_level.cu", "fused_mlp_bwd.cu",
+           "fused_mip_bwd.cu")
 VARIANTS = {
     "full": [],
     "no_dw": ["-DPHASE_NO_DW"],
@@ -112,7 +118,7 @@ def patched_header(src: str) -> str:
 
 def patched_sources(csrc: Path) -> dict:
     """File name -> text of the phase-split build: every header (the level
-    header patched) and the two level kernels, which must include it."""
+    header patched) and the four kernels on it, which must include it."""
     out = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
     out[HEADER] = patched_header(out[HEADER])
     for name in SOURCES:
@@ -308,6 +314,14 @@ def main() -> None:
     margs = (means, covs, views, 0.5 * (t[:, 1:] + t[:, :-1]),
              (t[:, 1:] - t[:, :-1]) * dn[:, None], t[:, 0].contiguous(),
              t[:, -1].contiguous(), crgb, tgt, cd, prior)
+    n_patch = 1024 * 192
+    p_pts = (torch.rand(3, n_patch, generator=g) * 4 - 2).to(dev)
+    p_views = torch.randn(3, n_patch, generator=g)
+    p_views = (p_views / p_views.norm(dim=0, keepdim=True)).to(dev)
+    p_g = (1e-3 * torch.randn(4, n_patch, generator=g)).to(dev)
+    n_mpatch = 1024 * seg
+    m_g = (1e-3 * torch.randn(4, n_mpatch, generator=g)).to(dev)
+    m_streams = [x[:, :n_mpatch].contiguous() for x in (means, covs, views)]
     cases = {
         f"#3 fine ({4096 * 192} points)": vanilla(4096, 192),
         f"#3 coarse ({4096 * 64} points)": vanilla(4096, 64),
@@ -315,6 +329,10 @@ def main() -> None:
             lambda: op.onepass_mip_level(
                 mpacked, *margs, net_depth=8, num_freqs=16, white_bkgd=True,
                 compute_dtype="bfloat16"),
+        f"#2 fine patch ({n_patch} points)": lambda: v2.bwd_T(
+            packed, p_pts, p_views, p_g, 8, (4,), 10, 4, "bfloat16"),
+        f"#7 patch level ({n_mpatch} points)": lambda: fmip.bwd_T(
+            mpacked, *m_streams, m_g, 8, 16, "bfloat16"),
     }
 
     base_flags = list(_build.NVCC_FLAGS)
@@ -326,6 +344,7 @@ def main() -> None:
         _build._LIBS.clear()
         op._kernel.cache_clear()
         op._mip_kernel.cache_clear()
+        v2._entry.cache_clear()
         _build.build_all([s[:-3] for s in SOURCES])
         for case, run in cases.items():
             times[case][name] = _time(run)
