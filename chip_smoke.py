@@ -36,7 +36,9 @@ with the launch counts set to 0 just before it and read just after:
   one-pass steps with `use_pdf_kernel` through the train CLI;
 * the row-major kernels #10 / #11 at the two-call step's shapes and
   #15 / #16 at the mip level (against their plain versions and the
-  transposed kernels), the op `fused_mip_mlp_train` (one launch each);
+  transposed kernels; #11 in bf16 runs the level walk of #2 and gives
+  #2's bits), #11 at the ragged sizes of #2, the op
+  `fused_mip_mlp_train` (one launch each);
 * the two-call fused step: the flagship with `softLpmask` through the
   train CLI for each `fused_kernel` (v2: #1/#2, v2row: #10/#11, v2h: the
   plain forward and #11), guarded against the eager step and, at the
@@ -46,8 +48,10 @@ with the launch counts set to 0 just before it and read just after:
   annealing, through the train CLI, guarded against the eager step;
 * the v1 kernels: #12 at the render's chunk shapes and, at a small size,
   with a skip into the heads, the use_viewdirs=False output head and
-  multires 21; #13 / #14 at the two-call step's levels (#14 bit-identical
-  across repeats); the v1 and hybrid renders (#12 for every chunk); the
+  multires 21; #13 / #14 at the two-call step's levels (#14 in bf16 on
+  the level walk: bit-identical across repeats and to #11 on the same
+  points), #14 at the ragged sizes and at the small v1 shapes with the
+  plan each picks; the v1 and hybrid renders (#12 for every chunk); the
   two-call step with fused_kernel=v1 (#13, #14) and hybrid (#14) through
   the train CLI, timed and guarded against the eager step; and the
   reprojection hard masks on the card against the CPU. The train CLI
@@ -55,8 +59,11 @@ with the launch counts set to 0 just before it and read just after:
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
-weight grads #2 and #7, whose dW sums take a fixed order, and #1 also
-against a second bf16 launch, bit for bit); the kernel train step is
+weight grads #2, #7, #11 and #14, whose dW sums take a fixed order, and
+#1 also against a second bf16 launch, bit for bit); the plans of the
+weight grads on the level walk (#2, #7, #11, #14) are printed after the
+build, and the bf16 plans of #11 and #14 at the two-call step's levels
+must pick the walk; the kernel train step is
 held against the plain eager step from the same state, batch and draws;
 timings, and each timed step's peak device memory, are printed beside
 the card's name and power limit. The last line is
@@ -222,24 +229,26 @@ def peak_memory(label):
     torch.cuda.reset_peak_memory_stats()
 
 
-# The ragged sizes of the weight-grad kernels #2 and #7: one point, a
-# 64-row sub-tile less one and plus one, a 768-point chunk plus one, 4
-# chunks with a ragged last one, and the one-pass step's fine patch
+# The ragged sizes of the weight-grad kernels #2, #7, #11 and #14: one
+# point, a 64-row sub-tile less one and plus one, a 768-point chunk plus
+# one, 4 chunks with a ragged last one, and the one-pass step's fine patch
 # launch less one point. Where a chunk ends inside a sub-tile, its
 # padded rows hold activations (bias through ReLU) and must meet a zero
 # cotangent.
 RAGGED_BWD_N = (1, 63, 65, 769, 3000, 196_607)
 
 
-def ragged_bwd_gates(name, packed, streams, kfn, plain, dev):
-    """#2 or #7 at RAGGED_BWD_N against its plain version, in bf16 and
-    fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16 launch bit for
-    bit. `packed(dtype)` packs the weights; `streams(n, gen)` makes the
-    seeded inputs; kfn / plain take (w, *streams, g, dtype)."""
+def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False):
+    """#2, #7, #11 or #14 at RAGGED_BWD_N against its plain version, in
+    bf16 and fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16 launch
+    bit for bit. `packed(dtype)` packs the weights; `streams(n, gen)`
+    makes the seeded inputs; kfn / plain take (w, *streams, g, dtype); g is
+    [4, N], or [N, 4] with `row`."""
     gen = torch.Generator(device=dev).manual_seed(11)
     for n in RAGGED_BWD_N:
         xs = streams(n, gen)
-        g = 1e-3 * torch.randn((4, n), generator=gen, device=dev)
+        g = 1e-3 * torch.randn((n, 4) if row else (4, n), generator=gen,
+                               device=dev)
         for dtype in ("bfloat16", "float32"):
             w = packed(dtype)
             got = kfn(w, *xs, g, dtype)
@@ -256,6 +265,14 @@ def ragged_bwd_gates(name, packed, streams, kfn, plain, dev):
                 repeat_gate(f"{name} N={n}", got, kfn(w, *xs, g, dtype))
         del xs, g
         torch.cuda.empty_cache()
+
+
+def row_nerf_streams(n_pts, gen):
+    """Seeded row-major NeRF streams for the ragged gates of #11 and #14:
+    points [n, 3] in [-2, 2) and unit view directions [n, 3]."""
+    pts = torch.rand((n_pts, 3), generator=gen, device=gen.device) * 4 - 2
+    views = torch.randn((n_pts, 3), generator=gen, device=gen.device)
+    return pts, views / views.norm(dim=1, keepdim=True)
 
 
 def rel_err(got, want):
@@ -301,7 +318,8 @@ def ptxas_report(_build, name):
                 entry += " row-major"
             if "dw_gemm" in mangled:
                 entry = "dW GEMM"
-            elif "level_kernel" in mangled and "bfloat16" in mangled:
+            elif (("level_kernel" in mangled or "bwd_kernel" in mangled)
+                  and "bfloat16" in mangled):
                 entry += " level walk" if "Lb1E" in mangled else " legacy"
         elif "Used" in line or "spill" in line:
             log(f"  {name} [{entry}]: {line.strip()}")
@@ -432,21 +450,45 @@ def main() -> None:
     plan1.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     for mr in (10, 21):
         for bf, dt in ((1, "bfloat16"), (0, "float32")):
-            out = (ctypes.c_longlong * 4)()
-            plan1(983040, 8, 256, 16, mr, 4, bf, out)
+            out = (ctypes.c_longlong * 9)()
+            if plan1(983040, 8, 256, 16, mr, 4, bf, out):
+                fail(f"{fmt.BWD_KERNEL}_plan failed at multires {mr}")
             packed = fm.pack_v1(fm.flatten_params(NeRFMLP(
                 input_ch=3 * (1 + 2 * mr))), 8, (4,), mr, 4, dt)
-            want = fm.v1_smem_bytes(packed)
+            # #14's own shared memory: the level walk's where its plan
+            # runs it (slot 8), else train_block's.
+            want = (fm.v1_smem_bytes(packed)[0],
+                    fm.walk_smem_bytes(packed, -(-out[4] // 64) * 64)
+                    if out[8] else fm.v1_smem_bytes(packed)[1])
             got = (smem1(256, mr, 4, bf), out[3])
             log(f"  v1 kernels at 8x256, multires {mr}/4, {dt}: "
                 f"{fm.KERNEL} {got[0]} bytes of shared memory, "
-                f"{fmt.BWD_KERNEL} {got[1]} bytes, {out[0]} blocks "
-                f"(the wrappers' plan: {want[0]}, {want[1]})")
+                f"{fmt.BWD_KERNEL} {got[1]} bytes "
+                f"({'the level walk' if out[8] else 'train_block'}), "
+                f"{out[0]} blocks (the wrappers' plan: {want[0]}, {want[1]})")
             if tuple(got) != tuple(want):
                 fail("the v1 wrappers' shared-memory plan disagrees with "
                      "the kernels'")
     plan_b = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_plan
     plan_b.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    # #11 and #14 beside #2 at the two-call step's levels: in bf16 all
+    # three run the level walk (slot 8), #11 and #14 with the row-major
+    # staging; in fp32 train_block.
+    plan_r = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_row_plan
+    plan_r.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for bf in (1, 0):
+        for n_b in (983040, 327680):
+            for label, fn in (("#2 " + v2.BWD_KERNEL, plan_b),
+                              ("#11 " + v2.ROW_BWD_KERNEL, plan_r),
+                              ("#14 " + fmt.BWD_KERNEL, plan1)):
+                out = (ctypes.c_longlong * 9)()
+                if fn(n_b, 8, 256, 16, 10, 4, bf, out):
+                    fail(f"the plan of {label} failed")
+                log(f"  {'bf16' if bf else 'fp32'}: {label} ({n_b} points) "
+                    f"{level_plan_text(out)}")
+                if bf and not out[8]:
+                    fail(f"the bf16 plan of {label} at {n_b} points is not "
+                         "the level walk")
     plan_o = _build.load(op.KERNEL).onepass_level_plan
     plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     for bf in (1, 0):
@@ -2436,6 +2478,8 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
             gate(rel < TRAIN_DW_TOL[dtype], f"{v2.ROW_BWD_KERNEL} {lvl} "
                  f"{dtype} disagrees with its plain version ({rel:.3e})")
             del want
+            # The same walk in both dtypes (bf16: the level walk, whose
+            # row-major staging changes no value or order): the same bits.
             same, rel_t, _ = row_vs_t(
                 f"{v2.ROW_BWD_KERNEL} {lvl} {dtype}", got,
                 v2.bwd_T(w, pts_T, views_T, g[lvl].T.contiguous(),
@@ -2443,8 +2487,21 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
             if dtype == "float32":
                 gate(same or rel_t < ROW_VS_T_TOL, f"{v2.ROW_BWD_KERNEL} "
                      f"{lvl} disagrees with {v2.BWD_KERNEL}")
+            else:
+                gate(same, f"{v2.ROW_BWD_KERNEL} {lvl} bf16 is not "
+                     f"bit-identical to {v2.BWD_KERNEL} on the same points")
             del got, pts_T, views_T
             torch.cuda.empty_cache()
+
+    # #11 at the ragged sizes (the fine level's weights, seeded points).
+    ragged_bwd_gates(
+        v2.ROW_BWD_KERNEL,
+        lambda dtype: v2.pack(flat["fine"], compute_dtype=dtype, **mlp_kw),
+        row_nerf_streams,
+        lambda w, pts, views, g, dtype: v2.bwd(
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw),
+        lambda w, pts, views, g, dtype: v2.plain_bwd_row(
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev, row=True)
 
     # Timings, bf16: the row-major kernels, the transposed kernels on the
     # same points (same call, same card), the plain versions.
@@ -2946,6 +3003,7 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
     pts_s = torch.rand(V1_SMALL_N, 3, generator=gen, device=dev) * 4 - 2
     views_s = torch.nn.functional.normalize(
         torch.randn(V1_SMALL_N, 3, generator=gen, device=dev), dim=-1)
+    gen_s = torch.Generator(device=dev).manual_seed(13)  # #14's cotangents
     for label, (depth, sk, mr, mv, uv) in V1_SHAPES.items():
         mlp = NeRFMLP(net_depth=depth, net_width=256,
                       input_ch=3 * (1 + 2 * mr),
@@ -2955,6 +3013,7 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
         ws = [x.detach().to(dev) for x in fm.flatten_params(mlp, uv, depth)]
         skw = dict(net_depth=depth, skips=sk, multires=mr,
                    multires_views=mv, use_viewdirs=uv)
+        skw_t = {k: v for k, v in skw.items() if k != "use_viewdirs"}
         for dtype in ("bfloat16", "float32"):
             with torch.no_grad():
                 got = fm.fused_mlp(ws, pts_s, views_s, compute_dtype=dtype,
@@ -2968,6 +3027,32 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
                         f"{depth}, multires {mr}, out {tuple(got.shape)}) "
                         f"{dtype}", got, want, dtype,
                         small_mean=label in V1_SMALL_MEAN)
+            if not uv:  # #14's op always has the view branch
+                continue
+            # #14 at the same shape against its plain version, with the
+            # plan it picks (the level walk in bf16 where it fits).
+            out = (ctypes.c_longlong * 9)()
+            err = v2._entry(fmt.BWD_KERNEL, fmt.BWD_KERNEL + "_plan", 0, 7)(
+                V1_SMALL_N, depth, 256, sum(1 << s_ for s_ in sk), mr, mv,
+                int(dtype == "bfloat16"), out)
+            if err:
+                fail(f"{fmt.BWD_KERNEL}_plan failed at {label}")
+            g_s = 1e-3 * torch.randn((V1_SMALL_N, 4), generator=gen_s,
+                                     device=dev)
+            got = fmt.backward(ws, pts_s, views_s, g_s, compute_dtype=dtype,
+                               **skw_t)
+            torch.cuda.synchronize()
+            rel, mx = grads_err(got, fmt.plain_backward(
+                ws, pts_s, views_s, g_s, compute_dtype=dtype, **skw_t))
+            log(f"{fmt.BWD_KERNEL} (#14) vs plain, {label} (depth {depth}, "
+                f"multires {mr}) {dtype}: dW max|diff| {mx:.3e}, max rel L2 "
+                f"{rel:.3e} (tol {TRAIN_DW_TOL[dtype]:g}); plan: "
+                f"{level_plan_text(out)}")
+            if not all(torch.isfinite(x).all() for x in got):
+                fail(f"#14 {label} {dtype}: non-finite dW")
+            gate(rel < TRAIN_DW_TOL[dtype], f"#14 {label} {dtype} disagrees "
+                 f"with its plain version ({rel:.3e})")
+            del got, g_s
     del pts_s, views_s
 
     # 36. #13 and #14 at the two-call step's levels (softLpmask flagship,
@@ -3025,6 +3110,16 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             del again
+            # At 8x256 (skip after layer 4) v1's heads read h alone: #14
+            # is #11's walk on #11's offsets, so it gives #11's bits.
+            again = v2.bwd(v2.pack(tflat[lvl], compute_dtype=dtype, **kw),
+                           pts, views, g[lvl], compute_dtype=dtype, **kw)
+            same11 = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"{fmt.BWD_KERNEL} (#14) {lvl} {dtype}: bit-identical to "
+                f"{v2.ROW_BWD_KERNEL} (#11) on the same points {same11}")
+            if dtype == "bfloat16":
+                gate(same11, f"#14 {lvl} bf16 is not bit-identical to #11")
+            del again
             want = fmt.plain_backward(w, pts, views, g[lvl],
                                       compute_dtype=dtype, **kw)
             rel, mx = grads_err(got, want)
@@ -3039,6 +3134,16 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
             gate(same, f"#14 {lvl} {dtype}: two runs differ")
             del got, want
             torch.cuda.empty_cache()
+
+    # #14 at the ragged sizes (the fine level's weights, seeded points).
+    ragged_bwd_gates(
+        fmt.BWD_KERNEL,
+        lambda dtype: fm.pack_v1(tflat["fine"], compute_dtype=dtype, **kw),
+        row_nerf_streams,
+        lambda w, pts, views, g_, dtype: fmt.backward(
+            w, pts, views, g_, compute_dtype=dtype, **kw),
+        lambda w, pts, views, g_, dtype: fmt.plain_backward(
+            w, pts, views, g_, compute_dtype=dtype, **kw), dev, row=True)
 
     # Timings, bf16: #12 at the render chunk, #13 / #14 at the step's
     # levels, the plain versions on the same inputs.

@@ -376,15 +376,20 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The weight maps (WMaps) of the wgmma walks over the packed weights w.
-inline int weight_maps(const Dims& d, const bf16* w, WMaps* maps) {
+// The weight maps (WMaps) of the wgmma walks over the packed weights w:
+// map 0 the trunk and feature layers (rows of width columns), map 1 the
+// view layer. V1: the v1 kernels' packing (the feature layer on [pe | h]
+// at a head skip).
+template <bool V1 = false>
+int weight_maps(const Dims& d, const bf16* w, WMaps* maps) {
   EncodeTiled encode = tensor_map_encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint32_t box[2] = {64, 64}, estr[2] = {1, 1};
   for (int m = 0; m < 2; ++m) {
     const int cols = m ? d.half : d.width;
-    const int rows = m ? d.width + d.V : (int)(d.w_views() / d.width);
-    void* base = const_cast<bf16*>(w + (m ? d.w_views() : 0));
+    const int rows =
+        m ? d.width + d.V : (int)(d.w_views<V1>() / d.width);
+    void* base = const_cast<bf16*>(w + (m ? d.w_views<V1>() : 0));
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
     if (encode(&maps->m[m], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,

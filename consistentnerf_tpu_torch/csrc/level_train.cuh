@@ -1,9 +1,11 @@
 // The bf16 walk of the train kernels for Hopper: the one-pass levels #3
 // (onepass_level.cu, mode 3) and #5 (onepass_mip_level.cu, mode 4), the
-// weight grads #2 (fused_mlp_bwd.cu) and #7 (fused_mip_bwd.cu) for a
-// given cotangent (mode 2), and their dW product. The fp32 path of these
-// kernels, bf16 widths over 256, the row-major twins #11 / #16, #14 and
-// the normals (mode 5) keep mlp_train.cuh::train_block.
+// weight grads for a given cotangent (mode 2) #2 (fused_mlp_bwd.cu), its
+// row-major twin #11 (the same file), #7 (fused_mip_bwd.cu) and the v1
+// kernel #14 (fused_mlp_v1_bwd.cu, with v1's heads on [pe | h]), and
+// their dW product. The fp32 path of these kernels, bf16 widths over 256,
+// the row-major mip twin #16 and the normals (mode 5) keep
+// mlp_train.cuh::train_block.
 //
 // What it replaces: train_block ran forward, (compositing,) backward AND
 // the dW pass per 768-point chunk in one persistent block. Its dW pass
@@ -17,10 +19,10 @@
 //
 // A launch of these kernels now takes three:
 //   1. level_walk: per chunk, the forward (saving every activation), the
-//      output cotangent (mode 2: read from g [4, N], zero on the chunk's
-//      padded rows; modes 3 and 4: compositing of whole rays, the per-ray
-//      loss cotangent and the compositing VJP) and the backward (saving
-//      every rounded gradient),
+//      output cotangent (mode 2: read from g [4, N], or [N, 4] in the
+//      row-major layout, zero on the chunk's padded rows; modes 3 and 4:
+//      compositing of whole rays, the per-ray loss cotangent and the
+//      compositing VJP) and the backward (saving every rounded gradient),
 //      the bias grads and the heads' dW (alpha [W], rgb [3, H]), which
 //      ride on the backward's elementwise steps at no extra read. Every
 //      layer product runs on wgmma (m64n64k16, A = the 64-point tile
@@ -152,19 +154,23 @@ __host__ __device__ inline int wprods_bwd(const Dims& d) {
   return d.depth + 1;
 }
 
-// Product q of a chunk's sequence (nsub sub-tiles).
+// Product q of a chunk's sequence (nsub sub-tiles). V1: the feature
+// layer reads [pe | h] after a skip at the last trunk layer (its
+// transpose then starts at the h rows).
+template <bool V1 = false>
 __host__ __device__ inline WProd wprod(const Dims& d, int q, int nsub) {
   const int nf = wprods_fwd(d), nb = wprods_bwd(d), W = d.width;
+  const int hr = d.head_rows<V1>(), fr = (int)(d.w_feature() / W);
   if (q < nsub * nf) {
     const int f = q % nf;
     if (f < d.depth)
       return WProd{0, 0, (int)(d.w_layer(f) / W), d.rows(f), W};
-    if (f == d.depth) return WProd{0, 0, (int)(d.w_feature() / W), W, W};
+    if (f == d.depth) return WProd{0, 0, fr, hr, W};
     return WProd{0, 1, 0, W + d.V, d.half};
   }
   const int b = (q - nsub * nf) % nb;
   if (b == 0) return WProd{1, 1, 0, d.half, W};
-  if (b == 1) return WProd{1, 0, (int)(d.w_feature() / W), W, W};
+  if (b == 1) return WProd{1, 0, fr + hr - W, W, W};
   const int i = d.depth + 1 - b;
   return WProd{1, 0,
                (int)(d.w_layer(i) / W) + (d.skip_before(i) ? d.P : 0), W, W};
@@ -175,10 +181,11 @@ __host__ __device__ inline int wslabs(const WProd& p) {
 }
 
 // Slabs of one chunk's sequence.
+template <bool V1 = false>
 __host__ __device__ inline int wslabs_chunk(const Dims& d, int nsub) {
   int n = 0;
   for (int q = 0; q < nsub * (wprods_fwd(d) + wprods_bwd(d)); ++q)
-    n += wslabs(wprod(d, q, nsub));
+    n += wslabs(wprod<V1>(d, q, nsub));
   return n;
 }
 
@@ -439,14 +446,16 @@ __device__ inline void wg_bwd(WStream& st, const WMaps& maps, const Dims& d,
 
 // Shared memory of one walk block, in bytes (must match the carve-up in
 // level_walk): the weight ring (and its alignment slack), the tiles, the
-// per-chunk rows and the column-sum partials.
-__host__ __device__ inline size_t level_smem(const Dims& d, int rows) {
+// per-chunk rows, the column-sum partials and, for row-major streams
+// (`row`), encode_tile's staging of a tile's points (9 M floats).
+__host__ __device__ inline size_t level_smem(const Dims& d, int rows,
+                                             bool row = false) {
   constexpr int M = 64;
   const int ac = d.act_cols();
   const size_t elems = (size_t)M * (d.P + kPad) + (size_t)M * (d.V + kPad) +
                        2 * (size_t)M * (ac + kPad);
-  const size_t floats =
-      4 * M + 5 * (size_t)rows + 2 * (size_t)kWarps * ac;
+  const size_t floats = 4 * M + 5 * (size_t)rows +
+                        2 * (size_t)kWarps * ac + (row ? 9 * M : 0);
   return (size_t)kWStages * kWStage + 1024 + elems * sizeof(bf16) +
          floats * sizeof(float);
 }
@@ -483,10 +492,13 @@ __device__ inline uint4 pack8(const float (&v)[8]) {
 
 // One block's walk over its chunks of `cpts` points (whole rays; in mode
 // 2 rr.seg = 1 and rr.n_rays = N). The partial of the block holds the
-// packed grad from w_alpha() on: the alpha head's dW [W], the rgb head's
-// [3, H], then every bias. gin: mode 2's output cotangent [4, N] (else
-// unread).
-template <int MODE, typename Enc>
+// packed grad from w_alpha<V1>() on: the alpha head's dW [head_rows], the
+// rgb head's [3, H], then every bias. gin: mode 2's output cotangent
+// [4, N], or [N, 4] in the row-major layout L (else unread). L: the
+// layout of the point streams and of gin (mlp_common.cuh; row-major in
+// mode 2 only). V1: the v1 kernels' heads, which read [pe | h] after a
+// skip at the last trunk layer (Dims::head_skip).
+template <int MODE, typename Enc, typename L = ColMajor, bool V1 = false>
 __device__ void level_walk(const float* __restrict__ pts,
                            const float* __restrict__ covs,
                            const float* __restrict__ views,
@@ -497,6 +509,7 @@ __device__ void level_walk(const float* __restrict__ pts,
                            size_t part_stride, int cpts, Dims d,
                            const WMaps& maps) {
   static_assert(MODE >= 2 && MODE <= 4, "the train modes 2, 3 and 4");
+  static_assert(!L::kRow || MODE == 2, "row-major streams: mode 2 only");
   using T = bf16;
   constexpr int M = 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -519,13 +532,17 @@ __device__ void level_walk(const float* __restrict__ pts,
   float* craw = graw + 4 * M;   // [4][rows] raw, then d_raw
   float* ctrans = craw + 4 * rows;  // [rows]
   float* csum = ctrans + rows;  // [2][kWarps][ldc] column-sum partials
+  float* stage = csum + 2 * kWarps * ldc;  // row-major: [9][M] points
 
+  // The heads read h, or [pe | h] after a skip at the last trunk layer
+  // (V1); their h rows start at row hoff.
+  const int hr = d.head_rows<V1>(), hoff = hr - W;
   float* ph = part_all + blockIdx.x * part_stride;  // heads' dW
-  float* pb = ph + W + 3 * H;                       // biases
+  float* pb = ph + hr + 3 * H;                      // biases
   for (size_t j = threadIdx.x; j < part_stride; j += kThreads) ph[j] = 0.f;
 
-  const T* w_a = wflat + d.w_alpha();
-  const T* w_r = wflat + d.w_rgb();
+  const T* w_a = wflat + d.w_alpha<V1>();
+  const T* w_r = wflat + d.w_rgb<V1>();
   const int n_chunks = (n + cpts - 1) / cpts;
 
   WStream st{ring, wfull, wempty, wtab, rows / M, 0, 0, 0, 0, 0};
@@ -533,10 +550,10 @@ __device__ void level_walk(const float* __restrict__ pts,
     const int mine = blockIdx.x < n_chunks
                          ? (n_chunks - 1 - blockIdx.x) / gridDim.x + 1
                          : 0;
-    st.left = mine * wslabs_chunk(d, st.nsub);
+    st.left = mine * wslabs_chunk<V1>(d, st.nsub);
     const int nf = wprods_fwd(d), nb = wprods_bwd(d);
     for (int k = 0; k < nf + nb; ++k)
-      wtab[k] = wprod(d, k < nf ? k : st.nsub * nf + k - nf, st.nsub);
+      wtab[k] = wprod<V1>(d, k < nf ? k : st.nsub * nf + k - nf, st.nsub);
     for (int k = 0; k < kWStages; ++k) {
       mbar_init(&wfull[k], 1);
       mbar_init(&wempty[k], 2);
@@ -554,9 +571,8 @@ __device__ void level_walk(const float* __restrict__ pts,
     for (int r0 = 0; r0 < rows; r0 += M) {
       const int sub_valid = max(0, min(M, valid - r0));
       const size_t prow = crow + r0;
-      encode_tile<T, M, Enc, ColMajor>(pts, covs, views, n, base + r0,
-                                       sub_valid, d, pe, ldp, ve, ldv,
-                                       nullptr);
+      encode_tile<T, M, Enc, L>(pts, covs, views, n, base + r0, sub_valid,
+                                d, pe, ldp, ve, ldv, stage);
       __syncthreads();
       save_rows<M>(pe, ldp, P, ws, ldw, prow, cl.pe);
       save_rows<M>(ve, ldv, V, ws, ldw, prow, cl.ve);
@@ -582,12 +598,16 @@ __device__ void level_walk(const float* __restrict__ pts,
       // The heads, fp32 (mode 2 reads its cotangent instead).
       for (int p = threadIdx.x; MODE != 2 && p < M; p += kThreads) {
         float s = 0.f;
+        for (int k = 0; k < hoff; ++k)
+          s = fmaf(to_f(pe[p * ldp + k]), to_f(w_a[k]), s);
         for (int k = 0; k < W; ++k)
-          s = fmaf(to_f(h[p * ldh + k]), to_f(w_a[k]), s);
+          s = fmaf(to_f(h[p * ldh + k]), to_f(w_a[hoff + k]), s);
         craw[3 * rows + r0 + p] = s + bflat[d.b_alpha()];
       }
       T* feat = (h == hx) ? hy : hx;
-      wg_layer(st, maps, d, Seg<T>{h, ldh, W}, Seg<T>{nullptr, 0, 0}, W,
+      wg_layer(st, maps, d,
+               hoff ? Seg<T>{pe, ldp, P} : Seg<T>{h, ldh, W},
+               hoff ? Seg<T>{h, ldh, W} : Seg<T>{nullptr, 0, 0}, W,
                bflat + d.b_feature(), false, feat, ldh);
       __syncthreads();
       save_rows<M>(feat, ldh, W, ws, ldw, prow, cl.feat);
@@ -610,9 +630,30 @@ __device__ void level_walk(const float* __restrict__ pts,
     if (MODE == 2) {
       // Exactly 0 past the chunk's points: the padded rows' activations
       // are not (bias through ReLU), and the dW GEMM sums every row.
-      for (int e = threadIdx.x; e < 4 * rows; e += kThreads) {
-        const int k = e / rows, p = e % rows;
-        craw[e] = p < valid ? gin[(size_t)k * n + base + p] : 0.f;
+      if constexpr (L::kRow) {
+        // g [N, 4]: a point's 4 floats in one 16-byte load (where g is
+        // 16-byte aligned, as a fresh tensor is), consecutive threads on
+        // consecutive points.
+        const bool v4 = (reinterpret_cast<uintptr_t>(gin) & 15) == 0;
+        for (int p = threadIdx.x; p < rows; p += kThreads) {
+          const size_t g = (size_t)base + p;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (p < valid)
+            v = v4 ? __ldg(reinterpret_cast<const float4*>(gin) + g)
+                   : make_float4(gin[L::at(0, g, n, 4)],
+                                 gin[L::at(1, g, n, 4)],
+                                 gin[L::at(2, g, n, 4)],
+                                 gin[L::at(3, g, n, 4)]);
+          craw[p] = v.x;
+          craw[rows + p] = v.y;
+          craw[2 * rows + p] = v.z;
+          craw[3 * rows + p] = v.w;
+        }
+      } else {
+        for (int e = threadIdx.x; e < 4 * rows; e += kThreads) {
+          const int k = e / rows, p = e % rows;
+          craw[e] = p < valid ? gin[L::at(k, (size_t)base + p, n, 4)] : 0.f;
+        }
       }
       __syncthreads();
     }
@@ -675,7 +716,16 @@ __device__ void level_walk(const float* __restrict__ pts,
         }
         pb[d.b_views() + j] += colsum;
 #pragma unroll
-        for (int cc = 0; cc < 3; ++cc) ph[W + cc * H + j] += s[cc];
+        for (int cc = 0; cc < 3; ++cc) ph[hr + cc * H + j] += s[cc];
+      }
+      // V1 at a head skip: the alpha head's dW on its pe rows, pe^T
+      // round(g_alpha).
+      for (int j = threadIdx.x; j < hoff; j += kThreads) {
+        float s = 0.f;
+        for (int p = 0; p < M; ++p)
+          s = fmaf(to_f(ws[(prow + p) * ldw + cl.pe + j]),
+                   rnd(graw[3 * M + p]), s);
+        ph[j] += s;
       }
       __syncthreads();
       // The products fused with the elementwise steps they feed (see
@@ -690,16 +740,17 @@ __device__ void level_walk(const float* __restrict__ pts,
         constexpr bool kTop = decltype(top)::value;
         if (nbh == 2)
           wg_bwd<2, kMask, kTop>(st, maps, d, g, ldh, n_red, W, act, ldw,
-                                 graw + 3 * M, w_a, dst, ldh, csum,
+                                 graw + 3 * M, w_a + hoff, dst, ldh, csum,
                                  csum + kWarps * ldc, ldc);
         else
           wg_bwd<1, kMask, kTop>(st, maps, d, g, ldh, n_red, W, act, ldw,
-                                 graw + 3 * M, w_a, dst, ldh, csum,
+                                 graw + 3 * M, w_a + hoff, dst, ldh, csum,
                                  csum + kWarps * ldc, ldc);
         __syncthreads();
         for (int j = threadIdx.x; j < W; j += kThreads) {
           pb[bias_off + j] += wg_colsum(csum, ldc, j, nbh);
-          if (kTop) ph[j] += wg_colsum(csum + kWarps * ldc, ldc, j, nbh);
+          if (kTop)
+            ph[hoff + j] += wg_colsum(csum + kWarps * ldc, ldc, j, nbh);
         }
         save_rows<M>(dst, ldh, W, ws, ldw, prow, ws_col);
         __syncthreads();
@@ -733,6 +784,9 @@ struct GemmProb {
   long long dst;
 };
 
+// V1: at a head skip the feature layer's dW is two problems, its pe rows
+// and its h rows, as a post-skip trunk layer's.
+template <bool V1 = false>
 __host__ __device__ inline int gemm_probs(const Dims& d, GemmProb* p) {
   const Cols cl(d);
   const int W = d.width, P = d.P;
@@ -748,11 +802,14 @@ __host__ __device__ inline int gemm_probs(const Dims& d, GemmProb* p) {
       p[k++] = GemmProb{a, W, g, W, o};
     }
   }
+  const long long wf = (long long)d.w_feature();
+  const int hoff = d.head_rows<V1>() - W;
+  if (hoff) p[k++] = GemmProb{cl.pe, P, cl.gfeat, W, wf};
   p[k++] = GemmProb{cl.act + (d.depth - 1) * W, W, cl.gfeat, W,
-                    (long long)d.w_feature()};
-  p[k++] = GemmProb{cl.feat, W, cl.ghv, d.half, (long long)d.w_views()};
-  p[k++] = GemmProb{cl.ve, d.V, cl.ghv, d.half,
-                    (long long)d.w_views() + (long long)W * d.half};
+                    wf + (long long)hoff * W};
+  const long long wv = (long long)d.w_views<V1>();
+  p[k++] = GemmProb{cl.feat, W, cl.ghv, d.half, wv};
+  p[k++] = GemmProb{cl.ve, d.V, cl.ghv, d.half, wv + (long long)W * d.half};
   return k;
 }
 
@@ -766,10 +823,11 @@ struct GemmTile {
 constexpr int kTileK = 128, kTileN = 256;
 
 // The number of tiles; with `out`, tile t of them.
+template <bool V1 = false>
 __host__ __device__ inline int gemm_tiles(const Dims& d, int t,
                                           GemmTile* out) {
   GemmProb p[kMaxProbs];
-  const int np = gemm_probs(d, p);
+  const int np = gemm_probs<V1>(d, p);
   int count = 0;
   for (int q = 0; q < np; ++q) {
     const int mt = (p[q].K + kTileK - 1) / kTileK;
@@ -797,6 +855,7 @@ constexpr size_t kGemmSmem = (size_t)kGemmStages * kStageBytes + 1024;
 // Block u: tile u % n_tiles over the point range u / n_tiles (slabs
 // [s per_split, (s + 1) per_split)); its partial goes to split copy s of
 // gpart ([splits, w_mat], the packed dW layout).
+template <bool V1>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     dw_gemm_kernel(const __grid_constant__ CUtensorMap map, Dims d,
                    int n_tiles, int slabs, int per_split, float* gpart,
@@ -807,7 +866,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       (reinterpret_cast<uintptr_t>(gsm_raw) + 1023) & ~(uintptr_t)1023);
   const int t = blockIdx.x % n_tiles, s = blockIdx.x / n_tiles;
   GemmTile tile;
-  gemm_tiles(d, t, &tile);
+  gemm_tiles<V1>(d, t, &tile);
   const int slab0 = s * per_split;
   const int ns = max(0, min(slabs, slab0 + per_split) - slab0);
   const int wg = threadIdx.x / 128;
@@ -913,11 +972,11 @@ __global__ void level_reduce(const float* __restrict__ gpart, int splits,
 // The legacy plan (train_block, its dW in the walk) in the nine slots of
 // level_plan: blocks, workspace elements, partial floats per block,
 // shared memory, points per chunk, then 0 for the GEMM and the walk kind.
-template <typename T, typename K>
+template <typename T, bool V1 = false, typename K>
 int legacy_level_plan(K kernel, int mode, int n_rays, int seg,
                       const Dims& d, long long* out) {
   long long pl[4];
-  const int err = plan<T>(kernel, mode, n_rays * seg, seg, d, pl);
+  const int err = plan<T, V1>(kernel, mode, n_rays * seg, seg, d, pl);
   if (err) return err;
   out[0] = pl[0];
   out[1] = pl[0] * pl[1];
@@ -935,16 +994,18 @@ int legacy_level_plan(K kernel, int mode, int n_rays, int seg,
 // split, and 1: the level walk runs. A width over 256 (the weight ring's
 // columns) or a shared memory that cannot hold the ring takes the legacy
 // walk of the other train kernels instead (train_block with its dW pass,
-// out[8] = 0).
-template <typename K>
+// out[8] = 0). L: the streams' layout (row-major staging counts in the
+// shared memory); V1: the v1 kernels' heads.
+template <typename L = ColMajor, bool V1 = false, typename K>
 int level_plan(K walk, K legacy, int mode, int n_rays, int seg,
                const Dims& d, long long* out) {
-  if (d.width % 16 || d.half % 16 || 2 * d.depth + 2 > kMaxProbs)
+  if (d.width % 16 || d.half % 16 ||
+      2 * d.depth + 2 + (V1 && d.head_skip()) > kMaxProbs)
     return (int)cudaErrorInvalidValue;
   const int r_max = max(1, kChunk / seg);
-  const size_t smem_max = level_smem(d, pad64(r_max * seg));
+  const size_t smem_max = level_smem(d, pad64(r_max * seg), L::kRow);
   if (d.width > kTileN || d.half > kTileN || smem_max > 232448)
-    return legacy_level_plan<bf16>(legacy, mode, n_rays, seg, d, out);
+    return legacy_level_plan<bf16, V1>(legacy, mode, n_rays, seg, d, out);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -971,22 +1032,22 @@ int level_plan(K walk, K legacy, int mode, int n_rays, int seg,
   const int cpts = best_r * seg, rows = pad64(cpts);
   const long long n_chunks = (n_rays + best_r - 1) / best_r;
   const long long slabs = n_chunks * rows / kSlab;
-  const int tiles = gemm_tiles(d, -1, nullptr);
+  const int tiles = gemm_tiles<V1>(d, -1, nullptr);
   long long splits = std::max(1LL, std::min(slabs, (4LL * sms + tiles - 1) /
                                                        tiles));
   const long long per_split = (slabs + splits - 1) / splits;
   splits = (slabs + per_split - 1) / per_split;
-  err = cudaFuncSetAttribute(dw_gemm_kernel,
+  err = cudaFuncSetAttribute(dw_gemm_kernel<V1>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   out[0] = std::min(n_chunks, grid);
   out[1] = n_chunks * rows * Cols(d).total;
-  out[2] = (d.width + 3 * d.half + d.b_total() + 63) / 64 * 64;
-  out[3] = (long long)level_smem(d, rows);
+  out[2] = (d.head_rows<V1>() + 3 * d.half + d.b_total<V1>() + 63) / 64 * 64;
+  out[3] = (long long)level_smem(d, rows, L::kRow);
   out[4] = cpts;
   out[5] = splits;
-  out[6] = splits * (long long)d.w_alpha();
+  out[6] = splits * (long long)d.w_alpha<V1>();
   out[7] = per_split;
   out[8] = 1;
   return 0;
@@ -994,13 +1055,13 @@ int level_plan(K walk, K legacy, int mode, int n_rays, int seg,
 
 // After the walk: the dW GEMM over its workspace, then the reduction of
 // its split partials and the walk's block partials into dw.
-inline int level_dw(const Dims& d, const long long* pl, bf16* ws,
-                    float* part, float* gpart, float* dw,
-                    cudaStream_t stream) {
+template <bool V1 = false>
+int level_dw(const Dims& d, const long long* pl, bf16* ws, float* part,
+             float* gpart, float* dw, cudaStream_t stream) {
   const long long rows = pl[1] / Cols(d).total;
   const int splits = (int)pl[5], per_split = (int)pl[7];
-  const int tiles = gemm_tiles(d, -1, nullptr);
-  const long long w_mat = (long long)d.w_alpha();
+  const int tiles = gemm_tiles<V1>(d, -1, nullptr);
+  const long long w_mat = (long long)d.w_alpha<V1>();
   EncodeTiled encode = tensor_map_encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   CUtensorMap map;
@@ -1014,12 +1075,12 @@ inline int level_dw(const Dims& d, const long long* pl, bf16* ws,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   // ---- the dW GEMM ----
-  dw_gemm_kernel<<<tiles * splits, kGemmThreads, kGemmSmem, stream>>>(
+  dw_gemm_kernel<V1><<<tiles * splits, kGemmThreads, kGemmSmem, stream>>>(
       map, d, tiles, (int)(rows / kSlab), per_split, gpart, w_mat);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // ---- end of the dW GEMM ----
-  const int total = (int)(d.w_total() + d.b_total());
+  const int total = (int)(d.w_total<V1>() + d.b_total<V1>());
   level_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       gpart, splits, w_mat, part, (int)pl[0], pl[2], total, dw);
   return (int)cudaGetLastError();
@@ -1029,15 +1090,15 @@ inline int level_dw(const Dims& d, const long long* pl, bf16* ws,
 // = 1; the weight maps made here) then the dW GEMM and the reduction, or
 // `legacy` (train_block with its dW pass) then the reduction of its block
 // partials. Both kernels take (lead..., w, b, ws, part, part_stride, cpts,
-// d, maps).
-template <typename T, typename K, typename... Lead>
+// d, maps). V1: the v1 kernels' packed layout.
+template <typename T, bool V1 = false, typename K, typename... Lead>
 int level_launch(K walk, K legacy, const long long* pl, const Dims& d,
                  const void* w, const void* b, void* ws, void* part,
                  void* gpart, void* dw, cudaStream_t stream, Lead... lead) {
   WMaps maps = {};
   K kernel = legacy;
   if (pl[8]) {
-    const int err = weight_maps(d, static_cast<const bf16*>(w), &maps);
+    const int err = weight_maps<V1>(d, static_cast<const bf16*>(w), &maps);
     if (err) return err;
     kernel = walk;
   }
@@ -1048,10 +1109,11 @@ int level_launch(K walk, K legacy, const long long* pl, const Dims& d,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (pl[8])
-    return level_dw(d, pl, static_cast<bf16*>(ws), static_cast<float*>(part),
-                    static_cast<float*>(gpart), static_cast<float*>(dw),
-                    stream);
-  const int total = (int)(d.w_total() + d.b_total());
+    return level_dw<V1>(d, pl, static_cast<bf16*>(ws),
+                        static_cast<float*>(part),
+                        static_cast<float*>(gpart), static_cast<float*>(dw),
+                        stream);
+  const int total = (int)(d.w_total<V1>() + d.b_total<V1>());
   mlp_train_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), (int)pl[0], (size_t)pl[2], total,
       static_cast<float*>(dw));

@@ -3,7 +3,7 @@
 //
 // These kernels include this header, each with an encoder policy
 // (mlp_common.cuh: NerfEnc or MipEnc); the bf16 path of modes 3 and 4
-// and of the transposed mode-2 kernels (#2, #7) at widths up to 256 runs
+// and of the mode-2 kernels #2, #7, #11 and #14 at widths up to 256 runs
 // level_train.cuh's walk instead (wgmma products, the dW as a GEMM over
 // the launch), their fp32 path this one:
 //   fused_mlp_bwd.cu      (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::

@@ -198,6 +198,30 @@ def v1_smem_bytes(packed) -> tuple:
     return fwd, max(train, K_DW_STAGE_BYTES if bf16 else 0)
 
 
+# The level walk's weight ring under its names in csrc/level_train.cuh:
+# kWStages slots of kWStage bytes (four 64 x 64 bf16 boxes), 1024-byte
+# aligned.
+K_WSTAGES = 3
+K_WSTAGE = 4 * 64 * 64 * 2
+
+
+def walk_smem_bytes(packed, rows: int) -> int:
+    """Dynamic shared memory of one block of the bf16 level walk that #14
+    (and #11) runs on row-major streams, `csrc/level_train.cuh::
+    level_smem`, for chunks of `rows` rows (a multiple of 64): the weight
+    ring, the 64-point tiles, the per-chunk rows, the column-sum partials
+    and the tile's staged points (9 x 64 floats). The plan takes the walk
+    where this is at most SMEM_LIMIT at 768-row chunks."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    p, v = (v2._pad16(x) for x in v2.enc_widths(
+        "pe", packed.multires, packed.multires_views))
+    act, m = max(packed.width, packed.view_width), 64
+    elems = m * (p + K_PAD) + m * (v + K_PAD) + 2 * m * (act + K_PAD)
+    floats = 4 * m + 5 * rows + 2 * K_WARPS * act + 9 * m
+    return K_WSTAGES * K_WSTAGE + 1024 + 2 * elems + 4 * floats
+
+
 def pack_v1(weights: Sequence[torch.Tensor], net_depth: int, skips,
             multires: int, multires_views: int, compute_dtype,
             use_viewdirs: bool = True):

@@ -21,8 +21,10 @@ parameters in the NeRF step, run_nerf_view.py:527).
 `fused_mlp.v1_forward`), #14 `csrc/fused_mlp_v1_bwd.cu`; both are the
 port's shared walks under the row-major layout, with v1's shapes (heads on
 [pe | h] after a skip at the last trunk layer, PE degrees past the TPU v2
-kernel's 20-frequency register). #14 reduces dW deterministically:
-per-block partials summed in block order, no atomics. The TPU kernel's
+kernel's 20-frequency register). #14 in bf16 runs #11's level walk and dW
+GEMM (`csrc/level_train.cuh`, nine-slot plan, a `gpart` buffer), in fp32
+`train_block`; both reduce dW deterministically, in a fixed order with no
+atomics. The TPU kernel's
 128-lane output padding (`out_lanes`) is a Mosaic relayout device and is
 not carried over. On CPU tensors the ops run the plain versions
 `plain_forward` (`_forward_tile`'s output: `fused_mlp._mlp_body`) and

@@ -580,10 +580,11 @@ def _check_weights(packed: PackedMLP, device):
 
 
 def check_tma_weights(packed: PackedMLP):
-    """The bf16 forwards #1 and #6 read the packed weights by TMA
-    (`csrc/fwd_hopper.cuh`): the buffer's base and the row strides of its
-    two weight maps (2 width and 2 view_width bytes) must be multiples of
-    16 bytes."""
+    """The bf16 forwards #1 and #6 (`csrc/fwd_hopper.cuh`) and the level
+    walk of the weight grads (`csrc/level_train.cuh`) read the packed
+    weights by TMA: the buffer's base and the row strides of its two
+    weight maps (2 width and 2 view_width bytes) must be multiples of 16
+    bytes."""
     if packed.compute_dtype != torch.bfloat16:
         return
     if (packed.w.data_ptr() % 16 or (2 * packed.width) % 16
@@ -615,11 +616,17 @@ def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
                      (n, *_cfg_ints(packed), int(row)))
 
 
+# The weight-grad kernels whose plan keeps train_block's four slots: the
+# row-major mip twin #16. Every other one (#2, #7, #11, #14) fills the
+# nine slots of `csrc/level_train.cuh::level_plan` and takes `gpart`.
+FOUR_SLOT_PLANS = frozenset({"fused_mip_bwd_row"})
+
+
 def train_buffers(plan_fn, args, packed: PackedMLP, device):
     """Workspace, per-block partials and the packed-grad output of one
     launch of a kernel on train_block's four-slot plan (blocks, workspace
     elements per block, partial floats per block, shared memory): the
-    row-major #11 / #16 and the v1 kernel #14."""
+    row-major mip twin #16."""
     out = (ctypes.c_longlong * 4)()
     err = plan_fn(*args, out)
     if err != 0:
@@ -636,10 +643,10 @@ def train_buffers(plan_fn, args, packed: PackedMLP, device):
 def level_buffers(plan_fn, args, packed: PackedMLP, device):
     """Workspace, per-block partials, dW-GEMM split partials and the
     packed-grad output of one launch of a kernel on `level_train.cuh`'s
-    nine-slot plan (#2, #3, #5, #7), sized by the kernel's own plan
-    (blocks, workspace elements, partial floats per block, shared memory,
-    points per chunk, splits, split partial floats, slabs per split, 1 for
-    the level walk). The level walk's workspace holds a row of every
+    nine-slot plan (#2, #3, #5, #7, #11, #14), sized by the kernel's own
+    plan (blocks, workspace elements, partial floats per block, shared
+    memory, points per chunk, splits, split partial floats, slabs per
+    split, 1 for the level walk). The level walk's workspace holds a row of every
     point of the launch (~9.9 KB a point at 8x256)."""
     out = (ctypes.c_longlong * 9)()
     err = plan_fn(*args, out)
@@ -711,18 +718,19 @@ def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
     """Launch a weight-grad kernel on checked CUDA streams and cotangent g
     ([4, N], or [N, 4] with `row`), its buffers sized by its
     `{symbol}_plan`: (the torch-layout grads, whether a kernel was
-    launched: not for N = 0). The transposed kernels read the bf16
-    weights by TMA."""
+    launched: not for N = 0). The kernels on the nine-slot plan read the
+    bf16 weights by TMA."""
     n, dev = g.shape[0 if row else 1], g.device
     n_w, n_b = grad_numel(packed)
     if n == 0:
         zeros = torch.zeros(n_w + n_b, device=dev)
         return unpack_grads(packed, zeros[:n_w], zeros[n_w:]), False
-    if not row:
+    # The nine-slot plan's buffers are (ws, part, gpart, dw), the four-slot
+    # one's (ws, part, dw): the C entry points take them in that order.
+    four = symbol in FOUR_SLOT_PLANS
+    if not four:
         check_tma_weights(packed)
-    # The transposed kernels #2 and #7 take the nine-slot plan (ws, part,
-    # gpart, dw), the row-major #11, #16 and #14 the four-slot one.
-    sizer = train_buffers if row else level_buffers
+    sizer = train_buffers if four else level_buffers
     bufs = sizer(_entry(lib, symbol + "_plan", 0, 1 + len(cfg_args)),
                  (n, *cfg_args), packed, dev)
     ptrs = [t.data_ptr() for t in streams] + [

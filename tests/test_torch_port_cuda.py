@@ -6,8 +6,9 @@ kernels on the same points), with the two-call step's launches, the v1
 kernels #12-#14 with the v1 routes' launches, the hard masks on the
 card against the CPU, the bf16 Hopper walk of #1 and #6
 (`csrc/fwd_hopper.cuh`): its plans, ragged sizes and widths, repeats and
-the alignment its weight loads need, and #2 and #7 on the level walk of
-`csrc/level_train.cuh`: their plans and ragged sizes.
+the alignment its weight loads need, and #2, #7, #11 and #14 on the
+level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
+bit for bit against #2 and #14 against #11 on the same points.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -699,10 +700,9 @@ def test_switched_renders_go_through_the_kernels(cuda_device):
 def test_row_kernels_match_plain_and_transposed(cuda_device, dtype):
     """#10 and #11 ([N, 3] streams) against their plain versions, and
     against #1 and #2 on the same points (n = 3000: ragged tiles and
-    chunks): #10 and #1 give the same bits; #11 and #2 too in fp32 (the
-    same walk), in bf16 #2 runs the level walk, whose fp32 sums take
-    another order (so both are held as each is against the packed
-    walk)."""
+    chunks): #10 and #1 give the same bits, and so do #11 and #2 (the
+    same walk in each dtype: in bf16 the level walk, whose row-major
+    staging changes no value and no sum order)."""
     flat = _mlp_flat(256, cuda_device)
     n = 3000
     pts_T, views_T = _inputs(n, cuda_device)
@@ -726,10 +726,74 @@ def test_row_kernels_match_plain_and_transposed(cuda_device, dtype):
                                      MV, dtype).T)
     grads_T = v2.bwd_T(packed, pts_T, views_T, g.T.contiguous(), 8, SKIPS,
                        MR, MV, dtype)
-    if dtype == "float32":
-        assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
-    else:
-        assert _rel(grads, grads_T) < TRAIN_TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RAGGED_BWD_N)
+@pytest.mark.parametrize("kernel", ["v2row", "v1"])
+def test_row_bwd_kernels_at_ragged_sizes(cuda_device, kernel, n):
+    """#11 and #14 in bf16 at 8x256 (the level walk in mode 2 on row-major
+    streams) at the ragged sizes of #2: within the tolerance of the packed
+    walk, a second launch bit-identical to the first, #11 bit-identical to
+    #2 on the transposed points and #14 to #11 (at this shape v1's heads
+    read h alone, so the offsets are #11's)."""
+    flat = _mlp_flat(256, cuda_device)
+    pts_T, views_T = _inputs(n, cuda_device, seed=n)
+    pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
+    g = torch.randn(n, 4, generator=torch.Generator().manual_seed(5)).to(
+        cuda_device)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
+
+    def run():
+        if kernel == "v2row":
+            return v2.bwd(packed, pts, views, g, 8, SKIPS, MR, MV,
+                          "bfloat16")
+        return fmt.backward(fm.pack_v1(flat, 8, SKIPS, MR, MV, "bfloat16"),
+                            pts, views, g, 8, SKIPS, MR, MV, "bfloat16")
+    got = run()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)
+    want = v2.packed_bwd_reference_T(packed, pts_T, views_T,
+                                     g.T.contiguous())
+    assert _rel(got, want) < TRAIN_TOL["bfloat16"]
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    twin = (v2.bwd_T(packed, pts_T, views_T, g.T.contiguous(), 8, SKIPS,
+                     MR, MV, "bfloat16") if kernel == "v2row" else
+            v2.bwd(packed, pts, views, g, 8, SKIPS, MR, MV, "bfloat16"))
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
+
+
+@pytest.mark.cuda
+def test_row_bwd_plans_pick_the_level_walk(cuda_device):
+    """The bf16 plans of #11 and #14 run the level walk at the two-call
+    step's levels (983,040 and 327,680 points) with #2's grid and chunks
+    and the row-major staging's 9 x 64 floats more shared memory; #14's
+    also at a depth-5 skip into the heads and at multires 21; fp32 keeps
+    train_block."""
+    import ctypes
+
+    def plan(symbol, lib, n, depth=8, mr=MR, bf16=1):
+        out = (ctypes.c_longlong * 9)()
+        fn = v2._entry(lib, symbol + "_plan", 0, 7)
+        assert fn(n, depth, 256, 1 << SKIPS[0], mr, MV, bf16, out) == 0
+        return list(out)
+    for n in (983_040, 327_680):
+        p2 = plan(v2.BWD_KERNEL, v2.BWD_KERNEL, n)
+        for symbol, lib in ((v2.ROW_BWD_KERNEL, v2.BWD_KERNEL),
+                            (fmt.BWD_KERNEL, fmt.BWD_KERNEL)):
+            p = plan(symbol, lib, n)
+            assert p[8] == 1
+            assert p[3] == p2[3] + 9 * 64 * 4
+            assert p[:3] + p[4:] == p2[:3] + p2[4:]
+            assert plan(symbol, lib, n, bf16=0)[8] == 0
+    for depth, mr in ((5, MR), (8, 21)):
+        p = plan(fmt.BWD_KERNEL, fmt.BWD_KERNEL, 100_003, depth, mr)
+        assert p[8] == 1
+        packed = fm.pack_v1(
+            _v1_flat(depth, SKIPS, mr, MV, True, cuda_device), depth, SKIPS,
+            mr, MV, "bfloat16")
+        assert p[3] == fm.walk_smem_bytes(packed, -(-p[4] // 64) * 64)
 
 
 @pytest.mark.cuda

@@ -1,15 +1,17 @@
 """The weight-grad wrappers' buffers and C calls, on the CPU.
 
 The transposed kernels #2 and #7 (`csrc/fused_mlp_bwd.cu`,
-`csrc/fused_mip_bwd.cu`) run `level_train.cuh`'s walk and dW GEMM: their
-plans fill nine slots and their entry points take a split-partial buffer
-(`gpart`) after the block partials. The row-major twins #11 and #16 and
-the v1 kernel #14 keep `train_block`'s four-slot plan and no `gpart`. A
+`csrc/fused_mip_bwd.cu`), the row-major #11 (`fused_mlp_bwd_row`) and the
+v1 kernel #14 (`csrc/fused_mlp_v1_bwd.cu`) run `level_train.cuh`'s walk
+and dW GEMM: their plans fill nine slots and their entry points take a
+split-partial buffer (`gpart`) after the block partials. The row-major
+mip twin #16 keeps `train_block`'s four-slot plan and no `gpart`. A
 nine-slot plan written into a four-slot array corrupts memory without an
-error, so the wrappers' side of each call is held here with fake entry
-points in place of the kernel library: the plan array's length, the
-buffers' sizes against the plan's slots, and the pointer and int counts
-against the `extern "C"` declarations in the committed sources.
+error, and a wrong argument count passes garbage pointers without one,
+so the wrappers' side of each call is held here with fake entry points
+in place of the kernel library: the plan array's length, the buffers'
+sizes against the plan's slots, and the pointer and int counts against
+the `extern "C"` declarations in the committed sources.
 """
 
 import re
@@ -168,32 +170,77 @@ def test_transposed_mlp_backward_sizes_from_nine_slots(fake, dtype):
                 g, packed, PLAN9)
 
 
-def test_rowmajor_mlp_backward_sizes_from_four_slots(fake):
-    """#11 keeps train_block's four-slot plan and no split partials."""
-    lib, bufs = fake(PLAN4)
-    packed = _nerf_packed("bfloat16")
+@pytest.mark.parametrize("kernel", ["v2row", "v1"])
+def test_row_major_backward_sizes_from_nine_slots(fake, kernel):
+    """#11 (`fused_mlp_bwd_row`) and #14 (`fused_mlp_v1_bwd`) on the
+    nine-slot plan: four buffers (ws, part, gpart, dw), and the pointer
+    and int counts of their C declarations, 9 pointers (pts, views, g,
+    w, b and the buffers) and 7 ints."""
+    lib, bufs = fake(PLAN9)
+    packed = _nerf_packed("bfloat16", v1=kernel == "v1")
     (pts, views), g = _streams(2, row=True)
-    v2.dw_launch(v2.BWD_KERNEL, v2.ROW_BWD_KERNEL, packed, pts, views, g,
-                 row=True)
-    _check_call(lib, bufs, v2.ROW_BWD_KERNEL, "fused_mlp_bwd.cu",
-                (pts, views), g, packed, PLAN4)
+    lib_name, symbol, source = (
+        (v2.BWD_KERNEL, v2.ROW_BWD_KERNEL, "fused_mlp_bwd.cu")
+        if kernel == "v2row" else
+        (fmt.BWD_KERNEL, fmt.BWD_KERNEL, "fused_mlp_v1_bwd.cu"))
+    grads, launched = v2.dw_launch(lib_name, symbol, packed, pts, views, g,
+                                   row=True)
+    assert launched and len(grads) == len(packed.flat)
+    _check_call(lib, bufs, symbol, source, (pts, views), g, packed, PLAN9)
+    assert c_signature(source, symbol) == (9, 7)
+    assert c_signature(source, symbol + "_plan") == (0, 7)
 
 
-def test_v1_backward_sizes_from_four_slots(fake):
-    """#14 (`fused_mlp_v1_bwd.cu`) keeps its four-slot plan."""
-    lib, bufs = fake(PLAN4)
-    packed = _nerf_packed("bfloat16", v1=True)
-    (pts, views), g = _streams(2, row=True)
-    v2.dw_launch(fmt.BWD_KERNEL, fmt.BWD_KERNEL, packed, pts, views, g,
-                 row=True)
-    _check_call(lib, bufs, fmt.BWD_KERNEL, "fused_mlp_v1_bwd.cu",
-                (pts, views), g, packed, PLAN4)
+def test_every_weight_grad_entry_takes_the_buffers_of_its_plan():
+    """Each weight-grad entry point in the committed sources takes gpart
+    exactly when `grad_launch` sizes it by the nine-slot plan: every one
+    but those in `FOUR_SLOT_PLANS` (#16)."""
+    entries = {"fused_mlp_bwd.cu": ("fused_mlp_bwd", "fused_mlp_bwd_row"),
+               "fused_mip_bwd.cu": ("fused_mip_bwd", "fused_mip_bwd_row"),
+               "fused_mlp_v1_bwd.cu": ("fused_mlp_v1_bwd",)}
+    assert v2.FOUR_SLOT_PLANS == {fmip.ROW_BWD_KERNEL}
+    for source, symbols in entries.items():
+        text = (CSRC / source).read_text()
+        for symbol in symbols:
+            m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text,
+                          re.S)
+            takes_gpart = "void* gpart" in m.group(1)
+            assert takes_gpart == (symbol not in v2.FOUR_SLOT_PLANS), symbol
+
+
+# Slot 3 of #14's bf16 plan as chip_smoke.py printed it on an H100 (132
+# SMs) at 8x256, multires / multires_views, for the chunk rows it picked:
+# (multires, rows) -> bytes.
+CARD_WALK_SMEM = {(10, 576): 212_480, (10, 192): 204_800,
+                  (21, 576): 222_720}
+
+
+@pytest.mark.parametrize("multires", [10, 21])
+def test_the_level_walk_holds_the_v1_shapes(multires):
+    """The bf16 walk of #11 and #14 (with the row-major staging) fits a
+    block's shared memory at 8x256 with 768-point chunks at multires 10
+    (the main path) and 21, and at a depth-5 skip into the heads, so the
+    plans pick it there; from multires 29 only train_block still fits.
+    The wrapper's figure is the kernel's plan as the card reported it."""
+    for depth in (8, 5):
+        mlp = NeRFMLP(net_depth=depth, input_ch=3 * (1 + 2 * multires),
+                      skips=(4,))
+        packed = fm.pack_v1(fm.flatten_params(mlp, True, depth), depth,
+                            (4,), multires, 4, "bfloat16")
+        assert fm.walk_smem_bytes(packed, 768) <= fm.SMEM_LIMIT
+        for (mr, rows), card in CARD_WALK_SMEM.items():
+            if mr == multires:
+                assert fm.walk_smem_bytes(packed, rows) == card
+    mlp = NeRFMLP(input_ch=3 * (1 + 2 * 29))
+    packed = fm.pack_v1(fm.flatten_params(mlp), 8, (4,), 29, 4, "bfloat16")
+    assert fm.walk_smem_bytes(packed, 768) > fm.SMEM_LIMIT
+    assert fm.v1_smem_bytes(packed)[1] <= fm.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("row", [False, True])
 def test_mip_backward_sizes_from_its_plan(fake, row):
     """#7 on the nine-slot plan, #16 on the four-slot one, through the
-    call that `fused_mip._bwd` makes."""
+    call that `fused_mip._bwd` makes (#16 keeps train_block)."""
     slots = PLAN4 if row else PLAN9
     lib, bufs = fake(slots)
     packed = _mip_packed("bfloat16")

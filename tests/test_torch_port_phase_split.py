@@ -1,7 +1,8 @@
 """tools/torch_phase_split.py's patching of the level kernels' header and
 of the forward walk's.
 
-The tool times #3 and #5 (and #2 and #7, the same walk in mode 2) with
+The tool times #3 and #5 (and #2, #7, #11 and #14, the same walk in mode
+2) with
 their phases cut out by preprocessor guards that it writes into a copy
 of `csrc/level_train.cuh` at string anchors, and #1 and #6 likewise
 with a copy of `csrc/fwd_hopper.cuh` (the heads, the encoding, the
@@ -54,12 +55,36 @@ def test_the_weight_grad_kernels_are_split_with_the_levels(tmp_path):
     for name, text in tps.patched_sources(CSRC).items():
         (tmp_path / name).write_text(text)
     header = (tmp_path / tps.HEADER).read_text()
-    for source in ("fused_mlp_bwd.cu", "fused_mip_bwd.cu"):
+    for source in ("fused_mlp_bwd.cu", "fused_mip_bwd.cu",
+                   "fused_mlp_v1_bwd.cu"):
         assert source in tps.SOURCES
         assert f'#include "{tps.HEADER}"' in (tmp_path / source).read_text()
     load = header.index("craw[e] = p < valid ? gin[")
     forward = header.rindex("// ---- forward over sub-tiles", 0, load)
     assert forward < load < header.index("#ifndef PHASE_NO_BWD")
+
+
+def test_the_row_major_weight_grads_are_split_with_the_levels(tmp_path):
+    """#11 (`fused_mlp_bwd_row`) and #14 run the level walk on row-major
+    streams: #14's source is built from the patched header beside #2's,
+    the row-major cotangent read (a point's 4 floats) sits, like the
+    transposed one, between the forward and the guarded backward, and
+    the two-call fine level where the tool splits #2, #11 and #14 on the
+    same points is 5120 rays x 192 samples."""
+    for name, text in tps.patched_sources(CSRC).items():
+        (tmp_path / name).write_text(text)
+    header = (tmp_path / tps.HEADER).read_text()
+    v1 = (tmp_path / "fused_mlp_v1_bwd.cu").read_text()
+    assert f'#include "{tps.HEADER}"' in v1
+    assert "level_walk<2, mlp::NerfEnc, mlp::RowMajor, HS>" in v1
+    assert "level_walk<2, mlp::NerfEnc, L>" in (
+        tmp_path / "fused_mlp_bwd.cu").read_text()
+    load = header.index("craw[3 * rows + p] = v.w;")
+    forward = header.rindex("// ---- forward over sub-tiles", 0, load)
+    assert forward < load < header.index("#ifndef PHASE_NO_BWD")
+    assert header.index("craw[e] = p < valid ? gin[") < header.index(
+        "#ifndef PHASE_NO_BWD")
+    assert tps.TWOCALL_FINE == 983_040
 
 
 @pytest.mark.parametrize("anchor", [

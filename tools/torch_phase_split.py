@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
 """Where the train kernels on `csrc/level_train.cuh` (the one-pass levels
-#3 and #5, the weight grads #2 and #7) and the bf16 forwards #1 and #6
-spend their time, on one CUDA card.
+#3 and #5, the weight grads #2, #7, #11 and #14) and the bf16 forwards #1
+and #6 spend their time, on one CUDA card.
 
     python3 tools/torch_phase_split.py          # both parts
-    python3 tools/torch_phase_split.py level    # #2, #3, #5 and #7 only
+    python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14
     python3 tools/torch_phase_split.py fwd      # #1 and #6 only
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
-`csrc/fused_mlp_bwd.cu` (#2) and `csrc/fused_mip_bwd.cu` (#7) four times
-from patched copies of `csrc/level_train.cuh` (beside copies of the other
-headers) under `build/phase_split/`: as they are, without the dW GEMM,
-without the dW GEMM and the backward walk, and without those and without
-saving activations to the workspace. Each variant is timed with CUDA
-events at the main path's shapes, bf16, seeded random weights and rays:
-#3 at the flagship step's fine level (4096 rays x 192 samples) and coarse
-level (x 64), #5 at a mip level (3072 rays x 96 samples), #2 at the
-one-pass step's fine patch launch (1024 patch rays x 192 samples) and #7
-at a mip patch level (1024 x 96), with a seeded cotangent; the
-differences are the phases' times (for #2 and #7 "forward" includes
-reading the cotangent). The variants compute wrong grads by construction;
-only the full build is a kernel of the port.
+`csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7) and
+`csrc/fused_mlp_v1_bwd.cu` (#14) four times from patched copies of
+`csrc/level_train.cuh` (beside copies of the other headers) under
+`build/phase_split/`: as they are, without the dW GEMM, without the dW
+GEMM and the backward walk, and without those and without saving
+activations to the workspace. Each variant is timed with CUDA events at
+the main path's shapes, bf16, seeded random weights and rays: #3 at the
+flagship step's fine level (4096 rays x 192 samples) and coarse level
+(x 64), #5 at a mip level (3072 rays x 96 samples), #2 at the one-pass
+step's fine patch launch (1024 patch rays x 192 samples), #7 at a mip
+patch level (1024 x 96), and #2, #11 and #14 on the same points of the
+two-call step's fine level (5120 rays x 192 samples: [3, N] streams for
+#2, their [N, 3] transposes for #11 and #14), with a seeded cotangent;
+the differences are the phases' times (for the weight grads "forward"
+includes reading the cotangent). The variants compute wrong grads by
+construction; only the full build is a kernel of the port.
 
 The forward part builds `csrc/fused_mlp_fwd.cu` (#1) and
 `csrc/fused_mip_fwd.cu` (#6) four times from patched copies of
@@ -47,7 +50,10 @@ SOURCE_DIR = REPO / "consistentnerf_tpu_torch" / "csrc"
 
 HEADER = "level_train.cuh"
 SOURCES = ("onepass_level.cu", "onepass_mip_level.cu", "fused_mlp_bwd.cu",
-           "fused_mip_bwd.cu")
+           "fused_mip_bwd.cu", "fused_mlp_v1_bwd.cu")
+# Points of the two-call step's fine level (5120 rays x 192 samples),
+# where #2, #11 and #14 are split on the same points.
+TWOCALL_FINE = 5120 * 192
 VARIANTS = {
     "full": [],
     "no_dw": ["-DPHASE_NO_DW"],
@@ -258,6 +264,7 @@ def main() -> None:
     from consistentnerf_tpu_torch.ops import _build
     from consistentnerf_tpu_torch.ops import fused_mip as fmip
     from consistentnerf_tpu_torch.ops import fused_mlp as fm
+    from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
     from consistentnerf_tpu_torch.ops import fused_onepass as op
 
@@ -322,6 +329,13 @@ def main() -> None:
     n_mpatch = 1024 * seg
     m_g = (1e-3 * torch.randn(4, n_mpatch, generator=g)).to(dev)
     m_streams = [x[:, :n_mpatch].contiguous() for x in (means, covs, views)]
+    n_tc = TWOCALL_FINE
+    tc_pts = (torch.rand(3, n_tc, generator=g) * 4 - 2).to(dev)
+    tc_views = torch.randn(3, n_tc, generator=g)
+    tc_views = (tc_views / tc_views.norm(dim=0, keepdim=True)).to(dev)
+    tc_g = (1e-3 * torch.randn(4, n_tc, generator=g)).to(dev)
+    tc_row = [x.T.contiguous() for x in (tc_pts, tc_views, tc_g)]
+    packed_v1 = fm.pack_v1(packed.flat, 8, (4,), 10, 4, "bfloat16")
     cases = {
         f"#3 fine ({4096 * 192} points)": vanilla(4096, 192),
         f"#3 coarse ({4096 * 64} points)": vanilla(4096, 64),
@@ -333,6 +347,12 @@ def main() -> None:
             packed, p_pts, p_views, p_g, 8, (4,), 10, 4, "bfloat16"),
         f"#7 patch level ({n_mpatch} points)": lambda: fmip.bwd_T(
             mpacked, *m_streams, m_g, 8, 16, "bfloat16"),
+        f"#2 two-call fine ({n_tc} points)": lambda: v2.bwd_T(
+            packed, tc_pts, tc_views, tc_g, 8, (4,), 10, 4, "bfloat16"),
+        f"#11 two-call fine ({n_tc} points)": lambda: v2.bwd(
+            packed, *tc_row, 8, (4,), 10, 4, "bfloat16"),
+        f"#14 two-call fine ({n_tc} points)": lambda: fmt.backward(
+            packed_v1, *tc_row, 8, (4,), 10, 4, "bfloat16"),
     }
 
     base_flags = list(_build.NVCC_FLAGS)
@@ -355,7 +375,8 @@ def main() -> None:
               f"{t_['full'] - t_['no_dw']:.3f} ms, backward walk "
               f"{t_['no_dw'] - t_['fwd_saves']:.3f} ms, workspace saves "
               f"{t_['fwd_saves'] - t_['fwd']:.3f} ms, forward and "
-              f"compositing {t_['fwd']:.3f} ms, of {t_['full']:.3f} ms",
+              f"compositing (or the cotangent read) {t_['fwd']:.3f} ms, of "
+              f"{t_['full']:.3f} ms",
               flush=True)
 
 
