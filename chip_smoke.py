@@ -10,7 +10,11 @@ with the launch counts set to 0 just before it and read just after:
 * the bf16 forward walk of #1 and #6 (`csrc/fwd_hopper.cuh`): the plans
   that pick it by shapes, and both kernels at ragged sizes (1, 127, 129
   points and a half-empty last wave) against their plain versions and,
-  bit for bit, against their row-major twins #10 / #15;
+  bit for bit, against their row-major twins #10 / #15; 6n, #6's walk with
+  the normals tail, at the same sizes (rows 0-3 bit for bit #6's, a
+  repeat bit for bit, rows 4-6 against the plain version in bf16 and
+  fp32); the plans of 6n and #4 (the walk with the compositing tail) at
+  the render's shapes, which in bf16 must take the walk;
 * render: the deterministic bf16 render of the 6-view 128x128 synthetic
   scene through `build_render_fn` (full 8x256 model, 64 + 128 samples,
   seeded weights), then the render CLI on two test views;
@@ -31,8 +35,10 @@ with the launch counts set to 0 just before it and read just after:
   random + 4x16x16 MiDaS patch rays, hard mask, depth and MiDaS terms,
   bf16, randomized, the one-pass mip step) for a few steps and a resume;
 * the switched paths: the vanilla render with `use_onepass_render` and
-  `use_pdf_kernel` (kernels #4 and #8), the mip render with
-  `use_pdf_kernel` and `disable_normals=false` (6n and #9), and both
+  `use_pdf_kernel` (kernels #4 and #8; #4 also at 1, 3 and 395 rays of
+  64 and 192 samples, a repeat bit for bit, and its rows 3-5 against the
+  plain compositing of #1's heads), the mip render with `use_pdf_kernel`
+  and `disable_normals=false` (6n and #9; its peak memory), and both
   one-pass steps with `use_pdf_kernel` through the train CLI;
 * the row-major kernels #10 / #11 at the two-call step's shapes and
   #15 / #16 at the mip level (against their plain versions and the
@@ -42,7 +48,8 @@ with the launch counts set to 0 just before it and read just after:
 * the two-call fused step: the flagship with `softLpmask` through the
   train CLI for each `fused_kernel` (v2: #1/#2, v2row: #10/#11, v2h: the
   plain forward and #11), guarded against the eager step and, at the
-  hardmask flagship, against the one-pass step; the v2row render (#10);
+  hardmask flagship, against the one-pass step; the v2row render (#10,
+  and its time a launch at the render chunk's shapes);
 * the mip two-call step (disp metrics) and the one-pass mip step, both
   with the RegNeRF TV norm on 2048 random-pose rays and near/far
   annealing, through the train CLI, guarded against the eager step;
@@ -77,6 +84,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -313,7 +321,10 @@ def ptxas_report(_build, name):
             entry = ("bf16" if "bfloat16" in mangled else
                      "fp32" if "reduce" not in mangled else "reduce")
             if "fwd_hopper_kernel" in mangled:
-                entry = "bf16 Hopper walk " + mangled.split("Enc")[1][:8]
+                args = re.findall(r"Li(\d+)E", mangled.split("Enc")[1])
+                entry = (f"bf16 Hopper walk {args[0]}x64 / {args[1]}x64"
+                         + ("", " normals tail", " render tail")[
+                             int(args[2])])
             if "RowMajor" in mangled:
                 entry += " row-major"
             if "dw_gemm" in mangled:
@@ -514,6 +525,8 @@ def main() -> None:
             f"points) {level_plan_text(out)}; {op.MIP_KERNEL} (3072 x 96) "
             f"{level_plan_text(outo)}")
 
+    tail_plans(fm, v2, fmip, op)
+
     t_phase = time.perf_counter()
     fwd_walk_phases(dev, fm, v2, fmip)
     log(f"forward walk phases: {time.perf_counter() - t_phase:.1f} s")
@@ -576,6 +589,109 @@ def main() -> None:
 RAGGED_N = (1, 127, 129, 198 * 128 - 50)
 
 
+def normals_plan_text(plan):
+    """6n's plan (fused_mip.NORMALS_PLAN_SLOTS) in words."""
+    if plan["hopper"]:
+        return (fwd_plan_text(plan) + ", the masks in registers, no "
+                "workspace")
+    return (f"mode 5 (mlp_train.cuh): {plan['blocks']} blocks over "
+            f"{plan['tiles']} chunks of {plan['tile']} points, "
+            f"{plan['smem_bytes']} bytes of shared memory, a workspace of "
+            f"{plan['workspace']} elements")
+
+
+def render_plan_text(plan):
+    """#4's plan (fused_onepass.RENDER_PLAN_SLOTS) in words."""
+    if plan["hopper"]:
+        return (f"the Hopper walk with the compositing tail: "
+                f"{plan['blocks']} persistent blocks over {plan['groups']} "
+                f"groups of {plan['group_points']} points ("
+                f"{plan['group_tiles']} tiles, {plan['group_rays']} rays), "
+                f"a {plan['stages']}-slot weight ring, "
+                f"{plan['smem_bytes']} bytes of shared memory")
+    return (f"the old kernel (mlp_fwd.cuh): {plan['blocks']} blocks of "
+            f"{plan['group_rays']} rays ({plan['group_points']} points), "
+            f"{plan['smem_bytes']} bytes of shared memory")
+
+
+def tail_plans(fm, v2, fmip, op):
+    """The plans of 6n (the render chunk, 786,432 points) and #4 (the fine
+    and the coarse render chunk, 8192 x 192 and 8192 x 64), decided by
+    shapes alone: in bf16 both run the Hopper walk with their tails
+    (csrc/fwd_hopper.cuh), 6n with no workspace, #4 with the shared memory
+    of the wrappers' mirror (fused_onepass.render_smem_bytes); fp32 keeps
+    mode 5 and the old kernel."""
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+
+    mip = fmip.flatten_mip_params(MipMLP(net_depth=8, net_width=256))
+    nerf = fm.flatten_params(NeRFMLP())
+    for dt in ("bfloat16", "float32"):
+        bf = dt == "bfloat16"
+        plan = fmip.normals_plan(fmip.pack(mip, 8, 16, dt), CHUNK * 96)
+        log(f"plan of 6n {dt}, render chunk ({CHUNK * 96} points): "
+            f"{normals_plan_text(plan)}")
+        gate(plan["hopper"] == int(bf) and (plan["workspace"] == 0) == bf,
+             f"the {dt} plan of 6n picked "
+             f"{'the Hopper walk' if plan['hopper'] else 'mode 5'}")
+        packed = v2.pack(nerf, 8, (4,), 10, 4, dt)
+        for seg in (192, 64):
+            plan = op.render_plan(packed, CHUNK, seg)
+            log(f"plan of #4 {dt}, {CHUNK} x {seg}: "
+                f"{render_plan_text(plan)}")
+            want = op.render_smem_bytes(packed, seg)
+            gate(plan["hopper"] == int(bf) and (not bf or (
+                plan["smem_bytes"], plan["stages"]) == want[:2]),
+                f"the {dt} plan of #4 at S={seg} picked "
+                f"{'the Hopper walk' if plan['hopper'] else 'the old kernel'}"
+                f" (shared memory {plan['smem_bytes']}, the mirror's {want})")
+
+
+def normals_gates(label, fmip, packed, packed32, means, covs, views, kw):
+    """6n on the same points in bf16 (the Hopper walk) and fp32 (mode 5):
+    bf16 rows 0-3 bit-identical to #6, a second launch bit-identical,
+    rows 4-6 under normals_bf16_gate; fp32 rows 0-3 under mip_fwd_gate and
+    rows 4-6 each within NORMALS_FP32_TOL of the row's largest value.
+    Returns the bf16 max|diff| against the plain version."""
+    with torch.no_grad():
+        got = fmip.fused_mip_mlp_normals_T(packed, means, covs, views,
+                                           compute_dtype="bfloat16", **kw)
+        torch.cuda.synchronize()
+        again = fmip.fused_mip_mlp_normals_T(packed, means, covs, views,
+                                             compute_dtype="bfloat16", **kw)
+        six = fmip.fwd_T(packed, means, covs, views,
+                         compute_dtype="bfloat16", **kw)
+        got32 = fmip.fused_mip_mlp_normals_T(packed32, means, covs, views,
+                                             compute_dtype="float32", **kw)
+        torch.cuda.synchronize()
+        want = fmip.plain_fwd_normals_T(packed, means, covs, views,
+                                        compute_dtype="bfloat16", **kw)
+        want32 = fmip.plain_fwd_normals_T(packed32, means, covs, views,
+                                          compute_dtype="float32", **kw)
+    m = min(means.shape[1], NORMALS_HOST_POINTS)
+    host = fmip.plain_fwd_normals_T(
+        fmip.pack([x.cpu() for x in packed.flat], kw["net_depth"],
+                  kw["num_freqs"], "bfloat16"),
+        *[x[:, :m].cpu() for x in (means, covs, views)],
+        compute_dtype="bfloat16", **kw)
+    for x, dt in ((got, "bf16"), (got32, "fp32")):
+        if not torch.isfinite(x).all():
+            fail(f"{label} {dt}: non-finite output")
+    same6, rep_ = torch.equal(got[:4], six), torch.equal(got, again)
+    log(f"{label} bf16: rows 0-3 bit-identical to {fmip.KERNEL} {same6}; "
+        f"a second launch bit-identical {rep_}")
+    gate(same6, f"{label} bf16 rows 0-3 are not {fmip.KERNEL}'s bits")
+    gate(rep_, f"{label} bf16: a second launch gave other bits")
+    normals_bf16_gate(f"{label} bf16", got, want, want32, host)
+    mip_fwd_gate(f"{label} fp32, rows 0-3", got32[:4], want32[:4],
+                 "float32")
+    rows = row_max_rel(got32[4:], want32[4:])
+    log(f"{label} fp32 rows 4-6: per row max|diff|/max|plain| {rows:.3e} "
+        f"(tol {NORMALS_FP32_TOL:g})")
+    gate(rows < NORMALS_FP32_TOL, f"{label} fp32 rows 4-6 disagree "
+         f"({rows:.3e})")
+    return (got - want).abs().max().item()
+
+
 def fwd_walk_phases(dev, fm, v2, fmip):
     """The Hopper walk of #1 and #6 (csrc/fwd_hopper.cuh): the
     shape-decided plans, and both kernels at the ragged sizes in bf16
@@ -619,6 +735,7 @@ def fwd_walk_phases(dev, fm, v2, fmip):
 
     packed = v2.pack(flat, compute_dtype="bfloat16", **nerf_kw)
     mpacked = fmip.pack(mflat, 8, 16, "bfloat16")
+    mpacked32 = fmip.pack(mflat, 8, 16, "float32")
     for n in RAGGED_N:
         g = torch.Generator().manual_seed(0)
         pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
@@ -663,6 +780,9 @@ def fwd_walk_phases(dev, fm, v2, fmip):
             f"{same}")
         gate(same, f"{fmip.KERNEL} N={n}: other bits than "
              f"{fmip.ROW_KERNEL}")
+        # 6n (#6's walk with the normals tail) on the same points.
+        normals_gates(f"{fmip.NORMALS_KERNEL} N={n}", fmip, mpacked,
+                      mpacked32, means, covs, mviews, mip_kw)
 
 
 def render_phases(dev, card, configs, fm, v2):
@@ -1693,7 +1813,7 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
 
 # The resampling kernels #8 and #9 against their plain versions: the
 # inverse CDF is ill-conditioned where a bin's pdf nears the 1e-5 floor
-# (ROADMAP Queue 3 item 4), so the order of the kernel's and the plain
+# (ROADMAP Queue 3 note D), so the order of the kernel's and the plain
 # version's fp32 sums alone moves a few samples by up to a bin. The gates:
 # exactly sorted output, every coarse depth present exactly (#8), |dz| /
 # (far - near) within PDF_REL_TOL at the 99.9th percentile, and no sample
@@ -1778,6 +1898,64 @@ def resample_gate(label, got, want, span, bin_width, z_c=None):
     gate(ok_sorted and present and q <= PDF_REL_TOL and mx <= bin_width,
          f"{label} disagrees with its plain version (max {mx:.3e}, "
          f"quantile {q:.3e}, sorted {ok_sorted}, present {present})")
+    return mx
+
+
+# #4's rows 3-5 (depth, acc, each sample's weight) against the plain
+# compositing (fused_onepass._composite_fwd) of #1's raw heads on the same
+# points, max|diff| / max|plain| per row: the heads #4 composites are #1's
+# bits, so only the compositing's fp32 order differs (the warp's scan of
+# the transmittance, the lane sums).
+RENDER_HEADS_TOL = 1e-5
+# #4's ragged ray counts: one ray, 3 rays (a group and a half at S = 192
+# and 64: 2 rays a group) and 395 (198 groups, 132 + 66 on an H100: the
+# last wave half empty, its last group one ray).
+RAGGED_RAYS = (1, 3, 395)
+
+
+def render_bf16_gates(label, op, v2, w, rows_in, kw, got=None):
+    """#4 in bf16 on rows_in (pts, views, z row, |d| row): every row
+    within ROWS_TOL of the plain version (unless `got` is given, gated by
+    the caller), a second launch bit-identical, and rows 3-5 within
+    RENDER_HEADS_TOL of the plain compositing of #1's raw heads on the
+    same points. Returns max|diff| against the plain version (or 0)."""
+    seg = kw["seg"]
+    mx = 0.0
+    with torch.no_grad():
+        if got is None:
+            got = op.render_level_T(w, *rows_in, **kw)
+            torch.cuda.synchronize()
+            want = op.plain_render_level_T(w, *rows_in, **kw)
+            if not torch.isfinite(got).all():
+                fail(f"{label}: output is not finite")
+            errs = ((got - want).abs().amax(1)
+                    / want.abs().amax(1).clamp_min(1e-30)).tolist()
+            mx = (got - want).abs().max().item()
+            log(f"{label} vs plain: per row max|diff|/max|plain| " + ", ".join(
+                f"{k} {e:.2e}" for k, e in zip(ROW_NAMES, errs))
+                + f" (tol {ROWS_TOL['bfloat16']:g})")
+            gate(max(errs) < ROWS_TOL["bfloat16"],
+                 f"{label} disagrees with its plain version "
+                 f"({max(errs):.3e})")
+        again = op.render_level_T(w, *rows_in, **kw)
+        pts, views, z_row, dn_row = rows_in
+        k = pts.shape[1] // seg
+        raw = v2.fwd_T(w, pts, views, compute_dtype="bfloat16",
+                       **{x: kw[x] for x in ("net_depth", "skips",
+                                             "multires", "multires_views")})
+        rgb, dep, acc, wt, _ = op._composite_fwd(
+            raw.reshape(4, k, seg), z_row.reshape(k, seg),
+            dn_row[0, ::seg], kw["white_bkgd"])
+        comp = op._out_rows(rgb, dep, acc, wt, seg)
+    same = torch.equal(got, again)
+    rel = ((got[3:] - comp[3:]).abs().amax(1)
+           / comp[3:].abs().amax(1).clamp_min(1e-30)).max().item()
+    log(f"{label}: a second launch bit-identical {same}; rows 3-5 vs the "
+        f"plain compositing of {v2.KERNEL}'s raw heads: per row "
+        f"max|diff|/max|plain| {rel:.3e} (tol {RENDER_HEADS_TOL:g})")
+    gate(same, f"{label}: a second launch gave other bits")
+    gate(rel < RENDER_HEADS_TOL, f"{label} rows 3-5 are not the "
+         f"compositing of {v2.KERNEL}'s heads ({rel:.3e})")
     return mx
 
 
@@ -1965,7 +2143,21 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
             gate(max(row_errs) < ROWS_TOL[dtype],
                  f"{op.RENDER_KERNEL} {label} disagrees with its plain "
                  f"version ({max(row_errs):.3e})")
+            if dtype == "bfloat16":
+                render_bf16_gates(f"{op.RENDER_KERNEL} {label} chunk", op,
+                                  v2, w, rows_in, kw, got)
             del got, want
+        # 18b. #4 in bf16 at the ragged ray counts, fine and coarse.
+        for level, z_all, seg in (("fine", z_f, s_c + s_i),
+                                  ("coarse", z_c, s_c)):
+            w = packed(level, "bfloat16")
+            kw = dict(seg=seg, white_bkgd=True, compute_dtype="bfloat16",
+                      **mlp_kw)
+            for k in RAGGED_RAYS:
+                sub = chunk.map(lambda x: x[:k])
+                render_bf16_gates(
+                    f"{op.RENDER_KERNEL} bf16 {level}, {k} ray(s) x {seg}",
+                    op, v2, w, level_rows(sub, z_all[:k].contiguous()), kw)
 
     # 19. The switched render of the 6 views: #4 per level and chunk, #8
     # per chunk, #1 never.
@@ -2054,7 +2246,8 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
     log(f"{tag} {op.RENDER_KERNEL} bf16 fine chunk (N={n_fine}): "
         f"{ms4:.3f} ms/launch, bound {b4:.3f} ms ({by4}, "
         f"{100 * b4 / ms4:.1f}% of it); coarse (N={n_coarse}) {ms4c:.3f} "
-        f"ms, bound {b4c:.3f}; plain version, fine: {plain4:.3f} ms")
+        f"ms, bound {b4c:.3f} ({100 * b4c / ms4c:.1f}% of it); plain "
+        f"version, fine: {plain4:.3f} ms")
     log(f"{tag} {pdf_merge.KERNEL} render chunk ({n} rays, {s_c}+{s_i}): "
         f"{1e3 * ms8:.1f} us/launch, bound {1e3 * b8:.2f} us ({by8}, "
         f"{100 * b8 / ms8:.1f}% of it); plain version {1e3 * plain8:.1f} us")
@@ -2206,6 +2399,16 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
                 gate(rows < NORMALS_FP32_TOL,
                      f"{label} rows 4-6 disagree ({rows:.3e})")
             else:
+                again = fmip.fused_mip_mlp_normals_T(
+                    w, *lvl1, compute_dtype=dtype, **kw)
+                six = fmip.fwd_T(w, *lvl1, compute_dtype=dtype, **kw)
+                same6, rep_ = (torch.equal(got[:4], six),
+                               torch.equal(got, again))
+                log(f"{label}: rows 0-3 bit-identical to {fmip.KERNEL} "
+                    f"{same6}; a second launch bit-identical {rep_}")
+                gate(same6, f"{label} rows 0-3 are not {fmip.KERNEL}'s bits")
+                gate(rep_, f"{label}: a second launch gave other bits")
+                del again, six
                 # Two plain computations that differ in sum order only.
                 host = fmip.plain_fwd_normals_T(
                     fmip.pack([x.cpu() for x in flat], cfg.netdepth,
@@ -2289,7 +2492,9 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
         ms9 = time_ms(lambda: pdf_merge.mip_resample_t_vals(*render_in), 50)
         plain9 = time_ms(lambda: pdf_merge.plain_mip_resample_t_vals(
             *render_in), 10)
+    torch.cuda.reset_peak_memory_stats()
     render_ms = time_ms(lambda: render(stacked), 2)
+    peak_memory(f"{tag} switched mip render {len(all_rays)} views")
     dev_ms, top = device_time(lambda: render(stacked))
     # 6n's work per point: the forward and the walk back through the
     # trunk (every trunk layer's product once more: the input gradient,
@@ -2872,6 +3077,32 @@ def twocall_phases(dev, card, configs, fm, v2, op, render_ms):
     gate(rgb_diff < RENDER_RGB_TOL, f"the v2row render disagrees with the "
          f"plain render ({rgb_diff})")
     ms = time_ms(lambda: render(stacked), 2)
+    # #10 per launch at the render chunk's shapes (seeded points).
+    skips = op.model_skips(cfg.netdepth)
+    mlp_kw = dict(net_depth=cfg.netdepth, skips=skips,
+                  multires=cfg.multires, multires_views=cfg.multires_views)
+    fwd_pp = mlp_flops_per_point(cfg.netdepth, cfg.netwidth, skips,
+                                 cfg.multires, cfg.multires_views)
+    w10 = v2.pack(fm.flatten_params(model.fine, True, cfg.netdepth),
+                  compute_dtype="bfloat16", **mlp_kw)
+    gen = torch.Generator().manual_seed(0)
+    for level, s_ in (("fine", cfg.N_samples + cfg.N_importance),
+                      ("coarse", cfg.N_samples)):
+        n10 = CHUNK * s_
+        p10 = (torch.rand(n10, 3, generator=gen) * 4 - 2).to(dev)
+        v10 = torch.randn(n10, 3, generator=gen)
+        v10 = (v10 / v10.norm(dim=1, keepdim=True)).to(dev)
+        with torch.no_grad():
+            ms10 = time_ms(lambda: v2.fwd(w10, p10, v10,
+                                          compute_dtype="bfloat16",
+                                          **mlp_kw), 5)
+        b10, by10 = bound_ms(n10, fwd_pp, w10.w.numel() * 2
+                             + w10.b.numel() * 4, PEAK_BF16_FLOPS)
+        log(f"{tag} {v2.ROW_KERNEL} bf16 {level} render chunk (N={n10}): "
+            f"{ms10:.3f} ms/launch, bound {b10:.3f} ms ({by10}, "
+            f"{100 * b10 / ms10:.1f}% of it); {got[v2.ROW_KERNEL] // 2} "
+            f"launches a level in the v2row render")
+        del p10, v10
     log(f"{tag} v2row render {len(all_rays)} views: {ms:.2f} ms, "
         f"{stacked.origins[..., 0].numel() / ms * 1e3:.1f} rays/s; default "
         f"(v2) render in this run {render_ms:.2f} ms "

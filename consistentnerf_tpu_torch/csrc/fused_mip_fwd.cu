@@ -32,15 +32,22 @@
 // The normals variant adds the density's walk back through the trunk
 // (507,904 MACs at 8x256: every trunk layer's input gradient, and the
 // gradient into the encoding at layer 0 and at the post-skip layer), so
-// ~2.24 MFLOP a point against 64 bytes. The walk needs every trunk
-// activation of a point, ~4 KB in bf16, more than shared memory holds for
-// a tile, so it runs the train walk (mlp_train.cuh, mode 5): a persistent
-// grid whose blocks run 768-point chunks, save each layer's activations
-// to a per-block workspace in device memory and walk the gradient back
-// over 64-point sub-tiles; the IPE's Jacobian is applied per point at the
-// end. Rounding as the JAX kernel: the gradient is rounded to the compute
-// type before each product, the products accumulate in fp32, the
-// encoding's gradient stays fp32.
+// ~2.24 MFLOP a point against 64 bytes. The JAX function reads the
+// forward's activations only as `act > 0`. In bf16 at widths 192 and 256,
+// a trunk of at most 8 layers and 11-16 IPE frequencies (96 columns) it
+// runs #6's Hopper walk with the normals tail of fwd_hopper.cuh: each
+// trunk layer's ReLU mask kept in registers (one bit a unit), the walk
+// back on wgmma over the trunk's weight slabs streamed again after the
+// forward's, and the IPE's Jacobian per point at the end; no workspace.
+// Its rows 0-3 are #6's bits. Elsewhere (fp32, other shapes) it runs the
+// train walk (mlp_train.cuh, mode 5): a persistent grid whose blocks run
+// 768-point chunks, save each layer's activations to a per-block
+// workspace in device memory and walk the gradient back over 64-point
+// sub-tiles; the IPE's Jacobian is applied per point at the end. The plan
+// (fused_mip_fwd_normals_plan) decides by shapes alone. Rounding as the
+// JAX kernel in both: the gradient is rounded to the compute type before
+// each product, the products accumulate in fp32, the encoding's gradient
+// stays fp32.
 
 #include "fwd_hopper.cuh"
 #include "mlp_train.cuh"
@@ -148,23 +155,78 @@ __global__ void __launch_bounds__(mlp::kThreads, 1)
                                       ws, nullptr, 0, n, d);
 }
 
+// The normals walk's encoding-gradient width: the products of the pe rows
+// are m64n96 (the IPE's 96 columns at 11-16 frequencies).
+constexpr int kNormalsNP = 96;
+
+// The Hopper walk with the normals tail at these shapes: #6's plan, a trunk
+// of at most kFhMaskDepth layers (the masks' registers), an IPE of 65-96
+// columns, and a warpgroup's rows of the tile large enough for the
+// encoding's fp32 gradient (64 x 96: widths 192 and 256).
+int normals_hopper_plan(const Dims& d, int n, bool bf16_, mlp::FhPlan* pl) {
+  const int err = mlp::fh_plan(d, n, bf16_, false, mip_instance(d), pl);
+  if (err) return err;
+  if (!(d.depth <= mlp::kFhMaskDepth && d.P > 64 && d.P <= kNormalsNP &&
+        256 * kNormalsNP <= pl->na * 64 * 128))
+    pl->ok = 0;
+  return 0;
+}
+
+int normals_hopper_launch(const mlp::FhPlan& pl, const void* means,
+                          const void* covs, const void* views, const void* w,
+                          const void* b, void* out, int n, const Dims& d,
+                          cudaStream_t s) {
+  using mlp::MipEnc;
+  constexpr int T = mlp::kFhNormals;
+  if (d.width / 64 == 3)
+    return mlp::fh_launch<MipEnc, 3, 2, T, kNormalsNP>(pl, means, covs, views,
+                                                       w, b, out, n, d, s);
+  return mlp::fh_launch<MipEnc, 4, 2, T, kNormalsNP>(pl, means, covs, views, w,
+                                                     b, out, n, d, s);
+}
+
+// Mode 5's plan (blocks, workspace elements per block, partials, shared
+// memory) into p.
+int mode5_plan(const Dims& d, int n, bool bf16_, long long* p) {
+  if (bf16_) return mlp::plan<bf16>(mip_normals_kernel<bf16>, 5, n, 0, d, p);
+  return mlp::plan<float>(mip_normals_kernel<float>, 5, n, 0, d, p);
+}
+
 }  // namespace
 
-// out[0..3] of the normals variant: blocks, workspace elements per block,
-// (unused), dynamic shared memory bytes. Returns a cudaError_t.
+// The walk 6n takes at these shapes: out[0..7] as mlp::fh_plan_slots
+// (mode 5: 0, points a chunk, 0, 1, shared memory, blocks, 0, chunks),
+// out[8] where the masks live (1: registers, the Hopper walk; 0: mode 5
+// saves every activation), out[9] workspace elements of the compute type
+// (0 on the Hopper walk). Returns a cudaError_t.
 extern "C" int fused_mip_fwd_normals_plan(int n, int depth, int width,
                                           int view_width, int skip_mask,
                                           int num_freqs, int deg_view,
                                           int use_bf16, long long* out) {
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  if (use_bf16)
-    return mlp::plan<bf16>(mip_normals_kernel<bf16>, 5, n, 0, d, out);
-  return mlp::plan<float>(mip_normals_kernel<float>, 5, n, 0, d, out);
+  mlp::FhPlan pl;
+  int err = normals_hopper_plan(d, n, use_bf16, &pl);
+  if (err) return err;
+  if (pl.ok) {
+    mlp::fh_plan_slots(pl, d, n, use_bf16, out);
+    out[8] = 1;
+    out[9] = 0;
+    return 0;
+  }
+  long long p5[4];
+  err = mode5_plan(d, n, use_bf16, p5);
+  if (err) return err;
+  const int chunk = mlp::chunk_points(5, 0);
+  const long long slots[10] = {0, chunk, 0, 1, p5[3], p5[0], 0,
+                               (n + chunk - 1) / chunk, 0, p5[0] * p5[1]};
+  for (int i = 0; i < 10; ++i) out[i] = slots[i];
+  return 0;
 }
 
 // The normals variant: means, covs, views [3, n] fp32; w, b as in
-// fused_mip_fwd; ws: the workspace (plan's out[0] * out[1] elements of the
-// compute type); out: [7, n] fp32. Returns the cudaError_t of the launch.
+// fused_mip_fwd; ws: mode 5's workspace (the plan's out[9] elements of the
+// compute type; unused, may be null, on the Hopper walk); out: [7, n]
+// fp32. Returns the cudaError_t of the launch.
 extern "C" int fused_mip_fwd_normals(const void* means, const void* covs,
                                      const void* views, const void* w,
                                      const void* b, void* ws, void* out,
@@ -175,19 +237,21 @@ extern "C" int fused_mip_fwd_normals(const void* means, const void* covs,
   if (n <= 0) return 0;
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mlp::FhPlan hp;
+  int err = normals_hopper_plan(d, n, use_bf16, &hp);
+  if (err) return err;
+  if (hp.ok)
+    return normals_hopper_launch(hp, means, covs, views, w, b, out, n, d, s);
   long long pl[4];
-  int err;
+  err = mode5_plan(d, n, use_bf16, pl);
+  if (err) return err;
   if (use_bf16) {
-    err = mlp::plan<bf16>(mip_normals_kernel<bf16>, 5, n, 0, d, pl);
-    if (err) return err;
     mip_normals_kernel<bf16><<<(int)pl[0], mlp::kThreads, (size_t)pl[3], s>>>(
         static_cast<const float*>(means), static_cast<const float*>(covs),
         static_cast<const float*>(views), static_cast<float*>(out),
         static_cast<const bf16*>(w), static_cast<const float*>(b),
         static_cast<bf16*>(ws), n, d);
   } else {
-    err = mlp::plan<float>(mip_normals_kernel<float>, 5, n, 0, d, pl);
-    if (err) return err;
     mip_normals_kernel<float><<<(int)pl[0], mlp::kThreads, (size_t)pl[3],
                                 s>>>(
         static_cast<const float*>(means), static_cast<const float*>(covs),

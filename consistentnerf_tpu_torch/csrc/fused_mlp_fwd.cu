@@ -24,38 +24,6 @@
 using mlp::bf16;
 using mlp::Dims;
 
-namespace {
-
-// The Hopper walk's instances: (width / 64, ceil(half / 64)) at the
-// NeRFMLP's widths 64, 128, 192, 256 (half = width / 2).
-bool nerf_instance(const Dims& d) {
-  const int nbw = d.width / 64, nbh = (d.half + 63) / 64;
-  return (nbw == 1 && nbh == 1) || (nbw == 2 && nbh == 1) ||
-         (nbw == 3 && nbh == 2) || (nbw == 4 && nbh == 2);
-}
-
-int hopper_launch(const mlp::FhPlan& pl, const void* pts, const void* views,
-                  const void* w, const void* b, void* out, int n,
-                  const Dims& d, cudaStream_t s) {
-  using mlp::NerfEnc;
-  switch (d.width / 64) {
-    case 1:
-      return mlp::fh_launch<NerfEnc, 1, 1>(pl, pts, nullptr, views, w, b,
-                                           out, n, d, s);
-    case 2:
-      return mlp::fh_launch<NerfEnc, 2, 1>(pl, pts, nullptr, views, w, b,
-                                           out, n, d, s);
-    case 3:
-      return mlp::fh_launch<NerfEnc, 3, 2>(pl, pts, nullptr, views, w, b,
-                                           out, n, d, s);
-    default:
-      return mlp::fh_launch<NerfEnc, 4, 2>(pl, pts, nullptr, views, w, b,
-                                           out, n, d, s);
-  }
-}
-
-}  // namespace
-
 // The walk #1 takes at these shapes (row: the row-major instance #10):
 // out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
 extern "C" int fused_mlp_fwd_plan(int n, int depth, int width, int skip_mask,
@@ -63,7 +31,8 @@ extern "C" int fused_mlp_fwd_plan(int n, int depth, int width, int skip_mask,
                                   int use_bf16, int row, long long* out) {
   const Dims d(depth, width, skip_mask, multires, multires_views);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, row, nerf_instance(d), &pl);
+  const int err =
+      mlp::fh_plan(d, n, use_bf16, row, mlp::fh_nerf_instance(d), &pl);
   if (err) return err;
   mlp::fh_plan_slots(pl, d, n, use_bf16, out);
   return 0;
@@ -89,9 +58,12 @@ extern "C" int fused_mlp_fwd(const void* pts, const void* views,
   const Dims d(depth, width, skip_mask, multires, multires_views);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, false, nerf_instance(d), &pl);
+  const int err =
+      mlp::fh_plan(d, n, use_bf16, false, mlp::fh_nerf_instance(d), &pl);
   if (err) return err;
-  if (pl.ok) return hopper_launch(pl, pts, views, w, b, out, n, d, s);
+  if (pl.ok)
+    return mlp::fh_nerf_launch<mlp::kFhHeads>(pl, pts, views, w, b, out, n,
+                                              d, s);
   if (use_bf16)
     return mlp::fwd_launch<bf16, 128, mlp::NerfEnc>(pts, nullptr, views, w,
                                                     b, out, n, d, s);

@@ -192,12 +192,13 @@ __device__ inline uint64_t sw128_desc_mn(uint32_t addr, uint32_t lbo) {
 }
 
 // d[64 x 64 NB] (+)= A[64 x 16] B[16 x 64 NB], bf16 in, fp32 out, both from
-// shared memory: A K-major (tnspA = 0; sw128_desc), B MN-major (tnspB =
-// 1; sw128_desc_mn). scale_d = 0 overwrites d. d holds at least 32 NB
-// floats; register r of thread (warp w of the warpgroup, lane l) is row
-// 16 w + l / 4 (+ 8 for r % 4 >= 2), column 8 (r / 4) + 2 (l % 4) (+ 1 for
-// odd r).
-template <int NB, int NA>
+// shared memory: A K-major (tnspA = 0; sw128_desc), B MN-major (TB = 1,
+// sw128_desc_mn) or K-major (TB = 0, sw128_desc: the transposed weights
+// of a backward product, 64 rows of N a box, boxes 8 KB apart). scale_d
+// = 0 overwrites d. d holds at least 32 NB floats; register r of thread
+// (warp w of the warpgroup, lane l) is row 16 w + l / 4 (+ 8 for r % 4 >=
+// 2), column 8 (r / 4) + 2 (l % 4) (+ 1 for odd r).
+template <int NB, int NA, int TB = 1>
 __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
                                 int scale_d) {
   static_assert(NB >= 1 && NB <= 4 && 32 * NB <= NA, "wgmma_ss: N");
@@ -210,7 +211,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -220,7 +221,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
   if constexpr (NB == 2) {
     asm volatile(
@@ -234,7 +235,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -250,7 +251,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
   if constexpr (NB == 3) {
     asm volatile(
@@ -266,7 +267,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
       "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
       "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
       "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n"
+      "}, %96, %97, p, 1, 1, 0, %99;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -289,7 +290,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
   if constexpr (NB == 4) {
     asm volatile(
@@ -308,7 +309,7 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
       "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -338,8 +339,39 @@ __device__ inline void wgmma_ss(float (&d)[NA], uint64_t da, uint64_t db,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
+}
+
+// d[64 x 96] (+)= A[64 x 16] B[16 x 96]: wgmma_ss at N = 96 (the IPE's
+// 96 columns at 16 frequencies), 48 floats of d.
+template <int NA, int TB>
+__device__ inline void wgmma_ss96(float (&d)[NA], uint64_t da, uint64_t db,
+                                  int scale_d) {
+  static_assert(48 <= NA, "wgmma_ss96: N");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, %51;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // Weight maps (64 x 64 boxes, 128-byte swizzle): m[0] over T, the trunk

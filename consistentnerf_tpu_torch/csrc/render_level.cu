@@ -12,16 +12,28 @@
 // FLOP a point at 8x256 / multires 10+4 against 52 bytes (7 floats in, 6
 // out; |d| once a ray), so the fine level's 8192-ray chunk (1,572,864
 // points) needs at least 1.887 ms at 989 bf16 TFLOP/s, the coarse 0.629.
-// Design: a block owns a chunk of whole rays (about 768 points: 4 fine rays
-// of 192 samples or 12 coarse rays of 64), runs the forward walk of
-// mlp_fwd.cuh over it in tiles of M points, and keeps the chunk's raw
+//
+// In bf16 at the forward walk's widths (64-256) the kernel is #1's Hopper
+// walk (fwd_hopper.cuh) with the compositing tail: persistent blocks walk
+// groups of lcm(S, 128) points, whole rays (fine S = 192: 384 points, 3
+// tiles, 2 rays; coarse S = 64: 128 points, 1 tile, 2 rays); the heads stay
+// in the group's buffer in shared memory (6 KB at 384 points), and the
+// producer's encoder warps composite each ray with one warp while the
+// consumers run the next group's trunk. The heads are #1's bits on the
+// same points. The plan (render_level_plan) decides by shapes alone: an S
+// whose group's buffer does not fit beside the walk, fp32 and other
+// widths keep the old design below.
+//
+// The old design: a block owns a chunk of whole rays (about 768 points: 4
+// fine rays of 192 samples or 12 coarse rays of 64), runs the forward walk
+// of mlp_fwd.cuh over it in tiles of M points, and keeps the chunk's raw
 // heads [4, chunk] in shared memory (12 KB) instead of writing them to
 // device memory; one thread per ray then composites them
 // (mlp_common.cuh::composite_ray, the compositing of the one-pass train
 // kernel) and writes the six rows. Rounding as the forward kernel; no
-// cross-block work, so the output is deterministic.
+// cross-block work, so the output is deterministic (both designs).
 
-#include "mlp_fwd.cuh"
+#include "fwd_hopper.cuh"
 
 namespace {
 
@@ -92,7 +104,56 @@ int launch(const void* pts, const void* views, const void* z, const void* dn,
   return (int)cudaGetLastError();
 }
 
+// Points of #4's group on the Hopper walk: lcm(seg, 128), whole rays in
+// whole tiles (capped where no buffer of it could fit).
+long long group_points(int seg) {
+  int a = seg, b = mlp::kFhTile;
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  const long long gp = (long long)seg / a * mlp::kFhTile;
+  return gp < (1 << 20) ? gp : 0;
+}
+
+int hopper_plan(const Dims& d, int n_rays, int seg, bool bf16_,
+                mlp::FhPlan* pl) {
+  const long long gp = group_points(seg);
+  return mlp::fh_plan(d, n_rays * seg, bf16_, false,
+                      gp > 0 && mlp::fh_nerf_instance(d), pl, (int)gp);
+}
+
 }  // namespace
+
+// The walk #4 takes at these shapes: out[0] the Hopper walk (1) or the old
+// kernel (0), then points, tiles and rays a group (the old kernel: a
+// chunk's points, 0, its rays), shared memory bytes, blocks, ring slots
+// (0: the old kernel), groups (chunks). Returns a cudaError_t.
+extern "C" int render_level_plan(int n_rays, int seg, int depth, int width,
+                                 int skip_mask, int multires,
+                                 int multires_views, int use_bf16,
+                                 long long* out) {
+  const Dims d(depth, width, skip_mask, multires, multires_views);
+  mlp::FhPlan pl;
+  const int err = hopper_plan(d, n_rays, seg, use_bf16, &pl);
+  if (err) return err;
+  if (pl.ok) {
+    const long long slots[8] = {1, pl.gp, pl.gt, pl.gp / seg, pl.smem,
+                                pl.grid, pl.stages,
+                                (pl.tiles + pl.gt - 1) / pl.gt};
+    for (int i = 0; i < 8; ++i) out[i] = slots[i];
+    return 0;
+  }
+  const int per = chunk_points(seg) / seg;
+  const long long slots[8] = {
+      0, chunk_points(seg), 0, per,
+      (long long)(use_bf16 ? smem_bytes<bf16, 128>(d, seg)
+                           : smem_bytes<float, 64>(d, seg)),
+      (n_rays + per - 1) / per, 0, (n_rays + per - 1) / per};
+  for (int i = 0; i < 8; ++i) out[i] = slots[i];
+  return 0;
+}
 
 // pts, views: [3, n_rays*seg]; z: [n_rays*seg]; dn: [n_rays]; out:
 // [6, n_rays*seg]; all fp32. w: packed weights (bf16 when use_bf16, else
@@ -107,6 +168,14 @@ extern "C" int render_level(const void* pts, const void* views, const void* z,
   if (n_rays <= 0) return 0;
   const Dims d(depth, width, skip_mask, multires, multires_views);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mlp::FhPlan pl;
+  const int err = hopper_plan(d, n_rays, seg, use_bf16, &pl);
+  if (err) return err;
+  if (pl.ok)
+    return mlp::fh_nerf_launch<mlp::kFhRender>(
+        pl, pts, views, w, b, out, n_rays * seg, d, s,
+        mlp::FhRays{static_cast<const float*>(z),
+                    static_cast<const float*>(dn), n_rays, seg, white_bkgd});
   if (use_bf16)
     return launch<bf16, 128>(pts, views, z, dn, w, b, out, n_rays, seg,
                              white_bkgd, d, s);

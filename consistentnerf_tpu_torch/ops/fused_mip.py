@@ -316,25 +316,49 @@ def fused_mip_mlp_normals_T(weights, means_T: torch.Tensor,
     if means_T.device.type != "cuda":
         raise ValueError(f"no fused forward for device {means_T.device}")
     packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
-    n, dev = means_T.shape[1], means_T.device
-    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
-                  views_T=views_T)
-    out = torch.empty((7, n), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    cfg_args = _cfg_args(packed)
-    pl = (ctypes.c_longlong * 4)()
-    err = v2._entry(KERNEL, NORMALS_KERNEL + "_plan", 0, 8)(n, *cfg_args,
-                                                           pl)
+    return normals_launch(packed, means_T, covs_T, views_T)
+
+
+# `fused_mip_fwd_normals_plan`'s slots: `fused_mlp_v2.PLAN_SLOTS` (mode 5:
+# not the Hopper walk, points a chunk, no ring, its shared memory, blocks,
+# chunks), where the masks live (1: registers, the Hopper walk; 0: mode 5
+# saves every activation), and mode 5's workspace elements (0 on the
+# Hopper walk).
+NORMALS_PLAN_SLOTS = v2.PLAN_SLOTS + ("masks_in_registers", "workspace")
+
+
+def normals_plan(packed: v2.PackedMLP, n: int) -> dict:
+    """The walk that 6n takes for n points of the packed MipMLP, decided by
+    shapes alone (`NORMALS_PLAN_SLOTS`); needs the card."""
+    out = (ctypes.c_longlong * len(NORMALS_PLAN_SLOTS))()
+    err = v2._entry(KERNEL, NORMALS_KERNEL + "_plan", 0, 8)(
+        n, *_cfg_args(packed), out)
     if err != 0:
         raise RuntimeError(f"{NORMALS_KERNEL} plan failed: cudaError_t "
                            f"{err}")
-    ws = torch.empty(pl[0] * pl[1], dtype=cd, device=dev)
+    return dict(zip(NORMALS_PLAN_SLOTS, list(out)))
+
+
+def normals_launch(packed: v2.PackedMLP, means_T, covs_T,
+                   views_T) -> torch.Tensor:
+    """Kernel 6n on the device's [3, N] streams (no plain version): checks
+    them, allocates mode 5's workspace where the plan runs mode 5 (none on
+    the Hopper walk), launches and returns [7, N]."""
+    n, dev = means_T.shape[1], means_T.device
+    _check_inputs(packed, dev, n, means_T=means_T, covs_T=covs_T,
+                  views_T=views_T)
+    v2.check_tma_weights(packed)
+    out = torch.empty((7, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    plan = normals_plan(packed, n)
+    ws = (torch.empty(plan["workspace"], dtype=packed.compute_dtype,
+                      device=dev) if plan["workspace"] else None)
     err = v2._entry(KERNEL, NORMALS_KERNEL, 7, 8)(
         means_T.data_ptr(), covs_T.data_ptr(), views_T.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), n, *cfg_args,
-        torch.cuda.current_stream(dev).cuda_stream)
+        packed.w.data_ptr(), packed.b.data_ptr(),
+        ws.data_ptr() if ws is not None else None, out.data_ptr(), n,
+        *_cfg_args(packed), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{NORMALS_KERNEL} launch failed: cudaError_t "
                            f"{err}")

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -283,13 +284,86 @@ def plain_render_level_T(weights, pts_T, views_T, z_row, dn_row, *,
     return _out_rows(rgb, depth, acc, w, seg)
 
 
-@functools.cache
-def _render_kernel():
-    fn = _build.load(RENDER_KERNEL).render_level
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# `render_level_plan`'s slots: the Hopper walk (1) or the old kernel (0),
+# points, tiles and rays a group (the old kernel: a chunk's points, 0, its
+# rays), shared memory, blocks, ring slots, groups.
+RENDER_PLAN_SLOTS = ("hopper", "group_points", "group_tiles", "group_rays",
+                     "smem_bytes", "blocks", "stages", "groups")
+FH_TILE = 128  # points a tile of the Hopper walk (csrc/fwd_hopper.cuh)
+
+
+def render_group(seg: int) -> tuple:
+    """#4's group on the Hopper walk (`csrc/render_level.cu::
+    group_points`): (points, tiles, rays) of lcm(seg, 128) points, whole
+    rays in whole tiles."""
+    gp = seg // math.gcd(seg, FH_TILE) * FH_TILE
+    return gp, gp // FH_TILE, gp // seg
+
+
+def render_smem_bytes(packed: "v2.PackedMLP", seg: int):
+    """The shared memory of #4's Hopper walk for `packed` (a NeRFMLP) and
+    groups of `render_group(seg)` points, as `csrc/fwd_hopper.cuh::FhSmem`
+    lays it out, with `fh_plan`'s choice (two pe buffers, else one; a
+    3-slot weight ring, else 2): (bytes, ring slots, pe buffers), or None
+    where nothing fits `fused_mlp.SMEM_LIMIT` (the old kernel runs)."""
+    w, h, depth = packed.width, packed.width // 2, packed.net_depth
+    p = v2._pad16(v2.enc_widths("pe", packed.multires,
+                                packed.multires_views)[0])
+    na, pp = max(w // 64, -(-h // 64)), -(-p // 64)
+    gp = render_group(seg)[0]
+    panel, box = FH_TILE * 128, 8192
+    bias = 4 * ((depth + 1) * w + -(-h // 64) * 64)
+    for npe in (2, 1):
+        for stages in (3, 2):
+            total = (stages * na * box + na * panel + npe * pp * panel
+                     + panel + bias + -(-2 * w // 16) * 16
+                     + -(-6 * h // 16) * 16 + (2 * stages + 6) * 8
+                     + 20 * 12 + 16 * gp + 16 + 1024)
+            if total <= fm.SMEM_LIMIT:
+                return total, stages, npe
+    return None
+
+
+def render_plan(packed: "v2.PackedMLP", n_rays: int, seg: int) -> dict:
+    """The walk that #4 takes for n_rays rays of seg samples of `packed`,
+    decided by shapes alone (`render_level_plan`; `RENDER_PLAN_SLOTS`);
+    needs the card."""
+    out = (ctypes.c_longlong * len(RENDER_PLAN_SLOTS))()
+    err = v2._entry(RENDER_KERNEL, RENDER_KERNEL + "_plan", 0, 8)(
+        n_rays, seg, *v2._cfg_ints(packed), out)
+    if err != 0:
+        raise RuntimeError(f"{RENDER_KERNEL} plan failed: cudaError_t {err}")
+    return dict(zip(RENDER_PLAN_SLOTS, list(out)))
+
+
+def render_launch(packed: "v2.PackedMLP", pts_T, views_T, z_row, dn_row,
+                  seg: int, white_bkgd: bool) -> torch.Tensor:
+    """Kernel #4 on the device's streams (no plain version): checks them,
+    launches and returns out_rows [6, N*S]."""
+    dev, npts = pts_T.device, pts_T.shape[1]
+    n_rays = npts // seg
+    v2._check_stream("pts_T", pts_T, 3, npts, dev)
+    v2._check_stream("views_T", views_T, 3, npts, dev)
+    v2._check_stream("z_row", z_row, 1, npts, dev)
+    v2._check_stream("dn_row", dn_row, 1, npts, dev)
+    v2._check_weights(packed, dev)
+    v2.check_tma_weights(packed)
+    out = torch.empty((6, npts), dtype=torch.float32, device=dev)
+    if n_rays == 0:
+        return out
+    dn = dn_row[0, ::seg].contiguous()
+    err = v2._entry(RENDER_KERNEL, RENDER_KERNEL, 7, 9)(
+        pts_T.data_ptr(), views_T.data_ptr(), z_row.data_ptr(),
+        dn.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+        out.data_ptr(), n_rays, seg, *v2._cfg_ints(packed)[:5],
+        int(white_bkgd), int(packed.compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{RENDER_KERNEL} launch failed: cudaError_t "
+                           f"{err}")
+    global render_launches
+    render_launches += 1
+    return out
 
 
 def render_level_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
@@ -323,31 +397,8 @@ def render_level_T(weights, pts_T: torch.Tensor, views_T: torch.Tensor,
         raise ValueError(f"no render level kernel for device {pts_T.device}")
     packed = v2._packed_for(weights, net_depth, skips, multires,
                             multires_views, cd)
-    dev, n_rays = pts_T.device, npts // seg
-    v2._check_stream("pts_T", pts_T, 3, npts, dev)
-    v2._check_stream("views_T", views_T, 3, npts, dev)
-    v2._check_stream("z_row", z_row, 1, npts, dev)
-    v2._check_stream("dn_row", dn_row, 1, npts, dev)
-    for t in (packed.w, packed.b):
-        if t.device != dev:
-            raise ValueError("packed weights are not on the points' device")
-    out = torch.empty((6, npts), dtype=torch.float32, device=dev)
-    if n_rays == 0:
-        return out
-    dn = dn_row[0, ::seg].contiguous()
-    err = _render_kernel()(
-        pts_T.data_ptr(), views_T.data_ptr(), z_row.data_ptr(),
-        dn.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
-        out.data_ptr(), n_rays, seg, net_depth, packed.width,
-        sum(1 << s for s in skips), multires, multires_views,
-        int(white_bkgd), int(cd == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{RENDER_KERNEL} launch failed: cudaError_t "
-                           f"{err}")
-    global render_launches
-    render_launches += 1
-    return out
+    return render_launch(packed, pts_T, views_T, z_row, dn_row, seg,
+                         white_bkgd)
 
 
 def onepass_supported(cfg) -> bool:

@@ -583,6 +583,111 @@ def test_mip_normals_kernel_matches_plain(cuda_device, width, dtype):
         packed, means, covs, views, 8, 16, dtype))
 
 
+@pytest.mark.cuda
+def test_tail_plans_take_the_walk_in_bf16(cuda_device):
+    """6n at the render chunk (786,432 points) and #4 at the fine and the
+    coarse render chunk (8192 x 192, 8192 x 64) take the Hopper walk's
+    tails in bf16 (6n with no workspace, #4 with the shared memory of the
+    wrappers' mirror), mode 5 and the old kernel in fp32."""
+    mip = fmip.flatten_mip_params(MipMLP(net_depth=8, net_width=256))
+    nerf = fm.flatten_params(NeRFMLP())
+    for dt in ("bfloat16", "float32"):
+        bf = dt == "bfloat16"
+        plan = fmip.normals_plan(fmip.pack(mip, 8, 16, dt), 8192 * 96)
+        assert plan["hopper"] == bf and (plan["workspace"] == 0) == bf
+        assert plan["masks_in_registers"] == bf
+        packed = v2.pack(nerf, 8, SKIPS, MR, MV, dt)
+        for seg in (192, 64):
+            plan = op.render_plan(packed, 8192, seg)
+            assert plan["hopper"] == bf
+            if bf:
+                want = op.render_smem_bytes(packed, seg)
+                assert (plan["smem_bytes"], plan["stages"]) == want[:2]
+                assert (plan["group_points"], plan["group_tiles"],
+                        plan["group_rays"]) == op.render_group(seg)
+    # An S whose group's heads do not fit keeps the old kernel.
+    packed = v2.pack(nerf, 8, SKIPS, MR, MV, "bfloat16")
+    assert not op.render_plan(packed, 100, 150)["hopper"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 198 * 128 - 50])
+def test_normals_walk_at_ragged_sizes(cuda_device, n):
+    """6n in bf16 at 8x256 on the Hopper walk: rows 0-3 bit-identical to
+    #6, a second launch bit-identical, rows 4-6 within 1e-3 of the plain
+    version on average and no further from the fp32 function than the
+    bf16 plain version (the gates of test_mip_normals_kernel_matches_plain
+    at one point, a tile less and more one, a half-empty last wave)."""
+    flat = _mip_flat(256, cuda_device)
+    means, covs, views = _mip_inputs(n, cuda_device, seed=3)
+    packed = fmip.pack(flat, 8, 16, "bfloat16")
+    assert fmip.normals_plan(packed, n)["hopper"] == 1
+    got = fmip.fused_mip_mlp_normals_T(packed, means, covs, views, 8, 16,
+                                       "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:4], fmip.fwd_T(packed, means, covs, views, 8,
+                                           16, "bfloat16"))
+    assert torch.equal(got, fmip.fused_mip_mlp_normals_T(
+        packed, means, covs, views, 8, 16, "bfloat16"))
+    want = fmip.plain_fwd_normals_T(packed, means, covs, views, 8, 16,
+                                    "bfloat16")[4:]
+    exact = fmip.plain_fwd_normals_T(fmip.pack(flat, 8, 16, "float32"),
+                                     means, covs, views, 8, 16,
+                                     "float32")[4:]
+    mean = ((got[4:] - want).abs().mean() / want.abs().mean()).item()
+    k_err = (got[4:] - exact).abs().mean().item()
+    p_err = (want - exact).abs().mean().item()
+    print(f"6n N={n}: mean {mean:.3e}, from fp32 kernel {k_err:.3e}, "
+          f"plain {p_err:.3e}")
+    assert mean < 1e-3 and k_err <= 1.25 * p_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 3, 395])
+@pytest.mark.parametrize("seg", [64, 192])
+def test_render_walk_at_ragged_rays(cuda_device, seg, n_rays):
+    """#4 in bf16 at 8x256 on the Hopper walk (groups of 2 rays at S = 64
+    and 192): one ray, a group and a half, and 198 groups (132 + 66, the
+    last one ray). Each row within the one-pass rows' 5e-3 of the plain
+    version, a second launch bit-identical, and rows 3-5 within 1e-5 of
+    the plain compositing of #1's raw heads on the same points."""
+    flat = _mlp_flat(256, cuda_device, seed=2)
+    g = torch.Generator().manual_seed(5)
+    dev = cuda_device
+    o = torch.randn(n_rays, 3, generator=g).to(dev)
+    d = torch.randn(n_rays, 3, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2,
+                   -1).values.to(dev)
+    pts_T, views_T = op._pts_views(o.T, d.T, (d / d.norm(dim=-1,
+                                                         keepdim=True)).T, z)
+    z_row = z.reshape(1, -1).contiguous()
+    dn_row = op._rep_row(d.norm(dim=-1), seg).contiguous()
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
+    assert op.render_plan(packed, n_rays, seg)["hopper"] == 1
+    kw = dict(seg=seg, net_depth=8, skips=SKIPS, multires=MR,
+              multires_views=MV, white_bkgd=True, compute_dtype="bfloat16")
+    got = op.render_level_T(packed, pts_T, views_T, z_row, dn_row, **kw)
+    torch.cuda.synchronize()
+    want = op.plain_render_level_T(packed, pts_T, views_T, z_row, dn_row,
+                                   **kw)
+    assert torch.isfinite(got).all()
+    rows = ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(1e-30)).max().item()
+    assert rows < 5e-3
+    assert torch.equal(got, op.render_level_T(packed, pts_T, views_T, z_row,
+                                              dn_row, **kw))
+    raw = v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV, "bfloat16")
+    rgb, depth, acc, w, _ = op._composite_fwd(
+        raw.reshape(4, n_rays, seg), z, d.norm(dim=-1), True)
+    comp = op._out_rows(rgb, depth, acc, w, seg)
+    heads = ((got[3:] - comp[3:]).abs().amax(1)
+             / comp[3:].abs().amax(1).clamp_min(1e-30)).max().item()
+    print(f"render walk S={seg} rays={n_rays}: rows {rows:.3e}, "
+          f"composited #1 heads {heads:.3e}")
+    assert heads < 1e-5
+
+
 def _pdf_problem(n, s_c, dev, seed=0, zero=False):
     g = torch.Generator().manual_seed(seed)
     z = torch.linspace(2.0, 6.0, s_c)

@@ -151,3 +151,44 @@ def test_forward_variants_nest(variant):
         assert flags[:len(before)] == before
     assert {m for *_, m, _ in tps.FWD_REGIONS} == {
         f[2:] for f in tps.FWD_VARIANTS["products"]}
+
+
+def test_every_normals_anchor_is_found_in_the_committed_header():
+    """6n's split: the walk back is guarded in the weight stream and in
+    the consumers (one macro), the IPE's Jacobian on its own; only
+    `fused_mip_fwd.cu` is built from that copy, and the forward split's
+    copy leaves 6n's regions unguarded."""
+    out = tps.patched_fwd_sources(CSRC, normals=True)
+    header = out[tps.FWD_HEADER]
+    assert header.count("#ifndef PHASE_NO_NORMALS_BWD") == 2
+    assert header.count("#ifndef PHASE_NO_JACOBIAN") == 1
+    for first, last, macro, count in tps.NORMALS_REGIONS:
+        assert header.count(f"#ifndef {macro}\n{first}\n") == count
+        assert header.count(f"{last}\n#endif\n") == count
+    assert set(out) - {h.name for h in CSRC.glob("*.cuh")} == {
+        tps.NORMALS_SOURCE}
+    assert f'#include "{tps.FWD_HEADER}"' in out[tps.NORMALS_SOURCE]
+    plain = tps.patched_fwd_sources(CSRC)[tps.FWD_HEADER]
+    assert "PHASE_NO_NORMALS_BWD" not in plain
+    assert "PHASE_NO_JACOBIAN" not in plain
+
+
+@pytest.mark.parametrize("region", range(len(tps.NORMALS_REGIONS)))
+@pytest.mark.parametrize("end", [0, 1])
+def test_a_missing_normals_anchor_fails_the_patch(region, end):
+    text = (CSRC / tps.FWD_HEADER).read_text()
+    anchor = tps.NORMALS_REGIONS[region][end] + "\n"
+    assert text.count(anchor) == 1
+    with pytest.raises(ValueError, match="occurs"):
+        tps.patched_fwd_header(text.replace(anchor, "", 1),
+                               tps.NORMALS_REGIONS)
+
+
+def test_normals_variants_nest():
+    """full, then without the Jacobian, then without the walk back too:
+    differences of their times are the Jacobian's and the walk back's."""
+    v = tps.NORMALS_VARIANTS
+    assert list(v) == ["full", "no_jacobian", "forward"]
+    assert v["full"] == [] and v["forward"][:1] == v["no_jacobian"]
+    assert {m for *_, m, _ in tps.NORMALS_REGIONS} == {
+        f[2:] for f in v["forward"]}

@@ -5,7 +5,7 @@ and #6 spend their time, on one CUDA card.
 
     python3 tools/torch_phase_split.py          # both parts
     python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14
-    python3 tools/torch_phase_split.py fwd      # #1 and #6 only
+    python3 tools/torch_phase_split.py fwd      # #1, #6 and 6n only
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
 `csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7) and
@@ -34,7 +34,13 @@ render's chunk shapes, bf16, seeded random weights and points: #1 at the
 fine chunk (8192 rays x 192 samples) and the coarse chunk (x 64), #6 at a
 chunk (8192 rays x 96 samples). The differences are the heads', the
 encoding's (what the producer does not hide) and the epilogues' times.
-Prints the card's name and power limit beside the times. Imports torch
+Then it builds `csrc/fused_mip_fwd.cu` three times more from copies of
+`csrc/fwd_hopper.cuh` with 6n's normals tail guarded (under
+`build/phase_split/normals_*`): as it is, without the IPE's Jacobian, and
+without the Jacobian and the walk back (its products and its weight
+slabs), and times 6n on the same chunk: the differences are the
+Jacobian's and the walk back's times, the rest #6's forward with the
+masks kept. Prints the card's name and power limit beside the times. Imports torch
 and the port only.
 """
 
@@ -88,6 +94,26 @@ FWD_REGIONS = (
 )
 
 
+# 6n's guarded regions of the forward walk: the walk back's weight slabs
+# (the producer), the walk back (the consumers) and the IPE's Jacobian.
+NORMALS_SOURCE = "fused_mip_fwd.cu"
+NORMALS_REGIONS = (
+    ("            // ---- the walk back's slabs ----",
+     "            // ---- end of the walk back's slabs ----",
+     "PHASE_NO_NORMALS_BWD", 1),
+    ("        // ---- normals backward ----",
+     "        // ---- end of the normals backward ----",
+     "PHASE_NO_NORMALS_BWD", 1),
+    ("        // ---- jacobian ----", "        // ---- end of the jacobian ----",
+     "PHASE_NO_JACOBIAN", 1),
+)
+NORMALS_VARIANTS = {
+    "full": [],
+    "no_jacobian": ["-DPHASE_NO_JACOBIAN"],
+    "forward": ["-DPHASE_NO_JACOBIAN", "-DPHASE_NO_NORMALS_BWD"],
+}
+
+
 def _replace(src: str, old: str, new: str, count: int = 1,
              header: str = HEADER) -> str:
     """src.replace that fails unless `old` occurs exactly `count` times,
@@ -135,10 +161,10 @@ def patched_sources(csrc: Path) -> dict:
     return out
 
 
-def patched_fwd_header(src: str) -> str:
+def patched_fwd_header(src: str, regions=FWD_REGIONS) -> str:
     """fwd_hopper.cuh with #ifndef guards around the heads, the encoding
-    and the epilogue."""
-    for first, last, macro, count in FWD_REGIONS:
+    and the epilogue (or around 6n's `regions`)."""
+    for first, last, macro, count in regions:
         src = _replace(src, first + "\n", f"#ifndef {macro}\n{first}\n",
                        count, FWD_HEADER)
         src = _replace(src, last + "\n", f"{last}\n#endif\n", count,
@@ -146,13 +172,14 @@ def patched_fwd_header(src: str) -> str:
     return src
 
 
-def patched_fwd_sources(csrc: Path) -> dict:
+def patched_fwd_sources(csrc: Path, normals: bool = False) -> dict:
     """File name -> text of the forward phase-split build: every header
     (the forward walk's patched) and the two forward kernels, which must
-    include it."""
+    include it; with `normals`, 6n's regions guarded and its source."""
     out = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
-    out[FWD_HEADER] = patched_fwd_header(out[FWD_HEADER])
-    for name in FWD_SOURCES:
+    out[FWD_HEADER] = patched_fwd_header(
+        out[FWD_HEADER], NORMALS_REGIONS if normals else FWD_REGIONS)
+    for name in (NORMALS_SOURCE,) if normals else FWD_SOURCES:
         text = (csrc / name).read_text()
         if f'#include "{FWD_HEADER}"' not in text:
             raise ValueError(f"{name} does not include {FWD_HEADER}")
@@ -253,6 +280,29 @@ def fwd_main() -> None:
               f"{t_['no_encode'] - t_['products']:.3f} ms, products and the "
               f"weight stream {t_['products']:.3f} ms, of "
               f"{t_['full']:.3f} ms", flush=True)
+
+    # 6n on the same chunk, its normals tail cut in phases.
+    ncsrc = REPO / "build" / "phase_split" / "normals_csrc"
+    ncsrc.mkdir(parents=True, exist_ok=True)
+    for name, text in patched_fwd_sources(SOURCE_DIR, normals=True).items():
+        (ncsrc / name).write_text(text)
+    _build.CSRC = ncsrc
+    case = f"6n chunk ({n_mip} points)"
+    t6n = {}
+    for name, flags in NORMALS_VARIANTS.items():
+        _build.NVCC_FLAGS = base_flags + flags
+        _build.BUILD_DIR = REPO / "build" / "phase_split" / f"normals_{name}"
+        _build._LIBS.clear()
+        v2._entry.cache_clear()
+        _build.build_all([NORMALS_SOURCE[:-3]])
+        t6n[name] = _time(lambda: fmip.fused_mip_mlp_normals_T(
+            mpacked, means, covs, mviews, 8, 16, "bfloat16"))
+        print(f"[{card}] {case} {name}: {t6n[name]:.3f} ms", flush=True)
+    print(f"[{card}] {case}, bf16: IPE Jacobian "
+          f"{t6n['full'] - t6n['no_jacobian']:.3f} ms, walk back "
+          f"{t6n['no_jacobian'] - t6n['forward']:.3f} ms, forward (with "
+          f"the masks) {t6n['forward']:.3f} ms, of {t6n['full']:.3f} ms",
+          flush=True)
 
 
 def main() -> None:
