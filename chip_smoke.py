@@ -7,10 +7,13 @@ Builds every hand-written kernel of the port from `consistentnerf_tpu_torch/
 csrc/` (one nvcc per source, in parallel) and drives the main paths, each
 with the launch counts set to 0 just before it and read just after:
 
-* the bf16 forward walk of #1 and #6 (`csrc/fwd_hopper.cuh`): the plans
-  that pick it by shapes, and both kernels at ragged sizes (1, 127, 129
-  points and a half-empty last wave) against their plain versions and,
-  bit for bit, against their row-major twins #10 / #15; 6n, #6's walk with
+* the bf16 forward walk of #1, #6, #10 and #12 / #13
+  (`csrc/fwd_hopper.cuh`): the plans that pick it by shapes (#15, fp32
+  and v1's shapes past #1's keep the old walk), and the kernels at ragged
+  sizes (1, 127, 129 points and a half-empty last wave) against their
+  plain versions and bit for bit: #10 against #1 (one walk, two
+  layouts), #12 and #13 against #10, a repeat of each against its first
+  launch, #6 against its row-major twin #15; 6n, #6's walk with
   the normals tail, at the same sizes (rows 0-3 bit for bit #6's, a
   repeat bit for bit, rows 4-6 against the plain version in bf16 and
   fp32); the plans of 6n and #4 (the walk with the compositing tail) at
@@ -42,8 +45,9 @@ with the launch counts set to 0 just before it and read just after:
   one-pass steps with `use_pdf_kernel` through the train CLI;
 * the row-major kernels #10 / #11 at the two-call step's shapes and
   #15 / #16 at the mip level (against their plain versions and the
-  transposed kernels; #11 in bf16 runs the level walk of #2 and gives
-  #2's bits), #11 at the ragged sizes of #2, the op
+  transposed kernels; in bf16 #10 runs #1's walk and #11 the level walk
+  of #2, and each gives its twin's bits), #11 at the ragged sizes of #2,
+  the op
   `fused_mip_mlp_train` (one launch each);
 * the two-call fused step: the flagship with `softLpmask` through the
   train CLI for each `fused_kernel` (v2: #1/#2, v2row: #10/#11, v2h: the
@@ -55,7 +59,8 @@ with the launch counts set to 0 just before it and read just after:
   annealing, through the train CLI, guarded against the eager step;
 * the v1 kernels: #12 at the render's chunk shapes and, at a small size,
   with a skip into the heads, the use_viewdirs=False output head and
-  multires 21; #13 / #14 at the two-call step's levels (#14 in bf16 on
+  multires 21; #13 / #14 at the two-call step's levels (#12 / #13 in bf16
+  at 8x256 on #10's walk, bit for bit #10's and a repeat's; #14 in bf16 on
   the level walk: bit-identical across repeats and to #11 on the same
   points), #14 at the ragged sizes and at the small v1 shapes with the
   plan each picks; the v1 and hybrid renders (#12 for every chunk); the
@@ -587,6 +592,8 @@ def main() -> None:
 # one, and a tile count that leaves the persistent grid's last wave half
 # empty (132 + 66 tiles on an H100, the last one ragged).
 RAGGED_N = (1, 127, 129, 198 * 128 - 50)
+# Points of the two-call step's fine level (5120 rays x 192 samples).
+TWOCALL_FINE = 5120 * 192
 
 
 def normals_plan_text(plan):
@@ -693,12 +700,17 @@ def normals_gates(label, fmip, packed, packed32, means, covs, views, kw):
 
 
 def fwd_walk_phases(dev, fm, v2, fmip):
-    """The Hopper walk of #1 and #6 (csrc/fwd_hopper.cuh): the
-    shape-decided plans, and both kernels at the ragged sizes in bf16
-    against their plain versions (the render chunk's gates) and, bit for
-    bit, against their row-major twins #10 / #15, which keep
-    mlp_fwd.cuh's walk; the walk rounds where that walk does."""
+    """The Hopper walk of #1, #6, #10 and #12 / #13 (csrc/fwd_hopper.cuh):
+    the shape-decided plans (in bf16 #1, #6, #10 and #12 / #13 at 8x256
+    take the walk; #15, fp32 and v1's shapes past #1's keep mlp_fwd.cuh's
+    walk), and the kernels at the ragged sizes in bf16 against their plain
+    versions (the render chunk's gates) and bit for bit: #10 against #1
+    (two layouts of one walk), #12 and #13 against #10 (one instance of
+    it), a repeat of each against its first launch, and #6 against its
+    row-major twin #15, which keeps mlp_fwd.cuh's walk (the walk rounds
+    where that walk does)."""
     from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+    from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 
     mlp = NeRFMLP(net_depth=8, net_width=256)
     mlp.reset_parameters(torch.Generator().manual_seed(1))
@@ -721,6 +733,21 @@ def fwd_walk_phases(dev, fm, v2, fmip):
             ("#10 bf16 (row-major), fine render chunk", v2.fwd_plan(
                 v2.pack(flat, compute_dtype="bfloat16", **nerf_kw),
                 CHUNK * 192, row=True)),
+            ("#10 bf16 (row-major), two-call fine level", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="bfloat16", **nerf_kw),
+                TWOCALL_FINE, row=True)),
+            ("#10 fp32 (row-major), fine render chunk", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="float32", **nerf_kw),
+                CHUNK * 192, row=True)),
+            ("#12 bf16 (v1), fine render chunk", fm.fwd_plan(
+                fm.pack_v1(flat, compute_dtype="bfloat16", **nerf_kw),
+                CHUNK * 192)),
+            ("#13 bf16 (v1), two-call fine level", fm.fwd_plan(
+                fm.pack_v1(flat, compute_dtype="bfloat16", **nerf_kw),
+                TWOCALL_FINE)),
+            ("#12 fp32 (v1), fine render chunk", fm.fwd_plan(
+                fm.pack_v1(flat, compute_dtype="float32", **nerf_kw),
+                CHUNK * 192)),
             ("#6 bf16, render chunk", fmip.fwd_plan(
                 fmip.pack(mflat, 8, 16, "bfloat16"), CHUNK * 96)),
             ("#6 fp32, render chunk", fmip.fwd_plan(
@@ -729,11 +756,24 @@ def fwd_walk_phases(dev, fm, v2, fmip):
                 fmip.pack(mflat, 8, 16, "bfloat16"), 3072 * 128,
                 row=True))):
         log(f"plan of {label}: {fwd_plan_text(plan)}")
-        want_hopper = "bf16" in label and "row-major" not in label
+        want_hopper = "bf16" in label and not label.startswith("#15")
         gate(plan["hopper"] == int(want_hopper), f"the plan of {label} "
              f"picked the {'Hopper' if plan['hopper'] else 'legacy'} walk")
+    # v1's shapes past #1's keep mlp_fwd.cuh's walk in bf16 too.
+    for label, (depth, sk, mr, mv, uv) in V1_SHAPES.items():
+        m = NeRFMLP(net_depth=depth, net_width=256, input_ch=3 * (1 + 2 * mr),
+                    input_ch_views=3 * (1 + 2 * mv), skips=sk,
+                    use_viewdirs=uv, output_ch=5)
+        ws = [x.detach().to(dev) for x in fm.flatten_params(m, uv, depth)]
+        plan = fm.fwd_plan(fm.pack_v1(ws, depth, sk, mr, mv, "bfloat16",
+                                      use_viewdirs=uv), V1_SMALL_N)
+        log(f"plan of #12 bf16 (v1), {label} (depth {depth}, multires {mr}, "
+            f"{V1_SMALL_N} points): {fwd_plan_text(plan)}")
+        gate(plan["hopper"] == 0, f"the plan of #12 at {label} picked the "
+             "Hopper walk")
 
     packed = v2.pack(flat, compute_dtype="bfloat16", **nerf_kw)
+    packed1 = fm.pack_v1(flat, compute_dtype="bfloat16", **nerf_kw)
     mpacked = fmip.pack(mflat, 8, 16, "bfloat16")
     mpacked32 = fmip.pack(mflat, 8, 16, "float32")
     for n in RAGGED_N:
@@ -741,22 +781,26 @@ def fwd_walk_phases(dev, fm, v2, fmip):
         pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
         views = torch.randn(3, n, generator=g)
         views = (views / views.norm(dim=0, keepdim=True)).to(dev)
+        pts_r, views_r = pts.T.contiguous(), views.T.contiguous()
         with torch.no_grad():
             got = v2.fwd_T(packed, pts, views, compute_dtype="bfloat16",
                            **nerf_kw)
             torch.cuda.synchronize()
             want = v2.plain_fwd_T(packed, pts, views,
                                   compute_dtype="bfloat16", **nerf_kw)
-            twin = v2.fwd(packed, pts.T.contiguous(), views.T.contiguous(),
-                          compute_dtype="bfloat16", **nerf_kw).T
+            twin = v2.fwd(packed, pts_r, views_r, compute_dtype="bfloat16",
+                          **nerf_kw)
         rel, mx = rel_err(got, want)
-        same = torch.equal(got, twin)
+        same = torch.equal(got, twin.T)
         log(f"{v2.KERNEL} bf16 vs plain, N={n}: max|diff| {mx:.3e}, "
             f"max|diff|/mean|plain| {rel:.3e} (tol {BF16_TOL}); "
-            f"bit-identical to {v2.ROW_KERNEL} {same}")
+            f"bit-identical to {v2.ROW_KERNEL} (the same walk under the "
+            f"row-major layout) {same}")
         gate(bool(torch.isfinite(got).all()) and rel < BF16_TOL,
              f"{v2.KERNEL} N={n} disagrees with its plain version ({rel})")
         gate(same, f"{v2.KERNEL} N={n}: other bits than {v2.ROW_KERNEL}")
+        v1_bit_gates(f"N={n}", fm, fmt, v2, packed, packed1, pts_r, views_r,
+                     twin, nerf_kw)
         g = torch.Generator().manual_seed(0)
         means = (torch.rand(3, n, generator=g) * 3 - 1.5).to(dev)
         covs = (torch.rand(3, n, generator=g) * 1e-4).to(dev)
@@ -777,12 +821,38 @@ def fwd_walk_phases(dev, fm, v2, fmip):
                      "bfloat16")
         same = torch.equal(got, twin)
         log(f"{fmip.KERNEL} bf16 N={n}: bit-identical to {fmip.ROW_KERNEL} "
-            f"{same}")
+            f"(mlp_fwd.cuh's walk) {same}")
         gate(same, f"{fmip.KERNEL} N={n}: other bits than "
              f"{fmip.ROW_KERNEL}")
         # 6n (#6's walk with the normals tail) on the same points.
         normals_gates(f"{fmip.NORMALS_KERNEL} N={n}", fmip, mpacked,
                       mpacked32, means, covs, mviews, mip_kw)
+
+
+def v1_bit_gates(label, fm, fmt, v2, packed, packed1, pts, views, first,
+                 kw):
+    """At 8x256 in bf16, #10, #12 and #13 run one instance of the Hopper
+    walk under the row-major layout: #12 and #13 on the v1 packing give
+    #10's bits (`first`, #10 on pts / views [N, 3]), and a second launch
+    of each gives its first one's."""
+    with torch.no_grad():
+        r12 = fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16",
+                           **kw)
+        r13 = fmt.forward(packed1, pts, views, compute_dtype="bfloat16", **kw)
+        again = [v2.fwd(packed, pts, views, compute_dtype="bfloat16", **kw),
+                 fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16",
+                              **kw),
+                 fmt.forward(packed1, pts, views, compute_dtype="bfloat16",
+                             **kw)]
+        torch.cuda.synchronize()
+    same = (torch.equal(r12, first), torch.equal(r13, first))
+    rep_ = [torch.equal(a, b) for a, b in zip((first, r12, r13), again)]
+    log(f"#12 / #13 ({fm.KERNEL}) bf16, {label}: bit-identical to #10 "
+        f"{same[0]} / {same[1]}; a second launch of #10 / #12 / #13 "
+        f"bit-identical {rep_[0]} / {rep_[1]} / {rep_[2]}")
+    gate(all(same), f"#12 / #13 {label}: other bits than #10 ({same})")
+    gate(all(rep_), f"#10 / #12 / #13 {label}: a second launch gave other "
+         f"bits ({rep_})")
 
 
 def render_phases(dev, card, configs, fm, v2):
@@ -2667,6 +2737,10 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
             if dtype == "float32":
                 gate(same or rel_t < ROW_VS_T_TOL,
                      f"{v2.ROW_KERNEL} {lvl} disagrees with {v2.KERNEL}")
+            else:
+                # bf16: one Hopper walk under the two layouts.
+                gate(same, f"{v2.ROW_KERNEL} {lvl} bf16 is not bit-identical"
+                     f" to {v2.KERNEL} on the same points")
             del got, want
             got = v2.bwd(w, pts, views, g[lvl], compute_dtype=dtype,
                          **mlp_kw)
@@ -2746,12 +2820,14 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
                                  PEAK_BF16_FLOPS, bpp)
             res[lvl] = (ms, bound, by)
             times[(kern, lvl)] = ms
+            plan = ("; plan: " + fwd_plan_text(
+                v2.fwd_plan(w, pts.shape[0], row=True)) if fwd else "")
             log(f"{tag} {kern} bf16 {lvl} (N={pts.shape[0]}): {ms:.3f} "
                 f"ms/launch ({1e6 * ms / pts.shape[0]:.2f} ns/point); "
                 f"{tkern} on the same points {ms_T:.3f} ms "
                 f"({100 * (ms / ms_T - 1):+.1f}%); bound {bound:.3f} ms "
                 f"({by}, {100 * bound / ms:.1f}% of it, "
-                f"{100 * bound / ms_T:.1f}% of {tkern}'s)")
+                f"{100 * bound / ms_T:.1f}% of {tkern}'s){plan}")
             del pts_T, views_T
         w = v2.pack(flat["fine"], compute_dtype="bfloat16", **mlp_kw)
         pts, views = levels["fine"]
@@ -3101,7 +3177,8 @@ def twocall_phases(dev, card, configs, fm, v2, op, render_ms):
         log(f"{tag} {v2.ROW_KERNEL} bf16 {level} render chunk (N={n10}): "
             f"{ms10:.3f} ms/launch, bound {b10:.3f} ms ({by10}, "
             f"{100 * b10 / ms10:.1f}% of it); {got[v2.ROW_KERNEL] // 2} "
-            f"launches a level in the v2row render")
+            f"launches a level in the v2row render; plan: "
+            f"{fwd_plan_text(v2.fwd_plan(w10, n10, row=True))}")
         del p10, v10
     log(f"{tag} v2row render {len(all_rays)} views: {ms:.2f} ms, "
         f"{stacked.origins[..., 0].numel() / ms * 1e3:.1f} rays/s; default "
@@ -3157,11 +3234,11 @@ MASK_DIFF_SHARE = 1e-4
 def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
     """35-40. The v1 kernels: #12 against its plain version at the
     render's chunk shapes and at small sizes with v1's extra shapes; #13
-    and #14 at the two-call step's levels (#14 bit-identical across
-    repeats); the v1 and hybrid renders; the v1 and hybrid two-call steps
-    through the train CLI (fused_kernel=v1 / hybrid), timed and guarded
-    against the eager step; compute_hard_masks on the card against the
-    CPU."""
+    and #14 at the two-call step's levels (#12 / #13 in bf16 bit-identical
+    to #10 and to a repeat, #14 across repeats); the v1 and hybrid
+    renders; the v1 and hybrid two-call steps through the train CLI
+    (fused_kernel=v1 / hybrid), timed and guarded against the eager step;
+    compute_hard_masks on the card against the CPU."""
     from consistentnerf_tpu_torch.consistency import reproject
     from consistentnerf_tpu_torch.core import rendering, sampling
     from consistentnerf_tpu_torch.data import synthetic
@@ -3228,6 +3305,13 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
                 f"{fm.KERNEL} (#12) vs plain, render {lvl} chunk {dtype}, "
                 f"N={pts.shape[0]}", got, want, dtype,
                 small_mean=lvl == "coarse")
+            if dtype == "bfloat16":
+                w10 = v2.pack(flat[lvl], compute_dtype=dtype, **kw)
+                with torch.no_grad():
+                    r10 = v2.fwd(w10, pts, views, compute_dtype=dtype, **kw)
+                v1_bit_gates(f"render {lvl} chunk", fm, fmt, v2, w10, w, pts,
+                             views, r10, kw)
+                del r10
             del got, want
     # The shapes v1 takes beyond the v2 kernels, at a small size.
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -3333,6 +3417,13 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
                 fail(f"#13 {lvl} {dtype}: non-finite output")
             gate(rel < tol, f"#13 {lvl} {dtype} disagrees with its plain "
                  f"version ({rel:.3e})")
+            if dtype == "bfloat16":
+                w10 = v2.pack(tflat[lvl], compute_dtype=dtype, **kw)
+                with torch.no_grad():
+                    r10 = v2.fwd(w10, pts, views, compute_dtype=dtype, **kw)
+                v1_bit_gates(f"two-call {lvl} level", fm, fmt, v2, w10, w,
+                             pts, views, r10, kw)
+                del r10
             del got, want
             got = fmt.backward(w, pts, views, g[lvl], compute_dtype=dtype,
                                **kw)
@@ -3405,10 +3496,12 @@ def v1_phases(dev, card, configs, fm, v2, op, render_ms, twocall_ms):
             bound, by = bound_ms(pts.shape[0], flops, wbytes,
                                  PEAK_BF16_FLOPS)
             times[(key, lvl)] = (ms, bound, by)
+            plan = ("" if extra else
+                    f"; plan: {fwd_plan_text(fm.fwd_plan(w, pts.shape[0]))}")
             log(f"{tag} {kern} ({key}) bf16 {lvl} (N={pts.shape[0]}): "
                 f"{ms:.3f} ms/launch ({1e6 * ms / pts.shape[0]:.2f} ns/point)"
                 f"; bound {bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of "
-                "it)")
+                f"it){plan}")
         w = fm.pack_v1(wsrc["fine"], compute_dtype="bfloat16", **kw)
         pts, views = lv["fine"]
         args = (w.flat, pts, views) + ((g["fine"],) if extra else ())

@@ -86,15 +86,16 @@ int hopper_launch(const mlp::FhPlan& pl, const void* means, const void* covs,
 
 }  // namespace
 
-// The walk #6 takes at these shapes (row: the row-major instance #15):
-// out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
+// The walk #6 takes at these shapes (row: the row-major instance #15,
+// which keeps fwd_tile: this source builds no row-major instance of the
+// Hopper walk): out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
 extern "C" int fused_mip_fwd_plan(int n, int depth, int width,
                                   int view_width, int skip_mask,
                                   int num_freqs, int deg_view, int use_bf16,
                                   int row, long long* out) {
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, row, mip_instance(d), &pl);
+  const int err = mlp::fh_plan(d, n, use_bf16, !row && mip_instance(d), &pl);
   if (err) return err;
   mlp::fh_plan_slots(pl, d, n, use_bf16, out);
   return 0;
@@ -113,7 +114,7 @@ extern "C" int fused_mip_fwd(const void* means, const void* covs,
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, false, mip_instance(d), &pl);
+  const int err = mlp::fh_plan(d, n, use_bf16, mip_instance(d), &pl);
   if (err) return err;
   if (pl.ok)
     return hopper_launch(pl, means, covs, views, w, b, out, n, d, s);
@@ -164,7 +165,7 @@ constexpr int kNormalsNP = 96;
 // columns, and a warpgroup's rows of the tile large enough for the
 // encoding's fp32 gradient (64 x 96: widths 192 and 256).
 int normals_hopper_plan(const Dims& d, int n, bool bf16_, mlp::FhPlan* pl) {
-  const int err = mlp::fh_plan(d, n, bf16_, false, mip_instance(d), pl);
+  const int err = mlp::fh_plan(d, n, bf16_, mip_instance(d), pl);
   if (err) return err;
   if (!(d.depth <= mlp::kFhMaskDepth && d.P > 64 && d.P <= kNormalsNP &&
         256 * kNormalsNP <= pl->na * 64 * 128))

@@ -12,33 +12,34 @@
 // With float weights the same kernel runs in fp32 on the CUDA cores.
 //
 // Bound (operations: 1,186,816 FLOP and 40 bytes a point at 8x256 /
-// multires 10+4) and weight layout: see mlp_fwd.cuh. In bf16 on the
-// transposed streams at widths 64-256 the kernel runs the Hopper walk of
-// fwd_hopper.cuh (persistent warp-specialised blocks, TMA weight ring,
-// wgmma); fp32, other widths and the row-major instance run mlp_fwd.cuh's
-// walk, both with the NeRF encoder (mlp_common.cuh::NerfEnc). The plan
-// (fused_mlp_fwd_plan) decides by shapes alone.
+// multires 10+4) and weight layout: see mlp_fwd.cuh. In bf16 at widths
+// 64-256 both instances run the Hopper walk of fwd_hopper.cuh (persistent
+// warp-specialised blocks, TMA weight ring, wgmma), #1 under the ColMajor
+// layout and #10 under RowMajor (the encoders read [n, 3] rows, the heads
+// store [n, 4] rows), so #10 gives #1's bits on the same points; fp32 and
+// other widths run mlp_fwd.cuh's walk, both with the NeRF encoder
+// (mlp_common.cuh::NerfEnc). The plan (fused_mlp_fwd_plan) decides by
+// shapes alone, the same for both layouts. Both entries, and the v1
+// forward (fused_mlp_v1_fwd.cu), run fwd_hopper.cuh::fh_nerf_forward.
 
 #include "fwd_hopper.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
 
-// The walk #1 takes at these shapes (row: the row-major instance #10):
-// out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
+// The walk #1 takes at these shapes (row: the row-major instance #10,
+// whose plan is #1's): out[0..7] as mlp::fh_plan_slots. Returns a
+// cudaError_t.
 extern "C" int fused_mlp_fwd_plan(int n, int depth, int width, int skip_mask,
                                   int multires, int multires_views,
                                   int use_bf16, int row, long long* out) {
-  const Dims d(depth, width, skip_mask, multires, multires_views);
-  mlp::FhPlan pl;
-  const int err =
-      mlp::fh_plan(d, n, use_bf16, row, mlp::fh_nerf_instance(d), &pl);
-  if (err) return err;
-  mlp::fh_plan_slots(pl, d, n, use_bf16, out);
-  return 0;
+  (void)row;
+  return mlp::fh_nerf_plan(
+      Dims(depth, width, skip_mask, multires, multires_views), n, use_bf16,
+      out);
 }
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block of mlp_fwd.cuh's walk, in bytes.
 extern "C" int fused_mlp_fwd_smem_bytes(int width, int multires,
                                         int multires_views, int use_bf16) {
   const Dims d(1, width, 0, multires, multires_views);
@@ -55,20 +56,10 @@ extern "C" int fused_mlp_fwd(const void* pts, const void* views,
                              int multires, int multires_views, int use_bf16,
                              void* stream) {
   if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, multires, multires_views);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp::FhPlan pl;
-  const int err =
-      mlp::fh_plan(d, n, use_bf16, false, mlp::fh_nerf_instance(d), &pl);
-  if (err) return err;
-  if (pl.ok)
-    return mlp::fh_nerf_launch<mlp::kFhHeads>(pl, pts, views, w, b, out, n,
-                                              d, s);
-  if (use_bf16)
-    return mlp::fwd_launch<bf16, 128, mlp::NerfEnc>(pts, nullptr, views, w,
-                                                    b, out, n, d, s);
-  return mlp::fwd_launch<float, 64, mlp::NerfEnc>(pts, nullptr, views, w, b,
-                                                  out, n, d, s);
+  return mlp::fh_nerf_forward<mlp::ColMajor>(
+      pts, views, w, b, out, n,
+      Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The row-major instance: pts, views [n, 3] fp32; out [n, 4] fp32 (rgb
@@ -79,11 +70,8 @@ extern "C" int fused_mlp_fwd_row(const void* pts, const void* views,
                                  int multires, int multires_views,
                                  int use_bf16, void* stream) {
   if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, multires, multires_views);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return mlp::fwd_launch<bf16, 128, mlp::NerfEnc, mlp::RowMajor>(
-        pts, nullptr, views, w, b, out, n, d, s);
-  return mlp::fwd_launch<float, 64, mlp::NerfEnc, mlp::RowMajor>(
-      pts, nullptr, views, w, b, out, n, d, s);
+  return mlp::fh_nerf_forward<mlp::RowMajor>(
+      pts, views, w, b, out, n,
+      Dims(depth, width, skip_mask, multires, multires_views), use_bf16,
+      static_cast<cudaStream_t>(stream));
 }

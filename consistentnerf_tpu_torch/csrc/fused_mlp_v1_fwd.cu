@@ -1,4 +1,4 @@
-// The v1 fused NeRF-MLP forward on row-major streams, one kernel.
+// The v1 fused NeRF-MLP forward on row-major streams, one entry point.
 //
 // Replaces two Pallas TPU kernels of the JAX package's first generation:
 // consistentnerf_tpu/ops/fused_mlp.py::fused_mlp (the render's forward,
@@ -11,27 +11,44 @@
 // bf16, `feature` bf16 without ReLU, alpha and rgb fp32; with float
 // weights the same walk runs in fp32 on the CUDA cores.
 //
-// The walk is mlp_fwd.cuh's under the row-major stream layout
-// (mlp_common.cuh::RowMajor) with the NeRF encoder: v1's math is exactly
-// the one the port's walks compute. What v1 takes beyond the v2 kernels
-// (Dims): heads on [pe | h] after a skip at the last trunk layer (the JAX
-// NeRFMLP at netdepth 5), the use_viewdirs=False output head of
-// `out_ch` channels, and PE degrees past the TPU v2 kernel's 20-frequency
-// register (P = pad16(3 (1 + 2 multires)); the shared-memory plan,
-// fused_mlp_v1_fwd_smem_bytes, bounds P, and the wrapper refuses a config
-// past 227 KB).
+// v1's math is exactly the one the port's walks compute, on the
+// row-major stream layout (mlp_common.cuh::RowMajor) with the NeRF
+// encoder. What v1 takes beyond the v2 kernels (Dims): heads on [pe | h]
+// after a skip at the last trunk layer (the JAX NeRFMLP at netdepth 5),
+// the use_viewdirs=False output head of `out_ch` channels, and PE degrees
+// past the TPU v2 kernel's 20-frequency register (P = pad16(3 (1 + 2
+// multires)); the shared-memory plan, fused_mlp_v1_fwd_smem_bytes, bounds
+// P, and the wrapper refuses a config past 227 KB).
 //
 // Bound: operations (1,186,816 FLOP and 40 bytes a point at 8x256 /
-// multires 10+4; see mlp_fwd.cuh for the design: activations of a tile
-// of M points in shared memory, weights streamed from L2 into wmma
-// fragments). No cross-block reduction: the output is deterministic.
+// multires 10+4). Two walks, picked by shapes alone (fused_mlp_v1_fwd_plan):
+// in bf16 at #1's shapes (widths 64-256, heads on h with the view branch,
+// P <= 128; the render #12 and the two-call levels #13 at 8x256 / multires
+// 10+4) the Hopper walk of fwd_hopper.cuh under RowMajor, the instances
+// #10 runs (fh_nerf_forward), so #12 / #13 give #10's bits there; fp32,
+// a skip into the heads, the output head and P > 128 keep mlp_fwd.cuh's
+// walk with v1's head shapes (activations of a tile of M points in shared
+// memory, weights streamed from L2 into wmma fragments). No cross-block
+// reduction: the output is deterministic.
 
-#include "mlp_fwd.cuh"
+#include "fwd_hopper.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
 
-// Dynamic shared memory of one block, in bytes.
+// The walk #12 / #13 take at these shapes: out[0..7] as mlp::fh_plan_slots
+// (slot 4 of mlp_fwd.cuh's walk: fused_mlp_v1_fwd_smem_bytes). Returns a
+// cudaError_t.
+extern "C" int fused_mlp_v1_fwd_plan(int n, int depth, int width,
+                                     int skip_mask, int multires,
+                                     int multires_views, int use_bf16,
+                                     int out_ch, long long* out) {
+  return mlp::fh_nerf_plan(Dims(depth, width, skip_mask, multires,
+                                multires_views, 0, 0, out_ch),
+                           n, use_bf16, out);
+}
+
+// Dynamic shared memory of one block of mlp_fwd.cuh's walk, in bytes.
 extern "C" int fused_mlp_v1_fwd_smem_bytes(int width, int multires,
                                            int multires_views,
                                            int use_bf16) {
@@ -52,12 +69,8 @@ extern "C" int fused_mlp_v1_fwd(const void* pts, const void* views,
                                 int multires, int multires_views,
                                 int use_bf16, int out_ch, void* stream) {
   if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, multires, multires_views, 0, 0,
-               out_ch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return mlp::fwd_launch<bf16, 128, mlp::NerfEnc, mlp::RowMajor, true>(
-        pts, nullptr, views, w, b, out, n, d, s);
-  return mlp::fwd_launch<float, 64, mlp::NerfEnc, mlp::RowMajor, true>(
-      pts, nullptr, views, w, b, out, n, d, s);
+  return mlp::fh_nerf_forward<mlp::RowMajor, true>(
+      pts, views, w, b, out, n,
+      Dims(depth, width, skip_mask, multires, multires_views, 0, 0, out_ch),
+      use_bf16, static_cast<cudaStream_t>(stream));
 }

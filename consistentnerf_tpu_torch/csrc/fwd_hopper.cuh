@@ -2,11 +2,19 @@
 // and #6 (fused_mip_fwd.cu, the MipMLP) for Hopper, and of the two kernels
 // that add a tail after the heads: 6n (fused_mip_fwd.cu, the normals: a
 // walk back through the trunk, see "6n" below) and #4 (render_level.cu,
-// the compositing of whole rays, see "#4" below). fp32, the widths this
-// walk does not take, the row-major twins #10 / #15 and the v1 forward
-// #12 keep mlp_fwd.cuh::fwd_tile (6n mlp_train.cuh's mode 5, #4 fwd_tile
-// and composite_ray). The plan functions of the sources
-// (fused_mlp_fwd_plan, fused_mip_fwd_plan, fused_mip_fwd_normals_plan,
+// the compositing of whole rays, see "#4" below); and of #1's row-major
+// twin #10 (fused_mlp_fwd_row) and the v1 forward #12 / #13
+// (fused_mlp_v1_fwd.cu), which compute #1's function on row-major [N, 3]
+// streams into [N, 4] at the shapes this walk takes. The kernel is
+// templated on the stream layout (mlp_common.cuh::ColMajor / RowMajor):
+// the encoders read the points and views through L::at, and the heads
+// store with a channel stride and a row stride ((n, 1) transposed, (1, 4)
+// row-major, (gp, 1) into #4's group buffer). fp32, the widths this walk
+// does not take, #6's row-major twin #15, and the v1 shapes past #1's
+// (a skip into the heads, the output head, P > 128) keep mlp_fwd.cuh::
+// fwd_tile (6n mlp_train.cuh's mode 5, #4 fwd_tile and composite_ray).
+// The plan functions of the sources (fused_mlp_fwd_plan,
+// fused_mlp_v1_fwd_plan, fused_mip_fwd_plan, fused_mip_fwd_normals_plan,
 // render_level_plan, from fh_plan here) decide by shapes alone which
 // walk runs.
 //
@@ -63,9 +71,10 @@
 // bf16 without ReLU; alpha and rgb in fp32 from the bf16 activations,
 // summed in column order as fwd_tile sums them. So the walk gives
 // fwd_tile's bits (the wgmma products give the wmma products' bits, as in
-// level_train.cuh), and the row-major twins, which keep fwd_tile, the
-// transposed kernels'. No cross-block reduction: two launches give the
-// same bits.
+// level_train.cuh). The row-major layout changes where a value is read and
+// stored, not its value or the order of any sum: #10 and #12 / #13 give
+// #1's bits on the same points, and #15, which keeps fwd_tile, #6's. No
+// cross-block reduction: two launches give the same bits.
 //
 // 6n (kFhNormals): d(raw density)/d(means) after #6's walk, whose rows
 // 0-3 it gives bit for bit. The JAX function (fused_mip.py::
@@ -487,7 +496,10 @@ __device__ inline float fh_safe_sin(float y) {
 // The producer's encoders (threads 288-383): a tile's point features into
 // pe and its view features into ve, every point of the tile (zeros past
 // `valid`), rounded to bf16 at fh_elem. The padding columns stay as the
-// kernel's start zeroed them.
+// kernel's start zeroed them. Coordinate r of point p is read at L::at(r,
+// p, n, 3): a row-major stream's tile is 3 x 128 contiguous floats, read
+// 12 bytes apart by neighbouring threads; the encoders run off the
+// consumers' path, so the reads are direct rather than staged.
 __device__ inline void fh_store(unsigned char* buf, int p, int c, float v) {
   *reinterpret_cast<bf16*>(buf + fh_elem(p, c)) = __float2bfloat16_rn(v);
 }
@@ -504,6 +516,7 @@ __device__ inline float fh_pow2(int k) { return __int_as_float((127 + k) << 23);
 // gives sinf's and cosf's bits.
 template <>
 struct FhEnc<NerfEnc> {
+  template <typename L>
   __device__ static void pe_tile(const float* x, int n, int base, int valid,
                                  int nf, unsigned char* buf) {
     for (int e = threadIdx.x - 288; e < kFhTile * 3 * (1 + nf);
@@ -512,10 +525,10 @@ struct FhEnc<NerfEnc> {
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid && j < 3) {
-        vs = x[(size_t)j * n + base + p];
+        vs = x[L::at(j, base + p, n, 3)];
       } else if (p < valid) {
         const int f = (j - 3) / 3, r = (j - 3) % 3;
-        sincosf(x[(size_t)r * n + base + p] * (float)(1 << f), &vs, &vc);
+        sincosf(x[L::at(r, base + p, n, 3)] * (float)(1 << f), &vs, &vc);
       }
       // ---- end of the encode ----
       const int c = j < 3 ? j : 3 + 6 * ((j - 3) / 3) + (j - 3) % 3;
@@ -523,15 +536,17 @@ struct FhEnc<NerfEnc> {
       if (j >= 3) fh_store(buf, p, c + 3, vc);
     }
   }
+  template <typename L>
   __device__ static void points(const float* pts, const float*, int n,
                                 int base, int valid, const Dims& d,
                                 unsigned char* buf) {
-    pe_tile(pts, n, base, valid, d.multires, buf);
+    pe_tile<L>(pts, n, base, valid, d.multires, buf);
   }
+  template <typename L>
   __device__ static void views(const float* views, int n, int base,
                                int valid, const Dims& d,
                                unsigned char* buf) {
-    pe_tile(views, n, base, valid, d.multires_views, buf);
+    pe_tile<L>(views, n, base, valid, d.multires_views, buf);
   }
 };
 
@@ -540,6 +555,7 @@ struct FhEnc<NerfEnc> {
 // argument, and the IPE pair its damping.
 template <>
 struct FhEnc<MipEnc> {
+  template <typename L>
   __device__ static void points(const float* mean, const float* cov, int n,
                                 int base, int valid, const Dims& d,
                                 unsigned char* buf) {
@@ -549,7 +565,7 @@ struct FhEnc<MipEnc> {
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid) {
-        const size_t at = (size_t)r * n + base + p;
+        const size_t at = L::at(r, base + p, n, 3);
         const float y = mean[at] * fh_pow2(k);
         const float damp = expf(-0.5f * (cov[at] * fh_pow2(2 * k)));
         vs = damp * fh_safe_sin(y);
@@ -560,6 +576,7 @@ struct FhEnc<MipEnc> {
       fh_store(buf, p, j + half, vc);
     }
   }
+  template <typename L>
   __device__ static void views(const float* x, int n, int base, int valid,
                                const Dims& d, unsigned char* buf) {
     const int half = 3 * d.multires_views;
@@ -569,10 +586,10 @@ struct FhEnc<MipEnc> {
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid && j < 3) {
-        vs = x[(size_t)j * n + base + p];
+        vs = x[L::at(j, base + p, n, 3)];
       } else if (p < valid) {
         const int jj = j - 3;
-        const float y = x[(size_t)(jj % 3) * n + base + p] * fh_pow2(jj / 3);
+        const float y = x[L::at(jj % 3, base + p, n, 3)] * fh_pow2(jj / 3);
         vs = fh_safe_sin(y);
         vc = fh_safe_sin(y + kHalfPi);
       }
@@ -595,7 +612,10 @@ __device__ inline int fh_tile(const FhPlan& pl, int k) {
 }
 
 // NP: 6n's encoding-gradient width (the pe rows' products), 0 elsewhere.
-template <typename Enc, int NBW, int NBH, int TAIL = kFhHeads, int NP = 0>
+// L: the streams' layout (mlp_common.cuh): the inputs [3, n] or [n, 3], the
+// raw heads [R, n] or [n, R] (R = 4, 7 with the normals).
+template <typename Enc, int NBW, int NBH, int TAIL = kFhHeads, int NP = 0,
+          typename L = ColMajor>
 __global__ void __launch_bounds__(kFhThreads, 1)
     fwd_hopper_kernel(const float* __restrict__ pts,
                       const float* __restrict__ covs,
@@ -608,22 +628,22 @@ __global__ void __launch_bounds__(kFhThreads, 1)
   extern __shared__ unsigned char fh_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(fh_raw) + 1023) & ~(uintptr_t)1023);
-  const FhSmem L(d, pl.stages, pl.npe, pl.pp, NA, pl.gp);
+  const FhSmem smo(d, pl.stages, pl.npe, pl.pp, NA, pl.gp);
   const int stages = pl.stages, npe = pl.npe, nprod = d.depth + 2;
   const int W = d.width, H = d.half;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + smo.bars);
   uint64_t* empty = full + stages;
   uint64_t* pe_full = empty + stages;
   uint64_t* pe_empty = pe_full + 2;
   uint64_t* ve_full = pe_empty + 2;
   uint64_t* ve_empty = ve_full + 1;
-  uint64_t* heads_full = reinterpret_cast<uint64_t*>(sm + L.hbars);
+  uint64_t* heads_full = reinterpret_cast<uint64_t*>(sm + smo.hbars);
   uint64_t* heads_empty = heads_full + 1;
-  float* heads = reinterpret_cast<float*>(sm + L.heads);
-  FhProd* prods = reinterpret_cast<FhProd*>(sm + L.prods);
-  float* bias_s = reinterpret_cast<float*>(sm + L.bias);
-  bf16* wa_s = reinterpret_cast<bf16*>(sm + L.wa);
-  bf16* wr_s = reinterpret_cast<bf16*>(sm + L.wr);
+  float* heads = reinterpret_cast<float*>(sm + smo.heads);
+  FhProd* prods = reinterpret_cast<FhProd*>(sm + smo.prods);
+  float* bias_s = reinterpret_cast<float*>(sm + smo.bias);
+  bf16* wa_s = reinterpret_cast<bf16*>(sm + smo.wa);
+  bf16* wr_s = reinterpret_cast<bf16*>(sm + smo.wr);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -645,7 +665,7 @@ __global__ void __launch_bounds__(kFhThreads, 1)
   if (threadIdx.x < nprod) prods[threadIdx.x] = fh_prod(d, threadIdx.x);
   // pe and ve (contiguous) start zero: their padding columns and tails
   // are never written again.
-  uint4* z = reinterpret_cast<uint4*>(sm + L.pe);
+  uint4* z = reinterpret_cast<uint4*>(sm + smo.pe);
   for (int e = threadIdx.x; e < (npe * pl.pp + 1) * kFhPanel / 16;
        e += kFhThreads)
     z[e] = make_uint4(0u, 0u, 0u, 0u);
@@ -663,7 +683,7 @@ __global__ void __launch_bounds__(kFhThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (threadIdx.x < 288) {
       if (threadIdx.x == 256) {  // the weight stream
-        unsigned char* ring = sm + L.ring;
+        unsigned char* ring = sm + smo.ring;
         int issued = 0;
         // The next slab into its ring slot: nbx boxes of map `map`, box bx
         // at (column c0 + 64 bx, row r0) or, transposed (6n's walk back),
@@ -726,12 +746,12 @@ __global__ void __launch_bounds__(kFhThreads, 1)
         const int base = tile * kFhTile, valid = min(kFhTile, n - base);
         const int pb = k % npe;
         if (k >= npe) mbar_wait(&pe_empty[pb], (k / npe - 1) & 1);
-        FhEnc<Enc>::points(pts, covs, n, base, valid, d,
-                           sm + L.pe + pb * pl.pp * kFhPanel);
+        FhEnc<Enc>::template points<L>(pts, covs, n, base, valid, d,
+                                       sm + smo.pe + pb * pl.pp * kFhPanel);
         fence_proxy_async();
         mbar_arrive(&pe_full[pb]);
         if (k >= 1) mbar_wait(ve_empty, (k - 1) & 1);
-        FhEnc<Enc>::views(views, n, base, valid, d, sm + L.ve);
+        FhEnc<Enc>::template views<L>(views, n, base, valid, d, sm + smo.ve);
         fence_proxy_async();
         mbar_arrive(ve_full);
         if constexpr (TAIL == kFhRender)
@@ -745,25 +765,32 @@ __global__ void __launch_bounds__(kFhThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
     const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
     const bool lead = lt == 0;
-    unsigned char* rows = sm + L.act + wg * 64 * 128;
-    const uint32_t ring = smem_u32(sm + L.ring);
+    unsigned char* rows = sm + smo.act + wg * 64 * 128;
+    const uint32_t ring = smem_u32(sm + smo.ring);
     const uint32_t act_a = smem_u32(rows);
-    const uint32_t ve_a = smem_u32(sm + L.ve) + wg * 64 * 128;
+    const uint32_t ve_a = smem_u32(sm + smo.ve) + wg * 64 * 128;
     const int zsrc = fh_zero_src(d, pl.pp);
     int last_pe = 0;  // the last product that reads pe
     for (int q = 1; q < d.depth; ++q)
       if (d.skip_before(q)) last_pe = q;
     const float ba = b[d.b_alpha()];
     const float* br = b + d.b_rgb();
-    // Where the heads of a row go: device memory (out's rows, n apart) or,
-    // in #4, the group's buffer in shared memory (rows gp apart).
-    const size_t hld = TAIL == kFhRender ? (size_t)pl.gp : (size_t)n;
+    // Where the heads of a row go: device memory (out's R channels n apart,
+    // or with L row-major each point's R channels together) or, in #4, the
+    // group's buffer in shared memory (channels gp apart): channel c of
+    // row r at h0[c cs + r rs].
+    constexpr int R = TAIL == kFhNormals ? 7 : 4;
+    constexpr bool row_out = L::kRow && TAIL != kFhRender;
+    constexpr int rs = row_out ? R : 1;
+    const size_t cs = TAIL == kFhRender ? (size_t)pl.gp
+                      : row_out         ? (size_t)1
+                                        : (size_t)n;
     // The heads, one thread a row (alpha) or a row and channel (rgb), of
     // this warpgroup's rows from h0 (valid: rows there that are points).
     auto alpha = [&](float* h0, int valid) {
       // ---- alpha head ----
       if (lt < 64 && lt < valid)
-        h0[3 * hld + lt] = fh_row_dot(rows, lt, wa_s, W) + ba;
+        h0[3 * cs + lt * rs] = fh_row_dot(rows, lt, wa_s, W) + ba;
       // ---- end of the alpha head ----
     };
     auto rgb = [&](float* h0, int valid) {
@@ -771,7 +798,7 @@ __global__ void __launch_bounds__(kFhThreads, 1)
       for (int e = lt; e < 3 * 64; e += 128) {
         const int r = e % 64, c = e / 64;
         if (r < valid)
-          h0[c * hld + r] = fh_row_dot(rows, r, wr_s + c * H, H) + br[c];
+          h0[c * cs + r * rs] = fh_row_dot(rows, r, wr_s + c * H, H) + br[c];
       }
       // ---- end of the rgb head ----
     };
@@ -786,14 +813,14 @@ __global__ void __launch_bounds__(kFhThreads, 1)
     float* h_prev = nullptr;
     for (int tile; (tile = fh_tile<TAIL>(pl, k)) < n_tiles; ++k) {
       const int pb = k % npe;
-      const uint32_t pe_a = smem_u32(sm + L.pe + pb * pl.pp * kFhPanel) +
+      const uint32_t pe_a = smem_u32(sm + smo.pe + pb * pl.pp * kFhPanel) +
                             wg * 64 * 128;
       const uint32_t az = zsrc ? ve_a + 2 * d.V : pe_a + fh_col(d.P);
       const int g0 = tile * kFhTile + 64 * wg;  // this warpgroup's row 0
       const int valid = n - g0;                 // rows past it are padding
       float* h0 = TAIL == kFhRender
                       ? heads + (k % pl.gt) * kFhTile + 64 * wg
-                      : out + g0;
+                      : out + (size_t)g0 * rs;
       if constexpr (TAIL == kFhNormals) {
 #pragma unroll
         for (int r = 0; r < MW; ++r) mk[r] = 0u;
@@ -897,7 +924,7 @@ __global__ void __launch_bounds__(kFhThreads, 1)
         for (int e = lt; e < 3 * 64; e += 128) {
           const int p = e % 64, r = e / 64, F = d.multires;
           if (p >= valid) continue;
-          const size_t at = (size_t)r * n + g0 + p;
+          const size_t at = L::at(r, g0 + p, n, 3);
           const float mean = pts[at], cov = covs[at];
           const unsigned char* gr = rows + 128 * p;
           float s = 0.f;
@@ -913,7 +940,7 @@ __global__ void __launch_bounds__(kFhThreads, 1)
             const float a1 = g_c * damp * safe_cos(y + kHalfPi);
             s += a0 * fh_pow2(kq) + a1 * fh_pow2(kq);
           }
-          out[(size_t)(4 + r) * n + g0 + p] = s;
+          out[L::at(4 + r, g0 + p, n, R)] = s;
         }
         // ---- end of the jacobian ----
         // (The next tile's layer 0 writes rows after a barrier.)
@@ -932,13 +959,16 @@ __global__ void __launch_bounds__(kFhThreads, 1)
 }
 
 // The plan at these shapes. `instance`: the source holds the kernel for
-// (width / 64, ceil(half / 64)). The walk takes bf16 on the transposed
-// streams, widths that are multiples of 64 up to 256, a view layer up to
-// 256 wide, P up to 128 and V up to 64 columns, zero columns for the
-// steps past each reduction, and a shared memory that holds two pe buffers
-// and a ring of 3 slots, or 2 (else one pe buffer), and, for #4, the heads
-// of a group of gp points (0 elsewhere). Returns a cudaError_t.
-inline int fh_plan(const Dims& d, int n, bool bf16_, bool row, bool instance,
+// (width / 64, ceil(half / 64)) and the streams' layout (#15's source has
+// no row-major instance yet). The walk takes bf16 on either layout, widths
+// that are multiples of 64 up to 256, a view layer up to 256 wide, P up
+// to 128 and V up to 64 columns, heads on h alone with the view branch
+// (no skip into the heads, no output head: the v1 shapes past #1's), zero
+// columns for the steps past each reduction, and a shared memory that
+// holds two pe buffers and a ring of 3 slots, or 2 (else one pe buffer),
+// and, for #4, the heads of a group of gp points (0 elsewhere). Returns a
+// cudaError_t.
+inline int fh_plan(const Dims& d, int n, bool bf16_, bool instance,
                    FhPlan* pl, int gp = 0) {
   *pl = FhPlan{};
   pl->tiles = (n + kFhTile - 1) / kFhTile;
@@ -947,7 +977,7 @@ inline int fh_plan(const Dims& d, int n, bool bf16_, bool row, bool instance,
   const int nbw = d.width / 64, nbh = (d.half + 63) / 64;
   pl->na = nbw > nbh ? nbw : nbh;
   pl->pp = (d.P + 63) / 64;
-  if (!(bf16_ && !row && instance && d.width % 64 == 0 && d.width <= 256 &&
+  if (!(bf16_ && instance && d.width % 64 == 0 && d.width <= 256 &&
         d.half % 16 == 0 && d.half <= 256 && d.P <= 128 && d.V <= 64 &&
         d.depth >= 1 && d.depth + 2 <= kFhMaxProds && !d.head_skip() &&
         d.out_ch == 0 && fh_zero_src(d, pl->pp) >= 0))
@@ -993,7 +1023,8 @@ inline void fh_plan_slots(const FhPlan& pl, const Dims& d, int n, bool bf16_,
   out[7] = (n + out[1] - 1) / out[1];
 }
 
-template <typename Enc, int NBW, int NBH, int TAIL = kFhHeads, int NP = 0>
+template <typename Enc, int NBW, int NBH, int TAIL = kFhHeads, int NP = 0,
+          typename L = ColMajor>
 int fh_launch(const FhPlan& pl, const void* pts, const void* covs,
               const void* views, const void* w, const void* b, void* out,
               int n, const Dims& d, cudaStream_t stream,
@@ -1005,7 +1036,7 @@ int fh_launch(const FhPlan& pl, const void* pts, const void* covs,
   WMaps maps = {};
   int err = weight_maps(d, static_cast<const bf16*>(w), &maps);
   if (err) return err;
-  auto kernel = fwd_hopper_kernel<Enc, NBW, NBH, TAIL, NP>;
+  auto kernel = fwd_hopper_kernel<Enc, NBW, NBH, TAIL, NP, L>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (e != cudaSuccess) return (int)e;
@@ -1017,33 +1048,64 @@ int fh_launch(const FhPlan& pl, const void* pts, const void* covs,
   return (int)cudaGetLastError();
 }
 
-// The NeRFMLP's instances of the walk (#1, #4): (width / 64, ceil(half /
-// 64)) at widths 64, 128, 192, 256 (half = width / 2).
+// The NeRFMLP's instances of the walk (#1, #4, and under RowMajor #10 and
+// #12 / #13): (width / 64, ceil(half / 64)) at widths 64, 128, 192, 256
+// (half = width / 2).
 inline bool fh_nerf_instance(const Dims& d) {
   const int nbw = d.width / 64, nbh = (d.half + 63) / 64;
   return (nbw == 1 && nbh == 1) || (nbw == 2 && nbh == 1) ||
          (nbw == 3 && nbh == 2) || (nbw == 4 && nbh == 2);
 }
 
-template <int TAIL>
+template <int TAIL, typename L = ColMajor>
 int fh_nerf_launch(const FhPlan& pl, const void* pts, const void* views,
                    const void* w, const void* b, void* out, int n,
                    const Dims& d, cudaStream_t s,
                    const FhRays& rays = FhRays{}) {
   switch (d.width / 64) {
     case 1:
-      return fh_launch<NerfEnc, 1, 1, TAIL>(pl, pts, nullptr, views, w, b,
-                                            out, n, d, s, rays);
+      return fh_launch<NerfEnc, 1, 1, TAIL, 0, L>(pl, pts, nullptr, views, w,
+                                                  b, out, n, d, s, rays);
     case 2:
-      return fh_launch<NerfEnc, 2, 1, TAIL>(pl, pts, nullptr, views, w, b,
-                                            out, n, d, s, rays);
+      return fh_launch<NerfEnc, 2, 1, TAIL, 0, L>(pl, pts, nullptr, views, w,
+                                                  b, out, n, d, s, rays);
     case 3:
-      return fh_launch<NerfEnc, 3, 2, TAIL>(pl, pts, nullptr, views, w, b,
-                                            out, n, d, s, rays);
+      return fh_launch<NerfEnc, 3, 2, TAIL, 0, L>(pl, pts, nullptr, views, w,
+                                                  b, out, n, d, s, rays);
     default:
-      return fh_launch<NerfEnc, 4, 2, TAIL>(pl, pts, nullptr, views, w, b,
-                                            out, n, d, s, rays);
+      return fh_launch<NerfEnc, 4, 2, TAIL, 0, L>(pl, pts, nullptr, views, w,
+                                                  b, out, n, d, s, rays);
   }
+}
+
+// The NeRFMLP forward of #1 (ColMajor), #10 (RowMajor) and #12 / #13
+// (RowMajor, V1: v1's head shapes where fwd_tile runs): this walk where
+// fh_plan takes it, else mlp_fwd.cuh's walk (in fp32 on the CUDA cores).
+// Returns a cudaError_t.
+template <typename L, bool V1 = false>
+int fh_nerf_forward(const void* pts, const void* views, const void* w,
+                    const void* b, void* out, int n, const Dims& d,
+                    bool bf16_, cudaStream_t s) {
+  FhPlan pl;
+  const int err = fh_plan(d, n, bf16_, fh_nerf_instance(d), &pl);
+  if (err) return err;
+  if (pl.ok)
+    return fh_nerf_launch<kFhHeads, L>(pl, pts, views, w, b, out, n, d, s);
+  if (bf16_)
+    return fwd_launch<bf16, 128, NerfEnc, L, V1>(pts, nullptr, views, w, b,
+                                                 out, n, d, s);
+  return fwd_launch<float, 64, NerfEnc, L, V1>(pts, nullptr, views, w, b,
+                                               out, n, d, s);
+}
+
+// fh_nerf_forward's plan at these shapes, the same for both layouts:
+// out[0..7] as fh_plan_slots. Returns a cudaError_t.
+inline int fh_nerf_plan(const Dims& d, int n, bool bf16_, long long* out) {
+  FhPlan pl;
+  const int err = fh_plan(d, n, bf16_, fh_nerf_instance(d), &pl);
+  if (err) return err;
+  fh_plan_slots(pl, d, n, bf16_, out);
+  return 0;
 }
 
 }  // namespace mlp

@@ -120,7 +120,7 @@ long long group_points(int seg) {
 int hopper_plan(const Dims& d, int n_rays, int seg, bool bf16_,
                 mlp::FhPlan* pl) {
   const long long gp = group_points(seg);
-  return mlp::fh_plan(d, n_rays * seg, bf16_, false,
+  return mlp::fh_plan(d, n_rays * seg, bf16_,
                       gp > 0 && mlp::fh_nerf_instance(d), pl, (int)gp);
 }
 

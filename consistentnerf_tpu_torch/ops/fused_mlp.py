@@ -20,8 +20,9 @@ directions in, [N, 4] (or [N, output_ch]) out. On a CUDA tensor it
 launches `fused_mlp_v1_fwd` (or raises); on a CPU tensor it runs
 `_mlp_body`. The TPU kernel's `tile` and `interpret` arguments are Pallas
 devices and are dropped. `v1_forward` is the launch that #12 and the v1
-train forward (#13, `ops/fused_mlp_train.py`) share; `pack_v1` packs the
-weights as the v1 kernels read them.
+train forward (#13, `ops/fused_mlp_train.py`) share, `fwd_plan` the walk
+it takes by shapes; `pack_v1` packs the weights as the v1 kernels read
+them.
 """
 
 from __future__ import annotations
@@ -284,6 +285,18 @@ def v1_forward(packed, pts: torch.Tensor, views: torch.Tensor):
 
     return v2.fwd_launch(KERNEL, KERNEL, packed, pts, views, True,
                          (packed.out_ch,))
+
+
+def fwd_plan(packed, n: int) -> dict:
+    """The walk that `fused_mlp_v1_fwd` (#12, #13) runs for n points of the
+    v1 `packed`, decided by shapes alone (`fused_mlp_v1_fwd_plan`, the
+    eight slots of `fused_mlp_v2.PLAN_SLOTS`): in bf16 at #1's shapes the
+    Hopper walk that #10 runs; a skip into the heads, the output head, P >
+    128 and fp32 keep `mlp_fwd.cuh`'s walk. Needs the card."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    return v2.plan_dict(v2._entry(KERNEL, KERNEL + "_plan", 0, 8),
+                        (n, *v2._cfg_ints(packed), packed.out_ch))
 
 
 def fused_mlp(weights, pts: torch.Tensor, viewdirs: torch.Tensor, *,

@@ -348,8 +348,7 @@ def fwd_launch(lib: str, symbol: str, packed: PackedMLP, pts, views,
     for name, t in (("pts", pts), ("views", views)):
         _check_stream(name, t, 3, n, dev, row)
     _check_weights(packed, dev)
-    if symbol == KERNEL:
-        check_tma_weights(packed)
+    check_tma_weights(packed)  # the Hopper walk's TMA, in bf16
     c = packed.out_ch or 4
     out = torch.empty((n, c) if row else (c, n), dtype=torch.float32,
                       device=dev)
@@ -580,11 +579,11 @@ def _check_weights(packed: PackedMLP, device):
 
 
 def check_tma_weights(packed: PackedMLP):
-    """The bf16 forwards #1 and #6 (`csrc/fwd_hopper.cuh`) and the level
-    walk of the weight grads (`csrc/level_train.cuh`) read the packed
-    weights by TMA: the buffer's base and the row strides of its two
-    weight maps (2 width and 2 view_width bytes) must be multiples of 16
-    bytes."""
+    """The bf16 forwards #1, #6, #10 and #12 / #13 (`csrc/fwd_hopper.cuh`)
+    and the level walk of the weight grads (`csrc/level_train.cuh`) read
+    the packed weights by TMA: the buffer's base and the row strides of its
+    two weight maps (2 width and 2 view_width bytes) must be multiples of
+    16 bytes."""
     if packed.compute_dtype != torch.bfloat16:
         return
     if (packed.w.data_ptr() % 16 or (2 * packed.width) % 16
@@ -609,9 +608,9 @@ def plan_dict(fn, args) -> dict:
 
 
 def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
-    """The walk that kernel #1 (or, with `row`, #10) runs for n points of
-    `packed`, decided by shapes alone (`fused_mlp_fwd_plan`); needs the
-    card."""
+    """The walk that kernel #1 (or, with `row`, #10: the same plan) runs
+    for n points of `packed`, decided by shapes alone
+    (`fused_mlp_fwd_plan`); needs the card."""
     return plan_dict(_entry(KERNEL, "fused_mlp_fwd_plan", 0, 8),
                      (n, *_cfg_ints(packed), int(row)))
 

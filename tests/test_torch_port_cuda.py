@@ -1031,6 +1031,49 @@ def test_v1_kernels_match_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 198 * 128 - 50])
+def test_v1_forward_runs_10s_walk_at_its_shapes(cuda_device, n):
+    """At 8x256 / multires 10+4 in bf16, #12 and #13 plan and run #10's
+    instance of the Hopper walk: #10's plan, #10's bits on the same points
+    (and #1's, transposed), and a repeat's bits; fp32 keeps mlp_fwd.cuh's
+    walk."""
+    flat = _v1_flat(*V1_SHAPES["depth8"], cuda_device)
+    kw = dict(net_depth=8, skips=(4,), multires=10, multires_views=4)
+    packed1 = fm.pack_v1(flat, compute_dtype="bfloat16", **kw)
+    packed = v2.pack(flat, compute_dtype="bfloat16", **kw)
+    assert fm.fwd_plan(packed1, n) == v2.fwd_plan(packed, n, row=True)
+    assert fm.fwd_plan(packed1, n)["hopper"] == 1
+    assert fm.fwd_plan(fm.pack_v1(flat, compute_dtype="float32", **kw),
+                       n)["hopper"] == 0
+    pts_T, views_T = _inputs(n, cuda_device)
+    pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
+    r10 = v2.fwd(packed, pts, views, compute_dtype="bfloat16", **kw)
+    r12 = fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16", **kw)
+    r13 = fmt.forward(packed1, pts, views, compute_dtype="bfloat16", **kw)
+    again = fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16", **kw)
+    r1 = v2.fwd_T(packed, pts_T, views_T, compute_dtype="bfloat16", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(r12, r10) and torch.equal(r13, r10)
+    assert torch.equal(again, r12) and torch.equal(r10, r1.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["skip_heads", "multires21",
+                                   "output_head"])
+def test_v1_forward_plan_keeps_the_old_walk_past_1s_shapes(cuda_device,
+                                                           shape):
+    """A skip into the heads, P = 144 at multires 21 and the output head
+    are shapes the Hopper walk does not take: #12's plan keeps
+    mlp_fwd.cuh's walk there in bf16, with its shared memory."""
+    depth, skips, mr, mv, uv = V1_SHAPES[shape]
+    packed = fm.pack_v1(_v1_flat(depth, skips, mr, mv, uv, cuda_device),
+                        depth, skips, mr, mv, "bfloat16", use_viewdirs=uv)
+    plan = fm.fwd_plan(packed, 3000)
+    assert plan["hopper"] == 0 and plan["tile"] == 128
+    assert plan["smem_bytes"] == fm.v1_smem_bytes(packed)[0]
+
+
+@pytest.mark.cuda
 def test_v1_routes_go_through_their_kernels(cuda_device):
     """One two-call step of each v1 kind (v1: #13 and #14 per level;
     hybrid: #14 only) and the v1 render (#12 per level and chunk)."""
@@ -1101,7 +1144,7 @@ def test_hard_masks_on_the_card_match_the_cpu(cuda_device):
 def test_hopper_walk_matches_plain_at_ragged_sizes(cuda_device, width, n):
     """#1 in bf16 runs the Hopper walk at widths 64-256: against its plain
     version at ragged sizes, and bit for bit against its row-major twin
-    #10, which keeps mlp_fwd.cuh's walk (the two round alike)."""
+    #10, the same walk under the row-major layout."""
     flat = _mlp_flat(width, cuda_device)
     pts_T, views_T = _inputs(n, cuda_device)
     packed = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
@@ -1159,8 +1202,9 @@ def test_hopper_walks_repeat_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
-    """The plans take the Hopper walk at the flagship shapes and
-    mlp_fwd.cuh's walk in fp32, at width 32 and for the row-major twins."""
+    """The plans take the Hopper walk at the flagship shapes, for #1 and
+    its row-major twin #10 alike, and mlp_fwd.cuh's walk in fp32, at width
+    32 and for the mip's row-major twin #15."""
     n = 8192 * 192
     flat = _mlp_flat(256, cuda_device)
     bf = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
@@ -1173,7 +1217,7 @@ def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
                        n)["hopper"] == 0
     assert v2.fwd_plan(v2.pack(_mlp_flat(32, cuda_device), 8, SKIPS, MR, MV,
                                "bfloat16"), n)["hopper"] == 0
-    assert v2.fwd_plan(bf, n, row=True)["hopper"] == 0
+    assert v2.fwd_plan(bf, n, row=True) == plan
     mflat = _mip_flat(256, cuda_device)
     mbf = fmip.pack(mflat, 8, 16, "bfloat16")
     assert fmip.fwd_plan(mbf, 8192 * 96)["hopper"] == 1

@@ -1,9 +1,12 @@
-"""The forwards #1 and #6 at the ragged sizes the card tests give the
-Hopper walk (`csrc/fwd_hopper.cuh`): one point, a tile less one, a tile
-and one, two tiles and one. The port's CPU path (the kernels' plain
-versions) against the JAX package's Pallas kernels `fused_mlp_v2.
-_fwd_pallas_T` and `fused_mip._fwd_pallas_T`, run in interpret mode as
-the JAX package's own tests run them, at width 64 and small encodings.
+"""The forwards on the Hopper walk (`csrc/fwd_hopper.cuh`) at the ragged
+sizes the card tests give it: one point, a tile less one, a tile and one,
+two tiles and one. The port's CPU path (the kernels' plain versions)
+against the JAX package's Pallas kernels, run in interpret mode as the
+JAX package's own tests run them, at width 64 and small encodings:
+#1 and #6 (`fused_mlp_v2._fwd_pallas_T`, `fused_mip._fwd_pallas_T`) on
+transposed streams, and the row-major forwards that take the same walk
+under the row-major layout: #10 (`fused_mlp_v2._fwd_pallas`) and the v1
+forward #12 / #13 (`fused_mlp.fused_mlp`, `fused_mlp_train._fwd_pallas`).
 Inputs and weights are made from seeds with numpy and JAX's init.
 """
 
@@ -17,10 +20,12 @@ from consistentnerf_tpu.models.mlp import MipMLP as JaxMipMLP
 from consistentnerf_tpu.models.mlp import NeRFMLP as JaxNeRFMLP
 from consistentnerf_tpu.ops import fused_mip as jfmip
 from consistentnerf_tpu.ops import fused_mlp as jfm
+from consistentnerf_tpu.ops import fused_mlp_train as jfmt
 from consistentnerf_tpu.ops import fused_mlp_v2 as jv2
 from consistentnerf_tpu_torch import interop
 from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
+from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
 SIZES = (1, 127, 129, 257)
@@ -44,12 +49,18 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def nerf():
-    """Seeded JAX NeRFMLP params as the JAX flat list and the port's."""
+def nerf_params():
+    """Seeded JAX NeRFMLP params (numpy leaves)."""
     mlp = JaxNeRFMLP(net_depth=DEPTH, net_width=WIDTH, skips=SKIPS)
     params = mlp.init(jax.random.PRNGKey(0), jnp.zeros((2, 3 + 6 * MR)),
                       jnp.zeros((2, 3 + 6 * MV)))
-    params = jax.tree_util.tree_map(np.asarray, params)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def nerf(nerf_params):
+    """Seeded JAX NeRFMLP params as the JAX flat list and the port's."""
+    params = nerf_params
     jflat = [jnp.asarray(w) for w in jfm.flatten_params(params, True,
                                                         DEPTH)]
     jflat = [w[None, :] if w.ndim == 1 else w for w in jflat]
@@ -123,3 +134,67 @@ def test_mip_plain_fwd_matches_jax_kernel_at_ragged_sizes(mip, n, dtype):
     got = fmip.plain_fwd_T(flat, torch.from_numpy(m), torch.from_numpy(c),
                            torch.from_numpy(v), MIP_DEPTH, MIP_FREQS, dtype)
     _check(got.numpy(), want, dtype)
+
+
+# The row-major forwards: the JAX kernels' tile (ragged sizes past it pad
+# the last grid step) and the functions that take [N, 3] streams.
+ROW_TILE = 128
+
+
+def _row_streams(n):
+    return tuple(np.ascontiguousarray(x.T) for x in _nerf_streams(n))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_plain_fwd_row_matches_jax_row_kernel_at_ragged_sizes(nerf, n,
+                                                              dtype):
+    """#10: `plain_fwd_row` (the CPU path of `fused_mlp_v2.fwd`) against
+    the JAX `_fwd_pallas` on [N, 3] streams, [N, 4] out."""
+    jflat, flat = nerf
+    pts, views = _row_streams(n)
+    want = np.asarray(jv2._fwd_pallas(
+        jflat, jnp.asarray(pts), jnp.asarray(views), DEPTH, SKIPS, MR, MV,
+        ROW_TILE, True, jnp.float32 if dtype == "float32" else jnp.bfloat16))
+    got = v2.plain_fwd_row(flat, torch.from_numpy(pts),
+                           torch.from_numpy(views), DEPTH, SKIPS, MR, MV,
+                           dtype)
+    _check(got.numpy(), want, dtype)
+    before = v2.row_launches
+    assert torch.equal(v2.fwd(flat, torch.from_numpy(pts),
+                              torch.from_numpy(views), DEPTH, SKIPS, MR, MV,
+                              dtype), got)
+    assert v2.row_launches == before  # CPU tensors: no kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_v1_plain_fwd_matches_jax_v1_kernels_at_ragged_sizes(
+        nerf_params, nerf, n, dtype):
+    """#12 / #13: the v1 forward's plain version, the CPU path of both
+    `fused_mlp.fused_mlp` and `fused_mlp_train.forward`, against the JAX
+    render kernel `fused_mlp.fused_mlp` and the train forward
+    `fused_mlp_train._fwd_pallas` on the same [N, 3] streams; at these
+    shapes (view branch, no skip into the heads) the JAX v1 kernels and #10
+    compute one function."""
+    jflat, flat = nerf
+    pts, views = _row_streams(n)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want12 = np.asarray(jfm.fused_mlp(
+        nerf_params, jnp.asarray(pts), jnp.asarray(views), net_depth=DEPTH,
+        skips=SKIPS, multires=MR, multires_views=MV, tile=ROW_TILE,
+        interpret=True, compute_dtype=jdt))
+    want13 = np.asarray(jfmt._fwd_pallas(
+        tuple(jflat), jnp.asarray(pts), jnp.asarray(views), DEPTH, SKIPS,
+        MR, MV, ROW_TILE, True, jdt))
+    pts_t, views_t = torch.from_numpy(pts), torch.from_numpy(views)
+    before = (fm.launches, fmt.fwd_launches)
+    got12 = fm.fused_mlp(flat, pts_t, views_t, net_depth=DEPTH, skips=SKIPS,
+                         multires=MR, multires_views=MV, compute_dtype=dtype)
+    got13 = fmt.forward(flat, pts_t, views_t, DEPTH, SKIPS, MR, MV, dtype)
+    assert (fm.launches, fmt.fwd_launches) == before
+    assert torch.equal(got12, got13)
+    assert torch.equal(got13, fmt.plain_forward(flat, pts_t, views_t, DEPTH,
+                                                SKIPS, MR, MV, dtype))
+    _check(got12.numpy(), want12, dtype)
+    _check(got13.numpy(), want13, dtype)

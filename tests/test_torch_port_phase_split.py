@@ -4,7 +4,7 @@ of the forward walk's.
 The tool times #3 and #5 (and #2, #7, #11 and #14, the same walk in mode
 2) with
 their phases cut out by preprocessor guards that it writes into a copy
-of `csrc/level_train.cuh` at string anchors, and #1 and #6 likewise
+of `csrc/level_train.cuh` at string anchors, and #1, #10 and #6 likewise
 with a copy of `csrc/fwd_hopper.cuh` (the heads, the encoding, the
 epilogue). The timing needs a card; the patching is string work,
 checked here against the committed sources, so that an edit of a header
@@ -119,6 +119,24 @@ def test_every_forward_anchor_is_found_in_the_committed_header():
     for first, last, macro, count in tps.FWD_REGIONS:
         assert header.count(f"#ifndef {macro}\n{first}\n") == count
         assert header.count(f"{last}\n#endif\n") == count
+
+
+def test_the_row_major_forward_is_split_with_the_walk():
+    """#10 (`fused_mlp_fwd_row`) runs the walk under the row-major layout
+    from the same patched source as #1, so its variants cut the same
+    regions: every guarded encoder reads its points through the layout,
+    and both heads store with the layout's strides."""
+    out = tps.patched_fwd_sources(CSRC)
+    assert "fh_nerf_forward<mlp::RowMajor>" in out[
+        "fused_mlp_fwd.cu"]
+    header = out[tps.FWD_HEADER]
+    for first, last, macro, count in tps.FWD_REGIONS:
+        chunks = header.split(f"#ifndef {macro}\n{first}\n")[1:]
+        bodies = [c[:c.index(f"{last}\n#endif\n")] for c in chunks]
+        if macro == "PHASE_NO_ENCODE":
+            assert all("L::at(" in b and "* n +" not in b for b in bodies)
+        if macro == "PHASE_NO_HEADS":
+            assert all("cs + " in b and " * rs]" in b for b in bodies)
 
 
 @pytest.mark.parametrize("source", tps.FWD_SOURCES)

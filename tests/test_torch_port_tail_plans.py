@@ -12,7 +12,12 @@ the CPU, with fake entry points in place of the kernel library (as
 * #4's group arithmetic mirrored in Python (`render_group`,
   `render_smem_bytes`): points, tiles and rays a group at S = 48, 64, 96
   and 192, whose groups fit beside the walk at 8x256, and an S whose
-  group does not.
+  group does not;
+* the row-major forwards on the walk, #10 (`fused_mlp_fwd_row`) and the
+  v1 forward #12 / #13 (`fused_mlp_v1_fwd`): their plans' eight slots
+  (`fused_mlp_v2.fwd_plan(row=True)`, `fused_mlp.fwd_plan`) and the
+  pointer and int counts of the plans and the launches against
+  `csrc/fused_mlp_fwd.cu` and `csrc/fused_mlp_v1_fwd.cu`.
 """
 
 import re
@@ -36,6 +41,8 @@ N = 300
 NORMALS_HOPPER = (1, 128, 2, 1, 220_000, 3, 2, 3, 1, 0)
 NORMALS_MODE5 = (0, 768, 0, 1, 90_000, 1, 0, 1, 0, 4_321)
 RENDER_PLAN = (1, 384, 3, 2, 231_520, 132, 3, 4096)
+# A fake forward plan: the Hopper walk at 8192 x 192 points.
+FWD_PLAN = (1, 128, 3, 1, 225_360, 132, 2, 12_288)
 
 
 def c_signature(source: str, symbol: str):
@@ -60,6 +67,7 @@ class FakeLibrary:
 
     def __init__(self, slots):
         self.slots, self.calls, self.entries = slots, [], []
+        self.plan_ints = {}
 
     def __call__(self, lib, symbol, n_ptr, n_int):
         self.entries.append((lib, symbol, n_ptr, n_int))
@@ -69,6 +77,7 @@ class FakeLibrary:
             if symbol.endswith("_plan"):
                 out = args[-1]
                 self.calls.append((symbol, len(out)))
+                self.plan_ints[symbol] = args[n_ptr:-1]
                 for i, v in enumerate(self.slots[:len(out)]):
                     out[i] = v
             else:
@@ -215,3 +224,65 @@ def test_a_group_that_does_not_fit_keeps_the_old_kernel():
     assert op.render_group(150) == (9600, 75, 64)
     assert op.render_smem_bytes(packed, 150) is None
     assert op.render_smem_bytes(packed, 100)[1:] == (2, 1)
+
+
+def _row_fwd(which, dtype="bfloat16"):
+    """(packed weights, [N, 3] points, [N, 3] views, C entry, source) of
+    #10 ("row": `fused_mlp_v2.pack`) or #12 / #13 ("v1": `pack_v1`)."""
+    mlp = NeRFMLP(net_depth=4, net_width=64, skips=(2,), input_ch=3 * 9,
+                  input_ch_views=3 * 5)
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    flat = fm.flatten_params(mlp, True, 4)
+    g = torch.Generator().manual_seed(1)
+    pts, views = (torch.rand(N, 3, generator=g) for _ in range(2))
+    if which == "row":
+        return (v2.pack(flat, 4, (2,), 4, 2, dtype), pts, views,
+                v2.ROW_KERNEL, "fused_mlp_fwd.cu")
+    return (fm.pack_v1(flat, 4, (2,), 4, 2, dtype), pts, views, fm.KERNEL,
+            "fused_mlp_v1_fwd.cu")
+
+
+@pytest.mark.parametrize("which", ["row", "v1"])
+def test_row_forward_plans_fill_eight_slots(fake, which):
+    """#10's plan is `fused_mlp_fwd_plan` with row = 1; #12 / #13's the new
+    `fused_mlp_v1_fwd_plan`, which also takes the output head's channels:
+    8 ints each and the eight slots of `PLAN_SLOTS`."""
+    lib = fake(FWD_PLAN)
+    packed, *_ = _row_fwd(which)
+    if which == "row":
+        plan, symbol = v2.fwd_plan(packed, N, row=True), "fused_mlp_fwd_plan"
+        source, last = "fused_mlp_fwd.cu", 1
+    else:
+        plan, symbol = fm.fwd_plan(packed, N), fm.KERNEL + "_plan"
+        source, last = "fused_mlp_v1_fwd.cu", packed.out_ch
+    assert plan == dict(zip(v2.PLAN_SLOTS, FWD_PLAN))
+    assert len(v2.PLAN_SLOTS) == 8
+    assert [c[1] for c in lib.calls if c[0] == symbol] == [8]
+    assert list(lib.plan_ints[symbol]) == [N, *v2._cfg_ints(packed), last]
+    entry = {s: (p, i) for _, s, p, i in lib.entries}
+    assert entry[symbol] == c_signature(source, symbol) == (0, 8)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("which", ["row", "v1"])
+def test_row_forward_launches_call_the_c_declarations(fake, which, dtype):
+    """#10 and #12 / #13 launch with 5 pointers (pts, views, w, b, out)
+    and the config's ints (#12 / #13 also out_ch) on [N, 3] streams into
+    a fresh [N, 4]; the C entries take exactly those counts."""
+    lib = fake(FWD_PLAN)
+    packed, pts, views, symbol, source = _row_fwd(which, dtype)
+    if which == "row":
+        out, launched = v2.fwd_launch(v2.KERNEL, symbol, packed, pts, views,
+                                      True)
+    else:
+        out, launched = fm.v1_forward(packed, pts, views)
+    assert launched and out.shape == (N, 4) and out.dtype == torch.float32
+    (_, ptrs, ints), = [c for c in lib.calls if c[0] == symbol]
+    assert list(ptrs) == [pts.data_ptr(), views.data_ptr(),
+                          packed.w.data_ptr(), packed.b.data_ptr(),
+                          out.data_ptr()]
+    extra = [packed.out_ch] if which == "v1" else []
+    assert list(ints) == [N, *v2._cfg_ints(packed), *extra]
+    entry = {s: (p, i) for _, s, p, i in lib.entries}
+    assert entry[symbol] == c_signature(source, symbol)
+    assert c_signature(source, symbol) == (5, 7 + len(extra))

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the train kernels on `csrc/level_train.cuh` (the one-pass levels
-#3 and #5, the weight grads #2, #7, #11 and #14) and the bf16 forwards #1
-and #6 spend their time, on one CUDA card.
+#3 and #5, the weight grads #2, #7, #11 and #14) and the bf16 forwards #1,
+#10 and #6 spend their time, on one CUDA card.
 
     python3 tools/torch_phase_split.py          # both parts
     python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14
-    python3 tools/torch_phase_split.py fwd      # #1, #6 and 6n only
+    python3 tools/torch_phase_split.py fwd      # #1, #10, #6 and 6n only
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
 `csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7) and
@@ -25,15 +25,18 @@ the differences are the phases' times (for the weight grads "forward"
 includes reading the cotangent). The variants compute wrong grads by
 construction; only the full build is a kernel of the port.
 
-The forward part builds `csrc/fused_mlp_fwd.cu` (#1) and
-`csrc/fused_mip_fwd.cu` (#6) four times from patched copies of
-`csrc/fwd_hopper.cuh` under `build/phase_split/fwd_*`: as they are,
+The forward part builds `csrc/fused_mlp_fwd.cu` (#1 and its row-major
+twin #10) and `csrc/fused_mip_fwd.cu` (#6) four times from patched copies
+of `csrc/fwd_hopper.cuh` under `build/phase_split/fwd_*`: as they are,
 without the heads, without the heads and the encoding, and with the
 products only (no heads, no encoding, no epilogue). Each is timed at the
 render's chunk shapes, bf16, seeded random weights and points: #1 at the
-fine chunk (8192 rays x 192 samples) and the coarse chunk (x 64), #6 at a
-chunk (8192 rays x 96 samples). The differences are the heads', the
-encoding's (what the producer does not hide) and the epilogues' times.
+fine chunk (8192 rays x 192 samples) and the coarse chunk (x 64), #10 on
+the fine chunk's points as [N, 3] streams (the same walk under the
+row-major layout: its encoders read 12-byte rows, its heads store
+[N, 4]), #6 at a chunk (8192 rays x 96 samples). The differences are the
+heads', the encoding's (what the producer does not hide) and the
+epilogues' times.
 Then it builds `csrc/fused_mip_fwd.cu` three times more from copies of
 `csrc/fwd_hopper.cuh` with 6n's normals tail guarded (under
 `build/phase_split/normals_*`): as it is, without the IPE's Jacobian, and
@@ -210,7 +213,7 @@ def _time(run, iters=3) -> float:
 
 
 def fwd_main() -> None:
-    """Times #1 and #6 in the four forward variants."""
+    """Times #1, #10 and #6 in the four forward variants."""
     import torch
 
     if not torch.cuda.is_available():
@@ -244,11 +247,13 @@ def fwd_main() -> None:
         v = torch.randn(3, n, generator=g)
         return (v / v.norm(dim=0, keepdim=True)).to(dev)
 
-    def nerf(n):
+    def nerf(n, row=False):
         pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
         views = unit(n)
-        return lambda: v2.fwd_T(packed, pts, views, 8, (4,), 10, 4,
-                                "bfloat16")
+        if row:
+            pts, views = pts.T.contiguous(), views.T.contiguous()
+        fwd = v2.fwd if row else v2.fwd_T
+        return lambda: fwd(packed, pts, views, 8, (4,), 10, 4, "bfloat16")
 
     n_mip = 8192 * 96
     means = (torch.rand(3, n_mip, generator=g) * 3 - 1.5).to(dev)
@@ -257,6 +262,8 @@ def fwd_main() -> None:
     cases = {
         f"#1 fine chunk ({8192 * 192} points)": nerf(8192 * 192),
         f"#1 coarse chunk ({8192 * 64} points)": nerf(8192 * 64),
+        f"#10 fine chunk ({8192 * 192} points, row-major)": nerf(
+            8192 * 192, row=True),
         f"#6 chunk ({n_mip} points)": lambda: fmip.fwd_T(
             mpacked, means, covs, mviews, 8, 16, "bfloat16"),
     }
