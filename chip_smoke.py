@@ -7,13 +7,13 @@ Builds every hand-written kernel of the port from `consistentnerf_tpu_torch/
 csrc/` (one nvcc per source, in parallel) and drives the main paths, each
 with the launch counts set to 0 just before it and read just after:
 
-* the bf16 forward walk of #1, #6, #10 and #12 / #13
-  (`csrc/fwd_hopper.cuh`): the plans that pick it by shapes (#15, fp32
-  and v1's shapes past #1's keep the old walk), and the kernels at ragged
+* the bf16 forward walk of #1, #6, #10, #12 / #13 and #15
+  (`csrc/fwd_hopper.cuh`): the plans that pick it by shapes (fp32 and
+  v1's shapes past #1's keep the old walk), and the kernels at ragged
   sizes (1, 127, 129 points and a half-empty last wave) against their
-  plain versions and bit for bit: #10 against #1 (one walk, two
-  layouts), #12 and #13 against #10, a repeat of each against its first
-  launch, #6 against its row-major twin #15; 6n, #6's walk with
+  plain versions and bit for bit: #10 against #1 and #15 against #6 (one
+  walk, two layouts), #12 and #13 against #10, a repeat of each against
+  its first launch; 6n, #6's walk with
   the normals tail, at the same sizes (rows 0-3 bit for bit #6's, a
   repeat bit for bit, rows 4-6 against the plain version in bf16 and
   fp32); the plans of 6n and #4 (the walk with the compositing tail) at
@@ -45,10 +45,11 @@ with the launch counts set to 0 just before it and read just after:
   one-pass steps with `use_pdf_kernel` through the train CLI;
 * the row-major kernels #10 / #11 at the two-call step's shapes and
   #15 / #16 at the mip level (against their plain versions and the
-  transposed kernels; in bf16 #10 runs #1's walk and #11 the level walk
-  of #2, and each gives its twin's bits), #11 at the ragged sizes of #2,
-  the op
-  `fused_mip_mlp_train` (one launch each);
+  transposed kernels; in bf16 #10 / #15 run #1's / #6's walk and #11 /
+  #16 the level walk of #2 / #7, and each gives its twin's bits and a
+  repeat's), #11 and #16 at the ragged sizes of #2 (#16 also bit for bit
+  #7's), #16's peak memory, the op `fused_mip_mlp_train` (one launch
+  each);
 * the two-call fused step: the flagship with `softLpmask` through the
   train CLI for each `fused_kernel` (v2: #1/#2, v2row: #10/#11, v2h: the
   plain forward and #11), guarded against the eager step and, at the
@@ -71,11 +72,12 @@ with the launch counts set to 0 just before it and read just after:
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
-weight grads #2, #7, #11 and #14, whose dW sums take a fixed order, and
-#1 also against a second bf16 launch, bit for bit); the plans of the
-weight grads on the level walk (#2, #7, #11, #14) are printed after the
-build, and the bf16 plans of #11 and #14 at the two-call step's levels
-must pick the walk; the kernel train step is
+weight grads #2, #7, #11, #14 and #16, whose dW sums take a fixed order,
+and #1 also against a second bf16 launch, bit for bit); the plans of the
+weight grads on the level walk (#2, #7, #11, #14, #16) are printed after
+the build, and the bf16 plans of #11 and #14 at the two-call step's
+levels and of #16 at the mip level must pick the walk; the kernel train
+step is
 held against the plain eager step from the same state, batch and draws;
 timings, and each timed step's peak device memory, are printed beside
 the card's name and power limit. The last line is
@@ -251,12 +253,15 @@ def peak_memory(label):
 RAGGED_BWD_N = (1, 63, 65, 769, 3000, 196_607)
 
 
-def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False):
-    """#2, #7, #11 or #14 at RAGGED_BWD_N against its plain version, in
-    bf16 and fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16 launch
-    bit for bit. `packed(dtype)` packs the weights; `streams(n, gen)`
-    makes the seeded inputs; kfn / plain take (w, *streams, g, dtype); g is
-    [4, N], or [N, 4] with `row`."""
+def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False,
+                     twin=None):
+    """#2, #7, #11, #14 or #16 at RAGGED_BWD_N against its plain version,
+    in bf16 and fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16
+    launch bit for bit. `packed(dtype)` packs the weights; `streams(n,
+    gen)` makes the seeded inputs; kfn / plain take (w, *streams, g,
+    dtype); g is [4, N], or [N, 4] with `row`. `twin`: (its kernel's name,
+    a function of kfn's arguments that runs it on the same points), whose
+    bf16 bits the kernel must give."""
     gen = torch.Generator(device=dev).manual_seed(11)
     for n in RAGGED_BWD_N:
         xs = streams(n, gen)
@@ -276,6 +281,12 @@ def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False):
                  f"with its plain version ({rel:.3e})")
             if dtype == "bfloat16":
                 repeat_gate(f"{name} N={n}", got, kfn(w, *xs, g, dtype))
+            if dtype == "bfloat16" and twin:
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got, twin[1](w, *xs, g, dtype)))
+                log(f"{name} N={n} bf16: bit-identical to {twin[0]} on the "
+                    f"same points {same}")
+                gate(same, f"{name} N={n} bf16: other bits than {twin[0]}")
         del xs, g
         torch.cuda.empty_cache()
 
@@ -286,6 +297,16 @@ def row_nerf_streams(n_pts, gen):
     pts = torch.rand((n_pts, 3), generator=gen, device=gen.device) * 4 - 2
     views = torch.randn((n_pts, 3), generator=gen, device=gen.device)
     return pts, views / views.norm(dim=1, keepdim=True)
+
+
+def row_mip_streams(n_pts, gen):
+    """Seeded row-major mip streams for the ragged gates of #16: means
+    [n, 3] in [-1.5, 1.5), diagonal covariances [n, 3] in [0, 1e-4) and
+    unit view directions [n, 3]."""
+    means = torch.rand((n_pts, 3), generator=gen, device=gen.device) * 3
+    covs = torch.rand((n_pts, 3), generator=gen, device=gen.device) * 1e-4
+    views = torch.randn((n_pts, 3), generator=gen, device=gen.device)
+    return means - 1.5, covs, views / views.norm(dim=1, keepdim=True)
 
 
 def rel_err(got, want):
@@ -442,7 +463,7 @@ def main() -> None:
 
     from consistentnerf_tpu_torch.ops import pdf_merge
 
-    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
     from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 
     names = [v2.KERNEL, v2.BWD_KERNEL, op.KERNEL, fmip.KERNEL,
@@ -505,6 +526,36 @@ def main() -> None:
                 if bf and not out[8]:
                     fail(f"the bf16 plan of {label} at {n_b} points is not "
                          "the level walk")
+    # #16 beside #7 at the mip level (MIP_LEVEL_N points, 8x256, 16 IPE
+    # frequencies): in bf16 both run the level walk, #16 with the
+    # row-major staging (9 x 64 floats more shared memory, the wrappers'
+    # figure); in fp32 train_block.
+    mpk = fmip.pack(fmip.flatten_mip_params(MipMLP()), 8, 16, "bfloat16")
+    mcfg_args = fmip._cfg_args(mpk)[:-1]
+    for bf in (1, 0):
+        outs = {}
+        for label, sym in (("#7 " + fmip.BWD_KERNEL, fmip.BWD_KERNEL),
+                           ("#16 " + fmip.ROW_BWD_KERNEL,
+                            fmip.ROW_BWD_KERNEL)):
+            fn = _build.load(fmip.BWD_KERNEL)[sym + "_plan"]
+            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            out = (ctypes.c_longlong * 9)()
+            if fn(MIP_LEVEL_N, *mcfg_args, bf, out):
+                fail(f"the plan of {label} failed")
+            outs[sym] = list(out)
+            log(f"  {'bf16' if bf else 'fp32'}: {label} ({MIP_LEVEL_N} "
+                f"points, mip 8x256, 16 frequencies) {level_plan_text(out)}"
+                f"; slot 8 (the level walk) {out[8]}")
+        p16, p7 = outs[fmip.ROW_BWD_KERNEL], outs[fmip.BWD_KERNEL]
+        gate(p16[8] == bf, f"the {'bf16' if bf else 'fp32'} plan of #16 "
+             f"has slot 8 = {p16[8]}")
+        if bf:
+            want = fm.walk_smem_bytes(mpk, -(-p16[4] // 64) * 64)
+            log(f"  #16 bf16 shared memory {p16[3]} bytes = #7's {p7[3]} + "
+                f"{p16[3] - p7[3]} (the wrappers' plan: {want})")
+            gate(p16[3] == want == p7[3] + 9 * 64 * 4 and
+                 p16[:3] + p16[4:] == p7[:3] + p7[4:],
+                 "#16's bf16 plan is not #7's with the row-major staging")
     plan_o = _build.load(op.KERNEL).onepass_level_plan
     plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     for bf in (1, 0):
@@ -592,6 +643,9 @@ def main() -> None:
 # one, and a tile count that leaves the persistent grid's last wave half
 # empty (132 + 66 tiles on an H100, the last one ragged).
 RAGGED_N = (1, 127, 129, 198 * 128 - 50)
+# The mip two-call step's level: 4096 rays (3072 random + 4x16x16 MiDaS
+# patch rays) x 96 samples, where #15 / #16 run.
+MIP_LEVEL_N = 4096 * 96
 # Points of the two-call step's fine level (5120 rays x 192 samples).
 TWOCALL_FINE = 5120 * 192
 
@@ -700,15 +754,14 @@ def normals_gates(label, fmip, packed, packed32, means, covs, views, kw):
 
 
 def fwd_walk_phases(dev, fm, v2, fmip):
-    """The Hopper walk of #1, #6, #10 and #12 / #13 (csrc/fwd_hopper.cuh):
-    the shape-decided plans (in bf16 #1, #6, #10 and #12 / #13 at 8x256
-    take the walk; #15, fp32 and v1's shapes past #1's keep mlp_fwd.cuh's
-    walk), and the kernels at the ragged sizes in bf16 against their plain
-    versions (the render chunk's gates) and bit for bit: #10 against #1
-    (two layouts of one walk), #12 and #13 against #10 (one instance of
-    it), a repeat of each against its first launch, and #6 against its
-    row-major twin #15, which keeps mlp_fwd.cuh's walk (the walk rounds
-    where that walk does)."""
+    """The Hopper walk of #1, #6, #10, #12 / #13 and #15
+    (csrc/fwd_hopper.cuh): the shape-decided plans (in bf16 #1, #6, #10,
+    #12 / #13 and #15 at 8x256 take the walk; fp32 and v1's shapes past
+    #1's keep mlp_fwd.cuh's walk), and the kernels at the ragged sizes in
+    bf16 against their plain versions (the render chunk's gates) and bit
+    for bit: #10 against #1 and #15 against #6 (two layouts of one walk),
+    #12 and #13 against #10 (one instance of it), and a repeat of each
+    against its first launch."""
     from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
     from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 
@@ -753,10 +806,13 @@ def fwd_walk_phases(dev, fm, v2, fmip):
             ("#6 fp32, render chunk", fmip.fwd_plan(
                 fmip.pack(mflat, 8, 16, "float32"), CHUNK * 96)),
             ("#15 bf16 (row-major), mip level", fmip.fwd_plan(
-                fmip.pack(mflat, 8, 16, "bfloat16"), 3072 * 128,
+                fmip.pack(mflat, 8, 16, "bfloat16"), MIP_LEVEL_N,
+                row=True)),
+            ("#15 fp32 (row-major), mip level", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "float32"), MIP_LEVEL_N,
                 row=True))):
         log(f"plan of {label}: {fwd_plan_text(plan)}")
-        want_hopper = "bf16" in label and not label.startswith("#15")
+        want_hopper = "bf16" in label
         gate(plan["hopper"] == int(want_hopper), f"the plan of {label} "
              f"picked the {'Hopper' if plan['hopper'] else 'legacy'} walk")
     # v1's shapes past #1's keep mlp_fwd.cuh's walk in bf16 too.
@@ -821,9 +877,14 @@ def fwd_walk_phases(dev, fm, v2, fmip):
                      "bfloat16")
         same = torch.equal(got, twin)
         log(f"{fmip.KERNEL} bf16 N={n}: bit-identical to {fmip.ROW_KERNEL} "
-            f"(mlp_fwd.cuh's walk) {same}")
+            f"(the same walk under the row-major layout) {same}")
         gate(same, f"{fmip.KERNEL} N={n}: other bits than "
              f"{fmip.ROW_KERNEL}")
+        with torch.no_grad():
+            again = fmip.fwd(mpacked, means.T.contiguous(),
+                             covs.T.contiguous(), mviews.T.contiguous(),
+                             compute_dtype="bfloat16", **mip_kw).T
+        repeat_gate(f"{fmip.ROW_KERNEL} N={n}", [twin], [again])
         # 6n (#6's walk with the normals tail) on the same points.
         normals_gates(f"{fmip.NORMALS_KERNEL} N={n}", fmip, mpacked,
                       mpacked32, means, covs, mviews, mip_kw)
@@ -2658,8 +2719,10 @@ def row_vs_t(label, got, want_T):
 def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
     """27. Kernels #10 / #11 at the two-call step's shapes and #15 / #16 at
     the mip level, against their plain versions and against the
-    transposed kernels on the same points; the op fused_mip_mlp_train
-    through autograd (its path); timings."""
+    transposed kernels on the same points (in bf16 bit for bit: one walk
+    under two layouts), with a bf16 repeat; #11 and #16 at the ragged
+    sizes; the op fused_mip_mlp_train through autograd (its path);
+    timings."""
     from consistentnerf_tpu_torch.core import rendering, sampling
     from consistentnerf_tpu_torch.data import synthetic
     from consistentnerf_tpu_torch.data.pipeline import (MipBatcher,
@@ -2889,9 +2952,19 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
         if dtype == "float32":
             gate(same or rel_t < ROW_VS_T_TOL,
                  f"{fmip.ROW_KERNEL} disagrees with {fmip.KERNEL}")
+        else:
+            # bf16: one Hopper walk under the two layouts.
+            gate(same, f"{fmip.ROW_KERNEL} bf16 is not bit-identical to "
+                 f"{fmip.KERNEL} on the same points")
+            repeat_gate(f"{fmip.ROW_KERNEL} mip level", [got], [fmip.fwd(
+                w, means, covs, mviews, compute_dtype=dtype, **kw)])
         del got, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         got = fmip.bwd(w, means, covs, mviews, gm, compute_dtype=dtype, **kw)
         torch.cuda.synchronize()
+        peak_memory(f"{fmip.ROW_BWD_KERNEL} {dtype} at the mip level "
+                    f"({nm * s} points)")
         want = fmip.plain_bwd_row(w, means, covs, mviews, gm,
                                   compute_dtype=dtype, **kw)
         rel, mx = grads_err(got, want)
@@ -2910,8 +2983,30 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
         if dtype == "float32":
             gate(same or rel_t < ROW_VS_T_TOL,
                  f"{fmip.ROW_BWD_KERNEL} disagrees with {fmip.BWD_KERNEL}")
+        else:
+            # bf16: the level walk under the two layouts, whose row-major
+            # staging changes no value or order.
+            gate(same, f"{fmip.ROW_BWD_KERNEL} bf16 is not bit-identical "
+                 f"to {fmip.BWD_KERNEL} on the same points")
+            repeat_gate(f"{fmip.ROW_BWD_KERNEL} mip level", got, fmip.bwd(
+                w, means, covs, mviews, gm, compute_dtype=dtype, **kw))
         del got
         torch.cuda.empty_cache()
+
+    # #16 at the ragged sizes (the mip level's weights, seeded Gaussians),
+    # and bit for bit #7's on the same points in bf16.
+    ragged_bwd_gates(
+        fmip.ROW_BWD_KERNEL,
+        lambda dtype: fmip.pack(mflat_d, mcfg.netdepth, mcfg.max_deg_point,
+                                dtype),
+        row_mip_streams,
+        lambda w, m, c, v, g_, dtype: fmip.bwd(
+            w, m, c, v, g_, compute_dtype=dtype, **kw),
+        lambda w, m, c, v, g_, dtype: fmip.plain_bwd_row(
+            w, m, c, v, g_, compute_dtype=dtype, **kw), dev, row=True,
+        twin=(fmip.BWD_KERNEL, lambda w, m, c, v, g_, dtype: fmip.bwd_T(
+            w, m.T.contiguous(), c.T.contiguous(), v.T.contiguous(),
+            g_.T.contiguous(), compute_dtype=dtype, **kw)))
 
     # 28. The op's path: fused_mip_mlp_train forward and, by autograd, its
     # weight grads at the mip level (one launch of #15 and of #16).
@@ -2930,6 +3025,17 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
              f"{op_launches}")
     if not all(torch.isfinite(w.grad).all() for w in leaves):
         fail("fused_mip_mlp_train: non-finite grads")
+
+    def op_step():
+        for w in leaves:
+            w.grad = None
+        out = fmip.fused_mip_mlp_train(leaves, means, covs, mviews,
+                                       compute_dtype="bfloat16", **kw)
+        (out * gm).sum().backward()
+    op_ms = time_ms(op_step, 3)
+    log(f"{tag} fused_mip_mlp_train forward + backward, bf16 (N={nm * s}): "
+        f"{op_ms:.3f} ms (the op's #15 and #16 and the torch work around "
+        "them)")
     del leaves, raw
 
     w16 = fmip.pack(mflat_d, mcfg.netdepth, mcfg.max_deg_point, "bfloat16")
@@ -2959,12 +3065,14 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
                                              compute_dtype="bfloat16",
                                              **kw), 1)
         bound, by = bound_ms(nm * s, flops, nwb, PEAK_BF16_FLOPS, bpp)
+        plan = ("; plan: " + fwd_plan_text(fmip.fwd_plan(
+            w16, nm * s, row=True)) if fwd else "")
         log(f"{tag} {kern} bf16 (N={nm * s}): {ms:.3f} ms/launch "
             f"({1e6 * ms / (nm * s):.2f} ns/point); {tkern} on the same "
             f"points {ms_T:.3f} ms ({100 * (ms / ms_T - 1):+.1f}%); bound "
             f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}% of it, "
             f"{100 * bound / ms_T:.1f}% of {tkern}'s); plain version "
-            f"{plain_ms:.3f} ms")
+            f"{plain_ms:.3f} ms{plan}")
         rows.append(dict(
             name=kern, route="cuda",
             source=("consistentnerf_tpu_torch/csrc/fused_mip_fwd.cu"

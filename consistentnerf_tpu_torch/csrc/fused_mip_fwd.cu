@@ -18,16 +18,19 @@
 // frequencies / view degree 4 (610,304 MACs: 96->256, six 256->256, the
 // post-skip 352->256, density 256->1, bottleneck 256->256, view layer
 // 283->128, rgb 128->3) against 52 bytes (9 floats in, 4 out). Weight
-// layout: see mlp_fwd.cuh. In bf16 on the transposed streams at widths
-// 64-256 the kernel runs the Hopper walk of fwd_hopper.cuh, with a 2-slot
-// weight ring at 16 frequencies (a 3-slot ring does not fit beside two
-// 96-column pe buffers); fp32, other widths and the row-major instance
-// run mlp_fwd.cuh's walk, both with the mip encoder (mlp_common.cuh::
-// MipEnc). The plan (fused_mip_fwd_plan) decides by shapes alone. The TPU
-// kernel's packed 128-lane IPE register, its pi/2 phase-bias row and its
-// sin(2^-14 v) 2^14 raw-viewdir columns are Mosaic lane-layout devices;
-// here each feature is computed on its own and the raw view directions
-// are read as they are.
+// layout: see mlp_fwd.cuh. In bf16 at widths 64-256 both instances run
+// the Hopper walk of fwd_hopper.cuh, with a 2-slot weight ring at 16
+// frequencies (a 3-slot ring does not fit beside two 96-column pe
+// buffers), #6 under the ColMajor layout and #15 under RowMajor (the
+// encoders read [n, 3] rows, the heads store [n, 4] rows), so #15 gives
+// #6's bits on the same points; fp32 and other widths run mlp_fwd.cuh's
+// walk, both with the mip encoder (mlp_common.cuh::MipEnc). The plan
+// (fused_mip_fwd_plan) decides by shapes alone, the same for both
+// layouts; both entries run mip_forward. The TPU kernel's packed
+// 128-lane IPE register, its pi/2 phase-bias row and its sin(2^-14 v)
+// 2^14 raw-viewdir columns are Mosaic lane-layout devices; here each
+// feature is computed on its own and the raw view directions are read as
+// they are.
 //
 // The normals variant adds the density's walk back through the trunk
 // (507,904 MACs at 8x256: every trunk layer's input gradient, and the
@@ -57,45 +60,68 @@ using mlp::Dims;
 
 namespace {
 
-// The Hopper walk's instances (fwd_hopper.cuh; bf16 on the transposed
-// streams): (width / 64, ceil(view width / 64)) at the MipMLP's widths 64,
-// 128, 192, 256 with its 128-wide view layer.
+// The Hopper walk's instances (fwd_hopper.cuh; bf16 on either layout):
+// (width / 64, ceil(view width / 64)) at the MipMLP's widths 64, 128, 192,
+// 256 with its 128-wide view layer.
 bool mip_instance(const Dims& d) {
   return d.width / 64 >= 1 && d.width / 64 <= 4 && (d.half + 63) / 64 == 2;
 }
 
+template <typename L>
 int hopper_launch(const mlp::FhPlan& pl, const void* means, const void* covs,
                   const void* views, const void* w, const void* b, void* out,
                   int n, const Dims& d, cudaStream_t s) {
   using mlp::MipEnc;
+  constexpr int H = mlp::kFhHeads;
   switch (d.width / 64) {
     case 1:
-      return mlp::fh_launch<MipEnc, 1, 2>(pl, means, covs, views, w, b, out,
-                                          n, d, s);
+      return mlp::fh_launch<MipEnc, 1, 2, H, 0, L>(pl, means, covs, views, w,
+                                                   b, out, n, d, s);
     case 2:
-      return mlp::fh_launch<MipEnc, 2, 2>(pl, means, covs, views, w, b, out,
-                                          n, d, s);
+      return mlp::fh_launch<MipEnc, 2, 2, H, 0, L>(pl, means, covs, views, w,
+                                                   b, out, n, d, s);
     case 3:
-      return mlp::fh_launch<MipEnc, 3, 2>(pl, means, covs, views, w, b, out,
-                                          n, d, s);
+      return mlp::fh_launch<MipEnc, 3, 2, H, 0, L>(pl, means, covs, views, w,
+                                                   b, out, n, d, s);
     default:
-      return mlp::fh_launch<MipEnc, 4, 2>(pl, means, covs, views, w, b, out,
-                                          n, d, s);
+      return mlp::fh_launch<MipEnc, 4, 2, H, 0, L>(pl, means, covs, views, w,
+                                                   b, out, n, d, s);
   }
+}
+
+// The MipMLP forward of #6 (ColMajor) and #15 (RowMajor): the Hopper walk
+// where fh_plan takes it, else mlp_fwd.cuh's walk (in fp32 on the CUDA
+// cores). Returns a cudaError_t.
+template <typename L>
+int mip_forward(const void* means, const void* covs, const void* views,
+                const void* w, const void* b, void* out, int n, const Dims& d,
+                bool bf16_, cudaStream_t s) {
+  if (n <= 0) return 0;
+  mlp::FhPlan pl;
+  const int err = mlp::fh_plan(d, n, bf16_, mip_instance(d), &pl);
+  if (err) return err;
+  if (pl.ok)
+    return hopper_launch<L>(pl, means, covs, views, w, b, out, n, d, s);
+  if (bf16_)
+    return mlp::fwd_launch<bf16, 128, mlp::MipEnc, L>(means, covs, views, w,
+                                                      b, out, n, d, s);
+  return mlp::fwd_launch<float, 64, mlp::MipEnc, L>(means, covs, views, w, b,
+                                                    out, n, d, s);
 }
 
 }  // namespace
 
 // The walk #6 takes at these shapes (row: the row-major instance #15,
-// which keeps fwd_tile: this source builds no row-major instance of the
-// Hopper walk): out[0..7] as mlp::fh_plan_slots. Returns a cudaError_t.
+// whose plan is #6's): out[0..7] as mlp::fh_plan_slots. Returns a
+// cudaError_t.
 extern "C" int fused_mip_fwd_plan(int n, int depth, int width,
                                   int view_width, int skip_mask,
                                   int num_freqs, int deg_view, int use_bf16,
                                   int row, long long* out) {
+  (void)row;
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, !row && mip_instance(d), &pl);
+  const int err = mlp::fh_plan(d, n, use_bf16, mip_instance(d), &pl);
   if (err) return err;
   mlp::fh_plan_slots(pl, d, n, use_bf16, out);
   return 0;
@@ -110,19 +136,10 @@ extern "C" int fused_mip_fwd(const void* means, const void* covs,
                              void* out, int n, int depth, int width,
                              int view_width, int skip_mask, int num_freqs,
                              int deg_view, int use_bf16, void* stream) {
-  if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, mip_instance(d), &pl);
-  if (err) return err;
-  if (pl.ok)
-    return hopper_launch(pl, means, covs, views, w, b, out, n, d, s);
-  if (use_bf16)
-    return mlp::fwd_launch<bf16, 128, mlp::MipEnc>(means, covs, views, w, b,
-                                                   out, n, d, s);
-  return mlp::fwd_launch<float, 64, mlp::MipEnc>(means, covs, views, w, b,
-                                                 out, n, d, s);
+  return mip_forward<mlp::ColMajor>(
+      means, covs, views, w, b, out, n,
+      Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The row-major instance: means, covs, views [n, 3] fp32; out [n, 4]
@@ -133,14 +150,10 @@ extern "C" int fused_mip_fwd_row(const void* means, const void* covs,
                                  int width, int view_width, int skip_mask,
                                  int num_freqs, int deg_view, int use_bf16,
                                  void* stream) {
-  if (n <= 0) return 0;
-  const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return mlp::fwd_launch<bf16, 128, mlp::MipEnc, mlp::RowMajor>(
-        means, covs, views, w, b, out, n, d, s);
-  return mlp::fwd_launch<float, 64, mlp::MipEnc, mlp::RowMajor>(
-      means, covs, views, w, b, out, n, d, s);
+  return mip_forward<mlp::RowMajor>(
+      means, covs, views, w, b, out, n,
+      Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
+      use_bf16, static_cast<cudaStream_t>(stream));
 }
 
 namespace {

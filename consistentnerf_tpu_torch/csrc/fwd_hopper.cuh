@@ -2,17 +2,18 @@
 // and #6 (fused_mip_fwd.cu, the MipMLP) for Hopper, and of the two kernels
 // that add a tail after the heads: 6n (fused_mip_fwd.cu, the normals: a
 // walk back through the trunk, see "6n" below) and #4 (render_level.cu,
-// the compositing of whole rays, see "#4" below); and of #1's row-major
-// twin #10 (fused_mlp_fwd_row) and the v1 forward #12 / #13
-// (fused_mlp_v1_fwd.cu), which compute #1's function on row-major [N, 3]
-// streams into [N, 4] at the shapes this walk takes. The kernel is
-// templated on the stream layout (mlp_common.cuh::ColMajor / RowMajor):
-// the encoders read the points and views through L::at, and the heads
-// store with a channel stride and a row stride ((n, 1) transposed, (1, 4)
-// row-major, (gp, 1) into #4's group buffer). fp32, the widths this walk
-// does not take, #6's row-major twin #15, and the v1 shapes past #1's
-// (a skip into the heads, the output head, P > 128) keep mlp_fwd.cuh::
-// fwd_tile (6n mlp_train.cuh's mode 5, #4 fwd_tile and composite_ray).
+// the compositing of whole rays, see "#4" below); and of the row-major
+// twins #10 (fused_mlp_fwd_row) and the v1 forward #12 / #13
+// (fused_mlp_v1_fwd.cu), which compute #1's function, and #15
+// (fused_mip_fwd_row), which computes #6's, on row-major [N, 3] streams
+// into [N, 4] at the shapes this walk takes. The kernel is templated on
+// the stream layout (mlp_common.cuh::ColMajor / RowMajor): the encoders
+// read the points and views through L::at, and the heads store with a
+// channel stride and a row stride ((n, 1) transposed, (1, 4) row-major,
+// (gp, 1) into #4's group buffer). fp32, the widths this walk does not
+// take, and the v1 shapes past #1's (a skip into the heads, the output
+// head, P > 128) keep mlp_fwd.cuh::fwd_tile (6n mlp_train.cuh's mode 5,
+// #4 fwd_tile and composite_ray).
 // The plan functions of the sources (fused_mlp_fwd_plan,
 // fused_mlp_v1_fwd_plan, fused_mip_fwd_plan, fused_mip_fwd_normals_plan,
 // render_level_plan, from fh_plan here) decide by shapes alone which
@@ -73,8 +74,8 @@
 // fwd_tile's bits (the wgmma products give the wmma products' bits, as in
 // level_train.cuh). The row-major layout changes where a value is read and
 // stored, not its value or the order of any sum: #10 and #12 / #13 give
-// #1's bits on the same points, and #15, which keeps fwd_tile, #6's. No
-// cross-block reduction: two launches give the same bits.
+// #1's bits on the same points, and #15 #6's. No cross-block reduction:
+// two launches give the same bits.
 //
 // 6n (kFhNormals): d(raw density)/d(means) after #6's walk, whose rows
 // 0-3 it gives bit for bit. The JAX function (fused_mip.py::
@@ -959,8 +960,8 @@ __global__ void __launch_bounds__(kFhThreads, 1)
 }
 
 // The plan at these shapes. `instance`: the source holds the kernel for
-// (width / 64, ceil(half / 64)) and the streams' layout (#15's source has
-// no row-major instance yet). The walk takes bf16 on either layout, widths
+// (width / 64, ceil(half / 64)) (under both layouts: the plan is the same
+// for both). The walk takes bf16 on either layout, widths
 // that are multiples of 64 up to 256, a view layer up to 256 wide, P up
 // to 128 and V up to 64 columns, heads on h alone with the view branch
 // (no skip into the heads, no output head: the v1 shapes past #1's), zero

@@ -1,11 +1,11 @@
 // The bf16 walk of the train kernels for Hopper: the one-pass levels #3
 // (onepass_level.cu, mode 3) and #5 (onepass_mip_level.cu, mode 4), the
 // weight grads for a given cotangent (mode 2) #2 (fused_mlp_bwd.cu), its
-// row-major twin #11 (the same file), #7 (fused_mip_bwd.cu) and the v1
-// kernel #14 (fused_mlp_v1_bwd.cu, with v1's heads on [pe | h]), and
-// their dW product. The fp32 path of these kernels, bf16 widths over 256,
-// the row-major mip twin #16 and the normals (mode 5) keep
-// mlp_train.cuh::train_block.
+// row-major twin #11 (the same file), #7 (fused_mip_bwd.cu), its
+// row-major twin #16 (the same file) and the v1 kernel #14
+// (fused_mlp_v1_bwd.cu, with v1's heads on [pe | h]), and their dW
+// product. The fp32 path of these kernels, bf16 widths over 256 and the
+// normals (mode 5) keep mlp_train.cuh::train_block.
 //
 // What it replaces: train_block ran forward, (compositing,) backward AND
 // the dW pass per 768-point chunk in one persistent block. Its dW pass

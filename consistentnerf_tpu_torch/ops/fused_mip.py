@@ -37,8 +37,10 @@ The row-major family takes [N, 3] means, covs and views and gives
 `fused_mip_fwd_row` in `csrc/fused_mip_fwd.cu`) and `bwd` of
 `_bwd_pallas` (kernel #16, `fused_mip_bwd_row` in
 `csrc/fused_mip_bwd.cu`), #6's and #7's walks under the kernels'
-row-major stream layout, with the plain versions `plain_fwd_row` /
-`plain_bwd_row`; `fused_mip_mlp_train` is their differentiable op.
+row-major stream layout (in bf16 the Hopper forward walk and the level
+walk with its dW GEMM, so #15 gives #6's bits and #16 #7's on the same
+points), with the plain versions `plain_fwd_row` / `plain_bwd_row`;
+`fused_mip_mlp_train` is their differentiable op.
 """
 
 from __future__ import annotations
@@ -228,8 +230,7 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
     n, dev = means.shape[0 if row else 1], means.device
     _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
                   views=views)
-    if not row:
-        v2.check_tma_weights(packed)
+    v2.check_tma_weights(packed)  # the Hopper walk's TMA, in bf16
     out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
                       device=dev)
     if n == 0:
@@ -250,9 +251,10 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
 
 
 def fwd_plan(packed: v2.PackedMLP, n: int, row: bool = False) -> dict:
-    """The walk that kernel #6 (or, with `row`, #15) runs for n points of
-    the packed MipMLP, decided by shapes alone (`fused_mip_fwd_plan`;
-    slots as `fused_mlp_v2.plan_dict`); needs the card."""
+    """The walk that kernel #6 (or, with `row`, #15: the same plan) runs
+    for n points of the packed MipMLP, decided by shapes alone
+    (`fused_mip_fwd_plan`; slots as `fused_mlp_v2.plan_dict`); needs the
+    card."""
     return v2.plan_dict(v2._entry(KERNEL, "fused_mip_fwd_plan", 0, 9),
                         (n, *_cfg_args(packed), int(row)))
 

@@ -208,15 +208,16 @@ K_WSTAGE = 4 * 64 * 64 * 2
 
 def walk_smem_bytes(packed, rows: int) -> int:
     """Dynamic shared memory of one block of the bf16 level walk that #14
-    (and #11) runs on row-major streams, `csrc/level_train.cuh::
-    level_smem`, for chunks of `rows` rows (a multiple of 64): the weight
-    ring, the 64-point tiles, the per-chunk rows, the column-sum partials
-    and the tile's staged points (9 x 64 floats). The plan takes the walk
-    where this is at most SMEM_LIMIT at 768-row chunks."""
+    (and #11, and with the IPE #16) runs on row-major streams,
+    `csrc/level_train.cuh::level_smem`, for chunks of `rows` rows (a
+    multiple of 64): the weight ring, the 64-point tiles, the per-chunk
+    rows, the column-sum partials and the tile's staged points (9 x 64
+    floats). The plan takes the walk where this is at most SMEM_LIMIT at
+    768-row chunks."""
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
     p, v = (v2._pad16(x) for x in v2.enc_widths(
-        "pe", packed.multires, packed.multires_views))
+        packed.encoder, packed.multires, packed.multires_views))
     act, m = max(packed.width, packed.view_width), 64
     elems = m * (p + K_PAD) + m * (v + K_PAD) + 2 * m * (act + K_PAD)
     floats = 4 * m + 5 * rows + 2 * K_WARPS * act + 9 * m

@@ -579,7 +579,8 @@ def _check_weights(packed: PackedMLP, device):
 
 
 def check_tma_weights(packed: PackedMLP):
-    """The bf16 forwards #1, #6, #10 and #12 / #13 (`csrc/fwd_hopper.cuh`)
+    """The bf16 forwards #1, #6, #10, #12 / #13 and #15
+    (`csrc/fwd_hopper.cuh`)
     and the level walk of the weight grads (`csrc/level_train.cuh`) read
     the packed weights by TMA: the buffer's base and the row strides of its
     two weight maps (2 width and 2 view_width bytes) must be multiples of
@@ -615,38 +616,14 @@ def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
                      (n, *_cfg_ints(packed), int(row)))
 
 
-# The weight-grad kernels whose plan keeps train_block's four slots: the
-# row-major mip twin #16. Every other one (#2, #7, #11, #14) fills the
-# nine slots of `csrc/level_train.cuh::level_plan` and takes `gpart`.
-FOUR_SLOT_PLANS = frozenset({"fused_mip_bwd_row"})
-
-
-def train_buffers(plan_fn, args, packed: PackedMLP, device):
-    """Workspace, per-block partials and the packed-grad output of one
-    launch of a kernel on train_block's four-slot plan (blocks, workspace
-    elements per block, partial floats per block, shared memory): the
-    row-major mip twin #16."""
-    out = (ctypes.c_longlong * 4)()
-    err = plan_fn(*args, out)
-    if err != 0:
-        raise RuntimeError(f"train kernel plan failed: cudaError_t {err}")
-    blocks, ws_per_block, stride = out[0], out[1], out[2]
-    n_w, n_b = grad_numel(packed)
-    ws = torch.empty(blocks * ws_per_block, dtype=packed.compute_dtype,
-                     device=device)
-    part = torch.empty(blocks * stride, dtype=torch.float32, device=device)
-    dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
-    return ws, part, dw
-
-
 def level_buffers(plan_fn, args, packed: PackedMLP, device):
     """Workspace, per-block partials, dW-GEMM split partials and the
     packed-grad output of one launch of a kernel on `level_train.cuh`'s
-    nine-slot plan (#2, #3, #5, #7, #11, #14), sized by the kernel's own
-    plan (blocks, workspace elements, partial floats per block, shared
+    nine-slot plan (#2, #3, #5, #7, #11, #14, #16), sized by the kernel's
+    own plan (blocks, workspace elements, partial floats per block, shared
     memory, points per chunk, splits, split partial floats, slabs per
-    split, 1 for the level walk). The level walk's workspace holds a row of every
-    point of the launch (~9.9 KB a point at 8x256)."""
+    split, 1 for the level walk). The level walk's workspace holds a row of
+    every point of the launch (~9.9 KB a point at 8x256)."""
     out = (ctypes.c_longlong * 9)()
     err = plan_fn(*args, out)
     if err != 0:
@@ -717,21 +694,19 @@ def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
     """Launch a weight-grad kernel on checked CUDA streams and cotangent g
     ([4, N], or [N, 4] with `row`), its buffers sized by its
     `{symbol}_plan`: (the torch-layout grads, whether a kernel was
-    launched: not for N = 0). The kernels on the nine-slot plan read the
-    bf16 weights by TMA."""
+    launched: not for N = 0). Every one of them (#2, #7, #11, #14, #16)
+    fills the nine slots of `csrc/level_train.cuh::level_plan`, takes
+    `gpart`, and in bf16 reads the weights by TMA."""
     n, dev = g.shape[0 if row else 1], g.device
     n_w, n_b = grad_numel(packed)
     if n == 0:
         zeros = torch.zeros(n_w + n_b, device=dev)
         return unpack_grads(packed, zeros[:n_w], zeros[n_w:]), False
-    # The nine-slot plan's buffers are (ws, part, gpart, dw), the four-slot
-    # one's (ws, part, dw): the C entry points take them in that order.
-    four = symbol in FOUR_SLOT_PLANS
-    if not four:
-        check_tma_weights(packed)
-    sizer = train_buffers if four else level_buffers
-    bufs = sizer(_entry(lib, symbol + "_plan", 0, 1 + len(cfg_args)),
-                 (n, *cfg_args), packed, dev)
+    # The plan's buffers (ws, part, gpart, dw), in the C entry points'
+    # order.
+    check_tma_weights(packed)
+    bufs = level_buffers(_entry(lib, symbol + "_plan", 0, 1 + len(cfg_args)),
+                         (n, *cfg_args), packed, dev)
     ptrs = [t.data_ptr() for t in streams] + [
         g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr()] + [
         t.data_ptr() for t in bufs]

@@ -902,12 +902,38 @@ def test_row_bwd_plans_pick_the_level_walk(cuda_device):
 
 
 @pytest.mark.cuda
+def test_mip_row_bwd_plan_picks_the_level_walk(cuda_device):
+    """#16's bf16 plan runs the level walk at the mip level (393,216
+    points) and at a ragged size with #7's grid and chunks and the
+    row-major staging's 9 x 64 floats more shared memory; fp32 keeps
+    train_block (slot 8 is 0)."""
+    import ctypes
+
+    cfg = fmip._cfg_args(fmip.pack(_mip_flat(256, cuda_device), 8, 16,
+                                   "bfloat16"))[:-1]
+
+    def plan(symbol, n, bf16=1):
+        out = (ctypes.c_longlong * 9)()
+        fn = v2._entry(fmip.BWD_KERNEL, symbol + "_plan", 0, 8)
+        assert fn(n, *cfg, bf16, out) == 0
+        return list(out)
+    for n in (393_216, 1_001):
+        p7 = plan(fmip.BWD_KERNEL, n)
+        p = plan(fmip.ROW_BWD_KERNEL, n)
+        assert p7[8] == p[8] == 1
+        assert p[3] == p7[3] + 9 * 64 * 4
+        assert p[:3] + p[4:] == p7[:3] + p7[4:]
+        assert plan(fmip.ROW_BWD_KERNEL, n, bf16=0)[8] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_mip_row_kernels_match_plain_and_transposed(cuda_device, dtype):
     """#15 and #16 against their plain versions and against #6 and #7 on
-    the same points (#16 and #7 bit for bit in fp32, within the walks'
-    tolerance in bf16, where #7 runs the level walk); the op
-    fused_mip_mlp_train launches each once."""
+    the same points, bit for bit in both types (one walk under two
+    layouts: in bf16 the Hopper forward walk and the level walk); a bf16
+    repeat gives the first launch's bits; the op fused_mip_mlp_train
+    launches each once."""
     flat = _mip_flat(256, cuda_device)
     n = 3000
     streams_T = _mip_inputs(n, cuda_device)
@@ -924,10 +950,12 @@ def test_mip_row_kernels_match_plain_and_transposed(cuda_device, dtype):
     plain = fmip.plain_bwd_row(packed, means, covs, views, g, 8, 16, dtype)
     assert _rel(grads, plain) < PLAIN_DW_TOL[dtype]
     grads_T = fmip.bwd_T(packed, *streams_T, g.T.contiguous(), 8, 16, dtype)
-    if dtype == "float32":
-        assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
-    else:
-        assert _rel(grads, grads_T) < TRAIN_TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_T))
+    if dtype == "bfloat16":
+        assert torch.equal(got, fmip.fwd(packed, means, covs, views, 8, 16,
+                                         dtype))
+        again = fmip.bwd(packed, means, covs, views, g, 8, 16, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
     before = (fmip.row_launches, fmip.row_bwd_launches)
     leaves = [w.clone().requires_grad_() for w in flat]
     raw = fmip.fused_mip_mlp_train(leaves, means, covs, views, 8, 16, dtype)
@@ -1203,8 +1231,8 @@ def test_hopper_walks_repeat_bit_for_bit(cuda_device):
 @pytest.mark.cuda
 def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
     """The plans take the Hopper walk at the flagship shapes, for #1 and
-    its row-major twin #10 alike, and mlp_fwd.cuh's walk in fp32, at width
-    32 and for the mip's row-major twin #15."""
+    #6 and their row-major twins #10 and #15 alike, and mlp_fwd.cuh's
+    walk in fp32 and at width 32."""
     n = 8192 * 192
     flat = _mlp_flat(256, cuda_device)
     bf = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
@@ -1223,7 +1251,8 @@ def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
     assert fmip.fwd_plan(mbf, 8192 * 96)["hopper"] == 1
     assert fmip.fwd_plan(fmip.pack(mflat, 8, 16, "float32"),
                          8192 * 96)["hopper"] == 0
-    assert fmip.fwd_plan(mbf, 8192 * 96, row=True)["hopper"] == 0
+    assert fmip.fwd_plan(mbf, 8192 * 96, row=True) == fmip.fwd_plan(
+        mbf, 8192 * 96)
 
 
 @pytest.mark.cuda
@@ -1248,3 +1277,6 @@ def test_hopper_walk_refuses_misaligned_weights(cuda_device):
                              "bfloat16"))
     with pytest.raises(ValueError, match="aligned"):
         fmip.fwd_T(mbad, *_mip_inputs(300, cuda_device), 8, 16, "bfloat16")
+    with pytest.raises(ValueError, match="aligned"):
+        fmip.fwd(mbad, *(x.T.contiguous() for x in _mip_inputs(
+            300, cuda_device)), 8, 16, "bfloat16")

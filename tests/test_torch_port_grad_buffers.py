@@ -1,17 +1,19 @@
 """The weight-grad wrappers' buffers and C calls, on the CPU.
 
-The transposed kernels #2 and #7 (`csrc/fused_mlp_bwd.cu`,
-`csrc/fused_mip_bwd.cu`), the row-major #11 (`fused_mlp_bwd_row`) and the
-v1 kernel #14 (`csrc/fused_mlp_v1_bwd.cu`) run `level_train.cuh`'s walk
-and dW GEMM: their plans fill nine slots and their entry points take a
-split-partial buffer (`gpart`) after the block partials. The row-major
-mip twin #16 keeps `train_block`'s four-slot plan and no `gpart`. A
-nine-slot plan written into a four-slot array corrupts memory without an
-error, and a wrong argument count passes garbage pointers without one,
-so the wrappers' side of each call is held here with fake entry points
-in place of the kernel library: the plan array's length, the buffers'
-sizes against the plan's slots, and the pointer and int counts against
-the `extern "C"` declarations in the committed sources.
+Every weight-grad kernel, the transposed #2 and #7 (`csrc/fused_mlp_bwd.cu`,
+`csrc/fused_mip_bwd.cu`), their row-major twins #11 (`fused_mlp_bwd_row`)
+and #16 (`fused_mip_bwd_row`) and the v1 kernel #14
+(`csrc/fused_mlp_v1_bwd.cu`), runs `level_train.cuh`'s walk and dW GEMM:
+their plans fill nine slots and their entry points take a split-partial
+buffer (`gpart`) after the block partials. A plan written into a shorter
+array corrupts memory without an error, and a wrong argument count passes
+garbage pointers without one, so the wrappers' side of each call is held
+here with fake entry points in place of the kernel library: the plan
+array's length, the buffers' sizes against the plan's slots, and the
+pointer and int counts against the `extern "C"` declarations in the
+committed sources. The last tests read the forward sources: #15
+(`fused_mip_fwd_row`) runs #6's plan and the Hopper walk under the
+row-major layout.
 """
 
 import re
@@ -30,12 +32,13 @@ from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 CSRC = Path(__file__).resolve().parents[1] / "consistentnerf_tpu_torch" / \
     "csrc"
 N = 300
-# Slots a fake plan writes: blocks, workspace elements (in total for the
-# nine-slot plan, per block for the four-slot one), partial floats per
-# block, shared memory, points per chunk, splits, split partial floats,
-# slabs per split, the level walk.
+# Slots a fake plan writes: blocks, workspace elements (in total),
+# partial floats per block, shared memory, points per chunk, splits, split
+# partial floats, slabs per split, the level walk.
 PLAN9 = (7, 123_456, 320, 100_000, 768, 3, 3 * 777, 5, 1)
-PLAN4 = (5, 4_321, 192, 90_000)
+# The same slots as the fp32 plan fills them (train_block through
+# legacy_level_plan: the last four 0).
+PLAN9_LEGACY = (5, 4_321 * 5, 192, 90_000, 768, 0, 0, 0, 0)
 
 
 def c_signature(source: str, symbol: str):
@@ -88,14 +91,13 @@ def fake(monkeypatch):
                             lambda dev=None: SimpleNamespace(cuda_stream=0))
         made["lib"] = lib
         bufs = []
-        for name in ("level_buffers", "train_buffers"):
-            real = getattr(v2, name)
+        real = v2.level_buffers
 
-            def record(*a, _real=real, _name=name):
-                out = _real(*a)
-                bufs.append((_name, out))
-                return out
-            monkeypatch.setattr(v2, name, record)
+        def record(*a):
+            out = real(*a)
+            bufs.append(out)
+            return out
+        monkeypatch.setattr(v2, "level_buffers", record)
         made["bufs"] = bufs
         return lib, bufs
     return install
@@ -130,20 +132,13 @@ def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
     sizes; the launch passed the streams, g, the weights and the buffers
     in the C declaration's order and counts."""
     plan_calls = [c for c in lib.calls if c[0] == symbol + "_plan"]
-    assert [c[1] for c in plan_calls] == [len(slots)]
-    (kind, out), = bufs
+    assert [c[1] for c in plan_calls] == [len(slots)] == [9]
+    out, = bufs
     n_w, n_b = v2.grad_numel(packed)
-    if len(slots) == 9:
-        assert kind == "level_buffers"
-        ws, part, gpart, dw = out
-        assert ws.numel() == slots[1]
-        assert part.numel() == slots[0] * slots[2]
-        assert gpart.numel() == slots[6]
-    else:
-        assert kind == "train_buffers"
-        ws, part, dw = out
-        assert ws.numel() == slots[0] * slots[1]
-        assert part.numel() == slots[0] * slots[2]
+    ws, part, gpart, dw = out
+    assert ws.numel() == slots[1]
+    assert part.numel() == slots[0] * slots[2]
+    assert gpart.numel() == max(slots[6], 1)
     assert ws.dtype == packed.compute_dtype
     assert dw.numel() == n_w + n_b and dw.dtype == torch.float32
     (_, ptrs, ints), = [c for c in lib.calls if c[0] == symbol]
@@ -192,20 +187,21 @@ def test_row_major_backward_sizes_from_nine_slots(fake, kernel):
 
 
 def test_every_weight_grad_entry_takes_the_buffers_of_its_plan():
-    """Each weight-grad entry point in the committed sources takes gpart
-    exactly when `grad_launch` sizes it by the nine-slot plan: every one
-    but those in `FOUR_SLOT_PLANS` (#16)."""
+    """Every weight-grad entry point in the committed sources takes gpart
+    after part, and `grad_launch` sizes each by the nine-slot plan: the
+    wrapper keeps no other buffer sizer."""
     entries = {"fused_mlp_bwd.cu": ("fused_mlp_bwd", "fused_mlp_bwd_row"),
                "fused_mip_bwd.cu": ("fused_mip_bwd", "fused_mip_bwd_row"),
                "fused_mlp_v1_bwd.cu": ("fused_mlp_v1_bwd",)}
-    assert v2.FOUR_SLOT_PLANS == {fmip.ROW_BWD_KERNEL}
+    assert not hasattr(v2, "FOUR_SLOT_PLANS")
+    assert not hasattr(v2, "train_buffers")
     for source, symbols in entries.items():
         text = (CSRC / source).read_text()
         for symbol in symbols:
             m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text,
                           re.S)
-            takes_gpart = "void* gpart" in m.group(1)
-            assert takes_gpart == (symbol not in v2.FOUR_SLOT_PLANS), symbol
+            assert "void* part, void* gpart" in " ".join(m.group(1).split()), \
+                symbol
 
 
 # Slot 3 of #14's bf16 plan as chip_smoke.py printed it on an H100 (132
@@ -239,10 +235,9 @@ def test_the_level_walk_holds_the_v1_shapes(multires):
 
 @pytest.mark.parametrize("row", [False, True])
 def test_mip_backward_sizes_from_its_plan(fake, row):
-    """#7 on the nine-slot plan, #16 on the four-slot one, through the
-    call that `fused_mip._bwd` makes (#16 keeps train_block)."""
-    slots = PLAN4 if row else PLAN9
-    lib, bufs = fake(slots)
+    """#7 and #16 on the nine-slot plan, through the call that
+    `fused_mip._bwd` makes: four buffers (ws, part, gpart, dw)."""
+    lib, bufs = fake(PLAN9)
     packed = _mip_packed("bfloat16")
     streams, g = _streams(3, row)
     symbol = fmip.ROW_BWD_KERNEL if row else fmip.BWD_KERNEL
@@ -250,7 +245,79 @@ def test_mip_backward_sizes_from_its_plan(fake, row):
                                      streams, g, fmip._cfg_args(packed), row)
     assert launched and len(grads) == len(packed.flat)
     _check_call(lib, bufs, symbol, "fused_mip_bwd.cu", streams, g, packed,
-                slots)
+                PLAN9)
+
+
+def test_fp32_mip_row_backward_sizes_from_the_legacy_slots(fake):
+    """fp32 #16 keeps train_block through `legacy_level_plan`: nine slots
+    with the last four 0, a workspace of blocks x per-block elements in
+    slot 1, and a one-float gpart that the legacy launch does not read."""
+    lib, bufs = fake(PLAN9_LEGACY)
+    packed = _mip_packed("float32")
+    streams, g = _streams(3, row=True)
+    grads, launched = v2.grad_launch(
+        fmip.BWD_KERNEL, fmip.ROW_BWD_KERNEL, packed, streams, g,
+        fmip._cfg_args(packed), True)
+    assert launched and len(grads) == len(packed.flat)
+    _check_call(lib, bufs, fmip.ROW_BWD_KERNEL, "fused_mip_bwd.cu", streams,
+                g, packed, PLAN9_LEGACY)
+    ws, _, gpart, _ = bufs[0]
+    assert ws.dtype == torch.float32 and gpart.numel() == 1
+
+
+def test_mip_row_backward_declares_nine_slot_signatures():
+    """`fused_mip_bwd_row` takes 10 pointers (means, covs, views, g, w, b,
+    ws, part, gpart, dw) and 8 ints, as `fused_mip_bwd` does, and its plan
+    fills `plan9<T, RowMajor>`, as `fused_mlp_bwd_row_plan` does."""
+    src = "fused_mip_bwd.cu"
+    assert c_signature(src, fmip.ROW_BWD_KERNEL) == (10, 8)
+    assert c_signature(src, fmip.BWD_KERNEL) == (10, 8)
+    assert c_signature(src, fmip.ROW_BWD_KERNEL + "_plan") == (0, 8)
+    text = (CSRC / src).read_text()
+    body = text[text.index('int fused_mip_bwd_row_plan('):]
+    body = body[:body.index("}")]
+    assert "plan9<bf16, mlp::RowMajor>" in body
+    assert "plan9<float, mlp::RowMajor>" in body
+    assert "mlp::plan<" not in body
+    # The walk branch under the stream layout, for both layouts in bf16.
+    assert "mlp::level_walk<2, mlp::MipEnc, L>" in text
+    assert "mlp::level_plan<L>" in text
+    assert "!L::kRow" not in text
+
+
+def test_mip_row_forward_runs_the_walk_of_6():
+    """#15 (`fused_mip_fwd_row`) runs the plan and the walk of #6: one
+    helper for both entries, the Hopper walk instantiated under the
+    layout, and a plan that no longer refuses the row-major layout."""
+    text = (CSRC / "fused_mip_fwd.cu").read_text()
+    plan = text[text.index('int fused_mip_fwd_plan('):]
+    plan = plan[:plan.index("\n}")]
+    assert "!row" not in plan and "mip_instance(d)" in plan
+    assert c_signature("fused_mip_fwd.cu", "fused_mip_fwd_plan") == (0, 9)
+    assert "fh_launch<MipEnc, 4, 2, H, 0, L>" in text
+    for symbol, layout in (("fused_mip_fwd", "ColMajor"),
+                           ("fused_mip_fwd_row", "RowMajor")):
+        assert c_signature("fused_mip_fwd.cu", symbol) == (6, 8)
+        body = text[text.index(f'extern "C" int {symbol}('):]
+        body = body[:body.index("\n}")]
+        assert f"mip_forward<mlp::{layout}>" in body, symbol
+
+
+@pytest.mark.parametrize("num_freqs", [16, 12])
+def test_the_level_walk_holds_the_mip_row_shapes(num_freqs):
+    """#16's bf16 walk with the row-major staging fits a block's shared
+    memory at 8x256 with 768-point chunks at 16 IPE frequencies (96
+    columns, the main path) and 12 (72 columns, padded to 80), so its
+    plan picks the level walk there. At the chunk rows #14 took on the
+    card (576) it lies between #14's footprints at multires 10 (P = 64)
+    and 21 (P = 144), both of which ran."""
+    mlp = MipMLP(max_deg_point=num_freqs)
+    packed = fmip.pack(fmip.flatten_mip_params(mlp, 8), 8, num_freqs,
+                       "bfloat16")
+    assert packed.encoder == "ipe"
+    assert fm.walk_smem_bytes(packed, 768) <= fm.SMEM_LIMIT
+    assert CARD_WALK_SMEM[(10, 576)] < fm.walk_smem_bytes(packed, 576) \
+        < CARD_WALK_SMEM[(21, 576)]
 
 
 def test_no_points_launch_nothing(fake):

@@ -87,6 +87,26 @@ def test_the_row_major_weight_grads_are_split_with_the_levels(tmp_path):
     assert tps.TWOCALL_FINE == 983_040
 
 
+@pytest.mark.parametrize("part", ["level", "fwd"])
+def test_the_row_major_mip_kernels_are_split_with_their_twins(part):
+    """#16 (`fused_mip_bwd_row`) runs the level walk and #15
+    (`fused_mip_fwd_row`) the forward walk under the row-major layout,
+    each from the same patched source as its transposed twin (#7, #6), so
+    their variants cut the same regions; the tool splits #7 and #16 on
+    the same points of the mip level, 4096 rays x 96 samples."""
+    if part == "level":
+        text = tps.patched_sources(CSRC)["fused_mip_bwd.cu"]
+        assert "fused_mip_bwd.cu" in tps.SOURCES
+        assert "mlp::level_walk<2, mlp::MipEnc, L>" in text
+        assert "return run<mlp::RowMajor>(" in text
+        assert tps.MIP_LEVEL == 393_216
+    else:
+        text = tps.patched_fwd_sources(CSRC)["fused_mip_fwd.cu"]
+        assert "fused_mip_fwd.cu" in tps.FWD_SOURCES
+        assert "mip_forward<mlp::RowMajor>" in text
+        assert "fh_launch<MipEnc, 4, 2, H, 0, L>" in text
+
+
 @pytest.mark.parametrize("anchor", [
     "    // ---- backward over sub-tiles ----",
     "    // ---- end of the backward ----",

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Where the train kernels on `csrc/level_train.cuh` (the one-pass levels
-#3 and #5, the weight grads #2, #7, #11 and #14) and the bf16 forwards #1,
-#10 and #6 spend their time, on one CUDA card.
+#3 and #5, the weight grads #2, #7, #11, #14 and #16) and the bf16
+forwards #1, #10, #6 and #15 spend their time, on one CUDA card.
 
     python3 tools/torch_phase_split.py          # both parts
-    python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14
-    python3 tools/torch_phase_split.py fwd      # #1, #10, #6 and 6n only
+    python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14, #16
+    python3 tools/torch_phase_split.py fwd      # #1, #10, #6, #15 and 6n
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
-`csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7) and
-`csrc/fused_mlp_v1_bwd.cu` (#14) four times from patched copies of
+`csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7 and
+#16) and `csrc/fused_mlp_v1_bwd.cu` (#14) four times from patched copies of
 `csrc/level_train.cuh` (beside copies of the other headers) under
 `build/phase_split/`: as they are, without the dW GEMM, without the dW
 GEMM and the backward walk, and without those and without saving
@@ -18,9 +18,11 @@ the main path's shapes, bf16, seeded random weights and rays: #3 at the
 flagship step's fine level (4096 rays x 192 samples) and coarse level
 (x 64), #5 at a mip level (3072 rays x 96 samples), #2 at the one-pass
 step's fine patch launch (1024 patch rays x 192 samples), #7 at a mip
-patch level (1024 x 96), and #2, #11 and #14 on the same points of the
+patch level (1024 x 96), #2, #11 and #14 on the same points of the
 two-call step's fine level (5120 rays x 192 samples: [3, N] streams for
-#2, their [N, 3] transposes for #11 and #14), with a seeded cotangent;
+#2, their [N, 3] transposes for #11 and #14), and #7 and #16 on the same
+points of the mip two-call step's level (4096 rays x 96 samples), with a
+seeded cotangent;
 the differences are the phases' times (for the weight grads "forward"
 includes reading the cotangent). The variants compute wrong grads by
 construction; only the full build is a kernel of the port.
@@ -34,7 +36,8 @@ render's chunk shapes, bf16, seeded random weights and points: #1 at the
 fine chunk (8192 rays x 192 samples) and the coarse chunk (x 64), #10 on
 the fine chunk's points as [N, 3] streams (the same walk under the
 row-major layout: its encoders read 12-byte rows, its heads store
-[N, 4]), #6 at a chunk (8192 rays x 96 samples). The differences are the
+[N, 4]), #6 at a chunk (8192 rays x 96 samples) and #15 on that chunk's
+Gaussians as [N, 3] streams. The differences are the
 heads', the encoding's (what the producer does not hide) and the
 epilogues' times.
 Then it builds `csrc/fused_mip_fwd.cu` three times more from copies of
@@ -63,6 +66,9 @@ SOURCES = ("onepass_level.cu", "onepass_mip_level.cu", "fused_mlp_bwd.cu",
 # Points of the two-call step's fine level (5120 rays x 192 samples),
 # where #2, #11 and #14 are split on the same points.
 TWOCALL_FINE = 5120 * 192
+# Points of the mip two-call step's level (4096 rays x 96 samples), where
+# #7 and #16 are split on the same points.
+MIP_LEVEL = 4096 * 96
 VARIANTS = {
     "full": [],
     "no_dw": ["-DPHASE_NO_DW"],
@@ -213,7 +219,7 @@ def _time(run, iters=3) -> float:
 
 
 def fwd_main() -> None:
-    """Times #1, #10 and #6 in the four forward variants."""
+    """Times #1, #10, #6 and #15 in the four forward variants."""
     import torch
 
     if not torch.cuda.is_available():
@@ -259,6 +265,7 @@ def fwd_main() -> None:
     means = (torch.rand(3, n_mip, generator=g) * 3 - 1.5).to(dev)
     covs = (torch.rand(3, n_mip, generator=g) * 1e-4).to(dev)
     mviews = unit(n_mip)
+    m_row = [x.T.contiguous() for x in (means, covs, mviews)]
     cases = {
         f"#1 fine chunk ({8192 * 192} points)": nerf(8192 * 192),
         f"#1 coarse chunk ({8192 * 64} points)": nerf(8192 * 64),
@@ -266,6 +273,8 @@ def fwd_main() -> None:
             8192 * 192, row=True),
         f"#6 chunk ({n_mip} points)": lambda: fmip.fwd_T(
             mpacked, means, covs, mviews, 8, 16, "bfloat16"),
+        f"#15 chunk ({n_mip} points, row-major)": lambda: fmip.fwd(
+            mpacked, *m_row, 8, 16, "bfloat16"),
     }
     base_flags = list(_build.NVCC_FLAGS)
     _build.CSRC = csrc
@@ -393,6 +402,13 @@ def main() -> None:
     tc_g = (1e-3 * torch.randn(4, n_tc, generator=g)).to(dev)
     tc_row = [x.T.contiguous() for x in (tc_pts, tc_views, tc_g)]
     packed_v1 = fm.pack_v1(packed.flat, 8, (4,), 10, 4, "bfloat16")
+    ml_means = (torch.rand(3, MIP_LEVEL, generator=g) * 3 - 1.5).to(dev)
+    ml_covs = (torch.rand(3, MIP_LEVEL, generator=g) * 1e-4).to(dev)
+    ml_views = torch.randn(3, MIP_LEVEL, generator=g)
+    ml_views = (ml_views / ml_views.norm(dim=0, keepdim=True)).to(dev)
+    ml_g = (1e-3 * torch.randn(4, MIP_LEVEL, generator=g)).to(dev)
+    ml_streams = (ml_means, ml_covs, ml_views)
+    ml_row = [x.T.contiguous() for x in (*ml_streams, ml_g)]
     cases = {
         f"#3 fine ({4096 * 192} points)": vanilla(4096, 192),
         f"#3 coarse ({4096 * 64} points)": vanilla(4096, 64),
@@ -410,6 +426,10 @@ def main() -> None:
             packed, *tc_row, 8, (4,), 10, 4, "bfloat16"),
         f"#14 two-call fine ({n_tc} points)": lambda: fmt.backward(
             packed_v1, *tc_row, 8, (4,), 10, 4, "bfloat16"),
+        f"#7 mip level ({MIP_LEVEL} points)": lambda: fmip.bwd_T(
+            mpacked, *ml_streams, ml_g, 8, 16, "bfloat16"),
+        f"#16 mip level ({MIP_LEVEL} points)": lambda: fmip.bwd(
+            mpacked, *ml_row, 8, 16, "bfloat16"),
     }
 
     base_flags = list(_build.NVCC_FLAGS)
