@@ -37,10 +37,14 @@ with the launch counts set to 0 just before it and read just after:
 * mip train: the train CLI on the mip config of `bench.py:241-258` (3072
   random + 4x16x16 MiDaS patch rays, hard mask, depth and MiDaS terms,
   bf16, randomized, the one-pass mip step) for a few steps and a resume;
-* the switched paths: the vanilla render with `use_onepass_render` and
-  `use_pdf_kernel` (kernels #4 and #8; #4 also at 1, 3 and 395 rays of
-  64 and 192 samples, a repeat bit for bit, and its rows 3-5 against the
-  plain compositing of #1's heads), the mip render with `use_pdf_kernel`
+* the switched paths: #8 and #9 at the render chunk (on the render
+  path's views and contiguous rows, bit for bit, and a repeat), at 1, 7
+  and 8193 rays against their plain versions, and their device time a
+  launch (torch.profiler, the L2 flushed) and a call's time; the vanilla
+  render with `use_onepass_render` and `use_pdf_kernel` (kernels #4 and
+  #8; #4 also at 1, 3 and 395 rays of 64 and 192 samples, a repeat bit
+  for bit, and its rows 3-5 against the plain compositing of #1's
+  heads), the mip render with `use_pdf_kernel`
   and `disable_normals=false` (6n and #9; its peak memory), and both
   one-pass steps with `use_pdf_kernel` through the train CLI;
 * the row-major kernels #10 / #11 at the two-call step's shapes and
@@ -234,6 +238,56 @@ def device_time(fn):
         return None, []
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:6]
+
+
+# The L2 flush before each timed launch of #8 / #9: a buffer larger than
+# the H100's 50 MB L2, read (its sum), so each launch reads its rows from
+# device memory, as the bound assumes, and finds clean lines to evict.
+L2_FLUSH_BYTES = 256 * 2 ** 20
+
+
+def launch_device_ms(fn, kernel, iters=50):
+    """Device time of one launch of the kernel whose name holds `kernel`:
+    fn() `iters` times under torch.profiler, each after an L2 flush (the
+    sum of an L2_FLUSH_BYTES buffer), the kernel's own device time over
+    the launches the profiler recorded (the flush kernel left out by
+    name). A gate fails, and None comes back, where the profiler saw no
+    device time or recorded fewer than half of the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            buf.sum()
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    if count != iters:
+        log(f"{kernel}: the profiler recorded {count} launches of {iters}")
+    ok = us > 0 and 2 * count >= iters
+    gate(ok, f"{kernel}: no device time (the profiler recorded {count} "
+         f"launches of {iters}, {us:.1f} us)")
+    return us / 1e3 / count if ok else None
+
+
+def us_text(ms):
+    return "not measured" if ms is None else f"{1e3 * ms:.2f}"
+
+
+def equal_gate(label, got, want):
+    """`got` bit for bit `want` (tensors, or sequences of them)."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"{label}: bit-identical {same}")
+    gate(same, f"{label}: other bits")
 
 
 def peak_memory(label):
@@ -1951,6 +2005,10 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
 # further than one coarse bin.
 PDF_REL_TOL = 1e-4
 PDF_QUANTILE = 0.999
+# #8's and #9's ragged ray counts at the render's rows: one ray, 7 (at 16
+# lanes a ray the last warp's second ray is past the end), and a render
+# chunk and one (the last block one ray).
+RESAMPLE_RAGGED = (1, 7, CHUNK + 1)
 # 6n's rows 4-6 (the density's gradient by the means) against its plain
 # version. fp32: each row's max|diff| / max|plain| < NORMALS_FP32_TOL.
 # bf16: mean|diff| / mean|plain| < MIP_BF16_MEAN_TOL, and the kernel no
@@ -2151,9 +2209,10 @@ def time_steps(cfg, dev, loop, batches):
 def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
                             default_render_ms):
     """The vanilla paths with use_onepass_render and use_pdf_kernel: #8 at
-    the render chunk's and the train step's shapes, #4 on a fine and a
-    coarse chunk, the switched render, the one-pass step with the pdf
-    kernel through the train CLI, its step guard and timings."""
+    the render chunk's and the train step's shapes, at RESAMPLE_RAGGED
+    rays, on the render path's views and again, #4 on a fine and a coarse
+    chunk, the switched render, the one-pass step with the pdf kernel
+    through the train CLI, its step guard and timings."""
     from consistentnerf_tpu_torch.cli import train as train_cli
     from consistentnerf_tpu_torch.core import sampling
     from consistentnerf_tpu_torch.data import synthetic
@@ -2242,6 +2301,29 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
                 args[0])
             resample_gate(f"{lab}: the samples", got_s, want_s, span,
                           bin_width)
+        # 17b. #8 again, on the render path's views (the interior weights
+        # w_c[:, 1:-1], the expanded linspace: row strides s_c and 0) bit
+        # for bit against the contiguous rows, and at the ragged ray
+        # counts against the plain version.
+        first = pdf_merge.sample_pdf_merged(*render_in)
+        equal_gate(f"{pdf_merge.KERNEL} render chunk, a second launch",
+                   pdf_merge.sample_pdf_merged(*render_in), first)
+        equal_gate(f"{pdf_merge.KERNEL} render chunk on the render path's "
+                   "views vs contiguous rows", pdf_merge.sample_pdf_merged(
+                       z_c, w_c[:, 1:-1], pdf_merge.fine_z_draws(
+                           None, n, s_i, True, dev)), first)
+        for k in RESAMPLE_RAGGED:
+            rays = stacked.map(lambda x: x.reshape(-1, x.shape[-1])[:k])
+            z_k = sampling.vanilla_z_vals(rays.near, rays.far, s_c, False,
+                                          None)
+            args = (z_k, coarse_weights(rays, z_k)[:, 1:-1],
+                    pdf_merge.fine_z_draws(None, k, s_i, True, dev))
+            got, _ = pdf_merge.sample_pdf_merged(*args)
+            torch.cuda.synchronize()
+            resample_gate(f"{pdf_merge.KERNEL} vs plain, {k} ray(s) x "
+                          f"{s_c}+{s_i}", got,
+                          pdf_merge.plain_sample_pdf_merged(*args)[0], span,
+                          bin_width, z_k)
     pdf_err = errs[cases[0][0]]
 
     # 18. #4 vs plain on a fine and a coarse chunk, bf16 and fp32.
@@ -2358,7 +2440,11 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
         ms4c = time_ms(lambda: op.render_level_T(wc, *coarse_in, **kc), 10)
         plain4 = time_ms(lambda: op.plain_render_level_T(wf, *fine_in,
                                                           **kf), 2)
-        ms8 = time_ms(lambda: pdf_merge.sample_pdf_merged(*render_in), 50)
+        call8 = time_ms(lambda: pdf_merge.sample_pdf_merged(*render_in),
+                        50)
+        ms8 = launch_device_ms(
+            lambda: pdf_merge.sample_pdf_merged(*render_in),
+            f"{pdf_merge.KERNEL}_kernel")
         plain8 = time_ms(lambda: pdf_merge.plain_sample_pdf_merged(
             *render_in), 10)
     render_ms = time_ms(lambda: render(stacked), 3)
@@ -2380,8 +2466,11 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
         f"ms, bound {b4c:.3f} ({100 * b4c / ms4c:.1f}% of it); plain "
         f"version, fine: {plain4:.3f} ms")
     log(f"{tag} {pdf_merge.KERNEL} render chunk ({n} rays, {s_c}+{s_i}): "
-        f"{1e3 * ms8:.1f} us/launch, bound {1e3 * b8:.2f} us ({by8}, "
-        f"{100 * b8 / ms8:.1f}% of it); plain version {1e3 * plain8:.1f} us")
+        f"device time a launch (L2 flushed) {us_text(ms8)} us"
+        + f", bound {1e3 * b8:.2f} us ({by8}"
+        + ("" if ms8 is None else f", {100 * b8 / ms8:.1f}% of the device "
+           "time") + f"); a call, host included (events around 50 calls): "
+        f"{1e3 * call8:.1f} us; plain version {1e3 * plain8:.1f} us")
     log(f"{tag} switched render {len(all_rays)} views: {render_ms:.2f} ms, "
         f"{1e3 * n_rays / render_ms:.1f} rays/s; default fused render of "
         f"this run {default_render_ms:.2f} ms, "
@@ -2406,14 +2495,16 @@ def switched_vanilla_phases(dev, card, configs, fm, v2, op, pdf_merge,
             name=pdf_merge.KERNEL, route="cuda",
             source="consistentnerf_tpu_torch/csrc/pdf_merge.cu",
             replaces="consistentnerf_tpu/ops/pdf_merge.py:158",
-            launches=pdf_launches, max_abs_err=pdf_err, ms=ms8,
+            launches=pdf_launches, max_abs_err=pdf_err,
+            ms=ms8, call_ms=call8,
             plain_ms=plain8, bound_ms=b8, bound_by=by8, library_ms=None)}}
 
 
 def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
                         default_render_ms):
     """The mip paths with use_pdf_kernel and disable_normals=false: #9 at
-    the render chunk's and the train step's shapes, 6n on a render chunk,
+    the render chunk's and the train step's shapes, at RESAMPLE_RAGGED
+    rays, on views and again, 6n on a render chunk,
     the switched mip render, the one-pass mip step with the pdf kernel
     through the train CLI, its step guard and timings."""
     from consistentnerf_tpu_torch.cli import train as train_cli
@@ -2497,6 +2588,30 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
             errs9[label] = resample_gate(
                 f"{pdf_merge.MIP_KERNEL} vs plain, {label}, "
                 f"{args[0].shape[0]} x {s + 1}", got, want, span, span / s)
+        # 22b. #9 again, on views (the render path's expanded draws, row
+        # stride 0; weights with row stride 2 S) bit for bit against the
+        # contiguous rows, and at the ragged ray counts against the plain
+        # version.
+        pad = cfg.resample_padding_final
+        first = pdf_merge.mip_resample_t_vals(*render_in)
+        equal_gate(f"{pdf_merge.MIP_KERNEL} render chunk, a second launch",
+                   pdf_merge.mip_resample_t_vals(*render_in), first)
+        equal_gate(f"{pdf_merge.MIP_KERNEL} render chunk on views vs "
+                   "contiguous rows", pdf_merge.mip_resample_t_vals(
+                       t0, torch.cat([w0, w0], 1)[:, :s],
+                       sampling.piecewise_pdf_draws(None, (n,), s + 1, dev),
+                       pad), first)
+        for k in RESAMPLE_RAGGED:
+            t_k, w_k = level0(stacked.map(
+                lambda x: x.reshape(-1, x.shape[-1])[:k]), None)
+            args = (t_k, w_k, sampling.piecewise_pdf_draws(
+                None, (k,), s + 1, dev), pad)
+            got = pdf_merge.mip_resample_t_vals(*args)
+            torch.cuda.synchronize()
+            resample_gate(f"{pdf_merge.MIP_KERNEL} vs plain, {k} ray(s) x "
+                          f"{s + 1}", got,
+                          pdf_merge.plain_mip_resample_t_vals(*args), span,
+                          span / s)
     mip_err = errs9[cases[0][0]]
 
     # 23. 6n vs plain on the render chunk's level 1, bf16 and fp32.
@@ -2620,7 +2735,11 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
             w16, *lvl1, compute_dtype="bfloat16", **kw), 3)
         plain6n = time_ms(lambda: fmip.plain_fwd_normals_T(
             w16, *lvl1, compute_dtype="bfloat16", **kw), 1)
-        ms9 = time_ms(lambda: pdf_merge.mip_resample_t_vals(*render_in), 50)
+        call9 = time_ms(lambda: pdf_merge.mip_resample_t_vals(*render_in),
+                        50)
+        ms9 = launch_device_ms(
+            lambda: pdf_merge.mip_resample_t_vals(*render_in),
+            f"{pdf_merge.MIP_KERNEL}_kernel")
         plain9 = time_ms(lambda: pdf_merge.plain_mip_resample_t_vals(
             *render_in), 10)
     torch.cuda.reset_peak_memory_stats()
@@ -2647,9 +2766,11 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
         f"FLOP/point, {100 * b6n / ms6n:.1f}% of it); plain version "
         f"{plain6n:.3f} ms")
     log(f"{tag} {pdf_merge.MIP_KERNEL} render chunk ({n} rays, {s + 1} "
-        f"fenceposts): {1e3 * ms9:.1f} us/launch, bound {1e3 * b9:.2f} us "
-        f"({by9}, {100 * b9 / ms9:.1f}% of it); plain version "
-        f"{1e3 * plain9:.1f} us")
+        f"fenceposts): device time a launch (L2 flushed) {us_text(ms9)} us"
+        + f", bound {1e3 * b9:.2f} us ({by9}"
+        + ("" if ms9 is None else f", {100 * b9 / ms9:.1f}% of the device "
+           "time") + f"); a call, host included (events around 50 calls): "
+        f"{1e3 * call9:.1f} us; plain version {1e3 * plain9:.1f} us")
     log(f"{tag} switched mip render {len(all_rays)} views: {render_ms:.2f} "
         f"ms, {1e3 * n_rays / render_ms:.1f} rays/s; default fused mip "
         f"render of this run {default_render_ms:.2f} ms, "
@@ -2674,7 +2795,8 @@ def switched_mip_phases(dev, card, configs, fm, fmip, op, pdf_merge,
             name=pdf_merge.MIP_KERNEL, route="cuda",
             source="consistentnerf_tpu_torch/csrc/mip_resample.cu",
             replaces="consistentnerf_tpu/ops/pdf_merge.py:284",
-            launches=mip_launches, max_abs_err=mip_err, ms=ms9,
+            launches=mip_launches, max_abs_err=mip_err,
+            ms=ms9, call_ms=call9,
             plain_ms=plain9, bound_ms=b9, bound_by=by9, library_ms=None)}
 
 

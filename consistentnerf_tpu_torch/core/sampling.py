@@ -115,8 +115,8 @@ def inverse_cdf(bins: torch.Tensor, weights: torch.Tensor,
         _EPS - weights.sum(-1, keepdim=True), min=0)
     pdf = weights / weights.sum(-1, keepdim=True)
     cdf = torch.clamp(torch.cumsum(pdf[..., :-1], -1), max=1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
-                     torch.ones_like(cdf[..., :1])], -1)
+    edge = cdf.new_zeros(cdf.shape[:-1] + (1,))  # K = 1: cdf is empty
+    cdf = torch.cat([edge, cdf, edge + 1], -1)
     u = u.contiguous()
     idx = torch.searchsorted(cdf.contiguous(), u, right=True)
     bins_g0, bins_g1 = _interval(bins, idx)
@@ -170,8 +170,7 @@ def resample_along_rays(jitter: Optional[torch.Tensor], origins,
         u = piecewise_pdf_draws(jitter, t_vals.shape[:-1], num,
                                 t_vals.device)
         new_t_vals = pdf_merge.mip_resample_t_vals(
-            t_vals.detach().float().contiguous(),
-            weights.detach().float().contiguous(), u.float().contiguous(),
+            t_vals.detach().float(), weights.detach().float(), u.float(),
             float(resample_padding))
         return new_t_vals, mip_core.cast_rays(
             new_t_vals, origins, directions, radii, ray_shape, diag=diag,

@@ -17,6 +17,12 @@ that the reference sorts away with the merged depths; `sorted_uniform`
 makes their order statistics directly, the same set of depths in
 distribution (`fine_z_draws`).
 
+Both kernels read each input row through its row stride, so a caller
+hands over views (the interior weights `w[..., 1:-1]`, an expanded
+linspace of draws with row stride 0) without a copy. An input's last
+dimension must be unit-stride, fp32 and on the first input's device, on
+every device; the ops raise otherwise.
+
 `fine_z_vals` routes the vanilla fine level: through kernel #8 with
 `use_kernel` (and S_c, S_i <= 128), else through the plain chain
 `sort(concat(z_vals, sample_pdf(...)))`, the JAX package's default
@@ -33,14 +39,37 @@ import torch
 
 from consistentnerf_tpu_torch.core import sampling
 from consistentnerf_tpu_torch.ops import _build
-from consistentnerf_tpu_torch.ops.fused_mlp_v2 import _check_stream
 
 KERNEL = "pdf_merge"
 MIP_KERNEL = "mip_resample"
 MAX_SAMPLES = 128  # the kernels' (and the TPU kernels') row limit
+# The C entries' parameters in order: p a pointer (the last one the
+# stream), i an int, f a float.
+PDF_ARGS = "pipipippiiip"
+MIP_ARGS = "pipipipiifp"
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 # Kernel launches since import (or since the caller last reset them).
 launches = 0
 mip_launches = 0
+
+
+def row_stride(name: str, t: torch.Tensor, n: int, cols: int,
+               device) -> int:
+    """Checks that `t` is an fp32 [n, cols] tensor on `device` whose last
+    dimension is unit-stride; returns its row stride in elements (0 where
+    one row stands for every ray)."""
+    if t.dtype != torch.float32 or t.shape != (n, cols) or t.device != device:
+        raise ValueError(f"{name} must be an fp32 [{n}, {cols}] tensor on "
+                         f"{device}, not {t.dtype} {list(t.shape)} on "
+                         f"{t.device}")
+    row, col = t.stride()
+    if col != 1 and cols > 1:
+        raise ValueError(f"{name} must be unit-stride in its last "
+                         f"dimension, not strides {t.stride()}")
+    if row >= 2 ** 31:
+        raise ValueError(f"{name}'s row stride {row} does not fit the "
+                         "kernel's int")
+    return row
 
 
 def sorted_uniform(e: torch.Tensor) -> torch.Tensor:
@@ -74,46 +103,51 @@ def plain_sample_pdf_merged(z_c: torch.Tensor, w: torch.Tensor,
 @functools.cache
 def _kernel():
     fn = _build.load(KERNEL).pdf_merge
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = [_CTYPES[k] for k in PDF_ARGS]
     fn.restype = ctypes.c_int
     return fn
+
+
+def pdf_merge_launch(z_c, w, u, merged, z_s, strides, stream: int) -> None:
+    """Launches #8 on checked rows: `strides` the row strides of z_c, w
+    and u (`row_stride`), merged and z_s allocated contiguous, `stream`
+    the CUDA stream's handle."""
+    n, s_c = z_c.shape
+    err = _kernel()(z_c.data_ptr(), strides[0], w.data_ptr(), strides[1],
+                    u.data_ptr(), strides[2], merged.data_ptr(),
+                    z_s.data_ptr(), n, s_c, u.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
 
 
 def sample_pdf_merged(z_c: torch.Tensor, w: torch.Tensor, u: torch.Tensor):
     """Inverse-CDF fine sampling plus the merge with the coarse depths
     (kernel #8): z_c [N, S_c] ascending, w [N, S_c - 2] the interior
-    compositing weights, u [N, S_i] ASCENDING draws in [0, 1]. Returns
-    (merged [N, S_c + S_i], z_samples [N, S_i]). CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    compositing weights, u [N, S_i] ASCENDING draws in [0, 1]; rows may be
+    views (`row_stride`). Returns (merged [N, S_c + S_i], z_samples
+    [N, S_i]). CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     n, s_c = z_c.shape
     s_i = u.shape[-1]
-    if tuple(w.shape) != (n, s_c - 2) or tuple(u.shape) != (n, s_i):
-        raise ValueError(f"weights {tuple(w.shape)} and draws "
-                         f"{tuple(u.shape)} do not fit depths {(n, s_c)}")
     if not (3 <= s_c <= MAX_SAMPLES and 1 <= s_i <= MAX_SAMPLES):
         raise ValueError(f"sample_pdf_merged takes 3..{MAX_SAMPLES} coarse "
                          f"and 1..{MAX_SAMPLES} fine samples, not {s_c}, "
                          f"{s_i}")
-    if z_c.device.type == "cpu":
-        return plain_sample_pdf_merged(z_c, w, u)
-    if z_c.device.type != "cuda":
-        raise ValueError(f"no pdf kernel for device {z_c.device}")
     dev = z_c.device
-    for name, t, cols in (("z_c", z_c, s_c), ("w", w, s_c - 2),
-                          ("u", u, s_i)):
-        _check_stream(name, t, n, cols, dev)
+    strides = (row_stride("z_c", z_c, n, s_c, dev),
+               row_stride("w", w, n, s_c - 2, dev),
+               row_stride("u", u, n, s_i, dev))
+    if dev.type == "cpu":
+        return plain_sample_pdf_merged(z_c, w, u)
+    if dev.type != "cuda":
+        raise ValueError(f"no pdf kernel for device {dev}")
     merged = torch.empty((n, s_c + s_i), dtype=torch.float32, device=dev)
     z_s = torch.empty((n, s_i), dtype=torch.float32, device=dev)
-    if n == 0:
-        return merged, z_s
-    err = _kernel()(z_c.data_ptr(), w.data_ptr(), u.data_ptr(),
-                    merged.data_ptr(), z_s.data_ptr(), n, s_c, s_i,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
+    if n:
+        pdf_merge_launch(z_c, w, u, merged, z_s, strides,
+                         torch.cuda.current_stream(dev).cuda_stream)
     return merged, z_s
 
 
@@ -133,10 +167,24 @@ def plain_mip_resample_t_vals(t_vals: torch.Tensor, weights: torch.Tensor,
 @functools.cache
 def _mip_kernel():
     fn = _build.load(MIP_KERNEL).mip_resample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [_CTYPES[k] for k in MIP_ARGS]
     fn.restype = ctypes.c_int
     return fn
+
+
+def mip_resample_launch(t_vals, weights, u, out, strides, padding: float,
+                        stream: int) -> None:
+    """Launches #9 on checked rows: `strides` the row strides of t_vals,
+    weights and u (`row_stride`), out allocated contiguous, `stream` the
+    CUDA stream's handle."""
+    n, sp1 = t_vals.shape
+    err = _mip_kernel()(t_vals.data_ptr(), strides[0], weights.data_ptr(),
+                        strides[1], u.data_ptr(), strides[2], out.data_ptr(),
+                        n, sp1 - 1, float(padding), stream)
+    if err != 0:
+        raise RuntimeError(f"{MIP_KERNEL} launch failed: cudaError_t {err}")
+    global mip_launches
+    mip_launches += 1
 
 
 def mip_resample_t_vals(t_vals: torch.Tensor, weights: torch.Tensor,
@@ -144,37 +192,27 @@ def mip_resample_t_vals(t_vals: torch.Tensor, weights: torch.Tensor,
                         resample_padding: float) -> torch.Tensor:
     """Blurpool, padding and the hardened inverse CDF (kernel #9): t_vals
     [N, S+1] ascending fenceposts, weights [N, S], u [N, S+1] ASCENDING
-    draws in [0, 1), the padding a host scalar. Returns the new
-    fenceposts [N, S+1]. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    draws in [0, 1), the padding a host scalar; rows may be views
+    (`row_stride`). Returns the new fenceposts [N, S+1]. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     n, sp1 = t_vals.shape
-    if tuple(weights.shape) != (n, sp1 - 1) or tuple(u.shape) != (n, sp1):
-        raise ValueError(f"weights {tuple(weights.shape)} and draws "
-                         f"{tuple(u.shape)} do not fit fenceposts "
-                         f"{(n, sp1)}")
     if not 2 <= sp1 <= MAX_SAMPLES:
         raise ValueError(f"mip_resample_t_vals takes 2..{MAX_SAMPLES} "
                          f"fenceposts, not {sp1}")
-    if t_vals.device.type == "cpu":
+    dev = t_vals.device
+    strides = (row_stride("t_vals", t_vals, n, sp1, dev),
+               row_stride("weights", weights, n, sp1 - 1, dev),
+               row_stride("u", u, n, sp1, dev))
+    if dev.type == "cpu":
         return plain_mip_resample_t_vals(t_vals, weights, u,
                                          resample_padding)
-    if t_vals.device.type != "cuda":
-        raise ValueError(f"no mip resampling kernel for device "
-                         f"{t_vals.device}")
-    dev = t_vals.device
-    for name, t, cols in (("t_vals", t_vals, sp1),
-                          ("weights", weights, sp1 - 1), ("u", u, sp1)):
-        _check_stream(name, t, n, cols, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"no mip resampling kernel for device {dev}")
     out = torch.empty((n, sp1), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    err = _mip_kernel()(t_vals.data_ptr(), weights.data_ptr(), u.data_ptr(),
-                        out.data_ptr(), n, sp1 - 1, float(resample_padding),
-                        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{MIP_KERNEL} launch failed: cudaError_t {err}")
-    global mip_launches
-    mip_launches += 1
+    if n:
+        mip_resample_launch(t_vals, weights, u, out, strides,
+                            resample_padding,
+                            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -199,9 +237,8 @@ def fine_z_vals(
         elif u is None:
             raise ValueError("stochastic fine_z_vals needs its draws `u`")
         z_all, z_samples = sample_pdf_merged(
-            z_vals.detach().float().contiguous(),
-            weights[..., 1:-1].detach().float().contiguous(),
-            u.float().contiguous())
+            z_vals.detach().float(), weights[..., 1:-1].detach().float(),
+            u.float())
     else:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sampling.sample_pdf(

@@ -688,70 +688,180 @@ def test_render_walk_at_ragged_rays(cuda_device, seg, n_rays):
     assert heads < 1e-5
 
 
-def _pdf_problem(n, s_c, dev, seed=0, zero=False):
+def _pdf_weights(kind, n, k, g):
+    """Weights [n, k]: squared uniforms, all zero, one-hot, or so small
+    that the 1e-5 floor makes the pdf."""
+    if kind == "zero":
+        return torch.zeros(n, k)
+    if kind == "onehot":
+        w = torch.zeros(n, k)
+        w[torch.arange(n), torch.randint(0, k, (n,), generator=g)] = 1.0
+        return w
+    w = torch.rand(n, k, generator=g) ** 2
+    return w * 1e-9 if kind == "floor" else w
+
+
+def _pdf_problem(n, s_c, dev, seed=0, weights="squared"):
     g = torch.Generator().manual_seed(seed)
     z = torch.linspace(2.0, 6.0, s_c)
     z_c = torch.sort(z + torch.rand(n, s_c, generator=g) * 4.0 / s_c * 0.9,
                      -1).values
-    w = (torch.zeros(n, s_c - 2) if zero
-         else torch.rand(n, s_c - 2, generator=g) ** 2)
-    return z_c.to(dev), w.to(dev), g
+    return z_c.to(dev), _pdf_weights(weights, n, s_c - 2, g).to(dev), g
+
+
+def _resample_gates(got, want, span, bins, z_c=None, step=None):
+    """The gates of chip_smoke.py's resample_gate: exactly sorted, z_c
+    present exactly, within 1e-4 of the span at the 99.9th percentile and
+    one bin at most. `step` [n, k], (mask, width): samples on a step of
+    the function, held to their own step's width instead."""
+    assert torch.all(got[:, 1:] >= got[:, :-1])
+    if z_c is not None:
+        idx = torch.searchsorted(got, z_c).clamp(max=got.shape[1] - 1)
+        assert torch.equal(got.gather(1, idx), z_c)
+    err = (got - want).abs() / span
+    if step is not None:
+        on, width = step
+        assert torch.all(err[on] * span <= width[on])
+        err = err[~on]
+    assert torch.quantile(err.flatten()[:1_000_000], 0.999).item() <= 1e-4
+    assert err.max().item() <= 1.0 / bins
+
+
+def _last_draw_step(z_c, w, u):
+    """The draws u = 1 in rows whose last interval's pdf is at the 1e-5
+    floor, and the width of the step there: the draw lands on the last
+    midpoint where the cdf's last entry rounds to 1 or below, and near the
+    midpoint before it where it rounds above 1 (the interval's width
+    under 1e-5 counts as 1). Which, the last ulp of the cdf's sums
+    decides, so two sum orders (the plain version's, #8's or the TPU
+    kernel's) put it on either side. Returns (mask [n, s_i], width
+    [n, s_i])."""
+    w = w + 1e-5
+    last = (w[:, -1] / w.sum(-1)) < 1.01e-5
+    mid = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
+    width = (mid[:, -1] - mid[:, -2])[:, None].expand_as(u)
+    return (u == 1.0) & last[:, None], width
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,s_c,s_i,weights", [
+    (1001, 64, 128, "squared"), (1001, 64, 128, "zero"),
+    (1001, 64, 128, "onehot"), (1001, 64, 128, "floor"),
+    (1, 64, 128, "squared"), (7, 64, 128, "squared"),
+    (8193, 64, 128, "squared"), (300, 3, 1, "squared"),
+    (300, 128, 128, "squared"), (300, 128, 128, "onehot")])
 @pytest.mark.parametrize("draws", ["det", "sorted"])
-@pytest.mark.parametrize("zero", [False, True])
-def test_pdf_merge_kernel_matches_plain(cuda_device, draws, zero):
-    """#8 on 1001 rays of 64 + 128 samples: exactly sorted, z_c present
-    exactly, within 1e-4 of (far - near) of the plain version at the
-    99.9th percentile and one coarse bin at most; bit-identical again."""
-    n, s_c, s_i, dev = 1001, 64, 128, cuda_device
-    z_c, w, g = _pdf_problem(n, s_c, dev, zero=zero)
-    u = (pdf_merge.fine_z_draws(None, n, s_i, True, dev).contiguous()
-         if draws == "det" else pdf_merge.sorted_uniform(
-             torch.rand(n, s_i + 1, generator=g).to(dev)).contiguous())
+def test_pdf_merge_kernel_matches_plain(cuda_device, n, s_c, s_i, weights,
+                                        draws):
+    """#8 at ragged ray counts, the row limits and degenerate weights:
+    exactly sorted, z_c present exactly, within 1e-4 of (far - near) of
+    the plain version at the 99.9th percentile and one coarse bin at most
+    (the samples at the last draw's step, `_last_draw_step`, within that
+    step); on views (weights w[:, 1:-1] of a wider row, the expanded
+    linspace or a slice of wider draws) bit for bit the contiguous rows'
+    result, and bit-identical again."""
+    dev = cuda_device
+    z_c, w, g = _pdf_problem(n, s_c, dev, weights=weights)
+    if draws == "det":
+        u_view = pdf_merge.fine_z_draws(None, n, s_i, True, dev)
+    else:
+        u_view = pdf_merge.sorted_uniform(
+            torch.rand(n, s_i + 3, generator=g).to(dev))[:, :s_i]
+    w_view = torch.cat([w[:, :1], w, w[:, -1:]], 1)[:, 1:-1]
+    u = u_view.contiguous()
     before = pdf_merge.launches
     merged, z_s = pdf_merge.sample_pdf_merged(z_c, w, u)
     torch.cuda.synchronize()
     assert pdf_merge.launches == before + 1
     want, want_s = pdf_merge.plain_sample_pdf_merged(z_c, w, u)
-    assert torch.all(merged[:, 1:] >= merged[:, :-1])
-    assert all(torch.isin(z_c[r], merged[r]).all() for r in range(0, n, 97))
-    err = (merged - want).abs() / 4.0
-    print(f"pdf_merge {draws} zero={zero}: max {err.max().item():.3e}")
-    assert torch.quantile(err.flatten()[:1_000_000], 0.999).item() <= 1e-4
-    assert err.max().item() * 4.0 <= 4.0 / (s_c - 1)
+    print(f"pdf_merge {n} x {s_c}+{s_i} {weights} {draws}: max "
+          f"{(merged - want).abs().max().item() / 4.0:.3e}")
+    _resample_gates(merged, want, 4.0, s_c - 1, z_c)
+    step = _last_draw_step(z_c, w, u)
+    print(f"  {int(step[0].sum())} samples at the last draw's step")
+    _resample_gates(z_s, want_s, 4.0, s_c - 1, step=step)
+    assert w_view.stride(0) == s_c and u_view.stride(1) == 1
+    views = pdf_merge.sample_pdf_merged(z_c, w_view, u_view)
+    assert torch.equal(merged, views[0]) and torch.equal(z_s, views[1])
     again = pdf_merge.sample_pdf_merged(z_c, w, u)
     assert torch.equal(merged, again[0]) and torch.equal(z_s, again[1])
 
 
+def inversion_problem(n, seed=0):
+    """Rows where fp32 rounding puts the first of two samples above the
+    second: S_c = 4, draws 1 and the float just below it, midpoints ~0.05,
+    ~0.5 and ~1.7 apart in magnitude, so that b_1 + 1 (b_2 - b_1) can
+    round above b_2. With two weights #8's cdf [0, pdf_0, pdf_0 + pdf_1]
+    is the plain version's bits (one add for the sum, one for the scan),
+    and so are its samples before the fix-up. Returns (z_c, w, u)."""
+    g = torch.Generator().manual_seed(seed)
+    z_c = torch.stack([torch.rand(n, generator=g) * 0.01,
+                       0.01 + torch.rand(n, generator=g) * 0.1,
+                       0.3 + torch.rand(n, generator=g) * 0.5,
+                       1.8 + torch.rand(n, generator=g)], 1)
+    w = torch.rand(n, 2, generator=g)
+    one = torch.ones(n, 1)
+    return z_c, w, torch.cat([torch.nextafter(one, torch.zeros_like(one)),
+                              one], 1)
+
+
 @pytest.mark.cuda
+def test_pdf_merge_kernel_sorts_inverted_samples(cuda_device):
+    """The fix-up: on rows whose plain samples come out inverted, #8's
+    samples are the plain samples sorted and its merged rows the plain
+    merged rows, bit for bit."""
+    z_c, w, u = inversion_problem(65536)
+    want, want_s = pdf_merge.plain_sample_pdf_merged(z_c, w, u)
+    inverted = int((want_s[:, 1] < want_s[:, 0]).sum())
+    print(f"pdf_merge: {inverted} inverted rows of {z_c.shape[0]}")
+    assert inverted > 0
+    merged, z_s = pdf_merge.sample_pdf_merged(
+        *[x.to(cuda_device) for x in (z_c, w, u)])
+    assert torch.equal(z_s.cpu(), torch.sort(want_s, -1).values)
+    assert torch.equal(merged.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,weights", [
+    (1001, 96, "squared"), (1001, 96, "zero"), (1001, 96, "onehot"),
+    (1, 96, "squared"), (7, 96, "squared"), (8193, 96, "squared"),
+    (300, 1, "squared"), (300, 127, "squared"), (300, 127, "onehot")])
 @pytest.mark.parametrize("jitter", [None, "single", "full"])
-def test_mip_resample_kernel_matches_plain(cuda_device, jitter):
-    """#9 on 1001 rays of 96 samples: within 1e-4 of (far - near) at the
-    99.9th percentile and one bin at most; bit-identical again."""
-    n, s, dev = 1001, 96, cuda_device
+def test_mip_resample_kernel_matches_plain(cuda_device, n, s, weights,
+                                           jitter):
+    """#9 at ragged ray counts, the row limits (2 and 128 fenceposts) and
+    degenerate weights (all zero with no padding: the eps deficit):
+    within 1e-4 of (far - near) at the 99.9th percentile and one bin at
+    most; on views (weights and fenceposts slices of wider rows, the
+    expanded draws) bit for bit the contiguous rows' result, and
+    bit-identical again."""
+    dev = cuda_device
     g = torch.Generator().manual_seed(1)
     t = torch.sort(torch.rand(n, s + 1, generator=g) * 4 + 2,
                    -1).values.to(dev)
-    w = (torch.rand(n, s, generator=g) ** 2).to(dev)
+    w = _pdf_weights(weights, n, s, g).to(dev)
     j = None
     if jitter is not None:
         d = 1 if jitter == "single" else s + 1
         j = (torch.rand(n, d, generator=g) * (1 / (s + 1) - 1.2e-7)).to(dev)
     from consistentnerf_tpu_torch.core import sampling
 
-    u = sampling.piecewise_pdf_draws(j, (n,), s + 1, dev).contiguous()
+    u_view = sampling.piecewise_pdf_draws(j, (n,), s + 1, dev)
+    u = u_view.contiguous()
+    pad = 0.0 if weights == "zero" else 0.01  # zero: the eps deficit
     before = pdf_merge.mip_launches
-    got = pdf_merge.mip_resample_t_vals(t, w, u, 0.01)
+    got = pdf_merge.mip_resample_t_vals(t, w, u, pad)
     torch.cuda.synchronize()
     assert pdf_merge.mip_launches == before + 1
-    want = pdf_merge.plain_mip_resample_t_vals(t, w, u, 0.01)
-    err = (got - want).abs() / 4.0
-    print(f"mip_resample jitter={jitter}: max {err.max().item():.3e}")
-    assert torch.quantile(err.flatten(), 0.999).item() <= 1e-4
-    assert err.max().item() * 4.0 <= 4.0 / s
-    assert torch.equal(got, pdf_merge.mip_resample_t_vals(t, w, u, 0.01))
+    want = pdf_merge.plain_mip_resample_t_vals(t, w, u, pad)
+    print(f"mip_resample {n} x {s + 1} {weights} jitter={jitter}: max "
+          f"{(got - want).abs().max().item() / 4.0:.3e}")
+    _resample_gates(got, want, 4.0, s)
+    t_view = torch.cat([t, t], 1)[:, :s + 1]
+    w_view = torch.cat([w, w], 1)[:, :s]
+    assert torch.equal(got, pdf_merge.mip_resample_t_vals(t_view, w_view,
+                                                          u_view, pad))
+    assert torch.equal(got, pdf_merge.mip_resample_t_vals(t, w, u, pad))
 
 
 @pytest.mark.cuda
