@@ -72,7 +72,19 @@ with the launch counts set to 0 just before it and read just after:
   two-call step with fused_kernel=v1 (#13, #14) and hybrid (#14) through
   the train CLI, timed and guarded against the eager step; and the
   reprojection hard masks on the card against the CPU. The train CLI
-  computes the hard masks on the card in every hardmask phase.
+  computes the hard masks on the card in every hardmask phase;
+* the paper's scenes and their evaluation: LLFF fern, Blender lego and
+  DTU scan114 written in their datasets' layouts and sizes (content from
+  a seed), loaded (timed) and held to what the files imply (decoded
+  pixels, K, near / far, splits); fern trained on the one-pass vanilla
+  step (NDC, hard masks on the card) through `cli/train.py --eval-after`
+  and scored again by `cli/eval.py`, scan114 trained on the one-pass mip
+  step and scored with the IDR-masked metrics, lego scored from the
+  seeded init; #1 (#6 for scan114) launched 2 a render chunk of each
+  group of views; every metric `evaluate()` computed on the card held
+  against the same port function on the CPU on the same renders, one
+  view's PNG against `render_image`, the artifacts present, and each
+  scene's `eval_rays_per_sec` printed.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -664,6 +676,9 @@ def main() -> None:
     v1 = v1_phases(dev, card, configs, fm, v2, op, render["render_ms"],
                    twocall["step_ms"])
     log(f"v1 phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    evals = eval_phases(dev, card, configs, fm, v2, fmip, op)
+    log(f"eval phases: {time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -685,6 +700,8 @@ def main() -> None:
         switched["json"][op.RENDER_KERNEL], mip_switched["json"],
         switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]
         + row_json + v1["json"]}
+    for r in kernels["kernels"]:
+        r["launches"] += evals["launches"].get(r["name"], 0)
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -3942,6 +3959,593 @@ def mip_tv_phases(dev, card, configs, fm, fmip, op):
         del g_state
         torch.cuda.empty_cache()
     return {"step_ms": step_ms}
+
+
+# The paper's scenes, written in their datasets' on-disk layouts and sizes
+# (content from a seed): LLFF fern (20 views, images_8/ at 378x504, the
+# raw 3024x4032 hwf), Blender lego (71 frames of 800x800 RGBA, read at
+# half_res) and DTU scan114 (49 views of 1200x1600, MVSNet cam files, GT
+# depths, IDR masks).
+FERN = dict(n=20, hw=(378, 504), raw_hwf=(3024.0, 4032.0, 3260.5), factor=8)
+LEGO = dict(n=71, hw=(800, 800), camera_angle_x=0.6911112070083618)
+DTU = dict(n=49, hw=(1200, 1600), k_quarter=(723.08, 205.8, 154.8),
+           depth_min=425.0, depth_interval=2.5)
+# Splits the bundled registry gives (pairs.npz: fern_train / fern_val,
+# lego_train / lego_val) and DTU's fixed pixelnerf split.
+FERN_SPLITS = ([17, 2, 7], [12, 13, 5, 19])
+LEGO_SPLITS = ([6, 43, 33], [63, 70, 18, 28])
+DTU_TRAIN = [25, 22, 28]
+DTU_TEST = [1, 2, 9, 10, 11, 12, 14, 15, 23, 24, 26, 27, 29, 30, 31, 32,
+            33, 34, 35, 41, 42, 43, 45, 46, 47]
+DTU_EVAL_INTERVAL = 5  # every 5th of the 25 test views
+# The eval gates: a metric computed by evaluate() on the card against the
+# same port function on the CPU on the same rendered images (relative);
+# LPIPS and avg_err (which holds it) under fm.strict_fp32 (no TF32).
+EVAL_METRIC_TOL = 1e-4
+EVAL_LPIPS_TOL = 1e-3
+# The colour PNG of a view written by evaluate() against render_image of
+# that view quantised the same way: the share of pixels one level apart
+# (two float renders of one view on one card; exact if bit-equal).
+EVAL_PNG_SHARE = 1e-4
+
+
+def smooth_u8(rng, h, w, c):
+    """A smooth seeded image (sines over the frame, a little noise)."""
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :, None]
+    f = rng.uniform(1, 6, (3, c)).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, (2, c)).astype(np.float32)
+    v = (0.5 + 0.3 * np.sin(2 * np.pi * f[0] * x + ph[0])
+         * np.cos(2 * np.pi * f[1] * y + ph[1])
+         + 0.15 * np.sin(2 * np.pi * f[2] * (x + y))
+         + 0.03 * rng.rand(h, w, c).astype(np.float32))
+    return (np.clip(v, 0, 1) * 255).astype(np.uint8)
+
+
+def fern_image(i):
+    return smooth_u8(np.random.RandomState(100 + i), *FERN["hw"], 3)
+
+
+def lego_image(i):
+    img = smooth_u8(np.random.RandomState(200 + i), *LEGO["hw"], 4)
+    h, w = LEGO["hw"]
+    yy, xx = np.mgrid[:h, :w]
+    inside = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (0.35 * h) ** 2
+    img[..., 3] = np.where(inside, 255, 0)
+    return img
+
+
+def dtu_image(vid):
+    return smooth_u8(np.random.RandomState(300 + vid), *DTU["hw"], 3)
+
+
+def png_filters(rng, h):
+    """One of the five row filters per row, as an adaptive encoder
+    picks them: undone along anti-diagonals (Average / Paeth rows)."""
+    return rng.randint(0, 5, h)
+
+
+def look_at_w2c(pos, target=(0.0, 0.0, 0.0)):
+    """OpenCV world-to-camera (x right, y down, z forward) at `pos`."""
+    z = np.asarray(target) - pos
+    z = z / np.linalg.norm(z)
+    x = np.cross(z, [0.0, -1.0, 0.0])
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([x, y, z], 1)
+    c2w[:3, 3] = pos
+    return np.linalg.inv(c2w)
+
+
+def write_scene_fixtures(root):
+    """Write the three scenes under `root`; return their directories and
+    what they imply (sizes, intrinsics, near / far)."""
+    from consistentnerf_tpu_torch.data import images, pfm, poses
+
+    t0 = time.perf_counter()
+    # LLFF fern: images_8/ PNGs, poses_bounds.npy ([down, right, back]
+    # columns, the raw hwf), MVS depth PFMs at half size (INTER_LINEAR up)
+    # and MiDaS PFMs beside the scene.
+    llff_root = os.path.join(root, "nerf_llff_data")
+    fern = os.path.join(llff_root, "fern")
+    os.makedirs(os.path.join(fern, f"images_{FERN['factor']}"))
+    mvs = os.path.join(llff_root, "nerf_llff_data_depth", "fern")
+    midas = os.path.join(llff_root, "midas_llff_depth", "output_llff_fern")
+    os.makedirs(mvs)
+    os.makedirs(midas)
+    rng = np.random.RandomState(1)
+    h, w = FERN["hw"]
+    rows = []
+    for i in range(FERN["n"]):
+        images.write_png(os.path.join(fern, f"images_{FERN['factor']}",
+                                      f"image{i:03d}.png"),
+                         fern_image(i), png_filters(rng, h))
+        a = rng.randn(3) * 0.03
+        rot = np.linalg.qr(np.eye(3) + np.array(
+            [[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]))[0]
+        rot = rot * np.sign(np.diag(rot))[None]
+        llff_r = np.stack([-rot[:, 1], rot[:, 0], rot[:, 2]], 1)
+        t = np.array([rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3),
+                      rng.uniform(-0.05, 0.05)])
+        pose = np.concatenate([llff_r, t[:, None],
+                               np.array(FERN["raw_hwf"])[:, None]], 1)
+        rows.append(np.concatenate([pose.reshape(-1),
+                                    [1.2 + 0.1 * rng.rand(),
+                                     20.0 + rng.rand()]]))
+        depth = (3.0 + np.linspace(0, 1, w // 2)[None, :]
+                 + 0.5 * np.linspace(0, 1, h // 2)[:, None]).astype(
+                     np.float32)
+        pfm.write_pfm(os.path.join(mvs, f"depth_{i:03d}.pfm"), depth)
+        pfm.write_pfm(os.path.join(midas, f"image{i:03d}"
+                                   "-dpt_beit_large_512.pfm"),
+                      rng.randn(h, w).astype(np.float32))
+    np.save(os.path.join(fern, "poses_bounds.npy"), np.stack(rows))
+    f8 = FERN["raw_hwf"][2] / FERN["factor"]
+    out = {"fern": dict(dir=fern, H=h, W=w, K=np.array(
+        [[f8, 0, 0.5 * w], [0, f8, 0.5 * h], [0, 0, 1]]), near=0.0, far=1.0,
+        train=FERN_SPLITS[0], test=FERN_SPLITS[1])}
+    t_fern = time.perf_counter() - t0
+
+    # Blender lego: train/r_{i}.png RGBA and the transforms files.
+    t0 = time.perf_counter()
+    lego = os.path.join(root, "nerf_synthetic", "lego")
+    os.makedirs(os.path.join(lego, "train"))
+    frames = []
+    for i in range(LEGO["n"]):
+        images.write_png(os.path.join(lego, "train", f"r_{i}.png"),
+                         lego_image(i), png_filters(rng, LEGO["hw"][0]))
+        c2w = poses.pose_spherical(-180.0 + 360.0 * i / LEGO["n"], -30.0, 4.0)
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    for split in ("train", "val", "test"):
+        with open(os.path.join(lego, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO["camera_angle_x"],
+                       "frames": frames}, f)
+    half = LEGO["hw"][0] // 2
+    focal = 0.5 * LEGO["hw"][1] / np.tan(0.5 * LEGO["camera_angle_x"]) / 2
+    n_tr, n_val = len(LEGO_SPLITS[0]), len(LEGO_SPLITS[1])
+    out["lego"] = dict(dir=lego, H=half, W=half, K=np.array(
+        [[focal, 0, 0.5 * half], [0, focal, 0.5 * half], [0, 0, 1]]),
+        near=2.0, far=6.0, train=list(range(n_tr)),
+        test=list(range(n_tr + n_val, n_tr + 2 * n_val)))
+    t_lego = time.perf_counter() - t0
+
+    # DTU scan114: Rectified/ PNGs, cam files (quarter-res K, w2c in mm),
+    # GT depth PFMs (1200x1600, zero off the object) for the train and
+    # evaluated views, MiDaS PFMs for the train views, IDR masks of every
+    # pixelnerf test view at full resolution.
+    t0 = time.perf_counter()
+    dtu_root = os.path.join(root, "dtu")
+    scan = os.path.join(dtu_root, "scan114")
+    rect = os.path.join(dtu_root, "Rectified", "scan114_train")
+    cams = os.path.join(dtu_root, "Depths", "Cameras", "train")
+    gt = os.path.join(dtu_root, "Depths", "scan114")
+    dmidas = os.path.join(dtu_root, "midas_dtu_depth", "output_dtu_scan114")
+    masks = os.path.join(root, "idr_masks", "scan114", "mask")
+    for d in (scan, rect, cams, gt, dmidas, masks):
+        os.makedirs(d, exist_ok=True)
+    h, w = DTU["hw"]
+    fq, cxq, cyq = DTU["k_quarter"]
+    yy, xx = np.mgrid[:h, :w]
+    obj = ((yy - h / 2) / (0.4 * h)) ** 2 + ((xx - w / 2) / (0.35 * w)) ** 2
+    obj = obj < 1
+    eval_views = DTU_TEST[::DTU_EVAL_INTERVAL]
+    for vid in range(DTU["n"]):
+        images.write_png(os.path.join(rect, f"rect_{vid + 1:03d}_3_r5000.png"),
+                         dtu_image(vid), png_filters(rng, h))
+        a = 2 * np.pi * vid / DTU["n"] * 0.5 - 0.8
+        pos = 600.0 * np.array([np.sin(a), -0.3 + 0.004 * vid,
+                                -np.cos(a)])
+        w2c = look_at_w2c(pos)
+        lines = (["extrinsic"] + [" ".join(f"{x:.9f}" for x in r)
+                                  for r in w2c]
+                 + ["", "intrinsic", f"{fq} 0 {cxq}", f"0 {fq} {cyq}",
+                    "0 0 1", "", f"{DTU['depth_min']} "
+                    f"{DTU['depth_interval']}"])
+        with open(os.path.join(cams, f"{vid:08d}_cam.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        if vid in DTU_TRAIN or vid in eval_views:
+            depth = np.where(obj, 600.0 + 20 * np.sin(xx / 97.0), 0.0)
+            pfm.write_pfm(os.path.join(gt, f"depth_map_{vid:04d}.pfm"),
+                          depth.astype(np.float32))
+        if vid in DTU_TRAIN:
+            pfm.write_pfm(os.path.join(dmidas, f"rect_{vid + 1:03d}_3_r5000"
+                                       "-dpt_beit_large_512.pfm"),
+                          rng.rand(512, 640).astype(np.float32))
+    mask_img = np.repeat((obj * 255).astype(np.uint8)[..., None], 3, -1)
+    for idx in DTU_TEST:
+        images.write_png(os.path.join(masks, f"{idx:03d}.png"), mask_img)
+    k = np.array([[fq, 0, cxq], [0, fq, cyq], [0, 0, 1]], np.float32)
+    k[:2] *= 4
+    k[:2] *= 0.5
+    k[0, 2] -= 80
+    k[1, 2] -= 44
+    dmax = DTU["depth_min"] + DTU["depth_interval"] * 192 * 1.06
+    out["scan114"] = dict(dir=scan, H=512, W=640, K=k,
+                          near=DTU["depth_min"] / 200, far=dmax / 200,
+                          train=DTU_TRAIN, test=DTU_TEST,
+                          mask_path=os.path.join(root, "idr_masks"))
+    t_dtu = time.perf_counter() - t0
+    log(f"fixtures written (host): fern {FERN['n']} x {FERN['hw']} in "
+        f"{t_fern:.1f} s, lego {LEGO['n']} x {LEGO['hw']} RGBA in "
+        f"{t_lego:.1f} s, scan114 {DTU['n']} x {DTU['hw']} + GT depths + "
+        f"{len(DTU_TEST)} IDR masks in {t_dtu:.1f} s")
+    return out
+
+
+def scene_gates(label, scene, want, decoded):
+    """The loaded scene against what its fixture implies: sizes, K,
+    near / far and the splits; `decoded` [(view, got, expected)] the
+    images' pixels."""
+    ok_k = np.allclose(scene.K, want["K"], rtol=1e-6, atol=1e-4)
+    log(f"{label}: {scene.images.shape[0]} views {scene.H}x{scene.W}, K "
+        f"{np.round(scene.K, 3).tolist()}, near {scene.near:.6f} far "
+        f"{scene.far:.6f}, train {list(scene.i_train)}, test "
+        f"{list(scene.i_test)}, use_ndc {scene.use_ndc}")
+    gate((scene.H, scene.W) == (want["H"], want["W"]) and ok_k
+         and abs(scene.near - want["near"]) <= 1e-6 * max(1, want["near"])
+         and abs(scene.far - want["far"]) <= 1e-6 * max(1, want["far"])
+         and list(scene.i_train) == list(want["train"])
+         and list(scene.i_test) == list(want["test"]),
+         f"{label}: the loaded scene is not what its fixture implies")
+    for view, got, expected in decoded:
+        gate(got.shape == expected.shape and np.array_equal(got, expected),
+             f"{label}: view {view} did not decode to the written pixels")
+    log(f"{label}: {len(decoded)} decoded images equal the written pixels "
+        f"exactly: {all(np.array_equal(g, e) for _, g, e in decoded)}")
+
+
+def eval_launches(cfg, scene, n_views, per_chunk):
+    """Launches of the render kernel that evaluate() makes: per_chunk a
+    render chunk of each group of stacked views."""
+    from consistentnerf_tpu_torch.train import evaluation
+
+    g = evaluation.views_per_call(cfg, "cuda", n_views)
+    chunks = -(-(g * scene.H * scene.W) // cfg.render_chunk_size)
+    return per_chunk * chunks * (-(-n_views // g))
+
+
+def eval_metric_gates(label, card, cli_args, scene, views, got, mask_fn):
+    """evaluate()'s values from the card against the same port function
+    on the CPU on the same rendered images (the views rendered in
+    evaluate()'s groups, by its own `render_groups`), and one view's
+    colour PNG against render_image of that view."""
+    from consistentnerf_tpu_torch.cli import common
+    from consistentnerf_tpu_torch.data import images
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.train import evaluation
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from consistentnerf_tpu_torch.train.lpips import LPIPS
+
+    args = common.make_parser("eval gates").parse_args(cli_args)
+    cfg = common.auto_fused_defaults(common.resolve_config(args), args)
+    dev = torch.device(args.device)
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    model = make_model(cfg, dev)
+    CheckpointManager(os.path.join(exp_dir, "checkpoints")).restore_for_eval(
+        model)
+    model.eval()
+    render = render_lib.build_render_fn(model, cfg)
+    selected = evaluation.selected_views(cfg, scene.i_test)
+    gate([int(v) for _, v in selected] == [int(v) for v in views],
+         f"{label}: evaluate() renders views {selected}, expected {views}")
+    g = evaluation.views_per_call(cfg, dev, len(selected))
+    lp_cpu = None if cfg.eval_disable_lpips else LPIPS(
+        cfg.lpips_weights_path)
+    lp_dev = None if cfg.eval_disable_lpips else LPIPS(
+        cfg.lpips_weights_path, device=dev)
+    cpu_views, dev_views = [], []
+    first = None
+    with torch.no_grad():
+        for group, outs in evaluation.render_groups(render, scene, selected,
+                                                    g, dev):
+            for (_, v), view in zip(group, outs):
+                rgb = torch.clamp(view["rgb"], 0, 1)
+                if first is None:
+                    first = rgb.cpu().numpy()
+                mk = mask_fn(v)
+                dev_views.append(evaluation.compute_image_metrics(
+                    rgb, torch.as_tensor(scene.images[v], device=dev),
+                    lp_dev, None if mk is None else torch.as_tensor(
+                        mk, device=dev)))
+                cpu_views.append(evaluation.compute_image_metrics(
+                    rgb.cpu().numpy(), scene.images[v], lp_cpu, mk))
+    for k, v in got.items():
+        if k == "eval_rays_per_sec":
+            continue
+        cpu = float(np.mean([m[k] for m in cpu_views if k in m]))
+        card_ = float(np.mean([m[k] for m in dev_views if k in m]))
+        rel = abs(v - cpu) / max(abs(cpu), 1e-12)
+        tol = EVAL_LPIPS_TOL if "lpips" in k or k == "avg_err" \
+            else EVAL_METRIC_TOL
+        log(f"{label} {k}: evaluate() on the card {v:.7f}, the same views "
+            f"re-rendered on the card {card_:.7f}, on the CPU {cpu:.7f} "
+            f"(|rel| {rel:.2e}, tol {tol:g})")
+        gate(rel <= tol, f"{label} {k}: the card's {v} against the CPU's "
+             f"{cpu} ({rel:.2e} > {tol:g})")
+    one = render_lib.render_image(model, cfg, evaluation.camera_rays_for_view(
+        scene, scene.poses[views[0]], device=dev))["rgb"]
+    want = (np.clip(np.nan_to_num(one), 0, 1) * 255).astype(np.uint8)
+    png = images.read_png(os.path.join(exp_dir, "test_preds", "color_000.png"))
+    diff = np.abs(png.astype(int) - want)
+    share = float(np.mean(diff > 0))
+    log(f"{label}: color_000.png from evaluate() vs render_image of view "
+        f"{views[0]}: max|diff| {int(diff.max())} levels, share of pixels "
+        f"apart {share:.2e} (tol: 1 level on {EVAL_PNG_SHARE:g}); float "
+        f"max|diff| against the group render "
+        f"{float(np.abs(np.clip(one, 0, 1) - first).max()):.3e}")
+    gate(diff.max() <= 1 and share <= EVAL_PNG_SHARE,
+         f"{label}: the view evaluate() wrote is not render_image's")
+    # evaluate() without the images: the same values, its throughput, and
+    # the device's share of one such call.
+    tag = f"[{card}]"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet = evaluation.evaluate(model, cfg, scene, save_images=False)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    for k, v in got.items():
+        if k != "eval_rays_per_sec":
+            gate(abs(quiet[k] - v) <= 1e-6 * max(abs(v), 1e-6),
+                 f"{label} {k}: evaluate() without images gave {quiet[k]}, "
+                 f"with them {v}")
+    dev_ms, top = device_time(lambda: evaluation.evaluate(
+        model, cfg, scene, save_images=False))
+    log(f"{tag} {label} evaluate() without images: eval_rays_per_sec "
+        f"{quiet['eval_rays_per_sec']:.1f} (with them "
+        f"{got['eval_rays_per_sec']:.1f}), the call {wall:.1f} ms; "
+        + ("device time not measured" if dev_ms is None else
+           f"profiled device time {dev_ms:.1f} ms, idle share "
+           f"{max(0.0, 1 - dev_ms / wall):.3f}; by kernel: " + "; ".join(
+               f"{k} {t:.2f} ms x{c}" for k, t, c in top)))
+    if cfg.eval_render_interval <= 1:
+        return
+    # The gated calls take every eval_render_interval-th test view; the
+    # scene's own eval rate is that of all of them.
+    full_cfg = cfg.replace(eval_render_interval=1)
+    n_full = len(evaluation.selected_views(full_cfg, scene.i_test))
+    g_full = evaluation.views_per_call(full_cfg, dev, n_full)
+    rates = []
+    for images_ in (False, True):
+        with tempfile.TemporaryDirectory() as out_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = evaluation.evaluate(model, full_cfg, scene,
+                                       out_dir=out_dir, save_images=images_)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            pngs = sum(f.startswith("color_") for f in os.listdir(out_dir))
+        gate(set(full) == set(got) and all(np.isfinite(v) for v in
+                                           full.values())
+             and pngs == (n_full if images_ else 0),
+             f"{label}: evaluate() of all {n_full} test views gave {full} "
+             f"and {pngs} colour PNGs")
+        rates.append(f"{'with' if images_ else 'without'} images "
+                     f"{full['eval_rays_per_sec']:.1f} (the call "
+                     f"{wall:.1f} ms)")
+    log(f"{tag} {label} evaluate() of all {n_full} test views ({g_full} a "
+        f"call, {-(-n_full // g_full) - 1} groups timed): "
+        f"eval_rays_per_sec {'; '.join(rates)}")
+
+
+def eval_phases(dev, card, configs, fm, v2, fmip, op):
+    """35. The paper's scenes and their evaluation: the three fixtures
+    loaded (timed) and held to what they imply, fern trained (one-pass
+    vanilla step, hard masks on the card, NDC) through cli/train.py
+    --eval-after and scored again by cli/eval.py, scan114 trained on the
+    one-pass mip step and scored with the IDR-masked metrics, lego scored
+    from the seeded init; each eval's launches counted, its metrics held
+    against the CPU, its eval_rays_per_sec printed."""
+    from consistentnerf_tpu_torch.cli import eval as eval_cli
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.data import images
+    from consistentnerf_tpu_torch.data.loaders import load_scene
+
+    tag = f"[{card}]"
+    # PNG decode time a frame, host (the chip machine's CPU).
+    rng = np.random.RandomState(0)
+    for name, img in (("800x800 RGBA", lego_image(0)),
+                      ("1200x1600 RGB", dtu_image(0))):
+        for kinds, what in ((0, "None"), (4, "Paeth"),
+                            (png_filters(rng, img.shape[0]), "mixed")):
+            data = images.encode_png(img, kinds)
+            t0 = time.perf_counter()
+            back = images.decode_png(data)
+            dt = time.perf_counter() - t0
+            if not np.array_equal(back, img):
+                fail(f"PNG decode of a {name} frame ({what} rows) lost "
+                     "pixels")
+            log(f"{tag} PNG decode (host), {name}, {what} rows: "
+                f"{1e3 * dt:.1f} ms a frame ({len(data)} bytes)")
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fx = write_scene_fixtures(tmp)
+        rays_per_sec = {}
+
+        # --- fern: vanilla, hard masks on the card, NDC ---------------
+        fern = fx["fern"]
+        sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+            "dataset_type=llff", f"datadir={fern['dir']}",
+            f"factor={FERN['factor']}", "white_bkgd=false", "near=0.0",
+            "far=1.0", "train_view_num=3", "i_print=1",
+            f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
+            "expname=fern"]
+        args = ["--device", str(dev)] + [x for s_ in sets
+                                         for x in ("--set", s_)]
+        cfg = configs.Config(**{**FLAGSHIP, "dataset_type": "llff",
+                                "datadir": fern["dir"], "white_bkgd": False,
+                                "basedir": tmp, "expname": "load"})
+        t0 = time.perf_counter()
+        scene = load_scene(cfg, device=dev, attach=False)
+        t_load = time.perf_counter() - t0
+        log(f"{tag} load_scene fern (llff, factor {FERN['factor']}): "
+            f"{t_load:.2f} s (host: PNG decode, PFMs, poses)")
+        scene_gates("fern", scene, fern, [
+            (i, scene.images[i], (fern_image(i) / 255.0).astype(np.float32))
+            for i in range(FERN["n"])])
+        counted = ((v2, "launches", v2.KERNEL),
+                   (v2, "bwd_launches", v2.BWD_KERNEL),
+                   (op, "launches", op.KERNEL))
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS),
+                                     "--eval-after"])
+        torch.cuda.synchronize()
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        ecfg = configs.Config(render_chunk_size=CHUNK)
+        n_eval = eval_launches(ecfg, scene, len(fern["test"]), 2)
+        want = {v2.KERNEL: 2 * TRAIN_STEPS + n_eval,
+                v2.BWD_KERNEL: 2 * TRAIN_STEPS, op.KERNEL: 2 * TRAIN_STEPS}
+        log(f"fern cli.train --eval-after: {TRAIN_STEPS} one-pass steps, "
+            f"loss {float(res.stats_history[-1]['loss']):.5f}, launches "
+            f"{got} (expected {want}: #1 2 a render chunk of each view "
+            "group); metrics " + ", ".join(
+                f"{k} {v:.5f}" for k, v in sorted(res.metrics.items())))
+        gate(got == want, f"fern: the train and eval path launched {got}, "
+             f"expected {want}")
+        if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
+            fail("fern: a non-finite loss")
+        add(got)
+        masks = os.listdir(os.path.join(tmp, "fern", "mask_cache"))
+        log(f"fern hard masks (made on the card): {masks}")
+        gate(len(masks) == 1, "fern: no hard masks were cached")
+        v2.launches = 0
+        metrics = eval_cli.main(args)
+        torch.cuda.synchronize()
+        log(f"fern cli.eval: {v2.KERNEL} launches {v2.launches} (expected "
+            f"{n_eval})")
+        gate(v2.launches == n_eval, f"fern cli.eval launched {v2.launches}")
+        add({v2.KERNEL: v2.launches})
+        for k, v in res.metrics.items():
+            if k != "eval_rays_per_sec":
+                gate(abs(metrics[k] - v) <= 1e-5 * max(abs(v), 1e-6),
+                     f"fern: cli.eval's {k} {metrics[k]} is not "
+                     f"--eval-after's {v}")
+        files = sorted(os.listdir(os.path.join(tmp, "fern", "test_preds")))
+        need = {f"metric_{k}_{TRAIN_STEPS}.txt" for k in metrics} | {
+            "metrics.txt", "LPIPS_UNCALIBRATED.txt", "color_000.png",
+            "depth_003.png", "acc_003.png"}
+        log(f"fern test_preds: {len(files)} files")
+        gate(need <= set(files), f"fern: artifacts missing: "
+             f"{sorted(need - set(files))}")
+        eval_metric_gates("fern", card, args, scene, list(fern["test"]),
+                          metrics, lambda v: None)
+        rays_per_sec["fern"] = metrics["eval_rays_per_sec"]
+        del scene
+
+        # --- scan114: mip, IDR-masked metrics -------------------------
+        dtu = fx["scan114"]
+        sets = [f"{k}={v}" for k, v in MIP.items()
+                if k not in ("dataset_type", "white_bkgd")] + [
+            "dataset_type=dtu", f"datadir={dtu['dir']}", "white_bkgd=false",
+            "dtu_split_type=pixelnerf", "train_view_num=3", "i_print=1",
+            f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
+            "expname=scan114", f"dtu_mask_path={dtu['mask_path']}",
+            "factor=0", f"eval_render_interval={DTU_EVAL_INTERVAL}"]
+        args = ["--device", str(dev)] + [x for s_ in sets
+                                         for x in ("--set", s_)]
+        cfg = configs.Config(dataset_type="dtu", datadir=dtu["dir"],
+                             dtu_split_type="pixelnerf")
+        t0 = time.perf_counter()
+        scene = load_scene(cfg, device=dev)
+        t_load = time.perf_counter() - t0
+        log(f"{tag} load_scene scan114 (dtu, half-res + crop): "
+            f"{t_load:.2f} s (host)")
+        decoded = [(v, images.read_png(os.path.join(
+            os.path.dirname(dtu["dir"]), "Rectified", "scan114_train",
+            f"rect_{v + 1:03d}_3_r5000.png")), dtu_image(v))
+            for v in (0, 25, 48)]
+        scene_gates("scan114", scene, dtu, decoded)
+        gate(scene.masks[DTU_TRAIN].mean() > 0.2
+             and not scene.masks[0].any(),
+             "scan114: the masks are not the GT depths' coverage")
+        counted = ((fmip, "launches", fmip.KERNEL),
+                   (fmip, "bwd_launches", fmip.BWD_KERNEL),
+                   (op, "mip_launches", op.MIP_KERNEL))
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        log(f"scan114 cli.train (mip): {TRAIN_STEPS} one-pass steps, loss "
+            f"{float(res.stats_history[-1]['loss']):.5f}, launches {got} "
+            "(expected 2 of each per step)")
+        gate(all(v == 2 * TRAIN_STEPS for v in got.values()),
+             f"scan114: the mip train path launched {got}")
+        if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
+            fail("scan114: a non-finite loss")
+        add(got)
+        fmip.launches = 0
+        metrics = eval_cli.main(args)
+        torch.cuda.synchronize()
+        views = DTU_TEST[::DTU_EVAL_INTERVAL]
+        n_eval = eval_launches(ecfg, scene, len(views), 2)
+        log(f"scan114 cli.eval: {fmip.KERNEL} launches {fmip.launches} "
+            f"(expected {n_eval}: 2 levels a render chunk); metrics "
+            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+        gate(fmip.launches == n_eval,
+             f"scan114 cli.eval launched {fmip.launches}")
+        add({fmip.KERNEL: fmip.launches})
+        gate({"masked_psnr", "masked_ssim", "masked_lpips",
+              "ms_ssim"} <= set(metrics), "scan114: the masked metrics are "
+             "missing")
+        from consistentnerf_tpu_torch.data import dtu as dtu_lib
+
+        idr = dtu_lib.load_idr_masks(dtu["mask_path"], "scan114")[..., 0]
+        r0, r1, c0, c1 = dtu_lib.CROP
+        crop = {v: images.resize(idr[i], None, fx=0.5, fy=0.5,
+                                 interpolation=images.INTER_NEAREST)[
+                                     r0:r1, c0:c1]
+                for i, v in enumerate(DTU_TEST)}
+        eval_metric_gates("scan114", card, args, scene, views, metrics,
+                          crop.get)
+        rays_per_sec["scan114"] = metrics["eval_rays_per_sec"]
+        del scene
+
+        # --- lego: scored from the seeded init ------------------------
+        lego = fx["lego"]
+        sets = ["dataset_type=blender", f"datadir={lego['dir']}",
+                "half_res=true", "white_bkgd=true", "compute_dtype=bfloat16",
+                "train_view_num=3", f"basedir={tmp}", "expname=lego"]
+        args = ["--device", str(dev)] + [x for s_ in sets
+                                         for x in ("--set", s_)]
+        cfg = configs.Config(dataset_type="blender", datadir=lego["dir"],
+                             half_res=True, white_bkgd=True, basedir=tmp,
+                             expname="load")
+        t0 = time.perf_counter()
+        scene = load_scene(cfg, device=dev)
+        t_load = time.perf_counter() - t0
+        log(f"{tag} load_scene lego (blender, half_res): {t_load:.2f} s "
+            "(host)")
+        decoded = [(i, images.read_png(os.path.join(
+            lego["dir"], "train", f"r_{i}.png")), lego_image(i))
+            for i in LEGO_SPLITS[0] + LEGO_SPLITS[1]]
+        scene_gates("lego", scene, lego, decoded)
+        v2.launches = 0
+        metrics = eval_cli.main(args)
+        torch.cuda.synchronize()
+        n_eval = eval_launches(ecfg, scene, len(lego["test"]), 2)
+        log(f"lego cli.eval (seeded init): {v2.KERNEL} launches "
+            f"{v2.launches} (expected {n_eval}); metrics " + ", ".join(
+                f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+        gate(v2.launches == n_eval, f"lego cli.eval launched {v2.launches}")
+        add({v2.KERNEL: v2.launches})
+        eval_metric_gates("lego", card, args, scene, list(lego["test"]),
+                          metrics, lambda v: None)
+        rays_per_sec["lego"] = metrics["eval_rays_per_sec"]
+        del scene
+    for k, v in rays_per_sec.items():
+        log(f"{tag} eval_rays_per_sec {k}: {v:.1f}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eval_rays_per_sec": rays_per_sec}
 
 
 if __name__ == "__main__":

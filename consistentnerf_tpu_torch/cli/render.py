@@ -18,6 +18,46 @@ from __future__ import annotations
 import glob
 import os
 
+# Fixed per-scene depth-visualization ranges, for renders comparable
+# across settings (RegNeRF/render.py:47-73).
+LLFF_DEPTH_RANGES = {
+    "fern": [0.059100067913532256, 0.8538959634304046],
+    "flower": [0.2099738734960556, 0.996519325375557],
+    "fortress": [0.3405687987804413, 0.8795422136783599],
+    "horns": [0.3501826047897339, 0.9596474349498749],
+    "leaves": [0.00022197533398866584, 0.9934533953666687],
+    "orchids": [0.23377860009670257, 0.9828365403413772],
+    "room": [0.4059941208362579, 0.9502887094020843],
+    "trex": [0.016071857213974, 0.9458529788255692],
+}
+DTU_DEPTH_RANGES = {
+    "scan8": [0.9593777, 1.5342957],
+    "scan21": [0.98255014, 1.7484968],
+    "scan30": [1.1381109, 1.6074754],
+    "scan31": [1.0627427, 1.6069319],
+    "scan34": [1.1172018, 1.5005568],
+    "scan38": [1.0385504, 1.5373354],
+    "scan40": [0.8312144, 1.62111],
+    "scan41": [0.9469194, 1.5374442],
+    "scan45": [1.0098513, 1.5830635],
+    "scan55": [0.85020584, 1.513227],
+    "scan63": [1.1894969, 1.7325872],
+    "scan82": [1.0984676, 1.7162027],
+    "scan103": [1.0771852, 1.5858444],
+    "scan110": [0.96143025, 1.5147997],
+    "scan114": [0.96940583, 1.548706],
+}
+
+
+def scene_depth_range(cfg):
+    """The fixed depth range of an LLFF or DTU scene, else None."""
+    name = os.path.basename(os.path.normpath(cfg.datadir))
+    if cfg.dataset_type == "llff":
+        return LLFF_DEPTH_RANGES.get(name)
+    if cfg.dataset_type == "dtu":
+        return DTU_DEPTH_RANGES.get(name)
+    return None
+
 
 def find_checkpoint(exp_dir: str, step=None):
     """The file to restore: a train checkpoint `checkpoints/step_*.pt`
@@ -98,6 +138,9 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
 
     render = render_lib.build_render_fn(model, cfg)
+    # The fixed ranges are on disparity (1 / depth), as visualize_depth's
+    # lo / hi are.
+    lo, hi = scene_depth_range(cfg) or (None, None)
     g = max(1, min(args.views_per_call, len(poses)))
     for start in range(0, len(poses), g):
         group = poses[start: start + g]
@@ -110,7 +153,8 @@ def main(argv=None):
             vis.save_img_u8(out["rgb"][j],
                             os.path.join(out_dir, f"color_{i:03d}.png"))
             vis.save_img_u8(
-                vis.visualize_depth(out["depth"][j], out["acc"][j]),
+                vis.visualize_depth(out["depth"][j], out["acc"][j], lo=lo,
+                                    hi=hi),
                 os.path.join(out_dir, f"depth_{i:03d}.png"),
             )
             print(f"rendered {i + 1}/{len(poses)}")

@@ -9,10 +9,14 @@ Loads the scene, trains with checkpoints under
 `{basedir}/{expname}/checkpoints/` and resumes from the newest one. On a
 CUDA device the kernel step is on unless use_fused_train /
 use_onepass_train are set explicitly; `--device cpu` runs the same step
-with the kernels' plain versions.
+with the kernels' plain versions. `--eval-after` scores the test views
+when training ends (`train/evaluation.py::evaluate`, artifacts under
+`{basedir}/{expname}/test_preds/`).
 """
 
 from __future__ import annotations
+
+import os
 
 
 def main(argv=None):
@@ -21,7 +25,7 @@ def main(argv=None):
     p = common.make_parser("Train a ConsistentNeRF model (PyTorch port)")
     p.add_argument("--num-steps", type=int, default=None)
     p.add_argument("--eval-after", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1: eval metrics)")
+                   help="run the test-set eval when training finishes")
     p.add_argument("--bootstrap-priors", type=int, default=0,
                    metavar="WARMUP_STEPS",
                    help="not ported yet (ROADMAP Queue 1: depth-prior "
@@ -31,9 +35,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--bootstrap-priors is not ported yet (ROADMAP Queue 1: "
             "depth-prior producers)")
-    if args.eval_after:
-        raise NotImplementedError(
-            "--eval-after is not ported yet (ROADMAP Queue 1: eval metrics)")
     cfg = common.resolve_config(args)
     cfg = common.auto_fused_defaults(cfg, args)
     cfg = common.reconcile_schedule_horizon(cfg, args)
@@ -57,6 +58,14 @@ def main(argv=None):
     result = loop_lib.train(cfg, scene, num_steps=args.num_steps,
                             device=args.device, random_poses=random_poses)
     print(f"done: {result.rays_per_sec:,.0f} rays/sec ({exp_dir})")
+    if args.eval_after:
+        from consistentnerf_tpu_torch.train.evaluation import evaluate
+
+        model = result.state.model.eval()
+        result.metrics = evaluate(model, cfg, scene,
+                                  out_dir=os.path.join(exp_dir, "test_preds"),
+                                  step=int(result.state.step))
+        print("test metrics:", result.metrics)
     return result
 
 

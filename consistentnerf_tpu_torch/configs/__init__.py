@@ -22,22 +22,33 @@ class Config:
     expname: str = "exp"
     basedir: str = "./logs"
     datadir: str = "./data/nerf_synthetic/lego"
+    depthdir: Optional[str] = None  # MVSNeRF depth PFM dir (auto if None)
     seed: int = 0
     backbone: str = "vanilla"  # 'vanilla' | 'mipnerf'
 
     # --- dataset -----------------------------------------------------------
-    dataset_type: str = "blender"  # only 'synthetic' is ported
-    train_view_num: int = 3  # names the hard-mask cache file
+    dataset_type: str = "blender"  # blender|llff|dtu|deepvoxels|LINEMOD|synthetic
+    train_view_num: int = 3
+    testskip: int = 8
     synthetic_interleave_test: bool = True
     synthetic_views: int = 8
     synthetic_hw: int = 64
     synthetic_n_test: int = 2
     synthetic_texture_freq: float = 0.0
     synthetic_layout: str = "sphere"  # 'sphere' | 'cluster'
+    factor: int = 8  # LLFF downsample factor
+    no_ndc: bool = False
     lindisp: bool = False
+    spherify: bool = False
+    half_res: bool = False
     white_bkgd: bool = False
     near: float = 2.0
     far: float = 6.0
+    dtu_light_cond: int = 3
+    dtu_max_images: int = 49
+    dtu_split_type: str = "pixelnerf"  # 'pixelnerf' | 'masknerf'
+    dtu_mask_path: Optional[str] = None
+    shape: str = "greek"  # deepvoxels scene
 
     # --- batching ----------------------------------------------------------
     N_rand: int = 4096  # random rays per step (excl. patch rays)
@@ -180,6 +191,15 @@ class Config:
     # --- rendering ---------------------------------------------------------
     render_chunk_size: int = 8192
     render_factor: int = 0
+
+    # --- evaluation --------------------------------------------------------
+    eval_save_output: bool = True
+    eval_render_interval: int = 1
+    eval_disable_lpips: bool = False
+    # Views stacked into one render call during eval; 0: 1 on the CPU,
+    # 4 on a card.
+    eval_views_per_call: int = 0
+    dtu_no_mask_eval: bool = False
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -35,6 +35,65 @@ def mse_to_psnr(mse):
     return -10.0 / math.log(10.0) * torch.log(torch.as_tensor(mse))
 
 
+def psnr_to_mse(psnr):
+    return torch.exp(-0.1 * math.log(10.0) * torch.as_tensor(psnr))
+
+
+def compute_avg_error(psnr, ssim, lpips):
+    """geomean(MSE, sqrt(1 - SSIM), LPIPS), the paper's 'average' error."""
+    mse = psnr_to_mse(psnr)
+    dssim = torch.sqrt(1 - torch.as_tensor(ssim))
+    return torch.exp(torch.mean(torch.log(torch.stack(
+        [mse, dssim, torch.as_tensor(lpips)]))))
+
+
+def compute_ternary_census(im: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """Ternary census transform of one [H, W, C] image: the sign of each
+    pixel's difference to its 8 neighbours (edge padding), zero within
+    +-epsilon (RegNeRF/internal/math.py:70). Returns int8 [H, W, C, 8]."""
+    assert im.dim() == 3 and epsilon >= 0
+    padded = torch.nn.functional.pad(
+        im.permute(2, 0, 1)[None], (1, 1, 1, 1), mode="replicate"
+    )[0].permute(1, 2, 0)
+    codes = []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            if (di, dj) == (0, 0):
+                continue
+            neighbor = torch.roll(torch.roll(padded, di, -2), dj,
+                                  -3)[1:-1, 1:-1, :]
+            diff = im - neighbor
+            codes.append(torch.where(diff.abs() <= epsilon,
+                                     torch.zeros_like(diff),
+                                     torch.sign(diff)).to(torch.int8))
+    return torch.stack(codes, -1)
+
+
+def compute_census_err(im0: torch.Tensor, im1: torch.Tensor,
+                       epsilon: float) -> torch.Tensor:
+    """Share of opposite-signed census codes between two images
+    (RegNeRF/internal/math.py:87: |c0 - c1| > 1, the signs disagree)."""
+    c0 = compute_ternary_census(im0, epsilon).to(torch.int16)
+    c1 = compute_ternary_census(im1, epsilon).to(torch.int16)
+    return torch.mean(((c0 - c1).abs() > 1).to(torch.float32))
+
+
+def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
+    """IEC 61966-2-1 linear -> sRGB (exact rational constants)."""
+    eps = torch.finfo(torch.float32).eps
+    below = 323 / 25 * linear
+    above = (211 * torch.clamp(linear, min=eps) ** (5 / 12) - 11) / 200
+    return torch.where(linear <= 0.0031308, below, above)
+
+
+def srgb_to_linear(srgb: torch.Tensor) -> torch.Tensor:
+    """IEC 61966-2-1 sRGB -> linear (exact rational constants)."""
+    eps = torch.finfo(torch.float32).eps
+    below = 25 / 323 * srgb
+    above = torch.clamp((200 * srgb + 11) / 211, min=eps) ** (12 / 5)
+    return torch.where(srgb <= 0.04045, below, above)
+
+
 def exp_lr_decay(step, lr_init, decay_rate=0.1, decay_steps=250_000):
     """The vanilla trainer's lr schedule: lr * decay^(step/decay_steps)
     (run_nerf_view.py:1989-1993)."""

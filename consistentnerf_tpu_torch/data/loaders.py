@@ -1,16 +1,132 @@
-"""Scene loading and the consistency masks. Only the procedural synthetic
-scene is ported; the dataset loaders come with a later slice (ROADMAP
-Queue 1: data loaders)."""
+"""Dataset dispatch and the consistency masks.
+
+`load_scene(cfg)` loads the dataset named by `cfg.dataset_type` (LLFF,
+Blender, DTU, the legacy DeepVoxels and LINEMOD layouts, or the
+procedural synthetic scene) and attaches its masks, as the JAX package's
+`data/loaders.py` does, with the hard masks made on `device`.
+"""
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 
 import numpy as np
 
+from consistentnerf_tpu_torch.data import images as images_lib
 from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.data.scene import SceneData
+
+
+def load_deepvoxels(datadir: str, shape: str = "greek",
+                    testskip: int = 8) -> SceneData:
+    """DeepVoxels loader (the legacy vanilla-NeRF layout,
+    load_deepvoxels.py)."""
+
+    def parse_intrinsics(filepath, target_side_len):
+        with open(filepath) as f:
+            lines = f.readlines()
+        f_, cx, cy = map(float, lines[0].split()[:3])
+        height, width = map(float, lines[4].split())
+        cx = cx / width * target_side_len
+        cy = cy / height * target_side_len
+        f_ = target_side_len / height * f_
+        return f_, cx, cy
+
+    def load_pose(filename):
+        return np.loadtxt(filename).reshape(4, 4).astype(np.float32)
+
+    basedir = os.path.join(datadir, shape)
+    all_imgs, all_poses, counts = [], [], [0]
+    H = W = 512
+    focal = None
+    for s in ("train", "val", "test"):
+        d = os.path.join(basedir, s if s != "val" else "validation")
+        if not os.path.isdir(d):
+            d = os.path.join(basedir, s)
+        fnames = sorted(os.listdir(os.path.join(d, "rgb")))
+        skip = 1 if s == "train" or testskip == 0 else testskip
+        fnames = fnames[::skip]
+        imgs = [images_lib.imread(os.path.join(d, "rgb", f)) / 255.0
+                for f in fnames]
+        poses = [load_pose(os.path.join(d, "pose", f.replace(".png", ".txt")))
+                 for f in fnames]
+        own = os.path.join(basedir, s, "intrinsics.txt")
+        focal, _, _ = parse_intrinsics(
+            own if os.path.isfile(own) else os.path.join(d, "intrinsics.txt"),
+            H)
+        all_imgs.append(np.stack(imgs).astype(np.float32)[..., :3])
+        all_poses.append(np.stack(poses))
+        counts.append(counts[-1] + len(imgs))
+
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    poses = np.concatenate(all_poses, 0)
+    hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
+                 np.float32)
+    return SceneData(
+        images=np.concatenate(all_imgs, 0),
+        poses=poses[:, :3, :4],
+        K=K,
+        H=H,
+        W=W,
+        focal=float(focal),
+        near=hemi_r - 1.0,
+        far=hemi_r + 1.0,
+        i_train=i_split[0],
+        i_test=i_split[2],
+        i_val=i_split[1],
+    )
+
+
+def load_linemod(datadir: str, half_res: bool = False,
+                 testskip: int = 8) -> SceneData:
+    """LINEMOD loader (the legacy vanilla-NeRF layout, load_LINEMOD.py)."""
+    all_imgs, all_poses, counts = [], [], [0]
+    K = None
+    near = far = None
+    for s in ("train", "val", "test"):
+        with open(os.path.join(datadir, f"transforms_{s}.json")) as f:
+            meta = json.load(f)
+        skip = 1 if s == "train" or testskip == 0 else testskip
+        imgs, poses = [], []
+        for frame in meta["frames"][::skip]:
+            fname = os.path.join(datadir, frame["file_path"])
+            imgs.append(images_lib.imread(fname) / 255.0)
+            poses.append(np.array(frame["transform_matrix"], np.float32))
+        K = np.array(meta["frames"][0]["intrinsic_matrix"], np.float32)
+        near = float(meta.get("near", 0.1))
+        far = float(meta.get("far", 2.0))
+        all_imgs.append(np.stack(imgs).astype(np.float32))
+        all_poses.append(np.stack(poses))
+        counts.append(counts[-1] + len(imgs))
+
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    imgs = np.concatenate(all_imgs, 0)[..., :3]
+    poses = np.concatenate(all_poses, 0)
+    H, W = imgs.shape[1:3]
+    focal = float(K[0, 0])
+    if half_res:
+        H, W, focal = H // 2, W // 2, focal / 2
+        K = K.copy()
+        K[:2] /= 2
+        imgs = np.stack([images_lib.resize(im, (W, H),
+                                           interpolation=images_lib.INTER_AREA)
+                         for im in imgs], 0)
+    return SceneData(
+        images=imgs,
+        poses=poses[:, :3, :4],
+        K=K[:3, :3],
+        H=H,
+        W=W,
+        focal=focal,
+        near=near,
+        far=far,
+        i_train=i_split[0],
+        i_test=i_split[2],
+        i_val=i_split[1],
+    )
 
 
 def attach_masks(scene: SceneData, cfg, cache_dir=None,
@@ -60,23 +176,56 @@ def attach_masks(scene: SceneData, cfg, cache_dir=None,
     return scene
 
 
-def load_scene(cfg, device="cuda") -> SceneData:
-    """Load the scene named by cfg and attach its masks (`attach_masks`,
-    computed on `device`) under `{basedir}/{expname}/mask_cache`."""
-    if cfg.dataset_type != "synthetic":
-        raise NotImplementedError(
-            f"dataset_type={cfg.dataset_type!r} is not ported yet: only "
-            "'synthetic' loads (ROADMAP Queue 1: data loaders)"
+def load_scene(cfg, device="cuda", attach=True) -> SceneData:
+    """Load the dataset named by cfg and prepare its priors and masks:
+    `attach_masks` (hard masks computed on `device`, cached under
+    `{basedir}/{expname}/mask_cache`), except for DTU, whose masks are
+    its GT-depth coverage: there only the missing priors are filled."""
+    kind = cfg.dataset_type
+    if kind == "blender":
+        from consistentnerf_tpu_torch.data.blender import load_blender
+
+        scene = load_blender(cfg.datadir, half_res=cfg.half_res,
+                             testskip=cfg.testskip,
+                             train_view_num=cfg.train_view_num,
+                             white_bkgd=cfg.white_bkgd,
+                             depthdir=cfg.depthdir)
+    elif kind == "llff":
+        from consistentnerf_tpu_torch.data.llff import load_llff
+
+        scene = load_llff(cfg.datadir, factor=cfg.factor,
+                          spherify=cfg.spherify, no_ndc=cfg.no_ndc,
+                          train_view_num=cfg.train_view_num,
+                          depthdir=cfg.depthdir)
+    elif kind == "dtu":
+        from consistentnerf_tpu_torch.data.dtu import load_dtu
+
+        scene = load_dtu(cfg.datadir, train_view_num=cfg.train_view_num,
+                         light_idx=cfg.dtu_light_cond,
+                         num_views=cfg.dtu_max_images,
+                         use_nerf_depth=cfg.use_nerf_depth,
+                         split_type=cfg.dtu_split_type,
+                         depthdir=cfg.depthdir)
+    elif kind == "deepvoxels":
+        scene = load_deepvoxels(cfg.datadir, cfg.shape, cfg.testskip)
+    elif kind == "LINEMOD":
+        scene = load_linemod(cfg.datadir, cfg.half_res, cfg.testskip)
+    elif kind == "synthetic":
+        scene = synthetic.make_scene(
+            n_views=cfg.synthetic_views,
+            H=cfg.synthetic_hw,
+            W=cfg.synthetic_hw,
+            texture_freq=cfg.synthetic_texture_freq,
+            layout=cfg.synthetic_layout,
+        ).to_scene_data(
+            n_test=cfg.synthetic_n_test,
+            interleave_test=cfg.synthetic_interleave_test,
         )
-    scene = synthetic.make_scene(
-        n_views=cfg.synthetic_views,
-        H=cfg.synthetic_hw,
-        W=cfg.synthetic_hw,
-        texture_freq=cfg.synthetic_texture_freq,
-        layout=cfg.synthetic_layout,
-    ).to_scene_data(
-        n_test=cfg.synthetic_n_test,
-        interleave_test=cfg.synthetic_interleave_test,
-    )
+    else:
+        raise ValueError(f"Unknown dataset type {kind!r}")
+    if not attach:
+        return scene
+    if kind == "dtu":
+        return scene.ensure_priors()
     cache_dir = os.path.join(cfg.basedir, cfg.expname, "mask_cache")
     return attach_masks(scene, cfg, cache_dir, device=device)

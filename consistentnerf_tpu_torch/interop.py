@@ -4,7 +4,8 @@
 port's `VanillaNeRF` state_dict, `mip_params_from_jax` /
 `mip_params_to_jax` carry the mip param tree
 (`params["params"]["MipMLP_0"]["Dense_i"]`) into a `MipNeRF` state_dict
-and back; `add_flat_grads` / `flat_grads_to_named` map a flat
+and back; `lpips_params_from_jax` carries the JAX LPIPS params (HWIO
+convs) into the port's `train/lpips.py` params; `add_flat_grads` / `flat_grads_to_named` map a flat
 torch-layout grad list (the order of `ops/fused_mlp.flatten_params`, or
 of `ops/fused_mip.flatten_mip_params` for a MipMLP) onto an MLP's
 parameters; `load_reference_tar` reads a nerf-pytorch
@@ -104,6 +105,16 @@ def mip_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
             "kernel": sd[f"mlp.dense.{i}.weight"].detach().cpu().numpy().T,
             "bias": sd[f"mlp.dense.{i}.bias"].detach().cpu().numpy()}
     return {"params": {"MipMLP_0": mlp}}
+
+
+def lpips_params_from_jax(params: Mapping) -> Dict:
+    """The JAX `train/lpips.py` params ({"convs": [[{"w": HWIO, "b"}]],
+    "lins": [...]}, numpy or jax leaves) -> the port's LPIPS params."""
+    from consistentnerf_tpu_torch.train import lpips
+
+    return lpips.params_from_hwio(
+        [[(c["w"], c["b"]) for c in block] for block in params["convs"]],
+        params["lins"])
 
 
 def flat_param_names(net_depth: int, use_viewdirs: bool = True,

@@ -1,10 +1,15 @@
-"""SSIM (Wang et al., 11x1.5 Gaussian window, 'valid' padding), as the
-patch loss uses it (`run_nerf_view.py:1701`). MS-SSIM and the PSNR
-helpers come with the eval slice (ROADMAP Queue 1: eval metrics)."""
+"""Image quality metrics: SSIM (Wang et al., 11x1.5 Gaussian window,
+'valid' padding, as the patch loss (`run_nerf_view.py:1701`) and the
+evaluation use it), MS-SSIM over 5 scales, PSNR and masked PSNR
+(`alky/vis_utils.py:24-43`). Images are [..., H, W, C] tensors."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def _gaussian_kernel(size: int, sigma: float, device=None) -> torch.Tensor:
@@ -56,3 +61,60 @@ def ssim(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0,
     if return_map:
         return ssim_map
     return torch.mean(ssim_map, dim=(-3, -2, -1))
+
+
+def _ssim_and_cs(img0, img1, max_val, filter_size, filter_sigma, k1, k2):
+    filter_size = _effective_filter_size(filter_size, img0.shape[-3],
+                                         img0.shape[-2])
+    kernel = _gaussian_kernel(filter_size, filter_sigma, img0.device)
+    mu0 = _filter2d_separable(img0, kernel)
+    mu1 = _filter2d_separable(img1, kernel)
+    sigma00 = _filter2d_separable(img0**2, kernel) - mu0**2
+    sigma11 = _filter2d_separable(img1**2, kernel) - mu1**2
+    sigma01 = _filter2d_separable(img0 * img1, kernel) - mu0 * mu1
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    cs_map = (2 * sigma01 + c2) / (sigma00 + sigma11 + c2)
+    l_map = (2 * mu0 * mu1 + c1) / (mu0**2 + mu1**2 + c1)
+    return (torch.mean(l_map * cs_map, dim=(-3, -2, -1)),
+            torch.mean(cs_map, dim=(-3, -2, -1)))
+
+
+def _avg_pool2(img):
+    h, w = img.shape[-3], img.shape[-2]
+    img = img[..., : h - h % 2, : w - w % 2, :]
+    return 0.25 * (img[..., 0::2, 0::2, :] + img[..., 1::2, 0::2, :]
+                   + img[..., 0::2, 1::2, :] + img[..., 1::2, 1::2, :])
+
+
+def ms_ssim(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0,
+            filter_size: int = 11, filter_sigma: float = 1.5,
+            k1: float = 0.01, k2: float = 0.03, weights=_MSSSIM_WEIGHTS):
+    """Multi-scale SSIM of [..., H, W, C] images (5 scales)."""
+    weights = torch.as_tensor(weights, dtype=img0.dtype, device=img0.device)
+    mcs = []
+    s = None
+    for i in range(len(weights)):
+        s, cs = _ssim_and_cs(img0, img1, max_val, filter_size, filter_sigma,
+                             k1, k2)
+        if i < len(weights) - 1:
+            mcs.append(torch.relu(cs))
+            img0 = _avg_pool2(img0)
+            img1 = _avg_pool2(img1)
+    mcs = torch.stack(mcs, 0)  # [scales - 1, ...]
+    w = weights[:-1].reshape((-1,) + (1,) * (mcs.dim() - 1))
+    return torch.prod(mcs ** w, 0) * torch.relu(s) ** weights[-1]
+
+
+def psnr(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0):
+    mse = torch.mean((img0 - img1) ** 2)
+    return -10.0 / math.log(10.0) * torch.log(mse / max_val**2)
+
+
+def masked_psnr(img0: torch.Tensor, img1: torch.Tensor, mask: torch.Tensor):
+    """PSNR over the masked pixels (alky/vis_utils.py:img2psnr_mask)."""
+    mask = mask.reshape(mask.shape + (1,) * (img0.dim() - mask.dim()))
+    se = (img0 - img1) ** 2 * mask
+    denom = torch.sum(torch.broadcast_to(mask, img0.shape))
+    mse = torch.sum(se) / torch.clamp(denom, min=1)
+    return -10.0 / math.log(10.0) * torch.log(mse)

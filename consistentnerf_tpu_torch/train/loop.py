@@ -34,6 +34,7 @@ class TrainResult:
     state: object
     stats_history: list
     rays_per_sec: float
+    metrics: Optional[dict] = None  # the test-set eval (cli/train.py)
 
 
 def make_batcher(scene: SceneData, cfg, random_poses=None):

@@ -1,41 +1,36 @@
-"""Visualization: turbo depth colormap with checkerboard matte, u8 PNGs.
+"""Visualization: turbo depth colormap with checkerboard matte, the
+visualize-suite dict (RegNeRF `vis.py:254-299`), u8 PNGs.
 
-Written on numpy and the standard library alone (a zlib PNG encoder, a
-sampled turbo colormap), so rendering needs no imaging package.
+The PNGs and the colormap need no imaging package (`data/images.py`
+writes the PNGs, the turbo colormap is sampled here). `save_img_f32`
+(a TIFF) and `visualize_rays` (a plot) import PIL and matplotlib when
+called, as the JAX package's do; no path of the port calls them.
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+from consistentnerf_tpu_torch.data import images
 
 
 def save_img_u8(img: np.ndarray, path: str) -> None:
     """Save a [0, 1] float image ([H, W] or [H, W, 3]) as an 8-bit PNG."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     arr = (np.clip(np.nan_to_num(img), 0.0, 1.0) * 255.0).astype(np.uint8)
-    if arr.ndim == 2:
-        arr = arr[..., None]
-    h, w, c = arr.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           arr.reshape(h, w * c)], 1)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                             color_type, 0, 0, 0))
-           + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-           + _png_chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(png)
+    images.write_png(path, arr)
+
+
+def save_img_f32(depthmap: np.ndarray, path: str) -> None:
+    """Save a float map as a 32-bit TIFF (needs PIL)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    Image.fromarray(np.nan_to_num(depthmap).astype(np.float32)).save(
+        path, "TIFF")
 
 
 # The turbo colormap (Google, Apache-2.0) at 33 evenly spaced points,
@@ -135,3 +130,46 @@ def visualize_normals(normals: np.ndarray,
     if acc is not None:
         vis = matte(vis, acc)
     return vis
+
+
+def visualize_rays(t_vals: np.ndarray, weights: np.ndarray,
+                   rgbs: Optional[np.ndarray] = None, width: int = 640,
+                   height: int = 320) -> np.ndarray:
+    """Per-ray weight curves over distance (RegNeRF vis.py:185-251's ray
+    plots; needs matplotlib): an RGB image in [0, 1]."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    t_vals = np.asarray(t_vals)
+    weights = np.asarray(weights)
+    fig, ax = plt.subplots(figsize=(width / 100, height / 100), dpi=100)
+    t_mids = 0.5 * (t_vals[:, :-1] + t_vals[:, 1:])
+    for i in range(min(t_mids.shape[0], 64)):
+        color = None
+        if rgbs is not None:
+            color = np.clip(np.asarray(rgbs)[i].mean(0), 0, 1)
+        ax.plot(t_mids[i], weights[i][: t_mids.shape[1]], lw=0.7,
+                alpha=0.6, color=color)
+    ax.set_xlabel("distance")
+    ax.set_ylabel("weight")
+    fig.tight_layout()
+    fig.canvas.draw()
+    buf = np.asarray(fig.canvas.buffer_rgba())[..., :3]
+    plt.close(fig)
+    return buf.astype(np.float32) / 255.0
+
+
+def visualize_suite(rendering: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The standard visualization bundle (RegNeRF vis.py:254-299)."""
+    out = {"color": np.clip(rendering["rgb"], 0, 1)}
+    acc = rendering.get("acc", np.ones(rendering["rgb"].shape[:2]))
+    if "depth" in rendering:
+        out["depth"] = visualize_depth(rendering["depth"], acc)
+    if "disp" in rendering:
+        out["disp"] = visualize_cmap(rendering["disp"], acc)
+    if "normals" in rendering:
+        out["normals"] = visualize_normals(rendering["normals"], acc)
+    out["acc"] = np.repeat(np.clip(acc, 0, 1)[..., None], 3, -1)
+    return out

@@ -104,8 +104,13 @@ def test_load_scene_synthetic_only():
     scene = loaders.load_scene(cfg)
     assert scene.images.shape == (4, 8, 8, 3)
     assert len(scene.i_test) == 1 and scene.masks.shape == (4, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loaders.load_scene(cfg.replace(dataset_type="llff"))
+    # The dataset loaders are ported: a dataset type reads its files, and
+    # an unknown type raises as in the JAX package.
+    with pytest.raises(FileNotFoundError):
+        loaders.load_scene(cfg.replace(dataset_type="llff",
+                                       datadir="/nonexistent/fern"))
+    with pytest.raises(ValueError, match="Unknown dataset type"):
+        loaders.load_scene(cfg.replace(dataset_type="bogus"))
 
 
 # --- rays ------------------------------------------------------------------

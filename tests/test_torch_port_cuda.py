@@ -8,7 +8,8 @@ card against the CPU, the bf16 Hopper walk of #1 and #6
 (`csrc/fwd_hopper.cuh`): its plans, ragged sizes and widths, repeats and
 the alignment its weight loads need, and #2, #7, #11 and #14 on the
 level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
-bit for bit against #2 and #14 against #11 on the same points.
+bit for bit against #2 and #14 against #11 on the same points, and the
+evaluation's metric suite and `evaluate()` on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -1390,3 +1391,122 @@ def test_hopper_walk_refuses_misaligned_weights(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         fmip.fwd(mbad, *(x.T.contiguous() for x in _mip_inputs(
             300, cuda_device)), 8, 16, "bfloat16")
+
+
+def _image_pair(h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.rand((h, w, 3), generator=g)
+    pred = torch.clamp(gt + 0.05 * torch.randn((h, w, 3), generator=g), 0, 1)
+    mask = (torch.rand((h, w), generator=g) > 0.5).float()
+    return pred, gt, mask
+
+
+# The eval gates of chip_smoke.py: a metric on the card against the same
+# port function on the CPU, relative; LPIPS (and avg_err, which holds it)
+# with TF32 off (fm.strict_fp32).
+EVAL_TOL = 1e-4
+EVAL_LPIPS_TOL = 1e-3
+
+
+@pytest.mark.cuda
+def test_metric_suite_on_the_card_matches_the_cpu(cuda_device):
+    """Every metric of compute_image_metrics (MS-SSIM at 200 pixels a
+    side, LPIPS, the masked trio) on the card against the CPU."""
+    from consistentnerf_tpu_torch.train import evaluation
+    from consistentnerf_tpu_torch.train.lpips import LPIPS
+
+    pred, gt, mask = _image_pair(200, 216, 3)
+    cpu = evaluation.compute_image_metrics(pred, gt, LPIPS(), mask)
+    card = evaluation.compute_image_metrics(
+        pred.to(cuda_device), gt.to(cuda_device), LPIPS(device=cuda_device),
+        mask.to(cuda_device))
+    assert sorted(card) == sorted(cpu) and "ms_ssim" in card
+    for k, v in cpu.items():
+        tol = EVAL_LPIPS_TOL if "lpips" in k or k == "avg_err" else EVAL_TOL
+        assert abs(card[k] - v) <= tol * max(abs(v), 1e-6), (k, card[k], v)
+
+
+def _evaluate_case(device, **kw):
+    """A model on the card (fp32 and plain unless `kw` says otherwise), the
+    6-view 48x48 synthetic scene, five test views in evaluate()'s groups
+    of two."""
+    from consistentnerf_tpu_torch.data import synthetic
+
+    cfg = configs.Config(**{**dict(
+        netdepth=2, netwidth=32, N_samples=8, N_importance=8, multires=4,
+        multires_views=2, white_bkgd=True, render_chunk_size=1024,
+        eval_views_per_call=2), **kw})
+    scene = synthetic.make_scene(n_views=6, H=48, W=48).to_scene_data()
+    return cfg, scene, make_model(cfg, device).eval(), [0, 1, 2, 3, 4]
+
+
+def _cpu_metrics(model, cfg, scene, views, device):
+    """The metric suite on the CPU, averaged over the views, of the card's
+    renders in evaluate()'s groups (its own `render_groups`)."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.train import evaluation
+    from consistentnerf_tpu_torch.train.lpips import LPIPS
+
+    render = render_lib.build_render_fn(model, cfg)
+    selected = evaluation.selected_views(cfg, views)
+    g = evaluation.views_per_call(cfg, device, len(selected))
+    assert g == 2
+    per_view = []
+    with torch.no_grad():
+        for group, outs in evaluation.render_groups(render, scene, selected,
+                                                    g, device):
+            for (_, v), view in zip(group, outs):
+                per_view.append(evaluation.compute_image_metrics(
+                    torch.clamp(view["rgb"], 0, 1).cpu().numpy(),
+                    scene.images[v], LPIPS()))
+    return {k: float(np.mean([m[k] for m in per_view]))
+            for k in per_view[0]}
+
+
+@pytest.mark.cuda
+def test_evaluate_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """evaluate() of an fp32 model on the card against the metric suite
+    on the CPU, on the same renders (the card's, in evaluate()'s groups of
+    two views): the same keys, values within the eval gates."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.train import evaluation
+
+    cfg, scene, model, views = _evaluate_case(cuda_device)
+    got = evaluation.evaluate(model, cfg, scene, out_dir=str(tmp_path),
+                              views=np.asarray(views))
+    want = _cpu_metrics(model, cfg, scene, views, cuda_device)
+    assert sorted(got) == sorted(list(want) + ["eval_rays_per_sec"])
+    for k, v in want.items():
+        tol = EVAL_LPIPS_TOL if "lpips" in k or k == "avg_err" else EVAL_TOL
+        assert abs(got[k] - v) <= tol * max(abs(v), 1e-6), (k, got[k], v)
+
+
+@pytest.mark.cuda
+def test_evaluate_turns_tf32_off_on_the_card(cuda_device):
+    """evaluate() owns its precision: with TF32 on again (cuDNN's default)
+    before the call, it runs the metric suite in full fp32 and its LPIPS
+    holds to the CPU's within the eval gate. The model renders in bf16
+    through #1, a path that sets no precision flag of its own, as the
+    flagship eval does."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.train import evaluation
+
+    cfg, scene, model, views = _evaluate_case(
+        cuda_device, netdepth=8, netwidth=64, N_samples=16, N_importance=16,
+        multires=10, multires_views=4, compute_dtype="bfloat16",
+        use_fused_render=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    v2.launches = 0
+    got = evaluation.evaluate(model, cfg, scene, views=np.asarray(views),
+                              save_images=False)
+    assert v2.launches > 0
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = _cpu_metrics(model, cfg, scene, views, cuda_device)
+    for k in ("lpips", "avg_err"):
+        assert abs(got[k] - want[k]) <= EVAL_LPIPS_TOL * max(
+            abs(want[k]), 1e-6), (k, got[k], want[k])

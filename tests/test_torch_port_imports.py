@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of consistentnerf_tpu_torch
-loads no jax, flax, optax or orbax and nothing of consistentnerf_tpu, and
+loads no jax, flax, optax or orbax, nothing of consistentnerf_tpu and no
+imaging package (imageio, cv2, PIL, matplotlib), and
 chip_smoke.py refuses to report without a card or without the repo. Each
 check runs in a subprocess: this test process imports jax already."""
 
@@ -16,7 +17,11 @@ import consistentnerf_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "consistentnerf_tpu")
+# The card's machine has no jax and no imaging package: the port imports
+# none of them (imageio, PIL and matplotlib only inside the functions
+# that need them).
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "consistentnerf_tpu",
+          "imageio", "cv2", "PIL", "matplotlib")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
 print(len(names), "modules;", "banned:", bad)
@@ -28,7 +33,10 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "consistency.monodepth", "ops.fused_mip", "ops.fused_train",
              "models.mipnerf", "core.mip", "core.spacing",
              "data.random_poses", "ops.fused_mlp_train",
-             "consistency.reproject", "data.loaders"):
+             "consistency.reproject", "data.loaders", "data.images",
+             "data.pfm", "data.pairs", "data.poses", "data.llff",
+             "data.blender", "data.dtu", "train.lpips", "train.evaluation",
+             "train.vis", "cli.eval"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 

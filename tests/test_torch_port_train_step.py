@@ -212,8 +212,7 @@ def test_train_cli_raises_for_what_is_not_ported(tmp_path):
             "--set", f"basedir={tmp_path}"]
     with pytest.raises(NotImplementedError, match="depth-prior"):
         train_cli.main(base + ["--bootstrap-priors", "10"])
-    with pytest.raises(NotImplementedError, match="eval metrics"):
-        train_cli.main(base + ["--eval-after"])
+    # --eval-after is ported (tests/test_torch_port_eval.py).
     # Weights on disk turn the LPIPS term on in the JAX loop; here they
     # raise rather than train without it.
     weights = tmp_path / "lpips.npz"
