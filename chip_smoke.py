@@ -84,7 +84,19 @@ with the launch counts set to 0 just before it and read just after:
   group of views; every metric `evaluate()` computed on the card held
   against the same port function on the CPU on the same renders, one
   view's PNG against `render_image`, the artifacts present, and each
-  scene's `eval_rays_per_sec` printed.
+  scene's `eval_rays_per_sec` printed;
+* the experiment grid and the consistency variants, on the same fern and
+  scan114 fixtures: `cli/export_configs` (147 files, fern_3view loaded
+  back equal); the train CLI from the `--scene fern_3view` preset (fp32,
+  the one-pass step), from a reference `.gin` like RegNeRF's
+  `regnerf3/dtu/scan114_3.gin` (the one-pass mip step with the TV norm)
+  and from a reference fern `.txt`; `ss_loss` on fern through the train
+  CLI on the one-pass step (#3 four a step: the main and the reference
+  rays, both levels) and the v2 two-call step, with `use_pdf_kernel` off
+  and on; the ss_loss steps guarded against the eager step at both
+  values of the gate, #3's dW of a repeat bit for bit, both steps timed
+  with and without ss_loss; the softmask PNGs, canny and sobel masks of
+  fern (set on the train views only), each trained through the CLI.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -677,8 +689,14 @@ def main() -> None:
                    twocall["step_ms"])
     log(f"v1 phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    evals = eval_phases(dev, card, configs, fm, v2, fmip, op)
-    log(f"eval phases: {time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory() as fx_tmp:
+        fx = write_scene_fixtures(fx_tmp)
+        evals = eval_phases(dev, card, configs, fm, v2, fmip, op, fx_tmp, fx)
+        log(f"eval phases: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        consist = consistency_phases(dev, card, configs, v2, fmip, op,
+                                     pdf_merge, fx_tmp, fx)
+        log(f"consistency phases: {time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -701,7 +719,8 @@ def main() -> None:
         switched["json"][pdf_merge.KERNEL], mip_switched["mip_json"]]
         + row_json + v1["json"]}
     for r in kernels["kernels"]:
-        r["launches"] += evals["launches"].get(r["name"], 0)
+        r["launches"] += (evals["launches"].get(r["name"], 0)
+                          + consist["launches"].get(r["name"], 0))
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -4003,7 +4022,15 @@ def smooth_u8(rng, h, w, c):
 
 
 def fern_image(i):
-    return smooth_u8(np.random.RandomState(100 + i), *FERN["hw"], 3)
+    """A smooth frame with a dark seeded rectangle: the sharp edges the
+    Canny masks keep (the smooth part alone has no gradient over the
+    strong threshold)."""
+    rng = np.random.RandomState(100 + i)
+    img = smooth_u8(rng, *FERN["hw"], 3)
+    h, w = FERN["hw"]
+    r0, c0 = rng.randint(h // 4, h // 2), rng.randint(w // 4, w // 2)
+    img[r0:r0 + h // 4, c0:c0 + w // 4] //= 6
+    return img
 
 
 def lego_image(i):
@@ -4330,9 +4357,10 @@ def eval_metric_gates(label, card, cli_args, scene, views, got, mask_fn):
         f"eval_rays_per_sec {'; '.join(rates)}")
 
 
-def eval_phases(dev, card, configs, fm, v2, fmip, op):
+def eval_phases(dev, card, configs, fm, v2, fmip, op, tmp, fx):
     """35. The paper's scenes and their evaluation: the three fixtures
-    loaded (timed) and held to what they imply, fern trained (one-pass
+    (`fx`, written under `tmp` by write_scene_fixtures) loaded (timed)
+    and held to what they imply, fern trained (one-pass
     vanilla step, hard masks on the card, NDC) through cli/train.py
     --eval-after and scored again by cli/eval.py, scan114 trained on the
     one-pass mip step and scored with the IDR-masked metrics, lego scored
@@ -4366,187 +4394,521 @@ def eval_phases(dev, card, configs, fm, v2, fmip, op):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    with tempfile.TemporaryDirectory() as tmp:
-        fx = write_scene_fixtures(tmp)
-        rays_per_sec = {}
+    rays_per_sec = {}
 
-        # --- fern: vanilla, hard masks on the card, NDC ---------------
-        fern = fx["fern"]
-        sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
-            "dataset_type=llff", f"datadir={fern['dir']}",
-            f"factor={FERN['factor']}", "white_bkgd=false", "near=0.0",
-            "far=1.0", "train_view_num=3", "i_print=1",
-            f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
-            "expname=fern"]
-        args = ["--device", str(dev)] + [x for s_ in sets
-                                         for x in ("--set", s_)]
-        cfg = configs.Config(**{**FLAGSHIP, "dataset_type": "llff",
-                                "datadir": fern["dir"], "white_bkgd": False,
-                                "basedir": tmp, "expname": "load"})
-        t0 = time.perf_counter()
-        scene = load_scene(cfg, device=dev, attach=False)
-        t_load = time.perf_counter() - t0
-        log(f"{tag} load_scene fern (llff, factor {FERN['factor']}): "
-            f"{t_load:.2f} s (host: PNG decode, PFMs, poses)")
-        scene_gates("fern", scene, fern, [
-            (i, scene.images[i], (fern_image(i) / 255.0).astype(np.float32))
-            for i in range(FERN["n"])])
-        counted = ((v2, "launches", v2.KERNEL),
-                   (v2, "bwd_launches", v2.BWD_KERNEL),
-                   (op, "launches", op.KERNEL))
-        for mod, attr, _ in counted:
-            setattr(mod, attr, 0)
-        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS),
-                                     "--eval-after"])
-        torch.cuda.synchronize()
-        got = {k: getattr(mod, attr) for mod, attr, k in counted}
-        ecfg = configs.Config(render_chunk_size=CHUNK)
-        n_eval = eval_launches(ecfg, scene, len(fern["test"]), 2)
-        want = {v2.KERNEL: 2 * TRAIN_STEPS + n_eval,
-                v2.BWD_KERNEL: 2 * TRAIN_STEPS, op.KERNEL: 2 * TRAIN_STEPS}
-        log(f"fern cli.train --eval-after: {TRAIN_STEPS} one-pass steps, "
-            f"loss {float(res.stats_history[-1]['loss']):.5f}, launches "
-            f"{got} (expected {want}: #1 2 a render chunk of each view "
-            "group); metrics " + ", ".join(
-                f"{k} {v:.5f}" for k, v in sorted(res.metrics.items())))
-        gate(got == want, f"fern: the train and eval path launched {got}, "
-             f"expected {want}")
-        if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
-            fail("fern: a non-finite loss")
-        add(got)
-        masks = os.listdir(os.path.join(tmp, "fern", "mask_cache"))
-        log(f"fern hard masks (made on the card): {masks}")
-        gate(len(masks) == 1, "fern: no hard masks were cached")
-        v2.launches = 0
-        metrics = eval_cli.main(args)
-        torch.cuda.synchronize()
-        log(f"fern cli.eval: {v2.KERNEL} launches {v2.launches} (expected "
-            f"{n_eval})")
-        gate(v2.launches == n_eval, f"fern cli.eval launched {v2.launches}")
-        add({v2.KERNEL: v2.launches})
-        for k, v in res.metrics.items():
-            if k != "eval_rays_per_sec":
-                gate(abs(metrics[k] - v) <= 1e-5 * max(abs(v), 1e-6),
-                     f"fern: cli.eval's {k} {metrics[k]} is not "
-                     f"--eval-after's {v}")
-        files = sorted(os.listdir(os.path.join(tmp, "fern", "test_preds")))
-        need = {f"metric_{k}_{TRAIN_STEPS}.txt" for k in metrics} | {
-            "metrics.txt", "LPIPS_UNCALIBRATED.txt", "color_000.png",
-            "depth_003.png", "acc_003.png"}
-        log(f"fern test_preds: {len(files)} files")
-        gate(need <= set(files), f"fern: artifacts missing: "
-             f"{sorted(need - set(files))}")
-        eval_metric_gates("fern", card, args, scene, list(fern["test"]),
-                          metrics, lambda v: None)
-        rays_per_sec["fern"] = metrics["eval_rays_per_sec"]
-        del scene
+    # --- fern: vanilla, hard masks on the card, NDC ---------------
+    fern = fx["fern"]
+    sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+        "dataset_type=llff", f"datadir={fern['dir']}",
+        f"factor={FERN['factor']}", "white_bkgd=false", "near=0.0",
+        "far=1.0", "train_view_num=3", "i_print=1",
+        f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
+        "expname=fern"]
+    args = ["--device", str(dev)] + [x for s_ in sets
+                                     for x in ("--set", s_)]
+    cfg = configs.Config(**{**FLAGSHIP, "dataset_type": "llff",
+                            "datadir": fern["dir"], "white_bkgd": False,
+                            "basedir": tmp, "expname": "load"})
+    t0 = time.perf_counter()
+    scene = load_scene(cfg, device=dev, attach=False)
+    t_load = time.perf_counter() - t0
+    log(f"{tag} load_scene fern (llff, factor {FERN['factor']}): "
+        f"{t_load:.2f} s (host: PNG decode, PFMs, poses)")
+    scene_gates("fern", scene, fern, [
+        (i, scene.images[i], (fern_image(i) / 255.0).astype(np.float32))
+        for i in range(FERN["n"])])
+    counted = ((v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (op, "launches", op.KERNEL))
+    for mod, attr, _ in counted:
+        setattr(mod, attr, 0)
+    res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS),
+                                 "--eval-after"])
+    torch.cuda.synchronize()
+    got = {k: getattr(mod, attr) for mod, attr, k in counted}
+    ecfg = configs.Config(render_chunk_size=CHUNK)
+    n_eval = eval_launches(ecfg, scene, len(fern["test"]), 2)
+    want = {v2.KERNEL: 2 * TRAIN_STEPS + n_eval,
+            v2.BWD_KERNEL: 2 * TRAIN_STEPS, op.KERNEL: 2 * TRAIN_STEPS}
+    log(f"fern cli.train --eval-after: {TRAIN_STEPS} one-pass steps, "
+        f"loss {float(res.stats_history[-1]['loss']):.5f}, launches "
+        f"{got} (expected {want}: #1 2 a render chunk of each view "
+        "group); metrics " + ", ".join(
+            f"{k} {v:.5f}" for k, v in sorted(res.metrics.items())))
+    gate(got == want, f"fern: the train and eval path launched {got}, "
+         f"expected {want}")
+    if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
+        fail("fern: a non-finite loss")
+    add(got)
+    masks = os.listdir(os.path.join(tmp, "fern", "mask_cache"))
+    log(f"fern hard masks (made on the card): {masks}")
+    gate(len(masks) == 1, "fern: no hard masks were cached")
+    v2.launches = 0
+    metrics = eval_cli.main(args)
+    torch.cuda.synchronize()
+    log(f"fern cli.eval: {v2.KERNEL} launches {v2.launches} (expected "
+        f"{n_eval})")
+    gate(v2.launches == n_eval, f"fern cli.eval launched {v2.launches}")
+    add({v2.KERNEL: v2.launches})
+    for k, v in res.metrics.items():
+        if k != "eval_rays_per_sec":
+            gate(abs(metrics[k] - v) <= 1e-5 * max(abs(v), 1e-6),
+                 f"fern: cli.eval's {k} {metrics[k]} is not "
+                 f"--eval-after's {v}")
+    files = sorted(os.listdir(os.path.join(tmp, "fern", "test_preds")))
+    need = {f"metric_{k}_{TRAIN_STEPS}.txt" for k in metrics} | {
+        "metrics.txt", "LPIPS_UNCALIBRATED.txt", "color_000.png",
+        "depth_003.png", "acc_003.png"}
+    log(f"fern test_preds: {len(files)} files")
+    gate(need <= set(files), f"fern: artifacts missing: "
+         f"{sorted(need - set(files))}")
+    eval_metric_gates("fern", card, args, scene, list(fern["test"]),
+                      metrics, lambda v: None)
+    rays_per_sec["fern"] = metrics["eval_rays_per_sec"]
+    del scene
 
-        # --- scan114: mip, IDR-masked metrics -------------------------
-        dtu = fx["scan114"]
-        sets = [f"{k}={v}" for k, v in MIP.items()
-                if k not in ("dataset_type", "white_bkgd")] + [
-            "dataset_type=dtu", f"datadir={dtu['dir']}", "white_bkgd=false",
-            "dtu_split_type=pixelnerf", "train_view_num=3", "i_print=1",
-            f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
-            "expname=scan114", f"dtu_mask_path={dtu['mask_path']}",
-            "factor=0", f"eval_render_interval={DTU_EVAL_INTERVAL}"]
-        args = ["--device", str(dev)] + [x for s_ in sets
-                                         for x in ("--set", s_)]
-        cfg = configs.Config(dataset_type="dtu", datadir=dtu["dir"],
-                             dtu_split_type="pixelnerf")
-        t0 = time.perf_counter()
-        scene = load_scene(cfg, device=dev)
-        t_load = time.perf_counter() - t0
-        log(f"{tag} load_scene scan114 (dtu, half-res + crop): "
-            f"{t_load:.2f} s (host)")
-        decoded = [(v, images.read_png(os.path.join(
-            os.path.dirname(dtu["dir"]), "Rectified", "scan114_train",
-            f"rect_{v + 1:03d}_3_r5000.png")), dtu_image(v))
-            for v in (0, 25, 48)]
-        scene_gates("scan114", scene, dtu, decoded)
-        gate(scene.masks[DTU_TRAIN].mean() > 0.2
-             and not scene.masks[0].any(),
-             "scan114: the masks are not the GT depths' coverage")
-        counted = ((fmip, "launches", fmip.KERNEL),
-                   (fmip, "bwd_launches", fmip.BWD_KERNEL),
-                   (op, "mip_launches", op.MIP_KERNEL))
-        for mod, attr, _ in counted:
-            setattr(mod, attr, 0)
-        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
-        torch.cuda.synchronize()
-        got = {k: getattr(mod, attr) for mod, attr, k in counted}
-        log(f"scan114 cli.train (mip): {TRAIN_STEPS} one-pass steps, loss "
-            f"{float(res.stats_history[-1]['loss']):.5f}, launches {got} "
-            "(expected 2 of each per step)")
-        gate(all(v == 2 * TRAIN_STEPS for v in got.values()),
-             f"scan114: the mip train path launched {got}")
-        if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
-            fail("scan114: a non-finite loss")
-        add(got)
-        fmip.launches = 0
-        metrics = eval_cli.main(args)
-        torch.cuda.synchronize()
-        views = DTU_TEST[::DTU_EVAL_INTERVAL]
-        n_eval = eval_launches(ecfg, scene, len(views), 2)
-        log(f"scan114 cli.eval: {fmip.KERNEL} launches {fmip.launches} "
-            f"(expected {n_eval}: 2 levels a render chunk); metrics "
-            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
-        gate(fmip.launches == n_eval,
-             f"scan114 cli.eval launched {fmip.launches}")
-        add({fmip.KERNEL: fmip.launches})
-        gate({"masked_psnr", "masked_ssim", "masked_lpips",
-              "ms_ssim"} <= set(metrics), "scan114: the masked metrics are "
-             "missing")
-        from consistentnerf_tpu_torch.data import dtu as dtu_lib
+    # --- scan114: mip, IDR-masked metrics -------------------------
+    dtu = fx["scan114"]
+    sets = [f"{k}={v}" for k, v in MIP.items()
+            if k not in ("dataset_type", "white_bkgd")] + [
+        "dataset_type=dtu", f"datadir={dtu['dir']}", "white_bkgd=false",
+        "dtu_split_type=pixelnerf", "train_view_num=3", "i_print=1",
+        f"checkpoint_every={TRAIN_STEPS}", f"basedir={tmp}",
+        "expname=scan114", f"dtu_mask_path={dtu['mask_path']}",
+        "factor=0", f"eval_render_interval={DTU_EVAL_INTERVAL}"]
+    args = ["--device", str(dev)] + [x for s_ in sets
+                                     for x in ("--set", s_)]
+    cfg = configs.Config(dataset_type="dtu", datadir=dtu["dir"],
+                         dtu_split_type="pixelnerf")
+    t0 = time.perf_counter()
+    scene = load_scene(cfg, device=dev)
+    t_load = time.perf_counter() - t0
+    log(f"{tag} load_scene scan114 (dtu, half-res + crop): "
+        f"{t_load:.2f} s (host)")
+    decoded = [(v, images.read_png(os.path.join(
+        os.path.dirname(dtu["dir"]), "Rectified", "scan114_train",
+        f"rect_{v + 1:03d}_3_r5000.png")), dtu_image(v))
+        for v in (0, 25, 48)]
+    scene_gates("scan114", scene, dtu, decoded)
+    gate(scene.masks[DTU_TRAIN].mean() > 0.2
+         and not scene.masks[0].any(),
+         "scan114: the masks are not the GT depths' coverage")
+    counted = ((fmip, "launches", fmip.KERNEL),
+               (fmip, "bwd_launches", fmip.BWD_KERNEL),
+               (op, "mip_launches", op.MIP_KERNEL))
+    for mod, attr, _ in counted:
+        setattr(mod, attr, 0)
+    res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    got = {k: getattr(mod, attr) for mod, attr, k in counted}
+    log(f"scan114 cli.train (mip): {TRAIN_STEPS} one-pass steps, loss "
+        f"{float(res.stats_history[-1]['loss']):.5f}, launches {got} "
+        "(expected 2 of each per step)")
+    gate(all(v == 2 * TRAIN_STEPS for v in got.values()),
+         f"scan114: the mip train path launched {got}")
+    if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
+        fail("scan114: a non-finite loss")
+    add(got)
+    fmip.launches = 0
+    metrics = eval_cli.main(args)
+    torch.cuda.synchronize()
+    views = DTU_TEST[::DTU_EVAL_INTERVAL]
+    n_eval = eval_launches(ecfg, scene, len(views), 2)
+    log(f"scan114 cli.eval: {fmip.KERNEL} launches {fmip.launches} "
+        f"(expected {n_eval}: 2 levels a render chunk); metrics "
+        + ", ".join(f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+    gate(fmip.launches == n_eval,
+         f"scan114 cli.eval launched {fmip.launches}")
+    add({fmip.KERNEL: fmip.launches})
+    gate({"masked_psnr", "masked_ssim", "masked_lpips",
+          "ms_ssim"} <= set(metrics), "scan114: the masked metrics are "
+         "missing")
+    from consistentnerf_tpu_torch.data import dtu as dtu_lib
 
-        idr = dtu_lib.load_idr_masks(dtu["mask_path"], "scan114")[..., 0]
-        r0, r1, c0, c1 = dtu_lib.CROP
-        crop = {v: images.resize(idr[i], None, fx=0.5, fy=0.5,
-                                 interpolation=images.INTER_NEAREST)[
-                                     r0:r1, c0:c1]
-                for i, v in enumerate(DTU_TEST)}
-        eval_metric_gates("scan114", card, args, scene, views, metrics,
-                          crop.get)
-        rays_per_sec["scan114"] = metrics["eval_rays_per_sec"]
-        del scene
+    idr = dtu_lib.load_idr_masks(dtu["mask_path"], "scan114")[..., 0]
+    r0, r1, c0, c1 = dtu_lib.CROP
+    crop = {v: images.resize(idr[i], None, fx=0.5, fy=0.5,
+                             interpolation=images.INTER_NEAREST)[
+                                 r0:r1, c0:c1]
+            for i, v in enumerate(DTU_TEST)}
+    eval_metric_gates("scan114", card, args, scene, views, metrics,
+                      crop.get)
+    rays_per_sec["scan114"] = metrics["eval_rays_per_sec"]
+    del scene
 
-        # --- lego: scored from the seeded init ------------------------
-        lego = fx["lego"]
-        sets = ["dataset_type=blender", f"datadir={lego['dir']}",
-                "half_res=true", "white_bkgd=true", "compute_dtype=bfloat16",
-                "train_view_num=3", f"basedir={tmp}", "expname=lego"]
-        args = ["--device", str(dev)] + [x for s_ in sets
-                                         for x in ("--set", s_)]
-        cfg = configs.Config(dataset_type="blender", datadir=lego["dir"],
-                             half_res=True, white_bkgd=True, basedir=tmp,
-                             expname="load")
-        t0 = time.perf_counter()
-        scene = load_scene(cfg, device=dev)
-        t_load = time.perf_counter() - t0
-        log(f"{tag} load_scene lego (blender, half_res): {t_load:.2f} s "
-            "(host)")
-        decoded = [(i, images.read_png(os.path.join(
-            lego["dir"], "train", f"r_{i}.png")), lego_image(i))
-            for i in LEGO_SPLITS[0] + LEGO_SPLITS[1]]
-        scene_gates("lego", scene, lego, decoded)
-        v2.launches = 0
-        metrics = eval_cli.main(args)
-        torch.cuda.synchronize()
-        n_eval = eval_launches(ecfg, scene, len(lego["test"]), 2)
-        log(f"lego cli.eval (seeded init): {v2.KERNEL} launches "
-            f"{v2.launches} (expected {n_eval}); metrics " + ", ".join(
-                f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
-        gate(v2.launches == n_eval, f"lego cli.eval launched {v2.launches}")
-        add({v2.KERNEL: v2.launches})
-        eval_metric_gates("lego", card, args, scene, list(lego["test"]),
-                          metrics, lambda v: None)
-        rays_per_sec["lego"] = metrics["eval_rays_per_sec"]
-        del scene
+    # --- lego: scored from the seeded init ------------------------
+    lego = fx["lego"]
+    sets = ["dataset_type=blender", f"datadir={lego['dir']}",
+            "half_res=true", "white_bkgd=true", "compute_dtype=bfloat16",
+            "train_view_num=3", f"basedir={tmp}", "expname=lego"]
+    args = ["--device", str(dev)] + [x for s_ in sets
+                                     for x in ("--set", s_)]
+    cfg = configs.Config(dataset_type="blender", datadir=lego["dir"],
+                         half_res=True, white_bkgd=True, basedir=tmp,
+                         expname="load")
+    t0 = time.perf_counter()
+    scene = load_scene(cfg, device=dev)
+    t_load = time.perf_counter() - t0
+    log(f"{tag} load_scene lego (blender, half_res): {t_load:.2f} s "
+        "(host)")
+    decoded = [(i, images.read_png(os.path.join(
+        lego["dir"], "train", f"r_{i}.png")), lego_image(i))
+        for i in LEGO_SPLITS[0] + LEGO_SPLITS[1]]
+    scene_gates("lego", scene, lego, decoded)
+    v2.launches = 0
+    metrics = eval_cli.main(args)
+    torch.cuda.synchronize()
+    n_eval = eval_launches(ecfg, scene, len(lego["test"]), 2)
+    log(f"lego cli.eval (seeded init): {v2.KERNEL} launches "
+        f"{v2.launches} (expected {n_eval}); metrics " + ", ".join(
+            f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+    gate(v2.launches == n_eval, f"lego cli.eval launched {v2.launches}")
+    add({v2.KERNEL: v2.launches})
+    eval_metric_gates("lego", card, args, scene, list(lego["test"]),
+                      metrics, lambda v: None)
+    rays_per_sec["lego"] = metrics["eval_rays_per_sec"]
+    del scene
     for k, v in rays_per_sec.items():
         log(f"{tag} eval_rays_per_sec {k}: {v:.1f}")
     torch.cuda.empty_cache()
     return {"launches": launches, "eval_rays_per_sec": rays_per_sec}
 
+
+
+# The consistency phase: train CLI steps of each run (a fresh experiment
+# each), and the reference files it writes, like the reference's own:
+# RegNeRF's regnerf3/dtu/scan114_3.gin and a nerf-pytorch fern .txt,
+# pointed at the fixtures.
+SS_STEPS = 2
+SCAN114_GIN = """# DTU settings (regnerf3/dtu/scan114_3.gin), pointed at the fixture
+Config.data_dir = "{data_dir}"
+Config.dtu_mask_path = '{mask_path}'
+Config.checkpoint_dir = "{ckpt}"
+Config.dtu_scan = "scan114"
+Config.dataset_loader = 'dtu'
+Config.white_background = False
+Config.near = 0.5
+Config.far = 3.5
+Config.factor = 2
+Config.render_factor = 2
+# the grid's masknerf split holds views the fixture has no GT depths for
+Config.dtu_split_type = 'pixelnerf'
+MLP.density_noise = 1.
+
+Config.n_input_views = 3
+Config.max_steps = 43945
+
+Config.lr_init = 0.002
+Config.lr_final = 0.00002
+Config.lr_delay_steps = 512
+Config.lr_delay_mult = 0.01
+Config.grad_max_norm = 0.1
+Config.grad_max_val = 0.1
+
+Config.anneal_nearfar = True
+Config.anneal_nearfar_steps = 256
+Config.anneal_nearfar_perc = 0.5
+
+Config.depth_tvnorm_loss_mult = 0.1
+Config.depth_tvnorm_decay = True
+Config.depth_tvnorm_maxstep = 512
+Config.depth_tvnorm_loss_mult_start = 400.0
+Config.depth_tvnorm_loss_mult_end = 0.1
+
+Config.flow_loss_mult = 0.0
+Config.depth_tvnorm_mask_weight = 1.0
+"""
+FERN_TXT = """expname = {expname}
+basedir = {basedir}
+datadir = {datadir}
+dataset_type = llff
+factor = {factor}
+llffhold = 8
+
+N_rand = 1024
+N_samples = 64
+N_importance = 64
+use_viewdirs = True
+hardmask
+with_depth_loss = True
+near = 0.
+far = 1.
+i_print = 1
+"""
+
+
+def consistency_phases(dev, card, configs, v2, fmip, op, pdf_merge, tmp,
+                       fx):
+    """36. The experiment grid and the consistency variants on the fern
+    and scan114 fixtures (`fx`, under `tmp`): cli/export_configs (147
+    files, fern_3view loaded back equal); cli/train.py from the
+    fern_3view preset (fp32, the one-pass vanilla step: #1, #2, #3), from
+    a reference .gin like regnerf3/dtu/scan114_3.gin (fp32, the one-pass
+    mip step with the TV norm: #5, #6, #7) and from a reference .txt for
+    fern; ss_loss on fern through the train CLI on the one-pass step (#3
+    four a step: main and reference rays, both levels) and the v2
+    two-call step (#1 / #2 four a step), with use_pdf_kernel off and on
+    (#8 three and two a step); the ss_loss steps guarded against the
+    eager step at both gate values, the one-pass step's #3 dW repeated
+    bit for bit, both steps timed with and without ss_loss; and the
+    softmask PNGs, canny and sobel masks of fern (non-empty on the train
+    views, empty elsewhere), each trained through the CLI."""
+    import copy
+    import warnings
+
+    from consistentnerf_tpu_torch.cli import export_configs
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.configs import scenes
+    from consistentnerf_tpu_torch.data import images, synthetic
+    from consistentnerf_tpu_torch.data.loaders import load_scene
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    tag = f"[{card}]"
+    launches = {}
+    vanilla = ((v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (op, "launches", op.KERNEL),
+               (pdf_merge, "launches", pdf_merge.KERNEL))
+    mip = ((fmip, "launches", fmip.KERNEL),
+           (fmip, "bwd_launches", fmip.BWD_KERNEL),
+           (op, "mip_launches", op.MIP_KERNEL))
+
+    def sets(items):
+        return [x for s_ in items for x in ("--set", s_)]
+
+    def cli_run(label, argv, per_step, counted=vanilla, check=None):
+        """The train CLI for SS_STEPS steps, launch counts set to 0 before
+        and read after: kernel k must launch per_step[k] a step."""
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = train_cli.main(["--device", str(dev), "--num-steps",
+                              str(SS_STEPS)] + argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        want = {k: per_step.get(k, 0) * SS_STEPS for _, _, k in counted}
+        last = res.stats_history[-1]
+        ss = (f", ss_loss {float(last['ss_loss']):.5f}" if "ss_loss" in last
+              else "")
+        log(f"{label}: {SS_STEPS} steps in {dt:.1f} s (load included), "
+            f"loss {float(last['loss']):.5f}{ss}, launches {got} (expected "
+            f"{want})")
+        gate(got == want, f"{label}: launched {got}, expected {want}")
+        gate(res.state.step == SS_STEPS and all(
+            np.isfinite(float(h["loss"])) for h in res.stats_history),
+            f"{label}: ended at step {res.state.step} or with a non-finite "
+            "loss")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if check is not None:
+            check(last)
+        return res
+
+    # 36a. The preset grid on disk.
+    out_dir = os.path.join(tmp, "exported_configs")
+    export_configs.main([out_dir])
+    files = [f for _, _, fs in os.walk(out_dir) for f in fs]
+    back = configs.load_config(os.path.join(out_dir, "configs_3view",
+                                            "fern.json"))
+    same = back.to_json() == scenes.get_scene_config("fern_3view").to_json()
+    log(f"cli.export_configs: {len(files)} files; configs_3view/fern.json "
+        f"loads back {'equal to' if same else 'unlike'} the fern_3view preset")
+    gate(len(files) == len(scenes.list_scenes()) == 147,
+         f"export_configs wrote {len(files)} files, not 147")
+    gate(same, "configs_3view/fern.json does not load back as fern_3view")
+
+    # 36b. A preset, a reference .gin and a reference .txt through the
+    # train CLI, each in the precision its file gives (fp32).
+    fern, dtu = fx["fern"], fx["scan114"]
+    run = ["i_print=1", f"checkpoint_every={SS_STEPS}", f"basedir={tmp}"]
+    cli_run("cli.train --scene fern_3view (fp32, one-pass step)",
+            ["--scene", "fern_3view"] + sets(
+                [f"datadir={fern['dir']}", f"factor={FERN['factor']}"]
+                + run),
+            {v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 2})
+    gate(os.path.isdir(os.path.join(tmp, "llff_fern_3view", "checkpoints")),
+         "the fern_3view run wrote no checkpoint under its preset expname")
+    gin = os.path.join(tmp, "scan114_3.gin")
+    with open(gin, "w") as f:
+        f.write(SCAN114_GIN.format(
+            data_dir=os.path.join(os.path.dirname(dtu["dir"]), "Rectified")
+            + "/", mask_path=dtu["mask_path"],
+            ckpt=os.path.join(tmp, "dtu3_114")))
+    gcfg = configs.load_config(gin)
+    log(f"scan114_3.gin: backbone {gcfg.backbone}, datadir {gcfg.datadir}, "
+        f"expname {gcfg.expname}, total_iters {gcfg.total_iters}, "
+        f"N_rand {gcfg.N_rand} + {gcfg.n_patches}x{gcfg.patch_size}^2, "
+        f"random-pose rays {gcfg.batch_size_random}")
+    gate(gcfg.backbone == "mipnerf" and gcfg.expname == "dtu3_114"
+         and gcfg.datadir == os.path.normpath(dtu["dir"]),
+         "the gin file did not load onto the scan114 fixture")
+
+    def tv_engaged(stats):
+        tv = np.asarray(stats["patch_tv_losses"])
+        gate(tv.shape == (2,) and np.all(np.isfinite(tv)) and tv[-1] > 0,
+             f"the gin run's TV norm did not engage: {tv}")
+
+    cli_run("cli.train --config scan114_3.gin (mip, fp32, one-pass step, "
+            "TV norm)", ["--config", gin] + sets(["i_print=1"]),
+            {fmip.KERNEL: 4, fmip.BWD_KERNEL: 4, op.MIP_KERNEL: 2},
+            counted=mip, check=tv_engaged)
+    txt = os.path.join(tmp, "fern.txt")
+    with open(txt, "w") as f:
+        f.write(FERN_TXT.format(expname="fern_txt", basedir=tmp,
+                                datadir=fern["dir"], factor=FERN["factor"]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cli_run("cli.train --config fern.txt (fp32, one-pass step)",
+                ["--config", txt],
+                {v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 2})
+    named = [str(w.message) for w in caught if "llffhold" in str(w.message)]
+    log(f"fern.txt: llffhold skipped with a warning: {named[:1]}")
+    gate(bool(named), "fern.txt: llffhold was not skipped with a warning")
+
+    # 36c. ss_loss on fern through the train CLI.
+    fern_sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+        "dataset_type=llff", f"datadir={fern['dir']}",
+        f"factor={FERN['factor']}", "white_bkgd=false", "near=0.0",
+        "far=1.0", "train_view_num=3"] + run
+
+    def has_ss(stats):
+        gate("ss_loss" in stats and np.isfinite(float(stats["ss_loss"])),
+             "an ss_loss run reported no finite ss_loss")
+
+    for onepass in (True, False):
+        for pdf in (False, True):
+            step = "one-pass" if onepass else "two-call v2"
+            per_step = ({v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 4,
+                         pdf_merge.KERNEL: 3 * pdf} if onepass else
+                        {v2.KERNEL: 4, v2.BWD_KERNEL: 4,
+                         pdf_merge.KERNEL: 2 * pdf})
+            cli_run(f"cli.train fern ss_loss, {step} step, use_pdf_kernel "
+                    f"{pdf}", sets(fern_sets + [
+                        "ss_loss=true", f"use_onepass_train={onepass}",
+                        f"use_pdf_kernel={pdf}",
+                        f"expname=ss_{int(onepass)}{int(pdf)}"]),
+                    per_step, check=has_ss)
+
+    # 36d. Guards against the eager step at both gate values, the #3 dW
+    # repeat, and the step times with and without ss_loss.
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    for name, kw in (("one-pass", {}),
+                     ("one-pass, use_pdf_kernel", {"use_pdf_kernel": True}),
+                     ("two-call v2", {"use_onepass_train": False})):
+        g_cfg = configs.Config(**{**FLAGSHIP, "N_rand": GUARD_N_RAND,
+                                  "ss_loss": True, **kw})
+        g_state = loop.init_state(g_cfg, dev)
+        g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+        n = g_batch["rgb"].shape[0]
+        draws = step_lib.make_draws(g_cfg, n, step_lib.step_generator(
+            g_cfg.seed, 0, dev), dev)
+        kernel = loop.select_train_step(g_cfg, g_state.model)
+        eager = step_lib.build_vanilla_train_step(g_state.model, g_cfg)
+        for value in (True, False):
+            d = dict(draws, ss=dict(draws["ss"], gate=torch.tensor(
+                value, device=dev)))
+            (_, st_k), (_, st_e) = guard_steps(
+                f"ss_loss {name} step guard vs eager (gate {value}, N_rand "
+                f"{GUARD_N_RAND} + {n} reference rays, bf16)", kernel, eager,
+                g_state, g_batch, d)
+            ss_k, ss_e = float(st_k["ss_loss"]), float(st_e["ss_loss"])
+            log(f"  ss_loss kernel {ss_k:.6f} eager {ss_e:.6f}")
+            gate(abs(ss_k - ss_e) < STEP_LOSS_TOL * abs(ss_e),
+                 f"ss_loss {name} (gate {value}): the ss term disagrees")
+        if not kw:
+            # #3's dW of its four launches, twice from the same inputs.
+            dws, real = [], op.onepass_level
+
+            def spy(*a, **k):
+                out = real(*a, **k)
+                dws[-1].append([t.clone() for t in out[1]])
+                return out
+
+            op.onepass_level = spy
+            try:
+                for _ in range(2):
+                    dws.append([])
+                    kernel(copy.deepcopy(g_state), g_batch, d)
+            finally:
+                op.onepass_level = real
+            torch.cuda.synchronize()
+            same = len(dws[0]) == len(dws[1]) == 4 and all(
+                torch.equal(a, b) for x, y in zip(*dws) for a, b in zip(x, y))
+            log(f"ss_loss one-pass step, a repeat: #3's dW of its "
+                f"{len(dws[0])} launches {'bit-identical' if same else 'DIFFER'}")
+            gate(same, "ss_loss one-pass step: a repeat gave other dW bits")
+        del g_state
+        torch.cuda.empty_cache()
+    step_ms = {}
+    for name, kw in (("one-pass", {}),
+                     ("two-call v2", {"use_onepass_train": False})):
+        for ss in (False, True):
+            cfg = configs.Config(**{**FLAGSHIP, **kw, "ss_loss": ss})
+            t_state = loop.init_state(cfg, dev)
+            step_fn = loop.select_train_step(cfg, t_state.model)
+            batcher = VanillaBatcher(scene, cfg)
+            batches = [to_device(batcher.next_batch(), dev)
+                       for _ in range(4)]
+            n = batches[0]["rgb"].shape[0]
+            step_ms[name, ss] = bench_steps(
+                f"{name} step (flagship, {n} rays"
+                + (f", ss_loss on {n} reference rays)" if ss else ")"),
+                tag, step_fn, t_state, batches, n)
+            del t_state, batches
+            torch.cuda.empty_cache()
+        off, on = step_ms[name, False], step_ms[name, True]
+        log(f"{tag} {name} step with ss_loss: {off:.2f} -> {on:.2f} ms/step "
+            f"(+{on - off:.2f} ms, x{on / off:.3f})")
+
+    # 36e. The softmask PNGs (under a working directory of their own),
+    # canny and sobel masks of fern, each trained through the CLI.
+    soft_cwd = os.path.join(tmp, "softmask_cwd")
+    sdir = os.path.join(soft_cwd, "Softmask", "llff",
+                        os.path.basename(os.path.normpath(fern["dir"])),
+                        "iter_500")
+    os.makedirs(sdir)
+    h, w = FERN["hw"]
+    yy, xx = np.mgrid[:h, :w]
+    rng = np.random.RandomState(5)
+    for i in FERN_SPLITS[0]:
+        blob = ((yy - rng.uniform(0.3, 0.7) * h) ** 2
+                + (xx - rng.uniform(0.3, 0.7) * w) ** 2) < (0.3 * h) ** 2
+        images.write_png(os.path.join(sdir, f"softmask_{i:04d}_30per.png"),
+                         (blob * rng.randint(1, 256, (h, w))).astype(
+                             np.uint8))
+    cwd = os.getcwd()
+    mask_sets = [s_ for s_ in fern_sets if not s_.startswith("basedir=")]
+    for flag in ("softmask", "use_canny_edge_detection",
+                 "use_sobel_edge_detection"):
+        cfg = configs.load_config(None, mask_sets + [
+            f"{flag}=true", f"basedir={tmp}", f"expname=load_{flag}"])
+        if flag == "softmask":
+            os.chdir(soft_cwd)
+        try:
+            t0 = time.perf_counter()
+            sc = load_scene(cfg, device=dev)
+            dt = time.perf_counter() - t0
+            train = [int(i) for i in sc.i_train]
+            rest = [i for i in range(len(sc.images)) if i not in train]
+            share = float(sc.masks[train].mean())
+            ok = (all(sc.masks[i].any() for i in train)
+                  and not sc.masks[rest].any())
+            log(f"fern {flag}: masks attached in {dt:.2f} s (host), "
+                f"{share:.4f} of the train views' pixels {train} set, the "
+                f"other {len(rest)} views {'empty' if ok else 'NOT empty'}")
+            gate(ok, f"fern {flag}: the masks are empty on a train view or "
+                 "set elsewhere")
+            cli_run(f"cli.train fern {flag} (one-pass step)",
+                    sets(mask_sets + [f"{flag}=true", f"basedir={tmp}",
+                                      f"expname=mask_{flag}"]),
+                    {v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 2})
+        finally:
+            os.chdir(cwd)
+    return {"launches": launches, "step_ms": step_ms}
 
 if __name__ == "__main__":
     try:

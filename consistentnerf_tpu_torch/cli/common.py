@@ -4,22 +4,22 @@ fused-path defaults, the experiment directory."""
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import json
 import os
 import warnings
 
 import torch
 
 from consistentnerf_tpu_torch.configs import (Config, config_file_keys,
-                                              load_config)
+                                              load_config, parse_overrides)
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", type=str, default=None,
-                   help="config file (JSON)")
+                   help="config file: JSON, or a reference experiment "
+                        "file (.gin from the RegNeRF grid, .txt from the "
+                        "nerf-pytorch config_parser)")
     p.add_argument(
         "--set",
         dest="overrides",
@@ -28,18 +28,52 @@ def make_parser(description: str) -> argparse.ArgumentParser:
         metavar="KEY=VALUE",
         help="config override (repeatable), e.g. --set N_samples=32",
     )
+    p.add_argument("--scene", type=str, default=None,
+                   help="named scene preset from configs.scenes (--config "
+                        "is then ignored)")
+    p.add_argument("--list-scenes", action="store_true",
+                   help="list scene presets and exit")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     return p
 
 
 def resolve_config(args) -> Config:
-    return load_config(args.config, args.overrides)
+    """The run's config, as the JAX package resolves it: `--list-scenes`
+    prints the presets and exits; `--scene` takes a preset and then the
+    `--set` overrides (a `--config` beside it is ignored); otherwise the
+    config file, then the overrides. Multi-process fields raise
+    (ROADMAP Queue 1: multi-GPU)."""
+    if getattr(args, "list_scenes", False):
+        from consistentnerf_tpu_torch.configs import scenes
+
+        for name in scenes.list_scenes():
+            print(name)
+        raise SystemExit(0)
+    if getattr(args, "scene", None):
+        from consistentnerf_tpu_torch.configs import scenes
+
+        cfg = parse_overrides(scenes.get_scene_config(args.scene),
+                              args.overrides)
+    else:
+        cfg = load_config(args.config, args.overrides)
+    multi = {k: getattr(cfg, k) for k in ("coordinator_address",
+                                          "num_processes", "process_id")
+             if getattr(cfg, k) is not None}
+    if multi:
+        raise NotImplementedError(
+            f"multi-process runs ({multi}) are not ported yet (ROADMAP "
+            "Queue 1: multi-GPU)")
+    return cfg
 
 
 def explicit_keys(args) -> set:
-    """Config keys the user set via --set or a config file."""
-    explicit = {o.split("=")[0].strip() for o in args.overrides}
+    """Config keys the user set via --set or a config file (a reference
+    file's seeded defaults count as set). A scene preset's values are
+    recipe defaults, not the user's intent, so they are not counted: a
+    preset value can be reconciled, an explicit one is always kept."""
+    explicit = {o.split("=")[0].strip()
+                for o in getattr(args, "overrides", [])}
     if getattr(args, "config", None):
         explicit |= config_file_keys(args.config)
     return explicit
@@ -143,6 +177,5 @@ def setup_experiment_dir(cfg: Config) -> str:
     reference dumps args.txt + config.txt, run_nerf_view.py:977-989)."""
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    cfg.save(os.path.join(exp_dir, "config.json"))
     return exp_dir

@@ -1,17 +1,20 @@
-"""The port's config: the fields of `consistentnerf_tpu.configs.Config`
-that the ported slice reads, with the same names and defaults.
+"""The port's config: the fields of `consistentnerf_tpu.configs.Config`,
+with the same names and defaults.
 
-Configs load from JSON files and accept `key=value` override strings
-(`parse_overrides`). The named scene presets and the reference's
-`.gin` / `.txt` experiment files are not ported yet (ROADMAP Queue 1:
-configs).
+Configs load from JSON files, from the reference's experiment files
+(`.gin` of the RegNeRF grid, `.txt` of the nerf-pytorch config_parser;
+`configs/legacy.py`) and from the named presets (`configs/scenes.py`),
+and accept `key=value` override strings (`parse_overrides`). The JAX
+package's `llffhold` is left out, since neither package reads it: a file
+or an override that names it is skipped with a warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Optional, Sequence
+import warnings
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -65,13 +68,25 @@ class Config:
     # --- vanilla model -----------------------------------------------------
     netdepth: int = 8
     netwidth: int = 256
+    # The reference's fine-network and embedder flags; neither package
+    # reads them (both levels take netdepth / netwidth).
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
     N_samples: int = 64
     N_importance: int = 128
     perturb: float = 1.0
     use_viewdirs: bool = True
     multires: int = 10
     multires_views: int = 4
+    i_embed: int = 0
     raw_noise_std: float = 0.0  # not ported (ROADMAP Queue 1: raw noise)
+    stable_init: bool = False  # read by neither package
+    # TPU knobs of the JAX package that do not change the numbers: the
+    # MLP's activation remat and the v2 forward kernel's tile and
+    # interleaved streams. Accepted; the CUDA kernels choose their own.
+    remat_mlp: bool = False
+    fused_fwd_tile: int = 0
+    fused_fwd_streams: int = 1
     use_fused_render: bool = False  # fused-MLP kernel for rendering
     use_fused_train: bool = False  # kernel train step
     # A TPU lane tile of the JAX package, kept so its config files load;
@@ -118,8 +133,22 @@ class Config:
     hardmask: bool = False
     hardmask_coef: float = 0.2
     occlusion_threshold: float = 0.1  # reprojection |depth diff| threshold
-    # The softmask PNGs and the edge masks are not ported yet (ROADMAP
-    # Queue 1: consistency); load_scene raises for them.
+    # The depth-prior producers (`--bootstrap-priors`); not ported yet
+    # (ROADMAP Queue 1: depth-prior producers), the fields load.
+    bootstrap_fuse_priors: bool = True
+    bootstrap_fuse_min_consensus: int = 1
+    bootstrap_mode: str = "warmup"  # 'warmup' | 'mvs'
+    mvs_num_depths: int = 32
+    mvs_base_ch: int = 8
+    mvs_n_src: int = 2
+    mvs_lr: float = 1e-3
+    mvs_conf_thresh: float = 0.25
+    mvs_photo_weight: float = 1.0
+    mvs_smooth_weight: float = 0.05
+    mvs_supervise_gt: bool = True
+    # Masks of the train views (data/loaders.py::attach_masks, in this
+    # order of precedence): canny edges, sobel edges, the precomputed
+    # Softmask PNGs (`softmask_K` per cent), the reprojection hard masks.
     softmask: bool = False
     softmask_K: int = 30
     use_canny_edge_detection: bool = False
@@ -130,7 +159,10 @@ class Config:
     with_depth_norm: bool = False
     use_test_pseudo_label: bool = False
     use_noise: bool = False
-    ss_loss: bool = False  # not ported (ROADMAP Queue 1: consistency)
+    # The online reprojection loss on a reference view's rays
+    # (consistency/online.py; run_nerf_view_test.py).
+    ss_loss: bool = False
+    ss_loss_mult: float = 1.0
     temp_start: float = 1.0
     temp_end: float = 1.0
     mono_depth_loss_mult: float = 0.001
@@ -185,14 +217,32 @@ class Config:
 
     # --- logging / checkpointing -------------------------------------------
     i_print: int = 100
+    # The reference's logging intervals; neither package reads them.
+    i_img: int = 500
+    i_weights: int = 10000
+    i_testset: int = 50000
+    i_video: int = 50000
     checkpoint_every: int = 10000
     checkpoint_keep: int = 100
+    # The JAX loop's housekeeping, not ported yet (ROADMAP Queue 1: train
+    # loop): train() says it skips them and trains on.
+    train_render_every: int = 0
+    use_tensorboard: bool = True
+    profile_steps: int = 0
+    profile_dir: Optional[str] = None
+    gc_every: int = 10000
 
     # --- rendering ---------------------------------------------------------
     render_chunk_size: int = 8192
     render_factor: int = 0
+    # The reference's render flags; the render CLI takes --render-test.
+    render_only: bool = False
+    render_test: bool = False
+    render_path_frames: int = 120
+    num_showcase_images: int = 5
 
     # --- evaluation --------------------------------------------------------
+    eval_only_once: bool = True
     eval_save_output: bool = True
     eval_render_interval: int = 1
     eval_disable_lpips: bool = False
@@ -201,11 +251,38 @@ class Config:
     eval_views_per_call: int = 0
     dtu_no_mask_eval: bool = False
 
+    # --- parallelism -------------------------------------------------------
+    # Multi-device and multi-process runs (ROADMAP Queue 1: multi-GPU):
+    # the port raises where the JAX package reads them set.
+    mesh_shape: Optional[Sequence[int]] = None
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
 
 _FIELDS = {f.name: f for f in dataclasses.fields(Config)}
+# Fields of the JAX Config that nothing reads, left out of the port's:
+# a file or an override naming one is skipped with a warning.
+UNREAD = frozenset({"llffhold"})
+
+
+def skip_unread(updates: dict, source: str) -> dict:
+    """`updates` without the UNREAD fields, warning for each it names."""
+    for name in sorted(UNREAD & set(updates)):
+        warnings.warn(f"{source}: skipping {name!r}, which nothing reads",
+                      stacklevel=3)
+    return {k: v for k, v in updates.items() if k not in UNREAD}
 
 
 def _coerce(name: str, value: str) -> Any:
@@ -233,8 +310,9 @@ def parse_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
         if "=" not in item:
             raise ValueError(f"Override {item!r} must look like key=value")
         k, v = item.split("=", 1)
-        updates[k.strip()] = _coerce(k.strip(), v.strip())
-    return cfg.replace(**updates)
+        k = k.strip()
+        updates[k] = v if k in UNREAD else _coerce(k, v.strip())
+    return cfg.replace(**skip_unread(updates, "--set"))
 
 
 def load_config(
@@ -243,22 +321,28 @@ def load_config(
     cfg = Config()
     if path:
         if path.endswith((".gin", ".txt")):
-            raise NotImplementedError(
-                "reference experiment files are not ported yet "
-                "(ROADMAP Queue 1: configs)"
-            )
-        with open(path) as f:
-            data = json.load(f)
-        unknown = set(data) - set(_FIELDS)
-        if unknown:
-            raise KeyError(
-                f"Unknown config fields in {path}: {sorted(unknown)}"
-            )
-        cfg = cfg.replace(**data)
+            # Reference experiment files (RegNeRF gin grid /
+            # nerf-pytorch configargparse) load directly.
+            from consistentnerf_tpu_torch.configs import legacy
+
+            cfg = legacy.load_reference_config(path)
+        else:
+            with open(path) as f:
+                data = skip_unread(json.load(f), path)
+            unknown = set(data) - set(_FIELDS)
+            if unknown:
+                raise KeyError(
+                    f"Unknown config fields in {path}: {sorted(unknown)}"
+                )
+            cfg = cfg.replace(**data)
     return parse_overrides(cfg, overrides)
 
 
 def config_file_keys(path: str) -> set:
-    """Field names a JSON config file sets explicitly."""
+    """Field names a config file sets explicitly (any supported format)."""
+    if path.endswith((".gin", ".txt")):
+        from consistentnerf_tpu_torch.configs import legacy
+
+        return legacy.reference_config_keys(path)
     with open(path) as f:
         return set(json.load(f))

@@ -132,22 +132,38 @@ def load_linemod(datadir: str, half_res: bool = False,
 def attach_masks(scene: SceneData, cfg, cache_dir=None,
                  device="cuda") -> SceneData:
     """Attach the configured consistency masks (the JAX package's
-    `data/loaders.py::attach_masks`).
+    `data/loaders.py::attach_masks`), the first that applies of:
 
+    canny / sobel: edge masks of the train views
+    (`consistency/masks.py`, cv2's arithmetic in numpy); softmask: the
+    precomputed Softmask PNGs (run_nerf_view.py:1047-1054), read from
+    `Softmask/{dataset_type}/{scene}/iter_500/` under the working
+    directory, nonzero pixels kept, zeros where a train view has none;
     hardmask: the reprojection masks of `consistency/reproject.py`,
     computed on `device` and cached as .npy under `cache_dir`, keyed on
     the train split and the scene shape. Otherwise the scene's own masks
-    (all-ones where it has none). The softmask PNGs and the canny / sobel
-    edge masks are not ported yet and raise rather than train on other
-    masks."""
+    (all-ones where it has none)."""
+    from consistentnerf_tpu_torch.consistency import masks as masks_mod
+
     scene.ensure_priors()
-    for flag in ("use_canny_edge_detection", "use_sobel_edge_detection",
-                 "softmask"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=true: the softmask and edge-mask branches of "
-                "attach_masks are not ported yet (ROADMAP Queue 1: "
-                "consistency)")
+    if cfg.use_canny_edge_detection:
+        scene.masks = masks_mod.canny_masks(
+            scene.images, scene.i_train).astype(np.float32)
+        return scene
+    if cfg.use_sobel_edge_detection:
+        scene.masks = masks_mod.sobel_masks(
+            scene.images, scene.i_train).astype(np.float32)
+        return scene
+    if cfg.softmask:
+        scene_name = os.path.basename(os.path.normpath(cfg.datadir))
+        out = np.zeros(scene.images.shape[:3], np.float32)
+        for i in scene.i_train:
+            fname = (f"Softmask/{cfg.dataset_type}/{scene_name}/iter_500/"
+                     f"softmask_{i:04d}_{cfg.softmask_K}per.png")
+            if os.path.isfile(fname):
+                out[i] = images_lib.imread(fname).astype(np.float32) / 255.0
+        scene.masks = (out > 0).astype(np.float32)
+        return scene
     if not cfg.hardmask:
         return scene
     cache = None

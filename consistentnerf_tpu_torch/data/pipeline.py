@@ -108,10 +108,6 @@ class VanillaBatcher:
     def next_batch(self) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         scene = self.scene
-        if cfg.ss_loss:
-            raise NotImplementedError(
-                "ss_loss batches (reference views) are not ported yet "
-                "(ROADMAP Queue 1: consistency)")
         # Pseudo-label branch (run_nerf_view.py:1520-1571): with p=0.1
         # draw rays from a non-train view restricted to masked pixels,
         # and downweight its losses x0.1.
@@ -156,6 +152,14 @@ class VanillaBatcher:
             "mono_disp": scene.mono_disp[img_i][r, c],
         }
         batch["loss_scale"] = np.float32(0.1 if pseudo else 1.0)
+        if cfg.ss_loss:
+            # The online reprojection loss's reference view, drawn after
+            # every other draw of the batch (the JAX package's order).
+            ref_i = int(self.rng.choice(scene.i_train))
+            batch["ref_image"] = scene.images[ref_i].astype(np.float32)
+            batch["ref_depth"] = scene.depths[ref_i].astype(np.float32)
+            batch["ref_pose"] = scene.poses[ref_i][:3, :4].astype(np.float32)
+            batch["K"] = np.asarray(scene.K, np.float32)
         self.step += 1
         return batch
 

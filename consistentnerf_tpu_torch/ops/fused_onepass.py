@@ -22,9 +22,14 @@ SSIM) are patch-global, so the first n_patches*patch_size^2 rays take the
 differentiable fused MLP (`fused_mlp_v2.fused_mlp_v2_train_T`) and
 autograd, and their weight grads are summed with the kernel's.
 
+With `ss_loss` (`consistency/online.py`) the vanilla step also runs the
+reference rays (all N of them) through a coarse and a fine launch of the
+level kernel, with the masked-MSE coefficient rows of the ss term, and
+the gate of the main RGB loss swaps the fine level's rgb coefficient
+rows; their weight grads join the main levels'.
+
 Not ported here: the multi-device `_shard_onepass` (ROADMAP Queue 1:
-multi-GPU) and the `ss_loss` branch (ROADMAP Queue 1: consistency), which
-raises.
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -409,8 +414,9 @@ def onepass_supported(cfg) -> bool:
     `train/loop.py::select_train_step` sends it to the two-call step. The
     lane limits on multires are the TPU kernel's; the CUDA kernel could
     run past them, but a config must pick the counterpart step in both
-    packages. (The step itself still raises for ss_loss: ROADMAP Queue 1,
-    consistency.)"""
+    packages. The ss_loss term is supported: its consistency weight is a
+    function of the batch alone, so its gate swaps coefficient rows and
+    its reference rays take their own pair of level launches."""
     return (cfg.backbone == "vanilla" and cfg.use_viewdirs
             and cfg.N_importance > 0 and not cfg.softLpmask
             and 3 * cfg.multires <= 60 and 3 * cfg.multires_views <= 60)
@@ -436,7 +442,10 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
     on the non-patch rays and the differentiable fused MLP on the patch
     rays. Loss semantics of `train.losses.vanilla_losses`
     (run_nerf_view.py:1645-1906); the stats are computed by it on the
-    assembled outputs. `state` is updated in place."""
+    assembled outputs, and with ss_loss assembled again through
+    `step_lib.apply_ss_loss`. `state` is updated in place."""
+    from consistentnerf_tpu_torch.consistency import online
+
     step_lib.check_supported(cfg)
     if not onepass_supported(cfg):
         raise ValueError(
@@ -508,6 +517,23 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
             tgt_f = tgt_c = target
             pri_f = pri_c = prior_eff
 
+        # ss_loss (run_nerf_view_test.py:944-967): the consistency weight
+        # is a function of the batch alone, so the gate swaps the fine
+        # level's rgb coefficient rows for the masked-MSE ones, and the
+        # reference rays get their own level launches below.
+        ss_on = step_lib.has_ss(cfg, batch)
+        coeff_rgb_f = coeff_rgb
+        if ss_on:
+            ss_draws = draws["ss"]
+            ref = online.batch_ref_rays(batch, cfg)
+            w_ss = ref["weight"]
+            s1 = w_ss.sum()
+            gated_coeff = torch.where(
+                3.0 * s1 > 0, 2.0 * w_ss / torch.clamp(3.0 * s1, min=1.0),
+                zero)
+            coeff_rgb_f = torch.where(ss_draws["gate"], ls * gated_coeff,
+                                      coeff_rgb)
+
         z_c = sampling.vanilla_z_vals(rays.near, rays.far, s_c, cfg.lindisp,
                                       t_rand)
         dnorm = torch.linalg.norm(rays.directions, dim=-1)
@@ -524,21 +550,23 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
             src_f = [w.detach() for w in flat_f]
 
         # ---- one-pass kernel: rays [p:] ----
-        def mega(src, z_sub, tgt, pri):
-            pts, views = _pts_views(o_T[:, p:], d_T[:, p:], v_T[:, p:],
-                                    z_sub)
+        def level(src, rays_T, z_sub, dn, crgb, tgt, cd, pri):
+            pts, views = _pts_views(*rays_T, z_sub)
             return onepass_level(
-                src, pts, views, z_sub.contiguous(), dnorm[p:],
-                coeff_rgb[p:], tgt[p:], coeff_d[p:], pri[p:],
+                src, pts, views, z_sub.contiguous(), dn, crgb, tgt, cd, pri,
                 white_bkgd=cfg.white_bkgd, compute_dtype=cdt, **mlp_kw)
 
+        def mega(src, z_sub, crgb, tgt, pri):
+            return level(src, (o_T[:, p:], d_T[:, p:], v_T[:, p:]), z_sub,
+                         dnorm[p:], crgb[p:], tgt[p:], coeff_d[p:], pri[p:])
+
         with torch.no_grad():
-            out_c, dw_c = mega(src_c, z_c[p:], tgt_c, pri_c)
+            out_c, dw_c = mega(src_c, z_c[p:], coeff_rgb, tgt_c, pri_c)
             z_f_r = pdf_merge.fine_z_vals(
                 z_c[p:], out_c[5].reshape(n - p, s_c), s_i,
                 u=None if det else u[p:], det=det,
                 use_kernel=cfg.use_pdf_kernel)
-            out_f, dw_f = mega(src_f, z_f_r, tgt_f, pri_f)
+            out_f, dw_f = mega(src_f, z_f_r, coeff_rgb_f, tgt_f, pri_f)
 
         def maps(out_rows, seg):
             per_ray = out_rows[:, ::seg]
@@ -546,6 +574,43 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
 
         rgb_r, depth_r, _ = maps(out_f, s_f)
         rgb0_r, depth0_r, _ = maps(out_c, s_c)
+
+        # ---- ss_loss: the reference rays, all n, one launch a level ----
+        ref_outputs = None
+        if ss_on:
+            with torch.no_grad():
+                d_ref = ref["directions"]
+                dn_ref = torch.linalg.norm(d_ref, dim=-1)
+                v_ref = d_ref / torch.clamp(dn_ref[:, None], min=1e-12)
+                ref_T = (ref["origins"].T.contiguous(), d_ref.T.contiguous(),
+                         v_ref.T.contiguous())
+                mult = cfg.ss_loss_mult
+                cr_ref = mult * gated_coeff  # the masked-MSE rgb rows
+                if cfg.with_depth_loss:
+                    cd_ref = mult * torch.where(
+                        s1 > 0, 2.0 * w_ss / torch.clamp(s1, min=1.0), zero)
+                    pri_ref = ref["depth_target"]
+                else:
+                    cd_ref, pri_ref = zero, zero
+                tgt_ref = ref["rgb_target"]
+                ones_r = torch.ones((n, 1), device=dev)
+                z_c_ref = sampling.vanilla_z_vals(
+                    ones_r * cfg.near, ones_r * cfg.far, s_c, cfg.lindisp,
+                    ss_draws.get("t_rand"))
+                out_rc, dw_rc = level(src_c, ref_T, z_c_ref, dn_ref, cr_ref,
+                                      tgt_ref, cd_ref, pri_ref)
+                z_f_ref = pdf_merge.fine_z_vals(
+                    z_c_ref, out_rc[5].reshape(n, s_c), s_i,
+                    u=None if det else ss_draws["u"], det=det,
+                    use_kernel=cfg.use_pdf_kernel)
+                out_rf, dw_rf = level(src_f, ref_T, z_f_ref, dn_ref, cr_ref,
+                                      tgt_ref, cd_ref, pri_ref)
+            dw_c = [a + b for a, b in zip(dw_c, dw_rc)]
+            dw_f = [a + b for a, b in zip(dw_f, dw_rf)]
+            rgb_rf, depth_rf, _ = maps(out_rf, s_f)
+            rgb_rc, depth_rc, _ = maps(out_rc, s_c)
+            ref_outputs = {"rgb": rgb_rf, "depth": depth_rf,
+                           "rgb0": rgb_rc, "depth0": depth_rc}
 
         # ---- patch rays [:p]: differentiable fused MLP + autograd ----
         opt.zero_grad()
@@ -567,14 +632,14 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                 use_kernel=cfg.use_pdf_kernel)
             rgb, _, _, _, depth = level(flat_f, src_f, z_all)
 
-            def share(rgb_l, depth_l, tgt, pri):
-                return (torch.sum(coeff_rgb[:p, None] / 2.0
+            def share(rgb_l, depth_l, crgb, tgt, pri):
+                return (torch.sum(crgb[:p, None] / 2.0
                                   * (rgb_l - tgt[:p]) ** 2)
                         + torch.sum(coeff_d[:p] / 2.0
                                     * (depth_l - pri[:p]) ** 2))
 
-            loss = (share(rgb, depth, tgt_f, pri_f)
-                    + share(rgb0, depth0, tgt_c, pri_c))
+            loss = (share(rgb, depth, coeff_rgb_f, tgt_f, pri_f)
+                    + share(rgb0, depth0, coeff_rgb, tgt_c, pri_c))
             batch_p = {"rgb": target[:p], "mono_disp": batch["mono_disp"][:p]}
             for rgb_l, depth_l, nk in ((rgb, depth, ""), (rgb0, depth0, "0")):
                 if noise is not None:
@@ -604,8 +669,13 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                        "rgb0": rgb0_full, "depth0": depth0_full}
             if noise is not None:
                 outputs = step_lib.apply_output_noise(outputs, cfg, noise)
-            _, stats = losses_lib.vanilla_losses(outputs, batch, cfg, far,
-                                                 1.0, lpips_params)
+            loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg,
+                                                    far, 1.0, lpips_params)
+            if ss_on:
+                # The gated loss and stats through apply_ss_loss itself;
+                # its "forward" returns the reference levels' maps.
+                step_lib.apply_ss_loss(lambda _rays, _d: ref_outputs, batch,
+                                       cfg, outputs, loss, stats, ss_draws)
         return state, step_lib.finish_step(state, stats, cfg)
 
     return train_step

@@ -140,8 +140,9 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
     vanilla ConsistentNeRF loss (`train.losses.vanilla_losses`, softLpmask
     included) on `fused_vanilla_forward`'s outputs, autograd through the
     fused ops' backward kernels, output noise with `use_noise`, then the
-    optimizer chain and `finish_step`'s stats. `state` is updated in
-    place."""
+    optimizer chain and `finish_step`'s stats; with ss_loss the reference
+    rays go through the same forward (`step_lib.apply_ss_loss`). `state`
+    is updated in place."""
     step_lib.check_supported(cfg)
     vanilla_op(cfg.fused_kernel)
     cdt = fm.as_dtype(cfg.compute_dtype)
@@ -172,6 +173,15 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
                                                   draws["noise"])
         loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg, cfg.far,
                                                 temp, lpips_params)
+        if step_lib.has_ss(cfg, batch):
+            # The reference rays through the step's own differentiable
+            # forward: its forward and weight-grad kernels.
+            def apply_fn(rays_, d):
+                return fused_vanilla_forward(params, d, rays_, cfg, packed)
+
+            loss, stats = step_lib.apply_ss_loss(apply_fn, batch, cfg,
+                                                 outputs, loss, stats,
+                                                 draws["ss"])
         loss.backward()
         return state, step_lib.finish_step(state, stats, cfg)
 

@@ -2,8 +2,9 @@
 logging and checkpoints. Throughput is logged as rays/sec like the
 reference (`train.py:416-419`).
 
-Not ported yet: the threaded prefetch, TensorBoard, the profiler hook and
-the periodic held-out render (ROADMAP Queue 1: train loop).
+Not ported yet: the threaded prefetch, TensorBoard, the profiler hook,
+`gc_every` and the periodic held-out render (ROADMAP Queue 1: train
+loop); `train()` names the fields it skips and trains on.
 """
 
 from __future__ import annotations
@@ -100,9 +101,14 @@ def select_train_step(cfg, model, lpips_params=None):
 
 
 def _select_mip_train_step(cfg, model):
-    """The mip branch of the dispatch (loop.py:92-110)."""
+    """The mip branch of the dispatch (loop.py:92-110). No mip step reads
+    ss_loss, in either package: it warns and trains without it."""
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
 
+    if cfg.ss_loss:
+        warnings.warn("ss_loss=true: the mip backbone's steps do not read "
+                      "it (as in the JAX package); training without it",
+                      stacklevel=3)
     if not cfg.use_fused_train:
         return step_lib.build_mip_train_step(model, cfg)
     if not cfg.disable_normals:
@@ -115,6 +121,17 @@ def _select_mip_train_step(cfg, model):
     return fused_train.build_fused_mip_train_step(cfg)
 
 
+def skipped_housekeeping(cfg) -> dict:
+    """The JAX loop's housekeeping that this loop does not run yet
+    (ROADMAP Queue 1: train loop), as {field: value} where cfg turns it
+    on."""
+    on = {"use_tensorboard": cfg.use_tensorboard,
+          "gc_every": cfg.gc_every > 0,
+          "profile_steps": cfg.profile_steps > 0,
+          "train_render_every": cfg.train_render_every > 0}
+    return {k: getattr(cfg, k) for k, v in on.items() if v}
+
+
 def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
           device="cuda", random_poses=None,
           log_fn: Callable[[str], None] = print) -> TrainResult:
@@ -122,6 +139,14 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
     `random_poses` [P, 3, 4]: the mip batcher's random-pose rays."""
     num_steps = num_steps or cfg.total_iters
     device = torch.device(device)
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError(
+            f"mesh_shape={cfg.mesh_shape}: multi-device runs are not ported "
+            "yet (ROADMAP Queue 1: multi-GPU)")
+    skipped = skipped_housekeeping(cfg)
+    if skipped:
+        log_fn("not ported yet (ROADMAP Queue 1: train loop), skipped: "
+               + ", ".join(f"{k}={v}" for k, v in skipped.items()))
     if cfg.lpips_weights_path:
         # The JAX loop turns the term on when the file exists (calibrated
         # weights) and warns and skips it when it does not.

@@ -6,11 +6,13 @@ twins the kernel steps (`ops/fused_onepass.py`) are held against.
 Random draws are tensors. Vanilla (`make_draws`): `t_rand`
 [N, N_samples] jitters the coarse depths, `u` [N, N_importance] drives
 the fine inverse CDF (ascending order statistics with `use_pdf_kernel`,
-which kernel #8 needs; the fine depths are the same set in distribution)
-and `noise` holds the standard normals of `use_noise`. Mip (`make_mip_draws`, when `randomized`): `t_rand`
-[N, S+1] jitters the first level's fenceposts, `jitter[l]` drives level
-l's resampling and `noise[l]` [N, S] holds the density noise's standard
-normals; `random` holds the same draws for the random-pose rays of the
+which kernel #8 needs; the fine depths are the same set in distribution),
+`noise` holds the standard normals of `use_noise`, and with `ss_loss`
+`ss` holds the gate of the main RGB loss and the reference rays'
+`t_rand` / `u` (`apply_ss_loss`). Mip (`make_mip_draws`, when
+`randomized`): `t_rand` [N, S+1] jitters the first level's fenceposts,
+`jitter[l]` drives level l's resampling and `noise[l]` [N, S] holds the
+density noise's standard normals; `random` holds the same draws for the random-pose rays of the
 TV norm (`make_mip_step_draws`). A step makes them from
 `step_generator(cfg.seed, step)` unless the caller passes its own, so a
 resumed run draws what an uninterrupted one would.
@@ -52,10 +54,10 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
-def make_draws(cfg, n: int, generator: torch.Generator,
-               device) -> Dict[str, object]:
-    """One step's random draws for n rays."""
-    draws: Dict[str, object] = {}
+def _level_draws(cfg, n: int, generator: torch.Generator,
+                 device) -> Dict[str, torch.Tensor]:
+    """The sampling draws of n rays' two levels (none at perturb 0)."""
+    draws: Dict[str, torch.Tensor] = {}
     if cfg.perturb > 0:
         draws["t_rand"] = torch.rand((n, cfg.N_samples),
                                      generator=generator, device=device)
@@ -66,11 +68,24 @@ def make_draws(cfg, n: int, generator: torch.Generator,
         elif cfg.N_importance > 0:
             draws["u"] = torch.rand((n, cfg.N_importance),
                                     generator=generator, device=device)
+    return draws
+
+
+def make_draws(cfg, n: int, generator: torch.Generator,
+               device) -> Dict[str, object]:
+    """One step's random draws for n rays. With `ss_loss`, after the
+    others: `ss` = {'gate': the bool that gates the main RGB loss, and
+    the reference rays' `t_rand` / `u`}."""
+    draws: Dict[str, object] = _level_draws(cfg, n, generator, device)
     if cfg.use_noise:
         draws["noise"] = {
             k: torch.randn(shape, generator=generator, device=device)
             for k, shape in (("rgb", (n, 3)), ("depth", (n,)),
                              ("rgb0", (n, 3)), ("depth0", (n,)))}
+    if cfg.ss_loss:
+        gate = torch.rand((), generator=generator, device=device) < 0.5
+        draws["ss"] = {"gate": gate,
+                       **_level_draws(cfg, n, generator, device)}
     return draws
 
 
@@ -149,16 +164,40 @@ def apply_output_noise(outputs, cfg, noise: Dict[str, torch.Tensor]):
     return outputs
 
 
-def apply_ss_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "the online-reprojection ss_loss is not ported yet (ROADMAP Queue 1: "
-        "consistency)")
+def has_ss(cfg, batch) -> bool:
+    """Whether a vanilla step adds the ss_loss term: on, and the batch
+    carries a reference view (the `use_batching` batches do not)."""
+    return bool(cfg.ss_loss) and "ref_image" in batch
+
+
+def apply_ss_loss(apply_fn, batch, cfg, outputs, loss, stats,
+                  ss_draws: Dict):
+    """Fold the online-reprojection ss_loss term into (loss, stats)
+    (the JAX package's `apply_ss_loss`, run_nerf_view_test.py:944-967).
+
+    `apply_fn(rays, draws)` renders the reference rays (the eager model,
+    or a kernel step's differentiable forward) with `ss_draws`' `t_rand`
+    / `u`. `ss_draws['gate']` (the reference's random.randint(0, 1))
+    swaps the fine RGB term for its consistency-masked variant; the
+    coarse term is not gated."""
+    from consistentnerf_tpu_torch.consistency import online
+
+    ss, aux = online.online_reprojection_loss(apply_fn, batch, cfg,
+                                              ss_draws)
+    gated = mask_mod.masked_mse(outputs["rgb"], batch["rgb"],
+                                aux["consistency_weight"])
+    scale = batch.get("loss_scale", 1.0)
+    loss = (loss - scale * stats["img_loss"]
+            + scale * torch.where(ss_draws["gate"], gated,
+                                  stats["img_loss"])
+            + cfg.ss_loss_mult * ss)
+    stats["ss_loss"] = ss
+    stats["loss"] = loss
+    return loss, stats
 
 
 def check_supported(cfg) -> None:
     """Options of the vanilla step that this package does not run yet."""
-    if cfg.ss_loss:
-        apply_ss_loss()
     if cfg.raw_noise_std > 0:
         raise NotImplementedError(
             "raw_noise_std > 0 is not ported yet (ROADMAP Queue 1: raw "
@@ -202,6 +241,13 @@ def build_vanilla_train_step(model, cfg,
             outputs = apply_output_noise(outputs, cfg, draws["noise"])
         loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg, cfg.far,
                                                 temp, lpips_params)
+        if has_ss(cfg, batch):
+            def apply_fn(rays_, d):
+                return state.model(rays_, t_rand=d.get("t_rand"),
+                                   u=d.get("u"))
+
+            loss, stats = apply_ss_loss(apply_fn, batch, cfg, outputs, loss,
+                                        stats, draws["ss"])
         loss.backward()
         return state, finish_step(state, stats, cfg)
 

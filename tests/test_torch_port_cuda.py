@@ -8,8 +8,10 @@ card against the CPU, the bf16 Hopper walk of #1 and #6
 (`csrc/fwd_hopper.cuh`): its plans, ragged sizes and widths, repeats and
 the alignment its weight loads need, and #2, #7, #11 and #14 on the
 level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
-bit for bit against #2 and #14 against #11 on the same points, and the
-evaluation's metric suite and `evaluate()` on the card against the CPU.
+bit for bit against #2 and #14 against #11 on the same points, the
+evaluation's metric suite and `evaluate()` on the card against the CPU,
+and the one-pass step with ss_loss (#3 on the reference rays) against
+its packed walk and the eager step.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -1510,3 +1512,73 @@ def test_evaluate_turns_tf32_off_on_the_card(cuda_device):
     for k in ("lpips", "avg_err"):
         assert abs(got[k] - want[k]) <= EVAL_LPIPS_TOL * max(
             abs(want[k]), 1e-6), (k, got[k], want[k])
+
+
+# --- ss_loss on the one-pass step (the reference rays' levels) -----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_onepass_ss_loss_step_matches_plain_path(cuda_device, dtype, gate):
+    """The one-pass step with ss_loss on the card (8x256, 64 + 128
+    samples, 256 + 8x8 rays): #3 launches four times, the reference rays'
+    coarse and fine levels (every ray) held against the packed walk on
+    the same inputs at the tolerances of the #3 tests above, and the
+    step's loss, ss_loss and grads against the eager step (the plain path)
+    with the same draws, for both gate values, at chip_smoke.py's guard
+    tolerances."""
+    import copy
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    dev = cuda_device
+    cfg = configs.Config(N_samples=64, N_importance=128, N_rand=256,
+                         n_patches=1, patch_size=8, hardmask=True,
+                         with_depth_loss=True, white_bkgd=True,
+                         compute_dtype=dtype, ss_loss=True,
+                         use_fused_train=True, use_onepass_train=True)
+    scene = synthetic.make_scene(n_views=6, H=48, W=48).to_scene_data()
+    batch = to_device(VanillaBatcher(scene, cfg).next_batch(), dev)
+    n = batch["rgb"].shape[0]
+    state = loop.init_state(cfg, dev)
+    draws = step_lib.make_draws(cfg, n, torch.Generator(dev).manual_seed(5),
+                                dev)
+    draws["ss"]["gate"] = torch.tensor(gate, device=dev)
+    calls, real = [], op.onepass_level
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    op.onepass_level = spy
+    try:
+        before = op.launches
+        _, stats_k = op.build_onepass_vanilla_train_step(cfg)(
+            copy.deepcopy(state), batch, draws)
+    finally:
+        op.onepass_level = real
+    torch.cuda.synchronize()
+    assert op.launches == before + 4
+    assert [c[0][3].shape[0] for c in calls] == [n - 64, n - 64, n, n]
+    for a, k, (out, dw) in calls[2:]:  # the reference rays' levels
+        want_out, want_dw = op.packed_onepass_reference(
+            a[0], *a[1:9], k["white_bkgd"])
+        assert torch.isfinite(out).all()
+        rows_rel = ((out - want_out).abs().amax(1)
+                    / want_out.abs().amax(1).clamp_min(1e-30)).max().item()
+        assert rows_rel < {"bfloat16": 5e-3, "float32": 1e-4}[dtype]
+        assert _rel(dw, want_dw) < TRAIN_TOL[dtype]
+    eager = step_lib.build_vanilla_train_step(state.model, cfg)
+    _, stats_e = eager(copy.deepcopy(state), batch, draws)
+    for key in ("loss", "ss_loss"):
+        k_, e_ = float(stats_k[key]), float(stats_e[key])
+        assert abs(k_ - e_) < 1e-2 * abs(e_), (key, k_, e_)
+    norm_rel = abs(float(stats_k["grad_norm"])
+                   / float(stats_e["grad_norm"]) - 1)
+    assert norm_rel < 5e-2

@@ -10,8 +10,7 @@ of a rounding boundary, or a |depth diff| within 1e-5 relative of its
 chunk's threshold), which may differ and are bounded at 0.01% of the
 train pixels. The pieces (projection, the closed-form threshold, one
 target/reference pair) are held against the JAX functions, and the
-softmask and edge-mask configs, not ported yet, raise instead of training
-on other masks.
+softmask and edge-mask configs attach the JAX package's masks.
 """
 
 import os
@@ -131,7 +130,22 @@ def test_reprojection_pieces_match_jax():
 
 @pytest.mark.parametrize("flag", ["softmask", "use_canny_edge_detection",
                                   "use_sobel_edge_detection"])
-def test_unported_mask_variants_raise(tmp_path, flag):
-    cfg = configs.Config(basedir=str(tmp_path), **_kw("sphere", 16, 4))
-    with pytest.raises(NotImplementedError, match="Queue 1: consistency"):
-        loaders.load_scene(cfg.replace(**{flag: True}), device="cpu")
+def test_unported_mask_variants_raise(tmp_path, monkeypatch, flag):
+    """The softmask and edge-mask variants, once refused, now attach the
+    JAX package's masks (and take precedence over hardmask, as there):
+    the edge masks of the train views and, with no Softmask PNGs under
+    the working directory, empty masks. (The PNGs and cv2 itself:
+    tests/test_torch_port_consistency.py.)"""
+    pytest.importorskip("cv2")
+    monkeypatch.chdir(tmp_path)
+    kw = dict(_kw("sphere", 16, 4), **{flag: True})
+    want = jloaders.load_scene(JaxConfig(basedir=str(tmp_path),
+                                         expname="jax", **kw))
+    got = loaders.load_scene(configs.Config(basedir=str(tmp_path),
+                                            expname="port", **kw),
+                             device="cpu")
+    assert got.masks.dtype == np.float32
+    np.testing.assert_array_equal(got.masks, want.masks)
+    assert not got.masks[got.i_test].any()
+    assert got.masks[got.i_train].any() == (flag != "softmask")
+    assert not (tmp_path / "port" / "mask_cache").exists()

@@ -36,7 +36,8 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "consistency.reproject", "data.loaders", "data.images",
              "data.pfm", "data.pairs", "data.poses", "data.llff",
              "data.blender", "data.dtu", "train.lpips", "train.evaluation",
-             "train.vis", "cli.eval"):
+             "train.vis", "cli.eval", "configs.legacy", "configs.scenes",
+             "consistency.online", "cli.export_configs"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -72,16 +73,17 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 
 
 def test_train_dispatch_raises_rather_than_falls_back():
-    """ss_loss is not ported: the steps raise, naming the ROADMAP item,
-    instead of running another step (the one-pass gate is the JAX
-    predicate, which accepts it). softLpmask with use_fused_train goes to
-    the two-call fused step, as in the JAX package, for every
-    fused_kernel, the v1 kinds included."""
+    """ss_loss goes to the step the JAX rule picks (the one-pass gate is
+    the JAX predicate, which accepts it): the one-pass step, the eager
+    step without use_fused_train, the two-call step with softLpmask.
+    softLpmask with use_fused_train goes to the two-call fused step, as
+    in the JAX package, for every fused_kernel, the v1 kinds included;
+    the one-pass builder raises for it rather than run another loss."""
     import pytest
 
     from consistentnerf_tpu_torch import configs
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
-    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import loop, step as step_lib
 
     base = configs.Config(netdepth=2, netwidth=32, N_samples=8,
                           N_importance=8, use_fused_train=True,
@@ -89,12 +91,14 @@ def test_train_dispatch_raises_rather_than_falls_back():
     assert fused_onepass.onepass_supported(base)
     ss = base.replace(ss_loss=True)
     assert fused_onepass.onepass_supported(ss)
-    with pytest.raises(NotImplementedError, match="consistency"):
-        loop.select_train_step(ss, None)
-    with pytest.raises(NotImplementedError, match="consistency"):
-        loop.select_train_step(ss.replace(use_fused_train=False), None)
-    with pytest.raises(NotImplementedError, match="consistency"):
-        loop.select_train_step(ss.replace(softLpmask=True), None)
+    for cfg, builder in (
+            (ss, fused_onepass.build_onepass_vanilla_train_step),
+            (ss.replace(use_fused_train=False),
+             step_lib.build_vanilla_train_step),
+            (ss.replace(softLpmask=True),
+             fused_train.build_fused_vanilla_train_step)):
+        step = loop.select_train_step(cfg, None)
+        assert step.__qualname__.startswith(builder.__name__ + ".")
     soft = base.replace(softLpmask=True)
     assert not fused_onepass.onepass_supported(soft)
     step = loop.select_train_step(soft, None)
