@@ -96,7 +96,20 @@ with the launch counts set to 0 just before it and read just after:
   and on; the ss_loss steps guarded against the eager step at both
   values of the gate, #3's dW of a repeat bit for bit, both steps timed
   with and without ss_loss; the softmask PNGs, canny and sobel masks of
-  fern (set on the train views only), each trained through the CLI.
+  fern (set on the train views only), each trained through the CLI;
+* the depth-prior producers, on the same fixtures: cli/train_mvs.py
+  --with-masks on scan114 (GT-supervised, fp32 and bf16; a 32 x 128 x
+  160 cost volume at the JAX defaults) and lego (photometric), its PFMs
+  against predict_depth_priors, its JPGs' headers, one step's loss on
+  the card against the CPU, step and predict times and peak memory;
+  cli/train.py --bootstrap-priors on lego from the lego_3view preset
+  (8x256, 64 + 128 samples, bf16, the one-pass step), #3 / #2 / #1
+  counted by stage (2 a warmup and a retrain step; #1 2 a render chunk
+  of the warmup's depths), the exported priors and masks against the
+  retrain's scene, compute_hard_masks and the warmup's acc; the same
+  with bootstrap_mode=mvs; cli/export_depth_priors.py from the
+  retrain's checkpoint bit for bit against render(); cli/make_masks.py
+  on the exported priors against attach_masks; the NDC refusal on fern.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -270,34 +283,50 @@ def device_time(fn):
 L2_FLUSH_BYTES = 256 * 2 ** 20
 
 
-def launch_device_ms(fn, kernel, iters=50):
+def launch_device_ms(fn, kernel, iters=50, sessions=3):
     """Device time of one launch of the kernel whose name holds `kernel`:
     fn() `iters` times under torch.profiler, each after an L2 flush (the
     sum of an L2_FLUSH_BYTES buffer), the kernel's own device time over
     the launches the profiler recorded (the flush kernel left out by
-    name). A gate fails, and None comes back, where the profiler saw no
-    device time or recorded fewer than half of the launches."""
-    from torch.profiler import ProfilerActivity, profile
+    name). The profiler's schedule runs the same `iters` launches once as
+    its warm-up cycle (traced, then dropped) before the cycle it records,
+    so no launch is counted while its tracing starts. A session that
+    records fewer than half of the launches is logged and made again, up
+    to `sessions` in all. A gate fails, and None comes back, where no
+    session saw device time for at least half of the launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            buf.sum()
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-            count += e.count
-    if count != iters:
-        log(f"{kernel}: the profiler recorded {count} launches of {iters}")
-    ok = us > 0 and 2 * count >= iters
+    for session in range(1, sessions + 1):
+        rows = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: rows.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    buf.sum()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us, count = 0.0, 0
+        for e in rows:
+            if kernel in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                count += e.count
+        if count != iters:
+            log(f"{kernel}: the profiler recorded {count} launches of "
+                f"{iters} in session {session} of {sessions}")
+        ok = us > 0 and 2 * count >= iters
+        if ok:
+            break
     gate(ok, f"{kernel}: no device time (the profiler recorded {count} "
-         f"launches of {iters}, {us:.1f} us)")
+         f"launches of {iters}, {us:.1f} us, in the last of {sessions} "
+         "sessions)")
     return us / 1e3 / count if ok else None
 
 
@@ -697,6 +726,9 @@ def main() -> None:
         consist = consistency_phases(dev, card, configs, v2, fmip, op,
                                      pdf_merge, fx_tmp, fx)
         log(f"consistency phases: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        producers = producer_phases(dev, card, configs, v2, op, fx_tmp, fx)
+        log(f"producer phase: {time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -720,7 +752,8 @@ def main() -> None:
         + row_json + v1["json"]}
     for r in kernels["kernels"]:
         r["launches"] += (evals["launches"].get(r["name"], 0)
-                          + consist["launches"].get(r["name"], 0))
+                          + consist["launches"].get(r["name"], 0)
+                          + producers["launches"].get(r["name"], 0))
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -4909,6 +4942,471 @@ def consistency_phases(dev, card, configs, v2, fmip, op, pdf_merge, tmp,
         finally:
             os.chdir(cwd)
     return {"launches": launches, "step_ms": step_ms}
+
+
+# The depth-prior producers on the same fixtures. The MVS net at
+# the JAX package's defaults (32 planes, base width 8, 2 sources) on
+# scan114 at the loader's 512x640 (a 32 x 128 x 160 cost volume) and on
+# lego at 400x400; the warmup bootstrap at the flagship width (the
+# lego_3view preset: 8x256, 64 + 128 samples, 4096 + 4x16x16 rays, bf16,
+# the one-pass step).
+MVS_STEPS = 24  # steps of each train_mvs run: 8 rounds of 3 train views
+BOOT_WARMUP = 20  # warmup steps of the bootstrap
+BOOT_STEPS = 3  # retrain steps after it
+MVS_BOOT_STEPS = 6  # MVS steps of the bootstrap_mode=mvs run
+MVS_CPU_LOSS_RTOL = 1e-4  # one MVS step's loss, card (strict fp32) vs CPU
+MVS_PREDICT_TOL = 1e-5  # a second predict vs the first, of the depth range
+# bootstrap.py's refusal of NDC scenes, as the JAX package words it
+# (consistentnerf_tpu/train/bootstrap.py:90-95).
+NDC_REFUSAL = ("bootstrap priors need metric depth; NDC (forward-facing "
+               "LLFF) scenes are not supported — train with spherify or "
+               "provide external priors")
+
+
+def jfif_ok(path, h, w):
+    """A baseline greyscale JFIF of h x w: SOI, APP0 'JFIF', an 8-bit
+    one-component SOF0 of that size, EOI."""
+    with open(path, "rb") as f:
+        data = f.read()
+    sof = data.find(b"\xff\xc0")
+    return (data[:2] == b"\xff\xd8" and data[6:11] == b"JFIF\x00"
+            and data[-2:] == b"\xff\xd9" and sof > 0 and data[sof + 4] == 8
+            and int.from_bytes(data[sof + 5: sof + 7], "big") == h
+            and int.from_bytes(data[sof + 7: sof + 9], "big") == w
+            and data[sof + 9] == 1)
+
+
+def producer_phases(dev, card, configs, v2, op, tmp, fx):
+    """37. The depth-prior producers on the fixtures (`fx`, under `tmp`):
+    cli/train_mvs.py --with-masks on scan114 (GT depths: the supervised
+    branch) in fp32 and bf16, its PFMs against predict_depth_priors, its
+    JPGs' headers, one step's loss on the card against the CPU, and its
+    step / predict times and peak memory; on lego (no GT: photometric +
+    smoothness), its loss falling; cli/train.py --bootstrap-priors on
+    lego from the lego_3view preset (bf16, one-pass step: #3 and #2 2 a
+    warmup and a retrain step, #1 2 a step and 2 a render chunk of
+    render_warmup_depths), the exported priors and masks against the
+    retrain's scene, compute_hard_masks and the warmup's acc; the same
+    with bootstrap_mode=mvs; cli/export_depth_priors.py from the
+    retrain's checkpoint against render(); cli/make_masks.py on the
+    exported priors against attach_masks; and the NDC refusal on fern."""
+    import dataclasses
+
+    from consistentnerf_tpu_torch.data import loaders
+
+    tag = f"[{card}]"
+    counted = ((v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (op, "launches", op.KERNEL))
+    launches = {}
+    # Each fixture is decoded once in this phase (the eval phase times the
+    # loads): read_scene returns a copy of the first read with the same
+    # reader and arguments, and load_scene attaches the priors and masks
+    # to it as it always does.
+    real_read, reads = loaders.read_scene, {}
+
+    def cached_read(cfg_):
+        fn, kwargs = loaders.scene_reader(cfg_)
+        key = (fn.__module__, fn.__name__, tuple(sorted(kwargs.items())))
+        if key not in reads:
+            t0 = time.perf_counter()
+            reads[key] = real_read(cfg_)
+            log(f"{tag} read_scene {os.path.basename(cfg_.datadir)} "
+                f"{cfg_.dataset_type}: {time.perf_counter() - t0:.2f} s "
+                "(host)")
+        return dataclasses.replace(reads[key])
+
+    loaders.read_scene = cached_read
+    try:
+        return _producer_runs(dev, card, configs, v2, op, tmp, fx, tag,
+                              counted, launches)
+    finally:
+        loaders.read_scene = real_read
+
+
+def _producer_runs(dev, card, configs, v2, op, tmp, fx, tag, counted,
+                   launches):
+    """The body of producer_phases, with the fixtures' reads cached."""
+    from consistentnerf_tpu_torch.cli import export_depth_priors, make_masks
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.cli import train_mvs
+    from consistentnerf_tpu_torch.configs import scenes
+    from consistentnerf_tpu_torch.consistency import reproject
+    from consistentnerf_tpu_torch.data import loaders, pfm
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.train import bootstrap, loop
+    from consistentnerf_tpu_torch.train import mvs as mvs_train
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from consistentnerf_tpu_torch.train.evaluation import \
+        camera_rays_for_view
+
+    def zero():
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for mod, attr, k in counted}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def args(items):
+        return ["--device", str(dev)] + [x for s_ in items
+                                         for x in ("--set", s_)]
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    load_scene, attach_masks = loaders.load_scene, loaders.attach_masks
+    dtu, lego, fern = fx["scan114"], fx["lego"], fx["fern"]
+
+    # 37a. The MVS net through cli/train_mvs.py, every step timed.
+    step_log = []
+    real_build = mvs_train.build_mvs_train_step
+
+    def timed_build(*a, **k):
+        step, net, opt = real_build(*a, **k)
+
+        def timed(ref, src):
+            t0 = sync()
+            loss, stats = step(ref, src)
+            step_log.append((sync() - t0, float(loss), sorted(stats)))
+            return loss, stats
+
+        return timed, net, opt
+
+    scan_sets = ["dataset_type=dtu", f"datadir={dtu['dir']}",
+                 "dtu_split_type=pixelnerf", "train_view_num=3",
+                 "white_bkgd=false", f"basedir={tmp}", "expname=mvs114"]
+    lego_sets = ["dataset_type=blender", f"datadir={lego['dir']}",
+                 "half_res=true", "white_bkgd=true", "train_view_num=3",
+                 f"basedir={tmp}", "expname=mvslego"]
+    mvs_train.build_mvs_train_step = timed_build
+    try:
+        for label, base, dtype in (("scan114", scan_sets, "float32"),
+                                   ("scan114", scan_sets, "bfloat16"),
+                                   ("lego", lego_sets, "float32")):
+            sets_ = base + [f"compute_dtype={dtype}"]
+            cfg = configs.load_config(None, sets_)
+            out = os.path.join(tmp, f"mvs_{label}_{dtype}")
+            step_log.clear()
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = sync()
+            result, priors = train_mvs.main(
+                args(sets_) + ["--steps", str(MVS_STEPS), "--out", out,
+                               "--with-masks"])
+            wall = sync() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            gate(read() == {k: 0 for _, _, k in counted},
+                 f"train_mvs {label} launched a kernel of the port: "
+                 f"{read()} (its convolutions are PyTorch's)")
+            scene = load_scene(cfg, device=dev, attach=False)
+            tr = [int(v) for v in scene.i_train]
+            again = mvs_train.predict_depth_priors(cfg, scene, result.params,
+                                                   device=dev)
+            # The per-view forward alone: the net built, loaded and warm
+            # on a first view, the views' predictions timed after a sync.
+            predict = mvs_train.view_predictor(cfg, scene, result.params,
+                                               device=dev)
+            predict(tr[0])
+            t0 = sync()
+            for v in tr:
+                predict(v)
+            predict_ms = 1e3 * (sync() - t0) / len(tr)
+            times = sorted(t for t, _, _ in step_log[1:])
+            step_ms = 1e3 * times[len(times) // 2]
+            losses = [l_ for _, l_, _ in step_log]
+            supervised = all("sup_l1" in k for _, _, k in step_log)
+            hr, wr = -(-scene.H // 4), -(-scene.W // 4)
+            log(f"{tag} cli.train_mvs {label} ({dtype}, "
+                f"{cfg.mvs_num_depths} x {hr} x {wr} cost volume, "
+                f"base {cfg.mvs_base_ch}, {'GT-supervised' if supervised else 'photometric'}): "
+                f"{MVS_STEPS} steps, step {step_ms:.2f} ms (the median after "
+                f"the first; the first {1e3 * step_log[0][0]:.1f} ms), "
+                f"predict {predict_ms:.2f} ms a view (warm net, forwards "
+                f"only), peak "
+                f"torch.cuda.max_memory_allocated {peak:.2f} GiB, wall "
+                f"{wall:.1f} s (load included); loss {losses[0]:.5f} -> "
+                f"{losses[-1]:.5f}")
+            gate(all(np.isfinite(losses)), f"train_mvs {label} {dtype}: a "
+                 "non-finite loss")
+            gate(supervised == (label == "scan114"),
+                 f"train_mvs {label}: supervised {supervised}, expected "
+                 f"{label == 'scan114'} (depth_is_gt {scene.depth_is_gt})")
+            span = float(scene.far - scene.near)
+            gate(float(np.abs(again - priors).max()) <= MVS_PREDICT_TOL * span,
+                 f"train_mvs {label} {dtype}: a second predict differs by "
+                 f"{float(np.abs(again - priors).max())}")
+            same, jpg = True, True
+            for v in tr:
+                depth = np.asarray(pfm.read_pfm(os.path.join(
+                    out, f"depth_{v:04d}.pfm"))[0], np.float32)
+                same &= np.array_equal(depth, priors[v])
+                jpg &= jfif_ok(os.path.join(out, f"{v}_mask_mvs.jpg"),
+                               scene.H, scene.W)
+            kept = float((priors[tr] > 0).mean())
+            log(f"  {label} {dtype}: PFMs read back equal the predicted "
+                f"priors: {same}; JPGs baseline JFIF {scene.H}x{scene.W}: "
+                f"{jpg}; {kept:.4f} of the train pixels keep a prior")
+            gate(same, f"train_mvs {label} {dtype}: the PFMs are not the "
+                 "predicted priors")
+            gate(jpg, f"train_mvs {label} {dtype}: a mask JPG is not a "
+                 "baseline JFIF of the image's size")
+            if label == "lego":
+                first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+                log(f"  lego photometric loss, first round {first:.5f}, "
+                    f"last round {last:.5f}")
+                gate(last < first, f"train_mvs lego: the self-supervised "
+                     f"loss did not fall ({first} -> {last})")
+            if label == "scan114" and dtype == "float32":
+                # One step, card (strict fp32) against the CPU, from the
+                # same seeded init on the same triple.
+                src = mvs_train.mvs_lib.select_source_views(
+                    scene.poses, scene.i_train, tr[0], cfg.mvs_n_src)
+                losses_d = []
+                for d in (dev, torch.device("cpu")):
+                    step, _, _ = real_build(cfg, scene, use_gt=supervised,
+                                            device=d)
+                    t0 = time.perf_counter()
+                    losses_d.append(float(step(tr[0], src)[0]))
+                    dt = time.perf_counter() - t0
+                    log(f"  {label} one MVS step on {d}: loss "
+                        f"{losses_d[-1]:.7f} ({dt:.2f} s, host clock)")
+                rel = abs(losses_d[0] / losses_d[1] - 1)
+                log(f"  {label} step loss, card vs CPU: rel {rel:.2e} "
+                    f"(tol {MVS_CPU_LOSS_RTOL})")
+                gate(rel < MVS_CPU_LOSS_RTOL, f"train_mvs {label}: the "
+                     f"card's step loss is {rel:.2e} from the CPU's")
+            del scene
+            torch.cuda.empty_cache()
+    finally:
+        mvs_train.build_mvs_train_step = real_build
+
+    # 37b. The warmup bootstrap through cli/train.py --bootstrap-priors,
+    # each stage's launches counted by spies on loop.train and
+    # render_warmup_depths.
+    boot_sets = [f"datadir={lego['dir']}", "compute_dtype=bfloat16",
+                 "i_print=1", f"checkpoint_every={BOOT_STEPS}",
+                 f"basedir={tmp}"]
+    stages = []
+    real_train, real_render = loop.train, bootstrap.render_warmup_depths
+
+    def spy_train(cfg_, scene_, *a, **k):
+        before, t0 = read(), sync()
+        res = real_train(cfg_, scene_, *a, **k)
+        dt = sync() - t0
+        stages.append(dict(kind="train", expname=cfg_.expname, scene=scene_,
+                           cfg=cfg_, result=res, seconds=dt, launches={
+                               k_: v - before[k_]
+                               for k_, v in read().items()}))
+        return res
+
+    def spy_render(warm_cfg, scene_, model):
+        before, t0 = read(), sync()
+        out = real_render(warm_cfg, scene_, model)
+        dt = sync() - t0
+        stages.append(dict(kind="render", depths=out, seconds=dt,
+                           launches={k_: v - before[k_]
+                                     for k_, v in read().items()}))
+        return out
+
+    def boot_run(label, extra, warm, steps):
+        stages.clear()
+        loop.train, bootstrap.render_warmup_depths = spy_train, spy_render
+        zero()
+        try:
+            t0 = sync()
+            train_cli.main(["--scene", "lego_3view"] + args(extra)
+                           + ["--num-steps", str(steps),
+                              "--bootstrap-priors", str(warm)])
+            wall = sync() - t0
+        finally:
+            loop.train, bootstrap.render_warmup_depths = (real_train,
+                                                          real_render)
+        add(read())
+        log(f"{tag} cli.train --scene lego_3view --bootstrap-priors {warm} "
+            f"({label}): wall {wall:.1f} s (load, producer, fusion, masks, "
+            f"{steps} retrain steps); stages: " + "; ".join(
+                f"{s_['kind']} {s_.get('expname', '')} {s_['seconds']:.2f} s "
+                f"launches {s_['launches']}" for s_ in stages))
+        return stages[-1], wall
+
+    boot_cfg = configs.parse_overrides(scenes.get_scene_config("lego_3view"),
+                                       boot_sets + ["expname=boot_lego"])
+    retrain, boot_wall = boot_run("warmup", boot_sets + ["expname=boot_lego"],
+                                  BOOT_WARMUP, BOOT_STEPS)
+    warm_stage, render_stage = stages[0], stages[1]
+    scene = retrain["scene"]
+    tr = [int(v) for v in scene.i_train]
+    chunks = -(-scene.H * scene.W // boot_cfg.render_chunk_size)
+    per_step = {v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 2}
+    for stage, n_steps in ((warm_stage, BOOT_WARMUP), (retrain, BOOT_STEPS)):
+        want = {k: n * n_steps for k, n in per_step.items()}
+        gate(stage["launches"] == want, f"bootstrap {stage['expname']}: "
+             f"launched {stage['launches']}, expected {want}")
+    want = {v2.KERNEL: 2 * chunks * len(tr), v2.BWD_KERNEL: 0, op.KERNEL: 0}
+    gate(render_stage["launches"] == want, f"render_warmup_depths launched "
+         f"{render_stage['launches']}, expected {want} (2 a render chunk)")
+    gate([s_["kind"] for s_ in stages] == ["train", "render", "train"]
+         and warm_stage["expname"] == "boot_lego_warmup"
+         and retrain["expname"] == "boot_lego",
+         f"the bootstrap's stages ran as {[s_['kind'] for s_ in stages]}")
+    export = os.path.join(tmp, "boot_lego", "bootstrap_priors")
+    names = sorted(os.listdir(export))
+    gate(names == sorted([f"depth_{v:04d}.pfm" for v in tr]
+                         + [f"{v}_mask_boot.jpg" for v in tr]),
+         f"bootstrap_priors/ holds {names}")
+    read_back = np.zeros(scene.depths.shape, np.float32)
+    for v in tr:
+        read_back[v] = pfm.read_pfm(os.path.join(export,
+                                                 f"depth_{v:04d}.pfm"))[0]
+    masks = reproject.compute_hard_masks(
+        scene.poses, read_back, scene.K, tr, scene.H, scene.W,
+        occlusion_threshold=boot_cfg.occlusion_threshold, device=dev)
+    warm_model = warm_stage["result"].state.model.eval()
+    render = render_lib.build_render_fn(warm_model, warm_stage["cfg"])
+    acc = np.stack([render(camera_rays_for_view(scene, scene.poses[v],
+                                                device=dev))["acc"].cpu()
+                    .numpy() for v in tr])
+    fused, raw = read_back[tr], render_stage["depths"][tr]
+    checks = {
+        "PFMs equal the retrain's priors": np.array_equal(
+            read_back[tr], scene.depths[tr]),
+        "retrain masks equal compute_hard_masks of the PFMs": np.array_equal(
+            scene.masks, masks.astype(np.float32)),
+        "fused priors zero where the warmup's acc <= 0.5": not fused[
+            acc <= 0.5].any(),
+        "raw priors zero where acc <= 0.5": not raw[acc <= 0.5].any(),
+        "JPGs baseline JFIF": all(jfif_ok(os.path.join(
+            export, f"{v}_mask_boot.jpg"), scene.H, scene.W) for v in tr),
+        "depth_is_gt False": scene.depth_is_gt is False,
+    }
+    log(f"{tag} bootstrap (warmup) on lego, {BOOT_WARMUP} + {BOOT_STEPS} "
+        f"steps: warmup {warm_stage['seconds']:.2f} s, render "
+        f"{render_stage['seconds']:.2f} s ({len(tr)} views, {chunks} chunks "
+        f"each), retrain {retrain['seconds']:.2f} s, wall {boot_wall:.1f} s; "
+        f"priors kept {float((fused > 0).mean()):.4f} of the train pixels "
+        f"(raw {float((raw > 0).mean()):.4f}, acc > 0.5 "
+        f"{float((acc > 0.5).mean()):.4f}), masks "
+        f"{float(scene.masks[tr].mean()):.4f}; " + ", ".join(
+            f"{k}: {v}" for k, v in checks.items()))
+    for k, v in checks.items():
+        gate(bool(v), f"bootstrap on lego: {k} fails")
+    del render, warm_model, stages[:]
+    torch.cuda.empty_cache()
+
+    # 37c. bootstrap_mode=mvs, the MVS net's priors into the retrain.
+    mvs_retrain, mvs_wall = boot_run(
+        "mvs", boot_sets + ["bootstrap_mode=mvs", "mvs_conf_thresh=0.0",
+                            "expname=boot_lego_mvs"],
+        MVS_BOOT_STEPS, 1)
+    sc = mvs_retrain["scene"]
+    mvs_export = os.path.join(tmp, "boot_lego_mvs", "bootstrap_priors")
+    ok = ([s_["kind"] for s_ in stages] == ["train"]
+          and mvs_retrain["launches"] == per_step
+          and float(sc.depths[tr].max()) > 0
+          and set(np.unique(sc.masks)) <= {0.0, 1.0}
+          and len(os.listdir(mvs_export)) == 2 * len(tr))
+    log(f"bootstrap (mvs, {MVS_BOOT_STEPS} MVS steps + 1 retrain step): "
+        f"retrain launches {mvs_retrain['launches']}, priors kept "
+        f"{float((sc.depths[tr] > 0).mean()):.4f}, masks "
+        f"{float(sc.masks[tr].mean()):.4f}, {len(os.listdir(mvs_export))} "
+        f"files exported: {'ok' if ok else 'FAILED'}")
+    gate(ok, "bootstrap_mode=mvs on lego")
+    del sc, mvs_retrain
+    stages.clear()
+
+    # 37d. export_depth_priors from the retrain's checkpoint, held
+    # against render() of the restored model; make_masks on those priors,
+    # laid out as the Blender loader reads them, against attach_masks.
+    exp_sets = boot_sets + ["expname=boot_lego", "use_fused_render=true"]
+    exp_cfg = configs.parse_overrides(scenes.get_scene_config("lego_3view"),
+                                      exp_sets)
+    exported = os.path.join(tmp, "exported_lego")
+    zero()
+    t0 = sync()
+    step = export_depth_priors.main(["--scene", "lego_3view"]
+                                    + args(exp_sets)
+                                    + ["--out", exported, "--views", "all"])
+    dt = sync() - t0
+    got = read()
+    n_views = len(scene.images)
+    want = {v2.KERNEL: 2 * chunks * n_views, v2.BWD_KERNEL: 0, op.KERNEL: 0}
+    add(got)
+    model = make_model(exp_cfg, dev)
+    CheckpointManager(os.path.join(tmp, "boot_lego", "checkpoints")
+                      ).restore_for_eval(model, step)
+    render = render_lib.build_render_fn(model.eval(), exp_cfg)
+    depths = {}
+    same = True
+    for v in range(n_views):
+        depths[v] = np.asarray(pfm.read_pfm(os.path.join(
+            exported, f"depth_{v:04d}.pfm"))[0], np.float32)
+        want_d = render(camera_rays_for_view(
+            scene, scene.poses[v], device=dev))["depth"].float().cpu().numpy()
+        same &= np.array_equal(depths[v], want_d)
+    log(f"{tag} cli.export_depth_priors (step {step}, {n_views} views, "
+        f"use_fused_render): {dt:.2f} s, launches {got} (expected {want}); "
+        f"PFMs equal render()['depth'] of the restored model bit for bit: "
+        f"{same}")
+    gate(step == BOOT_STEPS and got == want, f"export_depth_priors: step "
+         f"{step}, launches {got}")
+    gate(same, "export_depth_priors: a PFM is not render()'s depth")
+    del render, model
+
+    frames = LEGO_SPLITS[0] + LEGO_SPLITS[1] + LEGO_SPLITS[1]
+    layout = os.path.join(tmp, "nerf_synthesic_data_depth_boot", "lego")
+    os.makedirs(layout)
+    zeros = np.zeros((scene.H, scene.W), np.float32)
+    for f in range(LEGO["n"]):
+        pfm.write_pfm(os.path.join(layout, f"depth_{f:04d}.pfm"),
+                      depths[frames.index(f)] if f in frames else zeros)
+    mm_sets = exp_sets + [f"depthdir={layout}"]
+    mm_cfg = configs.parse_overrides(scenes.get_scene_config("lego_3view"),
+                                     mm_sets)
+    masks_dir = os.path.join(tmp, "made_masks")
+    t0 = sync()
+    make_masks.main(["--scene", "lego_3view"] + args(mm_sets)
+                    + ["--out", masks_dir])
+    dt = sync() - t0
+    made = np.load(os.path.join(masks_dir, "masks.npy"))
+    loaded = load_scene(mm_cfg, device=dev, attach=False)
+    same_depths = all(np.array_equal(loaded.depths[v], depths[v])
+                      for v in range(n_views))
+    want_masks = attach_masks(loaded, mm_cfg, None, device=dev).masks > 0
+    jpgs = all(jfif_ok(os.path.join(masks_dir, f"{i}_mask_3view.jpg"),
+                       scene.H, scene.W) for i in range(n_views))
+    log(f"{tag} cli.make_masks on the exported priors: {dt:.2f} s (load "
+        f"included); masks.npy {made.shape} {made.dtype}, train share "
+        f"{float(made[tr].mean()):.4f}; equals attach_masks': "
+        f"{np.array_equal(made, want_masks)}; the loader read the exported "
+        f"depths: {same_depths}; JPGs baseline JFIF: {jpgs}")
+    gate(np.array_equal(made, want_masks) and same_depths and jpgs,
+         "make_masks on the exported priors")
+    del loaded, scene
+
+    # 37e. The NDC refusal (fern is forward-facing LLFF).
+    fern_sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+        "dataset_type=llff", f"datadir={fern['dir']}",
+        f"factor={FERN['factor']}", "white_bkgd=false", "near=0.0",
+        "far=1.0", "train_view_num=3", f"basedir={tmp}",
+        "expname=fern_boot"]
+    zero()
+    try:
+        train_cli.main(args(fern_sets) + ["--num-steps", "1",
+                                          "--bootstrap-priors", "2"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"cli.train fern --bootstrap-priors: refused with {refused!r}; "
+        f"launches {read()}")
+    gate(refused == NDC_REFUSAL and read() == {k: 0 for _, _, k in counted},
+         "the NDC scene was not refused as the JAX package refuses it")
+    return {"launches": launches}
 
 if __name__ == "__main__":
     try:

@@ -11,7 +11,10 @@ CUDA device the kernel step is on unless use_fused_train /
 use_onepass_train are set explicitly; `--device cpu` runs the same step
 with the kernels' plain versions. `--eval-after` scores the test views
 when training ends (`train/evaluation.py::evaluate`, artifacts under
-`{basedir}/{expname}/test_preds/`).
+`{basedir}/{expname}/test_preds/`). `--bootstrap-priors N` first makes the
+scene's depth priors and hard masks in-framework (`train/bootstrap.py`:
+an N-step warmup NeRF or MVS net, `cfg.bootstrap_mode`) and trains on
+them.
 """
 
 from __future__ import annotations
@@ -26,15 +29,14 @@ def main(argv=None):
     p.add_argument("--num-steps", type=int, default=None)
     p.add_argument("--eval-after", action="store_true",
                    help="run the test-set eval when training finishes")
-    p.add_argument("--bootstrap-priors", type=int, default=0,
-                   metavar="WARMUP_STEPS",
-                   help="not ported yet (ROADMAP Queue 1: depth-prior "
-                   "producers)")
+    p.add_argument(
+        "--bootstrap-priors", type=int, default=0, metavar="WARMUP_STEPS",
+        help="two-stage flow: a producer (cfg.bootstrap_mode: a warmup NeRF "
+        "with no consistency terms, or the MVS net) for N steps, per-view "
+        "depth priors, fused, hard masks from them, then the consistent "
+        "training on those priors; the priors are written under "
+        "<expdir>/bootstrap_priors")
     args = p.parse_args(argv)
-    if args.bootstrap_priors > 0:
-        raise NotImplementedError(
-            "--bootstrap-priors is not ported yet (ROADMAP Queue 1: "
-            "depth-prior producers)")
     cfg = common.resolve_config(args)
     cfg = common.auto_fused_defaults(cfg, args)
     cfg = common.reconcile_schedule_horizon(cfg, args)
@@ -44,6 +46,14 @@ def main(argv=None):
     from consistentnerf_tpu_torch.train import loop as loop_lib
 
     scene = load_scene(cfg, device=args.device)
+    if args.bootstrap_priors > 0:
+        from consistentnerf_tpu_torch.train.bootstrap import \
+            bootstrap_scene_priors
+
+        scene, _ = bootstrap_scene_priors(
+            cfg, scene, args.bootstrap_priors,
+            export_dir=os.path.join(exp_dir, "bootstrap_priors"),
+            device=args.device)
     random_poses = None
     if cfg.backbone == "mipnerf" and cfg.load_random_rays:
         from consistentnerf_tpu_torch.data.random_poses import \

@@ -133,8 +133,8 @@ class Config:
     hardmask: bool = False
     hardmask_coef: float = 0.2
     occlusion_threshold: float = 0.1  # reprojection |depth diff| threshold
-    # The depth-prior producers (`--bootstrap-priors`); not ported yet
-    # (ROADMAP Queue 1: depth-prior producers), the fields load.
+    # The depth-prior producers (train/bootstrap.py, `--bootstrap-priors`;
+    # the MVS net of models/mvs.py, train/mvs.py, cli/train_mvs.py).
     bootstrap_fuse_priors: bool = True
     bootstrap_fuse_min_consensus: int = 1
     bootstrap_mode: str = "warmup"  # 'warmup' | 'mvs'

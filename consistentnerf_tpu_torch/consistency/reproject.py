@@ -16,9 +16,16 @@ pixel coordinates (`torch.round`, as `jnp.round`), `w2c` formed as the
 fp32 inverse of the 4x4 `c2w`, and the quotients by constants taken as
 its jitted program takes them (`_recip`). The work is a few elementwise
 passes and one gather per (target, reference) pair, so it runs as plain
-tensor code, by default on the card (`compute_hard_masks(device=...)`). The depth-prior
-producers' `fused_depth_for_target` / `fuse_depth_priors` are not ported
-yet (ROADMAP Queue 1: depth-prior producers).
+tensor code, by default on the card (`compute_hard_masks(device=...)`).
+
+The depth-prior producers fuse their priors with the same test
+(`fused_depth_for_target` / `fuse_depth_priors`): a target pixel lifted by
+its prior is checked against each other view's prior (|z_ref - ref depth|
+< threshold, strict), the agreeing views' estimates re-lifted and read
+along the target ray, and the pixel keeps the mean of its own and the
+agreeing estimates where at least `min_consensus` views agree, else zero
+("no prior"). Its pixel lookups truncate the rounded coordinates clamped
+to the image (`clip(...).astype(int32)` in the JAX package).
 """
 
 from __future__ import annotations
@@ -128,14 +135,6 @@ def _target_points(tgt_pose, tgt_depth, K, H: int, W: int):
         rays_d.reshape(-1, 3)
 
 
-def _w2c(ref_poses: torch.Tensor) -> torch.Tensor:
-    """[R, 3, 4] c2w -> [R, 4, 4] w2c, the fp32 inverse of the 4x4 c2w."""
-    c2w = torch.eye(4, device=ref_poses.device).repeat(ref_poses.shape[0],
-                                                       1, 1)
-    c2w[:, :3, :4] = ref_poses
-    return torch.linalg.inv(c2w)
-
-
 def hard_mask_for_target(tgt_pose: torch.Tensor, tgt_depth: torch.Tensor,
                          ref_poses: torch.Tensor, ref_depths: torch.Tensor,
                          K: torch.Tensor, H: int, W: int,
@@ -146,7 +145,8 @@ def hard_mask_for_target(tgt_pose: torch.Tensor, tgt_depth: torch.Tensor,
     Returns bool [H, W]."""
     points_w = _target_points(tgt_pose, tgt_depth, K, H, W)
     mask = torch.zeros(H * W, dtype=torch.bool, device=tgt_pose.device)
-    for w2c, depth in zip(_w2c(ref_poses), ref_depths):
+    for w2c, depth in zip(rays_core.world_to_camera(ref_poses),
+                          ref_depths):
         mask |= consistency_mask_pair(points_w, w2c, depth, K,
                                       occlusion_threshold, chunk)
     return mask.reshape(H, W)
@@ -161,6 +161,66 @@ def _on_device(poses, depths, K, i_train, device):
                             device=device),
             torch.as_tensor(np.asarray(K, np.float32), device=device),
             [int(i) for i in np.asarray(i_train)])
+
+
+def fused_depth_for_target(tgt_pose: torch.Tensor, tgt_depth: torch.Tensor,
+                           ref_poses: torch.Tensor, ref_depths: torch.Tensor,
+                           K: torch.Tensor, H: int, W: int,
+                           threshold: float = 0.1,
+                           min_consensus: int = 1) -> torch.Tensor:
+    """Cross-view occlusion-tested depth fusion of one target view (c2w
+    [3, 4], depth [H, W]) against reference views ([R, 3, 4], [R, H, W]).
+    Returns the fused depth [H, W]: the mean of the target's depth and
+    the agreeing references' estimates where at least `min_consensus`
+    references agree, zero elsewhere."""
+    d_t = tgt_depth.reshape(-1)
+    points_w = _target_points(tgt_pose, tgt_depth, K, H, W)
+    w2c_t = rays_core.world_to_camera(tgt_pose)
+    votes = torch.zeros(H * W, dtype=torch.int32, device=K.device)
+    total = torch.zeros(H * W, dtype=torch.float32, device=K.device)
+    # The references in order: the vote and estimate sums run as the JAX
+    # package's sums over its reference axis.
+    for ref_pose, w2c_r, ref_depth in zip(
+            ref_poses, rays_core.world_to_camera(ref_poses), ref_depths):
+        x, y, z_ref, inb = world_to_ref_pixels(points_w, w2c_r, K, H, W)
+        xi = torch.nan_to_num(x.clamp(0, W - 1), nan=0.0).long()
+        yi = torch.nan_to_num(y.clamp(0, H - 1), nan=0.0).long()
+        d_ref = ref_depth[yi, xi]
+        consistent = inb & (d_ref > 0) & (torch.abs(z_ref - d_ref)
+                                          < threshold)
+        # Re-lift the reference's own estimate of the surface and read its
+        # depth along the target ray (z in the target camera).
+        ro_r, rd_r = rays_core.get_rays(H, W, K, ref_pose, device=K.device)
+        pix = yi * W + xi
+        x_back = ro_r.reshape(-1, 3)[pix] + d_ref[:, None] * \
+            rd_r.reshape(-1, 3)[pix]
+        z_t = world_to_ref_pixels(x_back, w2c_t, K, H, W)[2]
+        consistent = consistent & (z_t > 0)
+        votes = votes + consistent.to(torch.int32)
+        total = total + torch.where(consistent, z_t, torch.zeros_like(z_t))
+    keep = (d_t > 0) & (votes >= min_consensus)
+    fused = (d_t + total) / (1.0 + votes)
+    return torch.where(keep, fused, torch.zeros_like(fused)).reshape(H, W)
+
+
+def fuse_depth_priors(poses, depths, K, i_train, H: int, W: int,
+                      threshold: float = 0.1, min_consensus: int = 1,
+                      device="cuda") -> np.ndarray:
+    """Occlusion-tested consensus fusion of per-view depth priors
+    (`fused_depth_for_target` over every train view, on `device`; zeros
+    elsewhere). Returns float32 [N, H, W] in host memory."""
+    poses, depths_t, K, i_train = _on_device(poses, depths, K, i_train,
+                                             device)
+    out = np.zeros(depths_t.shape, np.float32)
+    for tgt in i_train:
+        refs = [r for r in i_train if r != tgt]
+        if not refs:
+            out[tgt] = depths_t[tgt].cpu().numpy()
+            continue
+        out[tgt] = fused_depth_for_target(
+            poses[tgt], depths_t[tgt], poses[refs], depths_t[refs], K, H, W,
+            threshold, min_consensus).cpu().numpy()
+    return out
 
 
 def compute_hard_masks(poses, depths, K, i_train, H: int, W: int,
@@ -202,7 +262,7 @@ def boundary_pixels(poses, depths, K, i_train, H: int, W: int,
             continue
         points_w = _target_points(poses[tgt], depths[tgt], K, H, W)
         near = torch.zeros(H * W, dtype=torch.bool, device=K.device)
-        for w2c, r in zip(_w2c(poses[refs]), refs):
+        for w2c, r in zip(rays_core.world_to_camera(poses[refs]), refs):
             q = _project(points_w, w2c, K)[1]
             near |= ((q - torch.floor(q) - 0.5).abs() < BOUNDARY_PX).any(-1)
             inb, diff, tau = _pair_terms(points_w, w2c, depths[r], K,

@@ -53,6 +53,14 @@ def pixel_dirs(H: int, W: int, K, device="cuda") -> torch.Tensor:
     )
 
 
+def world_to_camera(c2w: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 4] c2w -> [..., 4, 4] w2c, the fp32 inverse of the 4x4
+    c2w."""
+    c2w4 = torch.eye(4, device=c2w.device).repeat(*c2w.shape[:-2], 1, 1)
+    c2w4[..., :3, :4] = c2w[..., :3, :4]
+    return torch.linalg.inv(c2w4)
+
+
 def get_rays(H: int, W: int, K, c2w, device="cuda"):
     """World-frame (origins, directions) [H, W, 3] for one camera;
     directions are unnormalized."""

@@ -10,6 +10,9 @@ their images here:
   the decoded byte to its left) is undone along anti-diagonals, all rows
   at once.
 * `write_png` / `encode_png`: the same formats, with a chosen filter.
+* `write_jpeg` / `encode_jpeg`: 8-bit greyscale baseline JPEGs (JFIF,
+  sequential DCT, the Annex K luminance tables at libjpeg's quality 75),
+  the producers' mask JPGs.
 * `imread`: a PNG always takes `read_png`; any other format (LLFF's raw
   JPEGs) goes to `imageio`, imported when such a file is read.
 * `resize`: OpenCV's `cv2.resize` for `INTER_AREA`, `INTER_LINEAR` and
@@ -203,6 +206,153 @@ def write_png(path: str, img: np.ndarray,
               filter_type: Union[int, Sequence[int]] = 0,
               level: int = 6) -> None:
     data = encode_png(img, filter_type, level)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+# --- JPEG (baseline, greyscale) --------------------------------------------
+
+# ITU-T T.81 Annex K, table K.1: the luminance quantisation table.
+_JPEG_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+], np.int64).reshape(8, 8)
+# Tables K.3 and K.5: the luminance DC and AC Huffman tables, as the code
+# counts of lengths 1-16 and the symbols in code order.
+_JPEG_DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+_JPEG_DC_VALS = bytes(range(12))
+_JPEG_AC_BITS = (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D)
+_JPEG_AC_VALS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+# The zigzag scan: row-major index of the coefficient at each position.
+_JPEG_ZIGZAG = np.array(sorted(
+    range(64), key=lambda i: (i // 8 + i % 8,
+                              i // 8 if (i // 8 + i % 8) % 2 else -(i // 8))))
+# The orthonormal 8-point DCT-II matrix (T.81's FDCT scaling).
+_JPEG_DCT = np.array([[(np.sqrt(0.5) if u == 0 else 1.0) * 0.5
+                       * np.cos((2 * x + 1) * u * np.pi / 16)
+                       for x in range(8)] for u in range(8)])
+
+
+# libjpeg's scaling of the table at quality 75 (Pillow's default, which
+# imageio writes with): scale 200 - 2 * 75 percent, clamped to the
+# baseline range 1-255.
+JPEG_QUALITY = 75
+_JPEG_QUANT = np.clip((_JPEG_LUMA_Q * (200 - 2 * JPEG_QUALITY) + 50) // 100,
+                      1, 255)
+
+
+def _huffman_codes(bits, vals) -> dict:
+    """symbol -> (code, length) of a JPEG Huffman table (T.81 Annex C)."""
+    codes, code, k = {}, 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            codes[vals[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def _amplitude(v: int):
+    """(size, bits) of a DC difference or AC value: its bit length and
+    the value, negatives in one's complement."""
+    size = abs(v).bit_length()
+    return size, (v if v >= 0 else v + (1 << size) - 1)
+
+
+def _pack_bits(codes, lengths) -> bytes:
+    """Concatenate variable-length codes MSB first, pad the last byte with
+    ones and stuff a zero byte after every 0xFF."""
+    codes = np.asarray(codes, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    total = int(lengths.sum())
+    owner = np.repeat(np.arange(len(codes)), lengths)
+    pos = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    bits = (codes[owner] >> (lengths[owner] - 1 - pos)) & 1
+    bits = np.concatenate([bits, np.ones((-total) % 8, np.int64)])
+    data = np.packbits(bits.astype(np.uint8)).tobytes()
+    return data.replace(b"\xff", b"\xff\x00")
+
+
+def encode_jpeg(img: np.ndarray) -> bytes:
+    """uint8 [H, W] (or [H, W, 1]) -> a baseline greyscale JFIF file:
+    sequential DCT, one component, the Annex K luminance quantisation
+    table at libjpeg's quality 75 and the Annex K luminance Huffman
+    tables. The image is padded to whole 8x8 blocks by repeating
+    its last row and column."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"encode_jpeg takes uint8 [H, W] images, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"a baseline JPEG cannot hold {h}x{w}")
+    x = np.pad(img, ((0, (-h) % 8), (0, (-w) % 8)), mode="edge")
+    blocks = (x.astype(np.float64) - 128.0).reshape(
+        x.shape[0] // 8, 8, x.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ux,bcxy,vy->bcuv", _JPEG_DCT, blocks, _JPEG_DCT)
+    zz = np.round(coef / _JPEG_QUANT).astype(np.int64).reshape(-1, 64)[
+        :, _JPEG_ZIGZAG]
+
+    dc_codes = _huffman_codes(_JPEG_DC_BITS, _JPEG_DC_VALS)
+    ac_codes = _huffman_codes(_JPEG_AC_BITS, _JPEG_AC_VALS)
+    codes, lengths = [], []
+
+    def emit(code, length):
+        codes.append(code)
+        lengths.append(length)
+
+    prev_dc = 0
+    for block in zz.tolist():
+        size, amp = _amplitude(block[0] - prev_dc)
+        prev_dc = block[0]
+        emit(*dc_codes[size])
+        if size:
+            emit(amp, size)
+        run = 0
+        for k in range(1, 64):
+            v = block[k]
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                emit(*ac_codes[0xF0])  # sixteen zeros
+                run -= 16
+            size, amp = _amplitude(v)
+            emit(*ac_codes[(run << 4) | size])
+            emit(amp, size)
+            run = 0
+        if run:
+            emit(*ac_codes[0x00])  # end of block
+
+    def segment(marker: int, payload: bytes) -> bytes:
+        return struct.pack(">HH", marker, len(payload) + 2) + payload
+
+    dht = b"".join(bytes([tc]) + bytes(bits) + vals for tc, bits, vals in (
+        (0x00, _JPEG_DC_BITS, _JPEG_DC_VALS),
+        (0x10, _JPEG_AC_BITS, _JPEG_AC_VALS)))
+    return (b"\xff\xd8"
+            + segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xFFDB, b"\x00" + bytes(
+                _JPEG_QUANT.reshape(-1)[_JPEG_ZIGZAG].astype(np.uint8).tolist()))
+            + segment(0xFFC0, struct.pack(">BHHB", 8, h, w, 1) + b"\x01\x11\x00")
+            + segment(0xFFC4, dht)
+            + segment(0xFFDA, b"\x01\x01\x00\x00\x3f\x00")
+            + _pack_bits(codes, lengths) + b"\xff\xd9")
+
+
+def write_jpeg(path: str, img_u8: np.ndarray) -> None:
+    """Write a uint8 greyscale image [H, W] as a baseline JPEG (the mask
+    JPGs of the producers; `encode_jpeg`)."""
+    data = encode_jpeg(img_u8)
     with open(path, "wb") as f:
         f.write(data)
 

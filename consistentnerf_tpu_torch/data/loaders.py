@@ -192,56 +192,77 @@ def attach_masks(scene: SceneData, cfg, cache_dir=None,
     return scene
 
 
-def load_scene(cfg, device="cuda", attach=True) -> SceneData:
-    """Load the dataset named by cfg and prepare its priors and masks:
-    `attach_masks` (hard masks computed on `device`, cached under
-    `{basedir}/{expname}/mask_cache`), except for DTU, whose masks are
-    its GT-depth coverage: there only the missing priors are filled."""
+def _synthetic_scene(n_views, hw, texture_freq, layout, n_test,
+                     interleave_test) -> SceneData:
+    return synthetic.make_scene(
+        n_views=n_views, H=hw, W=hw, texture_freq=texture_freq,
+        layout=layout,
+    ).to_scene_data(n_test=n_test, interleave_test=interleave_test)
+
+
+def scene_reader(cfg):
+    """The reader of the dataset named by cfg and its arguments, every one
+    of them taken from cfg here: (function, kwargs). `read_scene` calls
+    `function(**kwargs)`, so the pair is also what a read depends on."""
     kind = cfg.dataset_type
     if kind == "blender":
         from consistentnerf_tpu_torch.data.blender import load_blender
 
-        scene = load_blender(cfg.datadir, half_res=cfg.half_res,
-                             testskip=cfg.testskip,
-                             train_view_num=cfg.train_view_num,
-                             white_bkgd=cfg.white_bkgd,
-                             depthdir=cfg.depthdir)
-    elif kind == "llff":
+        return load_blender, dict(
+            datadir=cfg.datadir, half_res=cfg.half_res,
+            testskip=cfg.testskip, train_view_num=cfg.train_view_num,
+            white_bkgd=cfg.white_bkgd, depthdir=cfg.depthdir)
+    if kind == "llff":
         from consistentnerf_tpu_torch.data.llff import load_llff
 
-        scene = load_llff(cfg.datadir, factor=cfg.factor,
-                          spherify=cfg.spherify, no_ndc=cfg.no_ndc,
-                          train_view_num=cfg.train_view_num,
-                          depthdir=cfg.depthdir)
-    elif kind == "dtu":
+        return load_llff, dict(
+            datadir=cfg.datadir, factor=cfg.factor, spherify=cfg.spherify,
+            no_ndc=cfg.no_ndc, train_view_num=cfg.train_view_num,
+            depthdir=cfg.depthdir)
+    if kind == "dtu":
         from consistentnerf_tpu_torch.data.dtu import load_dtu
 
-        scene = load_dtu(cfg.datadir, train_view_num=cfg.train_view_num,
-                         light_idx=cfg.dtu_light_cond,
-                         num_views=cfg.dtu_max_images,
-                         use_nerf_depth=cfg.use_nerf_depth,
-                         split_type=cfg.dtu_split_type,
-                         depthdir=cfg.depthdir)
-    elif kind == "deepvoxels":
-        scene = load_deepvoxels(cfg.datadir, cfg.shape, cfg.testskip)
-    elif kind == "LINEMOD":
-        scene = load_linemod(cfg.datadir, cfg.half_res, cfg.testskip)
-    elif kind == "synthetic":
-        scene = synthetic.make_scene(
-            n_views=cfg.synthetic_views,
-            H=cfg.synthetic_hw,
-            W=cfg.synthetic_hw,
+        return load_dtu, dict(
+            datadir=cfg.datadir, train_view_num=cfg.train_view_num,
+            light_idx=cfg.dtu_light_cond, num_views=cfg.dtu_max_images,
+            use_nerf_depth=cfg.use_nerf_depth,
+            split_type=cfg.dtu_split_type, depthdir=cfg.depthdir)
+    if kind == "deepvoxels":
+        return load_deepvoxels, dict(datadir=cfg.datadir, shape=cfg.shape,
+                                     testskip=cfg.testskip)
+    if kind == "LINEMOD":
+        return load_linemod, dict(datadir=cfg.datadir,
+                                  half_res=cfg.half_res,
+                                  testskip=cfg.testskip)
+    if kind == "synthetic":
+        return _synthetic_scene, dict(
+            n_views=cfg.synthetic_views, hw=cfg.synthetic_hw,
             texture_freq=cfg.synthetic_texture_freq,
-            layout=cfg.synthetic_layout,
-        ).to_scene_data(
-            n_test=cfg.synthetic_n_test,
-            interleave_test=cfg.synthetic_interleave_test,
-        )
-    else:
-        raise ValueError(f"Unknown dataset type {kind!r}")
-    if not attach:
-        return scene
-    if kind == "dtu":
+            layout=cfg.synthetic_layout, n_test=cfg.synthetic_n_test,
+            interleave_test=cfg.synthetic_interleave_test)
+    raise ValueError(f"Unknown dataset type {kind!r}")
+
+
+def read_scene(cfg) -> SceneData:
+    """The dataset named by cfg as its reader gives it, before any prior
+    or mask is attached."""
+    fn, kwargs = scene_reader(cfg)
+    return fn(**kwargs)
+
+
+def attach_priors(scene: SceneData, cfg, device="cuda") -> SceneData:
+    """`load_scene`'s second step: `attach_masks` (hard masks computed on
+    `device`, cached under `{basedir}/{expname}/mask_cache`), except for
+    DTU, whose masks are its GT-depth coverage: there only the missing
+    priors are filled."""
+    if cfg.dataset_type == "dtu":
         return scene.ensure_priors()
     cache_dir = os.path.join(cfg.basedir, cfg.expname, "mask_cache")
     return attach_masks(scene, cfg, cache_dir, device=device)
+
+
+def load_scene(cfg, device="cuda", attach=True) -> SceneData:
+    """Load the dataset named by cfg (`read_scene`) and, with `attach`,
+    prepare its priors and masks (`attach_priors`)."""
+    scene = read_scene(cfg)
+    return attach_priors(scene, cfg, device) if attach else scene

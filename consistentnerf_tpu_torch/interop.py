@@ -5,7 +5,9 @@ port's `VanillaNeRF` state_dict, `mip_params_from_jax` /
 `mip_params_to_jax` carry the mip param tree
 (`params["params"]["MipMLP_0"]["Dense_i"]`) into a `MipNeRF` state_dict
 and back; `lpips_params_from_jax` carries the JAX LPIPS params (HWIO
-convs) into the port's `train/lpips.py` params; `add_flat_grads` / `flat_grads_to_named` map a flat
+convs) into the port's `train/lpips.py` params; `mvs_params_from_jax`
+carries the JAX `MVSDepthNet` params into the port's `models/mvs.py`
+state_dict; `add_flat_grads` / `flat_grads_to_named` map a flat
 torch-layout grad list (the order of `ops/fused_mlp.flatten_params`, or
 of `ops/fused_mip.flatten_mip_params` for a MipMLP) onto an MLP's
 parameters; `load_reference_tar` reads a nerf-pytorch
@@ -115,6 +117,34 @@ def lpips_params_from_jax(params: Mapping) -> Dict:
     return lpips.params_from_hwio(
         [[(c["w"], c["b"]) for c in block] for block in params["convs"]],
         params["lins"])
+
+
+def mvs_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """{'params': {'feature' | 'cost_reg' | 'refine': {'Conv_i' |
+    'ConvTranspose_i': {'kernel', 'bias'}}}} (numpy or jax leaves) -> the
+    port's MVSDepthNet state_dict. Conv kernels [k..., in, out] become
+    [out, in, k...]; transpose kernels become conv_transpose's [in, out,
+    k...] flipped on the spatial axes (flax's `ConvTranspose` does not
+    flip its kernel, torch's transpose convolution does)."""
+    tree = tree["params"] if "params" in tree else tree
+    sd = {}
+    for net, layers in tree.items():
+        for name, entry in layers.items():
+            kind, i = name.rsplit("_", 1)
+            k = torch.tensor(np.asarray(entry["kernel"], np.float32))
+            nd = k.dim() - 2
+            spatial = tuple(range(2, 2 + nd))
+            if kind == "Conv":
+                key, w = "convs", k.permute(nd + 1, nd, *range(nd))
+            elif kind == "ConvTranspose":
+                key = "ups"
+                w = k.permute(nd, nd + 1, *range(nd)).flip(spatial)
+            else:
+                raise ValueError(f"unknown MVS layer {net}/{name}")
+            sd[f"{net}.{key}.{i}.weight"] = w.contiguous()
+            sd[f"{net}.{key}.{i}.bias"] = torch.tensor(
+                np.asarray(entry["bias"], np.float32))
+    return sd
 
 
 def flat_param_names(net_depth: int, use_viewdirs: bool = True,

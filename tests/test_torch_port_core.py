@@ -113,6 +113,28 @@ def test_load_scene_synthetic_only():
         loaders.load_scene(cfg.replace(dataset_type="bogus"))
 
 
+def test_load_scene_is_its_read_then_its_attach(tmp_path):
+    """load_scene = attach_priors(read_scene(cfg)), and read_scene calls
+    the reader scene_reader names with its arguments: every dataset
+    type's arguments bind to its reader's signature."""
+    import inspect
+
+    cfg = configs.Config(dataset_type="synthetic", synthetic_views=4,
+                         synthetic_hw=8, synthetic_n_test=1, hardmask=True,
+                         basedir=str(tmp_path))
+    want = loaders.load_scene(cfg, device="cpu")
+    got = loaders.attach_priors(loaders.read_scene(cfg), cfg, device="cpu")
+    for name in ("images", "depths", "masks", "poses"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    assert want.masks.min() == 0  # the hard masks were attached
+    fn, kwargs = loaders.scene_reader(cfg)
+    np.testing.assert_array_equal(fn(**kwargs).images, want.images)
+    for kind in ("blender", "llff", "dtu", "deepvoxels", "LINEMOD"):
+        fn, kwargs = loaders.scene_reader(cfg.replace(dataset_type=kind))
+        inspect.signature(fn).bind(**kwargs)
+
+
 # --- rays ------------------------------------------------------------------
 
 

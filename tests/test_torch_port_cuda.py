@@ -10,8 +10,10 @@ the alignment its weight loads need, and #2, #7, #11 and #14 on the
 level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
 bit for bit against #2 and #14 against #11 on the same points, the
 evaluation's metric suite and `evaluate()` on the card against the CPU,
-and the one-pass step with ss_loss (#3 on the reference rays) against
-its packed walk and the eager step.
+the one-pass step with ss_loss (#3 on the reference rays) against
+its packed walk and the eager step, and the depth-prior producers' quality
+runs (the supervised MVS net against baselines, the warmup bootstrap end
+to end with a consistent retrain).
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -1582,3 +1584,129 @@ def test_onepass_ss_loss_step_matches_plain_path(cuda_device, dtype, gate):
     norm_rel = abs(float(stats_k["grad_norm"])
                    / float(stats_e["grad_norm"]) - 1)
     assert norm_rel < 5e-2
+
+
+# --- the depth-prior producers on the card ---------------------------------
+
+
+@pytest.mark.cuda
+def test_mvs_supervised_training_beats_baselines(cuda_device):
+    """~120 GT-supervised MVS steps on the card (the sphere, 6 views,
+    48x48, 16 planes, base width 4; tests/test_mvs.py's twin): the
+    trained prior's depth-MSE on valid pixels is under half the untrained
+    net's and under half the best constant depth's."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.train import mvs as mvs_train
+
+    scene = synthetic.make_scene(n_views=6, H=48, W=48).to_scene_data()
+    cfg = configs.Config(dataset_type="synthetic", mvs_num_depths=16,
+                         mvs_base_ch=4, mvs_n_src=2, mvs_lr=3e-3)
+    dev = cuda_device
+    untrained = mvs_train.make_net(cfg, "cpu").state_dict()
+    priors0 = mvs_train.predict_depth_priors(cfg, scene, untrained,
+                                             conf_thresh=0.0, device=dev)
+    result = mvs_train.train_mvs_depth(cfg, scene, num_steps=120,
+                                       log_fn=lambda s: None, device=dev)
+    priors = mvs_train.predict_depth_priors(cfg, scene, result.params,
+                                            conf_thresh=0.0, device=dev)
+    tr = np.asarray(scene.i_train)
+    gt = scene.depths[tr]
+    valid = gt > 0
+
+    def mse(pred):
+        return float(np.mean((pred[tr][valid] - gt[valid]) ** 2))
+
+    const_best = min(float(np.mean((c - gt[valid]) ** 2))
+                     for c in np.linspace(scene.near, scene.far, 17))
+    assert mse(priors) < 0.5 * mse(priors0), (mse(priors), mse(priors0))
+    assert mse(priors) < 0.5 * const_best, (mse(priors), const_best)
+
+
+@pytest.mark.cuda
+def test_bootstrap_priors_end_to_end(cuda_device, tmp_path):
+    """The warmup bootstrap on the card at tests/test_bootstrap.py's
+    settings (500 warmup steps, 2x64 vanilla model, the sphere at 48x48,
+    seed 0), then 500 consistent retrain steps: plausible masks, priors
+    accurate inside them, fusion no worse than the raw warmup depths, a
+    finite retrain above 8 dB.
+
+    The JAX test also bounds the retrain against the warmup (held-out
+    depth-MSE under 1.3x, PSNR within 2.5 dB). Those bounds are not a
+    property of the code at this size: on a CPU the JAX package's own
+    flow meets both at 1 of seeds 0-5 (depth x0.69 to x7.19, PSNR +0.9
+    to -4.0 dB; `tools/bootstrap_seeds.py jax`), the port's at 3 of
+    them, two after a warmup that saw nothing (depth x0.41 to x4.48,
+    PSNR +0.3 to -8.7 dB; `tools/bootstrap_seeds.py port`). The held-out
+    numbers follow the init sample: from one init, both packages'
+    warmups land together, a warmup that sees nothing included
+    (`tools/bootstrap_seeds.py crossed`). So this twin prints the
+    comparison and does not gate on it; the flow is held against the JAX
+    package deterministically, from a carried init at perturb 0, by
+    `tests/test_torch_port_bootstrap.py::
+    test_bootstrap_flow_tracks_jax_from_a_carried_init`."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.consistency import reproject
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.train import bootstrap, loop
+    from consistentnerf_tpu_torch.train.evaluation import \
+        camera_rays_for_view
+
+    dev = cuda_device
+    steps = 500
+    scene = synthetic.make_scene(n_views=6, H=48, W=48).to_scene_data()
+    cfg = configs.Config(
+        backbone="vanilla", netdepth=2, netwidth=64, N_samples=16,
+        N_importance=8, multires=4, multires_views=2, N_rand=192,
+        n_patches=1, patch_size=8, white_bkgd=True, near=2.0, far=6.0,
+        hardmask=True, with_depth_loss=True, use_tensorboard=False,
+        i_print=1000, checkpoint_every=100000, total_iters=steps,
+        lrate=5e-3, basedir=str(tmp_path), expname="boot")
+    boot, warm = bootstrap.bootstrap_scene_priors(
+        cfg, scene, steps, log_fn=lambda s: None,
+        export_dir=str(tmp_path / "priors"), device=dev)
+    tr = np.asarray(scene.i_train)
+    assert (tmp_path / "priors" / f"depth_{tr[0]:04d}.pfm").is_file()
+    frac = float(boot.masks[tr].mean())
+    assert 0.02 < frac < 0.95, frac
+    m = (boot.masks[tr] > 0) & (scene.depths[tr] > 0)
+    prior_mse = float(np.mean((boot.depths[tr][m]
+                               - scene.depths[tr][m]) ** 2))
+    assert prior_mse < 0.2, prior_mse
+    warm_cfg = bootstrap.warmup_config(cfg, steps)
+    raw = bootstrap.render_warmup_depths(warm_cfg, scene,
+                                         warm.state.model.eval())
+    fused = reproject.fuse_depth_priors(scene.poses, raw, scene.K, tr,
+                                        scene.H, scene.W, device=dev)
+    m_raw = (raw[tr] > 0) & (scene.depths[tr] > 0)
+    m_fu = (fused[tr] > 0) & (scene.depths[tr] > 0)
+    mse_raw = float(np.mean((raw[tr][m_raw] - scene.depths[tr][m_raw]) ** 2))
+    mse_fu = float(np.mean((fused[tr][m_fu] - scene.depths[tr][m_fu]) ** 2))
+    assert mse_fu <= mse_raw * 1.05, (mse_fu, mse_raw)
+    assert float(np.mean(m_fu)) > 0.3 * float(np.mean(m_raw))
+
+    def heldout(model, c):
+        render = render_lib.build_render_fn(model.eval(), c)
+        derr, psnr = [], []
+        for vid in scene.i_test:
+            out = render(camera_rays_for_view(scene, scene.poses[vid],
+                                              device=dev))
+            gt_d = scene.depths[vid]
+            sel = gt_d > 0
+            derr.append(float(np.mean(
+                (out["depth"].cpu().numpy()[sel] - gt_d[sel]) ** 2)))
+            pred = np.clip(out["rgb"].cpu().numpy(), 0, 1)
+            psnr.append(float(-10 * np.log10(np.mean(
+                (pred - scene.images[vid]) ** 2))))
+        return float(np.mean(derr)), float(np.mean(psnr))
+
+    w_derr, w_psnr = heldout(warm.state.model, warm_cfg)
+    result = loop.train(cfg, boot, num_steps=steps, device=dev,
+                        log_fn=lambda s: None)
+    b_derr, b_psnr = heldout(result.state.model, cfg)
+    print(f"held-out depth-MSE warmup {w_derr:.4f} retrain {b_derr:.4f} "
+          f"(x{b_derr / w_derr:.2f}); PSNR warmup {w_psnr:.2f} retrain "
+          f"{b_psnr:.2f} ({b_psnr - w_psnr:+.2f} dB)")
+    assert np.isfinite(b_derr) and np.isfinite(b_psnr) and b_psnr > 8.0

@@ -37,7 +37,9 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "data.pfm", "data.pairs", "data.poses", "data.llff",
              "data.blender", "data.dtu", "train.lpips", "train.evaluation",
              "train.vis", "cli.eval", "configs.legacy", "configs.scenes",
-             "consistency.online", "cli.export_configs"):
+             "consistency.online", "cli.export_configs", "models.mvs",
+             "train.mvs", "train.bootstrap", "cli.train_mvs",
+             "cli.export_depth_priors", "cli.make_masks"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 

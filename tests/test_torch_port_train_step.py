@@ -210,8 +210,10 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 def test_train_cli_raises_for_what_is_not_ported(tmp_path):
     base = ["--device", "cpu", "--set", "dataset_type=synthetic",
             "--set", f"basedir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="depth-prior"):
-        train_cli.main(base + ["--bootstrap-priors", "10"])
+    # --bootstrap-priors is ported (tests/test_torch_port_producer_clis.py);
+    # multi-process runs are not.
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        train_cli.main(base + ["--set", "num_processes=2"])
     # --eval-after is ported (tests/test_torch_port_eval.py).
     # Weights on disk turn the LPIPS term on in the JAX loop; here they
     # raise rather than train without it.
