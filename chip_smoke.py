@@ -109,7 +109,20 @@ with the launch counts set to 0 just before it and read just after:
   retrain's scene, compute_hard_masks and the warmup's acc; the same
   with bootstrap_mode=mvs; cli/export_depth_priors.py from the
   retrain's checkpoint bit for bit against render(); cli/make_masks.py
-  on the exported priors against attach_masks; the NDC refusal on fern.
+  on the exported priors against attach_masks; the NDC refusal on fern;
+* the whole trainer and its checkpoints: cli/train.py on the flagship
+  (one-pass step) with the train-time LPIPS term (an `.npz` the smoke
+  writes), prefetch, held-out renders every 6 steps, a profiler trace of
+  2 steps (it must name #3) and gc_every 4, then a resume; #1 / #2 / #3
+  counted; the one-pass step with the term guarded against the eager
+  step; the term on the card against the CPU; the prefetched stream
+  against the batcher's bit for bit; the step's time with and without
+  the term and the loop's with and without prefetch; the noisy eager
+  step (raw_noise_std) and the mip eager step with normals against the
+  CPU on the same draws; the checkpoint exported to a reference .tar,
+  imported back and rendered through #1 bit for bit as the original; a
+  mip checkpoint imported from a msgpack checkpoint file the smoke writes,
+  rendered through #6 against the plain render.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -133,6 +146,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -729,6 +743,7 @@ def main() -> None:
         t_phase = time.perf_counter()
         producers = producer_phases(dev, card, configs, v2, op, fx_tmp, fx)
         log(f"producer phase: {time.perf_counter() - t_phase:.1f} s")
+    trainer = trainer_phases(dev, card, configs, fm, v2, op, fmip)
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -753,7 +768,8 @@ def main() -> None:
     for r in kernels["kernels"]:
         r["launches"] += (evals["launches"].get(r["name"], 0)
                           + consist["launches"].get(r["name"], 0)
-                          + producers["launches"].get(r["name"], 0))
+                          + producers["launches"].get(r["name"], 0)
+                          + trainer["launches"].get(r["name"], 0))
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(json.dumps(kernels))
@@ -5407,6 +5423,485 @@ def _producer_runs(dev, card, configs, v2, op, tmp, fx, tag, counted,
     gate(refused == NDC_REFUSAL and read() == {k: 0 for _, _, k in counted},
          "the NDC scene was not refused as the JAX package refuses it")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# 38. The whole trainer and its checkpoints
+# ---------------------------------------------------------------------------
+
+TRAINER_STEPS = 12  # the train CLI's steps; the resume adds 2
+TRAINER_RENDER_EVERY = 6  # held-out renders at steps 6 and 12
+LPIPS_CPU_RTOL = 1e-4  # the term, card (strict fp32) vs CPU
+LPIPS_GRAD_REL = 1e-3  # its gradient by the patch, rel L2
+# One fp32 eager step on the card against the same step on the CPU, from
+# the same state, batch and draws: the loss relative, each grad rel L2
+# (the fine level's inverse CDF magnifies ~1e-7 differences at multires
+# 10, ROADMAP Queue 3 note D).
+CPU_STEP_LOSS_RTOL = 1e-4
+CPU_STEP_GRAD_REL = 1e-2
+PREFETCH_STEPS = 20  # loop steps timed with prefetch on and off
+
+
+def _mp(obj) -> bytes:
+    """A small msgpack encoder for the checkpoint file the mip import
+    reads (the public mip-NeRF checkpoints' format): maps with string
+    keys, strings, lists, ints, bytes, and the extensions for arrays
+    (code 1) and numpy scalars (code 3), each an (shape, dtype name,
+    bytes) triple packed the same way."""
+    import struct
+
+    if isinstance(obj, dict):
+        out = b"\xde" + struct.pack(">H", len(obj))
+        for k, v in obj.items():
+            out += _mp(str(k)) + _mp(v)
+        return out
+    if isinstance(obj, str):
+        raw = obj.encode()
+        return b"\xda" + struct.pack(">H", len(raw)) + raw
+    if isinstance(obj, (list, tuple)):
+        return b"\xdc" + struct.pack(">H", len(obj)) + b"".join(
+            _mp(x) for x in obj)
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.array(obj, order="C")  # a scalar stays 0-d
+        payload = _mp([list(arr.shape), arr.dtype.name, arr.tobytes()])
+        code = 1 if isinstance(obj, np.ndarray) else 3
+        return (b"\xc9" + struct.pack(">Ib", len(payload), code) + payload)
+    if isinstance(obj, bool) or not isinstance(obj, int):
+        raise TypeError(f"not encoded: {type(obj)}")
+    return b"\xd3" + struct.pack(">q", obj)
+
+
+def grads_of(model):
+    return [torch.zeros_like(p) if p.grad is None else p.grad.detach()
+            .clone() for p in model.parameters()]
+
+
+def cpu_step_gate(label, cfg, build, state, batch, draws, move, dev):
+    """One eager step on the card and on the CPU from copies of `state`,
+    with `batch` and `draws` (made on the CPU) moved to each device:
+    the loss and every grad that the update reads, against the CPU's.
+    Returns the CPU's loss."""
+    import copy
+
+    out = {}
+    for dev_ in (str(dev), "cpu"):
+        st = copy.deepcopy(state)
+        st.model.to(dev_)  # in place: the optimizer keeps its parameters
+        grads = []
+        real = st.optimizer.step
+
+        def keep(count, st=st, grads=grads, real=real):
+            grads.extend(grads_of(st.model))
+            real(count)
+
+        st.optimizer.step = keep
+        t0 = time.perf_counter()
+        _, stats = build(cfg, st.model)(st, move(batch, dev_),
+                                        move(draws, dev_))
+        torch.cuda.synchronize()
+        out[dev_] = (float(stats["loss"]), [g.cpu() for g in grads],
+                     time.perf_counter() - t0)
+    (l_k, g_k, t_k), (l_c, g_c, t_c) = out[str(dev)], out["cpu"]
+    rel_l = abs(l_k - l_c) / abs(l_c)
+    rel_g, _ = grads_err(g_k, g_c)
+    log(f"{label}: loss card {l_k:.7f} CPU {l_c:.7f} (rel {rel_l:.2e}, tol "
+        f"{CPU_STEP_LOSS_RTOL:g}); grads max rel L2 {rel_g:.2e} (tol "
+        f"{CPU_STEP_GRAD_REL:g}); {t_k:.2f} s card, {t_c:.2f} s CPU")
+    gate(rel_l < CPU_STEP_LOSS_RTOL and rel_g < CPU_STEP_GRAD_REL,
+         f"{label}: the card's step disagrees with the CPU's")
+    return l_c
+
+
+def trainer_phases(dev, card, configs, fm, v2, op, fmip):
+    """38. The whole trainer and its checkpoints: cli/train.py on the
+    flagship (8x256, 64 + 128 samples, 4096 + 4x16x16 rays, bf16, the
+    one-pass step) with the train-time LPIPS term (weights the smoke
+    writes), prefetch, held-out renders every 6 steps, a profiler trace of
+    2 steps and gc_every 4, then a resume; #1 / #2 / #3 counted; the
+    one-pass step with the term against the eager step; the term card vs
+    CPU; the prefetched stream against the batcher's, bit for bit; the
+    step's time with and without the term and the loop's with and without
+    prefetch; the noisy eager step and the mip eager step with normals
+    against the CPU on the same draws; a checkpoint exported to a
+    reference .tar, imported back and rendered through #1 bit for bit as
+    the original; a mip checkpoint imported from a msgpack file the
+    smoke writes, rendered through #6 against the plain render."""
+    import contextlib
+    import gc
+    import io
+    import json as json_
+
+    from consistentnerf_tpu_torch import interop
+    from consistentnerf_tpu_torch.cli import export_torch_ckpt
+    from consistentnerf_tpu_torch.cli import import_mipnerf_ckpt
+    from consistentnerf_tpu_torch.cli import import_torch_ckpt
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (MipBatcher,
+                                                        Prefetcher,
+                                                        VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.models.factory import make_model
+    from consistentnerf_tpu_torch.train import loop, lpips
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from consistentnerf_tpu_torch.train.evaluation import \
+        camera_rays_for_view
+
+    tag = f"[{card}]"
+    counted = ((v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (op, "launches", op.KERNEL),
+               (fmip, "launches", fmip.KERNEL))
+    launches = {}
+
+    def zero():
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for mod, attr, k in counted}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    tmp = tempfile.mkdtemp(prefix="trainer_")
+    npz = os.path.join(tmp, "lpips_vgg.npz")
+    lpips.save_weights(npz, lpips.init_params(0))
+    sets = ["dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+            f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+            "i_print=1", f"checkpoint_every={TRAINER_STEPS}",
+            f"lpips_weights_path={npz}",
+            f"train_render_every={TRAINER_RENDER_EVERY}", "profile_steps=2",
+            "gc_every=4", f"basedir={tmp}", "expname=trainer"] + [
+        f"{k}={v}" for k, v in FLAGSHIP.items()]
+
+    def args(items):
+        return ["--device", str(dev)] + [x for s_ in items
+                                         for x in ("--set", s_)]
+
+    # 38a. The train CLI with every housekeeping field on, and a resume.
+    t_phase = time.perf_counter()
+    outs = {}
+    for steps, run in ((TRAINER_STEPS, "train"),
+                       (TRAINER_STEPS + 2, "resume")):
+        zero()
+        text = io.StringIO()
+        t0 = sync()
+        with contextlib.redirect_stdout(text):
+            res = train_cli.main(args(sets) + ["--num-steps", str(steps)])
+        wall = sync() - t0
+        got = read()
+        add(got)
+        outs[run] = (res, text.getvalue(), got, wall)
+        log(text.getvalue().rstrip())
+        log(f"{tag} cli.train {run} (LPIPS, prefetch, renders every "
+            f"{TRAINER_RENDER_EVERY}, profile_steps 2, gc_every 4): "
+            f"{wall:.2f} s, launches {got}, gc enabled after: "
+            f"{gc.isenabled()}")
+    exp = os.path.join(tmp, "trainer")
+    rcfg = configs.load_config(os.path.join(exp, "config.json"))
+    chunks = -(-SCENE["H"] * SCENE["W"] // rcfg.render_chunk_size)
+    per_render = 2 * chunks if rcfg.use_fused_render else 0
+    n_renders = TRAINER_STEPS // TRAINER_RENDER_EVERY
+    want = {"train": {v2.KERNEL: 2 * TRAINER_STEPS + n_renders * per_render,
+                      v2.BWD_KERNEL: 2 * TRAINER_STEPS,
+                      op.KERNEL: 2 * TRAINER_STEPS, fmip.KERNEL: 0},
+            "resume": {v2.KERNEL: 4, v2.BWD_KERNEL: 4, op.KERNEL: 4,
+                       fmip.KERNEL: 0}}
+    for run, (res, text, got, _) in outs.items():
+        gate(got == want[run], f"trainer cli.train {run}: launched {got}, "
+             f"expected {want[run]}")
+        hist = res.stats_history
+        gate(all(np.isfinite(float(h["loss"])) and float(h["patch_lpips"])
+                 > 0 for h in hist) and len(hist) == (
+            TRAINER_STEPS if run == "train" else 2),
+             f"trainer cli.train {run}: a non-finite loss or no LPIPS term")
+    res, text, _, _ = outs["train"]
+    renders = sorted(os.listdir(os.path.join(exp, "train_renders")))
+    traces = sorted(f for f in os.listdir(os.path.join(exp, "profile"))
+                    if f.endswith(".json"))
+    names_3 = False
+    if traces:
+        with open(os.path.join(exp, "profile", traces[0])) as f:
+            events = json_.load(f).get("traceEvents", [])
+        names_3 = any(op.KERNEL in str(e.get("name", "")) for e in events)
+    tb = os.path.isdir(os.path.join(exp, "runs")) or (
+        "use_tensorboard: no SummaryWriter" in text)
+    checks = {
+        "held-out renders at 6 and 12 logged": all(
+            f"test render @ {s}:" in text for s in (6, 12)),
+        "train_renders/ holds color_000.png and both steps' metrics": {
+            "color_000.png", "metric_psnr_6.txt",
+            "metric_psnr_12.txt"} <= set(renders),
+        "a Chrome trace of steps 1-2 names #3": names_3,
+        "TensorBoard written, or its absence said": tb,
+        "gc enabled after the loop": gc.isenabled(),
+        "the resume started at step 12": "resumed from step 12" in outs[
+            "resume"][1],
+    }
+    log(f"trainer housekeeping: traces {traces}, train_renders {renders}; "
+        + ", ".join(f"{k}: {v}" for k, v in checks.items()))
+    for k, v in checks.items():
+        gate(bool(v), f"trainer: {k} fails")
+
+    # 38b. The prefetched stream against the batcher's, bit for bit.
+    cfg = configs.Config(**FLAGSHIP)
+    scene = synthetic.make_scene(**SCENE).to_scene_data()
+    pre = Prefetcher(VanillaBatcher(scene, cfg))
+    try:
+        fetched = [next(pre) for _ in range(4)]
+    finally:
+        pre.close()
+    direct = VanillaBatcher(scene, cfg)
+    same = all(np.array_equal(b[k], w[k]) for b in fetched
+               for w in [direct.next_batch()] for k in w) and not \
+        pre.thread.is_alive()
+    log(f"prefetched stream (4 flagship batches) equals the batcher's bit "
+        f"for bit: {same}")
+    gate(same, "the prefetched stream is not the batcher's")
+
+    # 38c. The one-pass step with the term against the eager step, and
+    # the term on the card against the CPU.
+    g_cfg = cfg.replace(N_rand=GUARD_N_RAND, lpips_weights_path=npz)
+    lp = loop.train_lpips_params(g_cfg, dev)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(scene, g_cfg).next_batch(), dev)
+    g_draws = step_lib.make_draws(g_cfg, g_batch["rgb"].shape[0],
+                                  step_lib.step_generator(g_cfg.seed, 0,
+                                                          dev), dev)
+    (_, st_k), (_, st_e) = guard_steps(
+        f"step guard with the LPIPS term (N_rand {GUARD_N_RAND}, bf16)",
+        op.build_onepass_vanilla_train_step(g_cfg, lpips_params=lp),
+        step_lib.build_vanilla_train_step(g_state.model, g_cfg,
+                                          lpips_params=lp),
+        g_state, g_batch, g_draws)
+    d_lp = abs(float(st_k["patch_lpips"]) - float(st_e["patch_lpips"]))
+    log(f"  patch_lpips kernel {float(st_k['patch_lpips']):.6e} eager "
+        f"{float(st_e['patch_lpips']):.6e} (|diff| {d_lp:.2e})")
+    gate(float(st_e["patch_lpips"]) > 0 and d_lp < STEP_LOSS_TOL * float(
+        st_e["patch_lpips"]), "the one-pass step's patch_lpips disagrees")
+    p = g_cfg.n_patches * g_cfg.patch_size ** 2
+    gt = g_batch["rgb"][:p].reshape(-1, 16, 16, 3).float()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pred0 = (gt + 0.1 * torch.randn(gt.shape, generator=gen, device=dev)
+             ).clamp(0, 1)
+    terms = {}
+    for dev_ in (str(dev), "cpu"):
+        x = pred0.detach().to(dev_).requires_grad_()
+        params = lpips.params_to(lp, dev_)
+        val = torch.mean(lpips.lpips(params, x * 2 - 1,
+                                     gt.to(dev_) * 2 - 1))
+        val.backward()
+        terms[dev_] = (val.item(), x.grad.cpu())
+    card_t = terms[str(dev)]
+    rel = abs(card_t[0] - terms["cpu"][0]) / terms["cpu"][0]
+    g_rel = (torch.linalg.norm(card_t[1] - terms["cpu"][1])
+             / torch.linalg.norm(terms["cpu"][1])).item()
+    log(f"LPIPS term on 4 patches of 16x16, card (strict fp32) vs CPU: "
+        f"{card_t[0]:.7e} vs {terms['cpu'][0]:.7e} (rel {rel:.2e}, "
+        f"tol {LPIPS_CPU_RTOL:g}); d/dpatch rel L2 {g_rel:.2e} (tol "
+        f"{LPIPS_GRAD_REL:g})")
+    gate(rel < LPIPS_CPU_RTOL and g_rel < LPIPS_GRAD_REL,
+         "the LPIPS term on the card disagrees with the CPU's")
+    del g_state, st_k, st_e
+    torch.cuda.empty_cache()
+
+    # 38d. Times: the flagship one-pass step with and without the term
+    # (pre-made batches), and the train loop with and without prefetch.
+    batcher = VanillaBatcher(scene, cfg)
+    batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+    n = batches[0]["rgb"].shape[0]
+    lp_cfg = cfg.replace(lpips_weights_path=npz)
+    step_ms = {}
+    for label, c, params in (("without the LPIPS term", cfg, None),
+                             ("with the LPIPS term", lp_cfg, lp)):
+        st = loop.init_state(c, dev)
+        step_ms[label] = bench_steps(
+            f"one-pass step (flagship, {n} rays) {label}", tag,
+            loop.select_train_step(c, st.model, lpips_params=params), st,
+            batches, n)
+    added = (step_ms["with the LPIPS term"]
+             - step_ms["without the LPIPS term"])
+    log(f"{tag} the LPIPS term adds {added:.2f} ms to the flagship "
+        "one-pass step")
+    loop_ms = {}
+    for turn, pre_on in enumerate((True, False, True, False)):
+        c = cfg.replace(basedir=tmp, expname=f"loop_{turn}",
+                        i_print=1000, checkpoint_every=10 ** 6,
+                        use_tensorboard=False, gc_every=0)
+        loop.train(c, scene, num_steps=2, device=dev, use_prefetch=pre_on,
+                   log_fn=lambda m: None)  # warm-up and checkpoint
+        t0 = sync()
+        loop.train(c, scene, num_steps=2 + PREFETCH_STEPS, device=dev,
+                   use_prefetch=pre_on, log_fn=lambda m: None)
+        dt = sync() - t0
+        loop_ms.setdefault(pre_on, []).append(1e3 * dt / PREFETCH_STEPS)
+    log(f"{tag} train() on the flagship, {PREFETCH_STEPS} steps after a "
+        f"resume (set-up included: batcher, state, restore), ms/step in "
+        f"turns on, off, on, off: prefetch on {loop_ms[True]}, off "
+        f"{loop_ms[False]}")
+    torch.cuda.empty_cache()
+
+    # 38e. The noisy eager step and the mip eager step with normals, card
+    # against CPU on the same draws (fp32, a cut batch).
+    def move(x, dev_):
+        if isinstance(x, dict):
+            return {k: move(v, dev_) for k, v in x.items()}
+        if isinstance(x, list):
+            return [move(v, dev_) for v in x]
+        if hasattr(x, "map"):
+            return x.map(lambda t: t.to(dev_))
+        return x.to(dev_) if torch.is_tensor(x) else x
+
+    n_cfg = cfg.replace(N_rand=64, n_patches=1, compute_dtype="float32",
+                        raw_noise_std=1.0, use_fused_train=False)
+    n_state = loop.init_state(n_cfg, "cpu")
+    n_batch = to_device(VanillaBatcher(scene, n_cfg).next_batch(), "cpu")
+    n_draws = step_lib.make_draws(n_cfg, n_batch["rgb"].shape[0],
+                                  torch.Generator().manual_seed(2), "cpu")
+    gate({"noise_c", "noise_f"} <= set(n_draws), "make_draws drew no "
+         "density noise at raw_noise_std 1, perturb 1")
+    with_noise = cpu_step_gate(
+        f"noisy eager step (raw_noise_std 1, perturb 1, fp32, "
+        f"{n_batch['rgb'].shape[0]} rays)", n_cfg,
+        lambda c, m: step_lib.build_vanilla_train_step(m, c), n_state,
+        n_batch, n_draws, move, dev)
+    quiet = {k: v for k, v in n_draws.items() if not k.startswith("noise")}
+    st = loop.init_state(n_cfg, "cpu")
+    st.model.load_state_dict(n_state.model.state_dict())
+    _, q_stats = step_lib.build_vanilla_train_step(st.model, n_cfg)(
+        st, n_batch, quiet)
+    gate(float(q_stats["loss"]) != with_noise,
+         "the density noise did not move the eager step's loss")
+    m_cfg = configs.Config(**{**MIP, "compute_dtype": "float32",
+                              "disable_normals": False,
+                              "compute_normal_metrics": True,
+                              "compute_mono_depth_metrics": False,
+                              "use_fused_train": False})
+    m_state = loop.init_state(m_cfg, "cpu")
+    mb = MipBatcher(scene, m_cfg).next_batch()
+    cut = 256
+
+    def head(v):
+        if hasattr(v, "map"):
+            return v.map(lambda a: a[:cut])
+        return v[:cut] if np.ndim(v) and len(v) > cut else v
+
+    m_batch = to_device({k: head(v) for k, v in mb.items()}, "cpu")
+    m_draws = step_lib.make_mip_step_draws(
+        m_cfg, m_batch, torch.Generator().manual_seed(4), "cpu")
+    cpu_step_gate(f"mip eager step with normals (disable_normals false, "
+                  f"compute_normal_metrics, fp32, {cut} rays)", m_cfg,
+                  lambda c, m: step_lib.build_mip_train_step(m, c),
+                  m_state, m_batch, m_draws, move, dev)
+    del n_state, m_state
+
+    # 38f. Checkpoint round trip: export -> import -> render through #1.
+    tar = os.path.join(tmp, "trainer.tar")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        step = export_torch_ckpt.main([tar] + args(sets))
+        import_torch_ckpt.main([tar] + args(
+            [s_ for s_ in sets if not s_.startswith("expname=")]
+            + ["expname=round_trip"]))
+    log(text.getvalue().rstrip())
+    rt_cfg = rcfg.replace(expname="round_trip")
+    models = {}
+    for name, c in (("trainer", rcfg), ("round_trip", rt_cfg)):
+        m = make_model(c, dev)
+        models[name] = (m, CheckpointManager(os.path.join(
+            tmp, name, "checkpoints")).restore_for_eval(m))
+    rays = camera_rays_for_view(scene, scene.poses[scene.i_test[0]],
+                                device=dev)
+    outs_r = {}
+    for name in ("round_trip", "trainer"):
+        render = render_lib.build_render_fn(models[name][0].eval(), rcfg)
+        zero()
+        outs_r[name] = render(rays)
+        torch.cuda.synchronize()
+        got = read()
+        if name == "round_trip":
+            add(got)
+            rt_launches = got
+    same = all(torch.equal(outs_r["round_trip"][k], outs_r["trainer"][k])
+               for k in ("rgb", "depth", "acc"))
+    want_rt = {v2.KERNEL: per_render, v2.BWD_KERNEL: 0, op.KERNEL: 0,
+               fmip.KERNEL: 0}
+    log(f"checkpoint round trip (step {step} -> {os.path.basename(tar)} -> "
+        f"step {models['round_trip'][1]}): render of test view "
+        f"{scene.i_test[0]} launched {rt_launches} (expected {want_rt}); "
+        f"bit-equal to the original's render: {same}")
+    gate(step == TRAINER_STEPS + 2 and models["round_trip"][1] == step
+         and rt_launches == want_rt and same,
+         "the exported and imported checkpoint does not render as the "
+         "original")
+
+    # 38g. A pretrained mip-NeRF msgpack file -> a mip checkpoint -> #6.
+    mip_sets = [f"{k}={v}" for k, v in MIP.items()] + [
+        "dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+        f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+        "use_fused_render=true", f"basedir={tmp}", "expname=mip_import",
+        f"render_chunk_size={CHUNK}"]
+    mi_cfg = configs.parse_overrides(configs.Config(), mip_sets)
+    src = make_model(mi_cfg, "cpu")
+    tree = interop.mip_params_to_jax(src.state_dict())["params"]["MipMLP_0"]
+    d = mi_cfg.netdepth
+    mlp = {f"Dense_{i}": tree[f"Dense_{i}"] for i in range(d + 1)}
+    for i in (9, 17):  # the dropped density duplicates
+        mlp[f"Dense_{i}"] = {"kernel": np.ones((2, 2), np.float32),
+                             "bias": np.zeros(2, np.float32)}
+    for s_, d_ in ((18, d + 1), (19, d + 2), (20, d + 3)):
+        mlp[f"Dense_{s_}"] = tree[f"Dense_{d_}"]
+    ckpt_file = os.path.join(tmp, "pretrained", "checkpoint_1000")
+    os.makedirs(os.path.dirname(ckpt_file))
+    with open(ckpt_file, "wb") as f:
+        f.write(_mp({"optimizer": {"target": {"params": {"MLP_0": mlp}},
+                                   "state": {"step": np.int32(1000)}}}))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        import_mipnerf_ckpt.main([ckpt_file, os.path.join(
+            tmp, "mip_import")] + args(mip_sets))
+    log(text.getvalue().rstrip())
+    model = make_model(mi_cfg, dev)
+    mstep = CheckpointManager(os.path.join(
+        tmp, "mip_import", "checkpoints")).restore_for_eval(model)
+    equal_w = all(torch.equal(a.cpu(), b) for a, b in zip(
+        model.state_dict().values(), src.state_dict().values()))
+    mrays = camera_rays_for_view(scene, scene.poses[scene.i_test[0]],
+                                 device=dev)
+    zero()
+    fused = render_lib.build_render_fn(model.eval(), mi_cfg)(mrays)
+    torch.cuda.synchronize()
+    got = read()
+    add(got)
+    plain = render_lib.build_render_fn(
+        model, mi_cfg.replace(use_fused_render=False))(mrays)
+    torch.cuda.synchronize()
+    want_m = {v2.KERNEL: 0, v2.BWD_KERNEL: 0, op.KERNEL: 0,
+              fmip.KERNEL: mi_cfg.mip_num_levels * (-(-SCENE["H"]
+                                                      * SCENE["W"] // CHUNK))}
+    diff = (fused["rgb"] - plain["rgb"]).abs().mean().item()
+    finite = all(torch.isfinite(fused[k]).all() for k in ("rgb", "depth"))
+    log(f"mip import (step {mstep}, 8x256, the pretrained 21-layer "
+        f"layout): weights equal the source's: {equal_w}; render of test "
+        f"view {scene.i_test[0]} through {fmip.KERNEL}: launches {got} "
+        f"(expected {want_m}); mean|rgb - plain render's| {diff:.3e} (tol "
+        f"{RENDER_RGB_TOL:g}), finite {finite}")
+    gate(mstep == 1000 and equal_w and got == want_m and finite
+         and diff < RENDER_RGB_TOL, "the imported mip checkpoint")
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches}
+
 
 if __name__ == "__main__":
     try:

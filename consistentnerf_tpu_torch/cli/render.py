@@ -8,8 +8,10 @@ per frame.
 Weights come from the newest train checkpoint under
 `{basedir}/{expname}/checkpoints/` (`step_*.pt`, as the port's train CLI
 writes them), else from the newest reference-format `*.tar` under
-`{basedir}/{expname}/` (`cnerf-export-torch-ckpt` writes those); --step
-picks a step. Without either the model renders from its seeded init, and
+`{basedir}/{expname}/` (`cnerf-export-torch-ckpt` writes those; vanilla
+only: a mip experiment takes a train checkpoint, which
+`cli/import_mipnerf_ckpt.py` writes from a pretrained flax checkpoint);
+--step picks a step. Without either the model renders from its seeded init, and
 says so.
 """
 
@@ -119,9 +121,10 @@ def main(argv=None):
             model, int(os.path.basename(ckpt)[5:-3]))
         print(f"restored {ckpt} (step {step})")
     elif cfg.backbone == "mipnerf":
-        raise NotImplementedError(
-            f"{ckpt}: importing a reference mip-NeRF checkpoint is not "
-            "ported yet (ROADMAP Queue 1: import_mipnerf_ckpt)")
+        raise ValueError(
+            f"{ckpt}: a .tar holds a vanilla nerf-pytorch network; import a "
+            "pretrained mip-NeRF checkpoint into this experiment with "
+            "cli/import_mipnerf_ckpt.py")
     else:
         state, step = interop.load_reference_tar(ckpt)
         model.load_state_dict(state)

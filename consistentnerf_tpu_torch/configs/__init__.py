@@ -79,7 +79,7 @@ class Config:
     multires: int = 10
     multires_views: int = 4
     i_embed: int = 0
-    raw_noise_std: float = 0.0  # not ported (ROADMAP Queue 1: raw noise)
+    raw_noise_std: float = 0.0  # density noise of the eager vanilla step
     stable_init: bool = False  # read by neither package
     # TPU knobs of the JAX package that do not change the numbers: the
     # MLP's activation remat and the v2 forward kernel's tile and
@@ -122,7 +122,8 @@ class Config:
     deg_view: int = 4
     density_noise: float = 0.0
     rgb_padding: float = 0.001
-    # False: the render's normals (the steps refuse it: Queue 1, mip normals)
+    # False: normals in the render and the eager mip step (the fused
+    # steps need True, as in the JAX package)
     disable_normals: bool = True
     resample_padding_init: float = 0.01
     resample_padding_final: float = 0.01
@@ -224,8 +225,7 @@ class Config:
     i_video: int = 50000
     checkpoint_every: int = 10000
     checkpoint_keep: int = 100
-    # The JAX loop's housekeeping, not ported yet (ROADMAP Queue 1: train
-    # loop): train() says it skips them and trains on.
+    # The loop's housekeeping (train/loop.py::train).
     train_render_every: int = 0
     use_tensorboard: bool = True
     profile_steps: int = 0

@@ -11,13 +11,16 @@ Reproduces the reference's batch composition:
   (`load_random_rays`) and the near/far annealing (`anneal_nearfar`).
 All draw from `np.random.RandomState(cfg.seed)` in the JAX package's
 order, so a seed gives the same batches. Batches are numpy dicts; the
-trainer moves them to the device. The threaded `Prefetcher` (ROADMAP
-Queue 1: train loop) waits.
+trainer moves them to the device. `Prefetcher` runs a batcher on a
+thread ahead of the loop (the JAX package's, `data/pipeline.py:398-451`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import queue
+import threading
+import time
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -340,6 +343,75 @@ class MipBatcher:
 
     def __next__(self):
         return self.next_batch()
+
+
+class Prefetcher:
+    """Thread + bounded queue prefetch (datasets.py:443-533 pattern).
+
+    The producer makes ONE batch at a time and retries the put until it
+    lands (or `close()` is called), so no batch is dropped and the
+    consumed stream is exactly the batcher's stream: a seeded run gives
+    the same batches with prefetch on or off. A batcher exception is
+    captured and re-raised in the consumer's `__next__` (StopIteration as
+    StopIteration, anything else as a RuntimeError from it). Every wait
+    has a timeout; `close()` empties the queue so that a producer blocked
+    on a full one ends at once, or after the batch it is making."""
+
+    _POLL = 0.5  # seconds between the consumer's looks at the thread
+    _PUT = 0.1  # seconds between the producer's looks at `close()`
+
+    def __init__(self, batcher: Iterator, depth: int = 3):
+        self.batcher = batcher
+        self.queue: "queue.Queue" = queue.Queue(depth)
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                batch = next(self.batcher)
+                while not self._stop.is_set():
+                    try:
+                        self.queue.put(batch, timeout=self._PUT)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as exc:  # surfaced in __next__
+            self._error = exc
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            if self._stop.is_set():
+                raise StopIteration
+            try:
+                return self.queue.get(timeout=self._POLL)
+            except queue.Empty:
+                if self._error is not None:
+                    err, self._error = self._error, None
+                    if isinstance(err, StopIteration):
+                        raise StopIteration
+                    raise RuntimeError(
+                        "Prefetcher batcher thread failed") from err
+                if not self.thread.is_alive():
+                    raise StopIteration
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the thread and wait for it (at most `timeout` seconds);
+        the batches it made ahead are dropped."""
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        while self.thread.is_alive() and time.monotonic() < deadline:
+            try:
+                while True:
+                    self.queue.get_nowait()
+            except queue.Empty:
+                pass
+            self.thread.join(self._PUT)
 
 
 def to_device(batch: Dict[str, object], device) -> Dict:

@@ -22,6 +22,7 @@ def make_model(cfg, device="cuda"):
             lindisp=cfg.lindisp,
             net_depth=cfg.netdepth,
             net_width=cfg.netwidth,
+            raw_noise_std=cfg.raw_noise_std,
             dtype=cfg.compute_dtype,
         )
     elif cfg.backbone == "mipnerf":

@@ -3,8 +3,12 @@ compositing + hierarchical resample + fine MLP + compositing
 (`run_nerf_view.py:441-551` semantics).
 
 Random draws are explicit tensors: `t_rand` [N, num_samples] jitters the
-coarse depths and `u` [N, num_importance] drives the fine inverse-CDF
-draws. Without them the forward is the deterministic (test-time) render.
+coarse depths, `u` [N, num_importance] drives the fine inverse-CDF draws,
+and `noise_c` [N, num_samples] / `noise_f` [N, num_samples +
+num_importance] are the standard normals of the density noise, added to
+each level's density logit at `raw_noise_std` (the JAX package's
+`models/nerf.py:138-178`). Without them the forward is the deterministic
+(test-time) render.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ class VanillaNeRF(nn.Module):
                  multires: int = 10, multires_views: int = 4,
                  use_viewdirs: bool = True, white_bkgd: bool = False,
                  lindisp: bool = False, net_depth: int = 8,
-                 net_width: int = 256, dtype=torch.float32):
+                 net_width: int = 256, raw_noise_std: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
+        self.raw_noise_std = raw_noise_std
         self.num_samples = num_samples
         self.num_importance = num_importance
         self.multires = multires
@@ -62,10 +68,19 @@ class VanillaNeRF(nn.Module):
         raw = mlp(pts_embed, views_embed)
         return raw.reshape(n, s, raw.shape[-1])
 
+    def _noise(self, normals: Optional[torch.Tensor]):
+        if normals is None or self.raw_noise_std <= 0:
+            return None
+        return self.raw_noise_std * normals
+
     def forward(self, rays, t_rand: Optional[torch.Tensor] = None,
                 u: Optional[torch.Tensor] = None,
-                compute_extras: bool = False):
-        """Render flat rays ([N, 3] / [N, 1] fields).
+                compute_extras: bool = False,
+                noise_c: Optional[torch.Tensor] = None,
+                noise_f: Optional[torch.Tensor] = None):
+        """Render flat rays ([N, 3] / [N, 1] fields). `noise_c` /
+        `noise_f`: the levels' density-noise normals (used when
+        raw_noise_std > 0).
 
         Returns fine outputs under 'rgb'/'disp'/'acc'/'depth' and coarse
         outputs under 'rgb0'/'disp0'/'acc0'/'depth0' (+ 'z_std')."""
@@ -79,8 +94,8 @@ class VanillaNeRF(nn.Module):
             z_vals[..., :, None]
         raw = self._eval_mlp(self.coarse, pts, viewdirs)
         rgb_map, disp_map, acc_map, weights, depth_map = \
-            rendering.raw2outputs(raw, z_vals, directions, None,
-                                  self.white_bkgd)
+            rendering.raw2outputs(raw, z_vals, directions,
+                                  self._noise(noise_c), self.white_bkgd)
 
         ret = {}
         if self.num_importance > 0:
@@ -97,8 +112,8 @@ class VanillaNeRF(nn.Module):
                 z_vals_all[..., :, None]
             raw = self._eval_mlp(self.fine, pts, viewdirs)
             rgb_map, disp_map, acc_map, weights, depth_map = \
-                rendering.raw2outputs(raw, z_vals_all, directions, None,
-                                      self.white_bkgd)
+                rendering.raw2outputs(raw, z_vals_all, directions,
+                                      self._noise(noise_f), self.white_bkgd)
             ret["z_std"] = torch.std(z_samples, -1, correction=0)
 
         ret.update(rgb=rgb_map, disp=disp_map, acc=acc_map, depth=depth_map)

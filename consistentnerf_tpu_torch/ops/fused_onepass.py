@@ -446,7 +446,7 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
     `step_lib.apply_ss_loss`. `state` is updated in place."""
     from consistentnerf_tpu_torch.consistency import online
 
-    step_lib.check_supported(cfg)
+    step_lib.check_kernel_step(cfg)
     if not onepass_supported(cfg):
         raise ValueError(
             "the one-pass step needs per-ray losses with parameter-"
@@ -941,7 +941,6 @@ def build_onepass_mip_train_step(cfg):
     `state` is updated in place."""
     from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
 
-    step_lib.check_mip_supported(cfg)
     if not mip_onepass_supported(cfg):
         raise ValueError("the mip one-pass step needs disable_normals, "
                          "stop_level_grad, min_deg_point=0, "

@@ -33,7 +33,8 @@ compositing stay in torch, as in the JAX package.
 With `disable_normals=False` every level runs the normals variant
 (`fused_mip.fused_mip_mlp_normals_T`, kernel 6n) and the rendering dicts
 carry the normals map; that forward has no backward, so it serves the
-render (the train steps refuse normals). Random draws are tensors
+render (the fused train steps need disable_normals, as in the JAX
+package; the eager mip step trains with normals). Random draws are tensors
 (`train/step.py::make_draws`, `make_mip_draws`); there is no mesh
 argument (multi-GPU: ROADMAP Queue 1).
 """
@@ -143,7 +144,7 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
     optimizer chain and `finish_step`'s stats; with ss_loss the reference
     rays go through the same forward (`step_lib.apply_ss_loss`). `state`
     is updated in place."""
-    step_lib.check_supported(cfg)
+    step_lib.check_kernel_step(cfg)
     vanilla_op(cfg.fused_kernel)
     cdt = fm.as_dtype(cfg.compute_dtype)
     net_depth = cfg.netdepth
@@ -269,8 +270,11 @@ def build_fused_mip_train_step(cfg) -> Callable:
     autograd), then the optimizer chain and `finish_step`'s stats. The
     JAX dispatch sends the mip configs here that `mip_onepass_supported`
     refuses (disp metrics) or that set use_onepass_train=false. `state`
-    is updated in place."""
-    step_lib.check_mip_supported(cfg)
+    is updated in place. It needs `disable_normals` (the normals forward
+    6n has no backward), as the JAX step asserts (fused_train.py:315)."""
+    if not cfg.disable_normals:
+        raise ValueError("the fused mip train step requires "
+                         "disable_normals=true (6n has no backward)")
     cdt = fm.as_dtype(cfg.compute_dtype)
     net_depth = cfg.netdepth
 

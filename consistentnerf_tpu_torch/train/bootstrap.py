@@ -77,6 +77,7 @@ def bootstrap_scene_priors(
     log_fn: Callable[[str], None] = print,
     export_dir: Optional[str] = None,
     device="cuda",
+    use_prefetch: bool = True,
 ) -> Tuple[object, object]:
     """Run the producer stage on `device` and return (scene_with_priors,
     stage_result): the warmup's `TrainResult` or the MVS net's
@@ -111,7 +112,8 @@ def bootstrap_scene_priors(
         log_fn(f"bootstrap: warmup training {warmup_steps} steps "
                f"({warm_cfg.expname})")
         result = loop_lib.train(warm_cfg, warm_scene, num_steps=warmup_steps,
-                                device=device, log_fn=log_fn)
+                                device=device, log_fn=log_fn,
+                                use_prefetch=use_prefetch)
         depths = render_warmup_depths(warm_cfg, scene,
                                       result.state.model.eval())
     else:

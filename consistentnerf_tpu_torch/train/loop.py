@@ -1,15 +1,16 @@
 """Training harness of both trainers: setup, the step dispatch, the loop,
-logging and checkpoints. Throughput is logged as rays/sec like the
+logging and checkpoints, and the loop's housekeeping as the JAX package
+has it (`train/loop.py:113-268`): the threaded prefetch, TensorBoard
+scalars, a `torch.profiler` trace of `profile_steps` steps, `gc` pinned
+with a collection every `gc_every` steps, and a held-out render every
+`train_render_every` steps. Throughput is logged as rays/sec like the
 reference (`train.py:416-419`).
-
-Not ported yet: the threaded prefetch, TensorBoard, the profiler hook,
-`gc_every` and the periodic held-out render (ROADMAP Queue 1: train
-loop); `train()` names the fields it skips and trains on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 import warnings
@@ -20,6 +21,7 @@ import torch
 
 from consistentnerf_tpu_torch.data.pipeline import (AllImagesBatcher,
                                                     MipBatcher,
+                                                    Prefetcher,
                                                     VanillaBatcher,
                                                     to_device)
 from consistentnerf_tpu_torch.data.scene import SceneData
@@ -63,13 +65,24 @@ def select_train_step(cfg, model, lpips_params=None):
     (`ops/fused_train.py`); the eager step when use_fused_train is off.
     Where the heads read [pe | h] (netdepth 5) only the v1 kernels take
     them: the dispatch warns and trains a v2 kind on the eager step and a
-    v1 kind on its two-call step instead of the one-pass kernel."""
+    v1 kind on its two-call step instead of the one-pass kernel. The
+    kernel steps add no density noise (the JAX package's ignore
+    raw_noise_std; its eager step adds it): a config whose eager step
+    adds it trains on the eager step, with a warning."""
     from consistentnerf_tpu_torch.ops import fused_mlp as fm
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
 
     if cfg.backbone == "mipnerf":
         return _select_mip_train_step(cfg, model)
     if not cfg.use_fused_train:
+        return step_lib.build_vanilla_train_step(model, cfg,
+                                                 lpips_params=lpips_params)
+    if step_lib.has_raw_noise(cfg):
+        warnings.warn(
+            f"use_fused_train with raw_noise_std={cfg.raw_noise_std} at "
+            f"perturb {cfg.perturb}: the model adds density noise, which "
+            "the kernel steps do not compute; training on the eager step",
+            stacklevel=2)
         return step_lib.build_vanilla_train_step(model, cfg,
                                                  lpips_params=lpips_params)
     onepass = cfg.use_onepass_train and fused_onepass.onepass_supported(cfg)
@@ -121,41 +134,107 @@ def _select_mip_train_step(cfg, model):
     return fused_train.build_fused_mip_train_step(cfg)
 
 
-def skipped_housekeeping(cfg) -> dict:
-    """The JAX loop's housekeeping that this loop does not run yet
-    (ROADMAP Queue 1: train loop), as {field: value} where cfg turns it
-    on."""
-    on = {"use_tensorboard": cfg.use_tensorboard,
-          "gc_every": cfg.gc_every > 0,
-          "profile_steps": cfg.profile_steps > 0,
-          "train_render_every": cfg.train_render_every > 0}
-    return {k: getattr(cfg, k) for k, v in on.items() if v}
+def train_lpips_params(cfg, device, log_fn=print):
+    """The params of the train-time patch LPIPS term on `device`, or None
+    (the JAX loop's gate, train/loop.py:136-160): the vanilla backbone
+    only, and only with calibrated weights, since a random-init trunk
+    degrades quality; a path that names no file warns and skips. Patches
+    under `lpips.MIN_SIZE` pixels a side are refused."""
+    if cfg.backbone != "vanilla" or not cfg.lpips_weights_path:
+        return None
+    from consistentnerf_tpu_torch.train import lpips as lpips_mod
+
+    lp = lpips_mod.LPIPS(cfg.lpips_weights_path, device=device)
+    if lp.is_calibrated:
+        if (not cfg.use_batching and cfg.n_patches > 0
+                and cfg.patch_size < lpips_mod.MIN_SIZE):
+            # VGG's four pools leave no pixel of a smaller patch for the
+            # last block: the JAX term is then NaN (ROADMAP Queue 3 E).
+            raise ValueError(
+                f"the train-time LPIPS term needs patches of at least "
+                f"{lpips_mod.MIN_SIZE} pixels a side; patch_size="
+                f"{cfg.patch_size} (unset lpips_weights_path)")
+        return lp.params
+    log_fn(f"WARNING: lpips_weights_path={cfg.lpips_weights_path!r} not "
+           "found; SKIPPING the train-time LPIPS term (a random-init "
+           "perceptual loss degrades quality; export calibrated weights "
+           "with the JAX package's cli/export_lpips_weights.py)")
+    return None
+
+
+def summary_writer(cfg, log_fn=print):
+    """TensorBoard's writer under {basedir}/{expname}/runs, or None where
+    it is off or cannot be made (no `tensorboard` package), as the JAX
+    loop's (train/loop.py:164-173); the loop says why in one line."""
+    if not cfg.use_tensorboard:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(os.path.join(cfg.basedir, cfg.expname, "runs"))
+    except Exception as e:  # ImportError where tensorboard is missing
+        log_fn(f"use_tensorboard: no SummaryWriter ({type(e).__name__}: "
+               f"{e}); training without TensorBoard scalars")
+        return None
+
+
+class StepProfiler:
+    """`torch.profiler` over steps start+1 ... start+profile_steps (the
+    JAX loop's trace window), CPU and, on a card, CUDA activities; the
+    Chrome trace goes to `profile_dir`, else {basedir}/{expname}/profile.
+    `before(step_i)` runs before each step's batch; `close()` writes an
+    open window's trace."""
+
+    def __init__(self, cfg, start_step: int, device, log_fn=print):
+        self.first = start_step + 1
+        self.last = start_step + cfg.profile_steps
+        self.on = cfg.profile_steps > 0
+        self.out_dir = cfg.profile_dir or os.path.join(
+            cfg.basedir, cfg.expname, "profile")
+        self.device = torch.device(device)
+        self.log_fn = log_fn
+        self.prof = None
+
+    def before(self, step_i: int) -> None:
+        if not self.on:
+            return
+        if step_i == self.first:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+        elif step_i == self.last + 1:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir,
+                            f"train_steps_{self.first}-{self.last}.json")
+        prof.export_chrome_trace(path)
+        self.log_fn(f"profile of steps {self.first}-{self.last}: {path}")
 
 
 def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
           device="cuda", random_poses=None,
-          log_fn: Callable[[str], None] = print) -> TrainResult:
+          log_fn: Callable[[str], None] = print,
+          use_prefetch: bool = True) -> TrainResult:
     """Run (or resume) training; returns the final state and throughput.
-    `random_poses` [P, 3, 4]: the mip batcher's random-pose rays."""
+    `random_poses` [P, 3, 4]: the mip batcher's random-pose rays. With
+    `use_prefetch` a thread makes the batches ahead of the loop
+    (`Prefetcher`; the stream is the batcher's either way)."""
     num_steps = num_steps or cfg.total_iters
     device = torch.device(device)
     if cfg.mesh_shape is not None:
         raise NotImplementedError(
             f"mesh_shape={cfg.mesh_shape}: multi-device runs are not ported "
             "yet (ROADMAP Queue 1: multi-GPU)")
-    skipped = skipped_housekeeping(cfg)
-    if skipped:
-        log_fn("not ported yet (ROADMAP Queue 1: train loop), skipped: "
-               + ", ".join(f"{k}={v}" for k, v in skipped.items()))
-    if cfg.lpips_weights_path:
-        # The JAX loop turns the term on when the file exists (calibrated
-        # weights) and warns and skips it when it does not.
-        if os.path.exists(cfg.lpips_weights_path):
-            raise NotImplementedError(
-                "the train-time LPIPS term is not ported yet (ROADMAP Queue "
-                "1: eval metrics); unset lpips_weights_path")
-        log_fn(f"WARNING: lpips_weights_path={cfg.lpips_weights_path!r} "
-               "not found; SKIPPING the train-time LPIPS term")
     batcher = make_batcher(scene, cfg, random_poses)
     # The JAX loop draws an example batch to initialise its state before
     # the loop, so step i trains on the batcher's batch i + 1 and the
@@ -170,26 +249,78 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
     start_step = state.step
     if start_step:
         log_fn(f"resumed from step {start_step}")
-    train_step = select_train_step(cfg, state.model)
+    lpips_params = train_lpips_params(cfg, device, log_fn)
+    train_step = select_train_step(cfg, state.model,
+                                   lpips_params=lpips_params)
 
+    source = Prefetcher(batcher) if use_prefetch else batcher
+    writer = summary_writer(cfg, log_fn)
+    profiler = StepProfiler(cfg, start_step, device, log_fn)
     stats_history = []
     rays_per_sec = 0.0
     t0, last_log = time.time(), start_step
-    for step_i in range(start_step, num_steps):
-        batch = to_device(batcher.next_batch(), device)
-        state, stats = train_step(state, batch)
-        if (step_i + 1) % cfg.i_print == 0:
-            stats = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
-                     for k, v in stats.items()}
-            rays_per_sec = ((step_i + 1 - last_log) * batch_rays
-                            / (time.time() - t0))
-            t0, last_log = time.time(), step_i + 1
-            stats_history.append(stats)
-            log_fn(f"step {step_i + 1}/{num_steps} "
-                   f"loss={float(stats['loss']):.4f} "
-                   f"psnr={float(stats.get('psnr', np.nan)):.2f} "
-                   f"{rays_per_sec:,.0f} rays/sec")
-        if (step_i + 1) % cfg.checkpoint_every == 0 or step_i + 1 == num_steps:
-            ckpt.save(step_i + 1, state)
+    # gc off for the loop (RegNeRF train.py:366,407-408), its state
+    # restored on the way out, also when a step raises.
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for step_i in range(start_step, num_steps):
+            if cfg.gc_every > 0 and (step_i + 1) % cfg.gc_every == 0:
+                gc.collect()
+            profiler.before(step_i)
+            batch = to_device(next(source), device)
+            state, stats = train_step(state, batch)
+            if (step_i + 1) % cfg.i_print == 0:
+                stats = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
+                         for k, v in stats.items()}
+                rays_per_sec = ((step_i + 1 - last_log) * batch_rays
+                                / (time.time() - t0))
+                t0, last_log = time.time(), step_i + 1
+                stats_history.append(stats)
+                log_fn(f"step {step_i + 1}/{num_steps} "
+                       f"loss={float(stats['loss']):.4f} "
+                       f"psnr={float(stats.get('psnr', np.nan)):.2f} "
+                       f"{rays_per_sec:,.0f} rays/sec")
+                if writer is not None:
+                    for k, v in stats.items():
+                        if v.ndim == 0:
+                            writer.add_scalar(f"train_{k}", float(v),
+                                              step_i + 1)
+                    writer.add_scalar("train_rays_per_sec", rays_per_sec,
+                                      step_i + 1)
+            if (step_i + 1) % cfg.checkpoint_every == 0 or \
+                    step_i + 1 == num_steps:
+                ckpt.save(step_i + 1, state)
+            if (cfg.train_render_every > 0
+                    and (step_i + 1) % cfg.train_render_every == 0
+                    and len(scene.i_test) > 0):
+                held_out_render(cfg, scene, state.model, step_i + 1,
+                                writer, log_fn)
+    finally:
+        profiler.close()
+        if source is not batcher:
+            source.close()
+        if writer is not None:
+            writer.close()
+        if gc_was_enabled:
+            gc.enable()
     return TrainResult(state=state, stats_history=stats_history,
                        rays_per_sec=rays_per_sec)
+
+
+def held_out_render(cfg, scene, model, step: int, writer, log_fn) -> dict:
+    """The periodic held-out render (RegNeRF train.py:492-564): the first
+    test view through `evaluate()` into {basedir}/{expname}/train_renders,
+    logged and written to TensorBoard as test_*."""
+    from consistentnerf_tpu_torch.train import evaluation
+
+    metrics = evaluation.evaluate(
+        model, cfg, scene,
+        out_dir=os.path.join(cfg.basedir, cfg.expname, "train_renders"),
+        views=scene.i_test[:1], step=step)
+    log_fn(f"  test render @ {step}: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sorted(metrics.items())))
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.add_scalar(f"test_{k}", v, step)
+    return metrics

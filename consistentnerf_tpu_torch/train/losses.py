@@ -16,6 +16,7 @@ from consistentnerf_tpu_torch.consistency import masks as mask_losses
 from consistentnerf_tpu_torch.consistency.monodepth import midas_patch_loss
 from consistentnerf_tpu_torch.core import mathx
 from consistentnerf_tpu_torch.train import image_metrics
+from consistentnerf_tpu_torch.train import lpips as lpips_mod
 
 
 def tree_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -48,18 +49,22 @@ def _depth_loss(pred_depth, prior_depth, mask, cfg, far, temp):
 
 
 def _patch_terms(rgb_pred, depth_pred, batch, cfg, lpips_params):
-    """MiDaS + SSIM + LPIPS patch terms (run_nerf_view.py:1679-1728)."""
-    if lpips_params is not None:
-        raise NotImplementedError(
-            "the patch LPIPS term is not ported yet (ROADMAP Queue 1: eval "
-            "metrics); leave lpips_weights_path unset")
+    """MiDaS + SSIM + LPIPS patch terms (run_nerf_view.py:1679-1728).
+    The LPIPS term (`lpips_params` given: calibrated weights on the
+    predictions' device) is the mean distance of the n_patches patches
+    in [-1, 1], differentiable through the VGG trunk; else 0."""
     ps, npatch = cfg.patch_size, cfg.n_patches
     p2 = ps * ps
     mono = midas_patch_loss(depth_pred, batch["mono_disp"], ps, npatch)
     img_pred = rgb_pred[: npatch * p2].reshape(npatch, ps, ps, 3)
     img_gt = batch["rgb"][: npatch * p2].reshape(npatch, ps, ps, 3)
     ssim_val = torch.mean(image_metrics.ssim(img_pred, img_gt))
-    return mono, ssim_val, torch.zeros((), device=rgb_pred.device)
+    if lpips_params is None:
+        lp = torch.zeros((), device=rgb_pred.device)
+    else:
+        lp = torch.mean(lpips_mod.lpips(lpips_params, img_pred * 2 - 1,
+                                        img_gt * 2 - 1))
+    return mono, ssim_val, lp
 
 
 def vanilla_losses(outputs: Dict[str, torch.Tensor],

@@ -26,6 +26,9 @@ from consistentnerf_tpu_torch.ops import fused_mlp as fm
 # VGG16 feature config: (out_channels, num_convs) per block.
 _VGG_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
+# The least image side with a pixel left for the last block (4 pools).
+MIN_SIZE = 16
+
 # The ImageNet normalisation of lpips.LPIPS (its scaling layer).
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -73,6 +76,19 @@ def load_weights(path: str) -> Params:
                  for bi, (_, n_convs) in enumerate(_VGG_BLOCKS)]
         lins = [data[f"lin{bi}"] for bi in range(len(_VGG_BLOCKS))]
     return params_from_hwio(convs, lins)
+
+
+def save_weights(path: str, params: Params) -> None:
+    """Write params as the `.npz` that `load_weights` reads (HWIO convs):
+    the export format of calibrated weights."""
+    arrays = {}
+    for bi, block in enumerate(params["convs"]):
+        for ci, conv in enumerate(block):
+            arrays[f"conv{bi}_{ci}_w"] = conv["w"].detach().cpu().permute(
+                2, 3, 1, 0).numpy()
+            arrays[f"conv{bi}_{ci}_b"] = conv["b"].detach().cpu().numpy()
+        arrays[f"lin{bi}"] = params["lins"][bi].detach().cpu().numpy()
+    np.savez(path, **arrays)
 
 
 def params_to(params: Params, device) -> Params:

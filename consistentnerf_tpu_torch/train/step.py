@@ -7,9 +7,12 @@ Random draws are tensors. Vanilla (`make_draws`): `t_rand`
 [N, N_samples] jitters the coarse depths, `u` [N, N_importance] drives
 the fine inverse CDF (ascending order statistics with `use_pdf_kernel`,
 which kernel #8 needs; the fine depths are the same set in distribution),
-`noise` holds the standard normals of `use_noise`, and with `ss_loss`
-`ss` holds the gate of the main RGB loss and the reference rays'
-`t_rand` / `u` (`apply_ss_loss`). Mip (`make_mip_draws`, when
+`noise_c` [N, N_samples] / `noise_f` [N, N_samples+N_importance] the
+density noise's standard normals where it applies (`raw_noise_std > 0`
+and `perturb > 0`, `has_raw_noise`), `noise` holds the standard normals
+of `use_noise`, and with `ss_loss` `ss` holds the gate of the main RGB
+loss and the reference rays' `t_rand` / `u` (and `noise_c` /
+`noise_f`). Mip (`make_mip_draws`, when
 `randomized`): `t_rand` [N, S+1] jitters the first level's fenceposts,
 `jitter[l]` drives level l's resampling and `noise[l]` [N, S] holds the
 density noise's standard normals; `random` holds the same draws for the random-pose rays of the
@@ -54,9 +57,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
+def has_raw_noise(cfg) -> bool:
+    """Whether a vanilla train step adds density noise: raw_noise_std > 0,
+    and perturb > 0, where the JAX step hands the model an rng
+    (train/step.py:126-127; the model draws the noise only with one)."""
+    return cfg.raw_noise_std > 0 and cfg.perturb > 0
+
+
 def _level_draws(cfg, n: int, generator: torch.Generator,
                  device) -> Dict[str, torch.Tensor]:
-    """The sampling draws of n rays' two levels (none at perturb 0)."""
+    """The sampling draws of n rays' two levels and their density-noise
+    normals (none at perturb 0)."""
     draws: Dict[str, torch.Tensor] = {}
     if cfg.perturb > 0:
         draws["t_rand"] = torch.rand((n, cfg.N_samples),
@@ -68,7 +79,19 @@ def _level_draws(cfg, n: int, generator: torch.Generator,
         elif cfg.N_importance > 0:
             draws["u"] = torch.rand((n, cfg.N_importance),
                                     generator=generator, device=device)
+    if has_raw_noise(cfg):
+        draws["noise_c"] = torch.randn((n, cfg.N_samples),
+                                       generator=generator, device=device)
+        if cfg.N_importance > 0:
+            draws["noise_f"] = torch.randn(
+                (n, cfg.N_samples + cfg.N_importance), generator=generator,
+                device=device)
     return draws
+
+
+def model_draws(draws: Dict) -> Dict[str, Optional[torch.Tensor]]:
+    """The keyword arguments of `VanillaNeRF.forward` in `draws`."""
+    return {k: draws.get(k) for k in ("t_rand", "u", "noise_c", "noise_f")}
 
 
 def make_draws(cfg, n: int, generator: torch.Generator,
@@ -196,12 +219,15 @@ def apply_ss_loss(apply_fn, batch, cfg, outputs, loss, stats,
     return loss, stats
 
 
-def check_supported(cfg) -> None:
-    """Options of the vanilla step that this package does not run yet."""
-    if cfg.raw_noise_std > 0:
-        raise NotImplementedError(
-            "raw_noise_std > 0 is not ported yet (ROADMAP Queue 1: raw "
-            "noise)")
+def check_kernel_step(cfg) -> None:
+    """The kernel steps compute no density noise: a config whose eager
+    step adds it is refused (`train/loop.py::select_train_step` sends
+    it to the eager step)."""
+    if has_raw_noise(cfg):
+        raise ValueError(
+            f"raw_noise_std={cfg.raw_noise_std} at perturb {cfg.perturb}: "
+            "the kernel steps add no density noise (the model adds it); "
+            "train it on the eager step")
 
 
 def finish_step(state: TrainState, stats: Dict, cfg) -> Dict:
@@ -224,7 +250,6 @@ def build_vanilla_train_step(model, cfg,
     """train_step(state, batch, draws=None) -> (state, stats). `batch`
     holds tensors on the model's device; `state` (whose module is
     `model`) is updated in place."""
-    check_supported(cfg)
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
         rays = rays_from_batch(batch, cfg.near, cfg.far)
@@ -235,16 +260,14 @@ def build_vanilla_train_step(model, cfg,
         temp = mask_mod.temp_schedule(state.step, cfg.total_iters,
                                       cfg.temp_start, cfg.temp_end)
         state.optimizer.zero_grad()
-        outputs = state.model(rays, t_rand=draws.get("t_rand"),
-                              u=draws.get("u"))
+        outputs = state.model(rays, **model_draws(draws))
         if cfg.use_noise:
             outputs = apply_output_noise(outputs, cfg, draws["noise"])
         loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg, cfg.far,
                                                 temp, lpips_params)
         if has_ss(cfg, batch):
             def apply_fn(rays_, d):
-                return state.model(rays_, t_rand=d.get("t_rand"),
-                                   u=d.get("u"))
+                return state.model(rays_, **model_draws(d))
 
             loss, stats = apply_ss_loss(apply_fn, batch, cfg, outputs, loss,
                                         stats, draws["ss"])
@@ -252,15 +275,6 @@ def build_vanilla_train_step(model, cfg,
         return state, finish_step(state, stats, cfg)
 
     return train_step
-
-
-def check_mip_supported(cfg) -> None:
-    """Options of the mip steps that this package does not run yet."""
-    if not cfg.disable_normals or cfg.compute_normal_metrics:
-        raise NotImplementedError(
-            "the mip train steps with normals (disable_normals=false) or "
-            "compute_normal_metrics are not ported yet (ROADMAP Queue 1: "
-            "mip normals); the render computes normals")
 
 
 def resample_padding(cfg, step: int) -> float:
@@ -274,8 +288,10 @@ def build_mip_train_step(model, cfg) -> Callable:
     backbone (RegNeRF/train.py:97-241 through `mip_losses`), with the TV
     norm on the batch's random-pose rays (`rays_random`) when it is on.
     `batch` holds `Rays` bundles and tensors on the model's device;
-    `state` (whose module is `model`) is updated in place."""
-    check_mip_supported(cfg)
+    `state` (whose module is `model`) is updated in place. With
+    `disable_normals=false` the model computes the normals too (no loss
+    reads them); `compute_normal_metrics` or `compute_disp_metrics` ask
+    it for the extras, as the JAX step does (train/step.py:195-196)."""
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
         rays = batch["rays"]
@@ -285,8 +301,10 @@ def build_mip_train_step(model, cfg) -> Callable:
                 cfg.seed, state.step, device), device)
         padding = resample_padding(cfg, state.step)
         state.optimizer.zero_grad()
-        renderings = state.model(rays, draws, resample_padding=padding,
-                                 compute_extras=cfg.compute_disp_metrics)
+        renderings = state.model(
+            rays, draws, resample_padding=padding,
+            compute_extras=(cfg.compute_disp_metrics
+                            or cfg.compute_normal_metrics))
         renderings_random = None
         if renders_random(cfg, batch):
             renderings_random = state.model(

@@ -202,10 +202,20 @@ def test_multi_device_fields_raise_where_jax_reads_them(tmp_path):
 
 
 def test_skipped_housekeeping_is_named():
-    assert loop.skipped_housekeeping(configs.Config()) == {
-        "use_tensorboard": True, "gc_every": 10000}
-    # A gin file's seeded reference defaults turn on the periodic render.
-    cfg = configs.Config(**legacy._REGNERF_BASE).replace(
-        use_tensorboard=False, gc_every=0, profile_steps=3)
-    assert loop.skipped_housekeeping(cfg) == {"train_render_every": 2000,
-                                              "profile_steps": 3}
+    """The loop's housekeeping is ported (`train/loop.py`), so it skips
+    none: the fields keep the JAX defaults (TensorBoard and gc_every on,
+    a gin file's seeded train_render_every 2000), and the profiler's
+    window is the JAX loop's, steps start+1 ... start+profile_steps."""
+    assert not hasattr(loop, "skipped_housekeeping")
+    cfg = configs.Config()
+    jcfg = JaxConfig()
+    for k in ("use_tensorboard", "gc_every", "profile_steps",
+              "train_render_every", "profile_dir"):
+        assert getattr(cfg, k) == getattr(jcfg, k), k
+    assert (cfg.use_tensorboard, cfg.gc_every) == (True, 10000)
+    gin = configs.Config(**legacy._REGNERF_BASE)
+    assert gin.train_render_every == 2000
+    prof = loop.StepProfiler(cfg.replace(profile_steps=3), 5, "cpu")
+    assert (prof.first, prof.last) == (6, 8)
+    assert prof.out_dir.endswith("profile")
+    assert not loop.StepProfiler(cfg, 5, "cpu").on

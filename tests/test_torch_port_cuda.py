@@ -11,9 +11,14 @@ level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
 bit for bit against #2 and #14 against #11 on the same points, the
 evaluation's metric suite and `evaluate()` on the card against the CPU,
 the one-pass step with ss_loss (#3 on the reference rays) against
-its packed walk and the eager step, and the depth-prior producers' quality
+its packed walk and the eager step, the depth-prior producers' quality
 runs (the supervised MVS net against baselines, the warmup bootstrap end
-to end with a consistent retrain).
+to end with a consistent retrain), and the whole trainer: the one-pass
+step with the train-time LPIPS term against the eager step, the term,
+the noisy eager step and the mip eager step with normals against the
+CPU, train() with its housekeeping and a checkpoint exported and
+imported back, and a mip checkpoint imported from a flax msgpack file
+rendered through #6.
 
 Every test here needs a CUDA device and skips without one. The module
 imports torch and the port only, so it also runs where jax is not
@@ -1710,3 +1715,279 @@ def test_bootstrap_priors_end_to_end(cuda_device, tmp_path):
           f"(x{b_derr / w_derr:.2f}); PSNR warmup {w_psnr:.2f} retrain "
           f"{b_psnr:.2f} ({b_psnr - w_psnr:+.2f} dB)")
     assert np.isfinite(b_derr) and np.isfinite(b_psnr) and b_psnr > 8.0
+
+
+# ------------------- the whole trainer and its checkpoints -------------------
+
+TINY_TRAIN = dict(backbone="vanilla", netdepth=8, netwidth=256, N_samples=16,
+                  N_importance=16, N_rand=256, n_patches=4, patch_size=16,
+                  hardmask=True, with_depth_loss=True, white_bkgd=True,
+                  compute_dtype="bfloat16", perturb=1.0,
+                  use_fused_train=True, use_onepass_train=True)
+
+
+def _lpips_file(path):
+    """The port's seeded LPIPS init in the `.npz` export format."""
+    from consistentnerf_tpu_torch.train import lpips
+
+    lpips.save_weights(str(path), lpips.init_params(0))
+    return str(path)
+
+
+def _step_grads(step_fn, state, batch, draws):
+    """(stats, the grads the optimizer's update reads) of one step."""
+    grads = []
+    real = state.optimizer.step
+
+    def keep(count):
+        grads.extend(torch.zeros_like(p) if p.grad is None else
+                     p.grad.detach().clone() for p in state.model.parameters())
+        real(count)
+
+    state.optimizer.step = keep
+    _, stats = step_fn(state, batch, draws)
+    return stats, grads
+
+
+def _rel_l2(a, b):
+    return (torch.linalg.norm(a.float().cpu() - b.float().cpu())
+            / torch.linalg.norm(b.float().cpu()).clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+def test_onepass_step_with_lpips_matches_eager_on_the_card(cuda_device,
+                                                           tmp_path):
+    """The one-pass step with the train-time LPIPS term (patch rays
+    through #1 / #2 with autograd, the rest through #3) against the eager
+    step on the card, bf16, from the same state, batch and draws."""
+    import copy
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+    from consistentnerf_tpu_torch.train import loop, step as step_lib
+
+    cfg = configs.Config(**TINY_TRAIN,
+                         lpips_weights_path=_lpips_file(tmp_path / "l.npz"))
+    lp = loop.train_lpips_params(cfg, cuda_device)
+    scene = synthetic.make_scene(n_views=4, H=48, W=48).to_scene_data()
+    batch = to_device(VanillaBatcher(scene, cfg).next_batch(), cuda_device)
+    draws = step_lib.make_draws(cfg, batch["rgb"].shape[0],
+                                step_lib.step_generator(0, 0, cuda_device),
+                                cuda_device)
+    state = loop.init_state(cfg, cuda_device)
+    before = (v2.launches, v2.bwd_launches, op.launches)
+    st_k, g_k = _step_grads(op.build_onepass_vanilla_train_step(
+        cfg, lpips_params=lp), copy.deepcopy(state), batch, draws)
+    torch.cuda.synchronize()
+    assert (v2.launches - before[0], v2.bwd_launches - before[1],
+            op.launches - before[2]) == (2, 2, 2)
+    st_e, g_e = _step_grads(step_lib.build_vanilla_train_step(
+        None, cfg, lpips_params=lp), copy.deepcopy(state), batch, draws)
+    assert float(st_e["patch_lpips"]) > 0
+    assert abs(float(st_k["patch_lpips"]) / float(st_e["patch_lpips"])
+               - 1) < 1e-2
+    assert abs(float(st_k["loss"]) / float(st_e["loss"]) - 1) < 1e-2
+    # bf16: the grads as one vector (a small leaf's own relative error
+    # reached 5.1e-2 on an H100 at this size).
+    assert _rel_l2(torch.cat([g.reshape(-1) for g in g_k]),
+                torch.cat([g.reshape(-1) for g in g_e])) < 5e-2
+
+
+@pytest.mark.cuda
+def test_lpips_term_and_noisy_and_normals_steps_match_the_cpu(cuda_device):
+    """fp32 in strict mode: the LPIPS term and its gradient on 16x16
+    patches, the eager vanilla step with density noise and the eager mip
+    step with normals, each on the card against the CPU from the same
+    inputs and draws."""
+    import copy
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import (MipBatcher,
+                                                        VanillaBatcher,
+                                                        to_device)
+    from consistentnerf_tpu_torch.train import loop, lpips
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    params = lpips.init_params(0)
+    g = torch.Generator().manual_seed(0)
+    gt = torch.rand(4, 16, 16, 3, generator=g)
+    pred = (gt + 0.1 * torch.randn(gt.shape, generator=g)).clamp(0, 1)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        x = pred.to(dev).requires_grad_()
+        val = lpips.lpips(lpips.params_to(params, dev), x * 2 - 1,
+                          gt.to(dev) * 2 - 1).mean()
+        val.backward()
+        out[dev.type] = (val.item(), x.grad.cpu())
+    assert abs(out["cuda"][0] / out["cpu"][0] - 1) < 1e-4
+    assert _rel_l2(out["cuda"][1], out["cpu"][1]) < 1e-3
+
+    scene = synthetic.make_scene(n_views=4, H=48, W=48).to_scene_data()
+
+    def move(x, dev):
+        if isinstance(x, dict):
+            return {k: move(v, dev) for k, v in x.items()}
+        if isinstance(x, list):
+            return [move(v, dev) for v in x]
+        if hasattr(x, "map"):
+            return x.map(lambda t: t.to(dev))
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    cases = []
+    n_cfg = configs.Config(**{**TINY_TRAIN, "compute_dtype": "float32",
+                              "raw_noise_std": 1.0, "n_patches": 1,
+                              "use_fused_train": False})
+    b = to_device(VanillaBatcher(scene, n_cfg).next_batch(), "cpu")
+    d = step_lib.make_draws(n_cfg, b["rgb"].shape[0],
+                            torch.Generator().manual_seed(1), "cpu")
+    assert {"noise_c", "noise_f"} <= set(d)
+    cases.append((n_cfg, step_lib.build_vanilla_train_step, b, d))
+    m_cfg = configs.Config(backbone="mipnerf", netdepth=8, netwidth=256,
+                           mip_num_samples=16, N_rand=128,
+                           disable_normals=False,
+                           compute_normal_metrics=True, white_bkgd=True,
+                           randomized=True, density_noise=1.0)
+    mb = to_device(MipBatcher(scene, m_cfg).next_batch(), "cpu")
+    md = step_lib.make_mip_step_draws(m_cfg, mb,
+                                      torch.Generator().manual_seed(2), "cpu")
+    cases.append((m_cfg, step_lib.build_mip_train_step, mb, md))
+    for cfg, build, batch, draws in cases:
+        state = loop.init_state(cfg, "cpu")
+        res = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            st = copy.deepcopy(state)
+            st.model.to(dev)
+            res[dev.type] = _step_grads(build(None, cfg), st,
+                                        move(batch, dev), move(draws, dev))
+        (st_k, g_k), (st_c, g_c) = res["cuda"], res["cpu"]
+        assert abs(float(st_k["loss"]) / float(st_c["loss"]) - 1) < 1e-4
+        assert max(_rel_l2(a, b_) for a, b_ in zip(g_k, g_c)) < 1e-2
+
+
+@pytest.mark.cuda
+def test_train_loop_housekeeping_on_the_card(cuda_device, tmp_path):
+    """train() on the card with prefetch, a profiler trace of 2 steps (it
+    names #3), a held-out render through #1, gc_every and the LPIPS term,
+    then the checkpoint exported, imported and rendered bit for bit as
+    the original."""
+    import json
+    import os
+
+    from consistentnerf_tpu_torch.cli import export_torch_ckpt
+    from consistentnerf_tpu_torch.cli import import_torch_ckpt
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from consistentnerf_tpu_torch.train.evaluation import \
+        camera_rays_for_view
+
+    npz = _lpips_file(tmp_path / "l.npz")
+    cfg = configs.Config(**TINY_TRAIN, lpips_weights_path=npz,
+                         profile_steps=2, train_render_every=4, gc_every=2,
+                         use_fused_render=True, use_tensorboard=False,
+                         basedir=str(tmp_path), expname="hk", i_print=1)
+    scene = synthetic.make_scene(n_views=4, H=48, W=48).to_scene_data()
+    said = []
+    res = loop.train(cfg, scene, num_steps=4, device=cuda_device,
+                     log_fn=said.append)
+    assert res.state.step == 4
+    assert any(m.startswith("  test render @ 4:") for m in said)
+    trace = os.path.join(tmp_path, "hk", "profile", "train_steps_1-2.json")
+    with open(trace) as f:
+        names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
+    assert any(op.KERNEL in n for n in names)
+    tar = str(tmp_path / "hk.tar")
+    sets = ["backbone=vanilla", "netdepth=8", "netwidth=256",
+            "N_samples=16", "N_importance=16", "compute_dtype=bfloat16",
+            "use_fused_render=true", f"basedir={tmp_path}"]
+
+    def args(exp):
+        return ["--device", "cuda"] + [x for s in sets + [f"expname={exp}"]
+                                       for x in ("--set", s)]
+
+    assert export_torch_ckpt.main([tar] + args("hk")) == 4
+    import_torch_ckpt.main([tar] + args("rt"))
+    renders = []
+    for exp in ("hk", "rt"):
+        model = make_model(cfg, cuda_device)
+        CheckpointManager(os.path.join(tmp_path, exp, "checkpoints")
+                          ).restore_for_eval(model)
+        before = v2.launches
+        renders.append(render_lib.build_render_fn(model.eval(), cfg)(
+            camera_rays_for_view(scene, scene.poses[0], device=cuda_device)))
+        torch.cuda.synchronize()
+        assert v2.launches > before
+    assert all(torch.equal(renders[0][k], renders[1][k])
+               for k in ("rgb", "depth"))
+
+
+def _msgpack(obj) -> bytes:
+    """flax's msgpack encoding of a tree of string-keyed maps and numpy
+    arrays / scalars (extensions 1 and 3: a packed (shape, dtype name,
+    bytes)), written here: the card's machine has neither flax nor
+    msgpack."""
+    import struct
+
+    import numpy as np
+
+    if isinstance(obj, dict):
+        return b"\xde" + struct.pack(">H", len(obj)) + b"".join(
+            _msgpack(str(k)) + _msgpack(v) for k, v in obj.items())
+    if isinstance(obj, str):
+        return b"\xda" + struct.pack(">H", len(obj)) + obj.encode()
+    if isinstance(obj, list):
+        return b"\xdc" + struct.pack(">H", len(obj)) + b"".join(
+            _msgpack(x) for x in obj)
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, int):
+        return b"\xd3" + struct.pack(">q", obj)
+    arr = np.array(obj, order="C")  # a scalar stays 0-d
+    payload = _msgpack([list(arr.shape), arr.dtype.name, arr.tobytes()])
+    code = 1 if isinstance(obj, np.ndarray) else 3
+    return b"\xc9" + struct.pack(">Ib", len(payload), code) + payload
+
+
+@pytest.mark.cuda
+def test_mip_import_renders_through_the_fused_forward(cuda_device,
+                                                      tmp_path):
+    """A flax msgpack file of the pretrained layout -> a mip checkpoint,
+    rendered through #6 (bf16) against the plain render."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch import interop
+    from consistentnerf_tpu_torch.cli import import_mipnerf_ckpt
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+
+    cfg = configs.Config(backbone="mipnerf", netdepth=8, netwidth=256,
+                         mip_num_samples=32, compute_dtype="bfloat16",
+                         use_fused_render=True, white_bkgd=True)
+    src = make_model(cfg, "cpu")
+    tree = interop.mip_params_to_jax(src.state_dict())
+    tree = {"optimizer": {"target": tree, "state": {"step": np.int32(9)}}}
+    path = tmp_path / "checkpoint_9"
+    path.write_bytes(_msgpack(tree))
+    state = import_mipnerf_ckpt.import_checkpoint(str(path), cfg,
+                                                  cuda_device)
+    CheckpointManager(str(tmp_path / "ckpt")).save(state.step, state)
+    g = torch.Generator().manual_seed(3)
+    n = 4096
+    d = torch.randn(n, 3, generator=g) * 0.2
+    d[:, 2] = -1
+    ones = torch.ones(n, 1)
+    rays = Rays(origins=torch.zeros(n, 3), directions=d,
+                viewdirs=d / d.norm(dim=-1, keepdim=True),
+                radii=ones * 1e-3, lossmult=ones, near=ones * 2,
+                far=ones * 6).map(lambda t: t.to(cuda_device))
+    model = state.model.eval()
+    before = fmip.launches
+    fused = render_lib.build_render_fn(model, cfg)(rays)
+    torch.cuda.synchronize()
+    assert fmip.launches - before == cfg.mip_num_levels
+    plain = render_lib.build_render_fn(
+        model, cfg.replace(use_fused_render=False))(rays)
+    assert (fused["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of consistentnerf_tpu_torch
-loads no jax, flax, optax or orbax, nothing of consistentnerf_tpu and no
-imaging package (imageio, cv2, PIL, matplotlib), and
+loads no jax, flax, optax, orbax or msgpack, nothing of consistentnerf_tpu
+and no imaging package (imageio, cv2, PIL, matplotlib), and
 chip_smoke.py refuses to report without a card or without the repo. Each
 check runs in a subprocess: this test process imports jax already."""
 
@@ -20,8 +20,8 @@ for name in names:
 # The card's machine has no jax and no imaging package: the port imports
 # none of them (imageio, PIL and matplotlib only inside the functions
 # that need them).
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "consistentnerf_tpu",
-          "imageio", "cv2", "PIL", "matplotlib")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+          "consistentnerf_tpu", "imageio", "cv2", "PIL", "matplotlib")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
 print(len(names), "modules;", "banned:", bad)
@@ -39,7 +39,9 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "train.vis", "cli.eval", "configs.legacy", "configs.scenes",
              "consistency.online", "cli.export_configs", "models.mvs",
              "train.mvs", "train.bootstrap", "cli.train_mvs",
-             "cli.export_depth_priors", "cli.make_masks"):
+             "cli.export_depth_priors", "cli.make_masks",
+             "cli.import_torch_ckpt", "cli.export_torch_ckpt",
+             "cli.import_mipnerf_ckpt"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -59,7 +61,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     for banned in ("import jax", "from jax", "flax", "optax", "orbax",
-                   "consistentnerf_tpu.", "consistentnerf_tpu "):
+                   "import msgpack", "from msgpack", "consistentnerf_tpu.",
+                   "consistentnerf_tpu "):
         assert banned not in src, banned
 
 

@@ -1,6 +1,6 @@
 """The port's mip train steps vs the JAX package, the mip batcher, the
-interop of the mip params, the train and render CLIs, and the options
-this slice leaves unported.
+interop of the mip params, the train and render CLIs, and the options of
+the mip steps (normals on the eager step; the fused steps' refusals).
 
 The one-pass step (`ops/fused_onepass.py::build_onepass_mip_train_step`,
 CPU path: the kernels' plain versions) is held against the JAX one-pass
@@ -14,7 +14,9 @@ parameter's grad within 1e-4 relative L2, in fp32, also with N_rand=0
 resamples from level 0's weights through an inverse CDF that magnifies
 ~1e-7 differences (ROADMAP Queue 3 item 4); stochastic draws are tensors,
 so the randomized steps (density noise on) are checked against each
-other with the same draws. The JAX grads are read from an optimizer that
+other with the same draws. The eager step with normals
+(disable_normals=false, compute_normal_metrics) is held against the JAX
+eager step the same way. The JAX grads are read from an optimizer that
 keeps them; each JAX step runs once per module.
 """
 
@@ -42,6 +44,7 @@ from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.data.pipeline import MipBatcher, to_device
 from consistentnerf_tpu_torch.ops import fused_onepass as op
+from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop, state as state_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 from consistentnerf_tpu_torch.train.checkpoints import checkpoint_steps
@@ -283,19 +286,30 @@ def test_train_and_render_clis(tmp_path, capsys):
 
 
 def test_unported_mip_options_raise(tmp_path):
-    """Each option this slice leaves out raises, naming its ROADMAP item,
-    instead of running something else; the RegNeRF regularizers and the
-    two-call step, ported since, run."""
+    """The options of the mip steps, all ported now: the eager step
+    trains with normals (disable_normals=false, compute_normal_metrics),
+    which the one-pass gate refuses as the JAX gate does and the fused
+    steps refuse (6n has no backward; the JAX two-call step asserts it);
+    the RegNeRF regularizers and the two-call step run; a `.tar` in a mip
+    experiment is refused, naming the mip importer."""
     base = configs.Config(**CFG)
     scene = synthetic.make_scene(n_views=2, H=16, W=16).to_scene_data()
     for kw in (dict(disable_normals=False),
                dict(compute_normal_metrics=True)):
         cfg = base.replace(**kw)
+        jcfg = JaxConfig(use_tensorboard=False, **{**CFG, **kw})
         assert not op.mip_onepass_supported(cfg)
-        with pytest.raises(NotImplementedError, match="mip normals"):
-            step_lib.build_mip_train_step(None, cfg)
-        with pytest.raises(NotImplementedError, match="mip normals"):
+        assert not jop.mip_onepass_supported(jcfg)
+        assert step_lib.build_mip_train_step(None, cfg) is not None
+        with pytest.raises(ValueError, match="one-pass"):
             op.build_onepass_mip_train_step(cfg)
+    normals = base.replace(disable_normals=False)
+    with pytest.raises(ValueError, match="disable_normals"):
+        fused_train.build_fused_mip_train_step(normals)
+    with pytest.raises(ValueError, match="disable_normals"):
+        loop.select_train_step(normals, None)
+    assert loop.select_train_step(normals.replace(use_fused_train=False),
+                                  None) is not None
     # The TV norm, random-pose rays and near/far annealing are ported:
     # the gate accepts them, the batcher makes the random rays, and the
     # dispatch's two-call step (use_onepass_train=false) builds.
@@ -319,8 +333,58 @@ def test_unported_mip_options_raise(tmp_path):
             "dataset_type=synthetic", "--set", f"basedir={tmp_path}"]
     (tmp_path / "exp").mkdir(exist_ok=True)
     (tmp_path / "exp" / "000100.tar").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="import_mipnerf_ckpt"):
+    with pytest.raises(ValueError, match="import_mipnerf_ckpt"):
         render_cli.main(args + ["--render-test"])
+
+
+@pytest.fixture(scope="module")
+def jax_normals_run():
+    """The JAX eager mip step with normals (disable_normals=false) and
+    compute_normal_metrics: batch, initial params, stats and grads."""
+    kw = dict(CFG, disable_normals=False, compute_normal_metrics=True,
+              use_fused_train=False)
+    jcfg = JaxConfig(use_tensorboard=False, **kw)
+    scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
+    model = jax_make_model(jcfg)
+    batch = JaxMipBatcher(scene, jcfg).next_batch()
+    state = jloop.init_state(jcfg, model, batch)
+    tx = _keep_grads()
+    state = state.replace(opt_state=tx.init(state.params))
+    s, st = jstep.build_mip_train_step(model, jcfg, tx=tx, donate=False)(
+        state, batch, jax.random.PRNGKey(0))
+    grads = interop.mip_params_from_jax(jax.device_get(s.opt_state["g"]))
+    return kw, batch, jax.device_get(state.params), (
+        {k: np.asarray(v) for k, v in st.items()}, grads)
+
+
+def test_eager_step_with_normals_matches_jax(jax_normals_run):
+    """The eager mip step at disable_normals=false with
+    compute_normal_metrics against the JAX eager step: the model computes
+    the normals (no loss reads them), loss, stats and grads agree at the
+    file's tolerances, and they equal the step's without normals."""
+    kw, batch, params, want = jax_normals_run
+    cfg = configs.Config(**kw)
+    state = _port_state(params, cfg)
+    grads = _grads_at_update(state)
+    step = loop.select_train_step(cfg, state.model)
+    b = _port_batch(batch)
+    with torch.no_grad():
+        r = state.model(b["rays"], compute_extras=True)
+    assert r[-1]["normals"].shape == (b["rgb"].shape[0], 3)
+    assert torch.isfinite(r[-1]["normals"]).all()
+    state, stats = step(state, b)
+    assert state.step == 1
+    _assert_close_step(stats, grads, *want)
+    quiet = cfg.replace(disable_normals=True, compute_normal_metrics=False)
+    state_q = _port_state(params, quiet)
+    grads_q = _grads_at_update(state_q)
+    _, stats_q = loop.select_train_step(quiet, state_q.model)(state_q, b)
+    np.testing.assert_allclose(float(stats_q["loss"]), float(stats["loss"]),
+                               rtol=LOSS_RTOL)
+    for k in grads:
+        rel = (torch.linalg.norm(grads[k] - grads_q[k])
+               / torch.linalg.norm(grads_q[k])).item()
+        assert rel < GRAD_REL, (k, rel)
 
 
 def _params_for(cfg):

@@ -214,12 +214,24 @@ def test_train_cli_raises_for_what_is_not_ported(tmp_path):
     # multi-process runs are not.
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_cli.main(base + ["--set", "num_processes=2"])
-    # --eval-after is ported (tests/test_torch_port_eval.py).
-    # Weights on disk turn the LPIPS term on in the JAX loop; here they
-    # raise rather than train without it.
-    weights = tmp_path / "lpips.npz"
-    weights.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="eval metrics"):
-        train_cli.main(base + ["--set", "synthetic_hw=16", "--set",
-                               f"lpips_weights_path={weights}",
-                               "--num-steps", "1"])
+    # --eval-after is ported (tests/test_torch_port_eval.py). Weights on
+    # disk turn the train-time LPIPS term on, as in the JAX loop
+    # (tests/test_torch_port_lpips_term.py holds it against the JAX step):
+    # the stats carry a nonzero patch_lpips.
+    from consistentnerf_tpu_torch.train import lpips
+
+    weights = str(tmp_path / "lpips.npz")
+    lpips.save_weights(weights, lpips.init_params(0))
+    sets = ["synthetic_hw=24", "synthetic_views=3", "netdepth=2",
+            "netwidth=32", "N_samples=8", "N_importance=8", "multires=4",
+            "multires_views=2", "N_rand=32", "n_patches=1", "patch_size=16",
+            "i_print=1", "use_tensorboard=false",
+            f"lpips_weights_path={weights}"]
+    args = base + [x for s_ in sets for x in ("--set", s_)]
+    res = train_cli.main(args + ["--num-steps", "1"])
+    assert float(res.stats_history[-1]["patch_lpips"]) > 0
+    # Smaller patches leave VGG's last block no pixel (NaN in the JAX
+    # package): refused.
+    with pytest.raises(ValueError, match="at least 16 pixels"):
+        train_cli.main(args + ["--set", "patch_size=8", "--set",
+                               "expname=small", "--num-steps", "1"])
