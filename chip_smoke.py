@@ -122,7 +122,24 @@ with the launch counts set to 0 just before it and read just after:
   CPU on the same draws; the checkpoint exported to a reference .tar,
   imported back and rendered through #1 bit for bit as the original; a
   mip checkpoint imported from a msgpack checkpoint file the smoke writes,
-  rendered through #6 against the plain render.
+  rendered through #6 against the plain render;
+* data parallelism over torch.distributed (`parallel/`): the flagship
+  one-pass step (hard masks uneven over the ranks), the same with
+  ss_loss and the mip one-pass step, 3 steps each, and a sharded render
+  of a 128x128 view, first in one process on the whole batches, then in
+  two gloo ranks on this card (this script re-run as `--rank R ...`):
+  the ranks' parameters bit-identical, the step-1 loss and grads against
+  the one process's, each rank's launches of #1 / #2 / #3 / #5 / #6 /
+  #7, the sharded render against the whole one, each rank's step time
+  and the gloo all-reduce of one step's grads; then a 1-rank NCCL group
+  in this process, which must give the unsharded step's bits; two NCCL
+  ranks on two cards where the machine has two;
+* the method canaries of the JAX tests (the interleaved split, the
+  sparse split's two arms, the mip recipe) through the port's `train()`
+  with the CLI's dispatch on a card, from the JAX package's inits
+  (`tests/canary_inits.npz`, written by `tools/canary_inits.py`) held to
+  the JAX tests' bounds, and from the port's init, printed; eight
+  processes (`--canary NAME --init jax|port`) at once.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -553,6 +570,8 @@ def main() -> None:
     global torch
     import torch
 
+    t_start = time.perf_counter()
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA device")
@@ -744,6 +763,12 @@ def main() -> None:
         producers = producer_phases(dev, card, configs, v2, op, fx_tmp, fx)
         log(f"producer phase: {time.perf_counter() - t_phase:.1f} s")
     trainer = trainer_phases(dev, card, configs, fm, v2, op, fmip)
+    t_phase = time.perf_counter()
+    distributed = distributed_phases(dev, card)
+    log(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    canaries = canary_phases(card)
+    log(f"canary phase: {time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -769,9 +794,12 @@ def main() -> None:
         r["launches"] += (evals["launches"].get(r["name"], 0)
                           + consist["launches"].get(r["name"], 0)
                           + producers["launches"].get(r["name"], 0)
-                          + trainer["launches"].get(r["name"], 0))
+                          + trainer["launches"].get(r["name"], 0)
+                          + distributed.get(r["name"], 0)
+                          + canaries.get(r["name"], 0))
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(f"nvidia-smi: {card}")
     log(json.dumps({"ok": True, "device": {
@@ -4309,7 +4337,7 @@ def eval_metric_gates(label, card, cli_args, scene, views, got, mask_fn):
          f"{label}: evaluate() renders views {selected}, expected {views}")
     g = evaluation.views_per_call(cfg, dev, len(selected))
     lp_cpu = None if cfg.eval_disable_lpips else LPIPS(
-        cfg.lpips_weights_path)
+        cfg.lpips_weights_path, device="cpu")
     lp_dev = None if cfg.eval_disable_lpips else LPIPS(
         cfg.lpips_weights_path, device=dev)
     cpu_views, dev_views = [], []
@@ -5903,9 +5931,601 @@ def trainer_phases(dev, card, configs, fm, v2, op, fmip):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism over torch.distributed (parallel/), and the method
+# canaries
+# ---------------------------------------------------------------------------
+
+# The cases of the distributed phase: the flagship one-pass step (hard
+# masks split unevenly: rank 0's rows hold few mask-true rays), the same
+# with ss_loss, the mip one-pass step, each DIST_STEPS steps, and one
+# sharded render of a DIST_VIEW x DIST_VIEW view.
+DIST_CASES = {"vanilla": FLAGSHIP, "vanilla_ss": dict(FLAGSHIP, ss_loss=True),
+              "mip": MIP}
+DIST_STEPS = 3
+DIST_VIEW = 128
+DIST_LOSS_TOL = 1e-5  # step-1 loss of R ranks vs one process, relative
+DIST_GRAD_TOL = 1e-3  # step-1 grads, relative L2 (bf16 dW partials' order)
+DIST_RENDER_TOL = 1e-5
+
+
+def dist_counted(v2, op, fmip):
+    """(module, counter, kernel) of the kernels on the distributed path."""
+    return ((v2, "launches", v2.KERNEL), (v2, "bwd_launches", v2.BWD_KERNEL),
+            (op, "launches", op.KERNEL), (op, "mip_launches", op.MIP_KERNEL),
+            (fmip, "launches", fmip.KERNEL),
+            (fmip, "bwd_launches", fmip.BWD_KERNEL))
+
+
+def dist_expected(name, cfg, n, data_size, data_rank, v2, op, fmip):
+    """The launches a rank's DIST_STEPS steps make: the patch rays at the
+    head of the batch take #1 / #2 (#6 / #7 for mip) on the ranks that
+    hold some, the other rays #3 (#5); ss_loss's reference rays #3."""
+    per = n // data_size
+    a = data_rank * per
+    p = (cfg.n_patches * cfg.patch_size ** 2 if cfg.backbone == "vanilla"
+         else 4 * 16 * 16)
+    pl = min(max(p - a, 0), per)
+    lv = 2 if cfg.backbone == "vanilla" else cfg.mip_num_levels
+    fwd, bwd, lvl = ((v2.KERNEL, v2.BWD_KERNEL, op.KERNEL)
+                     if cfg.backbone == "vanilla"
+                     else (fmip.KERNEL, fmip.BWD_KERNEL, op.MIP_KERNEL))
+    want = {k: 0 for _, _, k in dist_counted(v2, op, fmip)}
+    want[fwd] += lv * (pl > 0)
+    want[bwd] += lv * (pl > 0)
+    want[lvl] += lv * (per - pl > 0) + lv * bool(cfg.ss_loss)
+    return {k: DIST_STEPS * v for k, v in want.items()}
+
+
+def dist_batches(cfg, scene):
+    """DIST_STEPS global batches of the case; the vanilla ones with their
+    first 2560 rays' masks cut to one row in eight (uneven over ranks)."""
+    from consistentnerf_tpu_torch.data.pipeline import (MipBatcher,
+                                                        VanillaBatcher)
+
+    batcher = (VanillaBatcher(scene, cfg) if cfg.backbone == "vanilla"
+               else MipBatcher(scene, cfg))
+    out = []
+    for _ in range(DIST_STEPS):
+        b = batcher.next_batch()
+        if "mask" in b:
+            cut = np.arange(b["mask"].shape[0]) < 2560
+            b["mask"] = np.where(cut & (np.arange(cut.size) % 8 != 0), 0.0,
+                                 b["mask"]).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def dist_cases(dev, mesh, cases, scene_kw):
+    """Each case's DIST_STEPS steps on `mesh` (None: one process, the
+    whole batch) from the seeded init, and the render: losses, step-1
+    grads, final params, step times, launches."""
+    import torch
+
+    from consistentnerf_tpu_torch import configs
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import to_device
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+    from consistentnerf_tpu_torch.parallel import distributed_render
+    from consistentnerf_tpu_torch.train import evaluation, loop
+    from consistentnerf_tpu_torch.train.render import build_render_fn
+
+    counted = dist_counted(v2, op, fmip)
+    scene = synthetic.make_scene(**scene_kw).to_scene_data()
+    out = {}
+    for name, kw in cases.items():
+        cfg = configs.Config(**kw)
+        batches = dist_batches(cfg, scene)
+        state = loop.init_state(cfg, dev)
+        opt, grads = state.optimizer, []
+        update = opt.step
+
+        def record(count, opt=opt, grads=grads, update=update):
+            if not grads:
+                grads.append(torch.cat([
+                    (torch.zeros_like(q) if q.grad is None else q.grad)
+                    .reshape(-1).float() for q in opt.params]).cpu())
+            update(count)
+
+        opt.step = record
+        step = loop.select_train_step(cfg, state.model, mesh=mesh)
+        for m, a, _ in counted:
+            setattr(m, a, 0)
+        losses, times = [], []
+        for b in batches:
+            b = to_device(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = step(state, b)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(stats["loss"]))
+        out[name] = dict(
+            loss=losses, grads=grads[0], ms=times, n=batches[0][
+                "rgb"].shape[0],
+            counts={k: getattr(m, a) for m, a, k in counted},
+            params=torch.cat([t.detach().reshape(-1).float().cpu()
+                              for t in state.model.state_dict().values()]))
+        del state, step, batches
+        torch.cuda.empty_cache()
+    # One view through the fused render (#1), sharded or whole.
+    cfg = configs.Config(**dict(FLAGSHIP, use_fused_render=True))
+    model = loop.init_state(cfg, dev).model
+    rays = evaluation.camera_rays_for_view(scene, scene.poses[0], device=dev)
+    for m, a, _ in counted:
+        setattr(m, a, 0)
+    if mesh is None:
+        got = {k: v.cpu() for k, v in build_render_fn(model, cfg)(
+            rays).items() if k in ("rgb", "depth", "acc")}
+    else:
+        got = {k: torch.from_numpy(v) for k, v in
+               distributed_render.render_image_sharded(
+                   model, cfg, rays, mesh).items()}
+    out["render"] = dict(out=got, counts={k: getattr(m, a)
+                                          for m, a, k in counted})
+    return out
+
+
+def gloo_allreduce_ms(dev, mesh, numel, iters=10):
+    """The time of one all-reduce of `numel` floats over the mesh."""
+    import torch
+
+    from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
+
+    x = torch.ones(numel, device=dev)
+    mesh_lib.all_reduce_sum(x, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        mesh_lib.all_reduce_sum(x, mesh)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def rank_worker(argv):
+    """One rank of the distributed phase (`--rank R --world W --coord
+    HOST:PORT --backend B --device D --out DIR`): joins the group, runs
+    the cases of DIR/cases.json and writes DIR/rank{R}.pt."""
+    import torch
+
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
+    from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(args["--rank"]), int(args["--world"])
+    mesh_lib.maybe_initialize_distributed(args["--coord"], world, rank,
+                                          backend=args["--backend"])
+    dev = mesh_lib.rank_device(args["--device"])
+    torch.cuda.set_device(dev)
+    fm.strict_fp32(dev)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    mesh = mesh_lib.create_mesh(device=dev)
+    with open(os.path.join(args["--out"], "cases.json")) as f:
+        spec = json.load(f)
+    res = dist_cases(dev, mesh, spec["cases"], spec["scene"])
+    # The all-reduce of one step's gradients (the flagship's two MLPs).
+    numel = res["vanilla"]["grads"].numel() if "vanilla" in res else 1 << 20
+    res["allreduce"] = dict(numel=numel, ms=gloo_allreduce_ms(dev, mesh,
+                                                              numel))
+    res["device"] = str(dev)
+    torch.save(res, os.path.join(args["--out"], f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(tmp, world, backend, device, timeout=900):
+    """Start `world` rank processes of this script, wait for them (all are
+    killed on a failure or the timeout), and return their results."""
+    import torch
+
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--coord", coord, "--backend", backend,
+         "--device", device, "--out", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode != 0:
+                fail(f"rank {r} ({backend}) exited {p.returncode}:\n"
+                     f"{out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dist_gates(label, ranks, ref, cases, v2, op, fmip):
+    """Every case of the ranks against one process on the whole batch:
+    ranks bit-identical, step-1 loss and grads, each rank's launches;
+    and the sharded render against the whole render."""
+    import torch
+
+    from consistentnerf_tpu_torch import configs
+
+    world = len(ranks)
+    for name in cases:
+        cfg = configs.Config(**cases[name])
+        want = ref[name]
+        same = all(torch.equal(r[name]["params"], ranks[0][name]["params"])
+                   for r in ranks)
+        d_loss = abs(ranks[0][name]["loss"][0] - want["loss"][0]) / abs(
+            want["loss"][0])
+        g, w = ranks[0][name]["grads"], want["grads"]
+        g_rel = float(torch.linalg.norm(g - w) / torch.linalg.norm(w))
+        p_rel = float(torch.linalg.norm(ranks[0][name]["params"]
+                                        - want["params"])
+                      / torch.linalg.norm(want["params"]))
+        log(f"{label} {name} ({want['n']} rays, {world} ranks): params "
+            f"bit-identical across ranks {same}; step-1 loss "
+            f"{ranks[0][name]['loss'][0]:.7f} vs one process "
+            f"{want['loss'][0]:.7f} (rel {d_loss:.2e}, tol "
+            f"{DIST_LOSS_TOL:g}); step-1 grads rel L2 {g_rel:.2e} (tol "
+            f"{DIST_GRAD_TOL:g}); params after {DIST_STEPS} steps rel L2 "
+            f"{p_rel:.2e}")
+        gate(same, f"{label} {name}: the ranks' parameters differ")
+        gate(d_loss < DIST_LOSS_TOL, f"{label} {name}: step-1 loss {d_loss}")
+        gate(g_rel < DIST_GRAD_TOL, f"{label} {name}: step-1 grads {g_rel}")
+        for r, res in enumerate(ranks):
+            exp = dist_expected(name, cfg, want["n"], world, r, v2, op,
+                                fmip)
+            got = res[name]["counts"]
+            log(f"  rank {r}: launches {got} (expected {exp}); step ms "
+                f"{[round(t, 3) for t in res[name]['ms']]}")
+            gate(got == exp, f"{label} {name} rank {r} launches {got}")
+        log(f"  one process: launches {want['counts']}; step ms "
+            f"{[round(t, 3) for t in want['ms']]}")
+    err = max(float((r["render"]["out"][k] - ref["render"]["out"][k])
+                    .abs().max()) for r in ranks for k in ("rgb", "depth"))
+    shape_ok = all(r["render"]["out"]["rgb"].shape
+                   == ref["render"]["out"]["rgb"].shape for r in ranks)
+    counts = [r["render"]["counts"][v2.KERNEL] for r in ranks]
+    log(f"{label} sharded render {DIST_VIEW}x{DIST_VIEW}: max|sharded - "
+        f"whole| {err:.2e} (tol {DIST_RENDER_TOL:g}); {v2.KERNEL} launches "
+        f"a rank {counts}, one process "
+        f"{ref['render']['counts'][v2.KERNEL]}")
+    gate(shape_ok and err < DIST_RENDER_TOL, f"{label} sharded render {err}")
+    gate(all(c > 0 for c in counts), f"{label} sharded render: no #1")
+
+
+def distributed_phases(dev, card, cases=None, scene_kw=None, tmp=None):
+    """The distributed phase: one process on the whole batches (the
+    reference), two gloo ranks on this card, a 1-rank NCCL group in this
+    process (bits of the unsharded step), and two NCCL ranks on two cards
+    where there are two. Returns {kernel: launches}."""
+    import torch
+    import torch.distributed as dist
+
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+    from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
+
+    cases = DIST_CASES if cases is None else cases
+    scene_kw = dict(SCENE) if scene_kw is None else scene_kw
+    tmp = tmp or tempfile.mkdtemp()
+    launches = {}
+    # Bits across runs need cuDNN's deterministic algorithms (the SSIM
+    # patch term's convolutions); the ranks set them too.
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    ref = dist_cases(dev, None, cases, scene_kw)
+    for name in list(cases) + ["render"]:
+        add(ref[name]["counts"])
+    torch.cuda.empty_cache()
+    log(f"distributed: one process on the whole batches "
+        f"{time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(tmp, "cases.json"), "w") as f:
+        json.dump({"cases": cases, "scene": scene_kw}, f)
+    t0 = time.perf_counter()
+    ranks = run_ranks(tmp, 2, "gloo", "cuda:0")
+    log(f"distributed: 2 gloo ranks on one card {time.perf_counter() - t0:.1f}"
+        f" s [{card}]")
+    dist_gates("2 gloo ranks on one card", ranks, ref, cases, v2, op, fmip)
+    for r in ranks:
+        for name in list(cases) + ["render"]:
+            add(r[name]["counts"])
+    for name in cases:
+        one = np.mean(ref[name]["ms"][1:])
+        per = [np.mean(r[name]["ms"][1:]) for r in ranks]
+        log(f"  {name}: step ms one process {one:.3f}, a rank of 2 on one "
+            f"card {[round(x, 3) for x in per]} [{card}]")
+    ar = ranks[0]["allreduce"]
+    log(f"  gloo all-reduce of {ar['numel']} floats (one step's grads) "
+        f"between 2 ranks on ONE card: {ar['ms']:.3f} ms (not a multi-card "
+        f"number) [{card}]")
+
+    # A 1-rank NCCL group: every collective is a copy, so the step through
+    # the mesh gives the unsharded step's bits.
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.create_mesh(device=dev)
+        one = dist_cases(dev, mesh, cases, scene_kw)
+    finally:
+        dist.destroy_process_group()
+    for name in cases:
+        add(one[name]["counts"])
+        same = (torch.equal(one[name]["params"], ref[name]["params"])
+                and one[name]["loss"] == ref[name]["loss"]
+                and torch.equal(one[name]["grads"], ref[name]["grads"]))
+        log(f"1-rank NCCL group {name}: loss, grads and params after "
+            f"{DIST_STEPS} steps bit-identical to the unsharded step: "
+            f"{same}")
+        gate(same, f"1-rank NCCL group {name} is not the unsharded step")
+    same = all(torch.equal(one["render"]["out"][k], ref["render"]["out"][k])
+               for k in ("rgb", "depth"))
+    add(one["render"]["counts"])
+    log(f"1-rank NCCL group render bit-identical: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gate(same, "1-rank NCCL group render")
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        nccl = run_ranks(tmp, 2, "nccl", "cuda")
+        dist_gates("2 NCCL ranks on two cards", nccl, ref, cases, v2, op,
+                   fmip)
+        for r in nccl:
+            for name in list(cases) + ["render"]:
+                add(r[name]["counts"])
+        log(f"distributed: 2 NCCL ranks on two cards "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        log("distributed: one card here, so 2 NCCL ranks on two cards were "
+            "not run")
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    return launches
+
+
+# The method canaries (tests/test_generalization_canary.py:24-37,87-100,
+# tests/test_mip_canary.py:36-58) through the port's train() on the card
+# with the CLI's dispatch on a card (`cli/common.py::auto_fused_defaults`),
+# from the JAX package's init (tests/canary_inits.npz, written by
+# tools/canary_inits.py) and, not gated, from the port's own.
+CANARY_VANILLA = dict(
+    dataset_type="synthetic", backbone="vanilla", netdepth=2, netwidth=64,
+    netdepth_fine=2, netwidth_fine=64, multires=6, multires_views=2,
+    N_samples=16, N_importance=16, N_rand=256, white_bkgd=True, lrate=5e-3,
+    use_tensorboard=False, checkpoint_every=10**9)
+CANARIES = {
+    "interleaved": dict(steps=800, cfg=dict(
+        CANARY_VANILLA, n_patches=1, patch_size=8, hardmask=True,
+        with_depth_loss=True), scene=dict(n_views=8, H=64, W=64),
+        split=dict(n_test=2, interleave_test=True)),
+    "sparse_a": dict(steps=800, cfg=dict(
+        CANARY_VANILLA, total_iters=800, hardmask=False,
+        with_depth_loss=False, n_patches=0),
+        scene=dict(n_views=8, H=48, W=48, layout="cluster"),
+        split=dict(n_test=4, interleave_test=False)),
+    "sparse_d": dict(steps=800, cfg=dict(
+        CANARY_VANILLA, total_iters=800, hardmask=True,
+        with_depth_loss=True, n_patches=1, patch_size=8),
+        scene=dict(n_views=8, H=48, W=48, layout="cluster"),
+        split=dict(n_test=4, interleave_test=False)),
+    "mip": dict(steps=500, cfg=dict(
+        backbone="mipnerf", dataset_type="blender", netdepth=2, netwidth=48,
+        mip_num_samples=12, mip_num_levels=2, max_deg_point=6,
+        disable_normals=True, N_rand=192, batch_size_random=256,
+        random_patch_size=8, load_random_rays=True,
+        depth_tvnorm_loss_mult=0.1, depth_tvnorm_decay=True,
+        depth_tvnorm_maxstep=64, depth_tvnorm_loss_mult_start=400.0,
+        depth_tvnorm_loss_mult_end=0.1, use_hardmask=True, white_bkgd=True,
+        near=2.0, far=6.0, anneal_nearfar=True, anneal_nearfar_steps=64,
+        anneal_nearfar_perc=0.0001, anneal_mid_perc=1.0, lr_init=2e-3,
+        lr_final=2e-5, lr_delay_steps=32, lr_delay_mult=0.01,
+        grad_max_norm=0.1, grad_max_val=0.1, density_noise=1.0,
+        total_iters=500, use_tensorboard=False, checkpoint_every=10**9),
+        scene=dict(n_views=8, H=48, W=48),
+        split=dict(n_test=2, interleave_test=True)),
+}
+CANARY_INITS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "canary_inits.npz")
+
+
+def jax_init_state_dict(backbone):
+    """The JAX package's init of a canary as the port's state_dict (the
+    vanilla coarse MLP as the copy of the fine one)."""
+    import torch
+
+    z = np.load(CANARY_INITS)
+    prefix = "vanilla." if backbone == "vanilla" else "mip."
+    sd = {k[len(prefix):]: torch.tensor(z[k]) for k in z.files
+          if k.startswith(prefix)}
+    if backbone == "vanilla":
+        sd.update({"coarse." + k[5:]: v for k, v in list(sd.items())
+                   if k.startswith("fine.")})
+    return sd
+
+
+def run_canary(name, init, dev, basedir):
+    """One canary: train from `init` ("jax" or "port") and score the
+    held-out views. Returns its PSNRs, seconds and train step."""
+    import types
+
+    import torch
+
+    from consistentnerf_tpu_torch import configs
+    from consistentnerf_tpu_torch.cli import common
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.loaders import attach_masks
+    from consistentnerf_tpu_torch.data.random_poses import \
+        generate_random_poses
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from consistentnerf_tpu_torch.train.evaluation import \
+        camera_rays_for_view
+    from consistentnerf_tpu_torch.train.render import build_render_fn
+
+    spec = CANARIES[name]
+    cfg = configs.Config(**spec["cfg"], basedir=basedir,
+                         expname=f"{name}_{init}")
+    cfg = common.auto_fused_defaults(cfg, types.SimpleNamespace(
+        device=str(dev), overrides=[], config=None))
+    scene = synthetic.make_scene(**spec["scene"]).to_scene_data(
+        **spec["split"])
+    random_poses = None
+    if cfg.backbone == "mipnerf":
+        random_poses = generate_random_poses(scene.poses[scene.i_train],
+                                             n_poses=100)
+    elif cfg.hardmask:
+        scene = attach_masks(scene, cfg, None, device=dev)
+    if init == "jax":
+        state = loop.init_state(cfg, dev)
+        state.model.load_state_dict(jax_init_state_dict(cfg.backbone))
+        CheckpointManager(os.path.join(basedir, cfg.expname,
+                                       "checkpoints")).save(0, state)
+    counted = dist_counted(v2, op, fmip)
+    for m, a, _ in counted:
+        setattr(m, a, 0)
+    t0 = time.perf_counter()
+    res = loop.train(cfg, scene, num_steps=spec["steps"], device=dev,
+                     random_poses=random_poses, use_prefetch=False,
+                     log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: getattr(m, a) for m, a, k in counted}
+    model = res.state.model.eval()
+    render = build_render_fn(model, cfg)
+    psnrs = []
+    for vid in scene.i_test:
+        rays = camera_rays_for_view(scene, scene.poses[vid], device=dev)
+        pred = np.clip(render(rays)["rgb"].reshape(scene.H, scene.W, 3)
+                       .cpu().numpy(), 0, 1)
+        psnrs.append(float(-10 * np.log10(np.mean(
+            (pred - scene.images[vid]) ** 2))))
+    step = loop.select_train_step(cfg, model)
+    return dict(psnrs=psnrs, seconds=seconds, counts=counts,
+                step=f"{step.__module__}.{step.__qualname__}",
+                dtype=cfg.compute_dtype)
+
+
+def canary_worker(argv):
+    """One canary (`--canary NAME --init jax|port --out FILE`)."""
+    import torch
+
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    # Eight canaries share the host's cores: one intra-op thread each.
+    torch.set_num_threads(1)
+    dev = torch.device("cuda")
+    fm.strict_fp32(dev)
+    basedir = tempfile.mkdtemp()
+    try:
+        res = run_canary(args["--canary"], args["--init"], dev, basedir)
+    finally:
+        shutil.rmtree(basedir, ignore_errors=True)
+    with open(args["--out"], "w") as f:
+        json.dump(res, f)
+
+
+def canary_bounds(psnr):
+    """The JAX tests' own bounds on the held-out PSNRs of the JAX init:
+    (gate, text) a canary."""
+    i, a, d, m = (psnr["interleaved"], psnr["sparse_a"], psnr["sparse_d"],
+                  psnr["mip"])
+    ma, md = float(np.mean(a)), float(np.mean(d))
+    return {
+        "interleaved": (min(i) > 11.0 and np.mean(i) > 12.5,
+                        "min > 11.0, mean > 12.5"),
+        "sparse": (ma < 9.5 and md > ma + 1.5 and min(d) > 9.0,
+                   "vanilla mean < 9.5, depth arm > vanilla + 1.5, "
+                   "min > 9.0"),
+        "mip": (min(m) > 11.0 and np.mean(m) > 11.5,
+                "min > 11.0, mean > 11.5"),
+    }
+
+
+def canary_phases(card, names=None, inits=("jax", "port"), timeout=900):
+    """The canaries, one process each, all at once (each is a small model
+    whose steps the host paces). Gates the JAX init's against the JAX
+    tests' bounds; prints the port init's. Returns {kernel: launches}."""
+    names = list(CANARIES) if names is None else names
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    jobs = {(n, i): subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--canary", n,
+         "--init", i, "--out", os.path.join(tmp, f"{n}_{i}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+        for n in names for i in inits}
+    results, launches = {}, {}
+    try:
+        for key, p in jobs.items():
+            out, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                fail(f"canary {key} exited {p.returncode}:\n{out[-4000:]}")
+            with open(os.path.join(tmp, f"{key[0]}_{key[1]}.json")) as f:
+                results[key] = json.load(f)
+    finally:
+        for p in jobs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (n, i), r in results.items():
+        for k, v in r["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"canary {n} from the {i} init: held-out PSNR "
+            f"{[round(x, 3) for x in r['psnrs']]} (mean "
+            f"{np.mean(r['psnrs']):.3f}), {CANARIES[n]['steps']} steps in "
+            f"{r['seconds']:.1f} s on {r['step']} ({r['dtype']}); launches "
+            f"{r['counts']} [{card}]")
+    log(f"canary phase: {len(jobs)} runs in parallel, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i in inits:
+        if not all((n, i) in results for n in CANARIES):
+            continue
+        for label, (ok, text) in canary_bounds(
+                {n: results[(n, i)]["psnrs"] for n in CANARIES}).items():
+            log(f"  {label} canary from the {i} init within the JAX test's "
+                f"bounds ({text}): {ok}" + ("" if i == "jax" else
+                                             " (not gated)"))
+            if i == "jax":
+                gate(ok, f"canary {label} from the JAX init: {text}")
+    return launches
+
+
 if __name__ == "__main__":
     try:
-        main()
+        if "--rank" in sys.argv:
+            rank_worker(sys.argv[1:])
+        elif "--canary" in sys.argv:
+            canary_worker(sys.argv[1:])
+        else:
+            main()
     except SystemExit:
         raise
     except BaseException:

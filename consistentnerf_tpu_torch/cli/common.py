@@ -42,8 +42,10 @@ def resolve_config(args) -> Config:
     """The run's config, as the JAX package resolves it: `--list-scenes`
     prints the presets and exits; `--scene` takes a preset and then the
     `--set` overrides (a `--config` beside it is ignored); otherwise the
-    config file, then the overrides. Multi-process fields raise
-    (ROADMAP Queue 1: multi-GPU)."""
+    config file, then the overrides. With `num_processes > 1` the process
+    joins its group (`parallel/mesh.py::maybe_initialize_distributed`,
+    from every entry point as in the JAX package), and a bare `cuda`
+    `--device` becomes this rank's card."""
     if getattr(args, "list_scenes", False):
         from consistentnerf_tpu_torch.configs import scenes
 
@@ -57,13 +59,13 @@ def resolve_config(args) -> Config:
                               args.overrides)
     else:
         cfg = load_config(args.config, args.overrides)
-    multi = {k: getattr(cfg, k) for k in ("coordinator_address",
-                                          "num_processes", "process_id")
-             if getattr(cfg, k) is not None}
-    if multi:
-        raise NotImplementedError(
-            f"multi-process runs ({multi}) are not ported yet (ROADMAP "
-            "Queue 1: multi-GPU)")
+    from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
+
+    device = getattr(args, "device", "cuda")
+    if mesh_lib.maybe_initialize_distributed(
+            cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+            device=device) and hasattr(args, "device"):
+        args.device = str(mesh_lib.rank_device(device))
     return cfg
 
 

@@ -208,9 +208,10 @@ def pretrained_to_params(state_dict: dict, net_depth: int = 8):
     return tree, step
 
 
-def import_checkpoint(path: str, cfg, device="cpu"):
+def import_checkpoint(path: str, cfg, device="cuda"):
     """A pretrained flax checkpoint -> a `TrainState` of `cfg` (the mip
-    backbone) at its step, the optimizer fresh. The layers load strictly:
+    backbone) at its step, the optimizer fresh, on `device` (`cuda`
+    unless the caller asks for the CPU). The layers load strictly:
     a missing, extra or misshapen layer raises."""
     from consistentnerf_tpu_torch import interop
     from consistentnerf_tpu_torch.models.factory import make_model

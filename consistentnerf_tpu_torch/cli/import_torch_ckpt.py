@@ -20,9 +20,10 @@ from __future__ import annotations
 import os
 
 
-def import_checkpoint(tar_path: str, cfg, device="cpu"):
+def import_checkpoint(tar_path: str, cfg, device="cuda"):
     """A reference `.tar` -> a `TrainState` of `cfg` at the tar's step,
-    its optimizer fresh."""
+    its optimizer fresh, on `device` (`cuda` unless the caller asks for
+    the CPU)."""
     from consistentnerf_tpu_torch import interop
     from consistentnerf_tpu_torch.models.factory import make_model
     from consistentnerf_tpu_torch.train.state import create_train_state

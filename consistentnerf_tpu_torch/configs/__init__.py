@@ -252,8 +252,11 @@ class Config:
     dtu_no_mask_eval: bool = False
 
     # --- parallelism -------------------------------------------------------
-    # Multi-device and multi-process runs (ROADMAP Queue 1: multi-GPU):
-    # the port raises where the JAX package reads them set.
+    # Data parallelism over torch.distributed (parallel/mesh.py): one
+    # process per GPU. num_processes > 1 joins the group of rank
+    # process_id at coordinator_address ("host:port" of rank 0);
+    # mesh_shape (default: every rank on the "data" axis) must hold the
+    # world size, and its other axes replicate the batch.
     mesh_shape: Optional[Sequence[int]] = None
     mesh_axis_names: Tuple[str, ...] = ("data",)
     coordinator_address: Optional[str] = None

@@ -3,7 +3,9 @@ inverse-CDF fine sampling (`run_nerf_helpers.py:206-250` semantics), and
 mip-NeRF's fencepost sampling with cone casting and its blurpool
 resampling through the hardened inverse CDF (`RegNeRF/internal/mip.py:
 297-403`, `math.py:169-234`). Random draws come in as tensors, never from
-a global RNG."""
+a global RNG. No function here takes a mesh: the JAX package shard_maps
+the resampler over its mesh (`core/sampling.py:211-220`), while each rank
+of a run over `parallel/mesh.py` calls these on its own rays already."""
 
 from __future__ import annotations
 

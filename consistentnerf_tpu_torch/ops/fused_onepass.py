@@ -28,8 +28,8 @@ level kernel, with the masked-MSE coefficient rows of the ss term, and
 the gate of the main RGB loss swaps the fine level's rgb coefficient
 rows; their weight grads join the main levels'.
 
-Not ported here: the multi-device `_shard_onepass` (ROADMAP Queue 1:
-multi-GPU).
+Under a mesh (`parallel/mesh.py`) each rank launches the levels on its
+rows of the global batch: the counterpart of the JAX `_shard_onepass`.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from consistentnerf_tpu_torch.ops import fused_mip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import pdf_merge
+from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
 from consistentnerf_tpu_torch.train import losses as losses_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 
@@ -436,14 +437,22 @@ def _pts_views(o_T, d_T, v_T, z):
     return pts.contiguous(), views.contiguous()
 
 
-def build_onepass_vanilla_train_step(cfg, lpips_params=None):
+def build_onepass_vanilla_train_step(cfg, lpips_params=None, mesh=None):
     """train_step(state, batch, draws=None) -> (state, stats): the vanilla
     ConsistentNeRF loss with both MLP levels running the one-pass kernel
     on the non-patch rays and the differentiable fused MLP on the patch
     rays. Loss semantics of `train.losses.vanilla_losses`
     (run_nerf_view.py:1645-1906); the stats are computed by it on the
     assembled outputs, and with ss_loss assembled again through
-    `step_lib.apply_ss_loss`. `state` is updated in place."""
+    `step_lib.apply_ss_loss`. `state` is updated in place.
+
+    Under a mesh (the JAX package's `_shard_onepass`, fused_onepass.py:
+    649-672) `batch` is the global batch: each rank launches the levels
+    on its rows (`parallel/mesh.py::data_slice`) with the per-ray
+    coefficients of the global batch, runs its part of the patch rays on
+    the fused MLP, and computes the patch terms on the gathered patch
+    outputs, whose cotangents reach the rank that owns each ray; the
+    weight grads are summed over ranks in `finish_step`."""
     from consistentnerf_tpu_torch.consistency import online
 
     step_lib.check_kernel_step(cfg)
@@ -465,21 +474,20 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
 
     def train_step(state, batch, draws: Optional[Dict] = None):
         model, opt = state.model, state.optimizer
-        rays = step_lib.rays_from_batch(batch, cfg.near, cfg.far)
-        n, dev = rays.origins.shape[0], rays.origins.device
+        n, dev = batch["rgb"].shape[0], batch["rgb"].device
         p = n_patch_rays
         if draws is None:
             draws = step_lib.make_draws(
                 cfg, n, step_lib.step_generator(cfg.seed, state.step, dev),
                 dev)
-        t_rand, u = draws.get("t_rand"), draws.get("u")
         ls = torch.as_tensor(batch.get("loss_scale", 1.0), dtype=torch.float32,
                              device=dev)
         mask, target, prior = batch["mask"], batch["rgb"], batch["depth"]
         ones = torch.ones((n,), device=dev)
 
-        # Per-ray loss-cotangent coefficients (global denominators,
-        # parameter-independent).
+        # Per-ray loss-cotangent coefficients of the global batch (global
+        # denominators, parameter-independent; every rank holds the
+        # global batch, so a rank without a mask-true ray gets them too).
         if cfg.hardmask or cfg.softmask:
             m_sum = mask.sum()
             out_w = torch.where(m_sum == n, torch.zeros_like(m_sum),
@@ -534,6 +542,19 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
             coeff_rgb_f = torch.where(ss_draws["gate"], ls * gated_coeff,
                                       coeff_rgb)
 
+        # This rank's rows [a, a + nl): its first pl rows are patch rays.
+        sl = mesh_lib.data_slice(n, mesh)
+        nl = sl.stop - sl.start
+        pl = min(max(p - sl.start, 0), nl)
+        nr = nl - pl
+        coeff_rgb, coeff_rgb_f, coeff_d, tgt_f, tgt_c, pri_f, pri_c = (
+            x[sl] for x in (coeff_rgb, coeff_rgb_f, coeff_d, tgt_f, tgt_c,
+                            pri_f, pri_c))
+        d_loc = mesh_lib.shard_tree(draws, n, sl)
+        t_rand, u = d_loc.get("t_rand"), d_loc.get("u")
+        rays = step_lib.rays_from_batch(mesh_lib.shard_batch(batch, mesh),
+                                        cfg.near, cfg.far)
+
         z_c = sampling.vanilla_z_vals(rays.near, rays.far, s_c, cfg.lindisp,
                                       t_rand)
         dnorm = torch.linalg.norm(rays.directions, dim=-1)
@@ -549,7 +570,7 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
             src_c = [w.detach() for w in flat_c]
             src_f = [w.detach() for w in flat_f]
 
-        # ---- one-pass kernel: rays [p:] ----
+        # ---- one-pass kernel: local rays [pl:] ----
         def level(src, rays_T, z_sub, dn, crgb, tgt, cd, pri):
             pts, views = _pts_views(*rays_T, z_sub)
             return onepass_level(
@@ -557,33 +578,35 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                 white_bkgd=cfg.white_bkgd, compute_dtype=cdt, **mlp_kw)
 
         def mega(src, z_sub, crgb, tgt, pri):
-            return level(src, (o_T[:, p:], d_T[:, p:], v_T[:, p:]), z_sub,
-                         dnorm[p:], crgb[p:], tgt[p:], coeff_d[p:], pri[p:])
-
-        with torch.no_grad():
-            out_c, dw_c = mega(src_c, z_c[p:], coeff_rgb, tgt_c, pri_c)
-            z_f_r = pdf_merge.fine_z_vals(
-                z_c[p:], out_c[5].reshape(n - p, s_c), s_i,
-                u=None if det else u[p:], det=det,
-                use_kernel=cfg.use_pdf_kernel)
-            out_f, dw_f = mega(src_f, z_f_r, coeff_rgb_f, tgt_f, pri_f)
+            q = pl
+            return level(src, (o_T[:, q:], d_T[:, q:], v_T[:, q:]), z_sub,
+                         dnorm[q:], crgb[q:], tgt[q:], coeff_d[q:], pri[q:])
 
         def maps(out_rows, seg):
             per_ray = out_rows[:, ::seg]
             return per_ray[:3].T, per_ray[3], per_ray[4]
 
-        rgb_r, depth_r, _ = maps(out_f, s_f)
-        rgb0_r, depth0_r, _ = maps(out_c, s_c)
+        dw_c = dw_f = None
+        if nr > 0:
+            with torch.no_grad():
+                out_c, dw_c = mega(src_c, z_c[pl:], coeff_rgb, tgt_c, pri_c)
+                z_f_r = pdf_merge.fine_z_vals(
+                    z_c[pl:], out_c[5].reshape(nr, s_c), s_i,
+                    u=None if det else u[pl:], det=det,
+                    use_kernel=cfg.use_pdf_kernel)
+                out_f, dw_f = mega(src_f, z_f_r, coeff_rgb_f, tgt_f, pri_f)
+            rgb_r, depth_r, _ = maps(out_f, s_f)
+            rgb0_r, depth0_r, _ = maps(out_c, s_c)
 
-        # ---- ss_loss: the reference rays, all n, one launch a level ----
+        # ---- ss_loss: the reference rays, one launch a level ----
         ref_outputs = None
         if ss_on:
             with torch.no_grad():
-                d_ref = ref["directions"]
+                d_ref = ref["directions"][sl]
                 dn_ref = torch.linalg.norm(d_ref, dim=-1)
                 v_ref = d_ref / torch.clamp(dn_ref[:, None], min=1e-12)
-                ref_T = (ref["origins"].T.contiguous(), d_ref.T.contiguous(),
-                         v_ref.T.contiguous())
+                ref_T = (ref["origins"][sl].T.contiguous(),
+                         d_ref.T.contiguous(), v_ref.T.contiguous())
                 mult = cfg.ss_loss_mult
                 cr_ref = mult * gated_coeff  # the masked-MSE rgb rows
                 if cfg.with_depth_loss:
@@ -592,81 +615,96 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                     pri_ref = ref["depth_target"]
                 else:
                     cd_ref, pri_ref = zero, zero
-                tgt_ref = ref["rgb_target"]
-                ones_r = torch.ones((n, 1), device=dev)
+                cr_ref, cd_ref, pri_ref, tgt_ref = (
+                    x[sl] for x in (cr_ref, cd_ref, pri_ref,
+                                    ref["rgb_target"]))
+                ss_loc = d_loc["ss"]
+                ones_r = torch.ones((nl, 1), device=dev)
                 z_c_ref = sampling.vanilla_z_vals(
                     ones_r * cfg.near, ones_r * cfg.far, s_c, cfg.lindisp,
-                    ss_draws.get("t_rand"))
+                    ss_loc.get("t_rand"))
                 out_rc, dw_rc = level(src_c, ref_T, z_c_ref, dn_ref, cr_ref,
                                       tgt_ref, cd_ref, pri_ref)
                 z_f_ref = pdf_merge.fine_z_vals(
-                    z_c_ref, out_rc[5].reshape(n, s_c), s_i,
-                    u=None if det else ss_draws["u"], det=det,
+                    z_c_ref, out_rc[5].reshape(nl, s_c), s_i,
+                    u=None if det else ss_loc["u"], det=det,
                     use_kernel=cfg.use_pdf_kernel)
                 out_rf, dw_rf = level(src_f, ref_T, z_f_ref, dn_ref, cr_ref,
                                       tgt_ref, cd_ref, pri_ref)
-            dw_c = [a + b for a, b in zip(dw_c, dw_rc)]
-            dw_f = [a + b for a, b in zip(dw_f, dw_rf)]
+            dw_c = dw_rc if dw_c is None else [
+                a + b for a, b in zip(dw_c, dw_rc)]
+            dw_f = dw_rf if dw_f is None else [
+                a + b for a, b in zip(dw_f, dw_rf)]
             rgb_rf, depth_rf, _ = maps(out_rf, s_f)
             rgb_rc, depth_rc, _ = maps(out_rc, s_c)
-            ref_outputs = {"rgb": rgb_rf, "depth": depth_rf,
-                           "rgb0": rgb_rc, "depth0": depth_rc}
+            ref_outputs = mesh_lib.gather_outputs(
+                {"rgb": rgb_rf, "depth": depth_rf, "rgb0": rgb_rc,
+                 "depth0": depth_rc}, mesh, nl)
 
-        # ---- patch rays [:p]: differentiable fused MLP + autograd ----
+        # ---- patch rays [:pl]: differentiable fused MLP + autograd ----
         opt.zero_grad()
-        if p > 0:
+        loss = None
+        if pl > 0:
             def level(flat, src, z_sub):
-                pts, views = _pts_views(o_T[:, :p], d_T[:, :p], v_T[:, :p],
-                                        z_sub)
+                pts, views = _pts_views(o_T[:, :pl], d_T[:, :pl],
+                                        v_T[:, :pl], z_sub)
                 raw = v2.fused_mlp_v2_train_T(
                     flat, pts, views, compute_dtype=cdt,
                     packed=src if isinstance(src, v2.PackedMLP) else None,
                     **mlp_kw)
                 return rendering.raw2outputs_T(
-                    raw.reshape(4, p, z_sub.shape[1]), z_sub,
-                    rays.directions[:p], None, cfg.white_bkgd)
+                    raw.reshape(4, pl, z_sub.shape[1]), z_sub,
+                    rays.directions[:pl], None, cfg.white_bkgd)
 
-            rgb0, _, _, w_p, depth0 = level(flat_c, src_c, z_c[:p])
+            rgb0, _, _, w_p, depth0 = level(flat_c, src_c, z_c[:pl])
             z_all = pdf_merge.fine_z_vals(
-                z_c[:p], w_p, s_i, u=None if det else u[:p], det=det,
+                z_c[:pl], w_p, s_i, u=None if det else u[:pl], det=det,
                 use_kernel=cfg.use_pdf_kernel)
             rgb, _, _, _, depth = level(flat_f, src_f, z_all)
 
             def share(rgb_l, depth_l, crgb, tgt, pri):
-                return (torch.sum(crgb[:p, None] / 2.0
-                                  * (rgb_l - tgt[:p]) ** 2)
-                        + torch.sum(coeff_d[:p] / 2.0
-                                    * (depth_l - pri[:p]) ** 2))
+                return (torch.sum(crgb[:pl, None] / 2.0
+                                  * (rgb_l - tgt[:pl]) ** 2)
+                        + torch.sum(coeff_d[:pl] / 2.0
+                                    * (depth_l - pri[:pl]) ** 2))
 
             loss = (share(rgb, depth, coeff_rgb_f, tgt_f, pri_f)
                     + share(rgb0, depth0, coeff_rgb, tgt_c, pri_c))
+            local = {"rgb": rgb, "depth": depth, "rgb0": rgb0,
+                     "depth0": depth0}
+            if nr > 0:
+                local = {k: torch.cat([v, r], 0) for (k, v), r in zip(
+                    local.items(), (rgb_r, depth_r, rgb0_r, depth0_r))}
+        else:
+            local = {"rgb": rgb_r, "depth": depth_r, "rgb0": rgb0_r,
+                     "depth0": depth0_r}
+        # Every rank's rows; the patch terms read the first p of them,
+        # whose cotangents flow back to the rank that owns each ray.
+        full = mesh_lib.gather_outputs(local, mesh, nl)
+        if p > 0:
             batch_p = {"rgb": target[:p], "mono_disp": batch["mono_disp"][:p]}
-            for rgb_l, depth_l, nk in ((rgb, depth, ""), (rgb0, depth0, "0")):
+            for nk in ("", "0"):
+                rgb_l, depth_l = full["rgb" + nk][:p], full["depth" + nk][:p]
                 if noise is not None:
                     rgb_l = rgb_l + step_lib.NOISE_STD * noise["rgb" + nk][:p]
                     depth_l = depth_l + far * step_lib.NOISE_STD * noise[
                         "depth" + nk][:p]
                 mono, ssim_v, lp = losses_lib._patch_terms(
                     rgb_l, depth_l, batch_p, cfg, lpips_params)
-                loss = (loss + cfg.mono_depth_loss_mult * mono
-                        - cfg.patch_ssim_loss_mult * ssim_v
-                        + cfg.patch_lpips_loss_mult * lp)
+                terms = (cfg.mono_depth_loss_mult * mono
+                         - cfg.patch_ssim_loss_mult * ssim_v
+                         + cfg.patch_lpips_loss_mult * lp)
+                loss = terms if loss is None else loss + terms
+        if loss is not None and loss.requires_grad:
             loss.backward()
-            rgb_full = torch.cat([rgb.detach(), rgb_r], 0)
-            depth_full = torch.cat([depth.detach(), depth_r], 0)
-            rgb0_full = torch.cat([rgb0.detach(), rgb0_r], 0)
-            depth0_full = torch.cat([depth0.detach(), depth0_r], 0)
-        else:
-            rgb_full, depth_full = rgb_r, depth_r
-            rgb0_full, depth0_full = rgb0_r, depth0_r
 
         # The kernel's explicit weight grads join autograd's.
-        interop.add_flat_grads(model.coarse, dw_c, net_depth)
-        interop.add_flat_grads(model.fine, dw_f, net_depth)
+        if dw_c is not None:
+            interop.add_flat_grads(model.coarse, dw_c, net_depth)
+            interop.add_flat_grads(model.fine, dw_f, net_depth)
 
         with torch.no_grad():
-            outputs = {"rgb": rgb_full, "depth": depth_full,
-                       "rgb0": rgb0_full, "depth0": depth0_full}
+            outputs = {k: v.detach() for k, v in full.items()}
             if noise is not None:
                 outputs = step_lib.apply_output_noise(outputs, cfg, noise)
             loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg,
@@ -676,7 +714,7 @@ def build_onepass_vanilla_train_step(cfg, lpips_params=None):
                 # its "forward" returns the reference levels' maps.
                 step_lib.apply_ss_loss(lambda _rays, _d: ref_outputs, batch,
                                        cfg, outputs, loss, stats, ss_draws)
-        return state, step_lib.finish_step(state, stats, cfg)
+        return state, step_lib.finish_step(state, stats, cfg, mesh)
 
     return train_step
 
@@ -931,14 +969,20 @@ def mip_onepass_supported(cfg) -> bool:
             and not cfg.compute_normal_metrics)
 
 
-def build_onepass_mip_train_step(cfg):
+def build_onepass_mip_train_step(cfg, mesh=None):
     """train_step(state, batch, draws=None) -> (state, stats): the mip
     loss (`train.losses.mip_losses`) with every level of the data rays
     running the one-pass kernel, and the 4x16x16 MiDaS patch rays and the
     TV norm's random-pose rays the differentiable fused forward
     (`ops/fused_train.fused_mip_forward`), their weight grads summed into
     the one MLP's. The stats are `mip_losses` on the assembled outputs.
-    `state` is updated in place."""
+    `state` is updated in place.
+
+    Under a mesh (JAX fused_onepass.py:1147-1295 under its mesh) `batch` is
+    the global batch: each rank runs its rows with the coefficients of the
+    global `lossmult.sum()`, its rows of the random-pose rays, and the
+    MiDaS and TV terms on the gathered outputs; the weight decay's
+    gradient is added once."""
     from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
 
     if not mip_onepass_supported(cfg):
@@ -955,8 +999,7 @@ def build_onepass_mip_train_step(cfg):
 
     def train_step(state, batch, draws: Optional[Dict] = None):
         model, opt = state.model, state.optimizer
-        rays = batch["rays"]
-        n, dev = rays.origins.shape[0], rays.origins.device
+        n, dev = batch["rgb"].shape[0], batch["rgb"].device
         p = p_rays
         if n < p:
             raise ValueError(f"a mip batch needs the {p} MiDaS patch rays "
@@ -968,7 +1011,9 @@ def build_onepass_mip_train_step(cfg):
                                                     dev), dev)
         padding = step_lib.resample_padding(cfg, state.step)
 
-        lossmult = rays.lossmult[:, 0]
+        # Per-ray coefficients of the global batch: the RGB term's
+        # denominator lossmult.sum() + 1e-4 is the global one.
+        lossmult = batch["rays"].lossmult[:, 0]
         if cfg.disable_multiscale_loss:
             lossmult = torch.ones_like(lossmult)
         base_crgb = 2.0 * lossmult / (lossmult.sum() + 1e-4)
@@ -980,15 +1025,24 @@ def build_onepass_mip_train_step(cfg):
             base_cd = prior = torch.zeros((n,), device=dev)
         target = batch["rgb"][:, :3]
 
+        # This rank's rows [a, a + nl): its first pl rows are patch rays.
+        sl = mesh_lib.data_slice(n, mesh)
+        nl = sl.stop - sl.start
+        pl = min(max(p - sl.start, 0), nl)
+        base_crgb, base_cd, prior, target = (
+            x[sl] for x in (base_crgb, base_cd, prior, target))
+        rays = batch["rays"].map(lambda x: x[sl])
+        d_loc = mesh_lib.shard_tree(draws, n, sl)
+
         params = fused_mip.flatten_mip_params(model.mlp, net_depth)
         flat = [w.detach() for w in params]
         packed = (fused_mip.pack(flat, net_depth, cfg.max_deg_point, cdt)
                   if dev.type == "cuda" else None)
 
-        # ---- one-pass kernel: data rays [p:] ----
-        nr = n - p
-        rays_r = rays.map(lambda x: x[p:])
-        d_r = step_lib.slice_draws(draws, slice(p, n))
+        # ---- one-pass kernel: data rays [pl:] ----
+        nr = nl - pl
+        rays_r = rays.map(lambda x: x[pl:])
+        d_r = step_lib.slice_draws(d_loc, slice(pl, nl))
         dnorm_r = torch.linalg.norm(rays_r.directions, dim=-1)
         views_r = rays_r.viewdirs.T[:, :, None].expand(3, nr, s).reshape(
             3, nr * s).contiguous()
@@ -1025,8 +1079,8 @@ def build_onepass_mip_train_step(cfg):
                     covs_T.reshape(3, nr * s).contiguous(), views_r,
                     0.5 * (t_vals[:, :-1] + t_vals[:, 1:]),
                     (t_vals[:, 1:] - t_vals[:, :-1]) * dnorm_r[:, None],
-                    t_vals[:, 0], t_vals[:, -1], lw * base_crgb[p:],
-                    target[p:], 0.1 * lw * base_cd[p:], prior[p:], noise,
+                    t_vals[:, 0], t_vals[:, -1], lw * base_crgb[pl:],
+                    target[pl:], 0.1 * lw * base_cd[pl:], prior[pl:], noise,
                     net_depth=net_depth, num_freqs=cfg.max_deg_point,
                     white_bkgd=cfg.white_bkgd, compute_dtype=cdt)
                 w_render = out_rows[5].reshape(nr, s)
@@ -1036,62 +1090,74 @@ def build_onepass_mip_train_step(cfg):
                 dw_total = dws if dw_total is None else [
                     a + b for a, b in zip(dw_total, dws)]
 
-        # ---- patch rays [:p]: differentiable fused forward + autograd ----
+        # ---- patch rays [:pl]: differentiable fused forward + autograd ----
         opt.zero_grad()
         loss = None
         patch_out = None
-        if p > 0:
+        if pl > 0:
             patch_out = fused_mip_forward(
-                params, step_lib.slice_draws(draws, slice(0, p)),
-                rays.map(lambda x: x[:p]), cfg, resample_padding=padding,
+                params, step_lib.slice_draws(d_loc, slice(0, pl)),
+                rays.map(lambda x: x[:pl]), cfg, resample_padding=padding,
                 packed=packed)
             loss = 0.0
             for lvl, r in enumerate(patch_out):
                 lw = level_mults[lvl]
-                loss = loss + torch.sum(lw * base_crgb[:p, None] / 2.0
-                                        * (r["rgb"] - target[:p]) ** 2)
-                loss = loss + torch.sum(0.1 * lw * base_cd[:p] / 2.0
-                                        * (r["distance_mean"] - prior[:p])
+                loss = loss + torch.sum(lw * base_crgb[:pl, None] / 2.0
+                                        * (r["rgb"] - target[:pl]) ** 2)
+                loss = loss + torch.sum(0.1 * lw * base_cd[:pl] / 2.0
+                                        * (r["distance_mean"] - prior[:pl])
                                         ** 2)
+        renderings = []
+        for lvl in range(n_levels):
+            parts = [patch_out[lvl]] if pl > 0 else []
+            parts += [mega_out[lvl]] if nr > 0 else []
+            renderings.append({k: torch.cat([x[k] for x in parts], 0)
+                               for k in ("rgb", "distance_mean")})
+        # Every rank's rows; the MiDaS term reads the first p of them,
+        # whose cotangents flow back to the rank that owns each ray.
+        renderings = mesh_lib.gather_outputs(renderings, mesh, nl)
+        if p > 0:
+            for lvl, r in enumerate(renderings):
                 mono = losses_lib.midas_patch_loss(
-                    r["distance_mean"].reshape(-1),
-                    batch["mono_dpts"].reshape(-1), 16, 4)
+                    r["distance_mean"][:p].reshape(-1),
+                    batch["mono_dpts"][:p].reshape(-1), 16, 4)
                 if cfg.dataset_type == "blender":
                     mono = mono * 0.01
-                loss = loss + 0.1 * lw * mono
+                term = 0.1 * level_mults[lvl] * mono
+                loss = term if loss is None else loss + term
         renders_r = None
         if render_random:
-            renders_r = fused_mip_forward(
-                params, draws.get("random"), batch["rays_random"], cfg,
-                resample_padding=padding, compute_extras=True,
-                packed=packed)
+            def apply_fn(rays_, d):
+                return fused_mip_forward(
+                    params, d, rays_, cfg, resample_padding=padding,
+                    compute_extras=True, packed=packed)
+
+            renders_r = step_lib.sharded_apply(
+                apply_fn, mesh, batch["rays_random"].origins.shape[0])(
+                batch["rays_random"], draws.get("random"))
             tvw = [cfg.coarse_loss_mult] * (n_levels - 1) + [
                 step_lib.tvnorm_weight(cfg, state.step)]
             for lvl, r in enumerate(renders_r):
                 tv = tvw[lvl] * losses_lib.tv_level_loss(r, cfg)
                 loss = tv if loss is None else loss + tv
         if cfg.weight_decay_mult != 0:
-            all_params = list(model.parameters())
+            # Every rank computes it; its gradient is added once.
+            all_params = mesh_lib.once(list(model.parameters()), mesh)
             wd = cfg.weight_decay_mult * sum(
                 torch.sum(q**2) for q in all_params) / sum(
                 q.numel() for q in all_params)
             loss = wd if loss is None else loss + wd
-        if loss is not None:
+        if loss is not None and torch.is_tensor(loss) and loss.requires_grad:
             loss.backward()
         if dw_total is not None:
             interop.add_flat_grads(model.mlp, dw_total, net_depth)
 
         with torch.no_grad():
-            renderings = []
-            for lvl in range(n_levels):
-                parts = [patch_out[lvl]] if p > 0 else []
-                parts += [mega_out[lvl]] if nr > 0 else []
-                renderings.append({k: torch.cat([x[k].detach()
-                                                 for x in parts], 0)
-                                   for k in ("rgb", "distance_mean")})
+            renderings = [{k: v.detach() for k, v in r.items()}
+                          for r in renderings]
             _, stats = losses_lib.mip_losses(
                 renderings, renders_r, batch, model.parameters(), cfg,
                 step_lib.tvnorm_weight(cfg, state.step))
-        return state, step_lib.finish_step(state, stats, cfg)
+        return state, step_lib.finish_step(state, stats, cfg, mesh)
 
     return train_step

@@ -35,8 +35,12 @@ With `disable_normals=False` every level runs the normals variant
 carry the normals map; that forward has no backward, so it serves the
 render (the fused train steps need disable_normals, as in the JAX
 package; the eager mip step trains with normals). Random draws are tensors
-(`train/step.py::make_draws`, `make_mip_draws`); there is no mesh
-argument (multi-GPU: ROADMAP Queue 1).
+(`train/step.py::make_draws`, `make_mip_draws`). Under a mesh
+(`parallel/mesh.py`; the JAX module's `_shard_map_kernel`, l.34-55) the
+two-call steps run the forward on the rank's rows of the global batch
+and compute the global loss on the gathered outputs, as the eager steps
+do (`train/step.py::shard_step`); the weight grads are summed over ranks
+in `finish_step`.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import pdf_merge
 from consistentnerf_tpu_torch.ops.fused_onepass import model_skips
+from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
 from consistentnerf_tpu_torch.train import losses as losses_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 
@@ -136,7 +141,8 @@ def _levels(cfg) -> tuple:
     return ("coarse", "fine") if cfg.N_importance > 0 else ("coarse",)
 
 
-def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
+def build_fused_vanilla_train_step(cfg, lpips_params=None,
+                                   mesh=None) -> Callable:
     """train_step(state, batch, draws=None) -> (state, stats): the
     vanilla ConsistentNeRF loss (`train.losses.vanilla_losses`, softLpmask
     included) on `fused_vanilla_forward`'s outputs, autograd through the
@@ -152,11 +158,12 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
 
     def train_step(state, batch, draws: Optional[Dict] = None):
         model = state.model
-        rays = step_lib.rays_from_batch(batch, cfg.near, cfg.far)
-        n, dev = rays.origins.shape[0], rays.origins.device
+        n, dev = batch["rgb"].shape[0], batch["rgb"].device
         if draws is None:
             draws = step_lib.make_draws(cfg, n, step_lib.step_generator(
                 cfg.seed, state.step, dev), dev)
+        local, d_loc, sl = step_lib.shard_step(batch, draws, mesh, n)
+        rays = step_lib.rays_from_batch(local, cfg.near, cfg.far)
         temp = mask_mod.temp_schedule(state.step, cfg.total_iters,
                                       cfg.temp_start, cfg.temp_end)
         state.optimizer.zero_grad()
@@ -168,10 +175,11 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
                                        skips, cfg.multires,
                                        cfg.multires_views, cdt)
                       for lvl, w in params.items()}
-        outputs = fused_vanilla_forward(params, draws, rays, cfg, packed)
+        outputs = fused_vanilla_forward(params, d_loc, rays, cfg, packed)
         if cfg.use_noise:
             outputs = step_lib.apply_output_noise(outputs, cfg,
-                                                  draws["noise"])
+                                                  d_loc["noise"])
+        outputs = mesh_lib.gather_outputs(outputs, mesh, sl.stop - sl.start)
         loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg, cfg.far,
                                                 temp, lpips_params)
         if step_lib.has_ss(cfg, batch):
@@ -180,11 +188,11 @@ def build_fused_vanilla_train_step(cfg, lpips_params=None) -> Callable:
             def apply_fn(rays_, d):
                 return fused_vanilla_forward(params, d, rays_, cfg, packed)
 
-            loss, stats = step_lib.apply_ss_loss(apply_fn, batch, cfg,
-                                                 outputs, loss, stats,
-                                                 draws["ss"])
+            loss, stats = step_lib.apply_ss_loss(
+                step_lib.sharded_apply(apply_fn, mesh, n), batch, cfg,
+                outputs, loss, stats, draws["ss"])
         loss.backward()
-        return state, step_lib.finish_step(state, stats, cfg)
+        return state, step_lib.finish_step(state, stats, cfg, mesh)
 
     return train_step
 
@@ -263,7 +271,7 @@ def fused_mip_forward(weights: Sequence[torch.Tensor], draws: Optional[Dict],
     return renderings
 
 
-def build_fused_mip_train_step(cfg) -> Callable:
+def build_fused_mip_train_step(cfg, mesh=None) -> Callable:
     """train_step(state, batch, draws=None) -> (state, stats): the mip
     loss (`train.losses.mip_losses`, the TV norm on the random-pose rays
     included) with every ray through `fused_mip_forward` (#6, and #7 by
@@ -280,8 +288,7 @@ def build_fused_mip_train_step(cfg) -> Callable:
 
     def train_step(state, batch, draws: Optional[Dict] = None):
         model = state.model
-        rays = batch["rays"]
-        n, dev = rays.origins.shape[0], rays.origins.device
+        n, dev = batch["rgb"].shape[0], batch["rgb"].device
         render_random = step_lib.renders_random(cfg, batch)
         if draws is None:
             draws = step_lib.make_mip_step_draws(
@@ -293,20 +300,27 @@ def build_fused_mip_train_step(cfg) -> Callable:
         packed = (fused_mip.pack([w.detach() for w in params], net_depth,
                                  cfg.max_deg_point, cdt)
                   if dev.type == "cuda" else None)
-        renderings = fused_mip_forward(
-            params, draws, rays, cfg, resample_padding=padding,
+        local, d_loc, sl = step_lib.shard_step(batch, draws, mesh, n)
+        renderings = mesh_lib.gather_outputs(fused_mip_forward(
+            params, d_loc, local["rays"], cfg, resample_padding=padding,
             compute_extras=(cfg.compute_disp_metrics
-                            or cfg.compute_normal_metrics), packed=packed)
+                            or cfg.compute_normal_metrics), packed=packed),
+            mesh, sl.stop - sl.start)
         renderings_random = None
         if render_random:
-            renderings_random = fused_mip_forward(
-                params, draws.get("random"), batch["rays_random"], cfg,
-                resample_padding=padding, compute_extras=True,
-                packed=packed)
+            def apply_fn(rays_, d):
+                return fused_mip_forward(
+                    params, d, rays_, cfg, resample_padding=padding,
+                    compute_extras=True, packed=packed)
+
+            renderings_random = step_lib.sharded_apply(
+                apply_fn, mesh, batch["rays_random"].origins.shape[0])(
+                batch["rays_random"], draws.get("random"))
         loss, stats = losses_lib.mip_losses(
-            renderings, renderings_random, batch, model.parameters(), cfg,
+            renderings, renderings_random, batch,
+            mesh_lib.once(list(model.parameters()), mesh), cfg,
             step_lib.tvnorm_weight(cfg, state.step))
         loss.backward()
-        return state, step_lib.finish_step(state, stats, cfg)
+        return state, step_lib.finish_step(state, stats, cfg, mesh)
 
     return train_step

@@ -27,6 +27,10 @@ every device; the ops raise otherwise.
 `use_kernel` (and S_c, S_i <= 128), else through the plain chain
 `sort(concat(z_vals, sample_pdf(...)))`, the JAX package's default
 (`use_pdf_kernel=False`). The resampled depths are detached either way.
+
+Neither op takes a mesh: the JAX package shard_maps #8 / #9 over its
+mesh (`ops/pdf_merge.py:351-372`), while each rank of a run over
+`parallel/mesh.py` launches them on its own rays already.
 """
 
 from __future__ import annotations

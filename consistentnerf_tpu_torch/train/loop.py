@@ -5,6 +5,13 @@ scalars, a `torch.profiler` trace of `profile_steps` steps, `gc` pinned
 with a collection every `gc_every` steps, and a held-out render every
 `train_render_every` steps. Throughput is logged as rays/sec like the
 reference (`train.py:416-419`).
+
+Over several ranks (`parallel/mesh.py`; the JAX loop's mesh, l.127-231)
+every rank makes the same global batches and draws, the step computes
+its rows and the global loss, rank 0's initial or restored state is
+broadcast once, and rank 0 alone logs, writes TensorBoard, renders the
+held-out view, traces and saves checkpoints (the others wait at a
+barrier after each save).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from consistentnerf_tpu_torch.data.pipeline import (AllImagesBatcher,
                                                     to_device)
 from consistentnerf_tpu_torch.data.scene import SceneData
 from consistentnerf_tpu_torch.models.factory import make_model
+from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
 from consistentnerf_tpu_torch.train.state import (create_train_state,
@@ -57,7 +65,7 @@ def init_state(cfg, device="cuda"):
     return create_train_state(cfg, model)
 
 
-def select_train_step(cfg, model, lpips_params=None):
+def select_train_step(cfg, model, lpips_params=None, mesh=None):
     """The production step dispatch (the JAX package's loop.py:68-111):
     with use_fused_train, the one-pass kernel step where the config's
     exact loss is supported (`onepass_supported`,
@@ -68,23 +76,24 @@ def select_train_step(cfg, model, lpips_params=None):
     v1 kind on its two-call step instead of the one-pass kernel. The
     kernel steps add no density noise (the JAX package's ignore
     raw_noise_std; its eager step adds it): a config whose eager step
-    adds it trains on the eager step, with a warning."""
+    adds it trains on the eager step, with a warning. `mesh`: the run's
+    `parallel.mesh.Mesh` (every step takes the global batch and computes
+    its rows; None: a single process)."""
     from consistentnerf_tpu_torch.ops import fused_mlp as fm
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
 
+    kw = dict(lpips_params=lpips_params, mesh=mesh)
     if cfg.backbone == "mipnerf":
-        return _select_mip_train_step(cfg, model)
+        return _select_mip_train_step(cfg, model, mesh)
     if not cfg.use_fused_train:
-        return step_lib.build_vanilla_train_step(model, cfg,
-                                                 lpips_params=lpips_params)
+        return step_lib.build_vanilla_train_step(model, cfg, **kw)
     if step_lib.has_raw_noise(cfg):
         warnings.warn(
             f"use_fused_train with raw_noise_std={cfg.raw_noise_std} at "
             f"perturb {cfg.perturb}: the model adds density noise, which "
             "the kernel steps do not compute; training on the eager step",
             stacklevel=2)
-        return step_lib.build_vanilla_train_step(model, cfg,
-                                                 lpips_params=lpips_params)
+        return step_lib.build_vanilla_train_step(model, cfg, **kw)
     onepass = cfg.use_onepass_train and fused_onepass.onepass_supported(cfg)
     if fused_onepass.heads_read_pe(cfg.netdepth):
         # The port's own gate: only the v1 kernels take the widened heads
@@ -97,8 +106,7 @@ def select_train_step(cfg, model, lpips_params=None):
                 "only the v1 kernels take; training on the eager step (set "
                 "fused_kernel=v1 or hybrid to train on the kernels)",
                 stacklevel=2)
-            return step_lib.build_vanilla_train_step(
-                model, cfg, lpips_params=lpips_params)
+            return step_lib.build_vanilla_train_step(model, cfg, **kw)
         if onepass:
             warnings.warn(
                 f"use_onepass_train at netdepth {cfg.netdepth}: the heads "
@@ -107,13 +115,11 @@ def select_train_step(cfg, model, lpips_params=None):
                 stacklevel=2)
             onepass = False
     if onepass:
-        return fused_onepass.build_onepass_vanilla_train_step(
-            cfg, lpips_params=lpips_params)
-    return fused_train.build_fused_vanilla_train_step(
-        cfg, lpips_params=lpips_params)
+        return fused_onepass.build_onepass_vanilla_train_step(cfg, **kw)
+    return fused_train.build_fused_vanilla_train_step(cfg, **kw)
 
 
-def _select_mip_train_step(cfg, model):
+def _select_mip_train_step(cfg, model, mesh=None):
     """The mip branch of the dispatch (loop.py:92-110). No mip step reads
     ss_loss, in either package: it warns and trains without it."""
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
@@ -123,15 +129,15 @@ def _select_mip_train_step(cfg, model):
                       "it (as in the JAX package); training without it",
                       stacklevel=3)
     if not cfg.use_fused_train:
-        return step_lib.build_mip_train_step(model, cfg)
+        return step_lib.build_mip_train_step(model, cfg, mesh=mesh)
     if not cfg.disable_normals:
         raise ValueError(
             "use_fused_train with the mip backbone requires "
             "disable_normals=true (normals need per-point density grads; "
             "use the eager step for normal metrics)")
     if cfg.use_onepass_train and fused_onepass.mip_onepass_supported(cfg):
-        return fused_onepass.build_onepass_mip_train_step(cfg)
-    return fused_train.build_fused_mip_train_step(cfg)
+        return fused_onepass.build_onepass_mip_train_step(cfg, mesh=mesh)
+    return fused_train.build_fused_mip_train_step(cfg, mesh=mesh)
 
 
 def train_lpips_params(cfg, device, log_fn=print):
@@ -228,13 +234,16 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
     """Run (or resume) training; returns the final state and throughput.
     `random_poses` [P, 3, 4]: the mip batcher's random-pose rays. With
     `use_prefetch` a thread makes the batches ahead of the loop
-    (`Prefetcher`; the stream is the batcher's either way)."""
+    (`Prefetcher`; the stream is the batcher's either way). In a process
+    group (`parallel.mesh.maybe_initialize_distributed`) the ranks train
+    the global batch together on `cfg.mesh_shape`; a bare `cuda` device
+    is the rank's card."""
     num_steps = num_steps or cfg.total_iters
-    device = torch.device(device)
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape}: multi-device runs are not ported "
-            "yet (ROADMAP Queue 1: multi-GPU)")
+    device = mesh_lib.rank_device(device)
+    mesh = mesh_lib.create_mesh(cfg.mesh_shape, cfg.mesh_axis_names, device)
+    lead = mesh.rank == 0
+    if not lead:
+        log_fn = _quiet
     batcher = make_batcher(scene, cfg, random_poses)
     # The JAX loop draws an example batch to initialise its state before
     # the loop, so step i trains on the batcher's batch i + 1 and the
@@ -246,16 +255,19 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
         os.path.join(cfg.basedir, cfg.expname, "checkpoints"),
         keep=cfg.checkpoint_keep)
     state = ckpt.restore(state)
+    mesh_lib.broadcast_state(state, mesh)
     start_step = state.step
     if start_step:
         log_fn(f"resumed from step {start_step}")
     lpips_params = train_lpips_params(cfg, device, log_fn)
     train_step = select_train_step(cfg, state.model,
-                                   lpips_params=lpips_params)
+                                   lpips_params=lpips_params, mesh=mesh)
 
     source = Prefetcher(batcher) if use_prefetch else batcher
-    writer = summary_writer(cfg, log_fn)
-    profiler = StepProfiler(cfg, start_step, device, log_fn)
+    writer = summary_writer(cfg, log_fn) if lead else None
+    profiler = StepProfiler(cfg.replace(profile_steps=cfg.profile_steps
+                                        if lead else 0),
+                            start_step, device, log_fn)
     stats_history = []
     rays_per_sec = 0.0
     t0, last_log = time.time(), start_step
@@ -290,8 +302,10 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
                                       step_i + 1)
             if (step_i + 1) % cfg.checkpoint_every == 0 or \
                     step_i + 1 == num_steps:
-                ckpt.save(step_i + 1, state)
-            if (cfg.train_render_every > 0
+                if lead:
+                    ckpt.save(step_i + 1, state)
+                mesh_lib.barrier(mesh)
+            if (lead and cfg.train_render_every > 0
                     and (step_i + 1) % cfg.train_render_every == 0
                     and len(scene.i_test) > 0):
                 held_out_render(cfg, scene, state.model, step_i + 1,
@@ -306,6 +320,10 @@ def train(cfg, scene: SceneData, num_steps: Optional[int] = None,
             gc.enable()
     return TrainResult(state=state, stats_history=stats_history,
                        rays_per_sec=rays_per_sec)
+
+
+def _quiet(_msg: str) -> None:
+    """The log of ranks other than 0."""
 
 
 def held_out_render(cfg, scene, model, step: int, writer, log_fn) -> dict:

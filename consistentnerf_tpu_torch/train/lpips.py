@@ -129,11 +129,12 @@ def lpips(params: Params, img0: torch.Tensor,
 
 class LPIPS:
     """The distance with its weights (calibrated from `weights_path`, or
-    the seeded init), on `device`; its convolutions in full fp32 on a card
-    (cuDNN's TF32 is on by default)."""
+    the seeded init), on `device` (`cuda` unless the caller asks for the
+    CPU); its convolutions in full fp32 on a card (cuDNN's TF32 is on by
+    default)."""
 
     def __init__(self, weights_path: Optional[str] = None, seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         fm.strict_fp32(torch.device(device))
         if weights_path and os.path.exists(weights_path):
             params = load_weights(weights_path)

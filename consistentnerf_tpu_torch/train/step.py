@@ -19,6 +19,13 @@ density noise's standard normals; `random` holds the same draws for the random-p
 TV norm (`make_mip_step_draws`). A step makes them from
 `step_generator(cfg.seed, step)` unless the caller passes its own, so a
 resumed run draws what an uninterrupted one would.
+
+Under a mesh (`parallel/mesh.py`; the `mesh` argument of the
+`build_*_train_step` functions) every rank takes the same global batch
+and makes the same global draws, runs the model on its rows of both
+(`shard_step`), gathers the outputs and computes the loss of the global
+batch; `finish_step` sums the gradients over the data axis. Without one
+the step is the single-process step.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from consistentnerf_tpu_torch.consistency import masks as mask_mod
 from consistentnerf_tpu_torch.core import mathx, sampling
 from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.ops import pdf_merge
+from consistentnerf_tpu_torch.parallel import mesh as mesh_lib
 from consistentnerf_tpu_torch.train import losses as losses_lib
 from consistentnerf_tpu_torch.train.state import TrainState
 
@@ -230,10 +238,35 @@ def check_kernel_step(cfg) -> None:
             "train it on the eager step")
 
 
-def finish_step(state: TrainState, stats: Dict, cfg) -> Dict:
+def shard_step(batch, draws: Dict, mesh, n: int):
+    """(this rank's rows of the batch, of the draws, their slice) for a
+    global batch of n rays; the whole batch without a mesh."""
+    sl = mesh_lib.data_slice(n, mesh)
+    return (mesh_lib.shard_batch(batch, mesh),
+            mesh_lib.shard_tree(draws, n, sl), sl)
+
+
+def sharded_apply(apply_fn: Callable, mesh, n: int) -> Callable:
+    """apply_fn(rays, draws) on this rank's rows of n global rays, its
+    outputs gathered: the ss_loss term's reference rays under a mesh."""
+    if mesh is None or not mesh.active:
+        return apply_fn
+    sl = mesh_lib.data_slice(n, mesh)
+
+    def apply(rays, draws):
+        out = apply_fn(rays.map(lambda x: x[sl]),
+                       mesh_lib.shard_tree(draws, n, sl))
+        return mesh_lib.gather_outputs(out, mesh, sl.stop - sl.start)
+
+    return apply
+
+
+def finish_step(state: TrainState, stats: Dict, cfg, mesh=None) -> Dict:
     """Grad-norm and lr stats, the optimizer update, the step increment.
-    The `.grad`s hold the step's gradients."""
+    The `.grad`s hold this rank's part of the step's gradients; under a
+    mesh they are summed over the data axis here, once a step."""
     opt = state.optimizer
+    mesh_lib.reduce_grads(opt.params, mesh)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in opt.params]
     stats["grad_norm"] = losses_lib.tree_norm(grads)
@@ -245,34 +278,37 @@ def finish_step(state: TrainState, stats: Dict, cfg) -> Dict:
             for k, v in stats.items()}
 
 
-def build_vanilla_train_step(model, cfg,
-                             lpips_params=None) -> Callable:
+def build_vanilla_train_step(model, cfg, lpips_params=None,
+                             mesh=None) -> Callable:
     """train_step(state, batch, draws=None) -> (state, stats). `batch`
-    holds tensors on the model's device; `state` (whose module is
-    `model`) is updated in place."""
+    holds tensors on the model's device (the global batch under a mesh);
+    `state` (whose module is `model`) is updated in place."""
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
-        rays = rays_from_batch(batch, cfg.near, cfg.far)
-        n, device = rays.origins.shape[0], rays.origins.device
+        n, device = batch["rgb"].shape[0], batch["rgb"].device
         if draws is None:
             draws = make_draws(cfg, n, step_generator(cfg.seed, state.step,
                                                       device), device)
+        local, d_loc, sl = shard_step(batch, draws, mesh, n)
+        rays = rays_from_batch(local, cfg.near, cfg.far)
         temp = mask_mod.temp_schedule(state.step, cfg.total_iters,
                                       cfg.temp_start, cfg.temp_end)
         state.optimizer.zero_grad()
-        outputs = state.model(rays, **model_draws(draws))
+        outputs = state.model(rays, **model_draws(d_loc))
         if cfg.use_noise:
-            outputs = apply_output_noise(outputs, cfg, draws["noise"])
+            outputs = apply_output_noise(outputs, cfg, d_loc["noise"])
+        outputs = mesh_lib.gather_outputs(outputs, mesh, sl.stop - sl.start)
         loss, stats = losses_lib.vanilla_losses(outputs, batch, cfg, cfg.far,
                                                 temp, lpips_params)
         if has_ss(cfg, batch):
             def apply_fn(rays_, d):
                 return state.model(rays_, **model_draws(d))
 
-            loss, stats = apply_ss_loss(apply_fn, batch, cfg, outputs, loss,
-                                        stats, draws["ss"])
+            loss, stats = apply_ss_loss(sharded_apply(apply_fn, mesh, n),
+                                        batch, cfg, outputs, loss, stats,
+                                        draws["ss"])
         loss.backward()
-        return state, finish_step(state, stats, cfg)
+        return state, finish_step(state, stats, cfg, mesh)
 
     return train_step
 
@@ -283,7 +319,7 @@ def resample_padding(cfg, step: int) -> float:
                           cfg.resample_padding_final)
 
 
-def build_mip_train_step(model, cfg) -> Callable:
+def build_mip_train_step(model, cfg, mesh=None) -> Callable:
     """train_step(state, batch, draws=None) -> (state, stats) of the mip
     backbone (RegNeRF/train.py:97-241 through `mip_losses`), with the TV
     norm on the batch's random-pose rays (`rays_random`) when it is on.
@@ -294,33 +330,41 @@ def build_mip_train_step(model, cfg) -> Callable:
     it for the extras, as the JAX step does (train/step.py:195-196)."""
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None):
-        rays = batch["rays"]
-        device = rays.origins.device
+        n, device = batch["rgb"].shape[0], batch["rgb"].device
         if draws is None:
             draws = make_mip_step_draws(cfg, batch, step_generator(
                 cfg.seed, state.step, device), device)
+        local, d_loc, sl = shard_step(batch, draws, mesh, n)
         padding = resample_padding(cfg, state.step)
         state.optimizer.zero_grad()
-        renderings = state.model(
-            rays, draws, resample_padding=padding,
+        renderings = mesh_lib.gather_outputs(state.model(
+            local["rays"], d_loc, resample_padding=padding,
             compute_extras=(cfg.compute_disp_metrics
-                            or cfg.compute_normal_metrics))
+                            or cfg.compute_normal_metrics)), mesh,
+            sl.stop - sl.start)
         renderings_random = None
         if renders_random(cfg, batch):
-            renderings_random = state.model(
-                batch["rays_random"], draws.get("random"),
-                resample_padding=padding, compute_extras=True)
+            def apply_fn(rays_, d):
+                return state.model(rays_, d, resample_padding=padding,
+                                   compute_extras=True)
+
+            renderings_random = sharded_apply(
+                apply_fn, mesh, batch["rays_random"].origins.shape[0])(
+                batch["rays_random"], draws.get("random"))
+        # The weight decay reads the parameters themselves: every rank
+        # computes it, and its gradient is added once.
         loss, stats = losses_lib.mip_losses(
-            renderings, renderings_random, batch, state.model.parameters(),
-            cfg, tvnorm_weight(cfg, state.step))
+            renderings, renderings_random, batch,
+            mesh_lib.once(list(state.model.parameters()), mesh), cfg,
+            tvnorm_weight(cfg, state.step))
         loss.backward()
-        return state, finish_step(state, stats, cfg)
+        return state, finish_step(state, stats, cfg, mesh)
 
     return train_step
 
 
-def build_train_step(model, cfg, **kw) -> Callable:
+def build_train_step(model, cfg, mesh=None, **kw) -> Callable:
     """The eager step of the configured backbone."""
     if cfg.backbone == "vanilla":
-        return build_vanilla_train_step(model, cfg, **kw)
-    return build_mip_train_step(model, cfg)
+        return build_vanilla_train_step(model, cfg, mesh=mesh, **kw)
+    return build_mip_train_step(model, cfg, mesh=mesh)

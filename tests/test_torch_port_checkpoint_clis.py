@@ -225,7 +225,7 @@ def test_import_mipnerf_ckpt_matches_jax(tmp_path, capsys,
     CheckpointManager(str(exp / "checkpoints")).restore_for_eval(model)
     _assert_same_sd(model.state_dict(), interop.mip_params_from_jax(tree))
     # A directory names its newest checkpoint file.
-    state = import_mipnerf_ckpt.import_checkpoint(ckpt_dir, cfg)
+    state = import_mipnerf_ckpt.import_checkpoint(ckpt_dir, cfg, "cpu")
     assert state.step == 250000
     _assert_same_sd(state.model.state_dict(), model.state_dict())
     jrays, rays = _rays(seed=2)

@@ -190,14 +190,17 @@ def test_resolve_config_and_explicit_keys_match_jax(tmp_path, argv):
 
 
 def test_multi_device_fields_raise_where_jax_reads_them(tmp_path):
+    """resolve_config reads the multi-process fields, as the JAX one does
+    (an incomplete set raises before any connection is tried), and train()
+    reads mesh_shape (a shape that does not hold the world size raises);
+    tests/test_torch_port_parallel.py runs them."""
     p = common.make_parser("x")
     args = p.parse_args(["--set", "num_processes=2", "--set",
-                         "coordinator_address=localhost:1234",
-                         "--set", "process_id=0"])
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-GPU"):
+                         "coordinator_address=localhost:1234"])
+    with pytest.raises(ValueError, match="process_id"):
         common.resolve_config(args)
-    cfg = configs.Config(mesh_shape=[1], dataset_type="synthetic")
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-GPU"):
+    cfg = configs.Config(mesh_shape=[2], dataset_type="synthetic")
+    with pytest.raises(ValueError, match="the group has 1"):
         loop.train(cfg, types.SimpleNamespace(), device="cpu")
 
 

@@ -1425,7 +1425,8 @@ def test_metric_suite_on_the_card_matches_the_cpu(cuda_device):
     from consistentnerf_tpu_torch.train.lpips import LPIPS
 
     pred, gt, mask = _image_pair(200, 216, 3)
-    cpu = evaluation.compute_image_metrics(pred, gt, LPIPS(), mask)
+    cpu = evaluation.compute_image_metrics(pred, gt, LPIPS(device="cpu"),
+                                         mask)
     card = evaluation.compute_image_metrics(
         pred.to(cuda_device), gt.to(cuda_device), LPIPS(device=cuda_device),
         mask.to(cuda_device))
@@ -1468,7 +1469,7 @@ def _cpu_metrics(model, cfg, scene, views, device):
             for (_, v), view in zip(group, outs):
                 per_view.append(evaluation.compute_image_metrics(
                     torch.clamp(view["rgb"], 0, 1).cpu().numpy(),
-                    scene.images[v], LPIPS()))
+                    scene.images[v], LPIPS(device="cpu")))
     return {k: float(np.mean([m[k] for m in per_view]))
             for k in per_view[0]}
 
@@ -1991,3 +1992,67 @@ def test_mip_import_renders_through_the_fused_forward(cuda_device,
     plain = render_lib.build_render_fn(
         model, cfg.replace(use_fused_render=False))(rays)
     assert (fused["rgb"] - plain["rgb"]).abs().mean().item() < 2e-3
+
+
+def _chip_smoke():
+    """chip_smoke.py's phases (the repository root on the path)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    chip_smoke.torch = torch
+    return chip_smoke
+
+
+def _build_all():
+    """Build every kernel before rank processes load them (two processes
+    must not build one source at once)."""
+    from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+
+    _build.build_all([v2.KERNEL, v2.BWD_KERNEL, op.KERNEL, op.MIP_KERNEL,
+                      fmip.KERNEL, fmip.BWD_KERNEL])
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device,
+                                                      tmp_path):
+    """chip_smoke.py's distributed phase at a small size: the one-pass
+    vanilla step (hard masks uneven over the ranks), with ss_loss, and
+    the one-pass mip step over two gloo ranks on this card against one
+    process on the whole batches (ranks bit-identical, step-1 loss and
+    grads, each rank's launches of #1 / #2 / #3 / #5 / #6 / #7), the
+    sharded render against the whole one, and a 1-rank NCCL group giving
+    the unsharded step's bits."""
+    cs = _chip_smoke()
+    _build_all()
+    small = dict(netdepth=2, netwidth=64, N_samples=16, N_importance=32,
+                 N_rand=512)
+    cases = {"vanilla": dict(cs.FLAGSHIP, **small),
+             "vanilla_ss": dict(cs.FLAGSHIP, ss_loss=True, **small),
+             "mip": dict(cs.MIP, netdepth=2, netwidth=64,
+                         mip_num_samples=32, N_rand=512)}
+    cs.GATE_FAILURES.clear()
+    launches = cs.distributed_phases(cuda_device, "card", cases,
+                                     dict(n_views=4, H=64, W=64),
+                                     str(tmp_path))
+    assert not cs.GATE_FAILURES, cs.GATE_FAILURES
+    assert all(launches[k] > 0 for k in (v2.KERNEL, v2.BWD_KERNEL))
+
+
+@pytest.mark.cuda
+def test_interleaved_canary_from_the_jax_init(cuda_device, tmp_path):
+    """The interleaved canary (tests/test_generalization_canary.py) from
+    the JAX package's init through train() on the card, held to the JAX
+    test's bounds."""
+    import numpy as np
+
+    cs = _chip_smoke()
+    res = cs.run_canary("interleaved", "jax", cuda_device, str(tmp_path))
+    assert min(res["psnrs"]) > 11.0, res
+    assert float(np.mean(res["psnrs"])) > 12.5, res

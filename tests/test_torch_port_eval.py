@@ -124,7 +124,7 @@ def test_lpips_with_carried_params_matches_jax(lpips_npz):
     carried = interop.lpips_params_from_jax(params)
     got = lpips.lpips(carried, _t(pred)[None] * 2 - 1, _t(gt)[None] * 2 - 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL)
-    fn = lpips.LPIPS(path)
+    fn = lpips.LPIPS(path, device="cpu")
     assert fn.is_calibrated
     np.testing.assert_allclose(fn(_t(pred), _t(gt)).numpy(), want, rtol=TOL)
     for a, b in zip(fn.params["lins"], carried["lins"]):
@@ -132,7 +132,7 @@ def test_lpips_with_carried_params_matches_jax(lpips_npz):
 
 
 def test_lpips_uncalibrated_init_has_the_jax_shapes():
-    port = lpips.LPIPS(None, seed=0)
+    port = lpips.LPIPS(None, seed=0, device="cpu")
     assert not port.is_calibrated
     ref = jax.eval_shape(jlpips.init_params, jax.random.PRNGKey(0))
     for pb, jb in zip(port.params["convs"], ref["convs"]):
@@ -142,7 +142,7 @@ def test_lpips_uncalibrated_init_has_the_jax_shapes():
             assert abs(float(pc["w"].var()) / var - 1) < 0.2
     for pl, jl in zip(port.params["lins"], ref["lins"]):
         assert pl.shape == jl.shape and float(pl.min()) >= 0
-    again = lpips.LPIPS(None, seed=0)
+    again = lpips.LPIPS(None, seed=0, device="cpu")
     pred, gt = _pair(32, 32, seed=5)
     assert float(port(_t(pred), _t(gt))) == float(again(_t(pred), _t(gt)))
 
@@ -153,7 +153,8 @@ def test_compute_image_metrics_matches_jax(lpips_npz, masked):
     pred, gt = _pair(40, 44, seed=6)
     mask = ((np.random.RandomState(7).rand(40, 44) > 0.5)
             .astype(np.float32) if masked else None)
-    got = evaluation.compute_image_metrics(pred, gt, lpips.LPIPS(path), mask)
+    got = evaluation.compute_image_metrics(
+        pred, gt, lpips.LPIPS(path, device="cpu"), mask)
     want = jeval.compute_image_metrics(pred, gt, jlpips.LPIPS(path), mask)
     assert sorted(got) == sorted(want)
     assert ("masked_lpips" in got) == masked

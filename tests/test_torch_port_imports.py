@@ -41,7 +41,9 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "train.mvs", "train.bootstrap", "cli.train_mvs",
              "cli.export_depth_priors", "cli.make_masks",
              "cli.import_torch_ckpt", "cli.export_torch_ckpt",
-             "cli.import_mipnerf_ckpt"):
+             "cli.import_mipnerf_ckpt", "parallel.mesh",
+             "parallel.distributed_render", "cli.metrics", "cli.jobs",
+             "data.multicam"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 

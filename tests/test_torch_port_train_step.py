@@ -210,9 +210,11 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 def test_train_cli_raises_for_what_is_not_ported(tmp_path):
     base = ["--device", "cpu", "--set", "dataset_type=synthetic",
             "--set", f"basedir={tmp_path}"]
-    # --bootstrap-priors is ported (tests/test_torch_port_producer_clis.py);
-    # multi-process runs are not.
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # --bootstrap-priors is ported (tests/test_torch_port_producer_clis.py),
+    # and so are multi-process runs (tests/test_torch_port_parallel.py); a
+    # run of several processes without its coordinator and rank raises.
+    with pytest.raises(ValueError, match="coordinator_address and "
+                       "process_id"):
         train_cli.main(base + ["--set", "num_processes=2"])
     # --eval-after is ported (tests/test_torch_port_eval.py). Weights on
     # disk turn the train-time LPIPS term on, as in the JAX loop
