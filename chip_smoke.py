@@ -139,7 +139,21 @@ with the launch counts set to 0 just before it and read just after:
   with the CLI's dispatch on a card, from the JAX package's inits
   (`tests/canary_inits.npz`, written by `tools/canary_inits.py`) held to
   the JAX tests' bounds, and from the port's init, printed; eight
-  processes (`--canary NAME --init jax|port`) at once.
+  processes (`--canary NAME --init jax|port`) at once;
+* the image codecs: the committed JPEG fixtures (`tests/jpeg_fixtures/`)
+  decoded by the port against the SHA-256 of imageio's decode beside
+  them, seconds a megapixel; an LLFF fern whose images/ are the fixture
+  JPEGs (20 views of 504x378) loaded through `_minify` at factor 2 and
+  at factor 1 (decoded pixels, K, splits), 3 flagship one-pass steps
+  through cli/train.py (#1 / #2 / #3 counted), the 4 test poses through
+  cli/render.py (#1 counted), stitched by cli/video.py into an `mp4v`
+  MP4 held by a box reader (samples, tkhd, mdhd, sync samples, VOP start
+  codes); the encoder's time a frame;
+* the mip backbone without view directions at the mip width: cli/train.py
+  with the card's defaults (the dispatch warns and trains on the eager
+  step; #5 / #6 / #7 launch 0 times), 3 steps; a 128x128 render with
+  use_fused_render (it warns and renders through the module); the eager
+  step's time; an fp32 step on 256 rays on the card against the CPU.
 
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
@@ -769,6 +783,13 @@ def main() -> None:
     t_phase = time.perf_counter()
     canaries = canary_phases(card)
     log(f"canary phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    codec = codec_phases(dev, card, configs, v2, op)
+    log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    mip_noviewdirs_phases(dev, card, configs, fmip, op)
+    log(f"mip use_viewdirs=false phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     row_json = row["json"]
     for r in row_json[:2]:
         r["launches"] = twocall["launches"][r["name"]]
@@ -796,7 +817,8 @@ def main() -> None:
                           + producers["launches"].get(r["name"], 0)
                           + trainer["launches"].get(r["name"], 0)
                           + distributed.get(r["name"], 0)
-                          + canaries.get(r["name"], 0))
+                          + canaries.get(r["name"], 0)
+                          + codec.get(r["name"], 0))
     if GATE_FAILURES:
         fail(f"{len(GATE_FAILURES)} gate(s) failed: {GATE_FAILURES}")
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
@@ -5506,11 +5528,16 @@ def grads_of(model):
             .clone() for p in model.parameters()]
 
 
-def cpu_step_gate(label, cfg, build, state, batch, draws, move, dev):
+def cpu_step_gate(label, cfg, build, state, batch, draws, move, dev,
+                  loss_rtol=None, grad_rel=None, whole_rel=None):
     """One eager step on the card and on the CPU from copies of `state`,
     with `batch` and `draws` (made on the CPU) moved to each device:
-    the loss and every grad that the update reads, against the CPU's.
-    Returns the CPU's loss."""
+    the loss and every grad that the update reads, against the CPU's
+    (within CPU_STEP_LOSS_RTOL / CPU_STEP_GRAD_REL a tensor unless given;
+    `whole_rel`: also the relative L2 of all grads together). Returns the
+    CPU's loss."""
+    loss_rtol = CPU_STEP_LOSS_RTOL if loss_rtol is None else loss_rtol
+    grad_rel = CPU_STEP_GRAD_REL if grad_rel is None else grad_rel
     import copy
 
     out = {}
@@ -5534,10 +5561,15 @@ def cpu_step_gate(label, cfg, build, state, batch, draws, move, dev):
     (l_k, g_k, t_k), (l_c, g_c, t_c) = out[str(dev)], out["cpu"]
     rel_l = abs(l_k - l_c) / abs(l_c)
     rel_g, _ = grads_err(g_k, g_c)
+    rel_w, _ = grads_err([torch.cat([g.reshape(-1) for g in g_k])],
+                         [torch.cat([g.reshape(-1) for g in g_c])])
     log(f"{label}: loss card {l_k:.7f} CPU {l_c:.7f} (rel {rel_l:.2e}, tol "
-        f"{CPU_STEP_LOSS_RTOL:g}); grads max rel L2 {rel_g:.2e} (tol "
-        f"{CPU_STEP_GRAD_REL:g}); {t_k:.2f} s card, {t_c:.2f} s CPU")
-    gate(rel_l < CPU_STEP_LOSS_RTOL and rel_g < CPU_STEP_GRAD_REL,
+        f"{loss_rtol:g}); grads max rel L2 a tensor {rel_g:.2e} (tol "
+        f"{grad_rel:g}), all together {rel_w:.2e}"
+        + ("" if whole_rel is None else f" (tol {whole_rel:g})")
+        + f"; {t_k:.2f} s card, {t_c:.2f} s CPU")
+    gate(rel_l < loss_rtol and rel_g < grad_rel
+         and (whole_rel is None or rel_w < whole_rel),
          f"{label}: the card's step disagrees with the CPU's")
     return l_c
 
@@ -6516,6 +6548,475 @@ def canary_phases(card, names=None, inits=("jax", "port"), timeout=900):
             if i == "jax":
                 gate(ok, f"canary {label} from the JAX init: {text}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The image codecs and the mip backbone without view directions.
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join("tests", "jpeg_fixtures")
+CODEC_LLFF_VIEWS = 20  # the fern registry's splits reach view 19
+CODEC_LLFF_HWF = (378.0, 504.0, 3260.5 / 8)  # the fixtures' size, fern's f
+VIDEO_FPS = 30
+# The viewdir-free mip step on the card against the CPU, fp32 (strict):
+# the step-1 loss (relative) and the grads (relative L2 of all of them
+# together, and of each tensor). The grads' bounds are 3x the step's own
+# fp32 floor, which the phase measures and prints: on the CPU alone, a
+# one-ulp nudge of the ray origins moves the grads by ~1.1e-4 together
+# and ~1e-3 in the first layer's weights (the trunk's backward at 96 x 2
+# samples a ray), with view directions or without; the loss by ~1e-7.
+NOVIEW_LOSS_RTOL = 1e-5
+NOVIEW_GRAD_REL = 3e-4
+NOVIEW_TENSOR_REL = 3e-3
+NOVIEW_CPU_RAYS = 256
+
+
+def mp4_box_check(path, n_frames, width, height, fps):
+    """A small ISO BMFF reader: the video's sample count, tkhd size,
+    mdhd timescale and duration, and each sample a sync sample that
+    starts with a VOP start code. Returns a one-line summary."""
+    import struct
+
+    data = open(path, "rb").read()
+
+    def boxes(start, end):
+        out, pos = {}, start
+        while pos + 8 <= end:
+            size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            if size < 8 or pos + size > end:
+                fail(f"{path}: a bad box {kind!r} at {pos}")
+            out[kind.decode("latin-1")] = (pos + 8, pos + size)
+            pos += size
+        return out
+
+    top = boxes(0, len(data))
+    need = {"ftyp", "mdat", "moov"}
+    gate(need <= set(top), f"{path}: top-level boxes {sorted(top)}")
+    trak = boxes(*boxes(*top["moov"])["trak"])
+    mdia = boxes(*trak["mdia"])
+    stbl = boxes(*boxes(*mdia["minf"])["stbl"])
+    tk_end = trak["tkhd"][1]
+    tk_w, tk_h = (v >> 16 for v in struct.unpack(">II", data[tk_end - 8:
+                                                             tk_end]))
+    md = mdia["mdhd"][0]
+    timescale, duration = struct.unpack(">II", data[md + 12:md + 20])
+    s = stbl["stsz"][0]
+    count = struct.unpack(">I", data[s + 8:s + 12])[0]
+    sizes = struct.unpack(f">{count}I", data[s + 12:s + 12 + 4 * count])
+    ss = stbl["stss"][0]
+    n_sync = struct.unpack(">I", data[ss + 4:ss + 8])[0]
+    sync = set(struct.unpack(f">{n_sync}I", data[ss + 8:ss + 8 + 4 * n_sync]))
+    co = stbl["stco"][0]
+    offset = struct.unpack(">I", data[co + 8:co + 12])[0]
+    st = stbl["stts"][0]
+    stts = struct.unpack(">III", data[st + 4:st + 16])
+    vops = []
+    pos = offset
+    for size in sizes:
+        vops.append(data[pos:pos + 4] == b"\x00\x00\x01\xb6"
+                    and data[pos + 4] >> 6 == 0)
+        pos += size
+    esds = data.find(b"esds", *top["moov"])
+    # objectTypeIndication 0x20 (MPEG-4 Visual), streamType 4 (visual).
+    mpeg4 = esds > 0 and b"\x20\x11" in data[esds:esds + 64]
+    text = (f"{count} samples, tkhd {tk_w}x{tk_h}, mdhd timescale "
+            f"{timescale} duration {duration} (stts {stts[1:]}), sync "
+            f"samples {len(sync)}, every sample an I-VOP at a VOP start code "
+            f"{all(vops)}, esds object type 0x20 {mpeg4}")
+    gate(mpeg4 and count == n_frames and (tk_w, tk_h) == (width, height)
+         and timescale == fps and duration == n_frames
+         and stts == (1, n_frames, 1) and sync == set(range(1, count + 1))
+         and all(vops) and pos == top["mdat"][1],
+         f"{path}: the MP4 boxes disagree with {n_frames} frames of "
+         f"{width}x{height} at {fps} fps: {text}")
+    return text
+
+
+def write_codec_llff(root):
+    """An LLFF scene `fern` in its own layout under `root` whose images/
+    are the committed fixture JPEGs (view i the fixture llff_view_{i % 4}),
+    with seeded poses (poses_bounds.npy), MVS depth PFMs at half size and
+    MiDaS PFMs, as the eval phase writes fern's. Returns (scene dir, the
+    fixture file of each view)."""
+    from consistentnerf_tpu_torch.data import pfm
+
+    fixtures = sorted(f for f in os.listdir(JPEG_FIXTURES)
+                      if f.startswith("llff_view_"))
+    llff_root = os.path.join(root, "nerf_llff_data")
+    scene = os.path.join(llff_root, "fern")
+    mvs = os.path.join(llff_root, "nerf_llff_data_depth", "fern")
+    midas = os.path.join(llff_root, "midas_llff_depth", "output_llff_fern")
+    for d in (os.path.join(scene, "images"), mvs, midas):
+        os.makedirs(d)
+    rng = np.random.RandomState(2)
+    h, w = int(CODEC_LLFF_HWF[0]), int(CODEC_LLFF_HWF[1])
+    rows, views = [], []
+    for i in range(CODEC_LLFF_VIEWS):
+        src = fixtures[i % len(fixtures)]
+        views.append(src)
+        shutil.copy(os.path.join(JPEG_FIXTURES, src),
+                    os.path.join(scene, "images", f"IMG_{4026 + i}.JPG"))
+        a = rng.randn(3) * 0.03
+        rot = np.linalg.qr(np.eye(3) + np.array(
+            [[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]))[0]
+        rot = rot * np.sign(np.diag(rot))[None]
+        llff_r = np.stack([-rot[:, 1], rot[:, 0], rot[:, 2]], 1)
+        t = np.array([rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3),
+                      rng.uniform(-0.05, 0.05)])
+        pose = np.concatenate([llff_r, t[:, None],
+                               np.array(CODEC_LLFF_HWF)[:, None]], 1)
+        rows.append(np.concatenate([pose.reshape(-1),
+                                    [1.2 + 0.1 * rng.rand(),
+                                     20.0 + rng.rand()]]))
+        depth = (3.0 + np.linspace(0, 1, w // 2)[None, :]
+                 + 0.5 * np.linspace(0, 1, h // 2)[:, None]).astype(
+                     np.float32)
+        pfm.write_pfm(os.path.join(mvs, f"depth_{i:03d}.pfm"), depth)
+        pfm.write_pfm(os.path.join(midas, f"IMG_{4026 + i}"
+                                   "-dpt_beit_large_512.pfm"),
+                      rng.randn(h, w).astype(np.float32))
+    np.save(os.path.join(scene, "poses_bounds.npy"), np.stack(rows))
+    return scene, views
+
+
+def codec_phases(dev, card, configs, v2, op):
+    """The image codecs on the card's machine: the committed JPEG
+    fixtures decoded by the port (no imaging package here) against the
+    SHA-256 of imageio's decode stored beside them, seconds per megapixel;
+    an LLFF scene whose images/ are the fixture JPEGs loaded through
+    `_minify` at factor 2 and at factor 1; 3 flagship one-pass steps
+    through cli/train.py (#1 / #2 / #3 counted), the test poses rendered
+    by cli/render.py (#1 counted) and stitched by cli/video.py into an
+    mp4v MP4, held by a box reader; the writer's time a frame. Returns
+    {kernel: launches}."""
+    import hashlib
+
+    from consistentnerf_tpu_torch.cli import render as render_cli
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.cli import video as video_cli
+    from consistentnerf_tpu_torch.data import images
+    from consistentnerf_tpu_torch.data.loaders import load_scene
+    from consistentnerf_tpu_torch.data.video import Mp4Writer
+
+    tag = f"[{card}]"
+    if not os.path.isdir(JPEG_FIXTURES):
+        fail(f"{JPEG_FIXTURES} is missing: run this script from the root of "
+             "a checkout")
+    with open(os.path.join("tests", "jpeg_fixtures.json")) as f:
+        index = json.load(f)
+    decoded, t_all, px_all, t_llff, px_llff = {}, 0.0, 0, 0.0, 0
+    for name, want in sorted(index.items()):
+        t0 = time.perf_counter()
+        img = images.imread(os.path.join(JPEG_FIXTURES, name))
+        dt = time.perf_counter() - t0
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        gate(list(img.shape) == want["shape"] and got == want["sha256"],
+             f"JPEG fixture {name} ({want['what']}) decoded to "
+             f"{img.shape} {got[:12]}, not imageio's {want['shape']} "
+             f"{want['sha256'][:12]}")
+        decoded[name] = img
+        mp = img.shape[0] * img.shape[1]
+        t_all, px_all = t_all + dt, px_all + mp
+        if name.startswith("llff_view_"):
+            t_llff, px_llff = t_llff + dt, px_llff + mp
+    log(f"{tag} JPEG decode (host): {len(index)} fixtures equal imageio's "
+        f"digests; {t_all / (px_all / 1e6):.3f} s a megapixel over all "
+        f"({px_all} pixels in {t_all:.3f} s), "
+        f"{t_llff / (px_llff / 1e6):.3f} s a megapixel on the 504x378 "
+        "baseline 4:2:0 views")
+
+    launches = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        scene_dir, views = write_codec_llff(tmp)
+        want = dict(H=378, W=504, near=0.0, far=1.0, train=FERN_SPLITS[0],
+                    test=FERN_SPLITS[1])
+        for factor in (2, 1):
+            cfg = configs.Config(**{**FLAGSHIP, "dataset_type": "llff",
+                                    "datadir": scene_dir,
+                                    "white_bkgd": False, "factor": factor,
+                                    "basedir": tmp, "expname": "load"})
+            t0 = time.perf_counter()
+            scene = load_scene(cfg, device=dev, attach=False)
+            dt = time.perf_counter() - t0
+            h, w = 378 // factor, 504 // factor
+            f_px = CODEC_LLFF_HWF[2] / factor
+            expect = [decoded[v] if factor == 1 else images.resize(
+                decoded[v], (w, h), interpolation=images.INTER_AREA)
+                for v in views]
+            scene_gates(f"codec fern (JPEG images/, factor {factor})", scene,
+                        dict(want, H=h, W=w, K=np.array(
+                            [[f_px, 0, 0.5 * w], [0, f_px, 0.5 * h],
+                             [0, 0, 1]])),
+                        [(i, scene.images[i], (e / 255.0).astype(np.float32))
+                         for i, e in enumerate(expect)])
+            if factor == 2:
+                pngs = sorted(os.listdir(os.path.join(scene_dir,
+                                                      "images_2")))
+                gate(len(pngs) == CODEC_LLFF_VIEWS and all(
+                    np.array_equal(images.imread(os.path.join(
+                        scene_dir, "images_2", p)), e)
+                    for p, e in zip(pngs, expect)),
+                    "codec fern: _minify's PNGs are not the INTER_AREA "
+                    "halves of the decoded JPEGs")
+            what = ("_minify (JPEG decode, INTER_AREA, PNG write) and PNG "
+                    "decode" if factor == 2 else "JPEG decode")
+            log(f"{tag} codec fern factor {factor}: load_scene {dt:.2f} s "
+                f"(host: {what}, PFMs, poses)")
+            del scene
+
+        sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+            "dataset_type=llff", f"datadir={scene_dir}", "factor=1",
+            "white_bkgd=false", "near=0.0", "far=1.0", "train_view_num=3",
+            "i_print=1", f"checkpoint_every={TRAIN_STEPS}",
+            "use_tensorboard=false", f"basedir={tmp}", "expname=codec"]
+        args = ["--device", str(dev)] + [x for s_ in sets
+                                         for x in ("--set", s_)]
+        counted = ((v2, "launches", v2.KERNEL),
+                   (v2, "bwd_launches", v2.BWD_KERNEL),
+                   (op, "launches", op.KERNEL))
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        want_l = {k: 2 * TRAIN_STEPS for _, _, k in counted}
+        losses = [float(x["loss"]) for x in res.stats_history]
+        log(f"codec fern cli.train (JPEG images/, factor 1, one-pass): "
+            f"{res.state.step} steps in {dt:.1f} s (load and hard masks "
+            f"included), losses {[round(x, 5) for x in losses]}, launches "
+            f"{got} (expected {want_l})")
+        gate(got == want_l and res.state.step == TRAIN_STEPS
+             and all(np.isfinite(losses)),
+             f"codec fern: cli.train launched {got} or ended at step "
+             f"{res.state.step} with losses {losses}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+        v2.launches = 0
+        out_dir = os.path.join(tmp, "frames")
+        t0 = time.perf_counter()
+        render_cli.main(args + ["--render-test", "--out", out_dir])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_test = len(FERN_SPLITS[1])
+        chunks = -(-(378 * 504) // configs.Config().render_chunk_size)
+        log(f"codec fern cli.render --render-test: {n_test} poses in "
+            f"{dt:.1f} s, {v2.KERNEL} launches {v2.launches} (expected "
+            f"{2 * chunks * n_test}: 2 a render chunk)")
+        gate(v2.launches == 2 * chunks * n_test,
+             f"codec fern: cli.render launched #1 {v2.launches} times")
+        launches[v2.KERNEL] += v2.launches
+        frames = sorted(os.listdir(out_dir))
+        gate(frames == [f"{k}_{i:03d}.png" for k in ("color", "depth")
+                        for i in range(n_test)],
+             f"codec fern: cli.render wrote {frames}")
+        video = os.path.join(tmp, "fern.mp4")
+        t0 = time.perf_counter()
+        video_cli.main([out_dir, "--out", video, "--fps", str(VIDEO_FPS)])
+        dt = time.perf_counter() - t0
+        log(f"codec cli.video: {n_test} side-by-side frames of 1008x378 in "
+            f"{dt:.2f} s (PNG reads and the encode, host), "
+            f"{os.path.getsize(video)} bytes; boxes: "
+            + mp4_box_check(video, n_test, 2 * 504, 378, VIDEO_FPS))
+
+        frame = np.concatenate([decoded["llff_view_0.jpg"],
+                                decoded["llff_view_1.jpg"]], 1)
+        with Mp4Writer(os.path.join(tmp, "timed.mp4"), VIDEO_FPS,
+                       (frame.shape[1], frame.shape[0])) as writer:
+            writer.write(frame)  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(5):
+                writer.write(frame)
+            dt = (time.perf_counter() - t0) / 5
+        log(f"{tag} MP4 (mp4v) encode (host): {1e3 * dt:.1f} ms a "
+            f"{frame.shape[1]}x{frame.shape[0]} frame")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def mip_noviewdirs_phases(dev, card, configs, fmip, op):
+    """The mip backbone without view directions at the JAX package's mip
+    benchmark width (bench.py:241-258) on the card: train() through
+    cli/train.py with the card's defaults (the kernel step turned on,
+    the dispatch warns and takes the eager step; #5 / #6 / #7 launch 0
+    times), 3 steps with finite losses; a 128x128 render with
+    use_fused_render (it warns and renders through the module); the eager
+    step's time; an fp32 step on the card against the CPU."""
+    import warnings as warnings_lib
+
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher, to_device
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import render as render_lib
+    from consistentnerf_tpu_torch.train import step as step_lib
+    from consistentnerf_tpu_torch.train.evaluation import camera_rays_for_view
+
+    tag = f"[{card}]"
+    counted = ((fmip, "launches", fmip.KERNEL),
+               (fmip, "bwd_launches", fmip.BWD_KERNEL),
+               (op, "mip_launches", op.MIP_KERNEL))
+    # The kernel flags are left to the CLI's defaults for the card.
+    mip = {k: v for k, v in MIP.items()
+           if k not in ("use_fused_train", "use_onepass_train")}
+    sets = ["dataset_type=synthetic", f"synthetic_views={SCENE['n_views']}",
+            f"synthetic_hw={SCENE['H']}", "synthetic_interleave_test=false",
+            "i_print=1", "use_tensorboard=false", "use_viewdirs=false",
+            f"checkpoint_every={TRAIN_STEPS}"] + [
+        f"{k}={v}" for k, v in mip.items() if k != "dataset_type"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--device", str(dev)] + [
+            x for s_ in sets + [f"basedir={tmp}"] for x in ("--set", s_)]
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        with warnings_lib.catch_warnings(record=True) as caught:
+            warnings_lib.simplefilter("always")
+            t0 = time.perf_counter()
+            res = train_cli.main(args + ["--num-steps", str(TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        said = [str(w.message) for w in caught
+                if "use_viewdirs=false" in str(w.message)]
+        losses = [float(x["loss"]) for x in res.stats_history]
+        c = configs.Config(**MIP)
+        log(f"mip use_viewdirs=false cli.train ({c.netdepth}x{c.netwidth}, "
+            f"{c.mip_num_samples} x {c.mip_num_levels} samples, "
+            f"{c.N_rand} + {MIP_PATCH} rays, {c.compute_dtype}): "
+            f"{res.state.step} "
+            f"steps in {dt:.1f} s, losses {[round(x, 5) for x in losses]}, "
+            f"launches {got} (expected 0 of each); warning: {said}")
+        gate(len(said) == 1 and "KeyError 'Dense_10'" in said[0]
+             and "eager step" in said[0],
+             f"mip use_viewdirs=false: the dispatch's warning {said}")
+        gate(all(v == 0 for v in got.values()),
+             f"mip use_viewdirs=false launched the mip kernels: {got}")
+        gate(res.state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+             and all(np.isfinite(losses)),
+             f"mip use_viewdirs=false: step {res.state.step}, losses "
+             f"{losses}")
+        sd = res.state.model.state_dict()
+        gate(sum(k.endswith(".weight") for k in sd) == c.netdepth + 2,
+             "mip use_viewdirs=false: the MLP is not the shorter tree")
+
+        cfg = configs.Config(**{**MIP, "use_viewdirs": False,
+                                "use_fused_render": True})
+        scene = synthetic.make_scene(**SCENE).to_scene_data()
+        rays = camera_rays_for_view(scene, scene.poses[0], device=dev)
+        with warnings_lib.catch_warnings(record=True) as caught:
+            warnings_lib.simplefilter("always")
+            render = render_lib.build_render_fn(res.state.model.eval(), cfg)
+        for mod, attr, _ in counted:
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        out = render(rays)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        said = [str(w.message) for w in caught
+                if "through the module" in str(w.message)]
+        got = {k: getattr(mod, attr) for mod, attr, k in counted}
+        ok = (out["rgb"].shape == (SCENE["H"], SCENE["W"], 3)
+              and bool(torch.isfinite(out["rgb"]).all())
+              and bool(torch.isfinite(out["depth"]).all()))
+        log(f"mip use_viewdirs=false render {SCENE['H']}x{SCENE['W']} "
+            f"(use_fused_render): {1e3 * dt:.1f} ms through the module, "
+            f"finite {ok}, mean rgb {out['rgb'].mean().item():.4f}, "
+            f"launches {got}; warning: {len(said)}")
+        gate(ok and len(said) == 1 and all(v == 0 for v in got.values()),
+             "mip use_viewdirs=false: the render")
+
+    # The eager step's time at the mip width, bf16.
+    t_cfg = configs.Config(**{**MIP, "use_viewdirs": False,
+                              "use_fused_train": False})
+    state = loop.init_state(t_cfg, dev)
+    step_fn = loop.select_train_step(t_cfg, state.model)
+    batcher = MipBatcher(scene, t_cfg)
+    batches = [to_device(batcher.next_batch(), dev) for _ in range(2)]
+    state, _ = step_fn(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(5):
+        state, stats = step_fn(state, batches[i % 2])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 5
+    log(f"{tag} mip use_viewdirs=false eager step (bf16, "
+        f"{batches[0]['rgb'].shape[0]} rays x {MIP['mip_num_samples']} x "
+        f"2): {ms:.1f} ms a step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # fp32 on the card against the CPU, same batch and draws, perturb 0.
+    c_cfg = configs.Config(**{**MIP, "use_viewdirs": False,
+                              "use_fused_train": False,
+                              "compute_dtype": "float32",
+                              "randomized": False, "use_hardmask": False,
+                              "compute_mono_depth_metrics": False,
+                              "N_rand": NOVIEW_CPU_RAYS})
+    c_state = loop.init_state(c_cfg, "cpu")
+    full = to_device(MipBatcher(scene, c_cfg).next_batch(), "cpu")
+    n = full["rgb"].shape[0]
+    # The batch's N_rand random rays, without the 4x16x16 patch rays
+    # that lead every mip batch (no term here reads them).
+    batch = {k: (v.map(lambda t: t[-NOVIEW_CPU_RAYS:]) if hasattr(v, "map")
+                 else v[-NOVIEW_CPU_RAYS:] if v.shape[:1] == (n,) else v)
+             for k, v in full.items()}
+    draws = step_lib.make_mip_step_draws(
+        c_cfg, batch, torch.Generator().manual_seed(5), "cpu")
+
+    def move(x, d):
+        if isinstance(x, dict):
+            return {k: move(v, d) for k, v in x.items()}
+        if isinstance(x, list):
+            return [move(v, d) for v in x]
+        if hasattr(x, "map"):
+            return x.map(lambda t: t.to(d))
+        return x.to(d) if torch.is_tensor(x) else x
+
+    cpu_step_gate(f"mip use_viewdirs=false eager step fp32, "
+                  f"{NOVIEW_CPU_RAYS} rays, card vs CPU", c_cfg,
+                  lambda c, m: step_lib.build_mip_train_step(m, c), c_state,
+                  batch, draws, move, dev, loss_rtol=NOVIEW_LOSS_RTOL,
+                  grad_rel=NOVIEW_TENSOR_REL, whole_rel=NOVIEW_GRAD_REL)
+
+    # The step's fp32 floor on the CPU: the same step with each ray
+    # origin moved by one ulp (up or down at random) against the CPU's.
+    import copy
+    import dataclasses
+
+    g = torch.Generator().manual_seed(6)
+    o = batch["rays"].origins
+    nudged = dict(batch, rays=dataclasses.replace(
+        batch["rays"], origins=torch.where(
+            torch.randint(0, 2, o.shape, generator=g).bool(),
+            torch.nextafter(o, torch.full_like(o, math.inf)),
+            torch.nextafter(o, torch.full_like(o, -math.inf)))))
+    out = []
+    for b in (batch, nudged):
+        st = copy.deepcopy(c_state)
+        grads, real = [], st.optimizer.step
+
+        def keep(count, st=st, grads=grads, real=real):
+            grads.extend(grads_of(st.model))
+            real(count)
+
+        st.optimizer.step = keep
+        _, stats = step_lib.build_mip_train_step(st.model, c_cfg)(st, b,
+                                                                  draws)
+        out.append((float(stats["loss"]), grads))
+    (l0, g0), (l1, g1) = out
+    per, _ = grads_err(g1, g0)
+    whole, _ = grads_err([torch.cat([x.reshape(-1) for x in g1])],
+                         [torch.cat([x.reshape(-1) for x in g0])])
+    log(f"mip use_viewdirs=false fp32 floor on the CPU (origins nudged one "
+        f"ulp): loss rel {abs(l1 - l0) / abs(l0):.2e}; grads rel L2 all "
+        f"together {whole:.2e}, max a tensor {per:.2e} (the card-vs-CPU "
+        f"bounds {NOVIEW_GRAD_REL:g} / {NOVIEW_TENSOR_REL:g})")
 
 
 if __name__ == "__main__":

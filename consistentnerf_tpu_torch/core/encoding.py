@@ -49,12 +49,20 @@ def expected_sin(x: torch.Tensor, x_var: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * x_var) * mathx.safe_sin(x)
 
 
-def integrated_pos_enc(means: torch.Tensor, covs_diag: torch.Tensor,
-                       min_deg: int, max_deg: int) -> torch.Tensor:
-    """IPE of Gaussians with diagonal covariances (mip.py:160-192): the
-    features are [sin(y), sin(y + pi/2)] damped by exp(-var/2), y = x 2^k
-    in frequency-major, coordinate-minor order. The full-covariance form
-    is not ported (only `diag=True` configs exist)."""
+def integrated_pos_enc(means: torch.Tensor, covs: torch.Tensor,
+                       min_deg: int, max_deg: int,
+                       diag: bool = True) -> torch.Tensor:
+    """IPE of Gaussians (mip.py:160-192): the features are [sin(y),
+    sin(y + pi/2)] damped by exp(-var/2), y = x 2^k in frequency-major,
+    coordinate-minor order. `covs`: the diagonal variances [..., 3], or
+    with `diag=False` full covariances [..., 3, 3]. The full form's
+    variance of feature (k, d) is b^T cov b for b = 2^k e_d, which is
+    4^k cov[d, d]: every other product has a zero factor, so the JAX
+    package's matmuls give exactly the diagonal's values."""
+    if not diag:
+        covs_diag = torch.diagonal(covs, dim1=-2, dim2=-1)
+    else:
+        covs_diag = covs
     scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=means.dtype,
                                  device=means.device)
     shape = (*means.shape[:-1], -1)

@@ -13,8 +13,11 @@ their images here:
 * `write_jpeg` / `encode_jpeg`: 8-bit greyscale baseline JPEGs (JFIF,
   sequential DCT, the Annex K luminance tables at libjpeg's quality 75),
   the producers' mask JPGs.
-* `imread`: a PNG always takes `read_png`; any other format (LLFF's raw
-  JPEGs) goes to `imageio`, imported when such a file is read.
+* `read_jpeg` / `decode_jpeg` (`data/jpeg.py`): sequential and
+  progressive Huffman JPEGs, 1 or 3 components, libjpeg's default decode
+  bit for bit (LLFF's raw `images/`).
+* `imread`: dispatches on the file's signature: a PNG to `read_png`, a
+  JPEG to `read_jpeg`; any other format raises, naming it.
 * `resize`: OpenCV's `cv2.resize` for `INTER_AREA`, `INTER_LINEAR` and
   `INTER_NEAREST`, on [H, W] or [H, W, C] uint8 or float32 images, with
   OpenCV's weights and, for uint8, its rounding (`_minify` writes resized
@@ -30,6 +33,9 @@ import zlib
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+# The JPEG decoder lives in its own module; this one is the loaders' API.
+from consistentnerf_tpu_torch.data.jpeg import decode_jpeg, read_jpeg  # noqa: F401
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels (8-bit grey, grey + alpha, RGB, RGBA).
@@ -357,20 +363,29 @@ def write_jpeg(path: str, img_u8: np.ndarray) -> None:
         f.write(data)
 
 
+# The leading bytes of formats `imread` names when it refuses them.
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"), (b"RIFF", "RIFF (WebP)"),
+                  (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+                  (b"\xff\x4f\xff\x51", "JPEG 2000 codestream"),
+                  (b"#?RADIANCE", "Radiance HDR"), (b"\x76\x2f\x31\x01", "EXR"),
+                  (b"PF", "PFM"), (b"Pf", "PFM"))
+
+
 def imread(path: str) -> np.ndarray:
-    """An image file as uint8 [H, W(, C)]. PNGs are read here; any other
-    format needs `imageio`, which this machine may lack."""
+    """An image file as uint8 [H, W(, C)], by its signature: a PNG
+    (`read_png`) or a JPEG (`read_jpeg`, [H, W] or [H, W, 3]); any other
+    format raises a ValueError that names it."""
     with open(path, "rb") as f:
-        head = f.read(len(PNG_SIGNATURE))
-    if head == PNG_SIGNATURE:
-        return read_png(path)
-    try:
-        import imageio.v2 as imageio
-    except ImportError as e:
-        raise ImportError(
-            f"{path} is not a PNG: reading it needs the imageio package, "
-            "which is not installed") from e
-    return np.asarray(imageio.imread(path))
+        data = f.read()
+    if data[:len(PNG_SIGNATURE)] == PNG_SIGNATURE:
+        return decode_png(data, path)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data, path)
+    kind = next((k for sig, k in _OTHER_FORMATS if data.startswith(sig)),
+                f"an unknown format (leading bytes {data[:8].hex()})")
+    raise ValueError(f"{path}: {kind} files are not read (only PNG and "
+                     "JPEG)")
 
 
 # --- resizes (cv2.resize) --------------------------------------------------

@@ -151,7 +151,8 @@ def flat_param_names(net_depth: int, use_viewdirs: bool = True,
                      mip: bool = False) -> List[str]:
     """Parameter names of a NeRFMLP (or a MipMLP) in the flat order."""
     if mip:
-        return [f"dense.{i}.{k}" for i in range(net_depth + 4)
+        return [f"dense.{i}.{k}"
+                for i in range(net_depth + (4 if use_viewdirs else 2))
                 for k in ("weight", "bias")]
     names = [f"pts_linears.{i}" for i in range(net_depth)]
     names += (["alpha_linear", "feature_linear", "views_linears.0",

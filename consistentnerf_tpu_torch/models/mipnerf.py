@@ -8,7 +8,10 @@ are explicit tensors (`make_mip_draws` in `train/step.py` makes them from
 a generator): `t_rand` [N, S+1] jitters the first level's fenceposts,
 `jitter[l]` drives level l's resampling (l >= 1) and `noise[l]` [N, S]
 holds the density noise's standard normals. Without draws the forward is
-the deterministic (test-time) render.
+the deterministic (test-time) render. With `use_viewdirs=False` the MLP
+reads no view directions (`MipMLP`'s shorter layer list); no fused mip
+kernel takes that MLP, so the dispatch trains it on the eager step and
+renders it through this module (`train/loop.py`, `train/render.py`).
 """
 
 from __future__ import annotations
@@ -34,10 +37,6 @@ class MipNeRF(nn.Module):
                  max_deg_point: int = 16, disable_normals: bool = True,
                  density_noise: float = 0.0, dtype=torch.float32):
         super().__init__()
-        if not use_viewdirs:
-            raise NotImplementedError(
-                "the mip backbone without view directions is not ported "
-                "(ROADMAP Queue 1: configs)")
         self.num_samples = num_samples
         self.num_levels = num_levels
         self.stop_level_grad = stop_level_grad
@@ -46,10 +45,12 @@ class MipNeRF(nn.Module):
         self.disable_integration = disable_integration
         self.white_background = white_background
         self.vis_num_rays = vis_num_rays
+        self.use_viewdirs = use_viewdirs
         self.mlp = MipMLP(net_depth=net_depth, net_width=net_width,
                           max_deg_point=max_deg_point,
                           disable_normals=disable_normals,
-                          density_noise=density_noise, dtype=dtype)
+                          density_noise=density_noise,
+                          use_viewdirs=use_viewdirs, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mlp.reset_parameters(generator)
@@ -77,11 +78,11 @@ class MipNeRF(nn.Module):
             if self.disable_integration:
                 covs = torch.zeros_like(covs)
             n, s = means.shape[:2]
-            views = rays.viewdirs[:, None, :].expand(n, s, 3)
+            views = (rays.viewdirs[:, None, :].expand(n, s, 3).reshape(
+                n * s, 3) if self.use_viewdirs else None)
             noise = draws.get("noise")
             rgb, density, normals = self.mlp(
-                means.reshape(n * s, 3), covs.reshape(n * s, 3),
-                views.reshape(n * s, 3),
+                means.reshape(n * s, 3), covs.reshape(n * s, 3), views,
                 None if noise is None else noise[lvl].reshape(n * s))
             if normals is not None:
                 normals = normals.reshape(n, s, 3)

@@ -113,7 +113,9 @@ class MipMLP(nn.Module):
 
     The layers are `dense.0` .. `dense.{D+3}`, the JAX package's
     `Dense_0` .. `Dense_{D+3}` (trunk, density, bottleneck, view layer,
-    rgb). At `dtype=bfloat16` the forward rounds where the fused kernels
+    rgb). With `use_viewdirs=False` there is no bottleneck or view layer:
+    `dense.0` .. `dense.{D+1}` (trunk, density, rgb on the trunk's
+    output, models/mlp.py:150-171 of the JAX package). At `dtype=bfloat16` the forward rounds where the fused kernels
     round (ops/fused_mip.py::_mip_body). With `disable_normals=False` the
     forward also returns the normals, -normalize(d density / d means)
     (models.py:244-262), from the gradient that
@@ -126,9 +128,10 @@ class MipMLP(nn.Module):
                  deg_view: int = 4, skip_layer: int = 4,
                  density_noise: float = 0.0, density_bias: float = -1.0,
                  rgb_padding: float = 0.001, disable_normals: bool = True,
-                 dtype=torch.float32):
+                 use_viewdirs: bool = True, dtype=torch.float32):
         super().__init__()
         self.net_depth = net_depth
+        self.use_viewdirs = use_viewdirs
         self.disable_normals = disable_normals
         self.max_deg_point = max_deg_point
         self.deg_view = deg_view
@@ -144,10 +147,10 @@ class MipMLP(nn.Module):
             ins.append(net_width + n_in if skip else net_width)
         trunk_out = ins.pop()
         view_in = net_width + 3 * (1 + 2 * deg_view)
-        dims = ([(k, net_width) for k in ins]
-                + [(trunk_out, 1), (trunk_out, net_width),
-                   (view_in, net_width_viewdirs),
-                   (net_width_viewdirs, 3)])
+        heads = ([(trunk_out, net_width), (view_in, net_width_viewdirs),
+                  (net_width_viewdirs, 3)] if use_viewdirs
+                 else [(trunk_out, 3)])
+        dims = [(k, net_width) for k in ins] + [(trunk_out, 1)] + heads
         self.dense = nn.ModuleList([nn.Linear(k, n) for k, n in dims])
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -160,11 +163,14 @@ class MipMLP(nn.Module):
     def forward(self, means: torch.Tensor, covs: torch.Tensor,
                 viewdirs: torch.Tensor,
                 noise: Optional[torch.Tensor] = None):
-        """means, covs (diagonal), viewdirs: [N, 3]; `noise` [N] standard
-        normals of the density noise (used when density_noise > 0).
+        """means, covs (diagonal), viewdirs: [N, 3] (viewdirs unread, may
+        be None, without `use_viewdirs`); `noise` [N] standard normals of
+        the density noise (used when density_noise > 0).
         Returns (rgb [N, 3], density [N], normals [N, 3] or None when
         `disable_normals`)."""
         flat = fused_mip.flatten_mip_params(self, self.net_depth)
+        if not self.use_viewdirs:
+            viewdirs = None
 
         def head_logit(raw):
             x = raw[:, 3]
@@ -182,7 +188,8 @@ class MipMLP(nn.Module):
             # d(raw density)/d(means) by autograd, rounded as kernel 6n
             # rounds it; the normals carry no graph.
             rows = fused_mip.plain_fwd_normals_T(
-                flat, means.T, covs.T, viewdirs.T, self.net_depth,
+                flat, means.T, covs.T,
+                None if viewdirs is None else viewdirs.T, self.net_depth,
                 self.max_deg_point, self.dtype, self.deg_view,
                 self.skip_layer).T
             if not torch.is_grad_enabled():

@@ -30,7 +30,11 @@ compute the IPE per feature (fp32 floor-mod range reduction of
 
 The flat weight list (`flatten_mip_params`) is in torch layout ([out, in]
 weights), in the JAX package's Dense_0..Dense_{D+3} order: the trunk,
-the density head, the bottleneck, the view layer, the rgb head.
+the density head, the bottleneck, the view layer, the rgb head. A MipMLP
+without view directions has Dense_0..Dense_{D+1} (the trunk, the density
+head, the rgb head on the trunk's output): its plain versions here read
+that shorter list, and the kernels' wrappers and packers refuse it
+(`check_kernel_weights`), as the JAX package's kernel paths fail on it.
 
 The row-major family takes [N, 3] means, covs and views and gives
 [N, 4]: `fwd` is the port of `_fwd_pallas` (kernel #15,
@@ -98,20 +102,45 @@ def mip_skips(net_depth: int, skip_layer: int = SKIP_LAYER) -> tuple:
 def flatten_mip_params(mlp: Union[nn.Module, dict],
                        net_depth: int = 8) -> List[torch.Tensor]:
     """A MipMLP (or its state_dict) -> the flat torch-layout list
-    [w0, b0, ..., w_{D+3}, b_{D+3}]; a module's are its parameters
-    (gradients flow), a state_dict's its tensors."""
+    [w0, b0, ..., w_{D+3}, b_{D+3}] ([w0, b0, ..., w_{D+1}, b_{D+1}]
+    without view directions); a module's are its parameters (gradients
+    flow), a state_dict's its tensors."""
     sd = dict(mlp.named_parameters()) if isinstance(mlp, nn.Module) else mlp
+    n = net_depth + (4 if f"dense.{net_depth + 2}.weight" in sd else 2)
     out = []
-    for i in range(net_depth + 4):
+    for i in range(n):
         out += [sd[f"dense.{i}.weight"], sd[f"dense.{i}.bias"]]
     return out
+
+
+def has_view_layer(weights: Sequence[torch.Tensor], net_depth: int) -> bool:
+    """Whether a flat list holds the bottleneck and view layer (D + 4
+    layers) or not (D + 2: use_viewdirs=False)."""
+    if len(weights) not in (2 * (net_depth + 4), 2 * (net_depth + 2)):
+        raise ValueError(f"{len(weights)} tensors are not a MipMLP's at "
+                         f"net_depth {net_depth}")
+    return len(weights) == 2 * (net_depth + 4)
+
+
+def check_kernel_weights(weights, net_depth: int) -> None:
+    """The fused MipMLP kernels read the bottleneck and view layer: a
+    list without them (use_viewdirs=False) raises, where the JAX
+    package's `flatten_mip_params` raises KeyError 'Dense_{D+2}'."""
+    if not isinstance(weights, v2.PackedMLP) and not has_view_layer(
+            weights, net_depth):
+        raise ValueError(
+            "the fused MipMLP kernels need the view layer; use_viewdirs="
+            f"false has none (the JAX kernel paths raise KeyError "
+            f"'Dense_{net_depth + 2}' here): use the eager step and the "
+            "module render")
 
 
 def _mip_body(means, covs, views, weights: Sequence[torch.Tensor], *,
               net_depth, num_freqs, deg_view=DEG_VIEW,
               skip_layer=SKIP_LAYER, compute_dtype=torch.float32):
     """The plain MipMLP body on [N, 3] means, diagonal covs and view
-    directions: raw heads [N, 4] fp32 (rgb logits, density logit).
+    directions (None, unread, without a view layer): raw heads [N, 4]
+    fp32 (rgb logits, density logit).
 
     Rounding follows the fused kernels (`_mip_aligned_forward`): the IPE
     and view encoding in fp32, then rounded; bf16 operands with fp32
@@ -138,6 +167,7 @@ def _mip_encoded(inputs, views, weights: Sequence[torch.Tensor], *,
     """`_mip_body` from the rounded IPE `inputs` [N, 6F] on: raw heads
     [N, 4] fp32."""
     cd = fm.as_dtype(compute_dtype)
+    view_layer = has_view_layer(weights, net_depth)
     w = [fm._round(x.float(), cd) if i % 2 == 0 else x.float()
          for i, x in enumerate(weights)]
     post = post_skip_layers(net_depth, skip_layer)
@@ -153,6 +183,8 @@ def _mip_encoded(inputs, views, weights: Sequence[torch.Tensor], *,
         h = torch.cat([h, inputs], -1)  # the heads read the concat
     wi = 2 * net_depth
     density = F.linear(h, w[wi], w[wi + 1])
+    if not view_layer:  # the rgb head reads the trunk's output
+        return torch.cat([F.linear(h, w[wi + 2], w[wi + 3]), density], -1)
     bneck = fm._round(F.linear(h, w[wi + 2], w[wi + 3]), cd)
     venc = fm._round(encoding.pos_enc(views.float(), 0, deg_view), cd)
     hv = fm._round(torch.relu(F.linear(torch.cat([bneck, venc], -1),
@@ -176,11 +208,13 @@ def reference_mip_mlp_apply(weights, means, covs, views, *, net_depth=8,
 def pack(weights: Sequence[torch.Tensor], net_depth: int, num_freqs: int,
          compute_dtype, deg_view: int = DEG_VIEW) -> v2.PackedMLP:
     """The flat torch-layout list -> the kernels' packed buffers."""
+    check_kernel_weights(weights, net_depth)
     return v2.pack(weights, net_depth, mip_skips(net_depth), num_freqs,
                    deg_view, compute_dtype, encoder="ipe")
 
 
 def _packed_for(weights, net_depth, num_freqs, deg_view, cd):
+    check_kernel_weights(weights, net_depth)
     return v2._packed_for(weights, net_depth, mip_skips(net_depth),
                           num_freqs, deg_view, cd, "ipe")
 
@@ -219,6 +253,7 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
     (row-major streams, kernel #15)."""
     cd = fm.as_dtype(compute_dtype)
     if means.device.type == "cpu":
+        check_kernel_weights(weights, net_depth)
         if isinstance(weights, v2.PackedMLP):
             _packed_for(weights, net_depth, num_freqs, deg_view, cd)
         plain = plain_fwd_row if row else plain_fwd_T
@@ -292,7 +327,8 @@ def plain_fwd_normals_T(weights, means_T, covs_T, views_T, net_depth,
         ipe = encoding.integrated_pos_enc(means, covs_T.T.float(), 0,
                                           num_freqs)
         inputs = fm._round(ipe.detach(), cd).requires_grad_()
-        raw = _mip_encoded(inputs, views_T.T, _flat(weights),
+        raw = _mip_encoded(inputs, None if views_T is None else views_T.T,
+                           _flat(weights),
                            net_depth=net_depth, deg_view=deg_view,
                            skip_layer=skip_layer, compute_dtype=cd)
         g_sc, = torch.autograd.grad(raw[:, 3].sum(), inputs)
@@ -311,6 +347,7 @@ def fused_mip_mlp_normals_T(weights, means_T: torch.Tensor,
     the plain version; CUDA tensors launch the kernel or raise."""
     cd = fm.as_dtype(compute_dtype)
     if means_T.device.type == "cpu":
+        check_kernel_weights(weights, net_depth)
         if isinstance(weights, v2.PackedMLP):
             _packed_for(weights, net_depth, num_freqs, deg_view, cd)
         return plain_fwd_normals_T(weights, means_T, covs_T, views_T,
@@ -394,6 +431,7 @@ def _bwd(row: bool, weights, means, covs, views, g, net_depth, num_freqs,
     (row-major streams, kernel #16)."""
     cd = fm.as_dtype(compute_dtype)
     if means.device.type == "cpu":
+        check_kernel_weights(weights, net_depth)
         if isinstance(weights, v2.PackedMLP):
             _packed_for(weights, net_depth, num_freqs, deg_view, cd)
         plain = plain_bwd_row if row else plain_bwd_T

@@ -990,6 +990,10 @@ def build_onepass_mip_train_step(cfg, mesh=None):
                          "stop_level_grad, min_deg_point=0, "
                          "max_deg_point <= 20 and no disp or normal "
                          "metrics")
+    if not cfg.use_viewdirs:
+        raise ValueError("the mip one-pass step needs the view layer "
+                         "(use_viewdirs=true); train/loop.py::select_train_step "
+                         "sends use_viewdirs=false to the eager step")
     n_levels, s = cfg.mip_num_levels, cfg.mip_num_samples
     level_mults = [cfg.coarse_loss_mult] * (n_levels - 1) + [1.0]
     # The MiDaS term reads exactly the first 4x16^2 rays.

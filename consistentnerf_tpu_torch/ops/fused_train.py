@@ -283,6 +283,10 @@ def build_fused_mip_train_step(cfg, mesh=None) -> Callable:
     if not cfg.disable_normals:
         raise ValueError("the fused mip train step requires "
                          "disable_normals=true (6n has no backward)")
+    if not cfg.use_viewdirs:
+        raise ValueError("the fused mip train step needs the view layer "
+                         "(use_viewdirs=true); train/loop.py::select_train_step "
+                         "sends use_viewdirs=false to the eager step")
     cdt = fm.as_dtype(cfg.compute_dtype)
     net_depth = cfg.netdepth
 

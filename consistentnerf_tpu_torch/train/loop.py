@@ -121,7 +121,8 @@ def select_train_step(cfg, model, lpips_params=None, mesh=None):
 
 def _select_mip_train_step(cfg, model, mesh=None):
     """The mip branch of the dispatch (loop.py:92-110). No mip step reads
-    ss_loss, in either package: it warns and trains without it."""
+    ss_loss, in either package: it warns and trains without it. A config
+    without view directions trains on the eager step, with a warning."""
     from consistentnerf_tpu_torch.ops import fused_onepass, fused_train
 
     if cfg.ss_loss:
@@ -129,6 +130,17 @@ def _select_mip_train_step(cfg, model, mesh=None):
                       "it (as in the JAX package); training without it",
                       stacklevel=3)
     if not cfg.use_fused_train:
+        return step_lib.build_mip_train_step(model, cfg, mesh=mesh)
+    if not cfg.use_viewdirs:
+        # The port's own gate (ROADMAP note E): the JAX package's kernel
+        # steps fail here in flatten_mip_params; the port follows the
+        # model.
+        warnings.warn(
+            "use_fused_train with the mip backbone at use_viewdirs=false: "
+            "the fused mip kernels read a view layer this MLP lacks (the "
+            "JAX package's kernel steps raise KeyError "
+            f"'Dense_{cfg.netdepth + 2}' here); training on the eager step",
+            stacklevel=3)
         return step_lib.build_mip_train_step(model, cfg, mesh=mesh)
     if not cfg.disable_normals:
         raise ValueError(

@@ -46,8 +46,17 @@ def _image_outputs(out):
 
 
 def _mip_chunk_fn(model, cfg):
-    """The mip backbone's chunk renderer (render.py:105-138)."""
-    if cfg.use_fused_render:
+    """The mip backbone's chunk renderer (render.py:105-138). Without view
+    directions the fused forward does not take the MLP: the render goes
+    through the module, with a warning."""
+    if cfg.use_fused_render and not cfg.use_viewdirs:
+        warnings.warn(
+            "use_fused_render with the mip backbone at use_viewdirs=false: "
+            "the fused mip forward reads a view layer this MLP lacks (the "
+            "JAX package's raises KeyError "
+            f"'Dense_{cfg.netdepth + 2}'); rendering through the module",
+            stacklevel=3)
+    if cfg.use_fused_render and cfg.use_viewdirs:
         from consistentnerf_tpu_torch.ops import fused_mip
         from consistentnerf_tpu_torch.ops.fused_train import \
             fused_mip_forward

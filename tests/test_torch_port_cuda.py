@@ -2056,3 +2056,68 @@ def test_interleaved_canary_from_the_jax_init(cuda_device, tmp_path):
     res = cs.run_canary("interleaved", "jax", cuda_device, str(tmp_path))
     assert min(res["psnrs"]) > 11.0, res
     assert float(np.mean(res["psnrs"])) > 12.5, res
+
+
+@pytest.mark.cuda
+def test_jpeg_fixtures_match_their_digests(cuda_device):
+    """The committed JPEG fixtures through the port's decoder on the
+    card's machine (which has no imaging package), against the SHA-256
+    of imageio's decode stored beside them (tools/jpeg_fixtures.py)."""
+    import hashlib
+    import json
+    import os
+
+    from consistentnerf_tpu_torch.data import images
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "jpeg_fixtures.json")) as f:
+        index = json.load(f)
+    assert len(index) >= 4
+    for name, want in index.items():
+        img = images.imread(os.path.join(here, "jpeg_fixtures", name))
+        assert list(img.shape) == want["shape"], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], \
+            name
+
+
+@pytest.mark.cuda
+def test_viewdir_free_mip_eager_step_matches_the_cpu(cuda_device):
+    """The mip eager step without view directions at the mip width (8x256,
+    96 x 2 samples), fp32 in strict mode, 256 rays: the card against the
+    CPU from the same state and batch, at perturb 0. The loss within
+    1e-5, the grads within 3e-4 relative L2 together and 3e-3 a tensor:
+    3x the step's own fp32 floor (a one-ulp nudge of the origins moves
+    the CPU's grads ~1.1e-4 / ~1e-3; chip_smoke.py's NOVIEW_* gates)."""
+    import copy
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher, to_device
+    from consistentnerf_tpu_torch.train import loop
+    from consistentnerf_tpu_torch.train import step as step_lib
+
+    cfg = configs.Config(backbone="mipnerf", use_viewdirs=False,
+                         mip_num_samples=96, N_rand=256, white_bkgd=True,
+                         randomized=False, compute_depth_metrics=True,
+                         compute_mono_depth_metrics=False,
+                         dataset_type="blender")
+    scene = synthetic.make_scene(n_views=4, H=64, W=64).to_scene_data()
+    full = to_device(MipBatcher(scene, cfg).next_batch(), "cpu")
+    n = full["rgb"].shape[0]
+    batch = {k: (v.map(lambda t: t[-256:]) if hasattr(v, "map")
+                 else v[-256:] if v.shape[:1] == (n,) else v)
+             for k, v in full.items()}
+    state = loop.init_state(cfg, "cpu")
+    assert len(list(state.model.mlp.dense)) == 10
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        st = copy.deepcopy(state)
+        st.model.to(dev)
+        b = {k: (v.map(lambda t: t.to(dev)) if hasattr(v, "map")
+                 else v.to(dev)) for k, v in batch.items()}
+        res[dev.type] = _step_grads(step_lib.build_mip_train_step(None, cfg),
+                                    st, b, {})
+    (st_k, g_k), (st_c, g_c) = res["cuda"], res["cpu"]
+    assert abs(float(st_k["loss"]) / float(st_c["loss"]) - 1) < 1e-5
+    assert _rel_l2(torch.cat([g.reshape(-1).cpu() for g in g_k]),
+                   torch.cat([g.reshape(-1) for g in g_c])) < 3e-4
+    assert max(_rel_l2(a, b) for a, b in zip(g_k, g_c)) < 3e-3

@@ -43,7 +43,7 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "cli.import_torch_ckpt", "cli.export_torch_ckpt",
              "cli.import_mipnerf_ckpt", "parallel.mesh",
              "parallel.distributed_render", "cli.metrics", "cli.jobs",
-             "data.multicam"):
+             "data.multicam", "data.jpeg", "data.video", "cli.video"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -58,6 +58,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "banned: []" in proc.stdout
+
+
+def test_image_and_video_paths_import_no_imaging_package():
+    """The paths that read and write images and videos (imread's PNG and
+    JPEG decoders, the LLFF loader, the MP4 writer and the video CLI)
+    name no imaging package anywhere, lazily either."""
+    for rel in ("data/images.py", "data/jpeg.py", "data/video.py",
+                "data/llff.py", "cli/video.py"):
+        src = open(os.path.join(REPO, "consistentnerf_tpu_torch", rel)).read()
+        for banned in ("imageio", "cv2", "PIL", "matplotlib"):
+            for form in (f"import {banned}", f"from {banned}"):
+                assert form not in src, (rel, form)
 
 
 def test_chip_smoke_imports_no_jax():

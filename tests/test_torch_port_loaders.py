@@ -178,12 +178,17 @@ def test_imread_sends_other_formats_to_imageio(tmp_path, monkeypatch):
     np.testing.assert_array_equal(images.imread(jpg), imageio.imread(jpg))
     png = str(tmp_path / "x.png")
     images.write_png(png, img, 4)
+    want = imageio.imread(jpg)
+    gif = str(tmp_path / "x.gif")
+    imageio.imwrite(gif, img)
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    # A PNG never needs imageio; any other file names itself.
+    # Neither a PNG nor a JPEG needs imageio; any other format raises,
+    # naming the file and the format.
     np.testing.assert_array_equal(images.imread(png), img)
-    with pytest.raises(ImportError, match="x.jpg"):
-        images.imread(jpg)
+    np.testing.assert_array_equal(images.imread(jpg), want)
+    with pytest.raises(ValueError, match="x.gif: GIF"):
+        images.imread(gif)
 
 
 RESIZES = [(37, 53, 20, 30), (40, 40, 20, 20), (48, 64, 12, 16),

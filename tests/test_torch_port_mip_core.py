@@ -69,6 +69,23 @@ def test_encodings_with_range_reduction():
     assert np.abs(x * 2.0**15).max() > 100 * np.pi
 
 
+@pytest.mark.parametrize("scale", [1e-6, 1e-2, 1.0])
+def test_full_covariance_ipe_matches_jax(scale):
+    """The full-covariance IPE (`diag=False`) on seeded means and seeded
+    symmetric positive definite covariances, against the JAX function."""
+    rs = np.random.RandomState(4)
+    x = (rs.rand(2, 32, 3) * 8 - 4).astype(np.float32)
+    a = rs.randn(2, 32, 3, 3)
+    cov = (scale * (a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(3))).astype(
+        np.float32)
+    want = jenc.integrated_pos_enc((x, cov), 0, 16, diag=False)
+    _close(encoding.integrated_pos_enc(_t(x), _t(cov), 0, 16, diag=False),
+           want, atol=2e-5, rtol=1e-5)
+    _close(encoding.integrated_pos_enc(_t(x), _t(cov), 2, 10, diag=False),
+           jenc.integrated_pos_enc((x, cov), 2, 10, diag=False), atol=2e-5,
+           rtol=1e-5)
+
+
 @pytest.mark.parametrize("shape", ["cone", "cylinder"])
 def test_cast_rays_both_layouts(rays, shape):
     o, d, radii, near, far = rays
