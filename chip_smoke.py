@@ -84,7 +84,16 @@ with the launch counts set to 0 just before it and read just after:
   group of views; every metric `evaluate()` computed on the card held
   against the same port function on the CPU on the same renders, one
   view's PNG against `render_image`, the artifacts present, and each
-  scene's `eval_rays_per_sec` printed;
+  scene's `eval_rays_per_sec` printed; then lego again with its frames in
+  the PNG kinds imageio reads for the JAX package (16-bit RGBA, Adam7
+  RGBA, 16-bit grey + alpha; a palette + tRNS file beside them, from
+  `tools/png_kinds.py`), each file decoded to the digest of imageio's
+  decode (`tests/png_kinds.json`, seconds a megapixel), loaded at
+  400x400, trained 2 flagship one-pass steps and scored on 2 views with
+  LPIPS from an `.npz` that the port's `cli/export_lpips_weights.py`
+  wrote from a seeded stand-in `lpips` package
+  (`tools/lpips_standin.py`), #1 / #2 / #3 counted, the metrics held
+  against the CPU;
 * the experiment grid and the consistency variants, on the same fern and
   scan114 fixtures: `cli/export_configs` (147 files, fern_3view loaded
   back equal); the train CLI from the `--scene fern_3view` preset (fp32,
@@ -237,6 +246,17 @@ def gate(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def tools_module(name: str):
+    """A module of the checkout's tools/ (the fixture writers the tests
+    share with this script)."""
+    import importlib
+
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
 
 
 def enc_widths(multires, multires_views, ipe=False):
@@ -4237,6 +4257,27 @@ def write_scene_fixtures(root):
         test=list(range(n_tr + n_val, n_tr + 2 * n_val)))
     t_lego = time.perf_counter() - t0
 
+    # Blender lego again, its frames in the PNG kinds imageio reads for
+    # the JAX package (tools/png_kinds.py, integer content from seeds):
+    # 16-bit RGBA, Adam7 RGBA and 16-bit grey + alpha in turn, and a
+    # palette + tRNS file beside them. Only the frames the loader reads
+    # (lego_train, lego_val) are written.
+    t0 = time.perf_counter()
+    png_kinds = tools_module("png_kinds")
+    kinds = os.path.join(root, "png_kinds", "nerf_synthetic", "lego")
+    os.makedirs(os.path.join(kinds, "train"))
+    files = []
+    for name, kind, data in png_kinds.scene_files():
+        files.append((name, kind, os.path.join(kinds, "train", name)))
+        with open(files[-1][2], "wb") as f:
+            f.write(data)
+    for split in ("train", "val", "test"):
+        with open(os.path.join(kinds, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO["camera_angle_x"],
+                       "frames": frames}, f)
+    out["kinds"] = dict(out["lego"], dir=kinds, files=files,
+                        write_s=time.perf_counter() - t0)
+
     # DTU scan114: Rectified/ PNGs, cam files (quarter-res K, w2c in mm),
     # GT depth PFMs (1200x1600, zero off the object) for the train and
     # evaluated views, MiDaS PFMs for the train views, IDR masks of every
@@ -4295,8 +4336,10 @@ def write_scene_fixtures(root):
     t_dtu = time.perf_counter() - t0
     log(f"fixtures written (host): fern {FERN['n']} x {FERN['hw']} in "
         f"{t_fern:.1f} s, lego {LEGO['n']} x {LEGO['hw']} RGBA in "
-        f"{t_lego:.1f} s, scan114 {DTU['n']} x {DTU['hw']} + GT depths + "
-        f"{len(DTU_TEST)} IDR masks in {t_dtu:.1f} s")
+        f"{t_lego:.1f} s, lego in the PNG kinds ({len(files)} files) in "
+        f"{out['kinds']['write_s']:.1f} s, scan114 {DTU['n']} x "
+        f"{DTU['hw']} + GT depths + {len(DTU_TEST)} IDR masks in "
+        f"{t_dtu:.1f} s")
     return out
 
 
@@ -4463,8 +4506,9 @@ def eval_phases(dev, card, configs, fm, v2, fmip, op, tmp, fx):
     vanilla step, hard masks on the card, NDC) through cli/train.py
     --eval-after and scored again by cli/eval.py, scan114 trained on the
     one-pass mip step and scored with the IDR-masked metrics, lego scored
-    from the seeded init; each eval's launches counted, its metrics held
-    against the CPU, its eval_rays_per_sec printed."""
+    from the seeded init, lego in the PNG kinds (`kinds_phase`); each
+    eval's launches counted, its metrics held against the CPU, its
+    eval_rays_per_sec printed."""
     from consistentnerf_tpu_torch.cli import eval as eval_cli
     from consistentnerf_tpu_torch.cli import train as train_cli
     from consistentnerf_tpu_torch.data import images
@@ -4667,11 +4711,113 @@ def eval_phases(dev, card, configs, fm, v2, fmip, op, tmp, fx):
                       metrics, lambda v: None)
     rays_per_sec["lego"] = metrics["eval_rays_per_sec"]
     del scene
+
+    # --- lego in the PNG kinds: decode, load, train, eval with LPIPS ---
+    t_kinds = time.perf_counter()
+    rays_per_sec["lego_kinds"] = kinds_phase(dev, card, configs, v2, op,
+                                             tmp, fx["kinds"], add)
+    t_kinds = time.perf_counter() - t_kinds
+    log(f"{tag} lego in the PNG kinds: the phase {t_kinds:.1f} s, with "
+        f"its fixtures {t_kinds + fx['kinds']['write_s']:.1f} s")
     for k, v in rays_per_sec.items():
         log(f"{tag} eval_rays_per_sec {k}: {v:.1f}")
     torch.cuda.empty_cache()
     return {"launches": launches, "eval_rays_per_sec": rays_per_sec}
 
+
+
+KINDS_STEPS = 2  # flagship one-pass steps on the PNG-kinds scene
+
+
+def kinds_phase(dev, card, configs, v2, op, tmp, kinds, add):
+    """Blender lego at 800x800 in the PNG kinds of tools/png_kinds.py:
+    each file decoded (seconds a megapixel, host) to the digest of
+    imageio's decode (tests/png_kinds.json); the scene loaded with
+    half_res (400x400) and held to what it implies; KINDS_STEPS flagship
+    one-pass steps through cli/train.py --eval-after, which scores 2 test
+    views with LPIPS from an `.npz` that the port's
+    cli/export_lpips_weights.py wrote from the seeded stand-in `lpips`
+    package (tools/lpips_standin.py); #1 / #2 / #3 counted; the metrics
+    held against the CPU. Returns the eval's eval_rays_per_sec."""
+    from consistentnerf_tpu_torch.cli import export_lpips_weights
+    from consistentnerf_tpu_torch.cli import train as train_cli
+    from consistentnerf_tpu_torch.data import images
+    from consistentnerf_tpu_torch.data.loaders import load_scene
+
+    tag = f"[{card}]"
+    png_kinds = tools_module("png_kinds")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "png_kinds.json")) as f:
+        digests = json.load(f)
+    for name, kind, path in kinds["files"]:
+        t0 = time.perf_counter()
+        img = images.imread(path)
+        dt = time.perf_counter() - t0
+        got = png_kinds.decoded_digest(img)
+        want = digests[name]
+        log(f"{tag} PNG decode (host), {name} ({kind}, "
+            f"{os.path.getsize(path)} bytes): {1e3 * dt:.1f} ms, "
+            f"{dt / (img.shape[0] * img.shape[1] / 1e6):.3f} s a megapixel;"
+            f" {got['dtype']} {got['shape']}, imageio's digest "
+            f"{'equal' if got['sha256'] == want['sha256'] else 'DIFFERS'}")
+        gate(got == {k: want[k] for k in got},
+             f"kinds: {name} ({kind}) decoded to {got}, imageio to {want}")
+    npz = os.path.join(tmp, "kinds_lpips_vgg.npz")
+    saved = sys.modules.get("lpips")
+    sys.modules["lpips"] = tools_module("lpips_standin").module(seed=0)
+    try:
+        export_lpips_weights.main([npz])
+    finally:
+        if saved is None:
+            del sys.modules["lpips"]
+        else:
+            sys.modules["lpips"] = saved
+    sets = [f"{k}={v}" for k, v in FLAGSHIP.items()] + [
+        "dataset_type=blender", f"datadir={kinds['dir']}", "half_res=true",
+        "train_view_num=3", "i_print=1", f"checkpoint_every={KINDS_STEPS}",
+        f"basedir={tmp}", "expname=kinds", f"lpips_weights_path={npz}",
+        "eval_render_interval=2"]
+    args = ["--device", str(dev)] + [x for s_ in sets
+                                     for x in ("--set", s_)]
+    cfg = configs.Config(**{**FLAGSHIP, "dataset_type": "blender",
+                            "datadir": kinds["dir"], "half_res": True})
+    t0 = time.perf_counter()
+    scene = load_scene(cfg, device=dev, attach=False)
+    log(f"{tag} load_scene lego in the PNG kinds (blender, half_res): "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    scene_gates("kinds", scene, kinds, [])
+    counted = ((v2, "launches", v2.KERNEL),
+               (v2, "bwd_launches", v2.BWD_KERNEL),
+               (op, "launches", op.KERNEL))
+    for mod, attr, _ in counted:
+        setattr(mod, attr, 0)
+    res = train_cli.main(args + ["--num-steps", str(KINDS_STEPS),
+                                 "--eval-after"])
+    torch.cuda.synchronize()
+    got = {k: getattr(mod, attr) for mod, attr, k in counted}
+    views = list(kinds["test"])[::2]
+    n_eval = eval_launches(configs.Config(render_chunk_size=CHUNK), scene,
+                           len(views), 2)
+    want = {v2.KERNEL: 2 * KINDS_STEPS + n_eval,
+            v2.BWD_KERNEL: 2 * KINDS_STEPS, op.KERNEL: 2 * KINDS_STEPS}
+    metrics = res.metrics
+    log(f"kinds cli.train --eval-after: {KINDS_STEPS} one-pass steps, loss "
+        f"{float(res.stats_history[-1]['loss']):.5f}, launches {got} "
+        f"(expected {want}); metrics " + ", ".join(
+            f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+    gate(got == want, f"kinds: the train and eval path launched {got}, "
+         f"expected {want}")
+    if not all(np.isfinite(float(h["loss"])) for h in res.stats_history):
+        fail("kinds: a non-finite loss")
+    add(got)
+    preds = os.listdir(os.path.join(tmp, "kinds", "test_preds"))
+    gate("lpips" in metrics and "LPIPS_UNCALIBRATED.txt" not in preds
+         and {"color_000.png", "depth_002.png"} <= set(preds),
+         f"kinds: evaluate() did not score LPIPS from the export, or "
+         f"wrote {sorted(preds)}")
+    eval_metric_gates("kinds", card, args, scene, views, metrics,
+                      lambda v: None)
+    return metrics["eval_rays_per_sec"]
 
 
 # The consistency phase: train CLI steps of each run (a fresh experiment

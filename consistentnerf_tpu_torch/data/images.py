@@ -3,13 +3,15 @@
 The machine the port runs on has no imaging package, so the loaders read
 their images here:
 
-* `read_png` / `decode_png`: 8-bit grey, grey + alpha, RGB and RGBA PNGs,
-  not interlaced, with any of the five row filters. Anything else raises,
-  naming what it is. Rows filtered with None, Sub or Up are undone a row
-  at a time; an image with an Average or Paeth row (each byte depends on
-  the decoded byte to its left) is undone along anti-diagonals, all rows
-  at once.
-* `write_png` / `encode_png`: the same formats, with a chosen filter.
+* `read_png` / `decode_png`: every PNG kind (grey, grey + alpha, RGB,
+  RGBA and palette, at each bit depth the standard allows, with or
+  without Adam7 interlace), as the array `imageio.v2.imread` gives for it
+  through Pillow (dtype and channels: `decode_png`). Rows filtered with
+  None, Sub or Up are undone a row at a time; an image with an Average or
+  Paeth row (each byte depends on the decoded byte to its left) is undone
+  along anti-diagonals, all rows at once.
+* `write_png` / `encode_png`: 8-bit grey, grey + alpha, RGB and RGBA,
+  not interlaced, with a chosen filter.
 * `write_jpeg` / `encode_jpeg`: 8-bit greyscale baseline JPEGs (JFIF,
   sequential DCT, the Annex K luminance tables at libjpeg's quality 75),
   the producers' mask JPGs.
@@ -22,7 +24,8 @@ their images here:
   `INTER_NEAREST`, on [H, W] or [H, W, C] uint8 or float32 images, with
   OpenCV's weights and, for uint8, its rounding (`_minify` writes resized
   uint8 images back to disk, so a pixel one off would change every later
-  run).
+  run). `INTER_AREA` enlarging either axis and boxes cut by the image's
+  edge give OpenCV's bits in float32 too.
 """
 
 from __future__ import annotations
@@ -38,9 +41,16 @@ import numpy as np
 from consistentnerf_tpu_torch.data.jpeg import decode_jpeg, read_jpeg  # noqa: F401
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels (8-bit grey, grey + alpha, RGB, RGBA).
-_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
-_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
+# PNG colour type -> samples a pixel (grey, RGB, palette, grey + alpha,
+# RGBA), and the bit depths the standard allows for it.
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# The colour type `encode_png` writes for 1-4 channels of 8 bits.
+_COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+# Adam7: (row start, column start, row step, column step) of each pass.
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 INTER_NEAREST = "nearest"
 INTER_LINEAR = "linear"
@@ -70,39 +80,105 @@ def _chunks(data: bytes, name: str):
 
 
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> uint8 [H, W] (grey) or [H, W, C] (C = 2, 3, 4)."""
-    header, idat = None, []
+    """PNG bytes -> the array `imageio.v2.imread` gives for them (through
+    Pillow): uint8 [H, W] grey, [H, W, 2] grey + alpha, [H, W, 3] RGB,
+    [H, W, 4] RGBA, with these exceptions of Pillow's: 1-bit grey is bool;
+    2- and 4-bit grey are scaled to 0-255; 16-bit grey stays uint16;
+    other 16-bit samples keep their high byte, grey + alpha as RGBA; a
+    palette image is its colours, RGB (a `tRNS` chunk is not read, as
+    Pillow's RGB conversion does not). Adam7 interlace is read for every
+    kind."""
+    header, palette, idat = None, None, []
     for tag, payload in _chunks(data, name):
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"PLTE":
+            palette = payload
         elif tag == b"IDAT":
             idat.append(payload)
     if header is None:
         raise ValueError(f"{name}: PNG without an IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if colour not in _CHANNELS:
-        raise ValueError(f"{name}: PNG colour type {colour} is not read "
-                         "(only 8-bit grey, grey + alpha, RGB and RGBA)")
-    if depth != 8:
-        raise ValueError(f"{name}: PNG bit depth {depth} is not read "
-                         "(only 8 bits a sample)")
-    if interlace:
-        raise ValueError(f"{name}: interlaced (Adam7) PNGs are not read")
+    if colour not in _DEPTHS:
+        raise ValueError(f"{name}: unknown PNG colour type {colour}")
+    if depth not in _DEPTHS[colour]:
+        raise ValueError(f"{name}: PNG colour type {colour} has no bit "
+                         f"depth {depth}")
+    if interlace > 1:
+        raise ValueError(f"{name}: unknown PNG interlace method {interlace} "
+                         "(0: not interlaced, 1: Adam7)")
+    if colour == 3 and (palette is None or not palette
+                        or len(palette) % 3):
+        raise ValueError(f"{name}: a PNG of colour type 3 (palette) without "
+                         "a valid PLTE chunk")
     c = _CHANNELS[colour]
+    bpp = max(1, c * depth // 8)  # the filters' byte distance to the left
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * c):
+    passes = [(0, 0, 1, 1)] if not interlace else _ADAM7
+    sizes = [(len(range(r0, h, dr)), len(range(c0, w, dc)))
+             for r0, c0, dr, dc in passes]
+    row_bytes = [(pw * c * depth + 7) // 8 for _, pw in sizes]
+    expected = sum(ph * (1 + n) for (ph, pw), n in zip(sizes, row_bytes)
+                   if ph and pw)
+    if raw.size != expected:
         raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
-                         f"expected {h * (1 + w * c)}")
-    raw = raw.reshape(h, 1 + w * c)
-    kinds = raw[:, 0]
-    if kinds.size and kinds.max() > 4:
-        raise ValueError(f"{name}: unknown PNG row filter {kinds.max()}")
-    rows = raw[:, 1:].reshape(h, w, c)
-    if kinds.size and kinds.max() <= 2:
-        out = _unfilter_rows(rows, kinds)
-    else:
-        out = _unfilter_diagonals(rows, kinds)
-    return out[..., 0] if c == 1 else out
+                         f"expected {expected}")
+    samples = np.empty((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (r0, c0, dr, dc), (ph, pw), n in zip(passes, sizes, row_bytes):
+        if not (ph and pw):
+            continue
+        block = raw[pos: pos + ph * (1 + n)].reshape(ph, 1 + n)
+        pos += ph * (1 + n)
+        kinds = block[:, 0]
+        if kinds.max() > 4:
+            raise ValueError(f"{name}: unknown PNG row filter {kinds.max()}")
+        rows = block[:, 1:].reshape(ph, n // bpp, bpp)
+        if kinds.max() <= 2:
+            rows = _unfilter_rows(rows, kinds)
+        else:
+            rows = _unfilter_diagonals(rows, kinds)
+        samples[r0::dr, c0::dc] = _unpack_samples(rows.reshape(ph, n), pw, c,
+                                                  depth)
+    return _as_pillow_reads(samples, colour, depth, palette)
+
+
+def _unpack_samples(rows: np.ndarray, w: int, c: int,
+                    depth: int) -> np.ndarray:
+    """Unfiltered byte rows [h, n] -> sample values [h, w, c]: 16-bit
+    samples big-endian, sub-byte samples packed from the high bit."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, c)
+    if depth == 8:
+        return rows.reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, : w * c * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, w * c, depth) @ weights).astype(
+        np.uint8).reshape(h, w, c)
+
+
+def _as_pillow_reads(samples: np.ndarray, colour: int, depth: int,
+                     palette: Optional[bytes]) -> np.ndarray:
+    """Sample values [H, W, C] as `imageio.v2.imread` returns them (the
+    rules of `decode_png`)."""
+    if colour == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        pal = np.frombuffer(palette, np.uint8).reshape(-1, 3)[:256]
+        lut[: len(pal)] = pal
+        return lut[samples[..., 0]]
+    if colour == 0:
+        grey = samples[..., 0]
+        if depth == 1:
+            return grey != 0
+        if depth < 8:
+            return grey * np.uint8(255 // ((1 << depth) - 1))
+        return grey
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if colour == 4:  # Pillow reads 16-bit grey + alpha as RGBA
+            samples = samples[..., [0, 0, 0, 1]]
+    return samples
 
 
 def _unfilter_rows(rows: np.ndarray, kinds: np.ndarray) -> np.ndarray:
@@ -373,8 +449,9 @@ _OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
 
 
 def imread(path: str) -> np.ndarray:
-    """An image file as uint8 [H, W(, C)], by its signature: a PNG
-    (`read_png`) or a JPEG (`read_jpeg`, [H, W] or [H, W, 3]); any other
+    """An image file as `imageio.v2.imread` gives it, by its signature: a
+    PNG (`read_png`: uint8 but for 1-bit grey, bool, and 16-bit grey,
+    uint16) or a JPEG (`read_jpeg`, uint8 [H, W] or [H, W, 3]); any other
     format raises a ValueError that names it."""
     with open(path, "rb") as f:
         data = f.read()
@@ -431,12 +508,11 @@ def resize(img: np.ndarray, dsize: Optional[Tuple[int, int]] = None,
             out = _area_fast(x, dh, dw, 2, 2)
         elif interpolation == INTER_AREA and sx >= 1 and sy >= 1:
             out = _area(x, dh, dw, sx, sy)
-        elif interpolation == INTER_AREA:
-            raise NotImplementedError(
-                "INTER_AREA upscaling is not implemented (the loaders only "
-                "shrink)")
         else:
-            out = _linear(x, dh, dw, sx, sy)
+            # INTER_AREA that enlarges an axis runs cv2's linear resize
+            # with area coefficients on both axes.
+            out = _linear(x, dh, dw, sx, sy, (inv_x, inv_y)
+                          if interpolation == INTER_AREA else (None, None))
     else:
         raise ValueError(f"unknown interpolation {interpolation!r}")
     return out if img.ndim == 3 else out[..., 0]
@@ -450,26 +526,65 @@ def _nearest(x, dh, dw, sx, sy):
     return x[ys][:, xs]
 
 
+def _box_sum_f32(vals: np.ndarray) -> np.ndarray:
+    """cv2's float sum of each box [..., area] (the box row by row): the
+    elements four at a time, ((a + b) + c) + d added to the total, then
+    the rest one at a time."""
+    area = vals.shape[-1]
+    total = np.zeros(vals.shape[:-1], np.float32)
+    for k in range(0, area - 3, 4):
+        total += ((vals[..., k] + vals[..., k + 1]) + vals[..., k + 2]) \
+            + vals[..., k + 3]
+    for k in range(area - area % 4, area):
+        total += vals[..., k]
+    return total
+
+
 def _area_fast(x, dh, dw, kx, ky):
-    """cv2's INTER_AREA at integer factors: box means. uint8 2x2 rounds
-    half up ((sum + 2) >> 2); other uint8 boxes take sum * (1 / area) in
-    float32, rounded half to even; float32 sums its box row by row."""
-    if dh * ky > x.shape[0] or dw * kx > x.shape[1]:
-        raise NotImplementedError(
-            "boxes cut by the image's edge (a size rounded from fx / fy) "
-            "are not implemented")
-    boxes = x[: dh * ky, : dw * kx].reshape(dh, ky, dw, kx, x.shape[2])
+    """cv2's INTER_AREA at integer factors: box means of the boxes that
+    lie inside the image, then the boxes cut by its edge (a size rounded
+    up from fx / fy), the mean of what they hold (sum / count, float32,
+    the sum row by row). uint8: 2x2 boxes round half up ((sum + 2) >> 2),
+    others take sum * (1 / area) in float32, rounded half to even. float32:
+    2x2 boxes of 1- or 4-channel images go by cv2's vector code,
+    ((a + b) + (c + d)) * 0.25 (1 channel: in groups of four output
+    pixels, the rest as other boxes); other boxes `_box_sum_f32` * (1 /
+    area)."""
+    h, w, c = x.shape
+    hf, wf = min(dh, h // ky), min(dw, w // kx)  # whole boxes
+    out = np.zeros((dh, dw, c), x.dtype)
+    boxes = x[: hf * ky, : wf * kx].reshape(hf, ky, wf, kx, c)
     if x.dtype == np.uint8:
         total = boxes.astype(np.int32).sum((1, 3))
         if kx == 2 and ky == 2:
-            return ((total + 2) >> 2).astype(np.uint8)
-        scaled = total.astype(np.float32) * np.float32(1.0 / (kx * ky))
-        return np.clip(np.rint(scaled), 0, 255).astype(np.uint8)
-    total = np.zeros((dh, dw, x.shape[2]), np.float32)
-    for i in range(ky):
-        for j in range(kx):
-            total += boxes[:, i, :, j]
-    return total * np.float32(1.0 / (kx * ky))
+            out[:hf, :wf] = (total + 2) >> 2
+        else:
+            scaled = total.astype(np.float32) * np.float32(1.0 / (kx * ky))
+            out[:hf, :wf] = np.clip(np.rint(scaled), 0, 255)
+    else:
+        vals = boxes.transpose(0, 2, 4, 1, 3).reshape(hf, wf, c, kx * ky)
+        out[:hf, :wf] = _box_sum_f32(vals) * np.float32(1.0 / (kx * ky))
+        if kx == 2 and ky == 2 and c in (1, 4):
+            nv = wf - wf % 4 if c == 1 else wf
+            v = vals[:, :nv]
+            out[:hf, :nv] = ((v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3])
+                             ) * np.float32(0.25)
+    for dy in range(dh):
+        for dx in range(wf if dy < hf else 0, dw):
+            box = x[dy * ky: (dy + 1) * ky, dx * kx: (dx + 1) * kx]
+            if box.size == 0:
+                continue
+            count = np.float32(box.shape[0] * box.shape[1])
+            if x.dtype == np.uint8:
+                mean = box.astype(np.int32).sum((0, 1)).astype(
+                    np.float32) / count
+                out[dy, dx] = np.clip(np.rint(mean), 0, 255)
+            else:
+                total = np.zeros(c, np.float32)
+                for px in box.reshape(-1, c):
+                    total += px
+                out[dy, dx] = total / count
+    return out
 
 
 def _area_tab(ssize: int, dsize: int, scale: float):
@@ -518,12 +633,22 @@ def _area(x, dh, dw, sx, sy):
     return out
 
 
-def _linear_tab(ssize: int, dsize: int, scale: float, clamp: bool):
+def _linear_tab(ssize: int, dsize: int, scale: float, clamp: bool,
+                area_inv: Optional[float] = None):
     """cv2's INTER_LINEAR source index and fraction per output index
-    (half-pixel centres); `clamp`: the horizontal pass's border rule."""
-    f = (np.arange(dsize) + 0.5) * scale - 0.5
-    s = np.floor(f).astype(np.int64)
-    f = (f - s).astype(np.float32)
+    (half-pixel centres); `clamp`: the horizontal pass's border rule.
+    `area_inv` (the inverse scale): INTER_AREA's coefficients where it
+    enlarges, index floor(d * scale) and as fraction the part of output
+    pixel d that lies past source pixel index + 1's start."""
+    d = np.arange(dsize)
+    if area_inv is None:
+        f = (d + 0.5) * scale - 0.5
+        s = np.floor(f).astype(np.int64)
+        f = (f - s).astype(np.float32)
+    else:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * area_inv).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f))
     if clamp:
         low, high = s < 0, s >= ssize - 1
         f[low | high] = 0
@@ -532,13 +657,15 @@ def _linear_tab(ssize: int, dsize: int, scale: float, clamp: bool):
     return s, f
 
 
-def _linear(x, dh, dw, sx, sy):
+def _linear(x, dh, dw, sx, sy, area_inv=(None, None)):
     """cv2's INTER_LINEAR: a horizontal then a vertical pass. float32 in
     float32; uint8 in cv2's fixed point (weights in 1/2048, rows of int
-    sums, the vertical pass in 16-bit halves rounded at 2^22)."""
+    sums, the vertical pass in 16-bit halves rounded at 2^22).
+    `area_inv`: the inverse scales (x, y) for INTER_AREA's coefficients
+    (`_linear_tab`)."""
     h, w = x.shape[:2]
-    xs, fxs = _linear_tab(w, dw, sx, True)
-    ys, fys = _linear_tab(h, dh, sy, False)
+    xs, fxs = _linear_tab(w, dw, sx, True, area_inv[0])
+    ys, fys = _linear_tab(h, dh, sy, False, area_inv[1])
     x1 = np.minimum(xs + 1, w - 1)
     y0, y1 = np.clip(ys, 0, h - 1), np.clip(ys + 1, 0, h - 1)
     if x.dtype == np.float32:

@@ -57,6 +57,7 @@ from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.data.pfm import read_pfm
 from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.train import bootstrap
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 
@@ -82,14 +83,6 @@ TINY = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=8,
             N_importance=8, multires=4, multires_views=2, white_bkgd=True,
             N_rand=64, n_patches=1, patch_size=8, render_chunk_size=512,
             hardmask=True, with_depth_loss=True, perturb=0.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _noisy_priors(n_views=8, hw=48, seed=0):

@@ -34,6 +34,7 @@ from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
 from consistentnerf_tpu_torch.train.state import create_train_state
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 VANILLA = dict(backbone="vanilla", netdepth=4, netwidth=32, N_samples=8,
                N_importance=8, multires=4, multires_views=2)
@@ -43,14 +44,6 @@ RTOL = dict(rtol=1e-5, atol=1e-6)
 SCENE_SETS = ["dataset_type=synthetic", "synthetic_hw=16",
               "synthetic_views=3", "synthetic_n_test=1", "N_rand=32",
               "n_patches=0", "i_print=1", "use_tensorboard=false"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _args(tmp_path, kw, expname, extra=()):

@@ -27,6 +27,7 @@ from consistentnerf_tpu_torch.data.multicam import (MulticamBatcher,
 from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.train.lpips import LPIPS
 from consistentnerf_tpu_torch.train.state import make_lr_schedule
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 RAY_FIELDS = ("origins", "directions", "viewdirs", "radii", "lossmult",
               "near", "far")

@@ -25,6 +25,7 @@ from consistentnerf_tpu_torch import configs
 from consistentnerf_tpu_torch.cli import common, export_configs
 from consistentnerf_tpu_torch.configs import legacy, scenes
 from consistentnerf_tpu_torch.train import loop
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_legacy_configs import LEGO_TXT, SCAN114_GIN  # noqa: E402

@@ -41,6 +41,7 @@ from consistentnerf_tpu_torch.data.pipeline import to_device
 from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train import step as step_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -61,17 +62,6 @@ STEPS = {"eager": dict(use_fused_train=False),
          "v2": dict(use_onepass_train=False, fused_kernel="v2"),
          "v2row": dict(use_onepass_train=False, fused_kernel="v2row"),
          "v1": dict(use_onepass_train=False, fused_kernel="v1")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- edge masks and softmask ------------------------------------------------
@@ -188,7 +178,11 @@ def test_img2mse_softmask_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def scenes():
+def scenes(request):
+    return once_per_run(request, _scenes)
+
+
+def _scenes():
     kw = dict(n_views=6, H=48, W=48)
     return (synthetic.make_scene(**kw).to_scene_data(),
             jsynth.make_scene(**kw).to_scene_data())
@@ -262,9 +256,13 @@ def _jax_cfg(**kw):
 
 
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(request):
     """The ss_loss batch, initial params, the online loss of the JAX model,
     and the JAX XLA step's result for each gate value."""
+    return once_per_run(request, _jax_run)
+
+
+def _jax_run():
     jcfg = _jax_cfg()
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     model = jax_make_model(jcfg)

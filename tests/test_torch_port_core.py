@@ -20,6 +20,7 @@ from consistentnerf_tpu_torch import configs
 from consistentnerf_tpu_torch.core import encoding, rays, rendering, sampling
 from consistentnerf_tpu_torch.data import loaders, poses, synthetic
 from consistentnerf_tpu_torch.train import evaluation
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

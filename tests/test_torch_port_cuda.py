@@ -37,6 +37,7 @@ from consistentnerf_tpu_torch.models.mlp import NeRFMLP
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.train import render as render_lib
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 SKIPS, MR, MV = (4,), 10, 4
 # max|kernel - plain| / mean|plain|: bf16 operands with fp32 sums on both

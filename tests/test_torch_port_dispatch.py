@@ -20,6 +20,7 @@ from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.ops import fused_train as ft
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train import step as step_lib
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 VANILLA = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=8,
                N_importance=8, multires=4, multires_views=2, hardmask=True,

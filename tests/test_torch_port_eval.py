@@ -22,17 +22,20 @@ from consistentnerf_tpu.models.factory import make_model as jax_make_model
 from consistentnerf_tpu.train import evaluation as jeval
 from consistentnerf_tpu.train import image_metrics as jim
 from consistentnerf_tpu.train import lpips as jlpips
+from consistentnerf_tpu.train import render as jrender
 from consistentnerf_tpu.train import vis as jvis
 from consistentnerf_tpu_torch import configs, interop
 from consistentnerf_tpu_torch.cli import eval as eval_cli
 from consistentnerf_tpu_torch.cli import render as render_cli
 from consistentnerf_tpu_torch.cli import train as train_cli
 from consistentnerf_tpu_torch.core import mathx
+from consistentnerf_tpu_torch.core.rays import Rays
 from consistentnerf_tpu_torch.data import images, synthetic
 from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.train import evaluation, image_metrics
 from consistentnerf_tpu_torch.train import lpips, vis
 from consistentnerf_tpu_torch.train import render as render_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-5
@@ -178,9 +181,13 @@ TINY = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=8,
 
 
 @pytest.fixture(scope="module")
-def eval_setup(lpips_npz):
+def eval_setup(request, lpips_npz):
     """A JAX VanillaNeRF's params and the port model holding the same
     weights, on the 5-view 32x32 synthetic scene of both packages."""
+    return once_per_run(request, lambda: _eval_setup(lpips_npz))
+
+
+def _eval_setup(lpips_npz):
     path, _ = lpips_npz
     jcfg = JaxConfig(**TINY, use_tensorboard=False, lpips_weights_path=path)
     pcfg = configs.Config(**TINY, lpips_weights_path=path)
@@ -203,11 +210,11 @@ def eval_setup(lpips_npz):
 
 
 @pytest.mark.parametrize("mode", ["artifacts", "masked"])
-def test_evaluate_matches_jax(tmp_path, eval_setup, mode):
+def test_evaluate_matches_jax(tmp_path, eval_setup, mode, monkeypatch):
     """The same keys, the same file names, every value within 1e-4 but
     eval_rays_per_sec (a time): with the images written (the JAX
     package's blocking path), and DTU-masked without them (its deferred
-    per-view path)."""
+    per-view path). The images: see `assert_same_pngs`."""
     import dataclasses
 
     jcfg, pcfg, jscene, pscene, jmodel, params, model = eval_setup
@@ -235,6 +242,46 @@ def test_evaluate_matches_jax(tmp_path, eval_setup, mode):
     if mode == "artifacts":
         png = images.read_png(str(tmp_path / "port" / "color_002.png"))
         assert png.shape == (32, 32, 3)
+        # The JAX evaluate() again, on the port's renders.
+        port_render = render_lib.build_render_fn(model, pcfg)
+
+        def port_renders(model_, cfg_, params_):
+            def render(rays):
+                with torch.no_grad():
+                    out = port_render(Rays(**{
+                        f.name: torch.from_numpy(np.asarray(
+                            getattr(rays, f.name)))
+                        for f in dataclasses.fields(Rays)}))
+                return {k: jnp.asarray(v.numpy()) for k, v in out.items()}
+            return render
+
+        monkeypatch.setattr(jrender, "build_render_fn", port_renders)
+        jeval.evaluate(jmodel, jcfg, params, jscene,
+                       out_dir=str(tmp_path / "jax_on_port_renders"), **kw)
+        assert_same_pngs(tmp_path / "port", tmp_path / "jax",
+                         tmp_path / "jax_on_port_renders", 9)
+
+
+def assert_same_pngs(port_dir, jax_dir, jax_on_port_dir, n):
+    """The `n` PNGs of both packages' evaluate(): on the port's renders,
+    the JAX package's decode to the port's bytes, every kind (color,
+    depth in matplotlib's turbo, acc, normals). On each package's own
+    renders (within 1e-4 of each other), color and acc within 1 level:
+    both truncate to u8, so a render one float step apart (acc 1.0
+    against 0.99999994) can sit a level apart; depth is not compared
+    there, as a colormap entry can be several levels from the next."""
+    names = sorted(f for f in os.listdir(jax_dir) if f.endswith(".png"))
+    assert len(names) == n
+    for d in (port_dir, jax_on_port_dir):
+        assert names == sorted(f for f in os.listdir(d) if f.endswith(".png"))
+    for name in names:
+        got = images.read_png(str(port_dir / name))
+        want = images.read_png(str(jax_on_port_dir / name))
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        if name.startswith(("color", "acc")):
+            own = images.read_png(str(jax_dir / name)).astype(int)
+            assert np.abs(got.astype(int) - own).max() <= 1, name
 
 
 @pytest.mark.parametrize("per_call, device, n, want", [
@@ -275,6 +322,8 @@ def test_evaluate_writes_each_views_pngs_from_its_group(tmp_path):
 
 
 def test_visualize_suite_and_png_round_trip(tmp_path):
+    """Every key of the suite equals the JAX package's bit for bit; a
+    depth PNG reads back as written; visualize_rays draws an image."""
     rng = np.random.RandomState(0)
     depth = rng.rand(16, 16).astype(np.float32) * 4 + 2
     acc = rng.rand(16, 16).astype(np.float32)
@@ -284,9 +333,13 @@ def test_visualize_suite_and_png_round_trip(tmp_path):
     rendering["normals"] = normals / np.linalg.norm(normals, axis=-1,
                                                     keepdims=True)
     suite = vis.visualize_suite(rendering)
-    assert sorted(suite) == sorted(jvis.visualize_suite(rendering))
+    want = jvis.visualize_suite(rendering)
+    assert sorted(suite) == sorted(want)
     for k, v in suite.items():
         assert v.shape == (16, 16, 3) and v.min() >= 0 and v.max() <= 1, k
+        # depth and disp: matplotlib's turbo table and lookup, exactly.
+        assert v.dtype == want[k].dtype, k
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
     np.testing.assert_array_equal(suite["color"],
                                   np.clip(rendering["rgb"], 0, 1))
     path = str(tmp_path / "x.png")
@@ -295,6 +348,40 @@ def test_visualize_suite_and_png_round_trip(tmp_path):
         images.read_png(path), (suite["depth"] * 255).astype(np.uint8))
     img = vis.visualize_rays(np.sort(rng.rand(4, 9), -1), rng.rand(4, 8))
     assert img.ndim == 3 and img.shape[-1] == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_turbo_colormap_is_matplotlibs(dtype):
+    """The JAX package's colormap (matplotlib's turbo of the clipped
+    value) bit for bit: every table entry's interval and its edges,
+    values out of [0, 1], NaN, and both float widths."""
+    x = np.concatenate([np.linspace(-0.5, 1.5, 4001), np.arange(257) / 256,
+                        np.nextafter(np.arange(1, 257) / 256, 0),
+                        [np.nan, np.inf, -np.inf, 1 - 1e-17]]).astype(dtype)
+    got = vis._turbo_colormap(x)
+    want = jvis._turbo_colormap(x)
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_save_img_f32_reads_back_bit_for_bit(tmp_path):
+    """The port's float TIFF (no PIL) holds the same floats as the JAX
+    package's (Pillow's) through imageio, and the same bytes."""
+    imageio = pytest.importorskip("imageio.v2")
+    rng = np.random.RandomState(3)
+    for shape in ((1, 1), (17, 23), (64, 48)):
+        depth = rng.randn(*shape) * 3
+        depth[0, 0] = np.nan
+        depth.flat[-1] = np.inf
+        got, want = tmp_path / "port" / "d.tif", tmp_path / "jax" / "d.tif"
+        vis.save_img_f32(depth, str(got))
+        jvis.save_img_f32(depth, str(want))
+        a, b = imageio.imread(str(got)), imageio.imread(str(want))
+        assert a.dtype == b.dtype == np.float32 and a.shape == shape
+        assert a.tobytes() == b.tobytes(), shape
+        assert got.read_bytes() == want.read_bytes(), shape
+    with pytest.raises(ValueError, match="one \\[H, W\\] map"):
+        vis.save_img_f32(np.zeros((4, 4, 3)), str(got))
 
 
 def test_render_cli_depth_ranges_match_jax():

@@ -45,14 +45,7 @@ from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train import render as render_lib
 from consistentnerf_tpu_torch.train import step as step_lib
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 
 TINY = ["dataset_type=synthetic", "synthetic_hw=16", "synthetic_views=4"]

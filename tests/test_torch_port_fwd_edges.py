@@ -27,6 +27,7 @@ from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 SIZES = (1, 127, 129, 257)
 DEPTH, WIDTH, SKIPS, MR, MV = 4, 64, (2,), 4, 2
@@ -38,19 +39,13 @@ FWD_TOL = dict(atol=5e-4, rtol=5e-4)
 BF16_TOL = 2e-2
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at
-    once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
-def nerf_params():
+def nerf_params(request):
     """Seeded JAX NeRFMLP params (numpy leaves)."""
+    return once_per_run(request, _nerf_params)
+
+
+def _nerf_params():
     mlp = JaxNeRFMLP(net_depth=DEPTH, net_width=WIDTH, skips=SKIPS)
     params = mlp.init(jax.random.PRNGKey(0), jnp.zeros((2, 3 + 6 * MR)),
                       jnp.zeros((2, 3 + 6 * MV)))
@@ -69,7 +64,11 @@ def nerf(nerf_params):
 
 
 @pytest.fixture(scope="module")
-def mip():
+def mip(request):
+    return once_per_run(request, _mip)
+
+
+def _mip():
     m = JaxMipMLP(net_depth=MIP_DEPTH, net_width=WIDTH,
                   max_deg_point=MIP_FREQS, disable_normals=True)
     z = jnp.zeros((2, 3))

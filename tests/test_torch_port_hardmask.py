@@ -27,20 +27,13 @@ from consistentnerf_tpu.data import loaders as jloaders
 from consistentnerf_tpu_torch import configs
 from consistentnerf_tpu_torch.consistency import reproject
 from consistentnerf_tpu_torch.data import loaders
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 # (layout, H = W, views): 48 puts XLA's reciprocal rounding on the border
 # (reproject._recip), 64 is the Config default.
 SCENES = [("sphere", 48, 6), ("sphere", 64, 8), ("cluster", 48, 6),
           ("cluster", 64, 8)]
 MAX_BOUNDARY_SHARE = 1e-4  # of the train pixels
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _kw(layout, hw, views):

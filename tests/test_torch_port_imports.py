@@ -8,6 +8,7 @@ import os
 import shutil
 import subprocess
 import sys
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,7 +44,8 @@ for need in ("ops.fused_mlp_v2", "cli.render", "interop", "train.render",
              "cli.import_torch_ckpt", "cli.export_torch_ckpt",
              "cli.import_mipnerf_ckpt", "parallel.mesh",
              "parallel.distributed_render", "cli.metrics", "cli.jobs",
-             "data.multicam", "data.jpeg", "data.video", "cli.video"):
+             "data.multicam", "data.jpeg", "data.video", "cli.video",
+             "cli.export_lpips_weights"):
     assert "consistentnerf_tpu_torch." + need in names, need
 """
 
@@ -70,6 +72,41 @@ def test_image_and_video_paths_import_no_imaging_package():
         for banned in ("imageio", "cv2", "PIL", "matplotlib"):
             for form in (f"import {banned}", f"from {banned}"):
                 assert form not in src, (rel, form)
+
+
+def test_vis_paths_import_no_imaging_package():
+    """train/vis.py colours, writes PNGs and float TIFFs with no imaging
+    package: no import at its top or in any function but visualize_rays
+    (a matplotlib plot that nothing calls); nor does data/images.py or
+    the tools chip_smoke.py writes its fixtures with import one at their
+    top."""
+    import ast
+
+    banned = ("imageio", "cv2", "PIL", "matplotlib")
+
+    def imports(nodes):
+        for node in nodes:
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Import):
+                    yield from (a.name for a in sub.names)
+                elif isinstance(sub, ast.ImportFrom):
+                    yield sub.module or ""
+
+    for rel, exempt in (("consistentnerf_tpu_torch/train/vis.py",
+                         {"visualize_rays"}),
+                        ("consistentnerf_tpu_torch/data/images.py", set()),
+                        ("tools/png_kinds.py", {"main"}),
+                        ("tools/lpips_standin.py", set())):
+        tree = ast.parse(open(os.path.join(REPO, rel)).read())
+        called = [n for n in tree.body if not (
+            isinstance(n, ast.FunctionDef) and n.name in exempt)]
+        bad = [m for m in imports(called) if m.split(".")[0] in banned]
+        assert not bad, (rel, bad)
+    names = {n.name for n in ast.parse(open(os.path.join(
+        REPO, "consistentnerf_tpu_torch/train/vis.py")).read()).body
+        if isinstance(n, ast.FunctionDef)}
+    assert {"save_img_f32", "save_img_u8", "visualize_suite",
+            "_turbo_colormap", "visualize_rays"} <= names
 
 
 def test_chip_smoke_imports_no_jax():

@@ -17,6 +17,7 @@ import pytest
 
 from consistentnerf_tpu.data import llff as jllff
 from consistentnerf_tpu_torch.data import images, jpeg, llff
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import jpeg_fixtures  # noqa: E402

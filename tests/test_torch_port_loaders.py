@@ -27,6 +27,7 @@ from consistentnerf_tpu.data import poses as jposes
 from consistentnerf_tpu_torch import configs
 from consistentnerf_tpu_torch.data import blender, dtu, images, llff, loaders
 from consistentnerf_tpu_torch.data import pairs, pfm, poses
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_legacy_loaders import (_write_deepvoxels_fixture,  # noqa: E402
@@ -152,11 +153,14 @@ def test_png_written_by_imageio_reads_the_same(tmp_path):
 
 
 @pytest.mark.parametrize("what, header", [
-    ("bit depth 16", (4, 3, 16, 2, 0, 0, 0)),
+    ("bit depth 16", (4, 3, 16, 3, 0, 0, 0)),
     ("colour type 3", (4, 3, 8, 3, 0, 0, 0)),
-    ("interlaced", (4, 3, 8, 2, 0, 0, 1)),
+    ("interlaced", (4, 3, 8, 2, 0, 0, 2)),
 ])
 def test_png_reader_names_what_it_does_not_read(what, header):
+    """What no PNG may be: a palette at 16 bits, a palette image without
+    a PLTE chunk, an interlace method past Adam7 (every kind the standard
+    allows is read: tests/test_torch_port_png_kinds.py)."""
     import struct
     import zlib
 

@@ -40,6 +40,7 @@ from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop, losses, lpips
 from consistentnerf_tpu_torch.train import step as step_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=16,
            N_importance=8, multires=4, multires_views=2, N_rand=64,
@@ -51,14 +52,6 @@ GRAD_REL = 1e-4
 STEP_GRAD_REL = 5e-4  # the whole step against JAX (note D)
 STATS = ("loss", "patch_lpips", "patch_ssim", "mono_depth_loss", "img_loss",
          "depth_loss", "img_loss0", "depth_loss0")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -101,9 +94,13 @@ def _keep_grads():
 
 
 @pytest.fixture(scope="module")
-def jax_run(lpips_npz):
+def jax_run(request, lpips_npz):
     """Batch, initial params and the JAX eager step's stats and grads,
     with the LPIPS term (key 1.0) and without it (key 0.0: no params)."""
+    return once_per_run(request, lambda: _jax_run(lpips_npz))
+
+
+def _jax_run(lpips_npz):
     path, jparams = lpips_npz
     jcfg = JaxConfig(use_tensorboard=False, lpips_weights_path=path, **CFG)
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()

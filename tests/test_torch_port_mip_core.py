@@ -18,6 +18,7 @@ from consistentnerf_tpu.core import sampling as jsamp
 from consistentnerf_tpu.core import spacing as jspace
 from consistentnerf_tpu_torch.core import encoding, mathx, mip, rendering
 from consistentnerf_tpu_torch.core import sampling, spacing
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 EPS = float(np.finfo(np.float32).eps)

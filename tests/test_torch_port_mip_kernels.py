@@ -27,23 +27,13 @@ from consistentnerf_tpu_torch import interop
 from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import fused_onepass as op
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CONFIGS = {"d2": (2, 64, 4), "d8": (8, 64, 16)}  # depth, width, freqs
 FWD_TOL = dict(atol=5e-4, rtol=5e-4)
 BF16_TOL = 2e-2  # max |port - JAX| / mean |JAX| at bf16
 DW_REL = 1e-4  # ||dW(port) - dW(JAX)|| / ||dW(JAX)|| per tensor, fp32
 ROWS_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mlp(name):
@@ -88,7 +78,10 @@ def _assert_rel(got, want, tol):
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def fwd_case(request):
-    name = request.param
+    return once_per_run(request, lambda: _fwd_case(request.param))
+
+
+def _fwd_case(name):
     depth, _, nf = CONFIGS[name]
     jflat, flat = _mlp(name)
     n = 200  # not a multiple of the JAX tile
@@ -133,7 +126,11 @@ def test_packed_fwd_walk_matches_jax_fwd_kernel(fwd_case, dtype):
 
 
 @pytest.fixture(scope="module")
-def bwd_case():
+def bwd_case(request):
+    return once_per_run(request, _bwd_case)
+
+
+def _bwd_case():
     depth, _, nf = CONFIGS["d8"]
     jflat, flat = _mlp("d8")
     n = 160
@@ -208,11 +205,15 @@ def _level_inputs(n_rays, seg, seed):
 
 @pytest.fixture(scope="module", params=["noise", "no_noise"])
 def level_case(request):
+    return once_per_run(request, lambda: _level_case(request.param))
+
+
+def _level_case(noise_case):
     depth, _, nf = CONFIGS["d2"]
     jflat, flat = _mlp("d2")
     n_rays, seg = 12, 16
     (m, c, v), rows = _level_inputs(n_rays, seg, 5)
-    noise = rows["noise"] if request.param == "noise" else None
+    noise = rows["noise"] if noise_case == "noise" else None
 
     def rep(x):
         x = np.asarray(x, np.float32)

@@ -26,6 +26,7 @@ from consistentnerf_tpu_torch.ops import fused_mip
 from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
 from consistentnerf_tpu_torch.train import evaluation
 from consistentnerf_tpu_torch.train import render as render_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="mipnerf", netdepth=2, netwidth=32, mip_num_samples=8,
            max_deg_point=4, white_bkgd=True, disable_normals=True,
@@ -35,19 +36,12 @@ EPS = float(np.finfo(np.float32).eps)
 KEYS = ("rgb", "distance_mean", "acc", "distance_median")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
-def setup():
+def setup(request):
+    return once_per_run(request, _setup)
+
+
+def _setup():
     rs = np.random.RandomState(0)
     n = 40
     d = rs.randn(n, 3).astype(np.float32)

@@ -12,6 +12,8 @@ JAX one at randomized=False. fp32; depth 2 and 8 at width 32-64, 4 IPE
 frequencies (16 for the kernel rows).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from consistentnerf_tpu.train import loop as jloop
 from consistentnerf_tpu.train import render as jrender
 from consistentnerf_tpu_torch import configs, interop
 from consistentnerf_tpu_torch.core.rays import Rays
+from consistentnerf_tpu_torch.data import images, synthetic
 from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.models.mlp import MipMLP
 from consistentnerf_tpu_torch.ops import fused_mip as fmip
@@ -42,6 +45,7 @@ from consistentnerf_tpu_torch.ops import pdf_merge
 from consistentnerf_tpu_torch.ops.fused_train import fused_mip_forward
 from consistentnerf_tpu_torch.train import evaluation, loop, vis
 from consistentnerf_tpu_torch.train import render as render_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="mipnerf", netdepth=2, netwidth=32, mip_num_samples=8,
            max_deg_point=4, white_bkgd=True, disable_normals=False,
@@ -53,17 +57,6 @@ ROWS_REL = 1e-5  # max |port - JAX| / max |JAX| per row, fp32
 # order differs (1e-7 here); a wrong rounding point moves a row by ~1e-2.
 BF16_ROWS_REL = 1e-4
 KEYS = ("rgb", "distance_mean", "acc", "distance_median")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _samples(n, seed):
@@ -148,7 +141,11 @@ def test_plain_normals_rows_match_jax_kernel(depth, nf):
 
 
 @pytest.fixture(scope="module")
-def mip_setup():
+def mip_setup(request):
+    return once_per_run(request, _mip_setup)
+
+
+def _mip_setup():
     rs = np.random.RandomState(0)
     n = 40
     d = rs.randn(n, 3).astype(np.float32)
@@ -221,6 +218,31 @@ def test_mip_render_with_normals_matches_jax(mip_setup, fused):
         np.asarray(jvis.visualize_normals(np.asarray(want["normals"]),
                                           np.asarray(want["acc"]))),
         atol=1e-5)
+
+
+def test_evaluate_writes_the_jax_pngs_with_normals(mip_setup, tmp_path):
+    """evaluate() of the mip model with normals writes the PNGs the JAX
+    package's evaluate() writes: color, depth (matplotlib's turbo), acc
+    and normals decode to the same bytes."""
+    jcfg, jmodel, params, _, cfg, model, _ = mip_setup
+    kw = dict(views=np.array([0, 1]), step=1)
+    jeval.evaluate(jmodel, jcfg.replace(eval_disable_lpips=True), params,
+                   jsynth.make_scene(n_views=2, H=12, W=12).to_scene_data(),
+                   out_dir=str(tmp_path / "jax"), **kw)
+    evaluation.evaluate(
+        model.eval(), cfg.replace(eval_disable_lpips=True),
+        synthetic.make_scene(n_views=2, H=12, W=12).to_scene_data(),
+        out_dir=str(tmp_path / "port"), **kw)
+    names = sorted(f for f in os.listdir(tmp_path / "jax")
+                   if f.endswith(".png"))
+    assert names == sorted(f for f in os.listdir(tmp_path / "port")
+                           if f.endswith(".png"))
+    assert [n[:-8] for n in names] == [
+        k for k in ("acc", "color", "depth", "normals") for _ in range(2)]
+    for name in names:
+        np.testing.assert_array_equal(
+            images.read_png(str(tmp_path / "port" / name)),
+            images.read_png(str(tmp_path / "jax" / name)), err_msg=name)
 
 
 def _keep_grads():

@@ -43,6 +43,7 @@ from consistentnerf_tpu_torch.train import render as render_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
 from consistentnerf_tpu_torch.train.evaluation import camera_rays_for_view
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_mip_model import _model_draws  # noqa: E402
@@ -59,14 +60,6 @@ STEP_CFG = dict(CFG, N_rand=64, randomized=False, use_fused_train=False,
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 KEYS = ("rgb", "distance_mean", "acc", "distance_median")
 DENSE = ["Dense_0", "Dense_1", "Dense_2", "Dense_3"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rays(n=40, seed=0):
@@ -147,9 +140,13 @@ def test_forward_per_level_matches_jax(setup, randomized):
 
 
 @pytest.fixture(scope="module")
-def jax_step():
+def jax_step(request):
     """The JAX eager mip step without view directions: batch, initial
     params, stats and grads."""
+    return once_per_run(request, _jax_step)
+
+
+def _jax_step():
     jcfg = JaxConfig(use_tensorboard=False, **STEP_CFG)
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     model = jax_make_model(jcfg)

@@ -48,6 +48,7 @@ from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop, state as state_lib
 from consistentnerf_tpu_torch.train import step as step_lib
 from consistentnerf_tpu_torch.train.checkpoints import checkpoint_steps
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="mipnerf", netdepth=2, netwidth=32, mip_num_samples=8,
            max_deg_point=4, disable_normals=True, N_rand=64,
@@ -58,17 +59,6 @@ CFG = dict(backbone="mipnerf", netdepth=2, netwidth=32, mip_num_samples=8,
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 STATS = ("loss", "losses", "depth_mses", "mono_depth_mses", "psnr")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _keep_grads():
@@ -88,7 +78,11 @@ def _keep_grads():
 @pytest.fixture(scope="module", params=[64, 0], ids=["n_rand64", "n_rand0"])
 def jax_run(request):
     """Batch, initial params, and the two JAX steps' stats and grads."""
-    kw = dict(CFG, N_rand=request.param)
+    return once_per_run(request, lambda: _jax_run(request.param))
+
+
+def _jax_run(n_rand):
+    kw = dict(CFG, N_rand=n_rand)
     jcfg = JaxConfig(use_tensorboard=False, fused_tile=64, **kw)
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     model = jax_make_model(jcfg)
@@ -338,9 +332,13 @@ def test_unported_mip_options_raise(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def jax_normals_run():
+def jax_normals_run(request):
     """The JAX eager mip step with normals (disable_normals=false) and
     compute_normal_metrics: batch, initial params, stats and grads."""
+    return once_per_run(request, _jax_normals_run)
+
+
+def _jax_normals_run():
     kw = dict(CFG, disable_normals=False, compute_normal_metrics=True,
               use_fused_train=False)
     jcfg = JaxConfig(use_tensorboard=False, **kw)

@@ -37,6 +37,7 @@ from consistentnerf_tpu_torch.data import random_poses as rp
 from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.data.pipeline import MipBatcher
 from consistentnerf_tpu_torch.train import losses, loop
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="mipnerf", netdepth=2, netwidth=32, mip_num_samples=8,
            max_deg_point=4, disable_normals=True, N_rand=64,
@@ -54,17 +55,6 @@ STATS = ("loss", "losses", "depth_mses", "mono_depth_mses",
          "patch_tv_losses", "psnr")
 RAY_FIELDS = ("origins", "directions", "viewdirs", "radii", "lossmult",
               "near", "far")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("losstype", ["l2", "l1"])
@@ -220,6 +210,10 @@ def _keep_grads():
 @pytest.fixture(scope="module", params=["eager", "onepass"])
 def jax_step(request):
     """Batch, initial params, and one JAX step's stats and grads."""
+    return once_per_run(request, lambda: _jax_step(request.param))
+
+
+def _jax_step(kind):
     _, jcfg = _cfgs()
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     model = jax_make_model(jcfg)
@@ -230,12 +224,12 @@ def jax_step(request):
     tx = _keep_grads()
     state = state.replace(opt_state=tx.init(state.params), step=7)
     fn = (jstep.build_mip_train_step(model, jcfg, tx=tx, donate=False)
-          if request.param == "eager" else
+          if kind == "eager" else
           jop.build_onepass_mip_train_step(jcfg, tx=tx, donate=False,
                                            tile=256))
     s, st = fn(state, batch, jax.random.PRNGKey(0))
     grads = interop.mip_params_from_jax(jax.device_get(s.opt_state["g"]))
-    return request.param, batch, jax.device_get(state.params), (
+    return kind, batch, jax.device_get(state.params), (
         {k: np.asarray(v) for k, v in st.items()}, grads)
 
 

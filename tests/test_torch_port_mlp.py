@@ -21,6 +21,7 @@ from consistentnerf_tpu_torch.models.mlp import NeRFMLP
 from consistentnerf_tpu_torch.models.nerf import VanillaNeRF
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 DEPTH, WIDTH, SKIPS, MR, MV = 8, 32, (4,), 10, 4
 

@@ -47,6 +47,7 @@ from consistentnerf_tpu_torch.core import rays as rays_core
 from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.models import mvs
 from consistentnerf_tpu_torch.train import mvs as mvs_train
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 GEOM_TOL = 1e-5
 PIX_TOL = 1e-4
@@ -61,14 +62,6 @@ EDGE = 1e-4  # a threshold's edge: |value - threshold| below this
 MAX_FLIP_SHARE = 1e-2  # of the pixels, at the edges only
 SIZES = [(48, 48), (47, 63)]
 MVS = dict(mvs_num_depths=16, mvs_base_ch=4, mvs_n_src=2, mvs_lr=3e-3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):
@@ -116,9 +109,13 @@ def _param_tree(net, args, near, far, seed=0):
 
 
 @pytest.fixture(scope="module")
-def nets():
+def nets(request):
     """Per size: both scenes, the view triple, the JAX net and params,
     and the port net carrying them."""
+    return once_per_run(request, _nets)
+
+
+def _nets():
     out = {}
     for h, w in SIZES:
         js, ps = _scenes(h, w)

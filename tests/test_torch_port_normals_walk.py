@@ -30,6 +30,7 @@ from consistentnerf_tpu_torch import interop
 from consistentnerf_tpu_torch.core import encoding
 from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 N, WIDTH, NF = 200, 64, 16
 # Each row's max|walk - reference| / max|reference|. The plain 6n rounds
@@ -39,14 +40,6 @@ N, WIDTH, NF = 200, 64, 16
 # bf16 rounding of g would move a row by ~1e-5; a wrong rounding point (g
 # kept fp32 before the products) moves it by 3.3e-3 to 4.1e-3.
 ROWS_REL = {"float32": 1e-5, "bfloat16": 1e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _safe_cos(y):

@@ -44,6 +44,7 @@ from consistentnerf_tpu_torch.ops import fused_render
 from consistentnerf_tpu_torch.train import evaluation, loop
 from consistentnerf_tpu_torch.train import render as render_lib
 from consistentnerf_tpu_torch.train import step as step_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 DEPTH, WIDTH, MR, MV = 4, 64, 4, 2
 ROWS_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -59,17 +60,6 @@ LOSS_RTOL = 1e-4
 GRAD_REL = 1e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rays(n, seed):
     rs = np.random.RandomState(seed)
     d = rs.randn(n, 3).astype(np.float32)
@@ -83,9 +73,13 @@ def _rays(n, seed):
 
 
 @pytest.fixture(scope="module")
-def models():
+def models(request):
     """Seeded JAX VanillaNeRF params at depth 4, width 64, and the port's
     model carrying the same weights."""
+    return once_per_run(request, _models)
+
+
+def _models():
     fields = _rays(8, 0)
     jrays = JaxRays(**{k: jnp.asarray(v) for k, v in fields.items()})
     kw = dict(num_samples=8, num_importance=16, multires=MR,

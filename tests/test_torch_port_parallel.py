@@ -30,6 +30,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
@@ -269,30 +270,18 @@ def _jax_multihost(workdir):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def ranks(request, tmp_path_factory):
     """JAX's reference and both ranks' results of every case, made once a
-    session: under xdist the first worker to arrive computes them in a
-    directory the workers share (a file lock orders them), and the
-    others read them."""
-    import fcntl
+    run (`once_per_run`)."""
+    return once_per_run(request,
+                        lambda: _ranks(tmp_path_factory.mktemp("ranks")))
 
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        workdir = tmp_path_factory.getbasetemp().parent / "torch_port_parallel"
-        workdir.mkdir(exist_ok=True)
-    else:
-        workdir = tmp_path_factory.mktemp("ranks")
-    with open(workdir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not (workdir / "done").exists():
-                _jax_multihost(str(workdir))
-                coord = f"127.0.0.1:{_free_port()}"
-                _spawn([[sys.executable, os.path.abspath(__file__), coord,
-                         str(r), str(workdir)] for r in range(2)],
-                       str(workdir))
-                (workdir / "done").write_text("")
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+
+def _ranks(workdir):
+    _jax_multihost(str(workdir))
+    coord = f"127.0.0.1:{_free_port()}"
+    _spawn([[sys.executable, os.path.abspath(__file__), coord, str(r),
+             str(workdir)] for r in range(2)], str(workdir))
     return ([dict(np.load(workdir / f"rank{r}.npz")) for r in range(2)],
             dict(np.load(workdir / "jax.npz")))
 

@@ -28,6 +28,7 @@ from consistentnerf_tpu.ops import pdf_merge as jpdf
 from consistentnerf_tpu_torch.core import sampling
 from consistentnerf_tpu_torch.ops import pdf_merge
 from tests.test_torch_port_cuda import inversion_problem
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 EPS = float(np.finfo(np.float32).eps)

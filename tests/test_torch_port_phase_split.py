@@ -15,6 +15,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))

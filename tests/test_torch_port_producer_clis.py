@@ -21,7 +21,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from consistentnerf_tpu_torch import configs
 from consistentnerf_tpu_torch.cli import export_depth_priors, make_masks
@@ -35,6 +34,7 @@ from consistentnerf_tpu_torch.models.factory import make_model
 from consistentnerf_tpu_torch.train import render as render_lib
 from consistentnerf_tpu_torch.train.checkpoints import CheckpointManager
 from consistentnerf_tpu_torch.train.evaluation import camera_rays_for_view
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 JPEG_MAD_VS_LIBJPEG = 1.0
 MAX_BOUNDARY_SHARE = 1e-4
@@ -44,14 +44,6 @@ TINY = ["dataset_type=synthetic", "synthetic_hw=24", "synthetic_views=6",
         "patch_size=8", "white_bkgd=true", "hardmask=true",
         "with_depth_loss=true", "i_print=1000", "checkpoint_every=4",
         "mvs_num_depths=8", "mvs_base_ch=4", "render_chunk_size=512"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _args(tmp_path, *extra, expname="tiny"):

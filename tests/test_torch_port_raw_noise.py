@@ -34,6 +34,7 @@ from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train import step as step_lib
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=16,
            N_importance=8, multires=4, multires_views=2, N_rand=64,
@@ -46,14 +47,6 @@ STEP_GRAD_REL = 5e-4  # the whole perturbed step against JAX (note D)
 STATS = ("loss", "img_loss", "depth_loss", "img_loss0", "depth_loss0",
          "mono_depth_loss", "patch_ssim", "psnr")
 KEY = jax.random.PRNGKey(7)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _keep_grads():
@@ -83,8 +76,12 @@ def jax_draws(n):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(request):
     """A JAX batch and the JAX model's initial params."""
+    return once_per_run(request, _setup)
+
+
+def _setup():
     jcfg = JaxConfig(use_tensorboard=False, **CFG)
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     batch = JaxBatcher(scene, jcfg).next_batch()
@@ -93,9 +90,13 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def jax_run(setup):
+def jax_run(request, setup):
     """The JAX eager step's stats and grads at perturb 1 with the noise
     (key 1.0) and without it (key 0.0), from `setup`."""
+    return once_per_run(request, lambda: _jax_run(setup))
+
+
+def _jax_run(setup):
     batch, params = setup
     tx = _keep_grads()
     out = {}

@@ -38,6 +38,7 @@ from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import fused_render
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 DEPTH, WIDTH, SKIPS, MR, MV = 4, 32, (2,), 4, 2
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -45,17 +46,6 @@ DW_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = 2e-2  # max |port - JAX| / mean |JAX|: #1's and #2's bf16 bound
 MIP_FWD_TOL = dict(atol=5e-4, rtol=5e-4)  # the mip kernel tests' bounds
 MIP_DW_REL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_layout(port_grads):
@@ -74,9 +64,13 @@ def _assert_grads(got, want, **tol):
 
 
 @pytest.fixture(scope="module")
-def nerf_case():
+def nerf_case(request):
     """Seeded NeRFMLP weights in both layouts, [N, 3] streams and a
     cotangent, and the JAX row-major kernels' outputs and grads."""
+    return once_per_run(request, _nerf_case)
+
+
+def _nerf_case():
     m = JaxNeRFMLP(net_depth=DEPTH, net_width=WIDTH, skips=SKIPS)
     pe, ve = 3 * (1 + 2 * MR), 3 * (1 + 2 * MV)
     params = m.init(jax.random.PRNGKey(0), jnp.zeros((2, pe)),
@@ -171,7 +165,11 @@ def test_row_ops_autograd_match_jax(nerf_case, hybrid):
 
 
 @pytest.fixture(scope="module")
-def mip_case():
+def mip_case(request):
+    return once_per_run(request, _mip_case)
+
+
+def _mip_case():
     depth, width, nf = 8, 64, 16
     m = JaxMipMLP(net_depth=depth, net_width=width, max_deg_point=nf,
                   disable_normals=True)
@@ -242,10 +240,14 @@ def test_fused_mip_mlp_train_matches_jax(mip_case):
 
 
 @pytest.fixture(scope="module")
-def render_case():
+def render_case(request):
     """Seeded JAX VanillaNeRF params, the port model carrying the same
     weights, and rays through the [near, far] band (the render tests'
     setup: depth 8, width 32, 8 + 8 samples, multires 4 / 2)."""
+    return once_per_run(request, _render_case)
+
+
+def _render_case():
     rs = np.random.RandomState(3)
     n = 40
     d = rs.randn(n, 3).astype(np.float32)

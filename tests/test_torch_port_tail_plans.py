@@ -32,6 +32,7 @@ from consistentnerf_tpu_torch.ops import fused_mip as fmip
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import fused_onepass as op
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parents[1] / "consistentnerf_tpu_torch" / \
     "csrc"

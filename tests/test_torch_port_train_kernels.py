@@ -25,6 +25,7 @@ from consistentnerf_tpu_torch.models.mlp import NeRFMLP
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 from consistentnerf_tpu_torch.ops import fused_onepass as op
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 DEPTH, WIDTH, SKIPS, MR, MV = 4, 32, (2,), 4, 2
 N_RAYS, SEG = 12, 16
@@ -32,20 +33,13 @@ N_RAYS, SEG = 12, 16
 DW_TOL = dict(atol=2e-4, rtol=2e-3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
-def mlp():
+def mlp(request):
     """Seeded JAX NeRFMLP params (JAX flat list) and the port's flat list."""
+    return once_per_run(request, _mlp)
+
+
+def _mlp():
     m = JaxNeRFMLP(net_depth=DEPTH, net_width=WIDTH, skips=SKIPS)
     pe, ve = 3 * (1 + 2 * MR), 3 * (1 + 2 * MV)
     params = m.init(jax.random.PRNGKey(0), jnp.zeros((2, pe)),
@@ -75,7 +69,11 @@ def _assert_grads(got, want, **tol):
 
 
 @pytest.fixture(scope="module")
-def bwd_case(mlp):
+def bwd_case(request, mlp):
+    return once_per_run(request, lambda: _bwd_case(mlp))
+
+
+def _bwd_case(mlp):
     jflat, flat = mlp
     rs = np.random.RandomState(4)
     n = 300  # not a multiple of the JAX tile
@@ -165,9 +163,13 @@ def test_bwd_wrapper_on_cpu_launches_nothing(bwd_case):
 
 
 @pytest.fixture(scope="module")
-def level_case(mlp):
+def level_case(request, mlp):
     """The inputs of tests/test_fused_onepass.py's level oracle, made with
     numpy, and the JAX kernel's outputs on them."""
+    return once_per_run(request, lambda: _level_case(mlp))
+
+
+def _level_case(mlp):
     jflat, flat = mlp
     rs = np.random.RandomState(1)
     o = rs.randn(N_RAYS, 3).astype(np.float32)

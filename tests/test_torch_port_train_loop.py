@@ -31,6 +31,7 @@ from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.data.pipeline import (Prefetcher,
                                                     VanillaBatcher)
 from consistentnerf_tpu_torch.train import bootstrap, loop
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 TINY = dict(dataset_type="synthetic", netdepth=2, netwidth=32, N_samples=8,
             N_importance=8, multires=4, multires_views=2, N_rand=32,
@@ -38,14 +39,6 @@ TINY = dict(dataset_type="synthetic", netdepth=2, netwidth=32, N_samples=8,
             with_depth_loss=True, use_fused_train=True,
             use_onepass_train=True, use_tensorboard=False, gc_every=0,
             i_print=1, checkpoint_every=100)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

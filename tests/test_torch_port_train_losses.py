@@ -25,20 +25,10 @@ from consistentnerf_tpu_torch.core import mathx
 from consistentnerf_tpu_torch.data import pipeline
 from consistentnerf_tpu_torch.data import synthetic
 from consistentnerf_tpu_torch.train import image_metrics, losses, state
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-6, rtol=1e-6)  # fp32 on both sides, same formulas
 N, NP, PS = 1280, 4, 16  # rays, patches, patch size
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

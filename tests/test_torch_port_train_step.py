@@ -34,6 +34,7 @@ from consistentnerf_tpu_torch.data.pipeline import to_device
 from consistentnerf_tpu_torch.ops import fused_onepass as op
 from consistentnerf_tpu_torch.train import loop, step as step_lib
 from consistentnerf_tpu_torch.train.checkpoints import checkpoint_steps
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=16,
            N_importance=8, multires=4, multires_views=2, N_rand=192,
@@ -48,20 +49,13 @@ STATS = ("loss", "img_loss", "depth_loss", "img_loss0", "depth_loss0",
          "mono_depth_loss", "patch_ssim", "psnr")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(request):
     """Batch, initial params and the two JAX steps' results."""
+    return once_per_run(request, _jax_run)
+
+
+def _jax_run():
     jcfg = JaxConfig(use_tensorboard=False, fused_tile=64, **CFG)
     scene = jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
     model = jax_make_model(jcfg)

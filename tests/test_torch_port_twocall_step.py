@@ -40,6 +40,7 @@ from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_train
 from consistentnerf_tpu_torch.train import loop
 from consistentnerf_tpu_torch.train.checkpoints import checkpoint_steps
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 CFG = dict(backbone="vanilla", netdepth=2, netwidth=32, N_samples=16,
            N_importance=8, multires=4, multires_views=2, N_rand=192,
@@ -71,17 +72,6 @@ MIP_LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
 MIP_PARAM_TOL = dict(atol=5e-4, rtol=5e-3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _scene():
     return jsynth.make_scene(n_views=6, H=48, W=48).to_scene_data()
 
@@ -90,7 +80,11 @@ def _scene():
                 ids=[f"{m}-{k}" for m in MASKS for k in KINDS])
 def jax_vanilla(request):
     """Config, batch, initial params and the JAX two-call step's result."""
-    mask, kind = request.param
+    return once_per_run(request, lambda: _jax_vanilla(request.param))
+
+
+def _jax_vanilla(mask_kind):
+    mask, kind = mask_kind
     kw = dict(CFG, fused_kernel=kind, **MASKS[mask])
     jcfg = JaxConfig(use_tensorboard=False, fused_tile=64, **kw)
     model = jax_make_model(jcfg)
@@ -176,9 +170,13 @@ def port_mip_batch(batch):
 
 
 @pytest.fixture(scope="module")
-def jax_mip():
+def jax_mip(request):
     """Batch (with random-pose rays), initial params and the JAX two-call
     mip step's result."""
+    return once_per_run(request, _jax_mip)
+
+
+def _jax_mip():
     jcfg = JaxConfig(use_tensorboard=False, fused_tile=64, **MIP_CFG)
     scene = _scene()
     model = jax_make_model(jcfg)

@@ -32,6 +32,7 @@ from consistentnerf_tpu_torch import interop
 from consistentnerf_tpu_torch.ops import fused_mlp as fm
 from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+from torch_port_shared import _one_torch_thread, once_per_run  # noqa: F401
 
 WIDTH = 32
 # id -> (depth, skips, multires, multires_views)
@@ -41,17 +42,6 @@ FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 DW_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = 2e-2
 OUTPUT_CH = 5  # the reference's output_ch with fine sampling
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once,
-    and torch's thread pool in each of them would oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_layout(port_grads):
@@ -92,8 +82,12 @@ def _streams(n=300, seed=4):
 @pytest.fixture(scope="module", params=list(CASES))
 def v1_case(request):
     """Weights, streams, a cotangent, and the JAX v1 kernels' outputs and
-    grads (fp32 and bf16)."""
-    depth, skips, mr, mv = CASES[request.param]
+    grads (fp32 and bf16), once a run."""
+    return once_per_run(request, lambda: _v1_case(request.param))
+
+
+def _v1_case(case):
+    depth, skips, mr, mv = CASES[case]
     params, flat = _params(depth, skips, mr, mv, True)
     jflat = [jnp.asarray(w) for w in jfm.flatten_params(params, True, depth)]
     jflat = tuple(w[None, :] if w.ndim == 1 else w for w in jflat)

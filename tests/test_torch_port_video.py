@@ -21,6 +21,7 @@ import pytest
 from consistentnerf_tpu.cli import video as jvideo
 from consistentnerf_tpu_torch.cli import video as pvideo
 from consistentnerf_tpu_torch.data import images, video
+from torch_port_shared import _one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
