@@ -23,10 +23,18 @@ with the launch counts set to 0 just before it and read just after:
   seeded weights), then the render CLI on two test views;
 * in the train and mip train phases, the weight-grad kernels #2 and #7
   (in bf16 `csrc/level_train.cuh`'s walk in mode 2, its dW GEMM and
-  reduction; their plans are printed after the build), both at
-  ragged sizes (1, 63, 65, 769, 3000 and 196,607 points) against their
-  plain versions in bf16 and fp32 and bit for bit against a second bf16
-  launch, beside the main-path gates of the train phases;
+  reduction, and #2 in fp32 too, on the walk's fp32 path: the backward
+  and the dW as six bf16 products a fp32 product; their plans are
+  printed after the build, and the bf16
+  and fp32 plans of #2 and #3 at the vanilla presets' step shapes must
+  pick the walk), both at ragged sizes (1, 63, 65, 769, 3000 and 196,607
+  points) against their plain versions in bf16 and fp32 and bit for bit
+  against a second bf16 launch (#2 and #11 also in fp32), beside the
+  main-path gates of the train phases: #2 and #3 at the flagship's
+  shapes in bf16 and fp32, each with a repeat bit for bit, #3 in fp32 at
+  1, 3 and 395 rays of both levels, and the fp32 times a launch of both
+  beside their two bounds (the CUDA cores, six bf16 products on the
+  tensor cores);
 * train: the train CLI on the flagship config of `bench.py:66-84` (5120
   rays a step: 4096 random + 4x16x16 patch rays, hard mask, depth loss,
   MiDaS and SSIM patch terms, bf16, perturb 1, the one-pass kernel step)
@@ -99,7 +107,9 @@ with the launch counts set to 0 just before it and read just after:
   back equal); the train CLI from the `--scene fern_3view` preset (fp32,
   the one-pass step), from a reference `.gin` like RegNeRF's
   `regnerf3/dtu/scan114_3.gin` (the one-pass mip step with the TV norm)
-  and from a reference fern `.txt`; `ss_loss` on fern through the train
+  and from a reference fern `.txt`; the fern_3view preset's fp32 step as
+  the CLI builds it, timed, and guarded against the eager step at 1024
+  random rays; `ss_loss` on fern through the train
   CLI on the one-pass step (#3 four a step: the main and the reference
   rays, both levels) and the v2 two-call step, with `use_pdf_kernel` off
   and on; the ss_loss steps guarded against the eager step at both
@@ -167,7 +177,8 @@ with the launch counts set to 0 just before it and read just after:
 Each kernel is held against its plain PyTorch version at the shapes its
 path gives it, in bf16 and fp32 (the one-pass levels #3 and #5 and the
 weight grads #2, #7, #11, #14 and #16, whose dW sums take a fixed order,
-and #1 also against a second bf16 launch, bit for bit); the plans of the
+and #1 also against a second bf16 launch, bit for bit; #2, #3 and #11
+against a second fp32 launch too); the plans of the
 weight grads on the level walk (#2, #7, #11, #14, #16) are printed after
 the build, and the bf16 plans of #11 and #14 at the two-call step's
 levels and of #16 at the mip level must pick the walk; the kernel train
@@ -197,6 +208,9 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core bf16
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+# fp32 products as six bf16 products on the tensor cores (the fp32 level
+# walk of #2, #3 and #11): 989 / 6 TFLOP/s of fp32 work.
+PEAK_SIX_FLOPS = PEAK_BF16_FLOPS / 6
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CHUNK = 8192  # render_chunk_size of the bench config
 BF16_TOL = 2e-2  # max|kernel - plain| / mean|plain|: sum-order flips of bf16
@@ -426,10 +440,11 @@ RAGGED_BWD_N = (1, 63, 65, 769, 3000, 196_607)
 
 
 def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False,
-                     twin=None):
+                     twin=None, fp32_walk=False):
     """#2, #7, #11, #14 or #16 at RAGGED_BWD_N against its plain version,
     in bf16 and fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16
-    launch bit for bit. `packed(dtype)` packs the weights; `streams(n,
+    launch bit for bit (`fp32_walk`, for #2 and #11: in fp32 too, and the
+    twin's fp32 bits). `packed(dtype)` packs the weights; `streams(n,
     gen)` makes the seeded inputs; kfn / plain take (w, *streams, g,
     dtype); g is [4, N], or [N, 4] with `row`. `twin`: (its kernel's name,
     a function of kfn's arguments that runs it on the same points), whose
@@ -451,14 +466,17 @@ def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False,
                 fail(f"{name} N={n} {dtype}: non-finite dW")
             gate(rel < TRAIN_DW_TOL[dtype], f"{name} N={n} {dtype} disagrees "
                  f"with its plain version ({rel:.3e})")
-            if dtype == "bfloat16":
-                repeat_gate(f"{name} N={n}", got, kfn(w, *xs, g, dtype))
-            if dtype == "bfloat16" and twin:
+            short = "bf16" if dtype == "bfloat16" else "fp32"
+            if dtype == "bfloat16" or fp32_walk:
+                repeat_gate(f"{name} N={n}", got, kfn(w, *xs, g, dtype),
+                            short)
+            if (dtype == "bfloat16" or fp32_walk) and twin:
                 same = all(torch.equal(a, b) for a, b in zip(
                     got, twin[1](w, *xs, g, dtype)))
-                log(f"{name} N={n} bf16: bit-identical to {twin[0]} on the "
-                    f"same points {same}")
-                gate(same, f"{name} N={n} bf16: other bits than {twin[0]}")
+                log(f"{name} N={n} {short}: bit-identical to {twin[0]} on "
+                    f"the same points {same}")
+                gate(same, f"{name} N={n} {short}: other bits than "
+                     f"{twin[0]}")
         del xs, g
         torch.cuda.empty_cache()
 
@@ -486,14 +504,17 @@ def rel_err(got, want):
     return diff.max().item() / want.abs().mean().item(), diff.max().item()
 
 
-def level_plan_text(out):
-    """The nine slots of a level plan (#2, #3, #5, #7), in words."""
+def level_plan_text(out, fp32=False):
+    """The nine slots of a level plan (#2, #3, #5, #7), in words; `fp32`:
+    a plan of the fp32 instance (the fp32 walk's dW GEMM takes 32-point
+    slabs of three bf16 planes)."""
     ws_bytes = out[1] * (2 if out[5] else 4)
     text = (f"{out[3]} bytes of shared memory, {out[0]} blocks, chunks of "
             f"{out[4]} points, workspace {ws_bytes / 2 ** 30:.2f} GiB")
     if out[8]:
-        text += (f", the level walk and a dW GEMM of {out[5]} splits of "
-                 f"{out[7]} 64-point slabs")
+        text += (f", the {'fp32 ' if fp32 else ''}level walk and a dW GEMM "
+                 f"of {out[5]} splits of {out[7]} {32 if fp32 else 64}-point "
+                 "slabs")
     return text
 
 
@@ -534,7 +555,7 @@ def ptxas_report(_build, name):
             log(f"  {name} [{entry}]: {line.strip()}")
 
 
-def repeat_gate(label, first, again):
+def repeat_gate(label, first, again, dtype="bf16"):
     """A second launch of a kernel whose sums take a fixed order (#3, #5:
     rows and dW; #2, #7: dW) gives the first one's bits: every tensor of
     `first` against `again` (tensors, or nested sequences of them)."""
@@ -542,8 +563,8 @@ def repeat_gate(label, first, again):
         return [x] if isinstance(x, torch.Tensor) else [
             t for y in x for t in flat(y)]
     same = all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
-    log(f"{label} bf16 repeat: bit-identical {same}")
-    gate(same, f"{label} bf16: a second launch gave other bits")
+    log(f"{label} {dtype} repeat: bit-identical {same}")
+    gate(same, f"{label} {dtype}: a second launch gave other bits")
 
 
 def grads_err(got, want):
@@ -684,7 +705,7 @@ def main() -> None:
     plan_b.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     # #11 and #14 beside #2 at the two-call step's levels: in bf16 all
     # three run the level walk (slot 8), #11 and #14 with the row-major
-    # staging; in fp32 train_block.
+    # staging; in fp32 #2 and #11 the fp32 level walk, #14 train_block.
     plan_r = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_row_plan
     plan_r.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     for bf in (1, 0):
@@ -696,10 +717,10 @@ def main() -> None:
                 if fn(n_b, 8, 256, 16, 10, 4, bf, out):
                     fail(f"the plan of {label} failed")
                 log(f"  {'bf16' if bf else 'fp32'}: {label} ({n_b} points) "
-                    f"{level_plan_text(out)}")
-                if bf and not out[8]:
-                    fail(f"the bf16 plan of {label} at {n_b} points is not "
-                         "the level walk")
+                    f"{level_plan_text(out, not bf)}")
+                if not out[8] and (bf or fn is not plan1):
+                    fail(f"the {'bf16' if bf else 'fp32'} plan of {label} "
+                         f"at {n_b} points is not the level walk")
     # #16 beside #7 at the mip level (MIP_LEVEL_N points, 8x256, 16 IPE
     # frequencies): in bf16 both run the level walk, #16 with the
     # row-major staging (9 x 64 floats more shared memory, the wrappers'
@@ -732,17 +753,26 @@ def main() -> None:
                  "#16's bf16 plan is not #7's with the row-major staging")
     plan_o = _build.load(op.KERNEL).onepass_level_plan
     plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    # #2 and #3 at the vanilla presets' step shapes (the patch rays and the
+    # random rays of both levels): in bf16 and in fp32 (the compute type
+    # of 145 of the 147 presets) the plans must pick the level walk.
     for bf in (1, 0):
         for n_b in (196608, 65536):
             out = (ctypes.c_longlong * 9)()
-            plan_b(n_b, 8, 256, 16, 10, 4, bf, out)
+            if plan_b(n_b, 8, 256, 16, 10, 4, bf, out):
+                fail(f"the plan of {v2.BWD_KERNEL} failed")
             log(f"  {'bf16' if bf else 'fp32'}: {v2.BWD_KERNEL} ({n_b} "
-                f"points) {level_plan_text(out)}")
+                f"points) {level_plan_text(out, not bf)}")
+            gate(out[8] == 1, f"the {'bf16' if bf else 'fp32'} plan of #2 "
+                 f"at {n_b} points is not the level walk")
         for seg in (192, 64):
             outo = (ctypes.c_longlong * 9)()
-            plan_o(4096, seg, 8, 256, 16, 10, 4, bf, outo)
+            if plan_o(4096, seg, 8, 256, 16, 10, 4, bf, outo):
+                fail(f"the plan of {op.KERNEL} failed")
             log(f"  {'bf16' if bf else 'fp32'}: {op.KERNEL} (4096 x {seg})"
-                f" {level_plan_text(outo)}")
+                f" {level_plan_text(outo, not bf)}")
+            gate(outo[8] == 1, f"the {'bf16' if bf else 'fp32'} plan of #3 "
+                 f"at 4096 x {seg} is not the level walk")
     plan_mb = _build.load(fmip.BWD_KERNEL).fused_mip_bwd_plan
     plan_mb.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     plan_mo = _build.load(op.MIP_KERNEL).onepass_mip_level_plan
@@ -1420,9 +1450,9 @@ def train_phases(dev, card, configs, fm, v2, op):
             gate(rel < TRAIN_DW_TOL[dtype],
                  f"{v2.BWD_KERNEL} {lvl} {dtype} disagrees with its plain "
                  f"version ({rel:.3e})")
-            if dtype == "bfloat16":
-                repeat_gate(f"{v2.BWD_KERNEL} {lvl}", got, v2.bwd_T(
-                    w, pts, views, g2[lvl], compute_dtype=dtype, **mlp_kw))
+            repeat_gate(f"{v2.BWD_KERNEL} {lvl}", got, v2.bwd_T(
+                w, pts, views, g2[lvl], compute_dtype=dtype, **mlp_kw),
+                "bf16" if dtype == "bfloat16" else "fp32")
             del got, want
             pts, views, z = levels3[lvl]
             got_rows, got = op.onepass_level(
@@ -1450,12 +1480,12 @@ def train_phases(dev, card, configs, fm, v2, op):
                  and max(row_errs) < ROWS_TOL[dtype],
                  f"{op.KERNEL} {lvl} {dtype} disagrees with its plain "
                  f"version (rows {max(row_errs):.3e}, dW {rel:.3e})")
-            if dtype == "bfloat16":
-                again = op.onepass_level(w, pts, views, z, *ray_rows,
-                                         white_bkgd=True, compute_dtype=dtype,
-                                         **mlp_kw)
-                repeat_gate(f"{op.KERNEL} {lvl}", (got_rows, got), again)
-                del again
+            again = op.onepass_level(w, pts, views, z, *ray_rows,
+                                     white_bkgd=True, compute_dtype=dtype,
+                                     **mlp_kw)
+            repeat_gate(f"{op.KERNEL} {lvl}", (got_rows, got), again,
+                        "bf16" if dtype == "bfloat16" else "fp32")
+            del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
 
@@ -1470,7 +1500,45 @@ def train_phases(dev, card, configs, fm, v2, op):
         lambda w, pts, views, g, dtype: v2.bwd_T(
             w, pts, views, g, compute_dtype=dtype, **mlp_kw),
         lambda w, pts, views, g, dtype: v2.plain_bwd_T(
-            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev)
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev,
+        fp32_walk=True)
+
+    # 6c. #3 in fp32 (the fp32 level walk) at RAGGED_RAYS of the fine and
+    # coarse levels' samples, on the flagship's random rays: against its
+    # plain version and a repeat bit for bit.
+    w32 = packed("fine", "float32")
+    for seg, z_all in ((s_f, z_fr), (s_c, z_c[p:].contiguous())):
+        for n_r in RAGGED_RAYS:
+            z = z_all[:n_r].contiguous()
+            pts, views = streams(slice(p, p + n_r), z)
+            rows_r = tuple(x[:n_r] for x in ray_rows)
+            got_rows, got = op.onepass_level(
+                w32, pts, views, z, *rows_r, white_bkgd=True,
+                compute_dtype="float32", **mlp_kw)
+            torch.cuda.synchronize()
+            want_rows, want = op.plain_onepass_level(
+                w32, pts, views, z, *rows_r, white_bkgd=True,
+                compute_dtype=torch.float32, **mlp_kw)
+            rel, mx = grads_err(got, want)
+            row_err = ((got_rows - want_rows).abs().amax(1) / want_rows.abs(
+            ).amax(1).clamp_min(1e-30)).max().item()
+            log(f"{op.KERNEL} fp32 vs plain, {n_r} rays x {seg}: rows max "
+                f"|diff|/max|plain| {row_err:.3e} (tol "
+                f"{ROWS_TOL['float32']:g}); dW max|diff| {mx:.3e}, max rel L2 "
+                f"{rel:.3e} (tol {TRAIN_DW_TOL['float32']:g})")
+            if not (torch.isfinite(got_rows).all()
+                    and all(torch.isfinite(x).all() for x in got)):
+                fail(f"{op.KERNEL} fp32 {n_r} x {seg}: non-finite output")
+            gate(rel < TRAIN_DW_TOL["float32"]
+                 and row_err < ROWS_TOL["float32"],
+                 f"{op.KERNEL} fp32 {n_r} rays x {seg} disagrees with its "
+                 f"plain version (rows {row_err:.3e}, dW {rel:.3e})")
+            repeat_gate(f"{op.KERNEL} {n_r} rays x {seg}", (got_rows, got),
+                        op.onepass_level(w32, pts, views, z, *rows_r,
+                                         white_bkgd=True,
+                                         compute_dtype="float32", **mlp_kw),
+                        "fp32")
+    del w32
 
     # 7. The train path: the train CLI, a checkpoint, a resume.
     counted = (v2, "launches", v2.KERNEL), (v2, "bwd_launches",
@@ -1577,17 +1645,17 @@ def train_phases(dev, card, configs, fm, v2, op):
             f"{wall_ms:.1f} ms); by kernel: " + "; ".join(
                 f"{k} {ms:.2f} ms x{c}" for k, ms, c in top))
 
-    def runner(kern, lvl, fn):
+    def runner(kern, lvl, fn, dtype="bfloat16"):
         """A call of `fn` (the kernel wrapper or its plain version) on
-        the level's bf16 inputs."""
-        w = packed(lvl, "bfloat16")
+        the level's inputs in `dtype`."""
+        w = packed(lvl, dtype)
         if kern == v2.BWD_KERNEL:
             pts, views = levels2[lvl]
-            return lambda: fn(w, pts, views, g2[lvl],
-                              compute_dtype="bfloat16", **mlp_kw)
+            return lambda: fn(w, pts, views, g2[lvl], compute_dtype=dtype,
+                              **mlp_kw)
         pts, views, z = levels3[lvl]
         return lambda: fn(w, pts, views, z, *ray_rows, white_bkgd=True,
-                          compute_dtype=torch.bfloat16, **mlp_kw)
+                          compute_dtype=fm.as_dtype(dtype), **mlp_kw)
 
     # Bytes per point each kernel must move: #2 reads pts, views and g
     # (10 floats); #3 reads pts, views, z and writes 6 output rows (13
@@ -1628,6 +1696,23 @@ def train_phases(dev, card, configs, fm, v2, op):
                 log(f"{tag} {v2.KERNEL} bf16 one-pass step, patch {lvl} "
                     f"(N={pts.shape[1]}): {ms1:.3f} ms/launch, bound "
                     f"{b1:.3f} ms ({by1}, {100 * b1 / ms1:.1f}% of it)")
+        # fp32 (the presets' compute type): the fp32 level walk, against
+        # the CUDA cores' fp32 rate and six bf16 products on the tensor
+        # cores.
+        for lvl in ("fine", "coarse"):
+            npts = (levels2 if kern == v2.BWD_KERNEL else levels3)[lvl][
+                0].shape[1]
+            ms32 = time_ms(runner(kern, lvl, kfn, "float32"),
+                           5 if lvl == "fine" else 10)
+            b_cc = bound_ms(npts, train_pp, 8 * n_w, PEAK_FP32_FLOPS, bpp)[0]
+            b_six = bound_ms(npts, train_pp, 8 * n_w, PEAK_SIX_FLOPS,
+                             bpp)[0]
+            log(f"{tag} {kern} fp32 {lvl} (N={npts}): {ms32:.3f} ms/launch, "
+                f"bounds {b_cc:.3f} ms (CUDA cores, {100 * b_cc / ms32:.1f}% "
+                f"of it) / {b_six:.3f} ms (six bf16 products, "
+                f"{100 * b_six / ms32:.1f}% of it)")
+        plain32 = time_ms(runner(kern, "fine", plain, "float32"), 2)
+        log(f"{tag} plain version of {kern}, fp32 fine: {plain32:.3f} ms")
         ms, bound, by = res_ms["fine"]
         rows.append(dict(
             name=kern, route="cuda",
@@ -3120,7 +3205,8 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
         lambda w, pts, views, g, dtype: v2.bwd(
             w, pts, views, g, compute_dtype=dtype, **mlp_kw),
         lambda w, pts, views, g, dtype: v2.plain_bwd_row(
-            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev, row=True)
+            w, pts, views, g, compute_dtype=dtype, **mlp_kw), dev, row=True,
+        fp32_walk=True)
 
     # Timings, bf16: the row-major kernels, the transposed kernels on the
     # same points (same call, same card), the plain versions.
@@ -4977,6 +5063,39 @@ def consistency_phases(dev, card, configs, v2, fmip, op, pdf_merge, tmp,
             {v2.KERNEL: 2, v2.BWD_KERNEL: 2, op.KERNEL: 2})
     gate(os.path.isdir(os.path.join(tmp, "llff_fern_3view", "checkpoints")),
          "the fern_3view run wrote no checkpoint under its preset expname")
+    # The same preset's step as cli/train.py builds it on the card (its
+    # config through resolve_config and auto_fused_defaults: fp32, the
+    # one-pass step, #3 on the fp32 level walk), timed; and guarded
+    # against the eager step from the same state, batch and draws at
+    # GUARD_N_RAND random rays (the eager step keeps every activation).
+    from consistentnerf_tpu_torch.cli import common
+
+    p_args = common.make_parser("fern_3view").parse_args(
+        ["--scene", "fern_3view", "--device", str(dev)] + sets(
+            [f"datadir={fern['dir']}", f"factor={FERN['factor']}"] + run))
+    p_cfg = common.auto_fused_defaults(common.resolve_config(p_args), p_args)
+    gate(p_cfg.compute_dtype == "float32" and p_cfg.use_onepass_train,
+         "the fern_3view preset on the card is not the fp32 one-pass step")
+    p_scene = load_scene(p_cfg, device=str(dev))
+    p_state = loop.init_state(p_cfg, dev)
+    p_batcher = VanillaBatcher(p_scene, p_cfg)
+    p_batches = [to_device(p_batcher.next_batch(), dev) for _ in range(4)]
+    n_p = p_batches[0]["rgb"].shape[0]
+    bench_steps(f"fern_3view preset step (fp32, one-pass, {n_p} rays)", tag,
+                loop.select_train_step(p_cfg, p_state.model), p_state,
+                p_batches, n_p)
+    del p_state, p_batches
+    g_cfg = p_cfg.replace(N_rand=GUARD_N_RAND)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(VanillaBatcher(p_scene, g_cfg).next_batch(), dev)
+    guard_steps(f"fern_3view preset step guard (N_rand {GUARD_N_RAND}, "
+                "fp32)", loop.select_train_step(g_cfg, g_state.model),
+                step_lib.build_vanilla_train_step(g_state.model, g_cfg),
+                g_state, g_batch, step_lib.make_draws(
+                    g_cfg, g_batch["rgb"].shape[0],
+                    step_lib.step_generator(g_cfg.seed, 0, dev), dev))
+    del g_state, g_batch, p_scene
+    torch.cuda.empty_cache()
     gin = os.path.join(tmp, "scan114_3.gin")
     with open(gin, "w") as f:
         f.write(SCAN114_GIN.format(

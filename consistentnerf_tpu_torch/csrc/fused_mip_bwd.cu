@@ -90,7 +90,7 @@ int launch(const void* means, const void* covs, const void* views,
   if (err) return err;
   return mlp::level_launch<T>(
       fused_mip_bwd_kernel<T, L, kWalk<T>>,
-      fused_mip_bwd_kernel<T, L, false>, pl, d, w, b, ws, part, gpart, dw,
+      fused_mip_bwd_kernel<T, L, false>, pl, d, w, w, b, ws, part, gpart, dw,
       stream, static_cast<const float*>(means),
       static_cast<const float*>(covs), static_cast<const float*>(views),
       static_cast<const float*>(g), n);

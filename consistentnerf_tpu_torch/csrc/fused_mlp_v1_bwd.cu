@@ -89,7 +89,7 @@ int launch(const void* pts, const void* views, const void* g, const void* w,
   if (err) return err;
   return mlp::level_launch<T, HS>(
       fused_mlp_v1_bwd_kernel<T, kWalk<T>, kWalk<T> && HS>,
-      fused_mlp_v1_bwd_kernel<T, false, false>, pl, d, w, b, ws, part,
+      fused_mlp_v1_bwd_kernel<T, false, false>, pl, d, w, w, b, ws, part,
       gpart, dw, stream, static_cast<const float*>(pts),
       static_cast<const float*>(views), static_cast<const float*>(g), n);
 }

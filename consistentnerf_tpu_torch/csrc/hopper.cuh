@@ -1,7 +1,8 @@
 // Hopper primitives shared by the wgmma walks: mbarriers, TMA loads and
 // the tensor maps they read, shared-memory matrix descriptors and the
-// wgmma instructions. The one-pass level walk and its dW GEMM
-// (level_train.cuh, kernels #3 and #5) and the forward walk of #1 and #6
+// wgmma instructions (bf16 in, fp32 accumulators; the fp32 level walk
+// runs its products as six of them). The level walk and its dW GEMM
+// (level_train.cuh, the train kernels) and the forward walk of #1 and #6
 // (fwd_hopper.cuh) include it.
 
 #pragma once
@@ -374,12 +375,17 @@ __device__ inline void wgmma_ss96(float (&d)[NA], uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// Weight maps (64 x 64 boxes, 128-byte swizzle): m[0] over T, the trunk
-// and feature rows [w_views() / W, W], m[1] over V, the view layer's rows
-// [W + V, H] from w_views().
-struct WMaps {
-  CUtensorMap m[2];
+// Weight maps (64 x 64 boxes, 128-byte swizzle) of NP weight planes:
+// m[2 p] over T of plane p, the trunk and feature rows [w_views() / W,
+// W], m[2 p + 1] over V, the view layer's rows [W + V, H] from w_views().
+// One plane (the packed bf16 weights) in bf16; three (hi, mid, lo: the
+// fp32 weights split into bf16, fused_mlp_v2.py::split3) for the fp32
+// level walk.
+template <int NP>
+struct WMapsN {
+  CUtensorMap m[2 * NP];
 };
+using WMaps = WMapsN<1>;
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -408,20 +414,22 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The weight maps (WMaps) of the wgmma walks over the packed weights w:
+// The weight maps (WMapsN) of the wgmma walks over the packed bf16
+// weights w, NP planes of w_total<V1>() elements one after the other:
 // map 0 the trunk and feature layers (rows of width columns), map 1 the
 // view layer. V1: the v1 kernels' packing (the feature layer on [pe | h]
 // at a head skip).
-template <bool V1 = false>
-int weight_maps(const Dims& d, const bf16* w, WMaps* maps) {
+template <bool V1 = false, int NP = 1>
+int weight_maps(const Dims& d, const bf16* w, WMapsN<NP>* maps) {
   EncodeTiled encode = tensor_map_encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint32_t box[2] = {64, 64}, estr[2] = {1, 1};
-  for (int m = 0; m < 2; ++m) {
-    const int cols = m ? d.half : d.width;
+  for (int m = 0; m < 2 * NP; ++m) {
+    const int cols = m % 2 ? d.half : d.width;
     const int rows =
-        m ? d.width + d.V : (int)(d.w_views<V1>() / d.width);
-    void* base = const_cast<bf16*>(w + (m ? d.w_views<V1>() : 0));
+        m % 2 ? d.width + d.V : (int)(d.w_views<V1>() / d.width);
+    void* base = const_cast<bf16*>(w + (m / 2) * d.w_total<V1>() +
+                                   (m % 2 ? d.w_views<V1>() : 0));
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
     if (encode(&maps->m[m], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,

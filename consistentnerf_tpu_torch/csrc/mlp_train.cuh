@@ -3,9 +3,10 @@
 //
 // These kernels include this header, each with an encoder policy
 // (mlp_common.cuh: NerfEnc or MipEnc); the bf16 path of modes 3 and 4
-// and of the mode-2 kernels #2, #7, #11 and #14 at widths up to 256 runs
-// level_train.cuh's walk instead (wgmma products, the dW as a GEMM over
-// the launch), their fp32 path this one:
+// and of the mode-2 kernels #2, #7, #11, #14 and #16 at widths up to 256,
+// and the fp32 path of #3, #2 and #11 there, run level_train.cuh's walk
+// instead (wgmma products, the dW as a GEMM over the launch); the fp32
+// path of #5, #7, #14 and #16 and the shapes past the walk's run this one:
 //   fused_mlp_bwd.cu      (replaces consistentnerf_tpu/ops/fused_mlp_v2.py::
 //                          _bwd_pallas_T) and
 //   fused_mip_bwd.cu      (ops/fused_mip.py::_bwd_pallas_T): weight grads

@@ -84,7 +84,7 @@ int launch(const void* means, const void* covs, const void* views,
   if (err) return err;
   return mlp::level_launch<T>(
       onepass_mip_level_kernel<T, std::is_same<T, bf16>::value>,
-      onepass_mip_level_kernel<T, false>, pl, d, w, b, ws, part, gpart, dw,
+      onepass_mip_level_kernel<T, false>, pl, d, w, w, b, ws, part, gpart, dw,
       stream, static_cast<const float*>(means),
       static_cast<const float*>(covs), static_cast<const float*>(views), rr);
 }

@@ -201,27 +201,34 @@ def v1_smem_bytes(packed) -> tuple:
 
 # The level walk's weight ring under its names in csrc/level_train.cuh:
 # kWStages slots of kWStage bytes (four 64 x 64 bf16 boxes), 1024-byte
-# aligned.
+# aligned; and its static shared memory (the ring's 2 x 3 mbarriers and
+# the 64-entry product table of 5 ints), which the plan counts beside the
+# dynamic bytes against the 232,448 a block may hold.
 K_WSTAGES = 3
 K_WSTAGE = 4 * 64 * 64 * 2
+K_WALK_STATIC = 2 * K_WSTAGES * 8 + 64 * 5 * 4
 
 
-def walk_smem_bytes(packed, rows: int) -> int:
-    """Dynamic shared memory of one block of the bf16 level walk that #14
-    (and #11, and with the IPE #16) runs on row-major streams,
+def walk_smem_bytes(packed, rows: int, row: bool = True) -> int:
+    """Dynamic shared memory of one block of the level walk,
     `csrc/level_train.cuh::level_smem`, for chunks of `rows` rows (a
     multiple of 64): the weight ring, the 64-point tiles, the per-chunk
-    rows, the column-sum partials and the tile's staged points (9 x 64
-    floats). The plan takes the walk where this is at most SMEM_LIMIT at
-    768-row chunks."""
+    rows, the column-sum partials and, with `row` (#11, #14 and with the
+    IPE #16, on row-major streams), the tile's staged points (9 x 64
+    floats). bf16 tiles, two of activations; an fp32 pack's walk (#2, #3,
+    #11) keeps fp32 tiles and one activation tile. The plan takes the walk
+    where this and K_WALK_STATIC fit SMEM_LIMIT at 768-row chunks."""
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
     p, v = (v2._pad16(x) for x in v2.enc_widths(
         packed.encoder, packed.multires, packed.multires_views))
     act, m = max(packed.width, packed.view_width), 64
-    elems = m * (p + K_PAD) + m * (v + K_PAD) + 2 * m * (act + K_PAD)
-    floats = 4 * m + 5 * rows + 2 * K_WARPS * act + 9 * m
-    return K_WSTAGES * K_WSTAGE + 1024 + 2 * elems + 4 * floats
+    fp32 = packed.compute_dtype == torch.float32
+    elems = m * (p + K_PAD) + m * (v + K_PAD) + (1 if fp32 else 2) * m * (
+        act + K_PAD)
+    floats = 4 * m + 5 * rows + 2 * K_WARPS * act + (9 * m if row else 0)
+    return (K_WSTAGES * K_WSTAGE + 1024 + (4 if fp32 else 2) * elems
+            + 4 * floats)
 
 
 def pack_v1(weights: Sequence[torch.Tensor], net_depth: int, skips,

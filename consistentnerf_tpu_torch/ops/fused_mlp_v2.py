@@ -12,6 +12,9 @@ PE directly in torch Embedder order.
 
 `pack` lays the torch-layout weight list out as the kernel reads it; a
 caller that renders many chunks packs once and passes the `PackedMLP`.
+An fp32 NeRFMLP pack also carries `w3`, its weights split into three
+bf16 planes (`split3`), which the fp32 level walk of #2, #3 and #11
+streams to the tensor cores (six bf16 products a fp32 product).
 The packing and the packed walks also serve the MipMLP kernels
 (`ops/fused_mip.py`), whose MLP differs only in its encoder and in the
 column order of its skip concat: `encoder="ipe"` selects the integrated
@@ -48,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -91,6 +94,9 @@ class PackedMLP:
     # use_viewdirs=False output head of out_ch channels.
     v1: bool = False
     out_ch: int = 0
+    # fp32 v2 NeRFMLP packs: `split3(w)`, [3, w.numel()] bf16 (hi, mid,
+    # lo); else None.
+    w3: Optional[torch.Tensor] = None
 
     def head_skip(self) -> bool:
         return self.net_depth - 1 in self.skips
@@ -107,6 +113,39 @@ def _pad16(x: int) -> int:
 def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
     """Pad [r, n] with zero rows to [k, n]."""
     return torch.cat([x, x.new_zeros(k - x.shape[0], x.shape[1])], 0)
+
+
+def split3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x -> [3, *x.shape] bf16 planes (hi, mid, lo): hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest
+    even. hi + mid + lo == x exactly for every normal x above ~2^-100
+    (below, mid and lo fall among bf16's subnormals and lose bits); the
+    products of the terms that the fp32 level walk leaves out (mid lo, lo
+    mid, lo lo) are at 2^-24 of a product."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo]).contiguous()
+
+
+def six_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 as the fp32 level walk of #2, #3 and #11 computes
+    its backward's products and dW (`csrc/level_train.cuh`; its forward
+    runs the fp32 SIMT layer, a plain fp32 product): both operands
+    split by `split3`, six products of bf16 terms (each exact in fp32)
+    summed in fp32 in the walk's order, a_hi b_lo, a_mid b_mid, a_hi
+    b_mid, a_lo b_hi, a_mid b_hi, a_hi b_hi; the three left out are at
+    2^-24 of the product. The plain version of the walk's arithmetic (the
+    kernel sums over k and the six products in another order)."""
+    (ah, am, al), (bh, bm, bl) = split3(a), split3(b)
+    out = None
+    for x, y in ((ah, bl), (am, bm), (ah, bm), (al, bh), (am, bh),
+                 (ah, bh)):
+        t = x.float() @ y.float()
+        out = t if out is None else out + t
+    return out
 
 
 def enc_widths(encoder: str, multires: int, multires_views: int) -> tuple:
@@ -147,7 +186,11 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
     also take a skip after the last trunk layer (feature's rows and alpha
     are then [pe | h] as well) and, with `use_viewdirs=False`, the output
     head: output [oc, K_head] after the trunk instead of the view branch
-    (the forward #12 only)."""
+    (the forward #12 only).
+
+    An fp32 NeRFMLP pack (`encoder="pe"`, not v1) also holds `w3 =
+    split3(w)`, the planes that the fp32 level walk of #2, #3 and #11
+    reads (plane p of element i at p * w.numel() + i)."""
     cd = fm.as_dtype(compute_dtype)
     skips = tuple(sorted(skips))
     if not use_viewdirs and not v1:
@@ -206,13 +249,15 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
                head(wa), wr]
         bs += [bf, bv, ba, br]
         view_width = wv.shape[0]
+    w = torch.cat([x.reshape(-1) for x in ws])
     return PackedMLP(
-        flat=flat,
-        w=torch.cat([x.reshape(-1) for x in ws]).to(cd).contiguous(),
+        flat=flat, w=w.to(cd).contiguous(),
         b=torch.cat([x.reshape(-1) for x in bs]).contiguous(),
         net_depth=net_depth, width=width, skips=skips, multires=multires,
         multires_views=multires_views, compute_dtype=cd, encoder=encoder,
         view_width=view_width, v1=v1, out_ch=out_ch,
+        w3=(split3(w) if cd == torch.float32 and encoder == "pe" and not v1
+            else None),
     )
 
 
@@ -491,10 +536,14 @@ def packed_forward_saved(packed: PackedMLP, pts_T, views_T, covs_T=None):
     return raw, dict(pe=pe, ve=ve, acts=acts, feat=feat, hv=hv)
 
 
-def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
+def packed_backward(packed: PackedMLP, saved, g_T,
+                    mm=torch.matmul) -> tuple:
     """The train kernels' backward walk: packed fp32 (dW, db) for the raw
     cotangent g_T [4, N], rounded where the kernel rounds (bf16 operands
-    of every product, fp32 bias sums, ReLU masks from saved values)."""
+    of every product, fp32 bias sums, ReLU masks from saved values). `mm`
+    takes the products that the kernels run on the tensor cores (every
+    dW but the heads', the input grads through the layers):
+    `six_products` for the fp32 level walk."""
     cd, depth = packed.compute_dtype, packed.net_depth
     w, _ = _packed_weights(packed)
 
@@ -513,12 +562,12 @@ def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
     dw["alpha"], db["alpha"] = (x_head.T @ ga_r)[:, None], g_a.sum()[None]
     g_hv = (gr_r @ w["rgb"]) * (hv > 0)
     g_hv_r = rnd(g_hv)
-    dw["views_0"] = torch.cat([feat, ve], 1).T @ g_hv_r
+    dw["views_0"] = mm(torch.cat([feat, ve], 1).T, g_hv_r)
     db["views_0"] = g_hv.sum(0)
-    g_feat = g_hv_r @ w["views_0"][: packed.width].T
+    g_feat = mm(g_hv_r, w["views_0"][: packed.width].T)
     g_feat_r = rnd(g_feat)
-    dw["feature"], db["feature"] = x_head.T @ g_feat_r, g_feat.sum(0)
-    g_h = (g_feat_r @ w["feature"][hoff:].T
+    dw["feature"], db["feature"] = mm(x_head.T, g_feat_r), g_feat.sum(0)
+    g_h = (mm(g_feat_r, w["feature"][hoff:].T)
            + ga_r[:, None] * w["alpha"][hoff:, 0])
     p = pe.shape[1]
     for i in reversed(range(depth)):
@@ -531,21 +580,22 @@ def packed_backward(packed: PackedMLP, saved, g_T) -> tuple:
             x = torch.cat([pe, acts[i - 1]], 1)
         else:
             x = acts[i - 1]
-        dw[f"pts_{i}"], db[f"pts_{i}"] = x.T @ g_pre_r, g_pre.sum(0)
+        dw[f"pts_{i}"], db[f"pts_{i}"] = mm(x.T, g_pre_r), g_pre.sum(0)
         if i > 0:
             wh = w[f"pts_{i}"][p:] if skip else w[f"pts_{i}"]
-            g_h = g_pre_r @ wh.T
+            g_h = mm(g_pre_r, wh.T)
     wshapes, bshapes = _block_shapes(packed)
     return (torch.cat([dw[n].reshape(-1) for n, *_ in wshapes]),
             torch.cat([db[n].reshape(-1) for n, _ in bshapes]))
 
 
 def packed_bwd_reference_T(packed: PackedMLP, pts_T, views_T,
-                           g_T, covs_T=None) -> List[torch.Tensor]:
+                           g_T, covs_T=None,
+                           mm=torch.matmul) -> List[torch.Tensor]:
     """`bwd_T` by the kernel's walk over its packed buffers, unpacked to
-    the torch layout."""
+    the torch layout (`mm`: see `packed_backward`)."""
     _, saved = packed_forward_saved(packed, pts_T, views_T, covs_T)
-    return unpack_grads(packed, *packed_backward(packed, saved, g_T))
+    return unpack_grads(packed, *packed_backward(packed, saved, g_T, mm))
 
 
 def plain_bwd_T(weights, pts_T, views_T, g_T, net_depth, skips, multires,
@@ -584,13 +634,32 @@ def check_tma_weights(packed: PackedMLP):
     and the level walk of the weight grads (`csrc/level_train.cuh`) read
     the packed weights by TMA: the buffer's base and the row strides of its
     two weight maps (2 width and 2 view_width bytes) must be multiples of
-    16 bytes."""
-    if packed.compute_dtype != torch.bfloat16:
+    16 bytes. The fp32 level walk reads the planes `w3` so: their base,
+    the planes' stride (2 w.numel() bytes) and the same row strides."""
+    if packed.compute_dtype == torch.bfloat16:
+        base, stride = packed.w, 0
+    elif packed.w3 is not None:
+        base, stride = packed.w3, 2 * packed.w.numel()
+        if (packed.w3.dtype != torch.bfloat16
+                or packed.w3.shape != (3, packed.w.numel())
+                or not packed.w3.is_contiguous()
+                or packed.w3.device != packed.w.device):
+            raise ValueError("w3 must be the contiguous [3, w.numel()] bf16 "
+                             "planes of w on its device (split3)")
+    else:
         return
-    if (packed.w.data_ptr() % 16 or (2 * packed.width) % 16
+    if (base.data_ptr() % 16 or stride % 16 or (2 * packed.width) % 16
             or (2 * packed.view_width) % 16):
         raise ValueError("the packed bf16 weights must be 16-byte aligned, "
                          "with row strides of a multiple of 16 bytes (TMA)")
+
+
+def check_planes(packed: PackedMLP):
+    """An fp32 pack for #2, #3 or #11 carries the planes `w3` that their
+    level walk reads (`pack` makes them)."""
+    if packed.compute_dtype == torch.float32 and packed.w3 is None:
+        raise ValueError("the fp32 level walk reads the weights' bf16 "
+                         "planes w3: pack them with fused_mlp_v2.pack")
 
 
 PLAN_SLOTS = ("hopper", "tile", "stages", "cluster", "smem_bytes",
@@ -622,14 +691,17 @@ def level_buffers(plan_fn, args, packed: PackedMLP, device):
     nine-slot plan (#2, #3, #5, #7, #11, #14, #16), sized by the kernel's
     own plan (blocks, workspace elements, partial floats per block, shared
     memory, points per chunk, splits, split partial floats, slabs per
-    split, 1 for the level walk). The level walk's workspace holds a row of
-    every point of the launch (~9.9 KB a point at 8x256)."""
+    split, 1 for the level walk). The level walk's workspace holds a bf16
+    row of every point of the launch (~9.9 KB a point at 8x256; in fp32
+    three planes of them, ~29.7 KB); train_block's is of the compute
+    type."""
     out = (ctypes.c_longlong * 9)()
     err = plan_fn(*args, out)
     if err != 0:
         raise RuntimeError(f"train kernel plan failed: cudaError_t {err}")
     n_w, n_b = grad_numel(packed)
-    ws = torch.empty(out[1], dtype=packed.compute_dtype, device=device)
+    ws = torch.empty(out[1], device=device, dtype=(
+        torch.bfloat16 if out[8] else packed.compute_dtype))
     part = torch.empty(out[0] * out[2], dtype=torch.float32, device=device)
     gpart = torch.empty(max(out[6], 1), dtype=torch.float32, device=device)
     dw = torch.empty(n_w + n_b, dtype=torch.float32, device=device)
@@ -689,6 +761,11 @@ def dw_launch(lib: str, symbol: str, packed: PackedMLP, pts, views, g,
                        _cfg_ints(packed), row)
 
 
+# The weight-grad entry points that take the fp32 planes `w3` after `w`
+# (their fp32 path runs the level walk).
+PLANE_ENTRIES = (BWD_KERNEL, ROW_BWD_KERNEL)
+
+
 def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
                 cfg_args, row: bool):
     """Launch a weight-grad kernel on checked CUDA streams and cotangent g
@@ -696,7 +773,10 @@ def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
     `{symbol}_plan`: (the torch-layout grads, whether a kernel was
     launched: not for N = 0). Every one of them (#2, #7, #11, #14, #16)
     fills the nine slots of `csrc/level_train.cuh::level_plan`, takes
-    `gpart`, and in bf16 reads the weights by TMA."""
+    `gpart`, and in bf16 reads the weights by TMA. The PLANE_ENTRIES (#2,
+    #11) also take the weights' fp32 split `w3` after `w` (a null pointer
+    in bf16), which their fp32 level walk reads by TMA."""
+    planes = symbol in PLANE_ENTRIES
     n, dev = g.shape[0 if row else 1], g.device
     n_w, n_b = grad_numel(packed)
     if n == 0:
@@ -704,11 +784,15 @@ def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
         return unpack_grads(packed, zeros[:n_w], zeros[n_w:]), False
     # The plan's buffers (ws, part, gpart, dw), in the C entry points'
     # order.
+    if planes:
+        check_planes(packed)
     check_tma_weights(packed)
     bufs = level_buffers(_entry(lib, symbol + "_plan", 0, 1 + len(cfg_args)),
                          (n, *cfg_args), packed, dev)
+    w3 = [packed.w3.data_ptr() if packed.w3 is not None else None] \
+        if planes else []
     ptrs = [t.data_ptr() for t in streams] + [
-        g.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr()] + [
+        g.data_ptr(), packed.w.data_ptr()] + w3 + [packed.b.data_ptr()] + [
         t.data_ptr() for t in bufs]
     err = _entry(lib, symbol, len(ptrs), 1 + len(cfg_args))(
         *ptrs, n, *cfg_args, torch.cuda.current_stream(dev).cuda_stream)

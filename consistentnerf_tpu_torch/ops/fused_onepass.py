@@ -156,9 +156,11 @@ def plain_onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior,
 
 
 def packed_onepass_reference(packed: "v2.PackedMLP", pts_T, views_T, z, dn,
-                             crgb, tgt, cd, prior, white_bkgd):
+                             crgb, tgt, cd, prior, white_bkgd,
+                             mm=torch.matmul):
     """The kernel's walk over its packed buffers: forward, compositing,
-    cotangent, explicit compositing VJP, backward. Same returns as
+    cotangent, explicit compositing VJP, backward (`mm`: the backward's
+    products, `v2.six_products` for the fp32 walk). Same returns as
     `plain_onepass_level`."""
     n, seg = z.shape
     raw, saved = v2.packed_forward_saved(packed, pts_T, views_T)
@@ -167,7 +169,8 @@ def packed_onepass_reference(packed: "v2.PackedMLP", pts_T, views_T, z, dn,
     d_rgb = crgb[:, None] * (rgb - tgt)
     d_depth = cd * (depth - prior)
     d_raw = _composite_bwd(d_rgb, d_depth, comp, white_bkgd)
-    dw, db = v2.packed_backward(packed, saved, d_raw.reshape(4, n * seg))
+    dw, db = v2.packed_backward(packed, saved, d_raw.reshape(4, n * seg),
+                                mm)
     return (_out_rows(rgb, depth, acc, w, seg),
             v2.unpack_grads(packed, dw, db))
 
@@ -179,7 +182,7 @@ def _kernel():
     plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
     fn = lib.onepass_level
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return plan, fn
@@ -229,6 +232,8 @@ def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
     skip_mask = sum(1 << s for s in skips)
     cfg_args = (net_depth, packed.width, skip_mask, multires, multires_views)
     use_bf16 = int(cd_ == torch.bfloat16)
+    v2.check_planes(packed)
+    v2.check_tma_weights(packed)
     plan, fn = _kernel()
     ws, part, gpart, dw = v2.level_buffers(
         plan, (n_rays, seg, *cfg_args, use_bf16), packed, dev)
@@ -236,6 +241,7 @@ def onepass_level(weights, pts_T, views_T, z, dn, crgb, tgt, cd, prior, *,
     err = fn(pts_T.data_ptr(), views_T.data_ptr(), z.data_ptr(),
              dn_.data_ptr(), crgb_.data_ptr(), tgt_T.data_ptr(),
              cd__.data_ptr(), prior_.data_ptr(), packed.w.data_ptr(),
+             None if packed.w3 is None else packed.w3.data_ptr(),
              packed.b.data_ptr(), out.data_ptr(), ws.data_ptr(),
              part.data_ptr(), gpart.data_ptr(), dw.data_ptr(), n_rays, seg,
              *cfg_args, int(white_bkgd), use_bf16,

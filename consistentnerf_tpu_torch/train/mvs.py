@@ -14,8 +14,9 @@ step gathers its views there.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -182,6 +183,23 @@ def train_mvs_depth(cfg, scene, num_steps: int,
         final_loss=float(loss), steps=num_steps)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """cuDNN's deterministic algorithms (and no autotuning) inside, the
+    flags as they were after. By default cuDNN may run the cost volume's
+    transposed 3D convolutions (cuDNN's backward-data) with atomic adds,
+    whose order varies from launch to launch; a conf that moves by an ulp
+    across `mvs_conf_thresh` then turns a pixel's whole depth prior on or
+    off, so two predicts from the same net would disagree."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def view_predictor(cfg, scene, params, conf_thresh: Optional[float] = None,
                    device="cuda"):
     """predict_depth_priors' set-up (the net from the MVSDepthNet
@@ -190,7 +208,8 @@ def view_predictor(cfg, scene, params, conf_thresh: Optional[float] = None,
 
     Pixels under the confidence threshold drop to zero depth, the "no
     prior" convention of the MVS PFMs that the masks and the depth loss
-    both honour."""
+    both honour. The forward runs under `deterministic_cudnn`, so a
+    second predict from the same params gives the same bits."""
     conf_thresh = cfg.mvs_conf_thresh if conf_thresh is None else conf_thresh
     device = torch.device(device)
     fm.strict_fp32(device)
@@ -206,8 +225,9 @@ def view_predictor(cfg, scene, params, conf_thresh: Optional[float] = None,
         src = torch.as_tensor(mvs_lib.select_source_views(
             np.asarray(scene.poses), i_train, ref, cfg.mvs_n_src),
             dtype=torch.long, device=device)
-        pred = net(images[ref], images[src], poses[ref], poses[src], K,
-                   near, far)
+        with deterministic_cudnn():
+            pred = net(images[ref], images[src], poses[ref], poses[src],
+                       K, near, far)
         return (pred["depth"] * (pred["conf"] >= conf_thresh)).cpu().numpy()
 
     return predict

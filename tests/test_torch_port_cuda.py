@@ -8,7 +8,9 @@ card against the CPU, the bf16 Hopper walk of #1 and #6
 (`csrc/fwd_hopper.cuh`): its plans, ragged sizes and widths, repeats and
 the alignment its weight loads need, and #2, #7, #11 and #14 on the
 level walk of `csrc/level_train.cuh`: their plans and ragged sizes, #11
-bit for bit against #2 and #14 against #11 on the same points, the
+bit for bit against #2 and #14 against #11 on the same points (and #2,
+#3 and #11 in fp32 on the walk's fp32 path: plans, ragged sizes and
+rays, repeats, #11 against #2), the
 evaluation's metric suite and `evaluate()` on the card against the CPU,
 the one-pass step with ss_loss (#3 on the reference rays) against
 its packed walk and the eager step, the depth-prior producers' quality
@@ -230,15 +232,19 @@ def _bwd_plan(kernel, n, width, bf16=1):
 def test_bwd_plan_picks_the_level_walk(cuda_device):
     """The bf16 plans of #2 and #7 take the level walk (wgmma products, the
     dW GEMM) at widths 64 and 256 and train_block with its dW pass at
-    width 320 and in fp32, and on a 132-SM card they give the one-pass
-    steps' patch launches full waves: no block walks more rows than the
-    launch's points spread evenly over the grid need."""
+    width 320; in fp32 #2 takes the fp32 level walk and #7 train_block;
+    and on a 132-SM card they give the one-pass steps' patch launches
+    full waves: no block walks more rows than the launch's points spread
+    evenly over the grid need."""
     for kernel in ("mlp", "mip"):
         for width in (64, 256):
             assert _bwd_plan(kernel, 196_608, width)[8] == 1
         assert _bwd_plan(kernel, 3000, 320)[8] == 0
         fp32 = _bwd_plan(kernel, 3000, 256, bf16=0)
-        assert fp32[8] == 0 and fp32[5:8] == [0, 0, 0]
+        if kernel == "mlp":
+            assert fp32[8] == 1
+        else:
+            assert fp32[8] == 0 and fp32[5:8] == [0, 0, 0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kernel, n in (("mlp", 196_608), ("mlp", 65_536), ("mip", 98_304)):
         plan = _bwd_plan(kernel, n, 256)
@@ -295,19 +301,134 @@ def test_onepass_kernel_matches_packed_walk(cuda_device, width, seg, dtype):
                     / want_out.abs().amax(1).clamp_min(1e-30)).max().item()
         assert rows_rel < {"bfloat16": 5e-3, "float32": 1e-4}[dtype]
     assert _rel(dw, want_dw) < TRAIN_TOL[dtype]
-    if dtype == "bfloat16":
-        out2, dw2 = op.onepass_level(packed, *args, white_bkgd=True,
-                                     compute_dtype=dtype)
-        assert torch.equal(out, out2)
-        assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
+    out2, dw2 = op.onepass_level(packed, *args, white_bkgd=True,
+                                 compute_dtype=dtype)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
 
 
-def _level_plan(n_rays, seg, width):
+def _level_plan(n_rays, seg, width, bf16=1):
     import ctypes
 
     out = (ctypes.c_longlong * 9)()
-    assert op._kernel()[0](n_rays, seg, 8, width, 16, MR, MV, 1, out) == 0
+    assert op._kernel()[0](n_rays, seg, 8, width, 16, MR, MV, bf16,
+                           out) == 0
     return list(out)
+
+
+@pytest.mark.cuda
+def test_fp32_plans_pick_the_level_walk(cuda_device):
+    """In fp32 the plans of #3 at the vanilla presets' random rays (4096
+    rays of 192 and 64 samples), #2 at their patch rays (196,608 and
+    65,536 points) and #11 take the fp32 level walk (slot 8) with the bf16
+    plan's grid and chunks, three workspace planes and the fp32 walk's
+    shared memory (fp32 tiles, one activation tile; #11 with the
+    row-major staging); width 320 keeps train_block in fp32 too."""
+    import ctypes
+
+    packed = v2.pack(_mlp_flat(256, cuda_device), 8, SKIPS, MR, MV,
+                     "float32")
+
+    def row_plan(n, bf16):
+        out = (ctypes.c_longlong * 9)()
+        fn = v2._entry(v2.BWD_KERNEL, v2.ROW_BWD_KERNEL + "_plan", 0, 7)
+        assert fn(n, 8, 256, 1 << SKIPS[0], MR, MV, bf16, out) == 0
+        return list(out)
+    pairs = [(_level_plan(4096, s, 256, 0), _level_plan(4096, s, 256), False)
+             for s in (192, 64)]
+    pairs += [(_bwd_plan("mlp", n, 256, 0), _bwd_plan("mlp", n, 256), False)
+              for n in (196_608, 65_536)]
+    pairs += [(row_plan(196_608, 0), row_plan(196_608, 1), True)]
+    for p32, p16, row in pairs:
+        assert p32[8] == 1
+        assert p32[0] == p16[0] and p32[2] == p16[2] and p32[4] == p16[4]
+        assert p32[1] == 3 * p16[1]
+        assert p32[3] == fm.walk_smem_bytes(packed, -(-p32[4] // 64) * 64,
+                                            row)
+        assert p32[3] + fm.K_WALK_STATIC <= fm.SMEM_LIMIT
+        # The fp32 dW GEMM takes 32-point slabs.
+        rows = p32[1] // (3 * sum(_ws_cols(packed)))
+        assert p32[5] * p32[7] >= rows // 32 > (p32[5] - 1) * p32[7]
+    assert _bwd_plan("mlp", 3000, 320, 0)[8] == 0
+    assert _level_plan(37, 24, 320, 0)[8] == 0
+
+
+def _ws_cols(packed):
+    """The level walk's workspace columns a point (level_train.cuh::Cols):
+    pe, ve, every activation, feature, the view layer's output, and their
+    gradients."""
+    p, v = (v2._pad16(x) for x in v2.enc_widths(
+        packed.encoder, packed.multires, packed.multires_views))
+    w, h = packed.width, packed.view_width
+    return (p, v, 2 * (packed.net_depth * w + w + h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RAGGED_BWD_N)
+def test_fp32_walk_at_ragged_sizes(cuda_device, n):
+    """#2 and #11 in fp32 at 8x256 on the fp32 level walk (six bf16
+    products a fp32 product) against the packed walk in fp32 (the card's
+    fp32 matmul) at the ragged sizes of #2: within TRAIN_TOL, a second
+    launch bit-identical to the first, and #11 bit-identical to #2 on the
+    same points."""
+    packed = v2.pack(_mlp_flat(256, cuda_device), 8, SKIPS, MR, MV,
+                     "float32")
+    pts_T, views_T = _inputs(n, cuda_device, seed=n)
+    g = torch.randn(4, n, generator=torch.Generator().manual_seed(5)).to(
+        cuda_device)
+
+    def run():
+        return v2.bwd_T(packed, pts_T, views_T, g, 8, SKIPS, MR, MV,
+                        "float32")
+    got = run()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)
+    want = v2.packed_bwd_reference_T(packed, pts_T, views_T, g)
+    print(f"fp32 bwd N={n}: rel {_rel(got, want):.3e}")
+    assert _rel(got, want) < TRAIN_TOL["float32"]
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    row = v2.bwd(packed, pts_T.T.contiguous(), views_T.T.contiguous(),
+                 g.T.contiguous(), 8, SKIPS, MR, MV, "float32")
+    assert all(torch.equal(a, b) for a, b in zip(got, row))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 3, 395])
+@pytest.mark.parametrize("seg", [64, 192])
+def test_fp32_onepass_at_ragged_rays(cuda_device, seg, n_rays):
+    """#3 in fp32 at 8x256 on the fp32 level walk at 1, 3 and 395 rays
+    (one ray, a chunk's ragged sub-tile, several chunks with a ragged
+    last one) against the packed walk in fp32: rows within 1e-4 of a
+    row's max, dW within TRAIN_TOL, a repeat bit-identical."""
+    flat = _mlp_flat(256, cuda_device, seed=2)
+    g = torch.Generator().manual_seed(n_rays)
+    o = torch.randn(n_rays, 3, generator=g)
+    d = torch.randn(n_rays, 3, generator=g)
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2, -1).values
+    dev = cuda_device
+    o, d, z = o.to(dev), d.to(dev), z.to(dev)
+    vd = d / d.norm(dim=-1, keepdim=True)
+    pts_T, views_T = op._pts_views(o.T, d.T, vd.T, z)
+    rows = [torch.rand(n_rays, generator=g).to(dev) for _ in range(3)]
+    tgt = torch.rand(n_rays, 3, generator=g).to(dev)
+    args = (pts_T, views_T, z, d.norm(dim=-1), rows[0], tgt, rows[1],
+            rows[2] * 4 + 2)
+    packed = v2.pack(flat, 8, SKIPS, MR, MV, "float32")
+    out, dw = op.onepass_level(packed, *args, white_bkgd=True,
+                               compute_dtype="float32")
+    torch.cuda.synchronize()
+    want_out, want_dw = op.packed_onepass_reference(packed, *args, True)
+    assert torch.isfinite(out).all()
+    rows_rel = ((out - want_out).abs().amax(1)
+                / want_out.abs().amax(1).clamp_min(1e-30)).max().item()
+    print(f"fp32 onepass S={seg} rays={n_rays}: rows {rows_rel:.3e}, dW "
+          f"rel {_rel(dw, want_dw):.3e}")
+    assert rows_rel < 1e-4
+    assert _rel(dw, want_dw) < TRAIN_TOL["float32"]
+    out2, dw2 = op.onepass_level(packed, *args, white_bkgd=True,
+                                 compute_dtype="float32")
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
 
 
 @pytest.mark.cuda
@@ -995,8 +1116,8 @@ def test_row_bwd_plans_pick_the_level_walk(cuda_device):
     """The bf16 plans of #11 and #14 run the level walk at the two-call
     step's levels (983,040 and 327,680 points) with #2's grid and chunks
     and the row-major staging's 9 x 64 floats more shared memory; #14's
-    also at a depth-5 skip into the heads and at multires 21; fp32 keeps
-    train_block."""
+    also at a depth-5 skip into the heads and at multires 21; in fp32 #11
+    runs the fp32 level walk and #14 keeps train_block."""
     import ctypes
 
     def plan(symbol, lib, n, depth=8, mr=MR, bf16=1):
@@ -1012,7 +1133,8 @@ def test_row_bwd_plans_pick_the_level_walk(cuda_device):
             assert p[8] == 1
             assert p[3] == p2[3] + 9 * 64 * 4
             assert p[:3] + p[4:] == p2[:3] + p2[4:]
-            assert plan(symbol, lib, n, bf16=0)[8] == 0
+            assert plan(symbol, lib, n, bf16=0)[8] == (
+                symbol == v2.ROW_BWD_KERNEL)
     for depth, mr in ((5, MR), (8, 21)):
         p = plan(fmt.BWD_KERNEL, fmt.BWD_KERNEL, 100_003, depth, mr)
         assert p[8] == 1
@@ -1629,6 +1751,29 @@ def test_mvs_supervised_training_beats_baselines(cuda_device):
                      for c in np.linspace(scene.near, scene.far, 17))
     assert mse(priors) < 0.5 * mse(priors0), (mse(priors), mse(priors0))
     assert mse(priors) < 0.5 * const_best, (mse(priors), const_best)
+
+
+@pytest.mark.cuda
+def test_mvs_predict_gives_the_same_bits_twice(cuda_device):
+    """Two predicts of every train view from the same params, at the JAX
+    package's MVS defaults (32 planes, base width 8, 2 sources) on the
+    sphere at 200x200, give the same bits: the depths everywhere (a
+    threshold of 0 keeps every pixel), and the priors at the default
+    threshold."""
+    import numpy as np
+
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.train import mvs as mvs_train
+
+    scene = synthetic.make_scene(n_views=6, H=200, W=200).to_scene_data()
+    cfg = configs.Config(dataset_type="synthetic")
+    params = mvs_train.make_net(cfg, "cpu").state_dict()
+    for thresh in (0.0, None):
+        first, again = (mvs_train.predict_depth_priors(
+            cfg, scene, params, conf_thresh=thresh, device=cuda_device)
+            for _ in range(2))
+        assert np.isfinite(first).all()
+        assert np.array_equal(first, again), thresh
 
 
 @pytest.mark.cuda

@@ -130,8 +130,11 @@ def _streams(k, row, seed=0):
 
 def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
     """The plan got an array of len(slots); the buffers have the plan's
-    sizes; the launch passed the streams, g, the weights and the buffers
-    in the C declaration's order and counts."""
+    sizes (a bf16 workspace where slot 8 says the level walk runs, its
+    three planes in fp32; else of the compute type); the launch passed the
+    streams, g, the weights (and, for #2 and #11, the fp32 planes w3, a
+    null pointer in bf16) and the buffers in the C declaration's order
+    and counts."""
     plan_calls = [c for c in lib.calls if c[0] == symbol + "_plan"]
     assert [c[1] for c in plan_calls] == [len(slots)] == [9]
     out, = bufs
@@ -140,10 +143,14 @@ def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
     assert ws.numel() == slots[1]
     assert part.numel() == slots[0] * slots[2]
     assert gpart.numel() == max(slots[6], 1)
-    assert ws.dtype == packed.compute_dtype
+    assert ws.dtype == (torch.bfloat16 if slots[8] else packed.compute_dtype)
     assert dw.numel() == n_w + n_b and dw.dtype == torch.float32
     (_, ptrs, ints), = [c for c in lib.calls if c[0] == symbol]
-    want = [t.data_ptr() for t in (*streams, g, packed.w, packed.b, *out)]
+    w3 = []
+    if symbol in (v2.BWD_KERNEL, v2.ROW_BWD_KERNEL):
+        w3 = [None if packed.w3 is None else packed.w3.data_ptr()]
+    want = [t.data_ptr() for t in (*streams, g, packed.w)] + w3 + [
+        t.data_ptr() for t in (packed.b, *out)]
     assert list(ptrs) == want
     assert ints[0] == N
     entry = {s: (p, i) for s, p, i in lib.entries}
@@ -154,8 +161,8 @@ def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_transposed_mlp_backward_sizes_from_nine_slots(fake, dtype):
     """#2: the nine-slot plan and its four buffers (ws, part, gpart, dw)
-    in both types (the fp32 plan fills the nine slots with zeros for the
-    GEMM)."""
+    in both types (in fp32 too the level walk runs, on the three bf16
+    planes `w3` that the launch passes after the weights)."""
     lib, bufs = fake(PLAN9)
     packed = _nerf_packed(dtype)
     (pts, views), g = _streams(2, row=False)
@@ -171,7 +178,8 @@ def test_row_major_backward_sizes_from_nine_slots(fake, kernel):
     """#11 (`fused_mlp_bwd_row`) and #14 (`fused_mlp_v1_bwd`) on the
     nine-slot plan: four buffers (ws, part, gpart, dw), and the pointer
     and int counts of their C declarations, 9 pointers (pts, views, g,
-    w, b and the buffers) and 7 ints."""
+    w, b and the buffers) and 7 ints; #11 also takes the fp32 planes w3
+    after w (10 pointers)."""
     lib, bufs = fake(PLAN9)
     packed = _nerf_packed("bfloat16", v1=kernel == "v1")
     (pts, views), g = _streams(2, row=True)
@@ -183,7 +191,7 @@ def test_row_major_backward_sizes_from_nine_slots(fake, kernel):
                                    row=True)
     assert launched and len(grads) == len(packed.flat)
     _check_call(lib, bufs, symbol, source, (pts, views), g, packed, PLAN9)
-    assert c_signature(source, symbol) == (9, 7)
+    assert c_signature(source, symbol) == (9 + (kernel == "v2row"), 7)
     assert c_signature(source, symbol + "_plan") == (0, 7)
 
 

@@ -541,6 +541,31 @@ def test_predict_depth_priors_matches_jax(nets):
         assert (np.abs(conf - thresh)[flips[ref]] < EDGE).all()
 
 
+def test_predict_runs_the_net_on_deterministic_cudnn(monkeypatch):
+    """The predictor's forward runs with cuDNN's deterministic algorithms
+    and no autotuning, and leaves the flags as it found them: otherwise
+    the cost net's transposed convolutions may add in another order on the
+    card each launch, and a conf at the threshold turns a pixel's prior on
+    in one predict and off in the next."""
+    scene = synthetic.make_scene(n_views=6, H=16, W=16).to_scene_data()
+    cfg = configs.Config(dataset_type="synthetic", **MVS)
+    seen, real = [], mvs.MVSDepthNet.forward
+
+    def spy(self, *a, **k):
+        seen.append((torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark))
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(mvs.MVSDepthNet, "forward", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    params = mvs_train.make_net(cfg, "cpu").state_dict()
+    mvs_train.predict_depth_priors(cfg, scene, params, device="cpu")
+    assert seen and all(f == (True, False) for f in seen), seen
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == (False, True)
+
+
 # --- the JAX module's own checks, on the port ------------------------------
 
 

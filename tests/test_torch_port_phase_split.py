@@ -36,6 +36,9 @@ def test_every_anchor_is_found_in_the_committed_header():
     assert header.count("PHASE_SAVE(") == tps.SAVE_CALLS + 2
     assert "save_rows<M>(" not in header.replace(
         "#define PHASE_SAVE(...) save_rows<M>(__VA_ARGS__)", "")
+    assert header.count("PHASE_SAVE3(") == tps.SAVE_CALLS + 2
+    assert "save_rows3<M>(" not in header.replace(
+        "#define PHASE_SAVE3(...) save_rows3<M>(__VA_ARGS__)", "")
 
 
 @pytest.mark.parametrize("source", tps.SOURCES)
@@ -78,7 +81,7 @@ def test_the_row_major_weight_grads_are_split_with_the_levels(tmp_path):
     v1 = (tmp_path / "fused_mlp_v1_bwd.cu").read_text()
     assert f'#include "{tps.HEADER}"' in v1
     assert "level_walk<2, mlp::NerfEnc, mlp::RowMajor, HS>" in v1
-    assert "level_walk<2, mlp::NerfEnc, L>" in (
+    assert "level_walk<2, mlp::NerfEnc, L, false, T>" in (
         tmp_path / "fused_mlp_bwd.cu").read_text()
     load = header.index("craw[3 * rows + p] = v.w;")
     forward = header.rindex("// ---- forward over sub-tiles", 0, load)

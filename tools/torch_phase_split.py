@@ -3,9 +3,10 @@
 #3 and #5, the weight grads #2, #7, #11, #14 and #16) and the bf16
 forwards #1, #10, #6 and #15 spend their time, on one CUDA card.
 
-    python3 tools/torch_phase_split.py          # both parts
+    python3 tools/torch_phase_split.py          # the bf16 parts
     python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14, #16
     python3 tools/torch_phase_split.py fwd      # #1, #10, #6, #15 and 6n
+    python3 tools/torch_phase_split.py fp32     # #3 and #2 in fp32
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
 `csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7 and
@@ -46,8 +47,13 @@ Then it builds `csrc/fused_mip_fwd.cu` three times more from copies of
 without the Jacobian and the walk back (its products and its weight
 slabs), and times 6n on the same chunk: the differences are the
 Jacobian's and the walk back's times, the rest #6's forward with the
-masks kept. Prints the card's name and power limit beside the times. Imports torch
-and the port only.
+masks kept. The fp32 part builds `csrc/onepass_level.cu` and
+`csrc/fused_mlp_bwd.cu` in the level part's four variants and times fp32
+#3 at the fine level and #2 at the fine patch launch (the fp32 walk: its
+forward on the CUDA cores, its backward and dW GEMM as six bf16 products;
+"forward" holds the forward, the heads and the compositing). Prints the
+card's name and power limit beside the times. Imports torch and the port
+only.
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ VARIANTS = {
     "fwd_saves": ["-DPHASE_NO_DW", "-DPHASE_NO_BWD"],
     "fwd": ["-DPHASE_NO_DW", "-DPHASE_NO_BWD", "-DPHASE_NO_SAVE"],
 }
-# Calls of save_rows<M>( in the level walk: the forward's (pe, ve, every
-# trunk layer, feat, hv) and the backward's rounded gradients.
-SAVE_CALLS = 6
+# Calls of save_rows<M>( in the level walk: the one in its `save` helper,
+# which makes every save of the bf16 walk (the forward's pe, ve, every
+# trunk layer, feat, hv and the backward's rounded gradients); and of
+# save_rows3<M>(, the same saves of the fp32 walk (three planes).
+SAVE_CALLS = 1
 
 FWD_HEADER = "fwd_hopper.cuh"
 FWD_SOURCES = ("fused_mlp_fwd.cu", "fused_mip_fwd.cu")
@@ -150,10 +158,13 @@ def patched_header(src: str) -> str:
     src = _replace(src, "  // ---- end of the dW GEMM ----",
                    "#endif\n  // ---- end of the dW GEMM ----")
     src = _replace(src, "save_rows<M>(", "PHASE_SAVE(", SAVE_CALLS)
+    src = _replace(src, "save_rows3<M>(", "PHASE_SAVE3(", SAVE_CALLS)
     return _replace(
         src, "__device__ inline float rnd(",
-        "#ifdef PHASE_NO_SAVE\n#define PHASE_SAVE(...)\n#else\n"
-        "#define PHASE_SAVE(...) save_rows<M>(__VA_ARGS__)\n#endif\n"
+        "#ifdef PHASE_NO_SAVE\n#define PHASE_SAVE(...)\n"
+        "#define PHASE_SAVE3(...)\n#else\n"
+        "#define PHASE_SAVE(...) save_rows<M>(__VA_ARGS__)\n"
+        "#define PHASE_SAVE3(...) save_rows3<M>(__VA_ARGS__)\n#endif\n"
         "__device__ inline float rnd(")
 
 
@@ -457,14 +468,87 @@ def main() -> None:
               flush=True)
 
 
+def fp32_main() -> None:
+    """Times fp32 #3 (fine level) and #2 (fine patch launch) in the four
+    level variants."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+    from consistentnerf_tpu_torch.ops import fused_onepass as op
+
+    card = _card()
+    csrc = REPO / "build" / "phase_split" / "csrc"
+    csrc.mkdir(parents=True, exist_ok=True)
+    for name, text in patched_sources(SOURCE_DIR).items():
+        (csrc / name).write_text(text)
+    dev = torch.device("cuda")
+    fm.strict_fp32(dev)
+    g = torch.Generator().manual_seed(0)
+    mlp = NeRFMLP()
+    mlp.reset_parameters(g)
+    packed = v2.pack([w.detach().to(dev) for w in fm.flatten_params(mlp)],
+                     8, (4,), 10, 4, "float32")
+    n_rays, seg = 4096, 192
+    o = torch.randn(n_rays, 3, generator=g) * 0.3 - torch.tensor(
+        [0.0, 0.0, 4.0])
+    d = torch.randn(n_rays, 3, generator=g) * 0.2 + torch.tensor(
+        [0.0, 0.0, 1.0])
+    z = torch.sort(torch.rand(n_rays, seg, generator=g) * 4 + 2, -1).values
+    o, d, z = o.to(dev), d.to(dev), z.to(dev).contiguous()
+    pts, views = op._pts_views(o.T, d.T, (d / d.norm(
+        dim=-1, keepdim=True)).T, z)
+    rows = [torch.rand(n_rays, generator=g).to(dev) * 1e-3
+            for _ in range(3)]
+    args = (pts, views, z, d.norm(dim=-1), rows[0],
+            torch.rand(n_rays, 3, generator=g).to(dev), rows[1], rows[2] + 4)
+    n_patch = 1024 * 192
+    p_pts = (torch.rand(3, n_patch, generator=g) * 4 - 2).to(dev)
+    p_views = torch.randn(3, n_patch, generator=g)
+    p_views = (p_views / p_views.norm(dim=0, keepdim=True)).to(dev)
+    p_g = (1e-3 * torch.randn(4, n_patch, generator=g)).to(dev)
+    cases = {
+        f"#3 fine ({n_rays * seg} points)": lambda: op.onepass_level(
+            packed, *args, white_bkgd=True, compute_dtype="float32"),
+        f"#2 fine patch ({n_patch} points)": lambda: v2.bwd_T(
+            packed, p_pts, p_views, p_g, 8, (4,), 10, 4, "float32"),
+    }
+    base_flags = list(_build.NVCC_FLAGS)
+    _build.CSRC = csrc
+    times = {case: {} for case in cases}
+    for name, flags in VARIANTS.items():
+        _build.NVCC_FLAGS = base_flags + flags
+        _build.BUILD_DIR = REPO / "build" / "phase_split" / f"fp32_{name}"
+        _build._LIBS.clear()
+        op._kernel.cache_clear()
+        v2._entry.cache_clear()
+        _build.build_all(["onepass_level", "fused_mlp_bwd"])
+        for case, run in cases.items():
+            times[case][name] = _time(run)
+            print(f"[{card}] {case} fp32 {name}: {times[case][name]:.3f} "
+                  "ms", flush=True)
+    for case, t_ in times.items():
+        print(f"[{card}] {case}, fp32: dW GEMM "
+              f"{t_['full'] - t_['no_dw']:.3f} ms, backward walk "
+              f"{t_['no_dw'] - t_['fwd_saves']:.3f} ms, workspace saves "
+              f"{t_['fwd_saves'] - t_['fwd']:.3f} ms, forward, heads and "
+              f"compositing (or the cotangent read) {t_['fwd']:.3f} ms, of "
+              f"{t_['full']:.3f} ms", flush=True)
+
+
 if __name__ == "__main__":
     part = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if part not in ("all", "level", "fwd"):
-        sys.exit("usage: torch_phase_split.py [level|fwd]")
+    if part not in ("all", "level", "fwd", "fp32"):
+        sys.exit("usage: torch_phase_split.py [level|fwd|fp32]")
     from consistentnerf_tpu_torch.ops import _build
 
     saved = (_build.CSRC, list(_build.NVCC_FLAGS), _build.BUILD_DIR)
-    for run_part, fn in (("level", main), ("fwd", fwd_main)):
-        if part in ("all", run_part):
+    for run_part, fn in (("level", main), ("fwd", fwd_main),
+                         ("fp32", fp32_main)):
+        if part == run_part or (part == "all" and run_part != "fp32"):
             fn()
             _build.CSRC, _build.NVCC_FLAGS, _build.BUILD_DIR = saved
