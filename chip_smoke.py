@@ -109,7 +109,9 @@ with the launch counts set to 0 just before it and read just after:
   `regnerf3/dtu/scan114_3.gin` (the one-pass mip step with the TV norm)
   and from a reference fern `.txt`; the fern_3view preset's fp32 step as
   the CLI builds it, timed, and guarded against the eager step at 1024
-  random rays; `ss_loss` on fern through the train
+  random rays; the regnerf3_dtu_scan114 preset's fp32 step (#5 / #7 on
+  the fp32 level walk) likewise, on the scan114 fixture, its launches
+  counted; `ss_loss` on fern through the train
   CLI on the one-pass step (#3 four a step: the main and the reference
   rays, both levels) and the v2 two-call step, with `use_pdf_kernel` off
   and on; the ss_loss steps guarded against the eager step at both
@@ -443,8 +445,8 @@ def ragged_bwd_gates(name, packed, streams, kfn, plain, dev, row=False,
                      twin=None, fp32_walk=False):
     """#2, #7, #11, #14 or #16 at RAGGED_BWD_N against its plain version,
     in bf16 and fp32 (dW rel L2 under TRAIN_DW_TOL), and a second bf16
-    launch bit for bit (`fp32_walk`, for #2 and #11: in fp32 too, and the
-    twin's fp32 bits). `packed(dtype)` packs the weights; `streams(n,
+    launch bit for bit (`fp32_walk`, for #2, #7, #11 and #16: in fp32 too,
+    and the twin's fp32 bits). `packed(dtype)` packs the weights; `streams(n,
     gen)` makes the seeded inputs; kfn / plain take (w, *streams, g,
     dtype); g is [4, N], or [N, 4] with `row`. `twin`: (its kernel's name,
     a function of kfn's arguments that runs it on the same points), whose
@@ -548,8 +550,7 @@ def ptxas_report(_build, name):
                 entry += " row-major"
             if "dw_gemm" in mangled:
                 entry = "dW GEMM"
-            elif (("level_kernel" in mangled or "bwd_kernel" in mangled)
-                  and "bfloat16" in mangled):
+            elif "level_kernel" in mangled or "bwd_kernel" in mangled:
                 entry += " level walk" if "Lb1E" in mangled else " legacy"
         elif "Used" in line or "spill" in line:
             log(f"  {name} [{entry}]: {line.strip()}")
@@ -722,11 +723,14 @@ def main() -> None:
                     fail(f"the {'bf16' if bf else 'fp32'} plan of {label} "
                          f"at {n_b} points is not the level walk")
     # #16 beside #7 at the mip level (MIP_LEVEL_N points, 8x256, 16 IPE
-    # frequencies): in bf16 both run the level walk, #16 with the
-    # row-major staging (9 x 64 floats more shared memory, the wrappers'
-    # figure); in fp32 train_block.
-    mpk = fmip.pack(fmip.flatten_mip_params(MipMLP()), 8, 16, "bfloat16")
-    mcfg_args = fmip._cfg_args(mpk)[:-1]
+    # frequencies): in bf16 and in fp32 both run the level walk, #16 with
+    # the row-major staging (9 x 64 floats more shared memory, the
+    # wrappers' figure); in fp32 the fp32 walk, its pe tile in the weight
+    # ring.
+    mflat0 = fmip.flatten_mip_params(MipMLP())
+    mpks = {1: fmip.pack(mflat0, 8, 16, "bfloat16"),
+            0: fmip.pack(mflat0, 8, 16, "float32")}
+    mcfg_args = fmip._cfg_args(mpks[1])[:-1]
     for bf in (1, 0):
         outs = {}
         for label, sym in (("#7 " + fmip.BWD_KERNEL, fmip.BWD_KERNEL),
@@ -739,18 +743,20 @@ def main() -> None:
                 fail(f"the plan of {label} failed")
             outs[sym] = list(out)
             log(f"  {'bf16' if bf else 'fp32'}: {label} ({MIP_LEVEL_N} "
-                f"points, mip 8x256, 16 frequencies) {level_plan_text(out)}"
-                f"; slot 8 (the level walk) {out[8]}")
+                f"points, mip 8x256, 16 frequencies) "
+                f"{level_plan_text(out, not bf)}; slot 8 (the level walk) "
+                f"{out[8]}")
         p16, p7 = outs[fmip.ROW_BWD_KERNEL], outs[fmip.BWD_KERNEL]
-        gate(p16[8] == bf, f"the {'bf16' if bf else 'fp32'} plan of #16 "
+        gate(p16[8] == 1, f"the {'bf16' if bf else 'fp32'} plan of #16 "
              f"has slot 8 = {p16[8]}")
-        if bf:
-            want = fm.walk_smem_bytes(mpk, -(-p16[4] // 64) * 64)
-            log(f"  #16 bf16 shared memory {p16[3]} bytes = #7's {p7[3]} + "
-                f"{p16[3] - p7[3]} (the wrappers' plan: {want})")
-            gate(p16[3] == want == p7[3] + 9 * 64 * 4 and
-                 p16[:3] + p16[4:] == p7[:3] + p7[4:],
-                 "#16's bf16 plan is not #7's with the row-major staging")
+        want = fm.walk_smem_bytes(mpks[bf], -(-p16[4] // 64) * 64)
+        log(f"  #16 {'bf16' if bf else 'fp32'} shared memory {p16[3]} bytes"
+            f" = #7's {p7[3]} + {p16[3] - p7[3]} (the wrappers' plan: "
+            f"{want})")
+        gate(p16[3] == want == p7[3] + 9 * 64 * 4 and
+             p16[:3] + p16[4:] == p7[:3] + p7[4:],
+             f"#16's {'bf16' if bf else 'fp32'} plan is not #7's with the "
+             "row-major staging")
     plan_o = _build.load(op.KERNEL).onepass_level_plan
     plan_o.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     # #2 and #3 at the vanilla presets' step shapes (the patch rays and the
@@ -773,17 +779,35 @@ def main() -> None:
                 f" {level_plan_text(outo, not bf)}")
             gate(outo[8] == 1, f"the {'bf16' if bf else 'fp32'} plan of #3 "
                  f"at 4096 x {seg} is not the level walk")
-    plan_mb = _build.load(fmip.BWD_KERNEL).fused_mip_bwd_plan
-    plan_mb.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    # #5, #7 and #16 at the mip presets' step shapes (regnerf3 / mipnerf3:
+    # 1024 data rays x 96 for #5, the 1024 MiDaS patch rays and the TV
+    # norm's 2048 random-pose rays x 96 for #7, the patch rays for #16;
+    # the bf16 mip benchmark's 3072 data rays): in bf16 and in fp32 (the
+    # mip presets' compute type) the plans must pick the level walk, with
+    # the wrappers' shared-memory figure (in fp32 the pe tile in the ring).
     plan_mo = _build.load(op.MIP_KERNEL).onepass_mip_level_plan
     plan_mo.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    mip_plans = [("#5 " + op.MIP_KERNEL, plan_mo, (n_r, 96), False)
+                 for n_r in (1024, 3072)]
+    for sym, shapes, row in ((fmip.BWD_KERNEL, (98304, 196608), False),
+                             (fmip.ROW_BWD_KERNEL, (98304,), True)):
+        fn = _build.load(fmip.BWD_KERNEL)[sym + "_plan"]
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        mip_plans += [(("#16 " if row else "#7 ") + sym, fn, (n_p,), row)
+                      for n_p in shapes]
     for bf in (1, 0):
-        out, outo = (ctypes.c_longlong * 9)(), (ctypes.c_longlong * 9)()
-        plan_mb(98304, 8, 256, 128, 16, 16, 4, bf, out)
-        plan_mo(3072, 96, 8, 256, 128, 16, 16, 4, bf, outo)
-        log(f"  {'bf16' if bf else 'fp32'}: {fmip.BWD_KERNEL} (98304 "
-            f"points) {level_plan_text(out)}; {op.MIP_KERNEL} (3072 x 96) "
-            f"{level_plan_text(outo)}")
+        for label, fn, lead, row in mip_plans:
+            out = (ctypes.c_longlong * 9)()
+            if fn(*lead, *mcfg_args, bf, out):
+                fail(f"the plan of {label} failed")
+            want = fm.walk_smem_bytes(mpks[bf], -(-out[4] // 64) * 64, row)
+            shape = " x ".join(map(str, lead))
+            log(f"  {'bf16' if bf else 'fp32'}: {label} ({shape}) "
+                f"{level_plan_text(out, not bf)} (the wrappers' shared "
+                f"memory: {want})")
+            gate(out[8] == 1 and out[3] == want,
+                 f"the {'bf16' if bf else 'fp32'} plan of {label} at "
+                 f"{shape} is not the level walk of the wrappers' figure")
 
     tail_plans(fm, v2, fmip, op)
 
@@ -2041,10 +2065,11 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
             gate(rel < TRAIN_DW_TOL[dtype],
                  f"{fmip.BWD_KERNEL} level {lvl} {dtype} disagrees with its "
                  f"plain version ({rel:.3e})")
-            if dtype == "bfloat16":
-                repeat_gate(f"{fmip.BWD_KERNEL} level {lvl}", got,
-                            fmip.bwd_T(w, *levels_p[lvl], g7[lvl],
-                                       compute_dtype=dtype, **kw))
+            # Both types (fp32: the fp32 level walk).
+            repeat_gate(f"{fmip.BWD_KERNEL} level {lvl}", got,
+                        fmip.bwd_T(w, *levels_p[lvl], g7[lvl],
+                                   compute_dtype=dtype, **kw),
+                        "bf16" if dtype == "bfloat16" else "fp32")
             del got, want
             got_rows, got = op.onepass_mip_level(
                 w, *levels_r[lvl], compute_dtype=dtype, white_bkgd=True,
@@ -2073,13 +2098,12 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
                  and max(row_errs) < ROWS_TOL[dtype],
                  f"{op.MIP_KERNEL} level {lvl} {dtype} disagrees with its "
                  f"plain version (rows {max(row_errs):.3e}, dW {rel:.3e})")
-            if dtype == "bfloat16":
-                again = op.onepass_mip_level(
-                    w, *levels_r[lvl], compute_dtype=dtype, white_bkgd=True,
-                    **kw)
-                repeat_gate(f"{op.MIP_KERNEL} level {lvl}", (got_rows, got),
-                            again)
-                del again
+            again = op.onepass_mip_level(
+                w, *levels_r[lvl], compute_dtype=dtype, white_bkgd=True,
+                **kw)
+            repeat_gate(f"{op.MIP_KERNEL} level {lvl}", (got_rows, got),
+                        again, "bf16" if dtype == "bfloat16" else "fp32")
+            del again
             del got, want, got_rows, want_rows
             torch.cuda.empty_cache()
 
@@ -2097,7 +2121,39 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
         lambda w, means, covs, views, g, dtype: fmip.bwd_T(
             w, means, covs, views, g, compute_dtype=dtype, **kw),
         lambda w, means, covs, views, g, dtype: fmip.plain_bwd_T(
-            w, means, covs, views, g, compute_dtype=dtype, **kw), dev)
+            w, means, covs, views, g, compute_dtype=dtype, **kw), dev,
+        fp32_walk=True)
+
+    # 13c. #5 in fp32 (the fp32 level walk) at RAGGED_RAYS of the random
+    # rays' level-1 samples: against its plain version and a repeat bit
+    # for bit.
+    w32 = fmip.pack(flat, cfg.netdepth, cfg.max_deg_point, "float32")
+    for n_r in RAGGED_RAYS:
+        lv = levels_r[1]
+        sub = tuple(x[:, :n_r * s].contiguous() for x in lv[:3]) + tuple(
+            None if x is None else x[:n_r].contiguous() for x in lv[3:])
+        got_rows, got = op.onepass_mip_level(
+            w32, *sub, compute_dtype="float32", white_bkgd=True, **kw)
+        torch.cuda.synchronize()
+        want_rows, want = op.plain_onepass_mip_level(
+            w32, *sub, compute_dtype=torch.float32, white_bkgd=True, **kw)
+        rel, mx = grads_err(got, want)
+        row_err = ((got_rows - want_rows).abs().amax(1) / want_rows.abs(
+        ).amax(1).clamp_min(1e-30)).max().item()
+        log(f"{op.MIP_KERNEL} fp32 vs plain, {n_r} rays x {s}: rows max "
+            f"|diff|/max|plain| {row_err:.3e} (tol {ROWS_TOL['float32']:g})"
+            f"; dW max|diff| {mx:.3e}, max rel L2 {rel:.3e} (tol "
+            f"{TRAIN_DW_TOL['float32']:g})")
+        if not (torch.isfinite(got_rows).all()
+                and all(torch.isfinite(x).all() for x in got)):
+            fail(f"{op.MIP_KERNEL} fp32 {n_r} x {s}: non-finite output")
+        gate(rel < TRAIN_DW_TOL["float32"] and row_err < ROWS_TOL["float32"],
+             f"{op.MIP_KERNEL} fp32 {n_r} rays x {s} disagrees with its "
+             f"plain version (rows {row_err:.3e}, dW {rel:.3e})")
+        repeat_gate(f"{op.MIP_KERNEL} {n_r} rays x {s}", (got_rows, got),
+                    op.onepass_mip_level(w32, *sub, compute_dtype="float32",
+                                         white_bkgd=True, **kw), "fp32")
+    del w32
 
     # 14. The mip train path: the train CLI, a checkpoint, a resume. The
     # CLI loads the synthetic scene only through dataset_type=synthetic,
@@ -2217,6 +2273,26 @@ def mip_train_phases(dev, card, configs, fm, fmip, op):
                 f"{100 * bound / ms:.1f}% of it)")
         plain_ms = time_ms(runner(plain, 1), 1)
         log(f"{tag} plain version of {kern}, bf16 level 1: {plain_ms:.3f} ms")
+        # fp32 (the mip presets' compute type): the fp32 level walk.
+        w32 = fmip.pack(flat, cfg.netdepth, cfg.max_deg_point, "float32")
+        if kern == fmip.BWD_KERNEL:
+            run32 = (lambda: kfn(w32, *levels[1], g7[1],
+                                 compute_dtype="float32", **kw),
+                     lambda: plain(w32, *levels[1], g7[1],
+                                   compute_dtype="float32", **kw))
+        else:
+            run32 = tuple(
+                (lambda f=f: f(w32, *levels[1], white_bkgd=True,
+                               compute_dtype=torch.float32, **kw))
+                for f in (kfn, plain))
+        ms32, plain32 = time_ms(run32[0], 3), time_ms(run32[1], 1)
+        n1 = levels[1][0].shape[1]
+        b_cc, b_six = (1e3 * n1 * train_pp / peak for peak in (
+            PEAK_FP32_FLOPS, PEAK_SIX_FLOPS))
+        log(f"{tag} {kern} fp32 level 1 (N={n1}): {ms32:.3f} ms/launch, "
+            f"bounds {b_cc:.3f} ms (CUDA cores) / {b_six:.3f} ms (six bf16 "
+            f"products); plain version {plain32:.3f} ms")
+        del w32
         ms, bound, by = res_ms[1]
         rows.append(dict(
             name=kern, route="cuda",
@@ -3343,21 +3419,18 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
             f"{fmip.ROW_BWD_KERNEL} {dtype}", got,
             fmip.bwd_T(w, *streams_T, gm.T.contiguous(),
                        compute_dtype=dtype, **kw))
-        if dtype == "float32":
-            gate(same or rel_t < ROW_VS_T_TOL,
-                 f"{fmip.ROW_BWD_KERNEL} disagrees with {fmip.BWD_KERNEL}")
-        else:
-            # bf16: the level walk under the two layouts, whose row-major
-            # staging changes no value or order.
-            gate(same, f"{fmip.ROW_BWD_KERNEL} bf16 is not bit-identical "
-                 f"to {fmip.BWD_KERNEL} on the same points")
-            repeat_gate(f"{fmip.ROW_BWD_KERNEL} mip level", got, fmip.bwd(
-                w, means, covs, mviews, gm, compute_dtype=dtype, **kw))
+        # Both types (fp32: the fp32 walk): the level walk under the two
+        # layouts, whose row-major staging changes no value or order.
+        short = "bf16" if dtype == "bfloat16" else "fp32"
+        gate(same, f"{fmip.ROW_BWD_KERNEL} {short} is not bit-identical "
+             f"to {fmip.BWD_KERNEL} on the same points")
+        repeat_gate(f"{fmip.ROW_BWD_KERNEL} mip level", got, fmip.bwd(
+            w, means, covs, mviews, gm, compute_dtype=dtype, **kw), short)
         del got
         torch.cuda.empty_cache()
 
     # #16 at the ragged sizes (the mip level's weights, seeded Gaussians),
-    # and bit for bit #7's on the same points in bf16.
+    # and bit for bit #7's on the same points, in bf16 and in fp32.
     ragged_bwd_gates(
         fmip.ROW_BWD_KERNEL,
         lambda dtype: fmip.pack(mflat_d, mcfg.netdepth, mcfg.max_deg_point,
@@ -3369,7 +3442,7 @@ def rowmajor_kernel_phases(dev, card, configs, fm, v2, fmip, op):
             w, m, c, v, g_, compute_dtype=dtype, **kw), dev, row=True,
         twin=(fmip.BWD_KERNEL, lambda w, m, c, v, g_, dtype: fmip.bwd_T(
             w, m.T.contiguous(), c.T.contiguous(), v.T.contiguous(),
-            g_.T.contiguous(), compute_dtype=dtype, **kw)))
+            g_.T.contiguous(), compute_dtype=dtype, **kw)), fp32_walk=True)
 
     # 28. The op's path: fused_mip_mlp_train forward and, by autograd, its
     # weight grads at the mip level (one launch of #15 and of #16).
@@ -4976,8 +5049,10 @@ def consistency_phases(dev, card, configs, v2, fmip, op, pdf_merge, tmp,
     fern_3view preset (fp32, the one-pass vanilla step: #1, #2, #3), from
     a reference .gin like regnerf3/dtu/scan114_3.gin (fp32, the one-pass
     mip step with the TV norm: #5, #6, #7) and from a reference .txt for
-    fern; ss_loss on fern through the train CLI on the one-pass step (#3
-    four a step: main and reference rays, both levels) and the v2
+    fern; the fern_3view and regnerf3_dtu_scan114 presets' fp32 steps
+    (#5 and #7 on the fp32 level walk) timed and guarded against the
+    eager steps; ss_loss on fern through the train CLI on the one-pass
+    step (#3 four a step: main and reference rays, both levels) and the v2
     two-call step (#1 / #2 four a step), with use_pdf_kernel off and on
     (#8 three and two a step); the ss_loss steps guarded against the
     eager step at both gate values, the one-pass step's #3 dW repeated
@@ -5120,6 +5195,66 @@ def consistency_phases(dev, card, configs, v2, fmip, op, pdf_merge, tmp,
             "TV norm)", ["--config", gin] + sets(["i_print=1"]),
             {fmip.KERNEL: 4, fmip.BWD_KERNEL: 4, op.MIP_KERNEL: 2},
             counted=mip, check=tv_engaged)
+    # The regnerf3_dtu_scan114 preset's step as cli/train.py builds it on
+    # the card (fp32, the one-pass mip step with the TV norm: #5 on the
+    # data rays and #6 + #7 on the MiDaS patch rays and on the random-pose
+    # rays, #5 and #7 on the fp32 level walk), on the scan114 fixture,
+    # timed beside fern_3view's and guarded against the eager mip step
+    # (randomized=False: a stochastic level 1 magnifies ~1e-7
+    # differences through its inverse CDF).
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher
+    from consistentnerf_tpu_torch.data.random_poses import \
+        generate_random_poses
+
+    d_args = common.make_parser("regnerf3_dtu_scan114").parse_args(
+        ["--scene", "regnerf3_dtu_scan114", "--device", str(dev)] + sets(
+            [f"datadir={dtu['dir']}", f"dtu_mask_path={dtu['mask_path']}",
+             # the preset's masknerf split holds views the fixture has no
+             # GT depths for (as in the gin file above)
+             "dtu_split_type=pixelnerf"] + run))
+    d_cfg = common.auto_fused_defaults(common.resolve_config(d_args), d_args)
+    gate(d_cfg.compute_dtype == "float32" and d_cfg.use_onepass_train
+         and d_cfg.backbone == "mipnerf" and d_cfg.load_random_rays,
+         "the regnerf3_dtu_scan114 preset on the card is not the fp32 "
+         "one-pass mip step with the TV norm")
+    d_scene = load_scene(d_cfg, device=str(dev))
+    d_poses = generate_random_poses(
+        d_scene.poses[d_scene.i_train], n_poses=d_cfg.n_random_poses,
+        pose_type=d_cfg.random_pose_type, radius=d_cfg.random_pose_radius,
+        focusptjitter=d_cfg.random_pose_focusptjitter,
+        add_test_poses=d_cfg.random_pose_add_test_poses,
+        test_poses=d_scene.poses[d_scene.i_test])
+    d_state = loop.init_state(d_cfg, dev)
+    d_batcher = MipBatcher(d_scene, d_cfg, random_poses=d_poses)
+    d_batches = [to_device(d_batcher.next_batch(), dev) for _ in range(4)]
+    n_d = d_batches[0]["rays"].origins.shape[0]
+    n_tv = d_batches[0]["rays_random"].origins.shape[0]
+    for mod, attr, _ in mip:
+        setattr(mod, attr, 0)
+    d_step = loop.select_train_step(d_cfg, d_state.model)
+    bench_steps(f"regnerf3_dtu_scan114 preset step (fp32, one-pass mip, TV "
+                f"norm, {n_d} + {n_tv} random-pose rays)", tag, d_step,
+                d_state, d_batches, n_d + n_tv)
+    got = {k: getattr(mod, attr) for mod, attr, k in mip}
+    per = {k: v / (TIMED_STEPS + 2) for k, v in got.items()}
+    log(f"regnerf3_dtu_scan114 preset step launches a step: {per} "
+        "(expected #6 4, #7 4, #5 2)")
+    gate(per == {fmip.KERNEL: 4, fmip.BWD_KERNEL: 4, op.MIP_KERNEL: 2},
+         f"the regnerf3_dtu_scan114 step launched {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    del d_state, d_batches, d_step
+    g_cfg = d_cfg.replace(randomized=False)
+    g_state = loop.init_state(g_cfg, dev)
+    g_batch = to_device(MipBatcher(d_scene, g_cfg, random_poses=d_poses)
+                        .next_batch(), dev)
+    guard_steps(f"regnerf3_dtu_scan114 preset step guard ({n_d} + {n_tv} "
+                "random-pose rays, fp32)",
+                loop.select_train_step(g_cfg, g_state.model),
+                step_lib.build_mip_train_step(g_state.model, g_cfg),
+                g_state, g_batch)
+    del g_state, g_batch, d_scene
+    torch.cuda.empty_cache()
     txt = os.path.join(tmp, "fern.txt")
     with open(txt, "w") as f:
         f.write(FERN_TXT.format(expname="fern_txt", basedir=tmp,

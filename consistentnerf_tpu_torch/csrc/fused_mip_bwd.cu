@@ -19,23 +19,34 @@
 // kernel recomputed it too) with every activation saved.
 //
 // Design: fused_mlp_bwd.cu's, with the mip encoder (mlp_common.cuh::
-// MipEnc). Both kernels in bf16 at widths up to 256 run level_train.cuh's
-// three launches in mode 2 (the level walk with g read into the chunk's
+// MipEnc). Both kernels at widths up to 256 run level_train.cuh's three
+// launches in mode 2 (the level walk with g read into the chunk's
 // cotangent rows, zero past its points; the split-K dW GEMM over a
 // workspace row per point; a fixed-order reduction): a patch level of the
 // mip step (98,304 points) is one wave of 128 chunks of 768. They replace
 // train_block's mode-2 walk, whose dW pass re-read and re-stored every
-// fp32 dW block per chunk (13.05 ms for #7 at a patch level on an H100,
-// 2.7% of the bound; 48.3 ms for #16 at 393,216 points, 2.9%). The
-// row-major kernel #16 differs only in its reads: each 64-point tile's
-// means, covariances and views are staged into shared memory by one
-// coalesced copy and encoded from there, and a point's 4 cotangents are
-// one 16-byte load; nothing after the walk knows the layout, so #16
-// gives #7's bits on the same points. The fp32 path and bf16 widths over
-// 256 keep train_block with its dW pass per 768-point chunk and a second
-// launch that reduces the per-block partials in a fixed order, so every
-// path gives the same bits from run to run; fp32 #7 and #16 are the same
-// walk, so they agree bit for bit.
+// fp32 dW block per chunk (13.05 ms for #7 at a patch level on an H100 in
+// bf16, 2.7% of the bound; 48.3 ms for #16 at 393,216 points, 2.9%; fp32
+// #7 123.8-124.1 ms at 98,304 points and 234.9-235.1 ms at 196,608,
+// tools/fp32_walk_ab.py). In fp32 (the mip presets' compute type) the
+// walk's fp32 path, as #2's: the forward on the CUDA cores with the old
+// walk's arithmetic, the backward's products and the dW GEMM as six bf16
+// products a fp32 product on the weights' three planes w3 from the host
+// and a three-plane workspace (29,952 B a point at 8x256 / 16
+// frequencies: 2.94 GB at a patch level, 5.89 GB at the TV norm's
+// 196,608 random-pose points). Its block keeps the forward's pe tile
+// (26,624 B) in the weight ring beside the second activation tile
+// (level_train.cuh::pe_in_ring): 209,920 B of dynamic shared memory at
+// 768-row chunks, 212,224 with #16's row-major staging (pe in its own
+// place: 236,544 and 238,848, past a block's 232,448 with the 1,328
+// static bytes). The row-major kernel #16 differs only in its reads: each
+// 64-point tile's means, covariances and views are staged into shared
+// memory by one coalesced copy and encoded from there, and a point's 4
+// cotangents are one 16-byte load; nothing after the walk knows the
+// layout, so #16 gives #7's bits on the same points, in bf16 and in
+// fp32. Widths over 256 keep train_block with its dW pass per 768-point
+// chunk and a second launch that reduces the per-block partials in a
+// fixed order, so every path gives the same bits from run to run.
 
 #include "level_train.cuh"
 
@@ -44,69 +55,66 @@ namespace {
 using mlp::bf16;
 using mlp::Dims;
 
-// WG: the level walk in mode 2 (bf16, streams in layout L; its dW in the
-// GEMM that follows). Else train_block's walk with its dW pass.
+// WG: the level walk in mode 2 (streams in layout L; its dW in the GEMM
+// that follows; in fp32 on three bf16 planes, ws then holding bf16). Else
+// train_block's walk with its dW pass: widths over 256.
 template <typename T, typename L, bool WG>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     fused_mip_bwd_kernel(const float* means, const float* covs,
                          const float* views, const float* g, int n,
                          const T* w, const float* b, T* ws, float* part,
                          size_t part_stride, int cpts, Dims d,
-                         const __grid_constant__ mlp::WMaps maps) {
+                         const __grid_constant__ mlp::WMapsN<mlp::kPlanes<T>>
+                             maps) {
   mlp::RayRows rr{};
   rr.n_rays = n;
   rr.seg = 1;
   if constexpr (WG)
-    mlp::level_walk<2, mlp::MipEnc, L>(means, covs, views, g, rr, w, b, ws,
-                                       part, part_stride, cpts, d, maps);
+    mlp::level_walk<2, mlp::MipEnc, L, false, T>(
+        means, covs, views, g, rr, w, b, reinterpret_cast<mlp::bf16*>(ws),
+        part, part_stride, cpts, d, maps);
   else
     mlp::train_block<T, 2, mlp::MipEnc, L>(means, covs, views, g, rr, w, b,
                                            ws, part, part_stride, n, d);
 }
 
-// The level walk for bf16 streams of either layout.
-template <typename T>
-constexpr bool kWalk = std::is_same<T, bf16>::value;
-
-// The nine slots of level_plan (legacy_level_plan where the walk is not
-// an option).
+// The nine slots of level_plan, in either type and layout (the legacy
+// walk where the shapes are past the level walk's).
 template <typename T, typename L>
 int plan9(int n, const Dims& d, long long* pl) {
-  if constexpr (kWalk<T>)
-    return mlp::level_plan<L>(fused_mip_bwd_kernel<T, L, true>,
-                              fused_mip_bwd_kernel<T, L, false>, 2, n, 1, d,
-                              pl);
-  else
-    return mlp::legacy_level_plan<T>(fused_mip_bwd_kernel<T, L, false>, 2,
-                                     n, 1, d, pl);
+  return mlp::level_plan<L, false, T>(fused_mip_bwd_kernel<T, L, true>,
+                                      fused_mip_bwd_kernel<T, L, false>, 2,
+                                      n, 1, d, pl);
 }
 
+// wt: the weight planes the walk's maps read (w in bf16, w3 in fp32).
 template <typename T, typename L>
 int launch(const void* means, const void* covs, const void* views,
-           const void* g, const void* w, const void* b, void* ws, void* part,
-           void* gpart, void* dw, int n, Dims d, cudaStream_t stream) {
+           const void* g, const void* w, const void* wt, const void* b,
+           void* ws, void* part, void* gpart, void* dw, int n, Dims d,
+           cudaStream_t stream) {
   long long pl[9];
   const int err = plan9<T, L>(n, d, pl);
   if (err) return err;
-  return mlp::level_launch<T>(
-      fused_mip_bwd_kernel<T, L, kWalk<T>>,
-      fused_mip_bwd_kernel<T, L, false>, pl, d, w, w, b, ws, part, gpart, dw,
-      stream, static_cast<const float*>(means),
-      static_cast<const float*>(covs), static_cast<const float*>(views),
-      static_cast<const float*>(g), n);
+  return mlp::level_launch<T, false, mlp::kPlanes<T>>(
+      fused_mip_bwd_kernel<T, L, true>, fused_mip_bwd_kernel<T, L, false>,
+      pl, d, w, wt, b, ws, part, gpart, dw, stream,
+      static_cast<const float*>(means), static_cast<const float*>(covs),
+      static_cast<const float*>(views), static_cast<const float*>(g), n);
 }
 
 template <typename L>
 int run(const void* means, const void* covs, const void* views,
-        const void* g, const void* w, const void* b, void* ws, void* part,
-        void* gpart, void* dw, int n, Dims d, int use_bf16, void* stream) {
+        const void* g, const void* w, const void* w3, const void* b,
+        void* ws, void* part, void* gpart, void* dw, int n, Dims d,
+        int use_bf16, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    return launch<bf16, L>(means, covs, views, g, w, b, ws, part, gpart, dw,
-                           n, d, s);
-  return launch<float, L>(means, covs, views, g, w, b, ws, part, gpart, dw,
-                          n, d, s);
+    return launch<bf16, L>(means, covs, views, g, w, w, b, ws, part, gpart,
+                           dw, n, d, s);
+  return launch<float, L>(means, covs, views, g, w, w3, b, ws, part, gpart,
+                          dw, n, d, s);
 }
 
 }  // namespace
@@ -122,18 +130,21 @@ extern "C" int fused_mip_bwd_plan(int n, int depth, int width,
 }
 
 // means, covs, views: [3, n] fp32; g: [4, n] fp32; w: packed weights
-// (bf16 when use_bf16, else fp32); b: packed fp32 biases; ws, part,
-// gpart: the plan's workspace (of the weight type), block partials and
-// split partials (fp32); dw: [w_total + b_total] fp32 out (dW then db,
-// packed order).
+// (bf16 when use_bf16, else fp32); w3: in fp32 the weights' three bf16
+// planes [3, w_total] (fused_mlp_v2.py::split3; unread in bf16); b:
+// packed fp32 biases; ws, part, gpart: the plan's workspace (bf16 where
+// the level walk runs, else of the weight type), block partials and split
+// partials (fp32); dw: [w_total + b_total] fp32 out (dW then db, packed
+// order).
 extern "C" int fused_mip_bwd(const void* means, const void* covs,
                              const void* views, const void* g, const void* w,
-                             const void* b, void* ws, void* part, void* gpart,
-                             void* dw, int n, int depth, int width,
-                             int view_width, int skip_mask, int num_freqs,
-                             int deg_view, int use_bf16, void* stream) {
+                             const void* w3, const void* b, void* ws,
+                             void* part, void* gpart, void* dw, int n,
+                             int depth, int width, int view_width,
+                             int skip_mask, int num_freqs, int deg_view,
+                             int use_bf16, void* stream) {
   return run<mlp::ColMajor>(
-      means, covs, views, g, w, b, ws, part, gpart, dw, n,
+      means, covs, views, g, w, w3, b, ws, part, gpart, dw, n,
       Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
       use_bf16, stream);
 }
@@ -153,13 +164,14 @@ extern "C" int fused_mip_bwd_row_plan(int n, int depth, int width,
 // Arguments as fused_mip_bwd's, in the row-major layout.
 extern "C" int fused_mip_bwd_row(const void* means, const void* covs,
                                  const void* views, const void* g,
-                                 const void* w, const void* b, void* ws,
-                                 void* part, void* gpart, void* dw, int n,
-                                 int depth, int width, int view_width,
-                                 int skip_mask, int num_freqs, int deg_view,
-                                 int use_bf16, void* stream) {
+                                 const void* w, const void* w3,
+                                 const void* b, void* ws, void* part,
+                                 void* gpart, void* dw, int n, int depth,
+                                 int width, int view_width, int skip_mask,
+                                 int num_freqs, int deg_view, int use_bf16,
+                                 void* stream) {
   return run<mlp::RowMajor>(
-      means, covs, views, g, w, b, ws, part, gpart, dw, n,
+      means, covs, views, g, w, w3, b, ws, part, gpart, dw, n,
       Dims(depth, width, skip_mask, num_freqs, deg_view, 1, view_width),
       use_bf16, stream);
 }

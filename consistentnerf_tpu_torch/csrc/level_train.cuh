@@ -4,10 +4,10 @@
 // row-major twin #11 (the same file), #7 (fused_mip_bwd.cu), its
 // row-major twin #16 (the same file) and the v1 kernel #14
 // (fused_mlp_v1_bwd.cu, with v1's heads on [pe | h]), and their dW
-// product, in bf16; and in fp32 #3, #2 and #11 (the fp32 walk below: six
-// bf16 products a fp32 product). The fp32 path of #5, #7, #14 and #16,
-// widths over 256 and the normals (mode 5) keep mlp_train.cuh::
-// train_block.
+// product, in bf16; and in fp32 #3, #2, #11, #5, #7 and #16 (the fp32 walk
+// below: six bf16 products a fp32 product; with the IPE its pe tile in the
+// weight ring, pe_in_ring). The fp32 path of #14, widths over 256 and the
+// normals (mode 5) keep mlp_train.cuh::train_block.
 //
 // What it replaces: train_block ran forward, (compositing,) backward AND
 // the dW pass per 768-point chunk in one persistent block. Its dW pass
@@ -71,7 +71,9 @@
 // the last wave of the walk's persistent grid full (level_plan): the fine
 // level 4 rays of 192 (8 waves), the coarse level 8 rays of 64 (4 waves,
 // where 12 rays made 2.6), a mip level 8 rays of 96; #2 at its fine
-// patch shape 768 points (2 waves), at its coarse one 512 (1 wave).
+// patch shape 768 points (2 waves), at its coarse one 512 (1 wave). The
+// fp32 walk takes the same chunks (with the IPE its pe tile moves into
+// the ring so that 768 rows fit, pe_in_ring).
 //
 // Rounding is train_block's (mlp_train.cuh, _aligned_backward_from_res):
 // the same bf16 roundings at the same points (the wgmma products give the
@@ -518,9 +520,11 @@ __device__ inline void wg_bwd(WStream& st, const WMaps& maps, const Dims& d,
 // few thousand points flipped, and each moved the dW by up to ~1e-3 of
 // its norm, past the fp32 gates (tools/fp32_walk_diag.py counts such
 // masks). The forward's second activation tile lives
-// in the weight ring, which the stream fills only in the backward; the
-// backward keeps one tile and runs every step in place (a product reads
-// the tile, the block syncs, its epilogue writes the tile over).
+// in the weight ring, which the stream fills only in the backward (with
+// the IPE the forward's pe tile too, pe_in_ring: the mip kernels' 96
+// encoding columns would not fit otherwise); the backward keeps one tile
+// and runs every step in place (a product reads the tile, the block
+// syncs, its epilogue writes the tile over).
 
 // The fp32 walk's forward layer on the CUDA cores: dst[m, n] =
 // act(bias[n] + the fma chain over k of [s0 | s1][m, k] Wt[k, n], in k
@@ -788,17 +792,38 @@ __device__ inline void save_rows3(const float* src, int ld, int cols,
   }
 }
 
+// Whether the fp32 walk keeps its forward's pe tile in the weight ring,
+// beside the forward's second activation tile: with the IPE (d.ipe, the
+// mip kernels #5, #7 and #16) where the two fit the ring. The ring takes
+// the stream's slabs only in the backward, and nothing after the forward
+// reads the pe tile (the backward and the dW GEMM read pe from the
+// workspace). At 8x256 and 16 IPE frequencies the pe tile is 64 x 104
+// floats (26,624 B) beside 64 x 264 (67,584 B) in the ring's 98,304; in
+// its own place it would put the walk's block at 237,872 B with the static
+// bytes, past the 232,448 a block may hold at 768-row chunks, and at
+// 211,248 B in the ring (213,552 with #16's row-major staging). The NeRF
+// encoder's fp32 walk (#2, #3, #11) keeps pe in its own place.
+__host__ __device__ inline bool pe_in_ring(const Dims& d) {
+  constexpr int M = 64;
+  return d.ipe && (size_t)M * (d.act_cols() + d.P + 2 * kPad) *
+                          sizeof(float) <=
+                      (size_t)kWStages * kWStage;
+}
+
 // Shared memory of one walk block, in bytes (must match the carve-up in
 // level_walk): the weight ring (and its alignment slack), the tiles of T
-// (pe, ve and two activation tiles in bf16, one in fp32), the per-chunk
-// rows, the column-sum partials and, for row-major streams (`row`),
-// encode_tile's staging of a tile's points (9 M floats).
+// (pe, ve and two activation tiles in bf16, one in fp32; the fp32 pe tile
+// in the ring where pe_in_ring), the per-chunk rows, the column-sum
+// partials and, for row-major streams (`row`), encode_tile's staging of a
+// tile's points (9 M floats).
 template <typename T = bf16>
 __host__ __device__ inline size_t level_smem(const Dims& d, int rows,
                                              bool row = false) {
   constexpr int M = 64, kActTiles = sizeof(T) == sizeof(bf16) ? 2 : 1;
   const int ac = d.act_cols();
-  const size_t elems = (size_t)M * (d.P + kPad) + (size_t)M * (d.V + kPad) +
+  const bool ring_pe = sizeof(T) != sizeof(bf16) && pe_in_ring(d);
+  const size_t elems = (ring_pe ? 0 : (size_t)M * (d.P + kPad)) +
+                       (size_t)M * (d.V + kPad) +
                        kActTiles * (size_t)M * (ac + kPad);
   const size_t floats = 4 * M + 5 * (size_t)rows +
                         2 * (size_t)kWarps * ac + (row ? 9 * M : 0);
@@ -883,11 +908,16 @@ __device__ void level_walk(const float* __restrict__ pts,
   const size_t ps = F32 ? (size_t)(n + cpts - 1) / cpts * rows * ldw : 0;
   const int ldp = P + kPad, ldv = V + kPad, ldh = d.act_cols() + kPad;
   const int ldc = d.act_cols();
-  T* pe = reinterpret_cast<T*>(ring + kWStages * kWStage);
-  T* ve = pe + M * ldp;
+  // The tiles after the ring: pe, ve, the activation tiles. fp32: one
+  // activation tile; the forward's second in the weight ring (64 x ldh
+  // floats, 67.6 KB at most, in its 96 KB), and with the IPE the pe tile
+  // beside it (pe_in_ring: 26.6 KB at 16 frequencies), since only the
+  // forward reads it.
+  const bool ring_pe = F32 && pe_in_ring(d);
+  T* const tiles = reinterpret_cast<T*>(ring + kWStages * kWStage);
+  T* pe = ring_pe ? reinterpret_cast<T*>(ring) + M * ldh : tiles;
+  T* ve = ring_pe ? tiles : pe + M * ldp;
   T* hx = ve + M * ldv;
-  // fp32: one activation tile; the forward's second in the weight ring
-  // (64 x ldh floats, 67.6 KB at most, in its 96 KB).
   T* hy = F32 ? reinterpret_cast<T*>(ring) : hx + M * ldh;
   float* graw = reinterpret_cast<float*>(hx + (F32 ? 1 : 2) * M * ldh);
   float* craw = graw + 4 * M;   // [4][rows] raw, then d_raw

@@ -30,13 +30,27 @@
 // / 4 (see fused_mip_bwd.cu): 1.061 ms a level (294,912 points) at 989
 // bf16 TFLOP/s.
 //
-// Design (bf16): level_train.cuh's walk in mode 4 with the mip encoder,
-// the same three launches as onepass_level.cu (wgmma products fed by a
-// TMA weight stream, the dW as one split-K GEMM over the level, a
+// Design: level_train.cuh's walk in mode 4 with the mip encoder, the
+// same three launches as onepass_level.cu (wgmma products fed by a TMA
+// weight stream, the dW as one split-K GEMM over the level, a
 // fixed-order reduction), and what they do about the old kernel's costs
-// (half of its 38.7 ms a level in the dW pass, a third in the backward
-// walk). A chunk is 8 rays of 96 samples (768 points; 3 waves). The fp32
-// path keeps mlp_train.cuh's mode-4 SIMT walk.
+// (half of its 38.7 ms a level in the bf16 dW pass, a third in the
+// backward walk). A chunk is 8 rays of 96 samples (768 points; 3 waves
+// at the flagship mip level, 1 at regnerf3's 1024 data rays). fp32 (the
+// mip presets' compute type) runs the same launches on the walk's fp32
+// path, as #3 does: the forward on the CUDA cores with the old walk's
+// arithmetic (encode_ipe<float>, layer_f32), the backward's products and
+// the dW GEMM as six bf16 products a fp32 product on the weights' three
+// planes w3 and a three-plane workspace (29,952 B a point at 8x256, 2.94
+// GB at 98,304 points). Its shared memory: the ring (98,304 B + 1,024
+// alignment) holds the forward's second activation tile (67,584 B) and
+// the pe tile (26,624 B) beside it (level_train.cuh::pe_in_ring); ve (10
+// KB), one fp32 activation tile (67.6 KB), the chunk's rows and the
+// column sums follow: 209,920 B a block, 211,248 with the static bytes
+// (pe in its own place: 237,872, past a block's 232,448). The
+// 32-point SIMT walk (mlp_train.cuh::train_block) it replaces took
+// 127.5-127.8 ms a level at 1024 x 96 on an H100 (tools/fp32_walk_ab.py);
+// widths over 256 keep it.
 
 #include "level_train.cuh"
 
@@ -45,19 +59,21 @@ namespace {
 using mlp::bf16;
 using mlp::Dims;
 
-// WG: the level walk of level_train.cuh (bf16; its dW in the GEMM that
-// follows). Else train_block's walk with its dW pass: the fp32 path (the
-// 32-point SIMT walk), and bf16 widths over 256.
+// WG: the level walk of level_train.cuh (its dW in the GEMM that follows;
+// in fp32 on three bf16 planes, ws then holding bf16). Else train_block's
+// walk with its dW pass: widths over 256.
 template <typename T, bool WG>
 __global__ void __launch_bounds__(mlp::kThreads, 1)
     onepass_mip_level_kernel(const float* means, const float* covs,
                              const float* views, mlp::RayRows rr,
                              const T* w, const float* b, T* ws, float* part,
                              size_t part_stride, int cpts, Dims d,
-                             const __grid_constant__ mlp::WMaps maps) {
+                             const __grid_constant__
+                                 mlp::WMapsN<mlp::kPlanes<T>> maps) {
   if constexpr (WG)
-    mlp::level_walk<4, mlp::MipEnc>(means, covs, views, nullptr, rr, w, b,
-                                    ws, part, part_stride, cpts, d, maps);
+    mlp::level_walk<4, mlp::MipEnc, mlp::ColMajor, false, T>(
+        means, covs, views, nullptr, rr, w, b,
+        reinterpret_cast<mlp::bf16*>(ws), part, part_stride, cpts, d, maps);
   else
     mlp::train_block<T, 4, mlp::MipEnc>(means, covs, views, nullptr, rr, w,
                                         b, ws, part, part_stride,
@@ -66,27 +82,25 @@ __global__ void __launch_bounds__(mlp::kThreads, 1)
 
 template <typename T>
 int plan(int n_rays, int seg, const Dims& d, long long* pl) {
-  if constexpr (std::is_same<T, bf16>::value)
-    return mlp::level_plan(onepass_mip_level_kernel<bf16, true>,
-                           onepass_mip_level_kernel<bf16, false>, 4, n_rays,
-                           seg, d, pl);
-  else
-    return mlp::legacy_level_plan<float>(
-        onepass_mip_level_kernel<float, false>, 4, n_rays, seg, d, pl);
+  return mlp::level_plan<mlp::ColMajor, false, T>(
+      onepass_mip_level_kernel<T, true>, onepass_mip_level_kernel<T, false>,
+      4, n_rays, seg, d, pl);
 }
 
+// wt: the weight planes the walk's maps read (w in bf16, w3 in fp32).
 template <typename T>
 int launch(const void* means, const void* covs, const void* views,
-           mlp::RayRows rr, const void* w, const void* b, void* ws,
-           void* part, void* gpart, void* dw, Dims d, cudaStream_t stream) {
+           mlp::RayRows rr, const void* w, const void* wt, const void* b,
+           void* ws, void* part, void* gpart, void* dw, Dims d,
+           cudaStream_t stream) {
   long long pl[9];
   const int err = plan<T>(rr.n_rays, rr.seg, d, pl);
   if (err) return err;
-  return mlp::level_launch<T>(
-      onepass_mip_level_kernel<T, std::is_same<T, bf16>::value>,
-      onepass_mip_level_kernel<T, false>, pl, d, w, w, b, ws, part, gpart, dw,
-      stream, static_cast<const float*>(means),
-      static_cast<const float*>(covs), static_cast<const float*>(views), rr);
+  return mlp::level_launch<T, false, mlp::kPlanes<T>>(
+      onepass_mip_level_kernel<T, true>, onepass_mip_level_kernel<T, false>,
+      pl, d, w, wt, b, ws, part, gpart, dw, stream,
+      static_cast<const float*>(means), static_cast<const float*>(covs),
+      static_cast<const float*>(views), rr);
 }
 
 }  // namespace
@@ -104,14 +118,16 @@ extern "C" int onepass_mip_level_plan(int n_rays, int seg, int depth,
 
 // means, covs, views: [3, n_rays*seg]; tmid, delta, noise (null: none):
 // [n_rays*seg]; tlo, thi, crgb, cd, prior: [n_rays]; tgt: [3, n_rays];
-// out: [6, n_rays*seg]; all fp32. w, b, ws, part, gpart, dw as in
-// onepass_level. rgb_scale = 1 + 2 rgb_padding (rounded to fp32 by the
-// caller from its double, as the JAX kernel's Python constant is).
+// out: [6, n_rays*seg]; all fp32. w, w3, b, ws, part, gpart, dw as in
+// onepass_level (w3: in fp32 the weights' three bf16 planes, unread in
+// bf16). rgb_scale = 1 + 2 rgb_padding (rounded to fp32 by the caller
+// from its double, as the JAX kernel's Python constant is).
 extern "C" int onepass_mip_level(
     const void* means, const void* covs, const void* views, const void* tmid,
     const void* delta, const void* noise, const void* tlo, const void* thi,
     const void* crgb, const void* tgt, const void* cd, const void* prior,
-    const void* w, const void* b, void* out, void* ws, void* part,
+    const void* w, const void* w3, const void* b, void* out, void* ws,
+    void* part,
     void* gpart, void* dw, int n_rays, int seg, int depth, int width,
     int view_width, int skip_mask, int num_freqs, int deg_view,
     int white_bkgd, int use_bf16, float rgb_scale, float rgb_padding,
@@ -137,8 +153,8 @@ extern "C" int onepass_mip_level(
   rr.density_bias = density_bias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    return launch<bf16>(means, covs, views, rr, w, b, ws, part, gpart, dw, d,
-                        s);
-  return launch<float>(means, covs, views, rr, w, b, ws, part, gpart, dw, d,
-                       s);
+    return launch<bf16>(means, covs, views, rr, w, w, b, ws, part, gpart, dw,
+                        d, s);
+  return launch<float>(means, covs, views, rr, w, w3, b, ws, part, gpart,
+                       dw, d, s);
 }

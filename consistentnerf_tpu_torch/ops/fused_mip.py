@@ -41,9 +41,10 @@ The row-major family takes [N, 3] means, covs and views and gives
 `fused_mip_fwd_row` in `csrc/fused_mip_fwd.cu`) and `bwd` of
 `_bwd_pallas` (kernel #16, `fused_mip_bwd_row` in
 `csrc/fused_mip_bwd.cu`), #6's and #7's walks under the kernels'
-row-major stream layout (in bf16 the Hopper forward walk and the level
-walk with its dW GEMM, so #15 gives #6's bits and #16 #7's on the same
-points), with the plain versions `plain_fwd_row` / `plain_bwd_row`;
+row-major stream layout (in bf16 the Hopper forward walk, so #15 gives
+#6's bits; the level walk with its dW GEMM in bf16 and fp32, so #16 gives
+#7's bits on the same points), with the plain versions `plain_fwd_row` /
+`plain_bwd_row`;
 `fused_mip_mlp_train` is their differentiable op.
 """
 
@@ -207,7 +208,9 @@ def reference_mip_mlp_apply(weights, means, covs, views, *, net_depth=8,
 
 def pack(weights: Sequence[torch.Tensor], net_depth: int, num_freqs: int,
          compute_dtype, deg_view: int = DEG_VIEW) -> v2.PackedMLP:
-    """The flat torch-layout list -> the kernels' packed buffers."""
+    """The flat torch-layout list -> the kernels' packed buffers (in
+    fp32 with the planes `w3` that the fp32 level walk of #5, #7 and #16
+    reads)."""
     check_kernel_weights(weights, net_depth)
     return v2.pack(weights, net_depth, mip_skips(net_depth), num_freqs,
                    deg_view, compute_dtype, encoder="ipe")

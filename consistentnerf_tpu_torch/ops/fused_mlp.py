@@ -216,16 +216,21 @@ def walk_smem_bytes(packed, rows: int, row: bool = True) -> int:
     rows, the column-sum partials and, with `row` (#11, #14 and with the
     IPE #16, on row-major streams), the tile's staged points (9 x 64
     floats). bf16 tiles, two of activations; an fp32 pack's walk (#2, #3,
-    #11) keeps fp32 tiles and one activation tile. The plan takes the walk
-    where this and K_WALK_STATIC fit SMEM_LIMIT at 768-row chunks."""
+    #11, and with the IPE #5, #7, #16) keeps fp32 tiles and one
+    activation tile, and with the IPE its pe tile in the weight ring
+    beside the forward's second activation tile where the two fit there
+    (`level_train.cuh::pe_in_ring`). The plan takes the walk where this
+    and K_WALK_STATIC fit SMEM_LIMIT at 768-row chunks."""
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
     p, v = (v2._pad16(x) for x in v2.enc_widths(
         packed.encoder, packed.multires, packed.multires_views))
     act, m = max(packed.width, packed.view_width), 64
     fp32 = packed.compute_dtype == torch.float32
-    elems = m * (p + K_PAD) + m * (v + K_PAD) + (1 if fp32 else 2) * m * (
-        act + K_PAD)
+    pe_in_ring = (fp32 and packed.encoder == "ipe"
+                  and m * (act + p + 2 * K_PAD) * 4 <= K_WSTAGES * K_WSTAGE)
+    elems = (0 if pe_in_ring else m * (p + K_PAD)) + m * (v + K_PAD) + (
+        1 if fp32 else 2) * m * (act + K_PAD)
     floats = 4 * m + 5 * rows + 2 * K_WARPS * act + (9 * m if row else 0)
     return (K_WSTAGES * K_WSTAGE + 1024 + (4 if fp32 else 2) * elems
             + 4 * floats)

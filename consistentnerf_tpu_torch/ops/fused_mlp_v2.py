@@ -12,9 +12,10 @@ PE directly in torch Embedder order.
 
 `pack` lays the torch-layout weight list out as the kernel reads it; a
 caller that renders many chunks packs once and passes the `PackedMLP`.
-An fp32 NeRFMLP pack also carries `w3`, its weights split into three
-bf16 planes (`split3`), which the fp32 level walk of #2, #3 and #11
-streams to the tensor cores (six bf16 products a fp32 product).
+An fp32 pack (not v1) also carries `w3`, its weights split into three
+bf16 planes (`split3`), which the fp32 level walk of #2, #3 and #11 and
+of the mip kernels #5, #7 and #16 streams to the tensor cores (six bf16
+products a fp32 product).
 The packing and the packed walks also serve the MipMLP kernels
 (`ops/fused_mip.py`), whose MLP differs only in its encoder and in the
 column order of its skip concat: `encoder="ipe"` selects the integrated
@@ -94,7 +95,7 @@ class PackedMLP:
     # use_viewdirs=False output head of out_ch channels.
     v1: bool = False
     out_ch: int = 0
-    # fp32 v2 NeRFMLP packs: `split3(w)`, [3, w.numel()] bf16 (hi, mid,
+    # fp32 packs but v1's: `split3(w)`, [3, w.numel()] bf16 (hi, mid,
     # lo); else None.
     w3: Optional[torch.Tensor] = None
 
@@ -131,9 +132,9 @@ def split3(x: torch.Tensor) -> torch.Tensor:
 
 
 def six_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in fp32 as the fp32 level walk of #2, #3 and #11 computes
-    its backward's products and dW (`csrc/level_train.cuh`; its forward
-    runs the fp32 SIMT layer, a plain fp32 product): both operands
+    """a @ b in fp32 as the fp32 level walk (#2, #3, #5, #7, #11, #16)
+    computes its backward's products and dW (`csrc/level_train.cuh`; its
+    forward runs the fp32 SIMT layer, a plain fp32 product): both operands
     split by `split3`, six products of bf16 terms (each exact in fp32)
     summed in fp32 in the walk's order, a_hi b_lo, a_mid b_mid, a_hi
     b_mid, a_lo b_hi, a_mid b_hi, a_hi b_hi; the three left out are at
@@ -188,8 +189,9 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
     head: output [oc, K_head] after the trunk instead of the view branch
     (the forward #12 only).
 
-    An fp32 NeRFMLP pack (`encoder="pe"`, not v1) also holds `w3 =
-    split3(w)`, the planes that the fp32 level walk of #2, #3 and #11
+    An fp32 pack (either encoder, not v1: the v1 kernel #14 keeps
+    train_block in fp32) also holds `w3 = split3(w)`, the planes that the
+    fp32 level walk of #2, #3, #11 and of the mip kernels #5, #7, #16
     reads (plane p of element i at p * w.numel() + i)."""
     cd = fm.as_dtype(compute_dtype)
     skips = tuple(sorted(skips))
@@ -256,8 +258,7 @@ def pack(weights: Sequence[torch.Tensor], net_depth: int, skips,
         net_depth=net_depth, width=width, skips=skips, multires=multires,
         multires_views=multires_views, compute_dtype=cd, encoder=encoder,
         view_width=view_width, v1=v1, out_ch=out_ch,
-        w3=(split3(w) if cd == torch.float32 and encoder == "pe" and not v1
-            else None),
+        w3=split3(w) if cd == torch.float32 and not v1 else None,
     )
 
 
@@ -655,8 +656,8 @@ def check_tma_weights(packed: PackedMLP):
 
 
 def check_planes(packed: PackedMLP):
-    """An fp32 pack for #2, #3 or #11 carries the planes `w3` that their
-    level walk reads (`pack` makes them)."""
+    """An fp32 pack for #2, #3, #5, #7, #11 or #16 carries the planes
+    `w3` that their level walk reads (`pack` makes them)."""
     if packed.compute_dtype == torch.float32 and packed.w3 is None:
         raise ValueError("the fp32 level walk reads the weights' bf16 "
                          "planes w3: pack them with fused_mlp_v2.pack")
@@ -762,8 +763,10 @@ def dw_launch(lib: str, symbol: str, packed: PackedMLP, pts, views, g,
 
 
 # The weight-grad entry points that take the fp32 planes `w3` after `w`
-# (their fp32 path runs the level walk).
-PLANE_ENTRIES = (BWD_KERNEL, ROW_BWD_KERNEL)
+# (their fp32 path runs the level walk): #2, #11 and the mip kernels #7
+# (`fused_mip.BWD_KERNEL`) and #16 (`fused_mip.ROW_BWD_KERNEL`).
+PLANE_ENTRIES = (BWD_KERNEL, ROW_BWD_KERNEL, "fused_mip_bwd",
+                 "fused_mip_bwd_row")
 
 
 def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
@@ -774,8 +777,8 @@ def grad_launch(lib: str, symbol: str, packed: PackedMLP, streams, g,
     launched: not for N = 0). Every one of them (#2, #7, #11, #14, #16)
     fills the nine slots of `csrc/level_train.cuh::level_plan`, takes
     `gpart`, and in bf16 reads the weights by TMA. The PLANE_ENTRIES (#2,
-    #11) also take the weights' fp32 split `w3` after `w` (a null pointer
-    in bf16), which their fp32 level walk reads by TMA."""
+    #11, #7, #16) also take the weights' fp32 split `w3` after `w` (a null
+    pointer in bf16), which their fp32 level walk reads by TMA."""
     planes = symbol in PLANE_ENTRIES
     n, dev = g.shape[0 if row else 1], g.device
     n_w, n_b = grad_numel(packed)

@@ -828,9 +828,11 @@ def packed_onepass_mip_reference(packed: "v2.PackedMLP", means_T, covs_T,
                                  views_T, tmid, delta, tlo, thi, crgb, tgt,
                                  cd, prior, noise=None, white_bkgd=False,
                                  rgb_padding=fused_mip.RGB_PADDING,
-                                 density_bias=fused_mip.DENSITY_BIAS):
+                                 density_bias=fused_mip.DENSITY_BIAS,
+                                 mm=torch.matmul):
     """The kernel's walk over its packed buffers: forward, compositing,
-    cotangent, explicit compositing VJP, backward. Same returns as
+    cotangent, explicit compositing VJP, backward (`mm`: the backward's
+    products, `v2.six_products` for the fp32 walk). Same returns as
     `plain_onepass_mip_level`."""
     n, seg = tmid.shape
     raw, saved = v2.packed_forward_saved(packed, means_T, views_T, covs_T)
@@ -840,7 +842,8 @@ def packed_onepass_mip_reference(packed: "v2.PackedMLP", means_T, covs_T,
     d_raw = _mip_composite_bwd(crgb[:, None] * (rgb - tgt),
                                cd * (dist - prior), comp, white_bkgd,
                                rgb_padding)
-    dw, db = v2.packed_backward(packed, saved, d_raw.reshape(4, n * seg))
+    dw, db = v2.packed_backward(packed, saved, d_raw.reshape(4, n * seg),
+                                mm)
     return (_out_rows(rgb, dist, acc, w, seg),
             v2.unpack_grads(packed, dw, db))
 
@@ -852,7 +855,7 @@ def _mip_kernel():
     plan.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
     fn = lib.onepass_mip_level
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return plan, fn
@@ -906,6 +909,8 @@ def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
         zeros = torch.zeros(n_w + n_b, device=dev)
         return out, v2.unpack_grads(packed, zeros[:n_w], zeros[n_w:])
     cfg_args = fused_mip._cfg_args(packed)
+    v2.check_planes(packed)
+    v2.check_tma_weights(packed)
     plan, fn = _mip_kernel()
     ws, part, gpart, dw = v2.level_buffers(plan, (n_rays, seg, *cfg_args),
                                         packed, dev)
@@ -916,7 +921,9 @@ def onepass_mip_level(weights, means_T, covs_T, views_T, tmid, delta, tlo,
              tmid_.data_ptr(), delta_.data_ptr(), noise_ptr,
              tlo_.data_ptr(), thi_.data_ptr(), crgb_.data_ptr(),
              tgt_T.data_ptr(), cd__.data_ptr(), prior_.data_ptr(),
-             packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(),
+             packed.w.data_ptr(),
+             None if packed.w3 is None else packed.w3.data_ptr(),
+             packed.b.data_ptr(), out.data_ptr(),
              ws.data_ptr(), part.data_ptr(), gpart.data_ptr(),
              dw.data_ptr(), n_rays, seg,
              *cfg_args[:-1], int(white_bkgd), cfg_args[-1],

@@ -232,7 +232,7 @@ def _bwd_plan(kernel, n, width, bf16=1):
 def test_bwd_plan_picks_the_level_walk(cuda_device):
     """The bf16 plans of #2 and #7 take the level walk (wgmma products, the
     dW GEMM) at widths 64 and 256 and train_block with its dW pass at
-    width 320; in fp32 #2 takes the fp32 level walk and #7 train_block;
+    width 320; in fp32 both take the fp32 level walk;
     and on a 132-SM card they give the one-pass steps' patch launches
     full waves: no block walks more rows than the launch's points spread
     evenly over the grid need."""
@@ -240,11 +240,7 @@ def test_bwd_plan_picks_the_level_walk(cuda_device):
         for width in (64, 256):
             assert _bwd_plan(kernel, 196_608, width)[8] == 1
         assert _bwd_plan(kernel, 3000, 320)[8] == 0
-        fp32 = _bwd_plan(kernel, 3000, 256, bf16=0)
-        if kernel == "mlp":
-            assert fp32[8] == 1
-        else:
-            assert fp32[8] == 0 and fp32[5:8] == [0, 0, 0]
+        assert _bwd_plan(kernel, 3000, 256, bf16=0)[8] == 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kernel, n in (("mlp", 196_608), ("mlp", 65_536), ("mip", 98_304)):
         plan = _bwd_plan(kernel, n, 256)
@@ -351,6 +347,28 @@ def test_fp32_plans_pick_the_level_walk(cuda_device):
         assert p32[5] * p32[7] >= rows // 32 > (p32[5] - 1) * p32[7]
     assert _bwd_plan("mlp", 3000, 320, 0)[8] == 0
     assert _level_plan(37, 24, 320, 0)[8] == 0
+    # The mip kernels at the mip presets' shapes (#5 at 1024 x 96, #7 at
+    # the patch rays and the TV norm's random-pose rays, #16): the fp32
+    # walk, its pe tile in the weight ring.
+    mpk = fmip.pack(_mip_flat(256, cuda_device), 8, 16, "float32")
+    mcfg = fmip._cfg_args(mpk)[:-1]
+
+    def mip_plan(symbol, lead, bf16):
+        out = (ctypes.c_longlong * 9)()
+        lib = op.MIP_KERNEL if symbol == op.MIP_KERNEL else fmip.BWD_KERNEL
+        fn = v2._entry(lib, symbol + "_plan", 0, len(lead) + 7)
+        assert fn(*lead, *mcfg, bf16, out) == 0
+        return list(out)
+    for symbol, lead, row in ((op.MIP_KERNEL, (1024, 96), False),
+                              (fmip.BWD_KERNEL, (98_304,), False),
+                              (fmip.BWD_KERNEL, (196_608,), False),
+                              (fmip.ROW_BWD_KERNEL, (98_304,), True)):
+        p32, p16 = mip_plan(symbol, lead, 0), mip_plan(symbol, lead, 1)
+        assert p32[8] == 1
+        assert p32[0] == p16[0] and p32[2] == p16[2] and p32[4] == p16[4]
+        assert p32[1] == 3 * p16[1]
+        assert p32[3] == fm.walk_smem_bytes(mpk, -(-p32[4] // 64) * 64, row)
+        assert p32[3] + fm.K_WALK_STATIC <= fm.SMEM_LIMIT
 
 
 def _ws_cols(packed):
@@ -1148,8 +1166,8 @@ def test_row_bwd_plans_pick_the_level_walk(cuda_device):
 def test_mip_row_bwd_plan_picks_the_level_walk(cuda_device):
     """#16's bf16 plan runs the level walk at the mip level (393,216
     points) and at a ragged size with #7's grid and chunks and the
-    row-major staging's 9 x 64 floats more shared memory; fp32 keeps
-    train_block (slot 8 is 0)."""
+    row-major staging's 9 x 64 floats more shared memory; in fp32 too, on
+    the fp32 level walk (slot 8 is 1)."""
     import ctypes
 
     cfg = fmip._cfg_args(fmip.pack(_mip_flat(256, cuda_device), 8, 16,
@@ -1166,7 +1184,7 @@ def test_mip_row_bwd_plan_picks_the_level_walk(cuda_device):
         assert p7[8] == p[8] == 1
         assert p[3] == p7[3] + 9 * 64 * 4
         assert p[:3] + p[4:] == p7[:3] + p7[4:]
-        assert plan(fmip.ROW_BWD_KERNEL, n, bf16=0)[8] == 0
+        assert plan(fmip.ROW_BWD_KERNEL, n, bf16=0)[8] == 1
 
 
 @pytest.mark.cuda

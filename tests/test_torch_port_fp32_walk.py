@@ -149,16 +149,21 @@ def test_packed_planes_are_the_kernel_maps(depth, width, skips, mr, mv):
 
 
 def test_only_the_fp32_walks_packs_carry_planes():
-    """bf16 packs, and the fp32 packs of the kernels that keep
-    train_block in fp32 (the mip kernels, the v1 kernels), carry no
-    planes; the planes' checks refuse what the kernel could not read."""
+    """bf16 packs, and the fp32 packs of the v1 kernels (#14 keeps
+    train_block in fp32), carry no planes; the fp32 mip packs (#5, #7 and
+    #16 on the fp32 level walk) carry them as the NeRF packs do; the
+    planes' checks refuse what the kernel could not read."""
     flat = _flat()
     assert v2.pack(flat, DEPTH, SKIPS, MR, MV, "bfloat16").w3 is None
     assert fm.pack_v1(flat, DEPTH, SKIPS, MR, MV, "float32").w3 is None
     mlp = MipMLP(net_depth=4, net_width=32, net_width_viewdirs=16,
                  max_deg_point=4)
-    assert fmip.pack(fmip.flatten_mip_params(mlp, 4), 4, 4,
-                     "float32").w3 is None
+    mflat = fmip.flatten_mip_params(mlp, 4)
+    assert fmip.pack(mflat, 4, 4, "bfloat16").w3 is None
+    mpk = fmip.pack(mflat, 4, 4, "float32")
+    assert torch.equal(mpk.w3, v2.split3(mpk.w))
+    v2.check_planes(mpk)
+    v2.check_tma_weights(mpk)
     packed = v2.pack(flat, DEPTH, SKIPS, MR, MV, "float32")
     import dataclasses
 
@@ -373,20 +378,22 @@ def c_signature(source: str, symbol: str):
 
 
 def test_fp32_plans_take_the_level_walk():
-    """fp32 #3, #2 and #11 plan through level_plan (the walk by shape, the
-    legacy walk past it) and launch with three planes; the mip kernels
-    and v1's keep legacy_level_plan in fp32."""
-    one = (CSRC / "onepass_level.cu").read_text()
-    assert "legacy_level_plan<float>" not in one
-    assert "mlp::level_plan<mlp::ColMajor, false, T>" in one
-    assert "level_launch<T, false, mlp::kPlanes<T>>" in one
-    bwd = (CSRC / "fused_mlp_bwd.cu").read_text()
-    assert "legacy_level_plan" not in bwd and "kWalk" not in bwd
-    assert "mlp::level_plan<L, false, T>" in bwd
-    assert "level_launch<T, false, mlp::kPlanes<T>>" in bwd
-    for source in ("fused_mip_bwd.cu", "onepass_mip_level.cu",
-                   "fused_mlp_v1_bwd.cu"):
-        assert "legacy_level_plan<" in (CSRC / source).read_text()
+    """fp32 #3, #5, #2, #11, #7 and #16 plan through level_plan (the walk
+    by shape, the legacy walk past it) and launch with three planes; the
+    v1 kernel #14 keeps legacy_level_plan in fp32."""
+    for source in ("onepass_level.cu", "onepass_mip_level.cu"):
+        one = (CSRC / source).read_text()
+        assert "legacy_level_plan<float>" not in one
+        assert "mlp::level_plan<mlp::ColMajor, false, T>" in one
+        assert "level_launch<T, false, mlp::kPlanes<T>>" in one
+        assert "mlp::WMapsN<mlp::kPlanes<T>>" in " ".join(one.split())
+    for source in ("fused_mlp_bwd.cu", "fused_mip_bwd.cu"):
+        bwd = (CSRC / source).read_text()
+        assert "legacy_level_plan" not in bwd and "kWalk" not in bwd
+        assert "mlp::level_plan<L, false, T>" in bwd
+        assert "level_launch<T, false, mlp::kPlanes<T>>" in bwd
+        assert "mlp::WMapsN<mlp::kPlanes<T>>" in " ".join(bwd.split())
+    assert "legacy_level_plan<" in (CSRC / "fused_mlp_v1_bwd.cu").read_text()
     walk = (CSRC / "level_train.cuh").read_text()
     assert "return legacy_level_plan<T, V1>(" in walk
 

@@ -132,9 +132,9 @@ def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
     """The plan got an array of len(slots); the buffers have the plan's
     sizes (a bf16 workspace where slot 8 says the level walk runs, its
     three planes in fp32; else of the compute type); the launch passed the
-    streams, g, the weights (and, for #2 and #11, the fp32 planes w3, a
-    null pointer in bf16) and the buffers in the C declaration's order
-    and counts."""
+    streams, g, the weights (and, for #2, #11, #7 and #16, the fp32 planes
+    w3, a null pointer in bf16) and the buffers in the C declaration's
+    order and counts."""
     plan_calls = [c for c in lib.calls if c[0] == symbol + "_plan"]
     assert [c[1] for c in plan_calls] == [len(slots)] == [9]
     out, = bufs
@@ -147,7 +147,7 @@ def _check_call(lib, bufs, symbol, source, streams, g, packed, slots):
     assert dw.numel() == n_w + n_b and dw.dtype == torch.float32
     (_, ptrs, ints), = [c for c in lib.calls if c[0] == symbol]
     w3 = []
-    if symbol in (v2.BWD_KERNEL, v2.ROW_BWD_KERNEL):
+    if symbol in v2.PLANE_ENTRIES:
         w3 = [None if packed.w3 is None else packed.w3.data_ptr()]
     want = [t.data_ptr() for t in (*streams, g, packed.w)] + w3 + [
         t.data_ptr() for t in (packed.b, *out)]
@@ -258,9 +258,11 @@ def test_mip_backward_sizes_from_its_plan(fake, row):
 
 
 def test_fp32_mip_row_backward_sizes_from_the_legacy_slots(fake):
-    """fp32 #16 keeps train_block through `legacy_level_plan`: nine slots
-    with the last four 0, a workspace of blocks x per-block elements in
-    slot 1, and a one-float gpart that the legacy launch does not read."""
+    """fp32 #16 on a plan of train_block (`legacy_level_plan`, which its
+    widths over 256 take): nine slots with the last four 0, a workspace
+    of blocks x per-block elements in slot 1 and of the compute type, a
+    one-float gpart that the legacy launch does not read, and the fp32
+    planes w3 passed after w all the same."""
     lib, bufs = fake(PLAN9_LEGACY)
     packed = _mip_packed("float32")
     streams, g = _streams(3, row=True)
@@ -275,12 +277,14 @@ def test_fp32_mip_row_backward_sizes_from_the_legacy_slots(fake):
 
 
 def test_mip_row_backward_declares_nine_slot_signatures():
-    """`fused_mip_bwd_row` takes 10 pointers (means, covs, views, g, w, b,
-    ws, part, gpart, dw) and 8 ints, as `fused_mip_bwd` does, and its plan
-    fills `plan9<T, RowMajor>`, as `fused_mlp_bwd_row_plan` does."""
+    """`fused_mip_bwd_row` takes 11 pointers (means, covs, views, g, w, the
+    fp32 planes w3, b, ws, part, gpart, dw) and 8 ints, as `fused_mip_bwd`
+    does, and its plan fills `plan9<T, RowMajor>`, as
+    `fused_mlp_bwd_row_plan` does."""
     src = "fused_mip_bwd.cu"
-    assert c_signature(src, fmip.ROW_BWD_KERNEL) == (10, 8)
-    assert c_signature(src, fmip.BWD_KERNEL) == (10, 8)
+    assert c_signature(src, fmip.ROW_BWD_KERNEL) == (11, 8)
+    assert c_signature(src, fmip.BWD_KERNEL) == (11, 8)
+    assert {fmip.BWD_KERNEL, fmip.ROW_BWD_KERNEL} <= set(v2.PLANE_ENTRIES)
     assert c_signature(src, fmip.ROW_BWD_KERNEL + "_plan") == (0, 8)
     text = (CSRC / src).read_text()
     body = text[text.index('int fused_mip_bwd_row_plan('):]
@@ -288,9 +292,10 @@ def test_mip_row_backward_declares_nine_slot_signatures():
     assert "plan9<bf16, mlp::RowMajor>" in body
     assert "plan9<float, mlp::RowMajor>" in body
     assert "mlp::plan<" not in body
-    # The walk branch under the stream layout, for both layouts in bf16.
-    assert "mlp::level_walk<2, mlp::MipEnc, L>" in text
-    assert "mlp::level_plan<L>" in text
+    # The walk branch under the stream layout, for both layouts and both
+    # types.
+    assert "mlp::level_walk<2, mlp::MipEnc, L, false, T>" in text
+    assert "mlp::level_plan<L, false, T>" in text
     assert "!L::kRow" not in text
 
 

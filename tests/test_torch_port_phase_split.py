@@ -101,7 +101,7 @@ def test_the_row_major_mip_kernels_are_split_with_their_twins(part):
     if part == "level":
         text = tps.patched_sources(CSRC)["fused_mip_bwd.cu"]
         assert "fused_mip_bwd.cu" in tps.SOURCES
-        assert "mlp::level_walk<2, mlp::MipEnc, L>" in text
+        assert "mlp::level_walk<2, mlp::MipEnc, L, false, T>" in text
         assert "return run<mlp::RowMajor>(" in text
         assert tps.MIP_LEVEL == 393_216
     else:

@@ -16,11 +16,18 @@ launches on seeded inputs and weights:
   points, 8x256, multires 10 / 4), with each launch's nine-slot plan;
   and the device time of one fp32 launch of each at the fine level by
   kernel (torch.profiler: the walk, the dW GEMM, the reduction);
-* #5 `onepass_mip_level` and #7 `fused_mip_bwd` in fp32 at the mip
-  preset regnerf3_dtu_scan114's shapes (1024 data rays x 96 samples a
-  level; #7 on the 1024 MiDaS patch rays and the 2048 random-pose rays
-  of the TV norm, x 96: 98,304 and 196,608 points; MipMLP 8x256, 16
-  IPE frequencies);
+* #5 `onepass_mip_level`, #7 `fused_mip_bwd` and #16
+  `fused_mip_bwd_row` in fp32 and bf16 at the mip preset
+  regnerf3_dtu_scan114's
+  shapes (1024 data rays x 96 samples a level; #7 on the 1024 MiDaS
+  patch rays and the 2048 random-pose rays of the TV norm, x 96: 98,304
+  and 196,608 points; #16 on the patch rays' points as [N, 3] streams;
+  MipMLP 8x256, 16 IPE frequencies), with each launch's nine-slot plan,
+  the device time of one fp32 launch of #5 and of #7 on the patch rays
+  by kernel, and the plain fp32 versions (autograd) on the same inputs;
+  every kernel row also keeps a digest of its outputs' bits, and the
+  summary says whether each tree's runs gave the same bits and whether
+  the two trees did;
 * the lego_3view preset's step as `cli/train.py` builds it on a CUDA
   device (its config through `cli/common.py::resolve_config` and
   `auto_fused_defaults`, the one-pass step, fp32), on the procedural
@@ -28,7 +35,12 @@ launches on seeded inputs and weights:
   on the card's machine; the step's shapes are the preset's): ms a step
   after the first over a run of steps (host clock, one sync), device
   time and idle share of one profiled step, peak device memory; then
-  the same with `ss_loss`.
+  the same with `ss_loss`; and likewise the mip presets
+  regnerf3_dtu_scan114 (fp32, the one-pass mip step with the TV norm:
+  1024 data + 4x16x16 MiDaS patch rays and 2048 random-pose rays, 96 x
+  2 samples) and mipnerf3_dtu_scan114 (the same without the TV norm's
+  rays), on the procedural scene at DTU's 512x640 crop with 3 train
+  views and the random poses `cli/train.py` makes.
 
 Bounds: the train FLOP a point of `chip_smoke.mlp_train_flops_per_point`
 over 67.0 TFLOP/s (fp32 on the CUDA cores) and over 989 / 6 = 164.8
@@ -130,6 +142,25 @@ def by_kernel(fn):
     return sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])[:5]
 
 
+def digest(out) -> str:
+    """A short sha1 of the bits of a kernel's outputs (a tensor, or nested
+    lists of them), to hold a launch against the other tree's."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+
+    def feed(x):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        else:
+            for y in x:
+                feed(y)
+    feed(out)
+    return h.hexdigest()[:16]
+
+
 def worker(tree: str, out: str) -> None:
     """One tree's numbers (see the module's docstring) into `out`."""
     sys.path.insert(0, tree)
@@ -203,8 +234,11 @@ def worker(tree: str, out: str) -> None:
             ms = event_ms(lambda: op.onepass_level(
                 w, pts, views, z, *per_ray, white_bkgd=True,
                 compute_dtype=dtype, **kw), 3 if s == 192 else 5)
-            rows[f"#3 {dtype} {lvl}"] = dict(points=FLAG_RAYS * s, ms=ms,
-                                             plan=list(pl))
+            rows[f"#3 {dtype} {lvl}"] = dict(
+                points=FLAG_RAYS * s, ms=ms, plan=list(pl),
+                bits=digest(op.onepass_level(
+                    w, pts, views, z, *per_ray, white_bkgd=True,
+                    compute_dtype=dtype, **kw)))
             if dtype == "float32" and s == 192:
                 res["split #3 fine fp32"] = by_kernel(lambda: op.onepass_level(
                     w, pts, views, z, *per_ray, white_bkgd=True,
@@ -221,7 +255,9 @@ def worker(tree: str, out: str) -> None:
             ms = event_ms(lambda: v2.bwd_T(w, pts, views, g,
                                            compute_dtype=dtype, **kw),
                           3 if s == 192 else 5)
-            rows[f"#2 {dtype} {lvl}"] = dict(points=n, ms=ms, plan=list(pl))
+            rows[f"#2 {dtype} {lvl}"] = dict(
+                points=n, ms=ms, plan=list(pl), bits=digest(v2.bwd_T(
+                    w, pts, views, g, compute_dtype=dtype, **kw)))
             if dtype == "float32" and s == 192:
                 res["split #2 fine fp32"] = by_kernel(lambda: v2.bwd_T(
                     w, pts, views, g, compute_dtype=dtype, **kw))
@@ -244,25 +280,67 @@ def worker(tree: str, out: str) -> None:
         return (means.T.contiguous(), covs.T.contiguous(),
                 views.T.contiguous(), t, tmid, d.norm(dim=1))
 
-    means, covs, views, t, tmid, dn = gaussians(MIP_DATA_RAYS, MIP_S)
-    delta = (t[:, 1:] - t[:, :-1]) * dn[:, None]
-    ones = torch.ones((MIP_DATA_RAYS,), device=dev)
-    rows["#5 float32 level"] = dict(
-        points=MIP_DATA_RAYS * MIP_S, ms=event_ms(lambda: op.onepass_mip_level(
-            mw, means, covs, views, tmid, delta, t[:, 0], t[:, -1],
-            1e-4 * ones, torch.rand((MIP_DATA_RAYS, 3), generator=gen,
-                                    device=dev), 1e-3 * ones, 2.0 * ones,
-            net_depth=8, num_freqs=16, compute_dtype="float32"), 5))
-    for rays_n, label in ((MIP_PATCH_RAYS, "patch"),
-                          (MIP_RANDOM_RAYS, "random-pose")):
-        means, covs, views = gaussians(rays_n, MIP_S)[:3]
-        g = 1e-3 * torch.randn((4, rays_n * MIP_S), generator=gen,
-                               device=dev)
-        rows[f"#7 float32 {label}"] = dict(
-            points=rays_n * MIP_S, ms=event_ms(lambda: fmip.bwd_T(
-                mw, means, covs, views, g, 8, 16, "float32"), 5))
-    del means, covs, views, g
-    torch.cuda.empty_cache()
+    mcfg = fmip._cfg_args(mw)[:-1]
+
+    def mip_plan(symbol, lead, bf):
+        lib = op.MIP_KERNEL if symbol == op.MIP_KERNEL else fmip.BWD_KERNEL
+        fn = getattr(_build.load(lib), symbol + "_plan")
+        fn.argtypes = [ctypes.c_int] * (len(lead) + 7) + [ctypes.c_void_p]
+        pl = (ctypes.c_longlong * 9)()
+        if fn(*lead, *mcfg, bf, pl):
+            raise RuntimeError(f"{symbol}_plan failed")
+        return list(pl)
+
+    for dtype in ("float32", "bfloat16"):
+        mw = fmip.pack(mflat, 8, 16, dtype)
+        bf, fp32 = int(dtype == "bfloat16"), dtype == "float32"
+        means, covs, views, t, tmid, dn = gaussians(MIP_DATA_RAYS, MIP_S)
+        delta = (t[:, 1:] - t[:, :-1]) * dn[:, None]
+        ones = torch.ones((MIP_DATA_RAYS,), device=dev)
+        margs = (means, covs, views, tmid, delta, t[:, 0].contiguous(),
+                 t[:, -1].contiguous(), 1e-4 * ones,
+                 torch.rand((MIP_DATA_RAYS, 3), generator=gen, device=dev),
+                 1e-3 * ones, 2.0 * ones)
+
+        def run5(fn=op.onepass_mip_level):
+            return lambda: fn(mw, *margs, net_depth=8, num_freqs=16,
+                              white_bkgd=False,
+                              compute_dtype=fm.as_dtype(dtype))
+        row5 = rows[f"#5 {dtype} level"] = dict(
+            points=MIP_DATA_RAYS * MIP_S, ms=event_ms(run5(), 5),
+            plan=mip_plan(op.MIP_KERNEL, (MIP_DATA_RAYS, MIP_S), bf),
+            bits=digest(run5()()))
+        if fp32:
+            row5["plain_ms"] = event_ms(run5(op.plain_onepass_mip_level), 3)
+            res["split #5 fp32"] = by_kernel(run5())
+        for rays_n, label in ((MIP_PATCH_RAYS, "patch"),
+                              (MIP_RANDOM_RAYS, "random-pose")):
+            means, covs, views = gaussians(rays_n, MIP_S)[:3]
+            n = rays_n * MIP_S
+            g = 1e-3 * torch.randn((4, n), generator=gen, device=dev)
+
+            def run7(fn=fmip.bwd_T):
+                return lambda: fn(mw, means, covs, views, g, 8, 16, dtype)
+            row7 = rows[f"#7 {dtype} {label}"] = dict(
+                points=n, ms=event_ms(run7(), 5),
+                plan=mip_plan(fmip.BWD_KERNEL, (n,), bf),
+                bits=digest(run7()()))
+            if fp32:
+                row7["plain_ms"] = event_ms(run7(fmip.plain_bwd_T), 3)
+            if label == "patch":
+                if fp32:
+                    res["split #7 fp32"] = by_kernel(run7())
+                row = [x.T.contiguous() for x in (means, covs, views, g)]
+
+                def run16():
+                    return fmip.bwd(mw, *row, 8, 16, dtype)
+                rows[f"#16 {dtype} patch"] = dict(
+                    points=n, ms=event_ms(run16, 5),
+                    plan=mip_plan(fmip.ROW_BWD_KERNEL, (n,), bf),
+                    bits=digest(run16()))
+                del row
+        del means, covs, views, g, margs
+        torch.cuda.empty_cache()
     res["kernels"] = rows
 
     # ---- the lego_3view preset's fp32 step ----
@@ -273,22 +351,55 @@ def worker(tree: str, out: str) -> None:
     from consistentnerf_tpu_torch.data.pipeline import (VanillaBatcher,
                                                         to_device)
 
+    from consistentnerf_tpu_torch.data import synthetic
+    from consistentnerf_tpu_torch.data.loaders import attach_priors
+    from consistentnerf_tpu_torch.data.pipeline import MipBatcher
+    from consistentnerf_tpu_torch.data.random_poses import \
+        generate_random_poses
+
     steps = {}
     basedir = tempfile.mkdtemp()  # the hard masks' cache
-    for ss in (False, True):
-        argv = ["--scene", "lego_3view", "--device", "cuda"] + [
-            x for s_ in ("dataset_type=synthetic", "synthetic_hw=400",
-                         "synthetic_views=6", "synthetic_n_test=3",
-                         "synthetic_interleave_test=false",
-                         f"ss_loss={str(ss).lower()}", f"basedir={basedir}")
-            for x in ("--set", s_)]
+    cases = [("lego_3view", "plain", False), ("lego_3view", "ss_loss", True),
+             ("regnerf3_dtu_scan114", "regnerf3", False),
+             ("mipnerf3_dtu_scan114", "mipnerf3", False)]
+    for preset, key, ss in cases:
+        sets = [f"basedir={basedir}"]
+        if preset == "lego_3view":
+            sets += ["dataset_type=synthetic", "synthetic_hw=400",
+                     "synthetic_views=6", "synthetic_n_test=3",
+                     "synthetic_interleave_test=false",
+                     f"ss_loss={str(ss).lower()}"]
+        argv = ["--scene", preset, "--device", "cuda"] + [
+            x for s_ in sets for x in ("--set", s_)]
         args = common.make_parser("fp32 step").parse_args(argv)
         scfg = common.auto_fused_defaults(common.resolve_config(args), args)
-        scene = load_scene(scfg, device="cuda")
+        if preset == "lego_3view":
+            scene = load_scene(scfg, device="cuda")
+            batcher = VanillaBatcher(scene, scfg)
+        else:
+            # DTU's 512x640 crop, 3 train views (the preset's split of a
+            # scan), procedural content; the random poses as cli/train.py
+            # makes them.
+            scene = attach_priors(synthetic.make_scene(
+                n_views=6, H=512, W=640).to_scene_data(n_test=3), scfg,
+                "cuda")
+            poses = None
+            if scfg.load_random_rays:
+                poses = generate_random_poses(
+                    scene.poses[scene.i_train], n_poses=scfg.n_random_poses,
+                    pose_type=scfg.random_pose_type,
+                    radius=scfg.random_pose_radius,
+                    focusptjitter=scfg.random_pose_focusptjitter,
+                    add_test_poses=scfg.random_pose_add_test_poses,
+                    test_poses=scene.poses[scene.i_test])
+            batcher = MipBatcher(scene, scfg, random_poses=poses)
         sstate = loop.init_state(scfg, dev)
         step_fn = loop.select_train_step(scfg, sstate.model)
-        batcher = VanillaBatcher(scene, scfg)
         batches = [to_device(batcher.next_batch(), dev) for _ in range(4)]
+        b0 = batches[0]
+        n_rays = int(b0["rgb"].shape[0]) + (
+            int(b0["rays_random"].origins.shape[0])
+            if "rays_random" in b0 else 0)
         torch.cuda.reset_peak_memory_stats()
         sstate, stats = step_fn(sstate, batches[0])
         torch.cuda.synchronize()
@@ -306,9 +417,10 @@ def worker(tree: str, out: str) -> None:
         dev_ms = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                      for e in prof.key_averages()) / 1e3
-        steps["ss_loss" if ss else "plain"] = dict(
-            dtype=scfg.compute_dtype, onepass=bool(scfg.use_onepass_train),
-            rays=int(batches[0]["rgb"].shape[0]), step_ms=step_ms,
+        steps[key] = dict(
+            preset=preset, dtype=scfg.compute_dtype,
+            onepass=bool(scfg.use_onepass_train), rays=n_rays,
+            step_ms=step_ms,
             steps=n_steps, device_ms=dev_ms,
             idle=max(0.0, 1 - dev_ms / step_ms), peak_gib=peak, loss=loss)
         del sstate, step_fn, batches, scene
@@ -367,26 +479,37 @@ def main() -> None:
     print(f"train FLOP a point: vanilla {pp['vanilla']}, mip {pp['mip']}")
     for name in runs[0]["kernels"]:
         k = runs[0]["kernels"][name]
-        flop = k["points"] * pp["mip" if name[:2] in ("#5", "#7") else
-                                "vanilla"]
+        flop = k["points"] * pp["mip" if name.split()[0] in (
+            "#5", "#7", "#16") else "vanilla"]
         times = "; ".join(f"{r['tag']} {r['kernels'][name]['ms']:.3f}"
                           for r in runs)
         slot8 = {r["tag"]: r["kernels"][name].get("plan", [None] * 9)[8]
                  for r in runs}
+        plain = "; ".join(f"{r['tag']} {r['kernels'][name]['plain_ms']:.3f}"
+                          for r in runs if "plain_ms" in r["kernels"][name])
+        bits = {tag: {r["kernels"][name].get("bits") for r in runs
+                      if r["tag"] == tag} for tag in ("parent", "change")}
+        same = {tag: len(b) == 1 for tag, b in bits.items() if b}
+        if len(same) == 2:
+            same["change = parent"] = bits["parent"] == bits["change"]
         print(f"{name} (N={k['points']}): {times} ms/launch; bounds "
               f"{1e3 * flop / PEAK_FP32:.3f} (CUDA cores) / "
               f"{1e3 * flop / PEAK_SIX:.3f} (six-product tensor) ms; "
-              f"plan slot 8 {slot8}")
+              f"plan slot 8 {slot8}"
+              + (f"; plain version {plain} ms" if plain else "")
+              + f"; the same bits (each tree's runs; across trees): "
+              f"{same}")
     for key in runs[0]["steps"]:
         for r in runs:
             s = r["steps"][key]
-            print(f"lego_3view step ({key}, {s['dtype']}, one-pass "
+            print(f"{s['preset']} step ({key}, {s['dtype']}, one-pass "
                   f"{s['onepass']}, {s['rays']} rays) [{r['tag']}]: "
                   f"{s['step_ms']:.2f} ms/step over {s['steps']}, device "
                   f"{s['device_ms']:.2f} ms, idle {s['idle']:.3f}, peak "
                   f"{s['peak_gib']:.2f} GiB, loss {s['loss']:.5f}")
     for r in runs:
-        for key in ("split #3 fine fp32", "split #2 fine fp32"):
+        for key in ("split #3 fine fp32", "split #2 fine fp32",
+                    "split #5 fp32", "split #7 fp32"):
             print(f"{key} [{r['tag']}]: " + "; ".join(
                 f"{k} {ms:.3f} ms x{c}" for k, ms, c in r[key]))
         print(f"[{r['tag']}] build {r['build_s']:.1f} s, process "

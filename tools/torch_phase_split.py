@@ -6,7 +6,7 @@ forwards #1, #10, #6 and #15 spend their time, on one CUDA card.
     python3 tools/torch_phase_split.py          # the bf16 parts
     python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14, #16
     python3 tools/torch_phase_split.py fwd      # #1, #10, #6, #15 and 6n
-    python3 tools/torch_phase_split.py fp32     # #3 and #2 in fp32
+    python3 tools/torch_phase_split.py fp32     # #3, #2, #5, #7 in fp32
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
 `csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7 and
@@ -47,11 +47,14 @@ Then it builds `csrc/fused_mip_fwd.cu` three times more from copies of
 without the Jacobian and the walk back (its products and its weight
 slabs), and times 6n on the same chunk: the differences are the
 Jacobian's and the walk back's times, the rest #6's forward with the
-masks kept. The fp32 part builds `csrc/onepass_level.cu` and
-`csrc/fused_mlp_bwd.cu` in the level part's four variants and times fp32
-#3 at the fine level and #2 at the fine patch launch (the fp32 walk: its
-forward on the CUDA cores, its backward and dW GEMM as six bf16 products;
-"forward" holds the forward, the heads and the compositing). Prints the
+masks kept. The fp32 part builds `csrc/onepass_level.cu`,
+`csrc/fused_mlp_bwd.cu`, `csrc/onepass_mip_level.cu` and
+`csrc/fused_mip_bwd.cu` in the level part's four variants and times fp32
+#3 at the fine level, #2 at the fine patch launch, #5 at a level of the
+regnerf3 presets' data rays (1024 x 96) and #7 at their MiDaS patch rays
+(1024 x 96) (the fp32 walk: its forward on the CUDA cores, its backward
+and dW GEMM as six bf16 products; "forward" holds the forward, the heads
+and the compositing). Prints the
 card's name and power limit beside the times. Imports torch and the port
 only.
 """
@@ -469,14 +472,16 @@ def main() -> None:
 
 
 def fp32_main() -> None:
-    """Times fp32 #3 (fine level) and #2 (fine patch launch) in the four
-    level variants."""
+    """Times fp32 #3 (fine level), #2 (fine patch launch), #5 (a level of
+    the regnerf3 presets' data rays) and #7 (their MiDaS patch rays) in
+    the four level variants."""
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
     from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
     from consistentnerf_tpu_torch.ops import fused_mlp as fm
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
     from consistentnerf_tpu_torch.ops import fused_onepass as op
@@ -511,11 +516,41 @@ def fp32_main() -> None:
     p_views = torch.randn(3, n_patch, generator=g)
     p_views = (p_views / p_views.norm(dim=0, keepdim=True)).to(dev)
     p_g = (1e-3 * torch.randn(4, n_patch, generator=g)).to(dev)
+    # The mip preset's shapes (regnerf3 / mipnerf3: 1024 rays x 96 a
+    # level of #5, 1024 MiDaS patch rays x 96 for #7), MipMLP 8x256.
+    mip = MipMLP(net_depth=8, net_width=256)
+    mip.reset_parameters(g)
+    mpacked = fmip.pack([w.detach().to(dev)
+                         for w in fmip.flatten_mip_params(mip)], 8, 16,
+                        "float32")
+    m_rays, m_seg = 1024, 96
+    t = torch.sort(torch.rand(m_rays, m_seg + 1, generator=g) * 3 + 0.5,
+                   -1).values.to(dev)
+    dn = (0.5 + torch.rand(m_rays, generator=g)).to(dev)
+    vd = torch.randn(3, m_rays, generator=g)
+    m_pts = m_rays * m_seg
+    means = (torch.rand(3, m_pts, generator=g) * 3 - 1.5).to(dev)
+    covs = (torch.rand(3, m_pts, generator=g) * 1e-4).to(dev)
+    mviews = (vd / vd.norm(dim=0, keepdim=True)).to(dev).repeat_interleave(
+        m_seg, 1).contiguous()
+    m_rows = [torch.rand(m_rays, generator=g).to(dev) * 1e-3
+              for _ in range(2)]
+    margs = (means, covs, mviews, 0.5 * (t[:, 1:] + t[:, :-1]),
+             (t[:, 1:] - t[:, :-1]) * dn[:, None], t[:, 0].contiguous(),
+             t[:, -1].contiguous(), m_rows[0],
+             torch.rand(m_rays, 3, generator=g).to(dev), m_rows[1],
+             torch.rand(m_rays, generator=g).to(dev) + 2)
+    m_g = (1e-3 * torch.randn(4, m_pts, generator=g)).to(dev)
     cases = {
         f"#3 fine ({n_rays * seg} points)": lambda: op.onepass_level(
             packed, *args, white_bkgd=True, compute_dtype="float32"),
         f"#2 fine patch ({n_patch} points)": lambda: v2.bwd_T(
             packed, p_pts, p_views, p_g, 8, (4,), 10, 4, "float32"),
+        f"#5 regnerf3 level ({m_pts} points)": lambda: op.onepass_mip_level(
+            mpacked, *margs, net_depth=8, num_freqs=16, white_bkgd=False,
+            compute_dtype="float32"),
+        f"#7 regnerf3 patch rays ({m_pts} points)": lambda: fmip.bwd_T(
+            mpacked, means, covs, mviews, m_g, 8, 16, "float32"),
     }
     base_flags = list(_build.NVCC_FLAGS)
     _build.CSRC = csrc
@@ -525,8 +560,10 @@ def fp32_main() -> None:
         _build.BUILD_DIR = REPO / "build" / "phase_split" / f"fp32_{name}"
         _build._LIBS.clear()
         op._kernel.cache_clear()
+        op._mip_kernel.cache_clear()
         v2._entry.cache_clear()
-        _build.build_all(["onepass_level", "fused_mlp_bwd"])
+        _build.build_all(["onepass_level", "fused_mlp_bwd",
+                          "onepass_mip_level", "fused_mip_bwd"])
         for case, run in cases.items():
             times[case][name] = _time(run)
             print(f"[{card}] {case} fp32 {name}: {times[case][name]:.3f} "
