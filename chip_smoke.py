@@ -526,7 +526,8 @@ def fwd_plan_text(plan):
         return (f"mlp_fwd.cuh's walk: {plan['tiles']} blocks of "
                 f"{plan['tile']} points, {plan['smem_bytes']} bytes of "
                 "shared memory")
-    return (f"the Hopper walk: {plan['blocks']} persistent blocks over "
+    walk = "the Hopper walk" if plan["hopper"] == 1 else "the fp32 walk"
+    return (f"{walk}: {plan['blocks']} persistent blocks over "
             f"{plan['tiles']} tiles of {plan['tile']} points, a "
             f"{plan['stages']}-slot weight ring, {plan['pe_buffers']} pe "
             f"buffer(s), cluster {plan['cluster']}, {plan['smem_bytes']} "
@@ -541,6 +542,11 @@ def ptxas_report(_build, name):
             mangled = line.split("'")[1]
             entry = ("bf16" if "bfloat16" in mangled else
                      "fp32" if "reduce" not in mangled else "reduce")
+            if "fwd_f32_kernel" in mangled:
+                args = re.findall(r"Li(\d+)E", mangled.split("Enc")[1])
+                entry = f"fp32 walk {args[0]}x32 / {args[1]}x32"
+            elif "encode_check_kernel" in mangled:
+                entry = "fp32 encoder check"
             if "fwd_hopper_kernel" in mangled:
                 args = re.findall(r"Li(\d+)E", mangled.split("Enc")[1])
                 entry = (f"bf16 Hopper walk {args[0]}x64 / {args[1]}x64"
@@ -1017,14 +1023,16 @@ def normals_gates(label, fmip, packed, packed32, means, covs, views, kw):
 
 
 def fwd_walk_phases(dev, fm, v2, fmip):
-    """The Hopper walk of #1, #6, #10, #12 / #13 and #15
-    (csrc/fwd_hopper.cuh): the shape-decided plans (in bf16 #1, #6, #10,
-    #12 / #13 and #15 at 8x256 take the walk; fp32 and v1's shapes past
-    #1's keep mlp_fwd.cuh's walk), and the kernels at the ragged sizes in
-    bf16 against their plain versions (the render chunk's gates) and bit
-    for bit: #10 against #1 and #15 against #6 (two layouts of one walk),
-    #12 and #13 against #10 (one instance of it), and a repeat of each
-    against its first launch."""
+    """The walks of #1, #6, #10, #12 / #13 and #15: the shape-decided
+    plans (at 8x256 in bf16 the Hopper walk of csrc/fwd_hopper.cuh, in
+    fp32 the fp32 walk of csrc/fwd_f32.cuh, at the render chunks and at
+    the fp32 presets' step shapes, with the wrappers' shared-memory
+    figure; v1's shapes past #1's keep mlp_fwd.cuh's walk), the fp32
+    walk's encoders against mlp_fwd.cuh's bit for bit, and the kernels at
+    the ragged sizes in both dtypes against their plain versions (the
+    render chunk's gates) and bit for bit: #10 against #1 and #15 against
+    #6 (two layouts of one walk), #12 and #13 against #10 (one instance of
+    it), and a repeat of each against its first launch."""
     from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
     from consistentnerf_tpu_torch.ops import fused_mlp_train as fmt
 
@@ -1073,11 +1081,37 @@ def fwd_walk_phases(dev, fm, v2, fmip):
                 row=True)),
             ("#15 fp32 (row-major), mip level", fmip.fwd_plan(
                 fmip.pack(mflat, 8, 16, "float32"), MIP_LEVEL_N,
-                row=True))):
+                row=True)),
+            ("#13 fp32 (v1), two-call fine level", fm.fwd_plan(
+                fm.pack_v1(flat, compute_dtype="float32", **nerf_kw),
+                TWOCALL_FINE)),
+            # The fp32 presets' one-pass steps: the vanilla patch levels
+            # (4x16x16 rays x 192 / 64), the mip patch rays and the TV
+            # norm's 2048 random-pose rays (x 96).
+            ("#1 fp32, the vanilla presets' fine patch level", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="float32", **nerf_kw),
+                1024 * 192)),
+            ("#1 fp32, the vanilla presets' coarse patch level", v2.fwd_plan(
+                v2.pack(flat, compute_dtype="float32", **nerf_kw),
+                1024 * 64)),
+            ("#6 fp32, the mip presets' patch rays", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "float32"), 1024 * 96)),
+            ("#6 fp32, the TV norm's random-pose rays", fmip.fwd_plan(
+                fmip.pack(mflat, 8, 16, "float32"), 2048 * 96))):
         log(f"plan of {label}: {fwd_plan_text(plan)}")
-        want_hopper = "bf16" in label
-        gate(plan["hopper"] == int(want_hopper), f"the plan of {label} "
-             f"picked the {'Hopper' if plan['hopper'] else 'legacy'} walk")
+        want = v2.WALK_BF16 if "bf16" in label else v2.WALK_F32
+        gate(plan["hopper"] == want, f"the plan of {label} picked "
+             f"{v2.WALK_NAMES.get(plan['hopper'], plan['hopper'])}, not "
+             f"{v2.WALK_NAMES[want]}")
+        if want == v2.WALK_F32:
+            smem = fm.fwd_walk_smem_bytes(
+                fmip.pack(mflat, 8, 16, "float32") if "#6" in label or
+                "#15" in label else v2.pack(flat, compute_dtype="float32",
+                                            **nerf_kw))
+            gate((plan["smem_bytes"], plan["stages"], plan["pe_buffers"])
+                 == smem, f"the plan of {label} is not the wrappers' "
+                 f"figure {smem}")
+    fp32_encode_gates(dev, v2)
     # v1's shapes past #1's keep mlp_fwd.cuh's walk in bf16 too.
     for label, (depth, sk, mr, mv, uv) in V1_SHAPES.items():
         m = NeRFMLP(net_depth=depth, net_width=256, input_ch=3 * (1 + 2 * mr),
@@ -1093,6 +1127,8 @@ def fwd_walk_phases(dev, fm, v2, fmip):
 
     packed = v2.pack(flat, compute_dtype="bfloat16", **nerf_kw)
     packed1 = fm.pack_v1(flat, compute_dtype="bfloat16", **nerf_kw)
+    packed32 = v2.pack(flat, compute_dtype="float32", **nerf_kw)
+    packed1_32 = fm.pack_v1(flat, compute_dtype="float32", **nerf_kw)
     mpacked = fmip.pack(mflat, 8, 16, "bfloat16")
     mpacked32 = fmip.pack(mflat, 8, 16, "float32")
     for n in RAGGED_N:
@@ -1120,6 +1156,29 @@ def fwd_walk_phases(dev, fm, v2, fmip):
         gate(same, f"{v2.KERNEL} N={n}: other bits than {v2.ROW_KERNEL}")
         v1_bit_gates(f"N={n}", fm, fmt, v2, packed, packed1, pts_r, views_r,
                      twin, nerf_kw)
+        with torch.no_grad():
+            got = v2.fwd_T(packed32, pts, views, compute_dtype="float32",
+                           **nerf_kw)
+            torch.cuda.synchronize()
+            want = v2.plain_fwd_T(packed32, pts, views,
+                                  compute_dtype="float32", **nerf_kw)
+            twin = v2.fwd(packed32, pts_r, views_r, compute_dtype="float32",
+                          **nerf_kw)
+            again = v2.fwd_T(packed32, pts, views, compute_dtype="float32",
+                             **nerf_kw)
+        repeat_gate(f"{v2.KERNEL} N={n}", [got], [again], "fp32")
+        rel, mx = rel_err(got, want)
+        same = torch.equal(got, twin.T)
+        log(f"{v2.KERNEL} fp32 vs plain, N={n}: max|diff| {mx:.3e}, "
+            f"max|diff|/mean|plain| {rel:.3e} (tol {FP32_TOL}); "
+            f"bit-identical to {v2.ROW_KERNEL} {same}")
+        gate(bool(torch.isfinite(got).all()) and rel < FP32_TOL,
+             f"{v2.KERNEL} fp32 N={n} disagrees with its plain version "
+             f"({rel})")
+        gate(same, f"{v2.KERNEL} fp32 N={n}: other bits than "
+             f"{v2.ROW_KERNEL}")
+        v1_bit_gates(f"N={n}", fm, fmt, v2, packed32, packed1_32, pts_r,
+                     views_r, twin, nerf_kw, "float32")
         g = torch.Generator().manual_seed(0)
         means = (torch.rand(3, n, generator=g) * 3 - 1.5).to(dev)
         covs = (torch.rand(3, n, generator=g) * 1e-4).to(dev)
@@ -1148,35 +1207,102 @@ def fwd_walk_phases(dev, fm, v2, fmip):
                              covs.T.contiguous(), mviews.T.contiguous(),
                              compute_dtype="bfloat16", **mip_kw).T
         repeat_gate(f"{fmip.ROW_KERNEL} N={n}", [twin], [again])
+        with torch.no_grad():
+            got = fmip.fwd_T(mpacked32, means, covs, mviews,
+                             compute_dtype="float32", **mip_kw)
+            torch.cuda.synchronize()
+            want = fmip.plain_fwd_T(mpacked32, means, covs, mviews,
+                                    compute_dtype="float32", **mip_kw)
+            twin = fmip.fwd(mpacked32, means.T.contiguous(),
+                            covs.T.contiguous(), mviews.T.contiguous(),
+                            compute_dtype="float32", **mip_kw).T
+            again = fmip.fwd(mpacked32, means.T.contiguous(),
+                             covs.T.contiguous(), mviews.T.contiguous(),
+                             compute_dtype="float32", **mip_kw).T
+            again6 = fmip.fwd_T(mpacked32, means, covs, mviews,
+                                compute_dtype="float32", **mip_kw)
+        repeat_gate(f"{fmip.KERNEL} N={n}", [got], [again6], "fp32")
+        if not torch.isfinite(got).all():
+            fail(f"{fmip.KERNEL} fp32 N={n}: non-finite output")
+        mip_fwd_gate(f"{fmip.KERNEL} fp32 vs plain, N={n}", got, want,
+                     "float32")
+        same = torch.equal(got, twin)
+        log(f"{fmip.KERNEL} fp32 N={n}: bit-identical to {fmip.ROW_KERNEL} "
+            f"{same}")
+        gate(same, f"{fmip.KERNEL} fp32 N={n}: other bits than "
+             f"{fmip.ROW_KERNEL}")
+        repeat_gate(f"{fmip.ROW_KERNEL} N={n}", [twin], [again], "fp32")
         # 6n (#6's walk with the normals tail) on the same points.
         normals_gates(f"{fmip.NORMALS_KERNEL} N={n}", fmip, mpacked,
                       mpacked32, means, covs, mviews, mip_kw)
 
 
+def fp32_encode_gates(dev, v2):
+    """The fp32 walk's encoders (fwd_hopper.cuh's FhEnc with an fp32
+    store) against mlp_fwd.cuh's (mlp_common.cuh's encode / encode_ipe /
+    encode_mip_views), bit for bit, through `fwd_f32_encode_check`: the
+    NeRF PE at multires 10 / 4 and the IPE at 16 frequencies with the mip
+    view encoding, on points up to 100 in magnitude (the sines' arguments
+    past 100 pi, sinf's slow path), exact multiples of 100 pi, signed
+    zeros, a denormal, variances up to 1e3, 2551 points (40 tiles, the
+    last ragged)."""
+    g = torch.Generator().manual_seed(5)
+    n = 64 * 40 - 9
+    pts = (torch.rand(3, n, generator=g) - 0.5) * 200
+    pts[0, :6] = torch.tensor([0.0, -0.0, 1.0, -1.0, 1e-30, -3e-39])
+    t = torch.tensor(314.15926535897932, dtype=torch.float32)
+    pts[1, :32] = t * torch.arange(-16, 16, dtype=torch.float32) / 2.0 ** (
+        torch.arange(32) % 16).float()
+    covs = torch.rand(3, n, generator=g) ** 4 * torch.tensor(
+        [1e-4, 1.0, 1e3])[:, None]
+    views = torch.randn(3, n, generator=g) * 40
+    streams = [x.contiguous().to(dev) for x in (pts, covs, views)]
+    for mr, mv, ipe, name in ((10, 4, 0, "NeRF PE"),
+                              (16, 4, 1, "IPE and mip view encoding")):
+        p = 6 * mr if ipe else 3 * (1 + 2 * mr)
+        cols = v2._pad16(p) + v2._pad16(3 * (1 + 2 * mv))
+        out = torch.full((2, -(-n // 64), cols, 64), float("nan"),
+                         device=dev)
+        err = v2._entry(v2.KERNEL, "fwd_f32_encode_check", 4, 4)(
+            *(x.data_ptr() for x in streams), out.data_ptr(), n, mr, mv,
+            ipe, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            fail(f"fwd_f32_encode_check failed: cudaError_t {err}")
+        torch.cuda.synchronize()
+        old, new = out[0].view(torch.int32), out[1].view(torch.int32)
+        diff = int((old != new).sum())
+        log(f"the fp32 walk's {name} (multires {mr} / {mv}) against "
+            f"mlp_fwd.cuh's encoders: {diff} of {old.numel()} values differ "
+            f"in their bits")
+        gate(diff == 0 and bool(torch.isfinite(out[0]).all()),
+             f"the fp32 walk's {name} differs from mlp_fwd.cuh's in {diff} "
+             "values")
+
+
 def v1_bit_gates(label, fm, fmt, v2, packed, packed1, pts, views, first,
-                 kw):
-    """At 8x256 in bf16, #10, #12 and #13 run one instance of the Hopper
-    walk under the row-major layout: #12 and #13 on the v1 packing give
-    #10's bits (`first`, #10 on pts / views [N, 3]), and a second launch
-    of each gives its first one's."""
+                 kw, dtype="bfloat16"):
+    """At 8x256, #10, #12 and #13 run one instance of a walk under the
+    row-major layout (bf16: the Hopper walk, fp32: the fp32 walk): #12
+    and #13 on the v1 packing give #10's bits (`first`, #10 on pts / views
+    [N, 3]), and a second launch of each gives its first one's."""
     with torch.no_grad():
-        r12 = fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16",
-                           **kw)
-        r13 = fmt.forward(packed1, pts, views, compute_dtype="bfloat16", **kw)
-        again = [v2.fwd(packed, pts, views, compute_dtype="bfloat16", **kw),
-                 fm.fused_mlp(packed1, pts, views, compute_dtype="bfloat16",
+        r12 = fm.fused_mlp(packed1, pts, views, compute_dtype=dtype, **kw)
+        r13 = fmt.forward(packed1, pts, views, compute_dtype=dtype, **kw)
+        again = [v2.fwd(packed, pts, views, compute_dtype=dtype, **kw),
+                 fm.fused_mlp(packed1, pts, views, compute_dtype=dtype,
                               **kw),
-                 fmt.forward(packed1, pts, views, compute_dtype="bfloat16",
-                             **kw)]
+                 fmt.forward(packed1, pts, views, compute_dtype=dtype, **kw)]
         torch.cuda.synchronize()
     same = (torch.equal(r12, first), torch.equal(r13, first))
     rep_ = [torch.equal(a, b) for a, b in zip((first, r12, r13), again)]
-    log(f"#12 / #13 ({fm.KERNEL}) bf16, {label}: bit-identical to #10 "
+    dt = "bf16" if dtype == "bfloat16" else "fp32"
+    log(f"#12 / #13 ({fm.KERNEL}) {dt}, {label}: bit-identical to #10 "
         f"{same[0]} / {same[1]}; a second launch of #10 / #12 / #13 "
         f"bit-identical {rep_[0]} / {rep_[1]} / {rep_[2]}")
-    gate(all(same), f"#12 / #13 {label}: other bits than #10 ({same})")
-    gate(all(rep_), f"#10 / #12 / #13 {label}: a second launch gave other "
-         f"bits ({rep_})")
+    gate(all(same), f"#12 / #13 {dt} {label}: other bits than #10 "
+         f"({same})")
+    gate(all(rep_), f"#10 / #12 / #13 {dt} {label}: a second launch gave "
+         f"other bits ({rep_})")
 
 
 def render_phases(dev, card, configs, fm, v2):

@@ -18,17 +18,19 @@
 // frequencies / view degree 4 (610,304 MACs: 96->256, six 256->256, the
 // post-skip 352->256, density 256->1, bottleneck 256->256, view layer
 // 283->128, rgb 128->3) against 52 bytes (9 floats in, 4 out). Weight
-// layout: see mlp_fwd.cuh. In bf16 at widths 64-256 both instances run
-// the Hopper walk of fwd_hopper.cuh, with a 2-slot weight ring at 16
-// frequencies (a 3-slot ring does not fit beside two 96-column pe
-// buffers), #6 under the ColMajor layout and #15 under RowMajor (the
-// encoders read [n, 3] rows, the heads store [n, 4] rows), so #15 gives
-// #6's bits on the same points; fp32 and other widths run mlp_fwd.cuh's
-// walk, both with the mip encoder (mlp_common.cuh::MipEnc). The plan
-// (fused_mip_fwd_plan) decides by shapes alone, the same for both
-// layouts; both entries run mip_forward. The TPU kernel's packed
-// 128-lane IPE register, its pi/2 phase-bias row and its sin(2^-14 v)
-// 2^14 raw-viewdir columns are Mosaic lane-layout devices; here each
+// layout: see mlp_fwd.cuh. Three walks, each under both stream layouts
+// (#6 ColMajor, #15 RowMajor: the encoders read [n, 3] rows, the heads
+// store [n, 4] rows), so #15 gives #6's bits on the same points: in bf16
+// at widths 64-256 the Hopper walk of fwd_hopper.cuh, with a 2-slot weight
+// ring at 16 frequencies (a 3-slot ring does not fit beside two 96-column
+// pe buffers); in fp32 at widths 64-256 with the 128-wide view layer the
+// walk of fwd_f32.cuh (persistent blocks, a bulk-copy weight ring,
+// register-blocked fmas on the CUDA cores, fwd_tile's bits); other shapes
+// mlp_fwd.cuh::fwd_tile, all with the mip encoder (mlp_common.cuh::
+// MipEnc). The plan (fused_mip_fwd_plan) decides by shapes alone, the
+// same for both layouts; both entries run mip_forward. The TPU kernel's
+// packed 128-lane IPE register, its pi/2 phase-bias row and its sin(2^-14
+// v) 2^14 raw-viewdir columns are Mosaic lane-layout devices; here each
 // feature is computed on its own and the raw view directions are read as
 // they are.
 //
@@ -53,6 +55,7 @@
 // stays fp32.
 
 #include "fwd_hopper.cuh"
+#include "fwd_f32.cuh"
 #include "mlp_train.cuh"
 
 using mlp::bf16;
@@ -89,19 +92,25 @@ int hopper_launch(const mlp::FhPlan& pl, const void* means, const void* covs,
   }
 }
 
-// The MipMLP forward of #6 (ColMajor) and #15 (RowMajor): the Hopper walk
-// where fh_plan takes it, else mlp_fwd.cuh's walk (in fp32 on the CUDA
-// cores). Returns a cudaError_t.
+// The MipMLP forward of #6 (ColMajor) and #15 (RowMajor): the bf16 Hopper
+// walk or the fp32 walk where fwd_f32.cuh::fwd_walk_plan takes one (the
+// plan of fused_mip_fwd_plan), else mlp_fwd.cuh's walk;
+// a failed launch of a walk returns its error, nothing falls back. Returns
+// a cudaError_t.
 template <typename L>
 int mip_forward(const void* means, const void* covs, const void* views,
                 const void* w, const void* b, void* out, int n, const Dims& d,
                 bool bf16_, cudaStream_t s) {
   if (n <= 0) return 0;
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, bf16_, mip_instance(d), &pl);
+  const int err = mlp::fwd_walk_plan(d, n, bf16_, mip_instance(d),
+                                     mlp::ff_mip_instance(d), &pl);
   if (err) return err;
-  if (pl.ok)
+  if (pl.ok == 1)
     return hopper_launch<L>(pl, means, covs, views, w, b, out, n, d, s);
+  if (pl.ok == 2)
+    return mlp::ff_dispatch<mlp::MipEnc, 4, L>(pl, means, covs, views, w, b,
+                                               out, n, d, s);
   if (bf16_)
     return mlp::fwd_launch<bf16, 128, mlp::MipEnc, L>(means, covs, views, w,
                                                       b, out, n, d, s);
@@ -112,7 +121,7 @@ int mip_forward(const void* means, const void* covs, const void* views,
 }  // namespace
 
 // The walk #6 takes at these shapes (row: the row-major instance #15,
-// whose plan is #6's): out[0..7] as mlp::fh_plan_slots. Returns a
+// whose plan is #6's): out[0..7] as mlp::fwd_plan_slots. Returns a
 // cudaError_t.
 extern "C" int fused_mip_fwd_plan(int n, int depth, int width,
                                   int view_width, int skip_mask,
@@ -121,9 +130,10 @@ extern "C" int fused_mip_fwd_plan(int n, int depth, int width,
   (void)row;
   const Dims d(depth, width, skip_mask, num_freqs, deg_view, 1, view_width);
   mlp::FhPlan pl;
-  const int err = mlp::fh_plan(d, n, use_bf16, mip_instance(d), &pl);
+  const int err = mlp::fwd_walk_plan(d, n, use_bf16, mip_instance(d),
+                                     mlp::ff_mip_instance(d), &pl);
   if (err) return err;
-  mlp::fh_plan_slots(pl, d, n, use_bf16, out);
+  mlp::fwd_plan_slots(pl, d, n, use_bf16, out);
   return 0;
 }
 
@@ -208,7 +218,7 @@ int mode5_plan(const Dims& d, int n, bool bf16_, long long* p) {
 
 }  // namespace
 
-// The walk 6n takes at these shapes: out[0..7] as mlp::fh_plan_slots
+// The walk 6n takes at these shapes: out[0..7] as mlp::fwd_plan_slots
 // (mode 5: 0, points a chunk, 0, 1, shared memory, blocks, 0, chunks),
 // out[8] where the masks live (1: registers, the Hopper walk; 0: mode 5
 // saves every activation), out[9] workspace elements of the compute type
@@ -222,7 +232,7 @@ extern "C" int fused_mip_fwd_normals_plan(int n, int depth, int width,
   int err = normals_hopper_plan(d, n, use_bf16, &pl);
   if (err) return err;
   if (pl.ok) {
-    mlp::fh_plan_slots(pl, d, n, use_bf16, out);
+    mlp::fwd_plan_slots(pl, d, n, use_bf16, out);
     out[8] = 1;
     out[9] = 0;
     return 0;

@@ -21,22 +21,25 @@
 // P, and the wrapper refuses a config past 227 KB).
 //
 // Bound: operations (1,186,816 FLOP and 40 bytes a point at 8x256 /
-// multires 10+4). Two walks, picked by shapes alone (fused_mlp_v1_fwd_plan):
-// in bf16 at #1's shapes (widths 64-256, heads on h with the view branch,
-// P <= 128; the render #12 and the two-call levels #13 at 8x256 / multires
-// 10+4) the Hopper walk of fwd_hopper.cuh under RowMajor, the instances
-// #10 runs (fh_nerf_forward), so #12 / #13 give #10's bits there; fp32,
-// a skip into the heads, the output head and P > 128 keep mlp_fwd.cuh's
-// walk with v1's head shapes (activations of a tile of M points in shared
-// memory, weights streamed from L2 into wmma fragments). No cross-block
-// reduction: the output is deterministic.
+// multires 10+4). Three walks, picked by shapes alone
+// (fused_mlp_v1_fwd_plan): at #1's shapes (widths 64-256, heads on h with
+// the view branch, P <= 128; the render #12 and the two-call levels #13
+// at 8x256 / multires 10+4) the instances #10 runs under RowMajor
+// (fwd_f32.cuh::fh_nerf_forward), in bf16 the Hopper walk of
+// fwd_hopper.cuh and in fp32 the walk of fwd_f32.cuh, so #12 / #13 give
+// #10's bits there; a skip into the heads, the output head and P > 128
+// keep mlp_fwd.cuh's walk with v1's head shapes (activations of a tile of
+// M points in shared memory, weights streamed from L2 into wmma fragments
+// or, in fp32, read by the CUDA cores). No cross-block reduction: the
+// output is deterministic.
 
 #include "fwd_hopper.cuh"
+#include "fwd_f32.cuh"
 
 using mlp::bf16;
 using mlp::Dims;
 
-// The walk #12 / #13 take at these shapes: out[0..7] as mlp::fh_plan_slots
+// The walk #12 / #13 take at these shapes: out[0..7] as mlp::fwd_plan_slots
 // (slot 4 of mlp_fwd.cuh's walk: fused_mlp_v1_fwd_smem_bytes). Returns a
 // cudaError_t.
 extern "C" int fused_mlp_v1_fwd_plan(int n, int depth, int width,

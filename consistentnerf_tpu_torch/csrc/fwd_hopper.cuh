@@ -10,14 +10,15 @@
 // the stream layout (mlp_common.cuh::ColMajor / RowMajor): the encoders
 // read the points and views through L::at, and the heads store with a
 // channel stride and a row stride ((n, 1) transposed, (1, 4) row-major,
-// (gp, 1) into #4's group buffer). fp32, the widths this walk does not
-// take, and the v1 shapes past #1's (a skip into the heads, the output
-// head, P > 128) keep mlp_fwd.cuh::fwd_tile (6n mlp_train.cuh's mode 5,
-// #4 fwd_tile and composite_ray).
+// (gp, 1) into #4's group buffer). fp32 #1 / #6 / #10 / #12 / #13 / #15
+// run fwd_f32.cuh's walk (which shares this file's encoders, FhEnc); the
+// widths neither walk takes and the v1 shapes past #1's (a skip into the
+// heads, the output head, P > 128) keep mlp_fwd.cuh::fwd_tile, and in fp32
+// 6n keeps mlp_train.cuh's mode 5 and #4 fwd_tile and composite_ray.
 // The plan functions of the sources (fused_mlp_fwd_plan,
-// fused_mlp_v1_fwd_plan, fused_mip_fwd_plan, fused_mip_fwd_normals_plan,
-// render_level_plan, from fh_plan here) decide by shapes alone which
-// walk runs.
+// fused_mlp_v1_fwd_plan, fused_mip_fwd_plan through fwd_f32.cuh::
+// fwd_walk_plan; fused_mip_fwd_normals_plan, render_level_plan from
+// fh_plan here) decide by shapes alone which walk runs.
 //
 // What it replaces: fwd_tile ran one 128-point tile per block (8 warps,
 // one block an SM). Every warp loaded each 16-deep weight fragment from
@@ -512,17 +513,27 @@ struct FhEnc;
 // correctly rounded.
 __device__ inline float fh_pow2(int k) { return __int_as_float((127 + k) << 23); }
 
+// The stores of the encoders: fh_store into a bf16 tile (this walk), or
+// fp32 into a feature-major [features, ld] tile (fwd_f32.cuh's walk).
+struct FhBf16Store {
+  unsigned char* buf;
+  __device__ void operator()(int p, int c, float v) const {
+    fh_store(buf, p, c, v);
+  }
+};
+
 // The NeRFMLP's PE (mlp_common.cuh::encode) a pair at a time: the
 // identity columns, then sin and cos of each x 2^f from one sincosf, which
-// gives sinf's and cosf's bits.
+// gives sinf's and cosf's bits. A tile is TILE points; the encoders are
+// the producer's warps 1-3 in both walks.
 template <>
 struct FhEnc<NerfEnc> {
-  template <typename L>
+  template <typename L, int TILE, typename St>
   __device__ static void pe_tile(const float* x, int n, int base, int valid,
-                                 int nf, unsigned char* buf) {
-    for (int e = threadIdx.x - 288; e < kFhTile * 3 * (1 + nf);
+                                 int nf, St st) {
+    for (int e = threadIdx.x - 288; e < TILE * 3 * (1 + nf);
          e += kFhEncoders) {
-      const int p = e % kFhTile, j = e / kFhTile;
+      const int p = e % TILE, j = e / TILE;
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid && j < 3) {
@@ -533,21 +544,19 @@ struct FhEnc<NerfEnc> {
       }
       // ---- end of the encode ----
       const int c = j < 3 ? j : 3 + 6 * ((j - 3) / 3) + (j - 3) % 3;
-      fh_store(buf, p, c, vs);
-      if (j >= 3) fh_store(buf, p, c + 3, vc);
+      st(p, c, vs);
+      if (j >= 3) st(p, c + 3, vc);
     }
   }
-  template <typename L>
+  template <typename L, int TILE = kFhTile, typename St = FhBf16Store>
   __device__ static void points(const float* pts, const float*, int n,
-                                int base, int valid, const Dims& d,
-                                unsigned char* buf) {
-    pe_tile<L>(pts, n, base, valid, d.multires, buf);
+                                int base, int valid, const Dims& d, St st) {
+    pe_tile<L, TILE>(pts, n, base, valid, d.multires, st);
   }
-  template <typename L>
+  template <typename L, int TILE = kFhTile, typename St = FhBf16Store>
   __device__ static void views(const float* views, int n, int base,
-                               int valid, const Dims& d,
-                               unsigned char* buf) {
-    pe_tile<L>(views, n, base, valid, d.multires_views, buf);
+                               int valid, const Dims& d, St st) {
+    pe_tile<L, TILE>(views, n, base, valid, d.multires_views, st);
   }
 };
 
@@ -556,13 +565,12 @@ struct FhEnc<NerfEnc> {
 // argument, and the IPE pair its damping.
 template <>
 struct FhEnc<MipEnc> {
-  template <typename L>
+  template <typename L, int TILE = kFhTile, typename St = FhBf16Store>
   __device__ static void points(const float* mean, const float* cov, int n,
-                                int base, int valid, const Dims& d,
-                                unsigned char* buf) {
+                                int base, int valid, const Dims& d, St st) {
     const int half = 3 * d.multires;
-    for (int e = threadIdx.x - 288; e < kFhTile * half; e += kFhEncoders) {
-      const int p = e % kFhTile, j = e / kFhTile, k = j / 3, r = j % 3;
+    for (int e = threadIdx.x - 288; e < TILE * half; e += kFhEncoders) {
+      const int p = e % TILE, j = e / TILE, k = j / 3, r = j % 3;
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid) {
@@ -573,17 +581,17 @@ struct FhEnc<MipEnc> {
         vc = damp * fh_safe_sin(y + kHalfPi);
       }
       // ---- end of the encode ----
-      fh_store(buf, p, j, vs);
-      fh_store(buf, p, j + half, vc);
+      st(p, j, vs);
+      st(p, j + half, vc);
     }
   }
-  template <typename L>
+  template <typename L, int TILE = kFhTile, typename St = FhBf16Store>
   __device__ static void views(const float* x, int n, int base, int valid,
-                               const Dims& d, unsigned char* buf) {
+                               const Dims& d, St st) {
     const int half = 3 * d.multires_views;
-    for (int e = threadIdx.x - 288; e < kFhTile * (3 + half);
+    for (int e = threadIdx.x - 288; e < TILE * (3 + half);
          e += kFhEncoders) {
-      const int p = e % kFhTile, j = e / kFhTile;
+      const int p = e % TILE, j = e / TILE;
       float vs = 0.f, vc = 0.f;
       // ---- encode ----
       if (p < valid && j < 3) {
@@ -595,8 +603,8 @@ struct FhEnc<MipEnc> {
         vc = fh_safe_sin(y + kHalfPi);
       }
       // ---- end of the encode ----
-      fh_store(buf, p, j, vs);
-      if (j >= 3) fh_store(buf, p, j + half, vc);
+      st(p, j, vs);
+      if (j >= 3) st(p, j + half, vc);
     }
   }
 };
@@ -747,12 +755,14 @@ __global__ void __launch_bounds__(kFhThreads, 1)
         const int base = tile * kFhTile, valid = min(kFhTile, n - base);
         const int pb = k % npe;
         if (k >= npe) mbar_wait(&pe_empty[pb], (k / npe - 1) & 1);
-        FhEnc<Enc>::template points<L>(pts, covs, n, base, valid, d,
-                                       sm + smo.pe + pb * pl.pp * kFhPanel);
+        FhEnc<Enc>::template points<L>(
+            pts, covs, n, base, valid, d,
+            FhBf16Store{sm + smo.pe + pb * pl.pp * kFhPanel});
         fence_proxy_async();
         mbar_arrive(&pe_full[pb]);
         if (k >= 1) mbar_wait(ve_empty, (k - 1) & 1);
-        FhEnc<Enc>::template views<L>(views, n, base, valid, d, sm + smo.ve);
+        FhEnc<Enc>::template views<L>(views, n, base, valid, d,
+                                      FhBf16Store{sm + smo.ve});
         fence_proxy_async();
         mbar_arrive(ve_full);
         if constexpr (TAIL == kFhRender)
@@ -1007,23 +1017,6 @@ inline int fh_plan(const Dims& d, int n, bool bf16_, bool instance,
   return 0;
 }
 
-// The plan in the plan functions' slots: out[0..7] = this walk (1) or
-// fwd_tile (0), points a tile, ring slots, cluster size, shared memory
-// bytes, blocks, pe buffers, tiles.
-inline void fh_plan_slots(const FhPlan& pl, const Dims& d, int n, bool bf16_,
-                          long long* out) {
-  out[0] = pl.ok;
-  out[1] = pl.ok ? kFhTile : (bf16_ ? 128 : 64);
-  out[2] = pl.ok ? pl.stages : 0;
-  out[3] = 1;
-  out[4] = pl.ok ? pl.smem
-                 : (long long)(bf16_ ? fwd_smem_bytes<bf16, 128>(d)
-                                     : fwd_smem_bytes<float, 64>(d));
-  out[5] = pl.ok ? pl.grid : (n + out[1] - 1) / out[1];
-  out[6] = pl.ok ? pl.npe : 0;
-  out[7] = (n + out[1] - 1) / out[1];
-}
-
 template <typename Enc, int NBW, int NBH, int TAIL = kFhHeads, int NP = 0,
           typename L = ColMajor>
 int fh_launch(const FhPlan& pl, const void* pts, const void* covs,
@@ -1077,36 +1070,6 @@ int fh_nerf_launch(const FhPlan& pl, const void* pts, const void* views,
       return fh_launch<NerfEnc, 4, 2, TAIL, 0, L>(pl, pts, nullptr, views, w,
                                                   b, out, n, d, s, rays);
   }
-}
-
-// The NeRFMLP forward of #1 (ColMajor), #10 (RowMajor) and #12 / #13
-// (RowMajor, V1: v1's head shapes where fwd_tile runs): this walk where
-// fh_plan takes it, else mlp_fwd.cuh's walk (in fp32 on the CUDA cores).
-// Returns a cudaError_t.
-template <typename L, bool V1 = false>
-int fh_nerf_forward(const void* pts, const void* views, const void* w,
-                    const void* b, void* out, int n, const Dims& d,
-                    bool bf16_, cudaStream_t s) {
-  FhPlan pl;
-  const int err = fh_plan(d, n, bf16_, fh_nerf_instance(d), &pl);
-  if (err) return err;
-  if (pl.ok)
-    return fh_nerf_launch<kFhHeads, L>(pl, pts, views, w, b, out, n, d, s);
-  if (bf16_)
-    return fwd_launch<bf16, 128, NerfEnc, L, V1>(pts, nullptr, views, w, b,
-                                                 out, n, d, s);
-  return fwd_launch<float, 64, NerfEnc, L, V1>(pts, nullptr, views, w, b,
-                                               out, n, d, s);
-}
-
-// fh_nerf_forward's plan at these shapes, the same for both layouts:
-// out[0..7] as fh_plan_slots. Returns a cudaError_t.
-inline int fh_nerf_plan(const Dims& d, int n, bool bf16_, long long* out) {
-  FhPlan pl;
-  const int err = fh_plan(d, n, bf16_, fh_nerf_instance(d), &pl);
-  if (err) return err;
-  fh_plan_slots(pl, d, n, bf16_, out);
-  return 0;
 }
 
 }  // namespace mlp

@@ -129,6 +129,18 @@ __device__ inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TB));
 }
 
+// A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory by the bulk-copy engine, counted
+// on `bar` as transaction bytes (fwd_f32.cuh's weight slabs).
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // The forward walk's primitives (fwd_hopper.cuh)
 // ---------------------------------------------------------------------------

@@ -265,14 +265,26 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
     if means.device.type != "cuda":
         raise ValueError(f"no fused forward for device {means.device}")
     packed = _packed_for(weights, net_depth, num_freqs, deg_view, cd)
+    out, launched = fwd_launch(packed, means, covs, views, row)
+    global launches, row_launches
+    if launched and row:
+        row_launches += 1
+    elif launched:
+        launches += 1
+    return out
+
+
+def fwd_launch(packed: v2.PackedMLP, means, covs, views, row: bool):
+    """Launch #6 (or, with `row`, #15) on streams of either layout: (raw
+    [4, N] or [N, 4], whether a kernel was launched: not for N = 0)."""
     n, dev = means.shape[0 if row else 1], means.device
     _check_inputs(packed, dev, n, row=row, means=means, covs=covs,
                   views=views)
-    v2.check_tma_weights(packed)  # the Hopper walk's TMA, in bf16
+    v2.check_tma_weights(packed)  # the walks' TMA / bulk-copy alignment
     out = torch.empty((n, 4) if row else (4, n), dtype=torch.float32,
                       device=dev)
     if n == 0:
-        return out
+        return out, False
     symbol = ROW_KERNEL if row else KERNEL
     err = v2._entry(KERNEL, symbol, 6, 8)(
         means.data_ptr(), covs.data_ptr(), views.data_ptr(),
@@ -280,19 +292,15 @@ def _fwd(row: bool, weights, means, covs, views, net_depth, num_freqs,
         *_cfg_args(packed), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
-    global launches, row_launches
-    if row:
-        row_launches += 1
-    else:
-        launches += 1
-    return out
+    return out, True
 
 
 def fwd_plan(packed: v2.PackedMLP, n: int, row: bool = False) -> dict:
     """The walk that kernel #6 (or, with `row`, #15: the same plan) runs
     for n points of the packed MipMLP, decided by shapes alone
-    (`fused_mip_fwd_plan`; slots as `fused_mlp_v2.plan_dict`); needs the
-    card."""
+    (`fused_mip_fwd_plan`; slots as `fused_mlp_v2.plan_dict`: in bf16 the
+    Hopper walk, in fp32 the fp32 walk, at widths 64-256 with the 128-wide
+    view layer); needs the card."""
     return v2.plan_dict(v2._entry(KERNEL, "fused_mip_fwd_plan", 0, 9),
                         (n, *_cfg_args(packed), int(row)))
 

@@ -236,6 +236,56 @@ def walk_smem_bytes(packed, rows: int, row: bool = True) -> int:
             + 4 * floats)
 
 
+# The forward walks' tiles, rings and padding under their names in
+# csrc/fwd_hopper.cuh (bf16: kFhTile, kFhBox, kFhPanel) and
+# csrc/fwd_f32.cuh (fp32: kFfTile, kFfLd, kFfSlab, kFfMaxStages).
+FH_TILE, FH_BOX, FH_PANEL = 128, 64 * 64 * 2, 128 * 128
+FF_TILE, FF_LD, FF_SLAB, FF_MAX_STAGES = 64, 64 + 4, 16, 4
+
+
+def fwd_walk_smem_bytes(packed, gp: int = 0):
+    """The shared memory of the forward walk that `packed`'s dtype takes
+    (#1, #6, #10, #12 / #13, #15; with `gp` > 0 the bf16 walk's for #4's
+    groups of gp points, whatever the dtype: fp32 #4 keeps the old
+    kernel), as the plans lay it out and choose it: (bytes, ring slots, pe
+    buffers), or None where nothing fits SMEM_LIMIT (the plan keeps
+    `mlp_fwd.cuh`'s walk). bf16: `csrc/fwd_hopper.cuh::FhSmem`
+    (tiles of 128 points in 128-byte swizzled panels, a ring of 3 or 2
+    slots of 64 x 64 bf16 boxes, the biases and head weights, 1024 bytes
+    of alignment); fp32: `csrc/fwd_f32.cuh::FfSmem` (tiles of 64 points,
+    feature-major rows of 68 floats: one activation tile, pe and ve; a
+    ring of 4 to 2 slabs of 16 rows by the widest product; the head
+    weights). Both take two pe buffers where they fit, else one; the
+    stream layout does not change the figure."""
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    w, h, depth = packed.width, packed.view_width, packed.net_depth
+    p, v = (v2._pad16(x) for x in v2.enc_widths(
+        packed.encoder, packed.multires, packed.multires_views))
+    na = max(w, h)
+    if packed.compute_dtype == torch.float32 and not gp:
+        for npe in (2, 1):
+            for stages in range(FF_MAX_STAGES, 1, -1):
+                total = (stages * FF_SLAB * na * 4 + na * FF_LD * 4
+                         + npe * p * FF_LD * 4 + v * FF_LD * 4 + 4 * w
+                         + -(-12 * h // 16) * 16 + (2 * stages + 6) * 8)
+                if total <= SMEM_LIMIT:
+                    return total, stages, npe
+        return None
+    nb, pp = max(w // 64, -(-h // 64)), -(-p // 64)
+    bias = 4 * ((depth + 1) * w + -(-h // 64) * 64)
+    for npe in (2, 1):
+        for stages in (3, 2):
+            total = (stages * nb * FH_BOX + nb * FH_PANEL
+                     + npe * pp * FH_PANEL + FH_PANEL + bias
+                     + -(-2 * w // 16) * 16 + -(-6 * h // 16) * 16
+                     + (2 * stages + 6) * 8 + 20 * 12 + 16 * gp
+                     + (16 if gp else 0) + 1024)
+            if total <= SMEM_LIMIT:
+                return total, stages, npe
+    return None
+
+
 def pack_v1(weights: Sequence[torch.Tensor], net_depth: int, skips,
             multires: int, multires_views: int, compute_dtype,
             use_viewdirs: bool = True):
@@ -303,9 +353,10 @@ def v1_forward(packed, pts: torch.Tensor, views: torch.Tensor):
 def fwd_plan(packed, n: int) -> dict:
     """The walk that `fused_mlp_v1_fwd` (#12, #13) runs for n points of the
     v1 `packed`, decided by shapes alone (`fused_mlp_v1_fwd_plan`, the
-    eight slots of `fused_mlp_v2.PLAN_SLOTS`): in bf16 at #1's shapes the
-    Hopper walk that #10 runs; a skip into the heads, the output head, P >
-    128 and fp32 keep `mlp_fwd.cuh`'s walk. Needs the card."""
+    eight slots of `fused_mlp_v2.PLAN_SLOTS`): at #1's shapes the walk
+    that #10 runs (the Hopper walk in bf16, the fp32 walk in fp32); a skip
+    into the heads, the output head and P > 128 keep `mlp_fwd.cuh`'s walk.
+    Needs the card."""
     from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
 
     return v2.plan_dict(v2._entry(KERNEL, KERNEL + "_plan", 0, 8),

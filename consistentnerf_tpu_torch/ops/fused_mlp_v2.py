@@ -394,7 +394,7 @@ def fwd_launch(lib: str, symbol: str, packed: PackedMLP, pts, views,
     for name, t in (("pts", pts), ("views", views)):
         _check_stream(name, t, 3, n, dev, row)
     _check_weights(packed, dev)
-    check_tma_weights(packed)  # the Hopper walk's TMA, in bf16
+    check_tma_weights(packed)  # the walks' TMA / bulk-copy alignment
     c = packed.out_ch or 4
     out = torch.empty((n, c) if row else (c, n), dtype=torch.float32,
                       device=dev)
@@ -636,9 +636,14 @@ def check_tma_weights(packed: PackedMLP):
     the packed weights by TMA: the buffer's base and the row strides of its
     two weight maps (2 width and 2 view_width bytes) must be multiples of
     16 bytes. The fp32 level walk reads the planes `w3` so: their base,
-    the planes' stride (2 w.numel() bytes) and the same row strides."""
+    the planes' stride (2 w.numel() bytes) and the same row strides. The
+    fp32 forward walk (`csrc/fwd_f32.cuh`) reads the fp32 `w` by bulk
+    copies of whole slabs: its base must be 16-byte aligned."""
     if packed.compute_dtype == torch.bfloat16:
         base, stride = packed.w, 0
+    elif packed.w.data_ptr() % 16:
+        raise ValueError("the packed fp32 weights must be 16-byte aligned "
+                         "(the fp32 forward walk's bulk copies)")
     elif packed.w3 is not None:
         base, stride = packed.w3, 2 * packed.w.numel()
         if (packed.w3.dtype != torch.bfloat16
@@ -665,12 +670,18 @@ def check_planes(packed: PackedMLP):
 
 PLAN_SLOTS = ("hopper", "tile", "stages", "cluster", "smem_bytes",
               "blocks", "pe_buffers", "tiles")
+# Slot "hopper" of a forward plan: the walk that runs.
+WALK_TILE, WALK_BF16, WALK_F32 = 0, 1, 2
+WALK_NAMES = {WALK_TILE: "mlp_fwd.cuh's walk (fwd_tile)",
+              WALK_BF16: "the bf16 Hopper walk (fwd_hopper.cuh)",
+              WALK_F32: "the fp32 walk (fwd_f32.cuh)"}
 
 
 def plan_dict(fn, args) -> dict:
-    """A forward plan function's eight slots (`PLAN_SLOTS`): whether the
-    Hopper walk runs (1) or `mlp_fwd.cuh`'s walk (0), points a tile, ring
-    slots, cluster size, shared memory, blocks, pe buffers, tiles."""
+    """A forward plan function's eight slots (`PLAN_SLOTS`): the walk
+    that runs (`WALK_NAMES`: 0 `mlp_fwd.cuh`'s walk, 1 the bf16 Hopper
+    walk, 2 the fp32 walk), points a tile, ring slots, cluster size,
+    shared memory, blocks, pe buffers, tiles."""
     out = (ctypes.c_longlong * len(PLAN_SLOTS))()
     err = fn(*args, out)
     if err != 0:
@@ -681,7 +692,8 @@ def plan_dict(fn, args) -> dict:
 def fwd_plan(packed: PackedMLP, n: int, row: bool = False) -> dict:
     """The walk that kernel #1 (or, with `row`, #10: the same plan) runs
     for n points of `packed`, decided by shapes alone
-    (`fused_mlp_fwd_plan`); needs the card."""
+    (`fused_mlp_fwd_plan`; `plan_dict`: in bf16 the Hopper walk, in fp32
+    the fp32 walk, at widths 64-256); needs the card."""
     return plan_dict(_entry(KERNEL, "fused_mlp_fwd_plan", 0, 8),
                      (n, *_cfg_ints(packed), int(row)))
 

@@ -317,23 +317,9 @@ def render_smem_bytes(packed: "v2.PackedMLP", seg: int):
     groups of `render_group(seg)` points, as `csrc/fwd_hopper.cuh::FhSmem`
     lays it out, with `fh_plan`'s choice (two pe buffers, else one; a
     3-slot weight ring, else 2): (bytes, ring slots, pe buffers), or None
-    where nothing fits `fused_mlp.SMEM_LIMIT` (the old kernel runs)."""
-    w, h, depth = packed.width, packed.width // 2, packed.net_depth
-    p = v2._pad16(v2.enc_widths("pe", packed.multires,
-                                packed.multires_views)[0])
-    na, pp = max(w // 64, -(-h // 64)), -(-p // 64)
-    gp = render_group(seg)[0]
-    panel, box = FH_TILE * 128, 8192
-    bias = 4 * ((depth + 1) * w + -(-h // 64) * 64)
-    for npe in (2, 1):
-        for stages in (3, 2):
-            total = (stages * na * box + na * panel + npe * pp * panel
-                     + panel + bias + -(-2 * w // 16) * 16
-                     + -(-6 * h // 16) * 16 + (2 * stages + 6) * 8
-                     + 20 * 12 + 16 * gp + 16 + 1024)
-            if total <= fm.SMEM_LIMIT:
-                return total, stages, npe
-    return None
+    where nothing fits `fused_mlp.SMEM_LIMIT` (the old kernel runs);
+    `fused_mlp.fwd_walk_smem_bytes` with the group."""
+    return fm.fwd_walk_smem_bytes(packed, render_group(seg)[0])
 
 
 def render_plan(packed: "v2.PackedMLP", n_rays: int, seg: int) -> dict:

@@ -1324,16 +1324,16 @@ def test_v1_kernels_match_plain(cuda_device, shape, dtype):
 def test_v1_forward_runs_10s_walk_at_its_shapes(cuda_device, n):
     """At 8x256 / multires 10+4 in bf16, #12 and #13 plan and run #10's
     instance of the Hopper walk: #10's plan, #10's bits on the same points
-    (and #1's, transposed), and a repeat's bits; fp32 keeps mlp_fwd.cuh's
-    walk."""
+    (and #1's, transposed), and a repeat's bits; in fp32 they plan #10's
+    instance of the fp32 walk (test_v1_forward_runs_10s_fp32_walk)."""
     flat = _v1_flat(*V1_SHAPES["depth8"], cuda_device)
     kw = dict(net_depth=8, skips=(4,), multires=10, multires_views=4)
     packed1 = fm.pack_v1(flat, compute_dtype="bfloat16", **kw)
     packed = v2.pack(flat, compute_dtype="bfloat16", **kw)
     assert fm.fwd_plan(packed1, n) == v2.fwd_plan(packed, n, row=True)
-    assert fm.fwd_plan(packed1, n)["hopper"] == 1
+    assert fm.fwd_plan(packed1, n)["hopper"] == v2.WALK_BF16
     assert fm.fwd_plan(fm.pack_v1(flat, compute_dtype="float32", **kw),
-                       n)["hopper"] == 0
+                       n)["hopper"] == v2.WALK_F32
     pts_T, views_T = _inputs(n, cuda_device)
     pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
     r10 = v2.fwd(packed, pts, views, compute_dtype="bfloat16", **kw)
@@ -1491,29 +1491,189 @@ def test_hopper_walks_repeat_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_fwd_plans_pick_the_walk_by_shape(cuda_device):
-    """The plans take the Hopper walk at the flagship shapes, for #1 and
-    #6 and their row-major twins #10 and #15 alike, and mlp_fwd.cuh's
-    walk in fp32 and at width 32."""
+    """The plans take the bf16 Hopper walk at the flagship shapes in bf16
+    and the fp32 walk (csrc/fwd_f32.cuh) in fp32, for #1 and #6 and their
+    row-major twins #10 and #15 alike, with the shared memory of
+    `fused_mlp.fwd_walk_smem_bytes`; mlp_fwd.cuh's walk at width 32 in
+    either dtype."""
     n = 8192 * 192
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     flat = _mlp_flat(256, cuda_device)
     bf = v2.pack(flat, 8, SKIPS, MR, MV, "bfloat16")
     plan = v2.fwd_plan(bf, n)
-    assert plan["hopper"] == 1 and plan["tile"] == 128
-    assert plan["blocks"] == min(torch.cuda.get_device_properties(
-        cuda_device).multi_processor_count, plan["tiles"])
+    assert plan["hopper"] == v2.WALK_BF16 and plan["tile"] == 128
+    assert plan["blocks"] == min(sms, plan["tiles"])
     assert plan["tiles"] == n // 128 and plan["stages"] >= 2
-    assert v2.fwd_plan(v2.pack(flat, 8, SKIPS, MR, MV, "float32"),
-                       n)["hopper"] == 0
-    assert v2.fwd_plan(v2.pack(_mlp_flat(32, cuda_device), 8, SKIPS, MR, MV,
-                               "bfloat16"), n)["hopper"] == 0
+    f32 = v2.pack(flat, 8, SKIPS, MR, MV, "float32")
+    plan32 = v2.fwd_plan(f32, n)
+    assert plan32["hopper"] == v2.WALK_F32 and plan32["tile"] == 64
+    assert plan32["blocks"] == min(sms, plan32["tiles"])
+    assert plan32["tiles"] == n // 64
+    assert (plan32["smem_bytes"], plan32["stages"], plan32["pe_buffers"]) \
+        == fm.fwd_walk_smem_bytes(f32)
+    assert v2.fwd_plan(f32, n, row=True) == plan32
+    for dtype in ("bfloat16", "float32"):
+        assert v2.fwd_plan(v2.pack(_mlp_flat(32, cuda_device), 8, SKIPS, MR,
+                                   MV, dtype), n)["hopper"] == v2.WALK_TILE
     assert v2.fwd_plan(bf, n, row=True) == plan
     mflat = _mip_flat(256, cuda_device)
     mbf = fmip.pack(mflat, 8, 16, "bfloat16")
-    assert fmip.fwd_plan(mbf, 8192 * 96)["hopper"] == 1
-    assert fmip.fwd_plan(fmip.pack(mflat, 8, 16, "float32"),
-                         8192 * 96)["hopper"] == 0
+    assert fmip.fwd_plan(mbf, 8192 * 96)["hopper"] == v2.WALK_BF16
+    m32 = fmip.pack(mflat, 8, 16, "float32")
+    mplan32 = fmip.fwd_plan(m32, 8192 * 96)
+    assert mplan32["hopper"] == v2.WALK_F32
+    assert (mplan32["smem_bytes"], mplan32["stages"],
+            mplan32["pe_buffers"]) == fm.fwd_walk_smem_bytes(m32)
+    assert fmip.fwd_plan(m32, 8192 * 96, row=True) == mplan32
     assert fmip.fwd_plan(mbf, 8192 * 96, row=True) == fmip.fwd_plan(
         mbf, 8192 * 96)
+
+
+# ------------------ the fp32 walk of #1 and #6 (fwd_f32.cuh) --------------
+
+# Ragged sizes of the 64-point tiles: one point, a tile less one, a tile
+# and one, and more tiles than the card has blocks (the persistent loop).
+RAGGED_F32_N = (1, 63, 65, 300 * 64 - 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
+@pytest.mark.parametrize("n", RAGGED_F32_N)
+def test_fp32_walk_matches_plain_at_ragged_sizes(cuda_device, width, n):
+    """#1 in fp32 runs the fp32 walk at widths 64-256: within 1e-4 of
+    mean |plain| of its plain version at ragged sizes, a second launch's
+    bits, and bit for bit its row-major twin #10 (the same walk under the
+    row-major layout)."""
+    packed = v2.pack(_mlp_flat(width, cuda_device), 8, SKIPS, MR, MV,
+                     "float32")
+    assert v2.fwd_plan(packed, n)["hopper"] == v2.WALK_F32
+    pts_T, views_T = _inputs(n, cuda_device)
+    before = v2.launches
+    got = v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV, "float32")
+    again = v2.fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV, "float32")
+    want = v2.plain_fwd_T(packed, pts_T, views_T, 8, SKIPS, MR, MV,
+                          "float32")
+    twin = v2.fwd(packed, pts_T.T.contiguous(), views_T.T.contiguous(), 8,
+                  SKIPS, MR, MV, "float32")
+    torch.cuda.synchronize()
+    assert v2.launches == before + 2
+    assert got.shape == (4, n) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[
+        "float32"]
+    assert torch.equal(got, again) and torch.equal(got, twin.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
+@pytest.mark.parametrize("n", RAGGED_F32_N)
+def test_fp32_mip_walk_matches_plain_at_ragged_sizes(cuda_device, width,
+                                                     n):
+    """#6 in fp32 on the fp32 walk at widths 64-256 (at 64 and 128 its
+    128-wide view layer is as wide or wider than the trunk), 16 IPE
+    frequencies: within 1e-4 of its plain version, a repeat's bits, and
+    bit for bit its row-major twin #15."""
+    packed = fmip.pack(_mip_flat(width, cuda_device), 8, 16, "float32")
+    assert fmip.fwd_plan(packed, n)["hopper"] == v2.WALK_F32
+    streams = _mip_inputs(n, cuda_device)
+    got = fmip.fwd_T(packed, *streams, 8, 16, "float32")
+    again = fmip.fwd_T(packed, *streams, 8, 16, "float32")
+    want = fmip.plain_fwd_T(packed, *streams, 8, 16, "float32")
+    twin = fmip.fwd(packed, *(x.T.contiguous() for x in streams), 8, 16,
+                    "float32")
+    torch.cuda.synchronize()
+    assert got.shape == (4, n) and torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().mean()).item() < TOL[
+        "float32"]
+    assert torch.equal(got, again) and torch.equal(got, twin.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 300 * 64 - 17])
+def test_v1_forward_runs_10s_fp32_walk(cuda_device, n):
+    """In fp32 at 8x256 / multires 10+4, #12 and #13 plan and run #10's
+    instance of the fp32 walk: #10's plan and bits, a repeat's bits."""
+    flat = _v1_flat(*V1_SHAPES["depth8"], cuda_device)
+    kw = dict(net_depth=8, skips=(4,), multires=10, multires_views=4)
+    packed1 = fm.pack_v1(flat, compute_dtype="float32", **kw)
+    packed = v2.pack(flat, compute_dtype="float32", **kw)
+    assert fm.fwd_plan(packed1, n) == v2.fwd_plan(packed, n, row=True)
+    pts_T, views_T = _inputs(n, cuda_device)
+    pts, views = pts_T.T.contiguous(), views_T.T.contiguous()
+    r10 = v2.fwd(packed, pts, views, compute_dtype="float32", **kw)
+    r12 = fm.fused_mlp(packed1, pts, views, compute_dtype="float32", **kw)
+    r13 = fmt.forward(packed1, pts, views, compute_dtype="float32", **kw)
+    again = fm.fused_mlp(packed1, pts, views, compute_dtype="float32", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(r12, r10) and torch.equal(r13, r10)
+    assert torch.equal(again, r12)
+
+
+def _encode_check(streams, multires, multires_views, ipe):
+    """`fwd_f32_encode_check` on [3, n] streams: (fwd_tile's encodings,
+    the fp32 walk's), each [tiles, P + V, 64]."""
+    n = streams[0].shape[1]
+    p = 6 * multires if ipe else 3 * (1 + 2 * multires)
+    cols = v2._pad16(p) + v2._pad16(3 * (1 + 2 * multires_views))
+    out = torch.full((2, -(-n // 64), cols, 64), float("nan"),
+                     device=streams[0].device)
+    err = v2._entry(v2.KERNEL, "fwd_f32_encode_check", 4, 4)(
+        streams[0].data_ptr(), streams[1].data_ptr(), streams[2].data_ptr(),
+        out.data_ptr(), n, multires, multires_views, int(ipe),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return out[0], out[1]
+
+
+@pytest.mark.cuda
+def test_fp32_walk_encodes_as_fwd_tile(cuda_device):
+    """The fp32 walk's encoders (fwd_hopper.cuh's FhEnc, an fp32 store)
+    give mlp_common.cuh's encodings bit for bit: the NeRF PE at multires
+    10 / 4 (sincosf against sinf and cosf) and the IPE at 16 frequencies
+    with the mip view encoding (fh_safe_sin against safe_sin's fmodf,
+    arguments far past 100 pi, exact multiples of 100 pi, signed zeros,
+    huge variances)."""
+    g = torch.Generator().manual_seed(5)
+    n = 64 * 40 - 9
+    pts = (torch.rand(3, n, generator=g) - 0.5) * 200
+    t = torch.tensor(314.15926535897932, dtype=torch.float32)
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 1e-30, -3e-39])
+    pts[0, :6] = special
+    pts[1, :32] = t * torch.arange(-16, 16, dtype=torch.float32) / 2 ** (
+        torch.arange(32) % 16).float()
+    covs = torch.rand(3, n, generator=g) ** 4 * torch.tensor(
+        [1e-4, 1.0, 1e3])[:, None]
+    views = torch.randn(3, n, generator=g) * 40
+    streams = [x.contiguous().to(cuda_device) for x in (pts, covs, views)]
+    for mr, mv, ipe in ((10, 4, False), (16, 4, True)):
+        old, new = _encode_check(streams, mr, mv, ipe)
+        assert torch.isfinite(old).all()
+        assert torch.equal(old.view(torch.int32), new.view(torch.int32)), \
+            (mr, ipe, (old != new).sum().item())
+
+
+@pytest.mark.cuda
+def test_fp32_walk_refuses_misaligned_weights(cuda_device):
+    """The fp32 walk reads the packed fp32 weights by bulk copies, which
+    need a 16-byte aligned base: the wrappers of #1 and #6 raise on one
+    that is not."""
+    import dataclasses
+
+    def shifted(packed):
+        buf = torch.empty(packed.w.numel() + 1, dtype=packed.w.dtype,
+                          device=packed.w.device)
+        buf[1:].copy_(packed.w)
+        return dataclasses.replace(packed, w=buf[1:])
+
+    bad = shifted(v2.pack(_mlp_flat(256, cuda_device), 8, SKIPS, MR, MV,
+                          "float32"))
+    assert bad.w.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        v2.fwd_T(bad, *_inputs(300, cuda_device), 8, SKIPS, MR, MV,
+                 "float32")
+    mbad = shifted(fmip.pack(_mip_flat(256, cuda_device), 8, 16, "float32"))
+    with pytest.raises(ValueError, match="aligned"):
+        fmip.fwd_T(mbad, *_mip_inputs(300, cuda_device), 8, 16, "float32")
 
 
 @pytest.mark.cuda

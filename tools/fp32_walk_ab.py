@@ -1,15 +1,27 @@
 #!/usr/bin/env python3
-"""fp32 times of the level-walk train kernels and of the fp32 preset step,
-for this tree and, optionally, an earlier one, on one card:
+"""fp32 times of the forward kernels, of the level-walk train kernels and
+of the fp32 preset steps, for this tree and, optionally, an earlier one,
+on one card:
 
-    python3 tools/fp32_walk_ab.py [--parent DIR] [--out FILE]
+    python3 tools/fp32_walk_ab.py [--parent DIR] [--part all|fwd|kernels]
+                                  [--out FILE]
 
 Each tree runs in a process of its own that imports the port from that
 tree's root and builds its kernels there (`build/torch_kernels/` under
 it). With `--parent DIR` the trees take turns: parent, this tree, this
 tree, parent. Each process times, with CUDA events over back-to-back
-launches on seeded inputs and weights:
+launches on seeded inputs and weights (`--part fwd`: the forwards only;
+`kernels`: every kernel row, no preset step):
 
+* #1 `fused_mlp_fwd` in fp32 and bf16 at the vanilla presets' patch
+  shapes (4x16x16 rays x 192 / 64 samples: 196,608 / 65,536 points) and
+  at the fine render chunk (8192 rays x 192: 1,572,864), and #6
+  `fused_mip_fwd` at the mip presets' patch and TV-norm shapes (1024 /
+  2048 rays x 96: 98,304 / 196,608) and at the render chunk (8192 x 96:
+  786,432), 8x256, multires 10 / 4 and 16 IPE frequencies, with each
+  launch's plan (the walk: 0 `fwd_tile`, 1 the bf16 Hopper walk, 2 the
+  fp32 walk), a digest of its outputs' bits and the plain fp32 version's
+  time on the same inputs;
 * #3 `onepass_level` and #2 `fused_mlp_bwd` in fp32 and bf16 at the
   vanilla presets' step shapes (4096 random rays x 192 / 64 samples;
   4x16x16 patch rays x 192 / 64: 786,432 / 262,144 / 196,608 / 65,536
@@ -40,7 +52,8 @@ launches on seeded inputs and weights:
   1024 data + 4x16x16 MiDaS patch rays and 2048 random-pose rays, 96 x
   2 samples) and mipnerf3_dtu_scan114 (the same without the TV norm's
   rays), on the procedural scene at DTU's 512x640 crop with 3 train
-  views and the random poses `cli/train.py` makes.
+  views and the random poses `cli/train.py` makes; each step's six
+  largest device-time rows by kernel (`split <case> step`).
 
 Bounds: the train FLOP a point of `chip_smoke.mlp_train_flops_per_point`
 over 67.0 TFLOP/s (fp32 on the CUDA cores) and over 989 / 6 = 164.8
@@ -161,7 +174,7 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def worker(tree: str, out: str) -> None:
+def worker(tree: str, out: str, part: str = "all") -> None:
     """One tree's numbers (see the module's docstring) into `out`."""
     sys.path.insert(0, tree)
     import ctypes
@@ -186,10 +199,64 @@ def worker(tree: str, out: str) -> None:
     fm.strict_fp32(dev)
     res = {"tree": tree, "card": card_text()}
     t0 = time.perf_counter()
-    _build.build_all([v2.BWD_KERNEL, op.KERNEL, fmip.BWD_KERNEL,
-                      op.MIP_KERNEL])
+    _build.build_all([v2.KERNEL, fmip.KERNEL] + ([] if part == "fwd" else [
+        v2.BWD_KERNEL, op.KERNEL, fmip.BWD_KERNEL, op.MIP_KERNEL]))
     res["build_s"] = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    res["kernels"] = rows
+
+    # ---- #1 and #6 at the presets' shapes ----
+    from consistentnerf_tpu_torch.models.mlp import NeRFMLP
+
+    torch.manual_seed(0)
+    nkw = dict(net_depth=8, skips=(4,), multires=10, multires_views=4)
+    nflat = [x.detach().to(dev) for x in fm.flatten_params(NeRFMLP().to(dev))]
+    fflat = [x.detach().to(dev) for x in
+             fmip.flatten_mip_params(MipMLP().to(dev))]
+
+    def unit(x):
+        return x / x.norm(dim=0, keepdim=True)
+
+    for dtype in ("float32", "bfloat16"):
+        packed = v2.pack(nflat, compute_dtype=dtype, **nkw)
+        for n, label in ((PATCH_RAYS * 192, "patch fine"),
+                         (PATCH_RAYS * 64, "patch coarse"),
+                         (8192 * 192, "fine chunk")):
+            pts = 4 * torch.rand((3, n), generator=gen, device=dev) - 2
+            views = unit(torch.randn((3, n), generator=gen, device=dev))
+
+            def run1(fn=v2.fwd_T):
+                return lambda: fn(packed, pts, views, compute_dtype=dtype,
+                                  **nkw)
+            row = rows[f"#1 {dtype} {label}"] = dict(
+                points=n, kind="fwd", ms=event_ms(run1(), 3),
+                plan=list(v2.fwd_plan(packed, n).values()),
+                bits=digest(run1()()))
+            if dtype == "float32":
+                row["plain_ms"] = event_ms(run1(v2.plain_fwd_T), 3)
+            del pts, views
+        mpacked = fmip.pack(fflat, 8, 16, dtype)
+        for n, label in ((MIP_PATCH_RAYS * MIP_S, "patch"),
+                         (MIP_RANDOM_RAYS * MIP_S, "random-pose"),
+                         (8192 * MIP_S, "render chunk")):
+            means = 3 * torch.rand((3, n), generator=gen, device=dev) - 1.5
+            covs = 1e-4 * torch.rand((3, n), generator=gen, device=dev)
+            views = unit(torch.randn((3, n), generator=gen, device=dev))
+
+            def run6(fn=fmip.fwd_T):
+                return lambda: fn(mpacked, means, covs, views, 8, 16, dtype)
+            row = rows[f"#6 {dtype} {label}"] = dict(
+                points=n, kind="mip fwd", ms=event_ms(run6(), 3),
+                plan=list(fmip.fwd_plan(mpacked, n).values()),
+                bits=digest(run6()()))
+            if dtype == "float32":
+                row["plain_ms"] = event_ms(run6(fmip.plain_fwd_T), 3)
+            del means, covs, views
+        torch.cuda.empty_cache()
+    if part == "fwd":
+        Path(out).write_text(json.dumps(res))
+        return
 
     def rays(n):
         o = torch.randn((n, 3), generator=gen, device=dev)
@@ -214,7 +281,6 @@ def worker(tree: str, out: str) -> None:
     plan_o, _ = op._kernel()
     plan_b = _build.load(v2.BWD_KERNEL).fused_mlp_bwd_plan
     plan_b.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rows = {}
     for dtype in ("float32", "bfloat16"):
         w = v2.pack(flat, compute_dtype=dtype, **kw)
         bf = int(dtype == "bfloat16")
@@ -341,7 +407,9 @@ def worker(tree: str, out: str) -> None:
                 del row
         del means, covs, views, g, margs
         torch.cuda.empty_cache()
-    res["kernels"] = rows
+    if part == "kernels":
+        Path(out).write_text(json.dumps(res))
+        return
 
     # ---- the lego_3view preset's fp32 step ----
     from torch.profiler import ProfilerActivity, profile
@@ -417,6 +485,10 @@ def worker(tree: str, out: str) -> None:
         dev_ms = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                      for e in prof.key_averages()) / 1e3
+        res[f"split {key} step"] = sorted(
+            [(e.key[:48], getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0)) / 1e3, e.count)
+             for e in prof.key_averages()], key=lambda r: -r[1])[:6]
         steps[key] = dict(
             preset=preset, dtype=scfg.compute_dtype,
             onepass=bool(scfg.use_onepass_train), rays=n_rays,
@@ -436,6 +508,9 @@ def main() -> None:
                     help="an earlier tree, timed in turns with this one")
     ap.add_argument("--out", default=str(REPO / "build" /
                                          "fp32_walk_ab.json"))
+    ap.add_argument("--part", default="all",
+                    choices=("all", "fwd", "kernels"),
+                    help="the forwards only, every kernel, or everything")
     ap.add_argument("--bounds", action="store_true",
                     help="print the fp32 bounds of every kernel row and "
                     "exit (no card)")
@@ -443,7 +518,7 @@ def main() -> None:
     ap.add_argument("--worker-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.worker_out)
+        worker(args.worker, args.worker_out, args.part)
         return
     sys.path.insert(0, str(REPO))
     import chip_smoke
@@ -467,24 +542,25 @@ def main() -> None:
         part = f"{args.out}.{i}"
         t0 = time.perf_counter()
         subprocess.run([sys.executable, __file__, "--worker", tree,
-                        "--worker-out", part], check=True)
+                        "--worker-out", part, "--part", args.part],
+                       check=True)
         run = json.loads(Path(part).read_text())
         run["tag"], run["wall_s"] = tag, time.perf_counter() - t0
         runs.append(run)
-    pp = {"vanilla": chip_smoke.mlp_train_flops_per_point(8, 256, (4,), 10,
-                                                          4),
-          "mip": chip_smoke.mlp_train_flops_per_point(
-              8, 256, (4,), 16, 4, ipe=True, view_width=128)}
+    pp = flop_table(chip_smoke)
     print(f"card: {runs[0]['card']}")
-    print(f"train FLOP a point: vanilla {pp['vanilla']}, mip {pp['mip']}")
+    print("FLOP a point: " + ", ".join(f"{k} {v}" for k, v in pp.items()))
     for name in runs[0]["kernels"]:
         k = runs[0]["kernels"][name]
-        flop = k["points"] * pp["mip" if name.split()[0] in (
-            "#5", "#7", "#16") else "vanilla"]
+        flop = k["points"] * pp[k.get("kind") or ("mip train" if name.split(
+        )[0] in ("#5", "#7", "#16") else "train")]
         times = "; ".join(f"{r['tag']} {r['kernels'][name]['ms']:.3f}"
                           for r in runs)
-        slot8 = {r["tag"]: r["kernels"][name].get("plan", [None] * 9)[8]
-                 for r in runs}
+        # The level walks' plan slot 8 (1: the level walk), the forwards'
+        # slot 0 (the walk).
+        slot = 0 if k.get("kind") else 8
+        walk = {r["tag"]: r["kernels"][name].get("plan", [None] * 9)[slot]
+                for r in runs}
         plain = "; ".join(f"{r['tag']} {r['kernels'][name]['plain_ms']:.3f}"
                           for r in runs if "plain_ms" in r["kernels"][name])
         bits = {tag: {r["kernels"][name].get("bits") for r in runs
@@ -495,11 +571,11 @@ def main() -> None:
         print(f"{name} (N={k['points']}): {times} ms/launch; bounds "
               f"{1e3 * flop / PEAK_FP32:.3f} (CUDA cores) / "
               f"{1e3 * flop / PEAK_SIX:.3f} (six-product tensor) ms; "
-              f"plan slot 8 {slot8}"
+              f"plan slot {slot} {walk}"
               + (f"; plain version {plain} ms" if plain else "")
               + f"; the same bits (each tree's runs; across trees): "
               f"{same}")
-    for key in runs[0]["steps"]:
+    for key in runs[0].get("steps", {}):
         for r in runs:
             s = r["steps"][key]
             print(f"{s['preset']} step ({key}, {s['dtype']}, one-pass "
@@ -509,7 +585,10 @@ def main() -> None:
                   f"{s['peak_gib']:.2f} GiB, loss {s['loss']:.5f}")
     for r in runs:
         for key in ("split #3 fine fp32", "split #2 fine fp32",
-                    "split #5 fp32", "split #7 fp32"):
+                    "split #5 fp32", "split #7 fp32") + tuple(
+                        f"split {k} step" for k in r.get("steps", {})):
+            if key not in r:
+                continue
             print(f"{key} [{r['tag']}]: " + "; ".join(
                 f"{k} {ms:.3f} ms x{c}" for k, ms, c in r[key]))
         print(f"[{r['tag']}] build {r['build_s']:.1f} s, process "

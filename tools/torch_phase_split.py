@@ -7,6 +7,7 @@ forwards #1, #10, #6 and #15 spend their time, on one CUDA card.
     python3 tools/torch_phase_split.py level    # #2, #3, #5, #7, #11, #14, #16
     python3 tools/torch_phase_split.py fwd      # #1, #10, #6, #15 and 6n
     python3 tools/torch_phase_split.py fp32     # #3, #2, #5, #7 in fp32
+    python3 tools/torch_phase_split.py fwd32    # #1, #6 in fp32
 
 Builds `csrc/onepass_level.cu` (#3), `csrc/onepass_mip_level.cu` (#5),
 `csrc/fused_mlp_bwd.cu` (#2 and #11), `csrc/fused_mip_bwd.cu` (#7 and
@@ -54,7 +55,17 @@ masks kept. The fp32 part builds `csrc/onepass_level.cu`,
 regnerf3 presets' data rays (1024 x 96) and #7 at their MiDaS patch rays
 (1024 x 96) (the fp32 walk: its forward on the CUDA cores, its backward
 and dW GEMM as six bf16 products; "forward" holds the forward, the heads
-and the compositing). Prints the
+and the compositing). The fwd32 part builds `csrc/fused_mlp_fwd.cu` and
+`csrc/fused_mip_fwd.cu` three times, as they are, without the heads
+and without the heads and the encoding, from copies of
+`csrc/fwd_f32.cuh` (the fp32 walk of #1 and #6) with its heads guarded
+and of `csrc/fwd_hopper.cuh` with the encoders' feature computations
+guarded (the fp32 walk runs them with an fp32 store), and times fp32 #1
+at the fine render chunk and the vanilla presets' fine patch level (1024
+x 192) and fp32 #6 at the render chunk and the mip presets' patch rays
+(1024 x 96): the heads', the encoding's (what the encoder warps take from
+the consumers) and the rest's (products, epilogues, barriers and the
+weight stream) times. Prints the
 card's name and power limit beside the times. Imports torch and the port
 only.
 """
@@ -171,6 +182,23 @@ def patched_header(src: str) -> str:
         "__device__ inline float rnd(")
 
 
+# The fp32 forward walk's guarded regions (csrc/fwd_f32.cuh), under the
+# forward part's macros: its two heads; its encoders are fwd_hopper.cuh's
+# (FWD_REGIONS' encode region). Its epilogue stays: without it the
+# compiler drops the fma chains whose results nothing stores (the bf16
+# walk's wgmma products are volatile asm), so the fp32 split has three
+# variants.
+F32_HEADER = "fwd_f32.cuh"
+F32_REGIONS = (
+    ("    // ---- alpha head ----", "    // ---- end of the alpha head ----",
+     "PHASE_NO_HEADS", 1),
+    ("    // ---- rgb head ----", "    // ---- end of the rgb head ----",
+     "PHASE_NO_HEADS", 1),
+)
+F32_VARIANTS = {name: FWD_VARIANTS[name]
+                for name in ("full", "no_heads", "no_encode")}
+
+
 def patched_sources(csrc: Path) -> dict:
     """File name -> text of the phase-split build: every header (the level
     header patched) and the four kernels on it, which must include it."""
@@ -184,14 +212,16 @@ def patched_sources(csrc: Path) -> dict:
     return out
 
 
-def patched_fwd_header(src: str, regions=FWD_REGIONS) -> str:
+def patched_fwd_header(src: str, regions=FWD_REGIONS,
+                       header: str = FWD_HEADER) -> str:
     """fwd_hopper.cuh with #ifndef guards around the heads, the encoding
-    and the epilogue (or around 6n's `regions`)."""
+    and the epilogue (or around 6n's `regions`; or fwd_f32.cuh, `header`,
+    around F32_REGIONS)."""
     for first, last, macro, count in regions:
         src = _replace(src, first + "\n", f"#ifndef {macro}\n{first}\n",
-                       count, FWD_HEADER)
+                       count, header)
         src = _replace(src, last + "\n", f"{last}\n#endif\n", count,
-                       FWD_HEADER)
+                       header)
     return src
 
 
@@ -207,6 +237,19 @@ def patched_fwd_sources(csrc: Path, normals: bool = False) -> dict:
         if f'#include "{FWD_HEADER}"' not in text:
             raise ValueError(f"{name} does not include {FWD_HEADER}")
         out[name] = text
+    return out
+
+
+def patched_f32_sources(csrc: Path) -> dict:
+    """File name -> text of the fp32 forward phase-split build: the
+    forward build's (`patched_fwd_sources`), with fwd_f32.cuh's heads
+    guarded too; both forward kernels include it."""
+    out = patched_fwd_sources(csrc)
+    out[F32_HEADER] = patched_fwd_header(out[F32_HEADER], F32_REGIONS,
+                                         F32_HEADER)
+    for name in FWD_SOURCES:
+        if f'#include "{F32_HEADER}"' not in out[name]:
+            raise ValueError(f"{name} does not include {F32_HEADER}")
     return out
 
 
@@ -333,6 +376,80 @@ def fwd_main() -> None:
           f"{t6n['no_jacobian'] - t6n['forward']:.3f} ms, forward (with "
           f"the masks) {t6n['forward']:.3f} ms, of {t6n['full']:.3f} ms",
           flush=True)
+
+
+def fwd32_main() -> None:
+    """Times fp32 #1 and #6 in the three fp32 variants."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+
+    from consistentnerf_tpu_torch.models.mlp import MipMLP, NeRFMLP
+    from consistentnerf_tpu_torch.ops import _build
+    from consistentnerf_tpu_torch.ops import fused_mip as fmip
+    from consistentnerf_tpu_torch.ops import fused_mlp as fm
+    from consistentnerf_tpu_torch.ops import fused_mlp_v2 as v2
+
+    card = _card()
+    csrc = REPO / "build" / "phase_split" / "fwd32_csrc"
+    csrc.mkdir(parents=True, exist_ok=True)
+    for name, text in patched_f32_sources(SOURCE_DIR).items():
+        (csrc / name).write_text(text)
+    dev = torch.device("cuda")
+    fm.strict_fp32(dev)
+    g = torch.Generator().manual_seed(0)
+    mlp = NeRFMLP()
+    mlp.reset_parameters(g)
+    packed = v2.pack([w.detach().to(dev) for w in fm.flatten_params(mlp)],
+                     8, (4,), 10, 4, "float32")
+    mip = MipMLP(net_depth=8, net_width=256)
+    mip.reset_parameters(g)
+    mpacked = fmip.pack([w.detach().to(dev)
+                         for w in fmip.flatten_mip_params(mip)], 8, 16,
+                        "float32")
+
+    def unit(n):
+        v = torch.randn(3, n, generator=g)
+        return (v / v.norm(dim=0, keepdim=True)).to(dev)
+
+    def nerf(n):
+        pts = (torch.rand(3, n, generator=g) * 4 - 2).to(dev)
+        views = unit(n)
+        return lambda: v2.fwd_T(packed, pts, views, 8, (4,), 10, 4,
+                                "float32")
+
+    def mipnerf(n):
+        means = (torch.rand(3, n, generator=g) * 3 - 1.5).to(dev)
+        covs = (torch.rand(3, n, generator=g) * 1e-4).to(dev)
+        views = unit(n)
+        return lambda: fmip.fwd_T(mpacked, means, covs, views, 8, 16,
+                                  "float32")
+    cases = {
+        f"#1 fine chunk ({8192 * 192} points)": nerf(8192 * 192),
+        f"#1 fine patch level ({1024 * 192} points)": nerf(1024 * 192),
+        f"#6 chunk ({8192 * 96} points)": mipnerf(8192 * 96),
+        f"#6 patch rays ({1024 * 96} points)": mipnerf(1024 * 96),
+    }
+    base_flags = list(_build.NVCC_FLAGS)
+    _build.CSRC = csrc
+    times = {case: {} for case in cases}
+    for name, flags in F32_VARIANTS.items():
+        _build.NVCC_FLAGS = base_flags + flags
+        _build.BUILD_DIR = REPO / "build" / "phase_split" / f"fwd32_{name}"
+        _build._LIBS.clear()
+        v2._entry.cache_clear()
+        _build.build_all([s[:-3] for s in FWD_SOURCES])
+        for case, run in cases.items():
+            times[case][name] = _time(run)
+            print(f"[{card}] {case} fp32 {name}: {times[case][name]:.3f} "
+                  "ms", flush=True)
+    for case, t_ in times.items():
+        print(f"[{card}] {case}, fp32: heads "
+              f"{t_['full'] - t_['no_heads']:.3f} ms, encoding (not hidden) "
+              f"{t_['no_heads'] - t_['no_encode']:.3f} ms, products, "
+              f"epilogues and the weight stream {t_['no_encode']:.3f} ms, "
+              f"of {t_['full']:.3f} ms", flush=True)
 
 
 def main() -> None:
@@ -579,13 +696,14 @@ def fp32_main() -> None:
 
 if __name__ == "__main__":
     part = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if part not in ("all", "level", "fwd", "fp32"):
-        sys.exit("usage: torch_phase_split.py [level|fwd|fp32]")
+    if part not in ("all", "level", "fwd", "fp32", "fwd32"):
+        sys.exit("usage: torch_phase_split.py [level|fwd|fp32|fwd32]")
     from consistentnerf_tpu_torch.ops import _build
 
     saved = (_build.CSRC, list(_build.NVCC_FLAGS), _build.BUILD_DIR)
     for run_part, fn in (("level", main), ("fwd", fwd_main),
-                         ("fp32", fp32_main)):
-        if part == run_part or (part == "all" and run_part != "fp32"):
+                         ("fp32", fp32_main), ("fwd32", fwd32_main)):
+        if part == run_part or (part == "all" and run_part in ("level",
+                                                                "fwd")):
             fn()
             _build.CSRC, _build.NVCC_FLAGS, _build.BUILD_DIR = saved
